@@ -1,0 +1,19 @@
+"""duckdb_imputation_tpu_torch — the PyTorch/CUDA port of duckdb_imputation_tpu.
+
+The JAX package `duckdb_imputation_tpu` stays the reference; this package
+re-implements it slice by slice in PyTorch, with a hand-written CUDA kernel
+for Hopper (sm_90a) wherever the JAX package has a Pallas kernel. It
+imports torch and never jax. Ported so far: the single-device MICE loops
+(`mice.device_round`) with the masked-Gram kernel (K1,
+`ring.kernels.sigma_pallas`) and the fused impute+aggregate kernel (K2,
+`ring.kernels.sigma_fused`).
+"""
+
+from .schema import FeatureSchema
+from .table import Table, from_numpy, from_reference
+from .mice import init_fill, run_mice_device
+
+__version__ = "0.1.0"
+
+__all__ = ["FeatureSchema", "Table", "from_numpy", "from_reference",
+           "init_fill", "run_mice_device"]

@@ -1,0 +1,192 @@
+"""K2: the fused impute+aggregate pass — one table pass per MICE column step.
+
+Counterpart of `fused_impute_aggregate` in
+`duckdb_imputation_tpu/ring/kernels/sigma_fused.py` (the Pallas kernels
+`_fused_impute_aggregate_v3` and `_fused_impute_aggregate_v2`). Per row:
+
+  1. score the previous column's model: R class scores (kind 'cat') or one
+     prediction (kind 'num'), from coefficients in sigma layout
+     w_full f32[P, R] plus intercept f32[R], added in f32;
+  2. 'cat': take the argmax, a tie going to the LOWEST class index;
+     'num': optionally add std·N(0, 1) noise;
+  3. write the new value where `null_imp` is set;
+  4. accumulate the row's UPDATED Z, weighted by `w_agg` (the next column's
+     observed mask), into the masked Gram.
+
+Returns (new_column, sigma). The inputs are not modified.
+
+The coefficients ride in unpacked: the JAX package's bf16 hi/lo `lhs`
+operand (pack_lhs) exists only for the TPU's matrix unit.
+
+Noise is one counter-based Philox4x32-10 draw keyed by the seed, with
+counter (global row, round, column), turned into N(0, 1) by Box-Muller.
+`philox_normal` computes it here with int64 torch ops masked to 32 bits;
+the CUDA kernel computes the same bits, so the two versions draw the same
+numbers up to float rounding in log and cos. This replaces both the Pallas
+PRNG and the JAX loop's integer-hash seed, and it exists for every schema.
+
+`fused_impute_aggregate` launches the CUDA kernel
+(`csrc/fused_impute_aggregate.cu`) for CUDA tensors and takes
+`fused_impute_aggregate_plain` only for CPU tensors.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ...schema import FeatureSchema
+from ..sum import class_argmax, class_score
+from . import _build
+from .sigma_pallas import masked_gram_cols_plain
+
+_MASK32 = 0xFFFFFFFF
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+_KINDS = {"cat": 0, "num": 1}
+
+
+def _mulhilo(m: int, c):
+    """(hi, lo) 32-bit halves of m·c for m, c < 2³², without overflowing
+    int64: m is split into 16-bit halves."""
+    p_lo = c * (m & 0xFFFF)
+    p_hi = c * (m >> 16)
+    t = p_lo + ((p_hi & 0xFFFF) << 16)
+    return (p_hi >> 16) + (t >> 32), t & _MASK32
+
+
+def philox4x32_10(ctr, key):
+    """Philox4x32-10 on int64 tensors (or ints) holding 32-bit words.
+    ctr: 4 words, key: 2 ints. Returns the 4 output words."""
+    c0, c1, c2, c3 = ctr
+    k0, k1 = key
+    for _ in range(10):
+        hi0, lo0 = _mulhilo(_PHILOX_M[0], c0)
+        hi1, lo1 = _mulhilo(_PHILOX_M[1], c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0 = (k0 + _PHILOX_W[0]) & _MASK32
+        k1 = (k1 + _PHILOX_W[1]) & _MASK32
+    return c0, c1, c2, c3
+
+
+def philox_normal(seed: int, round_: int, column: int, n: int,
+                  device=None) -> torch.Tensor:
+    """N(0, 1) f32[n], row r drawn from Philox4x32-10 with key = seed and
+    counter = (r, round, column): Box-Muller on the first two words, each
+    mapped to (0, 1] as ((bits >> 8) + 1)·2⁻²⁴."""
+    rows = torch.arange(n, dtype=torch.int64, device=device)
+    c0, c1, _, _ = philox4x32_10(
+        (rows & _MASK32, rows >> 32, round_ & _MASK32, column & _MASK32),
+        (seed & _MASK32, (seed >> 32) & _MASK32))
+    u1 = ((c0 >> 8) + 1).to(torch.float32) * 2.0 ** -24
+    u2 = ((c1 >> 8) + 1).to(torch.float32) * 2.0 ** -24
+    return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos((2.0 * math.pi) * u2)
+
+
+def _check_noise(noise, kind: str):
+    if noise is None:
+        return
+    if kind != "num":
+        raise ValueError("noise applies to numeric columns only")
+    seed, round_, _ = noise
+    if not (0 <= seed < 1 << 64 and 0 <= round_ < 1 << 32):
+        raise ValueError("noise seed must lie in [0, 2^64), round in "
+                         "[0, 2^32)")
+
+
+def fused_impute_aggregate_plain(x_cols, code_cols, null_imp, w_agg, w_full,
+                                 intercept, *, schema: FeatureSchema,
+                                 kind: str, imp_col: int, noise=None):
+    """Plain torch version of `fused_impute_aggregate`."""
+    _check_noise(noise, kind)
+    x_cols, code_cols = list(x_cols), list(code_cols)
+    if kind == "cat":
+        pred = class_argmax(w_full, intercept, x_cols, code_cols,
+                            schema=schema)
+        new = torch.where(null_imp, pred, code_cols[imp_col])
+        code_cols[imp_col] = new
+    else:
+        pred = class_score(w_full, intercept, 0, x_cols, code_cols,
+                           schema=schema)
+        if noise is not None:
+            seed, round_, std = noise
+            pred = pred + std * philox_normal(seed, round_, imp_col,
+                                              pred.shape[0], pred.device)
+        new = torch.where(null_imp, pred, x_cols[imp_col])
+        x_cols[imp_col] = new
+    return new, masked_gram_cols_plain(x_cols, code_cols, w_agg,
+                                       schema=schema)
+
+
+def fused_impute_aggregate(x_cols, code_cols, null_imp, w_agg, w_full,
+                           intercept, *, schema: FeatureSchema, kind: str,
+                           imp_col: int, noise=None):
+    """One fused pass. x_cols d × f32[n], code_cols c × i32[n]; null_imp
+    bool[n] (True = impute); w_agg f32[n]; w_full f32[P, R] (R = the
+    label's vocab size for 'cat', 1 for 'num'); intercept f32[R];
+    noise = (seed, round, std f32[1] tensor) or None, 'num' only.
+
+    Returns (new_column, sigma f32[P, P]): i32[n] for 'cat', f32[n] for
+    'num'. CUDA tensors launch the kernel (one launch counted in
+    `fused_impute_aggregate.launches`); CPU tensors take the plain
+    version."""
+    if kind not in _KINDS:
+        raise ValueError(f"kind must be 'cat' or 'num', got {kind!r}")
+    x_cols, code_cols = list(x_cols), list(code_cols)
+    if len(x_cols) != schema.num_cols or len(code_cols) != schema.cat_cols:
+        raise ValueError("column counts do not match the schema")
+    _check_noise(noise, kind)
+    std = None if noise is None else torch.as_tensor(noise[2]).reshape(1)
+    tensors = (x_cols + code_cols + [null_imp, w_agg, w_full, intercept]
+               + ([] if std is None else [std]))
+    if _build.on_cpu(tensors):
+        return fused_impute_aggregate_plain(
+            x_cols, code_cols, null_imp, w_agg, w_full, intercept,
+            schema=schema, kind=kind, imp_col=imp_col, noise=noise)
+    n = null_imp.shape[-1]
+    p = schema.sigma_size
+    _build.check_schema(schema, n)
+    if kind == "cat":
+        if not 0 <= imp_col < schema.cat_cols:
+            raise ValueError(f"imp_col {imp_col} is not a categorical column")
+        r = schema.cat_sizes[imp_col]
+    else:
+        if not 0 <= imp_col < schema.num_cols:
+            raise ValueError(f"imp_col {imp_col} is not a numeric column")
+        r = 1
+    device = _build.check_cuda(
+        tensors,
+        [(t, torch.float32, (n,), f"x_cols[{j}]")
+         for j, t in enumerate(x_cols)]
+        + [(t, torch.int32, (n,), f"code_cols[{j}]")
+           for j, t in enumerate(code_cols)]
+        + [(null_imp, torch.bool, (n,), "null_imp"),
+           (w_agg, torch.float32, (n,), "w_agg"),
+           (w_full, torch.float32, (p, r), "w_full"),
+           (intercept, torch.float32, (r,), "intercept")]
+        + ([] if std is None else [(std, torch.float32, (1,), "std")]))
+    lib = _build.load()
+    nblocks = _build.grid_blocks(n)
+    partial = torch.empty(lib.lib.dit_gram_entries(p) * nblocks,
+                          dtype=torch.float64, device=device)
+    sigma = torch.empty((p, p), dtype=torch.float32, device=device)
+    new = torch.empty(n, device=device,
+                      dtype=torch.int32 if kind == "cat" else torch.float32)
+    seed, round_ = (0, 0) if noise is None else noise[:2]
+    sizes = schema.cat_sizes
+    with torch.cuda.device(device):
+        rc = lib.lib.dit_fused_impute_aggregate(
+            _build.pointers(x_cols), len(x_cols), _build.pointers(code_cols),
+            _build.int_array(sizes), len(sizes), null_imp.data_ptr(),
+            w_agg.data_ptr(), w_full.data_ptr(), intercept.data_ptr(), r,
+            _KINDS[kind], imp_col, new.data_ptr(), int(noise is not None),
+            seed & _MASK32, (seed >> 32) & _MASK32, round_,
+            None if std is None else std.data_ptr(), n, p,
+            partial.data_ptr(), nblocks, sigma.data_ptr(),
+            torch.cuda.current_stream(device).cuda_stream)
+    _build.raise_on_error(lib, rc, "fused_impute_aggregate")
+    fused_impute_aggregate.launches += 1
+    return new, sigma
+
+
+fused_impute_aggregate.launches = 0

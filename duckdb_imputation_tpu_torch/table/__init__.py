@@ -1,0 +1,3 @@
+from .table import Table, from_numpy, from_reference
+
+__all__ = ["Table", "from_numpy", "from_reference"]
