@@ -3,10 +3,16 @@
 The JAX package `duckdb_imputation_tpu` stays the reference; this package
 re-implements it slice by slice in PyTorch, with a hand-written CUDA kernel
 for Hopper (sm_90a) wherever the JAX package has a Pallas kernel. It
-imports torch and never jax. Ported so far: the single-device MICE loops
-(`mice.device_round`) with the masked-Gram kernel (K1,
-`ring.kernels.sigma_pallas`) and the fused impute+aggregate kernel (K2,
-`ring.kernels.sigma_fused`).
+imports torch and never jax. Ported so far:
+
+- the single-device MICE loops (`mice.device_round`) with the masked-Gram
+  kernel (K1, `ring.kernels.sigma_pallas`) and the fused impute+aggregate
+  kernel (K2, `ring.kernels.sigma_fused`);
+- the classifier path: triples (`ring.triple`), grouped and NB
+  aggregation (`ring.sum`) over the grouped Gram kernels (K4 unsorted, K5
+  sorted, `ring.kernels.sigma_pallas_grouped`) and the NB sums kernel (K6,
+  `ring.kernels.nb_pallas`), device QDA/NB training and one-pass QDA
+  scoring (`models.device`, K3 in `ring.kernels.qda_pallas`).
 """
 
 from .schema import FeatureSchema

@@ -1,5 +1,6 @@
-// Shared device code of the masked-Gram kernels (masked_gram.cu and
-// fused_impute_aggregate.cu), for sm_90a, plain f32 on the CUDA cores.
+// Shared device code of the masked-Gram kernels (masked_gram.cu,
+// fused_impute_aggregate.cu and grouped_gram.cu), for sm_90a, plain f32
+// on the CUDA cores.
 //
 // Both kernels compute S = Zᵀ·diag(w)·Z with Z = [1 ‖ x ‖ onehot(codes)],
 // P = 1 + d + V, over per-column inputs, in the same deterministic scheme:
@@ -136,14 +137,14 @@ __device__ __forceinline__ void zero_row(float* zr, int PS) {
   for (int p = 0; p < PS; ++p) zr[p] = 0.0f;
 }
 
-// acc += Σ over this thread's rows of the staged chunk of (w·z[i0..i0+4))
+// acc += Σ over staged rows r0, r0 + G, ... below r1 of (w·z[i0..i0+4))
 // ⊗ z[j0..j0+4).
-__device__ __forceinline__ void accumulate_chunk(const float* zs,
-                                                 const float* ws,
-                                                 const Geom& gm, int i0,
-                                                 int j0, int g,
-                                                 float acc[16]) {
-  for (int r = g; r < kChunk; r += gm.G) {
+__device__ __forceinline__ void accumulate_rows(const float* zs,
+                                                const float* ws,
+                                                const Geom& gm, int i0,
+                                                int j0, int r0, int r1,
+                                                float acc[16]) {
+  for (int r = r0; r < r1; r += gm.G) {
     const float* zr = zs + r * gm.PS;
     const float w = ws[r];
     float a[4], b[4];
@@ -159,13 +160,25 @@ __device__ __forceinline__ void accumulate_chunk(const float* zs,
   }
 }
 
+// acc += Σ over this thread's rows of the staged chunk of (w·z[i0..i0+4))
+// ⊗ z[j0..j0+4).
+__device__ __forceinline__ void accumulate_chunk(const float* zs,
+                                                 const float* ws,
+                                                 const Geom& gm, int i0,
+                                                 int j0, int g,
+                                                 float acc[16]) {
+  accumulate_rows(zs, ws, gm, i0, j0, g, kChunk, acc);
+}
+
 // The block's row groups summed in f64, in group order, into
-// partial[e·gridDim + blockIdx]. `scratch` may alias the Z tile.
-__device__ __forceinline__ void write_block_partial(const float acc[16],
-                                                    bool active, int t,
-                                                    int g, float* scratch,
-                                                    const Geom& gm,
-                                                    double* partial) {
+// partial[e·stride + slot]. `scratch` may alias the Z tile.
+__device__ __forceinline__ void write_partial_at(const float acc[16],
+                                                 bool active, int t, int g,
+                                                 float* scratch,
+                                                 const Geom& gm,
+                                                 double* partial,
+                                                 int64_t stride,
+                                                 int64_t slot) {
   __syncthreads();
   if (active)
     for (int e = 0; e < 16; ++e) scratch[(g * gm.T + t) * 16 + e] = acc[e];
@@ -174,8 +187,18 @@ __device__ __forceinline__ void write_block_partial(const float acc[16],
   for (int e = threadIdx.x; e < E; e += blockDim.x) {
     double s = 0.0;
     for (int gg = 0; gg < gm.G; ++gg) s += scratch[gg * E + e];
-    partial[int64_t(e) * gridDim.x + blockIdx.x] = s;
+    partial[int64_t(e) * stride + slot] = s;
   }
+}
+
+// The same into partial[e·gridDim + blockIdx]: one partial per block.
+__device__ __forceinline__ void write_block_partial(const float acc[16],
+                                                    bool active, int t,
+                                                    int g, float* scratch,
+                                                    const Geom& gm,
+                                                    double* partial) {
+  write_partial_at(acc, active, t, g, scratch, gm, partial, gridDim.x,
+                   blockIdx.x);
 }
 
 // The Gram phase shared by both kernels: thread → (tile, row group).

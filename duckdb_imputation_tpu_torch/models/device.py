@@ -1,11 +1,21 @@
-"""Device-side trainers on the P×P sigma.
+"""Device-side trainers and batched predictors.
 
-Counterpart of `duckdb_imputation_tpu.models.device` for the MICE slice:
-the direct least-squares trainer that keeps a whole MICE column step
-(aggregate → train → predict → write-back) on the device. The GD trainer
+Counterpart of `duckdb_imputation_tpu.models.device`: the direct
+least-squares trainer that keeps a whole MICE column step (aggregate →
+train → predict → write-back) on the device, and the classifier path's
+QDA and naive-Bayes trainers and one-pass predictors. The GD trainer
 (`linreg_train_device`) is not ported yet.
+
+Two divergences from the JAX package, both fixes (ROADMAP Queue 3):
+`qda_train_device` takes the per-class SVD in f64 (JAX: f32 with the f64
+trainer's absolute 1e-9 cutoff, which keeps f32 rounding noise of a
+singular covariance and blows −quad up), and `qda_predict_device` factors
+−quad by a clamped symmetric eigendecomposition (JAX: Cholesky of
+−quad + 1e-12·I, NaN for the singular PSD −quad of a full one-hot schema).
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -46,3 +56,102 @@ def linreg_solve_device(sigma: torch.Tensor, *,
     coeff[keep] = lstsq_min_norm(a, b)
     coeff[label] = -1.0
     return coeff
+
+
+def qda_train_device(sigmas: torch.Tensor, tot, drop_d: int = 1):
+    """QDA from per-class sigmas f32[C, P, P], batched over classes.
+    Returns (quad f32[C, m, m], lin f32[C, m], intercept f32[C]) with the
+    reference's parameterization: −½cov⁻¹, cov⁻¹μ and −½μᵀcov⁻¹μ −
+    ½log pdet + log(N_c/N), m = P − drop_d.
+
+    The covariance, SVD pseudo-inverse (singular values ≤ 1e-9 cut) and
+    log-pseudo-determinant are taken in f64, the host trainer's arithmetic
+    (models/qda.py); a zero-count class gets μ = 0, cov = 0 and a −inf
+    intercept."""
+    sig = sigmas.to(torch.float64)
+    tot = torch.as_tensor(tot, dtype=torch.float64, device=sig.device)
+    n_c = sig[:, 0, 0]
+    n_safe = n_c.clamp(min=1.0)[:, None]
+    s = sig[:, drop_d:, drop_d:]
+    sv = sig[:, 0, drop_d:]
+    cov = (s - sv[:, :, None] * sv[:, None, :] / n_safe[..., None]) \
+        / n_safe[..., None]
+    u, svals, vt = torch.linalg.svd(cov)
+    keep = svals > 1e-9
+    inv_s = torch.where(keep, 1.0 / torch.where(keep, svals, 1.0), svals)
+    inva = (vt.transpose(-1, -2) * inv_s[:, None, :]) @ u.transpose(-1, -2)
+    logdet = torch.where(keep, torch.log(torch.where(keep, svals, 1.0)),
+                         0.0).sum(-1)
+    mu = sv / n_safe
+    lin = (inva @ mu[..., None])[..., 0]
+    intercept = (-0.5 * (mu * lin).sum(-1) - 0.5 * logdet
+                 + torch.log(n_c / tot))
+    return ((-0.5 * inva).to(torch.float32), lin.to(torch.float32),
+            intercept.to(torch.float32))
+
+
+def nb_train_device(n, lin, quad_diag, lin_cat):
+    """NB from batched NBAgg sections ([C], [C, d], [C, d], [C, V]):
+    returns (priors [C], mean [C, d], var [C, d], freqs [C, V])."""
+    tot = n.sum()
+    n_safe = n.clamp(min=1.0)[:, None]  # zero-count class guard
+    mean = lin / n_safe
+    var = quad_diag / n_safe - mean * mean
+    freqs = lin_cat / n_safe
+    return n / tot, mean, var, freqs
+
+
+PREDICT_METHODS = ("auto", "plain", "kernel")
+
+
+def qda_predict_device(quad, lin, intercept, x_num, codes, *, schema,
+                       method: str = "auto") -> torch.Tensor:
+    """Batched QDA scoring and argmax over every row, features z = [x_num ‖
+    onehot(codes)] of width m = P − 1: the class INDEX i32[n] of the first
+    maximum of zᵀ·quad_c·z + lin_c·z + b_c.
+
+    The scorer factors −quad_c = L_c·L_cᵀ by a clamped eigendecomposition
+    in f64 (`qda_scorers`). method: 'auto' (K3 for CUDA tensors, plain on
+    the CPU), 'plain' (`qda_predict_plain`) or 'kernel'
+    (`qda_predict_kernel`)."""
+    from ..ring.kernels.qda_pallas import (
+        qda_predict_kernel, qda_predict_plain, qda_scorers)
+
+    if method not in PREDICT_METHODS:
+        raise ValueError(f"method must be one of {PREDICT_METHODS}, "
+                         f"got {method!r}")
+    factor, lin, intercept = qda_scorers(quad, lin, intercept)
+    if method == "auto":
+        method = "kernel" if x_num.device.type == "cuda" else "plain"
+    predict = qda_predict_kernel if method == "kernel" else qda_predict_plain
+    return predict(factor, lin, intercept, x_num, codes, schema=schema)
+
+
+def nb_predict_device(priors, mean, var, freqs, x_num, codes, *, schema,
+                      method: str = "auto") -> torch.Tensor:
+    """Batched NB scoring and argmax: naive Bayes is QDA with a diagonal
+    quadratic form, so in log space
+
+        s_c = log prior_c + Σ_num [−(x−μ)²/2σ² − ½log(2πσ²)]
+                          + Σ_cat log freq_c[code]
+
+    maps onto quad = diag(−1/2σ²) over the numeric slots, lin = μ/σ² ‖
+    log freq, intercept = the x-free terms, and reuses qda_predict_device.
+    var gets the reference's +1e-9; a zero training frequency scores
+    −1e30, and a predict-time category outside the vocab contributes
+    nothing. Returns the class index i32[n]."""
+    d = schema.num_cols
+    m = schema.sigma_size - 1
+    var = var.to(torch.float32) + 1e-9
+    c_cls = priors.shape[0]
+    quad = torch.zeros((c_cls, m, m), dtype=torch.float32, device=var.device)
+    di = torch.arange(d, device=var.device)
+    quad[:, di, di] = -0.5 / var
+    log_freq = torch.where(freqs > 0.0, torch.log(freqs.clamp(min=1e-38)),
+                           -1e30)
+    lin = torch.cat([mean / var, log_freq], dim=1)
+    icpt = (torch.log(priors.clamp(min=1e-38))
+            - 0.5 * (mean * mean / var
+                     + torch.log(2.0 * math.pi * var)).sum(1))
+    return qda_predict_device(quad, lin, icpt, x_num, codes, schema=schema,
+                              method=method)

@@ -1,10 +1,11 @@
 """Build the package's CUDA kernels and bind them to torch through ctypes.
 
 The sources under `duckdb_imputation_tpu_torch/csrc/` are compiled by
-`nvcc` for sm_90a into one shared library with a plain C interface, at
-first use (never at import), into `build/kernels/` at the root of the
-checkout. The library's name carries a hash of the sources and flags, so
-an edit rebuilds and an unchanged tree loads the library already built.
+`nvcc` for sm_90a, one process per source, all started together, and
+linked into one shared library with a plain C interface, at first use
+(never at import), into `build/kernels/` at the root of the checkout. The
+library's name carries a hash of the sources and flags, so an edit
+rebuilds and an unchanged tree loads the library already built.
 
 The helpers below are what every kernel wrapper does around a launch:
 check the tensors, pass their pointers, size the grid, launch on torch's
@@ -27,16 +28,25 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("masked_gram.cu", "fused_impute_aggregate.cu")
+SOURCES = ("masked_gram.cu", "fused_impute_aggregate.cu", "grouped_gram.cu",
+           "nb_grouped_sums.cu", "qda_predict.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # Largest grid of the Gram kernels: about 8 resident 256-thread blocks on
 # each of an H100's 132 SMs. A function of n only, so a result does not
 # depend on the card it ran on.
 MAX_BLOCKS = 1024
-CHUNK_ROWS = 256  # rows a block stages per step (kChunk in gram_common.cuh)
-MAX_SIGMA_SIZE = 88  # kMaxP: every thread of a block owns one 4x4 tile
-MAX_COLS = 64        # kMaxCols, numeric and categorical each
+# The kernels' limits. The sources under csrc/ fix each one as the C++
+# constant named beside it, and each value here must equal that constant:
+# the checks below raise ValueError before a launch the kernel would refuse.
+CHUNK_ROWS = 256     # kChunk (gram_common.cuh): rows a block stages a step
+MAX_SIGMA_SIZE = 88  # kMaxP (gram_common.cuh): one 4x4 tile a thread
+MAX_COLS = 64        # kMaxCols (gram_common.cuh), numeric and categorical
+MAX_UNSORTED_GROUPS = 8  # kMaxUnsortedGroups (grouped_gram.cu): K4's tiles
+MAX_NB_GROUPS = 32       # kMaxNbGroups (nb_grouped_sums.cu): K6 per launch
+MAX_NB_FEATURES = 256    # kThreads (gram_common.cuh): K6, F = 1 + 2d + V
+MAX_QDA_COLS = 32        # kMaxQdaCols (qda_predict.cu): K3, d and c each
+MAX_QDA_SMEM = 227 * 1024  # kMaxQdaSmem (qda_predict.cu): K3's factors
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,6 +77,18 @@ def _declare(lib: ctypes.CDLL) -> None:
         p, i, p, p, i, p, p, p, p, i, i, i, p, i, u32, u32, u32, p, i64, i,
         p, i, p, p]
     lib.dit_fused_impute_aggregate.restype = i
+    lib.dit_grouped_gram.argtypes = [p, i, p, p, i, p, p, i, i64, i, p, i,
+                                     p, p]
+    lib.dit_grouped_gram.restype = i
+    lib.dit_presorted_gram.argtypes = [p, i, p, p, i, p, p, p, i, i64, i, p,
+                                       i, p, p]
+    lib.dit_presorted_gram.restype = i
+    lib.dit_nb_grouped_sums.argtypes = [p, i, p, p, i, p, p, i, i, i64, p, i,
+                                        p, p]
+    lib.dit_nb_grouped_sums.restype = i
+    lib.dit_qda_predict.argtypes = [p, i, p, p, i, p, p, p, i, i, i64, p, i,
+                                    p]
+    lib.dit_qda_predict.restype = i
     lib.dit_gram_entries.argtypes = [i]
     lib.dit_gram_entries.restype = i
     lib.dit_error_string.argtypes = [i]
@@ -86,18 +108,29 @@ def load() -> Library:
     seconds, log = 0.0, ""
     if not path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
         t0 = time.perf_counter()
-        proc = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, srcs)],
-            capture_output=True, text=True)
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            objs = [Path(tmp) / (src.stem + ".o") for src in srcs]
+            procs = [subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                for src, obj in zip(srcs, objs)]
+            outs = [proc.communicate()[0] for proc in procs]
+            log = "".join(outs)
+            failed = [src.name for src, proc in zip(srcs, procs)
+                      if proc.returncode != 0]
+            if failed:
+                raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+            lib_tmp = Path(tmp) / "lib.so"
+            proc = subprocess.run(
+                [nvcc, "-shared", "-o", str(lib_tmp), *map(str, objs)],
+                capture_output=True, text=True)
+            log += proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc link failed ({proc.returncode}):"
+                                   f"\n{log}")
+            os.replace(lib_tmp, path)
         seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-        os.replace(tmp, path)
     lib = ctypes.CDLL(str(path))
     _declare(lib)
     return Library(lib=lib, path=path, build_seconds=seconds, log=log)
@@ -138,6 +171,44 @@ def check_schema(schema, n: int) -> None:
                          f"columns is not supported by the Gram kernels")
     if n >= 1 << 31:
         raise ValueError(f"{n} rows: the Gram kernels take fewer than 2^31")
+
+
+def check_groups(num_groups: int, limit: int | None = None) -> None:
+    """Raise ValueError for a group count a grouped kernel does not take."""
+    if num_groups < 1:
+        raise ValueError(f"num_groups must be at least 1, got {num_groups}")
+    if limit is not None and num_groups > limit:
+        raise ValueError(f"{num_groups} groups > {limit}, the unsorted "
+                         f"grouped Gram kernel's limit (register tiles per "
+                         f"thread); sort by group and use the sorted one")
+    if num_groups >= 1 << 31:
+        raise ValueError(f"{num_groups} groups: fewer than 2^31 are taken")
+
+
+def check_nb(schema, n: int) -> None:
+    """Raise ValueError for an NB schema or row count K6 does not take."""
+    f = 1 + 2 * schema.num_cols + schema.vocab_size
+    if f > MAX_NB_FEATURES:
+        raise ValueError(f"{f} NB features (1 + 2d + V) > {MAX_NB_FEATURES}"
+                         f" are not supported by the NB kernel")
+    if schema.num_cols > MAX_COLS or schema.cat_cols > MAX_COLS:
+        raise ValueError(f"more than {MAX_COLS} numeric or categorical "
+                         f"columns is not supported by the NB kernel")
+    if n >= 1 << 31:
+        raise ValueError(f"{n} rows: the NB kernel takes fewer than 2^31")
+
+
+def check_qda(schema, num_classes: int) -> None:
+    """Raise ValueError for a schema or class count K3 does not take."""
+    m = schema.sigma_size - 1
+    if schema.num_cols > MAX_QDA_COLS or schema.cat_cols > MAX_QDA_COLS:
+        raise ValueError(f"more than {MAX_QDA_COLS} numeric or categorical "
+                         f"columns is not supported by the QDA kernel")
+    smem = 4 * num_classes * (m * m + m + 1)
+    if num_classes < 1 or smem > MAX_QDA_SMEM:
+        raise ValueError(f"{num_classes} classes of {m} features need "
+                         f"{smem} bytes of factors in shared memory; the "
+                         f"QDA kernel holds at most {MAX_QDA_SMEM}")
 
 
 def pointers(tensors):

@@ -1,7 +1,10 @@
-"""The port's kernels on a CUDA card: K1 (masked_gram_cols) and K2
-(fused_impute_aggregate) against their plain versions, the checks their
-wrappers make, and run_mice_device on a CUDA table against the plain loop
-on the CPU. Every test here needs the card and skips without one.
+"""The port's kernels on a CUDA card: K1 (masked_gram_cols, and its
+stacked entry point masked_gram behind sum_to_triple), K2
+(fused_impute_aggregate), K3 (qda_predict_kernel), K4 (grouped_gram), K5
+(grouped_gram_presorted) and K6 (nb_grouped_sums) against their plain
+versions, the checks their wrappers make, and run_mice_device and the QDA
+pipeline on the card against the plain versions on the CPU. Every test
+here needs the card and skips without one.
 
 This file imports neither jax nor sklearn, so it runs on a machine that
 has only torch; tests/conftest.py imports jax, hence on the card:
@@ -14,15 +17,42 @@ import torch
 
 from duckdb_imputation_tpu_torch import FeatureSchema, from_numpy
 from duckdb_imputation_tpu_torch.mice.device_round import run_mice_device
+from duckdb_imputation_tpu_torch.models.device import (
+    qda_predict_device,
+    qda_train_device,
+)
 from duckdb_imputation_tpu_torch.ring.kernels import _build
+from duckdb_imputation_tpu_torch.ring.kernels.nb_pallas import (
+    nb_grouped_sums,
+    nb_grouped_sums_plain,
+)
+from duckdb_imputation_tpu_torch.ring.kernels.qda_pallas import (
+    qda_predict_kernel,
+    qda_predict_plain,
+    qda_scorers,
+)
 from duckdb_imputation_tpu_torch.ring.kernels.sigma_fused import (
     fused_impute_aggregate,
     fused_impute_aggregate_plain,
 )
 from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas import (
+    masked_gram,
     masked_gram_cols,
     masked_gram_cols_plain,
+    masked_gram_plain,
 )
+from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas_grouped import (
+    grouped_gram,
+    grouped_gram_plain,
+    grouped_gram_presorted,
+    grouped_gram_presorted_plain,
+    sort_by_group,
+)
+from duckdb_imputation_tpu_torch.ring.sum import (
+    sum_to_triple,
+    sum_to_triple_grouped,
+)
+from duckdb_imputation_tpu_torch.ring.triple import sigma_from_triple
 
 torch.set_num_threads(2)
 
@@ -97,6 +127,54 @@ def test_masked_gram_cols_kernel_other_schemas(cuda, keys):
     assert torch.equal(got[cm], want[cm])
     torch.testing.assert_close(got, want, rtol=1e-5,
                                atol=1e-6 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("binary", [True, False])
+def test_sum_to_triple_kernel_on_the_card_matches_cpu(cuda, binary):
+    """sum_to_triple on CUDA tensors launches K1 once through its stacked
+    entry point, masked_gram (and not through masked_gram_cols), and gives
+    the plain CPU triple: counts exact with binary weights, the rest within
+    1e-5 of max|σ|; a rerun is bit-identical."""
+    x, c, w, _ = grouped_inputs(70_001, 1, cuda, binary=binary)
+    before, cols_before = masked_gram.launches, masked_gram_cols.launches
+    got = sigma_from_triple(sum_to_triple(x, c, w, schema=SCHEMA))
+    assert masked_gram.launches == before + 1
+    assert masked_gram_cols.launches == cols_before
+    again = sigma_from_triple(sum_to_triple(x, c, w, schema=SCHEMA,
+                                            backend="kernel"))
+    assert torch.equal(got, again)
+    want = sigma_from_triple(sum_to_triple(x.cpu(), c.cpu(), w.cpu(),
+                                           schema=SCHEMA))
+    got = got.cpu()
+    if binary:
+        cm = count_mask(SCHEMA, "cpu")
+        assert torch.equal(got[cm], want[cm])
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("d,keys", [(0, ((0, 1, 2, 3),) * 2), (3, ())])
+def test_masked_gram_kernel_without_one_block(cuda, d, keys):
+    """The stacked entry point with no numeric rows, or no categorical
+    rows: the empty block is one of no column pointers."""
+    schema = FeatureSchema(num_cols=d, cat_keys=keys)
+    rng = np.random.default_rng(6)
+    n = 30_001
+    x = torch.tensor(rng.normal(size=(d, n)).astype(np.float32), device=cuda)
+    c = torch.tensor(rng.integers(0, 5, size=(len(keys), n)).astype(
+        np.int32), device=cuda)
+    before = masked_gram.launches
+    got = masked_gram(x, c, None, schema=schema)
+    assert masked_gram.launches == before + 1
+    want = masked_gram_plain(x.cpu(), c.cpu(), None, schema=schema)
+    got = got.cpu()
+    cm = count_mask(schema, "cpu")
+    assert torch.equal(got[cm], want[cm])
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-5 * float(want.abs().max()))
+    strided = (x.T.contiguous().T, c) if d else (x, c.T.contiguous().T)
+    with pytest.raises(ValueError):       # not contiguous
+        masked_gram(*strided, None, schema=schema)
 
 
 def fused_args(kind, n, device, seed=9):
@@ -188,3 +266,139 @@ def test_run_mice_device_on_the_card_matches_cpu(cuda):
         assert float(agree) >= 0.999
         torch.testing.assert_close(out.num_data.cpu(), ref.num_data,
                                    rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# The classifier path: K3 (qda_predict_kernel), K4 (grouped_gram), K5
+# (grouped_gram_presorted), K6 (nb_grouped_sums)
+# ---------------------------------------------------------------------------
+
+def grouped_inputs(n, groups, device, seed=3, binary=True):
+    xs, cs, w = make_cols(n, seed, device)
+    rng = np.random.default_rng(seed + 1)
+    g = np.where(rng.random(n) < 0.9, 0, rng.integers(0, groups, n))
+    g[: n // 50] = groups + 2                      # out of range: dropped
+    g[n // 50: n // 40] = -1
+    if not binary:
+        w = torch.tensor(rng.random(n).astype(np.float32), device=device)
+    return (torch.stack(xs), torch.stack(cs), w,
+            torch.tensor(g.astype(np.int32), device=device))
+
+
+def assert_grouped_close(got, want):
+    """Counts exact; the rest within 1e-5 of each group's max|σ|."""
+    cm = count_mask(SCHEMA, got.device)
+    for g in range(got.shape[0]):
+        assert torch.equal(got[g][cm], want[g][cm])
+        scale = max(float(want[g].abs().max()), 1.0)
+        torch.testing.assert_close(got[g], want[g], rtol=0,
+                                   atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("n,groups,binary", [
+    (1, 3, True), (257, 8, True), (70_001, 8, True), (70_001, 5, False),
+    (100_003, 1, True)])
+def test_grouped_gram_kernel_matches_plain(cuda, n, groups, binary):
+    """K4 on ragged n, skew, dropped ids, every GMAX instance."""
+    x, c, w, g = grouped_inputs(n, groups, cuda, binary=binary)
+    before = grouped_gram.launches
+    got = grouped_gram(x, c, w, g, schema=SCHEMA, num_groups=groups)
+    again = grouped_gram(x, c, w, g, schema=SCHEMA, num_groups=groups)
+    assert grouped_gram.launches == before + 2
+    want = grouped_gram_plain(x, c, w, g, schema=SCHEMA, num_groups=groups)
+    assert torch.equal(got, again)
+    if binary:
+        assert_grouped_close(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5,
+                                   atol=1e-6 * float(want.abs().max()))
+    with pytest.raises(ValueError):
+        grouped_gram(x, c, w, g, schema=SCHEMA, num_groups=9)
+
+
+@pytest.mark.parametrize("n,groups", [(1000, 3), (70_001, 8),
+                                      (200_003, 1000)])
+def test_grouped_gram_presorted_kernel_matches_plain(cuda, n, groups):
+    """K5 after sort_by_group: segments of every length (1000 groups:
+    many shorter than a chunk, some empty)."""
+    x, c, w, g = grouped_inputs(n, groups, cuda)
+    if groups == 1000:
+        g = torch.randint(0, groups, (n,), dtype=torch.int32, device=cuda)
+    xs, cs, ws, layout = sort_by_group(x, c, g, schema=SCHEMA,
+                                       num_groups=groups, weights=w)
+    before = grouped_gram_presorted.launches
+    got = grouped_gram_presorted(xs, cs, ws, layout, schema=SCHEMA)
+    again = grouped_gram_presorted(xs, cs, ws, layout, schema=SCHEMA)
+    assert grouped_gram_presorted.launches == before + 2
+    assert torch.equal(got, again)
+    want = grouped_gram_presorted_plain(xs, cs, ws, layout, schema=SCHEMA)
+    assert_grouped_close(got, want)
+
+
+def test_sum_to_triple_grouped_kernel_on_the_card_matches_cpu(cuda):
+    x, c, w, g = grouped_inputs(50_000, 12, cuda)
+    for groups in (6, 12):                       # K4, then sort + K5
+        got = sum_to_triple_grouped(x, c, g, schema=SCHEMA,
+                                    num_groups=groups, weights=w)
+        ref = sum_to_triple_grouped(x.cpu(), c.cpu(), g.cpu(), schema=SCHEMA,
+                                    num_groups=groups, weights=w.cpu())
+        assert_grouped_close(sigma_from_triple(got).cpu(),
+                             sigma_from_triple(ref))
+
+
+@pytest.mark.parametrize("n,groups,binary", [
+    (1, 1, True), (70_001, 5, True), (70_001, 5, False), (100_003, 40, True)])
+def test_nb_grouped_sums_kernel_matches_plain(cuda, n, groups, binary):
+    """K6: counts exact, sums within 1e-5 relative; 40 groups take two
+    launches."""
+    x, c, w, g = grouped_inputs(n, groups, cuda, binary=binary)
+    before = nb_grouped_sums.launches
+    got = nb_grouped_sums(x, c, w, g, schema=SCHEMA, num_groups=groups)
+    again = nb_grouped_sums(x, c, w, g, schema=SCHEMA, num_groups=groups)
+    assert nb_grouped_sums.launches == before + 2 * -(-groups // 32)
+    assert torch.equal(got, again)
+    want = nb_grouped_sums_plain(x, c, w, g, schema=SCHEMA,
+                                 num_groups=groups)
+    if binary:
+        assert torch.equal(got[:, 0], want[:, 0])
+        assert torch.equal(got[:, 9:], want[:, 9:])
+    torch.testing.assert_close(got, want, rtol=1e-5,
+                               atol=1e-6 * float(want.abs().max()))
+
+
+def qda_inputs(n, device, classes=8, seed=5):
+    xs, cs, _ = make_cols(n, seed, device)
+    rng = np.random.default_rng(seed)
+    m = SCHEMA.sigma_size - 1
+    a = rng.normal(size=(classes, m, m)) * 0.3
+    quad = torch.tensor(-np.einsum("cij,ckj->cik", a, a), device=device)
+    lin = torch.tensor(rng.normal(size=(classes, m)), device=device)
+    b = torch.tensor(rng.normal(size=classes), device=device)
+    return qda_scorers(quad, lin, b), torch.stack(xs), torch.stack(cs)
+
+
+@pytest.mark.parametrize("n", [1, 255, 100_003])
+def test_qda_predict_kernel_matches_plain(cuda, n):
+    (factor, lin, b), x, c = qda_inputs(n, cuda)
+    before = qda_predict_kernel.launches
+    got = qda_predict_kernel(factor, lin, b, x, c, schema=SCHEMA)
+    assert qda_predict_kernel.launches == before + 1
+    want = qda_predict_plain(factor, lin, b, x, c, schema=SCHEMA)
+    assert float((got == want).float().mean()) >= 0.9999
+
+
+def test_qda_pipeline_on_the_card_matches_cpu(cuda):
+    """Grouped aggregation, f64 training and K3 scoring on the card
+    against the plain pipeline on the CPU."""
+    x, c, _, g = grouped_inputs(60_000, 8, cuda)
+    g = g.clamp(0, 7)
+
+    def run(x, c, g):
+        sig = sigma_from_triple(sum_to_triple_grouped(
+            x, c, g, schema=SCHEMA, num_groups=8))
+        q, l, b = qda_train_device(sig, float(x.shape[1]))
+        return qda_predict_device(q, l, b, x, c, schema=SCHEMA)
+
+    got = run(x, c, g).cpu()
+    want = run(x.cpu(), c.cpu(), g.cpu())
+    assert float((got == want).float().mean()) >= 0.999

@@ -1,0 +1,167 @@
+"""The port's NB path: `nb_grouped_sums` (K6) through its plain version,
+`sum_to_nb_agg[_grouped]`, `nb_train_device` and `nb_predict_device`,
+held against the JAX package (its Pallas NB kernel in interpret mode, as
+tests/test_kernels.py runs it, and its XLA paths) on the same inputs."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from duckdb_imputation_tpu import FeatureSchema as RefSchema
+from duckdb_imputation_tpu.models import device as ref_device
+from duckdb_imputation_tpu.ring import sum as ref_sum
+from duckdb_imputation_tpu.ring.kernels.nb_pallas import (
+    sum_to_nb_agg_grouped_pallas,
+)
+
+from duckdb_imputation_tpu_torch import FeatureSchema
+from duckdb_imputation_tpu_torch.models import device as port_device
+from duckdb_imputation_tpu_torch.ring import sum as port_sum
+from duckdb_imputation_tpu_torch.ring.kernels import _build
+from duckdb_imputation_tpu_torch.ring.kernels.nb_pallas import (
+    nb_grouped_sums,
+    sum_to_nb_agg_grouped_kernel,
+)
+
+torch.set_num_threads(2)
+
+KEYS = (tuple(range(8)), tuple(range(8)))
+SCHEMA = FeatureSchema(num_cols=4, cat_keys=KEYS)
+REF_SCHEMA = RefSchema(num_cols=4, cat_keys=KEYS)
+FIELDS = ("n", "lin", "quad_diag", "lin_cat")
+
+
+@pytest.fixture(scope="module")
+def data():
+    """tests/test_kernels.py's fixture (seed 5, 20,480 rows)."""
+    rng = np.random.default_rng(5)
+    n = 5 * 2048 * 2
+    num = rng.normal(size=(4, n)).astype(np.float32)
+    codes = rng.integers(0, 8, size=(2, n)).astype(np.int32)
+    w = (rng.random(n) > 0.3).astype(np.float32)
+    return num, codes, w
+
+
+def assert_nb_close(got, ref):
+    """test_kernels.py's tolerances: counts exact, lin within rtol 1e-6
+    and atol 1e-3, quad_diag within rtol 1e-6 and atol 5e-2."""
+    np.testing.assert_array_equal(got.n.numpy(), np.asarray(ref.n))
+    np.testing.assert_array_equal(got.lin_cat.numpy(), np.asarray(ref.lin_cat))
+    np.testing.assert_allclose(got.lin.numpy(), np.asarray(ref.lin),
+                               rtol=1e-6, atol=1e-3)
+    np.testing.assert_allclose(got.quad_diag.numpy(),
+                               np.asarray(ref.quad_diag), rtol=1e-6,
+                               atol=5e-2)
+
+
+@pytest.mark.parametrize("fast", [False, True])
+def test_nb_grouped_sums_plain_matches_pallas(data, fast):
+    """Both bodies of the Pallas NB kernel (general f32; binary weights
+    through the 3-way bf16 split) and the XLA segment sum."""
+    num, codes, _ = data
+    g = np.random.default_rng(6).integers(0, 5, size=num.shape[-1]).astype(
+        np.int32)
+    got = sum_to_nb_agg_grouped_kernel(torch.tensor(num),
+                                       torch.tensor(codes), torch.tensor(g),
+                                       schema=SCHEMA, num_groups=5)
+    with pltpu.force_tpu_interpret_mode():
+        ref = sum_to_nb_agg_grouped_pallas(num, codes, g, schema=REF_SCHEMA,
+                                           num_groups=5, fast=fast)
+    assert_nb_close(got, ref)
+    xla = ref_sum._sum_to_nb_agg_grouped_xla(num, codes, g,
+                                             schema=REF_SCHEMA, num_groups=5)
+    assert_nb_close(got, xla)
+
+
+def test_nb_grouped_sums_ragged_rows_weights_and_dropped_ids(data):
+    """A ragged n with general weights, ids out of range (dropped), codes
+    out of vocab (counted nowhere)."""
+    num, codes, w = data
+    k = 5000
+    num, codes, w = num[:, :k], codes[:, :k].copy(), w[:k]
+    codes[1, :40] = 8
+    rng = np.random.default_rng(7)
+    g = rng.integers(0, 3, size=k).astype(np.int32)
+    g[:25] = 3
+    g[25:60] = -1
+    sums = nb_grouped_sums(torch.tensor(num), torch.tensor(codes),
+                           torch.tensor(w), torch.tensor(g), schema=SCHEMA,
+                           num_groups=3)
+    assert sums.shape == (3, 1 + 8 + 16)
+    with pltpu.force_tpu_interpret_mode():
+        ref = sum_to_nb_agg_grouped_pallas(num, codes, g, schema=REF_SCHEMA,
+                                           num_groups=3, weights=w,
+                                           chunk_cols=2048)
+    got = port_sum.sum_to_nb_agg_grouped(
+        torch.tensor(num), torch.tensor(codes), torch.tensor(g),
+        schema=SCHEMA, num_groups=3, weights=torch.tensor(w))
+    np.testing.assert_array_equal(got.n.numpy(), np.asarray(ref.n))
+    np.testing.assert_allclose(got.lin_cat.numpy(), np.asarray(ref.lin_cat),
+                               rtol=1e-6)
+    np.testing.assert_allclose(got.quad_diag.numpy(),
+                               np.asarray(ref.quad_diag), rtol=1e-6,
+                               atol=5e-2)
+    np.testing.assert_array_equal(sums.numpy()[:, 0], got.n.numpy())
+
+
+@pytest.mark.parametrize("backend", ["auto", "plain", "kernel"])
+def test_sum_to_nb_agg_matches_reference(data, backend):
+    num, codes, w = data
+    got = port_sum.sum_to_nb_agg(torch.tensor(num), torch.tensor(codes),
+                                 torch.tensor(w), schema=SCHEMA,
+                                 backend=backend)
+    ref = ref_sum.sum_to_nb_agg(num, codes, w, schema=REF_SCHEMA,
+                                backend="xla")
+    assert got.n.shape == () and got.lin.shape == (4,)
+    assert_nb_close(got, ref)
+
+
+def _nb_fixture(n=20_000, seed=11, classes=5):
+    """Class-shifted numerics and class-dependent codes."""
+    rng = np.random.default_rng(seed)
+    y = rng.integers(0, classes, n).astype(np.int32)
+    mu = rng.normal(size=(classes, 4)) * 1.5
+    num = (rng.normal(size=(4, n)) * 0.8 + mu[y].T).astype(np.float32)
+    codes = np.stack([(y + rng.integers(0, 2, n)) % 8,
+                      rng.integers(0, 8, n)]).astype(np.int32)
+    return num, codes, y
+
+
+def test_nb_train_and_predict_match_reference():
+    """nb_train_device against JAX on the same aggregates; then
+    nb_predict_device against JAX's (argmax agreement ≥ 0.999), both on
+    the CPU's plain scorers."""
+    num, codes, y = _nb_fixture()
+    agg = port_sum.sum_to_nb_agg_grouped(
+        torch.tensor(num), torch.tensor(codes), torch.tensor(y),
+        schema=SCHEMA, num_groups=5)
+    ragg = ref_sum.sum_to_nb_agg_grouped(num, codes, y, schema=REF_SCHEMA,
+                                         num_groups=5, backend="xla")
+    got = port_device.nb_train_device(agg.n, agg.lin, agg.quad_diag,
+                                      agg.lin_cat)
+    ref = ref_device.nb_train_device(ragg.n, ragg.lin, ragg.quad_diag,
+                                     ragg.lin_cat)
+    for a, b in zip(got, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5,
+                                   atol=1e-6)
+    pred = port_device.nb_predict_device(
+        *got, torch.tensor(num), torch.tensor(codes), schema=SCHEMA).numpy()
+    rpred = np.asarray(ref_device.nb_predict_device(
+        *ref, jnp.asarray(num), jnp.asarray(codes), schema=REF_SCHEMA))
+    assert pred.dtype == np.int32
+    assert (pred == rpred).mean() >= 0.999
+    assert (pred == y).mean() > 0.8
+    plain = port_device.nb_predict_device(
+        *got, torch.tensor(num), torch.tensor(codes), schema=SCHEMA,
+        method="plain").numpy()
+    np.testing.assert_array_equal(plain, pred)
+
+
+def test_nb_limits_raise():
+    wide = FeatureSchema(num_cols=100, cat_keys=(tuple(range(80)),))
+    with pytest.raises(ValueError):
+        _build.check_nb(wide, 10)
+    with pytest.raises(ValueError):
+        _build.check_nb(SCHEMA, 1 << 31)
+    _build.check_nb(SCHEMA, 10_000_000)
