@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives the two paths of `duckdb_imputation_tpu_torch` ported so far:
+Drives the three paths of `duckdb_imputation_tpu_torch` ported so far:
 
 - the MICE loop, `run_mice_device`, unfused over the masked-Gram kernel
   (K1) and fused over the fused impute+aggregate kernel (K2), at the
@@ -11,7 +11,14 @@ Drives the two paths of `duckdb_imputation_tpu_torch` ported so far:
   90% in class 0) and 10M rows: GROUP BY label aggregation
   (`sum_to_triple_grouped` over the unsorted grouped Gram K4, or a sort and
   the sorted-slab Gram K5 above K4's group limit; `sum_to_nb_agg_grouped`
-  over the NB sums K6), device training, and one-pass QDA scoring (K3).
+  over the NB sums K6), device training, and one-pass QDA scoring (K3);
+- MICE on a wide schema and the delta loop: `favorita_wide` (the Kaggle
+  Corporacion Favorita schema, 3 numeric and 9 categorical columns,
+  P = 492, made on the device with the dataset's hierarchy) at 10M rows,
+  where the masked Gram is the wide kernel K7 and the fused pass K2w
+  (`[K7]`, `[K2w]`, `[wide]`: `run_mice_device`, unfused and fused); then
+  `run_mice_device_delta` at config 5 with 1%, 5% and 20% nulls and at
+  `favorita_wide` with 5%, each against `run_mice_device` (`[delta]`).
 
 First it builds the kernels from `duckdb_imputation_tpu_torch/csrc/` and
 holds each against its plain torch version at the shapes its path gives
@@ -22,7 +29,9 @@ ungrouped aggregate, on the config-4 table.
     python3 chip_smoke.py [--seed N]
 
 Run from the root of a checkout. Prints one line per phase, then a JSON
-line of per-kernel results, then the device as the last line. Any failed
+line of per-kernel results (`launches` from the run of each kernel's
+path; for K1 and K7 also `delta_launches`, from the delta runs alone),
+then the device as the last line. Any failed
 check raises and ends the run with a nonzero exit; so does a machine
 without a CUDA device.
 """
@@ -66,11 +75,12 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def make_table(n: int, seed: int, *, noise_fixture: bool = False):
+def make_table(n: int, seed: int, *, noise_fixture: bool = False,
+               null_frac: float = 0.2):
     """The BASELINE config-5 table, made on the device from `seed`: x1 is
     linear in x0 and x2 (x1 = 3·x0 + x2; with noise_fixture, x1 = 2·x0 +
-    0.5·eps), c0 is predictable from x0, 20% nulls in numeric column 1 and
-    categorical column 0. Returns (table, true x1)."""
+    0.5·eps), c0 is predictable from x0, `null_frac` MCAR nulls in numeric
+    column 1 and categorical column 0. Returns (table, true x1)."""
     from duckdb_imputation_tpu_torch import FeatureSchema, Table
 
     dev = DEVICE
@@ -91,8 +101,8 @@ def make_table(n: int, seed: int, *, noise_fixture: bool = False):
     codes = torch.stack([c0, c1])
     num_null = torch.zeros((4, n), dtype=torch.bool, device=dev)
     cat_null = torch.zeros((2, n), dtype=torch.bool, device=dev)
-    num_null[1] = torch.rand(n, generator=g, device=dev) < 0.2
-    cat_null[0] = torch.rand(n, generator=g, device=dev) < 0.2
+    num_null[1] = torch.rand(n, generator=g, device=dev) < null_frac
+    cat_null[0] = torch.rand(n, generator=g, device=dev) < null_frac
     truth = x[1].clone()
     x = torch.where(num_null, 0.0, x)
     codes = torch.where(cat_null, 0, codes)
@@ -856,6 +866,430 @@ def phase_classify(seed: int) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Wide schemas (P > 88: K7, K2w) and the delta MICE loop
+# ---------------------------------------------------------------------------
+
+N_WIDE_CPU = 200_000       # the wide loop on the CPU, held against the card's
+DELTA_FRACS = (0.01, 0.05, 0.20)
+# favorita_wide: the Kaggle "Corporacion Favorita Grocery Sales Forecasting"
+# schema (stores.csv, items.csv, train.csv's onpromotion): numeric
+# unit_sales, transactions, dcoilwtico; categorical store_nbr, family,
+# class, perishable, onpromotion, city, state, type, cluster
+FAVORITA_VOCABS = (54, 33, 337, 2, 2, 22, 16, 5, 17)
+
+
+def favorita_schema():
+    from duckdb_imputation_tpu_torch import FeatureSchema
+
+    return FeatureSchema(num_cols=3, cat_keys=tuple(
+        tuple(range(v)) for v in FAVORITA_VOCABS))
+
+
+def make_favorita(n: int, seed: int, *, null_frac: float = 0.2,
+                  device=None):
+    """favorita_wide (P = 492) made on the device from `seed`, with the
+    dataset's hierarchy: city, state, type and cluster are fixed functions
+    of the store (state of the city); family and perishable of the class
+    (each family owns at least one class); transactions = 2·(store level)
+    + N(0, 1); unit_sales = class level + 1.5·onpromotion + 0.5·N(0, 1);
+    the oil price N(0, 1); stores uniform, 20% on promotion. Class sizes
+    follow a Zipf law (weight 1/rank): an assumption, since the dataset's
+    per-class row counts are not in the repository.
+    `null_frac` MCAR nulls in transactions (numeric 1) and family
+    (categorical 1). Returns (table, truth): truth holds the true
+    transactions and family."""
+    from duckdb_imputation_tpu_torch import Table
+
+    dev = DEVICE if device is None else device
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    i32 = torch.int32
+
+    def randint(hi, size):
+        return torch.randint(0, hi, (size,), generator=g, device=dev,
+                             dtype=i32)
+
+    stores, families, classes = FAVORITA_VOCABS[:3]
+    city_of_store = randint(22, stores)
+    state_of_city = randint(16, 22)
+    type_of_store = randint(5, stores)
+    cluster_of_store = randint(17, stores)
+    family_of_class = torch.cat([torch.arange(families, device=dev, dtype=i32),
+                                 randint(families, classes - families)])
+    family_of_class = family_of_class[torch.randperm(
+        classes, generator=g, device=dev)]
+    perishable_of_family = randint(2, families)
+    store_level = torch.randn(stores, generator=g, device=dev)
+    class_level = torch.randn(classes, generator=g, device=dev)
+
+    store = randint(stores, n)
+    # assumed class sizes: Zipf weights 1/rank, ranks shuffled so the
+    # large classes fall in every family
+    rank = torch.randperm(classes, generator=g, device=dev) + 1
+    cls = torch.multinomial(1.0 / rank.double(), n, replacement=True,
+                            generator=g).to(i32)
+    promo = (torch.rand(n, generator=g, device=dev) < 0.2).to(i32)
+    sl, cl = store.long(), cls.long()
+    family = family_of_class[cl]
+    transactions = 2.0 * store_level[sl] + torch.randn(n, generator=g,
+                                                       device=dev)
+    unit_sales = (class_level[cl] + 1.5 * promo
+                  + 0.5 * torch.randn(n, generator=g, device=dev))
+    oil = torch.randn(n, generator=g, device=dev)
+    city = city_of_store[sl]
+    codes = torch.stack([store, family, cls,
+                         perishable_of_family[family.long()], promo, city,
+                         state_of_city[city.long()], type_of_store[sl],
+                         cluster_of_store[sl]])
+    x = torch.stack([unit_sales, transactions, oil])
+    num_null = torch.zeros((3, n), dtype=torch.bool, device=dev)
+    cat_null = torch.zeros((9, n), dtype=torch.bool, device=dev)
+    num_null[1] = torch.rand(n, generator=g, device=dev) < null_frac
+    cat_null[1] = torch.rand(n, generator=g, device=dev) < null_frac
+    truth = {"transactions": transactions, "family": family}
+    x = torch.where(num_null, 0.0, x)
+    codes = torch.where(cat_null, 0, codes)
+    return Table(num_data=x, cat_codes=codes, num_null=num_null,
+                 cat_null=cat_null, schema=favorita_schema()), truth
+
+
+def check_gram(tag, got, again, want, schema, binary: bool) -> float:
+    """The masked-Gram checks: finite, bit-identical rerun, counts exact
+    (binary weights), max rel error ≤ 1e-5 of max|σ|. Returns the error."""
+    check(torch.isfinite(got).all(), f"{tag} sigma not finite")
+    check(torch.equal(got, again), f"{tag} repeated run not bit-identical")
+    if binary:
+        counts = count_entries(schema)
+        check(torch.equal(got[counts], want[counts]),
+              f"{tag} counts differ from the plain version")
+    err = rel_err(got, want)
+    check(err <= 1e-5, f"{tag} max rel error {err:.3e} > 1e-5")
+    return err
+
+
+def phase_k7(seed: int, n: int = N) -> dict:
+    """K7 at favorita_wide (P = 492): masked_gram_cols with binary weights
+    and masked_gram with general weights; then masked_gram_cols at P = 124
+    (3 numeric columns, one categorical column of 120)."""
+    from duckdb_imputation_tpu_torch import FeatureSchema
+    from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas import (
+        masked_gram, masked_gram_cols, masked_gram_cols_plain,
+        masked_gram_plain)
+
+    t, _ = make_favorita(n, seed + 11)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed + 12)
+    w_gen = torch.rand(n, generator=gen, device=DEVICE)
+    w_bin = (w_gen >= 0.2).float()
+    codes = t.cat_codes.clone()
+    codes[2, :1000] = 337        # out of vocab: the encode() miss code
+    codes[0, 1000:2000] = -1
+    xs, cs = list(t.num_data.unbind(0)), list(codes.unbind(0))
+    narrow = FeatureSchema(num_cols=3, cat_keys=(tuple(range(120)),))
+    c120 = [torch.randint(0, 121, (n,), generator=gen, device=DEVICE,
+                          dtype=torch.int32)]
+    cases = (
+        ("cols P=492 binary", t.schema, True,
+         lambda: masked_gram_cols(xs, cs, w_bin, schema=t.schema),
+         lambda: masked_gram_cols_plain(xs, cs, w_bin, schema=t.schema)),
+        ("stacked P=492 general", t.schema, False,
+         lambda: masked_gram(t.num_data, codes, w_gen, schema=t.schema),
+         lambda: masked_gram_plain(t.num_data, codes, w_gen,
+                                   schema=t.schema)),
+        ("cols P=124 binary", narrow, True,
+         lambda: masked_gram_cols(xs, c120, w_bin, schema=narrow),
+         lambda: masked_gram_cols_plain(xs, c120, w_bin, schema=narrow)))
+    out = {}
+    for name, schema, binary, kernel, plain in cases:
+        before = masked_gram_cols.wide_launches + masked_gram.wide_launches
+        got, again, want = kernel(), kernel(), plain()
+        torch.cuda.synchronize()
+        wide = masked_gram_cols.wide_launches + masked_gram.wide_launches
+        check(wide == before + 2, f"K7 {name}: {wide - before} wide "
+              f"launches, not 2")
+        err = check_gram(f"K7 {name}", got, again, want, schema, binary)
+        if binary:
+            check(float(got[0, 0]) == float(w_bin.sum()),
+                  f"K7 {name}: sigma[0,0] != Σw")
+        ms = cuda_ms(kernel, reps=5, warmup=1)
+        plain_ms = cuda_ms(plain, reps=3, warmup=1)
+        abs_err = float((got - want).abs().max())
+        log(f"[K7] n={n} {name}: " + ("counts exact, " if binary else "")
+            + f"max rel err {err:.3e} (of max|σ|), max abs err "
+            f"{abs_err:.3e}, bit-identical rerun; kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms")
+        if name.startswith("cols P=492"):
+            out = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms)
+    return out
+
+
+def phase_k2w(seed: int, n: int = N) -> dict:
+    """K2w at favorita_wide: a 'cat' step imputing family (R = 33), one at
+    R = 337 (class, with 20% of its rows set to impute), and a 'num' step
+    imputing transactions with noise; the coefficients are trained on the
+    table's own sigma."""
+    from duckdb_imputation_tpu_torch.mice.device_round import (
+        _lda_device, _noise_std, _w_full)
+    from duckdb_imputation_tpu_torch.mice.partition import init_fill
+    from duckdb_imputation_tpu_torch.models.device import (
+        linreg_solve_device)
+    from duckdb_imputation_tpu_torch.ring.kernels.sigma_fused import (
+        fused_impute_aggregate, fused_impute_aggregate_plain)
+    from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas import (
+        masked_gram_cols)
+
+    t = init_fill(make_favorita(n, seed + 13)[0])
+    schema = t.schema
+    xs, cs = list(t.num_data.unbind(0)), list(t.cat_codes.unbind(0))
+    w_fam = (~t.cat_null[1]).float()
+    w_tx = (~t.num_null[1]).float()
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed + 14)
+    null_cls = torch.rand(n, generator=gen, device=DEVICE) < 0.2
+    out = {}
+    for name, col, null, w_train, w_next in (
+            ("family R=33", 1, t.cat_null[1], w_fam, w_tx),
+            ("class R=337", 2, null_cls, (~null_cls).float(), w_fam)):
+        sig = masked_gram_cols(xs, cs, w_train, schema=schema)
+        w, icpt, keep = _lda_device(sig, schema, col, 0.001)
+        args = (xs, cs, null, w_next, _w_full(w, keep, schema), icpt)
+        kw = dict(schema=schema, kind="cat", imp_col=col)
+        before = fused_impute_aggregate.wide_launches
+        new_k, sig_k = fused_impute_aggregate(*args, **kw)
+        new_p, sig_p = fused_impute_aggregate_plain(*args, **kw)
+        torch.cuda.synchronize()
+        check(fused_impute_aggregate.wide_launches == before + 1,
+              "K2w was not launched")
+        agree = float((new_k == new_p).float().mean())
+        err = rel_err(sig_k, sig_p)
+        abs_err = float((sig_k - sig_p).abs().max())
+        check(agree >= 0.9999, f"K2w {name} code agreement {agree}")
+        check(err <= 1e-5, f"K2w {name} sigma rel err {err:.3e} > 1e-5")
+        ms = cuda_ms(lambda: fused_impute_aggregate(*args, **kw), reps=5,
+                     warmup=1)
+        plain_ms = cuda_ms(lambda: fused_impute_aggregate_plain(*args, **kw),
+                           reps=2, warmup=1)
+        log(f"[K2w] cat step {name} n={n}: code agreement {agree:.7f}, "
+            f"sigma max rel err {err:.3e}, max abs err {abs_err:.3e}; "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        if col == 1:
+            out = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms)
+
+    sig_x = masked_gram_cols(xs, cs, w_tx, schema=schema)
+    coeff = linreg_solve_device(sig_x, label=2)
+    theta = coeff.clone()
+    theta[2] = 0.0
+    args = (xs, cs, t.num_null[1], w_fam, theta[:, None], theta.new_zeros(1))
+    kw = dict(schema=schema, kind="num", imp_col=1,
+              noise=(seed, 0, _noise_std(coeff, sig_x)))
+    nk, sk = fused_impute_aggregate(*args, **kw)
+    np_, sp = fused_impute_aggregate_plain(*args, **kw)
+    torch.cuda.synchronize()
+    dx = float((nk - np_).abs().max())
+    e = rel_err(sk, sp)
+    check(torch.isfinite(nk).all(), "K2w num column not finite")
+    check(dx <= 1e-4, f"K2w num max|Δx| {dx:.3e} > 1e-4")
+    check(e <= 1e-5, f"K2w num sigma rel err {e:.3e} > 1e-5")
+    ms = cuda_ms(lambda: fused_impute_aggregate(*args, **kw), reps=5,
+                 warmup=1)
+    log(f"[K2w] num step with noise n={n}: max|Δx| {dx:.3e}, sigma max rel "
+        f"err {e:.3e}; kernel {ms:.4f} ms")
+    return out
+
+
+def wide_quality(t, truth, out, tag: str) -> dict:
+    """The imputation checks of a favorita_wide run: finite, observed cells
+    unchanged, family accuracy on its null cells above the mode prior +
+    0.02, transactions RMSE below the mean-fill RMSE."""
+    nm, cm = t.num_null[1], t.cat_null[1]
+    check(torch.isfinite(out.num_data).all(), f"{tag}: x not finite")
+    check(torch.equal(out.num_data[~t.num_null], t.num_data[~t.num_null])
+          and torch.equal(out.cat_codes[~t.cat_null],
+                          t.cat_codes[~t.cat_null]),
+          f"{tag}: observed cells changed")
+    fam = truth["family"]
+    prior = float(torch.bincount(fam[~cm].long()).max()) / int((~cm).sum())
+    acc = float((out.cat_codes[1][cm] == fam[cm]).float().mean())
+    tx = truth["transactions"]
+    rmse = float(((out.num_data[1] - tx)[nm] ** 2).mean().sqrt())
+    mean_fill = float(((tx[~nm].double().mean() - tx[nm].double()) ** 2)
+                      .mean().sqrt())
+    check(acc > prior + 0.02, f"{tag}: family accuracy {acc} not above the "
+          f"mode prior {prior} + 0.02")
+    check(rmse < mean_fill, f"{tag}: transactions RMSE {rmse} not below "
+          f"the mean fill's {mean_fill}")
+    return dict(acc=acc, prior=prior, rmse=rmse, mean_fill=mean_fill)
+
+
+def phase_wide(seed: int, n: int = N) -> dict:
+    """run_mice_device on favorita_wide at `n` rows, 'gram' then 'fused',
+    ROUNDS rounds: launch counts, quality, fused vs unfused; the card's
+    fused loop against the CPU's plain loop at N_WIDE_CPU rows; ms per
+    round."""
+    from duckdb_imputation_tpu_torch import Table, run_mice_device
+    from duckdb_imputation_tpu_torch.mice.device_round import (
+        mice_loop_device, mice_loop_device_fused)
+    from duckdb_imputation_tpu_torch.mice.partition import init_fill
+    from duckdb_imputation_tpu_torch.ring.kernels.sigma_fused import (
+        fused_impute_aggregate)
+    from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas import (
+        masked_gram_cols)
+
+    t, truth = make_favorita(n, seed + 15)
+    torch.cuda.synchronize()
+    masked_gram_cols.wide_launches = 0
+    fused_impute_aggregate.wide_launches = 0
+    unf = run_mice_device(t, iters=ROUNDS, kernel="gram")
+    fus = run_mice_device(t, iters=ROUNDS, kernel="fused")
+    torch.cuda.synchronize()
+    launches = {"wide_gram": masked_gram_cols.wide_launches,
+                "fused_impute_aggregate_wide":
+                    fused_impute_aggregate.wide_launches}
+    log(f"[wide] run_mice_device favorita_wide P={t.schema.sigma_size} "
+        f"n={n} rounds={ROUNDS} (gram, then fused): launches {launches}")
+    check(all(v > 0 for v in launches.values()),
+          f"a wide kernel was not launched: {launches}")
+    q = {name: wide_quality(t, truth, o, name)
+         for name, o in (("gram", unf), ("fused", fus))}
+    m = t.cat_null[1]
+    agree = float((fus.cat_codes[1] == unf.cat_codes[1])[m].float().mean())
+    dx = float((fus.num_data[1] - unf.num_data[1]).abs().max())
+    check(agree >= 0.999, f"wide fused vs unfused code agreement {agree}")
+    log(f"[wide] fused vs unfused: family agreement {agree:.6f}, x max diff "
+        f"{dx:.3e}; quality {q}")
+    del unf, fus
+
+    small, _ = make_favorita(N_WIDE_CPU, seed + 16)
+    cpu = Table(*(a.cpu() for a in (small.num_data, small.cat_codes,
+                                    small.num_null, small.cat_null)),
+                schema=small.schema)
+    t0 = time.perf_counter()
+    ref = run_mice_device(cpu, iters=2, kernel="plain")
+    cpu_s = time.perf_counter() - t0
+    got = run_mice_device(small, iters=2, kernel="fused")
+    sm = small.cat_null[1].cpu()
+    agree_cpu = float((got.cat_codes[1].cpu() == ref.cat_codes[1])[sm]
+                      .float().mean())
+    dx_cpu = float((got.num_data.cpu() - ref.num_data).abs().max())
+    check(agree_cpu >= 0.999, f"wide fused (card) vs plain (CPU) agreement "
+          f"{agree_cpu}")
+    log(f"[wide] n={N_WIDE_CPU}: fused on the card vs plain on the CPU "
+        f"({cpu_s:.1f} s): family agreement {agree_cpu:.6f}, x max diff "
+        f"{dx_cpu:.3e}")
+
+    f = init_fill(t)
+    kw = dict(schema=t.schema, num_cols_to_impute=(1,),
+              cat_cols_to_impute=(1,))
+    args = (f.num_data, f.cat_codes, f.num_null, f.cat_null)
+    per_round = {}
+    for name, loop in (
+            ("gram", lambda k: mice_loop_device(*args, iters=k,
+                                                kernel="gram", **kw)),
+            ("fused", lambda k: mice_loop_device_fused(*args, iters=k,
+                                                       **kw))):
+        one = cuda_ms(lambda: loop(1), reps=2, warmup=1)
+        three = cuda_ms(lambda: loop(3), reps=2, warmup=1)
+        per_round[name] = (three - one) / 2
+    log(f"[wide] ms per round at n={n} P={t.schema.sigma_size} (slope of 1 "
+        f"vs 3 rounds, CUDA events): {per_round}")
+    return launches
+
+
+def delta_vs_full(t, truth_x, truth_c, tag: str, num_col: int,
+                  cat_col: int, n: int) -> dict:
+    """run_mice_device_delta against run_mice_device (fused) on one table:
+    the launch counts of the delta run alone (its one full aggregation and
+    two per column step, every one through K1, or K7 when P > 88), the
+    quality bounds of tests/test_mice.py's delta test, the union size, and
+    ms per round of both loops (slope of 1 vs 3 rounds). Returns the delta
+    run's counts."""
+    from duckdb_imputation_tpu_torch import (run_mice_device,
+                                             run_mice_device_delta)
+    from duckdb_imputation_tpu_torch.mice.device_round import (
+        build_union_gather, mice_loop_device_delta, mice_loop_device_fused)
+    from duckdb_imputation_tpu_torch.mice.partition import (
+        build_partitions, init_fill)
+    from duckdb_imputation_tpu_torch.ring.kernels._build import (
+        MAX_SIGMA_SIZE)
+    from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas import (
+        masked_gram_cols)
+
+    torch.cuda.synchronize()
+    masked_gram_cols.launches = 0
+    masked_gram_cols.wide_launches = 0
+    delta = run_mice_device_delta(t, iters=ROUNDS)
+    torch.cuda.synchronize()
+    launches = {"masked_gram_cols": masked_gram_cols.launches,
+                "wide_gram": masked_gram_cols.wide_launches}
+    wide = t.schema.sigma_size > MAX_SIGMA_SIZE
+    want = 1 + 2 * 2 * ROUNDS     # 2 imputed columns, 2 aggregations a step
+    expect = {"masked_gram_cols": 0 if wide else want,
+              "wide_gram": want if wide else 0}
+    log(f"[delta] {tag}: run_mice_device_delta launches {launches}")
+    check(launches == expect, f"{tag}: the delta path launched {launches}, "
+          f"not {expect}")
+    full = run_mice_device(t, iters=ROUNDS, kernel="fused")
+    nm, cm = t.num_null[num_col], t.cat_null[cat_col]
+    rmse = {k: float(((o.num_data[num_col] - truth_x)[nm] ** 2).mean()
+                     .sqrt()) for k, o in (("full", full), ("delta", delta))}
+    agree = float((delta.cat_codes == full.cat_codes).float().mean())
+    agree_null = float((delta.cat_codes[cat_col] == full.cat_codes[cat_col])
+                       [cm].float().mean())
+    acc = {k: float((o.cat_codes[cat_col][cm] == truth_c[cm]).float().mean())
+           for k, o in (("full", full), ("delta", delta))}
+    check(torch.isfinite(delta.num_data).all(), f"{tag}: x not finite")
+    check(rmse["delta"] <= 1.15 * rmse["full"] + 0.02,
+          f"{tag}: delta RMSE {rmse['delta']} > 1.15·{rmse['full']} + 0.02")
+    check(agree > 0.95, f"{tag}: delta vs full code agreement {agree}")
+    check(torch.equal(delta.num_data[~t.num_null], full.num_data[~t.num_null])
+          and torch.equal(delta.cat_codes[~t.cat_null],
+                          full.cat_codes[~t.cat_null]),
+          f"{tag}: observed cells differ")
+    del full, delta
+
+    f = init_fill(t)
+    parts = build_partitions(f)
+    union_idx, union_valid = build_union_gather(
+        [parts.num_dirty_idx[num_col], parts.cat_dirty_idx[cat_col]],
+        blk=None)
+    kw = dict(schema=t.schema, num_cols_to_impute=(num_col,),
+              cat_cols_to_impute=(cat_col,))
+    args = (f.num_data, f.cat_codes, f.num_null, f.cat_null)
+    per_round = {}
+    for name, loop in (
+            ("delta", lambda k: mice_loop_device_delta(
+                *args, union_idx, union_valid, iters=k, kernel="gram",
+                **kw)),
+            ("fused", lambda k: mice_loop_device_fused(*args, iters=k,
+                                                       **kw))):
+        one = cuda_ms(lambda: loop(1), reps=2, warmup=1)
+        three = cuda_ms(lambda: loop(3), reps=2, warmup=1)
+        per_round[name] = (three - one) / 2
+    log(f"[delta] {tag} n={n}: union K={union_idx.numel()}; RMSE {rmse}; "
+        f"code agreement {agree:.6f} (null cells {agree_null:.6f}); "
+        f"accuracy {acc}; observed cells identical; ms per round (slope of "
+        f"1 vs 3 rounds): {per_round}")
+    return launches
+
+
+def phase_delta(seed: int, n: int = N) -> dict:
+    """run_mice_device_delta on the config-5 table at 1%, 5% and 20% MCAR
+    nulls, then on favorita_wide at 5%, each against run_mice_device.
+    Returns the delta runs' own launch counts: K1's summed over the three
+    config-5 runs, K7's of the favorita_wide run."""
+    k1 = 0
+    for frac in DELTA_FRACS:
+        t, truth = make_table(n, seed + 17, null_frac=frac)
+        c0 = torch.clamp(t.num_data[0] + 4.0, 0, 7).to(torch.int32)
+        k1 += delta_vs_full(t, truth, c0, f"config 5, {frac:.0%} nulls", 1,
+                            0, n)["masked_gram_cols"]
+    t, truth = make_favorita(n, seed + 18, null_frac=0.05)
+    k7 = delta_vs_full(t, truth["transactions"], truth["family"],
+                       "favorita_wide, 5% nulls", 1, 1, n)["wide_gram"]
+    return {"masked_gram_cols": k1, "wide_gram": k7}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -880,6 +1314,10 @@ def main() -> int:
     launches.update(phase_classify(args.seed))
     phase_noise(args.seed)
     phase_deploy(args.seed)
+    k7 = phase_k7(args.seed)
+    k2w = phase_k2w(args.seed)
+    wide = phase_wide(args.seed)
+    delta = phase_delta(args.seed)
 
     src = "duckdb_imputation_tpu_torch/csrc/"
     ref = "duckdb_imputation_tpu/ring/kernels/"
@@ -887,7 +1325,8 @@ def main() -> int:
         dict(name="masked_gram_cols", route="cuda",
              source=src + "masked_gram.cu",
              replaces=ref + "sigma_pallas.py:888",
-             launches=launches["masked_gram_cols"], **k1),
+             launches=launches["masked_gram_cols"],
+             delta_launches=delta["masked_gram_cols"], **k1),
         dict(name="masked_gram", route="cuda",
              source=src + "masked_gram.cu",
              replaces=ref + "sigma_pallas.py:109",
@@ -912,6 +1351,14 @@ def main() -> int:
              source=src + "nb_grouped_sums.cu",
              replaces=ref + "nb_pallas.py:126",
              launches=launches["nb_grouped_sums"], **k6),
+        dict(name="wide_gram", route="cuda", source=src + "wide_gram.cu",
+             replaces=ref + "sigma_pallas.py:501",
+             launches=wide["wide_gram"], delta_launches=delta["wide_gram"],
+             **k7),
+        dict(name="fused_impute_aggregate_wide", route="cuda",
+             source=src + "fused_impute_aggregate.cu",
+             replaces=ref + "sigma_fused.py:509",
+             launches=wide["fused_impute_aggregate_wide"], **k2w),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

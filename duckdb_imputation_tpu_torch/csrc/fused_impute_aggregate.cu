@@ -27,7 +27,20 @@
 //
 // Each row is read and written by one thread, but the kernel writes the
 // imputed column to a separate output buffer: the inputs stay unchanged.
-#include "gram_common.cuh"
+//
+// K2w, the same pass for P > 88 (dit_fused_impute_aggregate_wide), is the
+// counterpart of _fused_impute_aggregate_v2 / _v3 at pack = 1. K2 keeps W
+// f32[P, R] in shared memory, which at P = 492 and R = 337 would be 663 KB,
+// past a block's 227 KB; and K7 (wide_gram.cuh) tiles S over regions of
+// the grid. K2w is therefore two launches: an impute kernel that reads W
+// from device memory (it stays in L2) and writes the new column, then K7
+// over the columns with the new one in the old one's place. Re-scoring the
+// rows in every K7 region instead would cost R·(1 + d + c) operations a row
+// per region: at R = 337 and 30 regions as much again as the Gram itself.
+// 'cat' takes one warp a row, lanes over classes, so W's reads are
+// coalesced across a warp, and a shuffle tree picks the first max; 'num'
+// takes one thread a row. Scores, ties and noise are K2's.
+#include "wide_gram.cuh"
 
 namespace dit {
 namespace {
@@ -157,6 +170,83 @@ fused_kernel(const __grid_constant__ Cols cols, const __grid_constant__ Geom gm,
   write_block_partial(acc, own.active, own.t, own.g, zs, gm, partial);
 }
 
+// class_score for a row read from the columns themselves; W f32[P, R] and
+// b f32[R] in device memory. Same order of __fadd_rn/__fmul_rn.
+__device__ __forceinline__ float class_score_cols(const Cols& cols,
+                                                  int64_t row, int k, int R,
+                                                  const float* __restrict__ W,
+                                                  const float* __restrict__ b) {
+  float s = __fadd_rn(b[k], W[k]);
+  for (int j = 0; j < cols.d; ++j)
+    s = __fadd_rn(s, __fmul_rn(W[(1 + j) * R + k], cols.x[j][row]));
+  for (int j = 0; j < cols.c; ++j) {
+    const int code = cols.code[j][row];
+    if (code >= 0 && code < cols.size[j])
+      s = __fadd_rn(s, W[(cols.off[j] + code) * R + k]);
+  }
+  return s;
+}
+
+// K2w 'cat': one warp a row. Lane l scores classes l, l + 32, …, keeping
+// its first max (strict >); the shuffle tree keeps the larger value and,
+// on a tie, the lower class: the first max over all classes, class 0 when
+// every score is -inf or NaN, as in K2.
+__global__ void __launch_bounds__(kThreads)
+impute_cat_wide_kernel(const __grid_constant__ Cols cols, int64_t n,
+                       const uint8_t* __restrict__ null_imp,
+                       const float* __restrict__ W,
+                       const float* __restrict__ b, int R, int imp_col,
+                       int32_t* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const int64_t warps = (int64_t(gridDim.x) * blockDim.x) >> 5;
+  for (int64_t row = (int64_t(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+       row < n; row += warps) {
+    int val = cols.code[imp_col][row];
+    if (null_imp[row] != 0) {
+      float best_v = -INFINITY;
+      int best = 0;
+      for (int k = lane; k < R; k += 32) {
+        const float s = class_score_cols(cols, row, k, R, W, b);
+        if (s > best_v) {
+          best_v = s;
+          best = k;
+        }
+      }
+      for (int off = 16; off > 0; off >>= 1) {
+        const float ov = __shfl_xor_sync(0xffffffffu, best_v, off);
+        const int ok = __shfl_xor_sync(0xffffffffu, best, off);
+        if (ov > best_v || (ov == best_v && ok < best)) {
+          best_v = ov;
+          best = ok;
+        }
+      }
+      val = best;
+    }
+    if (lane == 0) out[row] = val;
+  }
+}
+
+// K2w 'num': one thread a row, K2's prediction and noise.
+__global__ void __launch_bounds__(kThreads)
+impute_num_wide_kernel(const __grid_constant__ Cols cols, int64_t n,
+                       const uint8_t* __restrict__ null_imp,
+                       const float* __restrict__ W,
+                       const float* __restrict__ b, int imp_col,
+                       const __grid_constant__ Noise nz,
+                       float* __restrict__ out) {
+  const float noise_std = nz.on ? *nz.std : 0.0f;
+  const int64_t stride = int64_t(gridDim.x) * blockDim.x;
+  for (int64_t row = int64_t(blockIdx.x) * blockDim.x + threadIdx.x; row < n;
+       row += stride) {
+    float val = cols.x[imp_col][row];
+    if (null_imp[row] != 0) {
+      val = class_score_cols(cols, row, 0, 1, W, b);
+      if (nz.on) val = __fadd_rn(val, __fmul_rn(noise_std, row_normal(nz, row)));
+    }
+    out[row] = val;
+  }
+}
+
 }  // namespace
 }  // namespace dit
 
@@ -202,6 +292,58 @@ int dit_fused_impute_aggregate(
   if (cudaError_t rc = cudaGetLastError()) return rc;
   launch_gram_reduce(partial, nblocks, gm, sigma, s);
   return cudaGetLastError();
+}
+
+// Launches K2w on `stream`: the impute kernel of `kind`, then K7 over the
+// columns with out_col in column imp_col's place. Arguments as
+// dit_fused_impute_aggregate, except any P ≤ kMaxWideP; region_lo,
+// nregions, slices and partial as dit_wide_gram; sigma zeroed by the
+// caller. Returns 0 or a cudaError_t.
+int dit_fused_impute_aggregate_wide(
+    const void* const* x_cols, int d, const void* const* code_cols,
+    const int* cat_sizes, int c, const uint8_t* null_imp, const float* w_agg,
+    const float* w_full, const float* intercept, int R, int kind,
+    int imp_col, void* out_col, int noise, uint32_t seed_lo,
+    uint32_t seed_hi, uint32_t round, const float* noise_std, int64_t n,
+    int P, const int* region_lo, int nregions, int slices, double* partial,
+    float* sigma, void* stream) {
+  using namespace dit;
+  if (int rc = check_cols(d, c, cat_sizes, P, n, 1, kMaxWideP)) return rc;
+  if (kind == kCat) {
+    if (imp_col < 0 || imp_col >= c || R != cat_sizes[imp_col] || R < 1)
+      return cudaErrorInvalidValue;
+  } else if (kind == kNum) {
+    if (imp_col < 0 || imp_col >= d || R != 1) return cudaErrorInvalidValue;
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  Regions rg;
+  if (int rc = make_regions(region_lo, nregions, P, slices, rg)) return rc;
+  Cols cols = make_cols(x_cols, d, code_cols, cat_sizes, c);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (n > 0) {
+    if (kind == kCat) {
+      const int64_t want = (n + kThreads / 32 - 1) / (kThreads / 32);
+      const int blocks = static_cast<int>(want < 8192 ? want : 8192);
+      impute_cat_wide_kernel<<<blocks, kThreads, 0, s>>>(
+          cols, n, null_imp, w_full, intercept, R, imp_col,
+          static_cast<int32_t*>(out_col));
+    } else {
+      const Noise nz{noise, seed_lo, seed_hi, round,
+                     static_cast<uint32_t>(imp_col), noise_std};
+      const int64_t want = (n + kThreads - 1) / kThreads;
+      const int blocks = static_cast<int>(want < 8192 ? want : 8192);
+      impute_num_wide_kernel<<<blocks, kThreads, 0, s>>>(
+          cols, n, null_imp, w_full, intercept, imp_col, nz,
+          static_cast<float*>(out_col));
+    }
+    if (cudaError_t rc = cudaGetLastError()) return rc;
+  }
+  if (kind == kCat)
+    cols.code[imp_col] = static_cast<const int32_t*>(out_col);
+  else
+    cols.x[imp_col] = static_cast<const float*>(out_col);
+  return launch_wide_gram(cols, rg, P, n, slices, w_agg, partial, sigma, s);
 }
 
 }  // extern "C"

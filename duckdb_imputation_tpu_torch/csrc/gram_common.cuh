@@ -79,16 +79,17 @@ inline int gram_smem_floats(const Geom& g) {
 // Entries of a per-block partial: 16 per tile.
 inline int gram_entries(const Geom& g) { return g.T * 16; }
 
-// Checks shared by both entry points; 0 or a cudaError_t.
+// Checks shared by the entry points; 0 or a cudaError_t. max_p: the
+// kernel's sigma-size limit (kMaxP here, kMaxWideP for wide_gram.cuh).
 inline int check_cols(int d, int c, const int* cat_sizes, int P, int64_t n,
-                      int nblocks) {
+                      int nblocks, int max_p = kMaxP) {
   if (d < 0 || c < 0 || d > kMaxCols || c > kMaxCols) return cudaErrorInvalidValue;
   int p = 1 + d;
   for (int j = 0; j < c; ++j) {
     if (cat_sizes[j] < 0) return cudaErrorInvalidValue;
     p += cat_sizes[j];
   }
-  if (p != P || P > kMaxP) return cudaErrorInvalidValue;
+  if (p != P || P > max_p) return cudaErrorInvalidValue;
   if (n < 0 || n >= (int64_t(1) << 31) || nblocks < 1) return cudaErrorInvalidValue;
   return 0;
 }

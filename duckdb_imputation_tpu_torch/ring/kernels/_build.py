@@ -29,7 +29,7 @@ import torch
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("masked_gram.cu", "fused_impute_aggregate.cu", "grouped_gram.cu",
-           "nb_grouped_sums.cu", "qda_predict.cu")
+           "nb_grouped_sums.cu", "qda_predict.cu", "wide_gram.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # Largest grid of the Gram kernels: about 8 resident 256-thread blocks on
@@ -41,6 +41,9 @@ MAX_BLOCKS = 1024
 # the checks below raise ValueError before a launch the kernel would refuse.
 CHUNK_ROWS = 256     # kChunk (gram_common.cuh): rows a block stages a step
 MAX_SIGMA_SIZE = 88  # kMaxP (gram_common.cuh): one 4x4 tile a thread
+MAX_WIDE_SIGMA_SIZE = 1024  # kMaxWideP (wide_gram.cuh): K7 and K2w
+WIDE_TILE = 64       # kWideTile (wide_gram.cuh): side of a region of S
+WIDE_CHUNK = 128     # kWideChunk (wide_gram.cuh): rows a block stages a step
 MAX_COLS = 64        # kMaxCols (gram_common.cuh), numeric and categorical
 MAX_UNSORTED_GROUPS = 8  # kMaxUnsortedGroups (grouped_gram.cu): K4's tiles
 MAX_NB_GROUPS = 32       # kMaxNbGroups (nb_grouped_sums.cu): K6 per launch
@@ -89,6 +92,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.dit_qda_predict.argtypes = [p, i, p, p, i, p, p, p, i, i, i64, p, i,
                                     p]
     lib.dit_qda_predict.restype = i
+    lib.dit_wide_gram.argtypes = [p, i, p, p, i, p, i64, i, p, i, i, p, p, p]
+    lib.dit_wide_gram.restype = i
+    lib.dit_fused_impute_aggregate_wide.argtypes = [
+        p, i, p, p, i, p, p, p, p, i, i, i, p, i, u32, u32, u32, p, i64, i,
+        p, i, i, p, p, p]
+    lib.dit_fused_impute_aggregate_wide.restype = i
+    lib.dit_wide_region_entries.argtypes = []
+    lib.dit_wide_region_entries.restype = i
     lib.dit_gram_entries.argtypes = [i]
     lib.dit_gram_entries.restype = i
     lib.dit_error_string.argtypes = [i]
@@ -161,11 +172,14 @@ def check_cuda(tensors, checks) -> torch.device:
     return next(iter(devices))
 
 
-def check_schema(schema, n: int) -> None:
-    """Raise ValueError for a schema or row count the kernels do not take."""
-    if schema.sigma_size > MAX_SIGMA_SIZE:
-        raise ValueError(f"sigma size {schema.sigma_size} > {MAX_SIGMA_SIZE}"
-                         f" is not supported by the Gram kernels yet")
+def check_schema(schema, n: int, max_sigma: int = MAX_SIGMA_SIZE) -> None:
+    """Raise ValueError for a schema or row count the kernels do not take.
+    max_sigma: MAX_SIGMA_SIZE for the grouped Grams (K4, K5),
+    MAX_WIDE_SIGMA_SIZE for the masked Gram and the fused pass (K1/K7,
+    K2/K2w), which switch to their wide kernels above MAX_SIGMA_SIZE."""
+    if schema.sigma_size > max_sigma:
+        raise ValueError(f"sigma size {schema.sigma_size} > {max_sigma}"
+                         f" is not supported by this kernel")
     if schema.num_cols > MAX_COLS or schema.cat_cols > MAX_COLS:
         raise ValueError(f"more than {MAX_COLS} numeric or categorical "
                          f"columns is not supported by the Gram kernels")
@@ -223,6 +237,29 @@ def int_array(values):
 
 def grid_blocks(n: int) -> int:
     return max(1, min(-(-n // CHUNK_ROWS), MAX_BLOCKS))
+
+
+def wide_regions(schema) -> list[tuple[int, int]]:
+    """K7's plan: the (lo_i, lo_j) of each 64×64 region of S's upper
+    triangle that can be nonzero. A region off the diagonal whose two ranges
+    both lie inside the one-hot block of one categorical column is dropped:
+    a row sets at most one code of a column, so no row has a nonzero in
+    both ranges, and S is zero there."""
+    p, d = schema.sigma_size, schema.num_cols
+    offs = schema.offsets
+    blocks = [(1 + d + offs[j], 1 + d + offs[j + 1])
+              for j in range(schema.cat_cols)]
+    starts = range(0, p, WIDE_TILE)
+    return [(i, j) for i in starts for j in starts if i <= j
+            and (i == j or not any(lo <= i and min(j + WIDE_TILE, p) <= hi
+                                   for lo, hi in blocks))]
+
+
+def wide_slices(n: int, nregions: int) -> int:
+    """Row slices of K7's grid (blockIdx.y): about MAX_BLOCKS blocks in
+    all, never more slices than chunks. A function of n and the schema
+    only, so a result does not depend on the card it ran on."""
+    return max(1, min(-(-n // WIDE_CHUNK), -(-MAX_BLOCKS // nregions)))
 
 
 def raise_on_error(lib: Library, rc: int, what: str) -> None:

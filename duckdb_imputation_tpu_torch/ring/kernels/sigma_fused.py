@@ -1,4 +1,5 @@
-"""K2: the fused impute+aggregate pass — one table pass per MICE column step.
+"""K2 and K2w: the fused impute+aggregate pass — one table pass per MICE
+column step.
 
 Counterpart of `fused_impute_aggregate` in
 `duckdb_imputation_tpu/ring/kernels/sigma_fused.py` (the Pallas kernels
@@ -25,8 +26,10 @@ the CUDA kernel computes the same bits, so the two versions draw the same
 numbers up to float rounding in log and cos. This replaces both the Pallas
 PRNG and the JAX loop's integer-hash seed, and it exists for every schema.
 
-`fused_impute_aggregate` launches the CUDA kernel
-(`csrc/fused_impute_aggregate.cu`) for CUDA tensors and takes
+`fused_impute_aggregate` launches the CUDA kernels
+(`csrc/fused_impute_aggregate.cu`) for CUDA tensors: K2 for P ≤ 88, K2w
+above (an impute kernel that reads the coefficients from device memory,
+then K7's wide Gram over the updated columns). It takes
 `fused_impute_aggregate_plain` only for CPU tensors.
 """
 from __future__ import annotations
@@ -38,7 +41,7 @@ import torch
 from ...schema import FeatureSchema
 from ..sum import class_argmax, class_score
 from . import _build
-from .sigma_pallas import masked_gram_cols_plain
+from .sigma_pallas import masked_gram_cols_plain, wide_plan
 
 _MASK32 = 0xFFFFFFFF
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
@@ -70,11 +73,15 @@ def philox4x32_10(ctr, key):
 
 
 def philox_normal(seed: int, round_: int, column: int, n: int,
-                  device=None) -> torch.Tensor:
+                  device=None, rows: torch.Tensor | None = None
+                  ) -> torch.Tensor:
     """N(0, 1) f32[n], row r drawn from Philox4x32-10 with key = seed and
     counter = (r, round, column): Box-Muller on the first two words, each
-    mapped to (0, 1] as ((bits >> 8) + 1)·2⁻²⁴."""
-    rows = torch.arange(n, dtype=torch.int64, device=device)
+    mapped to (0, 1] as ((bits >> 8) + 1)·2⁻²⁴. rows: the global row ids
+    int64[n] to key by (default arange(n)), so a row's draw does not depend
+    on where it sits in a compact sub-table."""
+    if rows is None:
+        rows = torch.arange(n, dtype=torch.int64, device=device)
     c0, c1, _, _ = philox4x32_10(
         (rows & _MASK32, rows >> 32, round_ & _MASK32, column & _MASK32),
         (seed & _MASK32, (seed >> 32) & _MASK32))
@@ -127,8 +134,9 @@ def fused_impute_aggregate(x_cols, code_cols, null_imp, w_agg, w_full,
     noise = (seed, round, std f32[1] tensor) or None, 'num' only.
 
     Returns (new_column, sigma f32[P, P]): i32[n] for 'cat', f32[n] for
-    'num'. CUDA tensors launch the kernel (one launch counted in
-    `fused_impute_aggregate.launches`); CPU tensors take the plain
+    'num'. CUDA tensors launch K2 for P ≤ 88 (counted in
+    `fused_impute_aggregate.launches`) or K2w above (counted in
+    `fused_impute_aggregate.wide_launches`); CPU tensors take the plain
     version."""
     if kind not in _KINDS:
         raise ValueError(f"kind must be 'cat' or 'num', got {kind!r}")
@@ -145,7 +153,7 @@ def fused_impute_aggregate(x_cols, code_cols, null_imp, w_agg, w_full,
             schema=schema, kind=kind, imp_col=imp_col, noise=noise)
     n = null_imp.shape[-1]
     p = schema.sigma_size
-    _build.check_schema(schema, n)
+    _build.check_schema(schema, n, _build.MAX_WIDE_SIGMA_SIZE)
     if kind == "cat":
         if not 0 <= imp_col < schema.cat_cols:
             raise ValueError(f"imp_col {imp_col} is not a categorical column")
@@ -166,27 +174,38 @@ def fused_impute_aggregate(x_cols, code_cols, null_imp, w_agg, w_full,
            (intercept, torch.float32, (r,), "intercept")]
         + ([] if std is None else [(std, torch.float32, (1,), "std")]))
     lib = _build.load()
-    nblocks = _build.grid_blocks(n)
-    partial = torch.empty(lib.lib.dit_gram_entries(p) * nblocks,
-                          dtype=torch.float64, device=device)
-    sigma = torch.empty((p, p), dtype=torch.float32, device=device)
     new = torch.empty(n, device=device,
                       dtype=torch.int32 if kind == "cat" else torch.float32)
     seed, round_ = (0, 0) if noise is None else noise[:2]
     sizes = schema.cat_sizes
-    with torch.cuda.device(device):
-        rc = lib.lib.dit_fused_impute_aggregate(
-            _build.pointers(x_cols), len(x_cols), _build.pointers(code_cols),
+    args = (_build.pointers(x_cols), len(x_cols), _build.pointers(code_cols),
             _build.int_array(sizes), len(sizes), null_imp.data_ptr(),
             w_agg.data_ptr(), w_full.data_ptr(), intercept.data_ptr(), r,
             _KINDS[kind], imp_col, new.data_ptr(), int(noise is not None),
             seed & _MASK32, (seed >> 32) & _MASK32, round_,
-            None if std is None else std.data_ptr(), n, p,
-            partial.data_ptr(), nblocks, sigma.data_ptr(),
-            torch.cuda.current_stream(device).cuda_stream)
-    _build.raise_on_error(lib, rc, "fused_impute_aggregate")
-    fused_impute_aggregate.launches += 1
+            None if std is None else std.data_ptr(), n, p)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if p > _build.MAX_SIGMA_SIZE:   # K2w: K7's region plan, then scratch
+        flat, nregions, slices, partial = wide_plan(schema, n, lib, device)
+        sigma = torch.zeros((p, p), dtype=torch.float32, device=device)
+        with torch.cuda.device(device):
+            rc = lib.lib.dit_fused_impute_aggregate_wide(
+                *args, flat, nregions, slices, partial.data_ptr(),
+                sigma.data_ptr(), stream)
+        _build.raise_on_error(lib, rc, "fused_impute_aggregate")
+        fused_impute_aggregate.wide_launches += 1
+    else:                           # K2: the scratch, then its blocks
+        nblocks = _build.grid_blocks(n)
+        partial = torch.empty(lib.lib.dit_gram_entries(p) * nblocks,
+                              dtype=torch.float64, device=device)
+        sigma = torch.empty((p, p), dtype=torch.float32, device=device)
+        with torch.cuda.device(device):
+            rc = lib.lib.dit_fused_impute_aggregate(
+                *args, partial.data_ptr(), nblocks, sigma.data_ptr(), stream)
+        _build.raise_on_error(lib, rc, "fused_impute_aggregate")
+        fused_impute_aggregate.launches += 1
     return new, sigma
 
 
 fused_impute_aggregate.launches = 0
+fused_impute_aggregate.wide_launches = 0

@@ -11,12 +11,14 @@ LAYOUT: features-first, x_num f32[d, n], codes i32[c, n], weights f32[n].
 The predictors take the columnar carry of the MICE loops: lists of
 per-column [n] tensors.
 
-`masked_sigma` is the plain version that the hand-written Gram kernel
-(`ring.kernels.sigma_pallas.masked_gram_cols`) is held against. Each row
-chunk's Gram is one f32 matmul (TF32 must be off on the card: callers set
-`torch.backends.cuda.matmul.allow_tf32 = False`); the chunk sums are added
-in f64 and rounded to f32 once, so one-hot counts stay exact past 2²⁴
-rows, the same contract the kernel keeps.
+`masked_sigma` is the plain version that the hand-written Gram kernels
+(`ring.kernels.sigma_pallas.masked_gram_cols`) are held against. It forms
+the kernels' f32 products, (z_i·w rounded to f32)·z_j, exactly, as one
+f64 matmul per row chunk, adds the chunks in f64 and rounds to f32 once:
+one-hot counts stay exact past 2²⁴ rows, the contract the kernels keep,
+and the reference is at least as exact as the kernels it checks (an f32
+matmul's own sum over a 2¹⁷-row chunk erred by 1.1e-5 of max|σ| at
+P = 492 on the H100, where the kernel erred by 3.3e-7).
 
 The public aggregates (`sum_to_triple`, `sum_to_triple_grouped`,
 `sum_to_nb_agg`, `sum_to_nb_agg_grouped`) take the kernel for tensors on a
@@ -80,7 +82,8 @@ def masked_sigma(x_num: torch.Tensor, codes: torch.Tensor,
     """S = Zᵀ diag(w) Z, f32[P, P], chunked over rows.
 
     x_num f32[d, n] features-first; codes i32[c, n]; weights f32[n] (None =
-    all ones). Each chunk is one f32 matmul; chunks are summed in f64."""
+    all ones). Each chunk is one f64 matmul of (Zᵀ·w in f32) and Zᵀ;
+    chunks are summed in f64 and rounded to f32 once."""
     ref = x_num if schema.num_cols else codes
     n = ref.shape[-1]
     p = schema.sigma_size
@@ -89,7 +92,7 @@ def masked_sigma(x_num: torch.Tensor, codes: torch.Tensor,
         hi = min(lo + ROW_CHUNK, n)
         zt = _zt_block(x_num[:, lo:hi], codes[:, lo:hi], schema)
         zw = zt if weights is None else zt * weights[lo:hi].to(torch.float32)
-        acc += (zw @ zt.T).double()
+        acc += zw.double() @ zt.double().T
     return acc.to(torch.float32)
 
 

@@ -1,10 +1,12 @@
 """The port's kernels on a CUDA card: K1 (masked_gram_cols, and its
 stacked entry point masked_gram behind sum_to_triple), K2
 (fused_impute_aggregate), K3 (qda_predict_kernel), K4 (grouped_gram), K5
-(grouped_gram_presorted) and K6 (nb_grouped_sums) against their plain
-versions, the checks their wrappers make, and run_mice_device and the QDA
-pipeline on the card against the plain versions on the CPU. Every test
-here needs the card and skips without one.
+(grouped_gram_presorted), K6 (nb_grouped_sums), and for P > 88 K7 (the wide
+masked Gram behind masked_gram_cols and masked_gram) and K2w (the wide
+fused pass) against their plain versions, the checks their wrappers make,
+and run_mice_device, run_mice_device_delta and the QDA pipeline on the
+card against the plain versions on the CPU. Every test here needs the card
+and skips without one.
 
 This file imports neither jax nor sklearn, so it runs on a machine that
 has only torch; tests/conftest.py imports jax, hence on the card:
@@ -16,7 +18,10 @@ import pytest
 import torch
 
 from duckdb_imputation_tpu_torch import FeatureSchema, from_numpy
-from duckdb_imputation_tpu_torch.mice.device_round import run_mice_device
+from duckdb_imputation_tpu_torch.mice.device_round import (
+    run_mice_device,
+    run_mice_device_delta,
+)
 from duckdb_imputation_tpu_torch.models.device import (
     qda_predict_device,
     qda_train_device,
@@ -230,9 +235,9 @@ def test_kernels_raise_on_inputs_they_do_not_take(cuda):
     with pytest.raises(ValueError):       # not contiguous
         masked_gram_cols([torch.stack([x, x], 1)[:, 0] for x in xs], cs,
                          None, schema=SCHEMA)
-    wide = FeatureSchema(num_cols=4, cat_keys=(tuple(range(90)),))
-    assert wide.sigma_size > _build.MAX_SIGMA_SIZE
-    with pytest.raises(ValueError):       # sigma size above the kernel's
+    wide = FeatureSchema(num_cols=4, cat_keys=(tuple(range(1020)),))
+    assert wide.sigma_size > _build.MAX_WIDE_SIGMA_SIZE
+    with pytest.raises(ValueError):       # sigma size above K7's
         masked_gram_cols(xs, cs[:1], None, schema=wide)
     args = fused_args("cat", 1000, cuda)
     with pytest.raises(ValueError):       # w_full of the wrong width
@@ -402,3 +407,201 @@ def test_qda_pipeline_on_the_card_matches_cpu(cuda):
     got = run(x, c, g).cpu()
     want = run(x.cpu(), c.cpu(), g.cpu())
     assert float((got == want).float().mean()) >= 0.999
+
+
+# ---------------------------------------------------------------------------
+# Wide schemas: K7 (masked_gram_cols, masked_gram for P > 88) and K2w
+# (fused_impute_aggregate for P > 88)
+# ---------------------------------------------------------------------------
+
+FAVORITA = (3, tuple(tuple(range(v))
+                     for v in (54, 33, 337, 2, 2, 22, 16, 5, 17)))  # P = 492
+WIDE = {"P124": (3, (tuple(range(120)),)), "P492": FAVORITA}
+
+
+def wide_cols(name, n, device, seed=0, oov=True):
+    """Per-column inputs of a wide schema: codes uniform, with out-of-vocab
+    and negative codes in the last column when `oov`; binary weights."""
+    d, keys = WIDE[name]
+    rng = np.random.default_rng(seed)
+    x = (rng.normal(size=(d, n)) * 2 + 0.5).astype(np.float32)
+    codes = np.stack([rng.integers(0, len(k), n) for k in keys]
+                     ).astype(np.int32)
+    if oov:
+        codes[-1, :n // 10] = len(keys[-1])
+        codes[-1, n // 10:n // 5] = -1
+    w = (rng.random(n) > 0.3).astype(np.float32)
+    schema = FeatureSchema(num_cols=d, cat_keys=keys)
+    return (schema, [torch.tensor(a, device=device) for a in x],
+            [torch.tensor(a, device=device) for a in codes],
+            torch.tensor(w, device=device))
+
+
+def wide_table(name, n, device, seed=0):
+    """A Table of a wide schema with 20% nulls in numeric column 1 and in
+    categorical column 0, x1 linear in x0."""
+    schema, xs, cs, _ = wide_cols(name, n, "cpu", seed, oov=False)
+    rng = np.random.default_rng(seed + 1)
+    x = torch.stack(xs).numpy()
+    x[1] = 2 * x[0] + 0.3 * rng.normal(size=n)
+    nn = np.zeros(x.shape, bool)
+    cn = np.zeros((len(cs), n), bool)
+    nn[1] = rng.random(n) < 0.2
+    cn[0] = rng.random(n) < 0.2
+    return from_numpy(x.T, torch.stack(cs).numpy().T, nn.T, cn.T,
+                      schema=schema, device=device)
+
+
+@pytest.mark.parametrize("name", ["P124", "P492"])
+def test_wide_schemas_go_through_the_wide_kernels(cuda, name):
+    """Schemas with P > 88 on CUDA tensors: masked_gram_cols, masked_gram,
+    fused_impute_aggregate and run_mice_device (gram and fused) run through
+    K7 and K2w (their wide launch counts move; K1's and K2's do not)."""
+    schema, xs, cs, w = wide_cols(name, 10_000, cuda)
+    k1, k2 = masked_gram_cols.launches, fused_impute_aggregate.launches
+    wc, ws = masked_gram_cols.wide_launches, masked_gram.wide_launches
+    masked_gram_cols(xs, cs, w, schema=schema)
+    masked_gram(torch.stack(xs), torch.stack(cs), w, schema=schema)
+    assert masked_gram_cols.wide_launches == wc + 1
+    assert masked_gram.wide_launches == ws + 1
+    p = schema.sigma_size
+    before = fused_impute_aggregate.wide_launches
+    for kind, col, r in (("cat", 0, len(schema.cat_keys[0])),
+                         ("num", 1, 1)):
+        fused_impute_aggregate(
+            xs, cs, w > 0, w, torch.zeros((p, r), device=cuda),
+            torch.zeros(r, device=cuda), schema=schema, kind=kind,
+            imp_col=col)
+    assert fused_impute_aggregate.wide_launches == before + 2
+    t = wide_table(name, 20_000, cuda)
+    wc, before = masked_gram_cols.wide_launches, \
+        fused_impute_aggregate.wide_launches
+    run_mice_device(t, iters=1, kernel="gram")
+    run_mice_device(t, iters=1, kernel="fused")
+    assert masked_gram_cols.wide_launches > wc
+    assert fused_impute_aggregate.wide_launches > before
+    assert masked_gram_cols.launches == k1
+    assert fused_impute_aggregate.launches == k2
+
+
+@pytest.mark.parametrize("name", ["P124", "P492"])
+@pytest.mark.parametrize("n", [1, 127, 128, 129, 70_001])
+@pytest.mark.parametrize("binary", [True, False])
+def test_wide_gram_kernel_matches_plain(cuda, name, n, binary):
+    """K7 on ragged n (one row, one chunk either side of 128 rows, many
+    slices): counts exact with binary weights, the rest within 1e-5 of
+    max|σ|, two launches bit-identical, σ[0, 0] = Σw; the stacked entry
+    point gives the same bits."""
+    schema, xs, cs, w = wide_cols(name, n, cuda, seed=n)
+    if not binary:
+        w = torch.rand(n, device=cuda)
+    got = masked_gram_cols(xs, cs, w, schema=schema)
+    again = masked_gram_cols(xs, cs, w, schema=schema)
+    stacked = masked_gram(torch.stack(xs), torch.stack(cs), w, schema=schema)
+    want = masked_gram_cols_plain(xs, cs, w, schema=schema)
+    assert torch.equal(got, again) and torch.equal(got, stacked)
+    if binary:
+        cm = count_mask(schema, cuda)
+        assert torch.equal(got[cm], want[cm])
+        assert float(got[0, 0]) == float(w.sum())
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-5 * float(want.abs().max()))
+
+
+def test_wide_gram_at_its_limit(cuda):
+    """P = MAX_WIDE_SIGMA_SIZE runs with all 136 regions (the kernel's
+    region table; no column is wide enough to drop one); one more column
+    raises before any launch."""
+    keys = (tuple(range(20)),) * 51
+    schema = FeatureSchema(num_cols=3, cat_keys=keys)
+    assert schema.sigma_size == _build.MAX_WIDE_SIGMA_SIZE
+    assert len(_build.wide_regions(schema)) == 136
+    rng = np.random.default_rng(8)
+    n = 5000
+    xs = [torch.tensor(rng.normal(size=n).astype(np.float32), device=cuda)
+          for _ in range(3)]
+    cs = [torch.tensor(rng.integers(0, len(k), n).astype(np.int32),
+                       device=cuda) for k in keys]
+    got = masked_gram_cols(xs, cs, None, schema=schema)
+    want = masked_gram_cols_plain(xs, cs, None, schema=schema)
+    cm = count_mask(schema, cuda)
+    assert torch.equal(got[cm], want[cm])
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-5 * float(want.abs().max()))
+    over = FeatureSchema(num_cols=4, cat_keys=keys)
+    with pytest.raises(ValueError):
+        masked_gram_cols(xs + xs[:1], cs, None, schema=over)
+
+
+@pytest.mark.parametrize("case", ["cat33", "cat337", "num", "num_noise"])
+def test_fused_impute_aggregate_wide_kernel_matches_plain(cuda, case):
+    """K2w at P = 492 (out-of-vocab codes in another column, an empty
+    class): the impute kernel scores in the plain version's f32 order, so
+    codes are equal and numerics equal up to the noise's log/cos rounding;
+    sigma as K7; a rerun is bit-identical."""
+    schema, xs, cs, w = wide_cols("P492", 50_003, cuda, seed=4)
+    rng = np.random.default_rng(5)
+    p = schema.sigma_size
+    kind = "cat" if case.startswith("cat") else "num"
+    col = {"cat33": 1, "cat337": 2}.get(case, 1)
+    r = len(schema.cat_keys[col]) if kind == "cat" else 1
+    w_full = rng.normal(size=(p, r)).astype(np.float32)
+    icpt = (rng.normal(size=r) if kind == "cat"
+            else np.zeros(r)).astype(np.float32)
+    if kind == "cat":
+        icpt[3] = -np.inf                     # an empty class
+    null = torch.tensor(rng.random(50_003) < 0.2, device=cuda)
+    kw = dict(schema=schema, kind=kind, imp_col=col,
+              noise=((7, 2, torch.tensor(0.6, device=cuda))
+                     if case == "num_noise" else None))
+    args = (xs, cs, null, w, torch.tensor(w_full, device=cuda),
+            torch.tensor(icpt, device=cuda))
+    before = fused_impute_aggregate.wide_launches
+    new, sig = fused_impute_aggregate(*args, **kw)
+    new2, sig2 = fused_impute_aggregate(*args, **kw)
+    assert fused_impute_aggregate.wide_launches == before + 2
+    assert torch.equal(new, new2) and torch.equal(sig, sig2)
+    want_new, want_sig = fused_impute_aggregate_plain(*args, **kw)
+    if kind == "cat":
+        assert torch.equal(new, want_new)
+        assert not torch.any(new[null] == 3)
+    else:
+        torch.testing.assert_close(new, want_new, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(sig, want_sig, rtol=0,
+                               atol=1e-5 * float(want_sig.abs().max()))
+
+
+@pytest.mark.parametrize("name", ["P21", "P492"])
+def test_run_mice_device_delta_on_the_card_matches_cpu(cuda, name):
+    """The delta loop on a CUDA table ('auto' = K1, or K7 at P = 492)
+    against the plain delta loop on the CPU: codes agree on ≥ 0.999 of the
+    cells, numerics within 1e-3 of max|x| on the rows whose codes agree (a
+    flipped code moves that row's prediction by its coefficient)."""
+    if name == "P492":
+        t_gpu = wide_table("P492", 30_000, cuda, seed=6)
+    else:
+        n = 30_000
+        xs, cs, _ = make_cols(n, 7, "cpu", oov=False)
+        x, c = torch.stack(xs).numpy(), torch.stack(cs).numpy()
+        rng = np.random.default_rng(7)
+        x[1] = 2 * x[0] + 0.3 * rng.normal(size=n)
+        nn = np.zeros(x.shape, bool)
+        cn = np.zeros(c.shape, bool)
+        nn[1] = rng.random(n) < 0.05
+        cn[0] = rng.random(n) < 0.05
+        t_gpu = from_numpy(x.T, c.T, nn.T, cn.T, schema=SCHEMA, device=cuda)
+    cpu = type(t_gpu)(*(a.cpu() for a in (t_gpu.num_data, t_gpu.cat_codes,
+                                          t_gpu.num_null, t_gpu.cat_null)),
+                      schema=t_gpu.schema)
+    k1, k7 = masked_gram_cols.launches, masked_gram_cols.wide_launches
+    got = run_mice_device_delta(t_gpu, iters=2)
+    # one full aggregation, then 2 per column step: 2 columns, 2 rounds
+    launched = (masked_gram_cols.launches - k1,
+                masked_gram_cols.wide_launches - k7)
+    assert launched == ((0, 9) if name == "P492" else (9, 0))
+    ref = run_mice_device_delta(cpu, iters=2)
+    same = (got.cat_codes.cpu() == ref.cat_codes).all(0)
+    assert float(same.float().mean()) >= 0.999
+    torch.testing.assert_close(got.num_data.cpu()[:, same],
+                               ref.num_data[:, same], rtol=0,
+                               atol=1e-3 * float(ref.num_data.abs().max()))

@@ -1,0 +1,329 @@
+"""Wide schemas (P > 88) in the port against the JAX package, on the CPU:
+the plain paths of K7 (masked_gram_cols, masked_gram) and K2w
+(fused_impute_aggregate) against the JAX Pallas kernels in interpret mode,
+K7's region plan and limits, the unfused predictors at P = 492, and
+run_mice_device on a small favorita_wide table against the JAX loop.
+
+favorita_wide is the schema of the Kaggle "Corporacion Favorita Grocery
+Sales Forecasting" data: 3 numeric columns and 9 categorical columns of
+54, 33, 337, 2, 2, 22, 16, 5 and 17 levels, P = 492.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from duckdb_imputation_tpu import FeatureSchema as RefSchema
+from duckdb_imputation_tpu.mice.device_round import (
+    mice_loop_device as ref_loop,
+)
+from duckdb_imputation_tpu.ring.kernels.sigma_fused import (
+    fused_impute_aggregate as ref_fused,
+    pack_lhs,
+)
+from duckdb_imputation_tpu.ring.kernels.sigma_pallas import (
+    sigma_pallas_fast_cols_padded,
+    sigma_pallas_fast_padded,
+    sigma_pallas_padded,
+)
+
+from duckdb_imputation_tpu_torch import FeatureSchema, from_numpy
+from duckdb_imputation_tpu_torch.mice.device_round import (
+    mice_loop_device,
+    mice_loop_device_fused,
+    run_mice_device,
+)
+from duckdb_imputation_tpu_torch.ring import sum as port_sum
+from duckdb_imputation_tpu_torch.ring.kernels import _build
+from duckdb_imputation_tpu_torch.ring.kernels.sigma_fused import (
+    fused_impute_aggregate,
+)
+from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas import (
+    masked_gram,
+    masked_gram_cols,
+)
+
+torch.set_num_threads(2)
+
+FAVORITA_VOCABS = (54, 33, 337, 2, 2, 22, 16, 5, 17)
+FAVORITA_KEYS = tuple(tuple(range(v)) for v in FAVORITA_VOCABS)
+# the wide schema of tests/test_kernels.py's fallback test: P = 125
+WIDE_125 = (4, (tuple(range(120)),))
+SCHEMAS = {"P125": WIDE_125, "favorita": (3, FAVORITA_KEYS)}
+
+
+def favorita(n, seed, null_frac=0.2, cat_col=1):
+    """A small favorita_wide table from numpy: city, state, type, cluster
+    fixed by the store; family and perishable fixed by the class (Zipf
+    class sizes); transactions linear in a store level, unit_sales in a
+    class level and onpromotion. Returns features-first (x, codes, num
+    null, cat null) with null_frac nulls in transactions and in
+    categorical column `cat_col` (1: family)."""
+    rng = np.random.default_rng(seed)
+    city = rng.integers(0, 22, 54)
+    state_of_city = rng.integers(0, 16, 22)
+    stype, cluster = rng.integers(0, 5, 54), rng.integers(0, 17, 54)
+    fam = rng.permutation(np.concatenate([np.arange(33),
+                                          rng.integers(0, 33, 337 - 33)]))
+    perish = rng.integers(0, 2, 33)
+    p = 1.0 / rng.permutation(np.arange(1, 338))
+    store = rng.integers(0, 54, n)
+    cls = rng.choice(337, n, p=p / p.sum())
+    promo = (rng.random(n) < 0.2).astype(int)
+    x = np.stack([rng.normal(size=337)[cls] + 1.5 * promo
+                  + 0.5 * rng.normal(size=n),
+                  2.0 * rng.normal(size=54)[store] + rng.normal(size=n),
+                  rng.normal(size=n)]).astype(np.float32)
+    codes = np.stack([store, fam[cls], cls, perish[fam[cls]], promo,
+                      city[store], state_of_city[city[store]], stype[store],
+                      cluster[store]]).astype(np.int32)
+    nn = np.zeros((3, n), bool)
+    cn = np.zeros((9, n), bool)
+    nn[1] = rng.random(n) < null_frac
+    cn[cat_col] = rng.random(n) < null_frac
+    return x, codes, nn, cn
+
+
+def random_inputs(name, n=3000, seed=0):
+    """Random x, codes (some out of vocab or negative), binary and general
+    weights for one of SCHEMAS."""
+    d, keys = SCHEMAS[name]
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(d, n)).astype(np.float32)
+    codes = np.stack([rng.integers(-1, len(k) + 1, n)
+                      for k in keys]).astype(np.int32)
+    w_bin = (rng.random(n) > 0.3).astype(np.float32)
+    w_gen = rng.random(n).astype(np.float32)
+    return d, keys, x, codes, w_bin, w_gen
+
+
+def assert_sigma_close(got, want, counts_exact, schema):
+    """Counts (N, one-hot and their cross counts) exact when asked; the
+    rest within 1e-6 of max|σ| (f32 sums in other orders; the JAX kernels
+    split values into bf16 hi/lo parts)."""
+    got, want = np.asarray(got), np.asarray(want)
+    if counts_exact:
+        d = schema.num_cols
+        for a, b in ((got[0, 0], want[0, 0]), (got[1 + d:, 1 + d:],
+                                                 want[1 + d:, 1 + d:]),
+                     (got[0, 1 + d:], want[0, 1 + d:])):
+            np.testing.assert_array_equal(a, b)
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-6 * np.abs(want).max())
+
+
+def test_check_schema_wide_limits():
+    """K1/K7 and K2/K2w take P up to MAX_WIDE_SIGMA_SIZE; the grouped
+    Grams (K4, K5) still stop at MAX_SIGMA_SIZE."""
+    for name in SCHEMAS:
+        schema = FeatureSchema(*SCHEMAS[name])
+        assert schema.sigma_size > _build.MAX_SIGMA_SIZE
+        _build.check_schema(schema, 1000, _build.MAX_WIDE_SIGMA_SIZE)
+        with pytest.raises(ValueError):
+            _build.check_schema(schema, 1000)
+    at_limit = FeatureSchema(num_cols=3, cat_keys=(tuple(range(1020)),))
+    assert at_limit.sigma_size == _build.MAX_WIDE_SIGMA_SIZE
+    _build.check_schema(at_limit, 1000, _build.MAX_WIDE_SIGMA_SIZE)
+    above = FeatureSchema(num_cols=4, cat_keys=(tuple(range(1020)),))
+    with pytest.raises(ValueError):
+        _build.check_schema(above, 1000, _build.MAX_WIDE_SIGMA_SIZE)
+
+
+@pytest.mark.parametrize("name", ["P125", "favorita"])
+def test_wide_regions_cover_every_nonzero_of_sigma(name):
+    """K7's plan: 64-aligned regions of the upper triangle, and every
+    region it drops is zero in the plain Gram of data that hits every code
+    (and some out of vocab)."""
+    d, keys, x, codes, w_bin, _ = random_inputs(name, n=20_000)
+    schema = FeatureSchema(d, keys)
+    p = schema.sigma_size
+    regions = _build.wide_regions(schema)
+    nr = -(-p // _build.WIDE_TILE)
+    assert all(i % 64 == 0 and j % 64 == 0 and i <= j < p
+               for i, j in regions)
+    assert len(set(regions)) == len(regions)
+    assert len(regions) == {"P125": 3, "favorita": 30}[name]
+    assert {(i, i) for i in range(0, p, 64)} <= set(regions)
+    sigma = masked_gram_cols(list(map(torch.tensor, x)),
+                             list(map(torch.tensor, codes)),
+                             torch.tensor(w_bin), schema=schema).numpy()
+    dropped = [(i, j) for i in range(0, p, 64) for j in range(i, p, 64)
+               if (i, j) not in set(regions)]
+    assert len(dropped) == nr * (nr + 1) // 2 - len(regions)
+    for i, j in dropped:
+        assert not sigma[i:i + 64, j:j + 64].any(), (i, j)
+
+
+def test_wide_slices_are_a_function_of_n_and_the_plan():
+    assert _build.wide_slices(1, 30) == 1
+    assert _build.wide_slices(10_000_000, 30) == 35          # 1050 blocks
+    assert _build.wide_slices(3000, 30) == 24                # 24 chunks
+    assert _build.wide_slices(10_000_000, 3) == 342
+    assert _build.wide_slices(10_000_000, 136) == 8
+
+
+@pytest.mark.parametrize("name", ["P125", "favorita"])
+def test_masked_gram_cols_wide_matches_jax(name):
+    """Binary weights: the port's masked_gram_cols (plain on the CPU)
+    against sigma_pallas_fast_cols_padded in interpret mode (v3 at P = 125,
+    v2 at pack 1 at P = 492)."""
+    d, keys, x, codes, w_bin, _ = random_inputs(name)
+    schema = FeatureSchema(d, keys)
+    want = sigma_pallas_fast_cols_padded(
+        tuple(jnp.asarray(a) for a in x), tuple(jnp.asarray(a) for a in codes),
+        jnp.asarray(w_bin), schema=RefSchema(num_cols=d, cat_keys=keys),
+        interpret=True)
+    got = masked_gram_cols(list(map(torch.tensor, x)),
+                           list(map(torch.tensor, codes)),
+                           torch.tensor(w_bin), schema=schema)
+    assert_sigma_close(got, want, True, schema)
+
+
+@pytest.mark.parametrize("name", ["P125", "favorita"])
+@pytest.mark.parametrize("weights", ["binary", "general"])
+def test_masked_gram_wide_matches_jax(name, weights):
+    """The stacked entry point against the JAX stacked dispatchers under
+    the TPU interpreter: sigma_pallas_fast_padded (binary weights; the v1
+    sigma_pallas_fast fallback at P = 492) and sigma_pallas_padded
+    (general weights, f32)."""
+    d, keys, x, codes, w_bin, w_gen = random_inputs(name, seed=1)
+    schema = FeatureSchema(d, keys)
+    w = w_bin if weights == "binary" else w_gen
+    ref_fn = (sigma_pallas_fast_padded if weights == "binary"
+              else sigma_pallas_padded)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(ref_fn(x, codes, w,
+                                 schema=RefSchema(num_cols=d, cat_keys=keys)))
+    got = masked_gram(torch.tensor(x), torch.tensor(codes), torch.tensor(w),
+                      schema=schema)
+    assert_sigma_close(got, want, weights == "binary", schema)
+
+
+@pytest.mark.parametrize("kind", ["cat", "num"])
+def test_fused_impute_aggregate_wide_matches_jax(kind):
+    """K2w's plain path at P = 492 against the JAX fused pass (v2 at pack
+    1, interpret mode): 'cat' imputes family (R = 33) from random
+    coefficients, 'num' imputes transactions. The JAX kernel scores
+    through a bf16 hi/lo split of the coefficients (about 2⁻¹⁶ of each
+    coefficient's magnitude), so codes agree except on near-ties (≥ 0.999
+    of rows) and a prediction, a sum of 13 terms of coefficients N(0, 1),
+    within 1e-4 absolute. 'cat' sigma: against the JAX Gram
+    (sigma_pallas_fast_cols_padded, interpret mode) of the port's own
+    imputed codes, as in assert_sigma_close, so a near-tie never skips it;
+    'num' sigma within 1e-5 of max|σ| of the JAX pass's."""
+    n = 3072
+    x, codes, nn, cn = favorita(n, seed=3)
+    schema = FeatureSchema(3, FAVORITA_KEYS)
+    rschema = RefSchema(num_cols=3, cat_keys=FAVORITA_KEYS)
+    rng = np.random.default_rng(4)
+    r, col = (33, 1) if kind == "cat" else (1, 1)
+    w_full = rng.normal(size=(schema.sigma_size, r)).astype(np.float32)
+    icpt = (rng.normal(size=r) if kind == "cat"
+            else np.zeros(1)).astype(np.float32)
+    null = cn[1] if kind == "cat" else nn[1]
+    w_agg = (~(nn[1] if kind == "cat" else cn[1])).astype(np.float32)
+    lhs = pack_lhs(jnp.asarray(w_full), jnp.asarray(icpt), schema=rschema,
+                   n_rows=r)
+    new_ref, sig_ref = ref_fused(
+        tuple(jnp.asarray(a) for a in x),
+        tuple(jnp.asarray(a) for a in codes),
+        jnp.asarray(null, jnp.float32), jnp.asarray(w_agg), lhs,
+        schema=rschema, kind=kind, imp_col=col, n_rows=r, chunk_cols=1024,
+        interpret=True)
+    new, sig = fused_impute_aggregate(
+        list(map(torch.tensor, x)), list(map(torch.tensor, codes)),
+        torch.tensor(null), torch.tensor(w_agg), torch.tensor(w_full),
+        torch.tensor(icpt), schema=schema, kind=kind, imp_col=col)
+    new_ref = np.asarray(new_ref)
+    if kind == "cat":
+        same = new.numpy() == new_ref
+        assert same.mean() >= 0.999
+        np.testing.assert_array_equal(new.numpy()[~null], codes[col][~null])
+        imputed = codes.copy()
+        imputed[col] = new.numpy()
+        want = sigma_pallas_fast_cols_padded(
+            tuple(jnp.asarray(a) for a in x),
+            tuple(jnp.asarray(a) for a in imputed), jnp.asarray(w_agg),
+            schema=rschema, interpret=True)
+        assert_sigma_close(sig, want, True, schema)
+    else:
+        np.testing.assert_allclose(new.numpy(), new_ref, rtol=0, atol=1e-4)
+        np.testing.assert_array_equal(new.numpy()[~null], x[col][~null])
+        np.testing.assert_allclose(sig.numpy(), np.asarray(sig_ref),
+                                   rtol=0,
+                                   atol=1e-5 * np.abs(sig_ref).max())
+
+
+def test_unfused_predict_at_p492_builds_no_onehot(monkeypatch):
+    """class_argmax and linear_predict at P = 492 gather coefficients per
+    code: no [n, P] (or [P, n]) one-hot of the table is built."""
+    x, codes, _, _ = favorita(2000, seed=5)
+    schema = FeatureSchema(3, FAVORITA_KEYS)
+
+    def refuse(*a, **k):
+        raise AssertionError("a one-hot block was built")
+
+    monkeypatch.setattr(port_sum, "onehot_block_t", refuse)
+    monkeypatch.setattr(port_sum, "_zt_block", refuse)
+    rng = np.random.default_rng(6)
+    xs, cs = list(map(torch.tensor, x)), list(map(torch.tensor, codes))
+    w = torch.tensor(rng.normal(size=(492, 33)).astype(np.float32))
+    pred = port_sum.class_argmax(w, torch.zeros(33), xs, cs, schema=schema)
+    theta = torch.tensor(rng.normal(size=492).astype(np.float32))
+    y = port_sum.linear_predict(theta, xs, cs, schema=schema)
+    assert pred.shape == (2000,) and y.shape == (2000,)
+
+
+def test_mice_loop_device_wide_matches_reference():
+    """The unfused and fused loops at P = 492 against the JAX unfused
+    loop (kernel='xla', trainer='solve'), 2 rounds, imputing transactions
+    and type (R = 5: the JAX loop's compile time grows with R·V, minutes at
+    family's R = 33): type codes agree on ≥ 0.99 of the null cells (the
+    LDA solves through different SVDs of a near-singular covariance),
+    observed cells unchanged; on the rows whose codes all agree (≥ 0.99 of
+    the rows) transactions within 1e-3 of max|x|."""
+    x, c, nn, cn = favorita(3000, seed=7, cat_col=7)
+    kw = dict(num_cols_to_impute=(1,), cat_cols_to_impute=(7,), iters=2)
+    ref_x, ref_c, _ = ref_loop(
+        jnp.asarray(x), jnp.asarray(c), jnp.asarray(nn), jnp.asarray(cn),
+        jax.random.PRNGKey(0), schema=RefSchema(3, FAVORITA_KEYS),
+        kernel="xla", trainer="solve", noise=False, **kw)
+    ref_x, ref_c = np.asarray(ref_x), np.asarray(ref_c)
+    args = tuple(torch.tensor(a) for a in (x, c, nn, cn))
+    schema = FeatureSchema(3, FAVORITA_KEYS)
+    for got_x, got_c in (
+            mice_loop_device(*args, schema=schema, kernel="gram", **kw),
+            mice_loop_device_fused(*args, schema=schema, **kw)):
+        got_x, got_c = got_x.numpy(), got_c.numpy()
+        assert (got_c[7][cn[7]] == ref_c[7][cn[7]]).mean() >= 0.99
+        np.testing.assert_array_equal(got_c[~cn], c[~cn])
+        np.testing.assert_array_equal(got_x[~nn], x[~nn])
+        same = (got_c == ref_c).all(0)
+        assert same.mean() >= 0.99
+        np.testing.assert_allclose(got_x[:, same], ref_x[:, same], rtol=0,
+                                   atol=1e-3 * np.abs(ref_x).max())
+
+
+def test_run_mice_device_wide_quality():
+    """run_mice_device at P = 492, every kernel value (plain versions on
+    the CPU): family accuracy on its null cells above the mode prior +
+    0.02, transactions RMSE below the mean fill's."""
+    x, c, nn, cn = favorita(6000, seed=8)
+    truth_x, truth_c = x[1].copy(), c[1].copy()
+    x = np.where(nn, 0.0, x).astype(np.float32)
+    c = np.where(cn, 0, c).astype(np.int32)
+    t = from_numpy(x.T, c.T, nn.T, cn.T)
+    prior = np.bincount(truth_c[~cn[1]]).max() / (~cn[1]).sum()
+    mean_fill = np.sqrt(np.mean((truth_x[~nn[1]].mean()
+                                 - truth_x[nn[1]]) ** 2))
+    outs = {k: run_mice_device(t, iters=2, kernel=k)
+            for k in ("plain", "gram", "fused")}
+    for k, out in outs.items():
+        acc = (out.cat_codes[1].numpy()[cn[1]] == truth_c[cn[1]]).mean()
+        rmse = np.sqrt(np.mean((out.num_data[1].numpy()[nn[1]]
+                                - truth_x[nn[1]]) ** 2))
+        assert acc > prior + 0.02, (k, acc, prior)
+        assert rmse < mean_fill, (k, rmse, mean_fill)
+    assert torch.equal(outs["gram"].cat_codes, outs["fused"].cat_codes)
