@@ -18,7 +18,13 @@ Drives the three paths of `duckdb_imputation_tpu_torch` ported so far:
   where the masked Gram is the wide kernel K7 and the fused pass K2w
   (`[K7]`, `[K2w]`, `[wide]`: `run_mice_device`, unfused and fused); then
   `run_mice_device_delta` at config 5 with 1%, 5% and 20% nulls and at
-  `favorita_wide` with 5%, each against `run_mice_device` (`[delta]`).
+  `favorita_wide` with 5%, each against `run_mice_device` (`[delta]`);
+- the classifier path at wide schemas, `favorita_classify`: the
+  favorita_wide table with no nulls, one categorical column taken as the
+  label, at 10M rows. Label onpromotion (2 classes, P = 490) and label
+  family (33 classes, P = 459): the grouped Gram is the wide kernel K8
+  (after a sort), the NB sums K6w, QDA scoring K3w (`[K8]`, `[K6w]`,
+  `[K3w]`, `[classify_wide]`: QDA and NB pipelines for both labels).
 
 First it builds the kernels from `duckdb_imputation_tpu_torch/csrc/` and
 holds each against its plain torch version at the shapes its path gives
@@ -30,10 +36,13 @@ ungrouped aggregate, on the config-4 table.
 
 Run from the root of a checkout. Prints one line per phase, then a JSON
 line of per-kernel results (`launches` from the run of each kernel's
-path; for K1 and K7 also `delta_launches`, from the delta runs alone),
-then the device as the last line. Any failed
-check raises and ends the run with a nonzero exit; so does a machine
-without a CUDA device.
+path; for K1 and K7 also `delta_launches`, from the delta runs alone;
+`bound_ms`, the least time the card could take for the kernel's work,
+computed from this run's shapes with `bound`; `library_ms`, one PyTorch
+call computing the same function, where there is one), then the card's
+name and power limit, then the device as the last line. Any failed check
+raises and ends the run with a nonzero exit; so does a machine without a
+CUDA device.
 """
 from __future__ import annotations
 
@@ -112,7 +121,9 @@ def make_table(n: int, seed: int, *, noise_fixture: bool = False,
                  cat_null=cat_null, schema=schema), truth
 
 
-def phase_device() -> None:
+def phase_device() -> str:
+    """Logs the versions and the card; returns nvidia-smi's name and power
+    limit line."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -123,6 +134,7 @@ def phase_device() -> None:
         f"python {sys.version.split()[0]} count "
         f"{torch.cuda.device_count()}")
     log(card)
+    return card
 
 
 def phase_build():
@@ -151,6 +163,111 @@ def count_entries(schema):
 
 def rel_err(got, want) -> float:
     return float((got - want).abs().max() / want.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# Bounds and library yardsticks of the kernels line
+# ---------------------------------------------------------------------------
+
+# Published peaks of one H100 SXM (NVIDIA's data sheet, at its 700 W
+# limit): HBM bytes a second, and f32 FLOP/s on the CUDA cores, where every
+# kernel of the port computes.
+PEAK_BYTES = 3.35e12
+PEAK_F32 = 67e12
+
+
+def bound(nbytes: float, flops: float) -> dict:
+    """bound_ms: the least time the card could take for work that must
+    move `nbytes` (each input read once, each output written once) and do
+    `flops` f32 operations (a multiply-add is 2), the larger of the two
+    times; bound_by names which."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32 * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def row_bytes(schema, extra: int = 0) -> int:
+    """Bytes a row of x f32 and codes i32 takes, plus `extra`."""
+    return 4 * schema.num_cols + 4 * schema.cat_cols + extra
+
+
+def gram_bound(codes, schema, weights=None, groups: int = 1,
+               extra: int = 4, scores: int = 0, scored=None) -> dict:
+    """A (grouped) masked Gram over the rows of codes i32[c, n]: x, codes
+    and `extra` bytes a row (the weights; + group ids) read once, f32[G, P,
+    P] written once. Zᵀ·diag(w)·Z is a sparse product: a row's z has
+    k = 1 + d + (its codes in range) nonzeros, so the rows with w ≠ 0
+    need k(k+1)/2 multiply-adds each (the upper triangle), not P(P+1)/2.
+    Plus `scores` multiply-adds for each of `scored` rows (a fused pass
+    scoring its null rows; all n when None)."""
+    d, n = schema.num_cols, codes.shape[-1]
+    k = 1 + d + sum(((codes[j] >= 0) & (codes[j] < size)).long()
+                    for j, size in enumerate(schema.cat_sizes))
+    fma = k * (k + 1) // 2
+    if weights is not None:
+        fma = torch.where(weights != 0, fma, 0)
+    fma = int(fma.sum()) + (n if scored is None else scored) * scores
+    return bound(n * row_bytes(schema, extra) + groups * schema.sigma_size
+                 * schema.sigma_size * 4, 2 * fma)
+
+
+def nb_bound(n: int, schema, groups: int) -> dict:
+    """NB sums: x, codes, weights and ids read once, f32[G, F] written
+    once; 1 + 3d + c operations a row (count, x, x², one-hots)."""
+    f = 1 + 2 * schema.num_cols + schema.vocab_size
+    return bound(n * row_bytes(schema, 8) + groups * f * 4,
+                 n * (1 + 3 * schema.num_cols + schema.cat_cols))
+
+
+def qda_bound(n: int, schema, classes: int, rank: int) -> dict:
+    """QDA scoring: x and codes read, i32[n] written, the factors f32[C,
+    m, r], lin and b read once; C·(r·(d + c + 1) + d + c) multiply-adds a
+    row (y = Lᵀz over the row's nonzeros, ‖y‖², lin·z)."""
+    d, c, m = schema.num_cols, schema.cat_cols, schema.sigma_size - 1
+    return bound(n * row_bytes(schema, 4) + classes * (m * rank + m + 1) * 4,
+                 2 * n * classes * (rank * (d + c + 1) + d + c))
+
+
+def dense_block(x, codes, schema, squares: bool = False):
+    """Zᵀ = [1 ‖ x ‖ onehot(codes)] f32[P, n] in device memory, or with
+    `squares` the NB features [1 ‖ x ‖ x² ‖ onehot] f32[F, n]; a code
+    outside [0, size) sets nothing. The dense operand of a library call."""
+    d, n = schema.num_cols, codes.shape[-1]
+    base = 1 + (2 if squares else 1) * d
+    zt = torch.zeros((base + schema.vocab_size, n), device=DEVICE)
+    zt[0] = 1.0
+    zt[1:1 + d] = x
+    if squares:
+        zt[1 + d:base] = x * x
+    rows = torch.arange(n, device=DEVICE)
+    for j, (off, size) in enumerate(zip(schema.offsets, schema.cat_sizes)):
+        ok = (codes[j] >= 0) & (codes[j] < size)
+        zt[base + off + codes[j][ok].long(), rows[ok]] = 1.0
+    return zt
+
+
+def library_gram_ms(x, codes, w, schema) -> float:
+    """ms of one cuBLAS f32 product (Zᵀ·w) @ Z, the masked Gram from its
+    dense operand (TF32 off)."""
+    zt = dense_block(x, codes, schema)
+    zw = zt * w
+    ms = cuda_ms(lambda: torch.mm(zw, zt.T), reps=3, warmup=1)
+    del zt, zw
+    torch.cuda.empty_cache()
+    return ms
+
+
+def library_nb_ms(x, codes, w, ids, schema, groups: int) -> float:
+    """ms of one cuBLAS f32 product F @ Wᵀ, the grouped NB sums from the
+    dense features and W[g, r] = w_r·[id_r = g] (TF32 off)."""
+    ft = dense_block(x, codes, schema, squares=True)
+    wm = (ids[None] == torch.arange(groups, device=DEVICE)[:, None]).float()
+    if w is not None:
+        wm = wm * w
+    ms = cuda_ms(lambda: torch.mm(ft, wm.T), reps=3, warmup=1)
+    del ft, wm
+    torch.cuda.empty_cache()
+    return ms
 
 
 def phase_k1(seed: int) -> dict:
@@ -193,7 +310,12 @@ def phase_k1(seed: int) -> dict:
             f" ms")
         if n == N:
             out = dict(max_abs_err=float((got - want).abs().max()), ms=ms,
-                       plain_ms=plain_ms)
+                       plain_ms=plain_ms,
+                       **gram_bound(torch.stack(cs), schema, w[:n]),
+                       library_ms=library_gram_ms(
+                           torch.stack(xs), torch.stack(cs), w[:n], schema))
+    log(f"[K1] n={N}: bound {out['bound_ms']:.4f} ms ({out['bound_by']}), "
+        f"library (Zᵀw)@Z {out['library_ms']:.4f} ms")
     return out
 
 
@@ -255,7 +377,9 @@ def phase_k1_stacked(seed: int) -> dict:
             f" bit-identical rerun; kernel {ms:.4f} ms, plain {plain_ms:.4f}"
             f" ms")
         if name == "binary":
-            out = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms)
+            out = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                       **gram_bound(codes, schema, w),
+                       library_ms=library_gram_ms(x, codes, w, schema))
     return out, launches
 
 
@@ -294,9 +418,14 @@ def phase_k2(seed: int) -> dict:
     plain_ms = cuda_ms(lambda: fused_impute_aggregate_plain(*cat_args,
                                                             **cat_kw),
                        reps=3, warmup=1)
+    # mask byte and weights read, the new column written: 9 bytes a row
+    k2_bound = gram_bound(t.cat_codes, schema, w_x1, extra=9,
+                          scores=8 * (1 + 4 + 2),
+                          scored=int(t.cat_null[0].sum()))
     log(f"[K2] cat step n={N}: code agreement {agree:.6f}, sigma max rel "
         f"err {err:.3e}, max abs err {abs_err:.3e}; kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms")
+        f"plain {plain_ms:.4f} ms, bound {k2_bound['bound_ms']:.4f} ms "
+        f"({k2_bound['bound_by']})")
 
     sig_x = masked_gram_cols(x_cols, code_cols, w_x1, schema=schema)
     coeff = linreg_solve_device(sig_x, label=2)
@@ -318,7 +447,9 @@ def phase_k2(seed: int) -> dict:
         k_ms = cuda_ms(lambda: fused_impute_aggregate(*num_args, **num_kw))
         log(f"[K2] num step n={N} noise={noise is not None}: max|Δx| "
             f"{dx:.3e}, sigma max rel err {e:.3e}; kernel {k_ms:.4f} ms")
-    return dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms)
+    # no single PyTorch call imputes and aggregates in one pass
+    return dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, **k2_bound,
+                library_ms=None)
 
 
 def phase_reference(seed: int) -> None:
@@ -604,7 +735,12 @@ def phase_k4(seed: int) -> dict:
             f"{abs_err:.3e}, bit-identical rerun; kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms")
         if name == "binary":
-            out = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms)
+            # no single PyTorch call computes a Gram per group
+            out = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                       **gram_bound(codes, schema,
+                                    w * ((g >= 0) & (g < CLASSES)), CLASSES,
+                                    extra=8),
+                       library_ms=None)
     return out
 
 
@@ -653,7 +789,9 @@ def phase_k5(seed: int) -> dict:
             f"{err:.3e}, max abs err {abs_err:.3e}, bit-identical rerun; "
             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
         if groups == CLASSES:
-            out = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms)
+            out = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                       **gram_bound(codes, schema, w * (g < CLASSES),
+                                    CLASSES), library_ms=None)
     return out
 
 
@@ -701,7 +839,9 @@ def phase_k6(seed: int) -> dict:
             f"{abs_err:.3e}, bit-identical rerun; kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms")
         if w is None:
-            out = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms)
+            out = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                       **nb_bound(N, schema, 5),
+                       library_ms=library_nb_ms(x, codes, w, y, schema, 5))
 
     # above one launch's 32 groups: ceil(G / 32) launches, each reading the
     # whole table
@@ -758,11 +898,14 @@ def phase_k3(seed: int) -> dict:
     plain_ms = cuda_ms(lambda: qda_predict_plain(*scorers, x, codes,
                                                  schema=schema),
                        reps=3, warmup=1)
-    log(f"[K3] n={N} C={CLASSES} P={schema.sigma_size}: argmax agreement "
-        f"with the plain version {agree:.7f}; kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms")
+    rank = scorers[0].shape[-1]
+    log(f"[K3] n={N} C={CLASSES} P={schema.sigma_size} r={rank}: argmax "
+        f"agreement with the plain version {agree:.7f}; kernel {ms:.4f} ms,"
+        f" plain {plain_ms:.4f} ms")
+    # no single PyTorch call scores and takes the argmax over classes
     return dict(max_abs_err=float((got - want).abs().max()), ms=ms,
-                plain_ms=plain_ms)
+                plain_ms=plain_ms, **qda_bound(N, schema, CLASSES, rank),
+                library_ms=None)
 
 
 def qda_pipeline(x, codes, y, schema, classes: int):
@@ -1020,7 +1163,11 @@ def phase_k7(seed: int, n: int = N) -> dict:
             f"{abs_err:.3e}, bit-identical rerun; kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms")
         if name.startswith("cols P=492"):
-            out = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms)
+            out = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                       **gram_bound(codes, t.schema, w_bin))
+    out["library_ms"] = library_gram_ms(t.num_data, codes, w_bin, t.schema)
+    log(f"[K7] n={n} P=492: bound {out['bound_ms']:.4f} ms "
+        f"({out['bound_by']}), library (Zᵀw)@Z {out['library_ms']:.4f} ms")
     return out
 
 
@@ -1070,11 +1217,17 @@ def phase_k2w(seed: int, n: int = N) -> dict:
                      warmup=1)
         plain_ms = cuda_ms(lambda: fused_impute_aggregate_plain(*args, **kw),
                            reps=2, warmup=1)
+        rclasses = schema.cat_sizes[col]
+        k_bound = gram_bound(t.cat_codes, schema, w_next, extra=9,
+                             scores=rclasses * (1 + 3 + 9),
+                             scored=int(null.sum()))
         log(f"[K2w] cat step {name} n={n}: code agreement {agree:.7f}, "
             f"sigma max rel err {err:.3e}, max abs err {abs_err:.3e}; "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{k_bound['bound_ms']:.4f} ms ({k_bound['bound_by']})")
         if col == 1:
-            out = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms)
+            out = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                       **k_bound, library_ms=None)
 
     sig_x = masked_gram_cols(xs, cs, w_tx, schema=schema)
     coeff = linreg_solve_device(sig_x, label=2)
@@ -1290,6 +1443,384 @@ def phase_delta(seed: int, n: int = N) -> dict:
     return {"masked_gram_cols": k1, "wide_gram": k7}
 
 
+# ---------------------------------------------------------------------------
+# The classifier path at wide schemas: favorita_classify (K8, K6w, K3w)
+# ---------------------------------------------------------------------------
+
+# favorita_classify: one categorical column of favorita_wide as the label
+LABELS = {"onpromotion": 4, "family": 1}
+
+
+def make_favorita_classify(n: int, seed: int, label: str, device=None):
+    """make_favorita's table with no nulls, categorical column `label`
+    taken out of the features as the class. onpromotion: 2 classes, ~20%
+    positive, P = 490; family: 33 classes, P = 459. Returns (x f32[3, n],
+    codes i32[8, n], y i32[n], schema, classes)."""
+    from duckdb_imputation_tpu_torch import FeatureSchema
+
+    t, _ = make_favorita(n, seed, null_frac=0.0, device=device)
+    col = LABELS[label]
+    keep = [j for j in range(len(FAVORITA_VOCABS)) if j != col]
+    schema = FeatureSchema(num_cols=3, cat_keys=tuple(
+        t.schema.cat_keys[j] for j in keep))
+    return (t.num_data, t.cat_codes[keep].contiguous(),
+            t.cat_codes[col].contiguous(), schema, FAVORITA_VOCABS[col])
+
+
+def phase_k8(seed: int) -> dict:
+    """K8 at favorita_classify, 10M rows: label family (G = 33, P = 459)
+    through sort_by_group and the presorted entry, binary weights, some
+    ids out of range and codes out of vocab; then label onpromotion (G = 2,
+    P = 490) through the unsorted entry (which sorts first), binary and
+    general weights. Each against its plain version."""
+    from duckdb_imputation_tpu_torch.ring.kernels._build import wide_regions
+    from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas_grouped import (
+        grouped_gram, grouped_gram_plain, grouped_gram_presorted,
+        grouped_gram_presorted_plain, sort_by_group)
+
+    x, codes, y, schema, classes = make_favorita_classify(N, seed + 20,
+                                                          "family")
+    codes[1, :1000] = 337        # class: out of vocab
+    codes[0, 1000:2000] = -1
+    ids = y.clone()
+    ids[:777] = classes + 3      # out of range: dropped
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed + 21)
+    w = (torch.rand(N, generator=gen, device=DEVICE) >= 0.2).float()
+    t0 = time.perf_counter()
+    args = sort_by_group(x, codes, ids, schema=schema, num_groups=classes,
+                         weights=w)
+    torch.cuda.synchronize()
+    sort_ms = (time.perf_counter() - t0) * 1e3
+    before = grouped_gram_presorted.wide_launches
+    got = grouped_gram_presorted(*args, schema=schema)
+    again = grouped_gram_presorted(*args, schema=schema)
+    want = grouped_gram_presorted_plain(*args, schema=schema)
+    torch.cuda.synchronize()
+    check(grouped_gram_presorted.wide_launches == before + 2,
+          "K8 was not launched by grouped_gram_presorted")
+    err = check_grouped("K8 family", got, again, want, schema, binary=True)
+    ms = cuda_ms(lambda: grouped_gram_presorted(*args, schema=schema),
+                 reps=3, warmup=1)
+    plain_ms = cuda_ms(lambda: grouped_gram_presorted_plain(
+        *args, schema=schema), reps=1, warmup=1)
+    abs_err = float((got - want).abs().max())
+    out = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+               **gram_bound(codes, schema, w * (ids < classes), classes),
+               library_ms=None)
+    log(f"[K8] n={N} family G={classes} P={schema.sigma_size} "
+        f"({len(wide_regions(schema))} regions): sort_by_group {sort_ms:.1f} ms "
+        f"(host clock, first call); counts exact, max rel err {err:.3e} (of "
+        f"max|σ| per group), max abs err {abs_err:.3e}, bit-identical rerun;"
+        f" kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{out['bound_ms']:.4f} ms ({out['bound_by']})")
+    del args, got, again, want
+
+    x, codes, y, schema, classes = make_favorita_classify(N, seed + 22,
+                                                          "onpromotion")
+    for name, wt in (("binary", w), ("general", torch.rand(
+            N, generator=gen, device=DEVICE))):
+        kw = dict(schema=schema, num_groups=classes)
+        before = grouped_gram_presorted.wide_launches
+        got = grouped_gram(x, codes, wt, y, **kw)
+        again = grouped_gram(x, codes, wt, y, **kw)
+        want = grouped_gram_plain(x, codes, wt, y, **kw)
+        torch.cuda.synchronize()
+        check(grouped_gram_presorted.wide_launches == before + 2,
+              "K8 was not launched through grouped_gram")
+        err = check_grouped(f"K8 onpromotion {name}", got, again, want,
+                            schema, binary=name == "binary")
+        k_ms = cuda_ms(lambda: grouped_gram(x, codes, wt, y, **kw), reps=3,
+                       warmup=1)
+        p_ms = cuda_ms(lambda: grouped_gram_plain(x, codes, wt, y, **kw),
+                       reps=1, warmup=1)
+        k_bound = gram_bound(codes, schema, wt, classes, extra=8)
+        log(f"[K8] n={N} onpromotion G={classes} P={schema.sigma_size} "
+            f"{name} weights, unsorted entry (sort + K8): "
+            + ("counts exact, " if name == "binary" else "")
+            + f"max rel err {err:.3e}, max abs err "
+            f"{float((got - want).abs().max()):.3e}, bit-identical rerun; "
+            f"sort + kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+            f"{k_bound['bound_ms']:.4f} ms ({k_bound['bound_by']})")
+    return out
+
+
+def phase_k6w(seed: int) -> dict:
+    """K6w at favorita_classify, 10M rows, no weights: label family (33
+    groups: two launches of two feature ranges, F = 462) and label
+    onpromotion (2 groups, F = 493); some codes out of vocab."""
+    from duckdb_imputation_tpu_torch.ring.kernels.nb_pallas import (
+        nb_grouped_sums, nb_grouped_sums_plain)
+
+    out = {}
+    for label in ("family", "onpromotion"):
+        x, codes, y, schema, classes = make_favorita_classify(
+            N, seed + 23, label)
+        codes[-1, :1000] = 17        # cluster: out of vocab
+        d = schema.num_cols
+        kw = dict(schema=schema, num_groups=classes)
+        before = nb_grouped_sums.wide_launches
+        got = nb_grouped_sums(x, codes, None, y, **kw)
+        per_call = nb_grouped_sums.wide_launches - before
+        again = nb_grouped_sums(x, codes, None, y, **kw)
+        want = nb_grouped_sums_plain(x, codes, None, y, **kw)
+        torch.cuda.synchronize()
+        check(per_call == -(-classes // 32),
+              f"K6w {label}: {per_call} wide launches a call")
+        check(torch.isfinite(got).all(), "K6w sums not finite")
+        check(torch.equal(got, again), "K6w repeated run not bit-identical")
+        cnt = torch.cat([got[:, :1], got[:, 1 + 2 * d:]], 1)
+        check(torch.equal(cnt, torch.cat([want[:, :1], want[:, 1 + 2 * d:]],
+                                         1)),
+              f"K6w {label} counts differ from the plain version")
+        check(float(got[:, 0].sum()) == N, "K6w counts do not sum to n")
+        errs = {sec: rel_err(got[:, lo:hi], want[:, lo:hi])
+                for sec, lo, hi in (("lin", 1, 1 + d),
+                                    ("quad_diag", 1 + d, 1 + 2 * d))}
+        check(max(errs.values()) <= 1e-5, f"K6w {label}: rel errors {errs}")
+        ms = cuda_ms(lambda: nb_grouped_sums(x, codes, None, y, **kw))
+        plain_ms = cuda_ms(lambda: nb_grouped_sums_plain(x, codes, None, y,
+                                                         **kw),
+                           reps=2, warmup=1)
+        abs_err = float((got - want).abs().max())
+        res = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                   **nb_bound(N, schema, classes))
+        log(f"[K6w] n={N} {label} G={classes} F={got.shape[1]} ({per_call} "
+            f"launches a call): counts exact, rel err {errs}, max abs err "
+            f"{abs_err:.3e}, bit-identical rerun; kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {res['bound_ms']:.4f} ms "
+            f"({res['bound_by']})")
+        if label == "family":
+            res["library_ms"] = library_nb_ms(x, codes, None, y, schema,
+                                              classes)
+            log(f"[K6w] library F@Wᵀ {res['library_ms']:.4f} ms")
+            out = res
+    return out
+
+
+def phase_k3w(seed: int) -> dict:
+    """K3w with the factors of QDA trained on favorita_classify (K8 and
+    f64 training at 10M rows): label family (C = 33) held against the
+    plain scorer at 1M rows (it launches C·r·(d + c) small kernels) and
+    timed at 10M; label onpromotion (C = 2) held and timed at 10M."""
+    from duckdb_imputation_tpu_torch.models.device import qda_train_device
+    from duckdb_imputation_tpu_torch.ring.kernels._build import qda_route
+    from duckdb_imputation_tpu_torch.ring.kernels.qda_pallas import (
+        qda_predict_kernel, qda_predict_plain, qda_scorers)
+    from duckdb_imputation_tpu_torch.ring.sum import sum_to_triple_grouped
+    from duckdb_imputation_tpu_torch.ring.triple import sigma_from_triple
+
+    out = {}
+    for label, n_check in (("family", 1_000_000), ("onpromotion", N)):
+        x, codes, y, schema, classes = make_favorita_classify(
+            N, seed + 24, label)
+        sig = sigma_from_triple(sum_to_triple_grouped(
+            x, codes, y, schema=schema, num_groups=classes))
+        scorers = qda_scorers(*qda_train_device(sig, float(N)))
+        rank = scorers[0].shape[-1]
+        check(qda_route(schema, classes, rank) == "K3w",
+              f"K3w {label}: factors of rank {rank} fit K3")
+        xs, cs = x[:, :n_check].contiguous(), codes[:, :n_check].contiguous()
+        before = qda_predict_kernel.wide_launches
+        got = qda_predict_kernel(*scorers, xs, cs, schema=schema)
+        again = qda_predict_kernel(*scorers, xs, cs, schema=schema)
+        want = qda_predict_plain(*scorers, xs, cs, schema=schema)
+        torch.cuda.synchronize()
+        check(qda_predict_kernel.wide_launches == before + 2,
+              f"K3w {label} was not launched")
+        check(torch.equal(got, again), "K3w repeated run not bit-identical")
+        agree = float((got == want).float().mean())
+        check(agree >= 0.9999, f"K3w {label} argmax agreement {agree}")
+        ms = cuda_ms(lambda: qda_predict_kernel(*scorers, x, codes,
+                                                schema=schema),
+                     reps=3, warmup=1)
+        plain_ms = cuda_ms(lambda: qda_predict_plain(*scorers, x, codes,
+                                                     schema=schema),
+                           reps=1, warmup=0)
+        res = dict(max_abs_err=float((got - want).abs().max()), ms=ms,
+                   plain_ms=plain_ms, **qda_bound(N, schema, classes, rank),
+                   library_ms=None)
+        log(f"[K3w] {label} C={classes} P={schema.sigma_size} r={rank} "
+            f"(factors {classes * (schema.sigma_size - 1) * rank * 4 / 2**20:.2f}"
+            f" MiB): argmax agreement with the plain version at "
+            f"n={n_check} {agree:.7f}, bit-identical rerun; at n={N} kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{res['bound_ms']:.4f} ms ({res['bound_by']})")
+        if label == "family":
+            out = res
+    return out
+
+
+def _stages(label_table, model: str) -> dict:
+    """ms of each stage of one pipeline (host clock around work that ends
+    in a synchronize): aggregate, train, scorers (QDA's f64 eigh; NB builds
+    its factor in predict), predict."""
+    from duckdb_imputation_tpu_torch.models.device import (
+        nb_predict_device, nb_train_device, qda_predict_device,
+        qda_train_device)
+    from duckdb_imputation_tpu_torch.ring.kernels.qda_pallas import (
+        qda_predict_kernel, qda_scorers)
+    from duckdb_imputation_tpu_torch.ring.sum import (
+        sum_to_nb_agg_grouped, sum_to_triple_grouped)
+    from duckdb_imputation_tpu_torch.ring.triple import sigma_from_triple
+
+    x, codes, y, schema, classes = label_table
+    ms = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        ms[name] = (time.perf_counter() - t0) * 1e3
+        return r
+
+    if model == "qda":
+        sig = timed("aggregate", lambda: sigma_from_triple(
+            sum_to_triple_grouped(x, codes, y, schema=schema,
+                                  num_groups=classes)))
+        params = timed("train", lambda: qda_train_device(sig, float(N)))
+        scorers = timed("scorers", lambda: qda_scorers(*params))
+        timed("predict", lambda: qda_predict_kernel(*scorers, x, codes,
+                                                    schema=schema))
+        ms["rank"] = scorers[0].shape[-1]
+        timed("predict_device", lambda: qda_predict_device(
+            *params, x, codes, schema=schema))
+    else:
+        agg = timed("aggregate", lambda: sum_to_nb_agg_grouped(
+            x, codes, y, schema=schema, num_groups=classes))
+        params = timed("train", lambda: nb_train_device(
+            agg.n, agg.lin, agg.quad_diag, agg.lin_cat))
+        timed("predict", lambda: nb_predict_device(*params, x, codes,
+                                                   schema=schema))
+    return ms
+
+
+def phase_classify_wide(seed: int) -> dict:
+    """The classifier path at favorita_classify, 10M rows, through the
+    entry points a user calls: QDA and NB for label onpromotion (unsorted
+    entry: sort + K8; K6w; K3w for QDA, K3 for NB's rank-4 factors) and
+    label family (sort + K8; K6w in two launches; K3w for both). Launch
+    counts checked exactly; accuracy against the true labels; card against
+    CPU at 200k rows; ms per pipeline and per stage; the f64 SVD drivers
+    of QDA training."""
+    from duckdb_imputation_tpu_torch.models.device import qda_train_device
+    from duckdb_imputation_tpu_torch.ring.kernels._build import qda_route
+    from duckdb_imputation_tpu_torch.ring.kernels.nb_pallas import (
+        nb_grouped_sums)
+    from duckdb_imputation_tpu_torch.ring.kernels.qda_pallas import (
+        qda_predict_kernel, qda_scorers)
+    from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas_grouped import (
+        grouped_gram, grouped_gram_presorted)
+    from duckdb_imputation_tpu_torch.ring.sum import sum_to_triple_grouped
+    from duckdb_imputation_tpu_torch.ring.triple import sigma_from_triple
+
+    tables = {label: make_favorita_classify(N, seed + 25, label)
+              for label in LABELS}
+    counters = [(grouped_gram, "launches"),
+                (grouped_gram_presorted, "launches"),
+                (grouped_gram_presorted, "wide_launches"),
+                (nb_grouped_sums, "launches"),
+                (nb_grouped_sums, "wide_launches"),
+                (qda_predict_kernel, "launches"),
+                (qda_predict_kernel, "wide_launches")]
+    torch.cuda.synchronize()
+    for fn, attr in counters:
+        setattr(fn, attr, 0)
+    preds = {}
+    for label, (x, codes, y, schema, classes) in tables.items():
+        preds[label, "qda"] = qda_pipeline(x, codes, y, schema, classes)
+        preds[label, "nb"] = nb_pipeline(x, codes, y, schema, classes)
+    torch.cuda.synchronize()
+    launches = {f"{fn.__name__}.{attr}": getattr(fn, attr)
+                for fn, attr in counters}
+    log(f"[classify_wide] favorita_classify n={N}, QDA and NB for labels "
+        f"onpromotion and family: launches {launches}")
+
+    # the launches each pipeline must make, from the routes of its schema
+    expect = dict.fromkeys(launches, 0)
+    for label, (x, codes, y, schema, classes) in tables.items():
+        expect["grouped_gram_presorted.wide_launches"] += 1
+        expect["nb_grouped_sums.wide_launches"] += -(-classes // 32)
+        sig = sigma_from_triple(sum_to_triple_grouped(
+            x, codes, y, schema=schema, num_groups=classes))
+        rank = qda_scorers(*qda_train_device(sig, float(N)))[0].shape[-1]
+        for r in (rank, 4):                # QDA's factor, NB's rank-d one
+            route = qda_route(schema, classes, r)
+            expect["qda_predict_kernel." + ("launches" if route == "K3"
+                                            else "wide_launches")] += 1
+    check(launches == expect, f"classifier launches {launches}, not {expect}")
+
+    acc = {}
+    for (label, model), pred in preds.items():
+        y, classes = tables[label][2], tables[label][4]
+        check(pred.shape == (N,) and pred.dtype == torch.int32,
+              f"{label} {model}: prediction {tuple(pred.shape)} {pred.dtype}")
+        check(bool(((pred >= 0) & (pred < classes)).all()),
+              f"{label} {model}: class index out of range")
+        prior = float(torch.bincount(y.long()).max()) / N
+        acc[label, model] = float((pred == y).float().mean())
+        # QDA learns family, a function of the class column, only weakly:
+        # a row's class one-hot lies in the null space of every other
+        # family's covariance, which the pseudo-inverse ignores
+        # (tests/test_torch_classify_wide.py shows the f64 oracle alike)
+        check(acc[label, model] > prior + 0.02,
+              f"{label} {model}: accuracy {acc[label, model]} not above the "
+              f"majority share {prior} + 0.02")
+        log(f"[classify_wide] {label} {model}: accuracy {acc[label, model]:.5f}"
+            f" against a majority share of {prior:.5f}")
+    del preds
+
+    agree = {}
+    for label in LABELS:
+        x, codes, y, schema, classes = make_favorita_classify(
+            N_CLASSIFY_CPU, seed + 26, label)
+        for model, pipe in (("qda", qda_pipeline), ("nb", nb_pipeline)):
+            t0 = time.perf_counter()
+            cpu = pipe(x.cpu(), codes.cpu(), y.cpu(), schema, classes)
+            cpu_s = time.perf_counter() - t0
+            card = pipe(x, codes, y, schema, classes).cpu()
+            agree[label, model] = float((card == cpu).float().mean())
+            log(f"[classify_wide] n={N_CLASSIFY_CPU} {label} {model}: card "
+                f"vs CPU ({cpu_s:.1f} s) agreement {agree[label, model]:.6f}")
+    check(min(agree.values()) >= 0.999,
+          f"card vs CPU pipeline agreement {agree} < 0.999")
+
+    for label, table in tables.items():
+        x, codes, y, schema, classes = table
+        for model, pipe in (("qda", qda_pipeline), ("nb", nb_pipeline)):
+            ms = cuda_ms(lambda: pipe(x, codes, y, schema, classes), reps=2,
+                         warmup=1)
+            stages = _stages(table, model)
+            log(f"[classify_wide] {label} {model} n={N}: {ms:.3f} ms per "
+                f"pipeline (aggregate + train + predict, CUDA events, mean "
+                f"of 2); stages (host clock, ms): "
+                + json.dumps({k: round(v, 3) for k, v in stages.items()}))
+
+    # the f64 SVD of QDA training at C = 33, m = 458, by driver
+    x, codes, y, schema, classes = tables["family"]
+    sig = sigma_from_triple(sum_to_triple_grouped(
+        x, codes, y, schema=schema, num_groups=classes)).double()
+    n_c = sig[:, 0, 0].clamp(min=1.0)[:, None, None]
+    sv = sig[:, 0, 1:]
+    cov = (sig[:, 1:, 1:] - sv[:, :, None] * sv[:, None, :] / n_c) / n_c
+    drivers = {}
+    for driver in (None, "gesvd", "gesvdj", "gesvda"):
+        try:
+            torch.linalg.svd(cov, driver=driver)
+            drivers[str(driver)] = cuda_ms(
+                lambda: torch.linalg.svd(cov, driver=driver), reps=2,
+                warmup=0)
+        except RuntimeError as e:      # a driver this build lacks
+            drivers[str(driver)] = f"unavailable: {str(e).splitlines()[0]}"
+    log(f"[classify_wide] f64 SVD of {classes} covariances of "
+        f"{cov.shape[-1]}²: ms by driver {drivers}")
+    return {"grouped_wide_gram":
+            launches["grouped_gram_presorted.wide_launches"],
+            "nb_grouped_sums_wide": launches["nb_grouped_sums.wide_launches"],
+            "qda_predict_wide": launches["qda_predict_kernel.wide_launches"]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1300,8 +1831,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    phase_device()
+    card = phase_device()
     phase_build()
+    device_line = json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}})
     k1 = phase_k1(args.seed)
     k1s, k1s_launches = phase_k1_stacked(args.seed)
     k2 = phase_k2(args.seed)
@@ -1318,6 +1852,10 @@ def main() -> int:
     k2w = phase_k2w(args.seed)
     wide = phase_wide(args.seed)
     delta = phase_delta(args.seed)
+    k8 = phase_k8(args.seed)
+    k6w = phase_k6w(args.seed)
+    k3w = phase_k3w(args.seed)
+    classify_wide = phase_classify_wide(args.seed)
 
     src = "duckdb_imputation_tpu_torch/csrc/"
     ref = "duckdb_imputation_tpu/ring/kernels/"
@@ -1359,11 +1897,22 @@ def main() -> int:
              source=src + "fused_impute_aggregate.cu",
              replaces=ref + "sigma_fused.py:509",
              launches=wide["fused_impute_aggregate_wide"], **k2w),
+        dict(name="grouped_wide_gram", route="cuda",
+             source=src + "grouped_wide_gram.cu",
+             replaces=ref + "sigma_pallas_grouped.py:540",
+             launches=classify_wide["grouped_wide_gram"], **k8),
+        dict(name="nb_grouped_sums_wide", route="cuda",
+             source=src + "nb_grouped_sums.cu",
+             replaces=ref + "nb_pallas.py:126",
+             launches=classify_wide["nb_grouped_sums_wide"], **k6w),
+        dict(name="qda_predict_wide", route="cuda",
+             source=src + "qda_predict.cu",
+             replaces=ref + "qda_pallas.py:148",
+             launches=classify_wide["qda_predict_wide"], **k3w),
     ]
+    print(card)
     print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+    print(device_line)
     return 0
 
 

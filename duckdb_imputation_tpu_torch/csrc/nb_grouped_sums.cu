@@ -1,46 +1,52 @@
-// K6: the grouped naive-Bayes sums, for sm_90a: per group g the sums over
-// its rows of w·F, F = [1 ‖ x ‖ x² ‖ onehot(codes)] (F = 1 + 2d + V
-// features), the whole of an NB aggregate. G = 1 is the ungrouped one.
+// K6 and K6w: the grouped naive-Bayes sums, for sm_90a: per group g the
+// sums over its rows of w·F, F = [1 ‖ x ‖ x² ‖ onehot(codes)] (F = 1 + 2d +
+// V features), the whole of an NB aggregate. G = 1 is the ungrouped one.
 //
 // Replaces the Pallas kernel of duckdb_imputation_tpu/ring/kernels/
 // nb_pallas.py, _nb_grouped_pallas, with both of its bodies: _nb_kernel
 // (general weights) and _nb_kernel_fast (binary weights through a 3-way
 // bf16 split of x and x², for the TPU's matrix unit). Here the sums are
-// plain f32 and f64 on the CUDA cores, for any weights.
+// plain f32 and f64 on the CUDA cores, for any weights. K6 takes F ≤
+// kThreads = 256; K6w, the same kernel with more than one feature range on
+// blockIdx.y, takes wider F (favorita_classify: F = 462 and 493).
 //
 // What bounds it on an H100: there is no Gram, only one reduction pass,
 // so the kernel is bound by reading its inputs once: 4·d + 4·c + 8 bytes a
-// row (56 at BASELINE config 3, d = 8, c = 4), ~0.17 ms per 10M rows at
-// 3.35 TB/s. The design reads each input once, coalesced, and builds x²
-// and the one-hot only in registers.
+// row (56 at BASELINE config 3, d = 8, c = 4; 52 at favorita_classify),
+// ~0.16-0.17 ms per 10M rows at 3.35 TB/s. The design reads each input
+// once per feature range and per launch of 32 groups, coalesced, and
+// builds x² and the one-hot only in registers.
 //
-// Layout of the work: a block stages kChunk rows, bucketed by group
-// (bucket.cuh). Thread t owns one feature f = t mod F and one row group
-// t / F, and for each group runs over that group's staged rows with an
-// f32 sum, which it adds to its own f64 slot in shared memory. So x and x²
-// are summed in f32 within a chunk and in f64 from there on, in a fixed
-// order; counts (the 1 and one-hot features, with binary weights) are
-// exact, since an f32 sum of at most kChunk ones is exact and every later
-// sum is in f64. Across blocks, one warp per (group, feature) entry sums
-// the blocks' partials in f64 and rounds once. No atomics: reruns are
-// bit-identical.
+// Layout of the work: blockIdx.y picks a range of at most kThreads
+// features, f0 = 256·blockIdx.y. A block stages kChunk rows, bucketed by
+// group (bucket.cuh). Thread t owns one feature f = f0 + t mod Fr (Fr the
+// range's width) and one row group t / Fr, and for each group runs over
+// that group's staged rows with an f32 sum, which it adds to its own f64
+// slot in shared memory. So x and x² are summed in f32 within a chunk and
+// in f64 from there on, in a fixed order; counts (the 1 and one-hot
+// features, with binary weights) are exact, since an f32 sum of at most
+// kChunk ones is exact and every later sum is in f64. Across blocks, one
+// warp per (group, feature) entry sums the blocks' partials in f64 and
+// rounds once. No atomics: reruns are bit-identical.
 //
 // Where trouble is likely: the G × F block of accumulators. Each thread's
 // f64 slots take G · kThreads · 8 bytes of shared memory (2 KB a group),
-// so one launch takes at most kMaxNbGroups = 32 groups and F ≤ kThreads;
-// the wrapper runs more groups as several launches, each over the rows of
-// 32 groups (`gbase`), and raises past F.
+// so one launch takes at most kMaxNbGroups = 32 groups and a block one
+// range of kThreads features; the wrapper runs more groups as several
+// launches, each over the rows of 32 groups (`gbase`), and the kernel more
+// features as more ranges, each reading the table again (K6w: 2 ranges at
+// favorita_classify, so 2 table reads a launch).
 #include "bucket.cuh"
 
 namespace dit {
 namespace {
 
 constexpr int kMaxNbGroups = kMaxBucketGroups;
+constexpr int kMaxNbRanges = 65535;  // feature ranges: gridDim.y's limit
 constexpr int kStage = kChunk + 1;  // odd row stride: no bank conflicts
 
 struct NbGeom {
   int F;   // features 1 + 2d + V
-  int R;   // row groups, kThreads / F
   int G;   // groups of this launch
   int gbase;  // id of its group 0
   int64_t n;
@@ -66,9 +72,14 @@ nb_kernel(const __grid_constant__ Cols cols, const __grid_constant__ NbGeom nb,
   const int* bstart = ints + kWarps * nb.G;
   const int d = cols.d;
 
-  // this thread's feature: 0 → 1; 1..d → x; d+1..2d → x²; then one-hots
-  const int f = threadIdx.x % nb.F, rg = threadIdx.x / nb.F;
-  const bool active = rg < nb.R;
+  // this block's feature range f0 .. f0 + Fr, its R = kThreads / Fr row
+  // groups; this thread's feature: 0 → 1; 1..d → x; d+1..2d → x²; then
+  // one-hots
+  const int f0 = blockIdx.y * kThreads;
+  const int Fr = nb.F - f0 < kThreads ? nb.F - f0 : kThreads;
+  const int R = kThreads / Fr;
+  const int f = f0 + threadIdx.x % Fr, rg = threadIdx.x / Fr;
+  const bool active = rg < R;
   int kind = 0, col = 0, val = 0;
   if (f >= 1 && f <= d) {
     kind = 1;
@@ -106,16 +117,16 @@ nb_kernel(const __grid_constant__ Cols cols, const __grid_constant__ NbGeom nb,
         const int r1 = bstart[g + 1];
         float s = 0.0f;
         if (kind == 0) {
-          for (int r = bstart[g] + rg; r < r1; r += nb.R) s += ws[r];
+          for (int r = bstart[g] + rg; r < r1; r += R) s += ws[r];
         } else if (kind == 1) {
-          for (int r = bstart[g] + rg; r < r1; r += nb.R) s += ws[r] * xr[r];
+          for (int r = bstart[g] + rg; r < r1; r += R) s += ws[r] * xr[r];
         } else if (kind == 2) {
-          for (int r = bstart[g] + rg; r < r1; r += nb.R) {
+          for (int r = bstart[g] + rg; r < r1; r += R) {
             const float x = xr[r];
             s += ws[r] * (x * x);
           }
         } else {
-          for (int r = bstart[g] + rg; r < r1; r += nb.R)
+          for (int r = bstart[g] + rg; r < r1; r += R)
             if (cr[r] == val) s += ws[r];
         }
         accs[g * kThreads + threadIdx.x] += static_cast<double>(s);
@@ -124,13 +135,13 @@ nb_kernel(const __grid_constant__ Cols cols, const __grid_constant__ NbGeom nb,
     __syncthreads();
   }
 
-  // the block's row groups in a fixed order → partial[(g·F + f)·gridDim + b]
-  const int E = nb.G * nb.F;
-  for (int e = threadIdx.x; e < E; e += blockDim.x) {
-    const int g = e / nb.F, ff = e % nb.F;
+  // the block's row groups in a fixed order → partial[(g·F + f)·gridDim.x
+  // + blockIdx.x] for the range's features f
+  for (int e = threadIdx.x; e < nb.G * Fr; e += blockDim.x) {
+    const int g = e / Fr, ff = e % Fr;
     double s = 0.0;
-    for (int r = 0; r < nb.R; ++r) s += accs[g * kThreads + r * nb.F + ff];
-    partial[int64_t(e) * gridDim.x + blockIdx.x] = s;
+    for (int r = 0; r < R; ++r) s += accs[g * kThreads + r * Fr + ff];
+    partial[(int64_t(g) * nb.F + f0 + ff) * gridDim.x + blockIdx.x] = s;
   }
 }
 
@@ -152,10 +163,11 @@ __global__ void nb_reduce(const double* __restrict__ partial, int nblocks,
 
 extern "C" {
 
-// Launches K6 and its reduction on `stream` for the groups gbase ..
-// gbase + G − 1 (1 ≤ G ≤ kMaxNbGroups); rows with other ids add
-// nothing. out: f32[G, F] (F = 1 + 2d + V ≤ 256), the rows of those groups.
-// partial: f64 scratch of G · F · nblocks. Returns 0 or a cudaError_t.
+// Launches K6 (F = 1 + 2d + V ≤ 256) or K6w (F above, ceil(F / 256)
+// feature ranges) and the reduction on `stream` for the groups gbase ..
+// gbase + G − 1 (1 ≤ G ≤ kMaxNbGroups); rows with other ids add nothing.
+// out: f32[G, F], the rows of those groups. partial: f64 scratch of
+// G · F · nblocks. Returns 0 or a cudaError_t.
 int dit_nb_grouped_sums(const void* const* x_cols, int d,
                         const void* const* code_cols, const int* cat_sizes,
                         int c, const float* w, const int32_t* gid, int gbase,
@@ -168,11 +180,12 @@ int dit_nb_grouped_sums(const void* const* x_cols, int d,
     if (cat_sizes[j] < 0) return cudaErrorInvalidValue;
     F += cat_sizes[j];
   }
-  if (F > kThreads || G < 1 || G > kMaxNbGroups || nblocks < 1 || n < 0 ||
-      n >= (int64_t(1) << 31))
+  const int ranges = (F + kThreads - 1) / kThreads;
+  if (ranges > kMaxNbRanges || G < 1 || G > kMaxNbGroups || nblocks < 1 ||
+      n < 0 || n >= (int64_t(1) << 31))
     return cudaErrorInvalidValue;
   const Cols cols = make_cols(x_cols, d, code_cols, cat_sizes, c);
-  const NbGeom nb{F, kThreads / F, G, gbase, n};
+  const NbGeom nb{F, G, gbase, n};
   const size_t smem = nb_smem_bytes(d, c, G);
   if (smem > 48 * 1024) {
     cudaError_t rc = cudaFuncSetAttribute(
@@ -181,11 +194,13 @@ int dit_nb_grouped_sums(const void* const* x_cols, int d,
     if (rc != cudaSuccess) return rc;
   }
   auto s = static_cast<cudaStream_t>(stream);
-  nb_kernel<<<nblocks, kThreads, smem, s>>>(cols, nb, w, gid, partial);
+  nb_kernel<<<dim3(nblocks, ranges), kThreads, smem, s>>>(cols, nb, w, gid,
+                                                        partial);
   if (cudaError_t rc = cudaGetLastError()) return rc;
   const int E = G * F;
-  const int blocks = (E * 32 + kThreads - 1) / kThreads;
-  nb_reduce<<<blocks, kThreads, 0, s>>>(partial, nblocks, E, out);
+  const int64_t blocks = (int64_t(E) * 32 + kThreads - 1) / kThreads;
+  nb_reduce<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(partial,
+                                                              nblocks, E, out);
   return cudaGetLastError();
 }
 

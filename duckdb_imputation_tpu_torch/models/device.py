@@ -12,6 +12,9 @@ trainer's absolute 1e-9 cutoff, which keeps f32 rounding noise of a
 singular covariance and blows −quad up), and `qda_predict_device` factors
 −quad by a clamped symmetric eigendecomposition (JAX: Cholesky of
 −quad + 1e-12·I, NaN for the singular PSD −quad of a full one-hot schema).
+The factor's zero columns are dropped, and `nb_predict_device` builds its
+diagonal form's rank-d factor directly (ROADMAP Queue 3), so scoring at
+wide schemas reads C·m·r, not C·m², factor entries.
 """
 from __future__ import annotations
 
@@ -104,6 +107,19 @@ def nb_train_device(n, lin, quad_diag, lin_cat):
 PREDICT_METHODS = ("auto", "plain", "kernel")
 
 
+def _predict(factor, lin, intercept, x_num, codes, *, schema, method):
+    """Score through the factored form with the method asked for."""
+    from ..ring.kernels.qda_pallas import qda_predict_kernel, qda_predict_plain
+
+    if method not in PREDICT_METHODS:
+        raise ValueError(f"method must be one of {PREDICT_METHODS}, "
+                         f"got {method!r}")
+    if method == "auto":
+        method = "kernel" if x_num.device.type == "cuda" else "plain"
+    predict = qda_predict_kernel if method == "kernel" else qda_predict_plain
+    return predict(factor, lin, intercept, x_num, codes, schema=schema)
+
+
 def qda_predict_device(quad, lin, intercept, x_num, codes, *, schema,
                        method: str = "auto") -> torch.Tensor:
     """Batched QDA scoring and argmax over every row, features z = [x_num ‖
@@ -111,20 +127,15 @@ def qda_predict_device(quad, lin, intercept, x_num, codes, *, schema,
     maximum of zᵀ·quad_c·z + lin_c·z + b_c.
 
     The scorer factors −quad_c = L_c·L_cᵀ by a clamped eigendecomposition
-    in f64 (`qda_scorers`). method: 'auto' (K3 for CUDA tensors, plain on
-    the CPU), 'plain' (`qda_predict_plain`) or 'kernel'
-    (`qda_predict_kernel`)."""
-    from ..ring.kernels.qda_pallas import (
-        qda_predict_kernel, qda_predict_plain, qda_scorers)
+    in f64, zero columns dropped past K3's shared memory (`qda_scorers`).
+    method: 'auto' (K3 or, for factors past its shared memory, K3w for
+    CUDA tensors; plain on the CPU), 'plain' (`qda_predict_plain`) or
+    'kernel' (`qda_predict_kernel`)."""
+    from ..ring.kernels.qda_pallas import qda_scorers
 
-    if method not in PREDICT_METHODS:
-        raise ValueError(f"method must be one of {PREDICT_METHODS}, "
-                         f"got {method!r}")
     factor, lin, intercept = qda_scorers(quad, lin, intercept)
-    if method == "auto":
-        method = "kernel" if x_num.device.type == "cuda" else "plain"
-    predict = qda_predict_kernel if method == "kernel" else qda_predict_plain
-    return predict(factor, lin, intercept, x_num, codes, schema=schema)
+    return _predict(factor, lin, intercept, x_num, codes, schema=schema,
+                    method=method)
 
 
 def nb_predict_device(priors, mean, var, freqs, x_num, codes, *, schema,
@@ -136,22 +147,22 @@ def nb_predict_device(priors, mean, var, freqs, x_num, codes, *, schema,
                           + Σ_cat log freq_c[code]
 
     maps onto quad = diag(−1/2σ²) over the numeric slots, lin = μ/σ² ‖
-    log freq, intercept = the x-free terms, and reuses qda_predict_device.
-    var gets the reference's +1e-9; a zero training frequency scores
-    −1e30, and a predict-time category outside the vocab contributes
-    nothing. Returns the class index i32[n]."""
+    log freq, intercept = the x-free terms, and scores through QDA's
+    predictors with that quad's rank-d factor (`nb_scorers`, no
+    eigendecomposition). var gets the reference's +1e-9; a zero training
+    frequency scores −1e30, and a predict-time category outside the vocab
+    contributes nothing. Returns the class index i32[n]."""
+    from ..ring.kernels.qda_pallas import nb_scorers
+
     d = schema.num_cols
-    m = schema.sigma_size - 1
     var = var.to(torch.float32) + 1e-9
-    c_cls = priors.shape[0]
-    quad = torch.zeros((c_cls, m, m), dtype=torch.float32, device=var.device)
-    di = torch.arange(d, device=var.device)
-    quad[:, di, di] = -0.5 / var
+    factor = nb_scorers(-0.5 / var, d, schema.sigma_size - 1)
     log_freq = torch.where(freqs > 0.0, torch.log(freqs.clamp(min=1e-38)),
                            -1e30)
     lin = torch.cat([mean / var, log_freq], dim=1)
     icpt = (torch.log(priors.clamp(min=1e-38))
             - 0.5 * (mean * mean / var
                      + torch.log(2.0 * math.pi * var)).sum(1))
-    return qda_predict_device(quad, lin, icpt, x_num, codes, schema=schema,
-                              method=method)
+    return _predict(factor, lin.to(torch.float32).contiguous(),
+                    icpt.to(torch.float32).contiguous(), x_num, codes,
+                    schema=schema, method=method)

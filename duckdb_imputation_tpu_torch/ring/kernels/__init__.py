@@ -1,5 +1,10 @@
 from .nb_pallas import nb_grouped_sums, nb_grouped_sums_plain
-from .qda_pallas import qda_predict_kernel, qda_predict_plain, qda_scorers
+from .qda_pallas import (
+    nb_scorers,
+    qda_predict_kernel,
+    qda_predict_plain,
+    qda_scorers,
+)
 from .sigma_fused import fused_impute_aggregate, fused_impute_aggregate_plain
 from .sigma_pallas import (
     masked_gram,
@@ -20,5 +25,6 @@ __all__ = ["fused_impute_aggregate", "fused_impute_aggregate_plain",
            "grouped_gram", "grouped_gram_plain", "grouped_gram_presorted",
            "grouped_gram_presorted_plain", "masked_gram", "masked_gram_cols",
            "masked_gram_cols_plain", "masked_gram_plain", "nb_grouped_sums",
-           "nb_grouped_sums_plain", "qda_predict_kernel", "qda_predict_plain",
+           "nb_grouped_sums_plain", "nb_scorers", "qda_predict_kernel",
+           "qda_predict_plain",
            "qda_scorers", "sort_by_group", "unsorted_group_limit"]

@@ -29,7 +29,8 @@ import torch
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("masked_gram.cu", "fused_impute_aggregate.cu", "grouped_gram.cu",
-           "nb_grouped_sums.cu", "qda_predict.cu", "wide_gram.cu")
+           "nb_grouped_sums.cu", "qda_predict.cu", "wide_gram.cu",
+           "grouped_wide_gram.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # Largest grid of the Gram kernels: about 8 resident 256-thread blocks on
@@ -41,15 +42,20 @@ MAX_BLOCKS = 1024
 # the checks below raise ValueError before a launch the kernel would refuse.
 CHUNK_ROWS = 256     # kChunk (gram_common.cuh): rows a block stages a step
 MAX_SIGMA_SIZE = 88  # kMaxP (gram_common.cuh): one 4x4 tile a thread
-MAX_WIDE_SIGMA_SIZE = 1024  # kMaxWideP (wide_gram.cuh): K7 and K2w
+MAX_WIDE_SIGMA_SIZE = 1024  # kMaxWideP (wide_gram.cuh): K7, K2w and K8
 WIDE_TILE = 64       # kWideTile (wide_gram.cuh): side of a region of S
 WIDE_CHUNK = 128     # kWideChunk (wide_gram.cuh): rows a block stages a step
 MAX_COLS = 64        # kMaxCols (gram_common.cuh), numeric and categorical
 MAX_UNSORTED_GROUPS = 8  # kMaxUnsortedGroups (grouped_gram.cu): K4's tiles
 MAX_NB_GROUPS = 32       # kMaxNbGroups (nb_grouped_sums.cu): K6 per launch
-MAX_NB_FEATURES = 256    # kThreads (gram_common.cuh): K6, F = 1 + 2d + V
-MAX_QDA_COLS = 32        # kMaxQdaCols (qda_predict.cu): K3, d and c each
-MAX_QDA_SMEM = 227 * 1024  # kMaxQdaSmem (qda_predict.cu): K3's factors
+MAX_NB_FEATURES = 256    # kThreads (gram_common.cuh): K6's F = 1 + 2d + V;
+                         # K6w sums wider F in ranges of this many features
+MAX_NB_RANGES = 65535    # kMaxNbRanges (nb_grouped_sums.cu): K6w's gridDim.y
+MAX_QDA_COLS = 32        # kMaxQdaCols (qda_predict.cu): K3 and K3w, d and c
+MAX_QDA_SMEM = 227 * 1024  # kMaxQdaSmem (qda_predict.cu): K3's factors;
+                           # K3w reads larger ones from device memory
+QDA_RANK_ALIGN = 4       # kQdaRankAlign (qda_predict.cu): the factor's
+                         # columns come in float4s
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,9 +95,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.dit_nb_grouped_sums.argtypes = [p, i, p, p, i, p, p, i, i, i64, p, i,
                                         p, p]
     lib.dit_nb_grouped_sums.restype = i
-    lib.dit_qda_predict.argtypes = [p, i, p, p, i, p, p, p, i, i, i64, p, i,
-                                    p]
-    lib.dit_qda_predict.restype = i
+    for qda in (lib.dit_qda_predict, lib.dit_qda_predict_wide):
+        qda.argtypes = [p, i, p, p, i, p, p, p, i, i, i, i64, p, i, p]
+        qda.restype = i
+    lib.dit_grouped_wide_gram.argtypes = [p, i, p, p, i, p, p, p, i, i64, i,
+                                          p, i, i, p, p, p]
+    lib.dit_grouped_wide_gram.restype = i
     lib.dit_wide_gram.argtypes = [p, i, p, p, i, p, i64, i, p, i, i, p, p, p]
     lib.dit_wide_gram.restype = i
     lib.dit_fused_impute_aggregate_wide.argtypes = [
@@ -174,9 +183,9 @@ def check_cuda(tensors, checks) -> torch.device:
 
 def check_schema(schema, n: int, max_sigma: int = MAX_SIGMA_SIZE) -> None:
     """Raise ValueError for a schema or row count the kernels do not take.
-    max_sigma: MAX_SIGMA_SIZE for the grouped Grams (K4, K5),
-    MAX_WIDE_SIGMA_SIZE for the masked Gram and the fused pass (K1/K7,
-    K2/K2w), which switch to their wide kernels above MAX_SIGMA_SIZE."""
+    max_sigma: MAX_SIGMA_SIZE for the narrow kernels alone (K1, K2, K4,
+    K5), MAX_WIDE_SIGMA_SIZE for the wrappers that switch to their wide
+    kernels above MAX_SIGMA_SIZE (K7, K2w, K8)."""
     if schema.sigma_size > max_sigma:
         raise ValueError(f"sigma size {schema.sigma_size} > {max_sigma}"
                          f" is not supported by this kernel")
@@ -199,12 +208,23 @@ def check_groups(num_groups: int, limit: int | None = None) -> None:
         raise ValueError(f"{num_groups} groups: fewer than 2^31 are taken")
 
 
+def nb_features(schema) -> int:
+    """F = 1 + 2d + V, the NB sums of one group."""
+    return 1 + 2 * schema.num_cols + schema.vocab_size
+
+
+def nb_ranges(schema) -> int:
+    """Feature ranges of the NB kernel's grid (blockIdx.y): 1 is K6 (F ≤
+    256, one feature a thread and several row groups), more is K6w (a
+    range of 256 features a block, the table read once per range)."""
+    return -(-nb_features(schema) // MAX_NB_FEATURES)
+
+
 def check_nb(schema, n: int) -> None:
-    """Raise ValueError for an NB schema or row count K6 does not take."""
-    f = 1 + 2 * schema.num_cols + schema.vocab_size
-    if f > MAX_NB_FEATURES:
-        raise ValueError(f"{f} NB features (1 + 2d + V) > {MAX_NB_FEATURES}"
-                         f" are not supported by the NB kernel")
+    """Raise ValueError for an NB schema or row count K6/K6w do not take."""
+    if nb_ranges(schema) > MAX_NB_RANGES:
+        raise ValueError(f"{nb_features(schema)} NB features (1 + 2d + V) "
+                         f"are more than the NB kernel's grid holds")
     if schema.num_cols > MAX_COLS or schema.cat_cols > MAX_COLS:
         raise ValueError(f"more than {MAX_COLS} numeric or categorical "
                          f"columns is not supported by the NB kernel")
@@ -212,17 +232,24 @@ def check_nb(schema, n: int) -> None:
         raise ValueError(f"{n} rows: the NB kernel takes fewer than 2^31")
 
 
-def check_qda(schema, num_classes: int) -> None:
-    """Raise ValueError for a schema or class count K3 does not take."""
-    m = schema.sigma_size - 1
+def qda_smem_bytes(m: int, num_classes: int, rank: int) -> int:
+    """Shared memory K3 stages: the factors f32[C, m, r], lin f32[C, m]
+    and the intercepts f32[C]."""
+    return 4 * num_classes * (m * rank + m + 1)
+
+
+def qda_route(schema, num_classes: int, rank: int) -> str:
+    """'K3' when the factors f32[C, m, rank] fit K3's shared memory, else
+    'K3w' (factors read from device memory); raises ValueError for a
+    schema or class count neither takes."""
     if schema.num_cols > MAX_QDA_COLS or schema.cat_cols > MAX_QDA_COLS:
         raise ValueError(f"more than {MAX_QDA_COLS} numeric or categorical "
-                         f"columns is not supported by the QDA kernel")
-    smem = 4 * num_classes * (m * m + m + 1)
-    if num_classes < 1 or smem > MAX_QDA_SMEM:
-        raise ValueError(f"{num_classes} classes of {m} features need "
-                         f"{smem} bytes of factors in shared memory; the "
-                         f"QDA kernel holds at most {MAX_QDA_SMEM}")
+                         f"columns is not supported by the QDA kernels")
+    if num_classes < 1:
+        raise ValueError(f"{num_classes} classes: at least 1 is needed")
+    m = schema.sigma_size - 1
+    return ("K3" if qda_smem_bytes(m, num_classes, rank) <= MAX_QDA_SMEM
+            else "K3w")
 
 
 def pointers(tensors):
@@ -255,10 +282,21 @@ def wide_regions(schema) -> list[tuple[int, int]]:
                                    for lo, hi in blocks))]
 
 
+def group_chunks(offsets: torch.Tensor, rows: int) -> torch.Tensor:
+    """Group-aligned chunks of rows sorted by group (`sort_by_group`'s
+    offsets i64[G + 1]): cum i64[G + 1], cum[g] the first chunk of group g,
+    cum[G] the chunk count. A chunk of `rows` rows never crosses a group
+    boundary, so the row slices of K5 and K8, runs of whole chunks, meet
+    the groups in order. On the offsets' device, with no host sync."""
+    chunks = (offsets[1:] - offsets[:-1] + rows - 1) // rows
+    return torch.cat([chunks.new_zeros(1), torch.cumsum(chunks, 0)])
+
+
 def wide_slices(n: int, nregions: int) -> int:
-    """Row slices of K7's grid (blockIdx.y): about MAX_BLOCKS blocks in
-    all, never more slices than chunks. A function of n and the schema
-    only, so a result does not depend on the card it ran on."""
+    """Row slices of K7's and K8's grid (blockIdx.y): about MAX_BLOCKS
+    blocks in all, never more slices than chunks. A function of n and the
+    schema only, so a result does not depend on the card it ran on (K8's
+    slices are runs of group-aligned chunks, `group_chunks`)."""
     return max(1, min(-(-n // WIDE_CHUNK), -(-MAX_BLOCKS // nregions)))
 
 

@@ -1,12 +1,15 @@
-"""K6: the grouped naive-Bayes sums, per group Σ w·[1 ‖ x ‖ x² ‖ onehot].
+"""K6 and K6w: the grouped naive-Bayes sums, per group Σ w·[1 ‖ x ‖ x² ‖
+onehot].
 
 Counterpart of `duckdb_imputation_tpu/ring/kernels/nb_pallas.py`
 (`sum_to_nb_agg_grouped_pallas`, the Pallas kernel `_nb_grouped_pallas`
 with its bodies `_nb_kernel` and `_nb_kernel_fast`). `nb_grouped_sums`
 launches the hand-written CUDA kernel (`csrc/nb_grouped_sums.cu`) for
-CUDA tensors and takes its plain version, `nb_grouped_sums_plain`, only
-for CPU tensors. Both give f32[G, F] with F = 1 + 2d + V: the 1 column is
-the (weighted) count, then Σx, Σx², and the category counts. Rows whose id
+CUDA tensors, K6 for F ≤ 256 features and K6w, the same kernel over
+ceil(F / 256) feature ranges, above (`_build.nb_ranges`), and takes its
+plain version, `nb_grouped_sums_plain`, only for CPU tensors. Both give
+f32[G, F] with F = 1 + 2d + V: the 1 column is the (weighted) count, then
+Σx, Σx², and the category counts. Rows whose id
 lies outside [0, G) are dropped; a code outside [0, size) counts nowhere.
 Counts are exact and the x sums are added in f64 across threads and
 blocks, so reruns are bit-identical.
@@ -37,7 +40,9 @@ def nb_grouped_sums(x_num, codes, weights, group_ids, *,
 
     CUDA tensors launch the kernel, one launch per 32 groups (the groups
     a launch holds in shared memory), each counted in
-    `nb_grouped_sums.launches`; CPU tensors take the plain version."""
+    `nb_grouped_sums.launches` (K6, F ≤ 256) or
+    `nb_grouped_sums.wide_launches` (K6w, F above); CPU tensors take the
+    plain version."""
     tensors = [x_num, codes, group_ids] + ([] if weights is None
                                            else [weights])
     if _build.on_cpu(tensors):
@@ -58,7 +63,8 @@ def nb_grouped_sums(x_num, codes, weights, group_ids, *,
     if weights is None:
         weights = torch.ones(n, dtype=torch.float32, device=device)
     lib = _build.load()
-    f = 1 + 2 * schema.num_cols + schema.vocab_size
+    f = _build.nb_features(schema)
+    wide = _build.nb_ranges(schema) > 1
     nblocks = _build.grid_blocks(n)
     batch = min(num_groups, _build.MAX_NB_GROUPS)
     partial = torch.empty(batch * f * nblocks, dtype=torch.float64,
@@ -76,11 +82,15 @@ def nb_grouped_sums(x_num, codes, weights, group_ids, *,
                 groups, n, partial.data_ptr(), nblocks, out[base].data_ptr(),
                 torch.cuda.current_stream(device).cuda_stream)
         _build.raise_on_error(lib, rc, "nb_grouped_sums")
-        nb_grouped_sums.launches += 1
+        if wide:
+            nb_grouped_sums.wide_launches += 1
+        else:
+            nb_grouped_sums.launches += 1
     return out
 
 
 nb_grouped_sums.launches = 0
+nb_grouped_sums.wide_launches = 0
 
 
 def sum_to_nb_agg_grouped_kernel(x_num, codes, group_ids, *,

@@ -77,13 +77,15 @@ def _launch(x_cols, code_cols, weights, n: int, device, schema,
     return out
 
 
-def wide_plan(schema, n: int, lib: _build.Library, device):
+def wide_plan(schema, n: int, lib: _build.Library, device,
+              groups: int = 0):
     """K7's region list as a C array, its count, the row slices, and the
-    f64 scratch for the per-(region, slice) partials; shared with K2w."""
+    f64 scratch for the per-(region, slice) partials; shared with K2w, and
+    with K8, whose partials are (region, slice + group) slots."""
     regions = _build.wide_regions(schema)
     slices = _build.wide_slices(n, len(regions))
     partial = torch.empty(
-        len(regions) * slices * lib.lib.dit_wide_region_entries(),
+        len(regions) * (slices + groups) * lib.lib.dit_wide_region_entries(),
         dtype=torch.float64, device=device)
     flat = _build.int_array([lo for pair in regions for lo in pair])
     return flat, len(regions), slices, partial

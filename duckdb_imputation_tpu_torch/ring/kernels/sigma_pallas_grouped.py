@@ -1,4 +1,4 @@
-"""K4 and K5: the grouped masked Gram (GROUP BY), one sigma per group.
+"""K4, K5 and K8: the grouped masked Gram (GROUP BY), one sigma per group.
 
 Counterpart of `duckdb_imputation_tpu/ring/kernels/sigma_pallas_grouped.py`:
 
@@ -16,6 +16,11 @@ Counterpart of `duckdb_imputation_tpu/ring/kernels/sigma_pallas_grouped.py`:
   and are not ported: nothing is padded here.
 - `sum_to_triple_grouped_kernel` takes K4 up to the limit and a sort plus
   K5 above it, the dispatch of `sum_to_triple_grouped(method='pallas')`.
+- Above P = 88 `grouped_gram_presorted` runs K8
+  (`csrc/grouped_wide_gram.cu`, K7's 64×64 regions over group-sorted rows,
+  up to `_build.MAX_WIDE_SIGMA_SIZE`, any number of groups), its launches
+  counted on `.wide_launches`; `grouped_gram` there sorts the rows and
+  hands them to it.
 
 Each wrapper launches its kernel for CUDA tensors and takes its plain
 version only for CPU tensors. Rows whose id lies outside [0, G) are
@@ -32,21 +37,22 @@ from ...schema import FeatureSchema
 from ..sum import grouped_sigma, masked_sigma
 from ..triple import Triple, triple_from_sigma
 from . import _build
+from .sigma_pallas import wide_plan
 
 
-def unsorted_group_limit(schema: FeatureSchema) -> int:
-    """Most groups K4 takes: each thread keeps one 4×4 f32 register tile
-    per group, and 8 tiles (128 of a thread's 255 registers) is the
-    budget. The schema is taken as JAX's function takes it, where the
-    limit follows P; here it is the same for every schema the Gram
-    kernels take (P ≤ 88), and a wider one raises at the launch."""
-    del schema
-    return _build.MAX_UNSORTED_GROUPS
+def unsorted_group_limit(schema: FeatureSchema) -> int | None:
+    """Most groups the unsorted entry `grouped_gram` takes. Up to P = 88 it
+    runs K4, where each thread keeps one 4×4 f32 register tile per group,
+    and 8 tiles (128 of a thread's 255 registers) is the budget. Above, None:
+    it sorts the rows and runs K8, which takes any number of groups."""
+    if schema.sigma_size <= _build.MAX_SIGMA_SIZE:
+        return _build.MAX_UNSORTED_GROUPS
+    return None
 
 
 def _kernel_inputs(x_num, codes, weights, schema, n, extra):
-    """Checks shared by K4 and K5; returns (device, weights)."""
-    _build.check_schema(schema, n)
+    """Checks shared by K4, K5 and K8; returns (device, weights)."""
+    _build.check_schema(schema, n, _build.MAX_WIDE_SIGMA_SIZE)
     if x_num.shape[0] != schema.num_cols or codes.shape[0] != schema.cat_cols:
         raise ValueError("block heights do not match the schema")
     device = _build.check_cuda(
@@ -72,13 +78,14 @@ def grouped_gram_plain(x_num, codes, weights, group_ids, *,
 
 def grouped_gram(x_num, codes, weights, group_ids, *, schema: FeatureSchema,
                  num_groups: int) -> torch.Tensor:
-    """Per-group masked sigma f32[G, P, P] of rows in any order (K4).
-    x_num f32[d, n], codes i32[c, n], weights f32[n] or None (all ones),
-    group_ids i32[n]; 1 ≤ G ≤ unsorted_group_limit(schema), else
-    ValueError.
+    """Per-group masked sigma f32[G, P, P] of rows in any order (K4; above
+    P = 88 `sort_by_group` and `grouped_gram_presorted`, K8). x_num f32[d,
+    n], codes i32[c, n], weights f32[n] or None (all ones), group_ids
+    i32[n]; G ≥ 1 and at most unsorted_group_limit(schema), else ValueError.
 
-    CUDA tensors launch the kernel (one launch counted in
-    `grouped_gram.launches`); CPU tensors take the plain version."""
+    CUDA tensors launch the kernel (one K4 launch counted in
+    `grouped_gram.launches`; K8's on `grouped_gram_presorted`); CPU tensors
+    take the plain version."""
     tensors = [x_num, codes, group_ids] + ([] if weights is None
                                            else [weights])
     if _build.on_cpu(tensors):
@@ -89,8 +96,13 @@ def grouped_gram(x_num, codes, weights, group_ids, *, schema: FeatureSchema,
     device, weights = _kernel_inputs(
         x_num, codes, weights, schema, n,
         [(group_ids, torch.int32, (n,), "group_ids")])
-    lib = _build.load()
     p = schema.sigma_size
+    if p > _build.MAX_SIGMA_SIZE:
+        return grouped_gram_presorted(
+            *sort_by_group(x_num, codes, group_ids, schema=schema,
+                           num_groups=num_groups, weights=weights),
+            schema=schema)
+    lib = _build.load()
     nblocks = _build.grid_blocks(n)
     partial = torch.empty(num_groups * lib.lib.dit_gram_entries(p) * nblocks,
                           dtype=torch.float64, device=device)
@@ -161,11 +173,13 @@ def grouped_gram_presorted(x_sorted, codes_sorted, w_sorted,
                            layout: GroupLayout, *,
                            schema: FeatureSchema) -> torch.Tensor:
     """Per-group masked sigma f32[G, P, P] of rows laid out by
-    `sort_by_group` (K5), any number of groups. The weights may differ
-    from the sort's (a per-round mask in sorted row order).
+    `sort_by_group` (K5, or K8 above P = 88), any number of groups. The
+    weights may differ from the sort's (a per-round mask in sorted row
+    order).
 
     CUDA tensors launch the kernel (one launch counted in
-    `grouped_gram_presorted.launches`); CPU tensors take the plain
+    `grouped_gram_presorted.launches`, or for K8 in
+    `grouped_gram_presorted.wide_launches`); CPU tensors take the plain
     version."""
     off = layout.offsets
     tensors = [x_sorted, codes_sorted, w_sorted, off]
@@ -178,15 +192,32 @@ def grouped_gram_presorted(x_sorted, codes_sorted, w_sorted,
     device, _ = _kernel_inputs(
         x_sorted, codes_sorted, w_sorted, schema, n,
         [(off, torch.int64, (num_groups + 1,), "layout.offsets")])
-    chunks = (off[1:] - off[:-1] + _build.CHUNK_ROWS - 1) // _build.CHUNK_ROWS
-    cum = torch.cat([chunks.new_zeros(1), torch.cumsum(chunks, 0)])
-    lib = _build.load()
     p = schema.sigma_size
+    lib = _build.load()
+    sizes = schema.cat_sizes
+    if p > _build.MAX_SIGMA_SIZE:
+        # K8: K7's regions and slices over group-aligned chunks
+        flat, nregions, slices, partial = wide_plan(schema, n, lib, device,
+                                                    groups=num_groups)
+        cum = _build.group_chunks(off, _build.WIDE_CHUNK)
+        out = torch.zeros((num_groups, p, p), dtype=torch.float32,
+                          device=device)
+        with torch.cuda.device(device):
+            rc = lib.lib.dit_grouped_wide_gram(
+                _build.pointers(list(x_sorted)), schema.num_cols,
+                _build.pointers(list(codes_sorted)), _build.int_array(sizes),
+                len(sizes), w_sorted.data_ptr(), off.data_ptr(),
+                cum.data_ptr(), num_groups, n, p, flat, nregions, slices,
+                partial.data_ptr(), out.data_ptr(),
+                torch.cuda.current_stream(device).cuda_stream)
+        _build.raise_on_error(lib, rc, "grouped_gram_presorted")
+        grouped_gram_presorted.wide_launches += 1
+        return out
+    cum = _build.group_chunks(off, _build.CHUNK_ROWS)
     nblocks = _build.grid_blocks(n)
     partial = torch.empty(lib.lib.dit_gram_entries(p) * (nblocks + num_groups),
                           dtype=torch.float64, device=device)
     out = torch.empty((num_groups, p, p), dtype=torch.float32, device=device)
-    sizes = schema.cat_sizes
     with torch.cuda.device(device):
         rc = lib.lib.dit_presorted_gram(
             _build.pointers(list(x_sorted)), schema.num_cols,
@@ -200,6 +231,7 @@ def grouped_gram_presorted(x_sorted, codes_sorted, w_sorted,
 
 
 grouped_gram_presorted.launches = 0
+grouped_gram_presorted.wide_launches = 0
 
 
 def sum_to_triple_grouped_unsorted(x_num, codes, group_ids, *,
@@ -224,8 +256,10 @@ def sum_to_triple_grouped_kernel(x_num, codes, group_ids, *,
                                  schema: FeatureSchema, num_groups: int,
                                  weights=None) -> Triple:
     """GROUP BY aggregation through the grouped kernels: K4 up to
-    `unsorted_group_limit(schema)` groups, `sort_by_group` and K5 above."""
-    if num_groups <= unsorted_group_limit(schema):
+    `unsorted_group_limit(schema)` groups, `sort_by_group` and K5 above;
+    above P = 88 `sort_by_group` and K8 for any number of groups."""
+    limit = unsorted_group_limit(schema)
+    if limit is None or num_groups <= limit:
         return sum_to_triple_grouped_unsorted(
             x_num, codes, group_ids, schema=schema, num_groups=num_groups,
             weights=weights)

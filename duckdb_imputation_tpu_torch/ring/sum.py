@@ -11,14 +11,15 @@ LAYOUT: features-first, x_num f32[d, n], codes i32[c, n], weights f32[n].
 The predictors take the columnar carry of the MICE loops: lists of
 per-column [n] tensors.
 
-`masked_sigma` is the plain version that the hand-written Gram kernels
-(`ring.kernels.sigma_pallas.masked_gram_cols`) are held against. It forms
-the kernels' f32 products, (z_i·w rounded to f32)·z_j, exactly, as one
-f64 matmul per row chunk, adds the chunks in f64 and rounds to f32 once:
-one-hot counts stay exact past 2²⁴ rows, the contract the kernels keep,
-and the reference is at least as exact as the kernels it checks (an f32
-matmul's own sum over a 2¹⁷-row chunk erred by 1.1e-5 of max|σ| at
-P = 492 on the H100, where the kernel erred by 3.3e-7).
+`masked_sigma` and `grouped_sigma` are the plain versions that the
+hand-written Gram kernels (`ring.kernels.sigma_pallas.masked_gram_cols`,
+`ring.kernels.sigma_pallas_grouped.grouped_gram`) are held against. They
+form the kernels' f32 products, (z_i·w rounded to f32)·z_j, exactly, as
+one f64 matmul per row chunk (and group), add the chunks in f64 and round
+to f32 once: one-hot counts stay exact past 2²⁴ rows, the contract the
+kernels keep, and the reference is at least as exact as the kernels it
+checks (an f32 matmul's own sum over a 2¹⁷-row chunk erred by 1.1e-5 of
+max|σ| at P = 492 on the H100, where the kernel erred by 3.3e-7).
 
 The public aggregates (`sum_to_triple`, `sum_to_triple_grouped`,
 `sum_to_nb_agg`, `sum_to_nb_agg_grouped`) take the kernel for tensors on a
@@ -144,8 +145,9 @@ def grouped_sigma(x_num: torch.Tensor, codes: torch.Tensor,
                   schema: FeatureSchema, num_groups: int) -> torch.Tensor:
     """Per-group masked sigma f32[G, P, P]: group g's sigma weights each
     row by w·[id == g], so an id outside [0, G) adds nothing. Each row
-    chunk's Zᵀ is built once and multiplied once per group (f32); chunk
-    sums are added in f64 and rounded once, as in `masked_sigma`."""
+    chunk's Zᵀ is built once and multiplied once per group, as in
+    `masked_sigma`: an f64 matmul of the f32 (Zᵀ·w_g) and Zᵀ; chunk sums
+    are added in f64 and rounded once."""
     ref = x_num if schema.num_cols else codes
     n, p = ref.shape[-1], schema.sigma_size
     acc = torch.zeros((num_groups, p, p), dtype=torch.float64,
@@ -156,9 +158,10 @@ def grouped_sigma(x_num: torch.Tensor, codes: torch.Tensor,
         zt = _zt_block(x_num[:, lo:hi], codes[:, lo:hi], schema)
         wg = (group_ids[None, lo:hi] == gi).to(torch.float32)
         if weights is not None:
-            wg = wg * weights[lo:hi]
+            wg = wg * weights[lo:hi].to(torch.float32)
+        zt64 = zt.double()
         for g in range(num_groups):
-            acc[g] += ((zt * wg[g]) @ zt.T).double()
+            acc[g] += (zt * wg[g]).double() @ zt64.T
     return acc.to(torch.float32)
 
 
@@ -178,7 +181,8 @@ def sum_to_triple_grouped(x_num, codes, group_ids, *, schema: FeatureSchema,
         per contiguous segment (`grouped_gram_presorted_plain`);
       'kernel' — the grouped Gram kernels: the unsorted kernel (K4) up to
         `unsorted_group_limit(schema)` groups, a sort and the sorted-slab
-        kernel (K5) above it (`sum_to_triple_grouped_kernel`);
+        kernel (K5) above it, and above P = 88 a sort and the wide kernel
+        (K8) (`sum_to_triple_grouped_kernel`);
       'auto' — 'kernel' for CUDA tensors; on the CPU 'sorted' when
         n·G ≥ 2²² and G > 2, else 'masked' (the JAX package's rule)."""
     if method not in GROUPED_METHODS:

@@ -143,13 +143,14 @@ def _from_reference(cls, agg, device):
                   for f in dataclasses.fields(cls)})
 
 
-def triple_from_reference(t, device="cpu") -> Triple:
+def triple_from_reference(t, device="cuda") -> Triple:
     """Carry a `duckdb_imputation_tpu.ring.triple.Triple` over through
-    numpy, fields and batch axes unchanged."""
+    numpy onto `device` (the card unless asked otherwise), fields and
+    batch axes unchanged."""
     return _from_reference(Triple, t, device)
 
 
-def nb_agg_from_reference(a, device="cpu") -> NBAgg:
+def nb_agg_from_reference(a, device="cuda") -> NBAgg:
     """Carry a `duckdb_imputation_tpu.ring.triple.NBAgg` over through
-    numpy."""
+    numpy onto `device` (the card unless asked otherwise)."""
     return _from_reference(NBAgg, a, device)

@@ -58,9 +58,11 @@ class Table:
 
 def from_numpy(num_data=None, cat_data=None, num_null=None, cat_null=None,
                num_names=(), cat_names=(), schema: FeatureSchema | None = None,
-               rows_first: bool = True, device="cpu") -> Table:
+               rows_first: bool = True, device="cuda") -> Table:
     """Build a Table on `device` from host arrays (default pandas-style
     [n, d] row-major; pass rows_first=False for features-first input).
+    The device defaults to the card; pass device="cpu" for the plain
+    versions (a machine without CUDA raises, it never falls back).
     NaNs in num_data and negative values in cat_data are treated as missing
     when explicit masks are absent. Missing cells hold zero / first-key
     placeholders (call mice.partition.init_fill to mean/mode-fill)."""
@@ -119,11 +121,12 @@ def from_numpy(num_data=None, cat_data=None, num_null=None, cat_null=None,
         schema=schema, num_names=num_names, cat_names=cat_names)
 
 
-def from_reference(t_ref, device="cpu") -> Table:
+def from_reference(t_ref, device="cuda") -> Table:
     """Carry a table of the JAX package (`duckdb_imputation_tpu.table.Table`)
-    over to this package through numpy: the data, the null masks, the
-    schema and the column names, unchanged. Duck-typed, so this module
-    never imports the JAX package."""
+    over to this package through numpy, onto `device` (the card unless
+    asked otherwise): the data, the null masks, the schema and the column
+    names, unchanged. Duck-typed, so this module never imports the JAX
+    package."""
     def tensor(a, dtype):
         return torch.tensor(np.asarray(a, dtype), device=device)
     return Table(

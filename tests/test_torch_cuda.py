@@ -259,7 +259,8 @@ def test_run_mice_device_on_the_card_matches_cpu(cuda):
     nn[:, 1] = rng.random(n) < 0.2
     cn = np.zeros((n, 2), bool)
     cn[:, 0] = rng.random(n) < 0.2
-    ref = run_mice_device(from_numpy(x, c, nn, cn), iters=2, kernel="plain")
+    ref = run_mice_device(from_numpy(x, c, nn, cn, device="cpu"), iters=2,
+                          kernel="plain")
     k1, k2 = masked_gram_cols.launches, fused_impute_aggregate.launches
     auto = run_mice_device(from_numpy(x, c, nn, cn, device=cuda), iters=2)
     assert masked_gram_cols.launches > k1
@@ -605,3 +606,197 @@ def test_run_mice_device_delta_on_the_card_matches_cpu(cuda, name):
     torch.testing.assert_close(got.num_data.cpu()[:, same],
                                ref.num_data[:, same], rtol=0,
                                atol=1e-3 * float(ref.num_data.abs().max()))
+
+
+# ---------------------------------------------------------------------------
+# The classifier path at wide schemas: K8 (grouped_gram and
+# grouped_gram_presorted for P > 88), K6w (nb_grouped_sums for F > 256) and
+# K3w (qda_predict_kernel for factors past K3's shared memory)
+# ---------------------------------------------------------------------------
+
+def wide_grouped_inputs(name, n, groups, device, seed=0, binary=True):
+    """wide_cols' inputs (out-of-vocab and negative codes) with group ids,
+    half the rows in group 0, some out of range."""
+    schema, xs, cs, w = wide_cols(name, n, device, seed=seed)
+    rng = np.random.default_rng(seed + 2)
+    g = np.where(rng.random(n) < 0.5, 0, rng.integers(0, groups, n))
+    g[: n // 50] = groups + 2
+    g[n // 50: n // 40] = -1
+    if not binary:
+        w = torch.tensor(rng.random(n).astype(np.float32), device=device)
+    return (schema, torch.stack(xs), torch.stack(cs), w,
+            torch.tensor(g.astype(np.int32), device=device))
+
+
+def assert_wide_grouped_close(got, want, schema, binary):
+    """Counts exact (binary weights); the rest within 1e-5 of each
+    group's max|σ|."""
+    cm = count_mask(schema, got.device)
+    for g in range(got.shape[0]):
+        if binary:
+            assert torch.equal(got[g][cm], want[g][cm])
+        scale = max(float(want[g].abs().max()), 1.0)
+        torch.testing.assert_close(got[g], want[g], rtol=0,
+                                   atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("name,n,groups,binary", [
+    ("P124", 1, 3, True), ("P124", 129, 3, True), ("P124", 70_001, 33, True),
+    ("P492", 70_001, 33, True), ("P492", 70_001, 5, False),
+    ("P124", 200_003, 1000, True)])
+def test_grouped_wide_gram_kernel_matches_plain(cuda, name, n, groups,
+                                                binary):
+    """K8 after sort_by_group on ragged n, skew, dropped ids, empty and
+    short groups (1000 groups): counts exact with binary weights, the rest
+    within 1e-5 of each group's max|σ|, two launches bit-identical."""
+    schema, x, c, w, g = wide_grouped_inputs(name, n, groups, cuda,
+                                             binary=binary)
+    if groups == 1000:
+        g = torch.randint(0, groups, (n,), dtype=torch.int32, device=cuda)
+    xs, cs, ws, layout = sort_by_group(x, c, g, schema=schema,
+                                       num_groups=groups, weights=w)
+    narrow = grouped_gram_presorted.launches
+    before = grouped_gram_presorted.wide_launches
+    got = grouped_gram_presorted(xs, cs, ws, layout, schema=schema)
+    again = grouped_gram_presorted(xs, cs, ws, layout, schema=schema)
+    assert grouped_gram_presorted.wide_launches == before + 2
+    assert grouped_gram_presorted.launches == narrow
+    assert torch.equal(got, again)
+    want = grouped_gram_presorted_plain(xs, cs, ws, layout, schema=schema)
+    assert_wide_grouped_close(got, want, schema, binary)
+
+
+@pytest.mark.parametrize("groups", [1, 2, 40])
+def test_grouped_gram_unsorted_entry_at_wide_p(cuda, groups):
+    """The unsorted entry at P = 492 sorts and runs K8, any number of
+    groups: the same bits as sort_by_group + grouped_gram_presorted, and
+    the plain grouped Gram's values."""
+    schema, x, c, w, g = wide_grouped_inputs("P492", 50_001, groups, cuda)
+    narrow = grouped_gram.launches
+    before = grouped_gram_presorted.wide_launches
+    got = grouped_gram(x, c, w, g, schema=schema, num_groups=groups)
+    assert grouped_gram_presorted.wide_launches == before + 1
+    assert grouped_gram.launches == narrow
+    sorted_ = grouped_gram_presorted(
+        *sort_by_group(x, c, g, schema=schema, num_groups=groups, weights=w),
+        schema=schema)
+    assert torch.equal(got, sorted_)
+    want = grouped_gram_plain(x, c, w, g, schema=schema, num_groups=groups)
+    assert_wide_grouped_close(got, want, schema, True)
+
+
+def test_grouped_wide_gram_at_its_limit(cuda):
+    """P = MAX_WIDE_SIGMA_SIZE (136 regions) with 3 groups."""
+    keys = (tuple(range(20)),) * 51
+    schema = FeatureSchema(num_cols=3, cat_keys=keys)
+    rng = np.random.default_rng(9)
+    n = 5000
+    x = torch.tensor(rng.normal(size=(3, n)).astype(np.float32), device=cuda)
+    c = torch.tensor(rng.integers(0, 20, (51, n)).astype(np.int32),
+                     device=cuda)
+    g = torch.tensor(rng.integers(0, 3, n).astype(np.int32), device=cuda)
+    args = sort_by_group(x, c, g, schema=schema, num_groups=3)
+    got = grouped_gram_presorted(*args, schema=schema)
+    want = grouped_gram_presorted_plain(*args, schema=schema)
+    assert_wide_grouped_close(got, want, schema, True)
+
+
+NB_WIDE = {"F267": (3, (tuple(range(200)), tuple(range(60)))),
+           "F493": (3, tuple(tuple(range(v))
+                             for v in (54, 33, 337, 2, 22, 16, 5, 17)))}
+
+
+@pytest.mark.parametrize("name,n,groups,binary", [
+    ("F267", 1, 1, True), ("F267", 70_001, 5, False),
+    ("F493", 100_003, 2, True), ("F493", 100_003, 40, True)])
+def test_nb_wide_sums_kernel_matches_plain(cuda, name, n, groups, binary):
+    """K6w (F > 256, two feature ranges): counts exact with binary
+    weights, sums within 1e-5 relative, two calls bit-identical; 40
+    groups take two launches a call."""
+    d, keys = NB_WIDE[name]
+    schema = FeatureSchema(num_cols=d, cat_keys=keys)
+    assert _build.nb_ranges(schema) == 2
+    rng = np.random.default_rng(n)
+    x = torch.tensor(rng.normal(size=(d, n)).astype(np.float32) * 3,
+                     device=cuda)
+    c = torch.tensor(np.stack([rng.integers(-1, len(k) + 1, n)
+                               for k in keys]).astype(np.int32), device=cuda)
+    g = torch.tensor(rng.integers(-1, groups + 1, n).astype(np.int32),
+                     device=cuda)
+    w = None if binary else torch.rand(n, device=cuda)
+    narrow, before = nb_grouped_sums.launches, nb_grouped_sums.wide_launches
+    got = nb_grouped_sums(x, c, w, g, schema=schema, num_groups=groups)
+    again = nb_grouped_sums(x, c, w, g, schema=schema, num_groups=groups)
+    assert nb_grouped_sums.wide_launches == before + 2 * -(-groups // 32)
+    assert nb_grouped_sums.launches == narrow
+    assert torch.equal(got, again)
+    want = nb_grouped_sums_plain(x, c, w, g, schema=schema,
+                                 num_groups=groups)
+    if binary:
+        assert torch.equal(got[:, 0], want[:, 0])
+        assert torch.equal(got[:, 1 + 2 * d:], want[:, 1 + 2 * d:])
+    torch.testing.assert_close(got, want, rtol=1e-5,
+                               atol=1e-6 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("n", [1, 255, 100_003])
+@pytest.mark.parametrize("classes", [8, 33])
+def test_qda_wide_kernel_matches_plain(cuda, n, classes):
+    """K3w with full-rank factors at m = 100 (C·(m·r + m + 1)·4 bytes
+    past K3's 227 KB): argmax agreement with the plain scorer ≥ 0.9999,
+    two calls bit-identical."""
+    schema = FeatureSchema(num_cols=4, cat_keys=(tuple(range(48)),) * 2)
+    rng = np.random.default_rng(classes)
+    m = 100
+    a = rng.normal(size=(classes, m, m)) * 0.1
+    quad = torch.tensor(-np.einsum("cij,ckj->cik", a, a) - 0.2 * np.eye(m),
+                        device=cuda)
+    lin = torch.tensor(rng.normal(size=(classes, m)), device=cuda)
+    b = torch.tensor(rng.normal(size=classes) * 5, device=cuda)
+    factor, lin, b = qda_scorers(quad, lin, b)
+    assert _build.qda_route(schema, classes, factor.shape[-1]) == "K3w"
+    x = torch.tensor(rng.normal(size=(4, n)).astype(np.float32), device=cuda)
+    c = torch.tensor(rng.integers(-1, 49, (2, n)).astype(np.int32),
+                     device=cuda)
+    narrow = qda_predict_kernel.launches
+    before = qda_predict_kernel.wide_launches
+    got = qda_predict_kernel(factor, lin, b, x, c, schema=schema)
+    again = qda_predict_kernel(factor, lin, b, x, c, schema=schema)
+    assert qda_predict_kernel.wide_launches == before + 2
+    assert qda_predict_kernel.launches == narrow
+    assert torch.equal(got, again)
+    want = qda_predict_plain(factor, lin, b, x, c, schema=schema)
+    assert float((got == want).float().mean()) >= 0.9999
+
+
+def test_wide_classifier_pipelines_on_the_card_match_cpu(cuda):
+    """QDA and NB at P = 492 over 5 classes on the card (K8, K6w, K3 or
+    K3w) against the plain pipelines on the CPU: agreement ≥ 0.999."""
+    from duckdb_imputation_tpu_torch.models.device import (
+        nb_predict_device, nb_train_device)
+    from duckdb_imputation_tpu_torch.ring.sum import sum_to_nb_agg_grouped
+
+    schema, x, c, _, g = wide_grouped_inputs("P492", 30_000, 5, cuda)
+    c = c.clamp(0)
+    g = g.clamp(0, 4)
+    x[0] += g.float()                      # the label moves x0
+
+    def qda(x, c, g):
+        sig = sigma_from_triple(sum_to_triple_grouped(
+            x, c, g, schema=schema, num_groups=5))
+        q, l, b = qda_train_device(sig, float(x.shape[1]))
+        return qda_predict_device(q, l, b, x, c, schema=schema)
+
+    def nb(x, c, g):
+        agg = sum_to_nb_agg_grouped(x, c, g, schema=schema, num_groups=5)
+        params = nb_train_device(agg.n, agg.lin, agg.quad_diag, agg.lin_cat)
+        return nb_predict_device(*params, x, c, schema=schema)
+
+    k8 = grouped_gram_presorted.wide_launches
+    k6w = nb_grouped_sums.wide_launches
+    for pipe in (qda, nb):
+        got = pipe(x, c, g).cpu()
+        want = pipe(x.cpu(), c.cpu(), g.cpu())
+        assert float((got == want).float().mean()) >= 0.999
+    assert grouped_gram_presorted.wide_launches > k8
+    assert nb_grouped_sums.wide_launches > k6w

@@ -68,7 +68,7 @@ def test_build_partitions_matches_reference(iris_mcar):
     """Every field equals the JAX package's; the port's indices are int64
     tensors on the table's device."""
     ref = ref_partition.build_partitions(ref_from_numpy(*iris_mcar))
-    got = build_partitions(from_numpy(*iris_mcar))
+    got = build_partitions(from_numpy(*iris_mcar, device="cpu"))
     np.testing.assert_array_equal(got.null_counts.numpy(), ref.null_counts)
     assert got.null_counts.dtype == torch.int32
     for a, b in ((got.num_dirty_idx, ref.num_dirty_idx),
@@ -82,7 +82,7 @@ def test_build_partitions_matches_reference(iris_mcar):
 
 
 def test_observed_weights_and_gather_rows_match_reference(iris_mcar):
-    t_ref, t = ref_from_numpy(*iris_mcar), from_numpy(*iris_mcar)
+    t_ref, t = ref_from_numpy(*iris_mcar), from_numpy(*iris_mcar, device="cpu")
     for kind, j in (("num", 0), ("num", 3), ("cat", 0)):
         np.testing.assert_array_equal(
             observed_weights(t, kind, j).numpy(),
@@ -118,7 +118,7 @@ def test_build_union_gather_matches_reference(blk, lists):
 def _loop_args(t_np):
     """The filled table, its null columns and their dirty-row lists."""
     x, c, nn, cn = t_np
-    t = init_fill(from_numpy(x, c, nn, cn))
+    t = init_fill(from_numpy(x, c, nn, cn, device="cpu"))
     parts = build_partitions(t)
     num_cols = tuple(j for j, ix in enumerate(parts.num_dirty_idx)
                      if ix.numel())
@@ -173,7 +173,7 @@ def test_run_mice_device_delta_matches_reference(iris_mcar, favorita_small,
     ref = ref_run_delta(ref_from_numpy(*t_np), iters=2, kernel="xla")
     ref_x, ref_c = np.asarray(ref.num_data), np.asarray(ref.cat_codes)
     for kernel in ("auto", "plain", "gram"):
-        got = run_mice_device_delta(from_numpy(*t_np), iters=2,
+        got = run_mice_device_delta(from_numpy(*t_np, device="cpu"), iters=2,
                                     kernel=kernel)
         agree = (got.cat_codes.numpy() == ref_c).mean()
         assert agree == 1.0 if name == "iris" else agree >= 0.99, agree
@@ -187,9 +187,9 @@ def test_delta_matches_full_quality(iris_mcar, kernel):
     tests/test_mice.py::test_mice_device_delta_matches_full: imputed RMSE
     ≤ 1.15·full + 0.02, observed cells identical, codes agree > 0.95."""
     num, cat, num_null, cat_null = iris_mcar
-    full = run_mice_device(from_numpy(*iris_mcar), iters=2)
-    delta = run_mice_device_delta(from_numpy(*iris_mcar), iters=2,
-                                  kernel=kernel)
+    full = run_mice_device(from_numpy(*iris_mcar, device="cpu"), iters=2)
+    delta = run_mice_device_delta(from_numpy(*iris_mcar, device="cpu"),
+                                  iters=2, kernel=kernel)
     for j in (0, 3):
         mask = num_null[:, j]
         rmse_f = np.sqrt(np.mean((full.num_data[j].numpy()[mask]
@@ -228,7 +228,7 @@ def test_delta_noise_is_the_fused_loops_draw():
     c = rng.integers(0, 4, (n, 1))
     nn = np.zeros((n, 3), bool)
     nn[:, 1] = rng.random(n) < 0.1
-    t = from_numpy(x, c, nn, np.zeros((n, 1), bool))
+    t = from_numpy(x, c, nn, np.zeros((n, 1), bool), device="cpu")
     deltas = {}
     for name, run in (("delta", run_mice_device_delta),
                       ("fused", lambda t, **k: run_mice_device(
@@ -247,7 +247,7 @@ def test_delta_noise_is_the_fused_loops_draw():
 def test_delta_loop_full_sigma_and_round_offset(iris_mcar):
     """full_sigma, given, replaces the loop's own full aggregation;
     round_offset keys the noise of each round."""
-    t = init_fill(from_numpy(*iris_mcar))
+    t = init_fill(from_numpy(*iris_mcar, device="cpu"))
     parts = build_partitions(t)
     idx, valid = build_union_gather(
         [parts.num_dirty_idx[0], parts.num_dirty_idx[3],
@@ -264,7 +264,7 @@ def test_delta_loop_full_sigma_and_round_offset(iris_mcar):
 
 
 def test_run_mice_device_delta_rejects_unported_and_unknown(iris_mcar):
-    t = from_numpy(*iris_mcar)
+    t = from_numpy(*iris_mcar, device="cpu")
     with pytest.raises(NotImplementedError):
         run_mice_device_delta(t, iters=1, trainer="gd")
     for kernel in ("fused", "xla"):

@@ -149,7 +149,8 @@ def test_run_mice_device_iris_quality(iris_mcar, kernel):
     num, cat, num_null, cat_null = iris_mcar
     host = run_mice_baseline(ref_from_numpy(*iris_mcar), iters=2,
                              linreg_iters=300, noise=False)
-    dev = run_mice_device(from_numpy(*iris_mcar), iters=2, kernel=kernel)
+    dev = run_mice_device(from_numpy(*iris_mcar, device="cpu"), iters=2,
+                          kernel=kernel)
     for j in (0, 3):
         mask = num_null[:, j]
         rmse_h = np.sqrt(np.mean(
@@ -165,7 +166,7 @@ def test_run_mice_device_iris_quality(iris_mcar, kernel):
 def test_run_mice_device_unfused_noise(iris_mcar):
     """Unfused stochastic regression draws from a torch.Generator seeded
     by `seed`: reproducible, seed-sensitive, and only on null cells."""
-    t = from_numpy(*iris_mcar)
+    t = from_numpy(*iris_mcar, device="cpu")
     base = run_mice_device(t, iters=1, kernel="plain")
     a = run_mice_device(t, iters=1, kernel="plain", noise=True, seed=1)
     b = run_mice_device(t, iters=1, kernel="plain", noise=True, seed=1)
@@ -191,7 +192,7 @@ def test_run_mice_device_fused_noise_moments():
     nn[:, 1] = rng.random(n) < 0.2
     cn = np.zeros((n, 2), bool)
     cn[:, 0] = rng.random(n) < 0.2
-    t = from_numpy(x, c, nn, cn)
+    t = from_numpy(x, c, nn, cn, device="cpu")
     kw = dict(iters=2, kernel="fused")
     clean = run_mice_device(t, **kw).num_data
     a = run_mice_device(t, noise=True, seed=5, **kw).num_data
@@ -209,7 +210,7 @@ def test_run_mice_device_fused_noise_moments():
 
 
 def test_run_mice_device_rejects_unported_and_unknown(iris_mcar):
-    t = from_numpy(*iris_mcar)
+    t = from_numpy(*iris_mcar, device="cpu")
     with pytest.raises(NotImplementedError):
         run_mice_device(t, iters=1, trainer="gd")
     with pytest.raises(ValueError):

@@ -210,12 +210,12 @@ def test_qda_full_onehot_fixture_agrees_with_f64_oracle():
 
 def test_qda_limits_raise():
     schema = FeatureSchema(num_cols=4, cat_keys=(tuple(range(8)),) * 2)
-    _build.check_qda(schema, 8)
-    with pytest.raises(ValueError):      # factors beyond shared memory
-        _build.check_qda(FeatureSchema(num_cols=4,
-                                       cat_keys=(tuple(range(200)),)), 8)
+    assert _build.qda_route(schema, 8, 20) == "K3"
+    # factors beyond shared memory take the wide kernel, K3w
+    assert _build.qda_route(FeatureSchema(
+        num_cols=4, cat_keys=(tuple(range(200)),)), 8, 204) == "K3w"
     with pytest.raises(ValueError):      # more columns than registers
-        _build.check_qda(FeatureSchema(num_cols=40), 2)
+        _build.qda_route(FeatureSchema(num_cols=40), 2, 40)
     with pytest.raises(ValueError):
         port_device.qda_predict_device(
             torch.zeros((1, 20, 20)), torch.zeros((1, 20)), torch.zeros(1),

@@ -45,7 +45,7 @@ def _assert_same_table(t, ref):
 
 
 def test_from_numpy_matches_reference(raw):
-    t = from_numpy(*raw)
+    t = from_numpy(*raw, device="cpu")
     _assert_same_table(t, ref_from_numpy(*raw))
     assert t.device == torch.device("cpu")
     assert t.n_rows == raw[0].shape[0]
@@ -53,7 +53,7 @@ def test_from_numpy_matches_reference(raw):
 
 def test_from_reference_carries_the_table(raw):
     ref = ref_from_numpy(*raw)
-    t = from_reference(ref)
+    t = from_reference(ref, device="cpu")
     _assert_same_table(t, ref)
     assert isinstance(t.schema, FeatureSchema)
     assert t.num_names == ref.num_names and t.cat_names == ref.cat_names
@@ -64,7 +64,7 @@ def test_from_numpy_masks_from_nan_and_negative():
     the missing cells, as in the JAX package."""
     num = np.array([[1.0, np.nan], [2.0, 3.0], [np.nan, 4.0]], np.float32)
     cat = np.array([[5], [-1], [6]])
-    t = from_numpy(num, cat)
+    t = from_numpy(num, cat, device="cpu")
     ref = ref_from_numpy(num, cat)
     _assert_same_table(t, ref)
     assert t.num_null.tolist() == [[False, False, True], [True, False, False]]
@@ -73,7 +73,8 @@ def test_from_numpy_masks_from_nan_and_negative():
 
 def test_features_first_input_and_to_numpy(raw):
     num, cat, num_null, cat_null = raw
-    t = from_numpy(num.T, cat.T, num_null.T, cat_null.T, rows_first=False)
+    t = from_numpy(num.T, cat.T, num_null.T, cat_null.T, rows_first=False,
+                   device="cpu")
     got = t.to_numpy()
     want = ref_from_numpy(*raw)
     for a, b in zip(got, (want.num_data, want.cat_codes, want.num_null,
@@ -84,7 +85,7 @@ def test_features_first_input_and_to_numpy(raw):
 
 def test_init_fill_matches_reference(raw):
     ref = ref_init_fill(ref_from_numpy(*raw))
-    got = init_fill(from_numpy(*raw))
+    got = init_fill(from_numpy(*raw, device="cpu"))
     # means are accumulated in f64 on both sides and rounded to f32
     np.testing.assert_allclose(got.num_data.numpy(), np.asarray(ref.num_data),
                                rtol=1e-6, atol=1e-6)
@@ -103,7 +104,7 @@ def test_init_fill_mode_tie_goes_to_lowest_code():
     as np.argmax picks in the JAX package."""
     cat = np.array([[2], [1], [2], [1], [0], [-1], [-1]])
     num = np.zeros((7, 1), np.float32)
-    got = init_fill(from_numpy(num, cat))
+    got = init_fill(from_numpy(num, cat, device="cpu"))
     ref = ref_init_fill(ref_from_numpy(num, cat))
     np.testing.assert_array_equal(got.cat_codes.numpy(),
                                   np.asarray(ref.cat_codes))
@@ -111,8 +112,40 @@ def test_init_fill_mode_tie_goes_to_lowest_code():
 
 
 def test_init_fill_leaves_observed_cells(raw):
-    t = from_numpy(*raw)
+    t = from_numpy(*raw, device="cpu")
     got = init_fill(t)
     obs = ~t.num_null
     assert torch.equal(got.num_data[obs], t.num_data[obs])
     assert torch.equal(got.cat_codes[~t.cat_null], t.cat_codes[~t.cat_null])
+
+
+@pytest.mark.parametrize("entry", ["from_numpy", "from_reference",
+                                   "triple_from_reference",
+                                   "nb_agg_from_reference"])
+def test_entry_points_default_to_the_card(raw, entry):
+    """Asked for no device, the entry points put their tensors on CUDA:
+    with a card they land there, without one the call raises. They never
+    fall back to the CPU, whose plain versions a caller must ask for."""
+    from types import SimpleNamespace
+
+    from duckdb_imputation_tpu_torch.ring.triple import (
+        nb_agg_from_reference, triple_from_reference)
+
+    agg = SimpleNamespace(n=np.ones(2), lin=np.zeros((2, 3)),
+                          quad=np.zeros((2, 3, 3)),
+                          quad_diag=np.zeros((2, 3)),
+                          lin_cat=np.zeros((2, 5)),
+                          num_cat=np.zeros((2, 3, 5)),
+                          cat_cat=np.zeros((2, 5, 5)))
+    call = {"from_numpy": lambda: from_numpy(*raw),
+            "from_reference": lambda: from_reference(ref_from_numpy(*raw)),
+            "triple_from_reference": lambda: triple_from_reference(agg),
+            "nb_agg_from_reference": lambda: nb_agg_from_reference(agg),
+            }[entry]
+    if torch.cuda.is_available():
+        out = call()
+        device = out.device if entry.startswith("from") else out.n.device
+        assert device.type == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            call()

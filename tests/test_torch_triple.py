@@ -90,7 +90,7 @@ def test_sum_to_triple_plain_matches_reference():
                                  backend="plain")
     ref = ref_sum.sum_to_triple(num, codes, w, schema=REF_SCHEMA,
                                 backend="xla")
-    carried = triple_from_reference(ref)
+    carried = triple_from_reference(ref, device="cpu")
     scale = float(np.abs(np.asarray(ref.quad)).max())
     for f in FIELDS:
         g, want, c = (getattr(got, f).numpy(), np.asarray(getattr(ref, f)),
@@ -131,7 +131,7 @@ def test_nb_agg_from_reference():
     ref = ref_sum.sum_to_nb_agg_grouped(num, codes, g, schema=REF_SCHEMA,
                                         num_groups=3, weights=w,
                                         backend="xla")
-    got = nb_agg_from_reference(ref)
+    got = nb_agg_from_reference(ref, device="cpu")
     assert isinstance(got, NBAgg) and got.d == 4
     for f in ("n", "lin", "quad_diag", "lin_cat"):
         np.testing.assert_array_equal(getattr(got, f).numpy(),

@@ -115,8 +115,9 @@ def assert_sigma_close(got, want, counts_exact, schema):
 
 
 def test_check_schema_wide_limits():
-    """K1/K7 and K2/K2w take P up to MAX_WIDE_SIGMA_SIZE; the grouped
-    Grams (K4, K5) still stop at MAX_SIGMA_SIZE."""
+    """K1/K7 and K2/K2w take P up to MAX_WIDE_SIGMA_SIZE; the narrow
+    kernels alone (K1, K2, K4, K5) stop at MAX_SIGMA_SIZE, where their
+    wrappers switch to K7, K2w and K8."""
     for name in SCHEMAS:
         schema = FeatureSchema(*SCHEMAS[name])
         assert schema.sigma_size > _build.MAX_SIGMA_SIZE
@@ -314,7 +315,7 @@ def test_run_mice_device_wide_quality():
     truth_x, truth_c = x[1].copy(), c[1].copy()
     x = np.where(nn, 0.0, x).astype(np.float32)
     c = np.where(cn, 0, c).astype(np.int32)
-    t = from_numpy(x.T, c.T, nn.T, cn.T)
+    t = from_numpy(x.T, c.T, nn.T, cn.T, device="cpu")
     prior = np.bincount(truth_c[~cn[1]]).max() / (~cn[1]).sum()
     mean_fill = np.sqrt(np.mean((truth_x[~nn[1]].mean()
                                  - truth_x[nn[1]]) ** 2))
