@@ -1014,6 +1014,8 @@ def phase_classify(seed: int) -> dict:
 # ---------------------------------------------------------------------------
 
 N_WIDE_CPU = 200_000       # the wide loop on the CPU, held against the card's
+N_SPLIT = 2_000_000        # rows of [K7]'s P = 1,022 case (its plain Gram
+                           # is ~4× favorita_wide's a row)
 DELTA_FRACS = (0.01, 0.05, 0.20)
 # favorita_wide: the Kaggle "Corporacion Favorita Grocery Sales Forecasting"
 # schema (stores.csv, items.csv, train.csv's onpromotion): numeric
@@ -1113,9 +1115,14 @@ def check_gram(tag, got, again, want, schema, binary: bool) -> float:
 
 def phase_k7(seed: int, n: int = N) -> dict:
     """K7 at favorita_wide (P = 492): masked_gram_cols with binary weights
-    and masked_gram with general weights; then masked_gram_cols at P = 124
-    (3 numeric columns, one categorical column of 120)."""
+    and masked_gram with general weights; masked_gram_cols at P = 124 (3
+    numeric columns, one categorical column of 120); with a hot key (90%
+    of the rows on one store and one class: a warp's lanes meet on one
+    cell); and at P = 1,022 (2 numeric columns, two categorical columns of
+    510: a cross table of 2 MB in f64, split by key range over 32 tasks)
+    on N_SPLIT rows."""
     from duckdb_imputation_tpu_torch import FeatureSchema
+    from duckdb_imputation_tpu_torch.ring.kernels._build import wide_plan
     from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas import (
         masked_gram, masked_gram_cols, masked_gram_cols_plain,
         masked_gram_plain)
@@ -1132,19 +1139,36 @@ def phase_k7(seed: int, n: int = N) -> dict:
     narrow = FeatureSchema(num_cols=3, cat_keys=(tuple(range(120)),))
     c120 = [torch.randint(0, 121, (n,), generator=gen, device=DEVICE,
                           dtype=torch.int32)]
+    hot = torch.rand(n, generator=gen, device=DEVICE) < 0.9
+    c_hot = list(cs)
+    c_hot[0] = torch.where(hot, 7, codes[0]).to(torch.int32)
+    c_hot[2] = torch.where(hot, 5, codes[2]).to(torch.int32)
+    split = FeatureSchema(num_cols=2, cat_keys=(tuple(range(510)),) * 2)
+    x_sp = [x[:N_SPLIT] for x in xs[:2]]
+    c_sp = [torch.randint(-1, 511, (N_SPLIT,), generator=gen, device=DEVICE,
+                          dtype=torch.int32) for _ in range(2)]
+    w_sp = w_bin[:N_SPLIT]
     cases = (
-        ("cols P=492 binary", t.schema, True,
+        ("cols P=492 binary", t.schema, w_bin,
          lambda: masked_gram_cols(xs, cs, w_bin, schema=t.schema),
          lambda: masked_gram_cols_plain(xs, cs, w_bin, schema=t.schema)),
-        ("stacked P=492 general", t.schema, False,
+        ("stacked P=492 general", t.schema, None,
          lambda: masked_gram(t.num_data, codes, w_gen, schema=t.schema),
          lambda: masked_gram_plain(t.num_data, codes, w_gen,
                                    schema=t.schema)),
-        ("cols P=124 binary", narrow, True,
+        ("cols P=124 binary", narrow, w_bin,
          lambda: masked_gram_cols(xs, c120, w_bin, schema=narrow),
-         lambda: masked_gram_cols_plain(xs, c120, w_bin, schema=narrow)))
+         lambda: masked_gram_cols_plain(xs, c120, w_bin, schema=narrow)),
+        ("cols P=492 hot key binary", t.schema, w_bin,
+         lambda: masked_gram_cols(xs, c_hot, w_bin, schema=t.schema),
+         lambda: masked_gram_cols_plain(xs, c_hot, w_bin, schema=t.schema)),
+        (f"cols P=1022 split table binary n={N_SPLIT} "
+         f"({wide_plan(split).num_tasks} tasks)", split, w_sp,
+         lambda: masked_gram_cols(x_sp, c_sp, w_sp, schema=split),
+         lambda: masked_gram_cols_plain(x_sp, c_sp, w_sp, schema=split)))
     out = {}
-    for name, schema, binary, kernel, plain in cases:
+    for name, schema, w_bin_case, kernel, plain in cases:
+        binary = w_bin_case is not None
         before = masked_gram_cols.wide_launches + masked_gram.wide_launches
         got, again, want = kernel(), kernel(), plain()
         torch.cuda.synchronize()
@@ -1153,7 +1177,7 @@ def phase_k7(seed: int, n: int = N) -> dict:
               f"launches, not 2")
         err = check_gram(f"K7 {name}", got, again, want, schema, binary)
         if binary:
-            check(float(got[0, 0]) == float(w_bin.sum()),
+            check(float(got[0, 0]) == float(w_bin_case.sum()),
                   f"K7 {name}: sigma[0,0] != Σw")
         ms = cuda_ms(kernel, reps=5, warmup=1)
         plain_ms = cuda_ms(plain, reps=3, warmup=1)
@@ -1162,7 +1186,7 @@ def phase_k7(seed: int, n: int = N) -> dict:
             + f"max rel err {err:.3e} (of max|σ|), max abs err "
             f"{abs_err:.3e}, bit-identical rerun; kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms")
-        if name.startswith("cols P=492"):
+        if name == "cols P=492 binary":
             out = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
                        **gram_bound(codes, t.schema, w_bin))
     out["library_ms"] = library_gram_ms(t.num_data, codes, w_bin, t.schema)
@@ -1473,7 +1497,7 @@ def phase_k8(seed: int) -> dict:
     ids out of range and codes out of vocab; then label onpromotion (G = 2,
     P = 490) through the unsorted entry (which sorts first), binary and
     general weights. Each against its plain version."""
-    from duckdb_imputation_tpu_torch.ring.kernels._build import wide_regions
+    from duckdb_imputation_tpu_torch.ring.kernels._build import wide_plan
     from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas_grouped import (
         grouped_gram, grouped_gram_plain, grouped_gram_presorted,
         grouped_gram_presorted_plain, sort_by_group)
@@ -1509,7 +1533,7 @@ def phase_k8(seed: int) -> dict:
                **gram_bound(codes, schema, w * (ids < classes), classes),
                library_ms=None)
     log(f"[K8] n={N} family G={classes} P={schema.sigma_size} "
-        f"({len(wide_regions(schema))} regions): sort_by_group {sort_ms:.1f} ms "
+        f"({wide_plan(schema).num_tasks} tasks): sort_by_group {sort_ms:.1f} ms "
         f"(host clock, first call); counts exact, max rel err {err:.3e} (of "
         f"max|σ| per group), max abs err {abs_err:.3e}, bit-identical rerun;"
         f" kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "

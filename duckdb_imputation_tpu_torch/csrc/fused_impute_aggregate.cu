@@ -31,12 +31,12 @@
 // K2w, the same pass for P > 88 (dit_fused_impute_aggregate_wide), is the
 // counterpart of _fused_impute_aggregate_v2 / _v3 at pack = 1. K2 keeps W
 // f32[P, R] in shared memory, which at P = 492 and R = 337 would be 663 KB,
-// past a block's 227 KB; and K7 (wide_gram.cuh) tiles S over regions of
-// the grid. K2w is therefore two launches: an impute kernel that reads W
-// from device memory (it stays in L2) and writes the new column, then K7
-// over the columns with the new one in the old one's place. Re-scoring the
-// rows in every K7 region instead would cost R·(1 + d + c) operations a row
-// per region: at R = 337 and 30 regions as much again as the Gram itself.
+// past a block's 227 KB; and K7 (wide_gram.cuh) walks S's nonzeros in
+// tasks over the grid. K2w is therefore two launches: an impute kernel
+// that reads W from device memory (it stays in L2) and writes the new
+// column, then K7 over the columns with the new one in the old one's
+// place. Re-scoring the rows in every K7 task instead would cost R·(1 + d
+// + c) operations a row per task, more than the Gram itself at R = 337.
 // 'cat' takes one warp a row, lanes over classes, so W's reads are
 // coalesced across a warp, and a shuffle tree picks the first max; 'num'
 // takes one thread a row. Scores, ties and noise are K2's.
@@ -296,17 +296,17 @@ int dit_fused_impute_aggregate(
 
 // Launches K2w on `stream`: the impute kernel of `kind`, then K7 over the
 // columns with out_col in column imp_col's place. Arguments as
-// dit_fused_impute_aggregate, except any P ≤ kMaxWideP; region_lo,
-// nregions, slices and partial as dit_wide_gram; sigma zeroed by the
-// caller. Returns 0 or a cudaError_t.
+// dit_fused_impute_aggregate, except any P ≤ kMaxWideP; the plan (slabs ..
+// shape) and partial as dit_wide_gram; sigma zeroed by the caller. Returns 0 or a cudaError_t.
 int dit_fused_impute_aggregate_wide(
     const void* const* x_cols, int d, const void* const* code_cols,
     const int* cat_sizes, int c, const uint8_t* null_imp, const float* w_agg,
     const float* w_full, const float* intercept, int R, int kind,
     int imp_col, void* out_col, int noise, uint32_t seed_lo,
     uint32_t seed_hi, uint32_t round, const float* noise_std, int64_t n,
-    int P, const int* region_lo, int nregions, int slices, double* partial,
-    float* sigma, void* stream) {
+    int P, const int* slabs, const int* warp_begin, const int64_t* task_base,
+    const int* stage_cols, const int* entries, const int* shape,
+    double* partial, float* sigma, void* stream) {
   using namespace dit;
   if (int rc = check_cols(d, c, cat_sizes, P, n, 1, kMaxWideP)) return rc;
   if (kind == kCat) {
@@ -317,8 +317,11 @@ int dit_fused_impute_aggregate_wide(
   } else {
     return cudaErrorInvalidValue;
   }
-  Regions rg;
-  if (int rc = make_regions(region_lo, nregions, P, slices, rg)) return rc;
+  WidePlanArgs plan;
+  int slices;
+  if (int rc = make_plan(slabs, warp_begin, task_base, stage_cols, entries,
+                         shape, plan, slices))
+    return rc;
   Cols cols = make_cols(x_cols, d, code_cols, cat_sizes, c);
   auto s = static_cast<cudaStream_t>(stream);
   if (n > 0) {
@@ -343,7 +346,8 @@ int dit_fused_impute_aggregate_wide(
     cols.code[imp_col] = static_cast<const int32_t*>(out_col);
   else
     cols.x[imp_col] = static_cast<const float*>(out_col);
-  return launch_wide_gram(cols, rg, P, n, slices, w_agg, partial, sigma, s);
+  return launch_wide_gram<false>(cols, plan, P, n, nullptr, nullptr, 1,
+                                 slices, w_agg, partial, sigma, s);
 }
 
 }  // extern "C"

@@ -1,47 +1,64 @@
-// K7: the masked Gram for wide schemas (P > kMaxP = 88, up to kMaxWideP),
-// S = Zᵀ·diag(w)·Z with Z = [1 ‖ x ‖ onehot(codes)], for sm_90a, plain f32
-// on the CUDA cores. Included by wide_gram.cu (the Gram alone) and by
-// fused_impute_aggregate.cu (the Gram of K2w, the wide fused pass).
+// K7 and K8: the masked Gram for wide schemas (P > kMaxP = 88, up to
+// kMaxWideP), S = Zᵀ·diag(w)·Z with Z = [1 ‖ x ‖ onehot(codes)], over each
+// row's nonzeros, for sm_90a. Included by wide_gram.cu (K7, the Gram
+// alone), fused_impute_aggregate.cu (the Gram of K2w, the wide fused pass)
+// and grouped_wide_gram.cu (K8, one S per group over group-sorted rows).
 //
 // Replaces, for P > 88, the Pallas kernels of duckdb_imputation_tpu/ring/
-// kernels/sigma_pallas.py that fall to pack = 1 and a wider tile there:
-// sigma_pallas, sigma_pallas_fast (the v1 wide fallback of
-// sigma_pallas_fast_padded), sigma_pallas_fast2(_cols) and
-// sigma_pallas_fast3(_cols).
+// kernels/sigma_pallas.py that fall to pack = 1 and a wider tile there
+// (sigma_pallas, sigma_pallas_fast, sigma_pallas_fast2(_cols) and
+// sigma_pallas_fast3(_cols)) and, as K8, the grouped ones of
+// sigma_pallas_grouped.py (see grouped_wide_gram.cu).
 //
-// K1 gives each thread one 4×4 tile of S's whole upper triangle, which
-// caps P at 88 (253 tiles ≤ 256 threads). K7 tiles S over the grid:
+// A row of Z has only k = 1 + d + c nonzeros, so S's nonzero structure is
+// fixed by the schema (ring/kernels/_build.py: WidePlan):
+//   D     the (1+d)×(1+d) block of [1 ‖ x]: dense, small (1 + d ≤ 65);
+//   K_j   per categorical column j, Σ_{c_j = v} w·[1, x], (1+d) × V_j; its
+//         row of counts is also the diagonal of j's one-hot block;
+//   C_jk  per pair j < k, Σ_{c_j = u, c_k = v} w, V_j × V_k;
+//   zero  the off-diagonal cells of one column's one-hot block.
+// A row adds k(k + 1)/2 products in all (91 at favorita_wide, P = 492),
+// where a dense tiling of S issues ~P²/2.
 //
-//   1. S's upper triangle is cut into 64×64 regions (I ≤ J). The host
-//      plans the list of regions and drops those that are structurally
-//      zero: two distinct 64-wide ranges inside the one-hot block of one
-//      categorical column never co-occur in a row (at most one code of a
-//      column is set), so their products are all zero.
-//   2. blockIdx.x is a region, blockIdx.y a row slice (chunks y, y + S, …).
-//      A block stages kWideChunk rows at a time, only Z's columns of its
-//      two ranges (a code lands in a range iff its sigma index does):
-//      threads 0..127 write a row of A = w·Z[:, range I], threads 128..255
-//      a row of B = Z[:, range J]. The one-hot never touches device
-//      memory.
-//   3. Each of the 256 threads owns one 4×4 tile of the 64×64 region and
-//      walks every staged row in order: two float4 shared loads feed 16
-//      FMAs. After each chunk the f32 tile is added to an f64 tile.
-//   4. Each block writes its f64 tile to its own partial; wide_gram_reduce
-//      sums a region's slices in slice order in f64 and rounds to f32 once,
-//      writing both triangles. Skipped regions stay at the zeros the output
-//      was allocated with.
+//   1. The host cuts the tables into slabs (a D row's cells, a key range
+//      of K_j or of C_jk) and the slabs into tasks whose f64 tables fit
+//      kWideTaskBytes of shared memory; each slab of a task belongs to one
+//      of its kWideWarps warps.
+//   2. blockIdx.x is a task, blockIdx.y a row slice: a run of consecutive
+//      chunks of kWideChunk = 32 rows. The block stages up to 256 rows (8
+//      chunks) a step with cp.async into one of two buffers, only the
+//      columns its task reads (w, x for a D or K slab, the code columns of
+//      its K and C slabs), the next step's copies in flight while the
+//      warps walk the current one. Every warp walks all of the slice's
+//      chunks in order, one row a lane, for each of its slabs.
+//   3. For a K or C slab each lane computes its row's cell;
+//      __match_any_sync finds the lanes of the same cell, their values are
+//      summed in f32 (at most 32 rows) by pointer jumping along the cell's
+//      lanes (five shuffles a value), and the lowest of them adds the sum
+//      to the f64 table. A warp takes two chunks at once: their matches
+//      and sums are independent, so their latencies overlap, then the two
+//      chunks' table updates follow, the first chunk's first. A D slab of
+//      nc ≤ 32 cells gives each cell a power of two of lanes over
+//      interleaved rows and a butterfly over them. A cell is written only
+//      by the warp that owns its slab: no float atomics, and the order of
+//      every sum is fixed by the lanes, so reruns are bit-identical; f32
+//      spans at most 32 rows and everything beyond is f64, so counts are
+//      exact at any n < 2³¹.
+//   4. After its last chunk (and, in K8, when its group changes) a warp
+//      writes its slabs' cells to the partial of (task, slice + group).
+//      wide_gram_reduce sums each cell's slices in slice order in f64,
+//      rounds to f32 once and writes both triangles of S through the
+//      plan's map; cells of the zero structure are never written (the
+//      output is zero-filled).
 //
-// As in K1: no float atomics, so reruns are bit-identical; a thread's f32
-// sum spans one chunk (128 rows), everything beyond is f64, so counts are
-// exact past 2²⁴ rows; any n < 2³¹ (rows past n stage as zeros).
-//
-// What bounds it on an H100: every kept region costs 4,096 FMAs a row. At
-// the favorita_wide schema (P = 492) 30 of the 36 regions are kept,
-// 123k FMAs a row, against 52 bytes a row read from device memory: far
-// above the ridge, bound by issuing FMAs and shared loads (67 TFLOP/s f32
-// peak: ≥ 37 ms per 10M rows). A row has only 1 + d + c nonzeros, so a
-// kernel that walks the nonzeros alone is the way past this floor (later
-// work).
+// What bounds it on an H100: the bytes floor is one read of x, codes and w
+// (0.16 ms per 10M rows at favorita_wide); the work is ~k(k + 1)/2 table
+// updates a row (91 at favorita_wide) in ~50 slabs, each slab a chain of
+// dependent steps per chunk (codes, match, five shuffles, the table), so
+// the kernel is bound by the latency of those chains on its busiest warp
+// (PERF.md, tools/wide_gram_variants.py: a serial sum by the lowest lane
+// cost 4.1×, one chunk at a time instead of two 1.5×, first-fit packing
+// instead of by slab count 1.1×).
 #pragma once
 
 #include "gram_common.cuh"
@@ -49,164 +66,386 @@
 namespace dit {
 namespace {
 
-constexpr int kWideTile = 64;      // side of a region of S
-constexpr int kWideChunk = 128;    // rows staged per step
-constexpr int kWideStride = 68;    // floats a staged row: 64 + 4, so the
-                                   // float4 stores of 32 rows spread banks
 constexpr int kMaxWideP = 1024;
-constexpr int kMaxRegions =
-    (kMaxWideP / kWideTile) * (kMaxWideP / kWideTile + 1) / 2;  // 136
-constexpr int kRegionEntries = kWideTile * kWideTile;            // 4096
+constexpr int kWideChunk = 32;               // rows a warp takes a step
+constexpr int kWideWarps = kThreads / 32;    // warps of a block
+constexpr int kWideSubs = kThreads / kWideChunk;  // most warp steps a stage
+constexpr int kWideTaskBytes = 64 * 1024;    // f64 tables of one task
+constexpr int kWideSlabInts = 8;             // ints of a slab record
+constexpr int kWideMaxSlabs = 256;           // slabs of one task
+constexpr int kWideSmem = 227 * 1024;        // shared memory of a block
+constexpr int kWidePlanInts = 7;             // ints of the plan's shape
+constexpr int kSlabD = 0;   // (D, a, b_lo, b_hi): cells (a, b_lo .. b_hi)
+constexpr int kSlabK = 1;   // (K, j, v_lo, v_hi): [v − v_lo][1 + d]
+constexpr int kSlabC = 2;   // (C, j, k, u_lo, u_hi): [u − u_lo][V_k]
 
-// The planned regions: region r covers rows [lo_i[r], lo_i[r] + 64) and
-// columns [lo_j[r], lo_j[r] + 64) of S, lo_i ≤ lo_j.
-struct Regions {
-  int lo_i[kMaxRegions];
-  int lo_j[kMaxRegions];
-  int count;
+static_assert(kWideChunk == 32, "one row a lane of a warp");
+
+// The host's plan (ring/kernels/_build.py: WidePlan): its tensors in
+// device memory and its shape.
+struct WidePlanArgs {
+  const int* slabs;          // [S][kWideSlabInts]: kind, p0..p3, off, task, warp
+  const int* warp_begin;     // [tasks · kWideWarps + 1]
+  const int64_t* task_base;  // [tasks + 1]: each task's first flat cell
+  const int* stage_cols;     // [tasks][1 + kMaxCols]: count, code columns
+  const int* entries;        // [nentries][4]: task, cell, i, j (i ≤ j)
+  int tasks, nentries, max_cells, max_cols, max_slabs, rows;
 };
 
-// 0 or a cudaError_t. region_lo: 2·nregions ints, (lo_i, lo_j) pairs.
-inline int make_regions(const int* region_lo, int nregions, int P,
-                        int slices, Regions& rg) {
-  if (nregions < 1 || nregions > kMaxRegions) return cudaErrorInvalidValue;
-  if (slices < 1 || slices > 65535) return cudaErrorInvalidValue;
-  rg.count = nregions;
-  for (int r = 0; r < nregions; ++r) {
-    const int li = region_lo[2 * r], lj = region_lo[2 * r + 1];
-    if (li < 0 || li % kWideTile || lj % kWideTile || li > lj || lj >= P)
-      return cudaErrorInvalidValue;
-    rg.lo_i[r] = li;
-    rg.lo_j[r] = lj;
+// Chunks a slice takes, the same in the kernel and the reduction.
+__host__ __device__ __forceinline__ int64_t chunks_per_slice(int64_t total,
+                                                             int slices) {
+  const int64_t cps = (total + slices - 1) / slices;
+  return cps > 0 ? cps : 1;
+}
+
+__device__ __forceinline__ int slab_cells(const int* sl, const Cols& cols) {
+  if (sl[0] == kSlabD) return sl[3] - sl[2];
+  if (sl[0] == kSlabK) return (sl[3] - sl[2]) * (1 + cols.d);
+  return (sl[4] - sl[3]) * cols.size[sl[2]];
+}
+
+// 4 bytes global → shared, asynchronously (cp.async), or `zero` when the
+// row does not exist.
+__device__ __forceinline__ void stage4(float* dst, const void* src,
+                                       bool valid, float zero) {
+  if (valid) {
+    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+                 "l"(src));
+  } else {
+    *dst = zero;
   }
+}
+
+// The lanes of one key form a list in lane order. succ[i] is the lane 2^i
+// places after this one in its list (32: none), by pointer jumping.
+struct PeerList {
+  int succ[5];
+  __device__ __forceinline__ PeerList(unsigned peers, int lane) {
+    const unsigned later = lane == 31 ? 0u : peers >> (lane + 1) << (lane + 1);
+    succ[0] = later ? __ffs(later) - 1 : 32;
+#pragma unroll
+    for (int i = 1; i < 5; ++i) {
+      const int s2 = __shfl_sync(0xffffffffu, succ[i - 1], succ[i - 1] & 31);
+      succ[i] = succ[i - 1] < 32 ? s2 : 32;
+    }
+  }
+  // Σ of v over this lane and the rest of its list (the whole key's sum
+  // at its first lane), as a tree fixed by the lanes: deterministic.
+  __device__ __forceinline__ float suffix_sum(float v) const {
+#pragma unroll
+    for (int i = 0; i < 5; ++i) {
+      const float o = __shfl_sync(0xffffffffu, v, succ[i] & 31);
+      if (succ[i] < 32) v += o;
+    }
+    return v;
+  }
+};
+
+// One warp's update of one K or C slab from two chunks of 32 staged rows
+// (w at rows[r], x_a at rows[a·R + r]; key1 = −1 for none): per chunk, the
+// lanes of the same key (__match_any_sync) sum their values (w for C; w,
+// w·x_a for K, as K1's z·w) in f32 over their list, and the first of them
+// adds the sums to the f64 table, chunk 0's before chunk 1's. The two
+// chunks' matches and sums are independent, so their latencies overlap.
+// key < 0: the lane's row adds nothing.
+__device__ __forceinline__ void add_keyed(double* table, int key0, int key1,
+                                          int vals, const float* rows0,
+                                          const float* rows1, int R,
+                                          int lane) {
+  const unsigned p0 = __match_any_sync(0xffffffffu, key0);
+  const unsigned p1 = __match_any_sync(0xffffffffu, key1);
+  const bool lead0 = key0 >= 0 && __ffs(p0) - 1 == lane;
+  const bool lead1 = key1 >= 0 && __ffs(p1) - 1 == lane;
+  const PeerList l0(p0, lane), l1(p1, lane);
+  const float w0 = rows0[lane], w1 = rows1[lane];
+  double* t0 = table + key0 * vals;
+  double* t1 = table + key1 * vals;
+  float s0 = l0.suffix_sum(w0), s1 = l1.suffix_sum(w1);
+  if (lead0) t0[0] += static_cast<double>(s0);
+  if (lead1) t1[0] += static_cast<double>(s1);
+  for (int a = 1; a < vals; ++a) {
+    s0 = l0.suffix_sum(rows0[a * R + lane] * w0);
+    s1 = l1.suffix_sum(rows1[a * R + lane] * w1);
+    if (lead0) t0[a] += static_cast<double>(s0);
+    if (lead1) t1[a] += static_cast<double>(s1);
+  }
+}
+
+// One warp's update of a D slab, cells (a, b) for b in [lo, hi), nc =
+// hi − lo ≤ 32: lane = cell · P2 + part, P2 the largest power of two with
+// nc · P2 ≤ 32; a part sums rows part, part + P2, … and a butterfly over
+// the parts leaves the cell's sum in part 0.
+__device__ __forceinline__ void add_dense(double* table, int a, int lo,
+                                          int hi, const float* rows, int R,
+                                          int lane) {
+  const int nc = hi - lo;
+  int p2 = kWideChunk;
+  while (nc * p2 > kWideChunk) p2 >>= 1;
+  const int e = lane / p2, part = lane % p2;
+  float s = 0.0f;
+  if (e < nc) {
+    const int b = lo + e;
+    for (int r = part; r < kWideChunk; r += p2) {
+      const float va = a == 0 ? rows[r] : rows[a * R + r] * rows[r];
+      s += va * (b == 0 ? 1.0f : rows[b * R + r]);
+    }
+  }
+  for (int d = 1; d < p2; d <<= 1) s += __shfl_xor_sync(0xffffffffu, s, d);
+  if (e < nc && part == 0) table[e] += static_cast<double>(s);
+}
+
+// Grouped = false: K7 over rows 0 .. n (off, cum unused, G = 1). Grouped:
+// K8 over group-sorted rows, group g owning rows off[g] .. off[g + 1] cut
+// into chunks cum[g] .. cum[g + 1] that never cross a group boundary.
+// partial: per task, (slices + G − 1) slots of its cells.
+//
+// A block stages plan.rows rows (rows / 32 chunks) a step into one of two
+// buffers with cp.async, the next step's copies in flight while its warps
+// walk the current one; a step's buffer holds, column by column, w, x (if
+// the task has a D or K slab) and the task's code columns.
+template <bool Grouped>
+__global__ void __launch_bounds__(kThreads)
+wide_gram_kernel(const __grid_constant__ Cols cols,
+                 const __grid_constant__ WidePlanArgs plan,
+                 const float* __restrict__ w, int64_t n,
+                 const int64_t* __restrict__ off,
+                 const int64_t* __restrict__ cum, int G,
+                 double* __restrict__ partial) {
+  extern __shared__ double wide_smem[];
+  const int task = blockIdx.x, slice = blockIdx.y, slices = gridDim.y;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int R = plan.rows, subs = R / kWideChunk;
+  const int64_t tbase = plan.task_base[task];
+  const int cells = static_cast<int>(plan.task_base[task + 1] - tbase);
+  const int sb = plan.warp_begin[task * kWideWarps];
+  const int nslabs = plan.warp_begin[(task + 1) * kWideWarps] - sb;
+  const int* tcols = plan.stage_cols + task * (1 + kMaxCols);
+  const int ncodes = tcols[0];
+
+  double* table = wide_smem;                                  // [cells]
+  float* stage = reinterpret_cast<float*>(wide_smem + plan.max_cells);
+  int* slabs = reinterpret_cast<int*>(stage + 2 * plan.max_cols * R);
+  int* code_col = slabs + plan.max_slabs * kWideSlabInts;     // [kMaxCols]
+  int* slot_of = code_col + kMaxCols;                         // [kMaxCols]
+  int* sub_g = slot_of + kMaxCols;                            // [2][kWideSubs]
+
+  for (int e = tid; e < cells; e += kThreads) table[e] = 0.0;
+  bool has_x = false;
+  for (int e = tid; e < nslabs * kWideSlabInts; e += kThreads) {
+    const int v = plan.slabs[sb * kWideSlabInts + e];
+    slabs[e] = v;
+    if (e % kWideSlabInts == 0) has_x |= v != kSlabC;
+  }
+  for (int q = tid; q < ncodes; q += kThreads) {
+    code_col[q] = tcols[1 + q];
+    slot_of[tcols[1 + q]] = q;
+  }
+  const bool need_x = __syncthreads_or(has_x);
+  const int xcols = need_x ? cols.d : 0;
+  const int cbase = 1 + xcols;                  // stage slot of code 0
+
+  const int64_t total =
+      Grouped ? cum[G] : (n + kWideChunk - 1) / kWideChunk;
+  const int64_t cps = chunks_per_slice(total, slices);
+  const int64_t c0 = int64_t(slice) * cps;
+  const int64_t c1 = c0 + cps < total ? c0 + cps : total;
+  if (c0 >= c1) return;                         // the whole block
+  const int steps = static_cast<int>((c1 - c0 + subs - 1) / subs);
+
+  // staging: thread tid < R copies row `lane` of chunk c0 + step·subs +
+  // tid / 32; gs follows that chunk's group
+  int gs = 0;
+  if (Grouped) {   // the group of chunk c0: the last g with cum[g] ≤ c0
+    int ghi = G;
+    while (gs < ghi) {
+      const int mid = (gs + ghi + 1) / 2;
+      if (cum[mid] <= c0) gs = mid; else ghi = mid - 1;
+    }
+  }
+  auto stage_step = [&](int step) {
+    float* buf = stage + (step & 1) * plan.max_cols * R + tid;
+    if (tid < R) {
+      const int64_t ch = c0 + int64_t(step) * subs + tid / kWideChunk;
+      int64_t row = ch * kWideChunk + lane, end = n;
+      if (Grouped && ch < c1) {
+        while (ch >= cum[gs + 1]) ++gs;
+        row = off[gs] + (ch - cum[gs]) * kWideChunk + lane;
+        end = off[gs + 1];
+        if (lane == 0) sub_g[(step & 1) * kWideSubs + tid / kWideChunk] = gs;
+      }
+      const bool valid = ch < c1 && row < end;
+      stage4(buf, w + row, valid, 0.0f);
+      for (int j = 0; j < xcols; ++j)
+        stage4(buf + (1 + j) * R, cols.x[j] + row, valid, 0.0f);
+      for (int q = 0; q < ncodes; ++q)
+        stage4(buf + (cbase + q) * R, cols.code[code_col[q]] + row, valid,
+               __int_as_float(-1));
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+
+  const int s0 = plan.warp_begin[task * kWideWarps + warp] - sb;
+  const int s1 = plan.warp_begin[task * kWideWarps + warp + 1] - sb;
+  // the warp's cells: its slabs lie next to each other in the table
+  const int lo_cell = s0 < s1 ? slabs[s0 * kWideSlabInts + 5] : 0;
+  const int hi_cell = s0 < s1 ? slabs[(s1 - 1) * kWideSlabInts + 5] +
+                                    slab_cells(slabs + (s1 - 1) *
+                                               kWideSlabInts, cols)
+                              : 0;
+  double* slots = partial + tbase * (slices + G - 1);
+  int cur = Grouped ? -1 : 0;   // the group the warp's tables hold
+
+  stage_step(0);
+  for (int step = 0; step < steps; ++step) {
+    if (step + 1 < steps) stage_step(step + 1);
+    else asm volatile("cp.async.commit_group;\n" ::);
+    asm volatile("cp.async.wait_group 1;\n" ::);
+    __syncthreads();
+    const float* buf = stage + (step & 1) * plan.max_cols * R;
+    const int64_t left = c1 - (c0 + int64_t(step) * subs);
+    const int nsub = left < subs ? static_cast<int>(left) : subs;
+    const int* gsub = sub_g + (step & 1) * kWideSubs;
+    for (int k = 0; k < nsub && s0 < s1;) {
+      if (Grouped && gsub[k] != cur) {   // flush the finished group
+        if (cur >= 0) {
+          double* o = slots + int64_t(slice + cur) * cells;
+          for (int e = lo_cell + lane; e < hi_cell; e += 32) {
+            o[e] = table[e];
+            table[e] = 0.0;
+          }
+          __syncwarp();
+        }
+        cur = gsub[k];
+      }
+      // two chunks at once where a second one of the same group follows
+      const bool pair = k + 1 < nsub && (!Grouped || gsub[k + 1] == cur);
+      const float* rows0 = buf + k * kWideChunk;
+      const float* rows1 = pair ? rows0 + kWideChunk : rows0;
+      const int* codes0 = reinterpret_cast<const int*>(rows0) + cbase * R;
+      const int* codes1 = reinterpret_cast<const int*>(rows1) + cbase * R;
+      for (int s = s0; s < s1; ++s) {
+        const int* sl = slabs + s * kWideSlabInts;
+        double* t = table + sl[5];
+        if (sl[0] == kSlabD) {
+          add_dense(t, sl[1], sl[2], sl[3], rows0, R, lane);
+          if (pair) add_dense(t, sl[1], sl[2], sl[3], rows1, R, lane);
+        } else if (sl[0] == kSlabK) {
+          const int q = slot_of[sl[1]] * R + lane;
+          const int v0 = codes0[q], v1 = codes1[q];
+          add_keyed(t, v0 >= sl[2] && v0 < sl[3] ? v0 - sl[2] : -1,
+                    pair && v1 >= sl[2] && v1 < sl[3] ? v1 - sl[2] : -1,
+                    1 + cols.d, rows0, rows1, R, lane);
+        } else {
+          const int vk = cols.size[sl[2]];
+          const int qu = slot_of[sl[1]] * R + lane;
+          const int qv = slot_of[sl[2]] * R + lane;
+          const int u0 = codes0[qu], v0 = codes0[qv];
+          const int u1 = codes1[qu], v1 = codes1[qv];
+          add_keyed(t,
+                    u0 >= sl[3] && u0 < sl[4] && v0 >= 0 && v0 < vk
+                        ? (u0 - sl[3]) * vk + v0 : -1,
+                    pair && u1 >= sl[3] && u1 < sl[4] && v1 >= 0 && v1 < vk
+                        ? (u1 - sl[3]) * vk + v1 : -1,
+                    1, rows0, rows1, R, lane);
+        }
+        __syncwarp();
+      }
+      k += pair ? 2 : 1;
+    }
+    __syncthreads();   // the buffer is restaged two steps on
+  }
+  if (s0 < s1) {
+    double* o = slots + int64_t(slice + cur) * cells;
+    for (int e = lo_cell + lane; e < hi_cell; e += 32) o[e] = table[e];
+  }
+}
+
+// One thread per (group, map entry): the cell's slots over the slices that
+// touched the group, in slice order, f64, one rounding; writes S_g[i, j]
+// and S_g[j, i]. cum == nullptr: K7, one group of `total` chunks. An empty
+// group gets zeros.
+__global__ void wide_gram_reduce(const double* __restrict__ partial,
+                                 const __grid_constant__ WidePlanArgs plan,
+                                 const int64_t* __restrict__ cum,
+                                 int64_t total, int G, int slices, int P,
+                                 float* __restrict__ out) {
+  const int64_t t = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (t >= int64_t(G) * plan.nentries) return;
+  const int g = static_cast<int>(t / plan.nentries);
+  const int* e = plan.entries + 4 * (t % plan.nentries);
+  const int task = e[0], cell = e[1], i = e[2], j = e[3];
+  const int64_t lo = cum ? cum[g] : 0, hi = cum ? cum[g + 1] : total;
+  double s = 0.0;
+  if (hi > lo) {
+    const int64_t cps = chunks_per_slice(cum ? cum[G] : total, slices);
+    const int64_t tbase = plan.task_base[task];
+    const int64_t cells = plan.task_base[task + 1] - tbase;
+    const double* p = partial + tbase * (slices + G - 1) + cell;
+    for (int64_t b = lo / cps; b <= (hi - 1) / cps; ++b)
+      s += p[(b + g) * cells];
+  }
+  const float v = static_cast<float>(s);
+  float* o = out + int64_t(g) * P * P;
+  o[int64_t(i) * P + j] = v;
+  o[int64_t(j) * P + i] = v;
+}
+
+// Mirrored by ring/kernels/_build.py: wide_smem_bytes.
+inline size_t wide_smem_bytes(const WidePlanArgs& plan) {
+  return sizeof(double) * plan.max_cells +
+         sizeof(float) * (2 * plan.max_cols * plan.rows +
+                          kWideSlabInts * plan.max_slabs + 2 * kMaxCols +
+                          2 * kWideSubs);
+}
+
+// The plan's arguments: its device tensors and its shape (host ints:
+// tasks, nentries, max_cells, max_cols, max_slabs, rows, slices). 0 or a
+// cudaError_t.
+inline int make_plan(const int* slabs, const int* warp_begin,
+                     const int64_t* task_base, const int* stage_cols,
+                     const int* entries, const int* shape,
+                     WidePlanArgs& plan, int& slices) {
+  plan = WidePlanArgs{slabs, warp_begin, task_base, stage_cols, entries,
+                      shape[0], shape[1], shape[2], shape[3], shape[4],
+                      shape[5]};
+  slices = shape[6];
+  if (plan.tasks < 1 || plan.nentries < 1 || plan.max_cells < 1 ||
+      plan.max_cells > kWideTaskBytes / 8 || plan.max_cols < 1 ||
+      plan.max_cols > 1 + 2 * kMaxCols || plan.max_slabs < 1 ||
+      plan.max_slabs > kWideMaxSlabs || plan.rows < kWideChunk ||
+      plan.rows > kThreads || plan.rows % kWideChunk)
+    return cudaErrorInvalidValue;
+  if (wide_smem_bytes(plan) > kWideSmem) return cudaErrorInvalidValue;
+  if (slices < 1 || slices > 65535) return cudaErrorInvalidValue;
   return 0;
 }
 
-// Row `row` of Z restricted to sigma indices [lo, lo + 64), each value
-// times wt, into dst[0 .. 64); zeros past n and off the row's nonzeros.
-// wt·z rounds as K1's z·w does (the ones become wt exactly).
-__device__ __forceinline__ void stage_range_row(float* dst, const Cols& cols,
-                                                int64_t row, int64_t n,
-                                                int lo, const float* w) {
-  float4* d4 = reinterpret_cast<float4*>(dst);
-#pragma unroll
-  for (int q = 0; q < kWideTile / 4; ++q) d4[q] = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (row >= n) return;
-  const float wt = w ? w[row] : 1.0f;
-  const int hi = lo + kWideTile;
-  if (lo == 0) dst[0] = wt;
-  if (lo <= cols.d)
-    for (int j = 0; j < cols.d; ++j) {
-      const int idx = 1 + j;
-      if (idx >= lo && idx < hi) dst[idx - lo] = cols.x[j][row] * wt;
-    }
-  for (int j = 0; j < cols.c; ++j) {
-    const int off = cols.off[j], size = cols.size[j];
-    if (off + size <= lo || off >= hi) continue;   // block misses the range
-    const int code = cols.code[j][row];
-    if (code < 0 || code >= size) continue;
-    const int idx = off + code;
-    if (idx >= lo && idx < hi) dst[idx - lo] = wt;
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-wide_gram_kernel(const __grid_constant__ Cols cols,
-                 const __grid_constant__ Regions rg, int64_t n,
-                 const float* __restrict__ w, double* __restrict__ partial) {
-  extern __shared__ float4 smem4[];
-  float* A = reinterpret_cast<float*>(smem4);   // [kWideChunk][kWideStride]
-  float* B = A + kWideChunk * kWideStride;      // [kWideChunk][kWideStride]
-  const int reg = blockIdx.x;
-  const int slice = blockIdx.y, slices = gridDim.y;
-  const int ti = threadIdx.x / 16, tj = threadIdx.x % 16;
-
-  // staging role: threads 0..127 build weighted rows of range I, the rest
-  // unweighted rows of range J
-  const bool side_a = threadIdx.x < kWideChunk;
-  const int srow = threadIdx.x % kWideChunk;
-  float* dst = (side_a ? A : B) + srow * kWideStride;
-  const int lo = side_a ? rg.lo_i[reg] : rg.lo_j[reg];
-  const float* wsrc = side_a ? w : nullptr;
-
-  double acc64[16];
-#pragma unroll
-  for (int e = 0; e < 16; ++e) acc64[e] = 0.0;
-
-  const int64_t nchunks = (n + kWideChunk - 1) / kWideChunk;
-  for (int64_t ch = slice; ch < nchunks; ch += slices) {
-    stage_range_row(dst, cols, ch * kWideChunk + srow, n, lo, wsrc);
-    __syncthreads();
-    float acc[16];
-#pragma unroll
-    for (int e = 0; e < 16; ++e) acc[e] = 0.0f;
-    const float4* a4 = reinterpret_cast<const float4*>(A) + ti;
-    const float4* b4 = reinterpret_cast<const float4*>(B) + tj;
-#pragma unroll 4
-    for (int r = 0; r < kWideChunk; ++r) {
-      const float4 a = a4[r * (kWideStride / 4)];
-      const float4 b = b4[r * (kWideStride / 4)];
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int k = 0; k < 4; ++k)
-#pragma unroll
-        for (int l = 0; l < 4; ++l) acc[k * 4 + l] += av[k] * bv[l];
-    }
-#pragma unroll
-    for (int e = 0; e < 16; ++e) acc64[e] += static_cast<double>(acc[e]);
-    __syncthreads();
-  }
-  double* out = partial + (int64_t(reg) * slices + slice) * kRegionEntries;
-#pragma unroll
-  for (int k = 0; k < 4; ++k)
-#pragma unroll
-    for (int l = 0; l < 4; ++l)
-      out[(4 * ti + k) * kWideTile + 4 * tj + l] = acc64[k * 4 + l];
-}
-
-// One thread per region entry: the region's slices summed in slice order in
-// f64, rounded once; writes S[i, j] and S[j, i] for i ≤ j < P.
-__global__ void wide_gram_reduce(const double* __restrict__ partial,
-                                 int slices, const __grid_constant__ Regions rg,
-                                 int P, float* __restrict__ out) {
-  const int64_t t = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= int64_t(rg.count) * kRegionEntries) return;
-  const int reg = static_cast<int>(t / kRegionEntries);
-  const int e = static_cast<int>(t % kRegionEntries);
-  const double* p = partial + int64_t(reg) * slices * kRegionEntries + e;
-  double s = 0.0;
-  for (int k = 0; k < slices; ++k) s += p[int64_t(k) * kRegionEntries];
-  const int i = rg.lo_i[reg] + e / kWideTile;
-  const int j = rg.lo_j[reg] + e % kWideTile;
-  if (i >= P || j >= P || i > j) return;
-  const float v = static_cast<float>(s);
-  out[int64_t(i) * P + j] = v;
-  out[int64_t(j) * P + i] = v;
-}
-
-inline size_t wide_smem_bytes() {
-  return sizeof(float) * 2 * kWideChunk * kWideStride;
-}
-
-// Launches K7 and its reduction on `stream`. partial: f64 scratch of
-// rg.count · slices · kRegionEntries; out: f32[P, P], zeroed by the caller.
-inline int launch_wide_gram(const Cols& cols, const Regions& rg, int P,
-                            int64_t n, int slices, const float* w,
-                            double* partial, float* out,
+// Launches K7 (Grouped = false; off, cum unused, G = 1) or K8 and the
+// reduction on `stream`. partial: f64 scratch of task_base[tasks] ·
+// (slices + G − 1); out: f32[G, P, P], zeroed by the caller.
+template <bool Grouped>
+inline int launch_wide_gram(const Cols& cols, const WidePlanArgs& plan,
+                            int P, int64_t n, const int64_t* off,
+                            const int64_t* cum, int G, int slices,
+                            const float* w, double* partial, float* out,
                             cudaStream_t stream) {
-  const size_t smem = wide_smem_bytes();
+  const size_t smem = wide_smem_bytes(plan);
   cudaError_t rc = cudaFuncSetAttribute(
-      wide_gram_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      wide_gram_kernel<Grouped>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (rc != cudaSuccess) return rc;
-  const dim3 grid(rg.count, slices);
-  wide_gram_kernel<<<grid, kThreads, smem, stream>>>(cols, rg, n, w, partial);
+  wide_gram_kernel<Grouped><<<dim3(plan.tasks, slices), kThreads, smem,
+                              stream>>>(cols, plan, w, n, off, cum, G,
+                                        partial);
   if ((rc = cudaGetLastError()) != cudaSuccess) return rc;
-  const int64_t threads = int64_t(rg.count) * kRegionEntries;
-  const int blocks = static_cast<int>((threads + kThreads - 1) / kThreads);
-  wide_gram_reduce<<<blocks, kThreads, 0, stream>>>(partial, slices, rg, P,
-                                                    out);
+  const int64_t threads = int64_t(G) * plan.nentries;
+  const int64_t blocks = (threads + kThreads - 1) / kThreads;
+  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+  wide_gram_reduce<<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+      partial, plan, Grouped ? cum : nullptr,
+      (n + kWideChunk - 1) / kWideChunk, G, slices, P, out);
   return cudaGetLastError();
 }
 

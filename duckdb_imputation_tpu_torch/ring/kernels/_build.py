@@ -43,8 +43,17 @@ MAX_BLOCKS = 1024
 CHUNK_ROWS = 256     # kChunk (gram_common.cuh): rows a block stages a step
 MAX_SIGMA_SIZE = 88  # kMaxP (gram_common.cuh): one 4x4 tile a thread
 MAX_WIDE_SIGMA_SIZE = 1024  # kMaxWideP (wide_gram.cuh): K7, K2w and K8
-WIDE_TILE = 64       # kWideTile (wide_gram.cuh): side of a region of S
-WIDE_CHUNK = 128     # kWideChunk (wide_gram.cuh): rows a block stages a step
+WIDE_CHUNK = 32      # kWideChunk (wide_gram.cuh): rows a warp takes a step,
+                     # one a lane; also the most cells of a D slab
+WIDE_WARPS = 8       # kWideWarps (wide_gram.cuh): warps of a K7/K8 block
+WIDE_TASK_BYTES = 64 * 1024  # kWideTaskBytes (wide_gram.cuh): the f64
+                             # tables of one task in shared memory
+WIDE_SLAB_INTS = 8   # kWideSlabInts (wide_gram.cuh): ints of a slab record
+WIDE_MAX_SLABS = 256  # kWideMaxSlabs (wide_gram.cuh): slabs of one task
+WIDE_STAGE_ROWS = 256  # kThreads (gram_common.cuh): most rows a block
+                       # stages a step, one a thread
+WIDE_SMEM = 227 * 1024  # kWideSmem (wide_gram.cuh): a block's shared memory
+WIDE_PLAN_INTS = 7   # kWidePlanInts (wide_gram.cuh): WidePlan.shape_ints
 MAX_COLS = 64        # kMaxCols (gram_common.cuh), numeric and categorical
 MAX_UNSORTED_GROUPS = 8  # kMaxUnsortedGroups (grouped_gram.cu): K4's tiles
 MAX_NB_GROUPS = 32       # kMaxNbGroups (nb_grouped_sums.cu): K6 per launch
@@ -98,17 +107,16 @@ def _declare(lib: ctypes.CDLL) -> None:
     for qda in (lib.dit_qda_predict, lib.dit_qda_predict_wide):
         qda.argtypes = [p, i, p, p, i, p, p, p, i, i, i, i64, p, i, p]
         qda.restype = i
+    plan = [p] * 6   # WidePlan's tensors and its shape_ints
     lib.dit_grouped_wide_gram.argtypes = [p, i, p, p, i, p, p, p, i, i64, i,
-                                          p, i, i, p, p, p]
+                                          *plan, p, p, p]
     lib.dit_grouped_wide_gram.restype = i
-    lib.dit_wide_gram.argtypes = [p, i, p, p, i, p, i64, i, p, i, i, p, p, p]
+    lib.dit_wide_gram.argtypes = [p, i, p, p, i, p, i64, i, *plan, p, p, p]
     lib.dit_wide_gram.restype = i
     lib.dit_fused_impute_aggregate_wide.argtypes = [
         p, i, p, p, i, p, p, p, p, i, i, i, p, i, u32, u32, u32, p, i64, i,
-        p, i, i, p, p, p]
+        *plan, p, p, p]
     lib.dit_fused_impute_aggregate_wide.restype = i
-    lib.dit_wide_region_entries.argtypes = []
-    lib.dit_wide_region_entries.restype = i
     lib.dit_gram_entries.argtypes = [i]
     lib.dit_gram_entries.restype = i
     lib.dit_error_string.argtypes = [i]
@@ -266,22 +274,6 @@ def grid_blocks(n: int) -> int:
     return max(1, min(-(-n // CHUNK_ROWS), MAX_BLOCKS))
 
 
-def wide_regions(schema) -> list[tuple[int, int]]:
-    """K7's plan: the (lo_i, lo_j) of each 64×64 region of S's upper
-    triangle that can be nonzero. A region off the diagonal whose two ranges
-    both lie inside the one-hot block of one categorical column is dropped:
-    a row sets at most one code of a column, so no row has a nonzero in
-    both ranges, and S is zero there."""
-    p, d = schema.sigma_size, schema.num_cols
-    offs = schema.offsets
-    blocks = [(1 + d + offs[j], 1 + d + offs[j + 1])
-              for j in range(schema.cat_cols)]
-    starts = range(0, p, WIDE_TILE)
-    return [(i, j) for i in starts for j in starts if i <= j
-            and (i == j or not any(lo <= i and min(j + WIDE_TILE, p) <= hi
-                                   for lo, hi in blocks))]
-
-
 def group_chunks(offsets: torch.Tensor, rows: int) -> torch.Tensor:
     """Group-aligned chunks of rows sorted by group (`sort_by_group`'s
     offsets i64[G + 1]): cum i64[G + 1], cum[g] the first chunk of group g,
@@ -292,12 +284,207 @@ def group_chunks(offsets: torch.Tensor, rows: int) -> torch.Tensor:
     return torch.cat([chunks.new_zeros(1), torch.cumsum(chunks, 0)])
 
 
-def wide_slices(n: int, nregions: int) -> int:
-    """Row slices of K7's and K8's grid (blockIdx.y): about MAX_BLOCKS
-    blocks in all, never more slices than chunks. A function of n and the
-    schema only, so a result does not depend on the card it ran on (K8's
-    slices are runs of group-aligned chunks, `group_chunks`)."""
-    return max(1, min(-(-n // WIDE_CHUNK), -(-MAX_BLOCKS // nregions)))
+# Slab kinds of the wide plan, kSlabD, kSlabK and kSlabC (wide_gram.cuh)
+SLAB_D, SLAB_K, SLAB_C = 0, 1, 2
+
+
+@dataclasses.dataclass(frozen=True)
+class WidePlan:
+    """K7's and K8's plan: S's nonzero structure cut into tables, the
+    tables into slabs, the slabs into tasks that fit a block's shared
+    memory, and the map from each task's cells to entries of S.
+
+    With Z = [1 ‖ x ‖ onehot(c_1) … onehot(c_c)] a row has 1 + d + c
+    nonzeros, and S's upper triangle is made of
+      D     the (1+d)×(1+d) block of [1 ‖ x], as slabs (D, a, b_lo, b_hi)
+            of row a's cells (a, b), b in [b_lo, b_hi), at most WIDE_CHUNK;
+      K_j   per categorical column j, the keyed sums Σ_{c_j=v} w·[1, x]:
+            slabs (K, j, v_lo, v_hi), cell (v − v_lo)·(1+d) + a; row a = 0
+            holds the code counts, also the diagonal of j's one-hot block;
+      C_jk  per pair j < k, Σ_{c_j=u, c_k=v} w: slabs (C, j, k, u_lo,
+            u_hi), cell (u − u_lo)·V_k + v;
+    everything else is zero by construction (two codes of one column in
+    one row). A table larger than WIDE_TASK_BYTES of f64 is split by its
+    leading key into slabs of equal key ranges.
+
+    slabs i32[S, WIDE_SLAB_INTS]: (kind, p0, p1, p2, p3, off, task, warp),
+      sorted by (task, warp); off is the slab's first cell in its task's
+      table, and a warp's slabs lie next to each other.
+    warp_begin i32[T·WIDE_WARPS + 1]: warp w of task t owns the slabs
+      warp_begin[t·W + w] .. warp_begin[t·W + w + 1].
+    task_base i64[T + 1]: task t's cells are task_base[t] ..
+      task_base[t + 1] of the flat list of every task's cells.
+    entries i32[M, 4]: (task, cell, i, j), i ≤ j: S[i, j] = S[j, i] = that
+      cell; every structurally nonzero (i, j) of the upper triangle once,
+      sorted by (task, cell).
+    stage_cols i32[T, 1 + MAX_COLS]: (count, the categorical columns task
+      t's slabs read, −1 past count): what its blocks stage, with w and,
+      when it has a D or K slab, x.
+    shape: the sizes the kernel's shared memory is cut by (`shape_ints`).
+    """
+    slabs: torch.Tensor
+    warp_begin: torch.Tensor
+    task_base: torch.Tensor
+    entries: torch.Tensor
+    stage_cols: torch.Tensor
+    max_stage_cols: int    # columns a block stages: 1 + d (if x) + codes
+    max_slabs: int         # slab records a block keeps in shared memory
+    stage_rows: int        # rows a block stages a step (a multiple of 32)
+
+    @property
+    def num_tasks(self) -> int:
+        return self.task_base.shape[0] - 1
+
+    @property
+    def max_task_cells(self) -> int:
+        return int((self.task_base[1:] - self.task_base[:-1]).max())
+
+    def shape_ints(self, slices: int) -> list[int]:
+        """The kernel's sizes (kWidePlanInts, wide_gram.cuh: make_plan):
+        tasks, map entries, the most cells, staged columns and slabs of a
+        task, rows a stage, slices."""
+        return [self.num_tasks, self.entries.shape[0], self.max_task_cells,
+                self.max_stage_cols, self.max_slabs, self.stage_rows, slices]
+
+    def slices(self, n: int) -> int:
+        """Row slices of the grid (blockIdx.y): about MAX_BLOCKS blocks in
+        all, never more slices than steps of WIDE_CHUNK rows. A function
+        of n and the schema only, so a result does not depend on the card
+        it ran on (K8's slices are runs of group-aligned chunks,
+        `group_chunks`)."""
+        return max(1, min(-(-n // WIDE_CHUNK),
+                          -(-MAX_BLOCKS // self.num_tasks)))
+
+
+def _split(rows: int, row_cells: int) -> list[tuple[int, int]]:
+    """Key ranges [lo, hi) of `rows` keys of `row_cells` cells each, as
+    even as the task budget allows."""
+    cap = WIDE_TASK_BYTES // 8
+    pieces = -(-rows * row_cells // cap)
+    step = min(-(-rows // pieces), cap // row_cells)
+    return [(lo, min(lo + step, rows)) for lo in range(0, rows, step)]
+
+
+def _slab_cost(kind: int, cells: int, d: int) -> int:
+    """A slab's instructions per warp step, roughly: what balances a
+    task's warps."""
+    if kind == SLAB_D:
+        per = WIDE_CHUNK // cells            # lanes a cell: row parts
+        return 12 + 5 * -(-WIDE_CHUNK // per)
+    return 16 + 4 * (1 + d) if kind == SLAB_K else 20
+
+
+@functools.lru_cache(maxsize=32)
+def _wide_plan(d: int, sizes: tuple[int, ...]) -> WidePlan:
+    base = [1 + d + sum(sizes[:j]) for j in range(len(sizes))]
+    pieces = []                 # (kind, params, cells, local entries)
+    for a in range(1 + d):
+        for lo in range(a, 1 + d, WIDE_CHUNK):
+            hi = min(lo + WIDE_CHUNK, 1 + d)
+            b = torch.arange(lo, hi)
+            pieces.append((SLAB_D, (a, lo, hi, 0), hi - lo,
+                           torch.stack([b - lo, torch.full_like(b, a), b])))
+    for j, size in enumerate(sizes):
+        for lo, hi in _split(size, 1 + d):
+            v = torch.arange(lo, hi).repeat_interleave(1 + d)
+            a = torch.arange(1 + d).repeat(hi - lo)
+            cell = (v - lo) * (1 + d) + a
+            diag = torch.arange(lo, hi)
+            pieces.append((SLAB_K, (j, lo, hi, 0), (hi - lo) * (1 + d),
+                           torch.cat([torch.stack([cell, a, base[j] + v]),
+                                      torch.stack([(diag - lo) * (1 + d),
+                                                   base[j] + diag,
+                                                   base[j] + diag])], 1)))
+    for j in range(len(sizes)):
+        for k in range(j + 1, len(sizes)):
+            if sizes[k] == 0:
+                continue
+            for lo, hi in _split(sizes[j], sizes[k]):
+                u = torch.arange(lo, hi).repeat_interleave(sizes[k])
+                v = torch.arange(sizes[k]).repeat(hi - lo)
+                pieces.append((SLAB_C, (j, k, lo, hi),
+                               (hi - lo) * sizes[k],
+                               torch.stack([(u - lo) * sizes[k] + v,
+                                            base[j] + u, base[k] + v])))
+    # tasks: as few as the budget allows; the largest slab first, each to
+    # the task with room that holds the fewest slabs (a block takes as long
+    # as its busiest warp)
+    cap = WIDE_TASK_BYTES // 8
+    order = sorted(range(len(pieces)), key=lambda i: -pieces[i][2])
+    count = -(-sum(p[2] for p in pieces) // cap)
+    while True:
+        tasks: list[list[int]] = [[] for _ in range(count)]
+        used = [0] * count
+        for i in order:
+            room = [t for t in range(count) if used[t] + pieces[i][2] <= cap
+                    and len(tasks[t]) < WIDE_MAX_SLABS]
+            if not room:
+                break
+            t = min(room, key=lambda t: (len(tasks[t]), used[t]))
+            tasks[t].append(i)
+            used[t] += pieces[i][2]
+        else:
+            break
+        count += 1
+    slabs, warp_begin, task_base, entries = [], [0], [0], []
+    stage_cols, widths = [], []
+    for members in tasks:
+        used_cols = sorted({c for i in members for c in (
+            pieces[i][1][:1] if pieces[i][0] == SLAB_K
+            else pieces[i][1][:2] if pieces[i][0] == SLAB_C else ())})
+        stage_cols.append([len(used_cols)] + used_cols
+                          + [-1] * (MAX_COLS - len(used_cols)))
+        need_x = any(pieces[i][0] != SLAB_C for i in members)
+        widths.append(1 + (d if need_x else 0) + len(used_cols))
+    for t, members in enumerate(tasks):
+        # warps: the costliest slab first, to the least loaded warp
+        load = [0] * WIDE_WARPS
+        warp_of = {}
+        for i in sorted(members, key=lambda i: -_slab_cost(
+                pieces[i][0], pieces[i][2], d)):
+            w = min(range(WIDE_WARPS), key=lambda w: load[w])
+            warp_of[i] = w
+            load[w] += _slab_cost(pieces[i][0], pieces[i][2], d)
+        off = 0
+        for w in range(WIDE_WARPS):
+            for i in (i for i in members if warp_of[i] == w):
+                kind, params, cells, local = pieces[i]
+                slabs.append((kind, *params, off, t, w))
+                entries.append(torch.cat([torch.full((1, local.shape[1]), t),
+                                          local[:1] + off, local[1:]]))
+                off += cells
+            warp_begin.append(len(slabs))
+        task_base.append(task_base[-1] + off)
+    ent = torch.cat(entries, 1).T
+    order = torch.argsort(ent[:, 0] * (task_base[-1] + 1) + ent[:, 1],
+                          stable=True)
+    max_cols, max_slabs = max(widths), max(map(len, tasks))
+    max_cells = max(b - a for a, b in zip(task_base, task_base[1:]))
+    rows = next(r for r in (256, 128, 64, 32) if wide_smem_bytes(
+        max_cells, max_cols, max_slabs, r) <= WIDE_SMEM)
+    return WidePlan(
+        slabs=torch.tensor(slabs, dtype=torch.int32).reshape(
+            -1, WIDE_SLAB_INTS),
+        warp_begin=torch.tensor(warp_begin, dtype=torch.int32),
+        task_base=torch.tensor(task_base, dtype=torch.int64),
+        entries=ent[order].to(torch.int32).contiguous(),
+        stage_cols=torch.tensor(stage_cols, dtype=torch.int32),
+        max_stage_cols=max_cols, max_slabs=max_slabs, stage_rows=rows)
+
+
+def wide_smem_bytes(cells: int, cols: int, slabs: int, rows: int) -> int:
+    """Shared memory of a K7/K8 block (wide_gram.cuh: wide_smem_bytes):
+    the f64 tables, two stages of `rows` rows of `cols` columns, the slab
+    records, each code column's stage slot and column, and two stages'
+    group ids."""
+    return (8 * cells + 4 * (2 * cols * rows + WIDE_SLAB_INTS * slabs
+                             + 2 * MAX_COLS + 2 * WIDE_STAGE_ROWS // WIDE_CHUNK))
+
+
+def wide_plan(schema) -> WidePlan:
+    """The plan of K7 and K8 (and K2w's Gram) for `schema`, on the CPU;
+    made once per schema."""
+    return _wide_plan(schema.num_cols, tuple(schema.cat_sizes))
 
 
 def raise_on_error(lib: Library, rc: int, what: str) -> None:

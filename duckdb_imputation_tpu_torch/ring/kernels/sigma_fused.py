@@ -41,7 +41,7 @@ import torch
 from ...schema import FeatureSchema
 from ..sum import class_argmax, class_score
 from . import _build
-from .sigma_pallas import masked_gram_cols_plain, wide_plan
+from .sigma_pallas import masked_gram_cols_plain, wide_plan_args
 
 _MASK32 = 0xFFFFFFFF
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
@@ -185,13 +185,12 @@ def fused_impute_aggregate(x_cols, code_cols, null_imp, w_agg, w_full,
             seed & _MASK32, (seed >> 32) & _MASK32, round_,
             None if std is None else std.data_ptr(), n, p)
     stream = torch.cuda.current_stream(device).cuda_stream
-    if p > _build.MAX_SIGMA_SIZE:   # K2w: K7's region plan, then scratch
-        flat, nregions, slices, partial = wide_plan(schema, n, lib, device)
+    if p > _build.MAX_SIGMA_SIZE:   # K2w: K7's plan, then scratch
+        plan, partial = wide_plan_args(schema, n, device)
         sigma = torch.zeros((p, p), dtype=torch.float32, device=device)
         with torch.cuda.device(device):
             rc = lib.lib.dit_fused_impute_aggregate_wide(
-                *args, flat, nregions, slices, partial.data_ptr(),
-                sigma.data_ptr(), stream)
+                *args, *plan, partial.data_ptr(), sigma.data_ptr(), stream)
         _build.raise_on_error(lib, rc, "fused_impute_aggregate")
         fused_impute_aggregate.wide_launches += 1
     else:                           # K2: the scratch, then its blocks

@@ -9,15 +9,22 @@ same kernels' entry point for stacked blocks (`sum_to_triple`).
 
 Both dispatch by the sigma size P, as the JAX dispatchers fall to pack = 1
 and a wider tile: P ≤ 88 takes K1 (`csrc/masked_gram.cu`, one 4×4 tile of
-S a thread), P > 88 takes K7 (`csrc/wide_gram.cu`, S tiled in 64×64
-regions over the grid, structurally zero regions skipped), up to
-`_build.MAX_WIDE_SIGMA_SIZE`. CUDA tensors launch a kernel; the plain
-versions (`masked_gram_cols_plain`, `masked_gram_plain`) run only for CPU
-tensors. Kernels and plain versions round the cross-chunk sum from f64 to
-f32 once, so one-hot counts are exact past 2²⁴ rows, and take any row
-count: nothing is padded.
+S a thread), P > 88 takes K7 (`csrc/wide_gram.cu`: S's nonzero structure,
+the tables D, K_j and C_jk of `_build.WidePlan`, summed over each row's
+nonzeros in tasks over the grid), up to `_build.MAX_WIDE_SIGMA_SIZE`. CUDA
+tensors launch a kernel; the plain versions (`masked_gram_cols_plain`,
+`masked_gram_plain`) run only for CPU tensors. Kernels and plain versions
+round the cross-chunk sum from f64 to f32 once, so one-hot counts are
+exact past 2²⁴ rows, and take any row count: nothing is padded.
+
+`wide_tables_plain` computes K7's tables in plain torch, and
+`wide_assemble` scatters tables into S through the plan's map, as the
+kernel's reduction does: the CPU tests hold the plan against the plain
+Gram and the JAX kernels with them.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -77,33 +84,100 @@ def _launch(x_cols, code_cols, weights, n: int, device, schema,
     return out
 
 
-def wide_plan(schema, n: int, lib: _build.Library, device,
-              groups: int = 0):
-    """K7's region list as a C array, its count, the row slices, and the
-    f64 scratch for the per-(region, slice) partials; shared with K2w, and
-    with K8, whose partials are (region, slice + group) slots."""
-    regions = _build.wide_regions(schema)
-    slices = _build.wide_slices(n, len(regions))
-    partial = torch.empty(
-        len(regions) * (slices + groups) * lib.lib.dit_wide_region_entries(),
-        dtype=torch.float64, device=device)
-    flat = _build.int_array([lo for pair in regions for lo in pair])
-    return flat, len(regions), slices, partial
+@functools.lru_cache(maxsize=32)
+def _device_plan(d: int, sizes: tuple[int, ...], device):
+    plan = _build._wide_plan(d, sizes)
+    return tuple(t.to(device) for t in (
+        plan.slabs, plan.warp_begin, plan.task_base, plan.stage_cols,
+        plan.entries))
+
+
+def wide_plan_args(schema, n: int, device, groups: int = 1):
+    """K7's plan as the C arguments of its entry points (the plan's device
+    tensors, made once per schema and device; its shape and the row slices
+    as a host array) and the f64 scratch of the (task, slice + group)
+    partials; shared with K2w, and with K8 (`groups` > 1)."""
+    plan = _build.wide_plan(schema)
+    tensors = _device_plan(schema.num_cols, tuple(schema.cat_sizes), device)
+    slices = plan.slices(n)
+    partial = torch.empty(int(plan.task_base[-1]) * (slices + groups - 1),
+                          dtype=torch.float64, device=device)
+    args = (*(t.data_ptr() for t in tensors),
+            _build.int_array(plan.shape_ints(slices)))
+    return args, partial
 
 
 def _launch_wide(x_cols, code_cols, weights, n, device, schema, lib, what):
     p = schema.sigma_size
-    flat, nregions, slices, partial = wide_plan(schema, n, lib, device)
+    plan, partial = wide_plan_args(schema, n, device)
     out = torch.zeros((p, p), dtype=torch.float32, device=device)
     sizes = schema.cat_sizes
     with torch.cuda.device(device):
         rc = lib.lib.dit_wide_gram(
             _build.pointers(x_cols), len(x_cols), _build.pointers(code_cols),
             _build.int_array(sizes), len(sizes), weights.data_ptr(), n, p,
-            flat, nregions, slices, partial.data_ptr(), out.data_ptr(),
+            *plan, partial.data_ptr(), out.data_ptr(),
             torch.cuda.current_stream(device).cuda_stream)
     _build.raise_on_error(lib, rc, what)
     return out
+
+
+def wide_tables_plain(x_cols, code_cols, weights, *, schema: FeatureSchema
+                      ) -> torch.Tensor:
+    """Plain torch version of K7's tables: every cell of the plan
+    (`_build.wide_plan(schema)`), task after task, f64[task_base[T]], each
+    a sum in f64 of f32 products as the kernel forms them (w·x for K_j,
+    (w·z_a)·z_b for D; bincount for C_jk). x_cols d × f32[n], code_cols
+    c × i32[n] (a code outside [0, size) adds nothing), weights f32[n] or
+    None."""
+    plan = _build.wide_plan(schema)
+    x_cols, code_cols = list(x_cols), list(code_cols)
+    n = (x_cols + code_cols + [weights])[0].shape[-1]
+    device = (x_cols + code_cols + [weights])[0].device
+    w = (torch.ones(n, device=device) if weights is None
+         else weights.to(torch.float32))
+    xw = [w] + [x * w for x in x_cols]         # w·z_a, z = [1 ‖ x]
+    f64 = torch.float64
+    out = torch.zeros(int(plan.task_base[-1]), dtype=f64, device=device)
+    for kind, p0, p1, p2, p3, off, task, _ in plan.slabs.tolist():
+        at = int(plan.task_base[task]) + off
+        if kind == _build.SLAB_D:              # (a, b) for b in [p1, p2)
+            cells = [xw[p0] if b == 0 else xw[p0] * x_cols[b - 1]
+                     for b in range(p1, p2)]
+            out[at:at + p2 - p1] = torch.stack(cells).to(f64).sum(1)
+        elif kind == _build.SLAB_K:            # column p0, keys [p1, p2)
+            c = code_cols[p0].long()
+            ok = (c >= p1) & (c < p2)
+            vals = torch.stack(xw, 1)[ok].to(f64)
+            table = torch.zeros((p2 - p1, len(xw)), dtype=f64, device=device)
+            table.index_add_(0, c[ok] - p1, vals)
+            out[at:at + table.numel()] = table.reshape(-1)
+        else:                                  # columns p0 < p1, keys [p2, p3)
+            vk = schema.cat_sizes[p1]
+            u, v = code_cols[p0].long(), code_cols[p1].long()
+            ok = (u >= p2) & (u < p3) & (v >= 0) & (v < vk)
+            cells = (p3 - p2) * vk
+            out[at:at + cells] = torch.bincount(
+                (u[ok] - p2) * vk + v[ok], weights=w[ok].to(f64),
+                minlength=cells)
+    return out
+
+
+def wide_assemble(cells: torch.Tensor, *, schema: FeatureSchema
+                  ) -> torch.Tensor:
+    """S f32[..., P, P] from the plan's cells f64[..., task_base[T]]
+    (`wide_tables_plain`, or one per group): each cell rounded to f32 once
+    and written to S[i, j] and S[j, i] through the plan's map, as the
+    kernels' reduction does; the zero structure stays zero."""
+    plan = _build.wide_plan(schema)
+    p = schema.sigma_size
+    e = plan.entries.long().to(cells.device)
+    vals = cells[..., plan.task_base.to(cells.device)[e[:, 0]] + e[:, 1]]
+    out = torch.zeros(cells.shape[:-1] + (p * p,), dtype=torch.float32,
+                      device=cells.device)
+    out[..., e[:, 2] * p + e[:, 3]] = vals.float()
+    out[..., e[:, 3] * p + e[:, 2]] = vals.float()
+    return out.reshape(cells.shape[:-1] + (p, p))
 
 
 def masked_gram_cols(x_cols, code_cols, weights, *,

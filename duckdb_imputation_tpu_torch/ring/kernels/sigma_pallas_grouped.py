@@ -17,10 +17,12 @@ Counterpart of `duckdb_imputation_tpu/ring/kernels/sigma_pallas_grouped.py`:
 - `sum_to_triple_grouped_kernel` takes K4 up to the limit and a sort plus
   K5 above it, the dispatch of `sum_to_triple_grouped(method='pallas')`.
 - Above P = 88 `grouped_gram_presorted` runs K8
-  (`csrc/grouped_wide_gram.cu`, K7's 64×64 regions over group-sorted rows,
-  up to `_build.MAX_WIDE_SIGMA_SIZE`, any number of groups), its launches
-  counted on `.wide_launches`; `grouped_gram` there sorts the rows and
-  hands them to it.
+  (`csrc/grouped_wide_gram.cu`, K7's plan over S's nonzeros and K7's
+  kernel, over group-sorted rows, up to `_build.MAX_WIDE_SIGMA_SIZE`, any
+  number of groups), its launches counted on `.wide_launches`;
+  `grouped_gram` there sorts the rows and hands them to it.
+  `grouped_wide_tables_plain` is the plain version of its tables, one
+  set per group (`sigma_pallas.wide_assemble` makes them sigmas).
 
 Each wrapper launches its kernel for CUDA tensors and takes its plain
 version only for CPU tensors. Rows whose id lies outside [0, G) are
@@ -37,7 +39,7 @@ from ...schema import FeatureSchema
 from ..sum import grouped_sigma, masked_sigma
 from ..triple import Triple, triple_from_sigma
 from . import _build
-from .sigma_pallas import wide_plan
+from .sigma_pallas import wide_plan_args, wide_tables_plain
 
 
 def unsorted_group_limit(schema: FeatureSchema) -> int | None:
@@ -169,6 +171,19 @@ def grouped_gram_presorted_plain(x_sorted, codes_sorted, w_sorted,
     return out
 
 
+def grouped_wide_tables_plain(x_sorted, codes_sorted, w_sorted,
+                              layout: GroupLayout, *,
+                              schema: FeatureSchema) -> torch.Tensor:
+    """Plain torch version of K8's tables: `wide_tables_plain` over each
+    group's rows, f64[G, cells] (reads the offsets on the host)."""
+    off = layout.offsets.tolist()
+    return torch.stack([
+        wide_tables_plain(list(x_sorted[:, lo:hi]),
+                          list(codes_sorted[:, lo:hi]), w_sorted[lo:hi],
+                          schema=schema)
+        for lo, hi in zip(off[:-1], off[1:])])
+
+
 def grouped_gram_presorted(x_sorted, codes_sorted, w_sorted,
                            layout: GroupLayout, *,
                            schema: FeatureSchema) -> torch.Tensor:
@@ -196,9 +211,8 @@ def grouped_gram_presorted(x_sorted, codes_sorted, w_sorted,
     lib = _build.load()
     sizes = schema.cat_sizes
     if p > _build.MAX_SIGMA_SIZE:
-        # K8: K7's regions and slices over group-aligned chunks
-        flat, nregions, slices, partial = wide_plan(schema, n, lib, device,
-                                                    groups=num_groups)
+        # K8: K7's plan and slices over group-aligned chunks
+        plan, partial = wide_plan_args(schema, n, device, groups=num_groups)
         cum = _build.group_chunks(off, _build.WIDE_CHUNK)
         out = torch.zeros((num_groups, p, p), dtype=torch.float32,
                           device=device)
@@ -207,7 +221,7 @@ def grouped_gram_presorted(x_sorted, codes_sorted, w_sorted,
                 _build.pointers(list(x_sorted)), schema.num_cols,
                 _build.pointers(list(codes_sorted)), _build.int_array(sizes),
                 len(sizes), w_sorted.data_ptr(), off.data_ptr(),
-                cum.data_ptr(), num_groups, n, p, flat, nregions, slices,
+                cum.data_ptr(), num_groups, n, p, *plan,
                 partial.data_ptr(), out.data_ptr(),
                 torch.cuda.current_stream(device).cuda_stream)
         _build.raise_on_error(lib, rc, "grouped_gram_presorted")

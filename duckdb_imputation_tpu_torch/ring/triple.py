@@ -53,7 +53,7 @@ class Triple:
 
     @staticmethod
     def zeros(schema: FeatureSchema, batch: tuple[int, ...] = (),
-              dtype=torch.float32, device="cpu") -> "Triple":
+              dtype=torch.float32, device="cuda") -> "Triple":
         d, v = schema.num_cols, schema.vocab_size
 
         def z(*shape):
@@ -83,7 +83,7 @@ class NBAgg:
 
     @staticmethod
     def zeros(schema: FeatureSchema, batch: tuple[int, ...] = (),
-              dtype=torch.float32, device="cpu") -> "NBAgg":
+              dtype=torch.float32, device="cuda") -> "NBAgg":
         d, v = schema.num_cols, schema.vocab_size
 
         def z(*shape):

@@ -40,6 +40,9 @@ from duckdb_imputation_tpu_torch.ring.kernels import qda_pallas as port_qda
 from duckdb_imputation_tpu_torch.ring.kernels import (
     sigma_pallas_grouped as port_g,
 )
+from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas import (
+    wide_assemble,
+)
 from duckdb_imputation_tpu_torch.ring.triple import sigma_from_triple
 
 torch.set_num_threads(2)
@@ -184,6 +187,34 @@ def test_plain_grouped_gram_forms_exact_products():
         zw = (z * (w * (g == k)).astype(np.float32)).astype(np.float64)
         want = (zw @ z.astype(np.float64).T).astype(np.float32)
         np.testing.assert_array_equal(got[k], want)
+
+
+@pytest.mark.parametrize("groups", [3, 12])
+@pytest.mark.parametrize("weights", ["binary", "general"])
+def test_wide_grouped_tables_assemble_to_the_grams(groups, weights):
+    """K8's tables in plain torch (`grouped_wide_tables_plain`: K7's plan
+    over each group's sorted rows), scattered through the plan's map
+    (`wide_assemble`), against grouped_gram_presorted_plain and the JAX
+    sorted-slab Pallas kernel (f32 body, interpret mode): counts exact
+    with binary weights, the rest within 1e-5 of each group's max|σ|."""
+    x, codes, g, ws = grouped_inputs(groups, seed=2)
+    w = ws[weights]
+    x_s, c_s, w_s, layout = port_g.sort_by_group(
+        t(x), t(codes), t(g), schema=SCHEMA_144, num_groups=groups,
+        weights=t(w))
+    cells = port_g.grouped_wide_tables_plain(x_s, c_s, w_s, layout,
+                                             schema=SCHEMA_144)
+    assert cells.shape == (groups, int(
+        _build.wide_plan(SCHEMA_144).task_base[-1]))
+    got = wide_assemble(cells, schema=SCHEMA_144).numpy()
+    binary = weights == "binary"
+    assert_grouped_close(got, port_g.grouped_gram_presorted_plain(
+        x_s, c_s, w_s, layout, schema=SCHEMA_144), SCHEMA_144, binary)
+    with pltpu.force_tpu_interpret_mode():
+        ref = ref_g.sum_to_triple_grouped_pallas(
+            x, codes, g, schema=REF_144, num_groups=groups, weights=w,
+            fast=False, chunk_cols=512)
+    assert_grouped_close(got, ref_sft(ref), SCHEMA_144, binary)
 
 
 # ---------------------------------------------------------------------------
@@ -459,8 +490,13 @@ def _cxx_constants():
 def test_limit_constants_equal_the_kernels():
     cxx = _cxx_constants()
     pairs = {"CHUNK_ROWS": "kChunk", "MAX_SIGMA_SIZE": "kMaxP",
-             "MAX_WIDE_SIGMA_SIZE": "kMaxWideP", "WIDE_TILE": "kWideTile",
-             "WIDE_CHUNK": "kWideChunk", "MAX_COLS": "kMaxCols",
+             "MAX_WIDE_SIGMA_SIZE": "kMaxWideP", "WIDE_CHUNK": "kWideChunk",
+             "WIDE_WARPS": "kWideWarps", "WIDE_TASK_BYTES": "kWideTaskBytes",
+             "WIDE_SLAB_INTS": "kWideSlabInts", "SLAB_D": "kSlabD",
+             "SLAB_K": "kSlabK", "SLAB_C": "kSlabC",
+             "WIDE_MAX_SLABS": "kWideMaxSlabs", "WIDE_SMEM": "kWideSmem",
+             "WIDE_STAGE_ROWS": "kThreads", "WIDE_PLAN_INTS": "kWidePlanInts",
+             "MAX_COLS": "kMaxCols",
              "MAX_UNSORTED_GROUPS": "kMaxUnsortedGroups",
              "MAX_NB_GROUPS": "kMaxNbGroups",
              "MAX_NB_FEATURES": "kThreads", "MAX_NB_RANGES": "kMaxNbRanges",
@@ -525,7 +561,8 @@ def test_group_chunks_never_cross_a_group():
     offsets = torch.cat([torch.zeros(1, dtype=torch.int64),
                          torch.cumsum(counts, 0)])
     cum = _build.group_chunks(offsets, _build.WIDE_CHUNK)
-    assert cum.tolist() == [0, 0, 1, 2, 3, 5, 5, 8]
+    assert _build.WIDE_CHUNK == 32
+    assert cum.tolist() == [0, 0, 1, 5, 9, 14, 14, 24]
     for g in range(len(counts)):
         for ch in range(int(cum[g]), int(cum[g + 1])):
             lo = int(offsets[g]) + (ch - int(cum[g])) * _build.WIDE_CHUNK
@@ -539,8 +576,6 @@ class _FailingLib:
         self.calls = []
 
     def __getattr__(self, name):
-        if name == "dit_wide_region_entries":
-            return lambda: 4096
         if name == "dit_error_string":
             return lambda rc: b"unspecified launch failure"
 

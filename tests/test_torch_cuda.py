@@ -510,13 +510,12 @@ def test_wide_gram_kernel_matches_plain(cuda, name, n, binary):
 
 
 def test_wide_gram_at_its_limit(cuda):
-    """P = MAX_WIDE_SIGMA_SIZE runs with all 136 regions (the kernel's
-    region table; no column is wide enough to drop one); one more column
-    raises before any launch."""
+    """P = MAX_WIDE_SIGMA_SIZE with 51 columns of 20: 1,275 cross tables
+    in 64 tasks of the plan; one more column raises before any launch."""
     keys = (tuple(range(20)),) * 51
     schema = FeatureSchema(num_cols=3, cat_keys=keys)
     assert schema.sigma_size == _build.MAX_WIDE_SIGMA_SIZE
-    assert len(_build.wide_regions(schema)) == 136
+    assert _build.wide_plan(schema).num_tasks == 64
     rng = np.random.default_rng(8)
     n = 5000
     xs = [torch.tensor(rng.normal(size=n).astype(np.float32), device=cuda)
@@ -532,6 +531,47 @@ def test_wide_gram_at_its_limit(cuda):
     over = FeatureSchema(num_cols=4, cat_keys=keys)
     with pytest.raises(ValueError):
         masked_gram_cols(xs + xs[:1], cs, None, schema=over)
+
+
+@pytest.mark.parametrize("case", ["hot_key", "split_table", "cols64"])
+def test_wide_gram_hot_key_and_split_table(cuda, case):
+    """K7 where 90% of the rows share one code of class and one of store
+    (the lanes of a warp meet on one cell), with two columns of 510
+    levels (a cross table of 2 MB split by key range over 32 tasks), and
+    at 64 numeric and 64 categorical columns (stages of 128 rows): counts
+    exact, the rest within 1e-5 of max|σ|, reruns bit-identical, with
+    binary and general weights."""
+    n = 100_003
+    if case == "cols64":
+        schema = FeatureSchema(num_cols=64, cat_keys=(tuple(range(14)),) * 64)
+        assert _build.wide_plan(schema).stage_rows == 128
+        xs = [torch.randn(n, device=cuda) for _ in range(64)]
+        cs = [torch.randint(-1, 15, (n,), dtype=torch.int32, device=cuda)
+              for _ in range(64)]
+        w = (torch.rand(n, device=cuda) > 0.3).float()
+    elif case == "hot_key":
+        schema, xs, cs, w = wide_cols("P492", n, cuda, seed=11)
+        hot = torch.rand(n, device=cuda) < 0.9
+        cs[0] = torch.where(hot, 7, cs[0]).to(torch.int32).contiguous()
+        cs[2] = torch.where(hot, 5, cs[2]).to(torch.int32).contiguous()
+    else:
+        schema = FeatureSchema(num_cols=2, cat_keys=(tuple(range(510)),) * 2)
+        assert _build.wide_plan(schema).num_tasks == 33
+        xs = [torch.randn(n, device=cuda) for _ in range(2)]
+        cs = [torch.randint(-1, 511, (n,), dtype=torch.int32, device=cuda)
+              for _ in range(2)]
+        w = (torch.rand(n, device=cuda) > 0.3).float()
+    for binary, wt in ((True, w), (False, torch.rand(n, device=cuda))):
+        got = masked_gram_cols(xs, cs, wt, schema=schema)
+        again = masked_gram_cols(xs, cs, wt, schema=schema)
+        want = masked_gram_cols_plain(xs, cs, wt, schema=schema)
+        assert torch.equal(got, again)
+        if binary:
+            cm = count_mask(schema, cuda)
+            assert torch.equal(got[cm], want[cm])
+            assert float(got[0, 0]) == float(wt.sum())
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=1e-5 * float(want.abs().max()))
 
 
 @pytest.mark.parametrize("case", ["cat33", "cat337", "num", "num_noise"])
@@ -686,7 +726,7 @@ def test_grouped_gram_unsorted_entry_at_wide_p(cuda, groups):
 
 
 def test_grouped_wide_gram_at_its_limit(cuda):
-    """P = MAX_WIDE_SIGMA_SIZE (136 regions) with 3 groups."""
+    """P = MAX_WIDE_SIGMA_SIZE (64 tasks of the plan) with 3 groups."""
     keys = (tuple(range(20)),) * 51
     schema = FeatureSchema(num_cols=3, cat_keys=keys)
     rng = np.random.default_rng(9)

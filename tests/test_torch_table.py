@@ -121,7 +121,8 @@ def test_init_fill_leaves_observed_cells(raw):
 
 @pytest.mark.parametrize("entry", ["from_numpy", "from_reference",
                                    "triple_from_reference",
-                                   "nb_agg_from_reference"])
+                                   "nb_agg_from_reference", "Triple.zeros",
+                                   "NBAgg.zeros"])
 def test_entry_points_default_to_the_card(raw, entry):
     """Asked for no device, the entry points put their tensors on CUDA:
     with a card they land there, without one the call raises. They never
@@ -129,7 +130,7 @@ def test_entry_points_default_to_the_card(raw, entry):
     from types import SimpleNamespace
 
     from duckdb_imputation_tpu_torch.ring.triple import (
-        nb_agg_from_reference, triple_from_reference)
+        NBAgg, Triple, nb_agg_from_reference, triple_from_reference)
 
     agg = SimpleNamespace(n=np.ones(2), lin=np.zeros((2, 3)),
                           quad=np.zeros((2, 3, 3)),
@@ -137,14 +138,17 @@ def test_entry_points_default_to_the_card(raw, entry):
                           lin_cat=np.zeros((2, 5)),
                           num_cat=np.zeros((2, 3, 5)),
                           cat_cat=np.zeros((2, 5, 5)))
+    schema = FeatureSchema(num_cols=3, cat_keys=(tuple(range(5)),))
     call = {"from_numpy": lambda: from_numpy(*raw),
             "from_reference": lambda: from_reference(ref_from_numpy(*raw)),
             "triple_from_reference": lambda: triple_from_reference(agg),
             "nb_agg_from_reference": lambda: nb_agg_from_reference(agg),
+            "Triple.zeros": lambda: Triple.zeros(schema, batch=(2,)),
+            "NBAgg.zeros": lambda: NBAgg.zeros(schema),
             }[entry]
     if torch.cuda.is_available():
         out = call()
-        device = out.device if entry.startswith("from") else out.n.device
+        device = out.device if entry.startswith("from_") else out.n.device
         assert device.type == "cuda"
     else:
         with pytest.raises((AssertionError, RuntimeError)):

@@ -74,9 +74,9 @@ def test_ring_ops_match_reference():
             np.testing.assert_allclose(getattr(got, f).numpy(),
                                        np.asarray(getattr(want, f)),
                                        rtol=1e-6)
-    z = Triple.zeros(SCHEMA, batch=(2,))
+    z = Triple.zeros(SCHEMA, batch=(2,), device="cpu")
     assert z.quad.shape == (2, 4, 4) and z.cat_cat.shape == (2, 16, 16)
-    nz = NBAgg.zeros(SCHEMA)
+    nz = NBAgg.zeros(SCHEMA, device="cpu")
     assert (nz + nz).quad_diag.shape == (4,)
 
 

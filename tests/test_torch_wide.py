@@ -1,8 +1,9 @@
 """Wide schemas (P > 88) in the port against the JAX package, on the CPU:
 the plain paths of K7 (masked_gram_cols, masked_gram) and K2w
 (fused_impute_aggregate) against the JAX Pallas kernels in interpret mode,
-K7's region plan and limits, the unfused predictors at P = 492, and
-run_mice_device on a small favorita_wide table against the JAX loop.
+K7's plan over S's nonzeros (coverage, shared memory, its tables against
+the plain Gram and the JAX kernels) and limits, the unfused predictors at
+P = 492, and run_mice_device on a small favorita_wide table against the JAX loop.
 
 favorita_wide is the schema of the Kaggle "Corporacion Favorita Grocery
 Sales Forecasting" data: 3 numeric columns and 9 categorical columns of
@@ -43,6 +44,9 @@ from duckdb_imputation_tpu_torch.ring.kernels.sigma_fused import (
 from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas import (
     masked_gram,
     masked_gram_cols,
+    masked_gram_cols_plain,
+    wide_assemble,
+    wide_tables_plain,
 )
 
 torch.set_num_threads(2)
@@ -132,37 +136,136 @@ def test_check_schema_wide_limits():
         _build.check_schema(above, 1000, _build.MAX_WIDE_SIGMA_SIZE)
 
 
-@pytest.mark.parametrize("name", ["P125", "favorita"])
-def test_wide_regions_cover_every_nonzero_of_sigma(name):
-    """K7's plan: 64-aligned regions of the upper triangle, and every
-    region it drops is zero in the plain Gram of data that hits every code
-    (and some out of vocab)."""
-    d, keys, x, codes, w_bin, _ = random_inputs(name, n=20_000)
-    schema = FeatureSchema(d, keys)
+# two categorical columns of 510 levels: one cross table of 260,100 cells,
+# 2 MB in f64, far past a block's shared memory
+PLAN_SCHEMAS = dict(SCHEMAS, V510x2=(2, (tuple(range(510)),) * 2))
+
+
+def zero_structure(schema):
+    """(i, j), i < j, inside one categorical column's one-hot block: zero
+    in every S (a row sets at most one code of a column)."""
+    base = 1 + schema.num_cols
+    return {(base + o + a, base + o + b)
+            for o, size in zip(schema.offsets, schema.cat_sizes)
+            for a in range(size) for b in range(a + 1, size)}
+
+
+@pytest.mark.parametrize("name", ["P125", "favorita", "V510x2"])
+def test_wide_plan_covers_every_nonzero_once(name):
+    """K7's plan maps each structurally nonzero entry of S's upper triangle
+    to a cell exactly once, and no cell of the zero structure; every cell
+    of every task reaches S (a count cell of K_j twice: (0, v) and the
+    diagonal (v, v))."""
+    schema = FeatureSchema(*PLAN_SCHEMAS[name])
+    plan = _build.wide_plan(schema)
     p = schema.sigma_size
-    regions = _build.wide_regions(schema)
-    nr = -(-p // _build.WIDE_TILE)
-    assert all(i % 64 == 0 and j % 64 == 0 and i <= j < p
-               for i, j in regions)
-    assert len(set(regions)) == len(regions)
-    assert len(regions) == {"P125": 3, "favorita": 30}[name]
-    assert {(i, i) for i in range(0, p, 64)} <= set(regions)
-    sigma = masked_gram_cols(list(map(torch.tensor, x)),
-                             list(map(torch.tensor, codes)),
-                             torch.tensor(w_bin), schema=schema).numpy()
-    dropped = [(i, j) for i in range(0, p, 64) for j in range(i, p, 64)
-               if (i, j) not in set(regions)]
-    assert len(dropped) == nr * (nr + 1) // 2 - len(regions)
-    for i, j in dropped:
-        assert not sigma[i:i + 64, j:j + 64].any(), (i, j)
+    task, cell, i, j = plan.entries.long().T
+    pairs = list(zip(i.tolist(), j.tolist()))
+    assert len(set(pairs)) == len(pairs)
+    assert (i <= j).all() and (j < p).all()
+    upper = {(a, b) for a in range(p) for b in range(a, p)}
+    assert set(pairs) == upper - zero_structure(schema)
+    flat = plan.task_base[task] + cell
+    assert (cell < plan.task_base[task + 1] - plan.task_base[task]).all()
+    assert torch.equal(torch.unique(flat), torch.arange(plan.task_base[-1]))
+    assert len(pairs) - int(plan.task_base[-1]) == schema.vocab_size
 
 
-def test_wide_slices_are_a_function_of_n_and_the_plan():
-    assert _build.wide_slices(1, 30) == 1
-    assert _build.wide_slices(10_000_000, 30) == 35          # 1050 blocks
-    assert _build.wide_slices(3000, 30) == 24                # 24 chunks
-    assert _build.wide_slices(10_000_000, 3) == 342
-    assert _build.wide_slices(10_000_000, 136) == 8
+@pytest.mark.parametrize("name", ["favorita", "V510x2", "limit"])
+def test_wide_plan_tasks_fit_shared_memory(name):
+    """Every task's f64 tables fit WIDE_TASK_BYTES, and with the staged
+    rows and the slab records the block's shared memory fits the 227 KB a
+    block may take; a task stages the code columns its slabs read; its
+    slabs tile its cells, each warp's side by side; a table past the
+    budget is split by its leading key into ranges that cover it."""
+    schema = (FeatureSchema(num_cols=64, cat_keys=(tuple(range(14)),) * 64)
+              if name == "limit" else FeatureSchema(*PLAN_SCHEMAS[name]))
+    plan = _build.wide_plan(schema)
+    d, sizes = schema.num_cols, schema.cat_sizes
+    cells = plan.task_base[1:] - plan.task_base[:-1]
+    assert int(cells.max()) * 8 <= _build.WIDE_TASK_BYTES
+    assert _build.wide_smem_bytes(plan.max_task_cells, plan.max_stage_cols,
+                                  plan.max_slabs, plan.stage_rows) <= 227 * 1024
+    assert plan.stage_rows % _build.WIDE_CHUNK == 0
+    assert plan.stage_rows == (128 if name == "limit" else 256)  # 108
+    # columns staged at 64 + 64: two stages of 256 rows would not fit
+    assert len(plan.shape_ints(1)) == _build.WIDE_PLAN_INTS
+    for t in range(plan.num_tasks):
+        mine = plan.slabs[plan.slabs[:, 6] == t].tolist()
+        read = sorted({c for kind, p0, p1, *_ in mine if kind != _build.SLAB_D
+                       for c in ((p0,) if kind == _build.SLAB_K else (p0, p1))})
+        count, *cols = plan.stage_cols[t].tolist()
+        assert cols[:count] == read and set(cols[count:]) <= {-1}
+        assert len(mine) <= min(plan.max_slabs, _build.WIDE_MAX_SLABS)
+    assert plan.warp_begin.tolist() == sorted(plan.warp_begin.tolist())
+    assert len(plan.warp_begin) == plan.num_tasks * _build.WIDE_WARPS + 1
+    ranges, used = {}, [0] * plan.num_tasks
+    for s, (kind, p0, p1, p2, p3, off, task, warp) in enumerate(
+            plan.slabs.tolist()):
+        at = task * _build.WIDE_WARPS + warp
+        assert plan.warp_begin[at] <= s < plan.warp_begin[at + 1]
+        if kind == _build.SLAB_D:        # row p0 of D, cells [p1, p2)
+            table, lo, hi, width = ("D", p0), p1, p2, 1
+            assert p0 <= p1 and p2 - p1 <= _build.WIDE_CHUNK
+        elif kind == _build.SLAB_K:      # K_p0, keys [p1, p2)
+            table, lo, hi, width = ("K", p0), p1, p2, 1 + d
+        else:                            # C_{p0 p1}, keys [p2, p3)
+            assert kind == _build.SLAB_C and p0 < p1
+            table, lo, hi, width = ("C", p0, p1), p2, p3, sizes[p1]
+        assert off == used[task]         # slabs tile the task, in order
+        used[task] += (hi - lo) * width
+        ranges.setdefault(table, []).append((lo, hi))
+    assert used == cells.tolist()
+    for table, keys in ranges.items():   # key ranges cover each table
+        keys.sort()
+        first, last = ((table[1], 1 + d) if table[0] == "D"
+                       else (0, sizes[table[1]]))
+        assert keys[0][0] == first and keys[-1][1] == last
+        assert all(a[1] == b[0] for a, b in zip(keys, keys[1:]))
+    assert len(ranges) == (1 + d) + len(sizes) + sum(
+        1 for j in range(len(sizes)) for k in range(j + 1, len(sizes))
+        if sizes[k])
+    if name == "V510x2":     # the 260,100-cell table: even key ranges
+        c = ranges[("C", 0, 1)]
+        assert len(c) == -(-510 * 510 // (_build.WIDE_TASK_BYTES // 8))
+        widths = {hi - lo for lo, hi in c}
+        assert max(widths) - min(widths) <= 16
+
+
+def test_wide_plan_slices_are_a_function_of_n_and_the_plan():
+    fav = _build.wide_plan(FeatureSchema(3, FAVORITA_KEYS))
+    assert fav.num_tasks == 8
+    assert fav.slices(1) == 1
+    assert fav.slices(3000) == 94                  # one a chunk of 32 rows
+    assert fav.slices(10_000_000) == 128           # 1024 blocks
+    one = _build.wide_plan(FeatureSchema(*WIDE_125))
+    assert one.num_tasks == 1 and one.slices(10_000_000) == 1024
+
+
+@pytest.mark.parametrize("name", ["P125", "favorita"])
+@pytest.mark.parametrize("weights", ["binary", "general"])
+def test_wide_tables_assemble_to_the_gram(name, weights):
+    """The plan's tables in plain torch (`wide_tables_plain`: f64
+    index_add / bincount), scattered into S through the plan's map
+    (`wide_assemble`), against masked_gram_cols_plain and the JAX kernels
+    in interpret mode (sigma_pallas_fast_padded with binary weights,
+    sigma_pallas_padded with general ones): counts exact with binary
+    weights, the rest within 1e-6 of max|σ|."""
+    d, keys, x, codes, w_bin, w_gen = random_inputs(name, seed=2)
+    schema = FeatureSchema(d, keys)
+    w = w_bin if weights == "binary" else w_gen
+    xs, cs = list(map(torch.tensor, x)), list(map(torch.tensor, codes))
+    cells = wide_tables_plain(xs, cs, torch.tensor(w), schema=schema)
+    assert cells.dtype == torch.float64
+    got = wide_assemble(cells, schema=schema)
+    binary = weights == "binary"
+    assert_sigma_close(got, masked_gram_cols_plain(
+        xs, cs, torch.tensor(w), schema=schema), binary, schema)
+    ref_fn = sigma_pallas_fast_padded if binary else sigma_pallas_padded
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(ref_fn(x, codes, w,
+                                 schema=RefSchema(num_cols=d, cat_keys=keys)))
+    assert_sigma_close(got, want, binary, schema)
 
 
 @pytest.mark.parametrize("name", ["P125", "favorita"])
