@@ -11,7 +11,8 @@ Drives the three paths of `duckdb_imputation_tpu_torch` ported so far:
   90% in class 0) and 10M rows: GROUP BY label aggregation
   (`sum_to_triple_grouped` over the unsorted grouped Gram K4, or a sort and
   the sorted-slab Gram K5 above K4's group limit; `sum_to_nb_agg_grouped`
-  over the NB sums K6), device training, and one-pass QDA scoring (K3);
+  over the NB sums K6), device training, and one-pass scoring (K3: QDA's
+  and NB's quadratic forms over each row's nonzero pairs);
 - MICE on a wide schema and the delta loop: `favorita_wide` (the Kaggle
   Corporacion Favorita schema, 3 numeric and 9 categorical columns,
   P = 492, made on the device with the dataset's hierarchy) at 10M rows,
@@ -23,8 +24,9 @@ Drives the three paths of `duckdb_imputation_tpu_torch` ported so far:
   favorita_wide table with no nulls, one categorical column taken as the
   label, at 10M rows. Label onpromotion (2 classes, P = 490) and label
   family (33 classes, P = 459): the grouped Gram is the wide kernel K8
-  (after a sort), the NB sums K6w, QDA scoring K3w (`[K8]`, `[K6w]`,
-  `[K3w]`, `[classify_wide]`: QDA and NB pipelines for both labels).
+  (after a sort), the NB sums K6w, QDA scoring K3w, the scoring kernel
+  over a plan of several tasks (`[K8]`, `[K6w]`, `[K3w]`,
+  `[classify_wide]`: QDA and NB pipelines for both labels).
 
 First it builds the kernels from `duckdb_imputation_tpu_torch/csrc/` and
 holds each against its plain torch version at the shapes its path gives
@@ -219,13 +221,20 @@ def nb_bound(n: int, schema, groups: int) -> dict:
                  n * (1 + 3 * schema.num_cols + schema.cat_cols))
 
 
-def qda_bound(n: int, schema, classes: int, rank: int) -> dict:
-    """QDA scoring: x and codes read, i32[n] written, the factors f32[C,
-    m, r], lin and b read once; C·(r·(d + c + 1) + d + c) multiply-adds a
-    row (y = Lᵀz over the row's nonzeros, ‖y‖², lin·z)."""
-    d, c, m = schema.num_cols, schema.cat_cols, schema.sigma_size - 1
-    return bound(n * row_bytes(schema, 4) + classes * (m * rank + m + 1) * 4,
-                 2 * n * classes * (rank * (d + c + 1) + d + c))
+def qda_bound(codes, schema, classes: int, tables: int) -> dict:
+    """QDA scoring over the rows of codes i32[c, n]: x and codes read,
+    i32[n] written, the tables f32[C, cells] (`tables` bytes) read once;
+    C multiply-adds for each of a row's cells, the pairs of its nonzeros
+    in the plan: (1+d)(2+d)/2 of [1 ‖ x], 1 + d for each in-range code, 1
+    for each pair of in-range codes. Counted at the f32 rate (the kernel
+    adds in f64, at half of it)."""
+    d, n = schema.num_cols, codes.shape[-1]
+    ok = torch.stack([(codes[j] >= 0) & (codes[j] < size)
+                      for j, size in enumerate(schema.cat_sizes)]).long()
+    hits = ok.sum(0)
+    cells = (1 + d) * (2 + d) // 2 + (1 + d) * hits + hits * (hits - 1) // 2
+    return bound(n * row_bytes(schema, 4) + tables,
+                 2 * classes * int(cells.sum()))
 
 
 def dense_block(x, codes, schema, squares: bool = False):
@@ -874,38 +883,46 @@ def phase_k6(seed: int) -> dict:
 
 
 def phase_k3(seed: int) -> dict:
-    """K3 at C = 8, P = 21, 10M rows, with the factors of the QDA trained
-    on the config-4 table (f64 training, clamped eigendecomposition)."""
+    """K3 at C = 8, P = 21, 10M rows: the QDA trained on the config-4
+    table (f64 training), its tables in the plan's cells (one task)."""
     from duckdb_imputation_tpu_torch.models.device import qda_train_device
     from duckdb_imputation_tpu_torch.ring.kernels.qda_pallas import (
-        qda_predict_kernel, qda_predict_plain, qda_scorers)
+        qda_predict_kernel, qda_predict_plain, qda_tables)
     from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas_grouped import (
         grouped_gram)
 
     x, codes, y, schema = make_classify_table(N, seed)
-    codes[1, :1000] = 8          # out of vocab: selects no row of L
+    codes[1, :1000] = 8          # out of vocab: reads no cell
     sig = grouped_gram(x, codes, None, y, schema=schema, num_groups=CLASSES)
-    scorers = qda_scorers(*qda_train_device(sig, float(N)))
-    check(all(torch.isfinite(s).all() for s in scorers[:2]),
-          "K3 factors not finite")
-    got = qda_predict_kernel(*scorers, x, codes, schema=schema)
-    want = qda_predict_plain(*scorers, x, codes, schema=schema)
+    tables, plan = qda_tables(*qda_train_device(sig, float(N)),
+                              schema=schema)
+    check(bool(torch.isfinite(tables).all()), "K3 tables not finite")
+    check(plan.num_tasks == 1, f"K3: {plan.num_tasks} tasks")
+    before = qda_predict_kernel.launches
+    got = qda_predict_kernel(tables, plan, x, codes, schema=schema)
+    again = qda_predict_kernel(tables, plan, x, codes, schema=schema)
+    want = qda_predict_plain(tables, plan, x, codes, schema=schema)
     torch.cuda.synchronize()
+    check(qda_predict_kernel.launches == before + 2, "K3 was not launched")
+    check(torch.equal(got, again), "K3 repeated run not bit-identical")
     agree = float((got == want).float().mean())
     check(agree >= 0.9999, f"K3 argmax agreement {agree} < 0.9999")
-    ms = cuda_ms(lambda: qda_predict_kernel(*scorers, x, codes,
+    ms = cuda_ms(lambda: qda_predict_kernel(tables, plan, x, codes,
                                             schema=schema))
-    plain_ms = cuda_ms(lambda: qda_predict_plain(*scorers, x, codes,
+    plain_ms = cuda_ms(lambda: qda_predict_plain(tables, plan, x, codes,
                                                  schema=schema),
                        reps=3, warmup=1)
-    rank = scorers[0].shape[-1]
-    log(f"[K3] n={N} C={CLASSES} P={schema.sigma_size} r={rank}: argmax "
-        f"agreement with the plain version {agree:.7f}; kernel {ms:.4f} ms,"
-        f" plain {plain_ms:.4f} ms")
+    out = dict(max_abs_err=float((got - want).abs().max()), ms=ms,
+               plain_ms=plain_ms,
+               **qda_bound(codes, schema, CLASSES, tables.numel() * 4),
+               library_ms=None)
     # no single PyTorch call scores and takes the argmax over classes
-    return dict(max_abs_err=float((got - want).abs().max()), ms=ms,
-                plain_ms=plain_ms, **qda_bound(N, schema, CLASSES, rank),
-                library_ms=None)
+    log(f"[K3] n={N} C={CLASSES} P={schema.sigma_size} ({tables.shape[1]} "
+        f"cells a class, one task): argmax agreement with the plain version "
+        f"{agree:.7f}, bit-identical rerun; kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {out['bound_ms']:.4f} ms "
+        f"({out['bound_by']})")
+    return out
 
 
 def qda_pipeline(x, codes, y, schema, classes: int):
@@ -1623,14 +1640,13 @@ def phase_k6w(seed: int) -> dict:
 
 
 def phase_k3w(seed: int) -> dict:
-    """K3w with the factors of QDA trained on favorita_classify (K8 and
-    f64 training at 10M rows): label family (C = 33) held against the
-    plain scorer at 1M rows (it launches C·r·(d + c) small kernels) and
-    timed at 10M; label onpromotion (C = 2) held and timed at 10M."""
+    """K3w with the tables of QDA trained on favorita_classify (K8 and f64
+    training at 10M rows), over a plan of several tasks: label family (C =
+    33) held against the plain scorer at 1M rows and timed at 10M; label
+    onpromotion (C = 2) held and timed at 10M."""
     from duckdb_imputation_tpu_torch.models.device import qda_train_device
-    from duckdb_imputation_tpu_torch.ring.kernels._build import qda_route
     from duckdb_imputation_tpu_torch.ring.kernels.qda_pallas import (
-        qda_predict_kernel, qda_predict_plain, qda_scorers)
+        qda_predict_kernel, qda_predict_plain, qda_tables)
     from duckdb_imputation_tpu_torch.ring.sum import sum_to_triple_grouped
     from duckdb_imputation_tpu_torch.ring.triple import sigma_from_triple
 
@@ -1640,36 +1656,37 @@ def phase_k3w(seed: int) -> dict:
             N, seed + 24, label)
         sig = sigma_from_triple(sum_to_triple_grouped(
             x, codes, y, schema=schema, num_groups=classes))
-        scorers = qda_scorers(*qda_train_device(sig, float(N)))
-        rank = scorers[0].shape[-1]
-        check(qda_route(schema, classes, rank) == "K3w",
-              f"K3w {label}: factors of rank {rank} fit K3")
+        tables, plan = qda_tables(*qda_train_device(sig, float(N)),
+                                  schema=schema)
+        check(plan.num_tasks > 1, f"K3w {label}: the tables fit one task")
         xs, cs = x[:, :n_check].contiguous(), codes[:, :n_check].contiguous()
         before = qda_predict_kernel.wide_launches
-        got = qda_predict_kernel(*scorers, xs, cs, schema=schema)
-        again = qda_predict_kernel(*scorers, xs, cs, schema=schema)
-        want = qda_predict_plain(*scorers, xs, cs, schema=schema)
+        got = qda_predict_kernel(tables, plan, xs, cs, schema=schema)
+        again = qda_predict_kernel(tables, plan, xs, cs, schema=schema)
+        want = qda_predict_plain(tables, plan, xs, cs, schema=schema)
         torch.cuda.synchronize()
         check(qda_predict_kernel.wide_launches == before + 2,
               f"K3w {label} was not launched")
         check(torch.equal(got, again), "K3w repeated run not bit-identical")
         agree = float((got == want).float().mean())
         check(agree >= 0.9999, f"K3w {label} argmax agreement {agree}")
-        ms = cuda_ms(lambda: qda_predict_kernel(*scorers, x, codes,
+        ms = cuda_ms(lambda: qda_predict_kernel(tables, plan, x, codes,
                                                 schema=schema),
                      reps=3, warmup=1)
-        plain_ms = cuda_ms(lambda: qda_predict_plain(*scorers, x, codes,
+        plain_ms = cuda_ms(lambda: qda_predict_plain(tables, plan, x, codes,
                                                      schema=schema),
                            reps=1, warmup=0)
         res = dict(max_abs_err=float((got - want).abs().max()), ms=ms,
-                   plain_ms=plain_ms, **qda_bound(N, schema, classes, rank),
+                   plain_ms=plain_ms,
+                   **qda_bound(codes, schema, classes, tables.numel() * 4),
                    library_ms=None)
-        log(f"[K3w] {label} C={classes} P={schema.sigma_size} r={rank} "
-            f"(factors {classes * (schema.sigma_size - 1) * rank * 4 / 2**20:.2f}"
-            f" MiB): argmax agreement with the plain version at "
-            f"n={n_check} {agree:.7f}, bit-identical rerun; at n={N} kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-            f"{res['bound_ms']:.4f} ms ({res['bound_by']})")
+        log(f"[K3w] {label} C={classes} P={schema.sigma_size} "
+            f"({plan.num_tasks} tasks, {tables.shape[1]} cells a class, "
+            f"tables {tables.numel() * 4 / 2**20:.2f} MiB): argmax agreement "
+            f"with the plain version at n={n_check} {agree:.7f}, "
+            f"bit-identical rerun; at n={N} kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {res['bound_ms']:.4f} ms "
+            f"({res['bound_by']})")
         if label == "family":
             out = res
     return out
@@ -1677,13 +1694,13 @@ def phase_k3w(seed: int) -> dict:
 
 def _stages(label_table, model: str) -> dict:
     """ms of each stage of one pipeline (host clock around work that ends
-    in a synchronize): aggregate, train, scorers (QDA's f64 eigh; NB builds
-    its factor in predict), predict."""
+    in a synchronize): aggregate, train, scorers (QDA's tables, packed from
+    A_c in f64; NB builds its tables in predict), predict."""
     from duckdb_imputation_tpu_torch.models.device import (
         nb_predict_device, nb_train_device, qda_predict_device,
         qda_train_device)
     from duckdb_imputation_tpu_torch.ring.kernels.qda_pallas import (
-        qda_predict_kernel, qda_scorers)
+        qda_predict_kernel, qda_tables)
     from duckdb_imputation_tpu_torch.ring.sum import (
         sum_to_nb_agg_grouped, sum_to_triple_grouped)
     from duckdb_imputation_tpu_torch.ring.triple import sigma_from_triple
@@ -1704,10 +1721,11 @@ def _stages(label_table, model: str) -> dict:
             sum_to_triple_grouped(x, codes, y, schema=schema,
                                   num_groups=classes)))
         params = timed("train", lambda: qda_train_device(sig, float(N)))
-        scorers = timed("scorers", lambda: qda_scorers(*params))
-        timed("predict", lambda: qda_predict_kernel(*scorers, x, codes,
+        tables, plan = timed("scorers", lambda: qda_tables(
+            *params, schema=schema))
+        timed("predict", lambda: qda_predict_kernel(tables, plan, x, codes,
                                                     schema=schema))
-        ms["rank"] = scorers[0].shape[-1]
+        ms["tasks"] = plan.num_tasks
         timed("predict_device", lambda: qda_predict_device(
             *params, x, codes, schema=schema))
     else:
@@ -1723,17 +1741,17 @@ def _stages(label_table, model: str) -> dict:
 def phase_classify_wide(seed: int) -> dict:
     """The classifier path at favorita_classify, 10M rows, through the
     entry points a user calls: QDA and NB for label onpromotion (unsorted
-    entry: sort + K8; K6w; K3w for QDA, K3 for NB's rank-4 factors) and
-    label family (sort + K8; K6w in two launches; K3w for both). Launch
+    entry: sort + K8; K6w; K3w for QDA, K3 for NB, whose tables have no
+    cross tables and fit one task) and label family (sort + K8; K6w in two
+    launches; K3w for QDA, K3 for NB). Launch
     counts checked exactly; accuracy against the true labels; card against
     CPU at 200k rows; ms per pipeline and per stage; the f64 SVD drivers
     of QDA training."""
-    from duckdb_imputation_tpu_torch.models.device import qda_train_device
-    from duckdb_imputation_tpu_torch.ring.kernels._build import qda_route
+    from duckdb_imputation_tpu_torch.ring.kernels._build import qda_plan
     from duckdb_imputation_tpu_torch.ring.kernels.nb_pallas import (
         nb_grouped_sums)
     from duckdb_imputation_tpu_torch.ring.kernels.qda_pallas import (
-        qda_predict_kernel, qda_scorers)
+        qda_predict_kernel)
     from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas_grouped import (
         grouped_gram, grouped_gram_presorted)
     from duckdb_imputation_tpu_torch.ring.sum import sum_to_triple_grouped
@@ -1766,13 +1784,10 @@ def phase_classify_wide(seed: int) -> dict:
     for label, (x, codes, y, schema, classes) in tables.items():
         expect["grouped_gram_presorted.wide_launches"] += 1
         expect["nb_grouped_sums.wide_launches"] += -(-classes // 32)
-        sig = sigma_from_triple(sum_to_triple_grouped(
-            x, codes, y, schema=schema, num_groups=classes))
-        rank = qda_scorers(*qda_train_device(sig, float(N)))[0].shape[-1]
-        for r in (rank, 4):                # QDA's factor, NB's rank-d one
-            route = qda_route(schema, classes, r)
-            expect["qda_predict_kernel." + ("launches" if route == "K3"
-                                            else "wide_launches")] += 1
+        for cross in (True, False):        # QDA's tables, NB's
+            expect["qda_predict_kernel." + (
+                "launches" if qda_plan(schema, cross).num_tasks == 1
+                else "wide_launches")] += 1
     check(launches == expect, f"classifier launches {launches}, not {expect}")
 
     acc = {}

@@ -1,269 +1,302 @@
-// K3 and K3w: one-pass batched QDA scoring, for sm_90a. Per row, with
-// z = [x ‖ onehot(codes)] (m = d + V features) and per class c the factor
-// L_c f32[m, r] (L_c·L_cᵀ = −quad_c, r ≤ m columns), the linear row lin_c
-// and the intercept b_c:
+// K3 and K3w: one-pass batched QDA scoring over each row's nonzero pairs,
+// for sm_90a. With z̃ = [1 ‖ x ‖ onehot(codes)] (P = 1 + d + V) each class
+// c scores as one quadratic form in the layout of sigma,
 //
-//   y = L_cᵀ·z,   s_c = (b_c + lin_c·z) − ‖y‖²,   pred = first argmax_c s_c
+//   s_c = z̃ᵀ·A_c·z̃,  A_c = [[b_c, lin_cᵀ/2], [lin_c/2, quad_c]],
+//   pred = first argmax_c s_c
 //
 // Replaces the Pallas kernel of duckdb_imputation_tpu/ring/kernels/
 // qda_pallas.py, _qda_predict_pallas (_qda_kernel), which scores through a
-// bf16 hi/lo split operand and selection matrices on the TPU's matrix
-// unit. Here the scores are plain f32 on the CUDA cores, added with
-// __fadd_rn/__fmul_rn in the order of the plain version
-// (ring/kernels/qda_pallas.py:qda_predict_plain), so the two round alike:
-// y_i = Σ_j x_j·L[j][i] (j in column order), then each categorical
-// column's selected row of L (none for a code outside [0, size)); then
-// q = Σ_i y_i² in i order; t = b + Σ_j lin_j·x_j + Σ lin[code]; s = t − q.
-// Classes stream with a strict `>`: a tie goes to the lowest class, and a
-// NaN score never wins. `qda_scorers` drops the factor's zero columns
-// (r is the largest rank over the classes, rounded up to kQdaRankAlign):
-// a zero column adds exactly +0 to q, so no score changes.
+// Cholesky factor of −quad as a bf16 hi/lo split operand on the TPU's
+// matrix unit. Here no factor exists: a row's z̃ has k = 1 + d + (its
+// in-range codes) nonzeros, so s_c is a sum over the row's k(k + 1)/2
+// pairs of nonzeros, which are cells of the plan K7 aggregates into
+// (ring/kernels/_build.py: WidePlan, qda_plan; wide_gram.cuh): the dense
+// block D of [1 ‖ x], the keyed tables K_j (cell (v, a) for code v of
+// column j and a ∈ [1 ‖ x], laid out a-major; its a = 0 cell is also v's
+// one-hot diagonal, z_v² = z_v) and the cross tables C_jk. The host packs
+// A_c into those cells as f32 tables[C][cells] (ring/kernels/
+// qda_pallas.py: qda_tables, nb_tables; naive Bayes's plan has no C_jk),
+// task after task.
 //
-// K3 (qda_kernel) keeps the C factors (C·m·r f32, 12.8 KB at C = 8,
-// m = r = 20), lin and b in shared memory for the whole launch, up to
-// kMaxQdaSmem. K3w (qda_wide_kernel) takes the factors that do not fit
-// (favorita_classify: 33 classes, m = 458, r ≤ 458: 27.7 MB) and reads
-// them from device memory, where they stay in the 50 MB L2: a thread
-// walks its row's d numeric rows of L_c (the same address across a warp)
-// and c selected rows (one per lane) four columns at a time, as float4
-// loads, so y's four entries and their order stay in registers.
+// A term is the f32 cell times the row's values (z_a·z_b for D, z_a for
+// K, 1 for C), in f64, added in f64 with __dmul_rn/__dadd_rn in the plan's
+// order: task, slab, then the slab's cells (D: b ascending; K: a
+// ascending); s_c is rounded to f32 once, and classes stream with a strict
+// `>`: a tie goes to the lowest class, and a NaN score never wins. The
+// plain version (qda_pallas.py: qda_predict_plain) does the same
+// operations in the same order, so the two give bit-identical scores.
 //
-// What bounds them on an H100: the table is read once (4·d + 4·c bytes a
-// row in, 4 out; 32 at BASELINE config 4, ~0.1 ms per 10M rows at
-// 3.35 TB/s), but each row costs C·r·(d + c + 1) FMAs (~1,000 at C = 8,
-// r = 20, d = 4, c = 2; ~1.8e5 at favorita_classify's 33 classes), so both
-// are issue-bound: K3 on FMAs and shared loads, K3w first on the c·r
-// scattered factor reads a (row, class) costs through L1 and L2 (14.7 KB
-// at c = 8, r = 458), well above its ~54 ms f32 FMA floor per 10M rows.
-// The row's x values and selected rows live in registers: loops over them
-// are unrolled to a compile-time bound (MAXD numeric and MAXC categorical
-// columns ∈ {4, 8, 16, 32}), so none is indexed at run time.
-#include "gram_common.cuh"
+// Layout of the work: a block owns a tile of threads·rows rows, staged
+// once in shared memory (x in f64, and each code i16, −1 outside [0,
+// size)). It walks the steps (group of classes, task) in order; each
+// step's f32 tables (a task's cells, at most 4,096 in the scorer's plan)
+// are copied from device memory (L2: the tables of all classes are a few
+// MB) into one
+// of two shared buffers with cp.async while the block walks the previous
+// step's. A thread finds each of its rows' cells once a step and adds it
+// into that row's f64 sum for each class of the group, in registers; at a
+// group's last task it rounds them and updates its running (best value,
+// best class) pairs, also in registers. The argmax is written once: no
+// partial scores in device memory, no atomics, so reruns are
+// bit-identical. One task (BASELINE config 4: 160 cells) is K3; several
+// (favorita_classify: 46,584 cells a class at label family, 12 tasks) K3w.
+//
+// What bounds it on an H100: the bytes floor is one read of x and codes
+// and one write of the argmax (48 bytes a row at favorita_classify, 0.14
+// ms per 10M rows); the work is C multiply-adds for each of a row's cells
+// (70 at favorita_classify, 26 at config 4), so 2.3e10 at family over 10M
+// rows, 0.69 ms at the f32 rate, whatever computes the function. The
+// kernel is bound by shared memory: the K and C lookups at the rows' codes
+// and the tables' copies for every tile take most of its time
+// (tools/qda_variants.py: its skip_* and no_stage variants). A K or C cell
+// sits at the row's code, so a warp's 32 lookups meet in banks; K_j
+// a-major spreads them (v-major, its stride 1 + d folded them onto fewer
+// banks). The tables are copied again for every tile, so a plan of
+// several tasks takes the largest tile shared memory holds beside two
+// classes' tables of 4,096 cells; classes a step amortise a row's code
+// and x reads. F2F conversions (16 a clock an SM) cost little.
+#include "wide_gram.cuh"
 
 namespace dit {
 namespace {
 
-constexpr int kMaxQdaCols = 32;          // numeric, and categorical, columns
-constexpr size_t kMaxQdaSmem = 227 * 1024;  // the H100's per-block maximum
-constexpr int kQdaRankAlign = 4;         // K3w reads L's columns as float4s
+constexpr int kQdaThreads = 1024; // most threads of a block
+constexpr int kQdaMaxGroup = 4;   // most classes a step stages
+constexpr int kQdaMaxSums = 8;    // most f64 sums a thread keeps: rows · group
 
-struct QdaGeom {
-  int m;     // features d + V
-  int r;     // columns of each factor
-  int C;     // classes
-  int64_t n;
+// Floats of one staged table's buffer, whole 16-byte words: the largest
+// task's cells (a multiple of 4 in the scorer's plan), then 1 + d zero
+// cells that a row's missed K and C cells read. Mirrored by
+// ring/kernels/_build.py: qda_smem_bytes.
+__host__ __device__ inline int qda_table_stride(int max_cells, int d) {
+  return max_cells + ((1 + d + 3) & ~3);
+}
+
+// One 16-byte word from device memory (L2) into shared memory, past L1
+// (through L1, `.ca`, was slower on an H100: tools/qda_variants.py).
+__device__ __forceinline__ void stage16(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+
+inline size_t qda_smem_bytes(int max_cells, int d, int c, int tile,
+                             int group) {
+  return sizeof(float) * 2 * size_t(group) * qda_table_stride(max_cells, d) +
+         size_t(tile) * (sizeof(double) * d + sizeof(int16_t) * c);
+}
+
+struct QdaArgs {
+  const float* tables;        // [C][cells]: class c's cells, task after task
+  const int* slabs;           // [S][kWideSlabInts]: kind, p0..p3, off, task, warp
+  const int* warp_begin;      // [tasks · kWideWarps + 1]: task t's slabs begin
+                              // at warp_begin[t · kWideWarps]
+  const int64_t* task_base;   // [tasks + 1]: each task's first cell
+  int C, tasks, max_cells;
+  int64_t cells, n;
+  int diag;                   // naive Bayes's form: of D only row 0 and the
+                              // diagonal, of K only row 0 (the rest is zero)
 };
 
-inline size_t qda_smem_bytes(int m, int r, int C) {
-  return sizeof(float) * (size_t(C) * m * r + size_t(C) * m + C);
-}
-
-// The row's numeric values and, per categorical column, the row of L (and
-// of lin) its code selects, or −1 for a code outside [0, size).
-template <int MAXD, int MAXC>
-__device__ __forceinline__ void load_row(const Cols& cols, int64_t row,
-                                         float x[MAXD], int k[MAXC]) {
-#pragma unroll
-  for (int j = 0; j < MAXD; ++j) x[j] = j < cols.d ? cols.x[j][row] : 0.0f;
-#pragma unroll
-  for (int j = 0; j < MAXC; ++j) {
-    k[j] = -1;
-    if (j < cols.c) {
-      const int code = cols.code[j][row];
-      if (code >= 0 && code < cols.size[j]) k[j] = cols.off[j] + code;
-    }
-  }
-}
-
-// b + lin·z in the plain version's order.
-template <int MAXD, int MAXC>
-__device__ __forceinline__ float linear_term(const Cols& cols, float b,
-                                             const float* lc,
-                                             const float x[MAXD],
-                                             const int k[MAXC]) {
-  float t = b;
-#pragma unroll
-  for (int j = 0; j < MAXD; ++j)
-    if (j < cols.d) t = __fadd_rn(t, __fmul_rn(lc[j], x[j]));
-#pragma unroll
-  for (int j = 0; j < MAXC; ++j)
-    if (j < cols.c && k[j] >= 0) t = __fadd_rn(t, lc[k[j]]);
-  return t;
-}
-
-template <int MAXD, int MAXC>
-__global__ void __launch_bounds__(kThreads)
-qda_kernel(const __grid_constant__ Cols cols, const __grid_constant__ QdaGeom qg,
-           const float* __restrict__ L, const float* __restrict__ lin,
-           const float* __restrict__ b, int32_t* __restrict__ out) {
-  extern __shared__ float smem[];
-  const int m = qg.m, r = qg.r, C = qg.C;
-  float* Ls = smem;                    // [C][m][r]: row k of L_c feeds z_k
-  float* lins = Ls + C * m * r;        // [C][m]
-  float* bs = lins + C * m;            // [C]
-  for (int i = threadIdx.x; i < C * m * r; i += blockDim.x) Ls[i] = L[i];
-  for (int i = threadIdx.x; i < C * m; i += blockDim.x) lins[i] = lin[i];
-  for (int i = threadIdx.x; i < C; i += blockDim.x) bs[i] = b[i];
-  __syncthreads();
-
+// ROWS rows a thread, tile = blockDim · ROWS rows a block; a step stages
+// the tables of GROUP classes for one task, in 16-byte words (the tables
+// and each task's cells start on 16-byte boundaries). A row finds its
+// cells once a step and adds them into each class's sum. A cell the row
+// misses (a code outside the slab) reads one of the zero cells after the
+// table, as the plain version does, so the rows' chains carry no branch
+// and interleave.
+template <int ROWS, int GROUP>
+__global__ void __launch_bounds__(kQdaThreads)
+qda_kernel(const __grid_constant__ Cols cols, const __grid_constant__ QdaArgs qa,
+           int32_t* __restrict__ out) {
+  static_assert(ROWS * GROUP <= kQdaMaxSums && GROUP <= kQdaMaxGroup,
+                "f64 sums a thread keeps");
+  extern __shared__ __align__(16) double qda_smem[];
+  const int tid = threadIdx.x, nt = blockDim.x, tile = nt * ROWS;
   const int d = cols.d, c = cols.c;
-  for (int64_t row = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
-       row < qg.n; row += int64_t(gridDim.x) * blockDim.x) {
-    float x[MAXD];
-    int k[MAXC];
-    load_row<MAXD, MAXC>(cols, row, x, k);
-    float best_v = -INFINITY;
-    int best = 0;
-    for (int cc = 0; cc < C; ++cc) {
-      const float* Lc = Ls + cc * m * r;
-      float q = 0.0f;
-      for (int i = 0; i < r; ++i) {
-        float y = 0.0f;
-#pragma unroll
-        for (int j = 0; j < MAXD; ++j)
-          if (j < d) y = __fadd_rn(y, __fmul_rn(x[j], Lc[j * r + i]));
-#pragma unroll
-        for (int j = 0; j < MAXC; ++j)
-          if (j < c && k[j] >= 0) y = __fadd_rn(y, Lc[k[j] * r + i]);
-        q = __fadd_rn(q, __fmul_rn(y, y));
-      }
-      const float s = __fsub_rn(
-          linear_term<MAXD, MAXC>(cols, bs[cc], lins + cc * m, x, k), q);
-      if (s > best_v) {
-        best_v = s;
-        best = cc;
+  const int stride = qda_table_stride(qa.max_cells, d);
+  const int zero = qa.max_cells;            // the zero cells, after a table
+  double* xs = qda_smem;                                    // [d][tile]
+  float* tab = reinterpret_cast<float*>(xs + d * tile);     // [2][GROUP][stride]
+  int16_t* cs = reinterpret_cast<int16_t*>(tab + 2 * GROUP * stride);  // [c][tile]
+  const int groups = (qa.C + GROUP - 1) / GROUP;
+  const int steps = groups * qa.tasks;
+
+  for (int e = tid; e < 2 * GROUP * (1 + d); e += nt)
+    tab[(e / (1 + d)) * stride + zero + e % (1 + d)] = 0.0f;
+
+  // step s = (classes GROUP·(s / tasks) + i, task s % tasks): their tables
+  // into buffer s & 1
+  auto stage_table = [&](int s) {
+    const int t = s % qa.tasks, c0 = (s / qa.tasks) * GROUP;
+    const int64_t b0 = qa.task_base[t];
+    const int nc = static_cast<int>(qa.task_base[t + 1] - b0);
+    for (int i = 0; i < GROUP && c0 + i < qa.C; ++i) {
+      const float* src = qa.tables + int64_t(c0 + i) * qa.cells + b0;
+      float* dst = tab + ((s & 1) * GROUP + i) * stride;
+      for (int e = 4 * tid; e < nc; e += 4 * nt) stage16(dst + e, src + e);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+
+  for (int64_t row0 = int64_t(blockIdx.x) * tile; row0 < qa.n;
+       row0 += int64_t(gridDim.x) * tile) {
+    stage_table(0);
+    for (int e = tid; e < tile; e += nt) {
+      const int64_t row = row0 + e;
+      const bool valid = row < qa.n;
+      for (int j = 0; j < d; ++j)
+        xs[j * tile + e] = valid ? static_cast<double>(cols.x[j][row]) : 0.0;
+      for (int j = 0; j < c; ++j) {
+        const int v = valid ? cols.code[j][row] : -1;
+        cs[j * tile + e] =
+            static_cast<int16_t>(v >= 0 && v < cols.size[j] ? v : -1);
       }
     }
-    out[row] = best;
+    double acc[GROUP][ROWS];
+    float best_v[ROWS];
+    int best[ROWS];
+#pragma unroll
+    for (int k = 0; k < ROWS; ++k) {
+#pragma unroll
+      for (int i = 0; i < GROUP; ++i) acc[i][k] = 0.0;
+      best_v[k] = -INFINITY;
+      best[k] = 0;
+    }
+
+    for (int s = 0; s < steps; ++s) {
+      if (s + 1 < steps) stage_table(s + 1);
+      else asm volatile("cp.async.commit_group;\n" ::);
+      asm volatile("cp.async.wait_group 1;\n" ::);
+      __syncthreads();
+      const float* tb = tab + (s & 1) * GROUP * stride;
+      const int t = s % qa.tasks;
+      const int s1 = qa.warp_begin[(t + 1) * kWideWarps];
+      for (int si = qa.warp_begin[t * kWideWarps]; si < s1; ++si) {
+        const int* sl = qa.slabs + si * kWideSlabInts;
+        const int kind = __ldg(sl), p0 = __ldg(sl + 1), p1 = __ldg(sl + 2);
+        const int p2 = __ldg(sl + 3), p3 = __ldg(sl + 4), off = __ldg(sl + 5);
+        if (kind == kSlabD) {          // cells (p0, b), b in [p1, p2)
+          const double* xa = xs + (p0 ? p0 - 1 : 0) * tile + tid;
+          double za[ROWS];
+#pragma unroll
+          for (int k = 0; k < ROWS; ++k) za[k] = p0 ? xa[k * nt] : 1.0;
+          for (int b = p1; b < p2; ++b) {
+            if (qa.diag && p0 && b != p0) continue;
+            const double* xb = xs + (b ? b - 1 : 0) * tile + tid;
+            double tv[GROUP];
+#pragma unroll
+            for (int i = 0; i < GROUP; ++i) tv[i] = tb[i * stride + off + b - p1];
+#pragma unroll
+            for (int k = 0; k < ROWS; ++k) {
+              const double zb = b ? xb[k * nt] : 1.0;
+              const double z = p0 ? __dmul_rn(za[k], zb) : zb;
+#pragma unroll
+              for (int i = 0; i < GROUP; ++i)
+                acc[i][k] = __dadd_rn(acc[i][k], __dmul_rn(tv[i], z));
+            }
+          }
+        } else if (kind == kSlabK) {   // column p0, keys [p1, p2): cell
+          const int16_t* cj = cs + p0 * tile + tid;  // (v, a) at a·keys + v − p1
+          int base[ROWS], step[ROWS];
+#pragma unroll
+          for (int k = 0; k < ROWS; ++k) {
+            const int v = cj[k * nt];
+            const bool hit = v >= p1 && v < p2;
+            base[k] = hit ? off + v - p1 : zero;
+            step[k] = hit ? p2 - p1 : 1;
+#pragma unroll
+            for (int i = 0; i < GROUP; ++i)
+              acc[i][k] = __dadd_rn(acc[i][k],
+                                    static_cast<double>(tb[i * stride + base[k]]));
+          }
+          for (int a = 1; a <= (qa.diag ? 0 : d); ++a) {
+            const double* xr = xs + (a - 1) * tile + tid;
+#pragma unroll
+            for (int k = 0; k < ROWS; ++k) {
+              const double x = xr[k * nt];
+#pragma unroll
+              for (int i = 0; i < GROUP; ++i)
+                acc[i][k] = __dadd_rn(
+                    acc[i][k], __dmul_rn(tb[i * stride + base[k] + a * step[k]], x));
+            }
+          }
+        } else {                       // columns p0 < p1, keys u ∈ [p2, p3)
+          const int vk = cols.size[p1];
+          const int16_t* cu = cs + p0 * tile + tid;
+          const int16_t* cv = cs + p1 * tile + tid;
+#pragma unroll
+          for (int k = 0; k < ROWS; ++k) {
+            const int u = cu[k * nt], v = cv[k * nt];
+            const int cell =
+                u >= p2 && u < p3 && v >= 0 ? off + (u - p2) * vk + v : zero;
+#pragma unroll
+            for (int i = 0; i < GROUP; ++i)
+              acc[i][k] = __dadd_rn(acc[i][k],
+                                    static_cast<double>(tb[i * stride + cell]));
+          }
+        }
+      }
+      if (t == qa.tasks - 1) {        // the group's scores are complete
+        const int c0 = (s / qa.tasks) * GROUP;
+#pragma unroll
+        for (int i = 0; i < GROUP; ++i)
+#pragma unroll
+          for (int k = 0; k < ROWS; ++k) {
+            const float sc = __double2float_rn(acc[i][k]);
+            if (c0 + i < qa.C && sc > best_v[k]) {
+              best_v[k] = sc;
+              best[k] = c0 + i;
+            }
+            acc[i][k] = 0.0;
+          }
+      }
+      __syncthreads();   // the buffer is restaged two steps on
+    }
+#pragma unroll
+    for (int k = 0; k < ROWS; ++k) {
+      const int64_t row = row0 + tid + k * nt;
+      if (row < qa.n) out[row] = best[k];
+    }
   }
 }
 
-// K3w: the factors, lin and b stay in device memory (L2). L's rows are
-// 16-byte aligned (r a multiple of kQdaRankAlign).
-template <int MAXD, int MAXC>
-__global__ void __launch_bounds__(kThreads)
-qda_wide_kernel(const __grid_constant__ Cols cols,
-                const __grid_constant__ QdaGeom qg,
-                const float* __restrict__ L, const float* __restrict__ lin,
-                const float* __restrict__ b, int32_t* __restrict__ out) {
-  const int m = qg.m, r = qg.r, C = qg.C;
-  const int d = cols.d, c = cols.c;
-  for (int64_t row = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
-       row < qg.n; row += int64_t(gridDim.x) * blockDim.x) {
-    float x[MAXD];
-    int k[MAXC];
-    load_row<MAXD, MAXC>(cols, row, x, k);
-    float best_v = -INFINITY;
-    int best = 0;
-    for (int cc = 0; cc < C; ++cc) {
-      const float* Lc = L + int64_t(cc) * m * r;
-      float q = 0.0f;
-      for (int i = 0; i < r; i += 4) {
-        float y[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-        for (int j = 0; j < MAXD; ++j)
-          if (j < d) {
-            const float4 l =
-                __ldg(reinterpret_cast<const float4*>(Lc + j * r + i));
-            y[0] = __fadd_rn(y[0], __fmul_rn(x[j], l.x));
-            y[1] = __fadd_rn(y[1], __fmul_rn(x[j], l.y));
-            y[2] = __fadd_rn(y[2], __fmul_rn(x[j], l.z));
-            y[3] = __fadd_rn(y[3], __fmul_rn(x[j], l.w));
-          }
-#pragma unroll
-        for (int j = 0; j < MAXC; ++j)
-          if (j < c && k[j] >= 0) {
-            const float4 l =
-                __ldg(reinterpret_cast<const float4*>(Lc + k[j] * r + i));
-            y[0] = __fadd_rn(y[0], l.x);
-            y[1] = __fadd_rn(y[1], l.y);
-            y[2] = __fadd_rn(y[2], l.z);
-            y[3] = __fadd_rn(y[3], l.w);
-          }
-#pragma unroll
-        for (int e = 0; e < 4; ++e) q = __fadd_rn(q, __fmul_rn(y[e], y[e]));
-      }
-      const float s = __fsub_rn(
-          linear_term<MAXD, MAXC>(cols, __ldg(b + cc), lin + int64_t(cc) * m,
-                                  x, k),
-          q);
-      if (s > best_v) {
-        best_v = s;
-        best = cc;
-      }
-    }
-    out[row] = best;
-  }
-}
-
-template <int MAXD, int MAXC>
-int launch_qda(const Cols& cols, const QdaGeom& qg, const float* L,
-               const float* lin, const float* b, int32_t* out, int nblocks,
-               cudaStream_t s) {
-  const size_t smem = qda_smem_bytes(qg.m, qg.r, qg.C);
-  if (smem > 48 * 1024) {
-    cudaError_t rc = cudaFuncSetAttribute(
-        qda_kernel<MAXD, MAXC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (rc != cudaSuccess) return rc;
-  }
-  qda_kernel<MAXD, MAXC><<<nblocks, kThreads, smem, s>>>(cols, qg, L, lin, b,
-                                                         out);
+template <int ROWS, int GROUP>
+int launch_qda(const Cols& cols, const QdaArgs& qa, int threads,
+               int32_t* out, cudaStream_t stream) {
+  const int tile = threads * ROWS;
+  const size_t smem =
+      qda_smem_bytes(qa.max_cells, cols.d, cols.c, tile, GROUP);
+  if (smem > kWideSmem) return cudaErrorInvalidValue;
+  cudaError_t rc = cudaFuncSetAttribute(
+      qda_kernel<ROWS, GROUP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (rc != cudaSuccess) return rc;
+  const int64_t blocks = qa.n > 0 ? (qa.n + tile - 1) / tile : 1;
+  qda_kernel<ROWS, GROUP>
+      <<<static_cast<unsigned>(blocks), threads, smem, stream>>>(cols, qa,
+                                                                  out);
   return cudaGetLastError();
 }
 
-template <int MAXD, int MAXC>
-int launch_qda_wide(const Cols& cols, const QdaGeom& qg, const float* L,
-                    const float* lin, const float* b, int32_t* out,
-                    int nblocks, cudaStream_t s) {
-  qda_wide_kernel<MAXD, MAXC><<<nblocks, kThreads, 0, s>>>(cols, qg, L, lin,
-                                                           b, out);
-  return cudaGetLastError();
-}
-
-using QdaLaunch = int (*)(const Cols&, const QdaGeom&, const float*,
-                          const float*, const float*, int32_t*, int,
+using QdaLaunch = int (*)(const Cols&, const QdaArgs&, int, int32_t*,
                           cudaStream_t);
 
-// Checks shared by both entry points; fills cols (offsets less the
-// leading constant feature) and qg. 0 or a cudaError_t.
-inline int qda_setup(const void* const* x_cols, int d,
-                     const void* const* code_cols, const int* cat_sizes,
-                     int c, int C, int m, int r, int64_t n, int nblocks,
-                     Cols& cols, QdaGeom& qg) {
-  if (d < 0 || c < 0 || d > kMaxQdaCols || c > kMaxQdaCols || C < 1 ||
-      nblocks < 1 || n < 0 || r < 0)
-    return cudaErrorInvalidValue;
-  int mm = d;
-  for (int j = 0; j < c; ++j) {
-    if (cat_sizes[j] < 0) return cudaErrorInvalidValue;
-    mm += cat_sizes[j];
+// The instance for rows a thread and classes a step, the shapes
+// ring/kernels/_build.py: qda_tile picks: kQdaMaxSums / group rows for
+// 2 or 4 classes a step, else 8, 4, 2 or 1 rows for one (nullptr for any
+// other shape).
+inline QdaLaunch pick_qda(int rows, int group) {
+  switch (rows * 8 + group) {
+    case 8 * 8 + 1: return launch_qda<8, 1>;
+    case 4 * 8 + 1: return launch_qda<4, 1>;
+    case 2 * 8 + 1: return launch_qda<2, 1>;
+    case 1 * 8 + 1: return launch_qda<1, 1>;
+    case 4 * 8 + 2: return launch_qda<4, 2>;
+    case 2 * 8 + 4: return launch_qda<2, 4>;
+    default: return nullptr;
   }
-  if (mm != m) return cudaErrorInvalidValue;
-  // sigma-layout offsets (1 + d + ...) less the leading constant feature
-  cols = make_cols(x_cols, d, code_cols, cat_sizes, c);
-  for (int j = 0; j < c; ++j) cols.off[j] -= 1;
-  qg = QdaGeom{m, r, C, n};
-  return 0;
-}
-
-// The instances for the wider of d and c: MAXD = MAXC ∈ {4, 8, 16, 32}.
-inline QdaLaunch pick_smem(int d, int c) {
-  const int wide = d > c ? d : c;
-  QdaLaunch launch = launch_qda<32, 32>;
-  if (wide <= 16) launch = launch_qda<16, 16>;
-  if (wide <= 8) launch = launch_qda<8, 8>;
-  if (wide <= 4) launch = launch_qda<4, 4>;
-  return launch;
-}
-
-inline QdaLaunch pick_wide(int d, int c) {
-  const int wide = d > c ? d : c;
-  QdaLaunch launch = launch_qda_wide<32, 32>;
-  if (wide <= 16) launch = launch_qda_wide<16, 16>;
-  if (wide <= 8) launch = launch_qda_wide<8, 8>;
-  if (wide <= 4) launch = launch_qda_wide<4, 4>;
-  return launch;
 }
 
 }  // namespace
@@ -271,42 +304,37 @@ inline QdaLaunch pick_wide(int d, int c) {
 
 extern "C" {
 
-// Launches K3 on `stream`. L f32[C, m, r], lin f32[C, m], b f32[C], with
-// m = d + Σ cat_sizes, all within kMaxQdaSmem; out i32[n].
-// Returns 0 or a cudaError_t.
+// Launches K3/K3w on `stream`: tables f32[C][cells], 16-byte aligned, in
+// the cells of the scorer's plan (slabs, warp_begin, task_base of
+// ring/kernels/_build.py: qda_plan, `tasks` tasks of at most max_cells
+// cells, each task's first cell and `cells` multiples of 4); blocks of
+// `threads` threads,
+// each thread scoring `rows` rows against `group` classes a step ((8, 1),
+// (4, 1), (2, 1), (1, 1), (4, 2) or (2, 4)); diag: naive Bayes's tables
+// (`nb_tables`), whose other D and K cells are zero and skipped; out
+// i32[n]. Returns 0 or a cudaError_t.
 int dit_qda_predict(const void* const* x_cols, int d,
                     const void* const* code_cols, const int* cat_sizes,
-                    int c, const float* L, const float* lin, const float* b,
-                    int C, int m, int r, int64_t n, int32_t* out,
-                    int nblocks, void* stream) {
+                    int c, const float* tables, const int* slabs,
+                    const int* warp_begin, const int64_t* task_base, int C,
+                    int tasks, int max_cells, int64_t cells, int64_t n,
+                    int threads, int rows, int group, int diag, int32_t* out,
+                    void* stream) {
   using namespace dit;
-  Cols cols;
-  QdaGeom qg;
-  if (int rc = qda_setup(x_cols, d, code_cols, cat_sizes, c, C, m, r, n,
-                         nblocks, cols, qg))
-    return rc;
-  if (qda_smem_bytes(m, r, C) > kMaxQdaSmem) return cudaErrorInvalidValue;
-  return pick_smem(d, c)(cols, qg, L, lin, b, out, nblocks,
-                         static_cast<cudaStream_t>(stream));
-}
-
-// Launches K3w on `stream`: as dit_qda_predict, any factor size, with r a
-// multiple of kQdaRankAlign and L 16-byte aligned.
-int dit_qda_predict_wide(const void* const* x_cols, int d,
-                         const void* const* code_cols, const int* cat_sizes,
-                         int c, const float* L, const float* lin,
-                         const float* b, int C, int m, int r, int64_t n,
-                         int32_t* out, int nblocks, void* stream) {
-  using namespace dit;
-  Cols cols;
-  QdaGeom qg;
-  if (int rc = qda_setup(x_cols, d, code_cols, cat_sizes, c, C, m, r, n,
-                         nblocks, cols, qg))
-    return rc;
-  if (r % kQdaRankAlign || reinterpret_cast<uintptr_t>(L) % 16)
+  if (d < 0 || c < 0 || d > kMaxCols || c > kMaxCols)
     return cudaErrorInvalidValue;
-  return pick_wide(d, c)(cols, qg, L, lin, b, out, nblocks,
-                         static_cast<cudaStream_t>(stream));
+  int P = 1 + d;
+  for (int j = 0; j < c; ++j) P += cat_sizes[j];
+  if (int rc = check_cols(d, c, cat_sizes, P, n, 1, kMaxWideP)) return rc;
+  const QdaLaunch launch = pick_qda(rows, group);
+  if (C < 1 || tasks < 1 || max_cells < 1 || max_cells % 4 || cells % 4 ||
+      reinterpret_cast<uintptr_t>(tables) % 16 || cells < max_cells ||
+      threads < 32 || threads > kQdaThreads || threads % 32 || !launch)
+    return cudaErrorInvalidValue;
+  const QdaArgs qa{tables, slabs, warp_begin, task_base, C, tasks,
+                   max_cells, cells, n, diag != 0};
+  return launch(make_cols(x_cols, d, code_cols, cat_sizes, c), qa, threads,
+                out, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

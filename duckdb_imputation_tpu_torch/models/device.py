@@ -6,19 +6,18 @@ train → predict → write-back) on the device, and the classifier path's
 QDA and naive-Bayes trainers and one-pass predictors. The GD trainer
 (`linreg_train_device`) is not ported yet.
 
-Two divergences from the JAX package, both fixes (ROADMAP Queue 3):
+Three divergences from the JAX package, each a fix (ROADMAP Queue 3):
 `qda_train_device` takes the per-class SVD in f64 (JAX: f32 with the f64
 trainer's absolute 1e-9 cutoff, which keeps f32 rounding noise of a
-singular covariance and blows −quad up), and `qda_predict_device` factors
-−quad by a clamped symmetric eigendecomposition (JAX: Cholesky of
-−quad + 1e-12·I, NaN for the singular PSD −quad of a full one-hot schema).
-The factor's zero columns are dropped, and `nb_predict_device` builds its
-diagonal form's rank-d factor directly (ROADMAP Queue 3), so scoring at
-wide schemas reads C·m·r, not C·m², factor entries.
+singular covariance and blows −quad up); `nb_train_device` trains in f64
+and clamps the variance at 0 (JAX: f32 Σx²/n − mean², which cancels to a
+negative variance and a NaN score); and `qda_predict_device` scores the
+quadratic form as it is, over each row's nonzero pairs (JAX: a Cholesky
+of −quad + 1e-12·I, NaN for the singular PSD −quad of a full one-hot
+schema). Scoring needs no factor: `qda_tables` and `nb_tables` pack each
+class's form into the cells of the schema's plan.
 """
 from __future__ import annotations
-
-import math
 
 import torch
 
@@ -95,20 +94,27 @@ def qda_train_device(sigmas: torch.Tensor, tot, drop_d: int = 1):
 
 def nb_train_device(n, lin, quad_diag, lin_cat):
     """NB from batched NBAgg sections ([C], [C, d], [C, d], [C, V]):
-    returns (priors [C], mean [C, d], var [C, d], freqs [C, V])."""
-    tot = n.sum()
+    returns (priors [C], mean [C, d], var [C, d], freqs [C, V]), f32.
+
+    Trained in f64 from the f32 sections, as the JAX host trainer
+    (models/naive_bayes.py) does, and var clamped at 0: Σx²/n − mean² of
+    a constant column cancels to a small negative number even from exact
+    sums rounded to f32 once (ROADMAP Queue 3)."""
+    f64 = torch.float64
+    n = n.to(f64)
     n_safe = n.clamp(min=1.0)[:, None]  # zero-count class guard
-    mean = lin / n_safe
-    var = quad_diag / n_safe - mean * mean
-    freqs = lin_cat / n_safe
-    return n / tot, mean, var, freqs
+    mean = lin.to(f64) / n_safe
+    var = (quad_diag.to(f64) / n_safe - mean * mean).clamp(min=0.0)
+    freqs = lin_cat.to(f64) / n_safe
+    return tuple(t.to(torch.float32)
+                 for t in (n / n.sum(), mean, var, freqs))
 
 
 PREDICT_METHODS = ("auto", "plain", "kernel")
 
 
-def _predict(factor, lin, intercept, x_num, codes, *, schema, method):
-    """Score through the factored form with the method asked for."""
+def _predict(tables, plan, x_num, codes, *, schema, method):
+    """Score through the tables with the method asked for."""
     from ..ring.kernels.qda_pallas import qda_predict_kernel, qda_predict_plain
 
     if method not in PREDICT_METHODS:
@@ -117,7 +123,7 @@ def _predict(factor, lin, intercept, x_num, codes, *, schema, method):
     if method == "auto":
         method = "kernel" if x_num.device.type == "cuda" else "plain"
     predict = qda_predict_kernel if method == "kernel" else qda_predict_plain
-    return predict(factor, lin, intercept, x_num, codes, schema=schema)
+    return predict(tables, plan, x_num, codes, schema=schema)
 
 
 def qda_predict_device(quad, lin, intercept, x_num, codes, *, schema,
@@ -126,16 +132,15 @@ def qda_predict_device(quad, lin, intercept, x_num, codes, *, schema,
     onehot(codes)] of width m = P − 1: the class INDEX i32[n] of the first
     maximum of zᵀ·quad_c·z + lin_c·z + b_c.
 
-    The scorer factors −quad_c = L_c·L_cᵀ by a clamped eigendecomposition
-    in f64, zero columns dropped past K3's shared memory (`qda_scorers`).
-    method: 'auto' (K3 or, for factors past its shared memory, K3w for
-    CUDA tensors; plain on the CPU), 'plain' (`qda_predict_plain`) or
-    'kernel' (`qda_predict_kernel`)."""
-    from ..ring.kernels.qda_pallas import qda_scorers
+    The scorer packs each class's quadratic form into the cells of the
+    schema's plan (`qda_tables`) and sums over each row's nonzero pairs.
+    method: 'auto' (the kernel, K3 or K3w by the plan's tasks, for CUDA
+    tensors; plain on the CPU), 'plain' (`qda_predict_plain`) or 'kernel'
+    (`qda_predict_kernel`)."""
+    from ..ring.kernels.qda_pallas import qda_tables
 
-    factor, lin, intercept = qda_scorers(quad, lin, intercept)
-    return _predict(factor, lin, intercept, x_num, codes, schema=schema,
-                    method=method)
+    tables, plan = qda_tables(quad, lin, intercept, schema=schema)
+    return _predict(tables, plan, x_num, codes, schema=schema, method=method)
 
 
 def nb_predict_device(priors, mean, var, freqs, x_num, codes, *, schema,
@@ -146,23 +151,18 @@ def nb_predict_device(priors, mean, var, freqs, x_num, codes, *, schema,
         s_c = log prior_c + Σ_num [−(x−μ)²/2σ² − ½log(2πσ²)]
                           + Σ_cat log freq_c[code]
 
-    maps onto quad = diag(−1/2σ²) over the numeric slots, lin = μ/σ² ‖
-    log freq, intercept = the x-free terms, and scores through QDA's
-    predictors with that quad's rank-d factor (`nb_scorers`, no
-    eigendecomposition). var gets the reference's +1e-9; a zero training
-    frequency scores −1e30, and a predict-time category outside the vocab
-    contributes nothing. Returns the class index i32[n]."""
-    from ..ring.kernels.qda_pallas import nb_scorers
+    and scores through QDA's predictors with tables of that form
+    (`nb_tables`: no cross tables). var is clamped at 0 and gets the
+    reference's +1e-9, in f64; a zero training frequency scores −1e30, and
+    a predict-time category outside the vocab contributes nothing. Returns
+    the class index i32[n]."""
+    from ..ring.kernels.qda_pallas import nb_tables
 
-    d = schema.num_cols
-    var = var.to(torch.float32) + 1e-9
-    factor = nb_scorers(-0.5 / var, d, schema.sigma_size - 1)
+    f64 = torch.float64
+    var = var.to(f64).clamp(min=0.0) + 1e-9
+    freqs = freqs.to(f64)
     log_freq = torch.where(freqs > 0.0, torch.log(freqs.clamp(min=1e-38)),
                            -1e30)
-    lin = torch.cat([mean / var, log_freq], dim=1)
-    icpt = (torch.log(priors.clamp(min=1e-38))
-            - 0.5 * (mean * mean / var
-                     + torch.log(2.0 * math.pi * var)).sum(1))
-    return _predict(factor, lin.to(torch.float32).contiguous(),
-                    icpt.to(torch.float32).contiguous(), x_num, codes,
-                    schema=schema, method=method)
+    tables, plan = nb_tables(torch.log(priors.to(f64).clamp(min=1e-38)),
+                             mean, var, log_freq, schema=schema)
+    return _predict(tables, plan, x_num, codes, schema=schema, method=method)

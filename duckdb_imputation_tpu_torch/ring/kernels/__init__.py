@@ -1,9 +1,9 @@
 from .nb_pallas import nb_grouped_sums, nb_grouped_sums_plain
 from .qda_pallas import (
-    nb_scorers,
+    nb_tables,
     qda_predict_kernel,
     qda_predict_plain,
-    qda_scorers,
+    qda_tables,
 )
 from .sigma_fused import fused_impute_aggregate, fused_impute_aggregate_plain
 from .sigma_pallas import (
@@ -25,6 +25,6 @@ __all__ = ["fused_impute_aggregate", "fused_impute_aggregate_plain",
            "grouped_gram", "grouped_gram_plain", "grouped_gram_presorted",
            "grouped_gram_presorted_plain", "masked_gram", "masked_gram_cols",
            "masked_gram_cols_plain", "masked_gram_plain", "nb_grouped_sums",
-           "nb_grouped_sums_plain", "nb_scorers", "qda_predict_kernel",
+           "nb_grouped_sums_plain", "nb_tables", "qda_predict_kernel",
            "qda_predict_plain",
-           "qda_scorers", "sort_by_group", "unsorted_group_limit"]
+           "qda_tables", "sort_by_group", "unsorted_group_limit"]

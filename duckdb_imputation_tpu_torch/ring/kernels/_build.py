@@ -60,11 +60,18 @@ MAX_NB_GROUPS = 32       # kMaxNbGroups (nb_grouped_sums.cu): K6 per launch
 MAX_NB_FEATURES = 256    # kThreads (gram_common.cuh): K6's F = 1 + 2d + V;
                          # K6w sums wider F in ranges of this many features
 MAX_NB_RANGES = 65535    # kMaxNbRanges (nb_grouped_sums.cu): K6w's gridDim.y
-MAX_QDA_COLS = 32        # kMaxQdaCols (qda_predict.cu): K3 and K3w, d and c
-MAX_QDA_SMEM = 227 * 1024  # kMaxQdaSmem (qda_predict.cu): K3's factors;
-                           # K3w reads larger ones from device memory
-QDA_RANK_ALIGN = 4       # kQdaRankAlign (qda_predict.cu): the factor's
-                         # columns come in float4s
+QDA_THREADS = 1024       # kQdaThreads (qda_predict.cu): most threads of a
+                         # K3/K3w block
+QDA_TASK_CELLS = 4096    # the f32 cells of a K3/K3w task (`qda_plan`):
+                         # a row tile of 1,024 × 4 beside two classes'
+                         # tables (tools/qda_variants.py --schedules:
+                         # 15.67 / 1.354 ms at favorita_classify's family /
+                         # onpromotion, 16.08 / 1.633 at K7's 8,192)
+QDA_MAX_GROUP = 4        # kQdaMaxGroup (qda_predict.cu): most classes a
+                         # K3/K3w step stages
+QDA_MAX_SUMS = 8         # kQdaMaxSums (qda_predict.cu): f64 sums a thread
+                         # keeps in registers, rows · classes a step; the
+                         # most rows a thread scores
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,9 +111,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.dit_nb_grouped_sums.argtypes = [p, i, p, p, i, p, p, i, i, i64, p, i,
                                         p, p]
     lib.dit_nb_grouped_sums.restype = i
-    for qda in (lib.dit_qda_predict, lib.dit_qda_predict_wide):
-        qda.argtypes = [p, i, p, p, i, p, p, p, i, i, i, i64, p, i, p]
-        qda.restype = i
+    lib.dit_qda_predict.argtypes = [p, i, p, p, i, p, p, p, p, i, i, i,
+                                    i64, i64, i, i, i, i, p, p]
+    lib.dit_qda_predict.restype = i
     plan = [p] * 6   # WidePlan's tensors and its shape_ints
     lib.dit_grouped_wide_gram.argtypes = [p, i, p, p, i, p, p, p, i, i64, i,
                                           *plan, p, p, p]
@@ -240,24 +247,61 @@ def check_nb(schema, n: int) -> None:
         raise ValueError(f"{n} rows: the NB kernel takes fewer than 2^31")
 
 
-def qda_smem_bytes(m: int, num_classes: int, rank: int) -> int:
-    """Shared memory K3 stages: the factors f32[C, m, r], lin f32[C, m]
-    and the intercepts f32[C]."""
-    return 4 * num_classes * (m * rank + m + 1)
+def qda_smem_bytes(max_cells: int, schema, tile: int,
+                   group: int = 1) -> int:
+    """Shared memory of a K3/K3w block (qda_predict.cu: qda_smem_bytes):
+    two buffers of `group` f32 tables of the plan's largest task (a
+    multiple of 4 cells), each followed by 1 + d zero cells rounded up to
+    a 16-byte word, and a tile of `tile` rows of x (in f64) and codes
+    i16."""
+    d = schema.num_cols
+    stride = max_cells + (1 + d + 3) // 4 * 4
+    return (4 * 2 * group * stride
+            + tile * (8 * d + 2 * schema.cat_cols))
 
 
-def qda_route(schema, num_classes: int, rank: int) -> str:
-    """'K3' when the factors f32[C, m, rank] fit K3's shared memory, else
-    'K3w' (factors read from device memory); raises ValueError for a
-    schema or class count neither takes."""
-    if schema.num_cols > MAX_QDA_COLS or schema.cat_cols > MAX_QDA_COLS:
-        raise ValueError(f"more than {MAX_QDA_COLS} numeric or categorical "
-                         f"columns is not supported by the QDA kernels")
+def qda_tile(schema, plan: "WidePlan", num_classes: int
+             ) -> tuple[int, int, int]:
+    """(threads, rows a thread, classes a step) of a K3/K3w block, with
+    rows · classes = QDA_MAX_SUMS and classes ≤ `num_classes`. A plan of
+    several tasks: QDA_THREADS threads and the largest row tile first (2
+    classes a step, then 4), as its tables are copied again for every
+    tile; a plan of one task (small tables): 256 threads, so that several
+    blocks share an SM, and the most classes a step first (4, then 2), as
+    a row's cells found once a step serve them all. Past shared memory:
+    one class a step and fewer rows, then fewer threads."""
+    if plan.num_tasks == 1:
+        threads, groups = 256, (4, 2)
+    else:
+        threads, groups = QDA_THREADS, (2, 4)
+
+    def fits(threads, rows, group):
+        return qda_smem_bytes(plan.max_task_cells, schema, threads * rows,
+                              group) <= WIDE_SMEM
+
+    # tools/qda_variants.py --schedules, ms: at favorita_classify's family
+    # (4,096 cells a task) 1024 × 4 × 2 15.67, 1024 × 2 × 4 16.06; at
+    # config 4 256 × 2 × 4 0.746, 256 × 4 × 2 0.803, 256 × 8 × 1 1.174
+    for group in groups:
+        rows = QDA_MAX_SUMS // group
+        if group <= min(num_classes, QDA_MAX_GROUP) and fits(threads, rows,
+                                                            group):
+            return threads, rows, group
+    rows = QDA_MAX_SUMS
+    while rows > 1 and not fits(threads, rows, 1):
+        rows //= 2
+    while threads > 32 and not fits(threads, rows, 1):
+        threads //= 2
+    return threads, rows, 1
+
+
+def check_qda(schema, num_classes: int, n: int) -> None:
+    """Raise ValueError for a schema, class count or row count K3/K3w do
+    not take: the plan's limits (P ≤ MAX_WIDE_SIGMA_SIZE, MAX_COLS numeric
+    and categorical columns)."""
     if num_classes < 1:
         raise ValueError(f"{num_classes} classes: at least 1 is needed")
-    m = schema.sigma_size - 1
-    return ("K3" if qda_smem_bytes(m, num_classes, rank) <= MAX_QDA_SMEM
-            else "K3w")
+    check_schema(schema, n, MAX_WIDE_SIGMA_SIZE)
 
 
 def pointers(tensors):
@@ -299,7 +343,8 @@ class WidePlan:
       D     the (1+d)×(1+d) block of [1 ‖ x], as slabs (D, a, b_lo, b_hi)
             of row a's cells (a, b), b in [b_lo, b_hi), at most WIDE_CHUNK;
       K_j   per categorical column j, the keyed sums Σ_{c_j=v} w·[1, x]:
-            slabs (K, j, v_lo, v_hi), cell (v − v_lo)·(1+d) + a; row a = 0
+            slabs (K, j, v_lo, v_hi), cell (v − v_lo)·(1+d) + a (a·(v_hi −
+            v_lo) + v − v_lo in the scorer's plan, `scorer`); row a = 0
             holds the code counts, also the diagonal of j's one-hot block;
       C_jk  per pair j < k, Σ_{c_j=u, c_k=v} w: slabs (C, j, k, u_lo,
             u_hi), cell (u − u_lo)·V_k + v;
@@ -330,6 +375,11 @@ class WidePlan:
     max_stage_cols: int    # columns a block stages: 1 + d (if x) + codes
     max_slabs: int         # slab records a block keeps in shared memory
     stage_rows: int        # rows a block stages a step (a multiple of 32)
+    cross: bool = True     # whether it has the C_jk tables
+    task_cells: int = WIDE_TASK_BYTES // 8  # the budget of a task, cells
+    scorer: bool = False   # K3/K3w's tables: K_j's cell (v, a) at a·(v_hi −
+                           # v_lo) + v − v_lo, and each task's cells padded
+                           # to a multiple of 4 (whole 16-byte f32 words)
 
     @property
     def num_tasks(self) -> int:
@@ -356,10 +406,9 @@ class WidePlan:
                           -(-MAX_BLOCKS // self.num_tasks)))
 
 
-def _split(rows: int, row_cells: int) -> list[tuple[int, int]]:
+def _split(rows: int, row_cells: int, cap: int) -> list[tuple[int, int]]:
     """Key ranges [lo, hi) of `rows` keys of `row_cells` cells each, as
-    even as the task budget allows."""
-    cap = WIDE_TASK_BYTES // 8
+    even as the task budget of `cap` cells allows."""
     pieces = -(-rows * row_cells // cap)
     step = min(-(-rows // pieces), cap // row_cells)
     return [(lo, min(lo + step, rows)) for lo in range(0, rows, step)]
@@ -375,7 +424,9 @@ def _slab_cost(kind: int, cells: int, d: int) -> int:
 
 
 @functools.lru_cache(maxsize=32)
-def _wide_plan(d: int, sizes: tuple[int, ...]) -> WidePlan:
+def _wide_plan(d: int, sizes: tuple[int, ...], cross: bool = True,
+               scorer: bool = False, cap: int = WIDE_TASK_BYTES // 8
+               ) -> WidePlan:
     base = [1 + d + sum(sizes[:j]) for j in range(len(sizes))]
     pieces = []                 # (kind, params, cells, local entries)
     for a in range(1 + d):
@@ -385,21 +436,22 @@ def _wide_plan(d: int, sizes: tuple[int, ...]) -> WidePlan:
             pieces.append((SLAB_D, (a, lo, hi, 0), hi - lo,
                            torch.stack([b - lo, torch.full_like(b, a), b])))
     for j, size in enumerate(sizes):
-        for lo, hi in _split(size, 1 + d):
+        for lo, hi in _split(size, 1 + d, cap):
             v = torch.arange(lo, hi).repeat_interleave(1 + d)
             a = torch.arange(1 + d).repeat(hi - lo)
-            cell = (v - lo) * (1 + d) + a
+            cell = (a * (hi - lo) + v - lo if scorer
+                    else (v - lo) * (1 + d) + a)
             diag = torch.arange(lo, hi)
             pieces.append((SLAB_K, (j, lo, hi, 0), (hi - lo) * (1 + d),
                            torch.cat([torch.stack([cell, a, base[j] + v]),
-                                      torch.stack([(diag - lo) * (1 + d),
+                                      torch.stack([cell[a == 0],
                                                    base[j] + diag,
                                                    base[j] + diag])], 1)))
-    for j in range(len(sizes)):
+    for j in range(len(sizes) if cross else 0):
         for k in range(j + 1, len(sizes)):
             if sizes[k] == 0:
                 continue
-            for lo, hi in _split(sizes[j], sizes[k]):
+            for lo, hi in _split(sizes[j], sizes[k], cap):
                 u = torch.arange(lo, hi).repeat_interleave(sizes[k])
                 v = torch.arange(sizes[k]).repeat(hi - lo)
                 pieces.append((SLAB_C, (j, k, lo, hi),
@@ -409,7 +461,6 @@ def _wide_plan(d: int, sizes: tuple[int, ...]) -> WidePlan:
     # tasks: as few as the budget allows; the largest slab first, each to
     # the task with room that holds the fewest slabs (a block takes as long
     # as its busiest warp)
-    cap = WIDE_TASK_BYTES // 8
     order = sorted(range(len(pieces)), key=lambda i: -pieces[i][2])
     count = -(-sum(p[2] for p in pieces) // cap)
     while True:
@@ -454,6 +505,8 @@ def _wide_plan(d: int, sizes: tuple[int, ...]) -> WidePlan:
                                           local[:1] + off, local[1:]]))
                 off += cells
             warp_begin.append(len(slabs))
+        if scorer:
+            off = -(-off // 4) * 4
         task_base.append(task_base[-1] + off)
     ent = torch.cat(entries, 1).T
     order = torch.argsort(ent[:, 0] * (task_base[-1] + 1) + ent[:, 1],
@@ -469,7 +522,8 @@ def _wide_plan(d: int, sizes: tuple[int, ...]) -> WidePlan:
         task_base=torch.tensor(task_base, dtype=torch.int64),
         entries=ent[order].to(torch.int32).contiguous(),
         stage_cols=torch.tensor(stage_cols, dtype=torch.int32),
-        max_stage_cols=max_cols, max_slabs=max_slabs, stage_rows=rows)
+        max_stage_cols=max_cols, max_slabs=max_slabs, stage_rows=rows,
+        cross=cross, scorer=scorer, task_cells=cap)
 
 
 def wide_smem_bytes(cells: int, cols: int, slabs: int, rows: int) -> int:
@@ -485,6 +539,19 @@ def wide_plan(schema) -> WidePlan:
     """The plan of K7 and K8 (and K2w's Gram) for `schema`, on the CPU;
     made once per schema."""
     return _wide_plan(schema.num_cols, tuple(schema.cat_sizes))
+
+
+def qda_plan(schema, cross: bool = True) -> WidePlan:
+    """The plan of K3/K3w's tables for `schema`: K7's cells, cut into
+    tasks of at most QDA_TASK_CELLS f32 cells, with each K_j laid out
+    a-major, so that a warp's lookups at its rows' codes spread over the
+    banks of shared memory (tools/qda_variants.py), and each task padded
+    with zero cells to a multiple of 4, so that a table copies in 16-byte
+    words. cross=False is naive Bayes's plan: no
+    C_jk tables, and the scorer reads of D only row 0 and the diagonal and
+    of K_j only row 0 (the rest of its cells are zero in NB's tables)."""
+    return _wide_plan(schema.num_cols, tuple(schema.cat_sizes), cross, True,
+                      QDA_TASK_CELLS)
 
 
 def raise_on_error(lib: Library, rc: int, what: str) -> None:

@@ -1,178 +1,211 @@
-"""K3 and K3w: batched QDA scoring in one table pass, all classes per row.
+"""K3 and K3w: batched QDA scoring over each row's nonzero pairs, all
+classes per row.
 
 Counterpart of `duckdb_imputation_tpu/ring/kernels/qda_pallas.py`
 (`qda_predict_pallas`, the Pallas kernel `_qda_predict_pallas`). With
-z = [x ‖ onehot(codes)] (m = P − 1 features) and the factored form
-quad_c = −L_c·L_cᵀ, every class scores as
+z̃ = [1 ‖ x ‖ onehot(codes)] (P = 1 + d + V) every class scores as one
+quadratic form in the layout of sigma,
 
-    s_c(z) = (b_c + lin_c·z) − ‖L_cᵀz‖²
+    s_c = z̃ᵀ·A_c·z̃,   A_c = [[b_c, lin_cᵀ/2], [lin_c/2, quad_c]],
 
 and the prediction is the first argmax (a tie goes to the lowest class;
-a NaN score never wins). `qda_scorers` builds L_c from a symmetric
-eigendecomposition of −quad_c in f64, negative eigenvalues clamped to 0:
-L_c = V·diag(√λ₊). It holds for the singular PSD matrices that every full
-one-hot schema gives, where the JAX package's Cholesky of −quad + 1e-12·I
-fails (see ROADMAP Queue 3). Where the whole factors pass K3's shared
-memory, eigenvalues at f64 rounding noise are clamped too and the zero
-columns dropped (they add exactly +0 to ‖L_cᵀz‖²), so L is f32[C, m, r]
-with r ≤ m rounded up to `_build.QDA_RANK_ALIGN`; `nb_scorers` builds
-naive Bayes's diagonal factor directly, of rank d.
+a NaN score never wins). A row's z̃ has k = 1 + d + (its in-range codes)
+nonzeros, so s_c needs only A_c's entries at the row's pairs of
+nonzeros: the cells of K7's plan (`_build.WidePlan`: the dense block D of
+[1 ‖ x], the keyed tables K_j, the cross tables C_jk), where a one-hot
+diagonal shares the cell of its constant row (z_v² = z_v = z_0·z_v); the
+scorer's plan (`_build.qda_plan`) lays each K_j out a-major.
+`qda_tables` packs A_c into those cells, `nb_tables` builds naive Bayes's
+diagonal A_c on a plan without C_jk tables; neither factors anything.
 
-`qda_predict_kernel` launches a hand-written CUDA kernel
-(`csrc/qda_predict.cu`) for CUDA tensors: K3, factors in shared memory,
-when they fit (`_build.qda_route`), else K3w, factors read from device
-memory; it takes its plain version, `qda_predict_plain`, only for CPU
-tensors. All three add their f32 terms in the same order, so their scores
-round alike.
+`qda_predict_kernel` launches the hand-written CUDA kernel
+(`csrc/qda_predict.cu`) for CUDA tensors: K3 when the plan has one task,
+K3w when it has several (one kernel); it takes its plain version,
+`qda_predict_plain`, only for CPU tensors. Both multiply each f32 cell by
+the row's values and add the terms in f64 in the plan's order (task,
+slab, cell), round s_c to f32 once and compare, so their scores are
+bit-identical.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from ...schema import FeatureSchema
-from ..sum import _cat_contrib
 from . import _build
 
 
-def _truncated(factor: torch.Tensor, rank: int) -> torch.Tensor:
-    """The last `rank` columns of factor f64[C, m, m] rounded up to
-    QDA_RANK_ALIGN (zero columns in front where that passes m), as a
-    contiguous f32[C, m, r]."""
-    m = factor.shape[-1]
-    r = -(-rank // _build.QDA_RANK_ALIGN) * _build.QDA_RANK_ALIGN
-    if r > m:
-        factor = torch.cat([factor.new_zeros(factor.shape[:-1] + (r - m,)),
-                            factor], dim=-1)
-    return factor[..., factor.shape[-1] - r:].to(torch.float32).contiguous()
+def _pack(a: torch.Tensor, plan: _build.WidePlan) -> torch.Tensor:
+    """A f64[C, P, P] into the plan's cells, f64[C, task_base[T]]: a cell
+    holding the pairs (i, j) of the plan's map gets Σ A[i, j] + A[j, i]
+    over its pairs with i < j and A[i, i] over those with i = j, so that
+    Σ_cells cell·z_i·z_j = z̃ᵀ·A·z̃ for every row."""
+    e = plan.entries.to(a.device).long()
+    i, j = e[:, 2], e[:, 3]
+    vals = torch.where(i == j, a[:, i, i], a[:, i, j] + a[:, j, i])
+    flat = plan.task_base.to(a.device)[e[:, 0]] + e[:, 1]
+    cells = torch.zeros((a.shape[0], int(plan.task_base[-1])),
+                        dtype=torch.float64, device=a.device)
+    return cells.index_add_(1, flat, vals)
 
 
-def qda_scorers(quad: torch.Tensor, lin: torch.Tensor,
-                intercept: torch.Tensor):
-    """(quad f32[C, m, m] with −quad PSD, lin [C, m], intercept [C]) →
-    (L f32[C, m, r] with L_c·L_cᵀ = −quad_c, lin f32, intercept f32), all
-    contiguous. Row k of L_c is what feature z_k contributes to y = L_cᵀz.
-
-    Where the whole factors (r = m) fit K3's shared memory they are kept
-    whole, negative eigenvalues clamped to 0. Past it, eigenvalues at most
-    m·eps·max|λ_c| (f64 rounding noise of an exactly singular −quad_c) are
-    clamped to 0 too; eigh returns them ascending, so each class's zero
-    columns come first, and the factor keeps the last r columns, r the
-    largest count of positive eigenvalues over the classes rounded up to
-    QDA_RANK_ALIGN (a read of r on the host). The columns dropped are zero,
-    so no score changes."""
-    a = -quad.to(torch.float64)
-    a = (a + a.transpose(-1, -2)) / 2
-    lam, v = torch.linalg.eigh(a)
-    num_classes, m = a.shape[0], a.shape[-1]
-    lin = lin.to(torch.float32).contiguous()
-    intercept = intercept.to(torch.float32).contiguous()
-    if _build.qda_smem_bytes(m, num_classes, m) <= _build.MAX_QDA_SMEM:
-        factor = v * lam.clamp(min=0.0).sqrt()[..., None, :]
-        return factor.to(torch.float32).contiguous(), lin, intercept
-    noise = m * torch.finfo(torch.float64).eps * lam.abs().amax(
-        -1, keepdim=True)
-    lam = torch.where(lam > noise, lam, 0.0)
-    factor = v * lam.sqrt()[..., None, :]
-    rank = int((lam > 0).sum(-1).max())
-    return _truncated(factor, rank), lin, intercept
+def qda_tables(quad, lin, intercept, *, schema: FeatureSchema):
+    """(quad [C, m, m], lin [C, m], intercept [C]), m = P − 1 → (tables
+    f32[C, cells], plan): A_c in f64, packed into the cells of
+    `_build.qda_plan(schema)` and rounded once. −quad is taken as it is,
+    singular or not: no factor, no eigendecomposition."""
+    num_classes, p = quad.shape[0], schema.sigma_size
+    a = torch.zeros((num_classes, p, p), dtype=torch.float64,
+                    device=quad.device)
+    a[:, 0, 0] = intercept.to(torch.float64)
+    a[:, 0, 1:] = lin.to(torch.float64) / 2
+    a[:, 1:, 0] = lin.to(torch.float64) / 2
+    a[:, 1:, 1:] = quad.to(torch.float64)
+    plan = _build.qda_plan(schema)
+    return _pack(a, plan).to(torch.float32), plan
 
 
-def nb_scorers(quad_diag: torch.Tensor, d: int, m: int) -> torch.Tensor:
-    """Naive Bayes's factor: quad_c = diag(quad_diag_c) over the d numeric
-    slots of m features, so L_c[j, j] = √max(−quad_diag_c[j], 0) (in f64,
-    rounded to f32) for j < d and every other entry 0, as `qda_scorers`
-    would factor that quad; f32[C, m, r], r = d rounded up to
-    QDA_RANK_ALIGN."""
-    r = -(-d // _build.QDA_RANK_ALIGN) * _build.QDA_RANK_ALIGN
-    factor = torch.zeros((quad_diag.shape[0], m, r), dtype=torch.float32,
-                         device=quad_diag.device)
-    di = torch.arange(d, device=quad_diag.device)
-    factor[:, di, di] = (-quad_diag.to(torch.float64)).clamp(min=0.0).sqrt() \
-        .to(torch.float32)
-    return factor
+def nb_tables(log_prior, mean, var, log_freq, *, schema: FeatureSchema):
+    """Naive Bayes's scores as tables: s_c = log prior_c + Σ_num
+    [−(x−μ)²/2σ² − ½log(2πσ²)] + Σ_cat log freq_c[code] is z̃ᵀ·A_c·z̃
+    with −1/2σ² on the numeric diagonal, μ/σ² (halved into row and column
+    0) on the numerics, log freq on the one-hot diagonal, and the x-free
+    terms at (0, 0). All in f64 from log_prior [C], mean, var [C, d] (var
+    > 0) and log_freq [C, V]; packed into `_build.qda_plan(schema,
+    cross=False)`, whose cells are D and K_j only. Returns (tables f32[C,
+    cells], plan)."""
+    f64 = torch.float64
+    mean, var = mean.to(f64), var.to(f64)
+    num_classes, d, p = mean.shape[0], schema.num_cols, schema.sigma_size
+    a = torch.zeros((num_classes, p, p), dtype=f64, device=mean.device)
+    di = torch.arange(1, 1 + d, device=mean.device)
+    vi = torch.arange(1 + d, p, device=mean.device)
+    a[:, 0, 0] = log_prior.to(f64) - 0.5 * (
+        mean * mean / var + torch.log(2.0 * torch.pi * var)).sum(1)
+    a[:, 0, di] = mean / var / 2
+    a[:, di, 0] = mean / var / 2
+    a[:, di, di] = -0.5 / var
+    a[:, vi, vi] = log_freq.to(f64)
+    plan = _build.qda_plan(schema, cross=False)
+    return _pack(a, plan).to(torch.float32), plan
 
 
-def qda_predict_plain(factor, lin, intercept, x_num, codes, *,
-                      schema: FeatureSchema) -> torch.Tensor:
-    """Plain torch version of `qda_predict_kernel`: classes stream with a
-    running (best value, best index) pair and a strict `>`, as the JAX
-    package's `_qda_predict_xla` does. Returns i32[n]."""
+def class_scores_plain(tables, plan: _build.WidePlan, x_num, codes, *,
+                       schema: FeatureSchema):
+    """Each class's scores f64[n] in turn, as the kernel sums them: each
+    row's cells in the plan's order (task, slab, cell), each term the cell
+    times the row's values (z_a·z_b for D, z_a for K, 1 for C) in f64,
+    added in f64. A code outside [0, size) adds no cell. On naive Bayes's
+    plan (cross=False) only D's row 0 and diagonal and K's row 0 are read:
+    its other cells are zero."""
     d = schema.num_cols
-    offs = schema.offsets
     ref = x_num if d else codes
     n, device = ref.shape[-1], ref.device
-    factor = factor.to(torch.float32)
+    f64 = torch.float64
+    z = [torch.ones(n, dtype=f64, device=device)] + [
+        x.to(f64) for x in x_num]                   # [1 ‖ x] in f64
+    codes = [c.long() for c in codes]
+    ok = [(c >= 0) & (c < size) for c, size in zip(codes, schema.cat_sizes)]
+    # each slab's cells a row reads, as (cell, the row's value in f64, mask
+    # of the rows that read it or None for every row)
+    terms = []
+    for kind, p0, p1, p2, p3, off, task, _ in plan.slabs.tolist():
+        at = int(plan.task_base[task]) + off
+        if kind == _build.SLAB_D:                   # (a, b), b in [p1, p2)
+            for b in range(p1, p2):
+                if plan.cross or p0 == 0 or b == p0:
+                    terms.append((at + b - p1, z[p0] * z[b], None))
+        elif kind == _build.SLAB_K:                 # column p0, keys [p1, p2)
+            hit = ok[p0] & (codes[p0] >= p1) & (codes[p0] < p2)
+            key = at + torch.where(hit, codes[p0], p1) - p1
+            for a in range(1 + d if plan.cross else 1):  # a-major
+                terms.append((key + a * (p2 - p1), z[a], hit))
+        else:                           # columns p0 < p1, keys [p2, p3)
+            hit = ok[p0] & ok[p1] & (codes[p0] >= p2) & (codes[p0] < p3)
+            u = torch.where(hit, codes[p0], p2) - p2
+            v = torch.where(hit, codes[p1], 0)
+            terms.append((at + u * schema.cat_sizes[p1] + v, z[0], hit))
+    for cc in range(tables.shape[0]):
+        table = tables[cc].to(f64)
+        s = torch.zeros(n, dtype=f64, device=device)
+        for cell, val, hit in terms:
+            t = table[cell] * val
+            s = s + (t if hit is None else torch.where(hit, t, 0.0))
+        yield s
+
+
+def qda_predict_plain(tables, plan: _build.WidePlan, x_num, codes, *,
+                      schema: FeatureSchema) -> torch.Tensor:
+    """Plain torch version of `qda_predict_kernel`: each class's scores
+    from `class_scores_plain`, rounded to f32; classes stream with a
+    running (best value, best index) pair and a strict `>`, as the JAX
+    package's `_qda_predict_xla` does. Returns i32[n]."""
+    ref = x_num if schema.num_cols else codes
+    n, device = ref.shape[-1], ref.device
     best_v = torch.full((n,), -torch.inf, dtype=torch.float32, device=device)
     best_i = torch.zeros((n,), dtype=torch.int32, device=device)
-    for cc in range(factor.shape[0]):
-        lc = factor[cc]
-        q = torch.zeros(n, dtype=torch.float32, device=device)
-        for i in range(lc.shape[1]):
-            y = torch.zeros(n, dtype=torch.float32, device=device)
-            for j in range(d):
-                y = y + x_num[j] * lc[j, i]
-            for j, size in enumerate(schema.cat_sizes):
-                y = y + _cat_contrib(lc[d + offs[j]:d + offs[j + 1], i],
-                                     codes[j], size)
-            q = q + y * y
-        t = intercept[cc].expand(n)
-        for j in range(d):
-            t = t + lin[cc, j] * x_num[j]
-        for j, size in enumerate(schema.cat_sizes):
-            t = t + _cat_contrib(lin[cc, d + offs[j]:d + offs[j + 1]],
-                                 codes[j], size)
-        s = t - q
+    for cc, s in enumerate(class_scores_plain(tables, plan, x_num, codes,
+                                              schema=schema)):
+        s = s.to(torch.float32)
         upd = s > best_v
         best_v = torch.where(upd, s, best_v)
         best_i = torch.where(upd, cc, best_i)
     return best_i
 
 
-def qda_predict_kernel(factor, lin, intercept, x_num, codes, *,
-                       schema: FeatureSchema) -> torch.Tensor:
-    """First-argmax class index i32[n] of the factored QDA scores over
-    x_num f32[d, n] and codes i32[c, n]; factor f32[C, m, r], lin,
-    intercept as `qda_scorers` returns them.
+@functools.lru_cache(maxsize=32)
+def _device_plan(d: int, sizes: tuple[int, ...], cross: bool, cap: int,
+                 device):
+    plan = _build._wide_plan(d, sizes, cross, True, cap)
+    return tuple(t.to(device) for t in (plan.slabs, plan.warp_begin,
+                                         plan.task_base))
 
-    CUDA tensors launch a kernel: K3 when the factors fit its shared
-    memory (one launch counted in `qda_predict_kernel.launches`), else K3w
-    (counted in `qda_predict_kernel.wide_launches`); CPU tensors take the
-    plain version."""
-    tensors = [factor, lin, intercept, x_num, codes]
+
+def qda_predict_kernel(tables, plan: _build.WidePlan, x_num, codes, *,
+                       schema: FeatureSchema) -> torch.Tensor:
+    """First-argmax class index i32[n] of the scores z̃ᵀ·A_c·z̃ over
+    x_num f32[d, n] and codes i32[c, n]; tables f32[C, cells] and plan as
+    `qda_tables` or `nb_tables` return them.
+
+    CUDA tensors launch the kernel: counted in `qda_predict_kernel.
+    launches` (K3) when the plan has one task, else in
+    `qda_predict_kernel.wide_launches` (K3w); the plan must be the
+    scorer's (`_build.qda_plan`) and the tables 16-byte aligned. CPU
+    tensors take the plain version."""
+    tensors = [tables, x_num, codes]
     if _build.on_cpu(tensors):
-        return qda_predict_plain(factor, lin, intercept, x_num, codes,
-                                 schema=schema)
-    num_classes, m, rank = factor.shape
-    route = _build.qda_route(schema, num_classes, rank)
-    if route == "K3w" and rank % _build.QDA_RANK_ALIGN:
-        raise ValueError(f"factor rank {rank}: the wide QDA kernel takes a "
-                         f"multiple of {_build.QDA_RANK_ALIGN}")
+        return qda_predict_plain(tables, plan, x_num, codes, schema=schema)
+    num_classes = tables.shape[0]
     n = x_num.shape[-1] if schema.num_cols else codes.shape[-1]
-    if n >= 1 << 31:
-        raise ValueError(f"{n} rows: the QDA kernel takes fewer than 2^31")
+    _build.check_qda(schema, num_classes, n)
+    if not plan.scorer or tables.data_ptr() % 16:
+        raise ValueError("qda_predict_kernel takes tables of a "
+                         "`_build.qda_plan` at a 16-byte aligned address")
+    cells = int(plan.task_base[-1])
     device = _build.check_cuda(
         tensors,
-        [(factor, torch.float32, (num_classes, schema.sigma_size - 1, rank),
-          "factor"),
-         (lin, torch.float32, (num_classes, m), "lin"),
-         (intercept, torch.float32, (num_classes,), "intercept"),
+        [(tables, torch.float32, (num_classes, cells), "tables"),
          (x_num, torch.float32, (schema.num_cols, n), "x_num"),
          (codes, torch.int32, (schema.cat_cols, n), "codes")])
+    slabs, warp_begin, task_base = _device_plan(
+        schema.num_cols, tuple(schema.cat_sizes), plan.cross,
+        plan.task_cells, device)
+    threads, rows, group = _build.qda_tile(schema, plan, num_classes)
     lib = _build.load()
     out = torch.empty(n, dtype=torch.int32, device=device)
     sizes = schema.cat_sizes
-    entry = (lib.lib.dit_qda_predict if route == "K3"
-             else lib.lib.dit_qda_predict_wide)
     with torch.cuda.device(device):
-        rc = entry(
+        rc = lib.lib.dit_qda_predict(
             _build.pointers(list(x_num)), schema.num_cols,
             _build.pointers(list(codes)), _build.int_array(sizes),
-            len(sizes), factor.data_ptr(), lin.data_ptr(),
-            intercept.data_ptr(), num_classes, m, rank, n, out.data_ptr(),
-            _build.grid_blocks(n),
+            len(sizes), tables.data_ptr(), slabs.data_ptr(),
+            warp_begin.data_ptr(), task_base.data_ptr(), num_classes,
+            plan.num_tasks, plan.max_task_cells, cells, n, threads, rows,
+            group, int(not plan.cross), out.data_ptr(),
             torch.cuda.current_stream(device).cuda_stream)
     _build.raise_on_error(lib, rc, "qda_predict_kernel")
-    if route == "K3":
+    if plan.num_tasks == 1:
         qda_predict_kernel.launches += 1
     else:
         qda_predict_kernel.wide_launches += 1

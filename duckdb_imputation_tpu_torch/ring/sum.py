@@ -338,8 +338,11 @@ def _nb_sums(x_num: torch.Tensor, codes: torch.Tensor,
              schema: FeatureSchema, num_groups: int) -> torch.Tensor:
     """Per-group NB sums f32[F, G] as a segment-sum matmul F @ Wᵀ per row
     chunk, W[g, r] = w_r·[id_r == g] (an id outside [0, G) hits no
-    group). Each chunk's product is f32; chunk sums are added in f64 and
-    rounded once, so counts stay exact past 2²⁴ rows."""
+    group). The f32 features (x² rounded to f32, as the kernel forms it)
+    and weights are multiplied and summed in f64, chunk sums added in f64
+    and rounded once, as `masked_sigma` does: counts stay exact past 2²⁴
+    rows, and x and x² sums are those of the kernel, which adds in f32
+    only within its chunk of 256 rows."""
     ref = x_num if schema.num_cols else codes
     n = ref.shape[-1]
     f = 1 + 2 * schema.num_cols + schema.vocab_size
@@ -352,7 +355,7 @@ def _nb_sums(x_num: torch.Tensor, codes: torch.Tensor,
         wmat = (group_ids[None, lo:hi] == gi).to(torch.float32)
         if weights is not None:
             wmat = wmat * weights[lo:hi]
-        acc += (feats @ wmat.T).double()
+        acc += feats.double() @ wmat.double().T
     return acc.to(torch.float32)
 
 

@@ -1,11 +1,11 @@
 """The classifier path at wide schemas (P > 88) in the port, on the CPU:
 the plain versions of K8 (the wide grouped Gram, behind `grouped_gram`
 and `grouped_gram_presorted`), K6w (the NB sums for F > 256) and K3w (QDA
-scoring with factors past K3's shared memory) against the JAX package's
-Pallas kernels in interpret mode (as its own tests run them) and its XLA
-paths; the whole wide pipeline against the JAX package and an f64
-oracle; the dispatch of each wrapper by its `_build` limits; and the
-truncation of the QDA factor's zero columns.
+scoring over a plan of several tasks) against the JAX package's Pallas
+kernels in interpret mode (as its own tests run them) and its XLA paths;
+the whole wide pipeline against the JAX package and an f64 oracle; the
+dispatch of each wrapper by its `_build` limits; and QDA scoring at the
+schema limit the plan sets.
 """
 import contextlib
 import re
@@ -261,7 +261,7 @@ def test_wide_nb_sums_match_pallas(weights):
 
 
 # ---------------------------------------------------------------------------
-# (c) K3w's plain path: factors past 227 KB at a v3 schema
+# (c) QDA scoring at m = 100, a v3 schema of the JAX package
 # ---------------------------------------------------------------------------
 
 def qda_wide_fixture(c_cls=8):
@@ -284,16 +284,18 @@ def qda_wide_fixture(c_cls=8):
 
 
 def test_wide_qda_predict_matches_pallas_and_xla():
-    """At C = 8, m = 100 the factors take 8·(100·100 + 101)·4 = 323 KB,
-    past K3's 227 KB, and the JAX package scores this v3 schema with its
-    Pallas kernel: the port's plain scorer (K3w's) agrees ≥ 0.999 with
-    that kernel (interpret mode) and with `_qda_predict_xla`."""
+    """At C = 8, m = 100 (the factors of the JAX package's scorer would
+    take 323 KB; the port's tables 8 × 2,800 cells, one task) the JAX
+    package scores this v3 schema with its Pallas kernel: the port's plain
+    scorer agrees ≥ 0.999 with that kernel (interpret mode) and with
+    `_qda_predict_xla`."""
     ref_schema, x, c, quad, lin, b, chunk = qda_wide_fixture()
     assert _fast_cols_use_v3(ref_schema)
     schema = FeatureSchema(num_cols=4, cat_keys=KEYS_QDA)
-    factor, lin_t, b_t = port_qda.qda_scorers(t(quad), t(lin), t(b))
-    assert factor.shape == (8, 100, 100)
-    assert _build.qda_route(schema, 8, factor.shape[-1]) == "K3w"
+    tables, plan = port_qda.qda_tables(t(quad), t(lin), t(b), schema=schema)
+    # D, two K of 48 × 5, a C of 48 × 48: 2,799 cells, padded to 2,800
+    assert tables.shape == (8, 2800)
+    assert plan.num_tasks == 1
     got = port_device.qda_predict_device(
         *(t(a) for a in (quad, lin, b, x, c)), schema=schema).numpy()
     args = [jnp.asarray(a) for a in (quad, lin, b, x, c)]
@@ -378,10 +380,9 @@ def test_wide_qda_pipeline_matches_jax_aggregates_and_f64_oracle():
         x, codes, y, schema=ref_schema, num_groups=classes, method="masked"))
     assert_grouped_close(sig.numpy(), ref, schema, True)
     quad, lin, b = port_device.qda_train_device(sig, float(n))
-    factor, _, _ = port_qda.qda_scorers(quad, lin, b)
-    # 6 whole factors of m = 90 fit K3's shared memory: kept whole
-    assert factor.shape[-1] == schema.sigma_size - 1
-    assert _build.qda_route(schema, classes, factor.shape[-1]) == "K3"
+    tables, plan = port_qda.qda_tables(quad, lin, b, schema=schema)
+    assert tables.shape == (classes, int(plan.task_base[-1]))
+    assert plan.num_tasks == 1               # K3
     pred = port_device.qda_predict_device(quad, lin, b, t(x), t(codes),
                                           schema=schema).numpy()
 
@@ -500,8 +501,8 @@ def test_limit_constants_equal_the_kernels():
              "MAX_UNSORTED_GROUPS": "kMaxUnsortedGroups",
              "MAX_NB_GROUPS": "kMaxNbGroups",
              "MAX_NB_FEATURES": "kThreads", "MAX_NB_RANGES": "kMaxNbRanges",
-             "MAX_QDA_COLS": "kMaxQdaCols", "MAX_QDA_SMEM": "kMaxQdaSmem",
-             "QDA_RANK_ALIGN": "kQdaRankAlign"}
+             "QDA_THREADS": "kQdaThreads", "QDA_MAX_GROUP": "kQdaMaxGroup",
+             "QDA_MAX_SUMS": "kQdaMaxSums"}
     for py, c in pairs.items():
         assert getattr(_build, py) == cxx[c], (py, c)
     assert "grouped_wide_gram.cu" in _build.SOURCES
@@ -524,9 +525,10 @@ def test_unsorted_group_limit_by_p():
 
 
 def test_nb_and_qda_routes():
-    """K6 up to F = 256, K6w (ceil(F / 256) feature ranges) above; K3 while
-    the factors fit 227 KB of shared memory, K3w past it, and neither past
-    32 + 32 columns."""
+    """K6 up to F = 256, K6w (ceil(F / 256) feature ranges) above; K3 for
+    a plan of one task (a block of half the threads), K3w for several, each
+    with the most classes a step (≤ 4, ≤ C) whose tile of 8 / group rows a
+    thread its shared memory holds."""
     config3 = FeatureSchema(num_cols=8, cat_keys=(tuple(range(8)),) * 4)
     assert _build.nb_ranges(config3) == 1
     at_limit = FeatureSchema(num_cols=3, cat_keys=(tuple(range(249)),))
@@ -541,16 +543,36 @@ def test_nb_and_qda_routes():
     assert _build.nb_ranges(favorita) == 2
 
     config4 = FeatureSchema(num_cols=4, cat_keys=(tuple(range(8)),) * 2)
-    assert _build.qda_route(config4, 8, 20) == "K3"
-    qda = FeatureSchema(num_cols=4, cat_keys=KEYS_QDA)
-    assert _build.qda_route(qda, 8, 100) == "K3w"
-    assert _build.qda_route(qda, 8, 60) == "K3"     # truncated factors fit
-    assert _build.qda_smem_bytes(100, 8, 100) == 8 * (100 * 100 + 101) * 4
-    assert _build.qda_route(favorita, 33, 4) == "K3w"    # NB at C = 33
+    assert _build.qda_plan(config4).num_tasks == 1             # K3
+    assert _build.qda_plan(FeatureSchema(
+        num_cols=4, cat_keys=KEYS_QDA)).num_tasks == 1
+    # favorita_classify, label family: QDA's tables (with the cross tables)
+    # take several tasks, NB's (D and K_j only) one
+    assert _build.qda_plan(favorita).num_tasks > 1             # K3w
+    assert _build.qda_plan(favorita, cross=False).num_tasks == 1
+    # (schema, cross, classes) → (threads, rows, group): config 4's QDA
+    # and NB and family's NB (one task: the most classes a step), family's
+    # QDA (several tasks: the largest tile), and one or two classes
+    shapes = {(config4, True, 8): (256, 2, 4),
+              (config4, False, 8): (256, 2, 4),
+              (favorita, True, 33): (1024, 4, 2),
+              (favorita, False, 33): (256, 2, 4),
+              (favorita, True, 2): (1024, 4, 2),
+              (config4, True, 1): (256, 8, 1)}
+    for (schema, cross, classes), want in shapes.items():
+        plan = _build.qda_plan(schema, cross)
+        threads, rows, group = _build.qda_tile(schema, plan, classes)
+        assert (threads, rows, group) == want, (classes, cross)
+        assert plan.scorer and not (plan.task_base % 4).any()
+        assert plan.max_task_cells <= _build.QDA_TASK_CELLS
+        assert _build.qda_smem_bytes(plan.max_task_cells, schema,
+                                     threads * rows, group) <= _build.WIDE_SMEM
+    # at family four classes a step would fit too, with half the tile
+    plan = _build.qda_plan(favorita)
+    assert _build.qda_smem_bytes(plan.max_task_cells, favorita, 1024 * 2,
+                                 4) <= _build.WIDE_SMEM
     with pytest.raises(ValueError):
-        _build.qda_route(FeatureSchema(num_cols=33), 2, 4)
-    with pytest.raises(ValueError):
-        _build.qda_route(qda, 0, 4)
+        _build.check_qda(favorita, 0, 100)
 
 
 def test_group_chunks_never_cross_a_group():
@@ -591,9 +613,9 @@ def _wide_calls():
     xt, ct, gt = t(x), t(codes.clip(0, 19)), t(g.clip(0, 2))
     layout = port_g.GroupLayout(torch.tensor([0, 300, 600]), 2)
     nb_schema = FeatureSchema(num_cols=3, cat_keys=KEYS_NB)
-    qda_schema = FeatureSchema(num_cols=4, cat_keys=KEYS_QDA)
-    xq = t(np.zeros((4, 600), np.float32))
-    cq = t(np.zeros((2, 600), np.int32))
+    plan = _build.qda_plan(nb_schema)        # a cross table of 200 × 60
+    assert plan.num_tasks > 1
+    xq = t(np.zeros((3, 600), np.float32))
     return [
         (port_g.grouped_gram_presorted, "wide_launches",
          "dit_grouped_wide_gram",
@@ -606,10 +628,10 @@ def _wide_calls():
         (port_nb.nb_grouped_sums, "wide_launches", "dit_nb_grouped_sums",
          lambda: port_nb.nb_grouped_sums(xt, ct, None, gt, schema=nb_schema,
                                          num_groups=3)),
-        (port_qda.qda_predict_kernel, "wide_launches", "dit_qda_predict_wide",
+        (port_qda.qda_predict_kernel, "wide_launches", "dit_qda_predict",
          lambda: port_qda.qda_predict_kernel(
-             torch.zeros((8, 100, 100)), torch.zeros((8, 100)),
-             torch.zeros(8), xq, cq, schema=qda_schema)),
+             torch.zeros((8, int(plan.task_base[-1]))), plan, xq, ct,
+             schema=nb_schema)),
     ]
 
 
@@ -652,71 +674,47 @@ def test_wide_build_failure_propagates(monkeypatch, which):
 
 
 # ---------------------------------------------------------------------------
-# (f) truncating the factor's zero columns changes no score
+# (f) QDA scoring at the plan's schema limit
 # ---------------------------------------------------------------------------
 
-def test_qda_scorers_truncation_leaves_scores_bit_identical():
-    """−quad of rank 38 of m = 100 whose other 62 rows and columns are
-    exactly zero, as a trained class's are for the categories it never
-    saw, at C = 8: the whole factors would take 323 KB, past K3's 227 KB, so
-    qda_scorers keeps r = 40 columns (38 rounded up to 4), L·Lᵀ = −quad,
-    and the plain scorer over the truncated factor returns exactly what
-    it returns over the factor with the dropped (zero) columns put back.
-    (Eigenvalues that are f32 rounding noise of −quad stay: only those at
-    f64 noise are zero.)"""
-    rng = np.random.default_rng(6)
-    schema = FeatureSchema(num_cols=4, cat_keys=KEYS_QDA)
-    m, c_cls, n = 100, 8, 2000
-    assert _build.qda_smem_bytes(m, c_cls, m) > _build.MAX_QDA_SMEM
-    a = rng.normal(size=(c_cls, m, 38))
-    a[:, rng.permutation(m)[:62]] = 0.0
-    quad = torch.tensor(-np.einsum("cij,ckj->cik", a, a), dtype=torch.float32)
-    lin = torch.tensor(rng.normal(size=(c_cls, m)), dtype=torch.float32)
-    b = torch.tensor(rng.normal(size=c_cls) * 200, dtype=torch.float32)
-    factor, lin32, b32 = port_qda.qda_scorers(quad, lin, b)
-    assert factor.shape == (c_cls, m, 40) and factor.is_contiguous()
-    f = factor.double()
-    torch.testing.assert_close(f @ f.transpose(1, 2), -quad.double(),
-                               rtol=0, atol=1e-3)
-    full = torch.cat([torch.zeros((c_cls, m, m - 40)), factor], dim=-1)
-    x = torch.tensor(rng.normal(size=(4, n)), dtype=torch.float32)
-    codes = torch.tensor(rng.integers(-1, 49, size=(2, n)), dtype=torch.int32)
-    got = port_qda.qda_predict_plain(factor, lin32, b32, x, codes,
-                                     schema=schema)
-    want = port_qda.qda_predict_plain(full, lin32, b32, x, codes,
-                                      schema=schema)
-    torch.testing.assert_close(got, want, rtol=0, atol=0)
-    assert len(torch.unique(got)) >= 3
+def test_qda_schema_limit_as_built():
+    """K3/K3w take the plan's limits, 64 numeric and 64 categorical
+    columns and P ≤ 1,024, in one code path: past the 32 + 32 of the
+    factor scorer, 40 numeric and 40 categorical columns score through
+    the plain version as the dense f64 form ranks them; at 64 + 64 and P =
+    1,024 the tile shrinks to fit a block's shared memory; one column or
+    one level more raises."""
+    rng = np.random.default_rng(9)
+    keys = tuple(tuple(range(3)) for _ in range(40))
+    schema = FeatureSchema(num_cols=40, cat_keys=keys)
+    p, c_cls, n = schema.sigma_size, 4, 300
+    a = rng.normal(size=(c_cls, p, p))
+    x = rng.normal(size=(40, n)).astype(np.float32)
+    codes = rng.integers(-1, 4, size=(40, n)).astype(np.int32)
+    _build.check_qda(schema, c_cls, n)
+    got = port_device.qda_predict_device(
+        t(a[:, 1:, 1:]), t(a[:, 0, 1:] + a[:, 1:, 0]), t(a[:, 0, 0]), t(x),
+        t(codes), schema=schema).numpy()
+    z = np.concatenate([np.ones((1, n)), x.astype(np.float64)]
+                       + [(codes[j][None] == np.arange(3)[:, None]) * 1.0
+                          for j in range(40)])
+    want = np.einsum("in,cij,jn->cn", z, a, z).argmax(0)
+    assert (got == want).mean() >= 0.99
 
-
-def test_qda_scorers_keep_whole_factors_that_fit_k3():
-    """Where the whole factors fit K3's shared memory (C = 5, m = 20, −quad
-    of rank 10) qda_scorers keeps all m columns, negative eigenvalues
-    clamped to 0, and reads nothing back to the host: L = V·diag(√λ₊) of
-    the f64 eigh, rounded to f32 once."""
-    rng = np.random.default_rng(7)
-    m, c_cls = 20, 5
-    a = rng.normal(size=(c_cls, m, 10))
-    quad = torch.tensor(-np.einsum("cij,ckj->cik", a, a), dtype=torch.float32)
-    lin = torch.tensor(rng.normal(size=(c_cls, m)), dtype=torch.float32)
-    b = torch.tensor(rng.normal(size=c_cls), dtype=torch.float32)
-    factor, lin32, b32 = port_qda.qda_scorers(quad, lin, b)
-    assert factor.shape == (c_cls, m, m) and factor.dtype == torch.float32
-    sym = -quad.double()
-    lam, v = torch.linalg.eigh((sym + sym.transpose(1, 2)) / 2)
-    want = (v * lam.clamp(min=0.0).sqrt()[..., None, :]).float()
-    torch.testing.assert_close(factor, want, rtol=0, atol=0)
-    torch.testing.assert_close(lin32, lin, rtol=0, atol=0)
-    torch.testing.assert_close(b32, b, rtol=0, atol=0)
-
-
-def test_nb_scorers_factor_the_diagonal_quad():
-    """nb_scorers' rank-d factor (d = 3, r = 4): L·Lᵀ is the diagonal
-    −quad over the numeric slots, zero elsewhere, so NB scores through the
-    QDA scorers without an eigendecomposition."""
-    quad_diag = -torch.tensor([[0.5, 2.0, 8.0], [1.0, 0.25, 3.0]])
-    factor = port_qda.nb_scorers(quad_diag, 3, 12)
-    assert factor.shape == (2, 12, 4) and factor.dtype == torch.float32
-    want = torch.zeros((2, 12, 12))
-    want[:, :3, :3] = torch.diag_embed(-quad_diag)
-    torch.testing.assert_close(factor @ factor.transpose(1, 2), want)
+    at_limit = FeatureSchema(num_cols=64, cat_keys=tuple(
+        tuple(range(14 if j < 63 else 1024 - 65 - 14 * 63))
+        for j in range(64)))
+    assert at_limit.sigma_size == _build.MAX_WIDE_SIGMA_SIZE
+    _build.check_qda(at_limit, 2, 1000)
+    plan = _build.qda_plan(at_limit)
+    threads, rows, group = _build.qda_tile(at_limit, plan, 2)
+    assert threads * rows < _build.QDA_THREADS * _build.QDA_MAX_SUMS
+    assert _build.qda_smem_bytes(plan.max_task_cells, at_limit,
+                                 threads * rows, group) <= _build.WIDE_SMEM
+    for past in (FeatureSchema(num_cols=65),
+                 FeatureSchema(num_cols=4, cat_keys=((0,),) * 65),
+                 FeatureSchema(num_cols=64, cat_keys=tuple(
+                     tuple(range(14 if j < 63 else 1024 - 64 - 14 * 63))
+                     for j in range(64)))):
+        with pytest.raises(ValueError):
+            _build.check_qda(past, 2, 1000)

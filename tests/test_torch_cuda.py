@@ -1,6 +1,6 @@
 """The port's kernels on a CUDA card: K1 (masked_gram_cols, and its
 stacked entry point masked_gram behind sum_to_triple), K2
-(fused_impute_aggregate), K3 (qda_predict_kernel), K4 (grouped_gram), K5
+(fused_impute_aggregate), K3 and K3w (qda_predict_kernel), K4 (grouped_gram), K5
 (grouped_gram_presorted), K6 (nb_grouped_sums), and for P > 88 K7 (the wide
 masked Gram behind masked_gram_cols and masked_gram) and K2w (the wide
 fused pass) against their plain versions, the checks their wrappers make,
@@ -32,9 +32,10 @@ from duckdb_imputation_tpu_torch.ring.kernels.nb_pallas import (
     nb_grouped_sums_plain,
 )
 from duckdb_imputation_tpu_torch.ring.kernels.qda_pallas import (
+    nb_tables,
     qda_predict_kernel,
     qda_predict_plain,
-    qda_scorers,
+    qda_tables,
 )
 from duckdb_imputation_tpu_torch.ring.kernels.sigma_fused import (
     fused_impute_aggregate,
@@ -380,17 +381,56 @@ def qda_inputs(n, device, classes=8, seed=5):
     quad = torch.tensor(-np.einsum("cij,ckj->cik", a, a), device=device)
     lin = torch.tensor(rng.normal(size=(classes, m)), device=device)
     b = torch.tensor(rng.normal(size=classes), device=device)
-    return qda_scorers(quad, lin, b), torch.stack(xs), torch.stack(cs)
+    return (qda_tables(quad, lin, b, schema=SCHEMA), torch.stack(xs),
+            torch.stack(cs))
 
 
 @pytest.mark.parametrize("n", [1, 255, 100_003])
 def test_qda_predict_kernel_matches_plain(cuda, n):
-    (factor, lin, b), x, c = qda_inputs(n, cuda)
+    """K3 (a one-task plan) equals the plain scorer row for row (the same
+    f64 terms in the same order), and reruns are bit-identical."""
+    (tables, plan), x, c = qda_inputs(n, cuda)
+    assert plan.num_tasks == 1
     before = qda_predict_kernel.launches
-    got = qda_predict_kernel(factor, lin, b, x, c, schema=SCHEMA)
-    assert qda_predict_kernel.launches == before + 1
-    want = qda_predict_plain(factor, lin, b, x, c, schema=SCHEMA)
-    assert float((got == want).float().mean()) >= 0.9999
+    got = qda_predict_kernel(tables, plan, x, c, schema=SCHEMA)
+    again = qda_predict_kernel(tables, plan, x, c, schema=SCHEMA)
+    assert qda_predict_kernel.launches == before + 2
+    assert torch.equal(got, again)
+    want = qda_predict_plain(tables, plan, x, c, schema=SCHEMA)
+    assert torch.equal(got, want)
+
+
+def test_qda_kernel_refuses_other_plans_and_unaligned_tables(cuda):
+    """The kernel copies tables in 16-byte words: it takes only the
+    scorer's plan (tasks padded to 4 cells) and 16-byte aligned tables."""
+    (tables, plan), x, c = qda_inputs(1000, cuda)
+    with pytest.raises(ValueError):
+        qda_predict_kernel(tables, _build.wide_plan(SCHEMA), x, c,
+                           schema=SCHEMA)
+    shifted = torch.empty(tables.numel() + 1, device=cuda)[1:]
+    shifted.copy_(tables.reshape(-1))
+    with pytest.raises(ValueError):
+        qda_predict_kernel(shifted.view(tables.shape), plan, x, c,
+                           schema=SCHEMA)
+
+
+def test_nb_tables_kernel_matches_plain(cuda):
+    """NB's tables (no cross tables) through K3 on the card equal the
+    plain scorer."""
+    _, x, c = qda_inputs(100_003, cuda)
+    rng = np.random.default_rng(4)
+    d, v = SCHEMA.num_cols, SCHEMA.vocab_size
+    freqs = torch.tensor(rng.random((5, v)), device=cuda)
+    freqs[0, 3] = 0.0
+    tables, plan = nb_tables(
+        torch.log(torch.tensor(rng.random(5), device=cuda)),
+        torch.tensor(rng.normal(size=(5, d)), device=cuda),
+        torch.tensor(rng.random((5, d)) + 0.1, device=cuda),
+        torch.where(freqs > 0, torch.log(freqs), -1e30), schema=SCHEMA)
+    assert not plan.cross and plan.num_tasks == 1
+    got = qda_predict_kernel(tables, plan, x, c, schema=SCHEMA)
+    assert torch.equal(got, qda_predict_plain(tables, plan, x, c,
+                                              schema=SCHEMA))
 
 
 def test_qda_pipeline_on_the_card_matches_cpu(cuda):
@@ -651,7 +691,7 @@ def test_run_mice_device_delta_on_the_card_matches_cpu(cuda, name):
 # ---------------------------------------------------------------------------
 # The classifier path at wide schemas: K8 (grouped_gram and
 # grouped_gram_presorted for P > 88), K6w (nb_grouped_sums for F > 256) and
-# K3w (qda_predict_kernel for factors past K3's shared memory)
+# K3w (qda_predict_kernel for tables over several of the plan's tasks)
 # ---------------------------------------------------------------------------
 
 def wide_grouped_inputs(name, n, groups, device, seed=0, binary=True):
@@ -782,31 +822,53 @@ def test_nb_wide_sums_kernel_matches_plain(cuda, name, n, groups, binary):
 @pytest.mark.parametrize("n", [1, 255, 100_003])
 @pytest.mark.parametrize("classes", [8, 33])
 def test_qda_wide_kernel_matches_plain(cuda, n, classes):
-    """K3w with full-rank factors at m = 100 (C·(m·r + m + 1)·4 bytes
-    past K3's 227 KB): argmax agreement with the plain scorer ≥ 0.9999,
-    two calls bit-identical."""
-    schema = FeatureSchema(num_cols=4, cat_keys=(tuple(range(48)),) * 2)
+    """K3w: tables over a plan of several tasks (d = 4, categorical columns
+    of 200, 60 and 48: a cross table of 200 × 60 past one task), codes out
+    of vocab and negative: equal to the plain scorer, two calls
+    bit-identical, counted as wide launches."""
+    keys = (tuple(range(200)), tuple(range(60)), tuple(range(48)))
+    schema = FeatureSchema(num_cols=4, cat_keys=keys)
     rng = np.random.default_rng(classes)
-    m = 100
+    m = schema.sigma_size - 1
     a = rng.normal(size=(classes, m, m)) * 0.1
     quad = torch.tensor(-np.einsum("cij,ckj->cik", a, a) - 0.2 * np.eye(m),
                         device=cuda)
     lin = torch.tensor(rng.normal(size=(classes, m)), device=cuda)
     b = torch.tensor(rng.normal(size=classes) * 5, device=cuda)
-    factor, lin, b = qda_scorers(quad, lin, b)
-    assert _build.qda_route(schema, classes, factor.shape[-1]) == "K3w"
+    tables, plan = qda_tables(quad, lin, b, schema=schema)
+    assert plan.num_tasks > 1
     x = torch.tensor(rng.normal(size=(4, n)).astype(np.float32), device=cuda)
-    c = torch.tensor(rng.integers(-1, 49, (2, n)).astype(np.int32),
-                     device=cuda)
+    c = torch.tensor(np.stack([rng.integers(-1, len(k) + 2, n) for k in keys]
+                              ).astype(np.int32), device=cuda)
     narrow = qda_predict_kernel.launches
     before = qda_predict_kernel.wide_launches
-    got = qda_predict_kernel(factor, lin, b, x, c, schema=schema)
-    again = qda_predict_kernel(factor, lin, b, x, c, schema=schema)
+    got = qda_predict_kernel(tables, plan, x, c, schema=schema)
+    again = qda_predict_kernel(tables, plan, x, c, schema=schema)
     assert qda_predict_kernel.wide_launches == before + 2
     assert qda_predict_kernel.launches == narrow
     assert torch.equal(got, again)
-    want = qda_predict_plain(factor, lin, b, x, c, schema=schema)
-    assert float((got == want).float().mean()) >= 0.9999
+    want = qda_predict_plain(tables, plan, x, c, schema=schema)
+    assert torch.equal(got, want)
+
+
+def test_qda_kernel_at_the_schema_limit(cuda):
+    """64 numeric and 64 categorical columns at P = 1,024 (a smaller tile)
+    through one launch, equal to the plain scorer."""
+    keys = tuple(tuple(range(14 if j < 63 else 1024 - 65 - 14 * 63))
+                 for j in range(64))
+    schema = FeatureSchema(num_cols=64, cat_keys=keys)
+    rng = np.random.default_rng(3)
+    m, n = schema.sigma_size - 1, 20_000
+    quad = torch.tensor(-np.eye(m) * rng.random(m), device=cuda)
+    lin = torch.tensor(rng.normal(size=(3, m)), device=cuda)
+    tables, plan = qda_tables(quad.expand(3, m, m), lin,
+                              torch.zeros(3, device=cuda), schema=schema)
+    x = torch.tensor(rng.normal(size=(64, n)).astype(np.float32), device=cuda)
+    c = torch.tensor(np.stack([rng.integers(0, len(k), n) for k in keys]
+                              ).astype(np.int32), device=cuda)
+    got = qda_predict_kernel(tables, plan, x, c, schema=schema)
+    assert torch.equal(got, qda_predict_plain(tables, plan, x, c,
+                                              schema=schema))
 
 
 def test_wide_classifier_pipelines_on_the_card_match_cpu(cuda):

@@ -220,7 +220,9 @@ def _wrapper_calls():
     x, c, gt = t(num), t(codes), t(g)
     nb_schema = SCHEMA
     layout = port_g.GroupLayout(torch.tensor([0, 300, 600]), 2)
-    factor = torch.zeros((3, 13, 13))
+    tables, plan = port_qda.qda_tables(torch.zeros((3, 13, 13)),
+                                       torch.zeros((3, 13)), torch.zeros(3),
+                                       schema=SCHEMA)
     return [
         (port_k1.masked_gram, "dit_masked_gram",
          lambda: port_k1.masked_gram(x, c, None, schema=SCHEMA)),
@@ -237,8 +239,7 @@ def _wrapper_calls():
          lambda: port_nb.nb_grouped_sums(x, c, None, gt, schema=nb_schema,
                                          num_groups=7)),
         (port_qda.qda_predict_kernel, "dit_qda_predict",
-         lambda: port_qda.qda_predict_kernel(factor, torch.zeros((3, 13)),
-                                             torch.zeros(3), x, c,
+         lambda: port_qda.qda_predict_kernel(tables, plan, x, c,
                                              schema=SCHEMA)),
     ]
 

@@ -1,7 +1,8 @@
 """The port's NB path: `nb_grouped_sums` (K6) through its plain version,
-`sum_to_nb_agg[_grouped]`, `nb_train_device` and `nb_predict_device`,
-held against the JAX package (its Pallas NB kernel in interpret mode, as
-tests/test_kernels.py runs it, and its XLA paths) on the same inputs."""
+`sum_to_nb_agg[_grouped]`, `nb_train_device` and `nb_predict_device`
+(its tables, `nb_tables`), held against the JAX package (its Pallas NB
+kernel in interpret mode, as tests/test_kernels.py runs it, and its XLA
+paths) on the same inputs and against f64 numpy."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,6 +20,7 @@ from duckdb_imputation_tpu_torch import FeatureSchema
 from duckdb_imputation_tpu_torch.models import device as port_device
 from duckdb_imputation_tpu_torch.ring import sum as port_sum
 from duckdb_imputation_tpu_torch.ring.kernels import _build
+from duckdb_imputation_tpu_torch.ring.kernels import qda_pallas as port_qda
 from duckdb_imputation_tpu_torch.ring.kernels.nb_pallas import (
     nb_grouped_sums,
     sum_to_nb_agg_grouped_kernel,
@@ -165,3 +167,100 @@ def test_nb_limits_raise():
     with pytest.raises(ValueError):
         _build.check_nb(SCHEMA, 1 << 31)
     _build.check_nb(SCHEMA, 10_000_000)
+
+
+def test_nb_tables_hold_only_d_and_row_zero():
+    """Naive Bayes's tables (`nb_tables`) sit on a plan without cross
+    tables; of its cells only the intercept, the numerics' row-0 cells,
+    the numeric diagonal and each category's count cell are nonzero; and
+    they score as the f64 NB formula (within 2⁻²³ of its terms' sum), with
+    the argmax of that formula."""
+    num, codes, y = _nb_fixture(n=3000, seed=13)
+    agg = port_sum.sum_to_nb_agg_grouped(
+        torch.tensor(num), torch.tensor(codes), torch.tensor(y),
+        schema=SCHEMA, num_groups=5)
+    priors, mean, var, freqs = port_device.nb_train_device(
+        agg.n, agg.lin, agg.quad_diag, agg.lin_cat)
+    v64 = var.double() + 1e-9
+    log_freq = torch.where(freqs > 0, torch.log(freqs.double()), -1e30)
+    tables, plan = port_qda.nb_tables(torch.log(priors.double()), mean, v64,
+                                      log_freq, schema=SCHEMA)
+    assert not plan.cross
+    assert _build.SLAB_C not in plan.slabs[:, 0].tolist()
+    # D (1+d)(2+d)/2, K V·(1+d): 95 cells, padded to a multiple of 4
+    assert tables.shape == (5, 96)
+    d = SCHEMA.num_cols
+    e = plan.entries.long()
+    cell = plan.task_base[e[:, 0]] + e[:, 1]
+    i, j = e[:, 2], e[:, 3]
+    live = torch.zeros(tables.shape[1], dtype=torch.bool)
+    live[cell[((i == 0) & (j <= d)) | ((i == j) & (i > 0))]] = True
+    assert not tables[:, ~live].any()
+    assert tables[:, live].all()
+
+    x64, mu, v = num.astype(np.float64), mean.double().numpy(), v64.numpy()
+    lf = log_freq.numpy()
+    terms = [np.log(priors.double().numpy())[:, None]
+             - 0.5 * (np.log(2 * np.pi * v) + mu * mu / v).sum(1)[:, None]]
+    terms += [-0.5 * x64[k] ** 2 / v[:, k:k + 1]
+              + x64[k] * (mu[:, k] / v[:, k])[:, None] for k in range(d)]
+    offs = (0, 8)
+    terms += [lf[:, offs[j] + codes[j]] for j in range(2)]
+    want = sum(terms)
+    scale = sum(np.abs(t) for t in terms)
+    got = np.stack([s.numpy() for s in port_qda.class_scores_plain(
+        tables, plan, torch.tensor(num), torch.tensor(codes),
+        schema=SCHEMA)])
+    assert np.all(np.abs(got - want) <= 2.0 ** -23 * scale + 1e-9)
+    pred = port_device.nb_predict_device(
+        priors, mean, var, freqs, torch.tensor(num), torch.tensor(codes),
+        schema=SCHEMA).numpy()
+    assert (pred == want.argmax(0)).mean() >= 0.999
+
+
+def test_nb_variance_case_stays_nonnegative():
+    """ROADMAP Queue 3's case: 200k rows, 2 classes at ~50%, x0 ~ N(2y, 1),
+    x1 exactly 1000.1 in class 1 and N(1000.1, 1) in class 0. Σx²/n −
+    mean² of class 1's x1 cancels below 0 even from exact sums rounded
+    once to the f32 NBAgg sections (−0.0049); trained in f64 and clamped
+    at 0, every variance is ≥ 0, that one at most 0.01, no class's score is
+    NaN, and accuracy is well above the 0.5 prior. x0's variances (~1,
+    small means) are within 1e-3 of numpy's f64 variance of the data; x1's
+    in class 0 equals the f64 trainer's arithmetic on the f32 sections
+    (the sections hold Σx² ≈ 1e11 to f32: x1's variance of ~1 comes out
+    ~8% off, a limit of the f32 NBAgg that centring the numerics before
+    aggregation would lift)."""
+    rng = np.random.default_rng(0)
+    n = 200_000
+    y = (rng.random(n) < 0.5).astype(np.int32)
+    x0 = rng.normal(size=n) + 2 * y
+    x1 = np.where(y == 1, 1000.1, rng.normal(size=n) + 1000.1)
+    num = np.stack([x0, x1]).astype(np.float32)
+    schema = FeatureSchema(num_cols=2)
+    agg = port_sum.sum_to_nb_agg_grouped(
+        torch.tensor(num), None, torch.tensor(y), schema=schema,
+        num_groups=2)
+    priors, mean, var, freqs = port_device.nb_train_device(
+        agg.n, agg.lin, agg.quad_diag, agg.lin_cat)
+    var = var.numpy()
+    assert (var >= 0).all()
+    assert var[1, 1] <= 0.01
+    for c in range(2):
+        want = num[0, y == c].astype(np.float64).var()
+        assert abs(var[c, 0] - want) <= 1e-3 * want
+    cnt = agg.n.double().numpy()
+    host = (agg.quad_diag.double().numpy() / cnt[:, None]
+            - (agg.lin.double().numpy() / cnt[:, None]) ** 2)
+    np.testing.assert_allclose(var[0, 1], host[0, 1], rtol=1e-6)
+
+    tables, plan = port_qda.nb_tables(
+        torch.log(priors.double()), mean, torch.tensor(var).double() + 1e-9,
+        torch.zeros((2, 0), dtype=torch.float64), schema=schema)
+    for s in port_qda.class_scores_plain(tables, plan, torch.tensor(num),
+                                         torch.zeros((0, n), dtype=torch.int32),
+                                         schema=schema):
+        assert not torch.isnan(s).any()
+    pred = port_device.nb_predict_device(
+        priors, mean, torch.tensor(var), freqs, torch.tensor(num),
+        torch.zeros((0, n), dtype=torch.int32), schema=schema).numpy()
+    assert (pred == y).mean() > 0.75

@@ -1,8 +1,9 @@
-"""The port's QDA path: `qda_train_device`, `qda_scorers` and the one-pass
-scorer `qda_predict_kernel` (K3) through its plain version, held against
-the JAX package (its Pallas QDA kernel in interpret mode, as
-tests/test_kernels.py runs it, and its XLA predictor) and against an f64
-numpy oracle."""
+"""The port's QDA path: `qda_train_device`, the table builder `qda_tables`
+and the one-pass scorer `qda_predict_kernel` (K3/K3w) through its plain
+version, held against the JAX package (its Pallas QDA kernel in interpret
+mode, as tests/test_kernels.py runs it, and its XLA predictor) and
+against f64 numpy oracles: the dense quadratic form, the clamped-eigh
+factor form of earlier versions, and f64 training."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,9 +20,11 @@ from duckdb_imputation_tpu_torch.models import device as port_device
 from duckdb_imputation_tpu_torch.ring import sum as port_sum
 from duckdb_imputation_tpu_torch.ring.kernels import _build
 from duckdb_imputation_tpu_torch.ring.kernels.qda_pallas import (
+    _pack,
+    class_scores_plain,
     qda_predict_kernel,
     qda_predict_plain,
-    qda_scorers,
+    qda_tables,
 )
 from duckdb_imputation_tpu_torch.ring.triple import sigma_from_triple
 
@@ -73,39 +76,24 @@ def test_qda_predict_matches_pallas_and_xla():
     np.testing.assert_array_equal(got2, got[:n2])
 
 
-def test_qda_scorers_factor_singular_psd():
-    """L·Lᵀ = −quad for a singular PSD −quad (rank deficient), where a
-    Cholesky factor does not exist; the factor is f32 and contiguous."""
-    rng = np.random.default_rng(3)
-    a = rng.normal(size=(2, 6, 3))
-    quad = -np.einsum("cij,ckj->cik", a, a).astype(np.float32)
-    factor, lin, b = qda_scorers(torch.tensor(quad),
-                                 torch.zeros((2, 6), dtype=torch.float64),
-                                 torch.zeros(2))
-    assert factor.dtype == torch.float32 and factor.is_contiguous()
-    assert lin.dtype == torch.float32
-    f = factor.double().numpy()
-    np.testing.assert_allclose(f @ np.swapaxes(f, 1, 2), -quad, atol=1e-5)
-    with pytest.raises(np.linalg.LinAlgError):
-        np.linalg.cholesky(-quad[0].astype(np.float64))
-
-
 def test_qda_predict_ties_nan_and_misses():
     """A tie goes to the lowest class, a NaN score never wins, and a code
     outside the vocab adds nothing."""
     schema = FeatureSchema(num_cols=1, cat_keys=((0, 1, 2),))
     m = 4
-    factor = torch.zeros((4, m, m))
+    quad = torch.zeros((4, m, m))
     lin = torch.zeros((4, m))
     icpt = torch.tensor([0.0, 1.0, 1.0, float("nan")])
     lin[3, 0] = 100.0
     x = torch.tensor([[1.0, -2.0, 0.5]])
     codes = torch.tensor([[0, 3, -1]], dtype=torch.int32)
-    got = qda_predict_plain(factor, lin, icpt, x, codes, schema=schema)
+    got = qda_predict_plain(*qda_tables(quad, lin, icpt, schema=schema), x,
+                            codes, schema=schema)
     assert got.tolist() == [1, 1, 1]
     lin[2, 3] = 5.0                      # category 2 favours class 2
     codes = torch.tensor([[2, 3, 2]], dtype=torch.int32)
-    got = qda_predict_kernel(factor, lin, icpt, x, codes, schema=schema)
+    got = qda_predict_kernel(*qda_tables(quad, lin, icpt, schema=schema), x,
+                             codes, schema=schema)
     assert got.tolist() == [2, 1, 2]
 
 
@@ -167,8 +155,8 @@ def test_qda_full_onehot_fixture_agrees_with_f64_oracle():
     Cholesky of −quad + 1e-12·I turns NaN (for every class in the JAX
     pipeline of the first such fixture, which then predicts class 0 for
     every row; on the port's sigmas, for some classes, checked below).
-    The port trains in f64 and factors −quad by a clamped
-    eigendecomposition: its predictions agree ≥ 0.999 with an f64 oracle
+    The port trains in f64 and scores the quadratic form as it is, over
+    each row's nonzero pairs: its predictions agree ≥ 0.999 with an f64 oracle
     (exact sigmas, f64 training, scores zᵀ·quad·z + lin·z + b in f64) and
     beat the prior."""
     rng = np.random.default_rng(0)
@@ -209,15 +197,108 @@ def test_qda_full_onehot_fixture_agrees_with_f64_oracle():
 
 
 def test_qda_limits_raise():
+    """K3/K3w take the plan's limits: P ≤ 1,024 and 64 numeric and 64
+    categorical columns; at least one class; the method by name."""
     schema = FeatureSchema(num_cols=4, cat_keys=(tuple(range(8)),) * 2)
-    assert _build.qda_route(schema, 8, 20) == "K3"
-    # factors beyond shared memory take the wide kernel, K3w
-    assert _build.qda_route(FeatureSchema(
-        num_cols=4, cat_keys=(tuple(range(200)),)), 8, 204) == "K3w"
-    with pytest.raises(ValueError):      # more columns than registers
-        _build.qda_route(FeatureSchema(num_cols=40), 2, 40)
+    _build.check_qda(schema, 8, 10_000_000)
+    with pytest.raises(ValueError):      # no class
+        _build.check_qda(schema, 0, 100)
+    with pytest.raises(ValueError):      # more columns than the plan takes
+        _build.check_qda(FeatureSchema(num_cols=65), 2, 100)
+    with pytest.raises(ValueError):      # sigma size above the plan's
+        _build.check_qda(FeatureSchema(
+            num_cols=4, cat_keys=(tuple(range(1020)),)), 2, 100)
+    with pytest.raises(ValueError):
+        _build.check_qda(schema, 2, 1 << 31)
     with pytest.raises(ValueError):
         port_device.qda_predict_device(
             torch.zeros((1, 20, 20)), torch.zeros((1, 20)), torch.zeros(1),
             torch.zeros((4, 3)), torch.zeros((2, 3), dtype=torch.int32),
             schema=schema, method="pallas")
+
+
+def _dense_z(x, codes, keys):
+    """z̃ = [1 ‖ x ‖ onehot(codes)] f64[P, n]; a code outside the vocab
+    sets nothing."""
+    return np.concatenate(
+        [np.ones((1, x.shape[1])), x.astype(np.float64)]
+        + [(codes[j][None] == np.arange(len(k))[:, None]) * 1.0
+           for j, k in enumerate(keys)])
+
+
+# config 4 (P = 21, one task) and a schema past P = 88 whose plan splits
+# its tables over several tasks (P = 224: a cross table of 120 × 80)
+TABLE_SCHEMAS = {"config4": (4, (tuple(range(8)),) * 2),
+                 "P224": (3, (tuple(range(120)), tuple(range(80)),
+                              tuple(range(20))))}
+
+
+@pytest.mark.parametrize("name", sorted(TABLE_SCHEMAS))
+def test_qda_tables_score_the_dense_quadratic_form(name):
+    """A_c packed into the plan's cells and summed over each row's cells
+    equals the dense z̃ᵀ·A_c·z̃ (A_c not symmetric, random rows, codes out
+    of vocab and negative): tables kept in f64 within 1e-12 of Σ|terms|,
+    the f32 tables of `qda_tables` within 2⁻²³·Σ|terms| (each cell rounded
+    to f32 once), Σ|terms| = Σ_ij |A_ij·z_i·z_j| for the row."""
+    d, keys = TABLE_SCHEMAS[name]
+    schema = FeatureSchema(num_cols=d, cat_keys=keys)
+    rng = np.random.default_rng(11)
+    p, c_cls, n = schema.sigma_size, 3, 400
+    a = rng.normal(size=(c_cls, p, p)) * rng.lognormal(size=(1, p, p))
+    x = rng.normal(size=(d, n)).astype(np.float32) * 3
+    codes = np.stack([rng.integers(-1, len(k) + 2, n)
+                      for k in keys]).astype(np.int32)
+    z = _dense_z(x, codes, keys)
+    dense = np.einsum("in,cij,jn->cn", z, a, z)
+    scale = np.einsum("in,cij,jn->cn", np.abs(z), np.abs(a), np.abs(z))
+
+    tables, plan = qda_tables(torch.tensor(a[:, 1:, 1:]),
+                              torch.tensor(a[:, 0, 1:] + a[:, 1:, 0]),
+                              torch.tensor(a[:, 0, 0]), schema=schema)
+    assert tables.dtype == torch.float32
+    assert tables.shape == (c_cls, int(plan.task_base[-1]))
+    assert (plan.num_tasks > 1) == (name == "P224")
+    args = (torch.tensor(x), torch.tensor(codes))
+    exact = np.stack([s.numpy() for s in class_scores_plain(
+        _pack(torch.tensor(a), plan), plan, *args, schema=schema)])
+    assert np.all(np.abs(exact - dense) <= 1e-12 * scale)
+    f32 = np.stack([s.numpy() for s in class_scores_plain(
+        tables, plan, *args, schema=schema)])
+    assert np.all(np.abs(f32 - dense) <= 2.0 ** -23 * scale)
+    np.testing.assert_array_equal(
+        qda_predict_plain(tables, plan, *args, schema=schema).numpy(),
+        np.argmax(f32.astype(np.float32), 0))
+
+
+def test_pair_form_equals_the_clamped_eigh_factor_form():
+    """On the singular full one-hot −quad of QDA trained on the config-4
+    table (every covariance is singular), the pair-form scores equal the
+    scores of the factor form the scorer used before, b + lin·z − ‖Lᵀz‖²
+    with L = V·diag(√λ₊) from a clamped eigendecomposition of −quad, both
+    computed here in f64: within 1e-5 of max|s|, argmax agreement
+    ≥ 0.999."""
+    rng = np.random.default_rng(2)
+    n, c_cls = 50_000, 8
+    y = np.where(rng.random(n) < 0.9, 0, rng.integers(1, c_cls, n)).astype(
+        np.int32)
+    shift = 2.0 * np.random.default_rng(0).normal(size=(c_cls, 4))
+    x = (rng.normal(size=(4, n)) + shift[y].T).astype(np.float32)
+    codes = rng.integers(0, 8, size=(2, n)).astype(np.int32)
+    keys = (tuple(range(8)),) * 2
+    schema = FeatureSchema(num_cols=4, cat_keys=keys)
+    sig = sigma_from_triple(port_sum.sum_to_triple_grouped(
+        torch.tensor(x), torch.tensor(codes), torch.tensor(y),
+        schema=schema, num_groups=c_cls))
+    quad, lin, b = port_device.qda_train_device(sig, float(n))
+    neg = -quad.double().numpy()
+    lam, v = np.linalg.eigh((neg + np.swapaxes(neg, 1, 2)) / 2)
+    assert (lam[:, :2] < 1e-6 * lam[:, -1:]).all()     # singular
+    factor = v * np.sqrt(np.clip(lam, 0.0, None))[:, None, :]
+    zz = _dense_z(x, codes, keys)[1:]
+    fac = (b.double().numpy()[:, None] + lin.double().numpy() @ zz
+           - (np.einsum("cij,in->cjn", factor, zz) ** 2).sum(1))
+    tables, plan = qda_tables(quad, lin, b, schema=schema)
+    pair = np.stack([s.numpy() for s in class_scores_plain(
+        tables, plan, torch.tensor(x), torch.tensor(codes), schema=schema)])
+    assert np.abs(pair - fac).max() <= 1e-5 * np.abs(fac).max()
+    assert (pair.argmax(0) == fac.argmax(0)).mean() >= 0.999
