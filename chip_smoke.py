@@ -325,6 +325,58 @@ def phase_k1(seed: int) -> dict:
                            torch.stack(xs), torch.stack(cs), w[:n], schema))
     log(f"[K1] n={N}: bound {out['bound_ms']:.4f} ms ({out['bound_by']}), "
         f"library (Zᵀw)@Z {out['library_ms']:.4f} ms")
+    out["p88"] = k1_near_limit(seed)
+    return out
+
+
+def k1_near_limit(seed: int) -> dict:
+    """K1 at a schema near its limit with many numerics, P = 88 (24 numeric
+    columns, three categorical columns of 21: past the tensor cores' one
+    output tile, so K1's CUDA-core route), 10M rows, binary then general
+    weights: the gates of [K1]; kernel, plain, bound and library times of
+    the binary run."""
+    from duckdb_imputation_tpu_torch import FeatureSchema
+    from duckdb_imputation_tpu_torch.ring.kernels import _build
+    from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas import (
+        masked_gram_cols, masked_gram_cols_plain)
+
+    schema = FeatureSchema(num_cols=24, cat_keys=(tuple(range(21)),) * 3)
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(seed + 30)
+    xs = list((torch.randn((24, N), generator=g, device=DEVICE) * 2 + 0.5)
+              .unbind(0))
+    cs = list(torch.randint(-1, 22, (3, N), generator=g, device=DEVICE,
+                            dtype=torch.int32).unbind(0))
+    w_gen = torch.rand(N, generator=g, device=DEVICE)
+    out = {}
+    check(not _build.tc_fits(24, 88), "K1 P=88 is not on its CUDA-core route")
+    for name, w in (("binary", (w_gen >= 0.2).float()), ("general", w_gen)):
+        binary = name == "binary"
+        got = masked_gram_cols(xs, cs, w, schema=schema)
+        again = masked_gram_cols(xs, cs, w, schema=schema)
+        want = masked_gram_cols_plain(xs, cs, w, schema=schema)
+        torch.cuda.synchronize()
+        err = check_gram(f"K1 P=88 {name}", got, again, want, schema, binary)
+        if binary:
+            check(float(got[0, 0]) == float(w.sum()), "K1 P=88 sigma[0,0] != Σw")
+        ms = cuda_ms(lambda: masked_gram_cols(xs, cs, w, schema=schema),
+                     reps=5, warmup=1)
+        plain_ms = cuda_ms(lambda: masked_gram_cols_plain(xs, cs, w,
+                                                          schema=schema),
+                           reps=2, warmup=1)
+        abs_err = float((got - want).abs().max())
+        log(f"[K1] n={N} P=88 d=24 (CUDA cores) {name} "
+            f"weights: " + ("counts exact, " if binary else "")
+            + f"max rel err {err:.3e} (of max|σ|), max abs err {abs_err:.3e},"
+            f" bit-identical rerun; kernel {ms:.4f} ms, plain {plain_ms:.4f}"
+            f" ms")
+        if binary:
+            out = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                       **gram_bound(torch.stack(cs), schema, w),
+                       library_ms=library_gram_ms(torch.stack(xs),
+                                                  torch.stack(cs), w, schema))
+    log(f"[K1] n={N} P=88: bound {out['bound_ms']:.4f} ms "
+        f"({out['bound_by']}), library (Zᵀw)@Z {out['library_ms']:.4f} ms")
     return out
 
 
@@ -389,6 +441,37 @@ def phase_k1_stacked(seed: int) -> dict:
             out = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
                        **gram_bound(codes, schema, w),
                        library_ms=library_gram_ms(x, codes, w, schema))
+    del x, codes, w_gen, w_bin, got
+
+    # near K1's limit: P = 88 (24 numeric, three categorical columns of 21)
+    # through sum_to_triple, general weights
+    from duckdb_imputation_tpu_torch import FeatureSchema
+    s88 = FeatureSchema(num_cols=24, cat_keys=(tuple(range(21)),) * 3)
+    x = torch.randn((24, N), generator=gen, device=DEVICE) + 1.0
+    codes = torch.randint(0, 21, (3, N), generator=gen, device=DEVICE,
+                          dtype=torch.int32)
+    w = torch.rand(N, generator=gen, device=DEVICE)
+    before = masked_gram.launches
+    got = sigma_from_triple(sum_to_triple(x, codes, w, schema=s88))
+    again = sigma_from_triple(sum_to_triple(x, codes, w, schema=s88))
+    want = masked_gram_plain(x, codes, w, schema=s88)
+    torch.cuda.synchronize()
+    check(masked_gram.launches == before + 2, "K1s P=88 was not launched")
+    err = check_gram("K1s P=88 general", got, again, want, s88, False)
+    ms = cuda_ms(lambda: masked_gram(x, codes, w, schema=s88), reps=5,
+                 warmup=1)
+    plain_ms = cuda_ms(lambda: masked_gram_plain(x, codes, w, schema=s88),
+                       reps=2, warmup=1)
+    b88 = gram_bound(codes, s88, w)
+    lib_ms = library_gram_ms(x, codes, w, s88)
+    log(f"[K1s] n={N} P=88 general weights: max rel err {err:.3e} (of "
+        f"max|σ|), max abs err {float((got - want).abs().max()):.3e}, "
+        f"bit-identical rerun; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {b88['bound_ms']:.4f} ms ({b88['bound_by']}), library "
+        f"{lib_ms:.4f} ms")
+    out["p88_general"] = dict(max_abs_err=float((got - want).abs().max()),
+                              ms=ms, plain_ms=plain_ms, **b88,
+                              library_ms=lib_ms)
     return out, launches
 
 
@@ -576,7 +659,7 @@ def phase_deploy(seed: int) -> None:
     from duckdb_imputation_tpu_torch.ring.kernels.nb_pallas import (
         nb_grouped_sums)
     from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas import (
-        masked_gram_cols)
+        masked_gram_cols, masked_gram_cols_plain)
     from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas_grouped import (
         grouped_gram, grouped_gram_presorted, sort_by_group)
 
@@ -604,6 +687,10 @@ def phase_deploy(seed: int) -> None:
         t.cat_codes[1][obs].long(), minlength=8)]).double().float()
     got = torch.cat([sig[0, :1], sig[0, 1 + 4 + 8:]])
     check(torch.equal(got, exact), f"100M: K1 counts {got} != {exact}")
+    k1_err = rel_err(sig, masked_gram_cols_plain(
+        list(t.num_data.unbind(0)), list(t.cat_codes.unbind(0)), obs.float(),
+        schema=t.schema))
+    check(k1_err <= 1e-5, f"100M: K1 max rel error {k1_err:.3e} > 1e-5")
 
     # the grouped kernels' counts past 2**24 rows in one group (~25M and
     # ~75M rows): N and column 0's one-hot counts, rounded once to f32
@@ -638,7 +725,8 @@ def phase_deploy(seed: int) -> None:
         per_round[name] = (three - one) / 2
     log(f"[deploy] n={N_DEPLOY}: one fused run_mice_device round {wall:.3f}"
         f" s wall (init fill included), RMSE {rmse:.3e}; K1, K4, K5 and K6"
-        f" counts equal the exact counts rounded once to f32; table resident "
+        f" counts equal the exact counts rounded once to f32, K1 max rel err "
+        f"{k1_err:.3e} (of max|σ|); table resident "
         f"{resident / 2**30:.2f} GiB, peak {peak / 2**30:.2f} GiB; ms per "
         f"round (slope of 1 vs 3 rounds): {per_round}")
 
@@ -651,7 +739,7 @@ def phase_deploy(seed: int) -> None:
 CLASSES = 8                # BASELINE config 4: 8 classes, 90% in class 0
 N_CLASSIFY_CPU = 200_000   # the CPU pipeline held against the card's
 GROUPS_SORTED = 1000       # a G above K4's limit
-NB_GROUPS_WIDE = 100       # a G above K6's 32 groups a launch
+NB_GROUPS_WIDE = 100       # a G above the old K6's 32 groups a launch
 
 
 def make_classify_table(n: int, seed: int, *, num_cols: int = 4,
@@ -852,8 +940,7 @@ def phase_k6(seed: int) -> dict:
                        **nb_bound(N, schema, 5),
                        library_ms=library_nb_ms(x, codes, w, y, schema, 5))
 
-    # above one launch's 32 groups: ceil(G / 32) launches, each reading the
-    # whole table
+    # 100 groups: one launch (the old kernel took one per 32 groups)
     groups = NB_GROUPS_WIDE
     gw = torch.randint(0, groups, (N,), generator=gen, device=DEVICE,
                        dtype=torch.int32)
@@ -864,8 +951,7 @@ def phase_k6(seed: int) -> dict:
     again = nb_grouped_sums(x, codes, None, gw, **kw)
     want = nb_grouped_sums_plain(x, codes, None, gw, **kw)
     torch.cuda.synchronize()
-    check(per_call == -(-groups // 32),
-          f"K6 G={groups}: {per_call} launches, not {-(-groups // 32)}")
+    check(per_call == 1, f"K6 G={groups}: {per_call} launches, not 1")
     check(torch.equal(got, again), "K6 wide repeated run not bit-identical")
     cnt = torch.cat([got[:, :1], got[:, 1 + 2 * d:]], 1)
     check(torch.equal(cnt, torch.cat([want[:, :1], want[:, 1 + 2 * d:]], 1)),
@@ -1588,8 +1674,8 @@ def phase_k8(seed: int) -> dict:
 
 def phase_k6w(seed: int) -> dict:
     """K6w at favorita_classify, 10M rows, no weights: label family (33
-    groups: two launches of two feature ranges, F = 462) and label
-    onpromotion (2 groups, F = 493); some codes out of vocab."""
+    groups, F = 462: two tasks) and label onpromotion (2 groups, F = 493:
+    one task), one launch a call each; some codes out of vocab."""
     from duckdb_imputation_tpu_torch.ring.kernels.nb_pallas import (
         nb_grouped_sums, nb_grouped_sums_plain)
 
@@ -1600,14 +1686,13 @@ def phase_k6w(seed: int) -> dict:
         codes[-1, :1000] = 17        # cluster: out of vocab
         d = schema.num_cols
         kw = dict(schema=schema, num_groups=classes)
-        before = nb_grouped_sums.wide_launches
+        before = nb_grouped_sums.launches
         got = nb_grouped_sums(x, codes, None, y, **kw)
-        per_call = nb_grouped_sums.wide_launches - before
+        per_call = nb_grouped_sums.launches - before
         again = nb_grouped_sums(x, codes, None, y, **kw)
         want = nb_grouped_sums_plain(x, codes, None, y, **kw)
         torch.cuda.synchronize()
-        check(per_call == -(-classes // 32),
-              f"K6w {label}: {per_call} wide launches a call")
+        check(per_call == 1, f"K6w {label}: {per_call} launches a call")
         check(torch.isfinite(got).all(), "K6w sums not finite")
         check(torch.equal(got, again), "K6w repeated run not bit-identical")
         cnt = torch.cat([got[:, :1], got[:, 1 + 2 * d:]], 1)
@@ -1636,6 +1721,8 @@ def phase_k6w(seed: int) -> dict:
                                               classes)
             log(f"[K6w] library F@Wᵀ {res['library_ms']:.4f} ms")
             out = res
+        else:
+            out["onpromotion_ms"] = ms
     return out
 
 
@@ -1742,8 +1829,8 @@ def phase_classify_wide(seed: int) -> dict:
     """The classifier path at favorita_classify, 10M rows, through the
     entry points a user calls: QDA and NB for label onpromotion (unsorted
     entry: sort + K8; K6w; K3w for QDA, K3 for NB, whose tables have no
-    cross tables and fit one task) and label family (sort + K8; K6w in two
-    launches; K3w for QDA, K3 for NB). Launch
+    cross tables and fit one task) and label family (sort + K8; K6w; K3w
+    for QDA, K3 for NB). Launch
     counts checked exactly; accuracy against the true labels; card against
     CPU at 200k rows; ms per pipeline and per stage; the f64 SVD drivers
     of QDA training."""
@@ -1763,7 +1850,6 @@ def phase_classify_wide(seed: int) -> dict:
                 (grouped_gram_presorted, "launches"),
                 (grouped_gram_presorted, "wide_launches"),
                 (nb_grouped_sums, "launches"),
-                (nb_grouped_sums, "wide_launches"),
                 (qda_predict_kernel, "launches"),
                 (qda_predict_kernel, "wide_launches")]
     torch.cuda.synchronize()
@@ -1783,7 +1869,7 @@ def phase_classify_wide(seed: int) -> dict:
     expect = dict.fromkeys(launches, 0)
     for label, (x, codes, y, schema, classes) in tables.items():
         expect["grouped_gram_presorted.wide_launches"] += 1
-        expect["nb_grouped_sums.wide_launches"] += -(-classes // 32)
+        expect["nb_grouped_sums.launches"] += 1
         for cross in (True, False):        # QDA's tables, NB's
             expect["qda_predict_kernel." + (
                 "launches" if qda_plan(schema, cross).num_tasks == 1
@@ -1856,7 +1942,7 @@ def phase_classify_wide(seed: int) -> dict:
         f"{cov.shape[-1]}²: ms by driver {drivers}")
     return {"grouped_wide_gram":
             launches["grouped_gram_presorted.wide_launches"],
-            "nb_grouped_sums_wide": launches["nb_grouped_sums.wide_launches"],
+            "nb_grouped_sums_wide": launches["nb_grouped_sums.launches"],
             "qda_predict_wide": launches["qda_predict_kernel.wide_launches"]}
 
 

@@ -1,5 +1,5 @@
-// In-chunk bucketing by group id, shared by the unsorted grouped kernels
-// (grouped_gram.cu, nb_grouped_sums.cu).
+// In-chunk bucketing by group id, for the unsorted grouped Gram
+// (grouped_gram.cu).
 //
 // A block stages kChunk rows, one per thread. Instead of testing every
 // staged row against every group (G× the work), each row is written to a

@@ -1,27 +1,32 @@
-// K1: the masked Gram over per-column inputs, S = Zᵀ·diag(w)·Z, for sm_90a.
+// K1: the masked Gram over per-column inputs, S = Zᵀ·diag(w)·Z, P ≤ 88, for
+// sm_90a: on the tensor cores (tc_gram.cuh) for a schema whose S is one
+// output tile there (P ≤ 21 and 1 + 3d + V ≤ 32: BASELINE config 5), on
+// the CUDA cores (masked_gram_kernel below) for any other.
 //
 // Replaces the Pallas kernels of duckdb_imputation_tpu/ring/kernels/
 // sigma_pallas.py that the MICE loops aggregate with:
 // sigma_pallas_fast3_cols (_sigma_fast3_cols_kernel) and
 // sigma_pallas_fast2_cols (_sigma_fast2_cols_kernel), dispatched by
-// sigma_pallas_fast_cols_padded. Those split each value into bf16 hi/lo
-// parts and lane-pack row chunks only because the TPU's matrix unit takes
-// bf16; here every product is plain f32 on the CUDA cores, and any weights
-// (not only binary ones) are exact to f32 accumulation.
+// sigma_pallas_fast_cols_padded, and through the stacked entry point the
+// stacked ones (sigma_pallas, _fast, _fast2, _fast3). Those split each
+// value into bf16 parts because the TPU's matrix unit takes bf16; here
+// the same idea feeds Hopper's tensor cores, with three parts (exact, not
+// ~2⁻¹⁶) and any weights (not only binary ones).
 //
 // What bounds it on an H100: one row reads 4·d + 4·c + 4 bytes (28 at the
-// BASELINE schema d=4, c=2) and adds about P(P+1)/2 products (231 at
-// P=21), so at 3.35 TB/s the device-memory floor is ~0.08 ms per 10M rows,
-// far below the ridge; the kernel is bound by issuing the products and the
-// shared-memory loads that feed them. The design keeps device traffic at
-// one read of each input (the one-hot exists only in shared memory), and
-// gives each thread a 4×4 register tile, so 8 shared loads feed 16 FMAs.
-// The shared scheme and its determinism are described in gram_common.cuh.
-#include "gram_common.cuh"
+// BASELINE schema d=4, c=2), so at 3.35 TB/s the device-memory floor is
+// ~0.08 ms per 10M rows. The tensor-core design, its split, the flush
+// interval and what bounds it are in tc_gram.cuh, the CUDA-core one in
+// gram_common.cuh; measured (tools/k1_variants.py, tools/k1_nb_times.py,
+// chip_smoke.py) in PERF.md.
+#include "tc_gram.cuh"
 
 namespace dit {
 namespace {
 
+// The CUDA-core route, for schemas past the tensor-core tile: each thread
+// owns a 4×4 tile of S (gram_common.cuh), f32 products, the rows of a
+// 256-row chunk staged densely in shared memory.
 __global__ void __launch_bounds__(kThreads)
 masked_gram_kernel(const __grid_constant__ Cols cols,
                    const __grid_constant__ Geom gm, const float* __restrict__ w,
@@ -57,14 +62,29 @@ masked_gram_kernel(const __grid_constant__ Cols cols,
 
 extern "C" {
 
-// Launches K1 and its cross-block reduction on `stream`. partial: f64
-// scratch of dit_gram_entries(P) · nblocks; out: f32[P, P]. Returns 0 or
-// a cudaError_t.
+// Launches K1 on the tensor cores and its cross-block reduction on
+// `stream`, for a schema that tc_fits (_build.tc_fits). partial: f64
+// scratch of 21 · 21 · nblocks; out: f32[P, P]. Returns 0 or a cudaError_t.
 int dit_masked_gram(const void* const* x_cols, int d,
                     const void* const* code_cols, const int* cat_sizes,
                     int c, const float* w, int64_t n, int P,
-                    double* partial, int nblocks, float* out,
-                    void* stream) {
+                    double* partial, int nblocks, float* out, void* stream) {
+  using namespace dit;
+  if (int rc = check_cols(d, c, cat_sizes, P, n, nblocks)) return rc;
+  if (!tc_fits(d, P)) return cudaErrorInvalidValue;
+  const Cols cols = make_cols(x_cols, d, code_cols, cat_sizes, c);
+  return launch_tc_gram(cols, P, w, n, partial, nblocks, out,
+                        static_cast<cudaStream_t>(stream));
+}
+
+// K1's CUDA-core route and its cross-block reduction on `stream`.
+// partial: f64 scratch of dit_gram_entries(P) · nblocks; out: f32[P, P].
+// Returns 0 or a cudaError_t.
+int dit_masked_gram_cores(const void* const* x_cols, int d,
+                          const void* const* code_cols, const int* cat_sizes,
+                          int c, const float* w, int64_t n, int P,
+                          double* partial, int nblocks, float* out,
+                          void* stream) {
   using namespace dit;
   if (int rc = check_cols(d, c, cat_sizes, P, n, nblocks)) return rc;
   const Cols cols = make_cols(x_cols, d, code_cols, cat_sizes, c);
@@ -83,7 +103,8 @@ int dit_masked_gram(const void* const* x_cols, int d,
   return cudaGetLastError();
 }
 
-// f64 entries of one block's partial for sigma size P.
+// f64 entries of one block's partial of the CUDA-core Gram (gram_common.cuh)
+// for sigma size P: K1's CUDA-core route, K2, K4 and K5.
 int dit_gram_entries(int P) { return dit::gram_entries(dit::make_geom(P, 0)); }
 
 const char* dit_error_string(int rc) {

@@ -41,7 +41,15 @@ MAX_BLOCKS = 1024
 # constant named beside it, and each value here must equal that constant:
 # the checks below raise ValueError before a launch the kernel would refuse.
 CHUNK_ROWS = 256     # kChunk (gram_common.cuh): rows a block stages a step
-MAX_SIGMA_SIZE = 88  # kMaxP (gram_common.cuh): one 4x4 tile a thread
+MAX_SIGMA_SIZE = 88  # kMaxP (gram_common.cuh): the narrow kernels' P
+TC_ROWS = 128        # kTcRows (tc_gram.cuh): rows a K1 block stages a step
+TC_A = 21            # kTcA (tc_gram.cuh): K1's most P on the tensor cores
+TC_RIGHT = 32        # kTcRight (tc_gram.cuh): right features of K1's tile
+# K1's largest grid: one wave of 5 resident 128-thread blocks on each of an
+# H100's 132 SMs (tools/k1_variants.py: 0.389 ms at config 5 against 0.438
+# at 1,024 blocks); a constant, so a result does not depend on the card it
+# ran on
+TC_MAX_BLOCKS = 660
 MAX_WIDE_SIGMA_SIZE = 1024  # kMaxWideP (wide_gram.cuh): K7, K2w and K8
 WIDE_CHUNK = 32      # kWideChunk (wide_gram.cuh): rows a warp takes a step,
                      # one a lane; also the most cells of a D slab
@@ -56,10 +64,9 @@ WIDE_SMEM = 227 * 1024  # kWideSmem (wide_gram.cuh): a block's shared memory
 WIDE_PLAN_INTS = 7   # kWidePlanInts (wide_gram.cuh): WidePlan.shape_ints
 MAX_COLS = 64        # kMaxCols (gram_common.cuh), numeric and categorical
 MAX_UNSORTED_GROUPS = 8  # kMaxUnsortedGroups (grouped_gram.cu): K4's tiles
-MAX_NB_GROUPS = 32       # kMaxNbGroups (nb_grouped_sums.cu): K6 per launch
-MAX_NB_FEATURES = 256    # kThreads (gram_common.cuh): K6's F = 1 + 2d + V;
-                         # K6w sums wider F in ranges of this many features
-MAX_NB_RANGES = 65535    # kMaxNbRanges (nb_grouped_sums.cu): K6w's gridDim.y
+NB_PLAN_INTS = 8         # kNbPlanInts (nb_grouped_sums.cu): NbPlan.shape_ints
+NB_SLAB_CODES = 3        # kNbSlabCodes (nb_grouped_sums.cu): the NB plan's
+                         # slab of a code range of one group's row of K_j
 QDA_THREADS = 1024       # kQdaThreads (qda_predict.cu): most threads of a
                          # K3/K3w block
 QDA_TASK_CELLS = 4096    # the f32 cells of a K3/K3w task (`qda_plan`):
@@ -98,6 +105,9 @@ def _declare(lib: ctypes.CDLL) -> None:
                       ctypes.c_uint32)
     lib.dit_masked_gram.argtypes = [p, i, p, p, i, p, i64, i, p, i, p, p]
     lib.dit_masked_gram.restype = i
+    lib.dit_masked_gram_cores.argtypes = [p, i, p, p, i, p, i64, i, p, i, p,
+                                          p]
+    lib.dit_masked_gram_cores.restype = i
     lib.dit_fused_impute_aggregate.argtypes = [
         p, i, p, p, i, p, p, p, p, i, i, i, p, i, u32, u32, u32, p, i64, i,
         p, i, p, p]
@@ -108,8 +118,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.dit_presorted_gram.argtypes = [p, i, p, p, i, p, p, p, i, i64, i, p,
                                        i, p, p]
     lib.dit_presorted_gram.restype = i
-    lib.dit_nb_grouped_sums.argtypes = [p, i, p, p, i, p, p, i, i, i64, p, i,
-                                        p, p]
+    lib.dit_nb_grouped_sums.argtypes = [p, i, p, p, i, p, p, i64, p, p, p,
+                                        p, p, p, p, p, p]
     lib.dit_nb_grouped_sums.restype = i
     lib.dit_qda_predict.argtypes = [p, i, p, p, i, p, p, p, p, i, i, i,
                                     i64, i64, i, i, i, i, p, p]
@@ -228,18 +238,8 @@ def nb_features(schema) -> int:
     return 1 + 2 * schema.num_cols + schema.vocab_size
 
 
-def nb_ranges(schema) -> int:
-    """Feature ranges of the NB kernel's grid (blockIdx.y): 1 is K6 (F ≤
-    256, one feature a thread and several row groups), more is K6w (a
-    range of 256 features a block, the table read once per range)."""
-    return -(-nb_features(schema) // MAX_NB_FEATURES)
-
-
 def check_nb(schema, n: int) -> None:
     """Raise ValueError for an NB schema or row count K6/K6w do not take."""
-    if nb_ranges(schema) > MAX_NB_RANGES:
-        raise ValueError(f"{nb_features(schema)} NB features (1 + 2d + V) "
-                         f"are more than the NB kernel's grid holds")
     if schema.num_cols > MAX_COLS or schema.cat_cols > MAX_COLS:
         raise ValueError(f"more than {MAX_COLS} numeric or categorical "
                          f"columns is not supported by the NB kernel")
@@ -316,6 +316,24 @@ def int_array(values):
 
 def grid_blocks(n: int) -> int:
     return max(1, min(-(-n // CHUNK_ROWS), MAX_BLOCKS))
+
+
+def tc_fits(d: int, p: int) -> bool:
+    """Whether K1 takes S f32[P, P] of d numerics on the tensor cores
+    (tc_gram.cuh: tc_fits): S is its one output tile, the three bf16 parts
+    of each a (3P ≤ 63 left features) by 1 + 3d + V ≤ TC_RIGHT right
+    features (3 parts of each x, 1 for the constant and each one-hot).
+    BASELINE config 5 (d = 4, P = 21) fits; any other P ≤ 88 takes K1's
+    CUDA-core route, which reads the rows once (tiled over several
+    tensor-core tiles, each staging the rows again, it was slower at every
+    schema measured: PERF.md §6)."""
+    return p <= TC_A and p + 2 * d <= TC_RIGHT
+
+
+def tc_grid(n: int) -> int:
+    """K1's tensor-core blocks: a step of TC_ROWS rows each at most, at most
+    TC_MAX_BLOCKS; a function of n only."""
+    return max(1, min(-(-n // TC_ROWS), TC_MAX_BLOCKS))
 
 
 def group_chunks(offsets: torch.Tensor, rows: int) -> torch.Tensor:
@@ -423,6 +441,30 @@ def _slab_cost(kind: int, cells: int, d: int) -> int:
     return 16 + 4 * (1 + d) if kind == SLAB_K else 20
 
 
+def _pack_tasks(cells: list[int], cap: int) -> list[list[int]]:
+    """Slabs of `cells` cells each into tasks of at most `cap` cells and
+    WIDE_MAX_SLABS slabs."""
+    # tasks: as few as the budget allows; the largest slab first, each to
+    # the task with room that holds the fewest slabs (a block takes as long
+    # as its busiest warp)
+    order = sorted(range(len(cells)), key=lambda i: -cells[i])
+    count = -(-sum(cells) // cap)
+    while True:
+        tasks: list[list[int]] = [[] for _ in range(count)]
+        used = [0] * count
+        for i in order:
+            room = [t for t in range(count) if used[t] + cells[i] <= cap
+                    and len(tasks[t]) < WIDE_MAX_SLABS]
+            if not room:
+                break
+            t = min(room, key=lambda t: (len(tasks[t]), used[t]))
+            tasks[t].append(i)
+            used[t] += cells[i]
+        else:
+            return tasks
+        count += 1
+
+
 @functools.lru_cache(maxsize=32)
 def _wide_plan(d: int, sizes: tuple[int, ...], cross: bool = True,
                scorer: bool = False, cap: int = WIDE_TASK_BYTES // 8
@@ -458,25 +500,7 @@ def _wide_plan(d: int, sizes: tuple[int, ...], cross: bool = True,
                                (hi - lo) * sizes[k],
                                torch.stack([(u - lo) * sizes[k] + v,
                                             base[j] + u, base[k] + v])))
-    # tasks: as few as the budget allows; the largest slab first, each to
-    # the task with room that holds the fewest slabs (a block takes as long
-    # as its busiest warp)
-    order = sorted(range(len(pieces)), key=lambda i: -pieces[i][2])
-    count = -(-sum(p[2] for p in pieces) // cap)
-    while True:
-        tasks: list[list[int]] = [[] for _ in range(count)]
-        used = [0] * count
-        for i in order:
-            room = [t for t in range(count) if used[t] + pieces[i][2] <= cap
-                    and len(tasks[t]) < WIDE_MAX_SLABS]
-            if not room:
-                break
-            t = min(room, key=lambda t: (len(tasks[t]), used[t]))
-            tasks[t].append(i)
-            used[t] += pieces[i][2]
-        else:
-            break
-        count += 1
+    tasks = _pack_tasks([p[2] for p in pieces], cap)
     slabs, warp_begin, task_base, entries = [], [0], [0], []
     stage_cols, widths = [], []
     for members in tasks:
@@ -552,6 +576,154 @@ def qda_plan(schema, cross: bool = True) -> WidePlan:
     of K_j only row 0 (the rest of its cells are zero in NB's tables)."""
     return _wide_plan(schema.num_cols, tuple(schema.cat_sizes), cross, True,
                       QDA_TASK_CELLS)
+
+
+@dataclasses.dataclass(frozen=True)
+class NbPlan:
+    """The NB kernel's plan (nb_grouped_sums.cu): a row adds w·[1, x, x²]
+    under its group g and w under (g, code_j) for each categorical column
+    j, so the sums are the f64 tables D, G × (1 + 2d), and K_j, G × V_j,
+    cut by group range into slabs and the slabs into tasks of at most
+    `task_cells` cells, as `WidePlan` cuts K7's tables.
+
+    slabs i32[S, WIDE_SLAB_INTS]: (SLAB_D, v_lo, g_lo, g_hi, v_hi, off,
+      task, warp), the terms v_lo .. v_hi (at most d_terms) of D, cell
+      (g − g_lo)·(v_hi − v_lo) + v − v_lo; (SLAB_K, j, g_lo, g_hi, 0, off,
+      task, warp), cell (g − g_lo)·V_j + u; or, where one group's row of
+      K_j is longer than a task, (NB_SLAB_CODES, j, g, u_lo, u_hi, off,
+      task, warp), its codes u_lo .. u_hi, cell u − u_lo; sorted by (task,
+      warp).
+    warp_begin, task_base, stage_cols: as `WidePlan`'s (a task stages w,
+      the group ids, x if it holds a D slab, and its code columns).
+    out_index i32[cells]: each flat cell's place in out f32[G, F], F = 1 +
+      2d + V: D's (g, v) at g·F + v, K_j's (g, u) at g·F + 1 + 2d +
+      offset_j + u; every place once.
+    """
+    slabs: torch.Tensor
+    warp_begin: torch.Tensor
+    task_base: torch.Tensor
+    stage_cols: torch.Tensor
+    out_index: torch.Tensor
+    groups: int
+    max_stage_cols: int
+    max_slabs: int
+    stage_rows: int
+    task_cells: int
+    d_terms: int           # terms of D a slab, at most
+
+    num_tasks = WidePlan.num_tasks
+    max_task_cells = WidePlan.max_task_cells
+    slices = WidePlan.slices
+
+    def shape_ints(self, slices: int) -> list[int]:
+        """The kernel's sizes (kNbPlanInts, nb_grouped_sums.cu): tasks,
+        cells, the most cells, staged columns and slabs of a task, rows a
+        stage, slices, groups."""
+        return [self.num_tasks, int(self.task_base[-1]), self.max_task_cells,
+                self.max_stage_cols, self.max_slabs, self.stage_rows, slices,
+                self.groups]
+
+
+def _nb_pieces(d: int, sizes: tuple[int, ...], groups: int, cap: int,
+               terms: int) -> list:
+    """The NB plan's slabs before packing: (kind, params, cells, out
+    places); D cut into runs of `terms` terms and by group range, K_j by
+    group range or, where one group's row is longer than `cap`, by code
+    range for each group."""
+    f = 1 + 2 * d + sum(sizes)
+    g_all = torch.arange(groups)
+    pieces = []
+    for v_lo in range(0, 1 + 2 * d, terms):
+        v_hi = min(v_lo + terms, 1 + 2 * d)
+        for lo, hi in _split(groups, v_hi - v_lo, cap):
+            pieces.append((SLAB_D, (v_lo, lo, hi, v_hi),
+                           (hi - lo) * (v_hi - v_lo),
+                           (g_all[lo:hi, None] * f
+                            + torch.arange(v_lo, v_hi)).reshape(-1)))
+    base = 1 + 2 * d
+    for j, size in enumerate(sizes):
+        if size > cap:
+            for g in range(groups):
+                for lo, hi in _split(size, 1, cap):
+                    pieces.append((NB_SLAB_CODES, (j, g, lo, hi), hi - lo,
+                                   g * f + base + torch.arange(lo, hi)))
+        else:
+            for lo, hi in _split(groups, size, cap) if size else ():
+                pieces.append((SLAB_K, (j, lo, hi, 0), (hi - lo) * size,
+                               (g_all[lo:hi, None] * f + base
+                                + torch.arange(size)).reshape(-1)))
+        base += size
+    return pieces
+
+
+def _nb_layout(pieces: list, cap: int):
+    """Tasks of the pieces and, per task, each member's warp: the costliest
+    slab first, to the least loaded warp. Returns (tasks, warp_of, cost),
+    cost the sum over tasks of its busiest warp's load: a slab costs the
+    key match and its lane list (6 shuffle steps) and 5 a summed term (one
+    for K_j), what each chunk of 32 rows waits on (tools/nb_variants.py)."""
+    tasks = _pack_tasks([p[2] for p in pieces], cap)
+    cost = [6 + 5 * (p[1][3] - p[1][0] if p[0] == SLAB_D else 1)
+            for p in pieces]
+    warp_of, total = {}, 0
+    for members in tasks:
+        load = [0] * WIDE_WARPS
+        for i in sorted(members, key=lambda i: -cost[i]):
+            w = min(range(WIDE_WARPS), key=lambda w: load[w])
+            warp_of[i] = w
+            load[w] += cost[i]
+        total += max(load)
+    return tasks, warp_of, total
+
+
+@functools.lru_cache(maxsize=32)
+def _nb_plan(d: int, sizes: tuple[int, ...], groups: int,
+             cap: int = WIDE_TASK_BYTES // 8, d_terms: int = 0) -> NbPlan:
+    """d_terms: terms of D a slab, 0 for the count `_nb_layout` costs
+    least (the most terms among equals: fewer slabs)."""
+    f = 1 + 2 * d + sum(sizes)
+    terms = d_terms or min(
+        range(1, 2 + 2 * d), key=lambda t: (_nb_layout(
+            _nb_pieces(d, sizes, groups, cap, t), cap)[2], -t))
+    pieces = _nb_pieces(d, sizes, groups, cap, terms)
+    tasks, warp_of, _ = _nb_layout(pieces, cap)
+    slabs, warp_begin, task_base, places, stage_cols, widths = (
+        [], [0], [0], [], [], [])
+    for t, members in enumerate(tasks):
+        cols = sorted({pieces[i][1][0] for i in members
+                       if pieces[i][0] != SLAB_D})
+        stage_cols.append([len(cols)] + cols + [-1] * (MAX_COLS - len(cols)))
+        has_d = any(pieces[i][0] == SLAB_D for i in members)
+        widths.append(2 + (d if has_d else 0) + len(cols))
+        off = 0
+        for w in range(WIDE_WARPS):
+            for i in (i for i in members if warp_of[i] == w):
+                kind, params, cells, out = pieces[i]
+                slabs.append((kind, *params, off, t, w))
+                places.append(out)
+                off += cells
+            warp_begin.append(len(slabs))
+        task_base.append(task_base[-1] + off)
+    assert task_base[-1] == groups * f
+    max_cols, max_slabs = max(widths), max(map(len, tasks))
+    max_cells = max(b - a for a, b in zip(task_base, task_base[1:]))
+    rows = next(r for r in (256, 128, 64, 32) if wide_smem_bytes(
+        max_cells, max_cols, max_slabs, r) <= WIDE_SMEM)
+    return NbPlan(
+        slabs=torch.tensor(slabs, dtype=torch.int32).reshape(
+            -1, WIDE_SLAB_INTS),
+        warp_begin=torch.tensor(warp_begin, dtype=torch.int32),
+        task_base=torch.tensor(task_base, dtype=torch.int64),
+        stage_cols=torch.tensor(stage_cols, dtype=torch.int32),
+        out_index=torch.cat(places).to(torch.int32),
+        groups=groups, max_stage_cols=max_cols, max_slabs=max_slabs,
+        stage_rows=rows, task_cells=cap, d_terms=terms)
+
+
+def nb_plan(schema, num_groups: int) -> NbPlan:
+    """The NB kernel's plan for `schema` and `num_groups`, on the CPU; made
+    once per schema and group count."""
+    return _nb_plan(schema.num_cols, tuple(schema.cat_sizes), num_groups)
 
 
 def raise_on_error(lib: Library, rc: int, what: str) -> None:

@@ -8,10 +8,14 @@ directly, so a stacked [d, n] block never exists. `masked_gram` is the
 same kernels' entry point for stacked blocks (`sum_to_triple`).
 
 Both dispatch by the sigma size P, as the JAX dispatchers fall to pack = 1
-and a wider tile: P ≤ 88 takes K1 (`csrc/masked_gram.cu`, one 4×4 tile of
-S a thread), P > 88 takes K7 (`csrc/wide_gram.cu`: S's nonzero structure,
-the tables D, K_j and C_jk of `_build.WidePlan`, summed over each row's
-nonzeros in tasks over the grid), up to `_build.MAX_WIDE_SIGMA_SIZE`. CUDA
+and a wider tile: P ≤ 88 takes K1 (`csrc/masked_gram.cu` over
+`csrc/tc_gram.cuh`: the Gram of each value's three bf16 parts on the tensor
+cores, `masked_gram_split_plain` its arithmetic in plain torch, for a
+schema whose S is that kernel's one output tile, `_build.tc_fits`; any
+other takes its CUDA-core route, one 4×4 tile of S a thread), P > 88 takes
+K7 (`csrc/wide_gram.cu`: S's nonzero structure, the tables D, K_j and C_jk
+of `_build.WidePlan`, summed over each row's nonzeros in tasks over the
+grid), up to `_build.MAX_WIDE_SIGMA_SIZE`. CUDA
 tensors launch a kernel; the plain versions (`masked_gram_cols_plain`,
 `masked_gram_plain`) run only for CPU tensors. Kernels and plain versions
 round the cross-chunk sum from f64 to f32 once, so one-hot counts are
@@ -41,6 +45,46 @@ def masked_gram_cols_plain(x_cols, code_cols, weights, *,
     return masked_sigma(x, c, weights, schema=schema)
 
 
+def split3_plain(v: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """K1's split of f32 values into three bf16 parts (h, m, l), returned
+    as f32: h = bf16(v), m = bf16(v − h), l = bf16(v − h − m), each
+    rounded to nearest even; h + m + l == v for every v that is a multiple
+    of 2⁻¹³³ (csrc/tc_gram.cuh)."""
+    v = v.to(torch.float32)
+    h = v.to(torch.bfloat16).float()
+    m = (v - h).to(torch.bfloat16).float()
+    return h, m, (v - h - m).to(torch.bfloat16).float()
+
+
+def masked_gram_split_plain(x_cols, code_cols, weights, *,
+                            schema: FeatureSchema) -> torch.Tensor:
+    """Plain torch version of K1's arithmetic (csrc/tc_gram.cuh), used by
+    no path: the left operand holds the three bf16 parts of f32(w·z_a),
+    the right one the parts of z_b (one part for the constant and the
+    one-hots, three for each x); their Gram of parts, in f64 (each product
+    of two bf16 values is exact), is folded over the parts into S and
+    rounded to f32 once."""
+    x_cols, code_cols = list(x_cols), list(code_cols)
+    n = (x_cols + code_cols + [weights])[0].shape[-1]
+    w = (torch.ones(n) if weights is None else weights).to(torch.float32)
+    z = [torch.ones(n)] + [x.to(torch.float32) for x in x_cols]
+    for c, size in zip(code_cols, schema.cat_sizes):
+        z += [(c == v).to(torch.float32) for v in range(size)]
+    d = schema.num_cols
+    left = torch.stack([part for za in z for part in split3_plain(za * w)])
+    right = torch.stack([part for b, zb in enumerate(z)
+                         for part in (split3_plain(zb) if 1 <= b <= d
+                                      else (zb,))])
+    parts = left.double() @ right.double().T
+    p = schema.sigma_size
+    owner = torch.tensor([b for b in range(p)
+                          for _ in range(3 if 1 <= b <= d else 1)])
+    folded = torch.zeros((3 * p, p), dtype=torch.float64)
+    folded.index_add_(1, owner, parts)
+    upper = folded.reshape(p, 3, p).sum(1).triu().float()
+    return upper + upper.triu(1).T       # S[b, a] = S[a, b], as the kernel
+
+
 def _launch(x_cols, code_cols, weights, n: int, device, schema,
             wrapper) -> torch.Tensor:
     """One launch of K1, or of K7 when P > 88, over per-column [n] tensors
@@ -68,17 +112,25 @@ def _launch(x_cols, code_cols, weights, n: int, device, schema,
                            lib, what)
         wrapper.wide_launches += 1
         return out
-    nblocks = _build.grid_blocks(n)
-    partial = torch.empty(lib.lib.dit_gram_entries(p) * nblocks,
-                          dtype=torch.float64, device=device)
     out = torch.empty((p, p), dtype=torch.float32, device=device)
     sizes = schema.cat_sizes
-    with torch.cuda.device(device):
-        rc = lib.lib.dit_masked_gram(
-            _build.pointers(x_cols), len(x_cols), _build.pointers(code_cols),
-            _build.int_array(sizes), len(sizes), weights.data_ptr(), n, p,
-            partial.data_ptr(), nblocks, out.data_ptr(),
-            torch.cuda.current_stream(device).cuda_stream)
+    cols = (_build.pointers(x_cols), len(x_cols), _build.pointers(code_cols),
+            _build.int_array(sizes), len(sizes), weights.data_ptr(), n, p)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if _build.tc_fits(schema.num_cols, p):    # the tensor cores
+        nblocks = _build.tc_grid(n)
+        partial = torch.empty(_build.TC_A ** 2 * nblocks, dtype=torch.float64,
+                              device=device)
+        with torch.cuda.device(device):
+            rc = lib.lib.dit_masked_gram(*cols, partial.data_ptr(), nblocks,
+                                         out.data_ptr(), stream)
+    else:                                     # the CUDA cores
+        nblocks = _build.grid_blocks(n)
+        partial = torch.empty(lib.lib.dit_gram_entries(p) * nblocks,
+                              dtype=torch.float64, device=device)
+        with torch.cuda.device(device):
+            rc = lib.lib.dit_masked_gram_cores(
+                *cols, partial.data_ptr(), nblocks, out.data_ptr(), stream)
     _build.raise_on_error(lib, rc, what)
     wrapper.launches += 1
     return out

@@ -499,8 +499,9 @@ def test_limit_constants_equal_the_kernels():
              "WIDE_STAGE_ROWS": "kThreads", "WIDE_PLAN_INTS": "kWidePlanInts",
              "MAX_COLS": "kMaxCols",
              "MAX_UNSORTED_GROUPS": "kMaxUnsortedGroups",
-             "MAX_NB_GROUPS": "kMaxNbGroups",
-             "MAX_NB_FEATURES": "kThreads", "MAX_NB_RANGES": "kMaxNbRanges",
+             "NB_PLAN_INTS": "kNbPlanInts", "TC_ROWS": "kTcRows",
+             "TC_A": "kTcA", "TC_RIGHT": "kTcRight",
+             "NB_SLAB_CODES": "kNbSlabCodes",
              "QDA_THREADS": "kQdaThreads", "QDA_MAX_GROUP": "kQdaMaxGroup",
              "QDA_MAX_SUMS": "kQdaMaxSums"}
     for py, c in pairs.items():
@@ -525,22 +526,37 @@ def test_unsorted_group_limit_by_p():
 
 
 def test_nb_and_qda_routes():
-    """K6 up to F = 256, K6w (ceil(F / 256) feature ranges) above; K3 for
-    a plan of one task (a block of half the threads), K3w for several, each
-    with the most classes a step (≤ 4, ≤ C) whose tile of 8 / group rows a
-    thread its shared memory holds."""
+    """The NB kernel, one launch for any G and F (K6 up to F = 256, K6w
+    above): its plan's tasks fit a block's shared memory and one task
+    holds config 3 at G = 5 and G = 100, favorita's family labels take
+    two; K3 for a plan of one task (a block of half the threads), K3w for
+    several, each with the most classes a step (≤ 4, ≤ C) whose tile of 8
+    / group rows a thread its shared memory holds."""
     config3 = FeatureSchema(num_cols=8, cat_keys=(tuple(range(8)),) * 4)
-    assert _build.nb_ranges(config3) == 1
     at_limit = FeatureSchema(num_cols=3, cat_keys=(tuple(range(249)),))
-    assert _build.nb_features(at_limit) == 256
-    assert _build.nb_ranges(at_limit) == 1
+    assert _build.nb_features(at_limit) == 256      # K6; above, K6w
     above = FeatureSchema(num_cols=3, cat_keys=(tuple(range(250)),))
-    assert _build.nb_ranges(above) == 2
     _build.check_nb(above, 10_000_000)
     favorita = FeatureSchema(num_cols=3, cat_keys=tuple(
         tuple(range(v)) for v in (54, 337, 2, 2, 22, 16, 5, 17)))
     assert _build.nb_features(favorita) == 462
-    assert _build.nb_ranges(favorita) == 2
+    for schema, groups, tasks in ((config3, 5, 1), (config3, 100, 1),
+                                  (at_limit, 1, 1), (above, 40, 2),
+                                  (favorita, 33, 2)):
+        plan = _build.nb_plan(schema, groups)
+        assert plan.num_tasks == tasks, (schema, groups)
+        assert plan.max_task_cells <= _build.WIDE_TASK_BYTES // 8
+        assert _build.wide_smem_bytes(
+            plan.max_task_cells, plan.max_stage_cols, plan.max_slabs,
+            plan.stage_rows) <= _build.WIDE_SMEM
+        assert int(plan.task_base[-1]) == groups * _build.nb_features(schema)
+    # one group's row past a task: cut by code range, one launch still
+    long_row = FeatureSchema(num_cols=1, cat_keys=(
+        tuple(range(_build.WIDE_TASK_BYTES // 8 + 1)),))
+    _build.check_nb(long_row, 10)
+    plan = _build.nb_plan(long_row, 2)
+    assert plan.max_task_cells <= _build.WIDE_TASK_BYTES // 8
+    assert int(plan.task_base[-1]) == 2 * _build.nb_features(long_row)
 
     config4 = FeatureSchema(num_cols=4, cat_keys=(tuple(range(8)),) * 2)
     assert _build.qda_plan(config4).num_tasks == 1             # K3
@@ -625,7 +641,7 @@ def _wide_calls():
          "dit_grouped_wide_gram",
          lambda: port_g.grouped_gram_presorted(xt, ct, torch.ones(600),
                                                layout, schema=SCHEMA_144)),
-        (port_nb.nb_grouped_sums, "wide_launches", "dit_nb_grouped_sums",
+        (port_nb.nb_grouped_sums, "launches", "dit_nb_grouped_sums",
          lambda: port_nb.nb_grouped_sums(xt, ct, None, gt, schema=nb_schema,
                                          num_groups=3)),
         (port_qda.qda_predict_kernel, "wide_launches", "dit_qda_predict",

@@ -117,20 +117,26 @@ def test_masked_gram_cols_kernel_matches_plain(cuda, n):
                                atol=1e-6 * float(want.abs().max()))
 
 
-@pytest.mark.parametrize("keys", [((0, 1, 2),) * 3, (tuple(range(70)),)])
-def test_masked_gram_cols_kernel_other_schemas(cuda, keys):
-    """A narrow schema (P = 11) and one near the kernel's P limit (P = 75,
-    one row group per tile)."""
-    schema = FeatureSchema(num_cols=1, cat_keys=keys)
+@pytest.mark.parametrize("d,keys", [
+    (1, ((0, 1, 2),) * 3), (1, (tuple(range(70)),)),
+    (24, (tuple(range(21)),) * 3)])
+def test_masked_gram_cols_kernel_other_schemas(cuda, d, keys):
+    """A narrow schema (P = 11, on the tensor cores), one near the kernel's
+    P limit (P = 72) and one at it with many numerics (P = 88, d = 24), both
+    on the CUDA cores."""
+    schema = FeatureSchema(num_cols=d, cat_keys=keys)
+    assert _build.tc_fits(d, schema.sigma_size) == (schema.sigma_size == 11)
     rng = np.random.default_rng(2)
     n = 40_000
-    xs = [torch.tensor(rng.normal(size=n).astype(np.float32), device=cuda)]
+    xs = [torch.tensor(rng.normal(size=n).astype(np.float32), device=cuda)
+          for _ in range(d)]
     cs = [torch.tensor(rng.integers(0, len(k) + 1, n).astype(np.int32),
                        device=cuda) for k in keys]
     got = masked_gram_cols(xs, cs, None, schema=schema)
     want = masked_gram_cols_plain(xs, cs, None, schema=schema)
     cm = count_mask(schema, cuda)
     assert torch.equal(got[cm], want[cm])
+    assert torch.equal(got, got.T)
     torch.testing.assert_close(got, want, rtol=1e-5,
                                atol=1e-6 * float(want.abs().max()))
 
@@ -356,19 +362,86 @@ def test_sum_to_triple_grouped_kernel_on_the_card_matches_cpu(cuda):
 @pytest.mark.parametrize("n,groups,binary", [
     (1, 1, True), (70_001, 5, True), (70_001, 5, False), (100_003, 40, True)])
 def test_nb_grouped_sums_kernel_matches_plain(cuda, n, groups, binary):
-    """K6: counts exact, sums within 1e-5 relative; 40 groups take two
-    launches."""
+    """K6: counts exact, sums within 1e-5 relative; one launch a call for
+    any number of groups."""
     x, c, w, g = grouped_inputs(n, groups, cuda, binary=binary)
     before = nb_grouped_sums.launches
     got = nb_grouped_sums(x, c, w, g, schema=SCHEMA, num_groups=groups)
     again = nb_grouped_sums(x, c, w, g, schema=SCHEMA, num_groups=groups)
-    assert nb_grouped_sums.launches == before + 2 * -(-groups // 32)
+    assert nb_grouped_sums.launches == before + 2
     assert torch.equal(got, again)
     want = nb_grouped_sums_plain(x, c, w, g, schema=SCHEMA,
                                  num_groups=groups)
     if binary:
         assert torch.equal(got[:, 0], want[:, 0])
         assert torch.equal(got[:, 9:], want[:, 9:])
+    torch.testing.assert_close(got, want, rtol=1e-5,
+                               atol=1e-6 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("general", [False, True])
+def test_nb_grouped_sums_kernel_with_a_split_table(cuda, general):
+    """G = 100 over a column of 200 values: the 100 × 200 table of its
+    counts is cut by group range over several tasks, each reading the rows;
+    one launch; counts exact (no weights), sums within 1e-5 relative, two
+    calls bit-identical."""
+    schema = FeatureSchema(num_cols=2, cat_keys=(tuple(range(200)),
+                                                 tuple(range(8))))
+    groups, n = 100, 200_003
+    assert _build.nb_plan(schema, groups).num_tasks > 1
+    rng = np.random.default_rng(12)
+    x = torch.tensor(rng.normal(size=(2, n)).astype(np.float32) * 2 + 1,
+                     device=cuda)
+    c = torch.tensor(np.stack([rng.integers(-1, 201, n),
+                               rng.integers(0, 9, n)]).astype(np.int32),
+                     device=cuda)
+    g = torch.tensor(rng.integers(-1, groups + 1, n).astype(np.int32),
+                     device=cuda)
+    w = torch.rand(n, device=cuda) if general else None
+    before = nb_grouped_sums.launches
+    got = nb_grouped_sums(x, c, w, g, schema=schema, num_groups=groups)
+    again = nb_grouped_sums(x, c, w, g, schema=schema, num_groups=groups)
+    assert nb_grouped_sums.launches == before + 2
+    assert torch.equal(got, again)
+    want = nb_grouped_sums_plain(x, c, w, g, schema=schema,
+                                 num_groups=groups)
+    if not general:
+        assert torch.equal(got[:, 0], want[:, 0])
+        assert torch.equal(got[:, 5:], want[:, 5:])
+    torch.testing.assert_close(got, want, rtol=1e-5,
+                               atol=1e-6 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("general", [False, True])
+def test_nb_grouped_sums_kernel_with_a_long_row(cuda, general):
+    """A column of 20,000 values, past a task's 8,192 cells: each of the 4
+    groups' rows of its table is cut by code range into three slabs; one
+    launch; counts exact (no weights), sums within 1e-5 relative, two calls
+    bit-identical."""
+    schema = FeatureSchema(num_cols=2, cat_keys=(tuple(range(20_000)),
+                                                 tuple(range(8))))
+    groups, n = 4, 300_007
+    assert sum(s[0] == _build.NB_SLAB_CODES
+               for s in _build.nb_plan(schema, groups).slabs.tolist()) == 12
+    rng = np.random.default_rng(13)
+    x = torch.tensor(rng.normal(size=(2, n)).astype(np.float32) * 2 + 1,
+                     device=cuda)
+    c = torch.tensor(np.stack([rng.integers(-1, 20_001, n),
+                               rng.integers(0, 9, n)]).astype(np.int32),
+                     device=cuda)
+    g = torch.tensor(rng.integers(-1, groups + 1, n).astype(np.int32),
+                     device=cuda)
+    w = torch.rand(n, device=cuda) if general else None
+    before = nb_grouped_sums.launches
+    got = nb_grouped_sums(x, c, w, g, schema=schema, num_groups=groups)
+    again = nb_grouped_sums(x, c, w, g, schema=schema, num_groups=groups)
+    assert nb_grouped_sums.launches == before + 2
+    assert torch.equal(got, again)
+    want = nb_grouped_sums_plain(x, c, w, g, schema=schema,
+                                 num_groups=groups)
+    if not general:
+        assert torch.equal(got[:, 0], want[:, 0])
+        assert torch.equal(got[:, 5:], want[:, 5:])
     torch.testing.assert_close(got, want, rtol=1e-5,
                                atol=1e-6 * float(want.abs().max()))
 
@@ -566,6 +639,7 @@ def test_wide_gram_at_its_limit(cuda):
     want = masked_gram_cols_plain(xs, cs, None, schema=schema)
     cm = count_mask(schema, cuda)
     assert torch.equal(got[cm], want[cm])
+    assert torch.equal(got, got.T)
     torch.testing.assert_close(got, want, rtol=0,
                                atol=1e-5 * float(want.abs().max()))
     over = FeatureSchema(num_cols=4, cat_keys=keys)
@@ -790,12 +864,12 @@ NB_WIDE = {"F267": (3, (tuple(range(200)), tuple(range(60)))),
     ("F267", 1, 1, True), ("F267", 70_001, 5, False),
     ("F493", 100_003, 2, True), ("F493", 100_003, 40, True)])
 def test_nb_wide_sums_kernel_matches_plain(cuda, name, n, groups, binary):
-    """K6w (F > 256, two feature ranges): counts exact with binary
-    weights, sums within 1e-5 relative, two calls bit-identical; 40
-    groups take two launches a call."""
+    """K6w (F > 256): counts exact with binary weights, sums within 1e-5
+    relative, two calls bit-identical; one launch a call for any number of
+    groups."""
     d, keys = NB_WIDE[name]
     schema = FeatureSchema(num_cols=d, cat_keys=keys)
-    assert _build.nb_ranges(schema) == 2
+    assert _build.nb_features(schema) > 256
     rng = np.random.default_rng(n)
     x = torch.tensor(rng.normal(size=(d, n)).astype(np.float32) * 3,
                      device=cuda)
@@ -804,11 +878,10 @@ def test_nb_wide_sums_kernel_matches_plain(cuda, name, n, groups, binary):
     g = torch.tensor(rng.integers(-1, groups + 1, n).astype(np.int32),
                      device=cuda)
     w = None if binary else torch.rand(n, device=cuda)
-    narrow, before = nb_grouped_sums.launches, nb_grouped_sums.wide_launches
+    before = nb_grouped_sums.launches
     got = nb_grouped_sums(x, c, w, g, schema=schema, num_groups=groups)
     again = nb_grouped_sums(x, c, w, g, schema=schema, num_groups=groups)
-    assert nb_grouped_sums.wide_launches == before + 2 * -(-groups // 32)
-    assert nb_grouped_sums.launches == narrow
+    assert nb_grouped_sums.launches == before + 2
     assert torch.equal(got, again)
     want = nb_grouped_sums_plain(x, c, w, g, schema=schema,
                                  num_groups=groups)
@@ -895,10 +968,10 @@ def test_wide_classifier_pipelines_on_the_card_match_cpu(cuda):
         return nb_predict_device(*params, x, c, schema=schema)
 
     k8 = grouped_gram_presorted.wide_launches
-    k6w = nb_grouped_sums.wide_launches
+    k6w = nb_grouped_sums.launches
     for pipe in (qda, nb):
         got = pipe(x, c, g).cpu()
         want = pipe(x.cpu(), c.cpu(), g.cpu())
         assert float((got == want).float().mean()) >= 0.999
     assert grouped_gram_presorted.wide_launches > k8
-    assert nb_grouped_sums.wide_launches > k6w
+    assert nb_grouped_sums.launches > k6w
