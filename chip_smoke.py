@@ -3,7 +3,9 @@
 Drives the three paths of `duckdb_imputation_tpu_torch` ported so far:
 
 - the MICE loop, `run_mice_device`, unfused over the masked-Gram kernel
-  (K1) and fused over the fused impute+aggregate kernel (K2), at the
+  (K1) and fused over the fused impute+aggregate kernel (K2, on K1's
+  tensor-core kernel with an impute prologue; `[K2]` also holds its
+  CUDA-core route at P = 88), at the
   schema of BASELINE.md config 5 (4 numeric columns, two categorical
   columns of 8: P = 21) and 10M rows, then one fused round at the
   deployment scale of 100M rows;
@@ -186,6 +188,16 @@ def bound(nbytes: float, flops: float) -> dict:
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32 * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def sm_clock_hz() -> float:
+    """The card's highest SM clock, from nvidia-smi (clocks.max.sm, MHz)."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
+    return float(smi.stdout.strip().splitlines()[0]) * 1e6
 
 
 def row_bytes(schema, extra: int = 0) -> int:
@@ -483,11 +495,15 @@ def phase_k2(seed: int) -> dict:
         linreg_solve_device)
     from duckdb_imputation_tpu_torch.ring.kernels.sigma_fused import (
         fused_impute_aggregate, fused_impute_aggregate_plain)
+    from duckdb_imputation_tpu_torch.ring.kernels import _build
     from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas import (
         masked_gram_cols)
 
     t = init_fill(make_table(N, seed)[0])
     schema = t.schema
+    route = ("tensor cores" if _build.tc_fits(schema.num_cols,
+                                              schema.sigma_size)
+             else "CUDA cores")
     x_cols = list(t.num_data.unbind(0))
     code_cols = list(t.cat_codes.unbind(0))
     w_c0 = (~t.cat_null[0]).float()
@@ -514,7 +530,8 @@ def phase_k2(seed: int) -> dict:
     k2_bound = gram_bound(t.cat_codes, schema, w_x1, extra=9,
                           scores=8 * (1 + 4 + 2),
                           scored=int(t.cat_null[0].sum()))
-    log(f"[K2] cat step n={N}: code agreement {agree:.6f}, sigma max rel "
+    log(f"[K2] cat step n={N} P={schema.sigma_size} ({route}): code "
+        f"agreement {agree:.6f}, sigma max rel "
         f"err {err:.3e}, max abs err {abs_err:.3e}; kernel {ms:.4f} ms, "
         f"plain {plain_ms:.4f} ms, bound {k2_bound['bound_ms']:.4f} ms "
         f"({k2_bound['bound_by']})")
@@ -524,6 +541,7 @@ def phase_k2(seed: int) -> dict:
     theta = coeff.clone()
     theta[2] = 0.0
     std = _noise_std(coeff, sig_x)
+    num_ms = {}
     for noise in (None, (seed, 0, std)):
         num_args = (x_cols, code_cols, t.num_null[1], w_c0, theta[:, None],
                     theta.new_zeros(1))
@@ -537,11 +555,74 @@ def phase_k2(seed: int) -> dict:
         check(dx <= 1e-4, f"K2 num max|Δx| {dx:.3e} > 1e-4")
         check(e <= 1e-5, f"K2 num sigma rel err {e:.3e} > 1e-5")
         k_ms = cuda_ms(lambda: fused_impute_aggregate(*num_args, **num_kw))
-        log(f"[K2] num step n={N} noise={noise is not None}: max|Δx| "
-            f"{dx:.3e}, sigma max rel err {e:.3e}; kernel {k_ms:.4f} ms")
+        num_ms[f"noise={noise is not None}"] = k_ms
+        log(f"[K2] num step n={N} noise={noise is not None} ({route}): "
+            f"max|Δx| {dx:.3e}, sigma max rel err {e:.3e}; kernel "
+            f"{k_ms:.4f} ms")
     # no single PyTorch call imputes and aggregates in one pass
     return dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, **k2_bound,
-                library_ms=None)
+                library_ms=None, k2_route=route, num_ms=num_ms,
+                p88=k2_near_limit(seed))
+
+
+def k2_near_limit(seed: int) -> dict:
+    """K2 at the P = 88 schema of K1's near-limit case (24 numeric
+    columns, three categorical columns of 21: past the tensor cores' one
+    output tile, so K2's CUDA-core route), 10M rows, 20% nulls, random
+    coefficients, a 'cat' then a 'num' step: the gates of [K2], kernel,
+    plain and bound times of the 'cat' step."""
+    from duckdb_imputation_tpu_torch import FeatureSchema
+    from duckdb_imputation_tpu_torch.ring.kernels import _build
+    from duckdb_imputation_tpu_torch.ring.kernels.sigma_fused import (
+        fused_impute_aggregate, fused_impute_aggregate_plain)
+
+    schema = FeatureSchema(num_cols=24, cat_keys=(tuple(range(21)),) * 3)
+    check(not _build.tc_fits(24, 88), "K2 P=88 is not on its CUDA-core route")
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(seed + 31)
+    xs = list(torch.randn((24, N), generator=g, device=DEVICE).unbind(0))
+    cs = list(torch.randint(-1, 22, (3, N), generator=g, device=DEVICE,
+                            dtype=torch.int32).unbind(0))
+    null = torch.rand(N, generator=g, device=DEVICE) < 0.2
+    w = (torch.rand(N, generator=g, device=DEVICE) >= 0.2).float()
+    out = {}
+    for kind, col, r in (("cat", 0, 21), ("num", 1, 1)):
+        args = (xs, cs, null, w,
+                torch.randn((88, r), generator=g, device=DEVICE),
+                torch.randn(r, generator=g, device=DEVICE))
+        kw = dict(schema=schema, kind=kind, imp_col=col)
+        before = fused_impute_aggregate.launches
+        new_k, sig_k = fused_impute_aggregate(*args, **kw)
+        new_a, sig_a = fused_impute_aggregate(*args, **kw)
+        new_p, sig_p = fused_impute_aggregate_plain(*args, **kw)
+        torch.cuda.synchronize()
+        check(fused_impute_aggregate.launches == before + 2,
+              "K2 P=88 was not launched")
+        check(torch.equal(new_k, new_a) and torch.equal(sig_k, sig_a),
+              "K2 P=88 repeated run not bit-identical")
+        err = rel_err(sig_k, sig_p)
+        check(err <= 1e-5, f"K2 P=88 {kind} sigma rel err {err:.3e} > 1e-5")
+        if kind == "cat":
+            agree = float((new_k == new_p).float().mean())
+            check(agree >= 0.9999, f"K2 P=88 cat code agreement {agree}")
+            what = f"code agreement {agree:.6f}"
+        else:
+            dx = float((new_k - new_p).abs().max())
+            check(dx <= 1e-4, f"K2 P=88 num max|Δx| {dx:.3e} > 1e-4")
+            what = f"max|Δx| {dx:.3e}"
+        ms = cuda_ms(lambda: fused_impute_aggregate(*args, **kw), reps=5,
+                     warmup=1)
+        plain_ms = cuda_ms(lambda: fused_impute_aggregate_plain(*args, **kw),
+                           reps=2, warmup=1)
+        b = gram_bound(torch.stack(cs), schema, w, extra=9,
+                       scores=r * (1 + 24 + 3), scored=int(null.sum()))
+        log(f"[K2] {kind} step n={N} P=88 d=24 (CUDA cores): {what}, sigma "
+            f"max rel err {err:.3e}, bit-identical rerun; kernel {ms:.4f} "
+            f"ms, plain {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
+            f"({b['bound_by']})")
+        out[kind] = dict(max_abs_err=float((sig_k - sig_p).abs().max()),
+                         ms=ms, plain_ms=plain_ms, **b, library_ms=None)
+    return out
 
 
 def phase_reference(seed: int) -> None:
@@ -1302,7 +1383,8 @@ def phase_k2w(seed: int, n: int = N) -> dict:
     """K2w at favorita_wide: a 'cat' step imputing family (R = 33), one at
     R = 337 (class, with 20% of its rows set to impute), and a 'num' step
     imputing transactions with noise; the coefficients are trained on the
-    table's own sigma."""
+    table's own sigma. Each 'cat' step also times its impute kernel alone
+    (K2w less K7 over the updated columns, with its own bounds)."""
     from duckdb_imputation_tpu_torch.mice.device_round import (
         _lda_device, _noise_std, _w_full)
     from duckdb_imputation_tpu_torch.mice.partition import init_fill
@@ -1345,16 +1427,50 @@ def phase_k2w(seed: int, n: int = N) -> dict:
         plain_ms = cuda_ms(lambda: fused_impute_aggregate_plain(*args, **kw),
                            reps=2, warmup=1)
         rclasses = schema.cat_sizes[col]
+        nulls = int(null.sum())
         k_bound = gram_bound(t.cat_codes, schema, w_next, extra=9,
-                             scores=rclasses * (1 + 3 + 9),
-                             scored=int(null.sum()))
+                             scores=rclasses * (1 + 3 + 9), scored=nulls)
         log(f"[K2w] cat step {name} n={n}: code agreement {agree:.7f}, "
             f"sigma max rel err {err:.3e}, max abs err {abs_err:.3e}; "
             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
             f"{k_bound['bound_ms']:.4f} ms ({k_bound['bound_by']})")
+        # the impute kernel alone: K2w less K7 over the updated columns,
+        # timed in turn; its bound: the mask, the old and the new code of
+        # every row, x and codes of the null rows and W once; R·(1 + d +
+        # c) multiply-adds a null row. Logged beside it, not in the
+        # kernels line: the floor of its categorical lookups in W in
+        # shared memory, c words a class a null row (the numeric terms
+        # can stay in registers) at one 128-byte warp read a clock on
+        # each SM at the card's highest SM clock
+        upd = list(cs)
+        upd[col] = new_k
+        ms2 = cuda_ms(lambda: fused_impute_aggregate(*args, **kw), reps=5,
+                      warmup=1)
+        k7_ms = [cuda_ms(lambda: masked_gram_cols(xs, upd, w_next,
+                                                  schema=schema),
+                         reps=5, warmup=1) for _ in range(2)]
+        k2w_ms = (ms + ms2) / 2
+        imp_ms = k2w_ms - sum(k7_ms) / 2
+        terms = 1 + schema.num_cols + schema.cat_cols
+        imp = dict(ms=imp_ms, k2w_ms=k2w_ms, k7_ms=sum(k7_ms) / 2,
+                   **bound(n * 9 + nulls * row_bytes(schema)
+                           + 4 * (schema.sigma_size + 1) * rclasses,
+                           2 * rclasses * terms * nulls))
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        clock = sm_clock_hz()
+        lookups_ms = (nulls * rclasses * schema.cat_cols
+                      / (sms * 32 * clock) * 1e3)
+        log(f"[K2w] impute kernel alone, {name}: K2w {k2w_ms:.4f} ms less "
+            f"K7 {imp['k7_ms']:.4f} ms = {imp_ms:.4f} ms; bound "
+            f"{imp['bound_ms']:.4f} ms ({imp['bound_by']}); shared-memory "
+            f"floor of the categorical lookups {lookups_ms:.4f} ms "
+            f"({nulls} null rows × {rclasses} classes × {schema.cat_cols} "
+            f"codes over {sms} SMs × 32 words at {clock / 1e6:.0f} MHz), "
+            f"{imp_ms / lookups_ms:.2f}× it")
         if col == 1:
             out = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
                        **k_bound, library_ms=None)
+        out.setdefault("impute", {})[f"R={rclasses}"] = imp
 
     sig_x = masked_gram_cols(xs, cs, w_tx, schema=schema)
     coeff = linreg_solve_device(sig_x, label=2)
@@ -1375,6 +1491,7 @@ def phase_k2w(seed: int, n: int = N) -> dict:
                  warmup=1)
     log(f"[K2w] num step with noise n={n}: max|Δx| {dx:.3e}, sigma max rel "
         f"err {e:.3e}; kernel {ms:.4f} ms")
+    out["num_ms"] = ms
     return out
 
 

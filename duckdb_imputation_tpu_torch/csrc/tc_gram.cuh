@@ -47,6 +47,13 @@
 //      at 16 as built (4.0e-7 general weights, 3.0e-7 at 100M rows),
 //      7.5e-7 at 32, 3.6e-6 at 128 (4.7e-6 general), 1.9e-5 with no
 //      flush, 2.3e-4 with none at 100M; tools/k1_variants.py, PERF.md).
+//   1′. A prologue (tc_gram_prologue_kernel's template argument) may
+//      stage more columns of a row, and rewrite the thread's staged row
+//      between its wait_group and step 2: K1's does nothing; K2's
+//      (fused_impute_aggregate.cu: TcImpute) stages the row's null byte,
+//      scores a null row from its staged values and coefficients in shared
+//      memory, writes the new value out and puts it in the staged row, so
+//      steps 2-5 aggregate the updated row.
 //   5. After its last step the block folds S′ into S in f64, in a fixed
 //      order (p, then b′), into its partial; tc_gram_reduce sums the
 //      blocks in f64 and rounds to f32 once, writing S[a, b] and S[b, a]
@@ -136,14 +143,27 @@ __device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// K1's prologue: nothing staged beside w, x and codes, nothing done
+// before a row is built.
+struct TcNoPrologue {
+  static constexpr int kExtraCols = 0;   // staged columns after the codes
+  int smem_floats() const { return 0; }
+  __device__ __forceinline__ void load(float*) const {}
+  __device__ __forceinline__ void stage(float*, int64_t, bool) const {}
+  __device__ __forceinline__ void apply(float*, const float*, const Cols&,
+                                        int64_t, bool) const {}
+};
+
 // Shared memory of a block: the operand tiles (after the last step they
 // hold the f64 sums for the fold), kTcStages raw buffers of 1 + d + c
-// columns, the one-hot positions each thread wrote (left and right, one
-// per column).
-inline size_t tc_smem_bytes(int d, int c) {
+// (+ the prologue's) columns, the one-hot positions each thread wrote
+// (left and right, one per column), the prologue's floats.
+template <class Pro>
+inline size_t tc_smem_bytes(int d, int c, const Pro& pro) {
   return sizeof(__nv_bfloat16) * (kTcLeft + kTcRight) * kTcStride +
-         sizeof(float) * kTcStages * (1 + d + c) * kTcRows +
-         sizeof(short) * 2 * c * kTcRows;
+         sizeof(float) * kTcStages * (1 + d + c + Pro::kExtraCols) *
+             kTcRows +
+         sizeof(short) * 2 * c * kTcRows + sizeof(float) * pro.smem_floats();
 }
 static_assert(sizeof(__nv_bfloat16) * (kTcLeft + kTcRight) * kTcStride >=
                   sizeof(double) * kTcAcc * kTcThreads,
@@ -193,22 +213,28 @@ __device__ __forceinline__ void build_row(
   }
 }
 
-__global__ void __launch_bounds__(kTcThreads)
-tc_gram_kernel(const __grid_constant__ Cols cols, int P,
-               const float* __restrict__ w, int64_t n,
-               double* __restrict__ partial) {
+// The kernel's body, shared by K1's kernel and the kernels with a
+// prologue, which differ only in their __launch_bounds__.
+template <class Pro>
+__device__ __forceinline__ void tc_gram_steps(const Cols& cols, int P,
+                                              const float* __restrict__ w,
+                                              int64_t n,
+                                              double* __restrict__ partial,
+                                              const Pro& pro) {
   extern __shared__ __align__(16) unsigned char tc_smem[];
   __nv_bfloat16* left = reinterpret_cast<__nv_bfloat16*>(tc_smem);
   __nv_bfloat16* right = left + kTcLeft * kTcStride;
-  const int d = cols.d, c = cols.c, ncol = 1 + d + c;
+  const int d = cols.d, c = cols.c, ncol = 1 + d + c + Pro::kExtraCols;
   float* raw = reinterpret_cast<float*>(right + kTcRight * kTcStride);
   short* prev = reinterpret_cast<short*>(raw + kTcStages * ncol * kTcRows);
+  float* pro_smem = reinterpret_cast<float*>(prev + 2 * c * kTcRows);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
   const __nv_bfloat16 zero = __float2bfloat16_rn(0.0f);
   for (int e = tid; e < (kTcLeft + kTcRight) * kTcStride; e += kTcThreads)
     left[e] = zero;
   for (int e = tid; e < 2 * c * kTcRows; e += kTcThreads) prev[e] = -1;
+  pro.load(pro_smem);
   __syncthreads();
   right[tid] = __float2bfloat16_rn(1.0f);   // the constant
 
@@ -230,6 +256,7 @@ tc_gram_kernel(const __grid_constant__ Cols cols, int P,
       for (int j = 0; j < c; ++j)
         tc_stage4(buf + (1 + d + j) * kTcRows, cols.code[j] + row, valid,
                   __int_as_float(-1));
+      pro.stage(buf + (1 + d + c) * kTcRows, row, valid);
     }
     asm volatile("cp.async.commit_group;\n" ::);
   };
@@ -252,9 +279,12 @@ tc_gram_kernel(const __grid_constant__ Cols cols, int P,
     asm volatile("cp.async.wait_group %0;\n" ::"n"(kTcStages - 1));
     __syncthreads();   // the last step's products are done
 
-    // 2. this thread's row into the operand tiles
-    build_row(raw + (s % kTcStages) * ncol * kTcRows + tid, left + tid,
-              right + tid, prev + tid, cols);
+    // 1′. the prologue on this thread's staged row, then 2. the row into
+    // the operand tiles
+    float* rb = raw + (s % kTcStages) * ncol * kTcRows + tid;
+    const int64_t row = (first + int64_t(s) * gridDim.x) * kTcRows + tid;
+    pro.apply(rb, pro_smem, cols, row, row < n);
+    build_row(rb, left + tid, right + tid, prev + tid, cols);
     __syncthreads();   // every row of this step is in the tiles
 
     // 3. this warp's m16 tile of the output over the step's rows
@@ -321,6 +351,24 @@ tc_gram_kernel(const __grid_constant__ Cols cols, int P,
   }
 }
 
+// K1.
+__global__ void __launch_bounds__(kTcThreads)
+tc_gram_kernel(const __grid_constant__ Cols cols, int P,
+               const float* __restrict__ w, int64_t n,
+               double* __restrict__ partial) {
+  tc_gram_steps(cols, P, w, n, partial, TcNoPrologue());
+}
+
+// The Gram with the prologue `pro`, at least Pro::kMinBlocks blocks an SM.
+template <class Pro>
+__global__ void __launch_bounds__(kTcThreads, Pro::kMinBlocks)
+tc_gram_prologue_kernel(const __grid_constant__ Cols cols, int P,
+                        const float* __restrict__ w, int64_t n,
+                        double* __restrict__ partial,
+                        const __grid_constant__ Pro pro) {
+  tc_gram_steps(cols, P, w, n, partial, pro);
+}
+
 // One warp per entry (a, b): Σ over blocks in f64, a fixed shuffle tree,
 // one rounding; writes S[a, b] and S[b, a] for a ≤ b < P.
 __global__ void tc_gram_reduce(const double* __restrict__ partial,
@@ -341,22 +389,42 @@ __global__ void tc_gram_reduce(const double* __restrict__ partial,
   }
 }
 
-// Launches the tensor-core Gram and its reduction on `stream` for a schema
-// that tc_fits. partial: f64 scratch of kTcEntries · nblocks; out: f32[P, P].
-inline int launch_tc_gram(const Cols& cols, int P, const float* w, int64_t n,
-                          double* partial, int nblocks, float* out,
-                          cudaStream_t stream) {
-  const size_t smem = tc_smem_bytes(cols.d, cols.c);
+// The kernel's shared memory allowed, the kernel, then tc_gram_reduce on
+// `stream`.
+template <class Kernel, class... Pro>
+inline int launch_tc(Kernel kernel, size_t smem, const Cols& cols, int P,
+                     const float* w, int64_t n, double* partial, int nblocks,
+                     float* out, cudaStream_t stream, const Pro&... pro) {
   cudaError_t rc = cudaFuncSetAttribute(
-      tc_gram_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (rc != cudaSuccess) return rc;
-  tc_gram_kernel<<<nblocks, kTcThreads, smem, stream>>>(cols, P, w, n,
-                                                         partial);
+  kernel<<<nblocks, kTcThreads, smem, stream>>>(cols, P, w, n, partial,
+                                                pro...);
   if ((rc = cudaGetLastError()) != cudaSuccess) return rc;
   const int blocks = (kTcEntries * 32 + kThreads - 1) / kThreads;
   tc_gram_reduce<<<blocks, kThreads, 0, stream>>>(partial, nblocks, P, out);
   return cudaGetLastError();
+}
+
+// Launches K1 and its reduction on `stream` for a schema that tc_fits.
+// partial: f64 scratch of kTcEntries · nblocks; out: f32[P, P].
+inline int launch_tc_gram(const Cols& cols, int P, const float* w, int64_t n,
+                          double* partial, int nblocks, float* out,
+                          cudaStream_t stream) {
+  return launch_tc(tc_gram_kernel,
+                   tc_smem_bytes(cols.d, cols.c, TcNoPrologue()), cols, P, w,
+                   n, partial, nblocks, out, stream);
+}
+
+// The same with the prologue `pro` (tc_gram_prologue_kernel).
+template <class Pro>
+inline int launch_tc_gram(const Cols& cols, int P, const float* w, int64_t n,
+                          double* partial, int nblocks, float* out,
+                          cudaStream_t stream, const Pro& pro) {
+  return launch_tc(tc_gram_prologue_kernel<Pro>,
+                   tc_smem_bytes(cols.d, cols.c, pro), cols, P, w, n,
+                   partial, nblocks, out, stream, pro);
 }
 
 }  // namespace

@@ -67,6 +67,17 @@ MAX_UNSORTED_GROUPS = 8  # kMaxUnsortedGroups (grouped_gram.cu): K4's tiles
 NB_PLAN_INTS = 8         # kNbPlanInts (nb_grouped_sums.cu): NbPlan.shape_ints
 NB_SLAB_CODES = 3        # kNbSlabCodes (nb_grouped_sums.cu): the NB plan's
                          # slab of a code range of one group's row of K_j
+IMP_THREADS = 1024       # kImpThreads (fused_impute_aggregate.cu): threads
+                         # of a K2w 'cat' impute block
+IMP_MAX_M = 4            # kImpMaxM (fused_impute_aggregate.cu): most
+                         # classes a lane scores a tile
+IMP_FILL_ROWS = 8        # kFillRows (fused_impute_aggregate.cu): rows a
+                         # thread a compaction step
+IMP_BATCH = 2048         # most null rows of a batch past W's class tiles
+IMP_TILED_BATCH = 1024   # fewest a batch where W is streamed in tiles: W is
+                         # read again from L2 for each batch
+IMP_WHOLE_BATCH = 1024   # a batch where W lies whole in shared memory, read
+                         # once a launch: a row a thread
 QDA_THREADS = 1024       # kQdaThreads (qda_predict.cu): most threads of a
                          # K3/K3w block
 QDA_TASK_CELLS = 4096    # the f32 cells of a K3/K3w task (`qda_plan`):
@@ -112,6 +123,9 @@ def _declare(lib: ctypes.CDLL) -> None:
         p, i, p, p, i, p, p, p, p, i, i, i, p, i, u32, u32, u32, p, i64, i,
         p, i, p, p]
     lib.dit_fused_impute_aggregate.restype = i
+    lib.dit_fused_impute_aggregate_cores.argtypes = (
+        lib.dit_fused_impute_aggregate.argtypes)
+    lib.dit_fused_impute_aggregate_cores.restype = i
     lib.dit_grouped_gram.argtypes = [p, i, p, p, i, p, p, i, i64, i, p, i,
                                      p, p]
     lib.dit_grouped_gram.restype = i
@@ -132,7 +146,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.dit_wide_gram.restype = i
     lib.dit_fused_impute_aggregate_wide.argtypes = [
         p, i, p, p, i, p, p, p, p, i, i, i, p, i, u32, u32, u32, p, i64, i,
-        *plan, p, p, p]
+        *plan, p, p, p, p, p]
     lib.dit_fused_impute_aggregate_wide.restype = i
     lib.dit_gram_entries.argtypes = [i]
     lib.dit_gram_entries.restype = i
@@ -312,6 +326,44 @@ def pointers(tensors):
 def int_array(values):
     """A C array of ints."""
     return (ctypes.c_int * len(values))(*values)
+
+
+def impute_smem_bytes(schema, ld: int, batch: int) -> int:
+    """Shared memory of a K2w 'cat' impute block (fused_impute_aggregate.cu:
+    impute_smem_bytes): a class tile f32[P + 2, ld] (rounded up to 16
+    bytes), and per batch row its terms (x, then the codes' W-row
+    offsets, each part padded to 4 words), key, class and row index, and a
+    compaction step's counts (one a warp and a row of a thread) and
+    total."""
+    p, d, c = schema.sigma_size, schema.num_cols, schema.cat_cols
+    r4 = lambda v: (v + 3) // 4 * 4   # noqa: E731
+    return 4 * (r4((p + 2) * ld) + batch * (3 + r4(d) + r4(c))
+                + IMP_FILL_ROWS * IMP_THREADS // 32 + 1)
+
+
+def impute_plan(schema, r: int) -> tuple[int, int, int]:
+    """(ld, M, batch) of K2w's 'cat' impute kernel for R = r classes: W's
+    class tiles of ld classes ([P + 2][ld] f32 in shared memory, one
+    buffer, M = ceil(ld / 32) classes a lane), null rows a batch. W whole
+    (ld = R, loaded once a launch) where R ≤ 32·IMP_MAX_M and it fits
+    beside IMP_WHOLE_BATCH rows; else the widest tile that fits beside
+    IMP_TILED_BATCH rows (tools/k2_times.py --plans: at favorita_wide,
+    R = 337, 64 classes a tile beat 32); else 32 classes. The batch is the
+    most rows that fit, up to IMP_BATCH (IMP_WHOLE_BATCH for W whole), in
+    whole warps."""
+    cands = []
+    if r <= 32 * IMP_MAX_M:
+        cands.append((r, IMP_WHOLE_BATCH, 32))
+    cands += [(32 * m, IMP_BATCH, IMP_TILED_BATCH) for m in (IMP_MAX_M, 2)]
+    cands.append((32, IMP_BATCH, 32))
+    for ld, cap, least in cands:
+        fixed = impute_smem_bytes(schema, ld, 0)
+        per_row = impute_smem_bytes(schema, ld, 1) - fixed
+        batch = min(cap, (WIDE_SMEM - fixed) // per_row // 32 * 32)
+        if batch >= least:
+            return ld, -(-ld // 32), batch
+    raise ValueError(f"K2w: no impute plan fits shared memory at P = "
+                     f"{schema.sigma_size}")
 
 
 def grid_blocks(n: int) -> int:

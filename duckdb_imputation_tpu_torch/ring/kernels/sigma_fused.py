@@ -27,10 +27,14 @@ numbers up to float rounding in log and cos. This replaces both the Pallas
 PRNG and the JAX loop's integer-hash seed, and it exists for every schema.
 
 `fused_impute_aggregate` launches the CUDA kernels
-(`csrc/fused_impute_aggregate.cu`) for CUDA tensors: K2 for P ≤ 88, K2w
-above (an impute kernel that reads the coefficients from device memory,
-then K7's wide Gram over the updated columns). It takes
-`fused_impute_aggregate_plain` only for CPU tensors.
+(`csrc/fused_impute_aggregate.cu`) for CUDA tensors: K2 for P ≤ 88 (on
+the tensor cores, K1's kernel with an impute prologue, where S is its one
+output tile, `_build.tc_fits`: `fused_impute_aggregate_split_plain` is
+that route's arithmetic in plain torch; on the CUDA cores otherwise), K2w
+above (an impute kernel over the null rows with W's class tiles in shared
+memory, `_build.impute_plan`, whose first-max merge across tiles
+`class_argmax_tiles_plain` repeats, then K7's wide Gram over the updated
+columns). It takes `fused_impute_aggregate_plain` only for CPU tensors.
 """
 from __future__ import annotations
 
@@ -41,7 +45,8 @@ import torch
 from ...schema import FeatureSchema
 from ..sum import class_argmax, class_score
 from . import _build
-from .sigma_pallas import masked_gram_cols_plain, wide_plan_args
+from .sigma_pallas import (masked_gram_cols_plain, masked_gram_split_plain,
+                           wide_plan_args)
 
 _MASK32 = 0xFFFFFFFF
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
@@ -101,10 +106,9 @@ def _check_noise(noise, kind: str):
                          "[0, 2^32)")
 
 
-def fused_impute_aggregate_plain(x_cols, code_cols, null_imp, w_agg, w_full,
-                                 intercept, *, schema: FeatureSchema,
-                                 kind: str, imp_col: int, noise=None):
-    """Plain torch version of `fused_impute_aggregate`."""
+def _impute_plain(x_cols, code_cols, null_imp, w_full, intercept, *,
+                  schema, kind, imp_col, noise):
+    """The new column and the columns with it in place."""
     _check_noise(noise, kind)
     x_cols, code_cols = list(x_cols), list(code_cols)
     if kind == "cat":
@@ -121,8 +125,74 @@ def fused_impute_aggregate_plain(x_cols, code_cols, null_imp, w_agg, w_full,
                                               pred.shape[0], pred.device)
         new = torch.where(null_imp, pred, x_cols[imp_col])
         x_cols[imp_col] = new
+    return new, x_cols, code_cols
+
+
+def fused_impute_aggregate_plain(x_cols, code_cols, null_imp, w_agg, w_full,
+                                 intercept, *, schema: FeatureSchema,
+                                 kind: str, imp_col: int, noise=None):
+    """Plain torch version of `fused_impute_aggregate`."""
+    new, x_cols, code_cols = _impute_plain(
+        x_cols, code_cols, null_imp, w_full, intercept, schema=schema,
+        kind=kind, imp_col=imp_col, noise=noise)
     return new, masked_gram_cols_plain(x_cols, code_cols, w_agg,
                                        schema=schema)
+
+
+def fused_impute_aggregate_split_plain(x_cols, code_cols, null_imp, w_agg,
+                                       w_full, intercept, *,
+                                       schema: FeatureSchema, kind: str,
+                                       imp_col: int, noise=None):
+    """Plain torch version of K2's tensor-core route, used by no path:
+    the column imputed as `fused_impute_aggregate_plain` imputes it (the
+    kernel scores each null row in class_score's f32 order), then K1's
+    Gram of three-way bf16 parts (`masked_gram_split_plain`) of the
+    updated columns."""
+    new, x_cols, code_cols = _impute_plain(
+        x_cols, code_cols, null_imp, w_full, intercept, schema=schema,
+        kind=kind, imp_col=imp_col, noise=noise)
+    return new, masked_gram_split_plain(x_cols, code_cols, w_agg,
+                                        schema=schema)
+
+
+_KEY_NEG_INF = 0x007FFFFF   # score_key(-inf)
+
+
+def score_key_plain(v: torch.Tensor) -> torch.Tensor:
+    """K2w's order-preserving key of f32 scores (fused_impute_aggregate.cu:
+    score_key), as int64: -0 taken as +0, NaN 0 (below every score), else
+    the bits with the sign bit set for v ≥ 0 and all bits flipped for
+    v < 0."""
+    u = (v.to(torch.float32) + 0.0).view(torch.int32).to(torch.int64)
+    u = u & _MASK32
+    key = torch.where(u >= 1 << 31, _MASK32 - u, u | 1 << 31)
+    return torch.where(torch.isnan(v), 0, key)
+
+
+def class_argmax_tiles_plain(w_full, intercept, x_cols, code_cols, *,
+                             schema: FeatureSchema, ld: int) -> torch.Tensor:
+    """Plain torch version of K2w's class-tiled first max, used by no
+    path: the classes in tiles of `ld`; a tile's best is its largest key
+    (`score_key_plain`) and the lowest class that reaches it, and a row's
+    running (key, class), from (key of -inf, 0), takes a tile's best only
+    if its key is strictly larger. Equal to `class_argmax`: the first max,
+    class 0 when every score is -inf or NaN. Returns i32[n]."""
+    d = schema.num_cols
+    ref = x_cols[0] if d else code_cols[0]
+    n, r = ref.shape[-1], w_full.shape[1]
+    best_key = torch.full((n,), _KEY_NEG_INF, dtype=torch.int64,
+                          device=ref.device)
+    best = torch.zeros(n, dtype=torch.int32, device=ref.device)
+    for k0 in range(0, r, ld):
+        keys = torch.stack([score_key_plain(class_score(
+            w_full, intercept, k, x_cols, code_cols, schema=schema))
+            for k in range(k0, min(r, k0 + ld))])
+        top = keys.max(0).values
+        first = k0 + (keys == top).to(torch.int8).argmax(0).to(torch.int32)
+        upd = top > best_key
+        best_key = torch.where(upd, top, best_key)
+        best = torch.where(upd, first, best)
+    return best
 
 
 def fused_impute_aggregate(x_cols, code_cols, null_imp, w_agg, w_full,
@@ -134,8 +204,9 @@ def fused_impute_aggregate(x_cols, code_cols, null_imp, w_agg, w_full,
     noise = (seed, round, std f32[1] tensor) or None, 'num' only.
 
     Returns (new_column, sigma f32[P, P]): i32[n] for 'cat', f32[n] for
-    'num'. CUDA tensors launch K2 for P ≤ 88 (counted in
-    `fused_impute_aggregate.launches`) or K2w above (counted in
+    'num'. CUDA tensors launch K2 for P ≤ 88, on the tensor cores where
+    `_build.tc_fits`, else on the CUDA cores (counted in
+    `fused_impute_aggregate.launches`), or K2w above (counted in
     `fused_impute_aggregate.wide_launches`); CPU tensors take the plain
     version."""
     if kind not in _KINDS:
@@ -187,22 +258,32 @@ def fused_impute_aggregate(x_cols, code_cols, null_imp, w_agg, w_full,
     stream = torch.cuda.current_stream(device).cuda_stream
     if p > _build.MAX_SIGMA_SIZE:   # K2w: K7's plan, then scratch
         plan, partial = wide_plan_args(schema, n, device)
+        imp_plan = _build.int_array(_build.impute_plan(schema, r))
+        rows = torch.empty(n if kind == "cat" else 0, dtype=torch.int32,
+                           device=device)
         sigma = torch.zeros((p, p), dtype=torch.float32, device=device)
         with torch.cuda.device(device):
             rc = lib.lib.dit_fused_impute_aggregate_wide(
-                *args, *plan, partial.data_ptr(), sigma.data_ptr(), stream)
+                *args, *plan, imp_plan, rows.data_ptr(), partial.data_ptr(),
+                sigma.data_ptr(), stream)
         _build.raise_on_error(lib, rc, "fused_impute_aggregate")
         fused_impute_aggregate.wide_launches += 1
-    else:                           # K2: the scratch, then its blocks
+        return new, sigma
+    if _build.tc_fits(schema.num_cols, p):     # K2 on the tensor cores
+        nblocks = _build.tc_grid(n)
+        entries, launch = _build.TC_A ** 2, lib.lib.dit_fused_impute_aggregate
+    else:                                      # K2 on the CUDA cores
         nblocks = _build.grid_blocks(n)
-        partial = torch.empty(lib.lib.dit_gram_entries(p) * nblocks,
-                              dtype=torch.float64, device=device)
-        sigma = torch.empty((p, p), dtype=torch.float32, device=device)
-        with torch.cuda.device(device):
-            rc = lib.lib.dit_fused_impute_aggregate(
-                *args, partial.data_ptr(), nblocks, sigma.data_ptr(), stream)
-        _build.raise_on_error(lib, rc, "fused_impute_aggregate")
-        fused_impute_aggregate.launches += 1
+        entries = lib.lib.dit_gram_entries(p)
+        launch = lib.lib.dit_fused_impute_aggregate_cores
+    partial = torch.empty(entries * nblocks, dtype=torch.float64,
+                          device=device)
+    sigma = torch.empty((p, p), dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        rc = launch(*args, partial.data_ptr(), nblocks, sigma.data_ptr(),
+                    stream)
+    _build.raise_on_error(lib, rc, "fused_impute_aggregate")
+    fused_impute_aggregate.launches += 1
     return new, sigma
 
 

@@ -1,6 +1,7 @@
 """The port's kernels on a CUDA card: K1 (masked_gram_cols, and its
 stacked entry point masked_gram behind sum_to_triple), K2
-(fused_impute_aggregate), K3 and K3w (qda_predict_kernel), K4 (grouped_gram), K5
+(fused_impute_aggregate: on K1's tensor-core kernel at config 5, on the
+CUDA cores past its tile), K3 and K3w (qda_predict_kernel), K4 (grouped_gram), K5
 (grouped_gram_presorted), K6 (nb_grouped_sums), and for P > 88 K7 (the wide
 masked Gram behind masked_gram_cols and masked_gram) and K2w (the wide
 fused pass) against their plain versions, the checks their wrappers make,
@@ -40,6 +41,7 @@ from duckdb_imputation_tpu_torch.ring.kernels.qda_pallas import (
 from duckdb_imputation_tpu_torch.ring.kernels.sigma_fused import (
     fused_impute_aggregate,
     fused_impute_aggregate_plain,
+    fused_impute_aggregate_split_plain,
 )
 from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas import (
     masked_gram,
@@ -231,6 +233,111 @@ def test_fused_impute_aggregate_kernel_matches_plain(cuda, kind, noise):
     torch.testing.assert_close(sig, want_sig, rtol=1e-5,
                                atol=1e-6 * float(want_sig.abs().max()))
     assert torch.isfinite(sig).all()
+
+
+@pytest.mark.parametrize("kind,noise", [("cat", False), ("num", False),
+                                        ("num", True)])
+def test_fused_tensor_core_route(cuda, kind, noise):
+    """K2 at config 5 takes K1's tensor-core kernel with its impute
+    prologue: one launch a call, reruns bit-identical; the column as the
+    plain version's (codes equal); sigma bit for bit K1's Gram of the
+    updated columns (the same kernel on the same values), within 1e-5 of
+    max|σ| of the plain split arithmetic, counts exact."""
+    assert _build.tc_fits(SCHEMA.num_cols, SCHEMA.sigma_size)
+    args = fused_args(kind, 100_003, cuda)
+    col = 0 if kind == "cat" else 1
+    kw = dict(schema=SCHEMA, kind=kind, imp_col=col,
+              noise=(5, 1, torch.tensor(0.7, device=cuda)) if noise else None)
+    before = fused_impute_aggregate.launches
+    new, sig = fused_impute_aggregate(*args, **kw)
+    new2, sig2 = fused_impute_aggregate(*args, **kw)
+    assert fused_impute_aggregate.launches == before + 2
+    assert torch.equal(new, new2) and torch.equal(sig, sig2)
+    want_new, want_sig = fused_impute_aggregate_split_plain(
+        *(a.cpu() if torch.is_tensor(a) else [t.cpu() for t in a]
+          for a in args), **{**kw, "noise": None if not noise else
+                             (5, 1, torch.tensor(0.7))})
+    xs, cs = list(args[0]), list(args[1])
+    if kind == "cat":
+        assert torch.equal(new.cpu(), want_new)
+        cs[col] = new
+    else:
+        torch.testing.assert_close(new.cpu(), want_new, rtol=1e-6,
+                                   atol=1e-6)
+        xs[col] = new
+    assert torch.equal(sig, masked_gram_cols(xs, cs, args[3], schema=SCHEMA))
+    sig = sig.cpu()
+    cm = count_mask(SCHEMA, "cpu")
+    if kind == "cat":
+        assert torch.equal(sig[cm], want_sig[cm])
+    torch.testing.assert_close(sig, want_sig, rtol=0,
+                               atol=1e-5 * float(want_sig.abs().max()))
+
+
+@pytest.mark.parametrize("kind,offset", [("cat", 1), ("num", 3)])
+def test_fused_tensor_core_route_null_bytes_off_the_word(cuda, kind, offset):
+    """A null mask that starts `offset` bytes into a 4-byte word and ends
+    inside one (n = 1,001): its first and last rows, null, are read byte
+    by byte and imputed as the plain version does."""
+    n = 1001
+    args = list(fused_args(kind, n, cuda))
+    base = torch.zeros(n + offset, dtype=torch.bool, device=cuda)
+    null = base[offset:]
+    null.copy_(args[2])
+    null[:4] = True
+    null[-4:] = True
+    assert null.data_ptr() % 4 == offset and null.is_contiguous()
+    args[2] = null
+    col = 0 if kind == "cat" else 1
+    kw = dict(schema=SCHEMA, kind=kind, imp_col=col)
+    before = fused_impute_aggregate.launches
+    new, sig = fused_impute_aggregate(*args, **kw)
+    assert fused_impute_aggregate.launches == before + 1
+    want_new, want_sig = fused_impute_aggregate_plain(*args, **kw)
+    if kind == "cat":
+        assert torch.equal(new, want_new)
+    else:
+        torch.testing.assert_close(new, want_new, rtol=1e-6, atol=1e-6)
+    assert not torch.equal(new, args[0][col] if kind == "num" else
+                           args[1][col])
+    torch.testing.assert_close(sig, want_sig, rtol=0,
+                               atol=1e-5 * float(want_sig.abs().max()))
+
+
+@pytest.mark.parametrize("kind", ["cat", "num"])
+def test_fused_cuda_core_route_past_the_tile(cuda, kind):
+    """A schema past the tensor cores' one output tile (P = 88, 24
+    numerics, three columns of 21) takes K2's CUDA-core route: codes equal
+    to the plain version's, numerics within 1e-6, sigma within 1e-5 of
+    max|σ|, reruns bit-identical."""
+    schema = FeatureSchema(num_cols=24, cat_keys=(tuple(range(21)),) * 3)
+    assert not _build.tc_fits(24, schema.sigma_size)
+    rng = np.random.default_rng(12)
+    n = 70_001
+    xs = [torch.tensor(rng.normal(size=n).astype(np.float32), device=cuda)
+          for _ in range(24)]
+    cs = [torch.tensor(rng.integers(-1, 22, n).astype(np.int32),
+                       device=cuda) for _ in range(3)]
+    null = torch.tensor(rng.random(n) < 0.2, device=cuda)
+    w = torch.tensor((rng.random(n) > 0.2).astype(np.float32), device=cuda)
+    r, col = (21, 0) if kind == "cat" else (1, 1)
+    w_full = torch.tensor(rng.normal(size=(88, r)).astype(np.float32),
+                          device=cuda)
+    icpt = torch.tensor(rng.normal(size=r).astype(np.float32), device=cuda)
+    args = (xs, cs, null, w, w_full, icpt)
+    kw = dict(schema=schema, kind=kind, imp_col=col)
+    before = fused_impute_aggregate.launches
+    new, sig = fused_impute_aggregate(*args, **kw)
+    new2, sig2 = fused_impute_aggregate(*args, **kw)
+    assert fused_impute_aggregate.launches == before + 2
+    assert torch.equal(new, new2) and torch.equal(sig, sig2)
+    want_new, want_sig = fused_impute_aggregate_plain(*args, **kw)
+    if kind == "cat":
+        assert torch.equal(new, want_new)
+    else:
+        torch.testing.assert_close(new, want_new, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(sig, want_sig, rtol=0,
+                               atol=1e-5 * float(want_sig.abs().max()))
 
 
 def test_kernels_raise_on_inputs_they_do_not_take(cuda):
@@ -722,6 +829,57 @@ def test_fused_impute_aggregate_wide_kernel_matches_plain(cuda, case):
         assert not torch.any(new[null] == 3)
     else:
         torch.testing.assert_close(new, want_new, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(sig, want_sig, rtol=0,
+                               atol=1e-5 * float(want_sig.abs().max()))
+
+
+# (d, vocabularies, imputed column): favorita_wide's family (R = 33, W
+# whole in shared memory) and class (R = 337, class tiles), and R = 1,000
+# at P = 1,024
+K2W_SCHEMAS = {"R33": FAVORITA + (1,), "R337": FAVORITA + (2,),
+               "R1000": (3, (tuple(range(1000)), tuple(range(20))), 0)}
+
+
+@pytest.mark.parametrize("nulls", ["some", "all", "none"])
+@pytest.mark.parametrize("n", [1, 33, 50_003])
+@pytest.mark.parametrize("name", sorted(K2W_SCHEMAS))
+def test_fused_wide_cat_impute_kernel(cuda, name, n, nulls):
+    """K2w 'cat' over W's class tiles: codes equal to the plain version's
+    (out-of-vocab codes in another column, an empty class, ties across a
+    tile boundary), with some, all or no rows null and n not a multiple of
+    a step; sigma within 1e-5 of max|σ|; reruns bit-identical; one wide
+    launch a call."""
+    d, keys, col = K2W_SCHEMAS[name]
+    schema = FeatureSchema(num_cols=d, cat_keys=keys)
+    rng = np.random.default_rng(n)
+    xs = [torch.tensor(rng.normal(size=n).astype(np.float32), device=cuda)
+          for _ in range(d)]
+    codes = [rng.integers(0, len(k), n).astype(np.int32) for k in keys]
+    other = (col + 1) % len(keys)
+    codes[other][: n // 10] = len(keys[other])        # out of vocab
+    cs = [torch.tensor(a, device=cuda) for a in codes]
+    r, p = len(keys[col]), schema.sigma_size
+    w_full = rng.normal(size=(p, r)).astype(np.float32)
+    icpt = rng.normal(size=r).astype(np.float32)
+    icpt[3] = -np.inf                                  # an empty class
+    w_full[:, 32] = w_full[:, 31]                      # a tie across tiles
+    icpt[32] = icpt[31] = icpt.max() + 5.0
+    frac = {"some": 0.2, "all": 1.0, "none": 0.0}[nulls]
+    null = torch.tensor(rng.random(n) < frac, device=cuda)
+    w = torch.tensor((rng.random(n) > 0.3).astype(np.float32), device=cuda)
+    args = (xs, cs, null, w, torch.tensor(w_full, device=cuda),
+            torch.tensor(icpt, device=cuda))
+    kw = dict(schema=schema, kind="cat", imp_col=col)
+    before = fused_impute_aggregate.wide_launches
+    new, sig = fused_impute_aggregate(*args, **kw)
+    new2, sig2 = fused_impute_aggregate(*args, **kw)
+    assert fused_impute_aggregate.wide_launches == before + 2
+    assert torch.equal(new, new2) and torch.equal(sig, sig2)
+    want_new, want_sig = fused_impute_aggregate_plain(*args, **kw)
+    assert torch.equal(new, want_new)
+    assert not torch.any(new[null] == 3)
+    if nulls == "none":
+        assert torch.equal(new, cs[col])
     torch.testing.assert_close(sig, want_sig, rtol=0,
                                atol=1e-5 * float(want_sig.abs().max()))
 
