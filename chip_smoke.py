@@ -11,8 +11,10 @@ Drives the three paths of `duckdb_imputation_tpu_torch` ported so far:
   deployment scale of 100M rows;
 - the classifier path at BASELINE config 4 (the same schema, 8 classes,
   90% in class 0) and 10M rows: GROUP BY label aggregation
-  (`sum_to_triple_grouped` over the unsorted grouped Gram K4, or a sort and
-  the sorted-slab Gram K5 above K4's group limit; `sum_to_nb_agg_grouped`
+  (`sum_to_triple_grouped` over the unsorted grouped Gram K4, a group
+  order of the labels and K5's kernel through it, or a sort and the
+  sorted-slab Gram K5 above K4's group limit, both on K1's tensor-core
+  body at this schema; `sum_to_nb_agg_grouped`
   over the NB sums K6), device training, and one-pass scoring (K3: QDA's
   and NB's quadratic forms over each row's nonzero pairs);
 - MICE on a wide schema and the delta loop: `favorita_wide` (the Kaggle
@@ -781,7 +783,12 @@ def phase_deploy(seed: int) -> None:
     exact = torch.cat([exact.sum(1, keepdim=True), exact], 1).float()
     x, c = t.num_data, t.cat_codes
     kw = dict(schema=t.schema, num_groups=2)
+    torch.cuda.synchronize()
+    before_k4 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     s4 = grouped_gram(x, c, None, grp, **kw)
+    torch.cuda.synchronize()
+    k4_peak = torch.cuda.max_memory_allocated()
     s5 = grouped_gram_presorted(*sort_by_group(x, c, grp, **kw),
                                 schema=t.schema)
     nb = nb_grouped_sums(x, c, None, grp, **kw)
@@ -808,8 +815,10 @@ def phase_deploy(seed: int) -> None:
         f" s wall (init fill included), RMSE {rmse:.3e}; K1, K4, K5 and K6"
         f" counts equal the exact counts rounded once to f32, K1 max rel err "
         f"{k1_err:.3e} (of max|σ|); table resident "
-        f"{resident / 2**30:.2f} GiB, peak {peak / 2**30:.2f} GiB; ms per "
-        f"round (slope of 1 vs 3 rounds): {per_round}")
+        f"{resident / 2**30:.2f} GiB, peak {peak / 2**30:.2f} GiB; K4's "
+        f"call (G = 2): {before_k4 / 2**30:.2f} GiB before it, peak "
+        f"{k4_peak / 2**30:.2f} GiB; ms per round (slope of 1 vs 3 rounds):"
+        f" {per_round}")
 
 
 # ---------------------------------------------------------------------------
@@ -880,9 +889,12 @@ def check_grouped(tag, got, again, want, schema, binary: bool):
 def phase_k4(seed: int) -> dict:
     """K4 at BASELINE config 4: 10M rows, G = 8, labels unsorted and 90% in
     class 0; some ids out of range, some codes out of vocab; binary, then
-    general weights."""
+    general weights. Then at 8 uniform classes (every class's rows
+    scattered) and at P = 88 (24 numeric and three categorical columns of
+    21: the CUDA-core route), binary weights."""
+    from duckdb_imputation_tpu_torch import FeatureSchema
     from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas_grouped import (
-        grouped_gram, grouped_gram_plain)
+        grouped_gram, grouped_gram_plain, grouped_route)
 
     x, codes, y, schema = make_classify_table(N, seed)
     codes[0, :1000] = 8          # out of vocab: the encode() miss code
@@ -894,6 +906,8 @@ def phase_k4(seed: int) -> dict:
     gen.manual_seed(seed + 3)
     w_bin = (torch.rand(N, generator=gen, device=DEVICE) >= 0.2).float()
     w_gen = torch.rand(N, generator=gen, device=DEVICE)
+    route = grouped_route(schema)
+    check(route == "tensor_cores", f"K4 at config 4 takes {route}")
     out = {}
     for name, w in (("binary", w_bin), ("general", w_gen)):
         kw = dict(schema=schema, num_groups=CLASSES)
@@ -907,18 +921,39 @@ def phase_k4(seed: int) -> dict:
         plain_ms = cuda_ms(lambda: grouped_gram_plain(x, codes, w, g, **kw),
                            reps=3, warmup=1)
         abs_err = float((got - want).abs().max())
-        log(f"[K4] n={N} G={CLASSES} {name} weights: "
+        log(f"[K4] n={N} G={CLASSES} {name} weights ({route}: a group order,"
+            f" then K5 through it): "
             + ("counts exact, " if name == "binary" else "")
             + f"max rel err {err:.3e} (of max|σ| per group), max abs err "
             f"{abs_err:.3e}, bit-identical rerun; kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms")
         if name == "binary":
             # no single PyTorch call computes a Gram per group
-            out = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+            out = dict(gram_route=route, max_abs_err=abs_err, ms=ms,
+                       plain_ms=plain_ms,
                        **gram_bound(codes, schema,
                                     w * ((g >= 0) & (g < CLASSES)), CLASSES,
                                     extra=8),
                        library_ms=None)
+    del x, codes, y, g, w_gen
+    xu, cu, yu, _ = make_classify_table(N, seed + 5, hot=None)
+    sch88 = FeatureSchema(num_cols=24, cat_keys=(tuple(range(21)),) * 3)
+    x88 = torch.randn((24, N), generator=gen, device=DEVICE) * 2 + 0.5
+    c88 = torch.randint(-1, 22, (3, N), generator=gen, device=DEVICE,
+                        dtype=torch.int32)
+    for tag, args, sch, key in (
+            ("8 uniform classes", (xu, cu, w_bin, yu), schema, "uniform_ms"),
+            ("P=88 d=24, 8 uniform classes", (x88, c88, w_bin, yu), sch88,
+             "p88_ms")):
+        kw = dict(schema=sch, num_groups=CLASSES)
+        got, again = grouped_gram(*args, **kw), grouped_gram(*args, **kw)
+        want = grouped_gram_plain(*args, **kw)
+        torch.cuda.synchronize()
+        err = check_grouped(f"K4 {tag}", got, again, want, sch, binary=True)
+        reps = 3 if key == "p88_ms" else 10
+        out[key] = cuda_ms(lambda: grouped_gram(*args, **kw), reps=reps)
+        log(f"[K4] n={N} {tag} ({grouped_route(sch)}): counts exact, max rel"
+            f" err {err:.3e}, bit-identical rerun; kernel {out[key]:.4f} ms")
     return out
 
 
@@ -927,9 +962,11 @@ def phase_k5(seed: int) -> dict:
     kernel, at G = 8 and at G = 1000 uniform groups."""
     from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas_grouped import (
         grouped_gram, grouped_gram_presorted, grouped_gram_presorted_plain,
-        sort_by_group)
+        grouped_route, sort_by_group)
 
     x, codes, y, schema = make_classify_table(N, seed)
+    route = grouped_route(schema)
+    check(route == "tensor_cores", f"K5 at config 4 takes {route}")
     g = y.clone()
     g[:777] = CLASSES + 3
     gen = torch.Generator(device=DEVICE)
@@ -962,14 +999,18 @@ def phase_k5(seed: int) -> dict:
             lambda: grouped_gram_presorted_plain(*args, schema=schema),
             reps=3, warmup=1)
         abs_err = float((got - want).abs().max())
-        log(f"[K5] n={N} G={groups}: sort_by_group {sort_s * 1e3:.1f} ms "
-            f"(host clock, first call); counts exact, max rel err "
-            f"{err:.3e}, max abs err {abs_err:.3e}, bit-identical rerun; "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        log(f"[K5] n={N} G={groups} ({route}): sort_by_group "
+            f"{sort_s * 1e3:.1f} ms (host clock, first call); counts exact, "
+            f"max rel err {err:.3e}, max abs err {abs_err:.3e}, "
+            f"bit-identical rerun; kernel {ms:.4f} ms, plain {plain_ms:.4f}"
+            f" ms")
         if groups == CLASSES:
-            out = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+            out = dict(gram_route=route, max_abs_err=abs_err, ms=ms,
+                       plain_ms=plain_ms,
                        **gram_bound(codes, schema, w * (g < CLASSES),
                                     CLASSES), library_ms=None)
+        else:
+            out["g1000_ms"] = ms
     return out
 
 
@@ -2121,11 +2162,11 @@ def main() -> int:
              launches=launches["qda_predict_kernel"], **k3),
         dict(name="grouped_gram", route="cuda",
              source=src + "grouped_gram.cu",
-             replaces=ref + "sigma_pallas_grouped.py:458",
+             replaces=ref + "sigma_pallas_grouped.py:121",
              launches=launches["grouped_gram"], **k4),
         dict(name="grouped_gram_presorted", route="cuda",
              source=src + "grouped_gram.cu",
-             replaces=ref + "sigma_pallas_grouped.py:540",
+             replaces=ref + "sigma_pallas_grouped.py:568",
              launches=launches["grouped_gram_presorted"], **k5),
         dict(name="nb_grouped_sums", route="cuda",
              source=src + "nb_grouped_sums.cu",

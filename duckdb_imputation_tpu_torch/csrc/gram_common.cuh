@@ -138,14 +138,14 @@ __device__ __forceinline__ void zero_row(float* zr, int PS) {
   for (int p = 0; p < PS; ++p) zr[p] = 0.0f;
 }
 
-// acc += Σ over staged rows r0, r0 + G, ... below r1 of (w·z[i0..i0+4))
-// ⊗ z[j0..j0+4).
-__device__ __forceinline__ void accumulate_rows(const float* zs,
-                                                const float* ws,
-                                                const Geom& gm, int i0,
-                                                int j0, int r0, int r1,
-                                                float acc[16]) {
-  for (int r = r0; r < r1; r += gm.G) {
+// acc += Σ over this thread's rows of the staged chunk (g, g + G, ...) of
+// (w·z[i0..i0+4)) ⊗ z[j0..j0+4).
+__device__ __forceinline__ void accumulate_chunk(const float* zs,
+                                                 const float* ws,
+                                                 const Geom& gm, int i0,
+                                                 int j0, int g,
+                                                 float acc[16]) {
+  for (int r = g; r < kChunk; r += gm.G) {
     const float* zr = zs + r * gm.PS;
     const float w = ws[r];
     float a[4], b[4];
@@ -159,16 +159,6 @@ __device__ __forceinline__ void accumulate_rows(const float* zs,
 #pragma unroll
       for (int l = 0; l < 4; ++l) acc[k * 4 + l] += a[k] * b[l];
   }
-}
-
-// acc += Σ over this thread's rows of the staged chunk of (w·z[i0..i0+4))
-// ⊗ z[j0..j0+4).
-__device__ __forceinline__ void accumulate_chunk(const float* zs,
-                                                 const float* ws,
-                                                 const Geom& gm, int i0,
-                                                 int j0, int g,
-                                                 float acc[16]) {
-  accumulate_rows(zs, ws, gm, i0, j0, g, kChunk, acc);
 }
 
 // The block's row groups summed in f64, in group order, into

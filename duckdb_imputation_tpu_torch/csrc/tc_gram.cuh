@@ -58,6 +58,14 @@
 //      order (p, then b′), into its partial; tc_gram_reduce sums the
 //      blocks in f64 and rounds to f32 once, writing S[a, b] and S[b, a]
 //      for a ≤ b.
+//   Which rows a step takes, and which slot of the partial it is summed
+//   into, is the `Rows` argument of the body: K1's (TcGridRows) are the
+//   grid-strided steps of the n rows, one slot a block. The grouped
+//   Gram's (grouped_gram.cu: GroupRows) are runs of group-aligned steps,
+//   read directly or through a list of row indices, one slot a (run,
+//   group); at a step of a new slot the block flushes its fragments,
+//   folds S′ into the last slot as in 5., and clears the tiles and sums
+//   before it goes on.
 // No atomics: reruns are bit-identical; counts are exact (binary weights:
 // integer parts, f32 sums of at most 256 rows, f64 beyond).
 //
@@ -172,6 +180,36 @@ static_assert(sizeof(__nv_bfloat16) * (kTcLeft + kTcRight) * kTcStride >=
 // Entries (a, b) of a block partial.
 constexpr int kTcEntries = kTcA * kTcA;
 
+// The rows of one step: positions first + t (t < kTcRows) below end, all
+// summed into the block partial's slot `slot`.
+struct TcStep {
+  int64_t first, end;
+  int64_t slot;
+};
+
+// K1's rows: block b's step s is the chunk b + s·gridDim.x of the n rows,
+// read in place; one partial a block (slot blockIdx.x of gridDim.x). A
+// Rows type names the cursor a caller keeps to walk the steps in order
+// (here none is needed).
+struct TcGridRows {
+  static constexpr bool kGrouped = false;
+  struct Cursor {};
+  int64_t n;
+  int steps;      // steps of this block
+  __device__ __forceinline__ explicit TcGridRows(int64_t n_) : n(n_) {
+    const int64_t nch = (n + kTcRows - 1) / kTcRows;
+    steps = blockIdx.x < nch ? static_cast<int>((nch - blockIdx.x +
+                                                 gridDim.x - 1) / gridDim.x)
+                             : 0;
+  }
+  __device__ __forceinline__ Cursor cursor() const { return {}; }
+  __device__ __forceinline__ TcStep at(int s, Cursor&) const {
+    return {(blockIdx.x + int64_t(s) * gridDim.x) * kTcRows, n, blockIdx.x};
+  }
+  __device__ __forceinline__ int64_t source(int64_t pos) const { return pos; }
+  __device__ __forceinline__ int64_t stride() const { return gridDim.x; }
+};
+
 // A thread's row (raw column values rb[col·kTcRows]) into the operand
 // tiles at its column: the one-hot parts it wrote last step cleared (pv),
 // the dense parts, the new one-hot parts at its codes.
@@ -213,14 +251,64 @@ __device__ __forceinline__ void build_row(
   }
 }
 
-// The kernel's body, shared by K1's kernel and the kernels with a
-// prologue, which differ only in their __launch_bounds__.
-template <class Pro>
+// The operand tiles zeroed and no one-hot position on record (the caller
+// syncs, then writes the constant).
+__device__ __forceinline__ void tc_tiles_clear(__nv_bfloat16* tiles,
+                                               short* prev, int c) {
+  const __nv_bfloat16 zero = __float2bfloat16_rn(0.0f);
+  for (int e = threadIdx.x; e < (kTcLeft + kTcRight) * kTcStride;
+       e += kTcThreads)
+    tiles[e] = zero;
+  for (int e = threadIdx.x; e < 2 * c * kTcRows; e += kTcThreads) prev[e] = -1;
+}
+
+// 5.: a thread's f64 sums into shared memory over the operand tiles (the
+// caller clears them after, if it goes on), then S′ folded into S[a, b],
+// a ≤ b < P, in f64, in a fixed order (p, then b′), into
+// partial[e·stride + slot], e = a·kTcA + b.
+__device__ __forceinline__ void tc_fold(const double sum64[4][4],
+                                        unsigned char* smem, int P, int d,
+                                        double* __restrict__ partial,
+                                        int64_t stride, int64_t slot) {
+  const int tid = threadIdx.x;
+  __syncthreads();
+  double* acc64 = reinterpret_cast<double*>(smem);   // [kTcAcc][threads]
+#pragma unroll
+  for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      acc64[(ni * 4 + k) * kTcThreads + tid] = sum64[ni][k];
+  __syncthreads();
+  for (int e = tid; e < kTcEntries; e += kTcThreads) {
+    const int a = e / kTcA, b = e % kTcA;
+    double sum = 0.0;
+    if (a <= b && b < P) {
+      const int n0 = right_feature(b, d), nq = right_parts(b, d);
+      for (int p = 0; p < 3; ++p)
+        for (int q = 0; q < nq; ++q) {
+          const int m = 3 * a + p, nn = n0 + q;
+          const int mr = m & 15, nr = nn & 7;
+          const int ln = (mr & 7) * 4 + (nr >> 1);
+          const int k = (mr >> 3) * 2 + (nr & 1);
+          const int at = (nn >> 3) * 4 + k;
+          sum += acc64[at * kTcThreads + (m >> 4) * 32 + ln];
+        }
+    }
+    partial[int64_t(e) * stride + slot] = sum;
+  }
+}
+
+// The kernel's body, shared by K1's kernel, the kernels with a prologue,
+// which differ only in their __launch_bounds__, and the grouped Gram's
+// (grouped_gram.cu), which differs in its Rows.
+template <class Pro, class Rows>
 __device__ __forceinline__ void tc_gram_steps(const Cols& cols, int P,
                                               const float* __restrict__ w,
-                                              int64_t n,
+                                              const Rows& rows,
                                               double* __restrict__ partial,
                                               const Pro& pro) {
+  // a grouped block with no step writes no slot: the whole block leaves
+  if (Rows::kGrouped && rows.steps == 0) return;
   extern __shared__ __align__(16) unsigned char tc_smem[];
   __nv_bfloat16* left = reinterpret_cast<__nv_bfloat16*>(tc_smem);
   __nv_bfloat16* right = left + kTcLeft * kTcStride;
@@ -230,26 +318,23 @@ __device__ __forceinline__ void tc_gram_steps(const Cols& cols, int P,
   float* pro_smem = reinterpret_cast<float*>(prev + 2 * c * kTcRows);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
-  const __nv_bfloat16 zero = __float2bfloat16_rn(0.0f);
-  for (int e = tid; e < (kTcLeft + kTcRight) * kTcStride; e += kTcThreads)
-    left[e] = zero;
-  for (int e = tid; e < 2 * c * kTcRows; e += kTcThreads) prev[e] = -1;
+  tc_tiles_clear(left, prev, c);
   pro.load(pro_smem);
   __syncthreads();
   right[tid] = __float2bfloat16_rn(1.0f);   // the constant
 
-  const int64_t nch = (n + kTcRows - 1) / kTcRows;
-  const int64_t first = blockIdx.x;
-  const int steps =
-      first < nch ? static_cast<int>((nch - first + gridDim.x - 1) / gridDim.x)
-                  : 0;
+  const int steps = rows.steps;
+  // the cursors of the staging (steps ahead) and of the step at hand
+  typename Rows::Cursor ahead = rows.cursor(), here = rows.cursor();
+  int64_t slot = blockIdx.x;            // the step at hand's slot
   // thread tid copies (and builds) row tid of each step: its own copies,
   // so its wait_group is all the staging needs
   auto stage = [&](int s) {
     if (s < steps) {
       float* buf = raw + (s % kTcStages) * ncol * kTcRows + tid;
-      const int64_t row = (first + int64_t(s) * gridDim.x) * kTcRows + tid;
-      const bool valid = row < n;
+      const TcStep st = rows.at(s, ahead);
+      const bool valid = st.first + tid < st.end;
+      const int64_t row = valid ? rows.source(st.first + tid) : 0;
       tc_stage4(buf, w + row, valid, 0.0f);
       for (int j = 0; j < d; ++j)
         tc_stage4(buf + (1 + j) * kTcRows, cols.x[j] + row, valid, 0.0f);
@@ -273,17 +358,50 @@ __device__ __forceinline__ void tc_gram_steps(const Cols& cols, int P,
       sum64[ni][k] = 0.0;
     }
 
+  // the f32 fragments added into the f64 sums
+  auto flush = [&]() {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          sum64[ni][k] += static_cast<double>(acc[h][ni][k]);
+          acc[h][ni][k] = 0.0f;
+        }
+  };
+
   for (int s = 0; s < kTcStages - 1; ++s) stage(s);
   for (int s = 0; s < steps; ++s) {
     stage(s + kTcStages - 1);
     asm volatile("cp.async.wait_group %0;\n" ::"n"(kTcStages - 1));
     __syncthreads();   // the last step's products are done
 
+    const TcStep st = rows.at(s, here);
+    if constexpr (Rows::kGrouped) {
+      const int64_t last = slot;
+      slot = st.slot;
+      if (s > 0 && slot != last) {   // the same for the whole block
+        // S′ into the last slot, then the tiles and sums anew
+        flush();
+        tc_fold(sum64, tc_smem, P, d, partial, rows.stride(), last);
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+          for (int k = 0; k < 4; ++k) sum64[ni][k] = 0.0;
+        __syncthreads();   // every fold read of the tiles is done
+        tc_tiles_clear(left, prev, c);
+        __syncthreads();
+        right[tid] = __float2bfloat16_rn(1.0f);
+      }
+    }
+
     // 1′. the prologue on this thread's staged row, then 2. the row into
     // the operand tiles
     float* rb = raw + (s % kTcStages) * ncol * kTcRows + tid;
-    const int64_t row = (first + int64_t(s) * gridDim.x) * kTcRows + tid;
-    pro.apply(rb, pro_smem, cols, row, row < n);
+    const bool valid = st.first + tid < st.end;
+    pro.apply(rb, pro_smem, cols, valid ? rows.source(st.first + tid) : 0,
+              valid);
     build_row(rb, left + tid, right + tid, prev + tid, cols);
     __syncthreads();   // every row of this step is in the tiles
 
@@ -309,46 +427,11 @@ __device__ __forceinline__ void tc_gram_steps(const Cols& cols, int P,
     }
 
     // 4. flush the f32 fragments into this thread's f64 sums
-    if ((s + 1) % kTcFlushSteps == 0 || s + 1 == steps) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            sum64[ni][k] += static_cast<double>(acc[h][ni][k]);
-            acc[h][ni][k] = 0.0f;
-          }
-    }
+    if ((s + 1) % kTcFlushSteps == 0 || s + 1 == steps) flush();
   }
 
-  // 5. the f64 sums into shared memory (over the operand tiles), then S′
-  // folded into S[a, b], a ≤ b, in f64, in a fixed order
-  __syncthreads();
-  double* acc64 = reinterpret_cast<double*>(tc_smem);   // [kTcAcc][threads]
-#pragma unroll
-  for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-    for (int k = 0; k < 4; ++k)
-      acc64[(ni * 4 + k) * kTcThreads + tid] = sum64[ni][k];
-  __syncthreads();
-  for (int e = tid; e < kTcEntries; e += kTcThreads) {
-    const int a = e / kTcA, b = e % kTcA;
-    double sum = 0.0;
-    if (a <= b && b < P) {
-      const int n0 = right_feature(b, d), nq = right_parts(b, d);
-      for (int p = 0; p < 3; ++p)
-        for (int q = 0; q < nq; ++q) {
-          const int m = 3 * a + p, nn = n0 + q;
-          const int mr = m & 15, nr = nn & 7;
-          const int ln = (mr & 7) * 4 + (nr >> 1);
-          const int k = (mr >> 3) * 2 + (nr & 1);
-          const int slot = (nn >> 3) * 4 + k;
-          sum += acc64[slot * kTcThreads + (m >> 4) * 32 + ln];
-        }
-    }
-    partial[int64_t(e) * gridDim.x + blockIdx.x] = sum;
-  }
+  // 5. S′ into the last step's slot
+  tc_fold(sum64, tc_smem, P, d, partial, rows.stride(), slot);
 }
 
 // K1.
@@ -356,7 +439,7 @@ __global__ void __launch_bounds__(kTcThreads)
 tc_gram_kernel(const __grid_constant__ Cols cols, int P,
                const float* __restrict__ w, int64_t n,
                double* __restrict__ partial) {
-  tc_gram_steps(cols, P, w, n, partial, TcNoPrologue());
+  tc_gram_steps(cols, P, w, TcGridRows(n), partial, TcNoPrologue());
 }
 
 // The Gram with the prologue `pro`, at least Pro::kMinBlocks blocks an SM.
@@ -366,7 +449,7 @@ tc_gram_prologue_kernel(const __grid_constant__ Cols cols, int P,
                         const float* __restrict__ w, int64_t n,
                         double* __restrict__ partial,
                         const __grid_constant__ Pro pro) {
-  tc_gram_steps(cols, P, w, n, partial, pro);
+  tc_gram_steps(cols, P, w, TcGridRows(n), partial, pro);
 }
 
 // One warp per entry (a, b): Σ over blocks in f64, a fixed shuffle tree,

@@ -63,7 +63,11 @@ WIDE_STAGE_ROWS = 256  # kThreads (gram_common.cuh): most rows a block
 WIDE_SMEM = 227 * 1024  # kWideSmem (wide_gram.cuh): a block's shared memory
 WIDE_PLAN_INTS = 7   # kWidePlanInts (wide_gram.cuh): WidePlan.shape_ints
 MAX_COLS = 64        # kMaxCols (gram_common.cuh), numeric and categorical
-MAX_UNSORTED_GROUPS = 8  # kMaxUnsortedGroups (grouped_gram.cu): K4's tiles
+MAX_UNSORTED_GROUPS = 8  # kMaxUnsortedGroups (grouped_gram.cu): K4's G
+ORDER_BLOCKS = 1024      # kOrderBlocks (grouped_gram.cu): most blocks of
+                         # K4's group order
+ORDER_MIN_CHUNKS = 8     # kOrderMinChunks (grouped_gram.cu): fewest chunks
+                         # of CHUNK_ROWS rows an order block takes
 NB_PLAN_INTS = 8         # kNbPlanInts (nb_grouped_sums.cu): NbPlan.shape_ints
 NB_SLAB_CODES = 3        # kNbSlabCodes (nb_grouped_sums.cu): the NB plan's
                          # slab of a code range of one group's row of K_j
@@ -126,8 +130,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.dit_fused_impute_aggregate_cores.argtypes = (
         lib.dit_fused_impute_aggregate.argtypes)
     lib.dit_fused_impute_aggregate_cores.restype = i
-    lib.dit_grouped_gram.argtypes = [p, i, p, p, i, p, p, i, i64, i, p, i,
-                                     p, p]
+    lib.dit_grouped_gram.argtypes = [p, i, p, p, i, p, p, i, i64, i, p, p,
+                                     p, p, i, p, p]
     lib.dit_grouped_gram.restype = i
     lib.dit_presorted_gram.argtypes = [p, i, p, p, i, p, p, p, i, i64, i, p,
                                        i, p, p]
@@ -241,8 +245,8 @@ def check_groups(num_groups: int, limit: int | None = None) -> None:
         raise ValueError(f"num_groups must be at least 1, got {num_groups}")
     if limit is not None and num_groups > limit:
         raise ValueError(f"{num_groups} groups > {limit}, the unsorted "
-                         f"grouped Gram kernel's limit (register tiles per "
-                         f"thread); sort by group and use the sorted one")
+                         f"grouped Gram kernel's limit; sort by group and "
+                         f"use the sorted one")
     if num_groups >= 1 << 31:
         raise ValueError(f"{num_groups} groups: fewer than 2^31 are taken")
 
@@ -386,6 +390,27 @@ def tc_grid(n: int) -> int:
     """K1's tensor-core blocks: a step of TC_ROWS rows each at most, at most
     TC_MAX_BLOCKS; a function of n only."""
     return max(1, min(-(-n // TC_ROWS), TC_MAX_BLOCKS))
+
+
+def presorted_grid(d: int, p: int, n: int) -> tuple[int, int]:
+    """(blocks, rows a step) of K5 (and of K4 after its group order): the
+    tensor cores' grid and steps where `tc_fits`, else the CUDA cores'.
+    Its partial holds a slot for each (block, group) a block may meet:
+    blocks + G."""
+    if tc_fits(d, p):
+        return tc_grid(n), TC_ROWS
+    return grid_blocks(n), CHUNK_ROWS
+
+
+def order_geometry(n: int) -> tuple[int, int]:
+    """(B, rows a block) of K4's group order (grouped_gram.cu:
+    order_geometry): B contiguous slices of the rows, each a multiple of
+    CHUNK_ROWS, at most ORDER_BLOCKS, each at least ORDER_MIN_CHUNKS chunks
+    where n allows; a function of n only."""
+    chunks = -(-n // CHUNK_ROWS)
+    b = min(max(-(-chunks // ORDER_MIN_CHUNKS), 1), ORDER_BLOCKS)
+    per = max(-(-chunks // b) * CHUNK_ROWS, CHUNK_ROWS)
+    return max(-(-n // per), 1), per
 
 
 def group_chunks(offsets: torch.Tensor, rows: int) -> torch.Tensor:

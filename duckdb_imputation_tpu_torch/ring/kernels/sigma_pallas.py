@@ -56,18 +56,19 @@ def split3_plain(v: torch.Tensor) -> tuple[torch.Tensor, ...]:
     return h, m, (v - h - m).to(torch.bfloat16).float()
 
 
-def masked_gram_split_plain(x_cols, code_cols, weights, *,
-                            schema: FeatureSchema) -> torch.Tensor:
-    """Plain torch version of K1's arithmetic (csrc/tc_gram.cuh), used by
-    no path: the left operand holds the three bf16 parts of f32(w·z_a),
-    the right one the parts of z_b (one part for the constant and the
-    one-hots, three for each x); their Gram of parts, in f64 (each product
-    of two bf16 values is exact), is folded over the parts into S and
-    rounded to f32 once."""
+def split_operands(x_cols, code_cols, weights, *, schema: FeatureSchema
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K1's operands (csrc/tc_gram.cuh) of n rows, in f64: left [3P, n],
+    the three bf16 parts of f32(w·z_a); right [R, n], one part for the
+    constant and the one-hots, three for each x (R = 1 + 3d + V). Each
+    product of a left and a right value is exact in f64."""
     x_cols, code_cols = list(x_cols), list(code_cols)
-    n = (x_cols + code_cols + [weights])[0].shape[-1]
-    w = (torch.ones(n) if weights is None else weights).to(torch.float32)
-    z = [torch.ones(n)] + [x.to(torch.float32) for x in x_cols]
+    first = (x_cols + code_cols + [weights])[0]
+    n = first.shape[-1]
+    w = (torch.ones(n, device=first.device) if weights is None
+         else weights).to(torch.float32)
+    z = [torch.ones(n, device=w.device)] + [x.to(torch.float32)
+                                            for x in x_cols]
     for c, size in zip(code_cols, schema.cat_sizes):
         z += [(c == v).to(torch.float32) for v in range(size)]
     d = schema.num_cols
@@ -75,13 +76,32 @@ def masked_gram_split_plain(x_cols, code_cols, weights, *,
     right = torch.stack([part for b, zb in enumerate(z)
                          for part in (split3_plain(zb) if 1 <= b <= d
                                       else (zb,))])
-    parts = left.double() @ right.double().T
-    p = schema.sigma_size
+    return left.double(), right.double()
+
+
+def fold_parts(parts: torch.Tensor, *, schema: FeatureSchema
+               ) -> torch.Tensor:
+    """The Gram of parts f64[..., 3P, R] folded over the parts into the
+    upper triangle of S, f64[..., P, P] (zero below the diagonal), as the
+    kernels fold S′ (tc_gram.cuh: tc_fold)."""
+    p, d = schema.sigma_size, schema.num_cols
     owner = torch.tensor([b for b in range(p)
-                          for _ in range(3 if 1 <= b <= d else 1)])
-    folded = torch.zeros((3 * p, p), dtype=torch.float64)
-    folded.index_add_(1, owner, parts)
-    upper = folded.reshape(p, 3, p).sum(1).triu().float()
+                          for _ in range(3 if 1 <= b <= d else 1)],
+                         device=parts.device)
+    folded = torch.zeros(parts.shape[:-1] + (p,), dtype=torch.float64,
+                         device=parts.device)
+    folded.index_add_(parts.dim() - 1, owner, parts)
+    return folded.reshape(parts.shape[:-2] + (p, 3, p)).sum(-2).triu()
+
+
+def masked_gram_split_plain(x_cols, code_cols, weights, *,
+                            schema: FeatureSchema) -> torch.Tensor:
+    """Plain torch version of K1's arithmetic (csrc/tc_gram.cuh), used by
+    no path: the Gram of the parts of `split_operands`, in f64 (each
+    product of two bf16 values is exact), is folded over the parts into S
+    and rounded to f32 once."""
+    left, right = split_operands(x_cols, code_cols, weights, schema=schema)
+    upper = fold_parts(left @ right.T, schema=schema).float()
     return upper + upper.triu(1).T       # S[b, a] = S[a, b], as the kernel
 
 

@@ -2,18 +2,23 @@
 
 Counterpart of `duckdb_imputation_tpu/ring/kernels/sigma_pallas_grouped.py`:
 
-- `grouped_gram` (K4, `csrc/grouped_gram.cu`) takes rows in any order with
-  the group id riding along as data: one pass, no grouping prep, up to
-  `unsorted_group_limit(schema)` groups. It stands for the Pallas kernels
-  behind `sum_to_triple_grouped_unsorted`.
 - `sort_by_group` sorts the rows by group once (a stable torch sort, plus
-  the segment offsets); `grouped_gram_presorted` (K5, same source) then
-  aggregates the sorted rows, any number of groups, as often as needed
-  (the sort-once, aggregate-many pattern of per-class models). It stands
-  for the sorted-slab Pallas kernels behind `sum_to_triple_grouped_pallas`
-  and `sum_to_triple_grouped_presorted`. The TPU's pad-then-payload sort
-  (`_device_group_sort`) and its block padding exist to avoid TPU gathers
-  and are not ported: nothing is padded here.
+  the segment offsets); `grouped_gram_presorted` (K5,
+  `csrc/grouped_gram.cu`) then aggregates the sorted rows, any number of
+  groups, as often as needed (the sort-once, aggregate-many pattern of
+  per-class models). It stands for the sorted-slab Pallas kernels behind
+  `sum_to_triple_grouped_pallas` and `sum_to_triple_grouped_presorted`.
+  Where `_build.tc_fits` holds it runs on K1's tensor-core body over
+  group-aligned steps of 128 rows (`presorted_gram_split_plain` is its
+  arithmetic in plain torch), else on K1's CUDA-core scheme. The TPU's
+  pad-then-payload sort (`_device_group_sort`) and its block padding
+  exist to avoid TPU gathers and are not ported.
+- `grouped_gram` (K4, same source) takes rows in any order with the group
+  id riding along as data, up to `unsorted_group_limit(schema)` groups: a
+  stable group order of the ids made by the kernel itself
+  (`group_order_plain` its arithmetic), then K5's kernels over the rows
+  through it. It stands for the Pallas kernels behind
+  `sum_to_triple_grouped_unsorted`.
 - `sum_to_triple_grouped_kernel` takes K4 up to the limit and a sort plus
   K5 above it, the dispatch of `sum_to_triple_grouped(method='pallas')`.
 - Above P = 88 `grouped_gram_presorted` runs K8
@@ -39,17 +44,31 @@ from ...schema import FeatureSchema
 from ..sum import grouped_sigma, masked_sigma
 from ..triple import Triple, triple_from_sigma
 from . import _build
-from .sigma_pallas import wide_plan_args, wide_tables_plain
+from .sigma_pallas import (fold_parts, split_operands, wide_plan_args,
+                           wide_tables_plain)
 
 
 def unsorted_group_limit(schema: FeatureSchema) -> int | None:
     """Most groups the unsorted entry `grouped_gram` takes. Up to P = 88 it
-    runs K4, where each thread keeps one 4×4 f32 register tile per group,
-    and 8 tiles (128 of a thread's 255 registers) is the budget. Above, None:
-    it sorts the rows and runs K8, which takes any number of groups."""
+    runs K4, at most 8 groups: its group order takes one warp ballot per
+    group per chunk, and the shared arrays of `group_count_kernel` and
+    `group_scatter_kernel` (csrc/grouped_gram.cu) are sized for 8 groups;
+    past that a sort and K5 cost less. Above P = 88, None: it sorts the
+    rows and runs K8, which takes any number of groups."""
     if schema.sigma_size <= _build.MAX_SIGMA_SIZE:
         return _build.MAX_UNSORTED_GROUPS
     return None
+
+
+def grouped_route(schema: FeatureSchema) -> str:
+    """The body K4 and K5 run for `schema`: 'tensor_cores' where
+    `_build.tc_fits` holds (K1's tensor-core body), 'cuda_cores' for any
+    other P ≤ 88, 'wide' (a sort and K8) above."""
+    if schema.sigma_size > _build.MAX_SIGMA_SIZE:
+        return "wide"
+    if _build.tc_fits(schema.num_cols, schema.sigma_size):
+        return "tensor_cores"
+    return "cuda_cores"
 
 
 def _kernel_inputs(x_num, codes, weights, schema, n, extra):
@@ -105,24 +124,140 @@ def grouped_gram(x_num, codes, weights, group_ids, *, schema: FeatureSchema,
                            num_groups=num_groups, weights=weights),
             schema=schema)
     lib = _build.load()
-    nblocks = _build.grid_blocks(n)
-    partial = torch.empty(num_groups * lib.lib.dit_gram_entries(p) * nblocks,
+    d = schema.num_cols
+    nblocks, _ = _build.presorted_grid(d, p, n)
+    partial = torch.empty(_entries(lib, d, p) * (nblocks + num_groups),
                           dtype=torch.float64, device=device)
+    counts = torch.empty(num_groups * _build.ORDER_BLOCKS, dtype=torch.int64,
+                         device=device)
+    off_cum = torch.empty(2 * (num_groups + 1), dtype=torch.int64,
+                          device=device)
+    idx = torch.empty(n, dtype=torch.int32, device=device)
     out = torch.empty((num_groups, p, p), dtype=torch.float32, device=device)
     sizes = schema.cat_sizes
     with torch.cuda.device(device):
         rc = lib.lib.dit_grouped_gram(
-            _build.pointers(list(x_num)), schema.num_cols,
-            _build.pointers(list(codes)), _build.int_array(sizes),
-            len(sizes), weights.data_ptr(), group_ids.data_ptr(),
-            num_groups, n, p, partial.data_ptr(), nblocks, out.data_ptr(),
-            torch.cuda.current_stream(device).cuda_stream)
+            _build.pointers(list(x_num)), d, _build.pointers(list(codes)),
+            _build.int_array(sizes), len(sizes), weights.data_ptr(),
+            group_ids.data_ptr(), num_groups, n, p, counts.data_ptr(),
+            off_cum.data_ptr(), idx.data_ptr(), partial.data_ptr(), nblocks,
+            out.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
     _build.raise_on_error(lib, rc, "grouped_gram")
     grouped_gram.launches += 1
     return out
 
 
 grouped_gram.launches = 0
+
+
+def _entries(lib, d: int, p: int) -> int:
+    """f64 entries of one (block, group) slot of K4's and K5's partial."""
+    return _build.TC_A ** 2 if _build.tc_fits(d, p) else \
+        lib.lib.dit_gram_entries(p)
+
+
+def group_order_plain(group_ids, num_groups: int
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain torch version of K4's group order (csrc/grouped_gram.cu:
+    group_count_kernel, group_scan_kernel, group_scatter_kernel): the rows
+    cut into `_build.order_geometry(n)`'s B slices; count[g, b], the rows of
+    group g in slice b, scanned in (group, block) order into first[g, b];
+    offsets[g] = first[g, 0], offsets[G] the rows with an id in [0, G);
+    such a row of slice b at first[g, b] + its rank among the slice's
+    earlier rows of group g. Returns (offsets i64[G + 1], order
+    i64[offsets[G]]): the stable order of those rows by id."""
+    n = group_ids.shape[-1]
+    dev = group_ids.device
+    blocks, per = _build.order_geometry(n)
+    g = group_ids.long()
+    ok = (g >= 0) & (g < num_groups)
+    rows = torch.arange(n, device=dev)[ok]
+    key = g[ok] * blocks + rows // per
+    counts = torch.bincount(key, minlength=num_groups * blocks)
+    first = torch.cumsum(counts, 0) - counts
+    offsets = torch.cat([first.view(num_groups, blocks)[:, 0],
+                         counts.sum().reshape(1)])
+    srt = torch.sort(key, stable=True).indices
+    rank = torch.empty_like(key)
+    rank[srt] = torch.arange(key.shape[0], device=dev) - first[key[srt]]
+    order = torch.empty_like(rows)
+    order[first[key] + rank] = rows
+    return offsets, order
+
+
+def presorted_steps_plain(offsets, rows: int, nblocks: int):
+    """K5's steps (GroupRows in csrc/grouped_gram.cu): the group-aligned
+    steps of `rows` rows (`_build.group_chunks`), cpb of them to a block in
+    order. Returns (group, block, first), i64[C] each: each step's group,
+    block and first position, in step order; and cum i64[G + 1]. A step's
+    slot is block + group."""
+    cum = _build.group_chunks(offsets, rows)
+    total = int(cum[-1])
+    cpb = max(-(-total // nblocks), 1)
+    steps = torch.arange(total, device=offsets.device)
+    group = torch.searchsorted(cum[1:], steps, right=True)
+    first = offsets[group] + (steps - cum[group]) * rows
+    return group, steps // cpb, first, cum
+
+
+def presorted_gram_split_plain(x_cols, code_cols, weights, offsets, *,
+                               schema: FeatureSchema, order=None
+                               ) -> torch.Tensor:
+    """Plain torch version of K5's arithmetic on the tensor cores
+    (csrc/grouped_gram.cu over tc_gram.cuh), used by no path, f32[G, P, P]:
+    each step of `presorted_steps_plain` (TC_ROWS rows of one group, the
+    positions past the group's end zero rows) as the Gram of its rows'
+    three-way bf16 parts (`split_operands`; each product exact) in f64,
+    folded into S′ (`fold_parts`) and added in f64 into the slot (block,
+    group) of its step; each group's slots summed over the blocks that met
+    it in block order, rounded to f32 once. x_cols, code_cols, weights:
+    the columns a position reads, sorted by group (`offsets`), or with
+    `order` (K4's, `group_order_plain`) the columns in any order, position
+    i reading row order[i]."""
+    x_cols, code_cols = list(x_cols), list(code_cols)
+    num_groups = offsets.shape[0] - 1
+    n = (x_cols + code_cols + [weights])[0].shape[-1]
+    dev = offsets.device
+    w = torch.ones(n, device=dev) if weights is None else weights
+    # row n, a zero row: what a position past its group's end reads
+    left, right = split_operands(
+        [torch.cat([x, x.new_zeros(1)]) for x in x_cols],
+        [torch.cat([c, c.new_full((1,), -1)]) for c in code_cols],
+        torch.cat([w.float(), w.new_zeros(1)]), schema=schema)
+    nblocks = _build.tc_grid(n)
+    group, block, first, cum = presorted_steps_plain(offsets, _build.TC_ROWS,
+                                                     nblocks)
+    pos = first[:, None] + torch.arange(_build.TC_ROWS, device=dev)
+    valid = pos < offsets[group + 1][:, None]
+    src = torch.where(valid, pos, 0)
+    if order is not None:
+        src = order[src]
+    src = torch.where(valid, src, n)
+    steps = fold_parts(left[:, src].permute(1, 0, 2)
+                       @ right[:, src].permute(1, 2, 0), schema=schema)
+    p = schema.sigma_size
+    slots = torch.zeros((nblocks + num_groups, p, p), dtype=torch.float64,
+                        device=dev)
+    slots.index_add_(0, block + group, steps)
+    cpb = max(-(-int(cum[-1]) // nblocks), 1)
+    out = torch.zeros((num_groups, p, p), dtype=torch.float64, device=dev)
+    for g in range(num_groups):
+        lo, hi = int(cum[g]), int(cum[g + 1])
+        for b in range(lo // cpb, (hi - 1) // cpb + 1) if hi > lo else ():
+            out[g] += slots[b + g]
+    upper = out.float()
+    return upper + upper.triu(1).transpose(-1, -2)
+
+
+def grouped_gram_split_plain(x_num, codes, weights, group_ids, *,
+                             schema: FeatureSchema, num_groups: int
+                             ) -> torch.Tensor:
+    """Plain torch version of K4's arithmetic on the tensor cores, used by
+    no path: `group_order_plain`, then `presorted_gram_split_plain` over
+    the rows through the order."""
+    offsets, order = group_order_plain(group_ids, num_groups)
+    return presorted_gram_split_plain(list(x_num), list(codes), weights,
+                                      offsets, schema=schema, order=order)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -227,14 +362,15 @@ def grouped_gram_presorted(x_sorted, codes_sorted, w_sorted,
         _build.raise_on_error(lib, rc, "grouped_gram_presorted")
         grouped_gram_presorted.wide_launches += 1
         return out
-    cum = _build.group_chunks(off, _build.CHUNK_ROWS)
-    nblocks = _build.grid_blocks(n)
-    partial = torch.empty(lib.lib.dit_gram_entries(p) * (nblocks + num_groups),
+    d = schema.num_cols
+    nblocks, rows = _build.presorted_grid(d, p, n)
+    cum = _build.group_chunks(off, rows)
+    partial = torch.empty(_entries(lib, d, p) * (nblocks + num_groups),
                           dtype=torch.float64, device=device)
     out = torch.empty((num_groups, p, p), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         rc = lib.lib.dit_presorted_gram(
-            _build.pointers(list(x_sorted)), schema.num_cols,
+            _build.pointers(list(x_sorted)), d,
             _build.pointers(list(codes_sorted)), _build.int_array(sizes),
             len(sizes), w_sorted.data_ptr(), off.data_ptr(), cum.data_ptr(),
             num_groups, n, p, partial.data_ptr(), nblocks, out.data_ptr(),

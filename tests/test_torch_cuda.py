@@ -1,8 +1,10 @@
 """The port's kernels on a CUDA card: K1 (masked_gram_cols, and its
 stacked entry point masked_gram behind sum_to_triple), K2
 (fused_impute_aggregate: on K1's tensor-core kernel at config 5, on the
-CUDA cores past its tile), K3 and K3w (qda_predict_kernel), K4 (grouped_gram), K5
-(grouped_gram_presorted), K6 (nb_grouped_sums), and for P > 88 K7 (the wide
+CUDA cores past its tile), K3 and K3w (qda_predict_kernel), K4 (grouped_gram:
+a group order, then K5's kernel through it), K5 (grouped_gram_presorted: on
+K1's tensor-core body at config 4, on the CUDA cores past its tile), K6
+(nb_grouped_sums), and for P > 88 K7 (the wide
 masked Gram behind masked_gram_cols and masked_gram) and K2w (the wide
 fused pass) against their plain versions, the checks their wrappers make,
 and run_mice_device, run_mice_device_delta and the QDA pipeline on the
@@ -54,6 +56,8 @@ from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas_grouped import (
     grouped_gram_plain,
     grouped_gram_presorted,
     grouped_gram_presorted_plain,
+    grouped_gram_split_plain,
+    grouped_route,
     sort_by_group,
 )
 from duckdb_imputation_tpu_torch.ring.sum import (
@@ -417,9 +421,10 @@ def assert_grouped_close(got, want):
 
 @pytest.mark.parametrize("n,groups,binary", [
     (1, 3, True), (257, 8, True), (70_001, 8, True), (70_001, 5, False),
-    (100_003, 1, True)])
+    (100_003, 1, True), (100_003, 2, True), (300_007, 8, False)])
 def test_grouped_gram_kernel_matches_plain(cuda, n, groups, binary):
-    """K4 on ragged n, skew, dropped ids, every GMAX instance."""
+    """K4 (the group order, then K5's tensor-core kernel through it) on
+    ragged n, skew, dropped ids, G from 1 to 8."""
     x, c, w, g = grouped_inputs(n, groups, cuda, binary=binary)
     before = grouped_gram.launches
     got = grouped_gram(x, c, w, g, schema=SCHEMA, num_groups=groups)
@@ -437,10 +442,12 @@ def test_grouped_gram_kernel_matches_plain(cuda, n, groups, binary):
 
 
 @pytest.mark.parametrize("n,groups", [(1000, 3), (70_001, 8),
-                                      (200_003, 1000)])
+                                      (200_003, 1000), (2_000_003, 1000)])
 def test_grouped_gram_presorted_kernel_matches_plain(cuda, n, groups):
     """K5 after sort_by_group: segments of every length (1000 groups:
-    many shorter than a chunk, some empty)."""
+    many shorter than a step, some empty, and at 2M rows ~16 steps a
+    group, several groups a block and its reduction one lane a (group,
+    entry))."""
     x, c, w, g = grouped_inputs(n, groups, cuda)
     if groups == 1000:
         g = torch.randint(0, groups, (n,), dtype=torch.int32, device=cuda)
@@ -453,6 +460,71 @@ def test_grouped_gram_presorted_kernel_matches_plain(cuda, n, groups):
     assert torch.equal(got, again)
     want = grouped_gram_presorted_plain(xs, cs, ws, layout, schema=SCHEMA)
     assert_grouped_close(got, want)
+
+
+@pytest.mark.parametrize("groups,hot", [(1, True), (2, True), (8, True),
+                                        (8, False)])
+def test_grouped_kernels_on_the_tensor_cores(cuda, groups, hot):
+    """At config 4 (`_build.tc_fits`) K4 and K5 take the tensor cores:
+    bit-identical reruns, counts exact and within 1e-5 of each group's
+    max|σ| against the plain version and against their split arithmetic
+    (`grouped_gram_split_plain`: the same bf16 parts, summed in f64; the
+    kernel's f32 sums of 4 steps are the difference); K4 and K5 agree on
+    the counts of the same rows."""
+    assert grouped_route(SCHEMA) == "tensor_cores"
+    n = 200_003
+    x, c, w, g = grouped_inputs(n, groups, cuda)
+    if not hot:
+        g = torch.randint(-1, groups + 1, (n,), dtype=torch.int32,
+                          device=cuda)
+    kw = dict(schema=SCHEMA, num_groups=groups)
+    got = grouped_gram(x, c, w, g, **kw)
+    assert torch.equal(got, grouped_gram(x, c, w, g, **kw))
+    assert_grouped_close(got, grouped_gram_plain(x, c, w, g, **kw))
+    assert_grouped_close(got.cpu(), grouped_gram_split_plain(
+        x.cpu(), c.cpu(), w.cpu(), g.cpu(), **kw))
+    xs, cs, ws, layout = sort_by_group(x, c, g, weights=w, **kw)
+    k5 = grouped_gram_presorted(xs, cs, ws, layout, schema=SCHEMA)
+    assert torch.equal(k5, grouped_gram_presorted(xs, cs, ws, layout,
+                                                  schema=SCHEMA))
+    assert_grouped_close(k5, grouped_gram_presorted_plain(
+        xs, cs, ws, layout, schema=SCHEMA))
+    cm = count_mask(SCHEMA, cuda)
+    assert torch.equal(k5[:, cm], got[:, cm])
+
+
+@pytest.mark.parametrize("groups", [3, 8])
+def test_grouped_kernels_on_the_cuda_cores_at_p88(cuda, groups):
+    """Past the tensor cores' tile (P = 88: 24 numeric and three
+    categorical columns of 21) K4 and K5 take the CUDA cores: reruns
+    bit-identical, counts exact, within 1e-5 of each group's max|σ|
+    against the plain versions, K4's counts equal to K5's."""
+    schema = FeatureSchema(num_cols=24, cat_keys=(tuple(range(21)),) * 3)
+    assert grouped_route(schema) == "cuda_cores"
+    n = 30_011
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(5)
+    x = torch.randn((24, n), generator=gen, device=cuda) * 2 + 0.5
+    c = torch.randint(-1, 22, (3, n), generator=gen, device=cuda,
+                      dtype=torch.int32)
+    g = torch.randint(-1, groups + 1, (n,), generator=gen, device=cuda,
+                      dtype=torch.int32)
+    w = (torch.rand(n, generator=gen, device=cuda) > 0.3).float()
+    kw = dict(schema=schema, num_groups=groups)
+    got = grouped_gram(x, c, w, g, **kw)
+    assert torch.equal(got, grouped_gram(x, c, w, g, **kw))
+    want = grouped_gram_plain(x, c, w, g, **kw)
+    cm = count_mask(schema, cuda)
+    xs, cs, ws, layout = sort_by_group(x, c, g, weights=w, **kw)
+    k5 = grouped_gram_presorted(xs, cs, ws, layout, schema=schema)
+    assert torch.equal(k5, grouped_gram_presorted(xs, cs, ws, layout,
+                                                  schema=schema))
+    for out in (got, k5):
+        assert torch.equal(out[:, cm], want[:, cm])
+        for k in range(groups):
+            scale = max(float(want[k].abs().max()), 1.0)
+            torch.testing.assert_close(out[k], want[k], rtol=0,
+                                       atol=1e-5 * scale)
 
 
 def test_sum_to_triple_grouped_kernel_on_the_card_matches_cpu(cuda):
