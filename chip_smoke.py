@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives the three paths of `duckdb_imputation_tpu_torch` ported so far:
+Drives the paths of `duckdb_imputation_tpu_torch` ported so far:
 
 - the MICE loop, `run_mice_device`, unfused over the masked-Gram kernel
   (K1) and fused over the fused impute+aggregate kernel (K2, on K1's
@@ -30,7 +30,17 @@ Drives the three paths of `duckdb_imputation_tpu_torch` ported so far:
   family (33 classes, P = 459): the grouped Gram is the wide kernel K8
   (after a sort), the NB sums K6w, QDA scoring K3w, the scoring kernel
   over a plan of several tasks (`[K8]`, `[K6w]`, `[K3w]`,
-  `[classify_wide]`: QDA and NB pipelines for both labels).
+  `[classify_wide]`: QDA and NB pipelines for both labels);
+- the paper's host MICE algorithms, `run_mice_baseline`, `run_mice_low`
+  and `run_mice_high` (full rescan, full − delta, static + delta; f64
+  host trainers, predictions on the card), whose every aggregate is K1's
+  stacked entry point `masked_gram` at config 5, 10M rows (`[host_mice]`),
+  and K7 behind it for `run_mice_low` at favorita_wide
+  (`[host_mice_wide]`);
+- the GD trainer on the card (`trainer='gd'`) in `run_mice_device` and
+  `run_mice_device_delta` at config 5, and in `run_mice_device` at
+  favorita_wide, each against the solve trainer on the same table
+  (`[gd]`).
 
 First it builds the kernels from `duckdb_imputation_tpu_torch/csrc/` and
 holds each against its plain torch version at the shapes its path gives
@@ -42,7 +52,9 @@ ungrouped aggregate, on the config-4 table.
 
 Run from the root of a checkout. Prints one line per phase, then a JSON
 line of per-kernel results (`launches` from the run of each kernel's
-path; for K1 and K7 also `delta_launches`, from the delta runs alone;
+path; for K1 and K7 also `delta_launches`, from the delta runs alone,
+and `gd_launches`, from the GD runs; for K1's stacked entry and K7
+`host_launches`, from the host MICE runs;
 `bound_ms`, the least time the card could take for the kernel's work,
 computed from this run's shapes with `bound`; `library_ms`, one PyTorch
 call computing the same function, where there is one), then the card's
@@ -1729,6 +1741,284 @@ def phase_delta(seed: int, n: int = N) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# The host MICE path (run_mice_baseline / low / high, aggregating through
+# K1's stacked entry point, or K7 at favorita_wide) and the GD trainer in
+# the device loops
+# ---------------------------------------------------------------------------
+
+HOST_ROUNDS = 2
+N_HOST_CPU = 200_000       # the host drivers on the CPU, held against the card
+GD_ITERS = 500
+
+
+def host_drivers():
+    from duckdb_imputation_tpu_torch import (run_mice_baseline,
+                                             run_mice_high, run_mice_low)
+    return {"baseline": run_mice_baseline, "low": run_mice_low,
+            "high": run_mice_high}
+
+
+def host_launches_expected(t, driver: str, rounds: int) -> int:
+    """Aggregates of one host driver run, each one launch: baseline one a
+    column step; low one full scan, then two a column step (delta and
+    re-add); high one static scan (when the table has complete rows), then
+    one a column step whose dirty-but-observed row set is not empty."""
+    masks = [m for m in (*t.num_null, *t.cat_null) if bool(m.any())]
+    if driver == "baseline":
+        return rounds * len(masks)
+    if driver == "low":
+        return 1 + 2 * rounds * len(masks)
+    dirty = torch.stack(masks).any(0)
+    return (int(bool((~dirty).any()))
+            + rounds * sum(int(bool((dirty & ~m).any())) for m in masks))
+
+
+def timed_host_run(fn, t, **kw):
+    """One host driver run with a device-synchronized PhaseTimer and each
+    round's end marked. Returns (out, timer, ms per round, wall s); round 1
+    holds the set-up (init fill, partitions, the full or static scan)."""
+    from duckdb_imputation_tpu_torch.utils import PhaseTimer
+
+    timer = PhaseTimer(sync=torch.cuda.synchronize)
+    marks = []
+
+    def mark(_t, _it):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(t, timer=timer, on_iteration=mark, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ends = [t0] + marks
+    per_round = [round((b - a) * 1e3, 3) for a, b in zip(ends, ends[1:])]
+    return out, timer, per_round, wall
+
+
+def close_to(a, b, rtol: float, atol: float) -> bool:
+    return bool(((a - b).abs() <= atol + rtol * b.abs()).all())
+
+
+def phase_host_mice(seed: int) -> int:
+    """run_mice_baseline, run_mice_low and run_mice_high at config 5, 10M
+    rows, HOST_ROUNDS rounds, noise off, linreg_iters at its default: exact
+    masked_gram launches of each run (and no other Gram kernel), imputed-x1
+    RMSE, low and high against baseline at the bounds of
+    tests/test_mice.py::test_mice_low_matches_baseline_imputation, the card
+    against the CPU at N_HOST_CPU rows; phase times and ms per round.
+    Returns the launches of the three 10M-row runs."""
+    from duckdb_imputation_tpu_torch.table import Table
+    from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas import (
+        masked_gram, masked_gram_cols)
+
+    t, truth = make_table(N, seed + 20)
+    kw = dict(iters=HOST_ROUNDS, noise=False)
+    outs, total = {}, 0
+    for name, fn in host_drivers().items():
+        torch.cuda.synchronize()
+        masked_gram.launches = masked_gram.wide_launches = 0
+        masked_gram_cols.launches = masked_gram_cols.wide_launches = 0
+        out, timer, per_round, wall = timed_host_run(fn, t, **kw)
+        got = (masked_gram.launches, masked_gram.wide_launches,
+               masked_gram_cols.launches + masked_gram_cols.wide_launches)
+        want = (host_launches_expected(t, name, HOST_ROUNDS), 0, 0)
+        log(f"[host_mice] run_mice_{name} n={N} rounds={HOST_ROUNDS}: "
+            f"masked_gram launches {got[0]} (expected {want[0]}), wide "
+            f"{got[1]}, masked_gram_cols {got[2]}")
+        check(got == want, f"run_mice_{name} launched {got}, not {want}")
+        check(torch.isfinite(out.num_data).all(), f"{name}: x not finite")
+        check(torch.equal(out.num_data[~t.num_null], t.num_data[~t.num_null])
+              and torch.equal(out.cat_codes[~t.cat_null],
+                              t.cat_codes[~t.cat_null]),
+              f"{name}: observed cells changed")
+        nm = t.num_null[1]
+        rmse = float(((out.num_data[1] - truth)[nm] ** 2).mean().sqrt())
+        check(rmse < 0.05, f"{name}: imputed x1 RMSE {rmse}")
+        phases = {k: round(v * 1e3, 3) for k, v in timer.summary().items()}
+        log(f"[host_mice] run_mice_{name}: RMSE of imputed x1 {rmse:.3e}; "
+            f"wall {wall * 1e3:.3f} ms, ms per round {per_round} (round 1 "
+            f"holds the set-up); PhaseTimer ms {phases}, calls "
+            f"{dict(timer.counts)}")
+        outs[name] = out
+        total += got[0]
+
+    base = outs["baseline"]
+    m = t.cat_null[0]
+    for name in ("low", "high"):
+        o = outs[name]
+        agree = float((o.cat_codes == base.cat_codes).float().mean())
+        agree_null = float((o.cat_codes[0] == base.cat_codes[0])[m]
+                           .float().mean())
+        dx = float((o.num_data - base.num_data).abs().max())
+        check(close_to(o.num_data, base.num_data, 1e-3, 1e-2),
+              f"{name} vs baseline: x max diff {dx}")
+        check(agree > 0.99, f"{name} vs baseline code agreement {agree}")
+        log(f"[host_mice] run_mice_{name} vs run_mice_baseline: x max diff "
+            f"{dx:.3e}, code agreement {agree:.6f} (null cells "
+            f"{agree_null:.6f})")
+    del outs, base
+
+    small, _ = make_table(N_HOST_CPU, seed + 21)
+    cpu = Table(*(a.cpu() for a in (small.num_data, small.cat_codes,
+                                    small.num_null, small.cat_null)),
+                schema=small.schema)
+    sm = small.cat_null[0].cpu()
+    for name, fn in host_drivers().items():
+        ref = fn(cpu, **kw)
+        got = fn(small, **kw)
+        agree = float((got.cat_codes[0].cpu() == ref.cat_codes[0])[sm]
+                      .float().mean())
+        dx = float((got.num_data.cpu() - ref.num_data).abs().max())
+        check(agree >= 0.999 and dx < 1e-2,
+              f"{name} card vs CPU: agreement {agree}, x diff {dx}")
+        log(f"[host_mice] n={N_HOST_CPU} run_mice_{name} on the card vs on "
+            f"the CPU: code agreement {agree:.6f}, x max diff {dx:.3e}")
+    return total
+
+
+def phase_host_mice_wide(seed: int) -> int:
+    """run_mice_low at favorita_wide (P = 492), 10M rows, one round: every
+    aggregate through K7 (`masked_gram.wide_launches`, exact), the [wide]
+    quality gates, the host f64 train time of each column. Returns the K7
+    launches."""
+    from duckdb_imputation_tpu_torch import run_mice_low
+    from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas import (
+        masked_gram)
+
+    t, truth = make_favorita(N, seed + 22)
+    torch.cuda.synchronize()
+    masked_gram.launches = masked_gram.wide_launches = 0
+    out, timer, per_round, wall = timed_host_run(run_mice_low, t, iters=1,
+                                                 noise=False)
+    got = (masked_gram.launches, masked_gram.wide_launches)
+    want = (0, host_launches_expected(t, "low", 1))
+    log(f"[host_mice_wide] run_mice_low favorita_wide P="
+        f"{t.schema.sigma_size} n={N} rounds=1: masked_gram launches "
+        f"{got[0]}, wide (K7) {got[1]} (expected {want[1]})")
+    check(got == want, f"run_mice_low at favorita_wide launched {got}, not "
+          f"{want}")
+    q = wide_quality(t, truth, out, "host_mice_wide")
+    phases = {k: round(v * 1e3, 3) for k, v in timer.summary().items()}
+    log(f"[host_mice_wide] quality {q}; wall {wall * 1e3:.3f} ms, ms per "
+        f"round {per_round}; PhaseTimer ms {phases} (train: the f64 host "
+        f"trainers of family, LDA, and transactions, GD with linreg_iters "
+        f"10000, together), calls {dict(timer.counts)}")
+    return got[1]
+
+
+def phase_gd(seed: int) -> dict:
+    """trainer='gd' (gd_iters=500) against trainer='solve' on one table:
+    run_mice_device (kernel='gram') at config 5 with 20% nulls and
+    run_mice_device_delta at 5%, 10M rows; the bounds of
+    tests/test_mice.py::test_mice_device_solve_vs_gd_trainer; the GD run's
+    K1 launches equal the solve run's; host reads a column step, the GD
+    column step's ms and ms per round. Then the unfused GD loop at
+    favorita_wide over K7. Returns the GD runs' launches."""
+    from duckdb_imputation_tpu_torch import (run_mice_device,
+                                             run_mice_device_delta)
+    from duckdb_imputation_tpu_torch.mice.device_round import (
+        mice_loop_device)
+    from duckdb_imputation_tpu_torch.mice.partition import init_fill
+    from duckdb_imputation_tpu_torch.models.device import (
+        linreg_train_device)
+    from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas import (
+        masked_gram_cols)
+
+    def counted(fn, t, **kw):
+        torch.cuda.synchronize()
+        masked_gram_cols.launches = masked_gram_cols.wide_launches = 0
+        reads = linreg_train_device.host_reads
+        out = fn(t, **kw)
+        torch.cuda.synchronize()
+        return out, (masked_gram_cols.launches,
+                     masked_gram_cols.wide_launches), \
+            linreg_train_device.host_reads - reads
+
+    launches = {"masked_gram_cols": 0, "wide_gram": 0}
+    for tag, fn, frac, extra in (
+            ("run_mice_device", run_mice_device, 0.2, {"kernel": "gram"}),
+            ("run_mice_device_delta", run_mice_device_delta, 0.05,
+             {"kernel": "gram"})):
+        t, truth = make_table(N, seed + 23, null_frac=frac)
+        solve, n_solve, _ = counted(fn, t, iters=2, trainer="solve", **extra)
+        gd, n_gd, reads = counted(fn, t, iters=2, trainer="gd",
+                                  gd_iters=GD_ITERS, **extra)
+        check(n_gd == n_solve and n_gd[0] > 0 and n_gd[1] == 0,
+              f"{tag} GD launched {n_gd}, solve {n_solve}")
+        nm, cm = t.num_null[1], t.cat_null[0]
+        dx = float((gd.num_data[1] - solve.num_data[1])[nm].abs().max())
+        agree = float((gd.cat_codes[0] == solve.cat_codes[0])[cm].float()
+                      .mean())
+        rmse = {k: float(((o.num_data[1] - truth)[nm] ** 2).mean().sqrt())
+                for k, o in (("solve", solve), ("gd", gd))}
+        check(dx <= 0.1, f"{tag} GD vs solve: imputed x1 max diff {dx}")
+        check(agree > 0.95, f"{tag} GD vs solve: code agreement {agree}")
+        log(f"[gd] {tag} n={N} {frac:.0%} nulls, 2 rounds, gd_iters="
+            f"{GD_ITERS}: K1 launches {n_gd[0]} (solve {n_solve[0]}); GD vs "
+            f"solve: imputed x1 max diff {dx:.3e}, code agreement "
+            f"{agree:.6f}; RMSE {rmse}; host reads {reads / 2:.1f} a "
+            f"column step")
+        launches["masked_gram_cols"] += n_gd[0]
+        del solve, gd
+
+    # the GD column step alone, and ms per round of the unfused GD loop,
+    # on the 20% table
+    t, _ = make_table(N, seed + 23)
+    f = init_fill(t)
+    x_cols = list(f.num_data.unbind(0))
+    code_cols = list(f.cat_codes.unbind(0))
+    sigma = masked_gram_cols(x_cols, code_cols, (~f.num_null[1]).float(),
+                             schema=f.schema)
+    reads = linreg_train_device.host_reads
+    step_ms = cuda_ms(lambda: linreg_train_device(sigma, label=2,
+                                                  max_iters=GD_ITERS),
+                      reps=3, warmup=1)
+    step_reads = (linreg_train_device.host_reads - reads) / 4
+    args = (f.num_data, f.cat_codes, f.num_null, f.cat_null)
+    kw = dict(schema=t.schema, num_cols_to_impute=(1,),
+              cat_cols_to_impute=(0,), kernel="gram")
+    per_round = {}
+    for trainer in ("solve", "gd"):
+        def loop(k):
+            return mice_loop_device(*args, iters=k, trainer=trainer,
+                                    gd_iters=GD_ITERS, **kw)
+        one = cuda_ms(lambda: loop(1), reps=2, warmup=1)
+        four = cuda_ms(lambda: loop(4), reps=2, warmup=1)
+        per_round[trainer] = (four - one) / 3
+    log(f"[gd] linreg_train_device at P={t.schema.sigma_size} (config 5, "
+        f"x1, {GD_ITERS} steps at most): {step_ms:.3f} ms a column step "
+        f"(CUDA events), {step_reads:.1f} host reads; ms per round of the "
+        f"unfused loop at n={N} (slope of 1 vs 4 rounds, CUDA events): "
+        f"{per_round}")
+
+    # favorita_wide: the unfused GD loop over K7
+    t, truth = make_favorita(N, seed + 24)
+    solve, n_solve, _ = counted(run_mice_device, t, iters=1, kernel="gram",
+                                trainer="solve")
+    gd, n_gd, reads = counted(run_mice_device, t, iters=1, kernel="gram",
+                              trainer="gd", gd_iters=GD_ITERS)
+    check(n_gd == n_solve and n_gd[1] > 0 and n_gd[0] == 0,
+          f"favorita_wide GD launched {n_gd}, solve {n_solve}")
+    q = {k: wide_quality(t, truth, o, f"favorita_wide {k}")
+         for k, o in (("solve", solve), ("gd", gd))}
+    nm, cm = t.num_null[1], t.cat_null[1]
+    dx = float((gd.num_data[1] - solve.num_data[1])[nm].abs().max())
+    agree = float((gd.cat_codes[1] == solve.cat_codes[1])[cm].float().mean())
+    check(agree > 0.95, f"favorita_wide GD vs solve code agreement {agree}")
+    check(q["gd"]["rmse"] <= 1.15 * q["solve"]["rmse"] + 0.02,
+          f"favorita_wide GD RMSE {q['gd']['rmse']} > 1.15·"
+          f"{q['solve']['rmse']} + 0.02")
+    log(f"[gd] run_mice_device favorita_wide P={t.schema.sigma_size} n={N}, "
+        f"1 round, gd_iters={GD_ITERS}: K7 launches {n_gd[1]} (solve "
+        f"{n_solve[1]}); GD vs solve: family agreement {agree:.6f}, "
+        f"transactions max diff {dx:.3e} (f32 GD stalls short of the "
+        f"solve at this schema, tests/test_torch_gd.py); quality {q}; host "
+        f"reads {reads} in the column step")
+    launches["wide_gram"] = n_gd[1]
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # The classifier path at wide schemas: favorita_classify (K8, K6w, K3w)
 # ---------------------------------------------------------------------------
 
@@ -2135,6 +2425,9 @@ def main() -> int:
     k2w = phase_k2w(args.seed)
     wide = phase_wide(args.seed)
     delta = phase_delta(args.seed)
+    host = phase_host_mice(args.seed)
+    host_wide = phase_host_mice_wide(args.seed)
+    gd = phase_gd(args.seed)
     k8 = phase_k8(args.seed)
     k6w = phase_k6w(args.seed)
     k3w = phase_k3w(args.seed)
@@ -2147,11 +2440,12 @@ def main() -> int:
              source=src + "masked_gram.cu",
              replaces=ref + "sigma_pallas.py:888",
              launches=launches["masked_gram_cols"],
-             delta_launches=delta["masked_gram_cols"], **k1),
+             delta_launches=delta["masked_gram_cols"],
+             gd_launches=gd["masked_gram_cols"], **k1),
         dict(name="masked_gram", route="cuda",
              source=src + "masked_gram.cu",
              replaces=ref + "sigma_pallas.py:109",
-             launches=k1s_launches, **k1s),
+             launches=k1s_launches, host_launches=host, **k1s),
         dict(name="fused_impute_aggregate", route="cuda",
              source=src + "fused_impute_aggregate.cu",
              replaces=ref + "sigma_fused.py:413",
@@ -2175,7 +2469,7 @@ def main() -> int:
         dict(name="wide_gram", route="cuda", source=src + "wide_gram.cu",
              replaces=ref + "sigma_pallas.py:501",
              launches=wide["wide_gram"], delta_launches=delta["wide_gram"],
-             **k7),
+             host_launches=host_wide, gd_launches=gd["wide_gram"], **k7),
         dict(name="fused_impute_aggregate_wide", route="cuda",
              source=src + "fused_impute_aggregate.cu",
              replaces=ref + "sigma_fused.py:509",

@@ -8,19 +8,58 @@ imports torch and never jax. Ported so far:
 - the single-device MICE loops (`mice.device_round`: unfused, fused and
   the compact delta loop) with the masked-Gram kernels (K1, and K7 for
   P > 88, `ring.kernels.sigma_pallas`) and the fused impute+aggregate
-  kernels (K2, and K2w for P > 88, `ring.kernels.sigma_fused`);
+  kernels (K2, and K2w for P > 88, `ring.kernels.sigma_fused`); the
+  numeric trainer is the direct solve or, in the unfused and delta loops,
+  the reference's GD loop on the device (`models.device`);
+- the paper's three host MICE algorithms (`mice.baseline`, `mice.low`,
+  `mice.high`: full rescan, full − delta, static + delta), aggregating
+  through `ring.sum.sum_to_triple` (K1's stacked entry point on a CUDA
+  table) and training on the host in f64;
+- the host trainers and predictors (`models.linear_regression`, `lda`,
+  `qda`, `naive_bayes`, `sigma`), whose flat f32 parameter vectors are
+  the JAX package's, and the model bundles (`models.io`) in its `.npz`
+  layout;
 - the classifier path: triples (`ring.triple`), grouped and NB
   aggregation (`ring.sum`) over the grouped Gram kernels (K4 unsorted, K5
   sorted, `ring.kernels.sigma_pallas_grouped`) and the NB sums kernel (K6,
   `ring.kernels.nb_pallas`), device QDA/NB training and one-pass QDA
-  scoring (`models.device`, K3 in `ring.kernels.qda_pallas`).
+  scoring (`models.device`, K3 in `ring.kernels.qda_pallas`);
+- the table (`table`: `from_numpy`, `from_pandas`, the write-backs) and
+  `utils` (`PhaseTimer`, `device_trace`, triple validation).
 """
 
 from .schema import FeatureSchema
-from .table import Table, from_numpy, from_reference
-from .mice import init_fill, run_mice_device, run_mice_device_delta
+from .ring import (
+    NBAgg,
+    Triple,
+    lift,
+    nb_lift,
+    sigma_from_triple,
+    sum_nb_aggs,
+    sum_to_nb_agg,
+    sum_to_nb_agg_grouped,
+    sum_to_triple,
+    sum_to_triple_grouped,
+    sum_triples,
+    triple_add,
+    triple_sub,
+)
+from .table import Table, from_numpy, from_pandas, from_reference
+from .mice import (
+    init_fill,
+    run_mice_baseline,
+    run_mice_device,
+    run_mice_device_delta,
+    run_mice_high,
+    run_mice_low,
+)
 
 __version__ = "0.1.0"
 
-__all__ = ["FeatureSchema", "Table", "from_numpy", "from_reference",
-           "init_fill", "run_mice_device", "run_mice_device_delta"]
+__all__ = ["FeatureSchema", "NBAgg", "Triple", "lift", "nb_lift",
+           "sigma_from_triple", "sum_nb_aggs", "sum_to_nb_agg",
+           "sum_to_nb_agg_grouped", "sum_to_triple", "sum_to_triple_grouped",
+           "sum_triples", "triple_add", "triple_sub", "Table", "from_numpy",
+           "from_pandas", "from_reference", "init_fill", "run_mice_baseline",
+           "run_mice_device", "run_mice_device_delta", "run_mice_high",
+           "run_mice_low"]

@@ -1,3 +1,6 @@
+from .baseline import run_mice_baseline
+from .low import run_delta_rounds, run_mice_low
+from .high import run_mice_high
 from .partition import (
     Partitions,
     build_partitions,
@@ -15,8 +18,9 @@ from .device_round import (
     run_mice_device_delta,
 )
 
-__all__ = ["Partitions", "build_partitions", "build_union_gather",
-           "gather_rows", "init_fill", "mice_loop_device",
-           "mice_loop_device_delta", "mice_loop_device_fused",
-           "mice_round_device", "observed_weights", "run_mice_device",
-           "run_mice_device_delta"]
+__all__ = ["run_mice_baseline", "run_mice_low", "run_mice_high",
+           "run_delta_rounds", "Partitions", "build_partitions",
+           "build_union_gather", "gather_rows", "init_fill",
+           "mice_loop_device", "mice_loop_device_delta",
+           "mice_loop_device_fused", "mice_round_device", "observed_weights",
+           "run_mice_device", "run_mice_device_delta"]

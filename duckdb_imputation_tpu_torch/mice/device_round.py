@@ -5,8 +5,10 @@ fused and delta loops, `run_mice_device` and `run_mice_device_delta`). For
 each round and each null column, categorical columns first (the
 reference's order, imputation_base.cpp:18-87), a round:
   1. aggregates the masked sigma (Zᵀ·diag(w)·Z, w = observed mask);
-  2. solves the model on the device (`_lda_device`, or
-     `models.device.linreg_solve_device`);
+  2. trains the model on the device (`_lda_device`; for a numeric column
+     `models.device.linreg_solve_device`, trainer='solve', or the
+     reference's GD loop `models.device.linreg_train_device`, trainer='gd'
+     with `gd_iters` steps at most);
   3. predicts and writes the result back under the null mask.
 
 COLUMNAR CARRY: inside the loops the table is a list of per-column [n]
@@ -26,8 +28,7 @@ leave their inputs unchanged and return new tensors.
 Above P = 88 the same wrappers launch the wide kernels (K7 for the Gram,
 K2w for the fused pass), up to P = 1,024. On CPU tensors every kernel
 takes its plain version, so every kernel value runs on the CPU too.
-trainer='gd' (the JAX package's GD loop) is not ported yet and raises
-NotImplementedError.
+The fused loop is solve-only, as the JAX package's is.
 
 The delta loop (`run_mice_device_delta`, the low-missing strategy of the
 reference's imputation_low.cpp) aggregates the full table once, gathers
@@ -52,7 +53,8 @@ import functools
 import torch
 
 from ..schema import FeatureSchema
-from ..models.device import linreg_solve_device, lstsq_min_norm
+from ..models.device import (linreg_solve_device, linreg_train_device,
+                             lstsq_min_norm)
 from ..ring.kernels.sigma_fused import fused_impute_aggregate, philox_normal
 from ..ring.kernels.sigma_pallas import masked_gram_cols
 from ..ring.sum import _stack_cols, class_argmax, linear_predict, masked_sigma
@@ -61,6 +63,7 @@ from .partition import build_partitions, init_fill
 
 KERNELS = ("auto", "plain", "gram", "fused")
 DELTA_KERNELS = ("auto", "plain", "gram")
+TRAINERS = ("solve", "gd")
 
 
 def _row_noise(generator: torch.Generator, n: int,
@@ -110,6 +113,21 @@ def _w_full(w: torch.Tensor, keep: torch.Tensor,
     return out
 
 
+def _check_trainer(trainer: str) -> None:
+    if trainer not in TRAINERS:
+        raise ValueError(f"trainer must be one of {TRAINERS}, "
+                         f"got {trainer!r}")
+
+
+def _train_num(sigma: torch.Tensor, col: int, trainer: str,
+               gd_iters: int) -> torch.Tensor:
+    """The numeric column's coeff f32[P] (−1 at the label): one min-norm
+    solve, or at most `gd_iters` steps of the reference's GD."""
+    if trainer == "solve":
+        return linreg_solve_device(sigma, label=col + 1)
+    return linreg_train_device(sigma, label=col + 1, max_iters=gd_iters)
+
+
 def _noise_std(coeff: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
     """Residual std of the linreg model, from the sigma it was trained on
     (coeff has −1 at the label)."""
@@ -121,11 +139,12 @@ def _round_columns(x_cols, code_cols, w_num, w_cat, null_num, null_cat, *,
                    schema: FeatureSchema,
                    num_cols_to_impute: tuple[int, ...],
                    cat_cols_to_impute: tuple[int, ...],
-                   agg, lda_shrinkage: float, noise_for):
+                   agg, lda_shrinkage: float, noise_for, trainer: str,
+                   gd_iters: int):
     """One MICE round's per-column body. x_cols / code_cols: lists of
     per-column [n] tensors; w_* / null_*: per-column observed weights and
     null masks; `agg(x_cols, code_cols, w) -> sigma`; `noise_for() ->
-    f32[n] | None`."""
+    f32[n] | None`; `trainer`, `gd_iters`: see `_train_num`."""
     x_cols, code_cols = list(x_cols), list(code_cols)
     for col in cat_cols_to_impute:
         sigma = agg(x_cols, code_cols, w_cat[col])
@@ -136,7 +155,7 @@ def _round_columns(x_cols, code_cols, w_num, w_cat, null_num, null_cat, *,
 
     for col in num_cols_to_impute:
         sigma = agg(x_cols, code_cols, w_num[col])
-        coeff = linreg_solve_device(sigma, label=col + 1)
+        coeff = _train_num(sigma, col, trainer, gd_iters)
         theta = coeff.clone()
         theta[col + 1] = 0.0
         pred = linear_predict(theta, x_cols, code_cols, schema=schema)
@@ -180,13 +199,13 @@ def mice_loop_device(x_num, codes, num_null, cat_null, generator=None, *,
                      num_cols_to_impute: tuple[int, ...],
                      cat_cols_to_impute: tuple[int, ...], iters: int,
                      lda_shrinkage: float = 0.001, noise: bool = False,
-                     kernel: str = "plain", trainer: str = "solve"):
+                     kernel: str = "plain", trainer: str = "solve",
+                     gd_iters: int = 500):
     """The unfused MICE loop: `iters` rounds over the columnar carry.
     Arrays are features-first; returns (x_num, codes). kernel: 'plain' or
-    'gram'; noise=True draws from `generator`."""
-    if trainer != "solve":
-        raise NotImplementedError(
-            f"trainer={trainer!r} is not ported yet; use 'solve'")
+    'gram'; trainer: 'solve' or 'gd' (at most `gd_iters` GD steps a
+    numeric column); noise=True draws from `generator`."""
+    _check_trainer(trainer)
     if kernel not in ("plain", "gram"):
         raise ValueError(f"unfused loop kernel must be 'plain' or 'gram', "
                          f"got {kernel!r}")
@@ -206,7 +225,8 @@ def mice_loop_device(x_num, codes, num_null, cat_null, generator=None, *,
             x_cols, code_cols, w_num, w_cat, num_null, cat_null,
             schema=schema, num_cols_to_impute=num_cols_to_impute,
             cat_cols_to_impute=cat_cols_to_impute, agg=agg,
-            lda_shrinkage=lda_shrinkage, noise_for=noise_for)
+            lda_shrinkage=lda_shrinkage, noise_for=noise_for,
+            trainer=trainer, gd_iters=gd_iters)
     return _from_cols(x_cols, code_cols, x_num, codes)
 
 
@@ -291,11 +311,14 @@ def mice_loop_device_fused(x_num, codes, num_null, cat_null, *,
 def run_mice_device(t: Table, num_null_cols=None, cat_null_cols=None,
                     iters: int = 5, *, lda_shrinkage: float = 0.001,
                     noise: bool = False, seed: int = 0, kernel: str = "auto",
-                    trainer: str = "solve") -> Table:
+                    trainer: str = "solve", gd_iters: int = 500) -> Table:
     """Mean/mode init on the table's device, then the device loop chosen by
-    `kernel` (see the module docstring). Returns the imputed Table."""
+    `kernel` (see the module docstring) with the numeric trainer `trainer`
+    ('solve', or 'gd' with at most `gd_iters` steps; the fused loop is
+    solve-only). Returns the imputed Table."""
     if kernel not in KERNELS:
         raise ValueError(f"kernel must be one of {KERNELS}, got {kernel!r}")
+    _check_trainer(trainer)
     t = init_fill(t)
     schema = t.schema
     if num_null_cols is None:
@@ -312,7 +335,7 @@ def run_mice_device(t: Table, num_null_cols=None, cat_null_cols=None,
     if kernel == "fused":
         if trainer != "solve":
             raise ValueError("the fused impute+aggregate loop is "
-                             "solve-only")
+                             "solve-only; use kernel='gram' for GD")
         x, c = mice_loop_device_fused(t.num_data, t.cat_codes, t.num_null,
                                       t.cat_null, seed=seed, **kw)
     else:
@@ -322,7 +345,7 @@ def run_mice_device(t: Table, num_null_cols=None, cat_null_cols=None,
             generator.manual_seed(seed)
         x, c = mice_loop_device(t.num_data, t.cat_codes, t.num_null,
                                 t.cat_null, generator, kernel=kernel,
-                                trainer=trainer, **kw)
+                                trainer=trainer, gd_iters=gd_iters, **kw)
     return dataclasses.replace(t, num_data=x, cat_codes=c)
 
 
@@ -330,7 +353,8 @@ def _delta_round_columns(xc, cc, full, imp_num, imp_cat, w_num, w_cat, gidx,
                          r: int, *, schema: FeatureSchema,
                          num_cols_to_impute: tuple[int, ...],
                          cat_cols_to_impute: tuple[int, ...], agg,
-                         lda_shrinkage: float, seed: int | None):
+                         lda_shrinkage: float, seed: int | None,
+                         trainer: str, gd_iters: int):
     """One delta-MICE round over the COMPACT union sub-table (the
     imputation_low.cpp:42-110 algebra), categorical columns first: per
     column, delta = sigma(compact rows, weights = the column's dirty mask);
@@ -338,7 +362,8 @@ def _delta_round_columns(xc, cc, full, imp_num, imp_cat, w_num, w_cat, gidx,
     train + sigma(compact rows with the updated values). xc / cc: compact
     per-column [K] tensors; imp_* bool[K] (True = impute) and w_* f32[K]
     per column; gidx int64[K] the global row ids (noise keying); `seed`
-    enables the Philox noise of round r. Returns (xc, cc, full)."""
+    enables the Philox noise of round r; `trainer`, `gd_iters`: see
+    `_train_num`. Returns (xc, cc, full)."""
     xc, cc = list(xc), list(cc)
     for col in cat_cols_to_impute:
         train = full - agg(xc, cc, w_cat[col])
@@ -350,7 +375,7 @@ def _delta_round_columns(xc, cc, full, imp_num, imp_cat, w_num, w_cat, gidx,
 
     for col in num_cols_to_impute:
         train = full - agg(xc, cc, w_num[col])
-        coeff = linreg_solve_device(train, label=col + 1)
+        coeff = _train_num(train, col, trainer, gd_iters)
         theta = coeff.clone()
         theta[col + 1] = 0.0
         pred = linear_predict(theta, xc, cc, schema=schema)
@@ -369,7 +394,8 @@ def mice_loop_device_delta(x_num, codes, num_null, cat_null, union_idx,
                            cat_cols_to_impute: tuple[int, ...], iters: int,
                            lda_shrinkage: float = 0.001, noise: bool = False,
                            seed: int = 0, kernel: str = "plain",
-                           trainer: str = "solve", round_offset: int = 0):
+                           trainer: str = "solve", gd_iters: int = 500,
+                           round_offset: int = 0):
     """The low-missing delta strategy (imputation_low.cpp) on the device:
     ONE full aggregation, ONE gather of the union of dirty rows into a
     compact sub-table, then every round runs on the compact rows alone
@@ -382,11 +408,10 @@ def mice_loop_device_delta(x_num, codes, num_null, cat_null, union_idx,
     (`build_union_gather`). full_sigma: optionally the [P, P] sigma of the
     full table computed elsewhere. round_offset: global index of the first
     round (the noise is keyed by it). kernel: 'plain' or 'gram' (K1, or K7
-    for P > 88); noise=True draws Philox noise keyed by `seed`, the round,
-    the column and each row's global id."""
-    if trainer != "solve":
-        raise NotImplementedError(
-            f"trainer={trainer!r} is not ported yet; use 'solve'")
+    for P > 88); trainer: 'solve' or 'gd' (at most `gd_iters` GD steps a
+    numeric column); noise=True draws Philox noise keyed by `seed`, the
+    round, the column and each row's global id."""
+    _check_trainer(trainer)
     if kernel not in ("plain", "gram"):
         raise ValueError(f"delta loop kernel must be 'plain' or 'gram', "
                          f"got {kernel!r}")
@@ -408,7 +433,8 @@ def mice_loop_device_delta(x_num, codes, num_null, cat_null, union_idx,
             xc, cc, full, imp_num, imp_cat, w_num, w_cat, union_idx, r,
             schema=schema, num_cols_to_impute=num_cols_to_impute,
             cat_cols_to_impute=cat_cols_to_impute, agg=agg,
-            lda_shrinkage=lda_shrinkage, seed=seed if noise else None)
+            lda_shrinkage=lda_shrinkage, seed=seed if noise else None,
+            trainer=trainer, gd_iters=gd_iters)
 
     # write-back: one scatter-ADD per imputed column (padding aliases row 0
     # with valid 0, an exact no-op; cells left as they were add 0)
@@ -450,12 +476,13 @@ def build_union_gather(dirty_idx_lists, blk: int | None = 1):
 def run_mice_device_delta(t: Table, num_null_cols=None, cat_null_cols=None,
                           iters: int = 5, *, lda_shrinkage: float = 0.001,
                           noise: bool = False, seed: int = 0,
-                          kernel: str = "auto",
-                          trainer: str = "solve") -> Table:
+                          kernel: str = "auto", trainer: str = "solve",
+                          gd_iters: int = 500) -> Table:
     """Mean/mode init, the dirty-row partitions and their exact union, then
     the compact delta loop (`mice_loop_device_delta`). kernel: 'auto'
-    ('gram' for a CUDA table, 'plain' on the CPU), 'plain' or 'gram'.
-    Returns the imputed Table."""
+    ('gram' for a CUDA table, 'plain' on the CPU), 'plain' or 'gram';
+    trainer: 'solve' or 'gd' (at most `gd_iters` steps). Returns the
+    imputed Table."""
     if kernel not in DELTA_KERNELS:
         raise ValueError(f"kernel must be one of {DELTA_KERNELS}, "
                          f"got {kernel!r}")
@@ -477,5 +504,5 @@ def run_mice_device_delta(t: Table, num_null_cols=None, cat_null_cols=None,
         union_valid, schema=t.schema, num_cols_to_impute=tuple(num_null_cols),
         cat_cols_to_impute=tuple(cat_null_cols), iters=iters,
         lda_shrinkage=lda_shrinkage, noise=noise, seed=seed, kernel=kernel,
-        trainer=trainer)
+        trainer=trainer, gd_iters=gd_iters)
     return dataclasses.replace(t, num_data=x, cat_codes=c)

@@ -1,10 +1,20 @@
 """Device-side trainers and batched predictors.
 
-Counterpart of `duckdb_imputation_tpu.models.device`: the direct
-least-squares trainer that keeps a whole MICE column step (aggregate →
-train → predict → write-back) on the device, and the classifier path's
-QDA and naive-Bayes trainers and one-pass predictors. The GD trainer
-(`linreg_train_device`) is not ported yet.
+Counterpart of `duckdb_imputation_tpu.models.device`: the trainers that
+keep a whole MICE column step (aggregate → train → predict → write-back)
+on the device, the direct least-squares solve and the reference's GD loop
+in f32 (`linreg_train_device`), and the classifier path's QDA and
+naive-Bayes trainers and one-pass predictors.
+
+The GD loop is the JAX package's two `while_loop`s: an outer loop of GD
+steps that stops on `done`, and inside each step a backtracking loop of up
+to 500 halvings. Here a step is a fixed sequence of tensor ops with no
+host read: the backtracking evaluates every candidate step/2^j, j ≤ 500,
+in one batched product [501, P] @ Σ and takes the first that meets the
+Armijo test (halving is exact, so each candidate is the value the
+sequential loop reaches). The outer loop runs in chunks of `GD_CHUNK`
+steps; a step whose state is done returns it unchanged, so one read of
+`done` a chunk stops the loop where the while loop stops.
 
 Three divergences from the JAX package, each a fix (ROADMAP Queue 3):
 `qda_train_device` takes the per-class SVD in f64 (JAX: f32 with the f64
@@ -19,7 +29,14 @@ class's form into the cells of the schema's plan.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
+
+# The reference's cap on backtracking halvings (regression.cpp:205-223).
+GD_HALVINGS = 500
+# Outer GD steps between two host reads of `done`.
+GD_CHUNK = 32
 
 
 def lstsq_min_norm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -58,6 +75,157 @@ def linreg_solve_device(sigma: torch.Tensor, *,
     coeff[keep] = lstsq_min_norm(a, b)
     coeff[label] = -1.0
     return coeff
+
+
+@dataclasses.dataclass(frozen=True)
+class _GDState:
+    it: torch.Tensor          # i64[], the reference's num_iterations
+    step: torch.Tensor        # f32[]
+    coeff: torch.Tensor       # f32[P]
+    grad: torch.Tensor        # f32[P]
+    prev_error: torch.Tensor  # f32[]
+    done: torch.Tensor        # bool[]
+
+
+def _gd_error(sigma, cand, n, lam):
+    """The reference's error of each row of cand f32[J, P]:
+    (θᵀΣθ/N + λ(‖θ₁:‖² − 1)) / 2, as f32[J]."""
+    e = ((cand @ sigma) * cand).sum(-1) / n
+    pn = (cand[:, 1:] * cand[:, 1:]).sum(-1) - 1.0
+    return (e + lam * pn) / 2.0
+
+
+def _at(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """x[i] for a 0-d index tensor, read on the device (no host sync)."""
+    return x.index_select(0, i.reshape(1))[0]
+
+
+def _gd_step(s: _GDState, sigma, n, lam, keep, pin, is_intercept,
+             halvings, first_gnorm) -> _GDState:
+    """One outer GD step (regression.cpp:179-238) with its backtracking,
+    all on the device; a state that is done comes back unchanged."""
+    update = torch.where(is_intercept, s.grad, s.grad + lam * s.coeff)
+    uu = update @ update
+    gnorm2 = uu - lam * lam
+    # every backtracking candidate at once: steps[j] = step / 2^j exactly
+    # (an f32 times a power of two in f64, rounded once to f32)
+    steps = (s.step.double() * halvings).float()              # [J]
+    raw = s.coeff - steps[:, None] * update                   # [J, P]
+    cand = raw * keep - pin
+    err = _gd_error(sigma, cand, n, lam)
+    # the while loop halves while err > prev_error − (step/2)·gnorm2 and
+    # fewer than 500 halvings were taken: the first candidate that fails
+    # that test is taken, the last one in any case
+    stop = ~(err > s.prev_error - (steps / 2) * gnorm2)
+    stop[-1] = True
+    a = torch.argmax(stop.to(torch.int32))
+    dparam = torch.where(
+        a == 0, s.step * torch.sqrt(uu),
+        _at(torch.sqrt(((cand[:-1] - raw[1:]) ** 2).sum(-1)),
+            (a - 1).clamp(min=0)))
+    step, coeff = _at(steps, a), _at(cand, a)
+    gnorm = torch.sqrt(gnorm2.clamp(min=0.0))
+    done = (dparam < 1e-20) | (gnorm / (first_gnorm + 0.001) < 1e-8)
+    grad = sigma @ coeff / n * keep
+
+    # Barzilai–Borwein step (compute_step_size, regression.cpp:79-105)
+    dtheta = coeff - s.coeff
+    dgrad = grad - s.grad
+    dss, gss, dgs = dtheta @ dtheta, dgrad @ dgrad, dtheta @ dgrad
+    ts = dss / torch.where(dgs == 0, 1.0, dgs)
+    tm = dgs / torch.where(gss == 0, 1.0, gss)
+    bb = torch.where(tm / ts > 0.5, tm, ts - 0.5 * tm)
+    new_step = torch.where((dgs == 0) | (gss == 0) | (tm < 0) | (ts < 0),
+                           step, bb)
+    new = _GDState(s.it + 1, new_step, coeff, grad, _at(err, a), done)
+    return _GDState(*(torch.where(s.done, getattr(s, f.name),
+                                  getattr(new, f.name))
+                      for f in dataclasses.fields(_GDState)))
+
+
+def linreg_train_device(sigma: torch.Tensor, *, label: int,
+                        step_size: float = 0.001, lam: float = 0.0,
+                        max_iters: int = 1000) -> torch.Tensor:
+    """GD ridge regression on the Gram matrix, on sigma's device, in f32:
+    the reference's loop (regression.cpp:157-238) with BB steps and nested
+    backtracking, as the JAX package's `linreg_train_device` runs it.
+
+    sigma: f32[P, P] (from sigma_from_triple). label: sigma row index of the
+    target (numeric col l -> l+1). Returns coeff f32[P] with coeff[label]
+    pinned to −1; the usual prediction uses all entries except label.
+
+    The loop reads `done` from the device once every `GD_CHUNK` steps
+    (counted in `linreg_train_device.host_reads`); the result does not
+    depend on `GD_CHUNK`."""
+    p = sigma.shape[0]
+    dev = sigma.device
+    f32 = torch.float32
+    sigma = sigma.to(f32)
+    n = sigma[0, 0].clamp(min=1.0)
+    lam_t = torch.tensor(lam, dtype=f32, device=dev)
+    pin = torch.zeros(p, dtype=f32, device=dev)
+    pin[label] = 1.0
+    keep = 1.0 - pin
+    is_intercept = torch.zeros(p, dtype=torch.bool, device=dev)
+    is_intercept[0] = True
+    halvings = torch.pow(0.5, torch.arange(GD_HALVINGS + 1,
+                                           dtype=torch.float64, device=dev))
+
+    coeff0 = -pin
+    grad0 = sigma @ coeff0 / n * keep
+    upd0 = grad0 + lam_t * coeff0 * (~is_intercept).to(f32)
+    first_gnorm = torch.sqrt((upd0 @ upd0 - lam_t * lam_t).clamp(min=0.0))
+    s = _GDState(torch.ones((), dtype=torch.int64, device=dev),
+                 torch.tensor(step_size, dtype=f32, device=dev), coeff0,
+                 grad0, _gd_error(sigma, coeff0[None], n, lam_t)[0],
+                 torch.zeros((), dtype=torch.bool, device=dev))
+    taken = 0
+    while taken < max_iters - 1:
+        for _ in range(min(GD_CHUNK, max_iters - 1 - taken)):
+            s = _gd_step(s, sigma, n, lam_t, keep, pin, is_intercept,
+                         halvings, first_gnorm)
+            taken += 1
+        if taken < max_iters - 1:
+            linreg_train_device.host_reads += 1
+            if bool(s.done):
+                break
+    return s.coeff
+
+
+linreg_train_device.host_reads = 0
+
+
+def linreg_predict_device(coeff: torch.Tensor, zt: torch.Tensor,
+                          label: int) -> torch.Tensor:
+    """Prediction from the device coeff vector over the features-first
+    feature matrix Zᵀ = [1 | x_num | onehot]ᵀ f32[P, n] (the sigma's
+    layout): the model solves θ·z ≈ 0 with θ[label] = −1, so
+    ŷ = Σ_{i≠label} θ_i z_i. Returns f32[n]."""
+    theta = coeff.clone()
+    theta[label] = 0.0
+    return theta @ zt
+
+
+def mice_column_step_device(x_num, codes, null_mask, *, schema, label: int,
+                            max_iters: int = 200):
+    """One on-device MICE continuous-column step: masked aggregate (K1, or
+    K7 for P > 88, on a CUDA table) → GD train → batched predict → masked
+    write-back. x_num f32[d, n] features-first, codes i32[c, n], null_mask
+    bool[n]. Returns (new x_num, coeff); the inputs stay unchanged."""
+    from ..ring.kernels.sigma_pallas import masked_gram_cols
+    from ..ring.sum import linear_predict
+
+    x_cols = list(x_num.contiguous().unbind(0))
+    code_cols = list(codes.contiguous().unbind(0))
+    sigma = masked_gram_cols(x_cols, code_cols, (~null_mask).to(torch.float32),
+                             schema=schema)
+    coeff = linreg_train_device(sigma, label=label + 1, max_iters=max_iters)
+    theta = coeff.clone()
+    theta[label + 1] = 0.0
+    pred = linear_predict(theta, x_cols, code_cols, schema=schema)
+    out = x_num.clone()
+    out[label] = torch.where(null_mask, pred, x_num[label])
+    return out, coeff
 
 
 def qda_train_device(sigmas: torch.Tensor, tot, drop_d: int = 1):

@@ -1,3 +1,3 @@
-from .table import Table, from_numpy, from_reference
+from .table import Table, from_numpy, from_pandas, from_reference
 
-__all__ = ["Table", "from_numpy", "from_reference"]
+__all__ = ["Table", "from_numpy", "from_pandas", "from_reference"]

@@ -4,7 +4,9 @@ Counterpart of `duckdb_imputation_tpu.table.table`. The layout is the
 same FEATURES-FIRST one: num_data f32[d, n], cat_codes i32[c, n] (local
 per-column codes against `schema`), and bool null masks of the same
 shapes, True where a cell was ORIGINALLY missing. Every tensor of a table
-lies on the same device; `Table.device` names it.
+lies on the same device; `Table.device` names it. The write-backs
+(`with_num_col`, `with_cat_col`) return a new Table and never write into
+the caller's tensors.
 """
 from __future__ import annotations
 
@@ -33,6 +35,11 @@ class Table:
     schema: FeatureSchema
     num_names: tuple[str, ...] = ()
     cat_names: tuple[str, ...] = ()
+    # per cat col: None for native-integer categories, or the tuple of
+    # original labels of a dictionary-encoded string/object column (the
+    # reference ingests INTEGER categories only, triple/lift.cpp:34-37).
+    # Raw value v of column j decodes to cat_labels[j][v].
+    cat_labels: tuple = ()
 
     @property
     def n_rows(self) -> int:
@@ -54,6 +61,125 @@ class Table:
         for j in range(self.schema.cat_cols):
             out[j] = self.schema.decode(j, codes[j])
         return out
+
+    def to_pandas(self, nulls_as_na: bool = False):
+        """Materialize as a pandas DataFrame: numeric columns f64,
+        categorical columns as raw values (dictionary-encoded string
+        columns decode back to their labels; integer categories come out
+        as nullable Int64). By default the CURRENT cell values are emitted,
+        the output after MICE, where originally-null slots hold imputed
+        values. nulls_as_na=True blanks the originally-null slots (NaN /
+        pd.NA / None) instead: the `from_pandas` round trip of a table that
+        was not imputed."""
+        import pandas as pd
+
+        num, _, num_null, cat_null = self.to_numpy()
+        num = num.astype(np.float64)
+        data = {}
+        for j, name in enumerate(self.num_names):
+            data[name] = (np.where(num_null[j], np.nan, num[j])
+                          if nulls_as_na else num[j])
+        raw = self.cat_values()
+        labels = self.cat_labels or (None,) * self.schema.cat_cols
+        for j, name in enumerate(self.cat_names):
+            if labels[j] is not None:
+                col = np.asarray(labels[j], object)[raw[j]]
+                if nulls_as_na:
+                    col = np.where(cat_null[j], None, col)
+            else:
+                col = pd.array(raw[j], dtype="Int64")
+                if nulls_as_na:
+                    col[cat_null[j]] = pd.NA
+            data[name] = col
+        return pd.DataFrame(data)
+
+    def with_num_col(self, j: int, values: torch.Tensor,
+                     only_null: bool = True) -> "Table":
+        """Write-back for a numeric column: replace the (originally null)
+        values, the `CASE WHEN col_IS_NULL THEN pred ELSE col END` + column
+        swap of the MICE loop (imputation_base.cpp:137-139). Returns a new
+        Table; the caller's tensors stay unchanged."""
+        col = self.num_data[j]
+        new = torch.where(self.num_null[j], values, col) if only_null \
+            else values
+        num = self.num_data.clone()
+        num[j] = new
+        return dataclasses.replace(self, num_data=num)
+
+    def with_cat_col(self, j: int, codes: torch.Tensor,
+                     only_null: bool = True) -> "Table":
+        """Write-back for a categorical column, as `with_num_col`."""
+        col = self.cat_codes[j]
+        codes = codes.to(col.dtype)
+        new = torch.where(self.cat_null[j], codes, col) if only_null \
+            else codes
+        cat = self.cat_codes.clone()
+        cat[j] = new
+        return dataclasses.replace(self, cat_codes=cat)
+
+    def null_count_per_row(self) -> torch.Tensor:
+        """The `n_nulls` row histogram column of `partition`
+        (partition.cpp:61-73), i32[n]."""
+        return (self.num_null.sum(0) + self.cat_null.sum(0)).to(torch.int32)
+
+
+def from_pandas(df, schema: FeatureSchema | None = None,
+                device="cuda") -> Table:
+    """Build a Table on `device` (the card unless asked otherwise) from a
+    pandas DataFrame.
+
+    Column dispatch follows the reference's rule (triple/lift.cpp:34-37):
+    float dtypes ⇒ numeric, integer/boolean/categorical-of-int ⇒
+    categorical. String/object/categorical-of-string columns are
+    dictionary-encoded at the door: sorted-unique labels → codes 0..k−1,
+    the labels kept on `Table.cat_labels` so `to_pandas` decodes them back
+    (the reference only ingests INTEGER categories). Missing cells (NaN /
+    pandas NA / None) set the null masks. pandas is imported here only."""
+    import pandas as pd
+
+    num_cols, cat_cols, str_cols = [], [], set()
+    for name in df.columns:
+        s = df[name]
+        if pd.api.types.is_float_dtype(s):
+            num_cols.append(name)
+        elif (pd.api.types.is_integer_dtype(s)
+              or pd.api.types.is_bool_dtype(s)):
+            cat_cols.append(name)
+        else:
+            cat_cols.append(name)
+            str_cols.add(name)
+    n = len(df)
+    num = np.zeros((len(num_cols), n), np.float32)
+    num_null = np.zeros((len(num_cols), n), bool)
+    for j, name in enumerate(num_cols):
+        v = df[name].to_numpy(dtype=np.float64, na_value=np.nan)
+        num_null[j] = np.isnan(v)
+        num[j] = np.where(num_null[j], 0.0, v)
+    cat = np.zeros((len(cat_cols), n), np.int64)
+    cat_null = np.zeros((len(cat_cols), n), bool)
+    labels: list = []
+    for j, name in enumerate(cat_cols):
+        s = df[name]
+        isna = s.isna().to_numpy()
+        cat_null[j] = isna
+        if name in str_cols:
+            vals = s.to_numpy(dtype=object)
+            try:
+                uniq = sorted({str(v) for v in vals[~isna]})
+            except TypeError:
+                raise ValueError(
+                    f"column {name!r}: mixed un-encodable values") from None
+            lut = {v: i for i, v in enumerate(uniq)}
+            cat[j] = [0 if na else lut[str(v)]
+                      for v, na in zip(vals, isna)]
+            labels.append(tuple(uniq))
+        else:
+            cat[j] = np.where(isna, 0, s.fillna(0).to_numpy(dtype=np.int64))
+            labels.append(None)
+    t = from_numpy(num, cat, num_null, cat_null,
+                   num_names=tuple(num_cols), cat_names=tuple(cat_cols),
+                   schema=schema, rows_first=False, device=device)
+    return dataclasses.replace(t, cat_labels=tuple(labels))
 
 
 def from_numpy(num_data=None, cat_data=None, num_null=None, cat_null=None,
@@ -124,9 +250,9 @@ def from_numpy(num_data=None, cat_data=None, num_null=None, cat_null=None,
 def from_reference(t_ref, device="cuda") -> Table:
     """Carry a table of the JAX package (`duckdb_imputation_tpu.table.Table`)
     over to this package through numpy, onto `device` (the card unless
-    asked otherwise): the data, the null masks, the schema and the column
-    names, unchanged. Duck-typed, so this module never imports the JAX
-    package."""
+    asked otherwise): the data, the null masks, the schema, the column
+    names and the category labels, unchanged. Duck-typed, so this module
+    never imports the JAX package."""
     def tensor(a, dtype):
         return torch.tensor(np.asarray(a, dtype), device=device)
     return Table(
@@ -136,4 +262,5 @@ def from_reference(t_ref, device="cuda") -> Table:
         cat_null=tensor(t_ref.cat_null, bool),
         schema=FeatureSchema(num_cols=t_ref.schema.num_cols,
                              cat_keys=tuple(t_ref.schema.cat_keys)),
-        num_names=tuple(t_ref.num_names), cat_names=tuple(t_ref.cat_names))
+        num_names=tuple(t_ref.num_names), cat_names=tuple(t_ref.cat_names),
+        cat_labels=tuple(t_ref.cat_labels))

@@ -7,8 +7,10 @@ K1's tensor-core body at config 4, on the CUDA cores past its tile), K6
 (nb_grouped_sums), and for P > 88 K7 (the wide
 masked Gram behind masked_gram_cols and masked_gram) and K2w (the wide
 fused pass) against their plain versions, the checks their wrappers make,
-and run_mice_device, run_mice_device_delta and the QDA pipeline on the
-card against the plain versions on the CPU. Every test here needs the card
+and run_mice_device, run_mice_device_delta (also with the GD trainer),
+the host MICE drivers (run_mice_baseline / low / high, through
+masked_gram) and the QDA pipeline on the card against the plain versions
+on the CPU. Every test here needs the card
 and skips without one.
 
 This file imports neither jax nor sklearn, so it runs on a machine that
@@ -1205,3 +1207,67 @@ def test_wide_classifier_pipelines_on_the_card_match_cpu(cuda):
         assert float((got == want).float().mean()) >= 0.999
     assert grouped_gram_presorted.wide_launches > k8
     assert nb_grouped_sums.launches > k6w
+
+
+def _host_mice_table(n, seed, device):
+    """The config-5 schema: x1 = 2·x0 + x2 + noise, c0 from x0, 20% MCAR
+    nulls in x1 and c0."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, 4)).astype(np.float32)
+    x[:, 1] = 2 * x[:, 0] + x[:, 2] + 0.1 * rng.normal(size=n)
+    c = np.stack([np.clip(x[:, 0] + 4, 0, 7), rng.integers(0, 8, n)],
+                 1).astype(np.int64)
+    nn = np.zeros((n, 4), bool)
+    cn = np.zeros((n, 2), bool)
+    nn[:, 1] = rng.random(n) < 0.2
+    cn[:, 0] = rng.random(n) < 0.2
+    return from_numpy(x, c, nn, cn, schema=SCHEMA, device=device)
+
+
+@pytest.mark.parametrize("driver,launches", [
+    ("baseline", 2 * 2), ("low", 1 + 2 * 2 * 2), ("high", 1 + 2 * 2)])
+def test_host_drivers_on_the_card_match_cpu(cuda, driver, launches):
+    """run_mice_baseline / low / high on a CUDA table aggregate through
+    K1's stacked entry point (`masked_gram`), as many launches as the
+    driver aggregates, and impute what they impute on the CPU: codes agree
+    on ≥ 0.999 of the cells, numerics within 1e-3."""
+    from duckdb_imputation_tpu_torch import mice
+
+    fn = getattr(mice, f"run_mice_{driver}")
+    kw = dict(iters=2, linreg_iters=300, noise=False)
+    t = _host_mice_table(20_000, 5, cuda)
+    before = masked_gram.launches
+    got = fn(t, **kw)
+    assert masked_gram.launches - before == launches
+    assert got.num_data.device.type == "cuda"
+    want = fn(_host_mice_table(20_000, 5, "cpu"), **kw)
+    assert float((got.cat_codes.cpu() == want.cat_codes).float().mean()
+                 ) >= 0.999
+    torch.testing.assert_close(got.num_data.cpu(), want.num_data, rtol=0,
+                               atol=1e-3)
+
+
+@pytest.mark.parametrize("run", ["device", "delta"])
+def test_gd_loops_on_the_card_match_cpu(cuda, run):
+    """trainer='gd' on a CUDA table: every aggregate is K1
+    (`masked_gram_cols`), as many as the solve run's; the card's imputation
+    against the CPU's at the bounds of the solve-vs-GD test (numerics
+    within 0.1, codes > 0.95)."""
+    if run == "device":
+        fn, card, cpu = run_mice_device, {"kernel": "gram"}, {"kernel": "plain"}
+    else:
+        fn, card, cpu = run_mice_device_delta, {}, {}
+    t = _host_mice_table(20_000, 6, cuda)
+    before = masked_gram_cols.launches
+    fn(t, iters=2, trainer="solve", **card)
+    solve = masked_gram_cols.launches - before
+    got = fn(t, iters=2, trainer="gd", gd_iters=500, **card)
+    assert masked_gram_cols.launches - before == 2 * solve > 0
+    want = fn(_host_mice_table(20_000, 6, "cpu"), iters=2, trainer="gd",
+              gd_iters=500, **cpu)
+    m = t.num_null[1].cpu()
+    torch.testing.assert_close(got.num_data[1].cpu()[m], want.num_data[1][m],
+                               rtol=0, atol=0.1)
+    cm = t.cat_null[0].cpu()
+    assert float((got.cat_codes[0].cpu() == want.cat_codes[0])[cm].float()
+                 .mean()) > 0.95

@@ -265,8 +265,8 @@ def test_delta_loop_full_sigma_and_round_offset(iris_mcar):
 
 def test_run_mice_device_delta_rejects_unported_and_unknown(iris_mcar):
     t = from_numpy(*iris_mcar, device="cpu")
-    with pytest.raises(NotImplementedError):
-        run_mice_device_delta(t, iters=1, trainer="gd")
+    with pytest.raises(ValueError):      # 'gd' is ported; no other trainer
+        run_mice_device_delta(t, iters=1, trainer="newton")
     for kernel in ("fused", "xla"):
         with pytest.raises(ValueError):
             run_mice_device_delta(t, iters=1, kernel=kernel)

@@ -211,8 +211,8 @@ def test_run_mice_device_fused_noise_moments():
 
 def test_run_mice_device_rejects_unported_and_unknown(iris_mcar):
     t = from_numpy(*iris_mcar, device="cpu")
-    with pytest.raises(NotImplementedError):
-        run_mice_device(t, iters=1, trainer="gd")
+    with pytest.raises(ValueError):      # 'gd' is ported; no other trainer
+        run_mice_device(t, iters=1, trainer="newton")
     with pytest.raises(ValueError):
         run_mice_device(t, iters=1, kernel="fused", trainer="gd")
     with pytest.raises(ValueError):
