@@ -40,7 +40,17 @@ Drives the paths of `duckdb_imputation_tpu_torch` ported so far:
 - the GD trainer on the card (`trainer='gd'`) in `run_mice_device` and
   `run_mice_device_delta` at config 5, and in `run_mice_device` at
   favorita_wide, each against the solve trainer on the same table
-  (`[gd]`).
+  (`[gd]`);
+- factorized learning over joins on `favorita_star`, the Favorita tables
+  normalized as published (fact train: unit_sales, onpromotion, the keys
+  store_nbr and item_nbr; stores: 54 rows; items: 4,100 rows) at 10M fact
+  rows: `run_mice_factorized` over fact ⋈ items (the items aggregated per
+  key once, a sort and K8; each column step a sort and K5 of the fact rows
+  by item, then the f64 contraction over the keys; `[factorized]`) and
+  `run_mice_star` over fact ⋈ stores ⋈ items (each column step one K1 of
+  the fact columns and one K6 a dimension; `[star]`), each join's train
+  triple against the materialized join's K7 triple, with quality gates,
+  exact launch counts and the card against the CPU at 200k rows.
 
 First it builds the kernels from `duckdb_imputation_tpu_torch/csrc/` and
 holds each against its plain torch version at the shapes its path gives
@@ -54,7 +64,9 @@ Run from the root of a checkout. Prints one line per phase, then a JSON
 line of per-kernel results (`launches` from the run of each kernel's
 path; for K1 and K7 also `delta_launches`, from the delta runs alone,
 and `gd_launches`, from the GD runs; for K1's stacked entry and K7
-`host_launches`, from the host MICE runs;
+`host_launches`, from the host MICE runs; `factorized_launches` on K4, K5
+and K8 and `star_launches` on K1's stacked entry, K6 and K7, from the
+run_mice_factorized and run_mice_star runs;
 `bound_ms`, the least time the card could take for the kernel's work,
 computed from this run's shapes with `bound`; `library_ms`, one PyTorch
 call computing the same function, where there is one), then the card's
@@ -2394,6 +2406,442 @@ def phase_classify_wide(seed: int) -> dict:
             "qda_predict_wide": launches["qda_predict_kernel.wide_launches"]}
 
 
+# ---------------------------------------------------------------------------
+# Factorized learning over joins: run_mice_factorized and run_mice_star on
+# the normalized Favorita schema (favorita_star)
+# ---------------------------------------------------------------------------
+
+# favorita_star: the Kaggle "Corporacion Favorita Grocery Sales
+# Forecasting" tables, normalized as published: the fact table train.csv
+# (unit_sales; onpromotion) with the foreign keys store_nbr and item_nbr,
+# stores.csv (54 rows: city, state, type, cluster) and items.csv (4,100
+# rows: family, class, perishable).
+STORES, ITEMS = 54, 4_100
+STORE_VOCABS = (22, 16, 5, 17)     # city, state, type, cluster
+ITEM_VOCABS = (33, 337, 2)         # family, class, perishable
+STAR_ROUNDS = 2
+N_STAR_CPU = 200_000               # the star drivers on the CPU, held
+                                   # against the card's
+
+
+def _star_table(x, codes, vocabs, num_null=None, cat_null=None):
+    """A Table of x f32[d, n], codes i32[c, n] over the vocabs, nulls
+    (None: none) zeroed."""
+    from duckdb_imputation_tpu_torch import FeatureSchema, Table
+
+    if num_null is None:
+        num_null = torch.zeros_like(x, dtype=torch.bool)
+    if cat_null is None:
+        cat_null = torch.zeros_like(codes, dtype=torch.bool)
+    return Table(num_data=torch.where(num_null, 0.0, x).contiguous(),
+                 cat_codes=torch.where(cat_null, 0, codes).contiguous(),
+                 num_null=num_null, cat_null=cat_null,
+                 schema=FeatureSchema(num_cols=x.shape[0], cat_keys=tuple(
+                     tuple(range(v)) for v in vocabs)))
+
+
+def make_favorita_star(n: int, seed: int, *, null_frac: float = 0.2,
+                       device=None) -> dict:
+    """favorita_star made on the device from `seed`, with the dataset's
+    hierarchy: a store's state is its city's; every class has at least one
+    item and every family at least one class; an item's family is its
+    class's, perishable its family's. Fact rows: stores uniform, items by
+    Zipf row shares (weight 1/rank, ranks shuffled: an assumption, as in
+    make_favorita), 20% on promotion; unit_sales = class level + store
+    level + 1.5·onpromotion + 0.5·N(0, 1). `null_frac` MCAR nulls in
+    unit_sales and onpromotion. Returns the tables `fact` (unit_sales;
+    store_nbr, onpromotion: the fact of [factorized], which keeps the
+    store as a feature), `star_fact` (unit_sales; onpromotion), `stores`,
+    `items`, the keys `store`, `item` (i64[n]) and `truth`."""
+    dev = DEVICE if device is None else device
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    i32 = torch.int32
+
+    def randint(hi, size):
+        return torch.randint(0, hi, (size,), generator=g, device=dev,
+                             dtype=i32)
+
+    def onto(parents, children):
+        """A parent of each child, every parent taken at least once."""
+        p = torch.cat([torch.arange(parents, device=dev, dtype=i32),
+                       randint(parents, children - parents)])
+        return p[torch.randperm(children, generator=g, device=dev)]
+
+    cities, states, types, clusters = STORE_VOCABS
+    families, classes, _ = ITEM_VOCABS
+    city = randint(cities, STORES)
+    store_codes = torch.stack([city, randint(states, cities)[city.long()],
+                               randint(types, STORES),
+                               randint(clusters, STORES)])
+    family_of_class = onto(families, classes)
+    class_of_item = onto(classes, ITEMS)
+    family = family_of_class[class_of_item.long()]
+    item_codes = torch.stack([family, class_of_item,
+                              randint(2, families)[family.long()]])
+    store_level = torch.randn(STORES, generator=g, device=dev)
+    class_level = torch.randn(classes, generator=g, device=dev)
+
+    store = randint(STORES, n).long()
+    rank = torch.randperm(ITEMS, generator=g, device=dev) + 1
+    item = torch.multinomial(1.0 / rank.double(), n, replacement=True,
+                             generator=g)
+    promo = (torch.rand(n, generator=g, device=dev) < 0.2).to(i32)
+    unit_sales = (class_level[class_of_item[item].long()]
+                  + store_level[store] + 1.5 * promo
+                  + 0.5 * torch.randn(n, generator=g, device=dev))
+    num_null = (torch.rand(n, generator=g, device=dev) < null_frac)[None]
+    promo_null = (torch.rand(n, generator=g, device=dev) < null_frac)[None]
+    x = unit_sales[None]
+    fact = _star_table(x, torch.stack([store.to(i32), promo]),
+                       (STORES, 2), num_null,
+                       torch.cat([torch.zeros_like(promo_null), promo_null]))
+    star_fact = _star_table(x, promo[None], (2,), num_null, promo_null)
+    none = torch.zeros((0, STORES), device=dev)
+    stores = _star_table(none, store_codes, STORE_VOCABS)
+    items = _star_table(torch.zeros((0, ITEMS), device=dev), item_codes,
+                        ITEM_VOCABS)
+    return dict(fact=fact, star_fact=star_fact, stores=stores, items=items,
+                store=store, item=item,
+                truth=dict(unit_sales=unit_sales, onpromotion=promo))
+
+
+def _star_cpu(t):
+    """A Table's copy on the CPU."""
+    import dataclasses
+
+    return dataclasses.replace(
+        t, num_data=t.num_data.cpu(), cat_codes=t.cat_codes.cpu(),
+        num_null=t.num_null.cpu(), cat_null=t.cat_null.cpu())
+
+
+def _call_timer():
+    """A device-synchronized PhaseTimer that also keeps every phase call's
+    seconds in order, so that each round's split can be read."""
+    import contextlib
+
+    from duckdb_imputation_tpu_torch.utils import PhaseTimer
+
+    class CallTimer(PhaseTimer):
+        def __init__(self):
+            super().__init__(sync=torch.cuda.synchronize)
+            self.calls = []
+
+        @contextlib.contextmanager
+        def phase(self, name):
+            before = self.totals[name]
+            with PhaseTimer.phase(self, name):
+                yield
+            self.calls.append((name, self.totals[name] - before))
+
+    return CallTimer()
+
+
+def _round_split(timer, rounds: int) -> list:
+    """ms per phase of each round (`prepare` counts in round 1)."""
+    calls = timer.calls
+    per = (len(calls) - 1) // rounds
+    out = []
+    for r in range(rounds):
+        split = {}
+        for name, s in ([calls[0]] if r == 0 else []) + \
+                calls[1 + r * per:1 + (r + 1) * per]:
+            split[name] = round(split.get(name, 0.0) + s * 1e3, 3)
+        out.append(split)
+    return out
+
+
+def _join_checks(tag, got, want, schema) -> float:
+    """A join's sigma against the materialized join's (K7): finite, counts
+    exact, within 1e-5 of max|σ|. Returns the error."""
+    check(torch.isfinite(got).all(), f"{tag} sigma not finite")
+    counts = count_entries(schema)
+    check(torch.equal(got[counts], want[counts]),
+          f"{tag} counts differ from the materialized join's")
+    err = rel_err(got, want)
+    check(err <= 1e-5, f"{tag} max rel error {err:.3e} > 1e-5")
+    return err
+
+
+def _star_quality(tag, t, out, truth, fact_only) -> dict:
+    """Imputed unit_sales (numeric 0) RMSE below the mean fill's and the
+    fact-only run's; onpromotion (the last categorical column) accuracy on
+    its null cells at least its mode share there; observed cells kept."""
+    from duckdb_imputation_tpu_torch.mice import init_fill
+
+    check(torch.isfinite(out.num_data).all(), f"{tag}: x not finite")
+    check(torch.equal(out.num_data[~t.num_null], t.num_data[~t.num_null])
+          and torch.equal(out.cat_codes[~t.cat_null],
+                          t.cat_codes[~t.cat_null]),
+          f"{tag}: observed cells changed")
+    nm, cm = t.num_null[0], t.cat_null[-1]
+    us, promo = truth["unit_sales"], truth["onpromotion"]
+
+    def rmse(o):
+        return float(((o.num_data[0] - us)[nm] ** 2).mean().sqrt())
+
+    q = dict(rmse=rmse(out), mean_fill=rmse(init_fill(t)),
+             fact_only=rmse(fact_only))
+    share = float(promo[cm].float().mean())
+    q["mode_share"] = max(share, 1.0 - share)
+    q["promo_acc"] = float((out.cat_codes[-1][cm] == promo[cm])
+                           .float().mean())
+    check(q["rmse"] < q["mean_fill"] and q["rmse"] < q["fact_only"],
+          f"{tag}: unit_sales RMSE {q} not below the mean fill's and the "
+          f"fact-only run's")
+    check(q["promo_acc"] >= q["mode_share"],
+          f"{tag}: onpromotion accuracy {q} below its mode share")
+    return q
+
+
+def _card_vs_cpu(tag, run, small: dict, fact: str) -> None:
+    """`run(tables)` on the card and on the CPU at N_STAR_CPU rows: the
+    imputed onpromotion of the fact table `small[fact]` agrees on ≥ 0.999
+    of its null cells; unit_sales within 1e-2 (the bound of [host_mice])
+    on the rows whose imputed codes agree (a row whose onpromotion differs
+    in round 1 is predicted 1.5 apart); the RMSE of imputed unit_sales
+    within 1% of the CPU's."""
+    got = run(small)
+    cpu = {k: _star_cpu(v) if hasattr(v, "num_data") else v.cpu()
+           for k, v in small.items() if k != "truth"}
+    ref = run(cpu)
+    t = small[fact]
+    cm, nm = t.cat_null[-1].cpu(), t.num_null[0].cpu()
+    same = (got.cat_codes.cpu() == ref.cat_codes).all(0)
+    agree = float(same[cm].float().mean())
+    dx = (got.num_data.cpu() - ref.num_data).abs().max(0).values
+    us = small["truth"]["unit_sales"].cpu()
+
+    def rmse(o):
+        return float(((o.num_data[0].cpu() - us)[nm] ** 2).mean().sqrt())
+
+    r_card, r_cpu = rmse(got), rmse(ref)
+    log(f"[{tag}] n={N_STAR_CPU} on the card vs on the CPU: onpromotion "
+        f"agreement {agree:.6f} on its null cells; unit_sales max diff "
+        f"{float(dx[same].max()):.3e} on the rows whose codes agree "
+        f"({float(dx.max()):.3e} on all); RMSE of imputed unit_sales "
+        f"{r_card:.6f} (CPU {r_cpu:.6f})")
+    check(agree >= 0.999, f"{tag} card vs CPU: agreement {agree}")
+    check(float(dx[same].max()) < 1e-2,
+          f"{tag} card vs CPU: x diff {float(dx[same].max())}")
+    check(abs(r_card - r_cpu) <= 0.01 * r_cpu,
+          f"{tag} card vs CPU: RMSE {r_card} against {r_cpu}")
+
+
+def phase_factorized(seed: int) -> dict:
+    """run_mice_factorized over favorita_star's fact ⋈ items on item_nbr
+    at N rows (P_fact = 58, P_items = 373, joined P = 430): the train
+    triple of unit_sales (K5 of the fact rows by item after a sort, K8 of
+    the items, the f64 contraction over the 4,100 keys) against the
+    materialized join's (K7), against the same triple from the plain
+    grouped path on the card and from `api.factorized_sum`; STAR_ROUNDS
+    rounds with noise off: exact launches (K8 1, K5 2 a round, no K4),
+    quality against mean fill and run_mice_baseline on the fact alone,
+    PhaseTimer split per round, the cofactor step's time against K7 on
+    the materialized join, card against CPU. Returns the launches."""
+    import numpy as np
+
+    from duckdb_imputation_tpu_torch import (api, run_mice_baseline,
+                                             run_mice_factorized)
+    from duckdb_imputation_tpu_torch.mice import init_fill, observed_weights
+    from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas_grouped import (
+        grouped_gram, grouped_gram_presorted)
+    from duckdb_imputation_tpu_torch.ring.sum import (sum_to_triple,
+                                                      sum_to_triple_grouped)
+    from duckdb_imputation_tpu_torch.ring.triple import (factorized_join_sum,
+                                                         sigma_from_triple)
+
+    s = make_favorita_star(N, seed + 30)
+    fact, items, item = s["fact"], s["items"], s["item"]
+    fs, ds = fact.schema, items.schema
+    joined = fs.concat(ds)
+    log(f"[factorized] favorita_star fact ⋈ items on item_nbr: n={N}, "
+        f"P_fact={fs.sigma_size}, P_items={ds.sigma_size} ({ITEMS} keys), "
+        f"joined P={joined.sigma_size}")
+
+    filled = init_fill(fact)
+    w = observed_weights(filled, "num", 0)
+    keys = torch.arange(ITEMS, device=DEVICE)
+
+    def fact_side(method="auto"):
+        return sum_to_triple_grouped(filled.num_data, filled.cat_codes, item,
+                                     schema=fs, num_groups=ITEMS, weights=w,
+                                     method=method)
+
+    def materialize():
+        return (torch.cat([filled.num_data, items.num_data[:, item]]),
+                torch.cat([filled.cat_codes, items.cat_codes[:, item]]))
+
+    dim_g = sum_to_triple_grouped(items.num_data, items.cat_codes, keys,
+                                  schema=ds, num_groups=ITEMS)
+    got = sigma_from_triple(factorized_join_sum(fact_side(), dim_g))
+    jn, jc = materialize()
+    want = sigma_from_triple(sum_to_triple(jn, jc, w, schema=joined))
+    err = _join_checks("[factorized] train triple vs materialized join",
+                       got, want, joined)
+    plain_dim = sum_to_triple_grouped(items.num_data, items.cat_codes, keys,
+                                      schema=ds, num_groups=ITEMS,
+                                      method="sorted")
+    plain = sigma_from_triple(factorized_join_sum(fact_side("sorted"),
+                                                  plain_dim))
+    del plain_dim
+    err_plain = _join_checks("[factorized] plain grouped path vs "
+                             "materialized join", plain, want, joined)
+    host = [a.cpu().numpy() for a in (filled.num_data[0], *filled.cat_codes,
+                                      w, item, *items.cat_codes)]
+    us, st, pr, w_np, item_np, fam, cls, per = host
+    a = api.sum_to_triple(us, st, pr, weights=w_np, group_by=item_np,
+                          num_groups=ITEMS, schema=fs, device=DEVICE)
+    b = api.sum_to_triple(fam, cls, per, group_by=np.arange(ITEMS),
+                          num_groups=ITEMS, schema=ds, device=DEVICE)
+    via_api = sigma_from_triple(api.factorized_sum(a, b).triple)
+    del a, b, host
+    check(torch.equal(via_api, got),
+          "[factorized] api.factorized_sum differs from the driver's triple")
+    log(f"[factorized] train triple of unit_sales: vs the materialized "
+        f"join's K7 triple max rel err {err:.3e}; plain grouped path on the "
+        f"card {err_plain:.3e} (vs the kernels' {rel_err(got, plain):.3e}); "
+        f"api.factorized_sum of api.sum_to_triple(group_by=item_nbr) "
+        f"bit-identical; counts exact")
+    del plain, via_api
+
+    fz_ms = cuda_ms(lambda: factorized_join_sum(fact_side(), dim_g), reps=5,
+                    warmup=1)
+    fact_ms = cuda_ms(fact_side, reps=5, warmup=1)
+    k7_ms = cuda_ms(lambda: sum_to_triple(jn, jc, w, schema=joined), reps=5,
+                    warmup=1)
+    mat_ms = cuda_ms(lambda: sum_to_triple(*materialize(), w, schema=joined),
+                     reps=5, warmup=1)
+    log(f"[factorized] cofactor step (fact sort + K5 + f64 contraction over "
+        f"{ITEMS} keys) {fz_ms:.3f} ms, of it the fact side (sort + K5) "
+        f"{fact_ms:.3f}; one K7 aggregation of the materialized join "
+        f"{k7_ms:.3f} ms, with its gather {mat_ms:.3f}")
+    del got, want, jn, jc, dim_g
+
+    torch.cuda.synchronize()
+    grouped_gram.launches = 0
+    grouped_gram_presorted.launches = grouped_gram_presorted.wide_launches = 0
+    timer = _call_timer()
+    t0 = time.perf_counter()
+    out = run_mice_factorized(fact, item, items, iters=STAR_ROUNDS,
+                              noise=False, timer=timer)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(grouped_gram=grouped_gram.launches,
+                    grouped_gram_presorted=grouped_gram_presorted.launches,
+                    grouped_wide_gram=grouped_gram_presorted.wide_launches)
+    expect = dict(grouped_gram=0, grouped_gram_presorted=2 * STAR_ROUNDS,
+                  grouped_wide_gram=1)
+    log(f"[factorized] run_mice_factorized rounds={STAR_ROUNDS}: launches "
+        f"{launches} (expected {expect}); wall {wall * 1e3:.3f} ms; "
+        f"PhaseTimer ms per round {_round_split(timer, STAR_ROUNDS)}")
+    check(launches == expect, f"run_mice_factorized launched {launches}")
+    fact_only = run_mice_baseline(fact, iters=STAR_ROUNDS, noise=False)
+    q = _star_quality("factorized", fact, out, s["truth"], fact_only)
+    log(f"[factorized] quality {q}")
+    del out, fact_only, s, filled
+
+    def run(t):
+        return run_mice_factorized(t["fact"], t["item"], t["items"],
+                                   iters=STAR_ROUNDS, noise=False)
+
+    _card_vs_cpu("factorized", run, make_favorita_star(N_STAR_CPU, seed + 31),
+                 "fact")
+    return launches
+
+
+def phase_star(seed: int) -> dict:
+    """run_mice_star over favorita_star's fact ⋈ stores ⋈ items at N rows
+    (joined P = 436): star_join_triple (K1 of the fact columns at P = 4,
+    K6 of the fact rows by store and by item, the stores × items
+    co-occurrence by bincount) against the materialized join's K7 triple;
+    STAR_ROUNDS rounds with noise off: exact launches (K1 1 and K6 2 a
+    column step), quality, PhaseTimer split per round, the cofactor
+    step's time against K7, card against CPU. Returns the launches."""
+    from duckdb_imputation_tpu_torch import run_mice_baseline, run_mice_star
+    from duckdb_imputation_tpu_torch.mice import init_fill, observed_weights
+    from duckdb_imputation_tpu_torch.ring.kernels.nb_pallas import (
+        nb_grouped_sums)
+    from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas import (
+        masked_gram)
+    from duckdb_imputation_tpu_torch.ring.star import (star_join_triple,
+                                                       star_schema)
+    from duckdb_imputation_tpu_torch.ring.sum import sum_to_triple
+    from duckdb_imputation_tpu_torch.ring.triple import sigma_from_triple
+
+    s = make_favorita_star(N, seed + 32)
+    fact, stores, items = s["star_fact"], s["stores"], s["items"]
+    store, item = s["store"], s["item"]
+    fs, dss = fact.schema, [stores.schema, items.schema]
+    js = star_schema(fs, dss)
+    log(f"[star] favorita_star fact ⋈ stores ⋈ items: n={N}, P_fact="
+        f"{fs.sigma_size}, P_stores={dss[0].sigma_size} ({STORES} keys), "
+        f"P_items={dss[1].sigma_size} ({ITEMS} keys), joined P="
+        f"{js.sigma_size}")
+    filled = init_fill(fact)
+    w = observed_weights(filled, "num", 0)
+    dims = [(stores.num_data, stores.cat_codes),
+            (items.num_data, items.cat_codes)]
+
+    def star_triple():
+        return star_join_triple(filled.num_data, filled.cat_codes, w,
+                                keys=[store, item], dims=dims,
+                                fact_schema=fs, dim_schemas=dss)
+
+    def materialize():
+        return (filled.num_data,
+                torch.cat([filled.cat_codes, stores.cat_codes[:, store],
+                           items.cat_codes[:, item]]))
+
+    got = sigma_from_triple(star_triple())
+    jn, jc = materialize()
+    want = sigma_from_triple(sum_to_triple(jn, jc, w, schema=js))
+    err = _join_checks("[star] star_join_triple vs materialized join", got,
+                       want, js)
+    star_ms = cuda_ms(star_triple, reps=5, warmup=1)
+    k7_ms = cuda_ms(lambda: sum_to_triple(jn, jc, w, schema=js), reps=5,
+                    warmup=1)
+    mat_ms = cuda_ms(lambda: sum_to_triple(*materialize(), w, schema=js),
+                     reps=5, warmup=1)
+    log(f"[star] star_join_triple vs the materialized join's K7 triple: max "
+        f"rel err {err:.3e}, counts exact; cofactor step {star_ms:.3f} ms; "
+        f"one K7 aggregation of the materialized join {k7_ms:.3f} ms, with "
+        f"its gather {mat_ms:.3f}")
+    del got, want, jn, jc
+
+    torch.cuda.synchronize()
+    masked_gram.launches = masked_gram.wide_launches = 0
+    nb_grouped_sums.launches = 0
+    timer = _call_timer()
+    t0 = time.perf_counter()
+    out = run_mice_star(fact, [store, item], [stores, items],
+                        iters=STAR_ROUNDS, noise=False, timer=timer)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(masked_gram=masked_gram.launches,
+                    wide_gram=masked_gram.wide_launches,
+                    nb_grouped_sums=nb_grouped_sums.launches)
+    expect = dict(masked_gram=2 * STAR_ROUNDS, wide_gram=0,
+                  nb_grouped_sums=2 * 2 * STAR_ROUNDS)
+    log(f"[star] run_mice_star rounds={STAR_ROUNDS}: launches {launches} "
+        f"(expected {expect}); wall {wall * 1e3:.3f} ms; PhaseTimer ms per "
+        f"round {_round_split(timer, STAR_ROUNDS)}")
+    check(launches == expect, f"run_mice_star launched {launches}")
+    fact_only = run_mice_baseline(fact, iters=STAR_ROUNDS, noise=False)
+    q = _star_quality("star", fact, out, s["truth"], fact_only)
+    log(f"[star] quality {q}")
+    del out, fact_only, s, filled
+
+    def run(t):
+        return run_mice_star(t["star_fact"], [t["store"], t["item"]],
+                             [t["stores"], t["items"]], iters=STAR_ROUNDS,
+                             noise=False)
+
+    _card_vs_cpu("star", run, make_favorita_star(N_STAR_CPU, seed + 33),
+                 "star_fact")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2432,6 +2880,8 @@ def main() -> int:
     k6w = phase_k6w(args.seed)
     k3w = phase_k3w(args.seed)
     classify_wide = phase_classify_wide(args.seed)
+    factorized = phase_factorized(args.seed)
+    star = phase_star(args.seed)
 
     src = "duckdb_imputation_tpu_torch/csrc/"
     ref = "duckdb_imputation_tpu/ring/kernels/"
@@ -2445,7 +2895,8 @@ def main() -> int:
         dict(name="masked_gram", route="cuda",
              source=src + "masked_gram.cu",
              replaces=ref + "sigma_pallas.py:109",
-             launches=k1s_launches, host_launches=host, **k1s),
+             launches=k1s_launches, host_launches=host,
+             star_launches=star["masked_gram"], **k1s),
         dict(name="fused_impute_aggregate", route="cuda",
              source=src + "fused_impute_aggregate.cu",
              replaces=ref + "sigma_fused.py:413",
@@ -2457,19 +2908,23 @@ def main() -> int:
         dict(name="grouped_gram", route="cuda",
              source=src + "grouped_gram.cu",
              replaces=ref + "sigma_pallas_grouped.py:121",
-             launches=launches["grouped_gram"], **k4),
+             launches=launches["grouped_gram"],
+             factorized_launches=factorized["grouped_gram"], **k4),
         dict(name="grouped_gram_presorted", route="cuda",
              source=src + "grouped_gram.cu",
              replaces=ref + "sigma_pallas_grouped.py:568",
-             launches=launches["grouped_gram_presorted"], **k5),
+             launches=launches["grouped_gram_presorted"],
+             factorized_launches=factorized["grouped_gram_presorted"], **k5),
         dict(name="nb_grouped_sums", route="cuda",
              source=src + "nb_grouped_sums.cu",
              replaces=ref + "nb_pallas.py:126",
-             launches=launches["nb_grouped_sums"], **k6),
+             launches=launches["nb_grouped_sums"],
+             star_launches=star["nb_grouped_sums"], **k6),
         dict(name="wide_gram", route="cuda", source=src + "wide_gram.cu",
              replaces=ref + "sigma_pallas.py:501",
              launches=wide["wide_gram"], delta_launches=delta["wide_gram"],
-             host_launches=host_wide, gd_launches=gd["wide_gram"], **k7),
+             host_launches=host_wide, gd_launches=gd["wide_gram"],
+             star_launches=star["wide_gram"], **k7),
         dict(name="fused_impute_aggregate_wide", route="cuda",
              source=src + "fused_impute_aggregate.cu",
              replaces=ref + "sigma_fused.py:509",
@@ -2477,7 +2932,8 @@ def main() -> int:
         dict(name="grouped_wide_gram", route="cuda",
              source=src + "grouped_wide_gram.cu",
              replaces=ref + "sigma_pallas_grouped.py:540",
-             launches=classify_wide["grouped_wide_gram"], **k8),
+             launches=classify_wide["grouped_wide_gram"],
+             factorized_launches=factorized["grouped_wide_gram"], **k8),
         dict(name="nb_grouped_sums_wide", route="cuda",
              source=src + "nb_grouped_sums.cu",
              replaces=ref + "nb_pallas.py:126",

@@ -25,7 +25,13 @@ imports torch and never jax. Ported so far:
   `ring.kernels.nb_pallas`), device QDA/NB training and one-pass QDA
   scoring (`models.device`, K3 in `ring.kernels.qda_pallas`);
 - the table (`table`: `from_numpy`, `from_pandas`, the write-backs) and
-  `utils` (`PhaseTimer`, `device_trace`, triple validation).
+  `utils` (`PhaseTimer`, `device_trace`, triple validation);
+- factorized learning over joins: the ring products (`ring.triple`:
+  `triple_multiply`, `nb_multiply`, `factorized_join_sum[_nb]`), the
+  reference's dict format (`ring.serialize`), star joins over several
+  keys (`ring.star`), MICE over a join without materializing it
+  (`mice.factorized`: `run_mice_factorized`, `run_mice_star`), and the
+  SQL-shaped surface of every ring, model and MICE function (`api`).
 """
 
 from .schema import FeatureSchema
@@ -34,6 +40,7 @@ from .ring import (
     Triple,
     lift,
     nb_lift,
+    nb_multiply,
     sigma_from_triple,
     sum_nb_aggs,
     sum_to_nb_agg,
@@ -42,6 +49,7 @@ from .ring import (
     sum_to_triple_grouped,
     sum_triples,
     triple_add,
+    triple_multiply,
     triple_sub,
 )
 from .table import Table, from_numpy, from_pandas, from_reference
@@ -50,16 +58,19 @@ from .mice import (
     run_mice_baseline,
     run_mice_device,
     run_mice_device_delta,
+    run_mice_factorized,
     run_mice_high,
     run_mice_low,
+    run_mice_star,
 )
 
 __version__ = "0.1.0"
 
 __all__ = ["FeatureSchema", "NBAgg", "Triple", "lift", "nb_lift",
-           "sigma_from_triple", "sum_nb_aggs", "sum_to_nb_agg",
+           "nb_multiply", "sigma_from_triple", "sum_nb_aggs", "sum_to_nb_agg",
            "sum_to_nb_agg_grouped", "sum_to_triple", "sum_to_triple_grouped",
-           "sum_triples", "triple_add", "triple_sub", "Table", "from_numpy",
-           "from_pandas", "from_reference", "init_fill", "run_mice_baseline",
-           "run_mice_device", "run_mice_device_delta", "run_mice_high",
-           "run_mice_low"]
+           "sum_triples", "triple_add", "triple_multiply", "triple_sub",
+           "Table", "from_numpy", "from_pandas", "from_reference",
+           "init_fill", "run_mice_baseline", "run_mice_device",
+           "run_mice_device_delta", "run_mice_factorized", "run_mice_high",
+           "run_mice_low", "run_mice_star"]

@@ -1,4 +1,5 @@
 from .baseline import run_mice_baseline
+from .factorized import run_mice_factorized, run_mice_star
 from .low import run_delta_rounds, run_mice_low
 from .high import run_mice_high
 from .partition import (
@@ -18,7 +19,8 @@ from .device_round import (
     run_mice_device_delta,
 )
 
-__all__ = ["run_mice_baseline", "run_mice_low", "run_mice_high",
+__all__ = ["run_mice_baseline", "run_mice_factorized", "run_mice_star",
+           "run_mice_low", "run_mice_high",
            "run_delta_rounds", "Partitions", "build_partitions",
            "build_union_gather", "gather_rows", "init_fill",
            "mice_loop_device", "mice_loop_device_delta",

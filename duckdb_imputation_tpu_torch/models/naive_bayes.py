@@ -3,8 +3,15 @@
 Counterpart of `duckdb_imputation_tpu.models.naive_bayes`. Train follows
 `ML::nb_train` (naive_bayes.cpp:10-143), in f64 on the host: per class
 prior N_c/N; per numeric column mean lin/N_c and variance quad/N_c − mean²
-(:111-117); per categorical column the per-category frequency count/N_c
-scattered through the dictionary (:121-136).
+(:111-117), clamped at 0; per categorical column the per-category
+frequency count/N_c scattered through the dictionary (:121-136).
+
+The clamp is a divergence that fixes a reference fault: Σx²/N_c − mean²
+of a column constant within a class cancels to a small negative number
+even from exact sums rounded once to the f32 NBAgg sections, and a
+negative var + 1e-9 makes that class's probability NaN in predict (the
+running maximum below never takes a NaN, so the class is never chosen).
+`models.device.nb_train_device` clamps the same way.
 
 Flat float32 layout:
 
@@ -69,7 +76,7 @@ def nb_train(aggs: NBAgg, schema: FeatureSchema, labels) -> np.ndarray:
     for c in range(n_classes):
         for j in range(schema.num_cols):
             mean = lin[c, j] / n_safe[c]
-            var = quad[c, j] / n_safe[c] - mean * mean
+            var = max(quad[c, j] / n_safe[c] - mean * mean, 0.0)
             out.append(float(mean))
             out.append(float(var))
         out.extend(float(x / n_safe[c]) for x in lin_cat[c])

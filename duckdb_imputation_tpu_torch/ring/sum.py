@@ -53,6 +53,13 @@ def onehot_block_t(codes: torch.Tensor, schema: FeatureSchema) -> torch.Tensor:
     return torch.cat(parts, dim=0)
 
 
+def onehot_block(codes_rowmajor: torch.Tensor,
+                 schema: FeatureSchema) -> torch.Tensor:
+    """B f32[n, V] from row-major codes i32[n, c] (the row-major helper of
+    the predict paths and tests; the aggregates use `onehot_block_t`)."""
+    return onehot_block_t(torch.as_tensor(codes_rowmajor).T, schema).T
+
+
 def _zt_block(x_num: torch.Tensor, codes: torch.Tensor,
               schema: FeatureSchema) -> torch.Tensor:
     """Zᵀ f32[P, n]."""

@@ -1271,3 +1271,94 @@ def test_gd_loops_on_the_card_match_cpu(cuda, run):
     cm = t.cat_null[0].cpu()
     assert float((got.cat_codes[0].cpu() == want.cat_codes[0])[cm].float()
                  .mean()) > 0.95
+
+
+def _star_tables(n, keys, dim_vocab, seed, device):
+    """A small fact ⋈ two-dimension star: fact (x1, x2, c1 of 3) with FKs
+    into dim A (`keys` rows: z, g of `dim_vocab`) and dim B (7 rows: a
+    category of 4); x1 depends on A's z, c1 on B's category; 20% MCAR
+    nulls in x1 and c1."""
+    rng = np.random.default_rng(seed)
+    z = (rng.normal(size=keys) * 2).astype(np.float32)
+    g = rng.integers(0, dim_vocab, keys)
+    b = rng.integers(0, 4, 7)
+    ka, kb = rng.integers(0, keys, n), rng.integers(0, 7, n)
+    x2 = rng.normal(size=n).astype(np.float32)
+    x1 = (1.5 * z[ka] + 0.3 * x2 + 0.1 * rng.normal(size=n)).astype(
+        np.float32)
+    c1 = np.where(rng.random(n) < 0.9, b[kb] % 3, rng.integers(0, 3, n))
+    nn = np.zeros((n, 2), bool)
+    cn = np.zeros((n, 1), bool)
+    nn[:, 0] = rng.random(n) < 0.2
+    cn[:, 0] = rng.random(n) < 0.2
+    fact = from_numpy(np.stack([x1, x2], 1), c1[:, None], nn, cn,
+                      device=device)
+    dim_a = from_numpy(z[:, None], g[:, None], device=device)
+    dim_b = from_numpy(None, b[:, None], device=device)
+    return fact, dim_a, dim_b, ka, kb
+
+
+@pytest.mark.parametrize("dim_vocab", [20, 120], ids=["K5", "K8"])
+def test_run_mice_factorized_on_the_card_matches_cpu(cuda, dim_vocab):
+    """run_mice_factorized on CUDA tables: the dimension side one grouped
+    Gram (K5 at P = 22, K8 at P = 122, after a sort), each fact column
+    step one sort + K5 at 300 keys; no K4. The imputation is the CPU's:
+    codes on ≥ 0.999 of the cells, numerics within 1e-3."""
+    from duckdb_imputation_tpu_torch.mice import run_mice_factorized
+
+    kw = dict(iters=2, linreg_iters=300, noise=False)
+    fact, dim, _, ka, _ = _star_tables(20_000, 300, dim_vocab, 8, cuda)
+    k4, k5 = grouped_gram.launches, grouped_gram_presorted.launches
+    k8 = grouped_gram_presorted.wide_launches
+    got = run_mice_factorized(fact, ka, dim, **kw)
+    wide = dim.schema.sigma_size > _build.MAX_SIGMA_SIZE
+    assert grouped_gram.launches == k4
+    assert grouped_gram_presorted.launches - k5 == 2 * 2 + (not wide)
+    assert grouped_gram_presorted.wide_launches - k8 == int(wide)
+    assert got.num_data.device.type == "cuda"
+    cf, cd, _, ka_c, _ = _star_tables(20_000, 300, dim_vocab, 8, "cpu")
+    want = run_mice_factorized(cf, ka_c, cd, **kw)
+    assert float((got.cat_codes.cpu() == want.cat_codes).float().mean()
+                 ) >= 0.999
+    torch.testing.assert_close(got.num_data.cpu(), want.num_data, rtol=0,
+                               atol=1e-3)
+
+
+def test_run_mice_star_on_the_card_matches_cpu(cuda):
+    """run_mice_star over two dimensions on CUDA tables: each column step
+    one K1 of the fact columns (masked_gram) and one NB-sums launch a
+    dimension; the training triple equals the materialized join's, and
+    the imputation the CPU's (codes ≥ 0.999, numerics within 1e-3)."""
+    from duckdb_imputation_tpu_torch.mice import observed_weights, run_mice_star
+    from duckdb_imputation_tpu_torch.ring.star import (star_join_triple,
+                                                       star_schema)
+
+    kw = dict(iters=2, linreg_iters=300, noise=False)
+    fact, da, db, ka, kb = _star_tables(20_000, 300, 20, 9, cuda)
+    k1, k6 = masked_gram.launches, nb_grouped_sums.launches
+    got = run_mice_star(fact, [ka, kb], [da, db], **kw)
+    assert masked_gram.launches - k1 == 2 * 2
+    assert nb_grouped_sums.launches - k6 == 2 * 2 * 2
+    cf, ca, cb, ka_c, kb_c = _star_tables(20_000, 300, 20, 9, "cpu")
+    want = run_mice_star(cf, [ka_c, kb_c], [ca, cb], **kw)
+    assert float((got.cat_codes.cpu() == want.cat_codes).float().mean()
+                 ) >= 0.999
+    torch.testing.assert_close(got.num_data.cpu(), want.num_data, rtol=0,
+                               atol=1e-3)
+
+    w = observed_weights(fact, "num", 0)
+    keys = [torch.tensor(k, device=cuda) for k in (ka, kb)]
+    trip = star_join_triple(fact.num_data, fact.cat_codes, w, keys=keys,
+                            dims=[(da.num_data, da.cat_codes),
+                                  (db.num_data, db.cat_codes)],
+                            fact_schema=fact.schema,
+                            dim_schemas=[da.schema, db.schema])
+    js = star_schema(fact.schema, [da.schema, db.schema])
+    jn = torch.cat([fact.num_data, da.num_data[:, keys[0]]])
+    jc = torch.cat([fact.cat_codes, da.cat_codes[:, keys[0]],
+                    db.cat_codes[:, keys[1]]])
+    mat = sigma_from_triple(sum_to_triple(jn, jc, w, schema=js))
+    got_s = sigma_from_triple(trip)
+    counts = count_mask(js, cuda)
+    assert torch.equal(got_s[counts], mat[counts])
+    assert float((got_s - mat).abs().max() / mat.abs().max()) <= 1e-5
