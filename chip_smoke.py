@@ -50,7 +50,19 @@ Drives the paths of `duckdb_imputation_tpu_torch` ported so far:
   `run_mice_star` over fact ⋈ stores ⋈ items (each column step one K1 of
   the fact columns and one K6 a dimension; `[star]`), each join's train
   triple against the materialized join's K7 triple, with quality gates,
-  exact launch counts and the card against the CPU at 200k rows.
+  exact launch counts and the card against the CPU at 200k rows; K5 and
+  K8 alone at its 4,100 keys;
+- the row-sharded loops over torch.distributed: `run_mice_sharded`
+  ('gram', 'fused', 'fused' with noise) and `run_mice_sharded_delta` on a
+  world of one over NCCL at config 5 and favorita_wide, N rows, each
+  bit-identical to `run_mice_device` / `run_mice_device_delta`, with the
+  sharded aggregates (`[sharded]`); two ranks on gloo over CUDA tensors,
+  spawned as processes sharing the card, each with half of the config-5
+  table, against the world of one (`[sharded2]`); a checkpointed run
+  killed after 2 rounds and resumed to 4 at 1M rows, bit-identical to 4
+  straight, and a resume of another run refused (`[checkpoint]`). `[K3]`
+  also scores naive Bayes's centred tables at the variance case of
+  ROADMAP Queue 3 against the host predictor.
 
 First it builds the kernels from `duckdb_imputation_tpu_torch/csrc/` and
 holds each against its plain torch version at the shapes its path gives
@@ -66,7 +78,10 @@ path; for K1 and K7 also `delta_launches`, from the delta runs alone,
 and `gd_launches`, from the GD runs; for K1's stacked entry and K7
 `host_launches`, from the host MICE runs; `factorized_launches` on K4, K5
 and K8 and `star_launches` on K1's stacked entry, K6 and K7, from the
-run_mice_factorized and run_mice_star runs;
+run_mice_factorized and run_mice_star runs; `sharded_launches` on
+K1, its stacked entry, K2, K4, K5, K7 and K2w, from the `[sharded]`
+runs; `g4100` on K5 and K8, each timed alone at 4,100 groups; `nb_centred`
+on K3, the variance case;
 `bound_ms`, the least time the card could take for the kernel's work,
 computed from this run's shapes with `bound`; `library_ms`, one PyTorch
 call computing the same function, where there is one), then the card's
@@ -78,6 +93,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
@@ -1154,6 +1170,88 @@ def phase_k3(seed: int) -> dict:
         f"{agree:.7f}, bit-identical rerun; kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, bound {out['bound_ms']:.4f} ms "
         f"({out['bound_by']})")
+    out["nb_centred"] = k3_nb_centring(seed)
+    return out
+
+
+def k3_nb_centring(seed: int) -> dict:
+    """K3 on naive Bayes's centred tables (its x shift) at ROADMAP Queue
+    3's variance case, N rows: 2 classes at ~50%, x0 ~ N(2y, 1), x1
+    exactly 1000.1 in class 1 and N(1000.1, 1) in class 0 (class 1's
+    variance clamps to 0, +1e-9). The NB sums by K6, device training,
+    `nb_predict_device` (K3 with the shift) against the host predictor
+    (`models.nb_train` / `nb_predict`) and the f64 log-space formula on
+    the same parameters: agreement ≥ 0.999 with each; the kernel with the
+    shift against its plain version; the uncentred tables' agreement
+    beside it."""
+    from duckdb_imputation_tpu_torch import FeatureSchema, models
+    from duckdb_imputation_tpu_torch.models.device import (
+        nb_predict_device, nb_train_device)
+    from duckdb_imputation_tpu_torch.ring.kernels.qda_pallas import (
+        nb_center, nb_tables, qda_predict_kernel, qda_predict_plain)
+    from duckdb_imputation_tpu_torch.ring.sum import sum_to_nb_agg_grouped
+
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(seed + 44)
+    y = (torch.rand(N, generator=g, device=DEVICE) < 0.5).to(torch.int32)
+    x0 = torch.randn(N, generator=g, device=DEVICE) + 2 * y
+    x1 = torch.where(y == 1, 1000.1,
+                     torch.randn(N, generator=g, device=DEVICE) + 1000.1)
+    x = torch.stack([x0, x1]).float()
+    codes = torch.zeros((0, N), dtype=torch.int32, device=DEVICE)
+    schema = FeatureSchema(num_cols=2)
+    agg = sum_to_nb_agg_grouped(x, None, y, schema=schema, num_groups=2)
+    params = models.nb_train(agg, schema, labels=[0, 1])
+    host = models.nb_predict(params, x).to(torch.int32)
+    p = models.NBParams.decode(params, 2)
+    f64 = torch.float64
+    mu = torch.tensor(p.mean, dtype=f64, device=DEVICE)[:, :, None]
+    var = torch.tensor(p.var, dtype=f64, device=DEVICE)[:, :, None] + 1e-9
+    formula = (torch.log(torch.tensor(p.priors, dtype=f64,
+                                      device=DEVICE))[:, None]
+               - ((x[None].double() - mu) ** 2 / (2 * var)
+                  + 0.5 * torch.log(2 * torch.pi * var)).sum(1)).argmax(0)
+    priors, mean, var_d, freqs = nb_train_device(agg.n, agg.lin,
+                                                 agg.quad_diag, agg.lin_cat)
+    before = qda_predict_kernel.launches
+    dev = nb_predict_device(priors, mean, var_d, freqs, x, codes,
+                            schema=schema)
+    torch.cuda.synchronize()
+    check(qda_predict_kernel.launches == before + 1,
+          "nb_predict_device did not launch K3")
+    vs_host = float((dev == host).float().mean())
+    vs_formula = float((dev == formula).float().mean())
+    check(vs_host >= 0.999, f"K3 NB vs host predictor {vs_host} < 0.999")
+    check(vs_formula >= 0.999, f"K3 NB vs the f64 formula {vs_formula}")
+    lp = torch.log(priors.double())
+    v64 = var_d.double().clamp(min=0.0) + 1e-9
+    lf = torch.zeros((2, 0), dtype=f64, device=DEVICE)
+    center = nb_center(lp, mean)
+    tables, plan = nb_tables(lp, mean, v64, lf, schema=schema, center=center)
+    got = qda_predict_kernel(tables, plan, x, codes, schema=schema,
+                             shift=center)
+    want = qda_predict_plain(tables, plan, x, codes, schema=schema,
+                             shift=center)
+    check(torch.equal(got, want), "K3 with a shift differs from its plain "
+          "version")
+    ms = cuda_ms(lambda: qda_predict_kernel(tables, plan, x, codes,
+                                            schema=schema, shift=center))
+    raw, raw_plan = nb_tables(lp, mean, v64, lf, schema=schema)
+    raw_ms = cuda_ms(lambda: qda_predict_kernel(raw, raw_plan, x, codes,
+                                                schema=schema))
+    uncentred = float((qda_predict_kernel(raw, raw_plan, x, codes,
+                                          schema=schema) == host)
+                      .float().mean())
+    out = dict(vs_host=vs_host, vs_formula=vs_formula,
+               uncentred_vs_host=uncentred, ms=ms, unshifted_ms=raw_ms,
+               accuracy=float((dev == y).float().mean()))
+    log(f"[K3] NB centred at the variance case n={N} (class 1's x1 "
+        f"exactly 1000.1): nb_predict_device (K3, shift {center.tolist()}) "
+        f"agrees with the host predictor on {vs_host:.7f} of rows, with "
+        f"the f64 formula on {vs_formula:.7f} (uncentred tables: "
+        f"{uncentred:.7f}); accuracy {out['accuracy']:.6f}; kernel with the "
+        f"shift equal to its plain version; {ms:.4f} ms (the uncentred "
+        f"tables without a shift {raw_ms:.4f} ms)")
     return out
 
 
@@ -2645,7 +2743,7 @@ def phase_factorized(seed: int) -> dict:
                                              run_mice_factorized)
     from duckdb_imputation_tpu_torch.mice import init_fill, observed_weights
     from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas_grouped import (
-        grouped_gram, grouped_gram_presorted)
+        grouped_gram, grouped_gram_presorted, sort_by_group)
     from duckdb_imputation_tpu_torch.ring.sum import (sum_to_triple,
                                                       sum_to_triple_grouped)
     from duckdb_imputation_tpu_torch.ring.triple import (factorized_join_sum,
@@ -2718,6 +2816,26 @@ def phase_factorized(seed: int) -> dict:
         f"{k7_ms:.3f} ms, with its gather {mat_ms:.3f}")
     del got, want, jn, jc, dim_g
 
+    # K5 (fact rows by item, P = 58) and K8 (items, P = 373) alone at
+    # G = 4,100, on rows already sorted by key
+    alone = {}
+    for name, t_, ids, weights in (("k5", filled, item, w),
+                                   ("k8", items, keys, None)):
+        xs, cs, ws, layout = sort_by_group(
+            t_.num_data, t_.cat_codes, ids, schema=t_.schema,
+            num_groups=ITEMS, weights=weights)
+        ms = cuda_ms(lambda: grouped_gram_presorted(xs, cs, ws, layout,
+                                                    schema=t_.schema),
+                     reps=5, warmup=1)
+        alone[name] = dict(ms=ms, **gram_bound(cs, t_.schema, ws,
+                                               groups=ITEMS, extra=8))
+        del xs, cs, ws, layout
+    log(f"[factorized] alone at G={ITEMS}, rows sorted by key: K5 (fact, "
+        f"P={fs.sigma_size}) {alone['k5']['ms']:.4f} ms, bound "
+        f"{alone['k5']['bound_ms']:.4f} ms ({alone['k5']['bound_by']}); K8 "
+        f"(items, P={ds.sigma_size}) {alone['k8']['ms']:.4f} ms, bound "
+        f"{alone['k8']['bound_ms']:.4f} ms ({alone['k8']['bound_by']})")
+
     torch.cuda.synchronize()
     grouped_gram.launches = 0
     grouped_gram_presorted.launches = grouped_gram_presorted.wide_launches = 0
@@ -2747,7 +2865,7 @@ def phase_factorized(seed: int) -> dict:
 
     _card_vs_cpu("factorized", run, make_favorita_star(N_STAR_CPU, seed + 31),
                  "fact")
-    return launches
+    return dict(launches, alone=alone)
 
 
 def phase_star(seed: int) -> dict:
@@ -2842,15 +2960,401 @@ def phase_star(seed: int) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The row-sharded MICE loops over torch.distributed and their checkpoints
+# ---------------------------------------------------------------------------
+
+N_CKPT = 1_000_000
+SHARDED2_DEADLINE_S = 300
+
+
+def _store(path: str, world: int):
+    import torch.distributed as dist
+    return dist.FileStore(path, world)
+
+
+def _slope(fn, reps: int = 2) -> float:
+    """ms per round: the slope of fn(1) and fn(3) by CUDA events."""
+    one = cuda_ms(lambda: fn(1), reps=reps, warmup=1)
+    three = cuda_ms(lambda: fn(3), reps=reps, warmup=1)
+    return (three - one) / 2
+
+
+def _sharded_vs_device(tag, t, mesh, seed, gram, fused) -> dict:
+    """run_mice_sharded ('gram', 'fused', 'fused' with noise) and
+    run_mice_sharded_delta on one table and a world of one, each
+    bit-identical to run_mice_device / run_mice_device_delta with the same
+    kernel; launches of the sharded runs alone against the derived counts
+    (ROUNDS rounds, 2 null columns: 'gram' 2 a round, 'fused' 1 seed + 2 a
+    round, delta 1 + 4 a round); ms per round against run_mice_device's."""
+    from duckdb_imputation_tpu_torch import (run_mice_device,
+                                             run_mice_device_delta)
+    from duckdb_imputation_tpu_torch.mice import (run_mice_sharded,
+                                                  run_mice_sharded_delta)
+    from duckdb_imputation_tpu_torch.ring.kernels.sigma_fused import (
+        fused_impute_aggregate)
+    from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas import (
+        masked_gram_cols)
+
+    def reset():
+        torch.cuda.synchronize()
+        masked_gram_cols.launches = masked_gram_cols.wide_launches = 0
+        fused_impute_aggregate.launches = 0
+        fused_impute_aggregate.wide_launches = 0
+
+    def read():
+        torch.cuda.synchronize()
+        return {gram: getattr(masked_gram_cols, _COUNT[gram]),
+                fused: getattr(fused_impute_aggregate, _COUNT[fused])}
+
+    launches = {gram: 0, fused: 0}
+    cases = (("gram", dict(kernel="gram"), {gram: 2 * ROUNDS, fused: 0}),
+             ("fused", dict(kernel="fused"), {gram: 1, fused: 2 * ROUNDS}),
+             ("fused+noise", dict(kernel="fused", noise=True, seed=seed),
+              {gram: 1, fused: 2 * ROUNDS}))
+    for name, kw, want in cases:
+        reset()
+        got = run_mice_sharded(t, iters=ROUNDS, mesh=mesh, **kw)
+        counts = read()
+        ref = run_mice_device(t, iters=ROUNDS, **kw)
+        check(counts == want, f"{tag} {name}: sharded launches {counts}, "
+              f"derived {want}")
+        check(torch.equal(got.num_data, ref.num_data)
+              and torch.equal(got.cat_codes, ref.cat_codes),
+              f"{tag} {name}: run_mice_sharded at world 1 differs from "
+              f"run_mice_device")
+        for k in launches:
+            launches[k] += counts[k]
+    reset()
+    got = run_mice_sharded_delta(t, iters=ROUNDS, mesh=mesh)
+    counts = read()
+    ref = run_mice_device_delta(t, iters=ROUNDS)
+    want = {gram: 1 + 4 * ROUNDS, fused: 0}
+    check(counts == want, f"{tag} delta: sharded launches {counts}, derived "
+          f"{want}")
+    check(torch.equal(got.num_data, ref.num_data)
+          and torch.equal(got.cat_codes, ref.cat_codes),
+          f"{tag} delta: run_mice_sharded_delta at world 1 differs")
+    launches[gram] += counts[gram]
+    del got, ref
+    per_round = {
+        "sharded gram": _slope(lambda k: run_mice_sharded(
+            t, iters=k, kernel="gram", mesh=mesh)),
+        "device gram": _slope(lambda k: run_mice_device(
+            t, iters=k, kernel="gram")),
+        "sharded fused": _slope(lambda k: run_mice_sharded(
+            t, iters=k, kernel="fused", mesh=mesh)),
+        "device fused": _slope(lambda k: run_mice_device(
+            t, iters=k, kernel="fused")),
+    }
+    log(f"[sharded] {tag}: run_mice_sharded gram, fused, fused with noise "
+        f"and run_mice_sharded_delta bit-identical to run_mice_device / "
+        f"run_mice_device_delta; launches of the sharded runs {launches} "
+        f"(as derived); ms per round (slope of 1 vs 3 rounds, CUDA events)"
+        f" {per_round}")
+    return launches
+
+
+_COUNT = {"masked_gram_cols": "launches", "wide_gram": "wide_launches",
+          "fused_impute_aggregate": "launches",
+          "fused_impute_aggregate_wide": "wide_launches"}
+
+
+def phase_sharded(seed: int, mesh) -> dict:
+    """A world of one on NCCL: run_mice_sharded / _delta against
+    run_mice_device / _delta at config 5 and favorita_wide, N rows; then
+    the sharded aggregates against the single-process ones
+    (sum_to_triple_sharded: K1's stacked entry; sum_to_triple_grouped_
+    sharded at config 4, 8 classes: K4; factorized_join_sum_sharded of the
+    config-4 table with itself over 1,000 keys: a sort and K5 a side).
+    Returns the sharded runs' launches."""
+    from duckdb_imputation_tpu_torch.parallel import (
+        factorized_join_sum_sharded, sum_to_triple_grouped_sharded,
+        sum_to_triple_sharded)
+    from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas import (
+        masked_gram)
+    from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas_grouped import (
+        grouped_gram, grouped_gram_presorted)
+    from duckdb_imputation_tpu_torch.ring.sum import (sum_to_triple,
+                                                      sum_to_triple_grouped)
+    from duckdb_imputation_tpu_torch.ring.triple import (factorized_join_sum,
+                                                         sigma_from_triple)
+
+    log(f"[sharded] world {mesh.world} on {mesh.backend}, rank {mesh.rank} "
+        f"on {mesh.device}")
+    t, _ = make_table(N, seed + 40)
+    launches = _sharded_vs_device("config 5", t, mesh, seed,
+                                  "masked_gram_cols", "fused_impute_aggregate")
+    del t
+    t, _ = make_favorita(N, seed + 41)
+    launches.update(_sharded_vs_device(
+        "favorita_wide", t, mesh, seed, "wide_gram",
+        "fused_impute_aggregate_wide"))
+    del t
+
+    x, codes, y, schema = make_classify_table(N, seed + 42)
+    torch.cuda.synchronize()
+    masked_gram.launches = grouped_gram.launches = 0
+    grouped_gram_presorted.launches = 0
+    got = sum_to_triple_sharded(x, codes, None, schema=schema, mesh=mesh)
+    grp = sum_to_triple_grouped_sharded(x, codes, y, schema=schema,
+                                        num_groups=CLASSES, mesh=mesh)
+    keys = torch.remainder(torch.arange(N, device=DEVICE) * 7919, 1000)
+    join = factorized_join_sum_sharded(x, codes, keys, x, codes, keys,
+                                       schema1=schema, schema2=schema,
+                                       num_keys=1000, mesh=mesh)
+    torch.cuda.synchronize()
+    agg = {"masked_gram": masked_gram.launches,
+           "grouped_gram": grouped_gram.launches,
+           "grouped_gram_presorted": grouped_gram_presorted.launches}
+    want = {"masked_gram": 1, "grouped_gram": 1, "grouped_gram_presorted": 2}
+    check(agg == want, f"[sharded] aggregate launches {agg}, derived {want}")
+    single = sum_to_triple_grouped(x, codes, keys, schema=schema,
+                                   num_groups=1000)
+    for name, a, b in (
+            ("sum_to_triple_sharded", got, sum_to_triple(x, codes, None,
+                                                         schema=schema)),
+            ("sum_to_triple_grouped_sharded", grp, sum_to_triple_grouped(
+                x, codes, y, schema=schema, num_groups=CLASSES)),
+            ("factorized_join_sum_sharded", join,
+             factorized_join_sum(single, single))):
+        check(torch.equal(sigma_from_triple(a), sigma_from_triple(b)),
+              f"[sharded] {name} at world 1 differs from one process")
+    log(f"[sharded] sum_to_triple_sharded, sum_to_triple_grouped_sharded "
+        f"(G={CLASSES}) and factorized_join_sum_sharded (1,000 keys) "
+        f"bit-identical to one process; launches {agg} (as derived)")
+    launches.update(agg)
+    return launches
+
+
+def sharded_rank(rank: int, world: int, out_dir: str, seed: int) -> int:
+    """One rank of [sharded2] (a child process): gloo over CUDA tensors,
+    the rank's half of the config-5 table; writes its results to
+    out_dir/rank<rank>.pt."""
+    from duckdb_imputation_tpu_torch.mice import run_mice_sharded
+    from duckdb_imputation_tpu_torch.parallel import (
+        initialize, local_shard, shutdown, sum_to_triple_sharded)
+    from duckdb_imputation_tpu_torch.ring.kernels.sigma_fused import (
+        fused_impute_aggregate)
+    from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas import (
+        masked_gram, masked_gram_cols)
+    from duckdb_imputation_tpu_torch.ring.triple import sigma_from_triple
+
+    import datetime
+    mesh = initialize("gloo", store=_store(f"{out_dir}/store", world),
+                      world_size=world, rank=rank, device=DEVICE,
+                      timeout=datetime.timedelta(seconds=120))
+    tables = {"fused": make_table(N, seed + 40)[0],
+              "fused_noise": make_table(N, seed + 45, noise_fixture=True)[0]}
+    out = {}
+    local = local_shard(tables["fused"], mesh)
+    sig = sigma_from_triple(sum_to_triple_sharded(
+        local.num_data, local.cat_codes, (~local.num_null[1]).float(),
+        schema=local.schema, mesh=mesh))
+    out["sigma"] = sig.cpu()
+    for name, kw in (("fused", {}), ("fused_noise",
+                                     dict(noise=True, seed=seed))):
+        local = local_shard(tables.pop(name), mesh)
+        torch.cuda.synchronize()
+        masked_gram_cols.launches = fused_impute_aggregate.launches = 0
+        masked_gram.launches = 0
+        got = run_mice_sharded(local, iters=ROUNDS, kernel="fused",
+                               mesh=mesh, **kw)
+        torch.cuda.synchronize()
+        out[name] = dict(
+            x1=got.num_data[1][local.num_null[1]].cpu(),
+            c0=got.cat_codes[0][local.cat_null[0]].cpu(),
+            c0_at_x1=got.cat_codes[0][local.num_null[1]].cpu(),
+            observed_same=bool(
+                torch.equal(got.num_data[~local.num_null],
+                            local.num_data[~local.num_null])
+                and torch.equal(got.cat_codes[~local.cat_null],
+                                local.cat_codes[~local.cat_null])),
+            launches={"masked_gram_cols": masked_gram_cols.launches,
+                      "fused_impute_aggregate":
+                          fused_impute_aggregate.launches})
+    torch.save(out, f"{out_dir}/rank{rank}.pt")
+    shutdown()
+    return 0
+
+
+def phase_sharded2(seed: int, mesh) -> dict:
+    """Two ranks on gloo over CUDA tensors, spawned as processes that
+    share the card, each holding half of the config-5 table (N rows):
+    the all-reduced sigma and run_mice_sharded 'fused' (noise off and on)
+    against world size 1 (NCCL, this process): counts exact, codes equal
+    on ≥ 0.9999 of the null rows, imputed x within 1e-3 relative (noise
+    off); with noise, on the noise fixture's table (x1 = 2·x0 + 0.5·eps:
+    in config 5, x1 is exact in x0 and x2, and the residual std the noise
+    scales by is rounding error, different for any order of the sums),
+    codes equal on ≥ 0.9999 of the null rows and, in the rows whose c0
+    agrees, test_mice_sharded_noise_mesh_invariant's bounds (rtol 1e-4,
+    atol 5e-4). At 2M imputed codes a few lie within the sums' rounding of
+    a tie between two classes, and the two world sizes round the sums in
+    another order (each rank's f32 sigma, then their sum); a flipped c0
+    moves that row's x1 by the class coefficients' difference. Each rank's
+    launches exact. Every child is killed at the deadline."""
+    import tempfile
+
+    from duckdb_imputation_tpu_torch.mice import run_mice_sharded
+    from duckdb_imputation_tpu_torch.parallel import sum_to_triple_sharded
+    from duckdb_imputation_tpu_torch.ring.triple import sigma_from_triple
+
+    tables = {"fused": make_table(N, seed + 40)[0],
+              "fused_noise": make_table(N, seed + 45, noise_fixture=True)[0]}
+    t = tables["fused"]
+    want_sig = sigma_from_triple(sum_to_triple_sharded(
+        t.num_data, t.cat_codes, (~t.num_null[1]).float(), schema=t.schema,
+        mesh=mesh)).cpu()
+    want = {name: run_mice_sharded(tables[name], iters=ROUNDS,
+                                   kernel="fused", mesh=mesh, **kw)
+            for name, kw in (("fused", {}),
+                             ("fused_noise", dict(noise=True, seed=seed)))}
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, __file__, "--sharded-rank", str(r),
+             "--sharded-dir", d, "--seed", str(seed)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(2)]
+        logs = []
+        try:
+            for p in procs:
+                left = SHARDED2_DEADLINE_S - (time.perf_counter() - t0)
+                logs.append(p.communicate(timeout=max(1.0, left))[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+        for r, (p, text) in enumerate(zip(procs, logs)):
+            check(p.returncode == 0, f"[sharded2] rank {r} failed "
+                  f"({p.returncode}):\n{text[-4000:]}")
+        ranks = [torch.load(f"{d}/rank{r}.pt") for r in range(2)]
+    err = rel_err(ranks[0]["sigma"], want_sig)
+    cm = count_entries(t.schema).cpu()
+    check(torch.equal(ranks[0]["sigma"][cm], want_sig[cm])
+          and torch.equal(ranks[0]["sigma"], ranks[1]["sigma"]),
+          "[sharded2] the all-reduced counts differ from world 1's")
+    check(err <= 1e-5, f"[sharded2] sigma max rel err {err:.3e} > 1e-5")
+    out = {"sigma_rel_err": err, "wall_s": wall}
+    for name, ref in want.items():
+        # the null rows of rank 0's half, then rank 1's: the whole table's
+        t = tables[name]
+        x_ref = ref.num_data[1][t.num_null[1]].cpu()
+        c_ref = ref.cat_codes[0][t.cat_null[0]].cpu()
+        x2 = torch.cat([r[name]["x1"] for r in ranks])
+        c2 = torch.cat([r[name]["c0"] for r in ranks])
+        same_c0 = (torch.cat([r[name]["c0_at_x1"] for r in ranks])
+                   == ref.cat_codes[0][t.num_null[1]].cpu())
+        check(all(r[name]["observed_same"] for r in ranks),
+              f"[sharded2] {name}: observed cells changed")
+        derived = {"masked_gram_cols": 1,
+                   "fused_impute_aggregate": 2 * ROUNDS}
+        check(all(r[name]["launches"] == derived for r in ranks),
+              f"[sharded2] {name}: launches "
+              f"{[r[name]['launches'] for r in ranks]}, derived {derived}")
+        agree = float((c2 == c_ref).float().mean())
+        dx = float(((x2 - x_ref).abs() / x_ref.abs().clamp(min=1.0)).max())
+        check(agree >= 0.9999, f"[sharded2] {name} code agreement {agree}")
+        if name == "fused":
+            check(dx <= 1e-3, f"[sharded2] imputed x rel diff {dx:.3e}")
+        else:
+            check(torch.allclose(x2[same_c0], x_ref[same_c0], rtol=1e-4,
+                                 atol=5e-4),
+                  f"[sharded2] noisy x beyond rtol 1e-4, atol 5e-4 where c0 "
+                  f"agrees: max |Δx| "
+                  f"{float((x2 - x_ref)[same_c0].abs().max()):.3e}")
+        out[name] = dict(
+            code_agreement=agree, codes_differ=int((c2 != c_ref).sum()),
+            x_rel_diff=dx, x_max_abs_diff=float((x2 - x_ref).abs().max()),
+            x_max_abs_diff_same_c0=float((x2 - x_ref)[same_c0].abs().max()),
+            x1_rows_c0_differs=int((~same_c0).sum()))
+    log(f"[sharded2] 2 ranks on gloo over CUDA tensors sharing the card, "
+        f"half of config 5 (n={N}) each, against world 1 on NCCL: "
+        f"all-reduced sigma counts exact, max rel err {err:.3e}; "
+        f"run_mice_sharded fused rounds={ROUNDS} {out}; each rank's "
+        f"launches as derived; {wall:.1f} s for the two processes")
+    return out
+
+
+def phase_checkpoint(seed: int, mesh) -> None:
+    """run_mice_sharded ('fused') and run_mice_sharded_delta with noise at
+    N_CKPT rows of config 5: 2 rounds with a checkpoint
+    ("killed"), then resumed to 4, bit-identical to 4 rounds run straight
+    through; a resume with another seed raises ValueError."""
+    import tempfile
+
+    from duckdb_imputation_tpu_torch.mice import (run_mice_sharded,
+                                                  run_mice_sharded_delta)
+
+    t, _ = make_table(N_CKPT, seed + 43)
+    with tempfile.TemporaryDirectory() as d:
+        for name, fn, kw in (
+                ("fused", run_mice_sharded, dict(kernel="fused")),
+                ("delta", run_mice_sharded_delta, {})):
+            kw = dict(kw, noise=True, seed=seed, mesh=mesh)
+            path = f"{d}/{name}"
+            straight = fn(t, iters=4, **kw)
+            fn(t, iters=2, checkpoint_path=path, **kw)
+            t0 = time.perf_counter()
+            resumed = fn(t, iters=4, checkpoint_path=path, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            check(torch.equal(straight.num_data, resumed.num_data)
+                  and torch.equal(straight.cat_codes, resumed.cat_codes),
+                  f"[checkpoint] {name}: resumed run differs")
+            try:
+                fn(t, iters=4, checkpoint_path=path, **dict(kw, seed=seed + 1))
+                check(False, f"[checkpoint] {name}: another seed resumed")
+            except ValueError as e:
+                check("field 'seed'" in str(e), f"[checkpoint] {e}")
+            size = sum(os.path.getsize(os.path.join(d, f))
+                       for f in os.listdir(d) if f.startswith(name))
+            log(f"[checkpoint] {name} n={N_CKPT}: 2 rounds, then resumed to "
+                f"4: bit-identical to 4 straight; another seed raises "
+                f"ValueError naming 'seed'; resume + 2 rounds + 2 "
+                f"checkpoints {wall * 1e3:.1f} ms wall, file {size} bytes")
+
+
+def phase_sharded_all(seed: int) -> dict:
+    """[sharded], [sharded2] and [checkpoint] under one NCCL process group
+    of one rank (FileStore in a temporary directory), left at the end.
+    Returns [sharded]'s launches."""
+    import datetime
+    import tempfile
+
+    from duckdb_imputation_tpu_torch.parallel import initialize, shutdown
+
+    with tempfile.TemporaryDirectory() as d:
+        mesh = initialize("nccl", store=_store(f"{d}/store", 1),
+                          world_size=1, rank=0, device=DEVICE,
+                          timeout=datetime.timedelta(minutes=5))
+        try:
+            launches = phase_sharded(seed, mesh)
+            phase_sharded2(seed, mesh)
+            phase_checkpoint(seed, mesh)
+        finally:
+            shutdown()
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    # a rank of [sharded2], spawned by phase_sharded2 itself
+    ap.add_argument("--sharded-rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--sharded-dir", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.sharded_rank is not None:
+        return sharded_rank(args.sharded_rank, 2, args.sharded_dir,
+                            args.seed)
 
     card = phase_device()
     phase_build()
@@ -2882,6 +3386,7 @@ def main() -> int:
     classify_wide = phase_classify_wide(args.seed)
     factorized = phase_factorized(args.seed)
     star = phase_star(args.seed)
+    sharded = phase_sharded_all(args.seed)
 
     src = "duckdb_imputation_tpu_torch/csrc/"
     ref = "duckdb_imputation_tpu/ring/kernels/"
@@ -2891,16 +3396,19 @@ def main() -> int:
              replaces=ref + "sigma_pallas.py:888",
              launches=launches["masked_gram_cols"],
              delta_launches=delta["masked_gram_cols"],
-             gd_launches=gd["masked_gram_cols"], **k1),
+             gd_launches=gd["masked_gram_cols"],
+             sharded_launches=sharded["masked_gram_cols"], **k1),
         dict(name="masked_gram", route="cuda",
              source=src + "masked_gram.cu",
              replaces=ref + "sigma_pallas.py:109",
              launches=k1s_launches, host_launches=host,
-             star_launches=star["masked_gram"], **k1s),
+             star_launches=star["masked_gram"],
+             sharded_launches=sharded["masked_gram"], **k1s),
         dict(name="fused_impute_aggregate", route="cuda",
              source=src + "fused_impute_aggregate.cu",
              replaces=ref + "sigma_fused.py:413",
-             launches=launches["fused_impute_aggregate"], **k2),
+             launches=launches["fused_impute_aggregate"],
+             sharded_launches=sharded["fused_impute_aggregate"], **k2),
         dict(name="qda_predict_kernel", route="cuda",
              source=src + "qda_predict.cu",
              replaces=ref + "qda_pallas.py:148",
@@ -2909,12 +3417,15 @@ def main() -> int:
              source=src + "grouped_gram.cu",
              replaces=ref + "sigma_pallas_grouped.py:121",
              launches=launches["grouped_gram"],
-             factorized_launches=factorized["grouped_gram"], **k4),
+             factorized_launches=factorized["grouped_gram"],
+             sharded_launches=sharded["grouped_gram"], **k4),
         dict(name="grouped_gram_presorted", route="cuda",
              source=src + "grouped_gram.cu",
              replaces=ref + "sigma_pallas_grouped.py:568",
              launches=launches["grouped_gram_presorted"],
-             factorized_launches=factorized["grouped_gram_presorted"], **k5),
+             factorized_launches=factorized["grouped_gram_presorted"],
+             sharded_launches=sharded["grouped_gram_presorted"],
+             g4100=factorized["alone"]["k5"], **k5),
         dict(name="nb_grouped_sums", route="cuda",
              source=src + "nb_grouped_sums.cu",
              replaces=ref + "nb_pallas.py:126",
@@ -2924,16 +3435,19 @@ def main() -> int:
              replaces=ref + "sigma_pallas.py:501",
              launches=wide["wide_gram"], delta_launches=delta["wide_gram"],
              host_launches=host_wide, gd_launches=gd["wide_gram"],
-             star_launches=star["wide_gram"], **k7),
+             star_launches=star["wide_gram"],
+             sharded_launches=sharded["wide_gram"], **k7),
         dict(name="fused_impute_aggregate_wide", route="cuda",
              source=src + "fused_impute_aggregate.cu",
              replaces=ref + "sigma_fused.py:509",
-             launches=wide["fused_impute_aggregate_wide"], **k2w),
+             launches=wide["fused_impute_aggregate_wide"],
+             sharded_launches=sharded["fused_impute_aggregate_wide"], **k2w),
         dict(name="grouped_wide_gram", route="cuda",
              source=src + "grouped_wide_gram.cu",
              replaces=ref + "sigma_pallas_grouped.py:540",
              launches=classify_wide["grouped_wide_gram"],
-             factorized_launches=factorized["grouped_wide_gram"], **k8),
+             factorized_launches=factorized["grouped_wide_gram"],
+             g4100=factorized["alone"]["k8"], **k8),
         dict(name="nb_grouped_sums_wide", route="cuda",
              source=src + "nb_grouped_sums.cu",
              replaces=ref + "nb_pallas.py:126",

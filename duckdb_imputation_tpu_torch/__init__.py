@@ -31,7 +31,11 @@ imports torch and never jax. Ported so far:
   reference's dict format (`ring.serialize`), star joins over several
   keys (`ring.star`), MICE over a join without materializing it
   (`mice.factorized`: `run_mice_factorized`, `run_mice_star`), and the
-  SQL-shaped surface of every ring, model and MICE function (`api`).
+  SQL-shaped surface of every ring, model and MICE function (`api`);
+- data parallelism over `torch.distributed` (`parallel`: the process
+  mesh, `initialize`, `union_vocab`, the row-sharded aggregates) and the
+  row-sharded MICE loops with checkpoints (`mice.sharded_round`:
+  `run_mice_sharded`, `run_mice_sharded_delta`; `utils.checkpoint`).
 """
 
 from .schema import FeatureSchema
@@ -61,8 +65,11 @@ from .mice import (
     run_mice_factorized,
     run_mice_high,
     run_mice_low,
+    run_mice_sharded,
+    run_mice_sharded_delta,
     run_mice_star,
 )
+from . import parallel
 
 __version__ = "0.1.0"
 
@@ -73,4 +80,5 @@ __all__ = ["FeatureSchema", "NBAgg", "Triple", "lift", "nb_lift",
            "Table", "from_numpy", "from_pandas", "from_reference",
            "init_fill", "run_mice_baseline", "run_mice_device",
            "run_mice_device_delta", "run_mice_factorized", "run_mice_high",
-           "run_mice_low", "run_mice_star"]
+           "run_mice_low", "run_mice_sharded", "run_mice_sharded_delta",
+           "run_mice_star", "parallel"]

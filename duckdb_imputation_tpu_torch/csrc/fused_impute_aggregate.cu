@@ -89,6 +89,7 @@ struct Noise {
   uint32_t key0, key1;  // the seed
   uint32_t round, column;
   const float* std;     // f32[1] on the device
+  int64_t row_offset;   // global id of local row 0 (a row shard's first)
 };
 
 __device__ __forceinline__ void philox4x32_10(uint32_t c[4], uint32_t k0,
@@ -109,11 +110,13 @@ __device__ __forceinline__ void philox4x32_10(uint32_t c[4], uint32_t k0,
   }
 }
 
-// N(0, 1) for global row `row`: Box-Muller on the first two Philox words,
-// each mapped to (0, 1] as ((bits >> 8) + 1) · 2⁻²⁴.
+// N(0, 1) for local row `row`, keyed by its global id row + row_offset
+// (so a row draws the same number whatever shard holds it): Box-Muller on
+// the first two Philox words, each mapped to (0, 1] as ((bits >> 8) + 1)
+// · 2⁻²⁴.
 __device__ __forceinline__ float row_normal(const Noise& nz, int64_t row) {
-  uint32_t c[4] = {static_cast<uint32_t>(row),
-                   static_cast<uint32_t>(static_cast<uint64_t>(row) >> 32),
+  const uint64_t g = static_cast<uint64_t>(row + nz.row_offset);
+  uint32_t c[4] = {static_cast<uint32_t>(g), static_cast<uint32_t>(g >> 32),
                    nz.round, nz.column};
   philox4x32_10(c, nz.key0, nz.key1);
   const float u1 = static_cast<float>((c[0] >> 8) + 1u) * 0x1p-24f;
@@ -697,14 +700,16 @@ extern "C" {
 // tc_gram.cuh) and its cross-block reduction on `stream`, for a schema
 // that tc_fits (_build.tc_fits). kind: 0 = 'cat' (R classes, out_col
 // i32[n]), 1 = 'num' (R = 1, out_col f32[n]). noise_std: f32[1] on the
-// device, read only when noise is nonzero. partial: f64 scratch of 21 · 21
+// device, read only when noise is nonzero; row_offset: the global id of
+// row 0, which the noise is keyed by. partial: f64 scratch of 21 · 21
 // · nblocks; sigma: f32[P, P]. Returns 0 or a cudaError_t.
 int dit_fused_impute_aggregate(
     const void* const* x_cols, int d, const void* const* code_cols,
     const int* cat_sizes, int c, const uint8_t* null_imp, const float* w_agg,
     const float* w_full, const float* intercept, int R, int kind,
     int imp_col, void* out_col, int noise, uint32_t seed_lo,
-    uint32_t seed_hi, uint32_t round, const float* noise_std, int64_t n,
+    uint32_t seed_hi, uint32_t round, int64_t row_offset,
+    const float* noise_std, int64_t n,
     int P, double* partial, int nblocks, float* sigma, void* stream) {
   using namespace dit;
   if (int rc = check_cols(d, c, cat_sizes, P, n, nblocks)) return rc;
@@ -712,7 +717,7 @@ int dit_fused_impute_aggregate(
   if (!tc_fits(d, P)) return cudaErrorInvalidValue;
   const Cols cols = make_cols(x_cols, d, code_cols, cat_sizes, c);
   const Noise nz{noise, seed_lo, seed_hi, round,
-                 static_cast<uint32_t>(imp_col), noise_std};
+                 static_cast<uint32_t>(imp_col), noise_std, row_offset};
   // the rows [lo, hi) whose aligned 4-byte word of null_imp lies inside it
   const int64_t at = static_cast<int64_t>(
       reinterpret_cast<uintptr_t>(null_imp) & 3);
@@ -735,7 +740,8 @@ int dit_fused_impute_aggregate_cores(
     const int* cat_sizes, int c, const uint8_t* null_imp, const float* w_agg,
     const float* w_full, const float* intercept, int R, int kind,
     int imp_col, void* out_col, int noise, uint32_t seed_lo,
-    uint32_t seed_hi, uint32_t round, const float* noise_std, int64_t n,
+    uint32_t seed_hi, uint32_t round, int64_t row_offset,
+    const float* noise_std, int64_t n,
     int P, double* partial, int nblocks, float* sigma, void* stream) {
   using namespace dit;
   if (int rc = check_cols(d, c, cat_sizes, P, n, nblocks)) return rc;
@@ -743,7 +749,7 @@ int dit_fused_impute_aggregate_cores(
   const Cols cols = make_cols(x_cols, d, code_cols, cat_sizes, c);
   const Geom gm = make_geom(P, n);
   const Noise nz{noise, seed_lo, seed_hi, round,
-                 static_cast<uint32_t>(imp_col), noise_std};
+                 static_cast<uint32_t>(imp_col), noise_std, row_offset};
   const size_t smem = sizeof(float) * (P * R + R + gram_smem_floats(gm));
   if (smem > 48 * 1024) {
     cudaError_t rc = cudaFuncSetAttribute(
@@ -772,7 +778,8 @@ int dit_fused_impute_aggregate_wide(
     const int* cat_sizes, int c, const uint8_t* null_imp, const float* w_agg,
     const float* w_full, const float* intercept, int R, int kind,
     int imp_col, void* out_col, int noise, uint32_t seed_lo,
-    uint32_t seed_hi, uint32_t round, const float* noise_std, int64_t n,
+    uint32_t seed_hi, uint32_t round, int64_t row_offset,
+    const float* noise_std, int64_t n,
     int P, const int* slabs, const int* warp_begin, const int64_t* task_base,
     const int* stage_cols, const int* entries, const int* shape,
     const int* imp_plan, int* imp_rows, double* partial, float* sigma,
@@ -795,7 +802,7 @@ int dit_fused_impute_aggregate_wide(
         return rc;
     } else {
       const Noise nz{noise, seed_lo, seed_hi, round,
-                     static_cast<uint32_t>(imp_col), noise_std};
+                     static_cast<uint32_t>(imp_col), noise_std, row_offset};
       const int64_t want = (n + kThreads - 1) / kThreads;
       const int blocks = static_cast<int>(want < 8192 ? want : 8192);
       impute_num_wide_kernel<<<blocks, kThreads, 0, s>>>(

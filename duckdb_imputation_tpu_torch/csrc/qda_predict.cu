@@ -28,12 +28,15 @@
 // operations in the same order, so the two give bit-identical scores.
 //
 // Layout of the work: a block owns a tile of threads·rows rows, staged
-// once in shared memory (x in f64, and each code i16, −1 outside [0,
-// size)). It walks the steps (group of classes, task) in order; each
-// step's f32 tables (a task's cells, at most 4,096 in the scorer's plan)
-// are copied from device memory (L2: the tables of all classes are a few
-// MB) into one
-// of two shared buffers with cp.async while the block walks the previous
+// once in shared memory (x in f64, less an optional per-column shift, and
+// each code i16, −1 outside [0, size)). Naive Bayes's tables are built
+// around a centre m (`nb_tables(center=m)`) and score x − m: expanded
+// around 0, a class of variance ~1e-9 at a mean of ~1e3 puts ~1e12 in its
+// linear cell, which f32 holds only to ~6e4. The block walks the steps
+// (group of classes, task) in order; each step's f32 tables (a task's
+// cells, at most 4,096 in the scorer's plan) are copied from device
+// memory (L2: the tables of all classes are a few MB) into one of two
+// shared buffers with cp.async while the block walks the previous
 // step's. A thread finds each of its rows' cells once a step and adds it
 // into that row's f64 sum for each class of the group, in registers; at a
 // group's last task it rounds them and updates its running (best value,
@@ -97,6 +100,8 @@ struct QdaArgs {
   int64_t cells, n;
   int diag;                   // naive Bayes's form: of D only row 0 and the
                               // diagonal, of K only row 0 (the rest is zero)
+  const float* shift;         // f32[d] subtracted from x as it is staged, or
+                              // nullptr (naive Bayes's centred tables)
 };
 
 // ROWS rows a thread, tile = blockDim · ROWS rows a block; a step stages
@@ -146,8 +151,11 @@ qda_kernel(const __grid_constant__ Cols cols, const __grid_constant__ QdaArgs qa
     for (int e = tid; e < tile; e += nt) {
       const int64_t row = row0 + e;
       const bool valid = row < qa.n;
-      for (int j = 0; j < d; ++j)
-        xs[j * tile + e] = valid ? static_cast<double>(cols.x[j][row]) : 0.0;
+      for (int j = 0; j < d; ++j) {
+        const double sj = qa.shift ? static_cast<double>(qa.shift[j]) : 0.0;
+        xs[j * tile + e] =
+            valid ? __dsub_rn(static_cast<double>(cols.x[j][row]), sj) : 0.0;
+      }
       for (int j = 0; j < c; ++j) {
         const int v = valid ? cols.code[j][row] : -1;
         cs[j * tile + e] =
@@ -311,15 +319,17 @@ extern "C" {
 // `threads` threads,
 // each thread scoring `rows` rows against `group` classes a step ((8, 1),
 // (4, 1), (2, 1), (1, 1), (4, 2) or (2, 4)); diag: naive Bayes's tables
-// (`nb_tables`), whose other D and K cells are zero and skipped; out
-// i32[n]. Returns 0 or a cudaError_t.
+// (`nb_tables`), whose other D and K cells are zero and skipped; shift:
+// f32[d] on the device, taken from each x as it is staged (x − shift in
+// f64: the tables of `nb_tables(center=shift)`), or nullptr; out i32[n].
+// Returns 0 or a cudaError_t.
 int dit_qda_predict(const void* const* x_cols, int d,
                     const void* const* code_cols, const int* cat_sizes,
                     int c, const float* tables, const int* slabs,
                     const int* warp_begin, const int64_t* task_base, int C,
                     int tasks, int max_cells, int64_t cells, int64_t n,
-                    int threads, int rows, int group, int diag, int32_t* out,
-                    void* stream) {
+                    int threads, int rows, int group, int diag,
+                    const float* shift, int32_t* out, void* stream) {
   using namespace dit;
   if (d < 0 || c < 0 || d > kMaxCols || c > kMaxCols)
     return cudaErrorInvalidValue;
@@ -332,7 +342,7 @@ int dit_qda_predict(const void* const* x_cols, int d,
       threads < 32 || threads > kQdaThreads || threads % 32 || !launch)
     return cudaErrorInvalidValue;
   const QdaArgs qa{tables, slabs, warp_begin, task_base, C, tasks,
-                   max_cells, cells, n, diag != 0};
+                   max_cells, cells, n, diag != 0, shift};
   return launch(make_cols(x_cols, d, code_cols, cat_sizes, c), qa, threads,
                 out, static_cast<cudaStream_t>(stream));
 }

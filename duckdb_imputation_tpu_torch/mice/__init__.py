@@ -9,6 +9,7 @@ from .partition import (
     init_fill,
     observed_weights,
 )
+from .sharded_round import run_mice_sharded, run_mice_sharded_delta
 from .device_round import (
     build_union_gather,
     mice_loop_device,
@@ -25,4 +26,5 @@ __all__ = ["run_mice_baseline", "run_mice_factorized", "run_mice_star",
            "build_union_gather", "gather_rows", "init_fill",
            "mice_loop_device", "mice_loop_device_delta",
            "mice_loop_device_fused", "mice_round_device", "observed_weights",
-           "run_mice_device", "run_mice_device_delta"]
+           "run_mice_device", "run_mice_device_delta", "run_mice_sharded",
+           "run_mice_sharded_delta"]

@@ -44,6 +44,12 @@ Philox numbers for its compact rows by their global row ids
 (`philox_normal(..., rows=)`), so a row's draw is the fused loop's. None
 is JAX's threefry stream, so noise is compared with the JAX package by its
 moments.
+
+The round bodies take the hooks of the row-sharded loops
+(`mice.sharded_round`): `combine`, applied to every aggregated sigma
+before it is used (an all-reduce across the shards; the identity here),
+and the global id of the shard's first row, which keys the noise. With
+the defaults the single-device loops are unchanged.
 """
 from __future__ import annotations
 
@@ -64,6 +70,10 @@ from .partition import build_partitions, init_fill
 KERNELS = ("auto", "plain", "gram", "fused")
 DELTA_KERNELS = ("auto", "plain", "gram")
 TRAINERS = ("solve", "gd")
+
+
+def _identity(sigma: torch.Tensor) -> torch.Tensor:
+    return sigma
 
 
 def _row_noise(generator: torch.Generator, n: int,
@@ -140,26 +150,28 @@ def _round_columns(x_cols, code_cols, w_num, w_cat, null_num, null_cat, *,
                    num_cols_to_impute: tuple[int, ...],
                    cat_cols_to_impute: tuple[int, ...],
                    agg, lda_shrinkage: float, noise_for, trainer: str,
-                   gd_iters: int):
+                   gd_iters: int, combine=_identity):
     """One MICE round's per-column body. x_cols / code_cols: lists of
     per-column [n] tensors; w_* / null_*: per-column observed weights and
-    null masks; `agg(x_cols, code_cols, w) -> sigma`; `noise_for() ->
-    f32[n] | None`; `trainer`, `gd_iters`: see `_train_num`."""
+    null masks; `agg(x_cols, code_cols, w) -> sigma`, then `combine(sigma)`
+    (an all-reduce over row shards); `noise_for(col) -> f32[n] | None`, the
+    noise of numeric column col (a row shard keys it by global rows);
+    `trainer`, `gd_iters`: see `_train_num`."""
     x_cols, code_cols = list(x_cols), list(code_cols)
     for col in cat_cols_to_impute:
-        sigma = agg(x_cols, code_cols, w_cat[col])
+        sigma = combine(agg(x_cols, code_cols, w_cat[col]))
         w, intercept, keep = _lda_device(sigma, schema, col, lda_shrinkage)
         pred = class_argmax(_w_full(w, keep, schema), intercept,
                             x_cols, code_cols, schema=schema)
         code_cols[col] = torch.where(null_cat[col], pred, code_cols[col])
 
     for col in num_cols_to_impute:
-        sigma = agg(x_cols, code_cols, w_num[col])
+        sigma = combine(agg(x_cols, code_cols, w_num[col]))
         coeff = _train_num(sigma, col, trainer, gd_iters)
         theta = coeff.clone()
         theta[col + 1] = 0.0
         pred = linear_predict(theta, x_cols, code_cols, schema=schema)
-        z = noise_for()
+        z = noise_for(col)
         if z is not None:
             pred = pred + _noise_std(coeff, sigma) * z
         x_cols[col] = torch.where(null_num[col], pred, x_cols[col])
@@ -216,7 +228,7 @@ def mice_loop_device(x_num, codes, num_null, cat_null, generator=None, *,
     w_num = _observed(num_null, num_cols_to_impute)
     w_cat = _observed(cat_null, cat_cols_to_impute)
 
-    def noise_for():
+    def noise_for(col):
         return _row_noise(generator, n, x_num.device) if noise else None
 
     x_cols, code_cols = _to_cols(x_num, codes)
@@ -239,12 +251,15 @@ def mice_round_device(x_num, codes, num_null, cat_null, generator=None,
 
 def _fused_round_body(x_cols, code_cols, sigma, r: int, *,
                       schema: FeatureSchema, steps, null_of, w_of,
-                      lda_shrinkage: float, seed: int | None = None):
+                      lda_shrinkage: float, seed: int | None = None,
+                      combine=_identity, row_offset: int = 0):
     """One fused-MICE round: per column, train on the carried sigma, then
     ONE fused impute+aggregate pass (K2) that writes the column and emits
-    the NEXT column's sigma. `null_of(kind, col)` → bool[n] (True =
-    impute), `w_of(kind, col)` → f32[n] observed weights; `seed` enables
-    K2's in-kernel noise. Returns (x_cols, code_cols, sigma)."""
+    the NEXT column's sigma, passed through `combine` (an all-reduce over
+    row shards). `null_of(kind, col)` → bool[n] (True = impute),
+    `w_of(kind, col)` → f32[n] observed weights; `seed` enables K2's
+    in-kernel noise, keyed by round r and global row (local row +
+    `row_offset`). Returns (x_cols, code_cols, sigma)."""
     x_cols, code_cols = list(x_cols), list(code_cols)
     for i, (kind, col) in enumerate(steps):
         w_next = w_of(*steps[(i + 1) % len(steps)])
@@ -254,6 +269,7 @@ def _fused_round_body(x_cols, code_cols, sigma, r: int, *,
                 x_cols, code_cols, null_of(kind, col), w_next,
                 _w_full(w, keep, schema), icpt, schema=schema, kind="cat",
                 imp_col=col)
+            sigma = combine(sigma)
             code_cols[col] = new
         else:
             coeff = linreg_solve_device(sigma, label=col + 1)
@@ -264,7 +280,8 @@ def _fused_round_body(x_cols, code_cols, sigma, r: int, *,
             new, sigma = fused_impute_aggregate(
                 x_cols, code_cols, null_of(kind, col), w_next,
                 theta[:, None], theta.new_zeros(1), schema=schema,
-                kind="num", imp_col=col, noise=noise)
+                kind="num", imp_col=col, noise=noise, row_offset=row_offset)
+            sigma = combine(sigma)
             x_cols[col] = new
     return x_cols, code_cols, sigma
 
@@ -354,27 +371,28 @@ def _delta_round_columns(xc, cc, full, imp_num, imp_cat, w_num, w_cat, gidx,
                          num_cols_to_impute: tuple[int, ...],
                          cat_cols_to_impute: tuple[int, ...], agg,
                          lda_shrinkage: float, seed: int | None,
-                         trainer: str, gd_iters: int):
+                         trainer: str, gd_iters: int, combine=_identity):
     """One delta-MICE round over the COMPACT union sub-table (the
     imputation_low.cpp:42-110 algebra), categorical columns first: per
     column, delta = sigma(compact rows, weights = the column's dirty mask);
     train = full − delta → train and impute the compact cells; full =
-    train + sigma(compact rows with the updated values). xc / cc: compact
-    per-column [K] tensors; imp_* bool[K] (True = impute) and w_* f32[K]
-    per column; gidx int64[K] the global row ids (noise keying); `seed`
-    enables the Philox noise of round r; `trainer`, `gd_iters`: see
+    train + sigma(compact rows with the updated values). Every compact
+    sigma passes through `combine` (an all-reduce over row shards). xc /
+    cc: compact per-column [K] tensors; imp_* bool[K] (True = impute) and
+    w_* f32[K] per column; gidx int64[K] the global row ids (noise keying);
+    `seed` enables the Philox noise of round r; `trainer`, `gd_iters`: see
     `_train_num`. Returns (xc, cc, full)."""
     xc, cc = list(xc), list(cc)
     for col in cat_cols_to_impute:
-        train = full - agg(xc, cc, w_cat[col])
+        train = full - combine(agg(xc, cc, w_cat[col]))
         w, intercept, keep = _lda_device(train, schema, col, lda_shrinkage)
         pred = class_argmax(_w_full(w, keep, schema), intercept, xc, cc,
                             schema=schema)
         cc[col] = torch.where(imp_cat[col], pred, cc[col])
-        full = train + agg(xc, cc, w_cat[col])
+        full = train + combine(agg(xc, cc, w_cat[col]))
 
     for col in num_cols_to_impute:
-        train = full - agg(xc, cc, w_num[col])
+        train = full - combine(agg(xc, cc, w_num[col]))
         coeff = _train_num(train, col, trainer, gd_iters)
         theta = coeff.clone()
         theta[col + 1] = 0.0
@@ -383,7 +401,7 @@ def _delta_round_columns(xc, cc, full, imp_num, imp_cat, w_num, w_cat, gidx,
             pred = pred + _noise_std(coeff, train) * philox_normal(
                 seed, r, col, gidx.numel(), rows=gidx)
         xc[col] = torch.where(imp_num[col], pred, xc[col])
-        full = train + agg(xc, cc, w_num[col])
+        full = train + combine(agg(xc, cc, w_num[col]))
     return xc, cc, full
 
 
@@ -419,33 +437,52 @@ def mice_loop_device_delta(x_num, codes, num_null, cat_null, union_idx,
     x_cols0, code_cols0 = _to_cols(x_num, codes)
     full = (full_sigma if full_sigma is not None
             else agg(x_cols0, code_cols0, None))
+    xc, cc, masks = _delta_gather(x_cols0, code_cols0, num_null, cat_null,
+                                  union_idx, union_valid, num_cols_to_impute,
+                                  cat_cols_to_impute)
+    xc0, cc0 = list(xc), list(cc)
+    for r in range(round_offset, round_offset + iters):
+        xc, cc, full = _delta_round_columns(
+            xc, cc, full, *masks, union_idx, r,
+            schema=schema, num_cols_to_impute=num_cols_to_impute,
+            cat_cols_to_impute=cat_cols_to_impute, agg=agg,
+            lda_shrinkage=lda_shrinkage, seed=seed if noise else None,
+            trainer=trainer, gd_iters=gd_iters)
+    x_cols, code_cols = _delta_scatter(
+        x_cols0, code_cols0, xc, cc, xc0, cc0, union_idx, union_valid,
+        num_cols_to_impute, cat_cols_to_impute)
+    return _from_cols(x_cols, code_cols, x_num, codes)
 
-    xc = [a[union_idx] for a in x_cols0]
-    cc = [a[union_idx] for a in code_cols0]
+
+def _delta_gather(x_cols, code_cols, num_null, cat_null, union_idx,
+                  union_valid, num_cols_to_impute, cat_cols_to_impute):
+    """The compact union sub-table: (xc, cc, (imp_num, imp_cat, w_num,
+    w_cat)), per-column [K] tensors gathered at union_idx and, per imputed
+    column, its null mask there (False at padding) and its f32 weights."""
+    xc = [a[union_idx] for a in x_cols]
+    cc = [a[union_idx] for a in code_cols]
     valid = union_valid > 0
     imp_num = {j: num_null[j][union_idx] & valid for j in num_cols_to_impute}
     imp_cat = {j: cat_null[j][union_idx] & valid for j in cat_cols_to_impute}
     w_num = {j: m.to(torch.float32) for j, m in imp_num.items()}
     w_cat = {j: m.to(torch.float32) for j, m in imp_cat.items()}
-    xc0, cc0 = list(xc), list(cc)
-    for r in range(round_offset, round_offset + iters):
-        xc, cc, full = _delta_round_columns(
-            xc, cc, full, imp_num, imp_cat, w_num, w_cat, union_idx, r,
-            schema=schema, num_cols_to_impute=num_cols_to_impute,
-            cat_cols_to_impute=cat_cols_to_impute, agg=agg,
-            lda_shrinkage=lda_shrinkage, seed=seed if noise else None,
-            trainer=trainer, gd_iters=gd_iters)
+    return xc, cc, (imp_num, imp_cat, w_num, w_cat)
 
-    # write-back: one scatter-ADD per imputed column (padding aliases row 0
-    # with valid 0, an exact no-op; cells left as they were add 0)
-    x_cols, code_cols = list(x_cols0), list(code_cols0)
+
+def _delta_scatter(x_cols, code_cols, xc, cc, xc0, cc0, union_idx,
+                   union_valid, num_cols_to_impute, cat_cols_to_impute):
+    """The write-back: one scatter-ADD of (new − gathered) per imputed
+    column (padding aliases row 0 with valid 0, an exact no-op; cells left
+    as they were add 0). Returns new column lists."""
+    x_cols, code_cols = list(x_cols), list(code_cols)
+    valid = (union_valid > 0).to(torch.int32)
     for col in num_cols_to_impute:
         x_cols[col] = x_cols[col].index_add(
             0, union_idx, union_valid * (xc[col] - xc0[col]))
     for col in cat_cols_to_impute:
         code_cols[col] = code_cols[col].index_add(
-            0, union_idx, valid.to(torch.int32) * (cc[col] - cc0[col]))
-    return _from_cols(x_cols, code_cols, x_num, codes)
+            0, union_idx, valid * (cc[col] - cc0[col]))
+    return x_cols, code_cols
 
 
 def build_union_gather(dirty_idx_lists, blk: int | None = 1):

@@ -5,7 +5,10 @@ Counterpart of `duckdb_imputation_tpu.mice.partition`:
   (AVG/MODE fill of the reference's partition.cpp:42-57, init_baseline
   :671-719). The JAX package does this on the host in numpy f64; here it
   runs on the device that holds the table, so a 10M-row table never
-  round-trips through host memory.
+  round-trips through host memory. Over a mesh of row shards the means
+  and modes are the whole table's (the JAX package fills the whole table
+  before it shards it): the f64 sums, counts and bincounts are
+  all-reduced.
 - `build_partitions`: the reference's physical partition tables
   (partition.cpp:77-237) as index tensors instead: per-column dirty rows,
   complete rows, all-null rows. Null positions never move, so the delta
@@ -18,6 +21,7 @@ import dataclasses
 
 import torch
 
+from ..parallel.mesh import all_reduce
 from ..table.table import Table
 
 
@@ -62,21 +66,46 @@ def gather_rows(t: Table, idx) -> tuple[torch.Tensor, torch.Tensor]:
     return t.num_data[:, idx], t.cat_codes[:, idx]
 
 
-def init_fill(t: Table) -> Table:
+def init_fill(t: Table, mesh=None) -> Table:
     """Mean-fill numeric nulls (means accumulated in f64), mode-fill
     categorical nulls. The mode is `bincount(...).argmax()`: a tie goes to
-    the lowest code, as `np.argmax` does in the JAX package."""
+    the lowest code, as `np.argmax` does in the JAX package.
+
+    mesh: a `parallel.mesh.Mesh` whose ranks each hold a row shard of the
+    table: the means and modes are then the global ones, from three
+    all-reduces (the f64 sums and counts; the largest observed code, so
+    every rank's bincount has one length; the bincounts). Without one the
+    table is whole."""
+    d, c = t.num_data.shape[0], t.cat_codes.shape[0]
     num = t.num_data.clone()
-    for j in range(num.shape[0]):
-        obs = ~t.num_null[j]
-        cnt = obs.sum()
-        total = torch.where(obs, t.num_data[j].double(), 0.0).sum()
-        mean = torch.where(cnt > 0, total / cnt.clamp(min=1), 0.0)
-        num[j] = torch.where(t.num_null[j], mean.float(), num[j])
+    if d:
+        stats = torch.zeros((2, d), dtype=torch.float64, device=t.device)
+        for j in range(d):
+            obs = ~t.num_null[j]
+            stats[0, j] = torch.where(obs, t.num_data[j].double(), 0.0).sum()
+            stats[1, j] = obs.sum()
+        if mesh is not None:
+            stats = all_reduce(stats, mesh)
+        for j in range(d):
+            total, cnt = stats[0, j], stats[1, j]
+            mean = torch.where(cnt > 0, total / cnt.clamp(min=1), 0.0)
+            num[j] = torch.where(t.num_null[j], mean.float(), num[j])
     codes = t.cat_codes.clone()
-    for j in range(codes.shape[0]):
-        obs = t.cat_codes[j][~t.cat_null[j]]
-        mode = (torch.bincount(obs).argmax().to(codes.dtype) if obs.numel()
+    if not c:
+        return dataclasses.replace(t, num_data=num, cat_codes=codes)
+    obs = [t.cat_codes[j][~t.cat_null[j]].long() for j in range(c)]
+    if mesh is None:
+        counts = [torch.bincount(o) for o in obs]
+    else:
+        top = torch.stack([o.max() if o.numel() else o.new_tensor(-1)
+                           for o in obs])
+        lens = (all_reduce(top, mesh, "max") + 1).tolist()
+        counts = all_reduce(torch.cat([
+            torch.bincount(o, minlength=m) for o, m in zip(obs, lens)]),
+            mesh).split(lens)
+    for j in range(c):
+        mode = (counts[j].argmax().to(codes.dtype) if counts[j].sum() > 0
                 else torch.zeros((), dtype=codes.dtype, device=codes.device))
         codes[j] = torch.where(t.cat_null[j], mode, codes[j])
     return dataclasses.replace(t, num_data=num, cat_codes=codes)
+

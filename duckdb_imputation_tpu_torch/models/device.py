@@ -281,7 +281,7 @@ def nb_train_device(n, lin, quad_diag, lin_cat):
 PREDICT_METHODS = ("auto", "plain", "kernel")
 
 
-def _predict(tables, plan, x_num, codes, *, schema, method):
+def _predict(tables, plan, x_num, codes, *, schema, method, shift=None):
     """Score through the tables with the method asked for."""
     from ..ring.kernels.qda_pallas import qda_predict_kernel, qda_predict_plain
 
@@ -291,7 +291,7 @@ def _predict(tables, plan, x_num, codes, *, schema, method):
     if method == "auto":
         method = "kernel" if x_num.device.type == "cuda" else "plain"
     predict = qda_predict_kernel if method == "kernel" else qda_predict_plain
-    return predict(tables, plan, x_num, codes, schema=schema)
+    return predict(tables, plan, x_num, codes, schema=schema, shift=shift)
 
 
 def qda_predict_device(quad, lin, intercept, x_num, codes, *, schema,
@@ -320,17 +320,22 @@ def nb_predict_device(priors, mean, var, freqs, x_num, codes, *, schema,
                           + Σ_cat log freq_c[code]
 
     and scores through QDA's predictors with tables of that form
-    (`nb_tables`: no cross tables). var is clamped at 0 and gets the
-    reference's +1e-9, in f64; a zero training frequency scores −1e30, and
-    a predict-time category outside the vocab contributes nothing. Returns
-    the class index i32[n]."""
-    from ..ring.kernels.qda_pallas import nb_tables
+    (`nb_tables`: no cross tables), built around the prior-weighted mean
+    of the class means (`nb_center`), which the scorer subtracts from x as
+    it loads it. var is clamped at 0 and gets the reference's +1e-9, in
+    f64; a zero training frequency scores −1e30, and a predict-time
+    category outside the vocab contributes nothing. Returns the class
+    index i32[n]."""
+    from ..ring.kernels.qda_pallas import nb_center, nb_tables
 
     f64 = torch.float64
     var = var.to(f64).clamp(min=0.0) + 1e-9
     freqs = freqs.to(f64)
     log_freq = torch.where(freqs > 0.0, torch.log(freqs.clamp(min=1e-38)),
                            -1e30)
-    tables, plan = nb_tables(torch.log(priors.to(f64).clamp(min=1e-38)),
-                             mean, var, log_freq, schema=schema)
-    return _predict(tables, plan, x_num, codes, schema=schema, method=method)
+    log_prior = torch.log(priors.to(f64).clamp(min=1e-38))
+    center = nb_center(log_prior, mean)
+    tables, plan = nb_tables(log_prior, mean, var, log_freq, schema=schema,
+                             center=center)
+    return _predict(tables, plan, x_num, codes, schema=schema, method=method,
+                    shift=center.to(x_num.device))

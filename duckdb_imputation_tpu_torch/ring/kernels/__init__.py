@@ -1,5 +1,6 @@
 from .nb_pallas import nb_grouped_sums, nb_grouped_sums_plain
 from .qda_pallas import (
+    nb_center,
     nb_tables,
     qda_predict_kernel,
     qda_predict_plain,
@@ -25,6 +26,6 @@ __all__ = ["fused_impute_aggregate", "fused_impute_aggregate_plain",
            "grouped_gram", "grouped_gram_plain", "grouped_gram_presorted",
            "grouped_gram_presorted_plain", "masked_gram", "masked_gram_cols",
            "masked_gram_cols_plain", "masked_gram_plain", "nb_grouped_sums",
-           "nb_grouped_sums_plain", "nb_tables", "qda_predict_kernel",
+           "nb_grouped_sums_plain", "nb_center", "nb_tables", "qda_predict_kernel",
            "qda_predict_plain",
            "qda_tables", "sort_by_group", "unsorted_group_limit"]

@@ -124,8 +124,8 @@ def _declare(lib: ctypes.CDLL) -> None:
                                           p]
     lib.dit_masked_gram_cores.restype = i
     lib.dit_fused_impute_aggregate.argtypes = [
-        p, i, p, p, i, p, p, p, p, i, i, i, p, i, u32, u32, u32, p, i64, i,
-        p, i, p, p]
+        p, i, p, p, i, p, p, p, p, i, i, i, p, i, u32, u32, u32, i64, p,
+        i64, i, p, i, p, p]
     lib.dit_fused_impute_aggregate.restype = i
     lib.dit_fused_impute_aggregate_cores.argtypes = (
         lib.dit_fused_impute_aggregate.argtypes)
@@ -140,7 +140,7 @@ def _declare(lib: ctypes.CDLL) -> None:
                                         p, p, p, p, p, p]
     lib.dit_nb_grouped_sums.restype = i
     lib.dit_qda_predict.argtypes = [p, i, p, p, i, p, p, p, p, i, i, i,
-                                    i64, i64, i, i, i, i, p, p]
+                                    i64, i64, i, i, i, i, p, p, p]
     lib.dit_qda_predict.restype = i
     plan = [p] * 6   # WidePlan's tensors and its shape_ints
     lib.dit_grouped_wide_gram.argtypes = [p, i, p, p, i, p, p, p, i, i64, i,
@@ -149,8 +149,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.dit_wide_gram.argtypes = [p, i, p, p, i, p, i64, i, *plan, p, p, p]
     lib.dit_wide_gram.restype = i
     lib.dit_fused_impute_aggregate_wide.argtypes = [
-        p, i, p, p, i, p, p, p, p, i, i, i, p, i, u32, u32, u32, p, i64, i,
-        *plan, p, p, p, p, p]
+        p, i, p, p, i, p, p, p, p, i, i, i, p, i, u32, u32, u32, i64, p,
+        i64, i, *plan, p, p, p, p, p]
     lib.dit_fused_impute_aggregate_wide.restype = i
     lib.dit_gram_entries.argtypes = [i]
     lib.dit_gram_entries.restype = i

@@ -17,6 +17,11 @@ diagonal shares the cell of its constant row (z_v² = z_v = z_0·z_v); the
 scorer's plan (`_build.qda_plan`) lays each K_j out a-major.
 `qda_tables` packs A_c into those cells, `nb_tables` builds naive Bayes's
 diagonal A_c on a plan without C_jk tables; neither factors anything.
+Naive Bayes's tables are built around a per-column centre m (`nb_center`)
+and score z̃ of x − m: the scorer takes m as `shift` and subtracts it from
+x in f64 as it loads x, so no shifted copy of x exists. Expanded around 0,
+a class of variance ~1e-9 at a mean of ~1e3 holds μ/σ² ≈ 1e12 in one f32
+cell, to ~6e4; around m its cells are small.
 
 `qda_predict_kernel` launches the hand-written CUDA kernel
 (`csrc/qda_predict.cu`) for CUDA tensors: K3 when the plan has one task,
@@ -66,17 +71,35 @@ def qda_tables(quad, lin, intercept, *, schema: FeatureSchema):
     return _pack(a, plan).to(torch.float32), plan
 
 
-def nb_tables(log_prior, mean, var, log_freq, *, schema: FeatureSchema):
+def nb_center(log_prior, mean) -> torch.Tensor:
+    """Naive Bayes's per-column centre f32[d]: the prior-weighted mean of
+    the class means, Σ_c prior_c·μ_c / Σ_c prior_c in f64 from log_prior
+    [C] and mean [C, d] (0 where every prior is 0), rounded to f32 once,
+    as the scorer subtracts it."""
+    f64 = torch.float64
+    prior = torch.exp(log_prior.to(f64))
+    total = prior.sum()
+    center = (prior[:, None] * mean.to(f64)).sum(0) / total.clamp(
+        min=torch.finfo(f64).tiny)
+    return torch.where(total > 0, center, 0.0).to(torch.float32)
+
+
+def nb_tables(log_prior, mean, var, log_freq, *, schema: FeatureSchema,
+              center=None):
     """Naive Bayes's scores as tables: s_c = log prior_c + Σ_num
     [−(x−μ)²/2σ² − ½log(2πσ²)] + Σ_cat log freq_c[code] is z̃ᵀ·A_c·z̃
     with −1/2σ² on the numeric diagonal, μ/σ² (halved into row and column
     0) on the numerics, log freq on the one-hot diagonal, and the x-free
     terms at (0, 0). All in f64 from log_prior [C], mean, var [C, d] (var
     > 0) and log_freq [C, V]; packed into `_build.qda_plan(schema,
-    cross=False)`, whose cells are D and K_j only. Returns (tables f32[C,
+    cross=False)`, whose cells are D and K_j only. center: f32[d] or None
+    (0): the tables score x − center, with μ − center in place of μ (pass
+    the same tensor to the scorer as `shift`). Returns (tables f32[C,
     cells], plan)."""
     f64 = torch.float64
     mean, var = mean.to(f64), var.to(f64)
+    if center is not None:
+        mean = mean - center.to(f64)
     num_classes, d, p = mean.shape[0], schema.num_cols, schema.sigma_size
     a = torch.zeros((num_classes, p, p), dtype=f64, device=mean.device)
     di = torch.arange(1, 1 + d, device=mean.device)
@@ -92,19 +115,22 @@ def nb_tables(log_prior, mean, var, log_freq, *, schema: FeatureSchema):
 
 
 def class_scores_plain(tables, plan: _build.WidePlan, x_num, codes, *,
-                       schema: FeatureSchema):
+                       schema: FeatureSchema, shift=None):
     """Each class's scores f64[n] in turn, as the kernel sums them: each
     row's cells in the plan's order (task, slab, cell), each term the cell
     times the row's values (z_a·z_b for D, z_a for K, 1 for C) in f64,
-    added in f64. A code outside [0, size) adds no cell. On naive Bayes's
-    plan (cross=False) only D's row 0 and diagonal and K's row 0 are read:
-    its other cells are zero."""
+    added in f64. A code outside [0, size) adds no cell. shift: f32[d] or
+    None, taken from x in f64 first. On naive Bayes's plan (cross=False)
+    only D's row 0 and diagonal and K's row 0 are read: its other cells
+    are zero."""
     d = schema.num_cols
     ref = x_num if d else codes
     n, device = ref.shape[-1], ref.device
     f64 = torch.float64
-    z = [torch.ones(n, dtype=f64, device=device)] + [
-        x.to(f64) for x in x_num]                   # [1 ‖ x] in f64
+    xs = [x.to(f64) for x in x_num]
+    if shift is not None:
+        xs = [x - s for x, s in zip(xs, shift.to(f64))]
+    z = [torch.ones(n, dtype=f64, device=device)] + xs   # [1 ‖ x] in f64
     codes = [c.long() for c in codes]
     ok = [(c >= 0) & (c < size) for c, size in zip(codes, schema.cat_sizes)]
     # each slab's cells a row reads, as (cell, the row's value in f64, mask
@@ -136,7 +162,7 @@ def class_scores_plain(tables, plan: _build.WidePlan, x_num, codes, *,
 
 
 def qda_predict_plain(tables, plan: _build.WidePlan, x_num, codes, *,
-                      schema: FeatureSchema) -> torch.Tensor:
+                      schema: FeatureSchema, shift=None) -> torch.Tensor:
     """Plain torch version of `qda_predict_kernel`: each class's scores
     from `class_scores_plain`, rounded to f32; classes stream with a
     running (best value, best index) pair and a strict `>`, as the JAX
@@ -146,7 +172,7 @@ def qda_predict_plain(tables, plan: _build.WidePlan, x_num, codes, *,
     best_v = torch.full((n,), -torch.inf, dtype=torch.float32, device=device)
     best_i = torch.zeros((n,), dtype=torch.int32, device=device)
     for cc, s in enumerate(class_scores_plain(tables, plan, x_num, codes,
-                                              schema=schema)):
+                                              schema=schema, shift=shift)):
         s = s.to(torch.float32)
         upd = s > best_v
         best_v = torch.where(upd, s, best_v)
@@ -163,19 +189,21 @@ def _device_plan(d: int, sizes: tuple[int, ...], cross: bool, cap: int,
 
 
 def qda_predict_kernel(tables, plan: _build.WidePlan, x_num, codes, *,
-                       schema: FeatureSchema) -> torch.Tensor:
+                       schema: FeatureSchema, shift=None) -> torch.Tensor:
     """First-argmax class index i32[n] of the scores z̃ᵀ·A_c·z̃ over
     x_num f32[d, n] and codes i32[c, n]; tables f32[C, cells] and plan as
-    `qda_tables` or `nb_tables` return them.
+    `qda_tables` or `nb_tables` return them; shift: f32[d] taken from x
+    as it is loaded (the `center` of `nb_tables`), or None.
 
     CUDA tensors launch the kernel: counted in `qda_predict_kernel.
     launches` (K3) when the plan has one task, else in
     `qda_predict_kernel.wide_launches` (K3w); the plan must be the
     scorer's (`_build.qda_plan`) and the tables 16-byte aligned. CPU
     tensors take the plain version."""
-    tensors = [tables, x_num, codes]
+    tensors = [tables, x_num, codes] + ([] if shift is None else [shift])
     if _build.on_cpu(tensors):
-        return qda_predict_plain(tables, plan, x_num, codes, schema=schema)
+        return qda_predict_plain(tables, plan, x_num, codes, schema=schema,
+                                 shift=shift)
     num_classes = tables.shape[0]
     n = x_num.shape[-1] if schema.num_cols else codes.shape[-1]
     _build.check_qda(schema, num_classes, n)
@@ -187,7 +215,9 @@ def qda_predict_kernel(tables, plan: _build.WidePlan, x_num, codes, *,
         tensors,
         [(tables, torch.float32, (num_classes, cells), "tables"),
          (x_num, torch.float32, (schema.num_cols, n), "x_num"),
-         (codes, torch.int32, (schema.cat_cols, n), "codes")])
+         (codes, torch.int32, (schema.cat_cols, n), "codes")]
+        + ([] if shift is None
+           else [(shift, torch.float32, (schema.num_cols,), "shift")]))
     slabs, warp_begin, task_base = _device_plan(
         schema.num_cols, tuple(schema.cat_sizes), plan.cross,
         plan.task_cells, device)
@@ -202,7 +232,8 @@ def qda_predict_kernel(tables, plan: _build.WidePlan, x_num, codes, *,
             len(sizes), tables.data_ptr(), slabs.data_ptr(),
             warp_begin.data_ptr(), task_base.data_ptr(), num_classes,
             plan.num_tasks, plan.max_task_cells, cells, n, threads, rows,
-            group, int(not plan.cross), out.data_ptr(),
+            group, int(not plan.cross),
+            None if shift is None else shift.data_ptr(), out.data_ptr(),
             torch.cuda.current_stream(device).cuda_stream)
     _build.raise_on_error(lib, rc, "qda_predict_kernel")
     if plan.num_tasks == 1:

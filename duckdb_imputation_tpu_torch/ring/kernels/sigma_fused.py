@@ -21,6 +21,8 @@ operand (pack_lhs) exists only for the TPU's matrix unit.
 
 Noise is one counter-based Philox4x32-10 draw keyed by the seed, with
 counter (global row, round, column), turned into N(0, 1) by Box-Muller.
+A row shard passes `row_offset`, the global id of its first row, so a
+row's draw is the same for any number of shards.
 `philox_normal` computes it here with int64 torch ops masked to 32 bits;
 the CUDA kernel computes the same bits, so the two versions draw the same
 numbers up to float rounding in log and cos. This replaces both the Pallas
@@ -78,15 +80,15 @@ def philox4x32_10(ctr, key):
 
 
 def philox_normal(seed: int, round_: int, column: int, n: int,
-                  device=None, rows: torch.Tensor | None = None
-                  ) -> torch.Tensor:
+                  device=None, rows: torch.Tensor | None = None,
+                  row_offset: int = 0) -> torch.Tensor:
     """N(0, 1) f32[n], row r drawn from Philox4x32-10 with key = seed and
     counter = (r, round, column): Box-Muller on the first two words, each
     mapped to (0, 1] as ((bits >> 8) + 1)·2⁻²⁴. rows: the global row ids
-    int64[n] to key by (default arange(n)), so a row's draw does not depend
-    on where it sits in a compact sub-table."""
+    int64[n] to key by (default row_offset + arange(n)), so a row's draw
+    does not depend on where it sits in a compact sub-table or a shard."""
     if rows is None:
-        rows = torch.arange(n, dtype=torch.int64, device=device)
+        rows = row_offset + torch.arange(n, dtype=torch.int64, device=device)
     c0, c1, _, _ = philox4x32_10(
         (rows & _MASK32, rows >> 32, round_ & _MASK32, column & _MASK32),
         (seed & _MASK32, (seed >> 32) & _MASK32))
@@ -95,7 +97,9 @@ def philox_normal(seed: int, round_: int, column: int, n: int,
     return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos((2.0 * math.pi) * u2)
 
 
-def _check_noise(noise, kind: str):
+def _check_noise(noise, kind: str, row_offset: int):
+    if row_offset < 0:
+        raise ValueError(f"row_offset must be >= 0, got {row_offset}")
     if noise is None:
         return
     if kind != "num":
@@ -107,9 +111,9 @@ def _check_noise(noise, kind: str):
 
 
 def _impute_plain(x_cols, code_cols, null_imp, w_full, intercept, *,
-                  schema, kind, imp_col, noise):
+                  schema, kind, imp_col, noise, row_offset):
     """The new column and the columns with it in place."""
-    _check_noise(noise, kind)
+    _check_noise(noise, kind, row_offset)
     x_cols, code_cols = list(x_cols), list(code_cols)
     if kind == "cat":
         pred = class_argmax(w_full, intercept, x_cols, code_cols,
@@ -122,7 +126,8 @@ def _impute_plain(x_cols, code_cols, null_imp, w_full, intercept, *,
         if noise is not None:
             seed, round_, std = noise
             pred = pred + std * philox_normal(seed, round_, imp_col,
-                                              pred.shape[0], pred.device)
+                                              pred.shape[0], pred.device,
+                                              row_offset=row_offset)
         new = torch.where(null_imp, pred, x_cols[imp_col])
         x_cols[imp_col] = new
     return new, x_cols, code_cols
@@ -130,11 +135,12 @@ def _impute_plain(x_cols, code_cols, null_imp, w_full, intercept, *,
 
 def fused_impute_aggregate_plain(x_cols, code_cols, null_imp, w_agg, w_full,
                                  intercept, *, schema: FeatureSchema,
-                                 kind: str, imp_col: int, noise=None):
+                                 kind: str, imp_col: int, noise=None,
+                                 row_offset: int = 0):
     """Plain torch version of `fused_impute_aggregate`."""
     new, x_cols, code_cols = _impute_plain(
         x_cols, code_cols, null_imp, w_full, intercept, schema=schema,
-        kind=kind, imp_col=imp_col, noise=noise)
+        kind=kind, imp_col=imp_col, noise=noise, row_offset=row_offset)
     return new, masked_gram_cols_plain(x_cols, code_cols, w_agg,
                                        schema=schema)
 
@@ -142,7 +148,8 @@ def fused_impute_aggregate_plain(x_cols, code_cols, null_imp, w_agg, w_full,
 def fused_impute_aggregate_split_plain(x_cols, code_cols, null_imp, w_agg,
                                        w_full, intercept, *,
                                        schema: FeatureSchema, kind: str,
-                                       imp_col: int, noise=None):
+                                       imp_col: int, noise=None,
+                                       row_offset: int = 0):
     """Plain torch version of K2's tensor-core route, used by no path:
     the column imputed as `fused_impute_aggregate_plain` imputes it (the
     kernel scores each null row in class_score's f32 order), then K1's
@@ -150,7 +157,7 @@ def fused_impute_aggregate_split_plain(x_cols, code_cols, null_imp, w_agg,
     updated columns."""
     new, x_cols, code_cols = _impute_plain(
         x_cols, code_cols, null_imp, w_full, intercept, schema=schema,
-        kind=kind, imp_col=imp_col, noise=noise)
+        kind=kind, imp_col=imp_col, noise=noise, row_offset=row_offset)
     return new, masked_gram_split_plain(x_cols, code_cols, w_agg,
                                         schema=schema)
 
@@ -197,31 +204,33 @@ def class_argmax_tiles_plain(w_full, intercept, x_cols, code_cols, *,
 
 def fused_impute_aggregate(x_cols, code_cols, null_imp, w_agg, w_full,
                            intercept, *, schema: FeatureSchema, kind: str,
-                           imp_col: int, noise=None):
+                           imp_col: int, noise=None, row_offset: int = 0):
     """One fused pass. x_cols d × f32[n], code_cols c × i32[n]; null_imp
     bool[n] (True = impute); w_agg f32[n]; w_full f32[P, R] (R = the
     label's vocab size for 'cat', 1 for 'num'); intercept f32[R];
-    noise = (seed, round, std f32[1] tensor) or None, 'num' only.
+    noise = (seed, round, std f32[1] tensor) or None, 'num' only;
+    row_offset: the global id of row 0, which the noise is keyed by.
 
     Returns (new_column, sigma f32[P, P]): i32[n] for 'cat', f32[n] for
     'num'. CUDA tensors launch K2 for P ≤ 88, on the tensor cores where
     `_build.tc_fits`, else on the CUDA cores (counted in
     `fused_impute_aggregate.launches`), or K2w above (counted in
-    `fused_impute_aggregate.wide_launches`); CPU tensors take the plain
-    version."""
+    `fused_impute_aggregate.wide_launches`); at n = 0 they launch nothing
+    and return a zero sigma. CPU tensors take the plain version."""
     if kind not in _KINDS:
         raise ValueError(f"kind must be 'cat' or 'num', got {kind!r}")
     x_cols, code_cols = list(x_cols), list(code_cols)
     if len(x_cols) != schema.num_cols or len(code_cols) != schema.cat_cols:
         raise ValueError("column counts do not match the schema")
-    _check_noise(noise, kind)
+    _check_noise(noise, kind, row_offset)
     std = None if noise is None else torch.as_tensor(noise[2]).reshape(1)
     tensors = (x_cols + code_cols + [null_imp, w_agg, w_full, intercept]
                + ([] if std is None else [std]))
     if _build.on_cpu(tensors):
         return fused_impute_aggregate_plain(
             x_cols, code_cols, null_imp, w_agg, w_full, intercept,
-            schema=schema, kind=kind, imp_col=imp_col, noise=noise)
+            schema=schema, kind=kind, imp_col=imp_col, noise=noise,
+            row_offset=row_offset)
     n = null_imp.shape[-1]
     p = schema.sigma_size
     _build.check_schema(schema, n, _build.MAX_WIDE_SIGMA_SIZE)
@@ -244,16 +253,18 @@ def fused_impute_aggregate(x_cols, code_cols, null_imp, w_agg, w_full,
            (w_full, torch.float32, (p, r), "w_full"),
            (intercept, torch.float32, (r,), "intercept")]
         + ([] if std is None else [(std, torch.float32, (1,), "std")]))
-    lib = _build.load()
     new = torch.empty(n, device=device,
                       dtype=torch.int32 if kind == "cat" else torch.float32)
+    if n == 0:
+        return new, torch.zeros((p, p), dtype=torch.float32, device=device)
+    lib = _build.load()
     seed, round_ = (0, 0) if noise is None else noise[:2]
     sizes = schema.cat_sizes
     args = (_build.pointers(x_cols), len(x_cols), _build.pointers(code_cols),
             _build.int_array(sizes), len(sizes), null_imp.data_ptr(),
             w_agg.data_ptr(), w_full.data_ptr(), intercept.data_ptr(), r,
             _KINDS[kind], imp_col, new.data_ptr(), int(noise is not None),
-            seed & _MASK32, (seed >> 32) & _MASK32, round_,
+            seed & _MASK32, (seed >> 32) & _MASK32, round_, row_offset,
             None if std is None else std.data_ptr(), n, p)
     stream = torch.cuda.current_stream(device).cuda_stream
     if p > _build.MAX_SIGMA_SIZE:   # K2w: K7's plan, then scratch

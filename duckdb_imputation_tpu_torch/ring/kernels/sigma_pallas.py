@@ -110,7 +110,7 @@ def _launch(x_cols, code_cols, weights, n: int, device, schema,
     """One launch of K1, or of K7 when P > 88, over per-column [n] tensors
     on `device`, checked first; shared by both entry points. Adds one to
     `wrapper.launches` (K1) or `wrapper.wide_launches` (K7) once the
-    launch succeeded."""
+    launch succeeded. No rows: no launch, a zero sigma."""
     what = wrapper.__name__
     _build.check_schema(schema, n, _build.MAX_WIDE_SIGMA_SIZE)
     tensors = x_cols + code_cols + ([] if weights is None else [weights])
@@ -123,10 +123,12 @@ def _launch(x_cols, code_cols, weights, n: int, device, schema,
                for j, t in enumerate(code_cols)]
             + ([] if weights is None
                else [(weights, torch.float32, (n,), "weights")]))
+    p = schema.sigma_size
+    if n == 0:
+        return torch.zeros((p, p), dtype=torch.float32, device=device)
     if weights is None:
         weights = torch.ones(n, dtype=torch.float32, device=device)
     lib = _build.load()
-    p = schema.sigma_size
     if p > _build.MAX_SIGMA_SIZE:
         out = _launch_wide(x_cols, code_cols, weights, n, device, schema,
                            lib, what)

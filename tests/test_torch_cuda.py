@@ -1362,3 +1362,165 @@ def test_run_mice_star_on_the_card_matches_cpu(cuda):
     counts = count_mask(js, cuda)
     assert torch.equal(got_s[counts], mat[counts])
     assert float((got_s - mat).abs().max() / mat.abs().max()) <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# The NB scorer's centred tables, K2's global row offset, and the sharded
+# loops (a world of one on NCCL) with their checkpoints
+# ---------------------------------------------------------------------------
+
+def test_nb_centred_scorer_on_the_card_matches_host(cuda):
+    """ROADMAP Queue 3's NB variance case (class 1's x1 exactly 1000.1):
+    nb_predict_device through K3 and its x shift agrees with the host
+    predictor on ≥ 0.999 of rows; the kernel with a shift equals its
+    plain version."""
+    from duckdb_imputation_tpu_torch import models
+    from duckdb_imputation_tpu_torch.models.device import (nb_predict_device,
+                                                           nb_train_device)
+    from duckdb_imputation_tpu_torch.ring.kernels.qda_pallas import nb_center
+    from duckdb_imputation_tpu_torch.ring.sum import sum_to_nb_agg_grouped
+
+    rng = np.random.default_rng(0)
+    n = 200_000
+    y = (rng.random(n) < 0.5).astype(np.int32)
+    x1 = np.where(y == 1, 1000.1, rng.normal(size=n) + 1000.1)
+    num = np.stack([rng.normal(size=n) + 2 * y, x1]).astype(np.float32)
+    schema = FeatureSchema(num_cols=2)
+    x, yt = torch.tensor(num, device=cuda), torch.tensor(y, device=cuda)
+    codes = torch.zeros((0, n), dtype=torch.int32, device=cuda)
+    agg = sum_to_nb_agg_grouped(x, None, yt, schema=schema, num_groups=2)
+    host = models.nb_predict(models.nb_train(agg, schema, labels=[0, 1]), x)
+    priors, mean, var, freqs = nb_train_device(agg.n, agg.lin, agg.quad_diag,
+                                               agg.lin_cat)
+    before = qda_predict_kernel.launches
+    got = nb_predict_device(priors, mean, var, freqs, x, codes, schema=schema)
+    assert qda_predict_kernel.launches == before + 1
+    assert float((got.long() == host).float().mean()) >= 0.999
+    lp = torch.log(priors.double())
+    center = nb_center(lp, mean)
+    tables, plan = nb_tables(lp, mean, var.double() + 1e-9,
+                             torch.zeros((2, 0), dtype=torch.float64,
+                                         device=cuda),
+                             schema=schema, center=center)
+    assert torch.equal(
+        qda_predict_kernel(tables, plan, x, codes, schema=schema,
+                           shift=center),
+        qda_predict_plain(tables, plan, x, codes, schema=schema,
+                          shift=center))
+
+
+@pytest.mark.parametrize("wide", [False, True])
+def test_fused_noise_keyed_by_global_rows(cuda, wide):
+    """K2 / K2w with a row offset draw each row's noise by its global id:
+    a shard's pass from row lo equals rows [lo, hi) of the whole table's
+    pass (and the plain version's, to log/cos rounding)."""
+    if wide:
+        t = wide_table("P492", 30_000, cuda)
+        schema, col = t.schema, 1
+        xs, cs = list(t.num_data.unbind(0)), list(t.cat_codes.unbind(0))
+        n = t.n_rows
+        rng = np.random.default_rng(4)
+        null = torch.tensor(rng.random(n) < 0.2, device=cuda)
+        w_agg = torch.ones(n, device=cuda)
+        theta = torch.tensor(rng.normal(size=(schema.sigma_size, 1)),
+                             dtype=torch.float32, device=cuda)
+        theta[1 + col] = 0.0
+        args = (xs, cs, null, w_agg, theta, torch.zeros(1, device=cuda))
+    else:
+        schema, col = SCHEMA, 1
+        args = fused_args("num", 30_000, cuda)
+        n = 30_000
+    noise = (11, 3, torch.tensor(0.7, device=cuda))
+    kw = dict(schema=schema, kind="num", imp_col=col, noise=noise)
+    whole, _ = fused_impute_aggregate(*args, **kw)
+    lo, hi = 12_345, n
+
+    def cut(a):
+        return ([c[lo:hi].contiguous() for c in a] if isinstance(a, list)
+                else a[lo:hi].contiguous() if a.shape[-1] == n else a)
+
+    part, _ = fused_impute_aggregate(*map(cut, args), row_offset=lo, **kw)
+    assert torch.equal(part, whole[lo:hi])
+    plain, _ = fused_impute_aggregate_plain(*map(cut, args), row_offset=lo,
+                                            **kw)
+    torch.testing.assert_close(part, plain, rtol=1e-6, atol=1e-6)
+
+
+def _sharded_table(n, seed, device):
+    rng = np.random.default_rng(seed)
+    z = rng.normal(size=(n, 2))
+    num = np.stack([z[:, 0], 2 * z[:, 0] + 0.5 * z[:, 1],
+                    rng.normal(size=n), rng.normal(size=n)],
+                   1).astype(np.float32)
+    cat = np.stack([np.clip(z[:, 0] + 4, 0, 7).astype(int),
+                    rng.integers(0, 8, n)], 1)
+    nn = np.zeros_like(num, bool)
+    cn = np.zeros_like(cat, bool)
+    nn[rng.random(n) < 0.2, 1] = True
+    cn[rng.random(n) < 0.2, 0] = True
+    return from_numpy(num, cat, nn, cn, device=device)
+
+
+@pytest.fixture
+def nccl_mesh(cuda, tmp_path):
+    """A process group of one rank on NCCL (FileStore in tmp_path),
+    left after the test."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from duckdb_imputation_tpu_torch.parallel import initialize, shutdown
+
+    mesh = initialize("nccl", store=dist.FileStore(str(tmp_path / "store"),
+                                                   1),
+                      world_size=1, rank=0, device=cuda,
+                      timeout=datetime.timedelta(seconds=120))
+    yield mesh
+    shutdown()
+
+
+def test_sharded_loops_at_world_one_on_nccl(nccl_mesh):
+    """run_mice_sharded ('gram', 'fused' with and without noise) and
+    run_mice_sharded_delta on a world of one over NCCL: bit-identical to
+    run_mice_device / run_mice_device_delta with the same kernel, with the
+    launches derived for them."""
+    from duckdb_imputation_tpu_torch.mice import (run_mice_sharded,
+                                                  run_mice_sharded_delta)
+
+    t = _sharded_table(50_003, 1, nccl_mesh.device)
+    for kw in (dict(kernel="gram"), dict(kernel="fused"),
+               dict(kernel="fused", noise=True, seed=4)):
+        k1, k2 = masked_gram_cols.launches, fused_impute_aggregate.launches
+        got = run_mice_sharded(t, iters=2, mesh=nccl_mesh, **kw)
+        fused = kw["kernel"] == "fused"
+        assert masked_gram_cols.launches - k1 == (1 if fused else 4)
+        assert fused_impute_aggregate.launches - k2 == (4 if fused else 0)
+        want = run_mice_device(t, iters=2, **kw)
+        assert torch.equal(got.num_data, want.num_data)
+        assert torch.equal(got.cat_codes, want.cat_codes)
+    got = run_mice_sharded_delta(t, iters=2, noise=True, seed=4,
+                                 mesh=nccl_mesh)
+    want = run_mice_device_delta(t, iters=2, noise=True, seed=4)
+    assert torch.equal(got.num_data, want.num_data)
+    assert torch.equal(got.cat_codes, want.cat_codes)
+
+
+@pytest.mark.parametrize("kernel", ["fused", "gram", "delta"])
+def test_sharded_checkpoint_resume_on_the_card(nccl_mesh, tmp_path, kernel):
+    """Killed after 2 of 4 rounds (noise on) and resumed on the card:
+    bit-identical to 4 rounds straight; another seed raises."""
+    from duckdb_imputation_tpu_torch.mice import (run_mice_sharded,
+                                                  run_mice_sharded_delta)
+
+    fn, kw = ((run_mice_sharded_delta, {}) if kernel == "delta"
+              else (run_mice_sharded, dict(kernel=kernel)))
+    kw = dict(kw, noise=True, seed=6, mesh=nccl_mesh)
+    t = _sharded_table(20_011, 2, nccl_mesh.device)
+    path = str(tmp_path / "ckpt")
+    straight = fn(t, iters=4, **kw)
+    fn(t, iters=2, checkpoint_path=path, **kw)
+    resumed = fn(t, iters=4, checkpoint_path=path, **kw)
+    assert torch.equal(straight.num_data, resumed.num_data)
+    assert torch.equal(straight.cat_codes, resumed.cat_codes)
+    with pytest.raises(ValueError, match="field 'seed'"):
+        fn(t, iters=4, checkpoint_path=path, **dict(kw, seed=7))

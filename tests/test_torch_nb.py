@@ -282,11 +282,13 @@ def test_host_nb_variance_case_stays_nonnegative():
     predictions are those of the f64 log-space formula on the same
     parameters on at least 0.999 of the rows.
 
-    Against `nb_predict_device` they agree on class 1's rows and on
-    ~0.915 of all rows: at var + 1e-9 ≈ 1e-9 and a mean of 1000.1 the
-    device scorer's f32 tables hold x1's linear coefficient (~1e12) to
-    ~6e4, so its scores of class-0 rows near the mean lose the sign of the
-    difference (ROADMAP Queue 3, Open). The host is right on those rows."""
+    Against `nb_predict_device` they agree on class 1's rows and on at
+    least 0.999 of all rows: at var + 1e-9 ≈ 1e-9 and a mean of 1000.1 the
+    device scorer's f32 tables would hold x1's linear coefficient (~1e12)
+    to ~6e4 if expanded around 0 (0.915 of the rows agreed so); built
+    around the prior-weighted mean of the class means (`nb_center`), which
+    the scorer subtracts from x, they hold it to the precision the
+    decision needs. Where the two differ, the host is right."""
     from duckdb_imputation_tpu_torch import models
 
     num, y, schema, agg = _variance_case()
@@ -311,5 +313,5 @@ def test_host_nb_variance_case_stays_nonnegative():
         torch.zeros((0, y.shape[0]), dtype=torch.int32),
         schema=schema).numpy()
     assert (pred == pred_d)[y == 1].all()
-    assert (pred == pred_d).mean() > 0.9
+    assert (pred == pred_d).mean() >= 0.999
     assert (pred == y)[pred != pred_d].all()
