@@ -62,7 +62,15 @@ Drives the paths of `duckdb_imputation_tpu_torch` ported so far:
   killed after 2 rounds and resumed to 4 at 1M rows, bit-identical to 4
   straight, and a resume of another run refused (`[checkpoint]`). `[K3]`
   also scores naive Bayes's centred tables at the variance case of
-  ROADMAP Queue 3 against the host predictor.
+  ROADMAP Queue 3 against the host predictor;
+- the out-of-core path: the streaming fold of the extended Gram (one
+  `masked_gram` call a chunk, K7 here) and `run_mice_stream`'s two
+  engines on favorita_wide at N rows served from host arrays, against
+  the in-core drivers (`[stream]`); a 25M-row config-5 CSV written by the
+  native formatter under build/stream/, imputed by `impute_csv_stream`
+  and read back by the native reader (`[stream_csv]`); the dirty rows
+  spilled to disk and the windowed rounds (`[stream_spill]`); a stream
+  checkpoint resumed bit-identically (`[stream_ckpt]`).
 
 First it builds the kernels from `duckdb_imputation_tpu_torch/csrc/` and
 holds each against its plain torch version at the shapes its path gives
@@ -81,7 +89,8 @@ and K8 and `star_launches` on K1's stacked entry, K6 and K7, from the
 run_mice_factorized and run_mice_star runs; `sharded_launches` on
 K1, its stacked entry, K2, K4, K5, K7 and K2w, from the `[sharded]`
 runs; `g4100` on K5 and K8, each timed alone at 4,100 groups; `nb_centred`
-on K3, the variance case;
+on K3, the variance case; `stream_launches` on K1, its stacked entry
+and K7, from the out-of-core phases;
 `bound_ms`, the least time the card could take for the kernel's work,
 computed from this run's shapes with `bound`; `library_ms`, one PyTorch
 call computing the same function, where there is one), then the card's
@@ -98,6 +107,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 N = 10_000_000
@@ -3340,6 +3350,470 @@ def phase_sharded_all(seed: int) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The out-of-core path: the streaming fold (K1 or K7 over the extended
+# schema, one call a chunk, summed in f64), run_mice_stream's two engines,
+# impute_csv_stream over the native CSV binding, the spill path and the
+# stream checkpoints
+# ---------------------------------------------------------------------------
+
+STREAM_CHUNK = 1_000_000      # rows of a chunk of the host source
+N_STREAM_CSV = 25_000_000     # rows of [stream_csv]'s file: past 2^24
+N_SPILL = 2_000_000
+SPILL_BUDGET = 100_000
+STREAM_ROUNDS = 2
+STREAM_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "build", "stream")
+_STREAM_COUNTERS = (("masked_gram", "launches"),
+                    ("masked_gram", "wide_launches"),
+                    ("masked_gram_cols", "launches"),
+                    ("masked_gram_cols", "wide_launches"))
+
+
+def _gram_wrappers():
+    from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas import (
+        masked_gram, masked_gram_cols)
+    return {"masked_gram": masked_gram, "masked_gram_cols": masked_gram_cols}
+
+
+def stream_counts_reset() -> None:
+    torch.cuda.synchronize()
+    for name, attr in _STREAM_COUNTERS:
+        setattr(_gram_wrappers()[name], attr, 0)
+
+
+def stream_counts() -> dict:
+    """The masked-Gram launches since the last reset: K1's stacked entry
+    (`masked_gram`), K1's column entry (`masked_gram_cols`) and K7 behind
+    either (`wide`)."""
+    torch.cuda.synchronize()
+    w = _gram_wrappers()
+    return {"masked_gram": w["masked_gram"].launches,
+            "masked_gram_cols": w["masked_gram_cols"].launches,
+            "wide_gram": (w["masked_gram"].wide_launches
+                          + w["masked_gram_cols"].wide_launches)}
+
+
+def add_counts(total: dict, part: dict) -> dict:
+    return {k: total.get(k, 0) + v for k, v in part.items()}
+
+
+def host_arrays(t):
+    """A table's columns as a chunk source's host arrays: (num f32[d, n],
+    cat i64[c, n], num_null, cat_null)."""
+    return (t.num_data.cpu().numpy(), t.cat_codes.cpu().numpy().astype(
+        np.int64), t.num_null.cpu().numpy(), t.cat_null.cpu().numpy())
+
+
+def embed(t, res):
+    """The in-core table with a stream result's dirty rows put in."""
+    import dataclasses
+
+    idx = torch.as_tensor(res.idx, device=t.device)
+    x, c = t.num_data.clone(), t.cat_codes.clone()
+    x[:, idx] = res.dirty.num_data
+    c[:, idx] = res.dirty.cat_codes
+    return dataclasses.replace(t, num_data=x, cat_codes=c)
+
+
+def fold_chunks(n: int) -> int:
+    """Chunks of the fold's re-blocking at its default size."""
+    from duckdb_imputation_tpu_torch.ring.streaming import (
+        DEFAULT_STREAM_CHUNK)
+    return -(-n // DEFAULT_STREAM_CHUNK)
+
+
+def phase_stream(seed: int) -> dict:
+    """favorita_wide at N rows served from host arrays in 1M-row chunks,
+    5% nulls in transactions and family, so the fold is K7 at P + K = the
+    observed vocabularies' P (at most 492) + 2: the streamed filled triple against init_fill + sum_to_triple
+    on the card (counts exact, 1e-5 of max|σ|), the fills against
+    init_fill's (means 1e-6 relative, modes exact); run_mice_stream
+    'device' (2 rounds) against run_mice_device_delta on the in-core table
+    (codes ≥ 0.999 on the null cells, transactions within 1e-3 of
+    max|x| where family agrees, tests/test_torch_delta.py's bound) and
+    'host' (1 round) against run_mice_low (rtol 1e-3, atol 1e-2, codes >
+    0.99; tests/test_torch_host_mice.py's low-vs-baseline bounds), both
+    with [wide]'s quality gates (better than mean fill); scan_gram over a
+    world-1 NCCL mesh bit-identical to none; exact launches; seconds and
+    rows/s of each pass. Returns the launches of the stream runs."""
+    import datetime
+    import tempfile
+
+    from duckdb_imputation_tpu_torch import (from_numpy,
+                                             run_mice_device_delta,
+                                             run_mice_low)
+    from duckdb_imputation_tpu_torch.mice.partition import init_fill
+    from duckdb_imputation_tpu_torch.mice.streaming import run_mice_stream
+    from duckdb_imputation_tpu_torch.parallel import initialize, shutdown
+    from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas import (
+        masked_gram)
+    from duckdb_imputation_tpu_torch.ring.streaming import (
+        assemble_filled_triple, chunks_from_arrays, encode_chunk,
+        extended_schema, scan_gram, scan_schema)
+    from duckdb_imputation_tpu_torch.ring.sum import sum_to_triple
+    from duckdb_imputation_tpu_torch.ring.triple import sigma_from_triple
+    from duckdb_imputation_tpu_torch.utils.profiling import PhaseTimer
+
+    made, truth = make_favorita(N, seed + 60, null_frac=0.05)
+    arrays = host_arrays(made)
+    del made
+    src = chunks_from_arrays(*arrays, chunk_rows=STREAM_CHUNK)
+    chunks = fold_chunks(N)
+    t0 = time.perf_counter()
+    ss, cache = scan_schema(src)
+    s_schema = time.perf_counter() - t0
+    # the in-core table on the stream's schema: the vocabularies of the
+    # observed values (a city, state or cluster no store has is absent)
+    check(ss.k == 2 and ss.schema.cat_keys[1] == tuple(range(33)),
+          f"[stream] nullable columns {ss.nullable_num, ss.nullable_cat} or "
+          f"family's vocabulary differ")
+    t = from_numpy(*arrays, schema=ss.schema, rows_first=False,
+                   device=DEVICE)
+    f = init_fill(t)
+    want = sigma_from_triple(sum_to_triple(f.num_data, f.cat_codes, None,
+                                           schema=t.schema))
+    del f
+    stream_counts_reset()
+    timer = PhaseTimer(sync=torch.cuda.synchronize)
+    t0 = time.perf_counter()
+    gram = scan_gram(src, ss, timer=timer)
+    torch.cuda.synchronize()
+    s_gram = time.perf_counter() - t0
+    fold = stream_counts()
+    check(fold == {"masked_gram": 0, "masked_gram_cols": 0,
+                   "wide_gram": chunks},
+          f"[stream] the fold launched {fold}, not {chunks} K7")
+    full, fills = assemble_filled_triple(gram, ss)
+    got = sigma_from_triple(full)
+    cm = count_entries(t.schema)
+    check(torch.equal(got[cm], want[cm]),
+          "[stream] streamed counts differ from init_fill + sum_to_triple")
+    err = rel_err(got, want)
+    check(err <= 1e-5, f"[stream] filled triple max rel err {err:.3e}")
+    for j in ss.nullable_num:
+        ref = float(t.num_data[j][~t.num_null[j]].double().mean())
+        check(abs(fills.num_means[j] - ref) <= 1e-6 * abs(ref),
+              f"[stream] mean of numeric {j}: {fills.num_means[j]} vs {ref}")
+    for j in ss.nullable_cat:
+        ref = int(torch.bincount(t.cat_codes[j][~t.cat_null[j]].long())
+                  .argmax())
+        check(fills.cat_modes[j] == ref,
+              f"[stream] mode of categorical {j}: {fills.cat_modes[j]} vs "
+              f"{ref}")
+    x0, c0 = encode_chunk(*(a[:, :1 << 20] for a in arrays), ss)
+    xt, ct = torch.from_numpy(x0).to(DEVICE), torch.from_numpy(c0).to(DEVICE)
+    k7_ms = cuda_ms(lambda: masked_gram(xt, ct, None,
+                                        schema=extended_schema(ss)),
+                    reps=5, warmup=1)
+    del xt, ct
+    log(f"[stream] favorita_wide n={N}, P={t.schema.sigma_size} (the "
+        f"observed vocabularies), P + K = {extended_schema(ss).sigma_size}: "
+        f"scan_schema {s_schema:.3f} s ({N / s_schema:.4g} rows/s), "
+        f"scan_gram {s_gram:.3f} s ({N / s_gram:.4g} rows/s; host encode "
+        f"{timer.totals['encode']:.3f} s, copies + launches "
+        f"{timer.totals['fold']:.3f} s; K7 alone on a 2^20-row chunk "
+        f"{k7_ms:.3f} ms × {chunks}); fold launches {fold}; filled triple "
+        f"vs init_fill + sum_to_triple: counts exact, max rel err "
+        f"{err:.3e}; fills {fills.num_means}, modes {fills.cat_modes}")
+    total = fold
+
+    stream_counts_reset()
+    timer = PhaseTimer(sync=torch.cuda.synchronize)
+    t0 = time.perf_counter()
+    dev = run_mice_stream(src, iters=STREAM_ROUNDS, noise=False,
+                          engine="device", timer=timer)
+    torch.cuda.synchronize()
+    s_dev = time.perf_counter() - t0
+    launches = stream_counts()
+    cols = len(ss.nullable_num) + len(ss.nullable_cat)
+    expect = {"masked_gram": 0, "masked_gram_cols": 0,
+              "wide_gram": chunks + 2 * cols * STREAM_ROUNDS}
+    check(launches == expect, f"[stream] device engine launched {launches}, "
+          f"not {expect}")
+    total = add_counts(total, launches)
+    phases_dev = {k: round(v, 3) for k, v in timer.summary().items()}
+    ref = run_mice_device_delta(t, iters=STREAM_ROUNDS)
+    idx = torch.as_tensor(dev.idx, device=DEVICE)
+    nm, cmask = dev.dirty.num_null[1], dev.dirty.cat_null[1]
+    ref_c = ref.cat_codes[1][idx]
+    agree = float((dev.dirty.cat_codes[1][cmask] == ref_c[cmask]).float()
+                  .mean())
+    check(agree >= 0.999, f"[stream] device engine family agreement {agree}")
+    same = nm & (dev.dirty.cat_codes[1] == ref_c)
+    ref_x = ref.num_data[1][idx]
+    dx = float((dev.dirty.num_data[1] - ref_x)[same].abs().max())
+    check(dx <= 1e-3 * float(ref_x.abs().max()),
+          f"[stream] device engine transactions |Δx| {dx:.3e}")
+    q_dev = wide_quality(t, truth, embed(t, dev), "[stream] device engine")
+    del ref
+
+    stream_counts_reset()
+    timer = PhaseTimer(sync=torch.cuda.synchronize)
+    t0 = time.perf_counter()
+    host = run_mice_stream(src, iters=1, noise=False, engine="host",
+                           timer=timer)
+    torch.cuda.synchronize()
+    s_host = time.perf_counter() - t0
+    launches = stream_counts()
+    expect = {"masked_gram": 0, "masked_gram_cols": 0,
+              "wide_gram": chunks + 2 * cols}
+    check(launches == expect, f"[stream] host engine launched {launches}, "
+          f"not {expect}")
+    total = add_counts(total, launches)
+    phases_host = {k: round(v, 3) for k, v in timer.summary().items()}
+    low = run_mice_low(t, iters=1, noise=False)
+    lx, lc = low.num_data[:, idx], low.cat_codes[:, idx]
+    check(close_to(host.dirty.num_data, lx, 1e-3, 1e-2),
+          f"[stream] host engine vs run_mice_low: max |Δx| "
+          f"{float((host.dirty.num_data - lx).abs().max()):.3e}")
+    agree_h = float((host.dirty.cat_codes[1][cmask] == lc[1][cmask]).float()
+                    .mean())
+    check(agree_h > 0.99, f"[stream] host engine family agreement {agree_h}")
+    q_host = wide_quality(t, truth, embed(t, host), "[stream] host engine")
+    del low
+
+    with tempfile.TemporaryDirectory() as d:
+        mesh = initialize("nccl", store=_store(f"{d}/store", 1),
+                          world_size=1, rank=0, device=DEVICE,
+                          timeout=datetime.timedelta(minutes=5))
+        try:
+            g_mesh = scan_gram(src, ss, mesh=mesh)
+        finally:
+            shutdown()
+    check(torch.equal(g_mesh, gram),
+          "[stream] scan_gram over a world-1 NCCL mesh differs")
+    log(f"[stream] run_mice_stream device engine rounds={STREAM_ROUNDS}: "
+        f"{s_dev:.3f} s, phases s {phases_dev}; dirty rows {len(dev.idx)}; "
+        f"vs run_mice_device_delta: family agreement {agree:.6f}, "
+        f"transactions max |Δx| {dx:.3e} where family agrees; quality "
+        f"{q_dev}. Host engine rounds=1: {s_host:.3f} s, phases s "
+        f"{phases_host}; vs run_mice_low family agreement {agree_h:.6f}; "
+        f"quality {q_host}. scan_gram over a world-1 NCCL mesh "
+        f"bit-identical. Launches of the stream runs {total}")
+    return total
+
+
+def write_config5_csv(path: str, seed: int, n: int, null_frac: float):
+    """The config-5 table at n rows written as CSV by format_csv_block, in
+    1M-row blocks (null cells empty). Returns (x f32[4, n] on the card,
+    codes, num_null, cat_null, true x1, seconds, bytes)."""
+    from duckdb_imputation_tpu_torch.table.native import format_csv_block
+
+    t, truth = make_table(n, seed, null_frac=null_frac)
+    x, c = t.num_data.cpu().numpy(), t.cat_codes.cpu().numpy()
+    nn, cn = t.num_null.cpu().numpy(), t.cat_null.cpu().numpy()
+    t0 = time.perf_counter()
+    with open(path, "wb") as f:
+        f.write(b"x0,x1,x2,x3,c0,c1\n")
+        for lo in range(0, n, STREAM_CHUNK):
+            hi = min(lo + STREAM_CHUNK, n)
+            cols = ([np.where(nn[j, lo:hi], np.nan, x[j, lo:hi])
+                     for j in range(4)]
+                    + [np.where(cn[j, lo:hi], np.nan, c[j, lo:hi])
+                       for j in range(2)])
+            f.write(format_csv_block(cols, [0, 0, 0, 0, 1, 1]))
+    return t, truth, time.perf_counter() - t0, os.path.getsize(path)
+
+
+def phase_stream_csv(seed: int) -> dict:
+    """BASELINE config 5 at N_STREAM_CSV rows, 1% nulls in x1 and c0,
+    written as a CSV under build/stream/ by format_csv_block, then
+    impute_csv_stream(engine='device', noise=False, 2 rounds): the fold's
+    filled triple has n exact past 2^24 and one-hot counts equal to the
+    bincounts of the mode-filled input; the output read back by read_csv: observed
+    cells bit-identical to the input, imputed cells equal to res.dirty;
+    x1 RMSE < 0.05; exact launches (the fold K1 at P + K = 23 on the CUDA
+    cores, one a chunk; the rounds K1 on the tensor cores); seconds and MB/s
+    of each pass. The files are removed whatever happens."""
+    from duckdb_imputation_tpu_torch.mice.streaming import impute_csv_stream
+    from duckdb_imputation_tpu_torch.table.native import read_csv
+    from duckdb_imputation_tpu_torch.utils.profiling import PhaseTimer
+
+    import shutil
+
+    n = N_STREAM_CSV
+    os.makedirs(STREAM_DIR, exist_ok=True)
+    in_path = os.path.join(STREAM_DIR, "config5.csv")
+    out_path = os.path.join(STREAM_DIR, "config5_imputed.csv")
+    free = shutil.disk_usage(STREAM_DIR).free
+    try:
+        t, truth, s_write, nbytes = write_config5_csv(in_path, seed + 61, n,
+                                                      0.01)
+        stream_counts_reset()
+        timer = PhaseTimer(sync=torch.cuda.synchronize)
+        t0 = time.perf_counter()
+        res = impute_csv_stream(in_path, out_path, iters=STREAM_ROUNDS,
+                                engine="device", noise=False, timer=timer)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = stream_counts()
+        chunks = fold_chunks(n)
+        expect = {"masked_gram": chunks,
+                  "masked_gram_cols": 2 * 2 * STREAM_ROUNDS, "wide_gram": 0}
+        check(launches == expect, f"[stream_csv] launched {launches}, not "
+              f"{expect}")
+        check(res.ss.n_rows == n and float(res.filled.n) == n,
+              f"[stream_csv] n {res.ss.n_rows}, filled n "
+              f"{float(res.filled.n)}")
+        t1 = time.perf_counter()
+        out = read_csv(out_path)
+        s_read = time.perf_counter() - t1
+        check(out.num_names == ("x0", "x1", "x2", "x3")
+              and out.cat_names == ("c0", "c1") and out.n_rows == n,
+              "[stream_csv] the output's columns or rows differ")
+        check(not bool(out.num_null.any() or out.cat_null.any()),
+              "[stream_csv] the output has nulls")
+        check(torch.equal(out.num_data[~t.num_null], t.num_data[~t.num_null]),
+              "[stream_csv] observed numbers differ from the input")
+        raw = torch.as_tensor(out.cat_values(), device=DEVICE)
+        dirty_raw = torch.as_tensor(res.dirty.cat_values(), device=DEVICE)
+        check(torch.equal(raw[~t.cat_null], t.cat_codes[~t.cat_null].long()),
+              "[stream_csv] observed categories differ from the input")
+        idx = torch.as_tensor(res.idx, device=DEVICE)
+        dn, dc = res.dirty.num_null, res.dirty.cat_null
+        check(torch.equal(out.num_data[:, idx][dn], res.dirty.num_data[dn])
+              and torch.equal(raw[:, idx][dc], dirty_raw[dc]),
+              "[stream_csv] imputed cells differ from res.dirty")
+        # the mode-filled input's one-hot counts, f32 sums of 24 chunks
+        # past 2^24 rows in all
+        filled = [torch.where(t.cat_null[j], res.fills.cat_modes[j],
+                              t.cat_codes[j]).long() for j in range(2)]
+        counts = torch.cat([torch.bincount(c, minlength=8)
+                            for c in filled]).double()
+        check(torch.equal(res.filled.lin_cat.double(), counts),
+              "[stream_csv] the filled triple's one-hot counts differ from "
+              "the mode-filled input's bincounts")
+        nm = t.num_null[1]
+        rmse = float(((out.num_data[1] - truth)[nm] ** 2).mean().sqrt())
+        check(rmse < 0.05, f"[stream_csv] x1 RMSE {rmse}")
+        ph = timer.summary()
+        mb = nbytes / 1e6
+        log(f"[stream_csv] config 5 n={n} ({nbytes} bytes, {free / 1e9:.1f} "
+            f"GB free): written by format_csv_block in {s_write:.3f} s "
+            f"({mb / s_write:.1f} MB/s); impute_csv_stream engine='device' "
+            f"rounds={STREAM_ROUNDS} {wall:.3f} s: scan_schema (parse) "
+            f"{ph['scan_schema']:.3f} s ({mb / ph['scan_schema']:.1f} MB/s), "
+            f"scan_gram (parse + fold) {ph['scan_gram']:.3f} s "
+            f"({mb / ph['scan_gram']:.1f} MB/s), prepare "
+            f"{ph['prepare']:.3f} s, rounds "
+            f"{ph['delta_rounds_device']:.3f} s, write_out (parse + format "
+            f"+ write) {ph['write_out']:.3f} s ({mb / ph['write_out']:.1f} "
+            f"MB/s); read_csv of the output {s_read:.3f} s; dirty rows "
+            f"{len(res.idx)}; the filled triple's n exact, its one-hot "
+            f"counts the mode-filled input's bincounts; observed cells bit-identical, imputed "
+            f"cells res.dirty's; x1 RMSE {rmse:.4g}; launches {launches}")
+    finally:
+        for p in (in_path, out_path):
+            if os.path.exists(p):
+                os.remove(p)
+    return launches
+
+
+def phase_stream_spill(seed: int) -> dict:
+    """Config 5 at N_SPILL rows, 20% nulls, dirty_budget_rows =
+    SPILL_BUDGET: the cache spills to memmaps and the windowed host rounds
+    (noise off, 2 rounds) match the in-core cache's on the same data at
+    tests/test_streaming.py:109-145's bounds (x within 5e-3·(max|x| + 1),
+    codes agree > 0.98); every window's aggregate K1's stacked entry,
+    counted exactly."""
+    from duckdb_imputation_tpu_torch.mice.streaming import run_mice_stream
+    from duckdb_imputation_tpu_torch.ring.streaming import chunks_from_arrays
+    from duckdb_imputation_tpu_torch.utils.profiling import PhaseTimer
+
+    t, _ = make_table(N_SPILL, seed + 62, null_frac=0.2)
+    src = chunks_from_arrays(*host_arrays(t), chunk_rows=STREAM_CHUNK)
+    stream_counts_reset()
+    timer = PhaseTimer(sync=torch.cuda.synchronize)
+    t0 = time.perf_counter()
+    sp = run_mice_stream(src, iters=STREAM_ROUNDS, noise=False,
+                         dirty_budget_rows=SPILL_BUDGET, timer=timer)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = stream_counts()
+    try:
+        check(sp.spill is not None and sp.dirty is None
+              and sp.spill.n > SPILL_BUDGET
+              and isinstance(sp.spill.num, np.memmap),
+              "[stream_spill] the dirty rows did not spill past the budget")
+        windows = [(lo, min(lo + SPILL_BUDGET, sp.spill.n))
+                   for lo in range(0, sp.spill.n, SPILL_BUDGET)]
+        steps = sum(bool(sp.spill.num_null[lo:hi, 1].any())
+                    + bool(sp.spill.cat_null[lo:hi, 0].any())
+                    for lo, hi in windows)
+        expect = {"masked_gram": fold_chunks(N_SPILL)
+                  + 2 * STREAM_ROUNDS * steps,
+                  "masked_gram_cols": 0, "wide_gram": 0}
+        check(launches == expect, f"[stream_spill] launched {launches}, "
+              f"not {expect}")
+        inc = run_mice_stream(src, iters=STREAM_ROUNDS, noise=False)
+        check(np.array_equal(sp.idx, inc.idx), "[stream_spill] dirty rows")
+        num_sp, cat_sp = sp._dirty_slice(0, sp.spill.n)
+        num_ic = inc.dirty.num_data.cpu().numpy()
+        cat_ic = inc.dirty.cat_values()
+        m = inc.dirty.num_null[1].cpu().numpy()
+        dx = float(np.abs(num_sp[1][m] - num_ic[1][m]).max())
+        bound_x = 5e-3 * (float(np.abs(num_ic[1]).max()) + 1)
+        check(dx <= bound_x, f"[stream_spill] x1 |Δ| {dx:.3e} > {bound_x}")
+        mc = inc.dirty.cat_null[0].cpu().numpy()
+        agree = float((cat_sp[0][mc] == cat_ic[0][mc]).mean())
+        check(agree > 0.98, f"[stream_spill] c0 agreement {agree}")
+        log(f"[stream_spill] config 5 n={N_SPILL}, 20% nulls, budget "
+            f"{SPILL_BUDGET}: {sp.spill.n} dirty rows spilled to memmaps; "
+            f"windowed host rounds={STREAM_ROUNDS} {wall:.3f} s, phases s "
+            f"{ {k: round(v, 3) for k, v in timer.summary().items()} }; vs "
+            f"the in-core cache: x1 max |Δ| {dx:.3e}, c0 agreement "
+            f"{agree:.6f}; launches {launches}")
+    finally:
+        sp.spill.cleanup()
+    return launches
+
+
+def phase_stream_ckpt(seed: int) -> dict:
+    """N_CKPT rows of config 5, 5% nulls, noise on: for both engines a
+    checkpointed stream run stopped after 1 round and resumed to 2 is
+    bit-identical to 2 straight rounds; a resume with another seed raises
+    ValueError naming it."""
+    import tempfile
+
+    from duckdb_imputation_tpu_torch.mice.streaming import run_mice_stream
+    from duckdb_imputation_tpu_torch.ring.streaming import chunks_from_arrays
+
+    t, _ = make_table(N_CKPT, seed + 63, null_frac=0.05)
+    src = chunks_from_arrays(*host_arrays(t), chunk_rows=STREAM_CHUNK)
+    stream_counts_reset()
+    walls = {}
+    with tempfile.TemporaryDirectory() as d:
+        for engine in ("host", "device"):
+            kw = dict(noise=True, seed=seed, engine=engine)
+            path = f"{d}/{engine}.ckpt"
+            straight = run_mice_stream(src, iters=2, **kw)
+            run_mice_stream(src, iters=1, checkpoint_path=path, **kw)
+            t0 = time.perf_counter()
+            resumed = run_mice_stream(src, iters=2, checkpoint_path=path,
+                                      **kw)
+            torch.cuda.synchronize()
+            walls[engine] = round((time.perf_counter() - t0) * 1e3, 1)
+            check(torch.equal(straight.dirty.num_data,
+                              resumed.dirty.num_data)
+                  and torch.equal(straight.dirty.cat_codes,
+                                  resumed.dirty.cat_codes),
+                  f"[stream_ckpt] {engine}: the resumed run differs")
+            try:
+                run_mice_stream(src, iters=2, checkpoint_path=path,
+                                **dict(kw, seed=seed + 1))
+                check(False, f"[stream_ckpt] {engine}: another seed resumed")
+            except ValueError as e:
+                check("field 'seed'" in str(e), f"[stream_ckpt] {e}")
+    launches = stream_counts()
+    log(f"[stream_ckpt] config 5 n={N_CKPT}, noise on: for the host and "
+        f"device engines 1 round, then resumed to 2: bit-identical to 2 "
+        f"straight; another seed raises ValueError naming 'seed'; a resume "
+        f"(pass 0 again, the fold skipped) + 1 round + 1 checkpoint ms "
+        f"{walls}; launches {launches}")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3387,6 +3861,9 @@ def main() -> int:
     factorized = phase_factorized(args.seed)
     star = phase_star(args.seed)
     sharded = phase_sharded_all(args.seed)
+    stream = phase_stream(args.seed)
+    for phase in (phase_stream_csv, phase_stream_spill, phase_stream_ckpt):
+        stream = add_counts(stream, phase(args.seed))
 
     src = "duckdb_imputation_tpu_torch/csrc/"
     ref = "duckdb_imputation_tpu/ring/kernels/"
@@ -3397,13 +3874,15 @@ def main() -> int:
              launches=launches["masked_gram_cols"],
              delta_launches=delta["masked_gram_cols"],
              gd_launches=gd["masked_gram_cols"],
-             sharded_launches=sharded["masked_gram_cols"], **k1),
+             sharded_launches=sharded["masked_gram_cols"],
+             stream_launches=stream["masked_gram_cols"], **k1),
         dict(name="masked_gram", route="cuda",
              source=src + "masked_gram.cu",
              replaces=ref + "sigma_pallas.py:109",
              launches=k1s_launches, host_launches=host,
              star_launches=star["masked_gram"],
-             sharded_launches=sharded["masked_gram"], **k1s),
+             sharded_launches=sharded["masked_gram"],
+             stream_launches=stream["masked_gram"], **k1s),
         dict(name="fused_impute_aggregate", route="cuda",
              source=src + "fused_impute_aggregate.cu",
              replaces=ref + "sigma_fused.py:413",
@@ -3436,7 +3915,8 @@ def main() -> int:
              launches=wide["wide_gram"], delta_launches=delta["wide_gram"],
              host_launches=host_wide, gd_launches=gd["wide_gram"],
              star_launches=star["wide_gram"],
-             sharded_launches=sharded["wide_gram"], **k7),
+             sharded_launches=sharded["wide_gram"],
+             stream_launches=stream["wide_gram"], **k7),
         dict(name="fused_impute_aggregate_wide", route="cuda",
              source=src + "fused_impute_aggregate.cu",
              replaces=ref + "sigma_fused.py:509",

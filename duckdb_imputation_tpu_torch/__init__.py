@@ -35,7 +35,15 @@ imports torch and never jax. Ported so far:
 - data parallelism over `torch.distributed` (`parallel`: the process
   mesh, `initialize`, `union_vocab`, the row-sharded aggregates) and the
   row-sharded MICE loops with checkpoints (`mice.sharded_round`:
-  `run_mice_sharded`, `run_mice_sharded_delta`; `utils.checkpoint`).
+  `run_mice_sharded`, `run_mice_sharded_delta`; `utils.checkpoint`);
+- out-of-core imputation and its front door: the native CSV reader and
+  formatter (`table.native`, over `native/columnar.cpp`, built with g++
+  into `build/native/`), the streaming fold of the extended Gram on K1 or
+  K7 (`ring.streaming`), `run_mice_stream` / `impute_csv_stream` with
+  fingerprinted stream checkpoints (`mice.streaming`,
+  `utils.checkpoint.StreamCheckpointer`), the command line
+  (`python -m duckdb_imputation_tpu_torch.cli`) and the build directories
+  and default device (`config`).
 """
 
 from .schema import FeatureSchema
@@ -56,7 +64,7 @@ from .ring import (
     triple_multiply,
     triple_sub,
 )
-from .table import Table, from_numpy, from_pandas, from_reference
+from .table import Table, from_numpy, from_pandas, from_reference, read_csv
 from .mice import (
     init_fill,
     run_mice_baseline,
@@ -68,6 +76,8 @@ from .mice import (
     run_mice_sharded,
     run_mice_sharded_delta,
     run_mice_star,
+    run_mice_stream,
+    impute_csv_stream,
 )
 from . import parallel
 
@@ -78,6 +88,7 @@ __all__ = ["FeatureSchema", "NBAgg", "Triple", "lift", "nb_lift",
            "sum_to_nb_agg_grouped", "sum_to_triple", "sum_to_triple_grouped",
            "sum_triples", "triple_add", "triple_multiply", "triple_sub",
            "Table", "from_numpy", "from_pandas", "from_reference",
+           "read_csv", "run_mice_stream", "impute_csv_stream",
            "init_fill", "run_mice_baseline", "run_mice_device",
            "run_mice_device_delta", "run_mice_factorized", "run_mice_high",
            "run_mice_low", "run_mice_sharded", "run_mice_sharded_delta",

@@ -10,6 +10,12 @@ from .partition import (
     observed_weights,
 )
 from .sharded_round import run_mice_sharded, run_mice_sharded_delta
+from .streaming import (
+    StreamImputation,
+    impute_csv_stream,
+    run_delta_rounds_spill,
+    run_mice_stream,
+)
 from .device_round import (
     build_union_gather,
     mice_loop_device,
@@ -27,4 +33,5 @@ __all__ = ["run_mice_baseline", "run_mice_factorized", "run_mice_star",
            "mice_loop_device", "mice_loop_device_delta",
            "mice_loop_device_fused", "mice_round_device", "observed_weights",
            "run_mice_device", "run_mice_device_delta", "run_mice_sharded",
-           "run_mice_sharded_delta"]
+           "run_mice_sharded_delta", "StreamImputation", "impute_csv_stream",
+           "run_delta_rounds_spill", "run_mice_stream"]

@@ -3,7 +3,8 @@
 The sources under `duckdb_imputation_tpu_torch/csrc/` are compiled by
 `nvcc` for sm_90a, one process per source, all started together, and
 linked into one shared library with a plain C interface, at first use
-(never at import), into `build/kernels/` at the root of the checkout. The
+(never at import), into `build/kernels/` at the root of the checkout
+(`config.KERNEL_BUILD_DIR`). The
 library's name carries a hash of the sources and flags, so an edit
 rebuilds and an unchanged tree loads the library already built.
 
@@ -26,8 +27,10 @@ from pathlib import Path
 
 import torch
 
+from ... import config
+
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+BUILD_DIR = config.KERNEL_BUILD_DIR
 SOURCES = ("masked_gram.cu", "fused_impute_aggregate.cu", "grouped_gram.cu",
            "nb_grouped_sums.cu", "qda_predict.cu", "wide_gram.cu",
            "grouped_wide_gram.cu")

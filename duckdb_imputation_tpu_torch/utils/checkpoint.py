@@ -17,8 +17,10 @@ run (`run_fingerprint`: the schema, the global row count, a checksum of
 the null masks and observed values computed on the device, the loop's
 settings and the world size); resuming against a file whose fingerprint
 differs raises ValueError naming the field, instead of continuing another
-run's table. `StreamCheckpointer` (the out-of-core loop's) is not ported
-yet.
+run's table. `StreamCheckpointer` is the out-of-core loop's
+(`mice.streaming`): the dirty rows, the full sigma and the stream's
+schema and fills, with the same fingerprint; the JAX package's stream
+file (which has none) is refused.
 """
 from __future__ import annotations
 
@@ -199,3 +201,53 @@ class MiceCheckpointer:
             return None
         t, extra = load_table(self.path, device)
         return t, check_resume(self.path, extra, self.fingerprint, iters)
+
+
+@dataclasses.dataclass
+class StreamCheckpointer:
+    """Checkpoint and resume of out-of-core MICE (`mice.streaming`): after
+    each round, everything `run_mice_stream` needs to go on without the
+    fold: the dirty-row table, their global ids `idx`, the current full
+    sigma f32[P, P] (the loop's own, so a resumed run is bit-identical to
+    one never stopped), the stream's fills and schema, the completed
+    rounds and the run's `fingerprint`. O(dirty + P²), never O(n)."""
+    path: str
+    fingerprint: dict | None = None
+
+    def save(self, t: Table, full_sigma: torch.Tensor, idx, fills, ss,
+             completed_iters: int) -> None:
+        extra = {
+            "completed_iters": completed_iters,
+            "fills": {k: list(v) for k, v in
+                      dataclasses.asdict(fills).items()},
+            "ss": {"nullable_num": list(ss.nullable_num),
+                   "nullable_cat": list(ss.nullable_cat),
+                   "n_rows": int(ss.n_rows)},
+        }
+        if self.fingerprint is not None:
+            extra["fingerprint"] = self.fingerprint
+        save_table(self.path, t, extra, arrays={
+            "idx": np.asarray(idx, np.int64), "full_sigma": full_sigma})
+
+    def resume(self, iters: int | None = None, device="cuda"):
+        """(dirty table on `device`, full sigma on `device`, idx, fills,
+        StreamSchema, completed rounds), or None without a file. Raises
+        ValueError on a fingerprint that does not match this
+        checkpointer's (a file without one, such as the JAX package's, is
+        refused) or more completed rounds than `iters`."""
+        if not os.path.exists(self.path):
+            return None
+        from ..ring.streaming import StreamFills, StreamSchema
+
+        t, extra, arr = load_table_arrays(self.path, device)
+        done = check_resume(self.path, extra, self.fingerprint, iters)
+        fills = StreamFills(**{k: tuple(v)
+                               for k, v in extra["fills"].items()})
+        s = extra["ss"]
+        ss = StreamSchema(schema=t.schema,
+                          nullable_num=tuple(s["nullable_num"]),
+                          nullable_cat=tuple(s["nullable_cat"]),
+                          n_rows=int(s["n_rows"]))
+        sigma = torch.tensor(arr["full_sigma"], dtype=torch.float32,
+                             device=device)
+        return t, sigma, np.asarray(arr["idx"]), fills, ss, done

@@ -1524,3 +1524,110 @@ def test_sharded_checkpoint_resume_on_the_card(nccl_mesh, tmp_path, kernel):
     assert torch.equal(straight.cat_codes, resumed.cat_codes)
     with pytest.raises(ValueError, match="field 'seed'"):
         fn(t, iters=4, checkpoint_path=path, **dict(kw, seed=7))
+
+
+# ---------------------------------------------------------------------------
+# The out-of-core path on the card: the fold over the extended schema, the
+# native reader's Table on the card, impute_csv_stream
+# ---------------------------------------------------------------------------
+
+def _stream_arrays(n, seed, cat_sizes, d=3, all_null=False):
+    """Host arrays of a stream: d numeric columns and one categorical a
+    size; 10% nulls in numeric 1 and categorical 0, or with all_null 5%
+    in every column."""
+    rng = np.random.default_rng(seed)
+    num = rng.normal(size=(d, n)).astype(np.float32)
+    cat = np.stack([rng.integers(0, s, n) for s in cat_sizes])
+    if all_null:
+        num[rng.random(num.shape) < 0.05] = np.nan
+        cat[rng.random(cat.shape) < 0.05] = -1
+    else:
+        num[1, rng.random(n) < 0.1] = np.nan
+        cat[0, rng.random(n) < 0.1] = -1
+    return num, cat
+
+
+@pytest.mark.parametrize("cat_sizes,d,all_null,wide", [
+    ((8, 8), 3, False, False), ((54, 30), 3, False, False),
+    ((54, 33, 337), 3, False, True), ((4,) * 10, 20, True, False)])
+def test_scan_gram_on_the_card_matches_the_plain_fold(cuda, cat_sizes, d,
+                                                      all_null, wide):
+    """The fold on the card (one masked_gram a chunk: K1 at P + K ≤ 88, K7
+    above; P = 88 with K = 2, and P = 61 with 30 nullable columns, cross
+    to K7) against the same fold on the CPU: counts exact, the rest
+    within 1e-5 of max|G|; one launch a chunk."""
+    from duckdb_imputation_tpu_torch.ring import streaming
+
+    num, cat = _stream_arrays(50_011, 3, cat_sizes, d, all_null)
+    src = streaming.chunks_from_arrays(num, cat, chunk_rows=7_000)
+    ss, _ = streaming.scan_schema(src, collect_dirty=False)
+    ext = streaming.extended_schema(ss)
+    assert (ext.sigma_size > _build.MAX_SIGMA_SIZE) == (
+        wide or ss.schema.sigma_size in (61, 88))
+    before = (masked_gram.launches, masked_gram.wide_launches)
+    got = streaming.scan_gram(src, ss, chunk_rows=16_384, device=cuda)
+    after = (masked_gram.launches, masked_gram.wide_launches)
+    chunks = -(-50_011 // 16_384)
+    k7 = ext.sigma_size > _build.MAX_SIGMA_SIZE
+    assert (after[0] - before[0], after[1] - before[1]) == (
+        (0, chunks) if k7 else (chunks, 0))
+    want = streaming.scan_gram(src, ss, chunk_rows=16_384, device="cpu")
+    assert got.dtype == torch.float64
+    cm = count_mask(ext, "cpu")
+    assert torch.equal(got.cpu()[cm], want[cm])
+    assert float((got.cpu() - want).abs().max()) <= (
+        1e-5 * float(want.abs().max()))
+
+
+def test_read_csv_on_the_card(cuda, tmp_path):
+    from duckdb_imputation_tpu_torch.table.native import read_csv
+
+    path = tmp_path / "t.csv"
+    path.write_text("a,b,c\n1.5,2,x\n,7,y\n3.25,,x\n")
+    got = read_csv(str(path))
+    want = read_csv(str(path), device="cpu")
+    assert got.device.type == "cuda"
+    for a, b in ((got.num_data, want.num_data),
+                 (got.cat_codes, want.cat_codes),
+                 (got.num_null, want.num_null),
+                 (got.cat_null, want.cat_null)):
+        assert torch.equal(a.cpu(), b)
+    assert got.cat_labels == want.cat_labels == (None, ("x", "y"))
+
+
+@pytest.mark.parametrize("engine", ["device", "host"])
+def test_impute_csv_stream_on_the_card_matches_cpu(cuda, tmp_path, engine):
+    """A small CSV imputed by impute_csv_stream on the card and on the
+    CPU: the same header and observed cells; imputed x within 1e-3 of
+    max|x| and codes agreeing on ≥ 0.99 of the imputed cells."""
+    from duckdb_imputation_tpu_torch.mice.streaming import impute_csv_stream
+    from duckdb_imputation_tpu_torch.table.native import (format_csv_block,
+                                                          read_csv)
+
+    rng = np.random.default_rng(7)
+    n = 20_000
+    z = rng.normal(size=n)
+    x = np.stack([z, 3 * z + rng.normal(size=n) * 0.1,
+                  rng.normal(size=n)]).astype(np.float32)
+    g = (z > 0).astype(np.int64) * 5 + 1
+    x[1, rng.random(n) < 0.1] = np.nan
+    gf = np.where(rng.random(n) < 0.1, np.nan, g.astype(np.float64))
+    src = tmp_path / "in.csv"
+    with open(src, "wb") as f:
+        f.write(b"a,b,c,g\n")
+        f.write(format_csv_block([*x, gf], [0, 0, 0, 1]))
+    kw = dict(iters=2, noise=False, block_bytes=1 << 16, engine=engine)
+    impute_csv_stream(str(src), str(tmp_path / "card.csv"), **kw)
+    impute_csv_stream(str(src), str(tmp_path / "cpu.csv"), device="cpu",
+                      **kw)
+    card = read_csv(str(tmp_path / "card.csv"), device="cpu")
+    cpu = read_csv(str(tmp_path / "cpu.csv"), device="cpu")
+    assert (tmp_path / "card.csv").read_text().splitlines()[0] == "a,b,c,g"
+    obs = ~np.isnan(x)
+    assert np.array_equal(card.num_data.numpy()[obs], x[obs])
+    cx, px = card.num_data.numpy()[1], cpu.num_data.numpy()[1]
+    assert np.abs(cx - px).max() <= 1e-3 * np.abs(px).max()
+    cg, pg = card.cat_values()[0], cpu.cat_values()[0]
+    null_g = np.isnan(gf)
+    assert np.array_equal(cg[~null_g], g[~null_g])
+    assert (cg[null_g] == pg[null_g]).mean() >= 0.99
