@@ -70,7 +70,19 @@ Drives the paths of `duckdb_imputation_tpu_torch` ported so far:
   native formatter under build/stream/, imputed by `impute_csv_stream`
   and read back by the native reader (`[stream_csv]`); the dirty rows
   spilled to disk and the windowed rounds (`[stream_spill]`); a stream
-  checkpoint resumed bit-identically (`[stream_ckpt]`).
+  checkpoint resumed bit-identically (`[stream_ckpt]`);
+- the wide-V path past P = 1,024, on `favorita_items` (favorita_wide's
+  columns and item_nbr's 4,100 items: P = 4,592) and `wide16k` (two
+  columns of 8,192 levels, tests/test_wide.py's width: P = 16,387) at
+  10M rows: K7 over column windows (`masked_gram_window`; `masked_gram`
+  assembles S from windows of 1,024) against its plain version, and
+  favorita_wide's windows against K7's one launch (`[K7win]`);
+  `run_mice_device` at favorita_items, K7 a window a column step and the
+  SVD solves (`[items]`); `run_mice_wide` on a 1 × 1 grid (the
+  column-sharded CG solves against an f64 dense solve) and
+  `sigma_striped` at wide16k (`[wide_v]`); two gloo ranks sharing the
+  card as a 1 × 2 grid, sigma's columns split, against the 1 × 1 grid,
+  each rank's sigma memory measured (`[wide_v2]`).
 
 First it builds the kernels from `duckdb_imputation_tpu_torch/csrc/` and
 holds each against its plain torch version at the shapes its path gives
@@ -90,7 +102,10 @@ run_mice_factorized and run_mice_star runs; `sharded_launches` on
 K1, its stacked entry, K2, K4, K5, K7 and K2w, from the `[sharded]`
 runs; `g4100` on K5 and K8, each timed alone at 4,100 groups; `nb_centred`
 on K3, the variance case; `stream_launches` on K1, its stacked entry
-and K7, from the out-of-core phases;
+and K7, from the out-of-core phases; on K7 `items_launches` (the
+`[items]` run), `wide_v_launches` (run_mice_wide in `[wide_v]`),
+`window_launches` (`[wide_v]`'s stripes) and `window`, `[K7win]`'s
+times of a pass and of each window with their bounds;
 `bound_ms`, the least time the card could take for the kernel's work,
 computed from this run's shapes with `bound`; `library_ms`, one PyTorch
 call computing the same function, where there is one), then the card's
@@ -3814,12 +3829,637 @@ def phase_stream_ckpt(seed: int) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The wide-V path past P = 1,024: K7 over a column window ([K7win]),
+# run_mice_device at favorita_items ([items]), run_mice_wide on a 1 × 1
+# grid and sigma_striped ([wide_v]), and a 1 × 2 grid of two gloo ranks
+# sharing the card ([wide_v2])
+# ---------------------------------------------------------------------------
+
+# favorita_items: favorita_wide's columns and item_nbr's 4,100 items
+# (items.csv): P = 4,592
+ITEMS_VOCABS = FAVORITA_VOCABS + (ITEMS,)
+# wide16k: tests/test_wide.py's width, two columns of 8,192 levels
+WIDE16K_VOCABS = (8192, 8192)
+WINDOW_PASS_LIMIT_S = 30.0   # a K7 pass over all of wide16k's S past this
+N_WIDE16K_CUT = 2_000_000    # cuts wide16k to this many rows
+N_LIBRARY = {"favorita_items": 1_000_000, "wide16k": 100_000}  # rows of
+                             # the dense cuBLAS Gram (the full Z does not fit)
+ITEMS_ROUNDS = 2
+N_ITEMS_CPU = 200_000        # [items] on the CPU, held against the card
+WIDE_V2_DEADLINE_S = 600
+CG_CHECK = dict(label=2, ridge=1e-2, iters=2000, tol=1e-9)  # [wide_v]'s
+                             # cg_solve_wide: transactions at test_wide's
+                             # ridge and stop rule
+
+
+def items_schema():
+    from duckdb_imputation_tpu_torch import FeatureSchema
+
+    return FeatureSchema(num_cols=3, cat_keys=tuple(
+        tuple(range(v)) for v in ITEMS_VOCABS))
+
+
+def make_favorita_items(n: int, seed: int, *, null_frac: float = 0.2,
+                        device=None):
+    """favorita_items (P = 4,592) made on the device from `seed`:
+    favorita_wide's columns with make_favorita's store hierarchy, plus
+    item_nbr. Each of the 4,100 items fixes its class (every class has at
+    least one item, every family one class), hence its family and
+    perishable, as make_favorita_star makes them; rows draw items by Zipf
+    shares (weight 1/rank, ranks shuffled: an assumption), stores
+    uniformly, 20% on promotion. unit_sales = class level + item level +
+    1.5·onpromotion + 0.5·N(0, 1); transactions = 2·(store level) + N(0,
+    1); the oil price N(0, 1). `null_frac` MCAR nulls in transactions
+    (numeric 1) and family (categorical 1). Returns (table, truth): truth
+    holds the true transactions and family."""
+    from duckdb_imputation_tpu_torch import Table
+
+    dev = DEVICE if device is None else device
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    i32 = torch.int32
+
+    def randint(hi, size):
+        return torch.randint(0, hi, (size,), generator=g, device=dev,
+                             dtype=i32)
+
+    def onto(parents, children):
+        """A parent of each child, every parent taken at least once."""
+        p = torch.cat([torch.arange(parents, device=dev, dtype=i32),
+                       randint(parents, children - parents)])
+        return p[torch.randperm(children, generator=g, device=dev)]
+
+    stores, families, classes = FAVORITA_VOCABS[:3]
+    city_of_store = randint(22, stores)
+    state_of_city = randint(16, 22)
+    type_of_store = randint(5, stores)
+    cluster_of_store = randint(17, stores)
+    family_of_class = onto(families, classes)
+    class_of_item = onto(classes, ITEMS)
+    perishable_of_family = randint(2, families)
+    store_level = torch.randn(stores, generator=g, device=dev)
+    class_level = torch.randn(classes, generator=g, device=dev)
+    item_level = 0.5 * torch.randn(ITEMS, generator=g, device=dev)
+
+    store = randint(stores, n)
+    rank = torch.randperm(ITEMS, generator=g, device=dev) + 1
+    item = torch.multinomial(1.0 / rank.double(), n, replacement=True,
+                             generator=g)
+    cls = class_of_item[item]
+    family = family_of_class[cls.long()]
+    promo = (torch.rand(n, generator=g, device=dev) < 0.2).to(i32)
+    sl = store.long()
+    transactions = 2.0 * store_level[sl] + torch.randn(n, generator=g,
+                                                       device=dev)
+    unit_sales = (class_level[cls.long()] + item_level[item] + 1.5 * promo
+                  + 0.5 * torch.randn(n, generator=g, device=dev))
+    oil = torch.randn(n, generator=g, device=dev)
+    city = city_of_store[sl]
+    codes = torch.stack([store, family, cls,
+                         perishable_of_family[family.long()], promo, city,
+                         state_of_city[city.long()], type_of_store[sl],
+                         cluster_of_store[sl], item.to(i32)])
+    x = torch.stack([unit_sales, transactions, oil])
+    num_null = torch.zeros((3, n), dtype=torch.bool, device=dev)
+    cat_null = torch.zeros((10, n), dtype=torch.bool, device=dev)
+    num_null[1] = torch.rand(n, generator=g, device=dev) < null_frac
+    cat_null[1] = torch.rand(n, generator=g, device=dev) < null_frac
+    truth = {"transactions": transactions, "family": family}
+    x = torch.where(num_null, 0.0, x)
+    codes = torch.where(cat_null, 0, codes)
+    return Table(num_data=x, cat_codes=codes, num_null=num_null,
+                 cat_null=cat_null, schema=items_schema()), truth
+
+
+def make_wide16k(n: int, seed: int):
+    """wide16k (P = 16,387) made on the device from `seed`, as
+    tests/test_wide.py's `_wide_data`: x1 = 0.5·x0 + 0.1·N(0, 1), two
+    columns of 8,192 uniform codes, 25% zero weights. Returns (schema,
+    x_cols, code_cols, w)."""
+    from duckdb_imputation_tpu_torch import FeatureSchema
+
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(seed)
+    x0 = torch.randn(n, generator=g, device=DEVICE)
+    x1 = 0.5 * x0 + 0.1 * torch.randn(n, generator=g, device=DEVICE)
+    cs = [torch.randint(0, v, (n,), generator=g, device=DEVICE,
+                        dtype=torch.int32) for v in WIDE16K_VOCABS]
+    w = (torch.rand(n, generator=g, device=DEVICE) >= 0.25).float()
+    schema = FeatureSchema(num_cols=2, cat_keys=tuple(
+        tuple(range(v)) for v in WIDE16K_VOCABS))
+    return schema, [x0, x1], cs, w
+
+
+def window_bound(code_cols, w, schema, lo: int, hi: int) -> dict:
+    """K7 over the window S[:, lo:hi]: x, codes and w read once, f32[P, hi
+    − lo] written once; a row with w ≠ 0 and k = 1 + d + (its codes in
+    range) nonzeros, k_w of them in the window, needs k·k_w multiply-adds
+    (the window is not symmetric)."""
+    d, n = schema.num_cols, w.shape[0]
+    base = [1 + d + o for o in schema.offsets]
+    k = torch.full((n,), 1 + d, dtype=torch.int64, device=w.device)
+    kw = torch.full_like(k, max(0, min(hi, 1 + d) - lo))
+    for c, b, size in zip(code_cols, base, schema.cat_sizes):
+        ok = (c >= 0) & (c < size)
+        k += ok.long()
+        kw += (ok & (b + c >= lo) & (b + c < hi)).long()
+    fma = int(torch.where(w != 0, k * kw, 0).sum())
+    return bound(n * row_bytes(schema, 4)
+                 + schema.sigma_size * (hi - lo) * 4, 2 * fma)
+
+
+def _window_check(tag, got, again, want, schema, lo) -> float:
+    """[K7win]'s checks of a window: finite, bit-identical rerun, counts
+    exact, ≤ 1e-5 of max|σ|. Returns the max abs error."""
+    d = schema.num_cols
+    check(torch.isfinite(got).all(), f"{tag} not finite")
+    check(torch.equal(got, again), f"{tag} rerun not bit-identical")
+    rows = torch.arange(schema.sigma_size, device=got.device)
+    cols = torch.arange(lo, lo + got.shape[1], device=got.device)
+    cm = (((rows[:, None] == 0) | (rows[:, None] > d))
+          & ((cols[None] == 0) | (cols[None] > d)))
+    check(torch.equal(got[cm], want[cm]),
+          f"{tag} counts differ from the plain version")
+    err = rel_err(got, want)
+    check(err <= 1e-5, f"{tag} max rel error {err:.3e} > 1e-5")
+    return float((got - want).abs().max())
+
+
+def phase_k7win(seed: int) -> dict:
+    """K7 over column windows. favorita_wide (P = 492): its windows of 128
+    columns side by side against today's one launch of the whole plan.
+    favorita_items (P = 4,592) and wide16k (P = 16,387) at N rows (wide16k
+    cut to N_WIDE16K_CUT rows if one pass over all of S takes more than
+    WINDOW_PASS_LIMIT_S): the plans' host time, a pass over all of S
+    (masked_gram_cols: one launch a window of WINDOW_WIDTH), each window
+    (all five at favorita_items, the first, one across the two one-hot
+    blocks and the last at wide16k) against masked_gram_window_plain
+    (counts exact, ≤ 1e-5 of max|σ|, reruns bit-identical, equal to the
+    pass's columns), ms of each window and of the pass by CUDA events,
+    their bounds, and one cuBLAS f32 Gram of the dense Z on a slice of
+    N_LIBRARY rows. Returns the kernels line's window numbers and
+    wide16k's rows."""
+    from duckdb_imputation_tpu_torch.ring.kernels import _build
+    from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas import (
+        masked_gram_cols, masked_gram_window, masked_gram_window_plain)
+
+    t, _ = make_favorita(N, seed + 60)
+    xs, cs = list(t.num_data.unbind(0)), list(t.cat_codes.unbind(0))
+    w = (~t.num_null[1]).float()
+    p = t.schema.sigma_size
+    one = masked_gram_cols(xs, cs, w, schema=t.schema)
+    wins = torch.cat([masked_gram_window(xs, cs, w, schema=t.schema, lo=lo,
+                                         width=min(128, p - lo))
+                      for lo in range(0, p, 128)], 1)
+    torch.cuda.synchronize()
+    err = _window_check("[K7win] favorita_wide windows of 128 vs one launch",
+                        wins, wins, one, t.schema, 0)
+    log(f"[K7win] favorita_wide P={p} n={N}: {-(-p // 128)} windows of 128 "
+        f"side by side vs K7's one launch: counts exact, max abs err "
+        f"{err:.3e}, bit-identical {bool(torch.equal(wins, one))}")
+    del t, xs, cs, w, one, wins
+
+    out = {}
+    for name in ("favorita_items", "wide16k"):
+        n = N
+        while True:
+            if name == "favorita_items":
+                t, _ = make_favorita_items(n, seed + 61)
+                schema = t.schema
+                xs, cs = list(t.num_data.unbind(0)), list(
+                    t.cat_codes.unbind(0))
+                gen = torch.Generator(device=DEVICE)
+                gen.manual_seed(seed + 62)
+                w = (torch.rand(n, generator=gen, device=DEVICE)
+                     >= 0.2).float()
+            else:
+                schema, xs, cs, w = make_wide16k(n, seed + 64)
+            p, width = schema.sigma_size, _build.WINDOW_WIDTH
+            lows = list(range(0, p, width))
+            if n == N:         # the plans: on the host, once a schema
+                t0 = time.perf_counter()
+                for lo in lows:
+                    _build.window_plan(schema, lo, min(lo + width, p))
+                plan_s = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            full = masked_gram_cols(xs, cs, w, schema=schema)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            pass_ms = cuda_ms(lambda: masked_gram_cols(xs, cs, w,
+                                                       schema=schema),
+                              reps=1, warmup=0)
+            if (name == "wide16k" and pass_ms > WINDOW_PASS_LIMIT_S * 1e3
+                    and n > N_WIDE16K_CUT):
+                log(f"[K7win] wide16k n={n}: a pass {pass_ms:.1f} ms > "
+                    f"{WINDOW_PASS_LIMIT_S} s: cut to {N_WIDE16K_CUT} rows")
+                n = N_WIDE16K_CUT
+                del full, xs, cs, w
+                continue
+            break
+        check(torch.equal(full, full.T), f"[K7win] {name} S not symmetric")
+        check(float(full[0, 0]) == float(w.sum()),
+              f"[K7win] {name} sigma[0,0] != Σw")
+        if name == "wide16k":
+            mid = 3 + schema.cat_sizes[0] - width // 2
+            lows = [0, mid, lows[-1]]
+        per_window, worst = [], 0.0
+        plain_total = 0.0
+        for lo in lows:
+            wd = min(width, p - lo)
+            tag = f"[K7win] {name} window [{lo}, {lo + wd})"
+            got = masked_gram_window(xs, cs, w, schema=schema, lo=lo,
+                                     width=wd)
+            again = masked_gram_window(xs, cs, w, schema=schema, lo=lo,
+                                       width=wd)
+            want = masked_gram_window_plain(xs, cs, w, schema=schema, lo=lo,
+                                            width=wd)
+            torch.cuda.synchronize()
+            worst = max(worst, _window_check(tag, got, again, want, schema,
+                                             lo))
+            check(torch.equal(got, full[:, lo:lo + wd]),
+                  f"{tag} differs from the pass's columns")
+            del got, again, want
+            ms = cuda_ms(lambda: masked_gram_window(
+                xs, cs, w, schema=schema, lo=lo, width=wd), reps=3,
+                warmup=1)
+            plain = cuda_ms(lambda: masked_gram_window_plain(
+                xs, cs, w, schema=schema, lo=lo, width=wd), reps=1,
+                warmup=0)
+            plain_total += plain
+            plan = _build.window_plan(schema, lo, lo + wd)
+            b = window_bound(cs, w, schema, lo, lo + wd)
+            per_window.append(dict(lo=lo, width=wd, ms=ms, plain_ms=plain,
+                                   tasks=plan.num_tasks,
+                                   slabs=int(plan.slabs.shape[0]),
+                                   map_entries=int(plan.entries.shape[0]),
+                                   **b))
+            log(f"{tag}: counts exact, bit-identical rerun, the pass's "
+                f"columns; {plan.num_tasks} tasks, "
+                f"{plan.slabs.shape[0]} slabs, {plan.entries.shape[0]} map "
+                f"entries; kernel {ms:.3f} ms, plain {plain:.3f} ms, bound "
+                f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
+        whole = window_bound(cs, w, schema, 0, p)
+        lib_rows = N_LIBRARY[name]
+        x_st = torch.stack(xs)[:, :lib_rows]
+        c_st = torch.stack(cs)[:, :lib_rows]
+        library = library_gram_ms(x_st, c_st, w[:lib_rows], schema)
+        del x_st, c_st
+        out[name] = dict(
+            rows=n, sigma_size=p, windows=len(range(0, p, width)),
+            ms=pass_ms, first_call_s=first_s, plan_host_s=plan_s,
+            plain_ms=(plain_total if name == "favorita_items" else None),
+            bound_ms=whole["bound_ms"], bound_by=whole["bound_by"],
+            library_ms=library, library_rows=lib_rows,
+            max_abs_err=worst, per_window=per_window)
+        log(f"[K7win] {name} P={p} n={n}: a pass over all of S "
+            f"({len(range(0, p, width))} windows of {width}) {pass_ms:.3f} ms"
+            f" (first call {first_s:.2f} s with the plans' upload; the "
+            f"plans {plan_s:.2f} s on the host), bound "
+            f"{whole['bound_ms']:.4f} ms ({whole['bound_by']}); cuBLAS "
+            f"(Zᵀw)@Z of the dense Z on a {lib_rows}-row slice "
+            f"{library:.3f} ms; max abs err {worst:.3e}")
+        del full, xs, cs, w
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_items(seed: int) -> dict:
+    """run_mice_device at favorita_items (P = 4,592), N rows, ITEMS_ROUNDS
+    rounds, kernel 'auto' ('gram': K7 a window of WINDOW_WIDTH a column
+    step, then the SVD solves): launches exact (rounds × 2 columns × 5
+    windows), quality (family accuracy above its mode share + 0.02,
+    transactions RMSE below the mean fill's), wall s; the same run on the
+    CPU's plain versions at N_ITEMS_CPU rows against the card's (family
+    codes ≥ 0.999)."""
+    from duckdb_imputation_tpu_torch import Table, run_mice_device
+    from duckdb_imputation_tpu_torch.models.device import (
+        linreg_solve_device)
+    from duckdb_imputation_tpu_torch.ring.kernels import _build
+    from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas import (
+        masked_gram_cols)
+
+    t, truth = make_favorita_items(N, seed + 63)
+    p = t.schema.sigma_size
+    windows = -(-p // _build.WINDOW_WIDTH)
+    torch.cuda.synchronize()
+    masked_gram_cols.wide_launches = 0
+    t0 = time.perf_counter()
+    out = run_mice_device(t, iters=ITEMS_ROUNDS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = masked_gram_cols.wide_launches
+    want = ITEMS_ROUNDS * 2 * windows
+    check(launches == want, f"[items] {launches} K7 launches, derived "
+          f"{want}")
+    q = wide_quality(t, truth, out, "[items]")
+    xs, cs = list(t.num_data.unbind(0)), list(t.cat_codes.unbind(0))
+    w = (~t.num_null[1]).float()
+    sigma = masked_gram_cols(xs, cs, w, schema=t.schema)
+    solve_ms = cuda_ms(lambda: linreg_solve_device(sigma, label=2), reps=1,
+                       warmup=1)
+    log(f"[items] run_mice_device favorita_items P={p} n={N} "
+        f"rounds={ITEMS_ROUNDS} ('auto' = 'gram'): {launches} K7 launches "
+        f"({windows} windows a column step, as derived); {wall:.2f} s "
+        f"wall; one SVD solve (linreg_solve_device) {solve_ms:.1f} ms; "
+        f"quality {q}")
+    del t, out, sigma, xs, cs, w
+
+    small, _ = make_favorita_items(N_ITEMS_CPU, seed + 64)
+    cpu = Table(*(a.cpu() for a in (small.num_data, small.cat_codes,
+                                    small.num_null, small.cat_null)),
+                schema=small.schema)
+    t0 = time.perf_counter()
+    ref = run_mice_device(cpu, iters=ITEMS_ROUNDS, kernel="plain")
+    cpu_s = time.perf_counter() - t0
+    got = run_mice_device(small, iters=ITEMS_ROUNDS)
+    sm = small.cat_null[1].cpu()
+    agree = float((got.cat_codes[1].cpu() == ref.cat_codes[1])[sm]
+                  .float().mean())
+    dx = float((got.num_data.cpu() - ref.num_data).abs().max())
+    check(agree >= 0.999, f"[items] card vs CPU family agreement {agree}")
+    log(f"[items] n={N_ITEMS_CPU}: the card vs the CPU's plain versions "
+        f"({cpu_s:.1f} s): family agreement {agree:.6f}, x max diff "
+        f"{dx:.3e}")
+    return dict(launches=launches, wall_s=wall, solve_ms=solve_ms, **q)
+
+
+def _dense_ridge(block, p: int):
+    """The f64 dense ridge solve (on the card) of the normal equations
+    cg_solve_wide solves under CG_CHECK, from the same S: (coefficients
+    of the kept rows, the kept rows)."""
+    label, ridge = CG_CHECK["label"], CG_CHECK["ridge"]
+    sigma = block[:, :p].double()
+    keep = torch.tensor([i for i in range(p) if i != label], device=DEVICE)
+    nrows = sigma[0, 0].clamp(min=1.0)
+    dd = torch.ones(p - 1, dtype=torch.float64, device=DEVICE)
+    dd[0] = 0.0
+    a = sigma[keep][:, keep] / nrows + ridge * torch.diag(dd)
+    ref = torch.linalg.solve(a, sigma[keep, label] / nrows)
+    return ref, keep
+
+
+def phase_wide_v(seed: int, rows16k: int) -> dict:
+    """[wide_v]: run_mice_wide on a 1 × 1 grid made over an NCCL group of
+    one rank (an axis of one rank has no group: no collective runs) at
+    favorita_items, N rows, 2 rounds, the entry point's defaults: its K7
+    launches (one window of all P columns a column step), quality (as
+    [items]), wall s; cg_solve_wide of transactions against an f64 dense
+    ridge solve of the same S at tests/test_wide.py's 2e-3; sigma_striped
+    at wide16k (`rows16k` rows, [K7win]'s), stripes of WINDOW_WIDTH, each
+    equal to masked_gram's columns, peak device memory beside S. Then
+    [wide_v2]. Returns the
+    launches and numbers of the kernels line."""
+    import dataclasses
+    import datetime
+    import tempfile
+
+    from duckdb_imputation_tpu_torch.parallel import (
+        cg_solve_wide, initialize, make_mesh_2d, run_mice_wide, shutdown,
+        sigma_wide)
+    from duckdb_imputation_tpu_torch.ring import sigma_striped
+    from duckdb_imputation_tpu_torch.ring.kernels import _build
+    from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas import (
+        masked_gram, masked_gram_window)
+
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        initialize("nccl", store=_store(f"{d}/store", 1), world_size=1,
+                   rank=0, device=DEVICE,
+                   timeout=datetime.timedelta(minutes=5))
+        try:
+            grid = make_mesh_2d(1, 1)
+            t, truth = make_favorita_items(N, seed + 63)
+            p = t.schema.sigma_size
+            w = (~t.num_null[1]).float()
+            block = sigma_wide(t.num_data, t.cat_codes, w, schema=t.schema,
+                               mesh=grid)
+            check(block.shape == (p, p), f"[wide_v] block {block.shape}")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            coeff = cg_solve_wide(block, mesh=grid, p=p, **CG_CHECK)
+            torch.cuda.synchronize()
+            cg_s = time.perf_counter() - t0
+            ref, keep = _dense_ridge(block, p)
+            diff = (coeff[keep].double() - ref).abs()
+            over = float((diff - (2e-3 + 2e-3 * ref.abs())).max())
+            check(over <= 0, f"[wide_v] cg_solve_wide beyond 2e-3 of the "
+                  f"f64 dense solve by {over:.3e}")
+            out["coeff"] = coeff.cpu()
+            del block
+            torch.cuda.synchronize()
+            masked_gram_window.launches = 0
+            t0 = time.perf_counter()
+            x, c = run_mice_wide(t.num_data, t.cat_codes, t.num_null,
+                                 t.cat_null, schema=t.schema, mesh=grid,
+                                 iters=ITEMS_ROUNDS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = masked_gram_window.launches
+            check(launches == ITEMS_ROUNDS * 2,
+                  f"[wide_v] {launches} K7 window launches, derived "
+                  f"{ITEMS_ROUNDS * 2}")
+            q = wide_quality(t, truth, dataclasses.replace(
+                t, num_data=x, cat_codes=c), "[wide_v]")
+            out["x"] = x[1][t.num_null[1]].cpu()
+            out["c"] = c[1][t.cat_null[1]].cpu()
+            out["c_at_x"] = c[1][t.num_null[1]].cpu()
+            log(f"[wide_v] run_mice_wide favorita_items P={p} n={N} on a "
+                f"1 × 1 grid over NCCL (no collective), rounds="
+                f"{ITEMS_ROUNDS}: {launches} K7 window launches (one of "
+                f"{p} columns a column step); {wall:.2f} s wall; quality "
+                f"{q}; cg_solve_wide (transactions, ridge "
+                f"{CG_CHECK['ridge']}, ≤ {CG_CHECK['iters']} steps) "
+                f"{cg_s:.2f} s, within 2e-3 of the f64 dense solve (max "
+                f"|Δ| {float(diff.max()):.3e} at max|θ| "
+                f"{float(ref.abs().max()):.3e}; worst margin {over:.3e})")
+            del t, truth, x, c, w
+
+            schema, xs, cs, w16 = make_wide16k(rows16k, seed + 64)
+            p16 = schema.sigma_size
+            x_st, c_st = torch.stack(xs), torch.stack(cs)
+            full = masked_gram(x_st, c_st, w16, schema=schema)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            masked_gram_window.launches = 0
+            partial = 0
+            for lo, stripe in sigma_striped(x_st, c_st, w16, schema=schema,
+                                            stripe=_build.WINDOW_WIDTH):
+                check(torch.equal(stripe, full[:, lo:lo + stripe.shape[1]]),
+                      f"[wide_v] stripe {lo} differs from masked_gram's S")
+                plan = _build.window_plan(schema, lo, lo + stripe.shape[1])
+                partial = max(partial, int(plan.task_base[-1])
+                              * plan.slices(x_st.shape[1]) * 8)
+                del stripe
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            stripes = masked_gram_window.launches
+            stripe_bytes = p16 * _build.WINDOW_WIDTH * 4
+            check(stripes == -(-p16 // _build.WINDOW_WIDTH),
+                  f"[wide_v] {stripes} stripe launches")
+            check(peak <= stripe_bytes + partial + (1 << 20),
+                  f"[wide_v] striped peak {peak} B > a stripe "
+                  f"{stripe_bytes} + K7's partial {partial} + 1 MiB")
+            log(f"[wide_v] sigma_striped wide16k P={p16} n={x_st.shape[1]}: "
+                f"{stripes} stripes of {_build.WINDOW_WIDTH}, each equal to "
+                f"masked_gram's columns; peak device memory beside S (and "
+                f"the plans, cached) {peak} B = a stripe {stripe_bytes} B "
+                f"+ K7's f64 partial {partial} B + {peak - stripe_bytes - partial} "
+                f"B (a dense S is {p16 * p16 * 4} B)")
+            del full, x_st, c_st, xs, cs, w16
+            torch.cuda.empty_cache()
+            out["v2"] = phase_wide_v2(seed, out)
+        finally:
+            shutdown()
+    return dict(wide_v_launches=launches, window_launches=stripes,
+                striped_peak_bytes=peak, cg_s=cg_s, wall_s=wall, **q,
+                wide_v2=out["v2"])
+
+
+def wide_rank(rank: int, out_dir: str, seed: int) -> int:
+    """One rank of [wide_v2] (a child process): gloo over CUDA tensors, a
+    1 × 2 grid (sigma's columns split, every row on both ranks) at
+    favorita_items; the sigma block's peak memory, cg_solve_wide and
+    run_mice_wide as [wide_v] runs them; writes out_dir/rank<rank>.pt."""
+    import datetime
+
+    from duckdb_imputation_tpu_torch.parallel import (
+        cg_solve_wide, initialize, make_mesh_2d, run_mice_wide, shutdown,
+        sigma_wide)
+    from duckdb_imputation_tpu_torch.ring.kernels import _build
+    from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas import (
+        masked_gram_window)
+
+    initialize("gloo", store=_store(f"{out_dir}/store", 2), world_size=2,
+               rank=rank, device=DEVICE,
+               timeout=datetime.timedelta(seconds=300))
+    grid = make_mesh_2d(1, 2)
+    t, _ = make_favorita_items(N, seed + 63)
+    p = t.schema.sigma_size
+    w = (~t.num_null[1]).float()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    block = sigma_wide(t.num_data, t.cat_codes, w, schema=t.schema,
+                       mesh=grid)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    cols_per = block.shape[1]
+    lo = rank * cols_per
+    plan = _build.window_plan(t.schema, lo, min(lo + cols_per, p))
+    plan_bytes = sum(x.numel() * x.element_size() for x in (
+        plan.slabs, plan.warp_begin, plan.task_base, plan.stage_cols,
+        plan.entries))
+    partial = int(plan.task_base[-1]) * plan.slices(N) * 8
+    coeff = cg_solve_wide(block, mesh=grid, p=p, **CG_CHECK)
+    del block
+    torch.cuda.synchronize()
+    masked_gram_window.launches = 0
+    t0 = time.perf_counter()
+    x, c = run_mice_wide(t.num_data, t.cat_codes, t.num_null, t.cat_null,
+                         schema=t.schema, mesh=grid, iters=ITEMS_ROUNDS)
+    torch.cuda.synchronize()
+    torch.save(dict(
+        peak=peak, block_shape=(p, cols_per), plan_bytes=plan_bytes,
+        partial_bytes=partial, coeff=coeff.cpu(),
+        wall_s=time.perf_counter() - t0,
+        launches=masked_gram_window.launches,
+        x=x[1][t.num_null[1]].cpu(), c=c[1][t.cat_null[1]].cpu(),
+        c_at_x=c[1][t.num_null[1]].cpu(),
+        observed_same=bool(
+            torch.equal(x[~t.num_null], t.num_data[~t.num_null])
+            and torch.equal(c[~t.cat_null], t.cat_codes[~t.cat_null]))),
+        f"{out_dir}/rank{rank}.pt")
+    shutdown()
+    return 0
+
+
+def phase_wide_v2(seed: int, one: dict) -> dict:
+    """[wide_v2]: two gloo ranks over CUDA tensors sharing the card as a 1
+    × 2 grid (each holds P × ⌈P/2⌉ of sigma, every row), spawned as
+    [sharded2]'s are, at favorita_items, against [wide_v]'s 1 × 1 grid
+    (`one`): family codes agree on ≥ 0.999 of the null rows; imputed
+    transactions and the CG coefficients within 5e-3 (the transactions
+    rows whose family agrees: a flipped family moves its row by the class
+    coefficients' difference); each rank's peak memory for its sigma
+    block ≤ P·⌈P/2⌉·4 B + its window's plan + K7's f64 partial + 1 MiB
+    (torch.cuda.max_memory_allocated). Every child is killed at the
+    deadline."""
+    import tempfile
+
+    p = items_schema().sigma_size
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, __file__, "--wide-rank", str(r),
+             "--sharded-dir", d, "--seed", str(seed)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(2)]
+        logs = []
+        try:
+            for proc in procs:
+                left = WIDE_V2_DEADLINE_S - (time.perf_counter() - t0)
+                logs.append(proc.communicate(timeout=max(1.0, left))[0])
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        wall = time.perf_counter() - t0
+        for r, (proc, text) in enumerate(zip(procs, logs)):
+            check(proc.returncode == 0, f"[wide_v2] rank {r} failed "
+                  f"({proc.returncode}):\n{text[-4000:]}")
+        ranks = [torch.load(f"{d}/rank{r}.pt") for r in range(2)]
+    half = -(-p // 2)
+    for r, res in enumerate(ranks):
+        check(res["block_shape"] == (p, half),
+              f"[wide_v2] rank {r} block {res['block_shape']}")
+        limit = p * half * 4 + res["plan_bytes"] + res["partial_bytes"] + (
+            1 << 20)
+        check(res["peak"] <= limit, f"[wide_v2] rank {r} sigma peak "
+              f"{res['peak']} B > {limit} B")
+        check(res["observed_same"], f"[wide_v2] rank {r} observed changed")
+        check(res["launches"] == ITEMS_ROUNDS * 2,
+              f"[wide_v2] rank {r}: {res['launches']} window launches")
+    for key in ("x", "c", "coeff"):
+        check(torch.equal(ranks[0][key], ranks[1][key]),
+              f"[wide_v2] the ranks' {key} differ")
+    res = ranks[0]
+    agree = float((res["c"] == one["c"]).float().mean())
+    check(agree >= 0.999, f"[wide_v2] family agreement {agree}")
+    same = res["c_at_x"] == one["c_at_x"]
+    check(torch.allclose(res["x"][same], one["x"][same], rtol=5e-3,
+                         atol=5e-3),
+          f"[wide_v2] transactions beyond 5e-3 of the 1 × 1 grid's: max "
+          f"|Δ| {float((res['x'] - one['x'])[same].abs().max()):.3e}")
+    check(torch.allclose(res["coeff"], one["coeff"], rtol=5e-3, atol=5e-3),
+          "[wide_v2] CG coefficients beyond 5e-3 of the 1 × 1 grid's")
+    out = dict(code_agreement=agree,
+               codes_differ=int((res["c"] != one["c"]).sum()),
+               x_max_abs_diff=float((res["x"] - one["x"])[same].abs().max()),
+               coeff_max_abs_diff=float((res["coeff"] - one["coeff"])
+                                        .abs().max()),
+               peak_bytes=[r["peak"] for r in ranks],
+               block_bytes=p * half * 4,
+               plan_bytes=[r["plan_bytes"] for r in ranks],
+               partial_bytes=[r["partial_bytes"] for r in ranks],
+               rank_wall_s=[r["wall_s"] for r in ranks], wall_s=wall)
+    log(f"[wide_v2] 2 gloo ranks over CUDA tensors sharing the card, a 1 × "
+        f"2 grid at favorita_items P={p} n={N}, against the 1 × 1 grid: "
+        f"{out}; a dense S is {p * p * 4} B")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     # a rank of [sharded2], spawned by phase_sharded2 itself
     ap.add_argument("--sharded-rank", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--sharded-dir", help=argparse.SUPPRESS)
+    # a rank of [wide_v2], spawned by phase_wide_v2 (with --sharded-dir)
+    ap.add_argument("--wide-rank", type=int, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -3829,6 +4469,8 @@ def main() -> int:
     if args.sharded_rank is not None:
         return sharded_rank(args.sharded_rank, 2, args.sharded_dir,
                             args.seed)
+    if args.wide_rank is not None:
+        return wide_rank(args.wide_rank, args.sharded_dir, args.seed)
 
     card = phase_device()
     phase_build()
@@ -3864,6 +4506,9 @@ def main() -> int:
     stream = phase_stream(args.seed)
     for phase in (phase_stream_csv, phase_stream_spill, phase_stream_ckpt):
         stream = add_counts(stream, phase(args.seed))
+    k7win = phase_k7win(args.seed)
+    items = phase_items(args.seed)
+    wide_v = phase_wide_v(args.seed, k7win["wide16k"]["rows"])
 
     src = "duckdb_imputation_tpu_torch/csrc/"
     ref = "duckdb_imputation_tpu/ring/kernels/"
@@ -3916,7 +4561,13 @@ def main() -> int:
              host_launches=host_wide, gd_launches=gd["wide_gram"],
              star_launches=star["wide_gram"],
              sharded_launches=sharded["wide_gram"],
-             stream_launches=stream["wide_gram"], **k7),
+             stream_launches=stream["wide_gram"],
+             items_launches=items["launches"],
+             wide_v_launches=wide_v["wide_v_launches"],
+             window_launches=wide_v["window_launches"],
+             window_replaces=[ref + "sigma_pallas.py:553",
+                              ref + "sigma_pallas.py:1027"],
+             window=k7win, **k7),
         dict(name="fused_impute_aggregate_wide", route="cuda",
              source=src + "fused_impute_aggregate.cu",
              replaces=ref + "sigma_fused.py:509",

@@ -50,6 +50,14 @@
 //      rounds to f32 once and writes both triangles of S through the
 //      plan's map; cells of the zero structure are never written (the
 //      output is zero-filled).
+//   5. K7 over a column window S[:, lo:lo + width] (dit_wide_gram_window,
+//      any P ≤ kMaxWindowP) runs the same kernel over a window's plan
+//      (_build.py: window_plan): the cells whose row or column lies in the
+//      window, C_jk cut by either key range (a slab (C, k, j, ...) keys
+//      on column k's codes), and a map of one place a cell and output
+//      position, S[i, j] with lo ≤ j < lo + width, written with a row
+//      stride `ld` (OutMap, mirror off). Past kMaxWideP masked_gram
+//      assembles S from such windows.
 //
 // What bounds it on an H100: the bytes floor is one read of x, codes and w
 // (0.16 ms per 10M rows at favorita_wide); the work is ~k(k + 1)/2 table
@@ -66,7 +74,10 @@
 namespace dit {
 namespace {
 
-constexpr int kMaxWideP = 1024;
+constexpr int kMaxWideP = 1024;             // K7's whole plan, K2w and K8
+// K7 over a column window: a window's map holds at most P·width ≤ P² < 2³¹
+// places (int entry counts; positions are int64)
+constexpr int kMaxWindowP = 46340;
 constexpr int kWideChunk = 32;               // rows a warp takes a step
 constexpr int kWideWarps = kThreads / 32;    // warps of a block
 constexpr int kWideSubs = kThreads / kWideChunk;  // most warp steps a stage
@@ -362,15 +373,25 @@ wide_gram_kernel(const __grid_constant__ Cols cols,
   }
 }
 
+// Where the reduction writes a map entry (i, j) of group g: out + g·gstride
+// + i·ld + j − lo and, with `mirror`, + j·ld + i − lo. A whole plan (i ≤ j,
+// both triangles): {P, P·P, 0, true}; a window's plan (one place an
+// entry, lo ≤ j < lo + width): {ld, 0, lo, false}.
+struct OutMap {
+  int64_t ld, gstride;
+  int lo;
+  bool mirror;
+};
+
 // One thread per (group, map entry): the cell's slots over the slices that
 // touched the group, in slice order, f64, one rounding; writes S_g[i, j]
-// and S_g[j, i]. cum == nullptr: K7, one group of `total` chunks. An empty
-// group gets zeros.
+// and, with om.mirror, S_g[j, i]. cum == nullptr: K7, one group of `total`
+// chunks. An empty group gets zeros.
 __global__ void wide_gram_reduce(const double* __restrict__ partial,
                                  const __grid_constant__ WidePlanArgs plan,
                                  const int64_t* __restrict__ cum,
-                                 int64_t total, int G, int slices, int P,
-                                 float* __restrict__ out) {
+                                 int64_t total, int G, int slices,
+                                 const OutMap om, float* __restrict__ out) {
   const int64_t t = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
   if (t >= int64_t(G) * plan.nentries) return;
   const int g = static_cast<int>(t / plan.nentries);
@@ -387,9 +408,9 @@ __global__ void wide_gram_reduce(const double* __restrict__ partial,
       s += p[(b + g) * cells];
   }
   const float v = static_cast<float>(s);
-  float* o = out + int64_t(g) * P * P;
-  o[int64_t(i) * P + j] = v;
-  o[int64_t(j) * P + i] = v;
+  float* o = out + int64_t(g) * om.gstride;
+  o[int64_t(i) * om.ld + (j - om.lo)] = v;
+  if (om.mirror) o[int64_t(j) * om.ld + (i - om.lo)] = v;
 }
 
 // Mirrored by ring/kernels/_build.py: wide_smem_bytes.
@@ -424,13 +445,17 @@ inline int make_plan(const int* slabs, const int* warp_begin,
 
 // Launches K7 (Grouped = false; off, cum unused, G = 1) or K8 and the
 // reduction on `stream`. partial: f64 scratch of task_base[tasks] ·
-// (slices + G − 1); out: f32[G, P, P], zeroed by the caller.
+// (slices + G − 1); out: f32[G, P, P], zeroed by the caller, or with
+// `window` (K7 over a window's plan) the places it names.
 template <bool Grouped>
 inline int launch_wide_gram(const Cols& cols, const WidePlanArgs& plan,
                             int P, int64_t n, const int64_t* off,
                             const int64_t* cum, int G, int slices,
                             const float* w, double* partial, float* out,
-                            cudaStream_t stream) {
+                            cudaStream_t stream,
+                            const OutMap* window = nullptr) {
+  const OutMap om = window ? *window
+                           : OutMap{P, int64_t(P) * P, 0, true};
   const size_t smem = wide_smem_bytes(plan);
   cudaError_t rc = cudaFuncSetAttribute(
       wide_gram_kernel<Grouped>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -445,7 +470,7 @@ inline int launch_wide_gram(const Cols& cols, const WidePlanArgs& plan,
   if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
   wide_gram_reduce<<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
       partial, plan, Grouped ? cum : nullptr,
-      (n + kWideChunk - 1) / kWideChunk, G, slices, P, out);
+      (n + kWideChunk - 1) / kWideChunk, G, slices, om, out);
   return cudaGetLastError();
 }
 

@@ -53,7 +53,13 @@ TC_RIGHT = 32        # kTcRight (tc_gram.cuh): right features of K1's tile
 # at 1,024 blocks); a constant, so a result does not depend on the card it
 # ran on
 TC_MAX_BLOCKS = 660
-MAX_WIDE_SIGMA_SIZE = 1024  # kMaxWideP (wide_gram.cuh): K7, K2w and K8
+MAX_WIDE_SIGMA_SIZE = 1024  # kMaxWideP (wide_gram.cuh): K7's whole plan,
+                            # K2w, K8 and K3/K3w
+MAX_WINDOW_SIGMA_SIZE = 46340  # kMaxWindowP (wide_gram.cuh): K7 over a
+                               # column window (a map of P·width ≤ P² <
+                               # 2³¹ places)
+WINDOW_WIDTH = 1024  # the windows masked_gram(_cols) assemble S from above
+                     # MAX_WIDE_SIGMA_SIZE: the width K7 was tuned at
 WIDE_CHUNK = 32      # kWideChunk (wide_gram.cuh): rows a warp takes a step,
                      # one a lane; also the most cells of a D slab
 WIDE_WARPS = 8       # kWideWarps (wide_gram.cuh): warps of a K7/K8 block
@@ -151,6 +157,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.dit_grouped_wide_gram.restype = i
     lib.dit_wide_gram.argtypes = [p, i, p, p, i, p, i64, i, *plan, p, p, p]
     lib.dit_wide_gram.restype = i
+    lib.dit_wide_gram_window.argtypes = [p, i, p, p, i, p, i64, i, i, i, i64,
+                                         *plan, p, p, p]
+    lib.dit_wide_gram_window.restype = i
     lib.dit_fused_impute_aggregate_wide.argtypes = [
         p, i, p, p, i, p, p, p, p, i, i, i, p, i, u32, u32, u32, i64, p,
         i64, i, *plan, p, p, p, p, p]
@@ -459,7 +468,9 @@ class WidePlan:
       task_base[t + 1] of the flat list of every task's cells.
     entries i32[M, 4]: (task, cell, i, j), i ≤ j: S[i, j] = S[j, i] = that
       cell; every structurally nonzero (i, j) of the upper triangle once,
-      sorted by (task, cell).
+      sorted by (task, cell). A window's plan (`window_plan`): S[i, j] =
+      that cell for one place (i, j) with j in the window; every
+      structurally nonzero place of the window once.
     stage_cols i32[T, 1 + MAX_COLS]: (count, the categorical columns task
       t's slabs read, −1 past count): what its blocks stage, with w and,
       when it has a D or K slab, x.
@@ -478,6 +489,9 @@ class WidePlan:
     scorer: bool = False   # K3/K3w's tables: K_j's cell (v, a) at a·(v_hi −
                            # v_lo) + v − v_lo, and each task's cells padded
                            # to a multiple of 4 (whole 16-byte f32 words)
+    window: tuple[int, int] | None = None  # [lo, hi): a window's plan
+                           # (`window_plan`), whose map lists one place
+                           # (i, j), lo ≤ j < hi, an entry
 
     @property
     def num_tasks(self) -> int:
@@ -528,11 +542,17 @@ def _pack_tasks(cells: list[int], cap: int) -> list[list[int]]:
     # the task with room that holds the fewest slabs (a block takes as long
     # as its busiest warp)
     order = sorted(range(len(cells)), key=lambda i: -cells[i])
-    count = -(-sum(cells) // cap)
+    # no two slabs of more than half the budget share a task: each of them
+    # (they come first) takes the next empty task, as the rule below would
+    big = sum(2 * c > cap for c in cells)
+    count = max(-(-sum(cells) // cap), big)
     while True:
         tasks: list[list[int]] = [[] for _ in range(count)]
         used = [0] * count
-        for i in order:
+        for t, i in enumerate(order[:big]):
+            tasks[t].append(i)
+            used[t] = cells[i]
+        for i in order[big:]:
             room = [t for t in range(count) if used[t] + cells[i] <= cap
                     and len(tasks[t]) < WIDE_MAX_SLABS]
             if not room:
@@ -580,6 +600,14 @@ def _wide_plan(d: int, sizes: tuple[int, ...], cross: bool = True,
                                (hi - lo) * sizes[k],
                                torch.stack([(u - lo) * sizes[k] + v,
                                             base[j] + u, base[k] + v])))
+    return _plan_of(pieces, d, cross, scorer, cap)
+
+
+def _plan_of(pieces: list, d: int, cross: bool, scorer: bool, cap: int,
+             window: tuple[int, int] | None = None) -> WidePlan:
+    """The plan of `pieces` (kind, params, cells, local entries i64[3, m]:
+    cell, i, j): the slabs packed into tasks, each task's slabs to its
+    warps, the map sorted by (task, cell)."""
     tasks = _pack_tasks([p[2] for p in pieces], cap)
     slabs, warp_begin, task_base, entries = [], [0], [0], []
     stage_cols, widths = [], []
@@ -613,8 +641,9 @@ def _wide_plan(d: int, sizes: tuple[int, ...], cross: bool = True,
             off = -(-off // 4) * 4
         task_base.append(task_base[-1] + off)
     ent = torch.cat(entries, 1).T
-    order = torch.argsort(ent[:, 0] * (task_base[-1] + 1) + ent[:, 1],
-                          stable=True)
+    key = ent[:, 0] * (task_base[-1] + 1) + ent[:, 1]
+    order = (torch.arange(key.shape[0]) if bool((key[1:] >= key[:-1]).all())
+             else torch.argsort(key, stable=True))
     max_cols, max_slabs = max(widths), max(map(len, tasks))
     max_cells = max(b - a for a, b in zip(task_base, task_base[1:]))
     rows = next(r for r in (256, 128, 64, 32) if wide_smem_bytes(
@@ -627,7 +656,121 @@ def _wide_plan(d: int, sizes: tuple[int, ...], cross: bool = True,
         entries=ent[order].to(torch.int32).contiguous(),
         stage_cols=torch.tensor(stage_cols, dtype=torch.int32),
         max_stage_cols=max_cols, max_slabs=max_slabs, stage_rows=rows,
-        cross=cross, scorer=scorer, task_cells=cap)
+        cross=cross, scorer=scorer, task_cells=cap, window=window)
+
+
+def _window_pieces(d: int, sizes: tuple[int, ...], lo: int, hi: int,
+                   cap: int) -> list:
+    """The slabs of S[:, lo:hi]: every cell whose row or column lies in
+    the window, with one map entry (cell, i, j) for each place S[i, j],
+    lo ≤ j < hi, that the cell's value fills.
+
+    D: a slab where one of its places lies in the window. K_j: every key
+    where a column of [1 ‖ x] lies in the window (its row of the table is
+    a row of S), else the keys whose one-hot columns do. C_jk (j < k),
+    with A and B the window's keys of j and of k: the whole table when
+    |A|·V_k + |B|·V_j ≥ V_j·V_k, keyed on the column of more levels (rows
+    of the fewer pack the tasks fuller), each cell to its places in the
+    window; else slabs (C, j, k) over A, placed in j's columns, and slabs
+    (C, k, j) over B (keyed on k's codes, cell (v − v_lo)·V_j + u),
+    placed in k's columns, so a place of A × B is written once."""
+    base = [1 + d + sum(sizes[:j]) for j in range(len(sizes))]
+
+    def places(cell, i, j):
+        """(cell, i, j) for S[i, j] and (cell, j, i) for S[j, i] (i ≠ j),
+        each where its column lies in the window."""
+        fwd = (j >= lo) & (j < hi)
+        rev = (i >= lo) & (i < hi) & (i != j)
+        return torch.cat([torch.stack([cell, i, j])[:, fwd],
+                          torch.stack([cell, j, i])[:, rev]], 1)
+
+    def keys(j):
+        """[a, b) of column j's codes whose one-hot columns lie in the
+        window."""
+        return (min(max(lo - base[j], 0), sizes[j]),
+                min(max(hi - base[j], 0), sizes[j]))
+
+    def ranges(a, b, row_cells):
+        """Key ranges of [a, b) as `_split` cuts them."""
+        return ([(a + r0, a + r1) for r0, r1 in _split(b - a, row_cells, cap)]
+                if b > a else [])
+
+    pieces = []
+    for a in range(1 + d):
+        for blo in range(a, 1 + d, WIDE_CHUNK):
+            bhi = min(blo + WIDE_CHUNK, 1 + d)
+            b = torch.arange(blo, bhi)
+            local = places(b - blo, torch.full_like(b, a), b)
+            if local.shape[1]:
+                pieces.append((SLAB_D, (a, blo, bhi, 0), bhi - blo, local))
+    for j, size in enumerate(sizes):
+        klo, khi = (0, size) if lo < 1 + d else keys(j)
+        for vlo, vhi in ranges(klo, khi, 1 + d):
+            v = torch.arange(vlo, vhi).repeat_interleave(1 + d)
+            a = torch.arange(1 + d).repeat(vhi - vlo)
+            diag = base[j] + torch.arange(vlo, vhi)
+            on = (diag >= lo) & (diag < hi)
+            pieces.append((SLAB_K, (j, vlo, vhi, 0), (vhi - vlo) * (1 + d),
+                           torch.cat([places((v - vlo) * (1 + d) + a, a,
+                                             base[j] + v),
+                                      torch.stack([(diag - base[j] - vlo)
+                                                   * (1 + d), diag,
+                                                   diag])[:, on]], 1)))
+    for j in range(len(sizes)):
+        for k in range(j + 1, len(sizes)):
+            vj, vk = sizes[j], sizes[k]
+            (ua, ub), (va, vb) = keys(j), keys(k)
+            if vj == 0 or vk == 0 or (ua == ub and va == vb):
+                continue
+            whole = (ub - ua) * vk + (vb - va) * vj >= vj * vk
+            if whole:    # (key column, row column): the rows the shorter
+                jobs = [(j, k, 0, vj, True) if vj >= vk
+                        else (k, j, 0, vk, True)]
+            else:
+                jobs = [(j, k, ua, ub, False), (k, j, va, vb, False)]
+            for key, row, klo, khi, both in jobs:
+                vr = sizes[row]
+                for lo_u, hi_u in ranges(klo, khi, vr):
+                    u = torch.arange(lo_u, hi_u).repeat_interleave(vr)
+                    v = torch.arange(vr).repeat(hi_u - lo_u)
+                    cell = (u - lo_u) * vr + v
+                    local = (places(cell, base[key] + u, base[row] + v)
+                             if both else torch.stack([cell, base[row] + v,
+                                                       base[key] + u]))
+                    pieces.append((SLAB_C, (key, row, lo_u, hi_u),
+                                   (hi_u - lo_u) * vr, local))
+    return pieces
+
+
+def check_window(schema, lo: int, width: int) -> None:
+    """Raise ValueError for a window K7 does not take: [lo, lo + width)
+    inside [0, P), and every categorical column at most a task's cells
+    (a row of a cross table, V_k cells, lies in one task)."""
+    p = schema.sigma_size
+    if not (0 <= lo and width >= 1 and lo + width <= p):
+        raise ValueError(f"window [{lo}, {lo + width}) is not inside "
+                         f"[0, {p})")
+    cap = WIDE_TASK_BYTES // 8
+    if schema.cat_cols > 1 and max(schema.cat_sizes) > cap:
+        raise ValueError(f"a categorical column of {max(schema.cat_sizes)}"
+                         f" levels: K7 takes at most {cap} beside another "
+                         f"column (a cross table's row lies in one task)")
+
+
+@functools.lru_cache(maxsize=32)
+def _window_plan(d: int, sizes: tuple[int, ...], lo: int, hi: int
+                 ) -> WidePlan:
+    cap = WIDE_TASK_BYTES // 8
+    return _plan_of(_window_pieces(d, sizes, lo, hi, cap), d, True, False,
+                    cap, (lo, hi))
+
+
+def window_plan(schema, lo: int, hi: int) -> WidePlan:
+    """K7's plan of the column window S[:, lo:hi], on the CPU; made once
+    per schema and window. Its map lists each structurally nonzero place
+    of the window once, (task, cell, i, j) with lo ≤ j < hi."""
+    check_window(schema, lo, hi - lo)
+    return _window_plan(schema.num_cols, tuple(schema.cat_sizes), lo, hi)
 
 
 def wide_smem_bytes(cells: int, cols: int, slabs: int, rows: int) -> int:

@@ -29,11 +29,12 @@ schema, the schema with the K flags appended as K categorical columns of
 one level each (code 0 where the cell is null, 1, out of vocabulary,
 where it is observed), already in [Z₀ | M] order. So each chunk is one
 call of the masked-Gram kernels (`ring.kernels.sigma_pallas.masked_gram`:
-K1 at P + K ≤ 88, K7 above), with no row padding, and the chunks' f32
+K1 at P + K ≤ 88, K7 above: one launch, or past P + K = 1,024 one a
+column window), with no row padding, and the chunks' f32
 results are summed in f64 on the device: counts stay exact past 2²⁴ rows,
 where the JAX package's f32 sum of chunks does not. The kernels take at
-most 64 categorical columns (c + K) and P + K ≤ 1,024; past them a CUDA
-fold raises before it reads the stream. Null cells are zeroed and codes
+most 64 categorical columns (c + K) and P + K ≤ 46,340 (K7's windows);
+past them a CUDA fold raises before it reads the stream. Null cells are zeroed and codes
 encoded on the host; chunks are copied to the device as they are (plain
 copies, no packing). With a mesh (`parallel.Mesh`), each rank folds its
 `row_shard` of every chunk and one all-reduce of the f64 Gram ends the
@@ -308,9 +309,13 @@ def encode_chunk(num, cat, num_null, cat_null, ss: StreamSchema
 
 def check_fold(ss: StreamSchema, rows: int) -> None:
     """Raise ValueError when the kernels cannot fold this stream's
-    extended schema (c + K ≤ 64 categorical columns, P + K ≤ 1,024)."""
-    _build.check_schema(extended_schema(ss), rows,
-                        _build.MAX_WIDE_SIGMA_SIZE)
+    extended schema (c + K ≤ 64 categorical columns, P + K ≤ K7's window
+    limit, and past P + K = 1,024 no column of more levels than a K7 task
+    holds)."""
+    ext = extended_schema(ss)
+    _build.check_schema(ext, rows, _build.MAX_WINDOW_SIGMA_SIZE)
+    if ext.sigma_size > _build.MAX_WIDE_SIGMA_SIZE:
+        _build.check_window(ext, 0, ext.sigma_size)
 
 
 def _reblocked(chunk_source, chunk_rows: int):

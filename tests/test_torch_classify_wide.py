@@ -491,7 +491,8 @@ def _cxx_constants():
 def test_limit_constants_equal_the_kernels():
     cxx = _cxx_constants()
     pairs = {"CHUNK_ROWS": "kChunk", "MAX_SIGMA_SIZE": "kMaxP",
-             "MAX_WIDE_SIGMA_SIZE": "kMaxWideP", "WIDE_CHUNK": "kWideChunk",
+             "MAX_WIDE_SIGMA_SIZE": "kMaxWideP",
+             "MAX_WINDOW_SIGMA_SIZE": "kMaxWindowP", "WIDE_CHUNK": "kWideChunk",
              "WIDE_WARPS": "kWideWarps", "WIDE_TASK_BYTES": "kWideTaskBytes",
              "WIDE_SLAB_INTS": "kWideSlabInts", "SLAB_D": "kSlabD",
              "SLAB_K": "kSlabK", "SLAB_C": "kSlabC",

@@ -355,10 +355,19 @@ def test_kernels_raise_on_inputs_they_do_not_take(cuda):
     with pytest.raises(ValueError):       # not contiguous
         masked_gram_cols([torch.stack([x, x], 1)[:, 0] for x in xs], cs,
                          None, schema=SCHEMA)
-    wide = FeatureSchema(num_cols=4, cat_keys=(tuple(range(1020)),))
-    assert wide.sigma_size > _build.MAX_WIDE_SIGMA_SIZE
-    with pytest.raises(ValueError):       # sigma size above K7's
+    wide = FeatureSchema(num_cols=4, cat_keys=(tuple(range(
+        _build.MAX_WINDOW_SIGMA_SIZE)),))
+    assert wide.sigma_size > _build.MAX_WINDOW_SIGMA_SIZE
+    with pytest.raises(ValueError):       # sigma size above K7's windows
         masked_gram_cols(xs, cs[:1], None, schema=wide)
+    above = FeatureSchema(num_cols=4, cat_keys=(tuple(range(1020)),))
+    assert above.sigma_size > _build.MAX_WIDE_SIGMA_SIZE
+    with pytest.raises(ValueError):       # K2w keeps P ≤ 1,024
+        fused_impute_aggregate(
+            xs, cs[:1], torch.zeros(1000, dtype=torch.bool, device=cuda),
+            w, torch.zeros((above.sigma_size, 1020), device=cuda),
+            torch.zeros(1020, device=cuda), schema=above, kind="cat",
+            imp_col=0)
     args = fused_args("cat", 1000, cuda)
     with pytest.raises(ValueError):       # w_full of the wrong width
         fused_impute_aggregate(*args[:4], args[4][:, :3], args[5][:3],
@@ -805,7 +814,8 @@ def test_wide_gram_kernel_matches_plain(cuda, name, n, binary):
 
 def test_wide_gram_at_its_limit(cuda):
     """P = MAX_WIDE_SIGMA_SIZE with 51 columns of 20: 1,275 cross tables
-    in 64 tasks of the plan; one more column raises before any launch."""
+    in 64 tasks of the plan, one launch; one more numeric column (P =
+    1,025) takes K7's windows, two launches of WINDOW_WIDTH columns."""
     keys = (tuple(range(20)),) * 51
     schema = FeatureSchema(num_cols=3, cat_keys=keys)
     assert schema.sigma_size == _build.MAX_WIDE_SIGMA_SIZE
@@ -824,8 +834,14 @@ def test_wide_gram_at_its_limit(cuda):
     torch.testing.assert_close(got, want, rtol=0,
                                atol=1e-5 * float(want.abs().max()))
     over = FeatureSchema(num_cols=4, cat_keys=keys)
-    with pytest.raises(ValueError):
-        masked_gram_cols(xs + xs[:1], cs, None, schema=over)
+    before = masked_gram_cols.wide_launches
+    got = masked_gram_cols(xs + xs[:1], cs, None, schema=over)
+    assert masked_gram_cols.wide_launches == before + 2
+    want = masked_gram_cols_plain(xs + xs[:1], cs, None, schema=over)
+    assert torch.equal(got[count_mask(over, cuda)],
+                       want[count_mask(over, cuda)])
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-5 * float(want.abs().max()))
 
 
 @pytest.mark.parametrize("case", ["hot_key", "split_table", "cols64"])
@@ -1631,3 +1647,125 @@ def test_impute_csv_stream_on_the_card_matches_cpu(cuda, tmp_path, engine):
     null_g = np.isnan(gf)
     assert np.array_equal(cg[~null_g], g[~null_g])
     assert (cg[null_g] == pg[null_g]).mean() >= 0.99
+
+
+# ---------------------------------------------------------------------------
+# K7 over a column window past P = 1,024, and the wide-V path
+# ---------------------------------------------------------------------------
+
+# favorita_items: favorita_wide's columns and item_nbr's 4,100 (P = 4,592);
+# wide16k: two columns of 8,192 (P = 16,387)
+WINDOW_SCHEMAS = {
+    "favorita_items": (3, (54, 33, 337, 2, 2, 22, 16, 5, 17, 4100)),
+    "wide16k": (2, (8192, 8192)),
+}
+
+
+def window_cols(name, n, seed, device):
+    d, sizes = WINDOW_SCHEMAS[name]
+    schema = FeatureSchema(num_cols=d, cat_keys=tuple(
+        tuple(range(v)) for v in sizes))
+    rng = np.random.default_rng(seed)
+    xs = [torch.tensor(rng.normal(size=n).astype(np.float32), device=device)
+          for _ in range(d)]
+    cs = [torch.tensor(rng.integers(-1, v + 1, n).astype(np.int32),
+                       device=device) for v in sizes]
+    w = torch.tensor((rng.random(n) > 0.2).astype(np.float32),
+                     device=device)
+    return schema, xs, cs, w
+
+
+def window_count_mask(schema, lo, width, device):
+    d = schema.num_cols
+    rows = torch.arange(schema.sigma_size, device=device)
+    cols = torch.arange(lo, lo + width, device=device)
+    return (((rows[:, None] == 0) | (rows[:, None] > d))
+            & ((cols[None] == 0) | (cols[None] > d)))
+
+
+@pytest.mark.parametrize("name", WINDOW_SCHEMAS)
+def test_k7_window_matches_plain(cuda, name):
+    """K7 over column windows (the first; one across two one-hot blocks;
+    the last, narrower; a wide one of 2,300 columns) against
+    masked_gram_window_plain: counts exact, within 1e-5 of max|σ|, reruns
+    bit-identical, one launch a call."""
+    from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas import (
+        masked_gram_window, masked_gram_window_plain)
+
+    schema, xs, cs, w = window_cols(name, 30_000, seed=3, device=cuda)
+    p = schema.sigma_size
+    for lo, width in ((0, 1024), (p - 4100 - 300, 1024),
+                      (p - 1024 + 7, 1024 - 7), (1, 2300)):
+        before = masked_gram_window.launches
+        got = masked_gram_window(xs, cs, w, schema=schema, lo=lo,
+                                 width=width)
+        again = masked_gram_window(xs, cs, w, schema=schema, lo=lo,
+                                   width=width)
+        torch.cuda.synchronize()
+        assert masked_gram_window.launches == before + 2
+        want = masked_gram_window_plain(xs, cs, w, schema=schema, lo=lo,
+                                        width=width)
+        assert got.shape == (p, width)
+        assert torch.equal(got, again)
+        cm = window_count_mask(schema, lo, width, cuda)
+        assert torch.equal(got[cm], want[cm])
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=1e-5 * float(want.abs().max()))
+
+
+def test_masked_gram_above_1024_is_its_windows(cuda):
+    """masked_gram_cols and masked_gram at P = 4,592 launch K7 once a
+    window of WINDOW_WIDTH columns, and S equals the windows side by side
+    (bit for bit) and is symmetric."""
+    from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas import (
+        masked_gram_window)
+
+    schema, xs, cs, w = window_cols("favorita_items", 20_000, seed=5,
+                                    device=cuda)
+    p, width = schema.sigma_size, _build.WINDOW_WIDTH
+    before = masked_gram_cols.wide_launches
+    got = masked_gram_cols(xs, cs, w, schema=schema)
+    assert masked_gram_cols.wide_launches == before + -(-p // width)
+    stacked = masked_gram(torch.stack(xs), torch.stack(cs), w,
+                          schema=schema)
+    parts = torch.cat([masked_gram_window(
+        xs, cs, w, schema=schema, lo=lo, width=min(width, p - lo))
+        for lo in range(0, p, width)], 1)
+    assert torch.equal(got, parts) and torch.equal(stacked, parts)
+    assert torch.equal(got, got.T)
+
+
+def test_run_mice_wide_on_the_card_matches_cpu(cuda):
+    """run_mice_wide on a 1 × 1 grid on the card (K7 over the window of
+    all columns, the CG solves in f32) against the same run on the CPU
+    (its plain versions): codes agree on ≥ 99.9% of the null cells,
+    numerics within 5e-3."""
+    from duckdb_imputation_tpu_torch.parallel import (make_mesh_2d,
+                                                      run_mice_wide)
+    from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas import (
+        masked_gram_window)
+
+    rng = np.random.default_rng(33)
+    n = 20_000
+    cls = rng.integers(0, 3, size=n)
+    num = np.stack([cls - 1.0 + 0.3 * rng.normal(size=n),
+                    0.7 * (cls - 1.0) + 0.2 * rng.normal(size=n)]
+                   ).astype(np.float32)
+    codes = np.stack([cls, rng.integers(0, 1500, size=n)]).astype(np.int32)
+    schema = FeatureSchema(num_cols=2, cat_keys=(tuple(range(3)),
+                                                 tuple(range(1500))))
+    nn = np.zeros((2, n), bool)
+    cn = np.zeros((2, n), bool)
+    nn[1, rng.random(n) < 0.2] = True
+    cn[0, rng.random(n) < 0.2] = True
+    kw = dict(schema=schema, iters=2, ridge=1e-2, shrinkage=1e-2,
+              cg_iters=2000, tol=1e-9)
+    before = masked_gram_window.launches
+    xg, cg = run_mice_wide(*(torch.tensor(a, device=cuda)
+                             for a in (num, codes, nn, cn)),
+                           mesh=make_mesh_2d(1, 1, device=cuda), **kw)
+    assert masked_gram_window.launches == before + 4
+    xc, cc = run_mice_wide(*(torch.tensor(a) for a in (num, codes, nn, cn)),
+                           mesh=make_mesh_2d(1, 1, device="cpu"), **kw)
+    assert (cg.cpu()[0][cn[0]] == cc[0][cn[0]]).float().mean() >= 0.999
+    torch.testing.assert_close(xg.cpu(), xc, rtol=5e-3, atol=5e-3)

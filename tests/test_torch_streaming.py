@@ -32,6 +32,7 @@ from duckdb_imputation_tpu_torch.mice.streaming import (
     run_mice_stream,
 )
 from duckdb_imputation_tpu_torch.ring import streaming
+from duckdb_imputation_tpu_torch.ring.kernels import _build
 from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas import (
     wide_assemble,
     wide_tables_plain,
@@ -188,12 +189,15 @@ def test_fold_past_88_uses_the_wide_plan(case):
     assert_gram(got.numpy(), ref.scan_gram(rsrc, rss, chunk_rows=700), ss)
 
 
-@pytest.mark.parametrize("cats,nullable", [(60, 5), (2, 0)])
+@pytest.mark.parametrize("cats,nullable", [(60, 5), (2, 0), (3, 0)])
 def test_fold_limits_raise_before_the_stream(cats, nullable):
-    """c + K > 64 categorical columns, or P + K > 1,024: a CUDA fold
+    """c + K > 64 categorical columns; P + K past K7's window limit (two
+    columns of 23,200 levels); or, past P + K = 1,024, a column of more
+    levels than a K7 task's cells beside another (9,000): a CUDA fold
     raises ValueError before it reads a chunk."""
-    keys = ((0, 1),) * cats if cats > 2 else (tuple(range(600)),
-                                              tuple(range(430)))
+    keys = {2: (tuple(range(23_200)),) * 2,
+            3: (tuple(range(9000)), (0, 1), (0, 1))}.get(cats,
+                                                         ((0, 1),) * cats)
     ss = streaming.StreamSchema(
         schema=FeatureSchema(num_cols=1, cat_keys=keys),
         nullable_num=(), nullable_cat=tuple(range(nullable)), n_rows=1)
@@ -203,6 +207,43 @@ def test_fold_limits_raise_before_the_stream(cats, nullable):
         yield
     with pytest.raises(ValueError):
         streaming.scan_gram(source, ss, device="cuda")
+
+
+def test_fold_past_1024_takes_k7_windows():
+    """P + K past 1,024 (d = 2, columns of up to 700 and 400 levels, nulls
+    in a numeric and a categorical column, K = 2), which K7 folds a
+    column window at a time on the card: the windows' plans, summed in
+    plain torch chunk by chunk, equal scan_gram's plain fold and the JAX
+    package's XLA fold; a CUDA fold's checks pass. (P counts the observed
+    levels: 1,094 here.)"""
+    rng = np.random.default_rng(6)
+    n = 3000
+    num = rng.normal(size=(2, n)).astype(np.float32)
+    cat = np.stack([rng.integers(0, 700, n), rng.integers(0, 400, n) * 2])
+    num[1, rng.random(n) < 0.1] = np.nan
+    cat[1, rng.random(n) < 0.1] = -1
+    src = streaming.chunks_from_arrays(num, cat, chunk_rows=1000)
+    ss, _ = streaming.scan_schema(src, collect_dirty=False)
+    ext = streaming.extended_schema(ss)
+    assert ext.sigma_size == ss.schema.sigma_size + 2 > 1024
+    streaming.check_fold(ss, 700)
+    got = streaming.scan_gram(src, ss, chunk_rows=700, device="cpu")
+    p = ext.sigma_size
+    plan = torch.zeros_like(got)
+    for lo in range(0, n, 700):
+        parts = streaming._normalize_chunk(
+            (num[:, lo:lo + 700], cat[:, lo:lo + 700]))
+        x, codes = streaming.encode_chunk(*parts, ss)
+        xs, cs = list(torch.from_numpy(x)), list(torch.from_numpy(codes))
+        for a in range(0, p, 1024):
+            win = _build.window_plan(ext, a, min(a + 1024, p))
+            cells = wide_tables_plain(xs, cs, None, schema=ext, plan=win)
+            plan[:, a:a + 1024] += wide_assemble(cells, schema=ext,
+                                                 plan=win).double()
+    assert_gram(plan.numpy(), got.numpy(), ss)
+    rsrc = ref.chunks_from_arrays(num, cat, chunk_rows=1000)
+    rss, _ = ref.scan_schema(rsrc, collect_dirty=False)
+    assert_gram(got.numpy(), ref.scan_gram(rsrc, rss, chunk_rows=700), ss)
 
 
 def test_assemble_filled_triple_matches_reference_and_init_fill(data):

@@ -119,9 +119,11 @@ def assert_sigma_close(got, want, counts_exact, schema):
 
 
 def test_check_schema_wide_limits():
-    """K1/K7 and K2/K2w take P up to MAX_WIDE_SIGMA_SIZE; the narrow
-    kernels alone (K1, K2, K4, K5) stop at MAX_SIGMA_SIZE, where their
-    wrappers switch to K7, K2w and K8."""
+    """K2/K2w (and K8, K3/K3w) take P up to MAX_WIDE_SIGMA_SIZE, as does
+    K7's one launch of its whole plan; K7 takes P up to
+    MAX_WINDOW_SIGMA_SIZE through its column windows. The narrow kernels
+    alone (K1, K2, K4, K5) stop at MAX_SIGMA_SIZE, where their wrappers
+    switch to K7, K2w and K8."""
     for name in SCHEMAS:
         schema = FeatureSchema(*SCHEMAS[name])
         assert schema.sigma_size > _build.MAX_SIGMA_SIZE
@@ -134,6 +136,12 @@ def test_check_schema_wide_limits():
     above = FeatureSchema(num_cols=4, cat_keys=(tuple(range(1020)),))
     with pytest.raises(ValueError):
         _build.check_schema(above, 1000, _build.MAX_WIDE_SIGMA_SIZE)
+    _build.check_schema(above, 1000, _build.MAX_WINDOW_SIGMA_SIZE)
+    _build.check_window(above, 0, above.sigma_size)
+    past = FeatureSchema(num_cols=4, cat_keys=(tuple(range(
+        _build.MAX_WINDOW_SIGMA_SIZE)),))
+    with pytest.raises(ValueError):
+        _build.check_schema(past, 1000, _build.MAX_WINDOW_SIGMA_SIZE)
 
 
 # two categorical columns of 510 levels: one cross table of 260,100 cells,
