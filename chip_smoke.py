@@ -82,7 +82,21 @@ Drives the paths of `duckdb_imputation_tpu_torch` ported so far:
   column-sharded CG solves against an f64 dense solve) and
   `sigma_striped` at wide16k (`[wide_v]`); two gloo ranks sharing the
   card as a 1 × 2 grid, sigma's columns split, against the 1 × 1 grid,
-  each rank's sigma memory measured (`[wide_v2]`).
+  each rank's sigma memory measured (`[wide_v2]`);
+- the SQL front end (`sql.connect(device=...)`, numpy on the host, the
+  aggregates and predictors on the card): the reference's MICE statement
+  sequence, one round, at config 5, 1M rows, against
+  api.run_MICE_baseline and api.sum_to_triple, one K1 launch an
+  aggregate statement, each statement's wall time (`[sql]`); the
+  reference's QDA and NB flows (a GROUP BY label list aggregate, train
+  over the text literals, the accuracy as one SQL AVG) at config 4, 1M
+  rows, K1 or K6 once a class, the GROUP BY key pass timed against the
+  JAX module's tuple loop (`[sql_classify]`);
+- the overlapped sharded aggregate, `sum_to_triple_overlapped` (4 column
+  stripes, a K7 window launch and an asynchronous all-reduce each),
+  against `sum_to_triple_sharded` on a world of one over NCCL at
+  favorita_wide and favorita_items, and on two gloo ranks sharing the
+  card (`[overlap]`).
 
 First it builds the kernels from `duckdb_imputation_tpu_torch/csrc/` and
 holds each against its plain torch version at the shapes its path gives
@@ -104,8 +118,10 @@ runs; `g4100` on K5 and K8, each timed alone at 4,100 groups; `nb_centred`
 on K3, the variance case; `stream_launches` on K1, its stacked entry
 and K7, from the out-of-core phases; on K7 `items_launches` (the
 `[items]` run), `wide_v_launches` (run_mice_wide in `[wide_v]`),
-`window_launches` (`[wide_v]`'s stripes) and `window`, `[K7win]`'s
-times of a pass and of each window with their bounds;
+`window_launches` (`[wide_v]`'s stripes), `overlap_launches` (`[overlap]`'s
+world-1 stripes) and `window`, `[K7win]`'s times of a pass and of each
+window with their bounds; `sql_launches` on K1's stacked entry and K6,
+from `[sql]` and `[sql_classify]`;
 `bound_ms`, the least time the card could take for the kernel's work,
 computed from this run's shapes with `bound`; `library_ms`, one PyTorch
 call computing the same function, where there is one), then the card's
@@ -4452,6 +4468,555 @@ def phase_wide_v2(seed: int, one: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The SQL front end (the reference's statement sequences over the port's
+# api, evaluated in numpy on the host) and the overlapped sharded
+# aggregate (sigma in column stripes of K7 windows, each stripe's
+# all-reduce issued asynchronously before the next)
+# ---------------------------------------------------------------------------
+
+N_SQL = 1_000_000             # rows of [sql] and [sql_classify]
+SQL_STRUCT = ("::STRUCT(N int, lin_agg FLOAT[], quad_agg FLOAT[], "
+              "lin_cat STRUCT(key INT, value FLOAT)[][], "
+              "quad_num_cat STRUCT(key INT, value FLOAT)[][], "
+              "quad_cat STRUCT(key1 INT, key2 INT, value FLOAT)[][])")
+SQL_NB_STRUCT = ("::STRUCT(N int, lin_agg FLOAT[], quad_agg FLOAT[], "
+                 "lin_cat STRUCT(key INT, value FLOAT)[][])")
+OVERLAP_STRIPES = 4
+OVERLAP_DEADLINE_S = 300
+
+
+def _kernel_counters():
+    """Every kernel wrapper's launch counters: K1's two entries and K7
+    behind them, K7's window entry, K2/K2w, K4, K5/K8, K6/K6w and
+    K3/K3w."""
+    from duckdb_imputation_tpu_torch.ring.kernels.nb_pallas import (
+        nb_grouped_sums)
+    from duckdb_imputation_tpu_torch.ring.kernels.qda_pallas import (
+        qda_predict_kernel)
+    from duckdb_imputation_tpu_torch.ring.kernels.sigma_fused import (
+        fused_impute_aggregate)
+    from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas import (
+        masked_gram, masked_gram_cols, masked_gram_window)
+    from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas_grouped import (
+        grouped_gram, grouped_gram_presorted)
+
+    both = ("launches", "wide_launches")
+    return [(fn, attr) for fn, attrs in (
+        (masked_gram, both), (masked_gram_cols, both),
+        (masked_gram_window, ("launches",)), (fused_impute_aggregate, both),
+        (grouped_gram, ("launches",)), (grouped_gram_presorted, both),
+        (nb_grouped_sums, ("launches",)), (qda_predict_kernel, both))
+        for attr in attrs]
+
+
+def kernel_counts_reset() -> None:
+    torch.cuda.synchronize()
+    for fn, attr in _kernel_counters():
+        setattr(fn, attr, 0)
+
+
+def kernel_counts() -> dict:
+    """The nonzero counters, keyed wrapper.counter."""
+    torch.cuda.synchronize()
+    return {f"{fn.__name__}.{attr}": getattr(fn, attr)
+            for fn, attr in _kernel_counters() if getattr(fn, attr)}
+
+
+class StatementClock:
+    """Runs SQL statements on a connection and keeps each one's wall time:
+    the host clock from a synchronized card to the statement's end and a
+    synchronize."""
+
+    def __init__(self, con):
+        self.con = con
+        self.times = []
+
+    def __call__(self, label: str, q: str):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows = self.con.execute(q).fetchall()
+        torch.cuda.synchronize()
+        self.times.append((label, time.perf_counter() - t0))
+        return rows
+
+
+def sql_triple_check(tag, got: dict, cols, weights) -> tuple[float, float]:
+    """A masked aggregate statement's triple (its dict) against
+    api.sum_to_triple over the same columns with the WHERE as weights, on
+    the card: N exact, every entry within 1e-5 of max|σ|. Returns the
+    max error over max|σ| and the ms of the statement's aggregate alone
+    (ring.sum.sum_to_triple, K1, over the statement's rows: CUDA
+    events)."""
+    from duckdb_imputation_tpu_torch import api
+    from duckdb_imputation_tpu_torch.ring import serialize
+    from duckdb_imputation_tpu_torch.ring.sum import sum_to_triple
+    from duckdb_imputation_tpu_torch.ring.triple import sigma_from_triple
+
+    want = api.sum_to_triple(*cols, weights=weights, device=DEVICE)
+    t, _ = serialize.dict_to_triple(got, want.schema, device=DEVICE)
+    a, b = sigma_from_triple(t), sigma_from_triple(want.triple)
+    err = rel_err(a, b)
+    check(int(got["N"]) == int(round(float(b[0, 0]))),
+          f"[sql] {tag}: N {got['N']} against {float(b[0, 0])}")
+    check(err <= 1e-5, f"[sql] {tag}: triple max rel err {err:.3e} > 1e-5")
+    rows = np.flatnonzero(weights)
+    x = torch.tensor(np.stack([c[rows] for c in cols[:4]]), device=DEVICE)
+    codes = torch.tensor(want.schema.encode(np.stack(
+        [c[rows] for c in cols[4:]], 1)).T.copy(), device=DEVICE)
+    ms = cuda_ms(lambda: sum_to_triple(x, codes, None, schema=want.schema))
+    return err, ms
+
+
+def phase_sql(seed: int, card: str) -> dict:
+    """[sql]: the reference's MICE statement sequence, one round, at
+    BASELINE config 5 (make_table, N_SQL rows) on a card connection:
+    init_baseline's statements (AVG / MODE, the flag columns by ADD COLUMN
+    and the swap, the COALESCE fills by the swap;
+    tests/test_sql_partition.py::test_init_baseline_statement_sequence),
+    then the MICE driver's (tests/test_sql.py::test_mice_driver_sql_
+    sequence): c0 by sum_to_triple_4_2 … WHERE c0_IS_NULL IS FALSE,
+    lda_train over the triple's text literal, CASE-WHEN lda_predict into
+    rep and the swap; then x1 the same way with linreg_train /
+    linreg_predict, noise off. The categorical columns are registered as
+    float columns with NaN (register gives integer columns no NULLs) and
+    cast back with ::INTEGER, which keeps the NULL flag. Gates: observed
+    cells bit-identical; imputed x1 RMSE < 0.05; against
+    api.run_MICE_baseline(con.to_table('t'), mice_iters=1, noise=False)
+    [host_mice]'s low-vs-baseline bounds (x within 1e-3 rel + 1e-2, codes
+    agree > 0.99); each aggregate's triple equals api.sum_to_triple with
+    the WHERE as weights (N exact, 1e-5 of max|σ|); masked_gram launches
+    exactly once an aggregate statement and no other Gram kernel
+    launches. Prints each statement's wall time beside the card."""
+    from duckdb_imputation_tpu_torch import api, sql
+
+    t, truth = make_table(N_SQL, seed + 70)
+    x = torch.where(t.num_null, float("nan"), t.num_data).cpu().numpy()
+    c = torch.where(t.cat_null, float("nan"),
+                    t.cat_codes.double()).cpu().numpy()
+    con = sql.connect(device=DEVICE)
+    run = StatementClock(con)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    con.register("raw", {"x0": x[0], "x1": x[1], "x2": x[2], "x3": x[3],
+                         "c0f": c[0], "c1f": c[1]})
+    run.times.append(("register", time.perf_counter() - t0))
+    run("create_t", "CREATE TABLE t AS SELECT x0, x1, x2, x3, "
+        "c0f::INTEGER AS c0, c1f::INTEGER AS c1 FROM raw")
+    avg_x1, mode_c0 = run("avg_mode", "SELECT AVG(x1), MODE(c0) FROM t "
+                          "LIMIT 10000")[0]
+    run("create_t_complete", "CREATE TABLE t_complete AS SELECT * FROM t")
+    for col, fill in (("x1", avg_x1), ("c0", int(mode_c0))):
+        run(f"{col}_flag_rep", f"CREATE TABLE rep AS SELECT {col} IS NULL "
+            "FROM t")
+        run(f"{col}_flag_add", f"ALTER TABLE t_complete ADD COLUMN "
+            f"{col}_IS_NULL BOOLEAN DEFAULT false;")
+        run(f"{col}_flag_swap", f"ALTER TABLE t_complete ALTER COLUMN "
+            f"{col}_IS_NULL SET DEFAULT 10;")
+        run(f"{col}_fill_rep", f"CREATE TABLE rep AS SELECT "
+            f"COALESCE({col} , {fill}) FROM t")
+        run(f"{col}_fill_swap", f"ALTER TABLE t_complete ALTER COLUMN "
+            f"{col} SET DEFAULT 10;")
+    cols = ("x0", "x1", "x2", "x3", "c0", "c1")
+
+    def snapshot():
+        rel = con.tables["t_complete"]
+        return ([rel.get(n).data.astype(np.float32) for n in cols[:4]]
+                + [rel.get(n).data.astype(np.int64) for n in cols[4:]])
+
+    kernel_counts_reset()
+    aggs = []
+    # c0 first (categorical columns first, imputation_base.cpp:18-87)
+    before = snapshot()
+    triple = run("c0_aggregate", "SELECT sum_to_triple_4_2(x0, x1, x2, x3,"
+                 " c0, c1) FROM t_complete WHERE c0_IS_NULL IS FALSE")[0][0]
+    aggs.append(("c0", triple, before, ~t.cat_null[0].cpu().numpy()))
+    params = run("c0_train", f"SELECT lda_train({triple!r}{SQL_STRUCT}, 0, "
+                 "0.001)")[0][0]
+    run("c0_predict", f"CREATE TABLE rep AS SELECT CASE WHEN c0_IS_NULL "
+        f"THEN lda_predict({params!r}::FLOAT[], false, x0, x1, x2, x3, c1) "
+        "ELSE c0 END FROM t_complete")
+    run("c0_swap", "ALTER TABLE t_complete ALTER COLUMN c0 SET DEFAULT 10;")
+    before = snapshot()
+    triple = run("x1_aggregate", "SELECT sum_to_triple_4_2(x0, x1, x2, x3,"
+                 " c0, c1) FROM t_complete WHERE x1_IS_NULL IS FALSE")[0][0]
+    aggs.append(("x1", triple, before, ~t.num_null[1].cpu().numpy()))
+    params = run("x1_train", f"SELECT linreg_train({triple!r}{SQL_STRUCT}, "
+                 "1, 0.001::FLOAT, 0::FLOAT, 10000::INTEGER, false, "
+                 "false)")[0][0]
+    run("x1_predict", f"CREATE TABLE rep AS SELECT CASE WHEN x1_IS_NULL "
+        f"THEN linreg_predict({params!r}::FLOAT[], false, false, x0, x2, "
+        "x3, c0, c1) ELSE x1 END FROM t_complete")
+    run("x1_swap", "ALTER TABLE t_complete ALTER COLUMN x1 SET DEFAULT 10;")
+    launches = kernel_counts()
+    check(launches == {"masked_gram.launches": len(aggs)},
+          f"[sql] kernel launches {launches}, not one masked_gram launch "
+          f"an aggregate statement ({len(aggs)}) and no other")
+
+    out = con.to_table("t_complete")
+    check(torch.isfinite(out.num_data).all(), "[sql] x not finite")
+    check(torch.equal(out.num_data[~t.num_null], t.num_data[~t.num_null])
+          and torch.equal(out.cat_codes[~t.cat_null],
+                          t.cat_codes[~t.cat_null]),
+          "[sql] observed cells changed")
+    nm = t.num_null[1]
+    rmse = float(((out.num_data[1] - truth)[nm] ** 2).mean().sqrt())
+    check(rmse < 0.05, f"[sql] imputed x1 RMSE {rmse}")
+    checked = {tag: sql_triple_check(tag, d, snap, w)
+               for tag, d, snap, w in aggs}
+    errs = {tag: e for tag, (e, _) in checked.items()}
+    k1_ms = {tag: ms for tag, (_, ms) in checked.items()}
+    base = api.run_MICE_baseline(con.to_table("t"), mice_iters=1,
+                                 noise=False)
+    dx = float((out.num_data - base.num_data).abs().max())
+    agree = float((out.cat_codes == base.cat_codes).float().mean())
+    check(close_to(out.num_data, base.num_data, 1e-3, 1e-2),
+          f"[sql] vs run_MICE_baseline: x max diff {dx}")
+    check(agree > 0.99, f"[sql] vs run_MICE_baseline code agreement {agree}")
+    total = sum(s for _, s in run.times)
+    log(f"[sql] config 5, n={N_SQL}, one round: masked_gram launches "
+        f"{launches} (one an aggregate statement), no other Gram kernel; "
+        f"RMSE of imputed x1 {rmse:.3e}; observed cells bit-identical; "
+        f"aggregates against api.sum_to_triple(weights=WHERE) max rel err "
+        f"{errs}; against api.run_MICE_baseline(mice_iters=1): x max diff "
+        f"{dx:.3e}, code agreement {agree:.6f}; each aggregate's K1 alone "
+        f"over its rows, ms (CUDA events) {k1_ms}")
+    log(f"[sql] statement wall s (host clock, synchronized; {card}): "
+        + ", ".join(f"{k} {v:.6f}" for k, v in run.times)
+        + f"; all {total:.6f}")
+    return dict(launches=launches.get("masked_gram.launches", 0),
+                statement_s=dict(run.times), total_s=total, k1_ms=k1_ms)
+
+
+def _timed_group_ids(sql_module, times: list):
+    """sql._group_ids with its host time appended to `times`; returns the
+    original to put back."""
+    real = sql_module._group_ids
+
+    def timed(keys):
+        t0 = time.perf_counter()
+        out = real(keys)
+        times.append(time.perf_counter() - t0)
+        return out
+    sql_module._group_ids = timed
+    return real
+
+
+def tuple_group_ids(sql_module, keys) -> np.ndarray:
+    """The JAX module's GROUP BY key pass (sql.py:1211-1218): a dict of
+    Python tuples, row by row; the yardstick of the port's vectorised
+    `_group_ids`."""
+    seen, gid = {}, np.empty(len(keys[0]), np.int64)
+    for r in range(len(gid)):
+        k = tuple(sql_module._pyval(c, r) for c in keys)
+        gid[r] = seen.setdefault(k, len(seen))
+    return gid
+
+
+def phase_sql_classify(seed: int, card: str) -> dict:
+    """[sql_classify]: the reference's QDA and NB flows (tests/test_sql.py::
+    test_qda_list_aggregate / test_nb_list_aggregate) at BASELINE config 4
+    (make_classify_table: 8 classes, 90% in class 0), N_SQL rows, on a
+    card connection: SELECT list(agg), list(label) FROM (SELECT
+    sum_to_triple_4_2(…) AS agg, label FROM t GROUP BY label), qda_train
+    over the literals, the accuracy as one SQL AVG(CASE WHEN
+    qda_predict(…) = label …); the same for NB. Gates: K1 (masked_gram)
+    launches 8 times for QDA, K6 8 times for NB, nothing else; the
+    parameters equal the direct api path's (api.sum_to_triple /
+    sum_to_nb_agg of each class's rows in the list's order, stacked,
+    api.qda_train / nb_train) within rtol 1e-6; each class's triple
+    against the grouped api call (group_by=label: K4 / K6 over all rows)
+    with counts exact and within 1e-5 of max|σ|; accuracy > the class-0
+    share + 0.02. Prints the GROUP BY key pass's and each statement's wall
+    times (each statement twice: the first call and a repeat), and the
+    JAX module's tuple loop over the same keys."""
+    from duckdb_imputation_tpu_torch import api, sql
+    from duckdb_imputation_tpu_torch.ring import serialize
+    from duckdb_imputation_tpu_torch.ring.triple import (_map,
+                                                         sigma_from_triple)
+
+    x, codes, y, schema = make_classify_table(N_SQL, seed + 71)
+    xs, cs, ys = x.cpu().numpy(), codes.cpu().numpy(), y.cpu().numpy()
+    data = {f"x{j}": xs[j] for j in range(4)}
+    data.update(c0=cs[0].astype(np.int64), c1=cs[1].astype(np.int64),
+                label=ys.astype(np.int64))
+    con = sql.connect(device=DEVICE)
+    con.register("t", data)
+    run = StatementClock(con)
+    prior = float((y == 0).float().mean())
+    key_s = []
+    out = {}
+    for model, fn, struct, train in (
+            ("qda", "sum_to_triple_4_2", SQL_STRUCT, "qda_train"),
+            ("nb", "sum_to_nb_agg_4_2", SQL_NB_STRUCT, "nb_train")):
+        kernel_counts_reset()
+        real = _timed_group_ids(sql, key_s)
+        try:
+            aggs, labels = run(f"{model}_list_aggregate",
+                               f"SELECT list(agg), list(label) FROM (SELECT "
+                               f"{fn}(x0, x1, x2, x3, c0, c1) AS agg, label "
+                               f"FROM t GROUP BY label)")[0]
+        finally:
+            sql._group_ids = real
+        launches = kernel_counts()
+        want = ({"masked_gram.launches": CLASSES} if model == "qda"
+                else {"nb_grouped_sums.launches": CLASSES})
+        check(launches == want, f"[sql_classify] {model} launches "
+              f"{launches}, not {want}")
+        extra = ", false" if model == "qda" else ""
+        q = (f"SELECT {train}({aggs!r}{struct}[], {labels}::int[]{extra})")
+        params = run(f"{model}_train", q)[0][0]
+        check(run(f"{model}_train_again", q)[0][0] == params,
+              f"[sql_classify] {model}: a repeated train differs")
+        q = (f"SELECT AVG(CASE WHEN {model}_predict({params!r}::float[], "
+             "false, x0, x1, x2, x3, c0, c1) = label THEN 1.0 ELSE 0.0 END) "
+             "FROM t")
+        acc = run(f"{model}_accuracy", q)[0][0]
+        check(run(f"{model}_accuracy_again", q)[0][0] == acc,
+              f"[sql_classify] {model}: a repeated accuracy differs")
+        check(acc > prior + 0.02, f"[sql_classify] {model} accuracy {acc} "
+              f"does not beat the class-0 share {prior} by 0.02")
+
+        # the direct api path: each class's rows in the list's order
+        cols = [xs[j] for j in range(4)] + [data["c0"], data["c1"]]
+        api_fn = api.sum_to_triple if model == "qda" else api.sum_to_nb_agg
+        per_class = [api_fn(*[col[ys == k] for col in cols], device=DEVICE)
+                     for k in labels]
+        check(all(v.schema == per_class[0].schema for v in per_class),
+              f"[sql_classify] {model}: the classes' vocabularies differ")
+        train_fn = ((lambda v, lab: api.qda_train(v, lab, normalize=False))
+                    if model == "qda" else api.nb_train)
+        direct = train_fn(sql._stack_cofactors(per_class),
+                          np.asarray(labels))
+        perr = float(np.max(np.abs(np.asarray(params) - direct)
+                            / np.maximum(np.abs(direct), 1e-30)))
+        check(np.allclose(params, direct, rtol=1e-6, atol=0),
+              f"[sql_classify] {model} params against the api path: max "
+              f"rel diff {perr:.3e}")
+        # each class's aggregate against the grouped api call over all
+        # rows (K4 / K6 over every class at once), stacked in the list's
+        # order
+        grouped = api_fn(*cols, group_by=ys, num_groups=CLASSES,
+                         device=DEVICE)
+        field = "triple" if model == "qda" else "agg"
+        order = torch.tensor(labels, device=DEVICE)
+        in_order = _map(lambda a: a[order], getattr(grouped, field))
+        gerr = 0.0
+        for i, d in enumerate(aggs):
+            one = _map(lambda a: a[i], in_order)
+            if model == "qda":
+                t_i, _ = serialize.dict_to_triple(d, grouped.schema,
+                                                  device=DEVICE)
+                a, b = sigma_from_triple(t_i), sigma_from_triple(one)
+                cm = count_entries(grouped.schema)
+                check(torch.equal(a[cm], b[cm]), f"[sql_classify] class "
+                      f"{labels[i]} counts differ from the grouped api call")
+            else:
+                t_i, _ = serialize.dict_to_nb(d, grouped.schema,
+                                              device=DEVICE)
+                check(torch.equal(t_i.n, one.n)
+                      and torch.equal(t_i.lin_cat, one.lin_cat),
+                      f"[sql_classify] class {labels[i]} NB counts differ")
+                a = torch.cat([t_i.lin, t_i.quad_diag])
+                b = torch.cat([one.lin, one.quad_diag])
+            gerr = max(gerr, rel_err(a, b))
+        check(gerr <= 1e-5, f"[sql_classify] {model} classes against the "
+              f"grouped api call: max rel err {gerr:.3e}")
+        gparams = train_fn(type(grouped)(in_order, grouped.schema,
+                                         batched=True), np.asarray(labels))
+        g_diff = np.abs(np.asarray(params) - gparams)
+        g_rel = float(np.max(g_diff / np.maximum(np.abs(gparams), 1e-30)))
+        g_scaled = float(g_diff.max() / np.abs(gparams).max())
+        out[model] = dict(accuracy=acc, launches=launches,
+                          params_rel_diff=perr, grouped_rel_err=gerr,
+                          grouped_params_rel_diff=g_rel,
+                          grouped_params_diff_over_max=g_scaled)
+    keys = [con.tables["t"].get("label")]
+    gid, _ = sql._group_ids(keys)
+    t0 = time.perf_counter()
+    loop_gid = tuple_group_ids(sql, keys)
+    loop_s = time.perf_counter() - t0
+    check(np.array_equal(gid, loop_gid), "[sql_classify] the vectorised "
+          "GROUP BY ids differ from the tuple loop's")
+    out["tuple_loop_s"] = loop_s
+    times = dict(run.times)
+    log(f"[sql_classify] config 4, n={N_SQL}, {CLASSES} classes: {out}; "
+        f"class-0 share {prior:.5f}")
+    log(f"[sql_classify] wall s (host clock, synchronized; {card}): "
+        + ", ".join(f"{k} {v:.6f}" for k, v in times.items())
+        + f"; GROUP BY key pass of each list statement "
+        f"{[round(s, 6) for s in key_s]}, the JAX module's tuple loop over "
+        f"the same keys {loop_s:.6f} (equal ids)")
+    out["statement_s"] = times
+    out["group_key_s"] = key_s
+    return out
+
+
+def overlap_check(tag, got, want, schema) -> float:
+    """tests/test_sharded.py:205-228's bounds: n, lin_cat and cat_cat
+    exact; quad, lin and num_cat within rtol 1e-6, atol 1e-3. Returns the
+    largest |Δ| of the latter."""
+    for f in ("n", "lin_cat", "cat_cat"):
+        check(torch.equal(getattr(got, f), getattr(want, f)),
+              f"[overlap] {tag}: {f} differs")
+    worst = 0.0
+    for f in ("quad", "lin", "num_cat"):
+        a, b = getattr(got, f), getattr(want, f)
+        check(torch.allclose(a, b, rtol=1e-6, atol=1e-3),
+              f"[overlap] {tag}: {f} beyond rtol 1e-6, atol 1e-3: max |Δ| "
+              f"{float((a - b).abs().max()):.3e}")
+        worst = max(worst, float((a - b).abs().max()))
+    return worst
+
+
+def _overlap_inputs(name: str, seed: int):
+    """(x, codes, weights, schema) of an [overlap] cell: the table's
+    columns, the rows where transactions is observed as weights."""
+    t, _ = (make_favorita if name == "favorita_wide"
+            else make_favorita_items)(N, seed + 72)
+    return (t.num_data, t.cat_codes, (~t.num_null[1]).float(), t.schema)
+
+
+def overlap_rank(rank: int, out_dir: str, seed: int) -> int:
+    """One rank of [overlap]'s two-rank cell (a child process): gloo over
+    CUDA tensors sharing the card, its half of favorita_wide's N rows,
+    sum_to_triple_overlapped with OVERLAP_STRIPES stripes; writes its
+    sigma and K7 window launches to out_dir/rank<rank>.pt."""
+    import datetime
+
+    from duckdb_imputation_tpu_torch.parallel import (
+        initialize, local_shard, shutdown, sum_to_triple_overlapped)
+    from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas import (
+        masked_gram_window)
+    from duckdb_imputation_tpu_torch.ring.triple import sigma_from_triple
+
+    mesh = initialize("gloo", store=_store(f"{out_dir}/store", 2),
+                      world_size=2, rank=rank, device=DEVICE,
+                      timeout=datetime.timedelta(seconds=120))
+    x, c, w, schema = _overlap_inputs("favorita_wide", seed)
+    x, c, w = (local_shard(a, mesh) for a in (x, c, w))
+    torch.cuda.synchronize()
+    masked_gram_window.launches = 0
+    got = sum_to_triple_overlapped(x, c, w, schema=schema, mesh=mesh,
+                                   n_stripes=OVERLAP_STRIPES)
+    torch.cuda.synchronize()
+    torch.save(dict(sigma=sigma_from_triple(got).cpu(), rows=x.shape[1],
+                    launches=masked_gram_window.launches),
+               f"{out_dir}/rank{rank}.pt")
+    shutdown()
+    return 0
+
+
+def phase_overlap(seed: int) -> dict:
+    """[overlap]: sum_to_triple_overlapped (OVERLAP_STRIPES column stripes,
+    one K7 window launch and one asynchronous all-reduce each) against
+    sum_to_triple_sharded on a world of one over NCCL at favorita_wide (P =
+    492) and favorita_items (P = 4,592), N rows each, and on two gloo ranks
+    over CUDA tensors sharing the card (spawned as [sharded2]'s are), half
+    of favorita_wide's rows each, against the world of one. Gates:
+    test_sharded.py's bounds; K7 window launches = the stripes on every
+    rank. Prints ms of the overlapped pass and of the unstriped one (CUDA
+    events). One card cannot show the overlap itself: NCCL refuses two
+    ranks on one card, and a world of one has nothing to exchange."""
+    import datetime
+    import tempfile
+
+    from duckdb_imputation_tpu_torch.parallel import (
+        initialize, shutdown, sum_to_triple_overlapped, sum_to_triple_sharded)
+    from duckdb_imputation_tpu_torch.parallel.overlap import stripe_bounds
+    from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas import (
+        masked_gram_window)
+    from duckdb_imputation_tpu_torch.ring.triple import (sigma_from_triple,
+                                                         triple_from_sigma)
+
+    out, launches = {}, 0
+    with tempfile.TemporaryDirectory() as d:
+        mesh = initialize("nccl", store=_store(f"{d}/store", 1),
+                          world_size=1, rank=0, device=DEVICE,
+                          timeout=datetime.timedelta(minutes=5))
+        try:
+            for name in ("favorita_wide", "favorita_items"):
+                x, c, w, schema = _overlap_inputs(name, seed)
+                stripes = len(stripe_bounds(schema.sigma_size,
+                                            OVERLAP_STRIPES))
+
+                def over():
+                    return sum_to_triple_overlapped(
+                        x, c, w, schema=schema, mesh=mesh,
+                        n_stripes=OVERLAP_STRIPES)
+
+                def plain():
+                    return sum_to_triple_sharded(x, c, w, schema=schema,
+                                                 mesh=mesh)
+                torch.cuda.synchronize()
+                masked_gram_window.launches = 0
+                got = over()
+                torch.cuda.synchronize()
+                check(masked_gram_window.launches == stripes,
+                      f"[overlap] {name}: {masked_gram_window.launches} "
+                      f"window launches for {stripes} stripes")
+                launches += masked_gram_window.launches
+                want = plain()
+                worst = overlap_check(name, got, want, schema)
+                ms = {"overlapped": cuda_ms(over, reps=3, warmup=1),
+                      "sharded": cuda_ms(plain, reps=3, warmup=1)}
+                out[name] = dict(p=schema.sigma_size, stripes=stripes,
+                                 max_abs_diff=worst, ms=ms)
+                if name == "favorita_wide":
+                    world1 = sigma_from_triple(got).cpu()
+                log(f"[overlap] {name} P={schema.sigma_size} n={N}, world 1 "
+                    f"on NCCL: {stripes} stripes, one K7 window launch each "
+                    f"({stripes} launches); against sum_to_triple_sharded: "
+                    f"counts exact, max |Δ| {worst:.3e}; ms {ms}")
+                del x, c, w, got, want
+        finally:
+            shutdown()
+
+    wide = favorita_schema()
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, __file__, "--overlap-rank", str(r),
+             "--sharded-dir", d, "--seed", str(seed)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(2)]
+        logs = []
+        try:
+            for proc in procs:
+                left = OVERLAP_DEADLINE_S - (time.perf_counter() - t0)
+                logs.append(proc.communicate(timeout=max(1.0, left))[0])
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        wall = time.perf_counter() - t0
+        for r, (proc, text) in enumerate(zip(procs, logs)):
+            check(proc.returncode == 0, f"[overlap] rank {r} failed "
+                  f"({proc.returncode}):\n{text[-4000:]}")
+        ranks = [torch.load(f"{d}/rank{r}.pt") for r in range(2)]
+    stripes = len(stripe_bounds(wide.sigma_size, OVERLAP_STRIPES))
+    check(all(r["launches"] == stripes for r in ranks),
+          f"[overlap] two ranks: window launches "
+          f"{[r['launches'] for r in ranks]}, not {stripes} each")
+    check(torch.equal(ranks[0]["sigma"], ranks[1]["sigma"]),
+          "[overlap] the two ranks' sigmas differ")
+    check(sum(r["rows"] for r in ranks) == N, "[overlap] rows lost")
+    d = wide.num_cols
+    worst = overlap_check("two ranks vs world 1",
+                          triple_from_sigma(ranks[0]["sigma"], d),
+                          triple_from_sigma(world1, d), wide)
+    out["two_ranks"] = dict(rows=[r["rows"] for r in ranks],
+                            launches=[r["launches"] for r in ranks],
+                            max_abs_diff=worst, wall_s=wall)
+    log(f"[overlap] favorita_wide, 2 gloo ranks over CUDA tensors sharing "
+        f"the card, {[r['rows'] for r in ranks]} rows: {stripes} window "
+        f"launches on each rank; against world 1: counts exact, max |Δ| "
+        f"{worst:.3e}; {wall:.1f} s for the two processes")
+    out["launches"] = launches
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4460,6 +5025,8 @@ def main() -> int:
     ap.add_argument("--sharded-dir", help=argparse.SUPPRESS)
     # a rank of [wide_v2], spawned by phase_wide_v2 (with --sharded-dir)
     ap.add_argument("--wide-rank", type=int, help=argparse.SUPPRESS)
+    # a rank of [overlap]'s two-rank cell (with --sharded-dir)
+    ap.add_argument("--overlap-rank", type=int, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -4471,6 +5038,8 @@ def main() -> int:
                             args.seed)
     if args.wide_rank is not None:
         return wide_rank(args.wide_rank, args.sharded_dir, args.seed)
+    if args.overlap_rank is not None:
+        return overlap_rank(args.overlap_rank, args.sharded_dir, args.seed)
 
     card = phase_device()
     phase_build()
@@ -4509,6 +5078,9 @@ def main() -> int:
     k7win = phase_k7win(args.seed)
     items = phase_items(args.seed)
     wide_v = phase_wide_v(args.seed, k7win["wide16k"]["rows"])
+    sql_mice = phase_sql(args.seed, card)
+    sql_classify = phase_sql_classify(args.seed, card)
+    overlap = phase_overlap(args.seed)
 
     src = "duckdb_imputation_tpu_torch/csrc/"
     ref = "duckdb_imputation_tpu/ring/kernels/"
@@ -4527,7 +5099,10 @@ def main() -> int:
              launches=k1s_launches, host_launches=host,
              star_launches=star["masked_gram"],
              sharded_launches=sharded["masked_gram"],
-             stream_launches=stream["masked_gram"], **k1s),
+             stream_launches=stream["masked_gram"],
+             sql_launches=sql_mice["launches"]
+             + sql_classify["qda"]["launches"].get("masked_gram.launches", 0),
+             **k1s),
         dict(name="fused_impute_aggregate", route="cuda",
              source=src + "fused_impute_aggregate.cu",
              replaces=ref + "sigma_fused.py:413",
@@ -4554,7 +5129,9 @@ def main() -> int:
              source=src + "nb_grouped_sums.cu",
              replaces=ref + "nb_pallas.py:126",
              launches=launches["nb_grouped_sums"],
-             star_launches=star["nb_grouped_sums"], **k6),
+             star_launches=star["nb_grouped_sums"],
+             sql_launches=sql_classify["nb"]["launches"].get(
+                 "nb_grouped_sums.launches", 0), **k6),
         dict(name="wide_gram", route="cuda", source=src + "wide_gram.cu",
              replaces=ref + "sigma_pallas.py:501",
              launches=wide["wide_gram"], delta_launches=delta["wide_gram"],
@@ -4565,6 +5142,7 @@ def main() -> int:
              items_launches=items["launches"],
              wide_v_launches=wide_v["wide_v_launches"],
              window_launches=wide_v["window_launches"],
+             overlap_launches=overlap["launches"],
              window_replaces=[ref + "sigma_pallas.py:553",
                               ref + "sigma_pallas.py:1027"],
              window=k7win, **k7),

@@ -33,9 +33,12 @@ imports torch and never jax. Ported so far:
   (`mice.factorized`: `run_mice_factorized`, `run_mice_star`), and the
   SQL-shaped surface of every ring, model and MICE function (`api`);
 - data parallelism over `torch.distributed` (`parallel`: the process
-  mesh, `initialize`, `union_vocab`, the row-sharded aggregates) and the
-  row-sharded MICE loops with checkpoints (`mice.sharded_round`:
-  `run_mice_sharded`, `run_mice_sharded_delta`; `utils.checkpoint`);
+  mesh, `initialize`, `union_vocab`, the row-sharded aggregates and
+  `parallel.sum_to_triple_overlapped`, sigma in column stripes of K7
+  windows with each stripe's all-reduce issued asynchronously behind the
+  next) and the row-sharded MICE loops with checkpoints
+  (`mice.sharded_round`: `run_mice_sharded`, `run_mice_sharded_delta`;
+  `utils.checkpoint`);
 - out-of-core imputation and its front door: the native CSV reader and
   formatter (`table.native`, over `native/columnar.cpp`, built with g++
   into `build/native/`), the streaming fold of the extended Gram on K1 or
@@ -43,7 +46,12 @@ imports torch and never jax. Ported so far:
   fingerprinted stream checkpoints (`mice.streaming`,
   `utils.checkpoint.StreamCheckpointer`), the command line
   (`python -m duckdb_imputation_tpu_torch.cli`) and the build directories
-  and default device (`config`).
+  and default device (`config`);
+- the wide-V path past P = 1,024 (K7 over column windows, `ring.striped`,
+  `parallel.sharded2d`, `parallel.wide`);
+- the SQL front end (`sql`: `sql.connect(device=…)`, the reference's
+  statements evaluated in numpy on the host, every aggregate, trainer
+  input and predictor on the connection's device).
 """
 
 from .schema import FeatureSchema
@@ -79,7 +87,7 @@ from .mice import (
     run_mice_stream,
     impute_csv_stream,
 )
-from . import parallel
+from . import parallel, sql
 
 __version__ = "0.1.0"
 
@@ -92,4 +100,4 @@ __all__ = ["FeatureSchema", "NBAgg", "Triple", "lift", "nb_lift",
            "init_fill", "run_mice_baseline", "run_mice_device",
            "run_mice_device_delta", "run_mice_factorized", "run_mice_high",
            "run_mice_low", "run_mice_sharded", "run_mice_sharded_delta",
-           "run_mice_star", "parallel"]
+           "run_mice_star", "parallel", "sql"]

@@ -10,9 +10,10 @@ global row order, and `replicated` has no counterpart (a tensor that every
 rank holds the same is simply computed the same on every rank, as the
 solves are from an all-reduced sigma).
 
-Every collective of the port goes through the two helpers here,
-`all_reduce` and `broadcast`: NCCL takes only CUDA tensors, and gloo
-takes CUDA tensors only for these two, so the port uses no other. A mesh
+Every collective of the port goes through the helpers here, `all_reduce`
+(and `all_reduce_async`, its form that returns the work handle) and
+`broadcast`: NCCL takes only CUDA tensors, and gloo takes CUDA tensors
+only for these two collectives, so the port uses no other. A mesh
 of one process with no group (`make_mesh()` before any
 `init_process_group`) runs no collective at all.
 """
@@ -75,12 +76,26 @@ def all_reduce(t: torch.Tensor, mesh: Mesh, op: str = "sum") -> torch.Tensor:
     """Reduce `t` over the mesh in place ('sum', 'max' or 'min') and
     return it; every rank gets the same values. A mesh without a group
     returns t untouched."""
+    work = all_reduce_async(t, mesh, op)
+    if work is not None:
+        work.wait()
+    return t
+
+
+def all_reduce_async(t: torch.Tensor, mesh: Mesh, op: str = "sum"):
+    """Start reducing `t` over the mesh in place ('sum', 'max' or 'min')
+    and return at once with the collective's work handle; `t` holds the
+    reduction after `handle.wait()`. The pipelined reduction of
+    `overlap.sum_to_triple_overlapped` issues one a sigma stripe, so the
+    stripe's exchange runs while the next stripe is computed (the JAX
+    package's per-stripe psum, which XLA issues asynchronously). A mesh
+    without a group reduces nothing and returns None."""
     if op not in _OPS:
         raise ValueError(f"op must be one of {tuple(_OPS)}, got {op!r}")
-    if mesh.group is not None:
-        dist.all_reduce(t, op=getattr(dist.ReduceOp, _OPS[op]),
-                        group=mesh.group)
-    return t
+    if mesh.group is None:
+        return None
+    return dist.all_reduce(t, op=getattr(dist.ReduceOp, _OPS[op]),
+                           group=mesh.group, async_op=True)
 
 
 def broadcast(t: torch.Tensor, mesh: Mesh, src: int = 0) -> torch.Tensor:

@@ -1769,3 +1769,122 @@ def test_run_mice_wide_on_the_card_matches_cpu(cuda):
                            mesh=make_mesh_2d(1, 1, device="cpu"), **kw)
     assert (cg.cpu()[0][cn[0]] == cc[0][cn[0]]).float().mean() >= 0.999
     torch.testing.assert_close(xg.cpu(), xc, rtol=5e-3, atol=5e-3)
+
+
+def _sql_table(con, n, seed):
+    """A config-5-shaped table registered on `con`: 4 numeric columns
+    (NaN for NULL in x1) and two categorical columns of 8 levels, cast
+    back to INTEGER from float columns with NaN (c0 with NULLs)."""
+    rng = np.random.default_rng(seed)
+    z = rng.normal(size=(2, n))
+    x = np.stack([z[0], 2 * z[0] + z[1], z[1] - z[0],
+                  rng.normal(size=n)]).astype(np.float32)
+    c = np.stack([np.clip(z[0] + 4, 0, 7).astype(int),
+                  rng.integers(0, 8, n)]).astype(np.float64)
+    x[1, rng.random(n) < 0.2] = np.nan
+    c[0, rng.random(n) < 0.2] = np.nan
+    con.register("raw", {"x0": x[0], "x1": x[1], "x2": x[2], "x3": x[3],
+                         "c0f": c[0], "c1f": c[1]})
+    con.execute("CREATE TABLE t AS SELECT x0, x1, x2, x3, c0f::INTEGER AS "
+                "c0, c1f::INTEGER AS c1, x1 IS NULL AS x1_is_null, "
+                "c0f IS NULL AS c0_is_null FROM raw")
+
+
+def test_sql_aggregates_on_the_card_match_cpu(cuda):
+    """The masked and grouped SQL aggregates on a card connection (K1
+    through api.sum_to_triple, one launch a statement or a group; K6
+    through sum_to_nb_agg) against a CPU connection: N and the counts
+    equal, the sums within 1e-5 of the aggregate's max; a triple cast back
+    from text lands on the card; the CASE-WHEN LDA predict equal."""
+    from duckdb_imputation_tpu_torch import sql
+    from duckdb_imputation_tpu_torch.ring import serialize
+    from duckdb_imputation_tpu_torch.ring.kernels.nb_pallas import (
+        nb_grouped_sums)
+
+    card, host = sql.connect(device=cuda), sql.connect(device="cpu")
+    for con in (card, host):
+        _sql_table(con, 200_003, seed=4)
+    # the aggregates see the NULL cells' placeholders (IgnoreNull() is
+    # false, sum_state.h:54-56): the WHERE drops them
+    observed = "WHERE x1_is_null IS FALSE AND c0_is_null IS FALSE"
+    qs = [f"SELECT sum_to_triple_4_2(x0, x1, x2, x3, c0, c1) FROM t "
+          f"{observed}",
+          f"SELECT sum_to_triple_4_2(x0, x1, x2, x3, c0, c1), c1 FROM t "
+          f"{observed} GROUP BY c1",
+          f"SELECT sum_to_nb_agg_4_1(x0, x1, x2, x3, c0) FROM t {observed}"]
+    before = (masked_gram.launches, nb_grouped_sums.launches)
+    got = [card.execute(q).fetchall() for q in qs]
+    assert (masked_gram.launches - before[0],
+            nb_grouped_sums.launches - before[1]) == (1 + 8, 1)
+    want = [host.execute(q).fetchall() for q in qs]
+    for g_rows, w_rows in zip(got, want):
+        assert len(g_rows) == len(w_rows)
+        for g, w in zip(g_rows, w_rows):
+            assert g[1:] == w[1:]
+            if "quad_cat" in w[0]:
+                gt, _ = serialize.dict_to_triple(g[0], device="cpu")
+                wt, schema = serialize.dict_to_triple(w[0], device="cpu")
+                gs, ws = sigma_from_triple(gt), sigma_from_triple(wt)
+                d = schema.num_cols
+                counts = torch.ones_like(ws, dtype=torch.bool)
+                counts[1:1 + d] = False
+                counts[:, 1:1 + d] = False
+                assert torch.equal(gs[counts], ws[counts])
+                torch.testing.assert_close(gs, ws, rtol=0, atol=1e-5 * float(
+                    ws.abs().max()))
+            else:
+                gt, _ = serialize.dict_to_nb(g[0], device="cpu")
+                wt, _ = serialize.dict_to_nb(w[0], device="cpu")
+                assert torch.equal(gt.n, wt.n)
+                assert torch.equal(gt.lin_cat, wt.lin_cat)
+                for f in ("lin", "quad_diag"):
+                    a, b = getattr(gt, f), getattr(wt, f)
+                    torch.testing.assert_close(
+                        a, b, rtol=0, atol=1e-5 * float(b.abs().max()))
+    triple = got[0][0][0]
+    cast = ("::STRUCT(N int, lin_agg FLOAT[], quad_agg FLOAT[], "
+            "lin_cat STRUCT(key INT, value FLOAT)[][], "
+            "quad_num_cat STRUCT(key INT, value FLOAT)[][], "
+            "quad_cat STRUCT(key1 INT, key2 INT, value FLOAT)[][])")
+    value = card._run_select(sql.parse(f"SELECT {triple!r}{cast}")
+                             ).cols[0].data[0]
+    assert value.triple.quad.device.type == "cuda"
+    params = host.execute(f"SELECT lda_train({triple!r}{cast}, 0, 0.001)"
+                          ).fetchone()[0]
+    q = (f"SELECT CASE WHEN c0_is_null THEN lda_predict({params!r}::FLOAT[],"
+         f" false, x0, x1, x2, x3, c1) ELSE c0 END FROM t")
+    assert card.execute(q).fetchall() == host.execute(q).fetchall()
+
+
+def test_overlapped_at_world_one_matches_sharded(nccl_mesh):
+    """sum_to_triple_overlapped on a world of one over NCCL at a P = 1,107
+    schema: one K7 window launch a stripe, against sum_to_triple_sharded
+    (K7's window launches above P = 1,024): n, lin_cat and cat_cat exact,
+    quad, lin and num_cat within rtol 1e-6, atol 1e-3 (tests/
+    test_sharded.py's bounds)."""
+    from duckdb_imputation_tpu_torch.parallel import (
+        sum_to_triple_overlapped, sum_to_triple_sharded)
+    from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas import (
+        masked_gram_window)
+
+    dev = nccl_mesh.device
+    schema = FeatureSchema(num_cols=3, cat_keys=(tuple(range(3)),
+                                                 tuple(range(1100))))
+    rng = np.random.default_rng(8)
+    n = 100_001
+    x = torch.tensor(rng.normal(size=(3, n)).astype(np.float32), device=dev)
+    c = torch.tensor(np.stack([rng.integers(0, 3, n),
+                               rng.integers(0, 1100, n)]).astype(np.int32),
+                     device=dev)
+    w = torch.tensor((rng.random(n) < 0.8).astype(np.float32), device=dev)
+    before = masked_gram_window.launches
+    got = sum_to_triple_overlapped(x, c, w, schema=schema, mesh=nccl_mesh,
+                                   n_stripes=5)
+    torch.cuda.synchronize()
+    assert masked_gram_window.launches == before + 5
+    want = sum_to_triple_sharded(x, c, w, schema=schema, mesh=nccl_mesh)
+    for f in ("n", "lin_cat", "cat_cat"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    for f in ("quad", "lin", "num_cat"):
+        torch.testing.assert_close(getattr(got, f), getattr(want, f),
+                                   rtol=1e-6, atol=1e-3)
