@@ -96,7 +96,18 @@ Drives the paths of `duckdb_imputation_tpu_torch` ported so far:
   stripes, a K7 window launch and an asynchronous all-reduce each),
   against `sum_to_triple_sharded` on a world of one over NCCL at
   favorita_wide and favorita_items, and on two gloo ranks sharing the
-  card (`[overlap]`).
+  card (`[overlap]`);
+- K2w, K8 and K3/K3w past P = 1,024 at favorita_items, 10M rows: the fused
+  pass (its impute kernel with W read from device memory, then K7 a
+  window of 1,024) imputing family and transactions (`[K2w_items]`), K8 a
+  window at labels onpromotion (G = 2) and family (G = 33)
+  (`[K8win]`), K3w on naive Bayes's plan (33 classes) and on QDA's cross
+  plan (2 classes), seeded tables (`[K3items]`), each against its plain
+  version; `run_mice_device(kernel='fused')` on `[items]`' table against
+  its 'gram' run (`[items_fused]`); `run_mice_sharded` with its defaults
+  on a world of one over NCCL, bit-identical to it (`[sharded_items]`);
+  the NB pipeline at label family and the QDA pipeline at label
+  onpromotion through the entry points (`[classify_items]`).
 
 First it builds the kernels from `duckdb_imputation_tpu_torch/csrc/` and
 holds each against its plain torch version at the shapes its path gives
@@ -121,7 +132,12 @@ and K7, from the out-of-core phases; on K7 `items_launches` (the
 `window_launches` (`[wide_v]`'s stripes), `overlap_launches` (`[overlap]`'s
 world-1 stripes) and `window`, `[K7win]`'s times of a pass and of each
 window with their bounds; `sql_launches` on K1's stacked entry and K6,
-from `[sql]` and `[sql_classify]`;
+from `[sql]` and `[sql_classify]`; the routes past P = 1,024 as entries
+of their own: `fused_impute_aggregate_window` (`launches`: its impute
+kernel's in `[items_fused]`, `window_launches` its K7 windows there,
+`sharded_launches` from `[sharded_items]`), `grouped_wide_gram_window`
+and `qda_predict_items` (`launches` from `[classify_items]`), with the
+numbers of `[K2w_items]`, `[K8win]` and `[K3items]`;
 `bound_ms`, the least time the card could take for the kernel's work,
 computed from this run's shapes with `bound`; `library_ms`, one PyTorch
 call computing the same function, where there is one), then the card's
@@ -4180,7 +4196,8 @@ def phase_items(seed: int) -> dict:
         f"({windows} windows a column step, as derived); {wall:.2f} s "
         f"wall; one SVD solve (linreg_solve_device) {solve_ms:.1f} ms; "
         f"quality {q}")
-    del t, out, sigma, xs, cs, w
+    run = (t, truth, out)
+    del sigma, xs, cs, w
 
     small, _ = make_favorita_items(N_ITEMS_CPU, seed + 64)
     cpu = Table(*(a.cpu() for a in (small.num_data, small.cat_codes,
@@ -4198,7 +4215,8 @@ def phase_items(seed: int) -> dict:
     log(f"[items] n={N_ITEMS_CPU}: the card vs the CPU's plain versions "
         f"({cpu_s:.1f} s): family agreement {agree:.6f}, x max diff "
         f"{dx:.3e}")
-    return dict(launches=launches, wall_s=wall, solve_ms=solve_ms, **q)
+    return dict(launches=launches, wall_s=wall, solve_ms=solve_ms, run=run,
+                **q)
 
 
 def _dense_ridge(block, p: int):
@@ -4488,8 +4506,8 @@ OVERLAP_DEADLINE_S = 300
 
 def _kernel_counters():
     """Every kernel wrapper's launch counters: K1's two entries and K7
-    behind them, K7's window entry, K2/K2w, K4, K5/K8, K6/K6w and
-    K3/K3w."""
+    behind them, K7's window entry, K2/K2w (and past P = 1,024 K2w's
+    impute kernel and its K7 windows), K4, K5/K8, K6/K6w and K3/K3w."""
     from duckdb_imputation_tpu_torch.ring.kernels.nb_pallas import (
         nb_grouped_sums)
     from duckdb_imputation_tpu_torch.ring.kernels.qda_pallas import (
@@ -4504,7 +4522,9 @@ def _kernel_counters():
     both = ("launches", "wide_launches")
     return [(fn, attr) for fn, attrs in (
         (masked_gram, both), (masked_gram_cols, both),
-        (masked_gram_window, ("launches",)), (fused_impute_aggregate, both),
+        (masked_gram_window, ("launches",)),
+        (fused_impute_aggregate, both + ("impute_launches",
+                                         "window_launches")),
         (grouped_gram, ("launches",)), (grouped_gram_presorted, both),
         (nb_grouped_sums, ("launches",)), (qda_predict_kernel, both))
         for attr in attrs]
@@ -5017,6 +5037,593 @@ def phase_overlap(seed: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# K2w, K8 and K3/K3w past P = 1,024 at favorita_items: the kernels alone
+# ([K2w_items], [K8win], [K3items]), the fused and the sharded MICE loops
+# ([items_fused], [sharded_items]) and the classifier pipelines
+# ([classify_items])
+# ---------------------------------------------------------------------------
+
+N_K3_PLAIN = 1_000_000   # rows [K3items] holds K3w against its plain
+                         # version at (the plain scorer keeps an f64 term
+                         # and a mask a slab a row: ~550 slabs at 10M rows
+                         # would not fit the card)
+N_CLASSIFY_HOST = 200_000  # rows [classify_items] scores with the host's
+                           # QDA parameters on the CPU, and with the f64
+                           # oracle on the card, against the card's scorer
+
+
+def items_classify(n: int, seed: int, label: str):
+    """make_favorita_items' table with no nulls, categorical column `label`
+    taken out as the class: onpromotion (2 classes, ~20% positive, P =
+    4,590) or family (33 classes, P = 4,559). Returns (x f32[3, n], codes
+    i32[9, n], y i32[n], schema, classes)."""
+    from duckdb_imputation_tpu_torch import FeatureSchema
+
+    t, _ = make_favorita_items(n, seed, null_frac=0.0)
+    col = LABELS[label]
+    keep = [j for j in range(len(ITEMS_VOCABS)) if j != col]
+    schema = FeatureSchema(num_cols=3, cat_keys=tuple(
+        t.schema.cat_keys[j] for j in keep))
+    return (t.num_data, t.cat_codes[keep].contiguous(),
+            t.cat_codes[col].contiguous(), schema, ITEMS_VOCABS[col])
+
+
+def phase_k2w_items(seed: int) -> dict:
+    """K2w past P = 1,024 at favorita_items, N rows: a 'cat' step imputing
+    family (R = 33) from LDA coefficients trained on the table's own sigma
+    and a 'num' step imputing transactions with noise. Each call is the
+    impute kernel (W read from device memory) and K7 a window of 1,024
+    over the updated columns: launches exact (1 and 5 a call), reruns
+    bit-identical; against the plain version, codes ≥ 0.9999 equal or x
+    within 1e-4, sigma within 1e-5 of max|σ|, its counts exact against the
+    plain Gram of the kernel's own columns; ms by CUDA events, and of the
+    impute kernel alone by CUDA events around its one launch (its column
+    bit-identical to K2w's)."""
+    from duckdb_imputation_tpu_torch.mice.device_round import (
+        _lda_device, _noise_std, _w_full)
+    from duckdb_imputation_tpu_torch.mice.partition import init_fill
+    from duckdb_imputation_tpu_torch.models.device import (
+        linreg_solve_device)
+    from duckdb_imputation_tpu_torch.ring.kernels import _build
+    from duckdb_imputation_tpu_torch.ring.kernels.sigma_fused import (
+        fused_impute_aggregate, fused_impute_aggregate_plain, impute_wide,
+        impute_wide_inputs)
+    from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas import (
+        masked_gram_cols, masked_gram_window_plain)
+
+    t = init_fill(make_favorita_items(N, seed + 70)[0])
+    schema = t.schema
+    p, d = schema.sigma_size, schema.num_cols
+    windows = -(-p // _build.WINDOW_WIDTH)
+    xs, cs = list(t.num_data.unbind(0)), list(t.cat_codes.unbind(0))
+    w_fam = (~t.cat_null[1]).float()
+    w_tx = (~t.num_null[1]).float()
+    sig = masked_gram_cols(xs, cs, w_fam, schema=schema)
+    w, icpt, keep = _lda_device(sig, schema, 1, 0.001)
+    sig_x = masked_gram_cols(xs, cs, w_tx, schema=schema)
+    coeff = linreg_solve_device(sig_x, label=2)
+    theta = coeff.clone()
+    theta[2] = 0.0
+    steps = {
+        "cat": ((xs, cs, t.cat_null[1], w_tx, _w_full(w, keep, schema),
+                 icpt), dict(schema=schema, kind="cat", imp_col=1),
+                t.cat_null[1], w_tx, schema.cat_sizes[1]),
+        "num": ((xs, cs, t.num_null[1], w_fam, theta[:, None],
+                 theta.new_zeros(1)),
+                dict(schema=schema, kind="num", imp_col=1,
+                     noise=(seed, 0, _noise_std(coeff, sig_x))),
+                t.num_null[1], w_fam, 1)}
+    del sig, sig_x
+    cm = count_entries(schema)
+    out = {}
+    for kind, (args, kw, null, w_next, rclasses) in steps.items():
+        tag = f"[K2w_items] {kind} n={N} P={p}"
+        imp0 = fused_impute_aggregate.impute_launches
+        win0 = fused_impute_aggregate.window_launches
+        wide0 = fused_impute_aggregate.wide_launches
+        new_k, sig_k = fused_impute_aggregate(*args, **kw)
+        new_2, sig_2 = fused_impute_aggregate(*args, **kw)
+        torch.cuda.synchronize()
+        launched = (fused_impute_aggregate.impute_launches - imp0,
+                    fused_impute_aggregate.window_launches - win0,
+                    fused_impute_aggregate.wide_launches - wide0)
+        check(launched == (2, 2 * windows, 0),
+              f"{tag}: (impute, window, whole-plan) launches {launched}, "
+              f"not (2, {2 * windows}, 0)")
+        check(torch.equal(new_k, new_2) and torch.equal(sig_k, sig_2),
+              f"{tag}: rerun not bit-identical")
+        new_p, sig_p = fused_impute_aggregate_plain(*args, **kw)
+        upd_x, upd_c = list(xs), list(cs)
+        if kind == "cat":
+            agree = float((new_k == new_p).float().mean())
+            check(agree >= 0.9999, f"{tag}: code agreement {agree}")
+            check(torch.equal(new_k[~null], cs[1][~null]),
+                  f"{tag}: observed codes changed")
+            upd_c[1] = new_k
+            what = f"code agreement {agree:.7f}"
+        else:
+            dx = float((new_k - new_p).abs().max())
+            check(torch.isfinite(new_k).all() and dx <= 1e-4,
+                  f"{tag}: max|Δx| {dx:.3e} > 1e-4")
+            upd_x[1] = new_k
+            what = f"max|Δx| {dx:.3e}"
+        own = masked_gram_window_plain(upd_x, upd_c, w_next, schema=schema,
+                                       lo=0, width=p)
+        check(torch.equal(sig_k[cm], own[cm]),
+              f"{tag}: counts differ from the plain Gram of its columns")
+        err = rel_err(sig_k, sig_p)
+        check(err <= 1e-5, f"{tag}: sigma max rel err {err:.3e} > 1e-5")
+        abs_err = float((sig_k - sig_p).abs().max())
+        del new_2, sig_2, new_p, sig_p, own
+        ms = cuda_ms(lambda: fused_impute_aggregate(*args, **kw), reps=3,
+                     warmup=1)
+        plain_ms = cuda_ms(lambda: fused_impute_aggregate_plain(*args, **kw),
+                           reps=1, warmup=0)
+        k7_ms = cuda_ms(lambda: masked_gram_cols(upd_x, upd_c, w_next,
+                                                 schema=schema),
+                        reps=3, warmup=1)
+        # the impute kernel alone: its one launch, on K2w's own inputs
+        noise = kw.get("noise")
+        std = None if noise is None else torch.as_tensor(noise[2]).reshape(1)
+        imp_in = impute_wide_inputs(args[4], args[5], rclasses, kind, N,
+                                    schema, DEVICE)
+        alone = torch.empty_like(new_k)
+        lib = _build.load()
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def impute_alone():
+            impute_wide(lib, xs, cs, null, imp_in[0], args[5], *imp_in[1:],
+                        alone, rclasses, kind, 1, noise, 0, std, N, schema,
+                        DEVICE, stream)
+
+        impute_ms = cuda_ms(impute_alone, reps=10, warmup=2)
+        check(torch.equal(alone, new_k),
+              f"{tag}: the impute kernel alone differs from K2w's column")
+        del alone, imp_in
+        nulls = int(null.sum())
+        codes_now = torch.stack(upd_c)
+        k_bound = gram_bound(codes_now, schema, w_next, extra=9,
+                             scores=rclasses * (1 + d + schema.cat_cols),
+                             scored=nulls)
+        imp_bound = bound(N * 9 + nulls * row_bytes(schema)
+                          + 4 * (p + 1) * rclasses,
+                          2 * rclasses * (1 + d + schema.cat_cols) * nulls)
+        log(f"{tag}: {what}, sigma max rel err {err:.3e}, max abs err "
+            f"{abs_err:.3e}, counts exact, bit-identical rerun; launches a "
+            f"call: 1 impute + {windows} windows; kernel {ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms, bound {k_bound['bound_ms']:.4f} ms "
+            f"({k_bound['bound_by']}); the impute kernel alone "
+            f"{impute_ms:.4f} ms (CUDA events around its launch; K7 over "
+            f"the updated columns {k7_ms:.3f} ms), bound "
+            f"{imp_bound['bound_ms']:.4f} ms ({imp_bound['bound_by']})")
+        res = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, **k_bound,
+                   library_ms=None, impute_ms=impute_ms, windows_ms=k7_ms,
+                   impute_bound_ms=imp_bound["bound_ms"],
+                   impute_bound_by=imp_bound["bound_by"])
+        if kind == "cat":
+            out = res
+        else:
+            out["num"] = res
+        del new_k, sig_k, codes_now
+    del t, xs, cs, steps
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_k8win(seed: int) -> dict:
+    """K8 past P = 1,024 at favorita_items, N rows, one launch a column
+    window of 1,024 over group-sorted rows, binary weights: label
+    onpromotion (G = 2, P = 4,590) and label family (G = 33, P = 4,559:
+    2.74 GB of f32[G, P, P]). Each group's S against the plain version
+    (its tables, no dense Z): counts exact, within 1e-5 of max|σ|, reruns
+    bit-identical, launches exact; the unsorted entry (a sort, then K8)
+    gives the same; ms of the kernel and the plain version by CUDA
+    events."""
+    from duckdb_imputation_tpu_torch.ring.kernels import _build
+    from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas_grouped import (
+        grouped_gram, grouped_gram_presorted, grouped_gram_presorted_plain,
+        sort_by_group)
+
+    out = {}
+    for label in ("onpromotion", "family"):
+        x, codes, y, schema, classes = items_classify(N, seed + 71, label)
+        p = schema.sigma_size
+        windows = -(-p // _build.WINDOW_WIDTH)
+        gen = torch.Generator(device=DEVICE)
+        gen.manual_seed(seed + 72)
+        w = (torch.rand(N, generator=gen, device=DEVICE) >= 0.2).float()
+        args = sort_by_group(x, codes, y, schema=schema, num_groups=classes,
+                             weights=w)
+        tag = f"[K8win] {label} G={classes} P={p} n={N}"
+        before = grouped_gram_presorted.wide_launches
+        got = grouped_gram_presorted(*args, schema=schema)
+        again = grouped_gram_presorted(*args, schema=schema)
+        torch.cuda.synchronize()
+        launched = grouped_gram_presorted.wide_launches - before
+        check(launched == 2 * windows,
+              f"{tag}: {launched} launches, not {2 * windows}")
+        want = grouped_gram_presorted_plain(*args, schema=schema)
+        err = check_grouped(tag, got, again, want, schema, binary=True)
+        check(torch.equal(got[:, 0, 0], torch.bincount(
+            y.long(), weights=w.double(), minlength=classes).float()),
+            f"{tag}: group counts differ from a bincount of the labels")
+        abs_err = float((got - want).abs().max())
+        del again, want
+        unsorted = grouped_gram(x, codes, w, y, schema=schema,
+                                num_groups=classes)
+        check(torch.equal(unsorted, got),
+              f"{tag}: the unsorted entry differs from the presorted one")
+        del unsorted
+        ms = cuda_ms(lambda: grouped_gram_presorted(*args, schema=schema),
+                     reps=2, warmup=1)
+        plain_ms = cuda_ms(lambda: grouped_gram_presorted_plain(
+            *args, schema=schema), reps=1, warmup=0)
+        res = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                   **gram_bound(codes, schema, w, classes), library_ms=None,
+                   groups=classes, sigma_size=p, windows=windows)
+        log(f"{tag}: {windows} launches a call; counts exact, max rel err "
+            f"{err:.3e} (of max|σ| per group), max abs err {abs_err:.3e}, "
+            f"bit-identical rerun, the unsorted entry equal; kernel "
+            f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+            f"{res['bound_ms']:.4f} ms ({res['bound_by']})")
+        if label == "onpromotion":
+            out = res
+        else:
+            out["family"] = res
+        del got, args, x, codes, y
+        torch.cuda.empty_cache()
+    return out
+
+
+def seeded_scorer(kind: str, schema, classes: int, seed: int):
+    """Tables of seeded parameters for K3w: naive Bayes's (means, spreads,
+    log frequencies, priors; centred as nb_predict_device centres them) or
+    QDA's (quad = −B·Bᵀ of a rank-4 B, lin, intercept). Returns (tables,
+    plan, shift or None)."""
+    from duckdb_imputation_tpu_torch.ring.kernels.qda_pallas import (
+        nb_center, nb_tables, qda_tables)
+
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(seed)
+    f64 = torch.float64
+    d, m = schema.num_cols, schema.sigma_size - 1
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=DEVICE, dtype=f64)
+
+    if kind == "nb":
+        mean = randn(classes, d)
+        var = torch.rand(classes, d, generator=g, device=DEVICE,
+                         dtype=f64) + 0.1
+        log_freq = torch.log(torch.rand(classes, schema.vocab_size,
+                                        generator=g, device=DEVICE,
+                                        dtype=f64) + 1e-3)
+        log_prior = torch.log_softmax(randn(classes), 0)
+        center = nb_center(log_prior, mean)
+        tables, plan = nb_tables(log_prior, mean, var, log_freq,
+                                 schema=schema, center=center)
+        return tables, plan, center
+    b = 0.1 * randn(classes, m, 4)
+    quad = -(b @ b.transpose(1, 2))
+    tables, plan = qda_tables(quad, randn(classes, m), randn(classes),
+                              schema=schema)
+    return tables, plan, None
+
+
+def phase_k3items(seed: int) -> dict:
+    """K3w past P = 1,024 at favorita_items with tables of seeded
+    parameters: naive Bayes's plan (no cross tables) at label family (33
+    classes, P = 4,559) and QDA's cross plan at label onpromotion (2
+    classes, P = 4,590; the cross tables with item_nbr keyed on the item).
+    Against qda_predict_plain at N_K3_PLAIN rows: argmax ≥ 0.9999, reruns
+    bit-identical, one wide launch a call; ms of kernel and plain there by
+    CUDA events, and of the kernel at N rows."""
+    from duckdb_imputation_tpu_torch.ring.kernels.qda_pallas import (
+        qda_predict_kernel, qda_predict_plain)
+
+    out = {}
+    for kind, label in (("qda", "onpromotion"), ("nb", "family")):
+        x, codes, _, schema, classes = items_classify(N, seed + 73, label)
+        tables, plan, shift = seeded_scorer(kind, schema, classes, seed + 74)
+        tag = (f"[K3items] {kind} {label} C={classes} P={schema.sigma_size} "
+               f"({plan.num_tasks} tasks, {tables.shape[1]} cells a class)")
+        check(plan.num_tasks > 1 and plan.cross == (kind == "qda"),
+              f"{tag}: not the plan expected")
+        xs = x[:, :N_K3_PLAIN].contiguous()
+        cs = codes[:, :N_K3_PLAIN].contiguous()
+        kw = dict(schema=schema, shift=shift)
+        before = qda_predict_kernel.wide_launches
+        got = qda_predict_kernel(tables, plan, xs, cs, **kw)
+        again = qda_predict_kernel(tables, plan, xs, cs, **kw)
+        torch.cuda.synchronize()
+        check(qda_predict_kernel.wide_launches - before == 2,
+              f"{tag}: K3w was not launched once a call")
+        check(torch.equal(got, again), f"{tag}: rerun not bit-identical")
+        want = qda_predict_plain(tables, plan, xs, cs, **kw)
+        agree = float((got == want).float().mean())
+        check(agree >= 0.9999, f"{tag}: argmax agreement {agree}")
+        check(len(torch.unique(got)) > 1, f"{tag}: one class wins every row")
+        max_abs_err = float((got - want).abs().max())
+        del want
+        ms = cuda_ms(lambda: qda_predict_kernel(tables, plan, xs, cs, **kw),
+                     reps=2, warmup=1)
+        plain_ms = cuda_ms(lambda: qda_predict_plain(tables, plan, xs, cs,
+                                                     **kw), reps=1, warmup=0)
+        full_ms = cuda_ms(lambda: qda_predict_kernel(tables, plan, x, codes,
+                                                     **kw), reps=1, warmup=0)
+        res = dict(max_abs_err=max_abs_err, ms=ms,
+                   plain_ms=plain_ms,
+                   **qda_bound(cs, schema, classes, tables.numel() * 4),
+                   library_ms=None, rows=N_K3_PLAIN, agreement=agree,
+                   tasks=plan.num_tasks, cells=tables.shape[1],
+                   ms_at_n=full_ms, bound_ms_at_n=qda_bound(
+                       codes, schema, classes, tables.numel() * 4)["bound_ms"])
+        log(f"{tag}: argmax agreement with the plain version {agree:.7f} at "
+            f"n={N_K3_PLAIN}, bit-identical rerun; there kernel {ms:.3f} ms, "
+            f"plain {plain_ms:.3f} ms, bound {res['bound_ms']:.4f} ms "
+            f"({res['bound_by']}); at n={N} kernel {full_ms:.3f} ms, bound "
+            f"{res['bound_ms_at_n']:.4f} ms")
+        if kind == "qda":
+            out = res
+        else:
+            out["nb"] = res
+        del tables, x, codes, xs, cs, got, again
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_items_fused(run) -> dict:
+    """run_mice_device(kernel='fused') at favorita_items, N rows,
+    ITEMS_ROUNDS rounds, on [items]' table: K7 seeds the loop (one call, a
+    launch a window), then every column step is K2w past 1,024 (one
+    impute launch and one K7 launch a window): the counts, zeroed just
+    before and read just after, exact; wide_quality; family codes ≥ 0.999
+    of the null cells against [items]' 'gram' run; wall s."""
+    from duckdb_imputation_tpu_torch import run_mice_device
+    from duckdb_imputation_tpu_torch.ring.kernels import _build
+
+    t, truth, gram_out = run
+    windows = -(-t.schema.sigma_size // _build.WINDOW_WIDTH)
+    steps = ITEMS_ROUNDS * 2
+    kernel_counts_reset()
+    t0 = time.perf_counter()
+    out = run_mice_device(t, iters=ITEMS_ROUNDS, kernel="fused")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernel_counts()
+    expect = {"masked_gram_cols.wide_launches": windows,
+              "fused_impute_aggregate.impute_launches": steps,
+              "fused_impute_aggregate.window_launches": steps * windows}
+    check(launches == expect, f"[items_fused] launches {launches}, derived "
+          f"{expect}")
+    q = wide_quality(t, truth, out, "[items_fused]")
+    m = t.cat_null[1]
+    agree = float((out.cat_codes[1] == gram_out.cat_codes[1])[m]
+                  .float().mean())
+    dx = float((out.num_data[1] - gram_out.num_data[1]).abs().max())
+    check(agree >= 0.999, f"[items_fused] family codes agree with the 'gram'"
+          f" loop on {agree} of the null cells")
+    log(f"[items_fused] run_mice_device(kernel='fused') favorita_items "
+        f"P={t.schema.sigma_size} n={N} rounds={ITEMS_ROUNDS}: launches "
+        f"{launches} (as derived); {wall:.2f} s wall; against [items]' "
+        f"'gram' run: family agreement {agree:.6f}, x max diff {dx:.3e}; "
+        f"quality {q}")
+    return dict(launches=launches, wall_s=wall, agree_gram=agree, out=out,
+                **q)
+
+
+def phase_sharded_items(run, fused: dict) -> dict:
+    """run_mice_sharded with its defaults ('auto' = 'fused' on a CUDA
+    table with the solve trainer) at favorita_items, N rows, ITEMS_ROUNDS
+    rounds, on a world of one over NCCL (FileStore in a temporary
+    directory): bit-identical to [items_fused]'s run_mice_device, with the
+    same launches (zeroed just before, read just after); wall s."""
+    import datetime
+    import tempfile
+
+    from duckdb_imputation_tpu_torch.mice import run_mice_sharded
+    from duckdb_imputation_tpu_torch.parallel import initialize, shutdown
+
+    t = run[0]
+    want = fused["out"]
+    with tempfile.TemporaryDirectory() as d:
+        mesh = initialize("nccl", store=_store(f"{d}/store", 1),
+                          world_size=1, rank=0, device=DEVICE,
+                          timeout=datetime.timedelta(minutes=5))
+        try:
+            kernel_counts_reset()
+            t0 = time.perf_counter()
+            got = run_mice_sharded(t, iters=ITEMS_ROUNDS, mesh=mesh)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = kernel_counts()
+        finally:
+            shutdown()
+    check(launches == fused["launches"], f"[sharded_items] launches "
+          f"{launches}, not [items_fused]'s {fused['launches']}")
+    check(torch.equal(got.num_data, want.num_data)
+          and torch.equal(got.cat_codes, want.cat_codes),
+          "[sharded_items] not bit-identical to run_mice_device('fused')")
+    log(f"[sharded_items] run_mice_sharded (defaults: 'auto' = 'fused') on a "
+        f"world of one over NCCL, favorita_items n={N} rounds={ITEMS_ROUNDS}:"
+        f" bit-identical to run_mice_device(kernel='fused'); launches "
+        f"{launches}; {wall:.2f} s wall (run_mice_device {fused['wall_s']:.2f}"
+        f" s)")
+    return dict(launches=launches, wall_s=wall)
+
+
+def qda_oracle(sig, total: float, x, codes, schema, rows: int):
+    """The plain reference of QDA's trainer and scorer, independent of the
+    port's: in f64 on the card, each class's covariance from its sigma,
+    its pseudo-inverse and log-pseudo-determinant by a symmetric
+    eigendecomposition (eigenvalues ≤ 1e-9 cut, the rule of the host
+    trainer models/qda.py), and the centred quadratic form of the dense
+    feature vector [x ‖ onehot(codes)] of each of the first `rows` rows.
+    Returns the first-max class i32[rows]."""
+    f64 = torch.float64
+    d = schema.num_cols
+    m = schema.sigma_size - 1
+    offs = [d]
+    for v in schema.cat_sizes[:-1]:
+        offs.append(offs[-1] + v)
+    offs = torch.tensor(offs, device=x.device)[:, None]
+    scores = []
+    for c in range(sig.shape[0]):
+        s = sig[c].to(f64)
+        n_c = s[0, 0].clamp(min=1.0)
+        mu = s[0, 1:] / n_c
+        cov = (s[1:, 1:] - torch.outer(s[0, 1:], s[0, 1:]) / n_c) / n_c
+        ev, vec = torch.linalg.eigh(cov)
+        keep = ev > 1e-9
+        half = vec[:, keep] / ev[keep].sqrt()          # A = half·halfᵀ
+        const = (-0.5 * ev[keep].log().sum()
+                 + torch.log(s[0, 0] / total))
+        del cov, vec
+        sc = torch.empty(rows, dtype=f64, device=x.device)
+        for lo in range(0, rows, 20_000):
+            hi = min(rows, lo + 20_000)
+            z = torch.zeros((m, hi - lo), dtype=f64, device=x.device)
+            z[:d] = x[:, lo:hi].to(f64)
+            cols = torch.arange(hi - lo, device=x.device).expand(
+                codes.shape[0], -1)
+            z[codes[:, lo:hi].long() + offs, cols] = 1.0
+            q = ((half.T @ (z - mu[:, None])) ** 2).sum(0)
+            sc[lo:hi] = -0.5 * q + const
+        scores.append(sc)
+        del half
+    return torch.stack(scores).argmax(0).to(torch.int32)
+
+
+def phase_classify_items(seed: int) -> dict:
+    """The classifier path past P = 1,024 at favorita_items, N rows,
+    through the entry points a user calls: naive Bayes for label family
+    (sum_to_nb_agg_grouped: K6w; nb_train_device; nb_predict_device: K3w
+    on NB's plan) and QDA for label onpromotion (sum_to_triple_grouped: a
+    sort and K8 a window; qda_train_device: two f64 SVDs of 4,589²;
+    qda_predict_device: K3w on the cross plan). Counts zeroed before each
+    pipeline and read after it, exact. NB: accuracy above the majority
+    share + 0.02; parameters within 1e-6 of their scale from the host's
+    (the same trainer on the CPU from the same aggregates). QDA: the
+    card's predictions against the CPU's plain scorer with the host's
+    parameters, and against `qda_oracle` (f64, eigh, dense centred form)
+    on the same sigma, each on N_CLASSIFY_HOST rows, ≥ 0.999; its accuracy
+    is logged beside the majority share and the oracle's, not held above
+    the majority: with ~4,589 feature dimensions against 2M rows of the
+    minority class, exact QDA scores below the majority share here
+    (tests/test_torch_items.py shows the row count at which it passes it);
+    ms of each stage (host clock after a synchronize)."""
+    from duckdb_imputation_tpu_torch.models.device import (
+        nb_predict_device, nb_train_device, qda_predict_device,
+        qda_train_device)
+    from duckdb_imputation_tpu_torch.ring.kernels import _build
+    from duckdb_imputation_tpu_torch.ring.sum import (
+        sum_to_nb_agg_grouped, sum_to_triple_grouped)
+    from duckdb_imputation_tpu_torch.ring.triple import sigma_from_triple
+
+    def timed(ms, name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        ms[name] = (time.perf_counter() - t0) * 1e3
+        return r
+
+    out = {}
+    x, codes, y, schema, classes = items_classify(N, seed + 75, "family")
+    ms = {}
+    kernel_counts_reset()
+    agg = timed(ms, "aggregate", lambda: sum_to_nb_agg_grouped(
+        x, codes, y, schema=schema, num_groups=classes))
+    params = timed(ms, "train", lambda: nb_train_device(
+        agg.n, agg.lin, agg.quad_diag, agg.lin_cat))
+    pred = timed(ms, "predict", lambda: nb_predict_device(
+        *params, x, codes, schema=schema))
+    launches = kernel_counts()
+    expect = {"nb_grouped_sums.launches": 1,
+              "qda_predict_kernel.wide_launches": 1}
+    check(launches == expect, f"[classify_items] NB launches {launches}, "
+          f"not {expect}")
+    host = nb_train_device(*(a.cpu() for a in (agg.n, agg.lin,
+                                               agg.quad_diag, agg.lin_cat)))
+    p_err = max(float((a.cpu() - h).abs().max())
+                / max(float(h.abs().max()), 1e-30)
+                for a, h in zip(params, host))
+    check(p_err <= 1e-6, f"[classify_items] NB parameters {p_err:.3e} of "
+          f"their scale from the host's")
+    prior = float(torch.bincount(y.long()).max()) / N
+    acc = float((pred == y).float().mean())
+    check(acc > prior + 0.02, f"[classify_items] NB family accuracy {acc} "
+          f"not above the majority share {prior} + 0.02")
+    out["nb"] = dict(launches=launches, accuracy=acc, prior=prior,
+                     param_err=p_err, stage_ms=ms,
+                     pipeline_ms=sum(ms.values()))
+    log(f"[classify_items] NB family C={classes} P={schema.sigma_size} "
+        f"n={N}: launches {launches}; parameters {p_err:.3e} of their scale "
+        f"from the host's; accuracy {acc:.5f} against a majority share of "
+        f"{prior:.5f}; stages (host clock, ms) "
+        + json.dumps({k: round(v, 3) for k, v in ms.items()}))
+    del x, codes, y, agg, params, pred, host
+
+    x, codes, y, schema, classes = items_classify(N, seed + 76, "onpromotion")
+    ms = {}
+    kernel_counts_reset()
+    sig = timed(ms, "aggregate", lambda: sigma_from_triple(
+        sum_to_triple_grouped(x, codes, y, schema=schema,
+                              num_groups=classes)))
+    agg_launches = kernel_counts()
+    windows = -(-schema.sigma_size // _build.WINDOW_WIDTH)
+    check(agg_launches == {"grouped_gram_presorted.wide_launches": windows},
+          f"[classify_items] QDA aggregate launches {agg_launches}")
+    kernel_counts_reset()
+    params = timed(ms, "train", lambda: qda_train_device(sig, float(N)))
+    pred = timed(ms, "predict", lambda: qda_predict_device(
+        *params, x, codes, schema=schema))
+    launches = kernel_counts()
+    check(launches == {"qda_predict_kernel.wide_launches": 1},
+          f"[classify_items] QDA predict launches {launches}")
+    launches.update(agg_launches)
+    check(bool(((pred >= 0) & (pred < classes)).all()),
+          "[classify_items] QDA: a class index out of range")
+    prior = float(torch.bincount(y.long()).max()) / N
+    acc = float((pred == y).float().mean())
+    t0 = time.perf_counter()
+    host = qda_train_device(sig.cpu(), float(N))
+    host_s = time.perf_counter() - t0
+    rows = N_CLASSIFY_HOST
+    host_pred = qda_predict_device(*host, x[:, :rows].cpu(),
+                                   codes[:, :rows].cpu(), schema=schema)
+    agree = float((pred[:rows].cpu() == host_pred).float().mean())
+    check(agree >= 0.999, f"[classify_items] QDA: the card's predictions "
+          f"agree with the host parameters' on {agree} of the rows")
+    t0 = time.perf_counter()
+    oracle = qda_oracle(sig, float(N), x, codes, schema, rows)
+    torch.cuda.synchronize()
+    oracle_s = time.perf_counter() - t0
+    agree_oracle = float((pred[:rows] == oracle).float().mean())
+    check(agree_oracle >= 0.999, f"[classify_items] QDA: the card's "
+          f"predictions agree with the f64 oracle's on {agree_oracle} of "
+          f"the rows")
+    acc_rows = float((pred[:rows] == y[:rows]).float().mean())
+    oracle_acc = float((oracle == y[:rows]).float().mean())
+    out["qda"] = dict(launches=launches, aggregate_launches=agg_launches,
+                      accuracy=acc, prior=prior, host_agreement=agree,
+                      oracle_agreement=agree_oracle,
+                      accuracy_oracle_rows=acc_rows,
+                      oracle_accuracy=oracle_acc,
+                      stage_ms=ms, pipeline_ms=sum(ms.values()),
+                      host_train_s=host_s, oracle_s=oracle_s)
+    log(f"[classify_items] QDA onpromotion C={classes} P={schema.sigma_size}"
+        f" n={N}: launches {launches}; accuracy {acc:.5f} against a majority"
+        f" share of {prior:.5f}; on the first {rows} rows the card's "
+        f"predictions agree with the CPU's plain scorer under the host's "
+        f"parameters ({host_s:.1f} s to train) on {agree:.6f} and with the "
+        f"f64 oracle ({oracle_s:.1f} s) on {agree_oracle:.6f}, accuracy "
+        f"{acc_rows:.5f} against the oracle's {oracle_acc:.5f}; stages (host "
+        f"clock, ms) " + json.dumps({k: round(v, 3) for k, v in ms.items()}))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5077,6 +5684,13 @@ def main() -> int:
         stream = add_counts(stream, phase(args.seed))
     k7win = phase_k7win(args.seed)
     items = phase_items(args.seed)
+    items_fused = phase_items_fused(items["run"])
+    sharded_items = phase_sharded_items(items["run"], items_fused)
+    del items["run"], items_fused["out"]
+    k2w_items = phase_k2w_items(args.seed)
+    k8win = phase_k8win(args.seed)
+    k3items = phase_k3items(args.seed)
+    classify_items = phase_classify_items(args.seed)
     wide_v = phase_wide_v(args.seed, k7win["wide16k"]["rows"])
     sql_mice = phase_sql(args.seed, card)
     sql_classify = phase_sql_classify(args.seed, card)
@@ -5165,6 +5779,29 @@ def main() -> int:
              source=src + "qda_predict.cu",
              replaces=ref + "qda_pallas.py:148",
              launches=classify_wide["qda_predict_wide"], **k3w),
+        # past P = 1,024 (favorita_items): K2w's impute kernel with W in
+        # device memory and K7's windows, K8 a window, K3w on the plans
+        # whose item cross tables are keyed on the item
+        dict(name="fused_impute_aggregate_window", route="cuda",
+             source=src + "fused_impute_aggregate.cu",
+             replaces=ref + "sigma_fused.py:447",
+             launches=items_fused["launches"][
+                 "fused_impute_aggregate.impute_launches"],
+             window_launches=items_fused["launches"][
+                 "fused_impute_aggregate.window_launches"],
+             sharded_launches=sharded_items["launches"][
+                 "fused_impute_aggregate.impute_launches"], **k2w_items),
+        dict(name="grouped_wide_gram_window", route="cuda",
+             source=src + "grouped_wide_gram.cu",
+             replaces=ref + "sigma_pallas_grouped.py:568",
+             launches=classify_items["qda"]["aggregate_launches"][
+                 "grouped_gram_presorted.wide_launches"], **k8win),
+        dict(name="qda_predict_items", route="cuda",
+             source=src + "qda_predict.cu",
+             replaces=ref + "qda_pallas.py:173",
+             launches=sum(p.get("launches", {}).get(
+                 "qda_predict_kernel.wide_launches", 0)
+                 for p in classify_items.values()), **k3items),
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

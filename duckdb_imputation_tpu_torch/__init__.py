@@ -48,7 +48,9 @@ imports torch and never jax. Ported so far:
   (`python -m duckdb_imputation_tpu_torch.cli`) and the build directories
   and default device (`config`);
 - the wide-V path past P = 1,024 (K7 over column windows, `ring.striped`,
-  `parallel.sharded2d`, `parallel.wide`);
+  `parallel.sharded2d`, `parallel.wide`), where the fused pass (K2w), the
+  grouped Gram (K8) and the scorers (K3/K3w) run too, over K7's window
+  plans;
 - the SQL front end (`sql`: `sql.connect(device=…)`, the reference's
   statements evaluated in numpy on the host, every aggregate, trainer
   input and predictor on the connection's device).

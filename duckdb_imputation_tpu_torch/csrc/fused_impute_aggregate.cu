@@ -68,6 +68,16 @@
 //      reach it; the row's running (key, class) in shared memory takes it
 //      only if strictly larger, so the result is the first max over all
 //      classes.
+// Past kMaxWideP (dit_impute_wide, any P ≤ kMaxWindowP) W no longer fits
+// shared memory (a class tile [P + 2][32] f32 is 588 KB at favorita_items,
+// P = 4,592), and a null row needs only its own 1 + d + c rows of W: the
+// same kernel (kGlobalW) reads them from device memory, where W padded to
+// [P + 2][ldw] (ldw a multiple of the tile, a row of zeros, then b) lies in
+// L2 (606 KB at R = 33, 7 MB at R = 337), lane l again the classes
+// k0 + l + 32i, a 128-byte read a warp a term; the compaction, the scoring
+// order and the first-max merge are the same. Then the caller runs K7 over
+// the column windows of S (dit_wide_gram_window) with the new column in the
+// old one's place.
 // What bounds K2w's 'cat' impute kernel: one read of the mask and the old
 // code and one write of the new code for all rows, x and codes of the null
 // rows (bytes: ~0.04 ms at 10M rows); the shared-memory reads of the
@@ -377,8 +387,10 @@ static_assert(kFillRows * kImpWarps == 8 * 32,
 
 __host__ __device__ __forceinline__ int round4(int v) { return (v + 3) & ~3; }
 
-inline size_t impute_smem_bytes(int P, int d, int c, int ld, int batch) {
-  return sizeof(float) * (size_t(round4((P + 2) * ld)) +
+// tile_floats: the class tile [P + 2][ld] in shared memory, 0 when W is
+// read from device memory (kGlobalW)
+inline size_t impute_smem_bytes(int tile_floats, int d, int c, int batch) {
+  return sizeof(float) * (size_t(round4(tile_floats)) +
                           size_t(batch) * (3 + round4(d) + round4(c)) +
                           kFillRows * kImpWarps + 1);
 }
@@ -399,19 +411,23 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
                "l"(src));
 }
 
-template <int M>
+// kGlobalW: W is the padded [P + 2][ldw] in device memory (ldw ≥ the
+// tiles' classes; row P zeros, row P + 1 b) and b is unused; else W f32[P,
+// R] and b f32[R], staged as tiles [P + 2][ld] in shared memory (ldw = ld).
+template <int M, bool kGlobalW>
 __global__ void __launch_bounds__(kImpThreads)
 impute_cat_tiles_kernel(const __grid_constant__ Cols cols, int64_t n,
                         int64_t slice, const uint8_t* __restrict__ null_imp,
                         const float* __restrict__ W,
                         const float* __restrict__ b, int P, int R,
-                        int imp_col, int ld, int batch,
+                        int imp_col, int ld, int ldw, int batch,
                         int* __restrict__ rows, int32_t* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char imp_smem[];
   const int d = cols.d, c = cols.c;
   const int cx = round4(d), tsp = cx + round4(c);   // a row's terms
   float* wbuf = reinterpret_cast<float*>(imp_smem);   // the tile
-  int* terms = reinterpret_cast<int*>(wbuf + round4((P + 2) * ld));
+  int* terms =
+      reinterpret_cast<int*>(wbuf + (kGlobalW ? 0 : round4((P + 2) * ld)));
   uint32_t* bkey = reinterpret_cast<uint32_t*>(terms + batch * tsp);
   int* bcls = reinterpret_cast<int*>(bkey + batch);
   int* list = bcls + batch;
@@ -420,10 +436,12 @@ impute_cat_tiles_kernel(const __grid_constant__ Cols cols, int64_t n,
   const int tiles = (R + ld - 1) / ld;
 
   // row P: the zeros an out-of-range code adds
-  for (int i = tid; i < ld; i += kImpThreads) wbuf[P * ld + i] = 0.0f;
+  if constexpr (!kGlobalW)
+    for (int i = tid; i < ld; i += kImpThreads) wbuf[P * ld + i] = 0.0f;
   // tile t: W[:, t·ld ..) into rows 0 .. P - 1 and b into row P + 1, one
   // cp.async group; a warp a row, lanes over classes
   auto load_tile = [&](int t) {
+    if constexpr (kGlobalW) return;
     const int k0 = t * ld, kw = min(ld, R - k0);
     for (int a = warp; a <= P; a += kImpWarps) {
       const float* src = a < P ? W + int64_t(a) * R + k0 : b + k0;
@@ -509,7 +527,7 @@ impute_cat_tiles_kernel(const __grid_constant__ Cols cols, int64_t n,
       for (int j = 0; j < c; ++j) {
         const int code = cols.code[j][row];
         te[cx + j] =
-            (code >= 0 && code < cols.size[j] ? cols.off[j] + code : P) * ld;
+            (code >= 0 && code < cols.size[j] ? cols.off[j] + code : P) * ldw;
       }
     }
     for (int e = tid; e < count; e += kImpThreads) {
@@ -523,14 +541,14 @@ impute_cat_tiles_kernel(const __grid_constant__ Cols cols, int64_t n,
       if (t > 0) load_tile(t);
       asm volatile("cp.async.wait_group 0;\n" ::);
       __syncthreads();
-      const float* Wt = wbuf + lane;
       const int k0 = t * ld;
+      const float* Wt = kGlobalW ? W + k0 + lane : wbuf + lane;
       // b + W₀ and the lane's classes in range, the same for every row
       float bw[M];
       bool in[M];
 #pragma unroll
       for (int i = 0; i < M; ++i) {
-        bw[i] = __fadd_rn(Wt[(P + 1) * ld + 32 * i], Wt[32 * i]);
+        bw[i] = __fadd_rn(Wt[(P + 1) * ldw + 32 * i], Wt[32 * i]);
         in[i] = lane + 32 * i < ld && k0 + lane + 32 * i < R;
       }
       // kImpRows rows at once: independent chains of adds (a row past
@@ -546,7 +564,7 @@ impute_cat_tiles_kernel(const __grid_constant__ Cols cols, int64_t n,
           for (int i = 0; i < M; ++i) acc[r][i] = bw[i];
         }
         for (int j = 0; j < d; ++j) {
-          const float* wr = Wt + (1 + j) * ld;
+          const float* wr = Wt + (1 + j) * ldw;
           float wv[M];
 #pragma unroll
           for (int i = 0; i < M; ++i) wv[i] = wr[32 * i];
@@ -652,22 +670,34 @@ inline int check_impute(int kind, int imp_col, int R, int d, int c,
 // K2w 'cat': the impute kernel of plan (ld, M, batch), a wave of
 // blocks each owning a slice of whole 32-row steps; rows: i32[n] scratch
 // for the null rows of each slice.
+// global: W is the padded [P + 2][ldw] in device memory (kGlobalW), with
+// ld = 32·M and ldw a multiple of ld of at least R; else ldw = ld.
 inline int launch_impute_cat(const Cols& cols, int64_t n,
                              const uint8_t* null_imp, const float* W,
                              const float* b, int P, int R, int imp_col,
                              const int* plan, int* rows, int32_t* out,
-                             cudaStream_t s) {
+                             cudaStream_t s, bool global = false,
+                             int ldw = 0) {
   const int ld = plan[0], M = plan[1], batch = plan[2];
   if (M < 1 || M > kImpMaxM || ld < 1 || ld > 32 * M || ld <= 32 * (M - 1) ||
       batch < 32 || batch % 32 != 0)
     return cudaErrorInvalidValue;
-  const size_t smem = impute_smem_bytes(P, cols.d, cols.c, ld, batch);
+  if (!global) ldw = ld;
+  else if (ld != 32 * M || ldw < R || ldw % ld != 0 ||
+           int64_t(P + 2) * ldw > 0x7fffffff)
+    return cudaErrorInvalidValue;
+  const size_t smem = impute_smem_bytes(global ? 0 : (P + 2) * ld, cols.d,
+                                        cols.c, batch);
   if (smem > size_t(kWideSmem)) return cudaErrorInvalidValue;
-  decltype(&impute_cat_tiles_kernel<1>) kern =
-      M == 1 ? impute_cat_tiles_kernel<1>
-      : M == 2 ? impute_cat_tiles_kernel<2>
-      : M == 3 ? impute_cat_tiles_kernel<3>
-               : impute_cat_tiles_kernel<4>;
+  decltype(&impute_cat_tiles_kernel<1, false>) kern =
+      global ? (M == 1 ? impute_cat_tiles_kernel<1, true>
+                : M == 2 ? impute_cat_tiles_kernel<2, true>
+                : M == 3 ? impute_cat_tiles_kernel<3, true>
+                         : impute_cat_tiles_kernel<4, true>)
+             : (M == 1 ? impute_cat_tiles_kernel<1, false>
+                : M == 2 ? impute_cat_tiles_kernel<2, false>
+                : M == 3 ? impute_cat_tiles_kernel<3, false>
+                         : impute_cat_tiles_kernel<4, false>);
   cudaError_t rc = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -687,7 +717,8 @@ inline int launch_impute_cat(const Cols& cols, int64_t n,
   const int64_t slice = (steps + blocks - 1) / blocks * 32;
   blocks = (n + slice - 1) / slice;
   kern<<<static_cast<int>(blocks), kImpThreads, smem, s>>>(
-      cols, n, slice, null_imp, W, b, P, R, imp_col, ld, batch, rows, out);
+      cols, n, slice, null_imp, W, b, P, R, imp_col, ld, ldw, batch, rows,
+      out);
   return cudaGetLastError();
 }
 
@@ -817,6 +848,41 @@ int dit_fused_impute_aggregate_wide(
     cols.x[imp_col] = static_cast<const float*>(out_col);
   return launch_wide_gram<false>(cols, plan, P, n, nullptr, nullptr, 1,
                                  slices, w_agg, partial, sigma, s);
+}
+
+// Launches K2w's impute kernel alone on `stream`, for any P ≤ kMaxWindowP
+// (the fused pass past kMaxWideP, whose Gram the caller runs as K7 over
+// S's column windows). kind 0 ('cat'): w the padded W f32[P + 2][ldw] (rows
+// 0 .. P − 1 W's, row P zeros, row P + 1 the intercept; zeros past R),
+// imp_plan (ld, M, batch) with ld = 32·M (_build.impute_global_plan) and
+// ldw a multiple of ld, imp_rows i32[n] scratch; kind 1 ('num'): w =
+// w_full f32[P], intercept f32[1], noise as dit_fused_impute_aggregate.
+// out_col as dit_fused_impute_aggregate. Returns 0 or a cudaError_t.
+int dit_impute_wide(
+    const void* const* x_cols, int d, const void* const* code_cols,
+    const int* cat_sizes, int c, const uint8_t* null_imp, const float* w,
+    const float* intercept, int ldw, int R, int kind, int imp_col,
+    void* out_col, int noise, uint32_t seed_lo, uint32_t seed_hi,
+    uint32_t round, int64_t row_offset, const float* noise_std, int64_t n,
+    int P, const int* imp_plan, int* imp_rows, void* stream) {
+  using namespace dit;
+  if (int rc = check_cols(d, c, cat_sizes, P, n, 1, kMaxWindowP)) return rc;
+  if (int rc = check_impute(kind, imp_col, R, d, c, cat_sizes)) return rc;
+  const Cols cols = make_cols(x_cols, d, code_cols, cat_sizes, c);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (n == 0) return 0;
+  if (kind == kCat)
+    return launch_impute_cat(cols, n, null_imp, w, nullptr, P, R, imp_col,
+                             imp_plan, imp_rows,
+                             static_cast<int32_t*>(out_col), s, true, ldw);
+  const Noise nz{noise, seed_lo, seed_hi, round,
+                 static_cast<uint32_t>(imp_col), noise_std, row_offset};
+  const int64_t want = (n + kThreads - 1) / kThreads;
+  const int blocks = static_cast<int>(want < 8192 ? want : 8192);
+  impute_num_wide_kernel<<<blocks, kThreads, 0, s>>>(
+      cols, n, null_imp, w, intercept, imp_col, nz,
+      static_cast<float*>(out_col));
+  return cudaGetLastError();
 }
 
 }  // extern "C"

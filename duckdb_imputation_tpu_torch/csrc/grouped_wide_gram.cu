@@ -29,6 +29,12 @@
 // zeros the output was allocated with; rows past off[G] (ids outside
 // [0, G)) are never read.
 //
+// Past kMaxWideP (dit_grouped_wide_gram_window, any P ≤ kMaxWindowP) the
+// caller runs it once a column window of S, over the window's plan
+// (_build.window_plan, as dit_wide_gram_window), its partial sized for that
+// plan, each group's places S_g[i, j], lo ≤ j < lo + width, written through
+// the window's OutMap with the group stride of out f32[G, P, ld].
+//
 // What bounds it on an H100: as K7; each row joins one group, so G does
 // not multiply the work. A group change costs a warp one flush of its
 // cells, and the reduction reads (slices + G − 1) slots of every cell.
@@ -62,6 +68,37 @@ int dit_grouped_wide_gram(const void* const* x_cols, int d,
   return launch_wide_gram<true>(cols, plan, P, n, off, cum, G, slices, w,
                                 partial, out,
                                 static_cast<cudaStream_t>(stream));
+}
+
+// Launches K8 over a window's plan (ring/kernels/_build.py: window_plan)
+// and its reduction on `stream`: S_g[:, lo:lo + width] of every group g, any
+// P ≤ kMaxWindowP, written to out[g·gstride + i·ld + j − lo] for the map's
+// places (i, j); out zeroed by the caller (e.g. f32[G, P, P] at its column
+// lo: ld = P, gstride = P·P). partial: f64 scratch of the window plan's
+// task_base[tasks] · (slices + G − 1). Other arguments as
+// dit_grouped_wide_gram. Returns 0 or a cudaError_t.
+int dit_grouped_wide_gram_window(
+    const void* const* x_cols, int d, const void* const* code_cols,
+    const int* cat_sizes, int c, const float* w, const int64_t* off,
+    const int64_t* cum, int G, int64_t n, int P, int lo, int width,
+    int64_t ld, int64_t gstride, const int* slabs, const int* warp_begin,
+    const int64_t* task_base, const int* stage_cols, const int* entries,
+    const int* shape, double* partial, float* out, void* stream) {
+  using namespace dit;
+  if (int rc = check_cols(d, c, cat_sizes, P, n, 1, kMaxWindowP)) return rc;
+  if (G < 1 || lo < 0 || width < 1 || lo > P - width || ld < width ||
+      gstride < int64_t(P) * ld)
+    return cudaErrorInvalidValue;
+  WidePlanArgs plan;
+  int slices;
+  if (int rc = make_plan(slabs, warp_begin, task_base, stage_cols, entries,
+                         shape, plan, slices))
+    return rc;
+  const Cols cols = make_cols(x_cols, d, code_cols, cat_sizes, c);
+  const OutMap om{ld, gstride, lo, false};
+  return launch_wide_gram<true>(cols, plan, P, n, off, cum, G, slices, w,
+                                partial, out,
+                                static_cast<cudaStream_t>(stream), &om);
 }
 
 }  // extern "C"

@@ -44,6 +44,11 @@
 // partial scores in device memory, no atomics, so reruns are
 // bit-identical. One task (BASELINE config 4: 160 cells) is K3; several
 // (favorita_classify: 46,584 cells a class at label family, 12 tasks) K3w.
+// Past P = 1,024 (favorita_items: item_nbr's 4,100 levels) the plan keys a
+// cross table C_jk whose rows would pass a task on the column of more
+// levels (a slab (C, k, j, ...): cell (v − v_lo)·V_j + u), so a slab's row
+// holds the narrower column's levels; the kernel reads either key order
+// alike, and takes any P of K7's window plans with codes < kQdaMaxLevels.
 //
 // What bounds it on an H100: the bytes floor is one read of x and codes
 // and one write of the argmax (48 bytes a row at favorita_classify, 0.14
@@ -65,6 +70,8 @@ namespace dit {
 namespace {
 
 constexpr int kQdaThreads = 1024; // most threads of a block
+// most levels of a categorical column: its codes are staged as i16
+constexpr int kQdaMaxLevels = 32768;
 constexpr int kQdaMaxGroup = 4;   // most classes a step stages
 constexpr int kQdaMaxSums = 8;    // most f64 sums a thread keeps: rows · group
 
@@ -230,7 +237,8 @@ qda_kernel(const __grid_constant__ Cols cols, const __grid_constant__ QdaArgs qa
                     acc[i][k], __dmul_rn(tb[i * stride + base[k] + a * step[k]], x));
             }
           }
-        } else {                       // columns p0 < p1, keys u ∈ [p2, p3)
+        } else {                       // key column p0, row column p1, keys
+                                       // u ∈ [p2, p3) of p0
           const int vk = cols.size[p1];
           const int16_t* cu = cs + p0 * tile + tid;
           const int16_t* cv = cs + p1 * tile + tid;
@@ -335,7 +343,10 @@ int dit_qda_predict(const void* const* x_cols, int d,
     return cudaErrorInvalidValue;
   int P = 1 + d;
   for (int j = 0; j < c; ++j) P += cat_sizes[j];
-  if (int rc = check_cols(d, c, cat_sizes, P, n, 1, kMaxWideP)) return rc;
+  // any P of K7's window plans; codes staged as i16
+  if (int rc = check_cols(d, c, cat_sizes, P, n, 1, kMaxWindowP)) return rc;
+  for (int j = 0; j < c; ++j)
+    if (cat_sizes[j] > kQdaMaxLevels) return cudaErrorInvalidValue;
   const QdaLaunch launch = pick_qda(rows, group);
   if (C < 1 || tasks < 1 || max_cells < 1 || max_cells % 4 || cells % 4 ||
       reinterpret_cast<uintptr_t>(tables) % 16 || cells < max_cells ||

@@ -57,7 +57,9 @@
 //      on column k's codes), and a map of one place a cell and output
 //      position, S[i, j] with lo ≤ j < lo + width, written with a row
 //      stride `ld` (OutMap, mirror off). Past kMaxWideP masked_gram
-//      assembles S from such windows.
+//      assembles S from such windows, K2w's Gram is such windows after
+//      its impute kernel (dit_impute_wide), and K8 runs once a window
+//      (dit_grouped_wide_gram_window), the group stride in its OutMap.
 //
 // What bounds it on an H100: the bytes floor is one read of x, codes and w
 // (0.16 ms per 10M rows at favorita_wide); the work is ~k(k + 1)/2 table
@@ -74,7 +76,9 @@
 namespace dit {
 namespace {
 
-constexpr int kMaxWideP = 1024;             // K7's whole plan, K2w and K8
+constexpr int kMaxWideP = 1024;             // K7's whole plan, K2w's fused
+                                             // entry and K8's whole plan
+                                             // (past it: a launch a window)
 // K7 over a column window: a window's map holds at most P·width ≤ P² < 2³¹
 // places (int entry counts; positions are int64)
 constexpr int kMaxWindowP = 46340;

@@ -26,7 +26,10 @@ leave their inputs unchanged and return new tensors.
     'auto'                    'gram' for a CUDA table, 'plain' on the CPU
 
 Above P = 88 the same wrappers launch the wide kernels (K7 for the Gram,
-K2w for the fused pass), up to P = 1,024. On CPU tensors every kernel
+K2w for the fused pass): one launch up to P = 1,024, and past it K7 a
+column window of 1,024, and for the fused pass K2w's impute kernel, W
+read from device memory, before K7's windows (favorita_items, P = 4,592).
+On CPU tensors every kernel
 takes its plain version, so every kernel value runs on the CPU too.
 The fused loop is solve-only, as the JAX package's is.
 

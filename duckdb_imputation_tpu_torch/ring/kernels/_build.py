@@ -54,7 +54,12 @@ TC_RIGHT = 32        # kTcRight (tc_gram.cuh): right features of K1's tile
 # ran on
 TC_MAX_BLOCKS = 660
 MAX_WIDE_SIGMA_SIZE = 1024  # kMaxWideP (wide_gram.cuh): K7's whole plan,
-                            # K2w, K8 and K3/K3w
+                            # K2w's fused entry and K8's whole plan; past
+                            # it K2w (its impute kernel, dit_impute_wide,
+                            # then K7's windows) and K8 run a launch a
+                            # column window, and K3/K3w take any P up to
+                            # MAX_WINDOW_SIGMA_SIZE (qda_predict.cu checks
+                            # kMaxWindowP)
 MAX_WINDOW_SIGMA_SIZE = 46340  # kMaxWindowP (wide_gram.cuh): K7 over a
                                # column window (a map of P·width ≤ P² <
                                # 2³¹ places)
@@ -98,6 +103,8 @@ QDA_TASK_CELLS = 4096    # the f32 cells of a K3/K3w task (`qda_plan`):
                          # tables (tools/qda_variants.py --schedules:
                          # 15.67 / 1.354 ms at favorita_classify's family /
                          # onpromotion, 16.08 / 1.633 at K7's 8,192)
+QDA_MAX_LEVELS = 32768   # kQdaMaxLevels (qda_predict.cu): most levels of
+                         # a categorical column (codes staged as i16)
 QDA_MAX_GROUP = 4        # kQdaMaxGroup (qda_predict.cu): most classes a
                          # K3/K3w step stages
 QDA_MAX_SUMS = 8         # kQdaMaxSums (qda_predict.cu): f64 sums a thread
@@ -155,6 +162,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.dit_grouped_wide_gram.argtypes = [p, i, p, p, i, p, p, p, i, i64, i,
                                           *plan, p, p, p]
     lib.dit_grouped_wide_gram.restype = i
+    lib.dit_grouped_wide_gram_window.argtypes = [
+        p, i, p, p, i, p, p, p, i, i64, i, i, i, i64, i64, *plan, p, p, p]
+    lib.dit_grouped_wide_gram_window.restype = i
     lib.dit_wide_gram.argtypes = [p, i, p, p, i, p, i64, i, *plan, p, p, p]
     lib.dit_wide_gram.restype = i
     lib.dit_wide_gram_window.argtypes = [p, i, p, p, i, p, i64, i, i, i, i64,
@@ -164,6 +174,10 @@ def _declare(lib: ctypes.CDLL) -> None:
         p, i, p, p, i, p, p, p, p, i, i, i, p, i, u32, u32, u32, i64, p,
         i64, i, *plan, p, p, p, p, p]
     lib.dit_fused_impute_aggregate_wide.restype = i
+    lib.dit_impute_wide.argtypes = [
+        p, i, p, p, i, p, p, p, i, i, i, i, p, i, u32, u32, u32, i64, p,
+        i64, i, p, p, p]
+    lib.dit_impute_wide.restype = i
     lib.dit_gram_entries.argtypes = [i]
     lib.dit_gram_entries.restype = i
     lib.dit_error_string.argtypes = [i]
@@ -325,13 +339,22 @@ def qda_tile(schema, plan: "WidePlan", num_classes: int
     return threads, rows, 1
 
 
-def check_qda(schema, num_classes: int, n: int) -> None:
+def check_qda(schema, num_classes: int, n: int, cross: bool = True
+              ) -> None:
     """Raise ValueError for a schema, class count or row count K3/K3w do
-    not take: the plan's limits (P ≤ MAX_WIDE_SIGMA_SIZE, MAX_COLS numeric
-    and categorical columns)."""
+    not take: P ≤ MAX_WINDOW_SIGMA_SIZE and MAX_COLS numeric and
+    categorical columns, as K7's window plans; at most QDA_MAX_LEVELS
+    levels a column (the staged codes are i16); and a plan
+    (`qda_plan`): of each pair of categorical columns the narrower at most
+    a task's cells (`cross`: QDA's plan, not naive Bayes's)."""
     if num_classes < 1:
         raise ValueError(f"{num_classes} classes: at least 1 is needed")
-    check_schema(schema, n, MAX_WIDE_SIGMA_SIZE)
+    check_schema(schema, n, MAX_WINDOW_SIGMA_SIZE)
+    if schema.cat_sizes and max(schema.cat_sizes) > QDA_MAX_LEVELS:
+        raise ValueError(f"a categorical column of {max(schema.cat_sizes)} "
+                         f"levels: K3/K3w take at most {QDA_MAX_LEVELS}")
+    if cross:
+        qda_task_cells(tuple(schema.cat_sizes))
 
 
 def pointers(tensors):
@@ -347,10 +370,10 @@ def int_array(values):
 def impute_smem_bytes(schema, ld: int, batch: int) -> int:
     """Shared memory of a K2w 'cat' impute block (fused_impute_aggregate.cu:
     impute_smem_bytes): a class tile f32[P + 2, ld] (rounded up to 16
-    bytes), and per batch row its terms (x, then the codes' W-row
-    offsets, each part padded to 4 words), key, class and row index, and a
-    compaction step's counts (one a warp and a row of a thread) and
-    total."""
+    bytes; none at ld = 0, W read from device memory), and per batch row
+    its terms (x, then the codes' W-row offsets, each part padded to 4
+    words), key, class and row index, and a compaction step's counts (one
+    a warp and a row of a thread) and total."""
     p, d, c = schema.sigma_size, schema.num_cols, schema.cat_cols
     r4 = lambda v: (v + 3) // 4 * 4   # noqa: E731
     return 4 * (r4((p + 2) * ld) + batch * (3 + r4(d) + r4(c))
@@ -380,6 +403,22 @@ def impute_plan(schema, r: int) -> tuple[int, int, int]:
             return ld, -(-ld // 32), batch
     raise ValueError(f"K2w: no impute plan fits shared memory at P = "
                      f"{schema.sigma_size}")
+
+
+def impute_global_plan(schema, r: int) -> tuple[int, int, int]:
+    """(ld, M, batch) of K2w's 'cat' impute kernel past
+    MAX_WIDE_SIGMA_SIZE, W read from device memory (`dit_impute_wide`):
+    tiles of ld = 32·M classes, M = ceil(R / 32) up to IMP_MAX_M, and
+    IMP_BATCH null rows a batch, or the most whole warps shared memory
+    holds beside no class tile."""
+    m = min(IMP_MAX_M, -(-r // 32))
+    fixed = impute_smem_bytes(schema, 0, 0)
+    per_row = impute_smem_bytes(schema, 0, 1) - fixed
+    batch = min(IMP_BATCH, (WIDE_SMEM - fixed) // per_row // 32 * 32)
+    if batch < 32:
+        raise ValueError(f"K2w: no impute plan fits shared memory at P = "
+                         f"{schema.sigma_size}")
+    return 32 * m, m, batch
 
 
 def grid_blocks(n: int) -> int:
@@ -591,16 +630,45 @@ def _wide_plan(d: int, sizes: tuple[int, ...], cross: bool = True,
                                                    base[j] + diag])], 1)))
     for j in range(len(sizes) if cross else 0):
         for k in range(j + 1, len(sizes)):
-            if sizes[k] == 0:
+            if sizes[j] == 0 or sizes[k] == 0:
                 continue
-            for lo, hi in _split(sizes[j], sizes[k], cap):
-                u = torch.arange(lo, hi).repeat_interleave(sizes[k])
-                v = torch.arange(sizes[k]).repeat(hi - lo)
-                pieces.append((SLAB_C, (j, k, lo, hi),
-                               (hi - lo) * sizes[k],
-                               torch.stack([(u - lo) * sizes[k] + v,
-                                            base[j] + u, base[k] + v])))
+            key, row = _cross_keys(sizes, j, k, cap)
+            vr = sizes[row]
+            for lo, hi in _split(sizes[key], vr, cap):
+                u = torch.arange(lo, hi).repeat_interleave(vr)
+                v = torch.arange(vr).repeat(hi - lo)
+                i, jj = base[key] + u, base[row] + v
+                pieces.append((SLAB_C, (key, row, lo, hi), (hi - lo) * vr,
+                               torch.stack([(u - lo) * vr + v,
+                                            torch.minimum(i, jj),
+                                            torch.maximum(i, jj)])))
     return _plan_of(pieces, d, cross, scorer, cap)
+
+
+def _cross_keys(sizes: tuple[int, ...], j: int, k: int, cap: int
+                ) -> tuple[int, int]:
+    """(key column, row column) of C_jk, j < k: keyed on j's codes, a row
+    of V_k cells, as long as a row fits a task of `cap` cells; else keyed on
+    the column of more levels, so that a row holds the narrower column's
+    levels (favorita_items: item_nbr's 4,100 against a 4,096-cell task)."""
+    if sizes[k] <= cap:
+        return j, k
+    return (k, j) if sizes[k] >= sizes[j] else (j, k)
+
+
+def qda_task_cells(sizes: tuple[int, ...]) -> int:
+    """The task budget of the scorer's plan: QDA_TASK_CELLS, or, where of
+    two categorical columns the narrower has more levels (its row of a
+    cross table lies in one task), that many rounded up to whole 16-byte
+    words, up to K7's WIDE_TASK_BYTES // 8; ValueError past it."""
+    ordered = sorted(sizes)
+    narrow = ordered[-2] if len(ordered) > 1 else 0
+    cells = max(QDA_TASK_CELLS, -(-narrow // 4) * 4)
+    if cells > WIDE_TASK_BYTES // 8:
+        raise ValueError(f"two categorical columns of {narrow}+ levels: "
+                         f"K3/K3w take a cross table whose narrower column "
+                         f"has at most {WIDE_TASK_BYTES // 8} levels")
+    return cells
 
 
 def _plan_of(pieces: list, d: int, cross: bool, scorer: bool, cap: int,
@@ -796,9 +864,13 @@ def qda_plan(schema, cross: bool = True) -> WidePlan:
     with zero cells to a multiple of 4, so that a table copies in 16-byte
     words. cross=False is naive Bayes's plan: no
     C_jk tables, and the scorer reads of D only row 0 and the diagonal and
-    of K_j only row 0 (the rest of its cells are zero in NB's tables)."""
-    return _wide_plan(schema.num_cols, tuple(schema.cat_sizes), cross, True,
-                      QDA_TASK_CELLS)
+    of K_j only row 0 (the rest of its cells are zero in NB's tables).
+    A cross table whose rows would pass a task is keyed on its column of
+    more levels (`_cross_keys`); where even the narrower column passes
+    QDA_TASK_CELLS the tasks grow to it (`qda_task_cells`)."""
+    sizes = tuple(schema.cat_sizes)
+    return _wide_plan(schema.num_cols, sizes, cross, True,
+                      qda_task_cells(sizes) if cross else QDA_TASK_CELLS)
 
 
 @dataclasses.dataclass(frozen=True)

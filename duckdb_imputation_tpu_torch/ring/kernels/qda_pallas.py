@@ -92,26 +92,38 @@ def nb_tables(log_prior, mean, var, log_freq, *, schema: FeatureSchema,
     0) on the numerics, log freq on the one-hot diagonal, and the x-free
     terms at (0, 0). All in f64 from log_prior [C], mean, var [C, d] (var
     > 0) and log_freq [C, V]; packed into `_build.qda_plan(schema,
-    cross=False)`, whose cells are D and K_j only. center: f32[d] or None
-    (0): the tables score x − center, with μ − center in place of μ (pass
-    the same tensor to the scorer as `shift`). Returns (tables f32[C,
-    cells], plan)."""
+    cross=False)`, whose cells are D and K_j only: each of the plan's map
+    entries (i, j) gets its value of A_c straight, A[0, a] + A[a, 0] = μ/σ²
+    at (0, a), with no dense A (33 × 4,559² f64, 5.5 GB, at favorita_items'
+    family); the same values `_pack` would sum from it. center: f32[d] or
+    None (0): the tables score x − center, with μ − center in place of μ
+    (pass the same tensor to the scorer as `shift`). Returns (tables
+    f32[C, cells], plan)."""
     f64 = torch.float64
     mean, var = mean.to(f64), var.to(f64)
     if center is not None:
         mean = mean - center.to(f64)
-    num_classes, d, p = mean.shape[0], schema.num_cols, schema.sigma_size
-    a = torch.zeros((num_classes, p, p), dtype=f64, device=mean.device)
-    di = torch.arange(1, 1 + d, device=mean.device)
-    vi = torch.arange(1 + d, p, device=mean.device)
-    a[:, 0, 0] = log_prior.to(f64) - 0.5 * (
-        mean * mean / var + torch.log(2.0 * torch.pi * var)).sum(1)
-    a[:, 0, di] = mean / var / 2
-    a[:, di, 0] = mean / var / 2
-    a[:, di, di] = -0.5 / var
-    a[:, vi, vi] = log_freq.to(f64)
+    num_classes, d = mean.shape[0], schema.num_cols
     plan = _build.qda_plan(schema, cross=False)
-    return _pack(a, plan).to(torch.float32), plan
+    e = plan.entries.to(mean.device).long()
+    i, j = e[:, 2], e[:, 3]
+    vals = torch.zeros((num_classes, e.shape[0]), dtype=f64,
+                       device=mean.device)
+    a00 = log_prior.to(f64) - 0.5 * (
+        mean * mean / var + torch.log(2.0 * torch.pi * var)).sum(1)
+    at = (i == 0) & (j == 0)
+    vals[:, at] = a00[:, None]
+    # (0, a): the halves A[0, a] + A[a, 0], summed as `_pack` sums them
+    at = (i == 0) & (j >= 1) & (j <= d)
+    vals[:, at] = (mean / var / 2 + mean / var / 2)[:, j[at] - 1]
+    at = (i == j) & (i >= 1) & (i <= d)
+    vals[:, at] = (-0.5 / var)[:, i[at] - 1]
+    at = (i == j) & (i > d)                             # one-hot diagonal
+    vals[:, at] = log_freq.to(f64)[:, i[at] - 1 - d]
+    flat = plan.task_base.to(mean.device)[e[:, 0]] + e[:, 1]
+    cells = torch.zeros((num_classes, int(plan.task_base[-1])), dtype=f64,
+                        device=mean.device)
+    return cells.index_add_(1, flat, vals).to(torch.float32), plan
 
 
 def class_scores_plain(tables, plan: _build.WidePlan, x_num, codes, *,
@@ -206,7 +218,7 @@ def qda_predict_kernel(tables, plan: _build.WidePlan, x_num, codes, *,
                                  shift=shift)
     num_classes = tables.shape[0]
     n = x_num.shape[-1] if schema.num_cols else codes.shape[-1]
-    _build.check_qda(schema, num_classes, n)
+    _build.check_qda(schema, num_classes, n, plan.cross)
     if not plan.scorer or tables.data_ptr() % 16:
         raise ValueError("qda_predict_kernel takes tables of a "
                          "`_build.qda_plan` at a 16-byte aligned address")

@@ -36,7 +36,11 @@ that route's arithmetic in plain torch; on the CUDA cores otherwise), K2w
 above (an impute kernel over the null rows with W's class tiles in shared
 memory, `_build.impute_plan`, whose first-max merge across tiles
 `class_argmax_tiles_plain` repeats, then K7's wide Gram over the updated
-columns). It takes `fused_impute_aggregate_plain` only for CPU tensors.
+columns) up to P = 1,024, and past it, up to K7's window limit, the same
+impute kernel with W read from device memory (`_build.impute_global_plan`)
+and then K7 once a column window of `_build.WINDOW_WIDTH`, as
+`masked_gram_cols` builds S there. It takes `fused_impute_aggregate_plain`
+only for CPU tensors.
 """
 from __future__ import annotations
 
@@ -47,8 +51,8 @@ import torch
 from ...schema import FeatureSchema
 from ..sum import class_argmax, class_score
 from . import _build
-from .sigma_pallas import (masked_gram_cols_plain, masked_gram_split_plain,
-                           wide_plan_args)
+from .sigma_pallas import (_gram_windows, masked_gram_cols_plain,
+                           masked_gram_split_plain, wide_plan_args)
 
 _MASK32 = 0xFFFFFFFF
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
@@ -215,8 +219,11 @@ def fused_impute_aggregate(x_cols, code_cols, null_imp, w_agg, w_full,
     'num'. CUDA tensors launch K2 for P ≤ 88, on the tensor cores where
     `_build.tc_fits`, else on the CUDA cores (counted in
     `fused_impute_aggregate.launches`), or K2w above (counted in
-    `fused_impute_aggregate.wide_launches`); at n = 0 they launch nothing
-    and return a zero sigma. CPU tensors take the plain version."""
+    `fused_impute_aggregate.wide_launches`), or past MAX_WIDE_SIGMA_SIZE
+    K2w's impute kernel (`.impute_launches`) and K7 over each column window
+    of the updated columns (`.window_launches`); at n = 0 they launch
+    nothing and return a zero sigma. CPU tensors take the plain
+    version."""
     if kind not in _KINDS:
         raise ValueError(f"kind must be 'cat' or 'num', got {kind!r}")
     x_cols, code_cols = list(x_cols), list(code_cols)
@@ -233,7 +240,9 @@ def fused_impute_aggregate(x_cols, code_cols, null_imp, w_agg, w_full,
             row_offset=row_offset)
     n = null_imp.shape[-1]
     p = schema.sigma_size
-    _build.check_schema(schema, n, _build.MAX_WIDE_SIGMA_SIZE)
+    _build.check_schema(schema, n, _build.MAX_WINDOW_SIGMA_SIZE)
+    if p > _build.MAX_WIDE_SIGMA_SIZE:
+        _build.check_window(schema, 0, p)
     if kind == "cat":
         if not 0 <= imp_col < schema.cat_cols:
             raise ValueError(f"imp_col {imp_col} is not a categorical column")
@@ -267,6 +276,11 @@ def fused_impute_aggregate(x_cols, code_cols, null_imp, w_agg, w_full,
             seed & _MASK32, (seed >> 32) & _MASK32, round_, row_offset,
             None if std is None else std.data_ptr(), n, p)
     stream = torch.cuda.current_stream(device).cuda_stream
+    if p > _build.MAX_WIDE_SIGMA_SIZE:
+        return new, _fused_windows(
+            lib, x_cols, code_cols, null_imp, w_agg, w_full, intercept, new,
+            r, kind, imp_col, noise, row_offset, std, n, schema, device,
+            stream)
     if p > _build.MAX_SIGMA_SIZE:   # K2w: K7's plan, then scratch
         plan, partial = wide_plan_args(schema, n, device)
         imp_plan = _build.int_array(_build.impute_plan(schema, r))
@@ -298,5 +312,64 @@ def fused_impute_aggregate(x_cols, code_cols, null_imp, w_agg, w_full,
     return new, sigma
 
 
+def _fused_windows(lib, x_cols, code_cols, null_imp, w_agg, w_full,
+                   intercept, new, r, kind, imp_col, noise, row_offset, std,
+                   n, schema, device, stream):
+    """K2w past MAX_WIDE_SIGMA_SIZE: the impute kernel into `new`, then K7
+    over each column window of the columns with `new` in place; returns
+    sigma f32[P, P]."""
+    w, ldw, plan, rows = impute_wide_inputs(w_full, intercept, r, kind, n,
+                                            schema, device)
+    impute_wide(lib, x_cols, code_cols, null_imp, w, intercept, ldw, plan,
+                rows, new, r, kind, imp_col, noise, row_offset, std, n,
+                schema, device, stream)
+    if kind == "cat":
+        code_cols = code_cols[:imp_col] + [new] + code_cols[imp_col + 1:]
+    else:
+        x_cols = x_cols[:imp_col] + [new] + x_cols[imp_col + 1:]
+    return _gram_windows(x_cols, code_cols, w_agg, n, device, schema, lib,
+                         fused_impute_aggregate, "window_launches")
+
+
+def impute_wide_inputs(w_full, intercept, r, kind, n, schema, device):
+    """The inputs of K2w's impute kernel past MAX_WIDE_SIGMA_SIZE: (W, its
+    row stride ldw, the lane plan, the null-row scratch). For 'cat', W is
+    w_full padded to [P + 2][ldw] (W read from device memory), a row of
+    zeros and the intercept after its P rows; for 'num', w_full itself."""
+    p = schema.sigma_size
+    if kind != "cat":
+        return w_full, 1, (0, 0, 0), torch.empty(0, dtype=torch.int32,
+                                                  device=device)
+    plan = _build.impute_global_plan(schema, r)
+    ldw = -(-r // plan[0]) * plan[0]
+    w = torch.zeros((p + 2, ldw), dtype=torch.float32, device=device)
+    w[:p, :r] = w_full
+    w[p + 1, :r] = intercept
+    return w, ldw, plan, torch.empty(n, dtype=torch.int32, device=device)
+
+
+def impute_wide(lib, x_cols, code_cols, null_imp, w, intercept, ldw, plan,
+                rows, new, r, kind, imp_col, noise, row_offset, std, n,
+                schema, device, stream) -> None:
+    """One launch of K2w's impute kernel past MAX_WIDE_SIGMA_SIZE over the
+    inputs of `impute_wide_inputs`, writing the imputed column into `new`;
+    adds one to `fused_impute_aggregate.impute_launches`."""
+    seed, round_ = (0, 0) if noise is None else noise[:2]
+    sizes = schema.cat_sizes
+    with torch.cuda.device(device):
+        rc = lib.lib.dit_impute_wide(
+            _build.pointers(x_cols), len(x_cols), _build.pointers(code_cols),
+            _build.int_array(sizes), len(sizes), null_imp.data_ptr(),
+            w.data_ptr(), intercept.data_ptr(), ldw, r, _KINDS[kind],
+            imp_col, new.data_ptr(), int(noise is not None), seed & _MASK32,
+            (seed >> 32) & _MASK32, round_, row_offset,
+            None if std is None else std.data_ptr(), n, schema.sigma_size,
+            _build.int_array(plan), rows.data_ptr(), stream)
+    _build.raise_on_error(lib, rc, "fused_impute_aggregate")
+    fused_impute_aggregate.impute_launches += 1
+
+
 fused_impute_aggregate.launches = 0
 fused_impute_aggregate.wide_launches = 0
+fused_impute_aggregate.impute_launches = 0
+fused_impute_aggregate.window_launches = 0

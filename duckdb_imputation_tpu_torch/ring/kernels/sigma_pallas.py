@@ -221,13 +221,8 @@ def _launch(x_cols, code_cols, weights, n: int, device, schema,
         weights = torch.ones(n, dtype=torch.float32, device=device)
     lib = _build.load()
     if p > _build.MAX_WIDE_SIGMA_SIZE:       # K7 a window of S's columns
-        out = torch.zeros((p, p), dtype=torch.float32, device=device)
-        for lo in range(0, p, _build.WINDOW_WIDTH):
-            width = min(_build.WINDOW_WIDTH, p - lo)
-            _launch_window(x_cols, code_cols, weights, n, device, schema,
-                           lo, width, out[:, lo:], lib, what)
-            wrapper.wide_launches += 1
-        return out
+        return _gram_windows(x_cols, code_cols, weights, n, device, schema,
+                             lib, wrapper, "wide_launches")
     if p > _build.MAX_SIGMA_SIZE:
         out = _launch_wide(x_cols, code_cols, weights, n, device, schema,
                            lib, what)
@@ -293,6 +288,21 @@ def _launch_wide(x_cols, code_cols, weights, n, device, schema, lib, what):
             *plan, partial.data_ptr(), out.data_ptr(),
             torch.cuda.current_stream(device).cuda_stream)
     _build.raise_on_error(lib, rc, what)
+    return out
+
+
+def _gram_windows(x_cols, code_cols, weights, n, device, schema, lib,
+                  wrapper, counter: str) -> torch.Tensor:
+    """S f32[P, P] by one K7 launch a column window of WINDOW_WIDTH,
+    adding one to `wrapper.<counter>` a launch; shared by masked_gram(_cols)
+    and K2w past MAX_WIDE_SIGMA_SIZE."""
+    p = schema.sigma_size
+    out = torch.zeros((p, p), dtype=torch.float32, device=device)
+    for lo in range(0, p, _build.WINDOW_WIDTH):
+        _launch_window(x_cols, code_cols, weights, n, device, schema, lo,
+                       min(_build.WINDOW_WIDTH, p - lo), out[:, lo:], lib,
+                       wrapper.__name__)
+        setattr(wrapper, counter, getattr(wrapper, counter) + 1)
     return out
 
 

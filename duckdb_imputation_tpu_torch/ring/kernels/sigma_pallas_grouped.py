@@ -23,9 +23,12 @@ Counterpart of `duckdb_imputation_tpu/ring/kernels/sigma_pallas_grouped.py`:
   K5 above it, the dispatch of `sum_to_triple_grouped(method='pallas')`.
 - Above P = 88 `grouped_gram_presorted` runs K8
   (`csrc/grouped_wide_gram.cu`, K7's plan over S's nonzeros and K7's
-  kernel, over group-sorted rows, up to `_build.MAX_WIDE_SIGMA_SIZE`, any
-  number of groups), its launches counted on `.wide_launches`;
-  `grouped_gram` there sorts the rows and hands them to it.
+  kernel, over group-sorted rows, any number of groups), its launches
+  counted on `.wide_launches`: one up to `_build.MAX_WIDE_SIGMA_SIZE`,
+  past it one a column window of `_build.WINDOW_WIDTH` over the window's
+  plan (`_build.window_plan`), each writing its columns of every group's
+  S, up to K7's window limit; `grouped_gram` there sorts the rows and
+  hands them to it.
   `grouped_wide_tables_plain` is the plain version of its tables, one
   set per group (`sigma_pallas.wide_assemble` makes them sigmas).
 
@@ -44,8 +47,9 @@ from ...schema import FeatureSchema
 from ..sum import grouped_sigma, masked_sigma
 from ..triple import Triple, triple_from_sigma
 from . import _build
-from .sigma_pallas import (fold_parts, split_operands, wide_plan_args,
-                           wide_tables_plain)
+from .sigma_pallas import (_device_plan, fold_parts,
+                           masked_gram_window_plain, split_operands,
+                           wide_plan_args, wide_tables_plain)
 
 
 def unsorted_group_limit(schema: FeatureSchema) -> int | None:
@@ -73,7 +77,9 @@ def grouped_route(schema: FeatureSchema) -> str:
 
 def _kernel_inputs(x_num, codes, weights, schema, n, extra):
     """Checks shared by K4, K5 and K8; returns (device, weights)."""
-    _build.check_schema(schema, n, _build.MAX_WIDE_SIGMA_SIZE)
+    _build.check_schema(schema, n, _build.MAX_WINDOW_SIGMA_SIZE)
+    if schema.sigma_size > _build.MAX_WIDE_SIGMA_SIZE:
+        _build.check_window(schema, 0, schema.sigma_size)
     if x_num.shape[0] != schema.num_cols or codes.shape[0] != schema.cat_cols:
         raise ValueError("block heights do not match the schema")
     device = _build.check_cuda(
@@ -293,14 +299,22 @@ def grouped_gram_presorted_plain(x_sorted, codes_sorted, w_sorted,
                                  layout: GroupLayout, *,
                                  schema: FeatureSchema) -> torch.Tensor:
     """Plain torch version of `grouped_gram_presorted`: one masked sigma
-    per segment (reads the offsets on the host)."""
+    per segment (reads the offsets on the host); past
+    MAX_WIDE_SIGMA_SIZE each from S's tables (`masked_gram_window_plain`,
+    no dense Z), as the kernel builds it by windows."""
     p = schema.sigma_size
     off = layout.offsets.tolist()
     out = torch.zeros((layout.num_groups, p, p), dtype=torch.float32,
                       device=w_sorted.device)
     for g in range(layout.num_groups):
         lo, hi = off[g], off[g + 1]
-        if hi > lo:
+        if hi <= lo:
+            continue
+        if p > _build.MAX_WIDE_SIGMA_SIZE:
+            out[g] = masked_gram_window_plain(
+                list(x_sorted[:, lo:hi]), list(codes_sorted[:, lo:hi]),
+                w_sorted[lo:hi], schema=schema, lo=0, width=p)
+        else:
             out[g] = masked_sigma(x_sorted[:, lo:hi], codes_sorted[:, lo:hi],
                                   w_sorted[lo:hi], schema=schema)
     return out
@@ -329,8 +343,8 @@ def grouped_gram_presorted(x_sorted, codes_sorted, w_sorted,
 
     CUDA tensors launch the kernel (one launch counted in
     `grouped_gram_presorted.launches`, or for K8 in
-    `grouped_gram_presorted.wide_launches`); CPU tensors take the plain
-    version."""
+    `grouped_gram_presorted.wide_launches`, one a column window past
+    MAX_WIDE_SIGMA_SIZE); CPU tensors take the plain version."""
     off = layout.offsets
     tensors = [x_sorted, codes_sorted, w_sorted, off]
     if _build.on_cpu(tensors):
@@ -345,6 +359,9 @@ def grouped_gram_presorted(x_sorted, codes_sorted, w_sorted,
     p = schema.sigma_size
     lib = _build.load()
     sizes = schema.cat_sizes
+    if p > _build.MAX_WIDE_SIGMA_SIZE:
+        return _presorted_windows(x_sorted, codes_sorted, w_sorted, off,
+                                  num_groups, n, schema, device, lib)
     if p > _build.MAX_SIGMA_SIZE:
         # K8: K7's plan and slices over group-aligned chunks
         plan, partial = wide_plan_args(schema, n, device, groups=num_groups)
@@ -377,6 +394,39 @@ def grouped_gram_presorted(x_sorted, codes_sorted, w_sorted,
             torch.cuda.current_stream(device).cuda_stream)
     _build.raise_on_error(lib, rc, "grouped_gram_presorted")
     grouped_gram_presorted.launches += 1
+    return out
+
+
+def _presorted_windows(x_sorted, codes_sorted, w_sorted, off, num_groups,
+                       n, schema, device, lib) -> torch.Tensor:
+    """K8 past MAX_WIDE_SIGMA_SIZE: one launch a column window of
+    WINDOW_WIDTH over the window's plan, its f64 partial sized for that
+    plan's cells and the groups, each writing S_g[:, lo:hi] of every group
+    into out f32[G, P, P]."""
+    p, d = schema.sigma_size, schema.num_cols
+    sizes = tuple(schema.cat_sizes)
+    cum = _build.group_chunks(off, _build.WIDE_CHUNK)
+    out = torch.zeros((num_groups, p, p), dtype=torch.float32, device=device)
+    for lo in range(0, p, _build.WINDOW_WIDTH):
+        width = min(_build.WINDOW_WIDTH, p - lo)
+        plan = _build.window_plan(schema, lo, lo + width)
+        tensors = _device_plan(d, sizes, device, plan.window)
+        slices = plan.slices(n)
+        partial = torch.empty(
+            int(plan.task_base[-1]) * (slices + num_groups - 1),
+            dtype=torch.float64, device=device)
+        with torch.cuda.device(device):
+            rc = lib.lib.dit_grouped_wide_gram_window(
+                _build.pointers(list(x_sorted)), d,
+                _build.pointers(list(codes_sorted)), _build.int_array(sizes),
+                len(sizes), w_sorted.data_ptr(), off.data_ptr(),
+                cum.data_ptr(), num_groups, n, p, lo, width, p, p * p,
+                *(t.data_ptr() for t in tensors),
+                _build.int_array(plan.shape_ints(slices)),
+                partial.data_ptr(), out[:, :, lo:].data_ptr(),
+                torch.cuda.current_stream(device).cuda_stream)
+        _build.raise_on_error(lib, rc, "grouped_gram_presorted")
+        grouped_gram_presorted.wide_launches += 1
     return out
 
 

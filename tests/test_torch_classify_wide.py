@@ -696,11 +696,12 @@ def test_wide_build_failure_propagates(monkeypatch, which):
 
 def test_qda_schema_limit_as_built():
     """K3/K3w take the plan's limits, 64 numeric and 64 categorical
-    columns and P ≤ 1,024, in one code path: past the 32 + 32 of the
-    factor scorer, 40 numeric and 40 categorical columns score through
-    the plain version as the dense f64 form ranks them; at 64 + 64 and P =
-    1,024 the tile shrinks to fit a block's shared memory; one column or
-    one level more raises."""
+    columns and P up to K7's window limit, in one code path: past the 32 +
+    32 of the factor scorer, 40 numeric and 40 categorical columns score
+    through the plain version as the dense f64 form ranks them; at 64 + 64
+    and P = 1,024 the tile shrinks to fit a block's shared memory, and one
+    level more (P = 1,025) passes too; one column more, or P past
+    MAX_WINDOW_SIGMA_SIZE, raises."""
     rng = np.random.default_rng(9)
     keys = tuple(tuple(range(3)) for _ in range(40))
     schema = FeatureSchema(num_cols=40, cat_keys=keys)
@@ -728,10 +729,14 @@ def test_qda_schema_limit_as_built():
     assert threads * rows < _build.QDA_THREADS * _build.QDA_MAX_SUMS
     assert _build.qda_smem_bytes(plan.max_task_cells, at_limit,
                                  threads * rows, group) <= _build.WIDE_SMEM
+    _build.check_qda(FeatureSchema(num_cols=64, cat_keys=tuple(
+        tuple(range(14 if j < 63 else 1024 - 64 - 14 * 63))
+        for j in range(64))), 2, 1000)
     for past in (FeatureSchema(num_cols=65),
                  FeatureSchema(num_cols=4, cat_keys=((0,),) * 65),
                  FeatureSchema(num_cols=64, cat_keys=tuple(
-                     tuple(range(14 if j < 63 else 1024 - 64 - 14 * 63))
+                     tuple(range(14 if j < 63 else _build.MAX_WINDOW_SIGMA_SIZE
+                                 - 64 - 14 * 63))
                      for j in range(64)))):
         with pytest.raises(ValueError):
             _build.check_qda(past, 2, 1000)

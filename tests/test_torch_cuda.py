@@ -360,14 +360,15 @@ def test_kernels_raise_on_inputs_they_do_not_take(cuda):
     assert wide.sigma_size > _build.MAX_WINDOW_SIGMA_SIZE
     with pytest.raises(ValueError):       # sigma size above K7's windows
         masked_gram_cols(xs, cs[:1], None, schema=wide)
-    above = FeatureSchema(num_cols=4, cat_keys=(tuple(range(1020)),))
+    above = FeatureSchema(num_cols=4, cat_keys=(tuple(range(9000)),
+                                                tuple(range(8))))
     assert above.sigma_size > _build.MAX_WIDE_SIGMA_SIZE
-    with pytest.raises(ValueError):       # K2w keeps P ≤ 1,024
-        fused_impute_aggregate(
-            xs, cs[:1], torch.zeros(1000, dtype=torch.bool, device=cuda),
-            w, torch.zeros((above.sigma_size, 1020), device=cuda),
-            torch.zeros(1020, device=cuda), schema=above, kind="cat",
-            imp_col=0)
+    with pytest.raises(ValueError):       # K2w past 1,024 is K7's windows:
+        fused_impute_aggregate(           # no column past a K7 task beside
+            xs, cs, torch.zeros(1000, dtype=torch.bool, device=cuda),  # another
+            w, torch.zeros((above.sigma_size, 8), device=cuda),
+            torch.zeros(8, device=cuda), schema=above, kind="cat",
+            imp_col=1)
     args = fused_args("cat", 1000, cuda)
     with pytest.raises(ValueError):       # w_full of the wrong width
         fused_impute_aggregate(*args[:4], args[4][:, :3], args[5][:3],
@@ -1888,3 +1889,270 @@ def test_overlapped_at_world_one_matches_sharded(nccl_mesh):
     for f in ("quad", "lin", "num_cat"):
         torch.testing.assert_close(getattr(got, f), getattr(want, f),
                                    rtol=1e-6, atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# K2w, K8 and K3/K3w past P = 1,024
+# ---------------------------------------------------------------------------
+
+# P = 1,115 (the CPU tests' schema: 6, 5 and 1,100 levels) and
+# favorita_items (P = 4,592)
+PAST_SCHEMAS = {"P1115": (6, 5, 1100),
+                "favorita_items": (54, 33, 337, 2, 2, 22, 16, 5, 17, 4100)}
+PAST_ROWS = {"P1115": 30_000, "favorita_items": 1_000_000}
+
+
+def past_table(name, n, seed, device):
+    """x f32[3, n] and codes i32[c, n] of PAST_SCHEMAS[name]: column 1
+    (family) fixed by the last column (the item), Zipf item shares, other
+    columns uniform, 20% nulls in x1 and in column 1. Returns (schema,
+    x, codes, num null, cat null)."""
+    sizes = PAST_SCHEMAS[name]
+    rng = np.random.default_rng(seed)
+    items = sizes[-1]
+    family_of_item = rng.permutation(np.arange(items) % sizes[1])
+    share = 1.0 / rng.permutation(np.arange(1, items + 1))
+    item = rng.choice(items, n, p=share / share.sum())
+    fam = family_of_item[item]
+    codes = np.stack([rng.integers(0, v, n) for v in sizes]).astype(np.int32)
+    codes[1], codes[-1] = fam, item
+    x0 = rng.normal(size=n)
+    x = np.stack([x0, 2.0 * x0 + rng.normal(size=sizes[1])[fam]
+                  + 0.3 * rng.normal(size=n),
+                  rng.normal(size=n)]).astype(np.float32)
+    nn = np.zeros((3, n), bool)
+    cn = np.zeros((len(sizes), n), bool)
+    nn[1] = rng.random(n) < 0.2
+    cn[1] = rng.random(n) < 0.2
+    schema = FeatureSchema(num_cols=3, cat_keys=tuple(
+        tuple(range(v)) for v in sizes))
+    dev = lambda a: torch.tensor(a, device=device)   # noqa: E731
+    return schema, dev(x), dev(codes), dev(nn), dev(cn)
+
+
+@pytest.mark.parametrize("kind", ["cat", "num"])
+@pytest.mark.parametrize("name", sorted(PAST_SCHEMAS))
+def test_k2w_past_1024_matches_plain(cuda, name, kind):
+    """K2w past P = 1,024 (the impute kernel with W in device memory, then
+    K7 a column window): 'cat' imputes column 1 (R = 5 or 33), 'num' x1
+    with noise; new codes ≥ 0.9999 equal to the plain version's and
+    numerics within 1e-6; sigma counts exact against the plain Gram of the
+    kernel's own updated columns and within 1e-5 of max|σ| of the plain
+    pass; one impute launch and one window launch a window of 1,024,
+    counted exactly; reruns bit-identical."""
+    schema, x, codes, nn, cn = past_table(name, PAST_ROWS[name], 3, cuda)
+    p = schema.sigma_size
+    rng = np.random.default_rng(4)
+    if kind == "cat":
+        r, col, null, w_agg = schema.cat_sizes[1], 1, cn[1], (~nn[1]).float()
+        noise = None
+    else:
+        r, col, null, w_agg = 1, 1, nn[1], (~cn[1]).float()
+        noise = (7, 2, torch.tensor([0.3], device=cuda))
+    w_full = torch.tensor(rng.normal(size=(p, r)).astype(np.float32),
+                          device=cuda)
+    icpt = torch.tensor(rng.normal(size=r).astype(np.float32), device=cuda)
+    args = (list(x), list(codes), null, w_agg, w_full, icpt)
+    kw = dict(schema=schema, kind=kind, imp_col=col, noise=noise)
+    imp, win = (fused_impute_aggregate.impute_launches,
+                fused_impute_aggregate.window_launches)
+    wide = fused_impute_aggregate.wide_launches
+    new, sig = fused_impute_aggregate(*args, **kw)
+    new2, sig2 = fused_impute_aggregate(*args, **kw)
+    windows = -(-p // _build.WINDOW_WIDTH)
+    assert fused_impute_aggregate.impute_launches - imp == 2
+    assert fused_impute_aggregate.window_launches - win == 2 * windows
+    assert fused_impute_aggregate.wide_launches == wide
+    assert torch.equal(new, new2) and torch.equal(sig, sig2)
+    want_new, want_sig = fused_impute_aggregate_plain(*args, **kw)
+    if kind == "cat":
+        assert float((new == want_new).float().mean()) >= 0.9999
+        assert torch.equal(new[~null], codes[col][~null])
+        cols = (list(x), [new if j == col else c
+                          for j, c in enumerate(codes)])
+    else:
+        torch.testing.assert_close(new, want_new, rtol=1e-6, atol=1e-6)
+        cols = ([new if j == col else v for j, v in enumerate(x)],
+                list(codes))
+    own = masked_gram_cols_plain(*cols, w_agg, schema=schema)
+    cm = count_mask(schema, cuda)
+    assert torch.equal(sig[cm], own[cm])
+    torch.testing.assert_close(sig, want_sig, rtol=0,
+                               atol=1e-5 * float(want_sig.abs().max()))
+
+
+@pytest.mark.parametrize("name,groups", [("P1115", 3),
+                                         ("favorita_items", 2),
+                                         ("favorita_items", 33)])
+def test_k8_past_1024_matches_plain(cuda, name, groups):
+    """K8 past P = 1,024: one launch a column window over group-sorted
+    rows (300k rows at favorita_items), each group's S against the plain
+    version (its tables, no dense Z): counts exact, within 1e-5 of
+    max|σ|, reruns bit-identical; the unsorted entry and the 'auto' GROUP
+    BY (a sort, then K8) give the same."""
+    n = 30_000 if name == "P1115" else 300_000
+    schema, x, codes, _, _ = past_table(name, n, 5, cuda)
+    rng = np.random.default_rng(6)
+    g = torch.tensor(rng.integers(0, groups, n).astype(np.int32),
+                     device=cuda)
+    w = torch.tensor((rng.random(n) > 0.2).astype(np.float32), device=cuda)
+    xs, cs, ws, layout = sort_by_group(x, codes, g, schema=schema,
+                                       num_groups=groups, weights=w)
+    before = grouped_gram_presorted.wide_launches
+    got = grouped_gram_presorted(xs, cs, ws, layout, schema=schema)
+    again = grouped_gram_presorted(xs, cs, ws, layout, schema=schema)
+    windows = -(-schema.sigma_size // _build.WINDOW_WIDTH)
+    assert grouped_gram_presorted.wide_launches - before == 2 * windows
+    assert torch.equal(got, again)
+    cm = count_mask(schema, cuda)
+    for gg in range(groups):
+        want = grouped_gram_presorted_plain(
+            xs, cs, ws, _one_group(layout, gg), schema=schema)[0]
+        assert torch.equal(got[gg][cm], want[cm])
+        torch.testing.assert_close(got[gg], want, rtol=0,
+                                   atol=1e-5 * float(want.abs().max()))
+        del want
+    assert torch.equal(grouped_gram(x, codes, w, g, schema=schema,
+                                    num_groups=groups), got)
+    tri = sum_to_triple_grouped(x, codes, g, schema=schema,
+                                num_groups=groups, weights=w)
+    assert torch.equal(sigma_from_triple(tri), got)
+
+
+def _one_group(layout, g):
+    """The layout of group g alone, as group 0 of one."""
+    from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas_grouped \
+        import GroupLayout
+
+    return GroupLayout(layout.offsets[g:g + 2].clone(), 1)
+
+
+@pytest.mark.parametrize("scorer", ["nb_family", "qda_onpromotion"])
+def test_k3_past_1024_matches_plain(cuda, scorer):
+    """K3w at favorita_items without the label: NB's plan at 33 classes
+    (family) and QDA's cross plan at 2 classes (onpromotion; its item
+    cross tables keyed on the item), seeded tables, 100k rows with codes
+    out of vocab: equal to the plain scorer, reruns bit-identical, one
+    wide launch a call."""
+    sizes = PAST_SCHEMAS["favorita_items"]
+    label = 1 if scorer == "nb_family" else 4
+    keys = tuple(tuple(range(v)) for j, v in enumerate(sizes) if j != label)
+    schema = FeatureSchema(num_cols=3, cat_keys=keys)
+    rng = np.random.default_rng(7)
+    n, p = 100_000, schema.sigma_size
+    x = torch.tensor(rng.normal(size=(3, n)).astype(np.float32), device=cuda)
+    c = torch.tensor(np.stack([rng.integers(-1, len(k) + 1, n) for k in keys]
+                              ).astype(np.int32), device=cuda)
+    if scorer == "nb_family":
+        classes = 33
+        mean = torch.tensor(rng.normal(size=(classes, 3)), device=cuda)
+        var = torch.tensor(rng.random((classes, 3)) + 0.1, device=cuda)
+        log_freq = torch.tensor(np.log(rng.random((classes, p - 4)) + 1e-3),
+                                device=cuda)
+        log_prior = torch.tensor(np.log(rng.dirichlet(np.ones(classes))),
+                                 device=cuda)
+        tables, plan = nb_tables(log_prior, mean, var, log_freq,
+                                 schema=schema)
+        assert not plan.cross
+    else:
+        classes = 2
+        b = rng.normal(size=(classes, p - 1, 4)) * 0.1
+        quad = torch.tensor(-(b @ b.transpose(0, 2, 1)), device=cuda)
+        lin = torch.tensor(rng.normal(size=(classes, p - 1)), device=cuda)
+        tables, plan = qda_tables(quad, lin, torch.zeros(classes,
+                                                         device=cuda),
+                                  schema=schema)
+        assert plan.cross
+        del quad
+    assert plan.num_tasks > 1
+    before = qda_predict_kernel.wide_launches
+    got = qda_predict_kernel(tables, plan, x, c, schema=schema)
+    again = qda_predict_kernel(tables, plan, x, c, schema=schema)
+    assert qda_predict_kernel.wide_launches - before == 2
+    assert torch.equal(got, again)
+    want = qda_predict_plain(tables, plan, x, c, schema=schema)
+    assert float((got == want).float().mean()) >= 0.9999
+    assert len(torch.unique(got)) > 1
+
+
+def test_paths_past_1024_on_the_card_match_cpu(cuda):
+    """At favorita_items, 200k rows: run_mice_device(kernel='fused') on
+    the card (K2w past 1,024 after K7's windows) against the plain loop on
+    the CPU (family codes ≥ 0.999 of the null cells), and the NB pipeline
+    (label family: K6w, K3w) and the QDA aggregate (label onpromotion:
+    sort + K8 windows) on the card against the CPU's, with the launches
+    counted and no plain version on the card."""
+    from duckdb_imputation_tpu_torch import Table
+    from duckdb_imputation_tpu_torch.models.device import (
+        nb_predict_device, nb_train_device)
+    from duckdb_imputation_tpu_torch.ring.sum import sum_to_nb_agg_grouped
+
+    schema, x, codes, nn, cn = past_table("favorita_items", 200_000, 8,
+                                          cuda)
+    x = torch.where(nn, 0.0, x)
+    codes = torch.where(cn, 0, codes)
+    t = Table(num_data=x, cat_codes=codes, num_null=nn, cat_null=cn,
+              schema=schema)
+    imp = fused_impute_aggregate.impute_launches
+    got = run_mice_device(t, iters=1, kernel="fused")
+    assert fused_impute_aggregate.impute_launches - imp == 2
+    cpu = Table(*(a.cpu() for a in (x, codes, nn, cn)), schema=schema)
+    want = run_mice_device(cpu, iters=1, kernel="fused")
+    m = cn[1].cpu()
+    agree = float((got.cat_codes[1].cpu() == want.cat_codes[1])[m]
+                  .float().mean())
+    assert agree >= 0.999
+    # the classifiers over the table with no nulls: label family (NB) and
+    # onpromotion (the grouped Gram of QDA's training)
+    _, x, codes, _, _ = past_table("favorita_items", 200_000, 9, cuda)
+    keep = [j for j in range(codes.shape[0]) if j != 1]
+    nb_schema = FeatureSchema(3, tuple(schema.cat_keys[j] for j in keep))
+    feats = codes[keep].contiguous()
+    y = codes[1].contiguous()
+    k3w = qda_predict_kernel.wide_launches
+
+    def nb(x, feats, y):
+        agg = sum_to_nb_agg_grouped(x, feats, y, schema=nb_schema,
+                                    num_groups=33)
+        params = nb_train_device(agg.n, agg.lin, agg.quad_diag, agg.lin_cat)
+        return nb_predict_device(*params, x, feats, schema=nb_schema)
+
+    pred = nb(x, feats, y).cpu()
+    assert qda_predict_kernel.wide_launches - k3w == 1
+    assert float((pred == nb(x.cpu(), feats.cpu(), y.cpu())).float()
+                 .mean()) >= 0.999
+    keep = [j for j in range(codes.shape[0]) if j != 4]
+    q_schema = FeatureSchema(3, tuple(schema.cat_keys[j] for j in keep))
+    k8 = grouped_gram_presorted.wide_launches
+    tri = sum_to_triple_grouped(x, codes[keep].contiguous(),
+                                codes[4].contiguous(), schema=q_schema,
+                                num_groups=2)
+    assert grouped_gram_presorted.wide_launches - k8 == -(
+        -q_schema.sigma_size // _build.WINDOW_WIDTH)
+    ref = sum_to_triple_grouped(x.cpu(), codes[keep].cpu(), codes[4].cpu(),
+                                schema=q_schema, num_groups=2)
+    assert torch.equal(tri.n.cpu(), ref.n)
+    torch.testing.assert_close(sigma_from_triple(tri).cpu(),
+                               sigma_from_triple(ref), rtol=0,
+                               atol=1e-5 * float(sigma_from_triple(ref)
+                                                 .abs().max()))
+
+
+def test_sharded_fused_past_1024_at_world_one_on_nccl(nccl_mesh):
+    """run_mice_sharded with its defaults ('auto' = 'fused' on a CUDA
+    table) at favorita_items, 200k rows, on a world of one over NCCL:
+    bit-identical to run_mice_device(kernel='fused')."""
+    from duckdb_imputation_tpu_torch import Table
+    from duckdb_imputation_tpu_torch.mice import run_mice_sharded
+
+    schema, x, codes, nn, cn = past_table("favorita_items", 200_000, 10,
+                                          nccl_mesh.device)
+    t = Table(num_data=torch.where(nn, 0.0, x),
+              cat_codes=torch.where(cn, 0, codes), num_null=nn, cat_null=cn,
+              schema=schema)
+    imp = fused_impute_aggregate.impute_launches
+    got = run_mice_sharded(t, iters=1, mesh=nccl_mesh)
+    assert fused_impute_aggregate.impute_launches - imp == 2
+    want = run_mice_device(t, iters=1, kernel="fused")
+    assert torch.equal(got.num_data, want.num_data)
+    assert torch.equal(got.cat_codes, want.cat_codes)

@@ -197,7 +197,9 @@ def test_qda_full_onehot_fixture_agrees_with_f64_oracle():
 
 
 def test_qda_limits_raise():
-    """K3/K3w take the plan's limits: P ≤ 1,024 and 64 numeric and 64
+    """K3/K3w take the plan's limits: P up to K7's window limit
+    (MAX_WINDOW_SIGMA_SIZE; P = 1,025 passes since the scorer's plan keys
+    a wide cross table on its wider column) and 64 numeric and 64
     categorical columns; at least one class; the method by name."""
     schema = FeatureSchema(num_cols=4, cat_keys=(tuple(range(8)),) * 2)
     _build.check_qda(schema, 8, 10_000_000)
@@ -205,9 +207,11 @@ def test_qda_limits_raise():
         _build.check_qda(schema, 0, 100)
     with pytest.raises(ValueError):      # more columns than the plan takes
         _build.check_qda(FeatureSchema(num_cols=65), 2, 100)
+    _build.check_qda(FeatureSchema(
+        num_cols=4, cat_keys=(tuple(range(1020)),)), 2, 100)
     with pytest.raises(ValueError):      # sigma size above the plan's
-        _build.check_qda(FeatureSchema(
-            num_cols=4, cat_keys=(tuple(range(1020)),)), 2, 100)
+        _build.check_qda(FeatureSchema(num_cols=4, cat_keys=(tuple(range(
+            _build.MAX_WINDOW_SIGMA_SIZE)),)), 2, 100)
     with pytest.raises(ValueError):
         _build.check_qda(schema, 2, 1 << 31)
     with pytest.raises(ValueError):

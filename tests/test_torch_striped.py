@@ -8,10 +8,11 @@
   the JAX package's `ring.striped.sigma_stripe` and its XLA
   `masked_sigma` at P = 4,099 (n = 4,096) and P = 16,387 (n = 512, as
   tests/test_wide.py sizes it): counts exact, within 1e-5 of max|σ|;
-- the limits: K7 takes windows up to MAX_WINDOW_SIGMA_SIZE, and K2w, K8
-  and K3/K3w still raise ValueError past MAX_WIDE_SIGMA_SIZE = 1,024
-  before any launch (tensors on the 'meta' device reach each wrapper's
-  kernel path, which checks the schema first).
+- the limits: K7 takes windows up to MAX_WINDOW_SIGMA_SIZE, and so do
+  K2w, K8 and K3/K3w past MAX_WIDE_SIGMA_SIZE = 1,024, over K7's window
+  plans; past that limit they raise ValueError before any launch (tensors
+  on the 'meta' device reach each wrapper's kernel path, which checks the
+  schema first).
 """
 import numpy as np
 import pytest
@@ -252,37 +253,53 @@ def test_k7_window_limit():
 
 
 ABOVE = FeatureSchema(num_cols=4, cat_keys=(tuple(range(1020)),))
+PAST = FeatureSchema(num_cols=4, cat_keys=(tuple(range(
+    _build.MAX_WINDOW_SIGMA_SIZE)),))
+
+
+def _wrapper_calls(schema, n=10):
+    """Each wrapper of K2w, K8 (sorted and unsorted entry) and K3/K3w on
+    'meta' tensors of `schema` (one categorical column of every level but
+    4 of P)."""
+    v = schema.sigma_size - 5
+    xs = [torch.empty(n, device="meta") for _ in range(4)]
+    cs = [torch.empty(n, dtype=torch.int32, device="meta")]
+    x = torch.empty((4, n), device="meta")
+    c = torch.empty((1, n), dtype=torch.int32, device="meta")
+    g = torch.empty(n, dtype=torch.int32, device="meta")
+    layout = GroupLayout(torch.empty(3, dtype=torch.int64, device="meta"), 2)
+    plan = _build.qda_plan(schema)
+    return [
+        lambda: fused_impute_aggregate(
+            xs, cs, torch.empty(n, dtype=torch.bool, device="meta"),
+            torch.empty(n, device="meta"),
+            torch.empty((schema.sigma_size, v), device="meta"),
+            torch.empty(v, device="meta"), schema=schema, kind="cat",
+            imp_col=0),
+        lambda: grouped_gram(x, c, None, g, schema=schema, num_groups=2),
+        lambda: grouped_gram_presorted(x, c, torch.empty(n, device="meta"),
+                                       layout, schema=schema),
+        lambda: qda_predict_kernel(torch.empty((2, 8), device="meta"), plan,
+                                   x, c, schema=schema)]
 
 
 def test_k2w_k8_k3_still_raise_past_1024():
     """The fused pass (K2w), the grouped Grams (K4/K5/K8) and the scorer
-    (K3/K3w) keep MAX_WIDE_SIGMA_SIZE: past it their wrappers raise
-    ValueError before any launch, with no fallback."""
+    (K3/K3w) run past MAX_WIDE_SIGMA_SIZE over K7's window plans: at P =
+    1,025 each wrapper's schema checks pass, and 'meta' tensors are refused
+    only as lying on no CUDA device; past K7's window limit they still
+    raise ValueError on the sigma size before any launch, with no
+    fallback."""
     assert ABOVE.sigma_size == _build.MAX_WIDE_SIGMA_SIZE + 1
-    n = 10
-    xs = [torch.empty(n, device="meta") for _ in range(4)]
-    cs = [torch.empty(n, dtype=torch.int32, device="meta")]
-    with pytest.raises(ValueError, match="sigma size"):
-        fused_impute_aggregate(
-            xs, cs, torch.empty(n, dtype=torch.bool, device="meta"),
-            torch.empty(n, device="meta"),
-            torch.empty((ABOVE.sigma_size, 1020), device="meta"),
-            torch.empty(1020, device="meta"), schema=ABOVE, kind="cat",
-            imp_col=0)
-    x = torch.empty((4, n), device="meta")
-    c = torch.empty((1, n), dtype=torch.int32, device="meta")
-    g = torch.empty(n, dtype=torch.int32, device="meta")
-    with pytest.raises(ValueError, match="sigma size"):
-        grouped_gram(x, c, None, g, schema=ABOVE, num_groups=2)
-    with pytest.raises(ValueError, match="sigma size"):
-        grouped_gram_presorted(x, c, torch.empty(n, device="meta"),
-                               GroupLayout(torch.empty(
-                                   3, dtype=torch.int64, device="meta"), 2),
-                               schema=ABOVE)
-    with pytest.raises(ValueError, match="sigma size"):
-        qda_predict_kernel(torch.empty((2, 8), device="meta"), None, x, c,
-                           schema=ABOVE)
+    assert PAST.sigma_size > _build.MAX_WINDOW_SIGMA_SIZE
+    for call in _wrapper_calls(ABOVE):
+        with pytest.raises(ValueError, match="CUDA device"):
+            call()
+    for call in _wrapper_calls(PAST):
+        with pytest.raises(ValueError, match="sigma size"):
+            call()
     with pytest.raises(ValueError):
-        _build.check_schema(ABOVE, n, _build.MAX_WIDE_SIGMA_SIZE)
+        _build.check_schema(ABOVE, 10, _build.MAX_WIDE_SIGMA_SIZE)
+    _build.check_qda(ABOVE, 2, 10)
     with pytest.raises(ValueError):
-        _build.check_qda(ABOVE, 2, n)
+        _build.check_qda(PAST, 2, 10)
