@@ -75,8 +75,12 @@ Drives the paths of `duckdb_imputation_tpu_torch` ported so far:
   columns and item_nbr's 4,100 items: P = 4,592) and `wide16k` (two
   columns of 8,192 levels, tests/test_wide.py's width: P = 16,387) at
   10M rows: K7 over column windows (`masked_gram_window`; `masked_gram`
-  assembles S from windows of 1,024) against its plain version, and
-  favorita_wide's windows against K7's one launch (`[K7win]`);
+  assembles S from windows of 1,024; a keyed column's tables walk only
+  their keys' rows of the columns ordered once a call, `window_order`)
+  against its plain version, each window's keyed tasks, work items and
+  rows read, the order kernels against theirs, a hot-key window (one
+  item on half the rows), and favorita_wide's windows against K7's one
+  launch (`[K7win]`);
   `run_mice_device` at favorita_items, K7 a window a column step and the
   SVD solves (`[items]`); `run_mice_wide` on a 1 × 1 grid (the
   column-sharded CG solves against an f64 dense solve) and
@@ -128,10 +132,14 @@ K1, its stacked entry, K2, K4, K5, K7 and K2w, from the `[sharded]`
 runs; `g4100` on K5 and K8, each timed alone at 4,100 groups; `nb_centred`
 on K3, the variance case; `stream_launches` on K1, its stacked entry
 and K7, from the out-of-core phases; on K7 `items_launches` (the
-`[items]` run), `wide_v_launches` (run_mice_wide in `[wide_v]`),
-`window_launches` (`[wide_v]`'s stripes), `overlap_launches` (`[overlap]`'s
-world-1 stripes) and `window`, `[K7win]`'s times of a pass and of each
-window with their bounds; `sql_launches` on K1's stacked entry and K6,
+`[items]` run); `wide_gram_window` (K7 over windows past P = 1,024:
+`launches` and `order_passes` of `[items]`, `wide_v_launches`
+(run_mice_wide in `[wide_v]`), `window_launches` (`[wide_v]`'s stripes),
+`overlap_launches` (`[overlap]`'s world-1 stripes), `[K7win]`'s times of
+a favorita_items pass and of each window with their records and bounds,
+`wide16k` and `hot_key` beside) and `window_order` (the order kernels:
+`launches` a keyed column in `[items]`, against their plain version);
+`sql_launches` on K1's stacked entry and K6,
 from `[sql]` and `[sql_classify]`; the routes past P = 1,024 as entries
 of their own: `fused_impute_aggregate_window` (`launches`: its impute
 kernel's in `[items_fused]`, `window_launches` its K7 windows there,
@@ -3983,6 +3991,43 @@ def make_wide16k(n: int, seed: int):
     return schema, [x0, x1], cs, w
 
 
+def window_scratch(schema, lo: int, hi: int, n: int, groups: int = 1
+                   ) -> dict:
+    """Device bytes K7 over the window [lo, hi) holds beside its output
+    and inputs (`_build.keyed_window_plan`): its plans' tensors, the
+    residual's f64 partial (slices + G − 1 slots of its cells), the keyed
+    tasks' (`keyed_items_bound` items of their largest task), the order's
+    copies of the columns (rows of `_build.order_stride` ints), its keys'
+    offsets and chunks, and its kernels' counters of
+    one column at a time (i32 counts and their copy by key, i64 scan and
+    starts, i32 positions, over the G·V keys of `_build.order_segments`
+    segments each).
+    `total` is their sum."""
+    from duckdb_imputation_tpu_torch.ring.kernels import _build
+
+    residual, keyed = _build.keyed_window_plan(schema, lo, hi)
+    parts = [pl for pl in (residual, keyed and keyed.plan) if pl]
+    plans = sum(x.numel() * x.element_size() for pl in parts for x in (
+        pl.slabs, pl.warp_begin, pl.task_base, pl.stage_cols, pl.entries))
+    out = dict(plans=plans, residual_partial=0, keyed_partial=0, order=0)
+    if residual is not None:
+        out["residual_partial"] = (int(residual.task_base[-1]) * 8
+                                   * (residual.slices(n) + groups - 1))
+    if keyed is not None:
+        out["plans"] += keyed.task_keys.numel() * 4
+        out["keyed_partial"] = (_build.keyed_items_bound(keyed, n, groups)
+                                * keyed.plan.max_task_cells * 8)
+        cols = _build.order_stride(1 + schema.num_cols + schema.cat_cols)
+        keys = [groups * schema.cat_sizes[j] for j in keyed.columns]
+        out["order"] = (len(keys) * cols * n * 4      # the copies, and
+                        + 16 * sum(k + 1 for k in keys)   # offsets, chunks
+                        + max(32 * k * _build.order_segments(groups, k
+                                                            // groups)
+                              + 8 * (k + 1) for k in keys))
+    out["total"] = sum(out.values())
+    return out
+
+
 def window_bound(code_cols, w, schema, lo: int, hi: int) -> dict:
     """K7 over the window S[:, lo:hi]: x, codes and w read once, f32[P, hi
     − lo] written once; a row with w ≠ 0 and k = 1 + d + (its codes in
@@ -4018,23 +4063,128 @@ def _window_check(tag, got, again, want, schema, lo) -> float:
     return float((got - want).abs().max())
 
 
+def order_check(tag, xs, cs, w, schema, cols, offsets=None) -> dict:
+    """The order kernels (`window_order`: a counting sort of each keyed
+    column and the copy of every column in its order) against their plain
+    version on the card (`window_order_plain`: a stable torch.sort and a
+    gather): the keys' offsets equal and the copies equal bit for bit over
+    the rows with a key, a rerun bit-identical, one launch a column; ms of
+    both by CUDA events, the stable sort of the keys alone (one PyTorch
+    call a column: the permutation, without the copy) and the bound (each
+    column read once, each copied row's columns written once: not the
+    padding of the copies' rows to whole sectors, a choice of the
+    kernel's)."""
+    from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas import (
+        window_order, window_order_plain)
+
+    groups = 1 if offsets is None else offsets.shape[0] - 1
+    before = window_order.launches
+    got = window_order(xs, cs, w, schema=schema, columns=cols,
+                       offsets=offsets)
+    again = window_order(xs, cs, w, schema=schema, columns=cols,
+                         offsets=offsets)
+    want = window_order_plain(xs, cs, w, schema=schema, columns=cols,
+                              offsets=offsets)
+    torch.cuda.synchronize()
+    check(window_order.launches - before == 2 * len(cols),
+          f"{tag}: {window_order.launches - before} order launches, not "
+          f"{2 * len(cols)}")
+    check(torch.equal(got.key_off, want.key_off),
+          f"{tag}: the keys' offsets differ from the plain version's")
+    check(torch.equal(got.key_chunks, want.key_chunks),
+          f"{tag}: the keys' chunks differ from the plain version's")
+    ncols = 1 + schema.num_cols + schema.cat_cols
+    copied = 0
+    for q, j in enumerate(cols):
+        keys = groups * schema.cat_sizes[j]
+        last = int(want.key_off[int(want.off_of[j]) + keys])
+        check(torch.equal(got.rows[q, :last, :ncols],
+                          want.rows[q, :last, :ncols])
+              and torch.equal(again.rows[q, :last, :ncols],
+                              got.rows[q, :last, :ncols]),
+              f"{tag}: column {j}'s copy differs from the plain version's "
+              f"or a rerun's")
+        copied += last
+    del got, again, want
+    n = w.shape[0]
+    ms = cuda_ms(lambda: window_order(xs, cs, w, schema=schema, columns=cols,
+                                      offsets=offsets), reps=3, warmup=1)
+    plain = cuda_ms(lambda: window_order_plain(
+        xs, cs, w, schema=schema, columns=cols, offsets=offsets), reps=3,
+        warmup=1)
+
+    def sorts():
+        for j in cols:
+            c, v = cs[j].long(), schema.cat_sizes[j]
+            key = torch.where((c >= 0) & (c < v), c, v).to(torch.int32)
+            torch.sort(key, stable=True)
+    library = cuda_ms(sorts, reps=3, warmup=1)
+    b = bound(n * ncols * 4 + copied * 4 * ncols, 0)
+    log(f"{tag}: the order kernels equal the plain version (offsets, copies "
+        f"of {copied} rows with a key) and a rerun; kernels {ms:.3f} ms, "
+        f"plain {plain:.3f} ms, the stable sort alone {library:.3f} ms, "
+        f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain, library_ms=library,
+                rows_copied=copied, **b)
+
+
+def window_record(xs, cs, w, schema, lo: int, wd: int, n: int,
+                  tag: str, offsets=None) -> dict:
+    """What a window's plan does on these rows (`keyed_window_plan`): its
+    residual tasks, and its keyed tasks over one order of its keyed
+    columns (`window_order`; with `offsets`, K8's by group and code): the
+    keyed tasks, their work items, the rows each layer walks, checked equal
+    to the rows whose code lies in the layer's key range, and the order's
+    ms alone by CUDA events."""
+    from duckdb_imputation_tpu_torch.ring.kernels import _build
+    from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas import (
+        keyed_work, window_columns, window_order)
+
+    residual, keyed = _build.keyed_window_plan(schema, lo, lo + wd)
+    rec = dict(residual_tasks=residual.num_tasks if residual else 0,
+               keyed_columns=list(keyed.columns) if keyed else [],
+               keyed_tasks=0, items=0, rows_read=0, order_ms=0.0)
+    if keyed is None:
+        return rec
+    cols = window_columns(schema, [lo], wd)
+    order = window_order(xs, cs, w, schema=schema, columns=cols,
+                         offsets=offsets)
+    work = keyed_work(keyed, order, n, schema)
+    check(work["rows"] == work["in_range"],
+          f"{tag}: a layer's work items walk {work['rows']} rows, not the "
+          f"rows of its key range {work['in_range']}")
+    del order
+    rec.update(keyed_tasks=work["tasks"], items=work["items"],
+               rows_read=sum(work["rows"].values()), layer_rows=work["rows"],
+               order_ms=cuda_ms(lambda: window_order(
+                   xs, cs, w, schema=schema, columns=cols, offsets=offsets),
+                   reps=3, warmup=1))
+    return rec
+
+
 def phase_k7win(seed: int) -> dict:
     """K7 over column windows. favorita_wide (P = 492): its windows of 128
     columns side by side against today's one launch of the whole plan.
     favorita_items (P = 4,592) and wide16k (P = 16,387) at N rows (wide16k
     cut to N_WIDE16K_CUT rows if one pass over all of S takes more than
     WINDOW_PASS_LIMIT_S): the plans' host time, a pass over all of S
-    (masked_gram_cols: one launch a window of WINDOW_WIDTH), each window
-    (all five at favorita_items, the first, one across the two one-hot
-    blocks and the last at wide16k) against masked_gram_window_plain
-    (counts exact, ≤ 1e-5 of max|σ|, reruns bit-identical, equal to the
-    pass's columns), ms of each window and of the pass by CUDA events,
-    their bounds, and one cuBLAS f32 Gram of the dense Z on a slice of
-    N_LIBRARY rows. Returns the kernels line's window numbers and
-    wide16k's rows."""
+    (masked_gram_cols: one order pass of the windows' keyed columns, then
+    one launch a window of WINDOW_WIDTH), each window (all five at
+    favorita_items, the first, one across the two one-hot blocks and the
+    last at wide16k) against masked_gram_window_plain (counts exact, ≤
+    1e-5 of max|σ|, reruns bit-identical, equal to the pass's columns), ms
+    of each window alone (its own order pass included) and of the pass by
+    CUDA events, their bounds, each window's record (`window_record`: its
+    keyed tasks, work items and rows read, each layer's rows equal to its
+    key range's, the order's ms), and one cuBLAS f32 Gram of the dense Z
+    on a slice of N_LIBRARY rows. Then the hot-key window: favorita_items
+    with one item on HOT_SHARE of the rows, the window of that item's
+    columns held the same way. Returns the kernels line's window numbers
+    and wide16k's rows."""
     from duckdb_imputation_tpu_torch.ring.kernels import _build
     from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas import (
-        masked_gram_cols, masked_gram_window, masked_gram_window_plain)
+        masked_gram_cols, masked_gram_window, masked_gram_window_plain,
+        window_columns, window_order)
 
     t, _ = make_favorita(N, seed + 60)
     xs, cs = list(t.num_data.unbind(0)), list(t.cat_codes.unbind(0))
@@ -4072,7 +4222,7 @@ def phase_k7win(seed: int) -> dict:
             if n == N:         # the plans: on the host, once a schema
                 t0 = time.perf_counter()
                 for lo in lows:
-                    _build.window_plan(schema, lo, min(lo + width, p))
+                    _build.keyed_window_plan(schema, lo, min(lo + width, p))
                 plan_s = time.perf_counter() - t0
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -4120,19 +4270,24 @@ def phase_k7win(seed: int) -> dict:
                 xs, cs, w, schema=schema, lo=lo, width=wd), reps=1,
                 warmup=0)
             plain_total += plain
-            plan = _build.window_plan(schema, lo, lo + wd)
+            rec = window_record(xs, cs, w, schema, lo, wd, n, tag)
             b = window_bound(cs, w, schema, lo, lo + wd)
             per_window.append(dict(lo=lo, width=wd, ms=ms, plain_ms=plain,
-                                   tasks=plan.num_tasks,
-                                   slabs=int(plan.slabs.shape[0]),
-                                   map_entries=int(plan.entries.shape[0]),
-                                   **b))
+                                   **rec, **b))
             log(f"{tag}: counts exact, bit-identical rerun, the pass's "
-                f"columns; {plan.num_tasks} tasks, "
-                f"{plan.slabs.shape[0]} slabs, {plan.entries.shape[0]} map "
-                f"entries; kernel {ms:.3f} ms, plain {plain:.3f} ms, bound "
-                f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
+                f"columns; {rec['residual_tasks']} residual tasks over all "
+                f"rows; keyed columns {rec['keyed_columns']}: "
+                f"{rec['keyed_tasks']} tasks, {rec['items']} work items, "
+                f"{rec['rows_read']} rows read (each layer its key range's: "
+                f"{rec.get('layer_rows', {})}), their order {rec['order_ms']:.3f}"
+                f" ms; kernel {ms:.3f} ms (its order included), plain "
+                f"{plain:.3f} ms, bound {b['bound_ms']:.4f} ms "
+                f"({b['bound_by']})")
         whole = window_bound(cs, w, schema, 0, p)
+        cols = window_columns(schema, range(0, p, width), width)
+        order = order_check(f"[K7win] {name} order of columns {list(cols)}",
+                            xs, cs, w, schema, cols)
+        order_ms = order["ms"]
         lib_rows = N_LIBRARY[name]
         x_st = torch.stack(xs)[:, :lib_rows]
         c_st = torch.stack(cs)[:, :lib_rows]
@@ -4144,17 +4299,79 @@ def phase_k7win(seed: int) -> dict:
             plain_ms=(plain_total if name == "favorita_items" else None),
             bound_ms=whole["bound_ms"], bound_by=whole["bound_by"],
             library_ms=library, library_rows=lib_rows,
-            max_abs_err=worst, per_window=per_window)
+            max_abs_err=worst, order_ms=order_ms, keyed_columns=list(cols),
+            order=order, per_window=per_window)
         log(f"[K7win] {name} P={p} n={n}: a pass over all of S "
             f"({len(range(0, p, width))} windows of {width}) {pass_ms:.3f} ms"
-            f" (first call {first_s:.2f} s with the plans' upload; the "
-            f"plans {plan_s:.2f} s on the host), bound "
+            f", of which its one order pass of columns {list(cols)} "
+            f"{order_ms:.3f} ms (first call {first_s:.2f} s with the plans' "
+            f"upload; the plans {plan_s:.2f} s on the host), bound "
             f"{whole['bound_ms']:.4f} ms ({whole['bound_by']}); cuBLAS "
             f"(Zᵀw)@Z of the dense Z on a {lib_rows}-row slice "
             f"{library:.3f} ms; max abs err {worst:.3e}")
         del full, xs, cs, w
         torch.cuda.empty_cache()
+    out["hot_key"] = hot_key_window(seed)
     return out
+
+
+HOT_SHARE = 0.5              # [K7win]'s hot-key window: one item's rows
+
+
+def hot_key_window(seed: int) -> dict:
+    """[K7win]'s hot-key window: favorita_items at N rows with HOT_SHARE
+    of the rows moved to one item (the first of the second window of
+    WINDOW_WIDTH), that window against masked_gram_window_plain (counts
+    exact, ≤ 1e-5 of max|σ|, a bit-identical rerun, equal to the pass's
+    columns), its record (`window_record`) and ms by CUDA events."""
+    from duckdb_imputation_tpu_torch.ring.kernels import _build
+    from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas import (
+        masked_gram_cols, masked_gram_window, masked_gram_window_plain)
+
+    t, _ = make_favorita_items(N, seed + 66)
+    schema = t.schema
+    xs, cs = list(t.num_data.unbind(0)), list(t.cat_codes.unbind(0))
+    p, d = schema.sigma_size, schema.num_cols
+    base = 1 + d + schema.offsets[-2]       # item_nbr's first column
+    lo = _build.WINDOW_WIDTH
+    width = min(_build.WINDOW_WIDTH, p - lo)
+    hot = lo - base
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed + 67)
+    moved = torch.rand(N, generator=gen, device=DEVICE) < HOT_SHARE
+    cs[-1] = torch.where(moved, hot, cs[-1]).contiguous()
+    w = (torch.rand(N, generator=gen, device=DEVICE) >= 0.2).float()
+    share = float((cs[-1] == hot).float().mean())
+    tag = f"[K7win] hot key: favorita_items n={N}, item {hot} on {share:.4f}"\
+          f" of the rows, window [{lo}, {lo + width})"
+    full = masked_gram_cols(xs, cs, w, schema=schema)
+    got = masked_gram_window(xs, cs, w, schema=schema, lo=lo, width=width)
+    again = masked_gram_window(xs, cs, w, schema=schema, lo=lo, width=width)
+    want = masked_gram_window_plain(xs, cs, w, schema=schema, lo=lo,
+                                    width=width)
+    torch.cuda.synchronize()
+    err = _window_check(tag, got, again, want, schema, lo)
+    check(torch.equal(got, full[:, lo:lo + width]),
+          f"{tag}: differs from the pass's columns")
+    check(float(got[base + hot, base + hot - lo]) == float(
+        w[cs[-1] == hot].sum()), f"{tag}: the hot item's count is not exact")
+    del got, again, want, full
+    ms = cuda_ms(lambda: masked_gram_window(xs, cs, w, schema=schema, lo=lo,
+                                            width=width), reps=3, warmup=1)
+    plain = cuda_ms(lambda: masked_gram_window_plain(
+        xs, cs, w, schema=schema, lo=lo, width=width), reps=1, warmup=0)
+    rec = window_record(xs, cs, w, schema, lo, width, N, tag)
+    b = window_bound(cs, w, schema, lo, lo + width)
+    log(f"{tag}: counts exact (the hot item's too), max abs err {err:.3e}, "
+        f"bit-identical rerun, the pass's columns; keyed columns "
+        f"{rec['keyed_columns']}: {rec['keyed_tasks']} tasks, "
+        f"{rec['items']} work items, {rec['rows_read']} rows read, their "
+        f"order {rec['order_ms']:.3f} ms; kernel {ms:.3f} ms, plain "
+        f"{plain:.3f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+    del t, xs, cs, w
+    torch.cuda.empty_cache()
+    return dict(lo=lo, width=width, share=share, max_abs_err=err, ms=ms,
+                plain_ms=plain, **rec, **b)
 
 
 def phase_items(seed: int) -> dict:
@@ -4170,13 +4387,16 @@ def phase_items(seed: int) -> dict:
         linreg_solve_device)
     from duckdb_imputation_tpu_torch.ring.kernels import _build
     from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas import (
-        masked_gram_cols)
+        masked_gram_cols, window_columns, window_order)
 
     t, truth = make_favorita_items(N, seed + 63)
     p = t.schema.sigma_size
     windows = -(-p // _build.WINDOW_WIDTH)
     torch.cuda.synchronize()
+    keyed = len(window_columns(t.schema, range(0, p, _build.WINDOW_WIDTH),
+                               _build.WINDOW_WIDTH))
     masked_gram_cols.wide_launches = 0
+    window_order.passes = window_order.launches = 0
     t0 = time.perf_counter()
     out = run_mice_device(t, iters=ITEMS_ROUNDS)
     torch.cuda.synchronize()
@@ -4185,6 +4405,12 @@ def phase_items(seed: int) -> dict:
     want = ITEMS_ROUNDS * 2 * windows
     check(launches == want, f"[items] {launches} K7 launches, derived "
           f"{want}")
+    orders, order_launches = window_order.passes, window_order.launches
+    check(orders == ITEMS_ROUNDS * 2
+          and order_launches == ITEMS_ROUNDS * 2 * keyed,
+          f"[items] {orders} order passes and {order_launches} order "
+          f"launches, derived {ITEMS_ROUNDS * 2} (one a column step) and "
+          f"{ITEMS_ROUNDS * 2 * keyed} (one a keyed column)")
     q = wide_quality(t, truth, out, "[items]")
     xs, cs = list(t.num_data.unbind(0)), list(t.cat_codes.unbind(0))
     w = (~t.num_null[1]).float()
@@ -4193,7 +4419,9 @@ def phase_items(seed: int) -> dict:
                        warmup=1)
     log(f"[items] run_mice_device favorita_items P={p} n={N} "
         f"rounds={ITEMS_ROUNDS} ('auto' = 'gram'): {launches} K7 launches "
-        f"({windows} windows a column step, as derived); {wall:.2f} s "
+        f"({windows} windows a column step, as derived) after {orders} "
+        f"order passes (one a column step, {order_launches} order launches:"
+        f" {keyed} keyed column a pass); {wall:.2f} s "
         f"wall; one SVD solve (linreg_solve_device) {solve_ms:.1f} ms; "
         f"quality {q}")
     run = (t, truth, out)
@@ -4215,8 +4443,9 @@ def phase_items(seed: int) -> dict:
     log(f"[items] n={N_ITEMS_CPU}: the card vs the CPU's plain versions "
         f"({cpu_s:.1f} s): family agreement {agree:.6f}, x max diff "
         f"{dx:.3e}")
-    return dict(launches=launches, wall_s=wall, solve_ms=solve_ms, run=run,
-                **q)
+    return dict(launches=launches, order_passes=orders,
+                order_launches=order_launches, wall_s=wall,
+                solve_ms=solve_ms, run=run, **q)
 
 
 def _dense_ridge(block, p: int):
@@ -4318,14 +4547,14 @@ def phase_wide_v(seed: int, rows16k: int) -> dict:
             base = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
             masked_gram_window.launches = 0
-            partial = 0
+            scratch = 0
             for lo, stripe in sigma_striped(x_st, c_st, w16, schema=schema,
                                             stripe=_build.WINDOW_WIDTH):
                 check(torch.equal(stripe, full[:, lo:lo + stripe.shape[1]]),
                       f"[wide_v] stripe {lo} differs from masked_gram's S")
-                plan = _build.window_plan(schema, lo, lo + stripe.shape[1])
-                partial = max(partial, int(plan.task_base[-1])
-                              * plan.slices(x_st.shape[1]) * 8)
+                need = window_scratch(schema, lo, lo + stripe.shape[1],
+                                      x_st.shape[1])
+                scratch = max(scratch, need["total"] - need["plans"])
                 del stripe
             torch.cuda.synchronize()
             peak = torch.cuda.max_memory_allocated() - base
@@ -4333,15 +4562,16 @@ def phase_wide_v(seed: int, rows16k: int) -> dict:
             stripe_bytes = p16 * _build.WINDOW_WIDTH * 4
             check(stripes == -(-p16 // _build.WINDOW_WIDTH),
                   f"[wide_v] {stripes} stripe launches")
-            check(peak <= stripe_bytes + partial + (1 << 20),
+            check(peak <= stripe_bytes + scratch + (1 << 20),
                   f"[wide_v] striped peak {peak} B > a stripe "
-                  f"{stripe_bytes} + K7's partial {partial} + 1 MiB")
+                  f"{stripe_bytes} + K7's scratch {scratch} + 1 MiB")
             log(f"[wide_v] sigma_striped wide16k P={p16} n={x_st.shape[1]}: "
                 f"{stripes} stripes of {_build.WINDOW_WIDTH}, each equal to "
                 f"masked_gram's columns; peak device memory beside S (and "
-                f"the plans, cached) {peak} B = a stripe {stripe_bytes} B "
-                f"+ K7's f64 partial {partial} B + {peak - stripe_bytes - partial} "
-                f"B (a dense S is {p16 * p16 * 4} B)")
+                f"the plans, cached) {peak} B ≤ a stripe {stripe_bytes} B "
+                f"+ K7's scratch (`window_scratch`: f64 partials, the "
+                f"order's copies and transients) {scratch} B (a dense S is "
+                f"{p16 * p16 * 4} B)")
             del full, x_st, c_st, xs, cs, w16
             torch.cuda.empty_cache()
             out["v2"] = phase_wide_v2(seed, out)
@@ -4382,11 +4612,9 @@ def wide_rank(rank: int, out_dir: str, seed: int) -> int:
     peak = torch.cuda.max_memory_allocated() - base
     cols_per = block.shape[1]
     lo = rank * cols_per
-    plan = _build.window_plan(t.schema, lo, min(lo + cols_per, p))
-    plan_bytes = sum(x.numel() * x.element_size() for x in (
-        plan.slabs, plan.warp_begin, plan.task_base, plan.stage_cols,
-        plan.entries))
-    partial = int(plan.task_base[-1]) * plan.slices(N) * 8
+    need = window_scratch(t.schema, lo, min(lo + cols_per, p), N)
+    plan_bytes = need["plans"]
+    partial = need["total"] - need["plans"]
     coeff = cg_solve_wide(block, mesh=grid, p=p, **CG_CHECK)
     del block
     torch.cuda.synchronize()
@@ -4418,8 +4646,9 @@ def phase_wide_v2(seed: int, one: dict) -> dict:
     transactions and the CG coefficients within 5e-3 (the transactions
     rows whose family agrees: a flipped family moves its row by the class
     coefficients' difference); each rank's peak memory for its sigma
-    block ≤ P·⌈P/2⌉·4 B + its window's plan + K7's f64 partial + 1 MiB
-    (torch.cuda.max_memory_allocated). Every child is killed at the
+    block ≤ P·⌈P/2⌉·4 B + its window's plans + K7's scratch (f64
+    partials, the order's copies and transients: `window_scratch`) + 1
+    MiB (torch.cuda.max_memory_allocated). Every child is killed at the
     deadline."""
     import tempfile
 
@@ -4506,8 +4735,10 @@ OVERLAP_DEADLINE_S = 300
 
 def _kernel_counters():
     """Every kernel wrapper's launch counters: K1's two entries and K7
-    behind them, K7's window entry, K2/K2w (and past P = 1,024 K2w's
-    impute kernel and its K7 windows), K4, K5/K8, K6/K6w and K3/K3w."""
+    behind them, K7's window entry, the windows' order passes
+    (`window_order.passes`) and its kernels (`window_order.launches`),
+    K2/K2w (and past P = 1,024 K2w's impute
+    kernel and its K7 windows), K4, K5/K8, K6/K6w and K3/K3w."""
     from duckdb_imputation_tpu_torch.ring.kernels.nb_pallas import (
         nb_grouped_sums)
     from duckdb_imputation_tpu_torch.ring.kernels.qda_pallas import (
@@ -4515,7 +4746,7 @@ def _kernel_counters():
     from duckdb_imputation_tpu_torch.ring.kernels.sigma_fused import (
         fused_impute_aggregate)
     from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas import (
-        masked_gram, masked_gram_cols, masked_gram_window)
+        masked_gram, masked_gram_cols, masked_gram_window, window_order)
     from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas_grouped import (
         grouped_gram, grouped_gram_presorted)
 
@@ -4523,6 +4754,7 @@ def _kernel_counters():
     return [(fn, attr) for fn, attrs in (
         (masked_gram, both), (masked_gram_cols, both),
         (masked_gram_window, ("launches",)),
+        (window_order, ("passes", "launches")),
         (fused_impute_aggregate, both + ("impute_launches",
                                          "window_launches")),
         (grouped_gram, ("launches",)), (grouped_gram_presorted, both),
@@ -5079,7 +5311,8 @@ def phase_k2w_items(seed: int) -> dict:
     within 1e-4, sigma within 1e-5 of max|σ|, its counts exact against the
     plain Gram of the kernel's own columns; ms by CUDA events, and of the
     impute kernel alone by CUDA events around its one launch (its column
-    bit-identical to K2w's)."""
+    bit-identical to K2w's); each window's record over the updated
+    columns (`window_record`) and their order pass's ms."""
     from duckdb_imputation_tpu_torch.mice.device_round import (
         _lda_device, _noise_std, _w_full)
     from duckdb_imputation_tpu_torch.mice.partition import init_fill
@@ -5090,7 +5323,8 @@ def phase_k2w_items(seed: int) -> dict:
         fused_impute_aggregate, fused_impute_aggregate_plain, impute_wide,
         impute_wide_inputs)
     from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas import (
-        masked_gram_cols, masked_gram_window_plain)
+        masked_gram_cols, masked_gram_window_plain, window_columns,
+        window_order)
 
     t = init_fill(make_favorita_items(N, seed + 70)[0])
     schema = t.schema
@@ -5163,6 +5397,14 @@ def phase_k2w_items(seed: int) -> dict:
         k7_ms = cuda_ms(lambda: masked_gram_cols(upd_x, upd_c, w_next,
                                                  schema=schema),
                         reps=3, warmup=1)
+        width = _build.WINDOW_WIDTH
+        recs = [dict(lo=lo, **window_record(
+            upd_x, upd_c, w_next, schema, lo, min(width, p - lo), N,
+            f"{tag} window {lo}")) for lo in range(0, p, width)]
+        keyed_cols = window_columns(schema, range(0, p, width), width)
+        order_ms = cuda_ms(lambda: window_order(
+            upd_x, upd_c, w_next, schema=schema, columns=keyed_cols),
+            reps=3, warmup=1)
         # the impute kernel alone: its one launch, on K2w's own inputs
         noise = kw.get("noise")
         std = None if noise is None else torch.as_tensor(noise[2]).reshape(1)
@@ -5195,12 +5437,17 @@ def phase_k2w_items(seed: int) -> dict:
             f"{plain_ms:.3f} ms, bound {k_bound['bound_ms']:.4f} ms "
             f"({k_bound['bound_by']}); the impute kernel alone "
             f"{impute_ms:.4f} ms (CUDA events around its launch; K7 over "
-            f"the updated columns {k7_ms:.3f} ms), bound "
-            f"{imp_bound['bound_ms']:.4f} ms ({imp_bound['bound_by']})")
+            f"the updated columns {k7_ms:.3f} ms, of which their order "
+            f"pass of columns {list(keyed_cols)} {order_ms:.3f} ms), bound "
+            f"{imp_bound['bound_ms']:.4f} ms ({imp_bound['bound_by']}); "
+            f"windows " + json.dumps([{k: r[k] for k in (
+                "lo", "residual_tasks", "keyed_tasks", "items",
+                "rows_read")} for r in recs]))
         res = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, **k_bound,
                    library_ms=None, impute_ms=impute_ms, windows_ms=k7_ms,
                    impute_bound_ms=imp_bound["bound_ms"],
-                   impute_bound_by=imp_bound["bound_by"])
+                   impute_bound_by=imp_bound["bound_by"],
+                   order_ms=order_ms, per_window=recs)
         if kind == "cat":
             out = res
         else:
@@ -5219,8 +5466,11 @@ def phase_k8win(seed: int) -> dict:
     (its tables, no dense Z): counts exact, within 1e-5 of max|σ|, reruns
     bit-identical, launches exact; the unsorted entry (a sort, then K8)
     gives the same; ms of the kernel and the plain version by CUDA
-    events."""
+    events; each window's record (`window_record`, its keyed tasks over
+    the rows ordered by group and code) and the order pass's ms."""
     from duckdb_imputation_tpu_torch.ring.kernels import _build
+    from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas import (
+        window_columns, window_order)
     from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas_grouped import (
         grouped_gram, grouped_gram_presorted, grouped_gram_presorted_plain,
         sort_by_group)
@@ -5259,14 +5509,28 @@ def phase_k8win(seed: int) -> dict:
                      reps=2, warmup=1)
         plain_ms = cuda_ms(lambda: grouped_gram_presorted_plain(
             *args, schema=schema), reps=1, warmup=0)
+        cols_s, width = (list(args[0]), list(args[1])), _build.WINDOW_WIDTH
+        recs = [dict(lo=lo, **window_record(
+            *cols_s, args[2], schema, lo, min(width, p - lo), N,
+            f"{tag} window {lo}", offsets=args[3].offsets))
+            for lo in range(0, p, width)]
+        keyed_cols = window_columns(schema, range(0, p, width), width)
+        order_ms = cuda_ms(lambda: window_order(
+            *cols_s, args[2], schema=schema, columns=keyed_cols,
+            offsets=args[3].offsets), reps=3, warmup=1)
         res = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
                    **gram_bound(codes, schema, w, classes), library_ms=None,
-                   groups=classes, sigma_size=p, windows=windows)
-        log(f"{tag}: {windows} launches a call; counts exact, max rel err "
-            f"{err:.3e} (of max|σ| per group), max abs err {abs_err:.3e}, "
-            f"bit-identical rerun, the unsorted entry equal; kernel "
-            f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-            f"{res['bound_ms']:.4f} ms ({res['bound_by']})")
+                   groups=classes, sigma_size=p, windows=windows,
+                   order_ms=order_ms, per_window=recs)
+        log(f"{tag}: {windows} launches a call after one order pass of "
+            f"columns {list(keyed_cols)} by (group, code), {order_ms:.3f} ms;"
+            f" counts exact, max rel err {err:.3e} (of max|σ| per group), "
+            f"max abs err {abs_err:.3e}, bit-identical rerun, the unsorted "
+            f"entry equal; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+            f"bound {res['bound_ms']:.4f} ms ({res['bound_by']}); windows "
+            + json.dumps([{k: r[k] for k in ("lo", "residual_tasks",
+                                             "keyed_tasks", "items",
+                                             "rows_read")} for r in recs]))
         if label == "onpromotion":
             out = res
         else:
@@ -5375,16 +5639,23 @@ def phase_k3items(seed: int) -> dict:
 
 def phase_items_fused(run) -> dict:
     """run_mice_device(kernel='fused') at favorita_items, N rows,
-    ITEMS_ROUNDS rounds, on [items]' table: K7 seeds the loop (one call, a
-    launch a window), then every column step is K2w past 1,024 (one
-    impute launch and one K7 launch a window): the counts, zeroed just
-    before and read just after, exact; wide_quality; family codes ≥ 0.999
+    ITEMS_ROUNDS rounds, on [items]' table: K7 seeds the loop (one call:
+    an order pass, then a launch a window), then every column step is K2w
+    past 1,024 (one impute launch, an order pass of the updated columns
+    and one K7 launch a window): the counts, zeroed just before and read
+    just after, exact; wide_quality; family codes ≥ 0.999
     of the null cells against [items]' 'gram' run; wall s."""
     from duckdb_imputation_tpu_torch import run_mice_device
     from duckdb_imputation_tpu_torch.ring.kernels import _build
 
+    from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas import (
+        window_columns)
+
     t, truth, gram_out = run
-    windows = -(-t.schema.sigma_size // _build.WINDOW_WIDTH)
+    p = t.schema.sigma_size
+    windows = -(-p // _build.WINDOW_WIDTH)
+    keyed = len(window_columns(t.schema, range(0, p, _build.WINDOW_WIDTH),
+                               _build.WINDOW_WIDTH))
     steps = ITEMS_ROUNDS * 2
     kernel_counts_reset()
     t0 = time.perf_counter()
@@ -5394,7 +5665,9 @@ def phase_items_fused(run) -> dict:
     launches = kernel_counts()
     expect = {"masked_gram_cols.wide_launches": windows,
               "fused_impute_aggregate.impute_launches": steps,
-              "fused_impute_aggregate.window_launches": steps * windows}
+              "fused_impute_aggregate.window_launches": steps * windows,
+              "window_order.passes": 1 + steps,
+              "window_order.launches": (1 + steps) * keyed}
     check(launches == expect, f"[items_fused] launches {launches}, derived "
           f"{expect}")
     q = wide_quality(t, truth, out, "[items_fused]")
@@ -5517,6 +5790,8 @@ def phase_classify_items(seed: int) -> dict:
         nb_predict_device, nb_train_device, qda_predict_device,
         qda_train_device)
     from duckdb_imputation_tpu_torch.ring.kernels import _build
+    from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas import (
+        window_columns)
     from duckdb_imputation_tpu_torch.ring.sum import (
         sum_to_nb_agg_grouped, sum_to_triple_grouped)
     from duckdb_imputation_tpu_torch.ring.triple import sigma_from_triple
@@ -5573,7 +5848,11 @@ def phase_classify_items(seed: int) -> dict:
                               num_groups=classes)))
     agg_launches = kernel_counts()
     windows = -(-schema.sigma_size // _build.WINDOW_WIDTH)
-    check(agg_launches == {"grouped_gram_presorted.wide_launches": windows},
+    keyed = len(window_columns(schema, range(
+        0, schema.sigma_size, _build.WINDOW_WIDTH), _build.WINDOW_WIDTH))
+    check(agg_launches == {"grouped_gram_presorted.wide_launches": windows,
+                           "window_order.passes": 1,
+                           "window_order.launches": keyed},
           f"[classify_items] QDA aggregate launches {agg_launches}")
     kernel_counts_reset()
     params = timed(ms, "train", lambda: qda_train_device(sig, float(N)))
@@ -5752,14 +6031,32 @@ def main() -> int:
              host_launches=host_wide, gd_launches=gd["wide_gram"],
              star_launches=star["wide_gram"],
              sharded_launches=sharded["wide_gram"],
-             stream_launches=stream["wide_gram"],
-             items_launches=items["launches"],
+             stream_launches=stream["wide_gram"], **k7),
+        # K7 over column windows past P = 1,024 (favorita_items): the
+        # residual plan over all rows and the keyed tasks over the rows in
+        # their column's order; wide16k's windows and the hot key beside
+        dict(name="wide_gram_window", route="cuda",
+             source=src + "wide_gram.cu",
+             replaces=ref + "sigma_pallas.py:911",
+             launches=items["launches"],
+             order_passes=items["order_passes"],
              wide_v_launches=wide_v["wide_v_launches"],
              window_launches=wide_v["window_launches"],
              overlap_launches=overlap["launches"],
-             window_replaces=[ref + "sigma_pallas.py:553",
-                              ref + "sigma_pallas.py:1027"],
-             window=k7win, **k7),
+             also_replaces=[ref + "sigma_pallas.py:520",
+                            ref + "sigma_pallas.py:129"],
+             wide16k=k7win["wide16k"], hot_key=k7win["hot_key"],
+             **k7win["favorita_items"]),
+        # the windows' row order, favorita_items' pass; wide16k's beside.
+        # It replaces no TPU kernel: it serves the keyed tasks of the
+        # window kernel above
+        dict(name="window_order", route="cuda",
+             source=src + "window_order.cu",
+             replaces=None, serves="wide_gram_window",
+             launches=items["order_launches"],
+             passes=items["order_passes"],
+             wide16k=k7win["wide16k"]["order"],
+             **k7win["favorita_items"]["order"]),
         dict(name="fused_impute_aggregate_wide", route="cuda",
              source=src + "fused_impute_aggregate.cu",
              replaces=ref + "sigma_fused.py:509",

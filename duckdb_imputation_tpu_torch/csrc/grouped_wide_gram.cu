@@ -30,10 +30,14 @@
 // [0, G)) are never read.
 //
 // Past kMaxWideP (dit_grouped_wide_gram_window, any P ≤ kMaxWindowP) the
-// caller runs it once a column window of S, over the window's plan
-// (_build.window_plan, as dit_wide_gram_window), its partial sized for that
-// plan, each group's places S_g[i, j], lo ≤ j < lo + width, written through
-// the window's OutMap with the group stride of out f32[G, P, ld].
+// caller runs it once a column window of S, over the window's residual
+// plan (_build.keyed_window_plan, as dit_wide_gram_window), its partial
+// sized for that plan, each group's places S_g[i, j], lo ≤ j < lo +
+// width, written through the window's OutMap with the group stride of out
+// f32[G, P, ld]; the window's keyed tasks run in the keyed kernel
+// (wide_gram.cu: dit_wide_gram_keyed, G groups) over the rows ordered
+// once a call by (group, code) of each keyed column, a work item within
+// one (task, group), so no group boundary is crossed.
 //
 // What bounds it on an H100: as K7; each row joins one group, so G does
 // not multiply the work. A group change costs a warp one flush of its

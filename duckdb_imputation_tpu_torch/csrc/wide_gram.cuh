@@ -51,15 +51,34 @@
 //      plan's map; cells of the zero structure are never written (the
 //      output is zero-filled).
 //   5. K7 over a column window S[:, lo:lo + width] (dit_wide_gram_window,
-//      any P ≤ kMaxWindowP) runs the same kernel over a window's plan
-//      (_build.py: window_plan): the cells whose row or column lies in the
-//      window, C_jk cut by either key range (a slab (C, k, j, ...) keys
-//      on column k's codes), and a map of one place a cell and output
+//      any P ≤ kMaxWindowP) runs over a window's plans (_build.py:
+//      keyed_window_plan): the cells whose row or column lies in the
+//      window, C_jk cut by either key range (a slab (C, k, j, ...) keys on
+//      column k's codes), and a map of one place a cell and output
 //      position, S[i, j] with lo ≤ j < lo + width, written with a row
-//      stride `ld` (OutMap, mirror off). Past kMaxWideP masked_gram
-//      assembles S from such windows, K2w's Gram is such windows after
-//      its impute kernel (dit_impute_wide), and K8 runs once a window
-//      (dit_grouped_wide_gram_window), the group stride in its OutMap.
+//      stride `ld` (OutMap, mirror off). Past kMaxWideP, where the tables
+//      keyed on one categorical column J (K_J and every C_Jk keyed on J)
+//      would take more than one task, they are keyed: cut into tasks of
+//      one key range [u_lo, u_hi) of J each (several tables a task,
+//      packed into layers of ≤ kWideTaskBytes a key range), and the
+//      keyed kernel (Keyed = true, dit_wide_gram_keyed) walks only that
+//      range's rows, key_off[u_lo] .. key_off[u_hi], of a copy of w, x and
+//      the codes ordered once a call by code_J (window_order: a stable
+//      sort; K8 orders by (group, code_J)). Every table of a C_Jk with a
+//      keyed column is keyed on one owner in every window (a CR slab
+//      holds its rows of the other column's window keys), so S[i, j] and
+//      S[j, i] are the same sum. A task's chunks are cut into work items
+//      where they meet blocks of item_chunks chunks, a block each, so a
+//      hot key's rows spread over many blocks; each item has its own
+//      partial slot, and wide_gram_keyed_reduce sums a cell's items in
+//      item order. The rest of the window (D, the other columns' tables)
+//      is the residual plan, its tasks over all rows as in steps 1-4. Where a task walked
+//      all n rows for one key range of a V_j·V_k table, a window now
+//      reads each row once a layer of each keyed column. Past kMaxWideP
+//      masked_gram assembles S from such windows, K2w's Gram is such
+//      windows after its impute kernel (dit_impute_wide), and K8 runs once
+//      a window (dit_grouped_wide_gram_window over the residual, the keyed
+//      kernel with G groups), the group stride in its OutMap.
 //
 // What bounds it on an H100: the bytes floor is one read of x, codes and w
 // (0.16 ms per 10M rows at favorita_wide); the work is ~k(k + 1)/2 table
@@ -68,7 +87,11 @@
 // the kernel is bound by the latency of those chains on its busiest warp
 // (PERF.md, tools/wide_gram_variants.py: a serial sum by the lowest lane
 // cost 4.1×, one chunk at a time instead of two 1.5×, first-fit packing
-// instead of by slab count 1.1×).
+// instead of by slab count 1.1×). Over a window, the keyed part reads
+// each row once a layer, from the ordered copies; what bounds a window
+// past P = 1,024 is the order pass (a sort and a gather of every column
+// a keyed column, once a call), the residual's walks of all rows and
+// the reduction's read of the map (PERF.md §6, tools/window_times.py).
 #pragma once
 
 #include "gram_common.cuh"
@@ -90,9 +113,13 @@ constexpr int kWideSlabInts = 8;             // ints of a slab record
 constexpr int kWideMaxSlabs = 256;           // slabs of one task
 constexpr int kWideSmem = 227 * 1024;        // shared memory of a block
 constexpr int kWidePlanInts = 7;             // ints of the plan's shape
+constexpr int kKeyedTaskInts = 3;           // ints of a keyed task: J, u_lo, u_hi
 constexpr int kSlabD = 0;   // (D, a, b_lo, b_hi): cells (a, b_lo .. b_hi)
 constexpr int kSlabK = 1;   // (K, j, v_lo, v_hi): [v − v_lo][1 + d]
 constexpr int kSlabC = 2;   // (C, j, k, u_lo, u_hi): [u − u_lo][V_k]
+// (CR, j, k, v_lo, v_hi): [u − u_lo][v − v_lo], u in the keyed task's keys
+// [u_lo, u_hi) (a window's keyed tasks only)
+constexpr int kSlabCR = 3;
 
 static_assert(kWideChunk == 32, "one row a lane of a warp");
 
@@ -107,6 +134,23 @@ struct WidePlanArgs {
   int tasks, nentries, max_cells, max_cols, max_slabs, rows;
 };
 
+// The keyed part of a window (_build.py: KeyedPlan, window_order): rows
+// copied in the order of a keyed column J's codes (K8: of (group, code)),
+// each task walking the rows of its key range only, cut into work items.
+struct KeyedArgs {
+  const float* rows;          // the ordered copies: column J's at
+                              // rows_of[J], [n][stride] (w, x, codes)
+  const int64_t* key_off;     // J's row offsets at off_of[J]: G·V_J + 1
+  const int64_t* key_chunks;  // J's first chunk of each key, as key_off
+  const int64_t* rows_of;     // [c], −1 for a column not ordered
+  const int64_t* off_of;      // [c]
+  const int* task_keys;       // [tasks][kKeyedTaskInts]: J, u_lo, u_hi
+  const int64_t* item_cum;    // [tasks·G + 1]: the first work item of
+                              // each (task, group), (task, group) order
+  int G, item_chunks, stride; // groups; most chunks of a work item; ints
+                              // of a copied row
+};
+
 // Chunks a slice takes, the same in the kernel and the reduction.
 __host__ __device__ __forceinline__ int64_t chunks_per_slice(int64_t total,
                                                              int slices) {
@@ -114,9 +158,12 @@ __host__ __device__ __forceinline__ int64_t chunks_per_slice(int64_t total,
   return cps > 0 ? cps : 1;
 }
 
-__device__ __forceinline__ int slab_cells(const int* sl, const Cols& cols) {
+// keys: the keyed task's key count (a CR slab's rows of cells)
+__device__ __forceinline__ int slab_cells(const int* sl, const Cols& cols,
+                                          int keys) {
   if (sl[0] == kSlabD) return sl[3] - sl[2];
   if (sl[0] == kSlabK) return (sl[3] - sl[2]) * (1 + cols.d);
+  if (sl[0] == kSlabCR) return keys * (sl[4] - sl[3]);
   return (sl[4] - sl[3]) * cols.size[sl[2]];
 }
 
@@ -214,23 +261,70 @@ __device__ __forceinline__ void add_dense(double* table, int a, int lo,
 // Grouped = false: K7 over rows 0 .. n (off, cum unused, G = 1). Grouped:
 // K8 over group-sorted rows, group g owning rows off[g] .. off[g + 1] cut
 // into chunks cum[g] .. cum[g + 1] that never cross a group boundary.
-// partial: per task, (slices + G − 1) slots of its cells.
+// partial: per task, (slices + G − 1) slots of its cells. Keyed (key's
+// plan; w, off, cum, G unused; gridDim.y = 1): blockIdx.x is a work item,
+// the chunks of one (task, group)'s rows key_off[base + u_lo] ..
+// key_off[base + u_hi] of J's copy (base = off_of[J] + g·V_J) that lie in
+// one block [b·m, (b + 1)·m) of m = item_chunks chunks of the copy, each
+// key's rows cut into chunks from its first row (key_chunks): a cell's
+// f32 chunk sums, and the items that add them up, are the same in every
+// task and window that holds its key; its partial the item's slot of
+// plan.max_cells cells.
 //
 // A block stages plan.rows rows (rows / 32 chunks) a step into one of two
 // buffers with cp.async, the next step's copies in flight while its warps
 // walk the current one; a step's buffer holds, column by column, w, x (if
 // the task has a D or K slab) and the task's code columns.
-template <bool Grouped>
+template <bool Grouped, bool Keyed>
 __global__ void __launch_bounds__(kThreads)
 wide_gram_kernel(const __grid_constant__ Cols cols,
                  const __grid_constant__ WidePlanArgs plan,
                  const float* __restrict__ w, int64_t n,
                  const int64_t* __restrict__ off,
                  const int64_t* __restrict__ cum, int G,
-                 double* __restrict__ partial) {
+                 double* __restrict__ partial,
+                 const __grid_constant__ KeyedArgs key) {
   extern __shared__ double wide_smem[];
-  const int task = blockIdx.x, slice = blockIdx.y, slices = gridDim.y;
+  int task = blockIdx.x, slice = blockIdx.y;
+  const int slices = gridDim.y;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // Keyed: the work item's (task, group), its chunks kc0 .. kc1 of the
+  // copy `src` (chunk ch of key u: rows koff[u] + (ch − kcum[u])·32 ..),
+  // ku the key of a thread's chunk
+  int64_t item = 0, kc0 = 0, kc1 = 0;
+  const int64_t *koff = nullptr, *kcum = nullptr;
+  int ku = 0, ku_lo = 0, nkeys = 0;
+  const float* src = w;
+  if constexpr (Keyed) {
+    item = blockIdx.x;
+    const int tgs = plan.tasks * key.G;
+    if (item >= key.item_cum[tgs]) return;      // past the items: the block
+    int a = 0, b = tgs - 1;   // the last (task, group) starting at ≤ item
+    while (a < b) {
+      const int mid = (a + b + 1) / 2;
+      if (key.item_cum[mid] <= item) a = mid; else b = mid - 1;
+    }
+    task = a / key.G;
+    slice = 0;
+    const int* tk = key.task_keys + task * kKeyedTaskInts;
+    const int64_t base =
+        key.off_of[tk[0]] + int64_t(a % key.G) * cols.size[tk[0]];
+    koff = key.key_off + base;
+    kcum = key.key_chunks + base;
+    const int64_t m = key.item_chunks;
+    const int64_t b0 = (kcum[tk[1]] / m + item - key.item_cum[a]) * m;
+    kc0 = b0 > kcum[tk[1]] ? b0 : kcum[tk[1]];
+    kc1 = b0 + m < kcum[tk[2]] ? b0 + m : kcum[tk[2]];
+    ku_lo = tk[1];
+    nkeys = tk[2] - tk[1];
+    int u0 = tk[1], u1 = tk[2] - 1;   // the last key starting at ≤ kc0
+    while (u0 < u1) {
+      const int mid = (u0 + u1 + 1) / 2;
+      if (kcum[mid] <= kc0) u0 = mid; else u1 = mid - 1;
+    }
+    ku = u0;
+    src = key.rows + key.rows_of[tk[0]];
+  }
   const int R = plan.rows, subs = R / kWideChunk;
   const int64_t tbase = plan.task_base[task];
   const int cells = static_cast<int>(plan.task_base[task + 1] - tbase);
@@ -251,7 +345,7 @@ wide_gram_kernel(const __grid_constant__ Cols cols,
   for (int e = tid; e < nslabs * kWideSlabInts; e += kThreads) {
     const int v = plan.slabs[sb * kWideSlabInts + e];
     slabs[e] = v;
-    if (e % kWideSlabInts == 0) has_x |= v != kSlabC;
+    if (e % kWideSlabInts == 0) has_x |= v == kSlabD || v == kSlabK;
   }
   for (int q = tid; q < ncodes; q += kThreads) {
     code_col[q] = tcols[1 + q];
@@ -264,8 +358,8 @@ wide_gram_kernel(const __grid_constant__ Cols cols,
   const int64_t total =
       Grouped ? cum[G] : (n + kWideChunk - 1) / kWideChunk;
   const int64_t cps = chunks_per_slice(total, slices);
-  const int64_t c0 = int64_t(slice) * cps;
-  const int64_t c1 = c0 + cps < total ? c0 + cps : total;
+  const int64_t c0 = Keyed ? kc0 : int64_t(slice) * cps;
+  const int64_t c1 = Keyed ? kc1 : c0 + cps < total ? c0 + cps : total;
   if (c0 >= c1) return;                         // the whole block
   const int steps = static_cast<int>((c1 - c0 + subs - 1) / subs);
 
@@ -290,13 +384,30 @@ wide_gram_kernel(const __grid_constant__ Cols cols,
         end = off[gs + 1];
         if (lane == 0) sub_g[(step & 1) * kWideSubs + tid / kWideChunk] = gs;
       }
+      if constexpr (Keyed) {
+        if (ch < c1) {
+          while (ch >= kcum[ku + 1]) ++ku;
+          row = koff[ku] + (ch - kcum[ku]) * kWideChunk + lane;
+          end = koff[ku + 1];
+        }
+      }
       const bool valid = ch < c1 && row < end;
-      stage4(buf, w + row, valid, 0.0f);
-      for (int j = 0; j < xcols; ++j)
-        stage4(buf + (1 + j) * R, cols.x[j] + row, valid, 0.0f);
-      for (int q = 0; q < ncodes; ++q)
-        stage4(buf + (cbase + q) * R, cols.code[code_col[q]] + row, valid,
-               __int_as_float(-1));
+      if constexpr (Keyed) {   // J's copy, a row of w, x, codes
+        const float* r = src + row * key.stride;
+        stage4(buf, r, valid, 0.0f);
+        for (int j = 0; j < xcols; ++j)
+          stage4(buf + (1 + j) * R, r + 1 + j, valid, 0.0f);
+        for (int q = 0; q < ncodes; ++q)
+          stage4(buf + (cbase + q) * R, r + 1 + cols.d + code_col[q],
+                 valid, __int_as_float(-1));
+      } else {
+        stage4(buf, w + row, valid, 0.0f);
+        for (int j = 0; j < xcols; ++j)
+          stage4(buf + (1 + j) * R, cols.x[j] + row, valid, 0.0f);
+        for (int q = 0; q < ncodes; ++q)
+          stage4(buf + (cbase + q) * R, cols.code[code_col[q]] + row, valid,
+                 __int_as_float(-1));
+      }
     }
     asm volatile("cp.async.commit_group;\n" ::);
   };
@@ -307,9 +418,10 @@ wide_gram_kernel(const __grid_constant__ Cols cols,
   const int lo_cell = s0 < s1 ? slabs[s0 * kWideSlabInts + 5] : 0;
   const int hi_cell = s0 < s1 ? slabs[(s1 - 1) * kWideSlabInts + 5] +
                                     slab_cells(slabs + (s1 - 1) *
-                                               kWideSlabInts, cols)
+                                               kWideSlabInts, cols, nkeys)
                               : 0;
-  double* slots = partial + tbase * (slices + G - 1);
+  double* slots = Keyed ? partial + item * plan.max_cells
+                        : partial + tbase * (slices + G - 1);
   int cur = Grouped ? -1 : 0;   // the group the warp's tables hold
 
   stage_step(0);
@@ -352,6 +464,18 @@ wide_gram_kernel(const __grid_constant__ Cols cols,
           add_keyed(t, v0 >= sl[2] && v0 < sl[3] ? v0 - sl[2] : -1,
                     pair && v1 >= sl[2] && v1 < sl[3] ? v1 - sl[2] : -1,
                     1 + cols.d, rows0, rows1, R, lane);
+        } else if (Keyed && sl[0] == kSlabCR) {
+          const int nv = sl[4] - sl[3];
+          const int qu = slot_of[sl[1]] * R + lane;
+          const int qv = slot_of[sl[2]] * R + lane;
+          const int u0 = codes0[qu] - ku_lo, v0 = codes0[qv] - sl[3];
+          const int u1 = codes1[qu] - ku_lo, v1 = codes1[qv] - sl[3];
+          add_keyed(t,
+                    u0 >= 0 && u0 < nkeys && v0 >= 0 && v0 < nv
+                        ? u0 * nv + v0 : -1,
+                    pair && u1 >= 0 && u1 < nkeys && v1 >= 0 && v1 < nv
+                        ? u1 * nv + v1 : -1,
+                    1, rows0, rows1, R, lane);
         } else {
           const int vk = cols.size[sl[2]];
           const int qu = slot_of[sl[1]] * R + lane;
@@ -417,6 +541,29 @@ __global__ void wide_gram_reduce(const double* __restrict__ partial,
   if (om.mirror) o[int64_t(j) * om.ld + (i - om.lo)] = v;
 }
 
+// The keyed tasks' reduction, one thread per (group, map entry): the
+// cell's slots over the work items of its (task, group), in item order,
+// f64, one rounding; writes the entry's one place through om. A (task,
+// group) with no rows gets zeros.
+__global__ void wide_gram_keyed_reduce(const double* __restrict__ partial,
+                                       const __grid_constant__ WidePlanArgs
+                                           plan,
+                                       const int64_t* __restrict__ item_cum,
+                                       int G, const OutMap om,
+                                       float* __restrict__ out) {
+  const int64_t t = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (t >= int64_t(G) * plan.nentries) return;
+  const int g = static_cast<int>(t / plan.nentries);
+  const int* e = plan.entries + 4 * (t % plan.nentries);
+  const int task = e[0], cell = e[1], i = e[2], j = e[3];
+  const int64_t tg = int64_t(task) * G + g;
+  double s = 0.0;
+  for (int64_t b = item_cum[tg]; b < item_cum[tg + 1]; ++b)
+    s += partial[b * plan.max_cells + cell];
+  out[int64_t(g) * om.gstride + int64_t(i) * om.ld + (j - om.lo)] =
+      static_cast<float>(s);
+}
+
 // Mirrored by ring/kernels/_build.py: wide_smem_bytes.
 inline size_t wide_smem_bytes(const WidePlanArgs& plan) {
   return sizeof(double) * plan.max_cells +
@@ -462,12 +609,13 @@ inline int launch_wide_gram(const Cols& cols, const WidePlanArgs& plan,
                            : OutMap{P, int64_t(P) * P, 0, true};
   const size_t smem = wide_smem_bytes(plan);
   cudaError_t rc = cudaFuncSetAttribute(
-      wide_gram_kernel<Grouped>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      wide_gram_kernel<Grouped, false>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (rc != cudaSuccess) return rc;
-  wide_gram_kernel<Grouped><<<dim3(plan.tasks, slices), kThreads, smem,
-                              stream>>>(cols, plan, w, n, off, cum, G,
-                                        partial);
+  wide_gram_kernel<Grouped, false><<<dim3(plan.tasks, slices), kThreads,
+                                     smem, stream>>>(
+      cols, plan, w, n, off, cum, G, partial, KeyedArgs{});
   if ((rc = cudaGetLastError()) != cudaSuccess) return rc;
   const int64_t threads = int64_t(G) * plan.nentries;
   const int64_t blocks = (threads + kThreads - 1) / kThreads;
@@ -475,6 +623,35 @@ inline int launch_wide_gram(const Cols& cols, const WidePlanArgs& plan,
   wide_gram_reduce<<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
       partial, plan, Grouped ? cum : nullptr,
       (n + kWideChunk - 1) / kWideChunk, G, slices, om, out);
+  return cudaGetLastError();
+}
+
+// Launches the keyed tasks of a window (K7, or K8 with key.G groups) and
+// their reduction on `stream`: `items` blocks (_build.keyed_items_bound;
+// those past key.item_cum[tasks·G] exit), partial f64 scratch of items ·
+// plan.max_cells, each entry's place written through om.
+inline int launch_wide_gram_keyed(const Cols& cols, const WidePlanArgs& plan,
+                                  const KeyedArgs& key, int64_t n,
+                                  int64_t items, double* partial,
+                                  const OutMap& om, float* out,
+                                  cudaStream_t stream) {
+  const size_t smem = wide_smem_bytes(plan);
+  cudaError_t rc = cudaFuncSetAttribute(
+      wide_gram_kernel<false, true>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (rc != cudaSuccess) return rc;
+  if (items > 0) {
+    wide_gram_kernel<false, true><<<static_cast<unsigned>(items), kThreads,
+                                    smem, stream>>>(
+        cols, plan, nullptr, n, nullptr, nullptr, 1, partial, key);
+    if ((rc = cudaGetLastError()) != cudaSuccess) return rc;
+  }
+  const int64_t threads = int64_t(key.G) * plan.nentries;
+  const int64_t blocks = (threads + kThreads - 1) / kThreads;
+  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+  wide_gram_keyed_reduce<<<static_cast<unsigned>(blocks), kThreads, 0,
+                           stream>>>(partial, plan, key.item_cum, key.G, om,
+                                     out);
   return cudaGetLastError();
 }
 

@@ -33,7 +33,7 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = config.KERNEL_BUILD_DIR
 SOURCES = ("masked_gram.cu", "fused_impute_aggregate.cu", "grouped_gram.cu",
            "nb_grouped_sums.cu", "qda_predict.cu", "wide_gram.cu",
-           "grouped_wide_gram.cu")
+           "grouped_wide_gram.cu", "window_order.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # Largest grid of the Gram kernels: about 8 resident 256-thread blocks on
@@ -76,6 +76,12 @@ WIDE_STAGE_ROWS = 256  # kThreads (gram_common.cuh): most rows a block
                        # stages a step, one a thread
 WIDE_SMEM = 227 * 1024  # kWideSmem (wide_gram.cuh): a block's shared memory
 WIDE_PLAN_INTS = 7   # kWidePlanInts (wide_gram.cuh): WidePlan.shape_ints
+KEYED_TASK_INTS = 3  # kKeyedTaskInts (wide_gram.cuh): KeyedPlan.task_keys
+ITEM_MIN_CHUNKS = 8  # fewest chunks of the blocks keyed work items are
+                     # cut at (`item_chunks`): a block's stage
+ORDER_WARPS = 2048   # warps of an order pass (window_order.cu), about: a
+                     # segment of a group's rows each
+ORDER_CELLS = 1 << 23  # most (key, segment) counters of an order pass
 MAX_COLS = 64        # kMaxCols (gram_common.cuh), numeric and categorical
 MAX_UNSORTED_GROUPS = 8  # kMaxUnsortedGroups (grouped_gram.cu): K4's G
 ORDER_BLOCKS = 1024      # kOrderBlocks (grouped_gram.cu): most blocks of
@@ -170,6 +176,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.dit_wide_gram_window.argtypes = [p, i, p, p, i, p, i64, i, i, i, i64,
                                          *plan, p, p, p]
     lib.dit_wide_gram_window.restype = i
+    lib.dit_wide_gram_keyed.argtypes = [p, i, i, i64, i, i, i, i64, i64,
+                                        p, i, p, p, p, p, p, p, i, i, i64,
+                                        *plan, p, p, p]
+    lib.dit_wide_gram_keyed.restype = i
+    lib.dit_order_count.argtypes = [p, i, p, i, i64, i, p, p]
+    lib.dit_order_count.restype = i
+    lib.dit_order_scatter.argtypes = [i, i, p, i, i64, i, p, p, i, i, p, p]
+    lib.dit_order_scatter.restype = i
     lib.dit_fused_impute_aggregate_wide.argtypes = [
         p, i, p, p, i, p, p, p, p, i, i, i, p, i, u32, u32, u32, i64, p,
         i64, i, *plan, p, p, p, p, p]
@@ -474,8 +488,9 @@ def group_chunks(offsets: torch.Tensor, rows: int) -> torch.Tensor:
     return torch.cat([chunks.new_zeros(1), torch.cumsum(chunks, 0)])
 
 
-# Slab kinds of the wide plan, kSlabD, kSlabK and kSlabC (wide_gram.cuh)
-SLAB_D, SLAB_K, SLAB_C = 0, 1, 2
+# Slab kinds of the wide plan, kSlabD, kSlabK, kSlabC and kSlabCR
+# (wide_gram.cuh; CR only in a window's keyed tasks)
+SLAB_D, SLAB_K, SLAB_C, SLAB_CR = 0, 1, 2, 3
 
 
 @dataclasses.dataclass(frozen=True)
@@ -672,20 +687,24 @@ def qda_task_cells(sizes: tuple[int, ...]) -> int:
 
 
 def _plan_of(pieces: list, d: int, cross: bool, scorer: bool, cap: int,
-             window: tuple[int, int] | None = None) -> WidePlan:
+             window: tuple[int, int] | None = None,
+             tasks: list[list[int]] | None = None) -> WidePlan:
     """The plan of `pieces` (kind, params, cells, local entries i64[3, m]:
-    cell, i, j): the slabs packed into tasks, each task's slabs to its
-    warps, the map sorted by (task, cell)."""
-    tasks = _pack_tasks([p[2] for p in pieces], cap)
+    cell, i, j): the slabs packed into tasks (or the given `tasks`, lists
+    of the pieces' indices), each task's slabs to its warps, the map
+    sorted by (task, cell)."""
+    if tasks is None:
+        tasks = _pack_tasks([p[2] for p in pieces], cap)
     slabs, warp_begin, task_base, entries = [], [0], [0], []
     stage_cols, widths = [], []
     for members in tasks:
         used_cols = sorted({c for i in members for c in (
             pieces[i][1][:1] if pieces[i][0] == SLAB_K
-            else pieces[i][1][:2] if pieces[i][0] == SLAB_C else ())})
+            else pieces[i][1][:2] if pieces[i][0] in (SLAB_C, SLAB_CR)
+            else ())})
         stage_cols.append([len(used_cols)] + used_cols
                           + [-1] * (MAX_COLS - len(used_cols)))
-        need_x = any(pieces[i][0] != SLAB_C for i in members)
+        need_x = any(pieces[i][0] in (SLAB_D, SLAB_K) for i in members)
         widths.append(1 + (d if need_x else 0) + len(used_cols))
     for t, members in enumerate(tasks):
         # warps: the costliest slab first, to the least loaded warp
@@ -727,11 +746,12 @@ def _plan_of(pieces: list, d: int, cross: bool, scorer: bool, cap: int,
         cross=cross, scorer=scorer, task_cells=cap, window=window)
 
 
-def _window_pieces(d: int, sizes: tuple[int, ...], lo: int, hi: int,
-                   cap: int) -> list:
-    """The slabs of S[:, lo:hi]: every cell whose row or column lies in
-    the window, with one map entry (cell, i, j) for each place S[i, j],
-    lo ≤ j < hi, that the cell's value fills.
+def _window_tables(d: int, sizes: tuple[int, ...], lo: int, hi: int,
+                   keyed: tuple[int, ...] = ()) -> tuple[list, list]:
+    """The cells of S[:, lo:hi] before any cut: (D's pieces, the keyed
+    tables). Every cell whose row or column lies in the window, with one
+    map entry (cell, i, j) for each place S[i, j], lo ≤ j < hi, that the
+    cell's value fills.
 
     D: a slab where one of its places lies in the window. K_j: every key
     where a column of [1 ‖ x] lies in the window (its row of the table is
@@ -739,18 +759,23 @@ def _window_pieces(d: int, sizes: tuple[int, ...], lo: int, hi: int,
     with A and B the window's keys of j and of k: the whole table when
     |A|·V_k + |B|·V_j ≥ V_j·V_k, keyed on the column of more levels (rows
     of the fewer pack the tasks fuller), each cell to its places in the
-    window; else slabs (C, j, k) over A, placed in j's columns, and slabs
+    window; else a table (C, j, k) over A, placed in j's columns, and one
     (C, k, j) over B (keyed on k's codes, cell (v − v_lo)·V_j + u),
-    placed in k's columns, so a place of A × B is written once."""
-    base = [1 + d + sum(sizes[:j]) for j in range(len(sizes))]
+    placed in k's columns, so a place of A × B is written once.
 
-    def places(cell, i, j):
-        """(cell, i, j) for S[i, j] and (cell, j, i) for S[j, i] (i ≠ j),
-        each where its column lies in the window."""
-        fwd = (j >= lo) & (j < hi)
-        rev = (i >= lo) & (i < hi) & (i != j)
-        return torch.cat([torch.stack([cell, i, j])[:, fwd],
-                          torch.stack([cell, j, i])[:, rev]], 1)
+    Where j or k is in `keyed`, every table of C_jk is keyed on one owner
+    in every window, the keyed column (of both, the one of more levels,
+    else j): the whole table as above, or (C, o, r) over A_o and, for the
+    other column's keys B_r, a table (CR, o, r) over all of o's keys with
+    rows B_r (cell (u − u_lo)·|B_r| + v − v_lo), placed in r's columns.
+    So both places of a cell, S[i, j] in one window and S[j, i] in
+    another, are summed over the same rows of o's order, and S stays
+    exactly symmetric.
+
+    A table is (kind, key column, row column (−1 for K_j), first key, end
+    key, cells a key, whether its cells fill places on both sides, first
+    row code (CR; else 0))."""
+    base = [1 + d + sum(sizes[:j]) for j in range(len(sizes))]
 
     def keys(j):
         """[a, b) of column j's codes whose one-hot columns lie in the
@@ -758,56 +783,114 @@ def _window_pieces(d: int, sizes: tuple[int, ...], lo: int, hi: int,
         return (min(max(lo - base[j], 0), sizes[j]),
                 min(max(hi - base[j], 0), sizes[j]))
 
-    def ranges(a, b, row_cells):
-        """Key ranges of [a, b) as `_split` cuts them."""
-        return ([(a + r0, a + r1) for r0, r1 in _split(b - a, row_cells, cap)]
-                if b > a else [])
-
-    pieces = []
+    dense = []
     for a in range(1 + d):
         for blo in range(a, 1 + d, WIDE_CHUNK):
             bhi = min(blo + WIDE_CHUNK, 1 + d)
             b = torch.arange(blo, bhi)
-            local = places(b - blo, torch.full_like(b, a), b)
+            local = _places(lo, hi, b - blo, torch.full_like(b, a), b)
             if local.shape[1]:
-                pieces.append((SLAB_D, (a, blo, bhi, 0), bhi - blo, local))
+                dense.append((SLAB_D, (a, blo, bhi, 0), bhi - blo, local))
+    tables = []
     for j, size in enumerate(sizes):
         klo, khi = (0, size) if lo < 1 + d else keys(j)
-        for vlo, vhi in ranges(klo, khi, 1 + d):
-            v = torch.arange(vlo, vhi).repeat_interleave(1 + d)
-            a = torch.arange(1 + d).repeat(vhi - vlo)
-            diag = base[j] + torch.arange(vlo, vhi)
-            on = (diag >= lo) & (diag < hi)
-            pieces.append((SLAB_K, (j, vlo, vhi, 0), (vhi - vlo) * (1 + d),
-                           torch.cat([places((v - vlo) * (1 + d) + a, a,
-                                             base[j] + v),
-                                      torch.stack([(diag - base[j] - vlo)
-                                                   * (1 + d), diag,
-                                                   diag])[:, on]], 1)))
+        if khi > klo:
+            tables.append((SLAB_K, j, -1, klo, khi, 1 + d, True, 0))
     for j in range(len(sizes)):
         for k in range(j + 1, len(sizes)):
             vj, vk = sizes[j], sizes[k]
-            (ua, ub), (va, vb) = keys(j), keys(k)
+            win = {j: keys(j), k: keys(k)}
+            (ua, ub), (va, vb) = win[j], win[k]
             if vj == 0 or vk == 0 or (ua == ub and va == vb):
                 continue
             whole = (ub - ua) * vk + (vb - va) * vj >= vj * vk
-            if whole:    # (key column, row column): the rows the shorter
-                jobs = [(j, k, 0, vj, True) if vj >= vk
-                        else (k, j, 0, vk, True)]
+            if j in keyed or k in keyed:
+                o = (k if k in keyed and (j not in keyed or vk > vj)
+                     else j)
+                r = j + k - o
+                (oa, ob), (ra, rb) = win[o], win[r]
+                if whole:
+                    tables.append((SLAB_C, o, r, 0, sizes[o], sizes[r],
+                                   True, 0))
+                    continue
+                if ob > oa:
+                    tables.append((SLAB_C, o, r, oa, ob, sizes[r], False,
+                                   0))
+                if rb > ra:
+                    tables.append((SLAB_CR, o, r, 0, sizes[o], rb - ra,
+                                   False, ra))
+            elif whole:
+                # (key column, row column): the rows the shorter
+                key, row = (j, k) if vj >= vk else (k, j)
+                tables.append((SLAB_C, key, row, 0, sizes[key], sizes[row],
+                               True, 0))
             else:
-                jobs = [(j, k, ua, ub, False), (k, j, va, vb, False)]
-            for key, row, klo, khi, both in jobs:
-                vr = sizes[row]
-                for lo_u, hi_u in ranges(klo, khi, vr):
-                    u = torch.arange(lo_u, hi_u).repeat_interleave(vr)
-                    v = torch.arange(vr).repeat(hi_u - lo_u)
-                    cell = (u - lo_u) * vr + v
-                    local = (places(cell, base[key] + u, base[row] + v)
-                             if both else torch.stack([cell, base[row] + v,
-                                                       base[key] + u]))
-                    pieces.append((SLAB_C, (key, row, lo_u, hi_u),
-                                   (hi_u - lo_u) * vr, local))
-    return pieces
+                for key, row, klo, khi in ((j, k, ua, ub), (k, j, va, vb)):
+                    if khi > klo:
+                        tables.append((SLAB_C, key, row, klo, khi,
+                                       sizes[row], False, 0))
+    return dense, tables
+
+
+def _places(lo: int, hi: int, cell, i, j) -> torch.Tensor:
+    """(cell, i, j) for S[i, j] and (cell, j, i) for S[j, i] (i ≠ j), each
+    where its column lies in the window [lo, hi)."""
+    fwd = (j >= lo) & (j < hi)
+    rev = (i >= lo) & (i < hi) & (i != j)
+    return torch.cat([torch.stack([cell, i, j])[:, fwd],
+                      torch.stack([cell, j, i])[:, rev]], 1)
+
+
+def _table_piece(table, d: int, sizes: tuple[int, ...], lo: int, hi: int,
+                 u_lo: int, u_hi: int):
+    """The slab of a window's table (`_window_tables`) over its keys [u_lo,
+    u_hi): (kind, params, cells, local map entries (cell, i, j))."""
+    kind, key, row, _, _, row_cells, both, v_lo = table
+    b_key = 1 + d + sum(sizes[:key])
+    if kind == SLAB_K:
+        v = torch.arange(u_lo, u_hi).repeat_interleave(1 + d)
+        a = torch.arange(1 + d).repeat(u_hi - u_lo)
+        diag = b_key + torch.arange(u_lo, u_hi)
+        on = (diag >= lo) & (diag < hi)
+        return (SLAB_K, (key, u_lo, u_hi, 0), (u_hi - u_lo) * (1 + d),
+                torch.cat([_places(lo, hi, (v - u_lo) * (1 + d) + a, a,
+                                   b_key + v),
+                           torch.stack([(diag - b_key - u_lo) * (1 + d),
+                                        diag, diag])[:, on]], 1))
+    b_row = 1 + d + sum(sizes[:row])
+    u = torch.arange(u_lo, u_hi).repeat_interleave(row_cells)
+    v = torch.arange(v_lo, v_lo + row_cells).repeat(u_hi - u_lo)
+    cell = (u - u_lo) * row_cells + v - v_lo
+    if kind == SLAB_CR:     # keys [u_lo, u_hi): the keyed task's own
+        return (SLAB_CR, (key, row, v_lo, v_lo + row_cells),
+                (u_hi - u_lo) * row_cells,
+                torch.stack([cell, b_key + u, b_row + v]))
+    local = (_places(lo, hi, cell, b_key + u, b_row + v) if both
+             else torch.stack([cell, b_row + v, b_key + u]))
+    return (SLAB_C, (key, row, u_lo, u_hi), (u_hi - u_lo) * row_cells,
+            local)
+
+
+def _key_ranges(a: int, b: int, row_cells: int, cap: int
+                ) -> list[tuple[int, int]]:
+    """Key ranges of [a, b) as `_split` cuts them."""
+    return ([(a + r0, a + r1) for r0, r1 in _split(b - a, row_cells, cap)]
+            if b > a else [])
+
+
+def _window_pieces(d: int, sizes: tuple[int, ...], lo: int, hi: int,
+                   cap: int) -> list:
+    """The slabs of S[:, lo:hi] (`_window_tables`), each table cut by key
+    range into slabs of at most `cap` cells: the unkeyed cut, whose tasks
+    each walk all n rows, so a table of V_j·V_k cells costs ~V_j·V_k / cap
+    reads of every row. `keyed_window_plan` keeps it for the residual and
+    cuts the tables of a keyed column by its key ranges instead, each task
+    walking only its range's rows in that column's order: a row read once
+    a layer, whatever V_j·V_k is."""
+    dense, tables = _window_tables(d, sizes, lo, hi)
+    return dense + [_table_piece(tb, d, sizes, lo, hi, u_lo, u_hi)
+                    for tb in tables
+                    for u_lo, u_hi in _key_ranges(tb[3], tb[4], tb[5], cap)]
 
 
 def check_window(schema, lo: int, width: int) -> None:
@@ -834,11 +917,203 @@ def _window_plan(d: int, sizes: tuple[int, ...], lo: int, hi: int
 
 
 def window_plan(schema, lo: int, hi: int) -> WidePlan:
-    """K7's plan of the column window S[:, lo:hi], on the CPU; made once
-    per schema and window. Its map lists each structurally nonzero place
-    of the window once, (task, cell, i, j) with lo ≤ j < hi."""
+    """The unkeyed plan of the column window S[:, lo:hi] (every table cut
+    by key range, each task over all rows), on the CPU; made once per
+    schema and window. Its map lists each structurally nonzero place of
+    the window once, (task, cell, i, j) with lo ≤ j < hi. The kernels run
+    `keyed_window_plan`, which takes from it the tables of its keyed
+    columns."""
     check_window(schema, lo, hi - lo)
     return _window_plan(schema.num_cols, tuple(schema.cat_sizes), lo, hi)
+
+
+@dataclasses.dataclass(frozen=True)
+class KeyedPlan:
+    """The keyed part of a window's plan (`keyed_window_plan`): the tables
+    of each keyed column J (K_J, and every C_Jk keyed on J's codes) cut
+    into tasks of one key range of J each, so that a task walks only the
+    rows whose code_J lies in its range, in J's order (`window_order`).
+
+    A column's tables are packed by their cells a key into layers of at
+    most `task_cells` cells a key (first fit, widest first); each layer's
+    keys are cut as `_split` cuts a table, a task holding the layer's
+    slabs over its key range. The tasks of one layer have disjoint key
+    ranges, so a layer walks each row at most once (once a group in K8).
+
+    plan: the tasks' `WidePlan` (slabs, warps, cells, stage columns, map
+      of the window's places); its `slices` are unused: the kernel cuts
+      each task's rows into work items (`keyed_items`).
+    task_keys i32[T, KEYED_TASK_INTS]: (J, u_lo, u_hi) of each task.
+    columns: the keyed columns, ascending. layers: the layers of all of
+    them (what bounds the rows the tasks walk: n · layers), each task's
+    layer and each layer's column and key range (for counting rows)."""
+    plan: WidePlan
+    task_keys: torch.Tensor
+    columns: tuple[int, ...]
+    layers: int
+    layer_of: tuple[int, ...]   # each task's layer, 0 .. layers − 1
+    layer_keys: tuple[tuple[int, int, int], ...]   # each layer's (J, first
+                                                   # key, end key)
+
+    @property
+    def num_tasks(self) -> int:
+        return self.plan.num_tasks
+
+
+@functools.lru_cache(maxsize=32)
+def keyed_columns(d: int, sizes: tuple[int, ...]) -> tuple[int, ...]:
+    """The categorical columns every window keys: none up to P =
+    MAX_WIDE_SIGMA_SIZE (K7's one-launch plan covers S there, and a window
+    of such a schema keeps the unkeyed cut), else those whose tables
+    keyed on them (K_j and every C_jk keyed on j's codes) take more than
+    one task in one of the windows `masked_gram` assembles S from (of
+    WINDOW_WIDTH columns) or in the whole of S: a table that one task
+    holds is walked once a window either way. The tables are first those
+    of the unkeyed cut; a keyed column owns its C_jk (`_window_tables`),
+    so a column left with one task's tables is dropped, until none is.
+    One rule for all windows, so that a cell two windows compute (S[i, j]
+    in one, S[j, i] in another) is summed the same way in both: over its
+    key's rows of one column's order, in chunks from the key's first
+    row."""
+    p = 1 + d + sum(sizes)
+    if p <= MAX_WIDE_SIGMA_SIZE:
+        return ()
+    windows = [(0, p)] + [(lo, min(lo + WINDOW_WIDTH, p))
+                          for lo in range(0, p, WINDOW_WIDTH)]
+
+    def fill(keyed):
+        """Columns whose tables take more than one task in a window."""
+        most: dict[int, int] = {}
+        for lo, hi in windows:
+            for j, t in _key_cells(_window_tables(d, sizes, lo, hi,
+                                                  keyed)[1],
+                                   WIDE_TASK_BYTES // 8).items():
+                most[j] = max(most.get(j, 0), t)
+        return {j for j, t in most.items() if t > 1}
+
+    keyed = fill(())
+    while (kept := keyed & fill(tuple(sorted(keyed)))) != keyed:
+        keyed = kept
+    return tuple(sorted(keyed))
+
+
+def _key_cells(tables: list, cap: int) -> dict[int, int]:
+    """Tasks each column's tables fill at the fewest (cells over `cap`)."""
+    cells: dict[int, int] = {}
+    for _, key, _, klo, khi, row_cells, *_ in tables:
+        cells[key] = cells.get(key, 0) + (khi - klo) * row_cells
+    return {key: -(-c // cap) for key, c in cells.items()}
+
+
+@functools.lru_cache(maxsize=32)
+def _keyed_window_plan(d: int, sizes: tuple[int, ...], lo: int, hi: int
+                       ) -> tuple[WidePlan | None, KeyedPlan | None]:
+    cap = WIDE_TASK_BYTES // 8
+    columns = keyed_columns(d, sizes)
+    dense, tables = _window_tables(d, sizes, lo, hi, columns)
+    keyed = sorted({tb[1] for tb in tables} & set(columns))
+    rest = dense + [_table_piece(tb, d, sizes, lo, hi, u_lo, u_hi)
+                    for tb in tables if tb[1] not in keyed
+                    for u_lo, u_hi in _key_ranges(tb[3], tb[4], tb[5], cap)]
+    residual = (_plan_of(rest, d, True, False, cap, (lo, hi)) if rest
+                else None)
+    if not keyed:
+        return residual, None
+    pieces, tasks, task_keys, layer_of, layer_keys = [], [], [], [], []
+    for j in keyed:
+        mine = sorted((tb for tb in tables if tb[1] == j),
+                      key=lambda tb: -tb[5])
+        packed: list[list] = []
+        for tb in mine:                 # first fit, the widest first
+            room = [ly for ly in packed
+                    if sum(t[5] for t in ly) + tb[5] <= cap]
+            if room:
+                room[0].append(tb)
+            else:
+                packed.append([tb])
+        for ly in packed:
+            width = sum(t[5] for t in ly)
+            k_lo, k_hi = min(t[3] for t in ly), max(t[4] for t in ly)
+            layer_keys.append((j, k_lo, k_hi))
+            for u_lo, u_hi in _key_ranges(k_lo, k_hi, width, cap):
+                members = []
+                for tb in ly:
+                    a, b = max(tb[3], u_lo), min(tb[4], u_hi)
+                    # a CR slab's keys are its task's (wide_gram.cuh)
+                    assert tb[0] != SLAB_CR or (a, b) == (u_lo, u_hi)
+                    if b > a:
+                        members.append(len(pieces))
+                        pieces.append(_table_piece(tb, d, sizes, lo, hi, a,
+                                                   b))
+                if members:
+                    tasks.append(members)
+                    task_keys.append((j, u_lo, u_hi))
+                    layer_of.append(len(layer_keys) - 1)
+    plan = _plan_of(pieces, d, True, False, cap, (lo, hi), tasks)
+    return residual, KeyedPlan(
+        plan=plan, task_keys=torch.tensor(task_keys, dtype=torch.int32),
+        columns=tuple(keyed), layers=len(layer_keys),
+        layer_of=tuple(layer_of), layer_keys=tuple(layer_keys))
+
+
+def keyed_window_plan(schema, lo: int, hi: int
+                      ) -> tuple[WidePlan | None, KeyedPlan | None]:
+    """The plans K7 and K8 run over the column window S[:, lo:hi], on the
+    CPU; made once per schema and window: (residual, keyed). Past P =
+    MAX_WIDE_SIGMA_SIZE, a categorical column is keyed where its tables
+    (K_J and every C_Jk keyed on J, `_window_tables`) take more than one
+    task in one of masked_gram's windows (`keyed_columns`: the same
+    columns in every window); its tables in the window, and every table
+    of a C_Jk it owns, are cut into tasks (`KeyedPlan`) that walk only
+    their key range's rows in J's order. The residual, the window's other
+    cells (D, the K_j of the other columns and the C_jk between them), is
+    the unkeyed cut of `window_plan`, each task over all rows; at P ≤
+    MAX_WIDE_SIGMA_SIZE it is the whole window. Either may be None;
+    between them every structurally nonzero place of the window is mapped
+    once."""
+    check_window(schema, lo, hi - lo)
+    return _keyed_window_plan(schema.num_cols, tuple(schema.cat_sizes), lo,
+                              hi)
+
+
+def item_chunks(n: int) -> int:
+    """Chunks of WIDE_CHUNK rows in the blocks of an ordered copy that
+    keyed work items are cut at (`keyed_items`; an item holds at most
+    that many): about MAX_BLOCKS blocks over n rows, so that a hot key's
+    rows spread over many blocks, and at least ITEM_MIN_CHUNKS (a block's
+    stage); a function of n only."""
+    return max(ITEM_MIN_CHUNKS, -(-(-(-n // WIDE_CHUNK)) // MAX_BLOCKS))
+
+
+def order_stride(cols: int) -> int:
+    """Ints of a row of the order's copies (window_order.cu): the row's
+    `cols` columns rounded up to whole 32-byte sectors, so the scatter
+    writes whole sectors."""
+    return -(-cols // 8) * 8
+
+
+def order_segments(groups: int, levels: int) -> int:
+    """Segments of each group's rows in an order pass of a column of
+    `levels` levels (window_order.cu, a warp each, its V counters in
+    shared memory): about ORDER_WARPS in all, and at most ORDER_CELLS
+    counters (key, segment) over the G·V keys; at least one. A function of
+    G and V only, so the order does not depend on the card."""
+    return max(1, min(-(-ORDER_WARPS // groups),
+                      ORDER_CELLS // (groups * levels)))
+
+
+def keyed_items_bound(keyed: KeyedPlan, n: int, groups: int = 1) -> int:
+    """Most work items the keyed tasks can make over n rows and `groups`
+    groups: each (task, group)'s chunks c0 .. c1 meet at most (c1 − c0) /
+    item_chunks(n) + 2 of the blocks of item_chunks(n) chunks that items
+    are cut at (`keyed_items`), a key's chunks start at its first row,
+    and a layer's tasks walk at most n rows and its keys in all (so at
+    most n / WIDE_CHUNK + G·keys chunks). The grid of the keyed kernel
+    (blocks past the real count exit) and its partial's slots."""
+    tg = keyed.num_tasks * groups
+    chunks = sum(-(-n // WIDE_CHUNK) + groups * (hi - lo)
+                 for _, lo, hi in keyed.layer_keys)
+    return 2 * tg + -(-chunks // item_chunks(n))
 
 
 def wide_smem_bytes(cells: int, cols: int, slabs: int, rows: int) -> int:

@@ -24,12 +24,19 @@ round the cross-chunk sum from f64 to f32 once, so one-hot counts are
 exact past 2²⁴ rows, and take any row count: nothing is padded.
 
 `masked_gram_window` is K7 over one column window S[:, lo:lo + width] of
-any P (`_build.window_plan`), the counterpart of JAX's
+any P (`_build.keyed_window_plan`), the counterpart of JAX's
 `ring/striped.py:sigma_stripe` and, past P = 1,024, the card's only way
 to what `sigma_pallas_fast_cols_padded` and `sigma_pallas_padded`
 compute; `masked_gram_window_plain` computes the window from S's tables
 in plain torch (f64 sums of f32 products, no dense Z), and is also the
-plain version of the two entry points above P = 1,024.
+plain version of the two entry points above P = 1,024. Past P = 1,024,
+a window's tables keyed on a column whose tables take more than one
+task (`_build.keyed_columns`) run as keyed tasks, each over its key
+range's rows of a copy of the columns ordered by that column's codes
+(`window_order`, once a call; its counter `window_order.passes`), the
+rest of the window as the residual plan over all rows;
+`masked_gram_window_keyed_plain` is that arithmetic in plain torch
+(`keyed_tables_plain`, `keyed_items`).
 
 `wide_tables_plain` computes K7's tables in plain torch, and
 `wide_assemble` scatters tables into S through the plan's map, as the
@@ -38,6 +45,7 @@ Gram and the JAX kernels with them.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import torch
@@ -252,13 +260,21 @@ def _launch(x_cols, code_cols, weights, n: int, device, schema,
     return out
 
 
-@functools.lru_cache(maxsize=32)
-def _device_plan(d: int, sizes: tuple[int, ...], device, window=None):
-    plan = (_build._wide_plan(d, sizes) if window is None
-            else _build._window_plan(d, sizes, *window))
+@functools.lru_cache(maxsize=64)
+def _device_plan(d: int, sizes: tuple[int, ...], device, window=None,
+                 keyed: bool = False):
+    """A plan's tensors on `device`: the whole plan's, or a window's
+    residual plan's or (`keyed`) its keyed plan's with its task keys."""
+    extra = ()
+    if window is None:
+        plan = _build._wide_plan(d, sizes)
+    else:
+        residual, kp = _build._keyed_window_plan(d, sizes, *window)
+        plan = kp.plan if keyed else residual
+        extra = (kp.task_keys,) if keyed else ()
     return tuple(t.to(device) for t in (
         plan.slabs, plan.warp_begin, plan.task_base, plan.stage_cols,
-        plan.entries))
+        plan.entries, *extra))
 
 
 def wide_plan_args(schema, n: int, device, groups: int = 1):
@@ -291,42 +307,302 @@ def _launch_wide(x_cols, code_cols, weights, n, device, schema, lib, what):
     return out
 
 
+def window_columns(schema, lows, width: int) -> tuple[int, ...]:
+    """The keyed columns of the windows [lo, lo + width) for lo in
+    `lows` (each cut at P): the columns one order pass sorts for them."""
+    p = schema.sigma_size
+    cols = set()
+    for lo in lows:
+        keyed = _build.keyed_window_plan(schema, lo, min(lo + width, p))[1]
+        cols.update(keyed.columns if keyed is not None else ())
+    return tuple(sorted(cols))
+
+
 def _gram_windows(x_cols, code_cols, weights, n, device, schema, lib,
                   wrapper, counter: str) -> torch.Tensor:
     """S f32[P, P] by one K7 launch a column window of WINDOW_WIDTH,
-    adding one to `wrapper.<counter>` a launch; shared by masked_gram(_cols)
-    and K2w past MAX_WIDE_SIGMA_SIZE."""
+    adding one to `wrapper.<counter>` a launch, after one order pass
+    (`window_order`) of the windows' keyed columns; shared by
+    masked_gram(_cols) and K2w past MAX_WIDE_SIGMA_SIZE."""
     p = schema.sigma_size
+    lows = range(0, p, _build.WINDOW_WIDTH)
+    order = window_order(x_cols, code_cols, weights, schema=schema,
+                         columns=window_columns(schema, lows,
+                                                _build.WINDOW_WIDTH))
     out = torch.zeros((p, p), dtype=torch.float32, device=device)
-    for lo in range(0, p, _build.WINDOW_WIDTH):
+    for lo in lows:
         _launch_window(x_cols, code_cols, weights, n, device, schema, lo,
                        min(_build.WINDOW_WIDTH, p - lo), out[:, lo:], lib,
-                       wrapper.__name__)
+                       wrapper.__name__, order)
         setattr(wrapper, counter, getattr(wrapper, counter) + 1)
     return out
 
 
 def _launch_window(x_cols, code_cols, weights, n, device, schema, lo,
-                   width, out, lib, what) -> None:
-    """One launch of K7 over the plan of the window [lo, lo + width),
-    writing S[:, lo:lo + width] into out f32[P, ld] (zeroed; its column 0
-    is the window's first)."""
-    plan = _build.window_plan(schema, lo, lo + width)
+                   width, out, lib, what, order) -> None:
+    """K7 over the window [lo, lo + width) (`_build.keyed_window_plan`):
+    its residual plan over all rows and its keyed tasks over `order`'s
+    copies, writing S[:, lo:lo + width] into out f32[P, ld] (zeroed; its
+    column 0 is the window's first)."""
+    residual, keyed = _build.keyed_window_plan(schema, lo, lo + width)
+    sizes = schema.cat_sizes
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if residual is not None:
+        tensors = _device_plan(schema.num_cols, tuple(sizes), device,
+                               residual.window)
+        slices = residual.slices(n)
+        partial = torch.empty(int(residual.task_base[-1]) * slices,
+                              dtype=torch.float64, device=device)
+        with torch.cuda.device(device):
+            rc = lib.lib.dit_wide_gram_window(
+                _build.pointers(x_cols), len(x_cols),
+                _build.pointers(code_cols), _build.int_array(sizes),
+                len(sizes), weights.data_ptr(), n, schema.sigma_size, lo,
+                width, out.stride(0), *(t.data_ptr() for t in tensors),
+                _build.int_array(residual.shape_ints(slices)),
+                partial.data_ptr(), out.data_ptr(), stream)
+        _build.raise_on_error(lib, rc, what)
+    if keyed is not None:
+        launch_keyed(keyed, order, n, device, schema, lo, width, out,
+                     out.stride(0), 0, lib, what)
+
+
+def launch_keyed(keyed, order, n, device, schema, lo, width, out, ld,
+                 gstride, lib, what) -> None:
+    """One launch of the keyed tasks of the window [lo, lo + width) over
+    `order` (`window_order`, with order.groups groups) and their
+    reduction, each place (i, j) of group g written to out[g·gstride +
+    i·ld + j − lo]; shared by K7 and K8."""
     tensors = _device_plan(schema.num_cols, tuple(schema.cat_sizes), device,
-                           plan.window)
-    slices = plan.slices(n)
-    partial = torch.empty(int(plan.task_base[-1]) * slices,
+                           (lo, lo + width), keyed=True)
+    item_cum = keyed_items(keyed, order, n, schema, tensors[5])[0]
+    items = _build.keyed_items_bound(keyed, n, order.groups)
+    partial = torch.empty(items * keyed.plan.max_task_cells,
                           dtype=torch.float64, device=device)
     sizes = schema.cat_sizes
     with torch.cuda.device(device):
-        rc = lib.lib.dit_wide_gram_window(
-            _build.pointers(x_cols), len(x_cols), _build.pointers(code_cols),
-            _build.int_array(sizes), len(sizes), weights.data_ptr(), n,
-            schema.sigma_size, lo, width, out.stride(0),
-            *(t.data_ptr() for t in tensors),
-            _build.int_array(plan.shape_ints(slices)), partial.data_ptr(),
+        rc = lib.lib.dit_wide_gram_keyed(
+            _build.int_array(sizes), schema.num_cols, len(sizes), n,
+            schema.sigma_size, lo, width, ld, gstride, order.rows.data_ptr(),
+            order.rows.shape[-1], order.key_off.data_ptr(),
+            order.key_chunks.data_ptr(), order.rows_of.data_ptr(),
+            order.off_of.data_ptr(), tensors[5].data_ptr(),
+            item_cum.data_ptr(), order.groups, _build.item_chunks(n), items,
+            *(t.data_ptr() for t in tensors[:5]),
+            _build.int_array(keyed.plan.shape_ints(1)), partial.data_ptr(),
             out.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
     _build.raise_on_error(lib, rc, what)
+
+
+@dataclasses.dataclass(frozen=True)
+class WindowOrder:
+    """The rows in the order of each keyed column's codes
+    (`window_order`): what the keyed tasks of a call's windows read.
+
+    rows i32[Q, n, stride]: for the q-th ordered column, a row each of w,
+      x (their f32 bits) and every code column, side by side
+      (`_build.order_stride`), in that column's order.
+    key_off i64[Σ_q (G·V_q + 1)]: for each ordered column J, its G·V_J + 1
+      row offsets: the rows of group g and code u are off[g·V_J + u] ..
+      off[g·V_J + u + 1] of its copy.
+    key_chunks i64[as key_off]: each key's first chunk of WIDE_CHUNK rows,
+      a key's chunks starting at its first row (`_build.group_chunks`).
+    rows_of, off_of i64[c]: column J's first element in rows and in
+      key_off (−1 for a column not ordered).
+    groups: G (1 for K7; K8's groups)."""
+    columns: tuple[int, ...]
+    rows: torch.Tensor
+    key_off: torch.Tensor
+    key_chunks: torch.Tensor
+    rows_of: torch.Tensor
+    off_of: torch.Tensor
+    groups: int
+
+
+def window_order(x_cols, code_cols, weights, *, schema: FeatureSchema,
+                 columns, offsets=None) -> WindowOrder | None:
+    """One order of the rows for each column J of `columns` (None where
+    there is none): stable by code_J, or with `offsets` (K8's group
+    offsets i64[G + 1] of group-sorted rows) by g·V_J + code_J; rows with
+    a code outside [0, V_J), and rows past offsets[G], come after every
+    row with a key, where no task reads them. The keys' row offsets and a
+    copy of w, x and every code column in that order, so that a keyed task
+    reads its rows coalesced.
+
+    CUDA tensors launch the order kernels (csrc/window_order.cu: a stable
+    counting sort a keyed column, which writes each row's columns to their
+    place; the rows without a key are not copied), counted in
+    `window_order.launches`, one a column; CPU tensors take the plain
+    version, a stable torch.sort of the keys and a gather of each column
+    (the rows without a key copied last). Adds one to
+    `window_order.passes` a call. Peak memory beside the inputs: the
+    copies, `_build.order_stride(1 + d + c)`·n·4 bytes a column, and the
+    kernels' counters (at most ORDER_CELLS of them, ~32 bytes each) or
+    the sort's keys and order.
+    x_cols d × f32[n], code_cols c × i32[n], weights f32[n]; ValueError
+    where G·V_J ≥ 2³¹."""
+    cpu = _build.on_cpu([weights] + list(x_cols) + list(code_cols))
+    out = _window_order(x_cols, code_cols, weights, schema, columns, offsets,
+                        _order_plain if cpu else _order_kernel)
+    if out is not None:
+        window_order.passes += 1
+    return out
+
+
+def window_order_plain(x_cols, code_cols, weights, *, schema: FeatureSchema,
+                       columns, offsets=None) -> WindowOrder | None:
+    """Plain torch version of `window_order` on any device (a stable
+    torch.sort of each column's keys and a gather of each column), which
+    its kernels equal over the rows with a key."""
+    return _window_order(x_cols, code_cols, weights, schema, columns,
+                         offsets, _order_plain)
+
+
+def _window_order(x_cols, code_cols, weights, schema, columns, offsets,
+                  order) -> WindowOrder | None:
+    columns = tuple(columns)
+    if not columns:
+        return None
+    x_cols, code_cols = list(x_cols), list(code_cols)
+    n, device = weights.shape[-1], weights.device
+    groups = 1 if offsets is None else offsets.shape[0] - 1
+    sizes = schema.cat_sizes
+    big = [j for j in columns if groups * sizes[j] >= 1 << 31]
+    if big:
+        raise ValueError(f"{groups} groups × {sizes[big[0]]} levels: the "
+                         f"window order's keys take fewer than 2^31")
+    src = ([weights.view(torch.int32)] + [x.view(torch.int32) for x in x_cols]
+           + code_cols)
+    stride = _build.order_stride(len(src))
+    rows = torch.empty((len(columns), n, stride), dtype=torch.int32,
+                       device=device)
+    key_off, rows_of, off_of = [], [-1] * len(sizes), [-1] * len(sizes)
+    at = 0
+    for q, j in enumerate(columns):
+        key_off.append(order(1 + len(x_cols) + j, sizes[j], offsets, groups,
+                             src, rows[q]))
+        rows_of[j], off_of[j] = q * n * stride, at
+        at += groups * sizes[j] + 1
+    chunks = torch.cat([_build.group_chunks(k, _build.WIDE_CHUNK)
+                        for k in key_off])
+    return WindowOrder(
+        columns=columns, rows=rows, key_off=torch.cat(key_off),
+        key_chunks=chunks,
+        rows_of=torch.tensor(rows_of, dtype=torch.int64, device=device),
+        off_of=torch.tensor(off_of, dtype=torch.int64, device=device),
+        groups=groups)
+
+
+window_order.passes = 0
+window_order.launches = 0
+
+
+def _order_plain(key_col, v, offsets, groups, src, out) -> torch.Tensor:
+    """The plain version of one column's order: a stable torch.sort of
+    the keys (g·v + code, code = src[key_col], or g·v for none), the keys'
+    row offsets i64[G·v + 1] by a search of the sorted keys, the columns
+    gathered into out i32[n, stride], a row's side by side (zeros past
+    them)."""
+    code = src[key_col]
+    n = code.shape[-1]
+    u = code.long()
+    ok = (u >= 0) & (u < v)
+    if offsets is not None:
+        gid = torch.searchsorted(offsets, torch.arange(n, device=u.device),
+                                 right=True) - 1
+        ok &= gid < groups
+        u = gid * v + u
+    key = torch.where(ok, u, groups * v).to(torch.int32)
+    keys, order = torch.sort(key, stable=True)
+    out.zero_()
+    for i, col in enumerate(src):
+        out[:, i] = torch.index_select(col, 0, order)
+    return torch.searchsorted(keys, torch.arange(
+        groups * v + 1, dtype=torch.int32, device=u.device))
+
+
+def _order_kernel(key_col, v, offsets, groups, src, out) -> torch.Tensor:
+    """One column's order on the card (csrc/window_order.cu), its codes
+    src[key_col]: the codes counted a segment (`_build.order_segments`),
+    the counts scanned in (key, segment) order, each row with a key
+    written with its columns to its row of out i32[n, stride]; returns
+    the keys' row offsets i64[G·v + 1]."""
+    lib = _build.load()
+    code = src[key_col]
+    n, device = code.shape[-1], code.device
+    segs = _build.order_segments(groups, v)
+    counts = torch.empty(groups * segs * v, dtype=torch.int32, device=device)
+    off = 0 if offsets is None else offsets.data_ptr()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        rc = lib.lib.dit_order_count(code.data_ptr(), v, off, groups, n,
+                                     segs, counts.data_ptr(), stream)
+        _build.raise_on_error(lib, rc, "window_order")
+        by_key = counts.view(groups, segs, v).transpose(1, 2).reshape(-1)
+        ends = torch.cumsum(by_key, 0, dtype=torch.int64)
+        start = ends - by_key                 # (g, u, s) order
+        key_off = torch.cat([start.view(groups * v, segs)[:, 0], ends[-1:]])
+        pos = start.view(groups, v, segs).transpose(1, 2).to(
+            torch.int32).contiguous()         # (g, s, u): a warp's row
+        rc = lib.lib.dit_order_scatter(
+            key_col, v, off, groups, n, segs, pos.data_ptr(),
+            _build.pointers(src), len(src), out.shape[-1], out.data_ptr(),
+            stream)
+        _build.raise_on_error(lib, rc, "window_order")
+    window_order.launches += 1
+    return key_off
+
+
+def keyed_items(keyed: _build.KeyedPlan, order: WindowOrder, n: int,
+                schema: FeatureSchema, task_keys=None):
+    """The work items of a window's keyed tasks over `order`: each (task,
+    group)'s chunks c0 .. c1 of its keys (each key's rows cut into chunks
+    of WIDE_CHUNK from its first row: `order.key_chunks`), cut where they
+    meet the blocks of m = `_build.item_chunks(n)` chunks of the column's
+    copy, [b·m, (b + 1)·m): an item each, so the items that sum a key's
+    chunks are the same in every task that holds the key. Its rows r0 ..
+    r1 of its column's copy. Returns (item_cum i64[T·G + 1], the first
+    item of each (task, group) in that order; c0, r0, r1 i64[T, G]) on the
+    order's device, with no host sync: the same arithmetic the kernel's
+    blocks read their items from.
+    task_keys: the plan's on the device, if already there."""
+    dev = order.key_off.device
+    tk = (keyed.task_keys if task_keys is None else task_keys).to(dev).long()
+    j, u_lo, u_hi = tk.unbind(1)
+    v = torch.tensor(schema.cat_sizes, dtype=torch.int64, device=dev)[j]
+    base = (order.off_of[j][:, None]
+            + torch.arange(order.groups, device=dev)[None] * v[:, None])
+    c0 = order.key_chunks[base + u_lo[:, None]]
+    c1 = order.key_chunks[base + u_hi[:, None]]
+    r0 = order.key_off[base + u_lo[:, None]]
+    r1 = order.key_off[base + u_hi[:, None]]
+    m = _build.item_chunks(n)
+    items = torch.where(c1 > c0, (c1 + m - 1) // m - c0 // m, 0)
+    return (torch.cat([items.new_zeros(1), torch.cumsum(items.reshape(-1),
+                                                        0)]), c0, r0, r1)
+
+
+def keyed_work(keyed: _build.KeyedPlan, order: WindowOrder, n: int,
+               schema: FeatureSchema) -> dict:
+    """What the keyed tasks of a window do over `order` (on the host):
+    tasks, work items, the rows each layer's tasks walk in all (`rows`,
+    keyed by the layer, its column and its key range), and the rows whose
+    code lies in the layer's key range, which those must equal
+    (`in_range`)."""
+    item_cum, _, r0, r1 = keyed_items(keyed, order, n, schema)
+    per_task = (r1 - r0).sum(1).tolist()
+    rows, in_range = {}, {}
+    for t, ly in enumerate(keyed.layer_of):
+        j, a, b = keyed.layer_keys[ly]
+        name = f"layer {ly}: column {j}, keys {a}-{b}"
+        rows[name] = rows.get(name, 0) + per_task[t]
+        if name not in in_range:
+            size, base = schema.cat_sizes[j], int(order.off_of[j])
+            off = order.key_off[base:base + order.groups * size + 1]
+            g = torch.arange(order.groups, device=off.device) * size
+            in_range[name] = int((off[g + b] - off[g + a]).sum())
+    return dict(tasks=keyed.num_tasks, items=int(item_cum[-1]), rows=rows,
+                in_range=in_range)
 
 
 def masked_gram_window(x_cols, code_cols, weights, *, schema: FeatureSchema,
@@ -335,12 +611,14 @@ def masked_gram_window(x_cols, code_cols, weights, *, schema: FeatureSchema,
     sigma of per-column inputs (as `masked_gram_cols`'s), any P up to
     `_build.MAX_WINDOW_SIGMA_SIZE`: the function of JAX's
     `ring/striped.py:sigma_stripe`. Peak device memory beside the inputs:
-    the output, the window's plan (`_build.window_plan`: its map of one
-    i32[4] entry a nonzero place) and K7's f64 partial of its cells.
+    the output, the window's plans (`_build.keyed_window_plan`: their map
+    of one i32[4] entry a nonzero place), K7's f64 partials of their
+    cells and, where the window keys a column, the order's copy of the
+    columns (`window_order`, made by this call).
 
-    CUDA tensors launch K7 over the window's plan (one launch, counted in
-    `masked_gram_window.launches`); CPU tensors take
-    `masked_gram_window_plain`."""
+    CUDA tensors launch K7 over the window's plans (one launch, counted
+    in `masked_gram_window.launches`, after an order pass where the window
+    keys a column); CPU tensors take `masked_gram_window_plain`."""
     x_cols, code_cols = list(x_cols), list(code_cols)
     if len(x_cols) != schema.num_cols or len(code_cols) != schema.cat_cols:
         raise ValueError("column counts do not match the schema")
@@ -367,8 +645,10 @@ def masked_gram_window(x_cols, code_cols, weights, *, schema: FeatureSchema,
         return out
     if weights is None:
         weights = torch.ones(n, dtype=torch.float32, device=device)
+    order = window_order(x_cols, code_cols, weights, schema=schema,
+                         columns=window_columns(schema, [lo], width))
     _launch_window(x_cols, code_cols, weights, n, device, schema, lo, width,
-                   out, _build.load(), "masked_gram_window")
+                   out, _build.load(), "masked_gram_window", order)
     masked_gram_window.launches += 1
     return out
 
@@ -391,30 +671,132 @@ def wide_tables_plain(x_cols, code_cols, weights, *, schema: FeatureSchema,
     w = (torch.ones(n, device=device) if weights is None
          else weights.to(torch.float32))
     xw = [w] + [x * w for x in x_cols]         # w·z_a, z = [1 ‖ x]
-    f64 = torch.float64
-    out = torch.zeros(int(plan.task_base[-1]), dtype=f64, device=device)
-    for kind, p0, p1, p2, p3, off, task, _ in plan.slabs.tolist():
-        at = int(plan.task_base[task]) + off
-        if kind == _build.SLAB_D:              # (a, b) for b in [p1, p2)
-            cells = [xw[p0] if b == 0 else xw[p0] * x_cols[b - 1]
-                     for b in range(p1, p2)]
-            out[at:at + p2 - p1] = torch.stack(cells).to(f64).sum(1)
-        elif kind == _build.SLAB_K:            # column p0, keys [p1, p2)
-            c = code_cols[p0].long()
-            ok = (c >= p1) & (c < p2)
-            vals = torch.stack(xw, 1)[ok].to(f64)
-            table = torch.zeros((p2 - p1, len(xw)), dtype=f64, device=device)
-            table.index_add_(0, c[ok] - p1, vals)
-            out[at:at + table.numel()] = table.reshape(-1)
-        else:                                  # columns p0 < p1, keys [p2, p3)
-            vk = schema.cat_sizes[p1]
-            u, v = code_cols[p0].long(), code_cols[p1].long()
-            ok = (u >= p2) & (u < p3) & (v >= 0) & (v < vk)
-            cells = (p3 - p2) * vk
-            out[at:at + cells] = torch.bincount(
-                (u[ok] - p2) * vk + v[ok], weights=w[ok].to(f64),
-                minlength=cells)
+    out = torch.zeros(int(plan.task_base[-1]), dtype=torch.float64,
+                      device=device)
+    for slab in plan.slabs.tolist():
+        at = int(plan.task_base[slab[6]]) + slab[5]
+        cells = _slab_plain(slab, xw, x_cols, code_cols, w, schema)
+        out[at:at + cells.shape[0]] = cells
     return out
+
+
+def _slab_plain(slab, xw, x_cols, code_cols, w, schema,
+                keys=None) -> torch.Tensor:
+    """One slab's cells f64 over the given rows (`wide_tables_plain`'s
+    arithmetic); xw = [w, w·x_0, ...]; keys: the keyed task's (u_lo,
+    u_hi), a CR slab's keys."""
+    kind, p0, p1, p2, p3 = slab[:5]
+    f64 = torch.float64
+    if kind == _build.SLAB_D:                  # (a, b) for b in [p1, p2)
+        cells = [xw[p0] if b == 0 else xw[p0] * x_cols[b - 1]
+                 for b in range(p1, p2)]
+        return torch.stack(cells).to(f64).sum(1)
+    if kind == _build.SLAB_K:                  # column p0, keys [p1, p2)
+        c = code_cols[p0].long()
+        ok = (c >= p1) & (c < p2)
+        vals = torch.stack(xw, 1)[ok].to(f64)
+        table = torch.zeros((p2 - p1, len(xw)), dtype=f64, device=w.device)
+        table.index_add_(0, c[ok] - p1, vals)
+        return table.reshape(-1)
+    u, v = code_cols[p0].long(), code_cols[p1].long()
+    if kind == _build.SLAB_CR:                 # keyed on p0, rows [p2, p3)
+        ulo, uhi = keys
+        ok = (u >= ulo) & (u < uhi) & (v >= p2) & (v < p3)
+        return torch.bincount((u[ok] - ulo) * (p3 - p2) + v[ok] - p2,
+                              weights=w[ok].to(f64),
+                              minlength=(uhi - ulo) * (p3 - p2))
+    vk = schema.cat_sizes[p1]                  # keyed on p0, keys [p2, p3)
+    ok = (u >= p2) & (u < p3) & (v >= 0) & (v < vk)
+    return torch.bincount((u[ok] - p2) * vk + v[ok], weights=w[ok].to(f64),
+                          minlength=(p3 - p2) * vk)
+
+
+def keyed_tables_plain(order: WindowOrder, keyed: _build.KeyedPlan, *,
+                       schema: FeatureSchema, n: int) -> torch.Tensor:
+    """Plain torch version of the keyed kernel's arithmetic over a
+    window's keyed plan, used by no path: each task walks only its key
+    range's rows of its column's copy in `order` (`window_order`), for
+    each group, as work items of its keys' chunks cut at the blocks of
+    `_build.item_chunks(n)` chunks (`keyed_items`; a key's chunks start at
+    its first row); each item's cells of the task's slabs (the arithmetic
+    of `wide_tables_plain`, f64 of f32 products) are added in f64, item
+    after item. Returns f64[G, task_base[T]] (`wide_assemble` places them)."""
+    plan = keyed.plan
+    item_cum, c0, _, r1 = keyed_items(keyed, order, n, schema)
+    items = (item_cum[1:] - item_cum[:-1]).reshape(c0.shape).tolist()
+    c0, r1 = c0.tolist(), r1.tolist()
+    m = _build.item_chunks(n)
+    d, ncols = schema.num_cols, 1 + schema.num_cols + schema.cat_cols
+    rows_f = order.rows.view(torch.float32)
+    out = torch.zeros((order.groups, int(plan.task_base[-1])),
+                      dtype=torch.float64, device=order.rows.device)
+    slabs = plan.slabs.tolist()
+
+    def first_row(j, g, chunk):
+        """The first row of `chunk` of column j's keys of group g."""
+        a = int(order.off_of[j]) + g * schema.cat_sizes[j]
+        cum = order.key_chunks[a:a + schema.cat_sizes[j] + 1]
+        u = int(torch.searchsorted(cum, torch.tensor([chunk],
+                                                     device=cum.device),
+                                   right=True)) - 1
+        return (int(order.key_off[a + u])
+                + (chunk - int(cum[u])) * _build.WIDE_CHUNK)
+
+    for t, (j, ulo, uhi) in enumerate(keyed.task_keys.tolist()):
+        q = order.columns.index(j)
+        mine = [sl for sl in slabs if sl[6] == t]
+        base = int(plan.task_base[t])
+        for g in range(order.groups):
+            for i in range(items[t][g]):       # the items, in order
+                a = first_row(j, g, max(c0[t][g], (c0[t][g] // m + i) * m))
+                b = (r1[t][g] if i + 1 == items[t][g]
+                     else first_row(j, g, (c0[t][g] // m + i + 1) * m))
+                w = rows_f[q, a:b, 0]
+                xs = list(rows_f[q, a:b, 1:1 + d].T)
+                cs = list(order.rows[q, a:b, 1 + d:ncols].T)
+                xw = [w] + [x * w for x in xs]
+                for sl in mine:
+                    cells = _slab_plain(sl, xw, xs, cs, w, schema,
+                                        (ulo, uhi))
+                    out[g, base + sl[5]:base + sl[5] + cells.shape[0]] += (
+                        cells)
+    return out
+
+
+def masked_gram_window_keyed_plain(x_cols, code_cols, weights, *,
+                                   schema: FeatureSchema, lo: int,
+                                   width: int, offsets=None) -> torch.Tensor:
+    """Plain torch version of K7's (and with `offsets`, K8's) arithmetic
+    over the window [lo, lo + width), used by no path: its residual plan's
+    cells over all rows (`wide_tables_plain`, each group's rows in K8), its
+    keyed tasks over the order of their columns (`window_order`,
+    `keyed_tables_plain`), both placed through their maps
+    (`wide_assemble`). f32[P, width], or f32[G, P, width] with `offsets`
+    (group-sorted rows)."""
+    x_cols, code_cols = list(x_cols), list(code_cols)
+    n = (x_cols + code_cols + [weights])[0].shape[-1]
+    device = (x_cols + code_cols + [weights])[0].device
+    w = (torch.ones(n, device=device) if weights is None
+         else weights.to(torch.float32))
+    residual, keyed = _build.keyed_window_plan(schema, lo, lo + width)
+    bounds = [0, n] if offsets is None else offsets.tolist()
+    groups = len(bounds) - 1
+    out = torch.zeros((groups, schema.sigma_size, width),
+                      dtype=torch.float32, device=device)
+    if residual is not None:
+        for g in range(groups):
+            rows = slice(bounds[g], bounds[g + 1])
+            out[g] += wide_assemble(wide_tables_plain(
+                [x[rows] for x in x_cols], [c[rows] for c in code_cols],
+                w[rows], schema=schema, plan=residual), schema=schema,
+                plan=residual)
+    if keyed is not None:
+        order = window_order(x_cols, code_cols, w, schema=schema,
+                             columns=keyed.columns, offsets=offsets)
+        out += wide_assemble(keyed_tables_plain(order, keyed, schema=schema,
+                                                n=n),
+                             schema=schema, plan=keyed.plan)
+    return out[0] if offsets is None else out
 
 
 def wide_assemble(cells: torch.Tensor, *, schema: FeatureSchema,

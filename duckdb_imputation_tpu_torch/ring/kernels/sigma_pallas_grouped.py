@@ -26,9 +26,11 @@ Counterpart of `duckdb_imputation_tpu/ring/kernels/sigma_pallas_grouped.py`:
   kernel, over group-sorted rows, any number of groups), its launches
   counted on `.wide_launches`: one up to `_build.MAX_WIDE_SIGMA_SIZE`,
   past it one a column window of `_build.WINDOW_WIDTH` over the window's
-  plan (`_build.window_plan`), each writing its columns of every group's
-  S, up to K7's window limit; `grouped_gram` there sorts the rows and
-  hands them to it.
+  plans (`_build.keyed_window_plan`: the residual over the group-sorted
+  rows, the keyed tasks over the rows ordered once a call by (group,
+  code) of each keyed column, `window_order`), each writing its columns
+  of every group's S, up to K7's window limit; `grouped_gram` there sorts
+  the rows and hands them to it.
   `grouped_wide_tables_plain` is the plain version of its tables, one
   set per group (`sigma_pallas.wide_assemble` makes them sigmas).
 
@@ -47,9 +49,10 @@ from ...schema import FeatureSchema
 from ..sum import grouped_sigma, masked_sigma
 from ..triple import Triple, triple_from_sigma
 from . import _build
-from .sigma_pallas import (_device_plan, fold_parts,
+from .sigma_pallas import (_device_plan, fold_parts, launch_keyed,
                            masked_gram_window_plain, split_operands,
-                           wide_plan_args, wide_tables_plain)
+                           wide_plan_args, wide_tables_plain, window_columns,
+                           window_order)
 
 
 def unsorted_group_limit(schema: FeatureSchema) -> int | None:
@@ -400,32 +403,44 @@ def grouped_gram_presorted(x_sorted, codes_sorted, w_sorted,
 def _presorted_windows(x_sorted, codes_sorted, w_sorted, off, num_groups,
                        n, schema, device, lib) -> torch.Tensor:
     """K8 past MAX_WIDE_SIGMA_SIZE: one launch a column window of
-    WINDOW_WIDTH over the window's plan, its f64 partial sized for that
-    plan's cells and the groups, each writing S_g[:, lo:hi] of every group
-    into out f32[G, P, P]."""
+    WINDOW_WIDTH (`_build.keyed_window_plan`), each writing S_g[:, lo:hi]
+    of every group into out f32[G, P, P]: its residual plan over the
+    group-sorted rows, its f64 partial sized for that plan's cells and the
+    groups, and its keyed tasks over the rows ordered by (group, code) of
+    each keyed column, one order pass (`window_order`) for all windows."""
     p, d = schema.sigma_size, schema.num_cols
     sizes = tuple(schema.cat_sizes)
+    x_cols, code_cols = list(x_sorted), list(codes_sorted)
+    lows = range(0, p, _build.WINDOW_WIDTH)
+    order = window_order(x_cols, code_cols, w_sorted, schema=schema,
+                         columns=window_columns(schema, lows,
+                                                _build.WINDOW_WIDTH),
+                         offsets=off)
     cum = _build.group_chunks(off, _build.WIDE_CHUNK)
     out = torch.zeros((num_groups, p, p), dtype=torch.float32, device=device)
-    for lo in range(0, p, _build.WINDOW_WIDTH):
+    stream = torch.cuda.current_stream(device).cuda_stream
+    for lo in lows:
         width = min(_build.WINDOW_WIDTH, p - lo)
-        plan = _build.window_plan(schema, lo, lo + width)
-        tensors = _device_plan(d, sizes, device, plan.window)
-        slices = plan.slices(n)
-        partial = torch.empty(
-            int(plan.task_base[-1]) * (slices + num_groups - 1),
-            dtype=torch.float64, device=device)
-        with torch.cuda.device(device):
-            rc = lib.lib.dit_grouped_wide_gram_window(
-                _build.pointers(list(x_sorted)), d,
-                _build.pointers(list(codes_sorted)), _build.int_array(sizes),
-                len(sizes), w_sorted.data_ptr(), off.data_ptr(),
-                cum.data_ptr(), num_groups, n, p, lo, width, p, p * p,
-                *(t.data_ptr() for t in tensors),
-                _build.int_array(plan.shape_ints(slices)),
-                partial.data_ptr(), out[:, :, lo:].data_ptr(),
-                torch.cuda.current_stream(device).cuda_stream)
-        _build.raise_on_error(lib, rc, "grouped_gram_presorted")
+        residual, keyed = _build.keyed_window_plan(schema, lo, lo + width)
+        if residual is not None:
+            tensors = _device_plan(d, sizes, device, residual.window)
+            slices = residual.slices(n)
+            partial = torch.empty(
+                int(residual.task_base[-1]) * (slices + num_groups - 1),
+                dtype=torch.float64, device=device)
+            with torch.cuda.device(device):
+                rc = lib.lib.dit_grouped_wide_gram_window(
+                    _build.pointers(x_cols), d, _build.pointers(code_cols),
+                    _build.int_array(sizes), len(sizes), w_sorted.data_ptr(),
+                    off.data_ptr(), cum.data_ptr(), num_groups, n, p, lo,
+                    width, p, p * p, *(t.data_ptr() for t in tensors),
+                    _build.int_array(residual.shape_ints(slices)),
+                    partial.data_ptr(), out[:, :, lo:].data_ptr(), stream)
+            _build.raise_on_error(lib, rc, "grouped_gram_presorted")
+        if keyed is not None:
+            launch_keyed(keyed, order, n, device, schema, lo, width,
+                         out[:, :, lo:], p, p * p, lib,
+                         "grouped_gram_presorted")
         grouped_gram_presorted.wide_launches += 1
     return out
 

@@ -7,20 +7,25 @@ Zᵀ·diag(w)·Z[:, lo:lo + width] bounds the memory by P × width, and a
 consumer that needs only some columns of sigma (a MICE column step needs
 the label's rows and the numeric block) computes just those.
 
-On a CUDA table a stripe is one launch of K7 over the window's plan
+On a CUDA table a stripe is one launch of K7 over the window's plans
 (`ring.kernels.sigma_pallas.masked_gram_window`: the cells of S's nonzero
 structure whose row or column lies in the stripe, summed over each row's
 1 + d + c nonzeros); the JAX package builds a dense Zᵀ per row chunk and
 multiplies it by the stripe's columns. On the CPU the stripe is its plain
 version. The kernel takes any row count, so the JAX signature's
 `row_chunk` is gone. Peak device memory of a stripe: P × width f32, plus
-the inputs, the window's plan (its map of one i32[4] entry a nonzero
-place) and K7's f64 partial of the window's cells.
+the inputs, the window's plans (their map of one i32[4] entry a nonzero
+place), K7's f64 partials of the window's cells and, where the stripe
+keys a column, the copy of the columns in that column's order.
 
-For V² so large that even stripes are wasteful (hyper-sparse
-co-occurrence, V_j·V_k ≫ n), the structure is the pair keys code_j·V_k +
-code_k sorted and summed in a fixed order (ROADMAP Queue 2); K7's tasks
-each read every row, so their cost grows with V_j·V_k.
+For V_j·V_k ≫ n (hyper-sparse co-occurrence) the JAX package names the
+structure: the cells keyed by code and summed in a fixed order. K7's
+windows take it past P = 1,024: a column whose tables take more than
+one task is keyed, the rows ordered once by its codes, and each of its
+tasks walks only its key range's rows, so a stripe reads each row a
+bounded number of times whatever V_j·V_k is, where a task used to read
+every row (`_build.keyed_window_plan`, PERF.md §6). Each stripe orders
+its own rows; `masked_gram(_cols)` order them once for all of S.
 """
 from __future__ import annotations
 

@@ -495,9 +495,10 @@ def test_limit_constants_equal_the_kernels():
              "MAX_WINDOW_SIGMA_SIZE": "kMaxWindowP", "WIDE_CHUNK": "kWideChunk",
              "WIDE_WARPS": "kWideWarps", "WIDE_TASK_BYTES": "kWideTaskBytes",
              "WIDE_SLAB_INTS": "kWideSlabInts", "SLAB_D": "kSlabD",
-             "SLAB_K": "kSlabK", "SLAB_C": "kSlabC",
+             "SLAB_K": "kSlabK", "SLAB_C": "kSlabC", "SLAB_CR": "kSlabCR",
              "WIDE_MAX_SLABS": "kWideMaxSlabs", "WIDE_SMEM": "kWideSmem",
              "WIDE_STAGE_ROWS": "kThreads", "WIDE_PLAN_INTS": "kWidePlanInts",
+             "KEYED_TASK_INTS": "kKeyedTaskInts",
              "MAX_COLS": "kMaxCols",
              "MAX_UNSORTED_GROUPS": "kMaxUnsortedGroups",
              "NB_PLAN_INTS": "kNbPlanInts", "TC_ROWS": "kTcRows",

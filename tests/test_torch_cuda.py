@@ -6,7 +6,9 @@ a group order, then K5's kernel through it), K5 (grouped_gram_presorted: on
 K1's tensor-core body at config 4, on the CUDA cores past its tile), K6
 (nb_grouped_sums), and for P > 88 K7 (the wide
 masked Gram behind masked_gram_cols and masked_gram) and K2w (the wide
-fused pass) against their plain versions, the checks their wrappers make,
+fused pass) against their plain versions, K7's and K8's keyed column
+windows past P = 1,024 and their row order (the order kernels), the
+checks their wrappers make,
 and run_mice_device, run_mice_device_delta (also with the GD trainer),
 the host MICE drivers (run_mice_baseline / low / high, through
 masked_gram) and the QDA pipeline on the card against the plain versions
@@ -1734,6 +1736,205 @@ def test_masked_gram_above_1024_is_its_windows(cuda):
         for lo in range(0, p, width)], 1)
     assert torch.equal(got, parts) and torch.equal(stacked, parts)
     assert torch.equal(got, got.T)
+
+
+# The keyed windows: schemas whose windows key a column (P past 1,024, its
+# tables take more than one task): P = 1,115 (the CPU tests'), two
+# columns of 2,048 levels, favorita_items
+KEYED_SCHEMAS = {"P1115": (3, (6, 5, 1100)),
+                 "two of 2,048": (1, (2048, 2048)),
+                 "favorita_items": (3, (54, 33, 337, 2, 2, 22, 16, 5, 17,
+                                        4100))}
+
+
+def keyed_cols(name, n, seed, device, hot=0.5, empty=0.25):
+    """Per-column inputs of KEYED_SCHEMAS[name]: x N(0, 1); codes uniform
+    over [−1, V] (−1 and V add nothing) except the last column, whose top
+    `empty` share of levels is never drawn (empty keys) and whose code 7
+    holds a `hot` share of the rows; binary weights."""
+    d, sizes = KEYED_SCHEMAS[name]
+    schema = FeatureSchema(num_cols=d, cat_keys=tuple(
+        tuple(range(v)) for v in sizes))
+    rng = np.random.default_rng(seed)
+    xs = [torch.tensor(rng.normal(size=n).astype(np.float32), device=device)
+          for _ in range(d)]
+    codes = [rng.integers(-1, v + 1, n) for v in sizes]
+    last = rng.integers(0, int(sizes[-1] * (1 - empty)), n)
+    last[rng.random(n) < hot] = 7
+    codes[-1] = last
+    cs = [torch.tensor(c.astype(np.int32), device=device) for c in codes]
+    w = torch.tensor((rng.random(n) > 0.2).astype(np.float32), device=device)
+    return schema, xs, cs, w
+
+
+@pytest.mark.parametrize("name", sorted(KEYED_SCHEMAS))
+@pytest.mark.parametrize("n", [1, 31, 100_003])
+def test_keyed_windows_match_plain(cuda, name, n):
+    """K7 over every window of 1,024 columns, keyed tasks and residual
+    (a column keyed where its tables fill more than one task), with a hot
+    key (half the rows on one code), empty keys, codes out of range and n
+    not a multiple of 32: against masked_gram_window_plain, counts exact,
+    within 1e-5 of max|σ|; reruns bit-identical; one window launch and
+    one order pass a call; a pass over S equals its windows side by side
+    and is symmetric."""
+    from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas import (
+        masked_gram_window, masked_gram_window_plain, window_order)
+
+    schema, xs, cs, w = keyed_cols(name, n, seed=21, device=cuda)
+    p = schema.sigma_size
+    parts, keyed = [], 0
+    for lo in range(0, p, _build.WINDOW_WIDTH):
+        width = min(_build.WINDOW_WIDTH, p - lo)
+        has = _build.keyed_window_plan(schema, lo, lo + width)[1] is not None
+        keyed += has
+        launches, orders = masked_gram_window.launches, window_order.passes
+        got = masked_gram_window(xs, cs, w, schema=schema, lo=lo,
+                                 width=width)
+        again = masked_gram_window(xs, cs, w, schema=schema, lo=lo,
+                                   width=width)
+        torch.cuda.synchronize()
+        assert masked_gram_window.launches == launches + 2
+        assert window_order.passes == orders + 2 * has
+        assert torch.equal(got, again)
+        want = masked_gram_window_plain(xs, cs, w, schema=schema, lo=lo,
+                                        width=width)
+        cm = window_count_mask(schema, lo, width, cuda)
+        assert torch.equal(got[cm], want[cm])
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * max(
+            float(want.abs().max()), 1e-30))
+        parts.append(got)
+    assert keyed >= 1
+    full = masked_gram_cols(xs, cs, w, schema=schema)
+    assert torch.equal(full, torch.cat(parts, 1))
+    assert torch.equal(full, full.T)
+
+
+@pytest.mark.parametrize("name", sorted(KEYED_SCHEMAS))
+def test_keyed_pass_is_symmetric_with_real_weights(cuda, name):
+    """A pass over S past P = 1,024 with lognormal weights, 300,007 rows
+    and a hot key: S[i, j] and S[j, i] of every keyed C_jk cell lie in
+    different windows and come from one owner's order and the same work
+    items, so S equals its transpose exactly; within 1e-5 of max|σ| of
+    the plain version."""
+    from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas import (
+        masked_gram_window_plain)
+
+    schema, xs, cs, _ = keyed_cols(name, 300_007, seed=24, device=cuda)
+    rng = np.random.default_rng(25)
+    w = torch.tensor(rng.lognormal(0.0, 1.0, 300_007).astype(np.float32),
+                     device=cuda)
+    full = masked_gram_cols(xs, cs, w, schema=schema)
+    torch.cuda.synchronize()
+    assert torch.equal(full, full.T)
+    want = masked_gram_window_plain(xs, cs, w, schema=schema, lo=0,
+                                    width=schema.sigma_size)
+    torch.testing.assert_close(full, want, rtol=0, atol=1e-5 * float(
+        want.abs().max()))
+
+
+@pytest.mark.parametrize("groups", [2, 33])
+def test_keyed_k8_windows_match_plain(cuda, groups):
+    """K8 past P = 1,024 at favorita_items, 200,003 rows with a hot item
+    and empty keys, over rows sorted by group: its keyed tasks over the
+    rows ordered by (group, code) and its residual, each group's S against
+    the plain version (counts exact, within 1e-5 of max|σ|), reruns
+    bit-identical, one order pass a call."""
+    from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas import (
+        window_order)
+
+    n = 200_003
+    schema, xs, cs, w = keyed_cols("favorita_items", n, seed=22,
+                                   device=cuda)
+    rng = np.random.default_rng(23)
+    g = torch.tensor(rng.integers(0, groups + 1, n).astype(np.int32),
+                     device=cuda)                  # id G: dropped
+    x_s, c_s, w_s, layout = sort_by_group(torch.stack(xs), torch.stack(cs),
+                                          g, schema=schema,
+                                          num_groups=groups, weights=w)
+    orders = window_order.passes
+    got = grouped_gram_presorted(x_s, c_s, w_s, layout, schema=schema)
+    again = grouped_gram_presorted(x_s, c_s, w_s, layout, schema=schema)
+    torch.cuda.synchronize()
+    assert window_order.passes == orders + 2
+    assert torch.equal(got, again)
+    cm = count_mask(schema, cuda)
+    for gg in range(groups):
+        want = grouped_gram_presorted_plain(
+            x_s, c_s, w_s, _one_group(layout, gg), schema=schema)[0]
+        assert torch.equal(got[gg][cm], want[cm])
+        torch.testing.assert_close(got[gg], want, rtol=0,
+                                   atol=1e-5 * float(want.abs().max()))
+        del want
+
+
+@pytest.mark.parametrize("groups", [None, 3, 33])
+def test_window_order_kernel_matches_plain(cuda, groups):
+    """The order kernels (a stable counting sort of each keyed column,
+    and the copy of every column in its order) against the plain version
+    (a stable torch.sort and a gather) on the same rows, with codes out
+    of range, a hot code and, for K8, group-sorted rows with some past G:
+    the keys' offsets equal, and the copies equal bit for bit over every
+    row with a key (the rest is not copied by the kernels); one kernel
+    launch a column."""
+    from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas import (
+        window_order)
+
+    n = 200_003
+    schema, xs, cs, w = keyed_cols("favorita_items", n, seed=25,
+                                   device=cuda)
+    cs[-1] = torch.where(cs[-1] % 97 == 0, -1, cs[-1])   # out of range
+    offsets = None
+    if groups:
+        rng = np.random.default_rng(26)
+        g = torch.tensor(rng.integers(0, groups + 1, n).astype(np.int32),
+                         device=cuda)
+        x_s, c_s, w, layout = sort_by_group(torch.stack(xs),
+                                            torch.stack(cs), g,
+                                            schema=schema, num_groups=groups,
+                                            weights=w)
+        xs, cs, offsets = list(x_s), list(c_s), layout.offsets
+    cols = (2, 9)
+    before = window_order.launches
+    got = window_order(xs, cs, w, schema=schema, columns=cols,
+                       offsets=offsets)
+    again = window_order(xs, cs, w, schema=schema, columns=cols,
+                         offsets=offsets)
+    assert window_order.launches == before + 2 * len(cols)
+    want = window_order([x.cpu() for x in xs], [c.cpu() for c in cs],
+                        w.cpu(), schema=schema, columns=cols,
+                        offsets=None if offsets is None else offsets.cpu())
+    assert torch.equal(got.key_off.cpu(), want.key_off)
+    assert torch.equal(got.rows_of.cpu(), want.rows_of)
+    assert torch.equal(got.off_of.cpu(), want.off_of)
+    ncols = 1 + schema.num_cols + schema.cat_cols
+    assert torch.equal(got.key_chunks.cpu(), want.key_chunks)
+    for q, j in enumerate(cols):
+        keys = (groups or 1) * schema.cat_sizes[j]
+        last = int(want.key_off[int(want.off_of[j]) + keys])
+        assert torch.equal(got.rows[q, :last, :ncols].cpu(),
+                           want.rows[q, :last, :ncols])
+        assert torch.equal(again.rows[q, :last, :ncols],
+                           got.rows[q, :last, :ncols])
+
+
+def test_keyed_work_items_walk_their_rows_once(cuda):
+    """On the card, the keyed tasks' work items (the same arithmetic the
+    kernel's blocks read) walk each layer's key range's rows once: n where
+    the range is every key and every code is in range."""
+    from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas import (
+        keyed_work, window_columns, window_order)
+
+    n = 1_000_003
+    schema, xs, cs, w = keyed_cols("favorita_items", n, seed=24,
+                                   device=cuda, empty=0.0)
+    cs = [c.clamp(0, v - 1) for c, v in zip(cs, schema.cat_sizes)]
+    keyed = _build.keyed_window_plan(schema, 0, 1024)[1]
+    order = window_order(xs, cs, w, schema=schema,
+                         columns=window_columns(schema, [0], 1024))
+    work = keyed_work(keyed, order, n, schema)
+    assert work["rows"] == work["in_range"]
+    assert all(v == n for v in work["rows"].values())
+    assert work["items"] <= _build.keyed_items_bound(keyed, n)
 
 
 def test_run_mice_wide_on_the_card_matches_cpu(cuda):

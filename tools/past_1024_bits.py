@@ -18,6 +18,9 @@ to FILE (torch.save). A root is the root of a checkout whose
 - K2w at favorita_wide (P = 492): 'cat' imputing family (R = 33, LDA
   trained on the table) and class (R = 337, 20% of its rows null), 'num'
   imputing transactions with noise: the new column and sigma;
+- K7 over column windows at favorita_wide (`masked_gram_window`): the
+  four stripes `parallel/overlap.py` cuts S into on one card, and the
+  windows of 128 columns, with the weights of the 'num' step;
 - K8 at favorita_classify: label family (G = 33, P = 459) through
   sort_by_group and the presorted entry, label onpromotion (G = 2, P =
   490) through the unsorted entry;
@@ -57,7 +60,7 @@ def outputs(root: str, rows: int) -> dict:
     from duckdb_imputation_tpu_torch.ring.kernels.sigma_fused import (
         fused_impute_aggregate)
     from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas import (
-        masked_gram_cols)
+        masked_gram_cols, masked_gram_window)
     from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas_grouped import (
         grouped_gram, grouped_gram_presorted, sort_by_group)
     from duckdb_imputation_tpu_torch.ring.sum import sum_to_nb_agg_grouped
@@ -90,6 +93,12 @@ def outputs(root: str, rows: int) -> dict:
         schema=schema, kind="num", imp_col=1,
         noise=(0, 0, _noise_std(coeff, sig_x)))
     out["k2w_num_x"], out["k2w_num_sigma"] = new, sig
+    p = schema.sigma_size
+    for name, wd in (("k7_stripes_of_4", -(-p // 4)),
+                     ("k7_windows_of_128", 128)):
+        out[name] = torch.cat([masked_gram_window(
+            xs, cs_, w_fam, schema=schema, lo=lo, width=min(wd, p - lo))
+            for lo in range(0, p, wd)], 1)
     del t, xs, cs_
 
     for label in ("family", "onpromotion"):
