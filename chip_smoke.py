@@ -111,7 +111,27 @@ Drives the paths of `duckdb_imputation_tpu_torch` ported so far:
   its 'gram' run (`[items_fused]`); `run_mice_sharded` with its defaults
   on a world of one over NCCL, bit-identical to it (`[sharded_items]`);
   the NB pipeline at label family and the QDA pipeline at label
-  onpromotion through the entry points (`[classify_items]`).
+  onpromotion through the entry points (`[classify_items]`);
+- schemas past 64 numeric and 64 categorical columns, made on the device
+  from the seed (a rank-8 factor model): the narrow route at d = 80 (P =
+  81) and d = 70 with two columns of 8 levels (P = 87), 2M rows: K1, K2,
+  sort + K5, K4, K6 and K3 against their plain versions (`[narrow80]`,
+  `[narrow70]`); the Home Credit schema (Kaggle "Home Credit Default
+  Risk", application_train.csv: 104 numeric and 16 categorical columns, P
+  = 245; `[home_credit]`): the plans' host seconds, K7, K2w ('num' past
+  the 88 columns a kernel parameter holds, 'cat'), sort + K8, K6w and K3w
+  against their plain versions at 10M rows, then at the file's 307,511
+  rows run_mice_device 'gram' and 'fused' and run_mice_device_delta (2
+  rounds over its 67 null columns, launches exact, imputed numerics
+  below a mean fill's error, codes above the mode share + 0.02),
+  scan_gram and run_mice_stream ('device') from host arrays (the fold's
+  c + K = 83), the QDA and NB pipelines on TARGET (launches exact,
+  accuracy above the majority share + 0.02), and the card against the
+  CPU at 20k rows; UCI SECOM (590 numeric columns, P = 591; `[secom]`):
+  the kernels at 1M rows (K3w's plain version on the rows its memory
+  allows), the classifiers on pass/fail at 1M rows, the fold of the
+  file's 1,567 rows (590 one-level null flags, P + K = 1,181: K7's
+  windows, card against CPU) and run_mice_stream ('device').
 
 First it builds the kernels from `duckdb_imputation_tpu_torch/csrc/` and
 holds each against its plain torch version at the shapes its path gives
@@ -145,7 +165,9 @@ of their own: `fused_impute_aggregate_window` (`launches`: its impute
 kernel's in `[items_fused]`, `window_launches` its K7 windows there,
 `sharded_launches` from `[sharded_items]`), `grouped_wide_gram_window`
 and `qda_predict_items` (`launches` from `[classify_items]`), with the
-numbers of `[K2w_items]`, `[K8win]` and `[K3items]`;
+numbers of `[K2w_items]`, `[K8win]` and `[K3items]`; `narrow80` and
+`narrow70c2` on K1-K6 and K3, `home_credit` and `secom` on K7 (with the
+plans' seconds), K2w, K8, K6w and K3w, `secom_fold` on the window kernel;
 `bound_ms`, the least time the card could take for the kernel's work,
 computed from this run's shapes with `bound`; `library_ms`, one PyTorch
 call computing the same function, where there is one), then the card's
@@ -348,9 +370,9 @@ def qda_bound(codes, schema, classes: int, tables: int) -> dict:
     for each pair of in-range codes. Counted at the f32 rate (the kernel
     adds in f64, at half of it)."""
     d, n = schema.num_cols, codes.shape[-1]
-    ok = torch.stack([(codes[j] >= 0) & (codes[j] < size)
-                      for j, size in enumerate(schema.cat_sizes)]).long()
-    hits = ok.sum(0)
+    hits = sum((((codes[j] >= 0) & (codes[j] < size)).long()
+                for j, size in enumerate(schema.cat_sizes)),
+               torch.zeros(n, dtype=torch.long, device=codes.device))
     cells = (1 + d) * (2 + d) // 2 + (1 + d) * hits + hits * (hits - 1) // 2
     return bound(n * row_bytes(schema, 4) + tables,
                  2 * classes * int(cells.sum()))
@@ -5903,6 +5925,690 @@ def phase_classify_items(seed: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Schemas of many columns: Home Credit and SECOM, and the narrow
+# route at d = 80
+# ---------------------------------------------------------------------------
+
+# Kaggle "Home Credit Default Risk" application_train.csv: 104 numeric
+# columns (its 106 less SK_ID_CURR and TARGET) and 16 categorical ones
+# (NAME_CONTRACT_TYPE .. EMERGENCYSTATE_MODE), P = 245; nulls in 61 numeric
+# and six categorical columns (NAME_TYPE_SUITE, OCCUPATION_TYPE,
+# FONDKAPREMONT_MODE, HOUSETYPE_MODE, WALLSMATERIAL_MODE,
+# EMERGENCYSTATE_MODE): its stream fold has c + K = 16 + 67 = 83
+# categorical columns
+HC_VOCABS = (2, 3, 2, 2, 7, 8, 5, 6, 6, 18, 7, 58, 4, 3, 7, 2)
+HC_NULL_CATS = (4, 9, 12, 13, 14, 15)
+HC_ROWS = 307_511          # the file's own row count
+# UCI SECOM: 590 numeric sensor columns (P = 591) with nulls, a pass/fail
+# label with the file's 104 fails in 1,567 rows; its fold has 590
+# one-level flags (P + K = 1,181: K7's windows)
+SECOM_ROWS = 1_567
+SECOM_FAILS = 104
+N_SECOM = 1_000_000        # rows of SECOM's schema for the kernels (2.4 GB
+                           # of x)
+N_MANY_CPU = 20_000        # the CPU run a card's run is held against
+N_K3_MANY = 100_000        # rows K3w meets its plain version on at these
+                           # schemas (the plain scorer walks every slab)
+N_NARROW = 2_000_000       # rows of [narrow80]
+
+
+LABEL_COLS = 30            # numeric columns a positive label moves
+LABEL_SHIFT = 1.5          # by this much
+
+
+def factor_table(n: int, d: int, vocabs, seed: int, share: float,
+                 rank: int = 8):
+    """x f32[d, n] from a rank-8 Gaussian factor model (column j loads on
+    factor j mod 8, and 0.3 of a dense loading on all) plus noise, codes
+    i32[c, n] the argmax of a linear function of the factors plus Gumbel
+    noise (imputation can beat a mean fill), and a label i32[n], 1 with
+    probability `share`, that moves the first LABEL_COLS numerics by
+    LABEL_SHIFT (a label carried by the shared factors instead sinks naive
+    Bayes below the majority share: its columns are not independent given
+    the label); all on the device from `seed`."""
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=DEVICE)
+
+    f = randn(rank, n)
+    a = 0.3 * randn(d, rank)
+    a[torch.arange(d), torch.arange(d) % rank] += 1.0
+    x = a @ f
+    x += 0.5 * randn(d, n)
+    y = (torch.rand(n, generator=g, device=DEVICE) < share).to(torch.int32)
+    x[:LABEL_COLS] += LABEL_SHIFT * y
+    codes = torch.empty((len(vocabs), n), dtype=torch.int32, device=DEVICE)
+    for j, v in enumerate(vocabs):
+        u = torch.rand(v, n, generator=g, device=DEVICE).clamp_min(1e-30)
+        codes[j] = (randn(v, rank) @ f - torch.log(-torch.log(u))).argmax(0)
+    return x, codes, y
+
+
+def null_table(x, codes, num_null, cat_null, schema):
+    """A Table with the null cells' values zeroed and codes at 0."""
+    from duckdb_imputation_tpu_torch import Table
+
+    return Table(num_data=torch.where(num_null, 0.0, x),
+                 cat_codes=torch.where(cat_null, 0, codes),
+                 num_null=num_null, cat_null=cat_null, schema=schema)
+
+
+def make_home_credit(n: int, seed: int):
+    """The Home Credit schema at n rows, made on the device from `seed`:
+    nulls in 61 numeric columns and HC_NULL_CATS, their shares spread
+    geometrically over 0.1%-70% (an assumption: the file's columns span
+    that range); TARGET 8% positive (`factor_table`). Returns (table,
+    true x, true codes, TARGET)."""
+    from duckdb_imputation_tpu_torch import FeatureSchema
+
+    x, codes, y = factor_table(n, 104, HC_VOCABS, seed, 0.08)
+    schema = FeatureSchema(num_cols=104, cat_keys=tuple(
+        tuple(range(v)) for v in HC_VOCABS))
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(seed + 1)
+    shares = torch.logspace(-3, float(np.log10(0.7)), 67)[
+        torch.randperm(67, generator=torch.Generator().manual_seed(seed))]
+    num_null = torch.zeros((104, n), dtype=torch.bool, device=DEVICE)
+    cat_null = torch.zeros((16, n), dtype=torch.bool, device=DEVICE)
+    for q, s in enumerate(shares.tolist()):
+        row = (num_null[q] if q < 61 else cat_null[HC_NULL_CATS[q - 61]])
+        row |= torch.rand(n, generator=g, device=DEVICE) < s
+    return null_table(x, codes, num_null, cat_null, schema), x, codes, y
+
+
+def make_secom(n: int, seed: int):
+    """The SECOM schema at n rows, made on the device from `seed`: nulls at
+    4.5% in every column (an assumption), pass/fail with the file's share
+    of fails (104 of 1,567). Returns (table, true x, pass/fail)."""
+    from duckdb_imputation_tpu_torch import FeatureSchema
+
+    x, codes, y = factor_table(n, 590, (), seed, SECOM_FAILS / SECOM_ROWS)
+    schema = FeatureSchema(num_cols=590)
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(seed + 1)
+    num_null = torch.rand(590, n, generator=g, device=DEVICE) < 0.045
+    cat_null = torch.zeros((0, n), dtype=torch.bool, device=DEVICE)
+    return null_table(x, codes, num_null, cat_null, schema), x, y
+
+
+def plan_seconds(schema, ext=None, groups: int = 2) -> dict:
+    """Host seconds of the plans a schema's kernels run (made on the CPU
+    once a schema, then cached): K7/K8's, NB's, QDA's and NB's scorer's,
+    and with `ext` (the stream fold's extended schema) its whole plan or,
+    past P = 1,024, each window's keyed plan."""
+    from duckdb_imputation_tpu_torch.ring.kernels import _build
+
+    out = {}
+    for name, fn in (("wide_plan", lambda: _build.wide_plan(schema)),
+                     ("nb_plan", lambda: _build.nb_plan(schema, groups)),
+                     ("qda_plan", lambda: _build.qda_plan(schema)),
+                     ("nb_scorer_plan",
+                      lambda: _build.qda_plan(schema, cross=False))):
+        t0 = time.perf_counter()
+        fn()
+        out[name] = time.perf_counter() - t0
+    if ext is not None:
+        p = ext.sigma_size
+        t0 = time.perf_counter()
+        if p <= _build.MAX_WIDE_SIGMA_SIZE:
+            _build.wide_plan(ext)
+        for lo in range(0, p, _build.WINDOW_WIDTH) if (
+                p > _build.MAX_WIDE_SIGMA_SIZE) else ():
+            _build.keyed_window_plan(ext, lo, min(lo + _build.WINDOW_WIDTH,
+                                                  p))
+        out["fold_plan"] = time.perf_counter() - t0
+    return out
+
+
+def many_kernel(tag: str, counter, kernel, plain, compare, bound_: dict,
+                library_ms=None, plain_reps: int = 1) -> dict:
+    """A kernel against its plain version at the phase's shapes: two calls
+    (each one launch on `counter`, a (wrapper, attribute) pair), a rerun
+    bit-identical, `compare(got, want)` → max abs error (raising on a
+    failed check); ms of both by CUDA events."""
+    obj, attr = counter
+    before = getattr(obj, attr)
+    t0 = time.perf_counter()
+    got, again = kernel(), kernel()
+    torch.cuda.synchronize()
+    slow = time.perf_counter() - t0 > 0.2     # one timed call is enough
+    launched = getattr(obj, attr) - before
+    check(launched >= 2, f"{tag}: {launched} launches for two calls")
+    pair = ((got, again) if isinstance(got, torch.Tensor)
+            else (torch.cat([a.flatten().float() for a in got]),
+                  torch.cat([a.flatten().float() for a in again])))
+    check(torch.equal(*pair), f"{tag}: rerun not bit-identical")
+    err = compare(got, plain())
+    del got, again
+    ms = cuda_ms(kernel, reps=1 if slow else 3, warmup=0)
+    plain_ms = cuda_ms(plain, reps=plain_reps, warmup=0)
+    res = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound_,
+               library_ms=library_ms, launches_a_call=launched // 2)
+    log(f"{tag}: max abs err {err:.3e}, bit-identical rerun, "
+        f"{launched // 2} launch(es) a call; kernel {ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms, bound {res['bound_ms']:.4f} ms "
+        f"({res['bound_by']})"
+        + ("" if library_ms is None else f", library {library_ms:.3f} ms"))
+    return res
+
+
+def gram_compare(tag, schema, binary: bool):
+    def compare(got, want):
+        check(torch.equal(got, got.transpose(-1, -2)),
+              f"{tag}: S is not exactly symmetric")
+        check(torch.isfinite(got).all(), f"{tag}: not finite")
+        if binary:
+            c = count_entries(schema)
+            check(torch.equal(got[..., c], want[..., c]),
+                  f"{tag}: counts differ from the plain version")
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        check(err <= 1e-5 * scale, f"{tag}: max abs err {err} > 1e-5 of "
+              f"max|σ| {scale}")
+        return err
+    return compare
+
+
+def fused_compare(tag, schema, kind: str):
+    def compare(got, want):
+        (new, sig), (wnew, wsig) = got, want
+        if kind == "cat":
+            check(torch.equal(new, wnew), f"{tag}: codes differ")
+        else:
+            d = float((new - wnew).abs().max())
+            check(d <= 1e-5 * max(1.0, float(wnew.abs().max())),
+                  f"{tag}: values differ by {d}")
+        return gram_compare(tag, schema, True)(sig, wsig)
+    return compare
+
+
+def nb_compare(tag, schema):
+    def compare(got, want):
+        d = schema.num_cols
+        check(torch.equal(got[:, 0], want[:, 0])
+              and torch.equal(got[:, 1 + 2 * d:], want[:, 1 + 2 * d:]),
+              f"{tag}: counts differ")
+        err = float((got - want).abs().max())
+        check(err <= 1e-5 * float(want.abs().max()), f"{tag}: err {err}")
+        return err
+    return compare
+
+
+def many_kernels(tag: str, t, y, seed: int, fused_cases) -> dict:
+    """Every kernel of a schema's path at its rows: K7 (or K1), K2w (or K2)
+    for each (kind, column) of `fused_cases`, the sort then K8 (or K5) on
+    the label, K6w, and K3w on seeded QDA tables (against its plain version
+    on N_K3_MANY rows, timed at all of them)."""
+    from duckdb_imputation_tpu_torch.ring.kernels import _build
+    from duckdb_imputation_tpu_torch.ring.kernels.nb_pallas import (
+        nb_grouped_sums, nb_grouped_sums_plain)
+    from duckdb_imputation_tpu_torch.ring.kernels.qda_pallas import (
+        qda_predict_kernel, qda_predict_plain)
+    from duckdb_imputation_tpu_torch.ring.kernels.sigma_fused import (
+        fused_impute_aggregate, fused_impute_aggregate_plain)
+    from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas import (
+        masked_gram_cols, masked_gram_cols_plain)
+    from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas_grouped import (
+        grouped_gram_presorted, grouped_gram_presorted_plain, sort_by_group)
+
+    schema, n = t.schema, t.n_rows
+    p, wide = schema.sigma_size, schema.sigma_size > _build.MAX_SIGMA_SIZE
+    xs, cs = list(t.num_data.unbind(0)), list(t.cat_codes.unbind(0))
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(seed)
+    w = (torch.rand(n, generator=g, device=DEVICE) >= 0.2).float()
+    out = {}
+    out["gram"] = many_kernel(
+        f"{tag} {'K7' if wide else 'K1'} P={p} n={n}",
+        (masked_gram_cols, "wide_launches" if wide else "launches"),
+        lambda: masked_gram_cols(xs, cs, w, schema=schema),
+        lambda: masked_gram_cols_plain(xs, cs, w, schema=schema),
+        gram_compare(tag, schema, True), gram_bound(t.cat_codes, schema, w),
+        library_gram_ms(t.num_data, t.cat_codes, w, schema))
+    for kind, col in fused_cases:
+        r = schema.cat_sizes[col] if kind == "cat" else 1
+        w_full = 0.05 * torch.randn(p, r, generator=g, device=DEVICE)
+        icpt = torch.randn(r, generator=g, device=DEVICE)
+        null = (t.cat_null[col] if kind == "cat" else t.num_null[col])
+        args = (xs, cs, null, w, w_full, icpt)
+        kw = dict(schema=schema, kind=kind, imp_col=col)
+        out[f"fused_{kind}{col}"] = many_kernel(
+            f"{tag} {'K2w' if wide else 'K2'} '{kind}' column {col} "
+            f"(R = {r})",
+            (fused_impute_aggregate,
+             "wide_launches" if wide else "launches"),
+            lambda: fused_impute_aggregate(*args, **kw),
+            lambda: fused_impute_aggregate_plain(*args, **kw),
+            fused_compare(tag, schema, kind),
+            gram_bound(t.cat_codes, schema, w, extra=9, scores=p * r,
+                       scored=int(null.sum())))
+    ys = torch.where(y >= 0, y, 0).to(torch.int32)
+    sorted_ = sort_by_group(t.num_data, t.cat_codes, ys, schema=schema,
+                            num_groups=2, weights=w)
+    out["grouped"] = many_kernel(
+        f"{tag} sort + {'K8' if wide else 'K5'} on the label",
+        (grouped_gram_presorted, "wide_launches" if wide else "launches"),
+        lambda: grouped_gram_presorted(*sorted_, schema=schema),
+        lambda: grouped_gram_presorted_plain(*sorted_, schema=schema),
+        gram_compare(tag, schema, True),
+        gram_bound(t.cat_codes, schema, w, groups=2))
+    del sorted_
+    out["nb"] = many_kernel(
+        f"{tag} {'K6w' if _build.nb_features(schema) > 256 else 'K6'} "
+        f"F={_build.nb_features(schema)}", (nb_grouped_sums, "launches"),
+        lambda: nb_grouped_sums(t.num_data, t.cat_codes, None, ys,
+                                schema=schema, num_groups=2),
+        lambda: nb_grouped_sums_plain(t.num_data, t.cat_codes, None, ys,
+                                      schema=schema, num_groups=2),
+        nb_compare(tag, schema), nb_bound(n, schema, 2),
+        library_nb_ms(t.num_data, t.cat_codes, None, ys, schema, 2))
+    tables, plan, _ = seeded_scorer("qda", schema, 2, seed + 1)
+    # the plain scorer keeps every cell's f64 term of every row and walks
+    # every slab: 5e7 cell-rows at most (SECOM: ~285 rows, ~3 s)
+    k = min(n, N_K3_MANY, int(5e7 / tables.shape[1]))
+    xk, ck = t.num_data[:, :k].contiguous(), t.cat_codes[:, :k].contiguous()
+
+    def qda_compare(got, want):
+        agree = float((got == want).float().mean())
+        check(agree >= 0.9999, f"{tag}: K3 argmax agreement {agree}")
+        check(len(torch.unique(got)) > 1, f"{tag}: one class wins every row")
+        return float((got != want).sum())
+
+    attr = "wide_launches" if plan.num_tasks > 1 else "launches"
+    out["qda"] = many_kernel(
+        f"{tag} {'K3w' if plan.num_tasks > 1 else 'K3'} "
+        f"({plan.num_tasks} tasks, tile "
+        f"{_build.qda_tile(schema, plan, 2)}) n={k}",
+        (qda_predict_kernel, attr),
+        lambda: qda_predict_kernel(tables, plan, xk, ck, schema=schema),
+        lambda: qda_predict_plain(tables, plan, xk, ck, schema=schema),
+        qda_compare, qda_bound(ck, schema, 2, tables.numel() * 4))
+    out["qda"]["ms_at_n"] = cuda_ms(lambda: qda_predict_kernel(
+        tables, plan, t.num_data, t.cat_codes, schema=schema), reps=1,
+        warmup=0)
+    out["qda"]["bound_ms_at_n"] = qda_bound(
+        t.cat_codes, schema, 2, tables.numel() * 4)["bound_ms"]
+    log(f"{tag} K3 at n={n}: {out['qda']['ms_at_n']:.3f} ms, bound "
+        f"{out['qda']['bound_ms_at_n']:.4f} ms")
+    return out
+
+
+def many_quality(tag: str, t, truth_x, truth_c, out) -> dict:
+    """The imputation checks of a run: finite, observed cells unchanged,
+    the imputed numerics' squared error below a mean fill's (summed over
+    the imputed columns), the imputed codes' accuracy above the columns'
+    mode shares + 0.02 (pooled over their null cells)."""
+    check(torch.isfinite(out.num_data).all(), f"{tag}: x not finite")
+    check(torch.equal(out.num_data[~t.num_null], t.num_data[~t.num_null])
+          and torch.equal(out.cat_codes[~t.cat_null],
+                          t.cat_codes[~t.cat_null]),
+          f"{tag}: observed cells changed")
+    nn = t.num_null
+    obs_mean = ((truth_x * ~nn).sum(1, keepdim=True)
+                / (~nn).sum(1, keepdim=True).clamp_min(1))
+    sse = float(((out.num_data - truth_x)[nn].double() ** 2).sum())
+    sse_mean = float(((obs_mean.expand_as(truth_x) - truth_x)[nn]
+                      .double() ** 2).sum())
+    check(sse < sse_mean, f"{tag}: imputed SSE {sse} not below the mean "
+          f"fill's {sse_mean}")
+    res = dict(rmse=(sse / max(int(nn.sum()), 1)) ** 0.5,
+               mean_fill_rmse=(sse_mean / max(int(nn.sum()), 1)) ** 0.5)
+    if truth_c is not None and t.cat_null.any():
+        hits = total = mode = 0
+        for j in range(t.schema.cat_cols):
+            m = t.cat_null[j]
+            if not m.any():
+                continue
+            hits += int((out.cat_codes[j][m] == truth_c[j][m]).sum())
+            total += int(m.sum())
+            top = torch.bincount(truth_c[j][~m].long()).argmax()
+            mode += int((truth_c[j][m] == top).sum())
+        res.update(acc=hits / total, mode_share=mode / total)
+        check(res["acc"] > res["mode_share"] + 0.02,
+              f"{tag}: code accuracy {res['acc']} not above the mode "
+              f"share {res['mode_share']} + 0.02")
+    log(f"{tag}: quality {res}")
+    return res
+
+
+def classify_many(tag: str, x, codes, y, schema) -> dict:
+    """The CLI's train --model qda|nb path on a label: GROUP BY label
+    (sort + K8 / K6w), device training, one-pass scoring (K3w); launches
+    read around each pipeline and checked exactly (one aggregate, one
+    scoring launch), accuracy above the majority share + 0.02. Returns
+    the predictions and the launches."""
+    from duckdb_imputation_tpu_torch.models.device import (
+        nb_predict_device, nb_train_device, qda_predict_device,
+        qda_train_device)
+    from duckdb_imputation_tpu_torch.ring.sum import (
+        sum_to_nb_agg_grouped, sum_to_triple_grouped)
+    from duckdb_imputation_tpu_torch.ring.triple import sigma_from_triple
+
+    n = y.shape[0]
+    major = float(torch.bincount(y.long()).max()) / n
+    out = {}
+    for model in ("qda", "nb"):
+        kernel_counts_reset()
+        t0 = time.perf_counter()
+        if model == "qda":
+            sig = sigma_from_triple(sum_to_triple_grouped(
+                x, codes, y, schema=schema, num_groups=2, method="kernel"))
+            pred = qda_predict_device(*qda_train_device(sig, float(n)), x,
+                                      codes, schema=schema)
+        else:
+            agg = sum_to_nb_agg_grouped(x, codes, y, schema=schema,
+                                        num_groups=2)
+            pred = nb_predict_device(*nb_train_device(
+                agg.n, agg.lin, agg.quad_diag, agg.lin_cat), x, codes,
+                schema=schema)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = {k: v for k, v in kernel_counts().items() if v}
+        want = ({"grouped_gram_presorted.wide_launches": 1}
+                if model == "qda" else {"nb_grouped_sums.launches": 1})
+        scored = sum(v for k, v in counts.items() if "qda_predict" in k)
+        check(all(counts.get(k) == v for k, v in want.items())
+              and scored == 1 and len(counts) == 2,
+              f"{tag} {model}: launches {counts}")
+        acc = float((pred == y).float().mean())
+        check(acc > major + 0.02, f"{tag} {model}: accuracy {acc} not above "
+              f"the majority share {major} + 0.02")
+        log(f"{tag} {model} n={n}: launches {counts}, accuracy {acc:.4f} "
+            f"(majority {major:.4f}), {seconds:.3f} s")
+        out[model] = dict(pred=pred, launches=counts, acc=acc,
+                          seconds=seconds)
+    return out
+
+
+def phase_home_credit(seed: int) -> dict:
+    """[home_credit]: the Home Credit schema (P = 245, 104 + 16 columns).
+    The plans' host seconds; each kernel against its plain version at N
+    rows (K7, K2w 'num' past the parameter's 88 columns and 'cat', sort +
+    K8, K6w, K3w); then at the file's 307,511 rows run_mice_device 'gram'
+    and 'fused' (2 rounds over the 67 null columns, launches exact,
+    quality), run_mice_device_delta, scan_gram and run_mice_stream
+    ('device') from host arrays in chunks (c + K = 83), and the QDA and NB
+    pipelines on TARGET; the card against the CPU at N_MANY_CPU rows."""
+    from duckdb_imputation_tpu_torch import Table, run_mice_device
+    from duckdb_imputation_tpu_torch.mice.device_round import (
+        run_mice_device_delta)
+    from duckdb_imputation_tpu_torch.mice.streaming import run_mice_stream
+    from duckdb_imputation_tpu_torch.ring import streaming
+    from duckdb_imputation_tpu_torch.ring.kernels.sigma_fused import (
+        fused_impute_aggregate)
+    from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas import (
+        masked_gram, masked_gram_cols)
+
+    t0 = time.perf_counter()
+    t, x_true, c_true, y = make_home_credit(N, seed + 181)
+    schema = t.schema
+    ext = streaming.extended_schema(streaming.StreamSchema(
+        schema=schema, nullable_num=tuple(range(61)),
+        nullable_cat=HC_NULL_CATS, n_rows=N))
+    plans = plan_seconds(schema, ext)
+    log(f"[home_credit] P={schema.sigma_size}, fold P+K={ext.sigma_size} "
+        f"(c+K={ext.cat_cols}); plans' host seconds {plans}")
+    out = dict(plans=plans, kernels=many_kernels(
+        "[home_credit]", t, y, seed + 182,
+        (("num", 100), ("cat", 9))))
+    del t, x_true, c_true, y
+    torch.cuda.empty_cache()
+
+    t, x_true, c_true, y = make_home_credit(HC_ROWS, seed + 183)
+    steps = 67
+    for kernel in ("gram", "fused"):
+        masked_gram_cols.wide_launches = 0
+        fused_impute_aggregate.wide_launches = 0
+        t1 = time.perf_counter()
+        res = run_mice_device(t, iters=2, kernel=kernel)
+        torch.cuda.synchronize()
+        got = (masked_gram_cols.wide_launches,
+               fused_impute_aggregate.wide_launches)
+        want = (2 * steps, 0) if kernel == "gram" else (1, 2 * steps)
+        check(got == want, f"[home_credit] run_mice_device {kernel}: "
+              f"launches (K7, K2w) {got}, not {want}")
+        log(f"[home_credit] run_mice_device '{kernel}' n={HC_ROWS} 2 rounds "
+            f"x {steps} columns: launches (K7, K2w) {got}, "
+            f"{time.perf_counter() - t1:.2f} s")
+        out[f"mice_{kernel}"] = many_quality(
+            f"[home_credit] {kernel}", t, x_true, c_true, res)
+    masked_gram_cols.wide_launches = 0
+    t1 = time.perf_counter()
+    res = run_mice_device_delta(t, iters=2, kernel="gram")
+    torch.cuda.synchronize()
+    log(f"[home_credit] run_mice_device_delta n={HC_ROWS} 2 rounds: K7 "
+        f"launches {masked_gram_cols.wide_launches}, "
+        f"{time.perf_counter() - t1:.2f} s")
+    want = 1 + 2 * 2 * steps      # one full pass, two a column step
+    check(masked_gram_cols.wide_launches == want,
+          f"[home_credit] delta: {masked_gram_cols.wide_launches} K7 "
+          f"launches, not {want}")
+    out["mice_delta"] = many_quality("[home_credit] delta", t, x_true,
+                                     c_true, res)
+    del res
+
+    num = torch.where(t.num_null, float("nan"), x_true).cpu().numpy()
+    cat = torch.where(t.cat_null, -1, c_true).cpu().numpy().astype(np.int64)
+    src = streaming.chunks_from_arrays(num, cat, chunk_rows=100_000)
+    ss, _ = streaming.scan_schema(src, collect_dirty=False)
+    check(streaming.extended_schema(ss).cat_cols == 83,
+          "[home_credit] the fold's c + K is not 83")
+    masked_gram.wide_launches = 0
+    t1 = time.perf_counter()
+    gram = streaming.scan_gram(src, ss, chunk_rows=100_000, device=DEVICE)
+    torch.cuda.synchronize()
+    chunks = -(-HC_ROWS // 100_000)
+    check(masked_gram.wide_launches == chunks,
+          f"[home_credit] scan_gram: {masked_gram.wide_launches} K7 "
+          f"launches, not {chunks}")
+    small = src_slice(num, cat, N_MANY_CPU)
+    sss, _ = streaming.scan_schema(small, collect_dirty=False)
+    cpu_gram = streaming.scan_gram(small, sss, chunk_rows=100_000,
+                                   device="cpu")
+    card_gram = streaming.scan_gram(small, sss, chunk_rows=100_000,
+                                    device=DEVICE)
+    err = float((card_gram.cpu() - cpu_gram).abs().max()
+                / cpu_gram.abs().max())
+    check(err <= 1e-6, f"[home_credit] fold card vs CPU rel err {err}")
+    log(f"[home_credit] scan_gram P+K={gram.shape[0]} n={HC_ROWS}: {chunks} "
+        f"K7 launches, {time.perf_counter() - t1:.2f} s; card vs CPU at "
+        f"n={N_MANY_CPU}: max rel err {err:.2e}")
+    t1 = time.perf_counter()
+    streamed = run_mice_stream(src, iters=2, engine="device",
+                               chunk_rows=100_000, noise=False,
+                               device=DEVICE)
+    log(f"[home_credit] run_mice_stream 'device' n={HC_ROWS} 2 rounds: "
+        f"{time.perf_counter() - t1:.2f} s")
+    out["stream"] = many_quality("[home_credit] stream", t, x_true, c_true,
+                                 embed(t, streamed))
+
+    cls = classify_many("[home_credit] TARGET", x_true, c_true, y, schema)
+    cpu_slice = (x_true[:, :N_MANY_CPU].cpu(), c_true[:, :N_MANY_CPU].cpu(),
+                 y[:N_MANY_CPU].cpu())
+    agree = classify_cpu_agreement(cls, cpu_slice, schema)
+    tc = null_table(x_true[:, :N_MANY_CPU], c_true[:, :N_MANY_CPU],
+                    t.num_null[:, :N_MANY_CPU], t.cat_null[:, :N_MANY_CPU],
+                    schema)
+    card = run_mice_device(tc, iters=1, kernel="gram")
+    cpu = run_mice_device(Table(*(a.cpu() for a in (
+        tc.num_data, tc.cat_codes, tc.num_null, tc.cat_null)),
+        schema=schema), iters=1, kernel="plain")
+    m = tc.cat_null.cpu()
+    codes_agree = float((card.cat_codes.cpu() == cpu.cat_codes)[m]
+                        .float().mean())
+    dx = float((card.num_data.cpu() - cpu.num_data).abs().max())
+    check(codes_agree >= 0.999, f"[home_credit] MICE card vs CPU code "
+          f"agreement {codes_agree}")
+    log(f"[home_credit] n={N_MANY_CPU} card vs CPU: MICE codes "
+        f"{codes_agree:.6f}, x max diff {dx:.3e}; classifiers {agree}")
+    out.update(classify={k: dict(acc=v["acc"], launches=v["launches"],
+                                 seconds=v["seconds"])
+                         for k, v in cls.items()},
+               cpu=dict(mice_codes=codes_agree, x_max_diff=dx, **agree),
+               seconds=time.perf_counter() - t0)
+    log(f"[home_credit] {out['seconds']:.1f} s in all")
+    del t, x_true, c_true, y, cls
+    torch.cuda.empty_cache()
+    return out
+
+
+def src_slice(num, cat, n: int):
+    """A chunk source over the first n rows of host arrays."""
+    from duckdb_imputation_tpu_torch.ring import streaming
+
+    return streaming.chunks_from_arrays(num[:, :n], cat[:, :n],
+                                        chunk_rows=100_000)
+
+
+def classify_cpu_agreement(cls, cpu_slice, schema) -> dict:
+    """Each pipeline of `cls` (QDA, NB) run on the card and on the CPU
+    (its plain versions) over the rows of `cpu_slice`: their predictions
+    agree on ≥ 0.999 of the rows."""
+    from duckdb_imputation_tpu_torch.models.device import (
+        nb_predict_device, nb_train_device, qda_predict_device,
+        qda_train_device)
+    from duckdb_imputation_tpu_torch.ring.sum import (
+        sum_to_nb_agg_grouped, sum_to_triple_grouped)
+    from duckdb_imputation_tpu_torch.ring.triple import sigma_from_triple
+
+    x, codes, y = cpu_slice
+    n = y.shape[0]
+    out = {}
+    for model in cls:
+        preds = []
+        for dev in (DEVICE, torch.device("cpu")):
+            a = (x.to(dev), codes.to(dev), y.to(dev))
+            if model == "qda":
+                sig = sigma_from_triple(sum_to_triple_grouped(
+                    *a, schema=schema, num_groups=2))
+                pred = qda_predict_device(*qda_train_device(sig, float(n)),
+                                          a[0], a[1], schema=schema)
+            else:
+                agg = sum_to_nb_agg_grouped(*a, schema=schema, num_groups=2)
+                pred = nb_predict_device(*nb_train_device(
+                    agg.n, agg.lin, agg.quad_diag, agg.lin_cat), a[0], a[1],
+                    schema=schema)
+            preds.append(pred.cpu())
+        agree = float((preds[0] == preds[1]).float().mean())
+        check(agree >= 0.999, f"{model} card vs CPU agreement {agree}")
+        out[model] = agree
+    return out
+
+
+def phase_secom(seed: int) -> dict:
+    """[secom]: the SECOM schema (P = 591, 590 numeric columns). The plans'
+    host seconds (its fold's two windows of 590 one-level flags among
+    them); each kernel against its plain version at N_SECOM rows (K7, K2w
+    'num' past the parameter's 88 columns, sort + K8, K6w, K3w); the fold
+    at the file's 1,567 rows (scan_gram over K7's windows, card vs CPU;
+    run_mice_stream 'device', one round over the 590 columns); the QDA and
+    NB pipelines on pass/fail at N_SECOM rows (QDA's fail class needs more
+    rows than columns) and card vs CPU at N_MANY_CPU rows."""
+    from duckdb_imputation_tpu_torch.mice.streaming import run_mice_stream
+    from duckdb_imputation_tpu_torch.ring import streaming
+    from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas import (
+        masked_gram)
+
+    t0 = time.perf_counter()
+    t, x_true, y = make_secom(N_SECOM, seed + 191)
+    schema = t.schema
+    ext = streaming.extended_schema(streaming.StreamSchema(
+        schema=schema, nullable_num=tuple(range(590)), nullable_cat=(),
+        n_rows=SECOM_ROWS))
+    plans = plan_seconds(schema, ext)
+    log(f"[secom] P={schema.sigma_size}, fold P+K={ext.sigma_size} "
+        f"(K={ext.cat_cols} flags); plans' host seconds {plans}")
+    out = dict(plans=plans, kernels=many_kernels(
+        "[secom]", t, y, seed + 192, (("num", 589),)))
+    cls = classify_many("[secom] pass/fail", x_true, t.cat_codes, y, schema)
+    agree = classify_cpu_agreement(
+        {"nb": None}, (x_true[:, :N_MANY_CPU].cpu(),
+                       t.cat_codes[:, :N_MANY_CPU].cpu(),
+                       y[:N_MANY_CPU].cpu()), schema)
+    del t, x_true, y
+    torch.cuda.empty_cache()
+
+    t, x_true, _ = make_secom(SECOM_ROWS, seed + 193)
+    num = torch.where(t.num_null, float("nan"), x_true).cpu().numpy()
+    cat = np.zeros((0, SECOM_ROWS), np.int64)
+    src = streaming.chunks_from_arrays(num, cat, chunk_rows=500)
+    ss, _ = streaming.scan_schema(src, collect_dirty=False)
+    check(streaming.extended_schema(ss).sigma_size == 1181,
+          "[secom] the fold's P + K is not 1,181")
+    masked_gram.wide_launches = 0
+    t1 = time.perf_counter()
+    gram = streaming.scan_gram(src, ss, chunk_rows=500, device=DEVICE)
+    torch.cuda.synchronize()
+    want = 4 * 2                   # four chunks, two windows each
+    check(masked_gram.wide_launches == want,
+          f"[secom] scan_gram: {masked_gram.wide_launches} K7 window "
+          f"launches, not {want}")
+    fold_s = time.perf_counter() - t1
+    cpu_gram = streaming.scan_gram(src, ss, chunk_rows=500, device="cpu")
+    err = float((gram.cpu() - cpu_gram).abs().max() / cpu_gram.abs().max())
+    check(err <= 1e-6, f"[secom] fold card vs CPU rel err {err}")
+    log(f"[secom] scan_gram P+K={gram.shape[0]} n={SECOM_ROWS}: {want} K7 "
+        f"window launches, {fold_s:.2f} s; card vs CPU max rel err "
+        f"{err:.2e}")
+    out["fold"] = dict(launches=want, seconds=fold_s, max_rel_err=err)
+    t1 = time.perf_counter()
+    streamed = run_mice_stream(src, iters=1, engine="device",
+                               chunk_rows=500, noise=False, device=DEVICE)
+    log(f"[secom] run_mice_stream 'device' n={SECOM_ROWS} 1 round x 590 "
+        f"columns: {time.perf_counter() - t1:.2f} s")
+    out["stream"] = many_quality("[secom] stream", t, x_true, None,
+                                 embed(t, streamed))
+    out.update(classify={k: dict(acc=v["acc"], launches=v["launches"],
+                                 seconds=v["seconds"])
+                         for k, v in cls.items()},
+               cpu=dict(fold_rel_err=err, **agree),
+               seconds=time.perf_counter() - t0)
+    log(f"[secom] {out['seconds']:.1f} s in all")
+    return out
+
+
+def phase_narrow_many(seed: int) -> dict:
+    """[narrow80]: the narrow route past 64 columns of a kind, P ≤ 88: d =
+    80 (P = 81) and d = 70 with two categorical columns of 8 levels (P =
+    87), at N_NARROW rows: K1, K2 ('num' and 'cat'), sort + K5, K4 (≤ 8
+    groups, unsorted), K6 and K3 against their plain versions."""
+    from duckdb_imputation_tpu_torch import FeatureSchema
+    from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas_grouped import (
+        grouped_gram, grouped_gram_plain)
+
+    out = {}
+    for d, vocabs in ((80, ()), (70, (8, 8))):
+        x, codes, y = factor_table(N_NARROW, d, vocabs, seed + d, 0.3)
+        schema = FeatureSchema(num_cols=d, cat_keys=tuple(
+            tuple(range(v)) for v in vocabs))
+        g = torch.Generator(device=DEVICE)
+        g.manual_seed(seed + d + 1)
+        num_null = torch.rand(d, N_NARROW, generator=g, device=DEVICE) < 0.1
+        cat_null = torch.rand(len(vocabs), N_NARROW, generator=g,
+                              device=DEVICE) < 0.1
+        t = null_table(x, codes, num_null, cat_null, schema)
+        tag = f"[narrow{d}] P={schema.sigma_size}"
+        cases = (("num", d - 1),) + ((("cat", 1),) if vocabs else ())
+        res = many_kernels(tag, t, y, seed + d + 2, cases)
+        ids = (y * (1 + (x[0] > 0).int())).to(torch.int32)     # 3 groups
+        w = (torch.rand(N_NARROW, generator=g, device=DEVICE) >= 0.2).float()
+        res["k4"] = many_kernel(
+            f"{tag} K4 (3 groups, unsorted)", (grouped_gram, "launches"),
+            lambda: grouped_gram(t.num_data, t.cat_codes, w, ids,
+                                 schema=schema, num_groups=3),
+            lambda: grouped_gram_plain(t.num_data, t.cat_codes, w, ids,
+                                       schema=schema, num_groups=3),
+            gram_compare(tag, schema, True),
+            gram_bound(t.cat_codes, schema, w, groups=3, extra=8))
+        out[f"d{d}"] = res
+        del t, x, codes
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5974,6 +6680,11 @@ def main() -> int:
     sql_mice = phase_sql(args.seed, card)
     sql_classify = phase_sql_classify(args.seed, card)
     overlap = phase_overlap(args.seed)
+    narrow_many = phase_narrow_many(args.seed)
+    home_credit = phase_home_credit(args.seed)
+    secom = phase_secom(args.seed)
+    hck, sek = home_credit["kernels"], secom["kernels"]
+    n80, n70 = narrow_many["d80"], narrow_many["d70"]
 
     src = "duckdb_imputation_tpu_torch/csrc/"
     ref = "duckdb_imputation_tpu/ring/kernels/"
@@ -5985,7 +6696,8 @@ def main() -> int:
              delta_launches=delta["masked_gram_cols"],
              gd_launches=gd["masked_gram_cols"],
              sharded_launches=sharded["masked_gram_cols"],
-             stream_launches=stream["masked_gram_cols"], **k1),
+             stream_launches=stream["masked_gram_cols"],
+             narrow80=n80["gram"], narrow70c2=n70["gram"], **k1),
         dict(name="masked_gram", route="cuda",
              source=src + "masked_gram.cu",
              replaces=ref + "sigma_pallas.py:109",
@@ -6000,38 +6712,46 @@ def main() -> int:
              source=src + "fused_impute_aggregate.cu",
              replaces=ref + "sigma_fused.py:413",
              launches=launches["fused_impute_aggregate"],
-             sharded_launches=sharded["fused_impute_aggregate"], **k2),
+             sharded_launches=sharded["fused_impute_aggregate"],
+             narrow80=n80["fused_num79"], narrow70c2=n70["fused_cat1"],
+             **k2),
         dict(name="qda_predict_kernel", route="cuda",
              source=src + "qda_predict.cu",
              replaces=ref + "qda_pallas.py:148",
-             launches=launches["qda_predict_kernel"], **k3),
+             launches=launches["qda_predict_kernel"],
+             narrow80=n80["qda"], narrow70c2=n70["qda"], **k3),
         dict(name="grouped_gram", route="cuda",
              source=src + "grouped_gram.cu",
              replaces=ref + "sigma_pallas_grouped.py:121",
              launches=launches["grouped_gram"],
              factorized_launches=factorized["grouped_gram"],
-             sharded_launches=sharded["grouped_gram"], **k4),
+             sharded_launches=sharded["grouped_gram"],
+             narrow80=n80["k4"], narrow70c2=n70["k4"], **k4),
         dict(name="grouped_gram_presorted", route="cuda",
              source=src + "grouped_gram.cu",
              replaces=ref + "sigma_pallas_grouped.py:568",
              launches=launches["grouped_gram_presorted"],
              factorized_launches=factorized["grouped_gram_presorted"],
              sharded_launches=sharded["grouped_gram_presorted"],
-             g4100=factorized["alone"]["k5"], **k5),
+             g4100=factorized["alone"]["k5"], narrow80=n80["grouped"],
+             narrow70c2=n70["grouped"], **k5),
         dict(name="nb_grouped_sums", route="cuda",
              source=src + "nb_grouped_sums.cu",
              replaces=ref + "nb_pallas.py:126",
              launches=launches["nb_grouped_sums"],
              star_launches=star["nb_grouped_sums"],
              sql_launches=sql_classify["nb"]["launches"].get(
-                 "nb_grouped_sums.launches", 0), **k6),
+                 "nb_grouped_sums.launches", 0), narrow80=n80["nb"],
+             narrow70c2=n70["nb"], **k6),
         dict(name="wide_gram", route="cuda", source=src + "wide_gram.cu",
              replaces=ref + "sigma_pallas.py:501",
              launches=wide["wide_gram"], delta_launches=delta["wide_gram"],
              host_launches=host_wide, gd_launches=gd["wide_gram"],
              star_launches=star["wide_gram"],
              sharded_launches=sharded["wide_gram"],
-             stream_launches=stream["wide_gram"], **k7),
+             stream_launches=stream["wide_gram"],
+             home_credit=dict(hck["gram"], plans=home_credit["plans"]),
+             secom=dict(sek["gram"], plans=secom["plans"]), **k7),
         # K7 over column windows past P = 1,024 (favorita_items): the
         # residual plan over all rows and the keyed tasks over the rows in
         # their column's order; wide16k's windows and the hot key beside
@@ -6045,6 +6765,7 @@ def main() -> int:
              overlap_launches=overlap["launches"],
              also_replaces=[ref + "sigma_pallas.py:520",
                             ref + "sigma_pallas.py:129"],
+             secom_fold=dict(secom["fold"], plans=secom["plans"]),
              wide16k=k7win["wide16k"], hot_key=k7win["hot_key"],
              **k7win["favorita_items"]),
         # the windows' row order, favorita_items' pass; wide16k's beside.
@@ -6061,21 +6782,27 @@ def main() -> int:
              source=src + "fused_impute_aggregate.cu",
              replaces=ref + "sigma_fused.py:509",
              launches=wide["fused_impute_aggregate_wide"],
-             sharded_launches=sharded["fused_impute_aggregate_wide"], **k2w),
+             sharded_launches=sharded["fused_impute_aggregate_wide"],
+             home_credit={k: v for k, v in hck.items()
+                          if k.startswith("fused")},
+             secom=sek["fused_num589"], **k2w),
         dict(name="grouped_wide_gram", route="cuda",
              source=src + "grouped_wide_gram.cu",
              replaces=ref + "sigma_pallas_grouped.py:540",
              launches=classify_wide["grouped_wide_gram"],
              factorized_launches=factorized["grouped_wide_gram"],
-             g4100=factorized["alone"]["k8"], **k8),
+             g4100=factorized["alone"]["k8"], home_credit=hck["grouped"],
+             secom=sek["grouped"], **k8),
         dict(name="nb_grouped_sums_wide", route="cuda",
              source=src + "nb_grouped_sums.cu",
              replaces=ref + "nb_pallas.py:126",
-             launches=classify_wide["nb_grouped_sums_wide"], **k6w),
+             launches=classify_wide["nb_grouped_sums_wide"],
+             home_credit=hck["nb"], secom=sek["nb"], **k6w),
         dict(name="qda_predict_wide", route="cuda",
              source=src + "qda_predict.cu",
              replaces=ref + "qda_pallas.py:148",
-             launches=classify_wide["qda_predict_wide"], **k3w),
+             launches=classify_wide["qda_predict_wide"],
+             home_credit=hck["qda"], secom=sek["qda"], **k3w),
         # past P = 1,024 (favorita_items): K2w's impute kernel with W in
         # device memory and K7's windows, K8 a window, K3w on the plans
         # whose item cross tables are keyed on the item

@@ -158,8 +158,9 @@ __device__ __forceinline__ void w_row(const float* W, int a, int ld, int k0,
 // order: (b_k + W₀ₖ), then each numeric term, then each categorical
 // column's coefficient (none for an out-of-vocab code). W f32[P, ld],
 // b f32[ld]; Q = 4 (classes past R read W's zero padding) lets four chains
-// of adds overlap, each term read once for them.
-template <int Q, class X, class Code>
+// of adds overlap, each term read once for them. Far: a wide kernel's
+// columns, read through Cols' accessors (past kInlineCols, from `far`).
+template <int Q, bool Far = false, class X, class Code>
 __device__ __forceinline__ void class_scores(int k0, int ld, const float* W,
                                              const float* b, const Cols& cols,
                                              X x, Code code, float acc[Q]) {
@@ -176,8 +177,8 @@ __device__ __forceinline__ void class_scores(int k0, int ld, const float* W,
   }
   for (int j = 0; j < cols.c; ++j) {
     const int cv = code(j);
-    if (cv >= 0 && cv < cols.size[j]) {
-      w_row<Q>(W, cols.off[j] + cv, ld, k0, v);
+    if (cv >= 0 && cv < (Far ? cols.sz(j) : cols.size[j])) {
+      w_row<Q>(W, (Far ? cols.of(j) : cols.off[j]) + cv, ld, k0, v);
 #pragma unroll
       for (int q = 0; q < Q; ++q) acc[q] = __fadd_rn(acc[q], v[q]);
     }
@@ -459,7 +460,7 @@ impute_cat_tiles_kernel(const __grid_constant__ Cols cols, int64_t n,
   // 1. the slice in steps of kFillRows rows a thread (their loads in
   // flight together): out = old for the rows not null, the null rows
   // listed in order in rows[r0 ..) (a warp ballot and a block prefix)
-  const int32_t* old = cols.code[imp_col];
+  const int32_t* old = cols.cp(imp_col);
   int total = 0;
   for (int64_t base = r0; base < r1;
        base += int64_t(kImpThreads) * kFillRows) {
@@ -522,12 +523,12 @@ impute_cat_tiles_kernel(const __grid_constant__ Cols cols, int64_t n,
       int* te = terms + e * tsp;
 #pragma unroll 4
       for (int j = 0; j < cx; ++j)
-        te[j] = j < d ? __float_as_int(cols.x[j][row]) : 0;
+        te[j] = j < d ? __float_as_int(cols.xp(j)[row]) : 0;
 #pragma unroll 4
       for (int j = 0; j < c; ++j) {
-        const int code = cols.code[j][row];
+        const int code = cols.cp(j)[row];
         te[cx + j] =
-            (code >= 0 && code < cols.size[j] ? cols.off[j] + code : P) * ldw;
+            (code >= 0 && code < cols.sz(j) ? cols.of(j) + code : P) * ldw;
       }
     }
     for (int e = tid; e < count; e += kImpThreads) {
@@ -641,11 +642,11 @@ impute_num_wide_kernel(const __grid_constant__ Cols cols, int64_t n,
   const int64_t stride = int64_t(gridDim.x) * blockDim.x;
   for (int64_t row = int64_t(blockIdx.x) * blockDim.x + threadIdx.x; row < n;
        row += stride) {
-    float val = cols.x[imp_col][row];
+    float val = cols.xp(imp_col)[row];
     if (null_imp[row] != 0) {
-      class_scores<1>(0, 1, W, b, cols,
-                      [&](int j) { return cols.x[j][row]; },
-                      [&](int j) { return cols.code[j][row]; }, &val);
+      class_scores<1, true>(0, 1, W, b, cols,
+                            [&](int j) { return cols.xp(j)[row]; },
+                            [&](int j) { return cols.cp(j)[row]; }, &val);
       if (nz.on) val = __fadd_rn(val, __fmul_rn(noise_std, row_normal(nz, row)));
     }
     out[row] = val;
@@ -802,11 +803,15 @@ int dit_fused_impute_aggregate_cores(
 // dit_fused_impute_aggregate, except any P ≤ kMaxWideP; the plan (slabs ..
 // shape) and partial as dit_wide_gram; imp_plan: 3 ints (ld, M, batch:
 // _build.impute_plan) of the 'cat' impute kernel, imp_rows
-// its i32[n] scratch (unused for 'num'); sigma zeroed by the caller.
-// Returns 0 or a cudaError_t.
+// its i32[n] scratch (unused for 'num'); sigma zeroed by the caller. far:
+// the columns' device table past kInlineCols of a kind (gram_common.cuh:
+// Cols), else nullptr; far_out: the same with out_col in column imp_col's
+// place, what the Gram reads (far itself where imp_col is a parameter
+// column). Returns 0 or a cudaError_t.
 int dit_fused_impute_aggregate_wide(
     const void* const* x_cols, int d, const void* const* code_cols,
-    const int* cat_sizes, int c, const uint8_t* null_imp, const float* w_agg,
+    const int* cat_sizes, int c, const int64_t* far, const int64_t* far_out,
+    const uint8_t* null_imp, const float* w_agg,
     const float* w_full, const float* intercept, int R, int kind,
     int imp_col, void* out_col, int noise, uint32_t seed_lo,
     uint32_t seed_hi, uint32_t round, int64_t row_offset,
@@ -816,14 +821,16 @@ int dit_fused_impute_aggregate_wide(
     const int* imp_plan, int* imp_rows, double* partial, float* sigma,
     void* stream) {
   using namespace dit;
-  if (int rc = check_cols(d, c, cat_sizes, P, n, 1, kMaxWideP)) return rc;
+  if (int rc = check_cols(d, c, cat_sizes, P, n, 1, kMaxWideP, far))
+    return rc;
   if (int rc = check_impute(kind, imp_col, R, d, c, cat_sizes)) return rc;
+  if (far != nullptr && far_out == nullptr) return cudaErrorInvalidValue;
   WidePlanArgs plan;
   int slices;
   if (int rc = make_plan(slabs, warp_begin, task_base, stage_cols, entries,
                          shape, plan, slices))
     return rc;
-  Cols cols = make_cols(x_cols, d, code_cols, cat_sizes, c);
+  Cols cols = make_cols(x_cols, d, code_cols, cat_sizes, c, far);
   auto s = static_cast<cudaStream_t>(stream);
   if (n > 0) {
     if (kind == kCat) {
@@ -842,10 +849,13 @@ int dit_fused_impute_aggregate_wide(
       if (cudaError_t rc = cudaGetLastError()) return rc;
     }
   }
-  if (kind == kCat)
-    cols.code[imp_col] = static_cast<const int32_t*>(out_col);
-  else
-    cols.x[imp_col] = static_cast<const float*>(out_col);
+  cols.far = far_out;
+  if (imp_col < kInlineCols) {
+    if (kind == kCat)
+      cols.code[imp_col] = static_cast<const int32_t*>(out_col);
+    else
+      cols.x[imp_col] = static_cast<const float*>(out_col);
+  }
   return launch_wide_gram<false>(cols, plan, P, n, nullptr, nullptr, 1,
                                  slices, w_agg, partial, sigma, s);
 }
@@ -857,18 +867,21 @@ int dit_fused_impute_aggregate_wide(
 // imp_plan (ld, M, batch) with ld = 32·M (_build.impute_global_plan) and
 // ldw a multiple of ld, imp_rows i32[n] scratch; kind 1 ('num'): w =
 // w_full f32[P], intercept f32[1], noise as dit_fused_impute_aggregate.
-// out_col as dit_fused_impute_aggregate. Returns 0 or a cudaError_t.
+// out_col as dit_fused_impute_aggregate; far as
+// dit_fused_impute_aggregate_wide. Returns 0 or a cudaError_t.
 int dit_impute_wide(
     const void* const* x_cols, int d, const void* const* code_cols,
-    const int* cat_sizes, int c, const uint8_t* null_imp, const float* w,
+    const int* cat_sizes, int c, const int64_t* far, const uint8_t* null_imp,
+    const float* w,
     const float* intercept, int ldw, int R, int kind, int imp_col,
     void* out_col, int noise, uint32_t seed_lo, uint32_t seed_hi,
     uint32_t round, int64_t row_offset, const float* noise_std, int64_t n,
     int P, const int* imp_plan, int* imp_rows, void* stream) {
   using namespace dit;
-  if (int rc = check_cols(d, c, cat_sizes, P, n, 1, kMaxWindowP)) return rc;
+  if (int rc = check_cols(d, c, cat_sizes, P, n, 1, kMaxWindowP, far))
+    return rc;
   if (int rc = check_impute(kind, imp_col, R, d, c, cat_sizes)) return rc;
-  const Cols cols = make_cols(x_cols, d, code_cols, cat_sizes, c);
+  const Cols cols = make_cols(x_cols, d, code_cols, cat_sizes, c, far);
   auto s = static_cast<cudaStream_t>(stream);
   if (n == 0) return 0;
   if (kind == kCat)

@@ -34,17 +34,41 @@ namespace {  // internal linkage: each kernel file gets its own copy
 
 constexpr int kThreads = 256;  // threads per block
 constexpr int kChunk = 256;    // rows staged per step: one per thread
-constexpr int kMaxCols = 64;   // numeric and categorical columns, each
 constexpr int kMaxP = 88;      // ceil(88/4) = 22 → 253 tiles ≤ kThreads
+// Columns of each kind the kernel parameter holds: every column of a
+// narrow schema (P ≤ kMaxP: d, c ≤ 87), whose kernels index the arrays
+// directly; a wide kernel reads column j ≥ kInlineCols from `far`.
+constexpr int kInlineCols = kMaxP;
 
 // Per-column inputs, passed by value as a kernel parameter
 // (__grid_constant__: device code reads it in place, indexed, no copy).
+// Past kInlineCols columns of a kind, `far` (device memory, built once a
+// call by the host from the same columns: ring/kernels/_build.py:
+// far_table) holds every column, int64 [x (d) | code (c) | size (c) |
+// off (c)]; the accessors read the parameter below kInlineCols and `far`
+// above, so a schema of at most kInlineCols columns of each kind reads
+// only the parameter, as before.
 struct Cols {
-  const float* x[kMaxCols];
-  const int32_t* code[kMaxCols];
-  int size[kMaxCols];  // vocab size of categorical column j
-  int off[kMaxCols];   // sigma index of its category 0: 1 + d + offsets[j]
+  const float* x[kInlineCols];
+  const int32_t* code[kInlineCols];
+  int size[kInlineCols];  // vocab size of categorical column j
+  int off[kInlineCols];   // sigma index of its category 0: 1 + d + offsets[j]
+  const int64_t* far;     // nullptr when d, c ≤ kInlineCols
   int d, c;
+
+  __device__ __forceinline__ const float* xp(int j) const {
+    return j < kInlineCols ? x[j] : reinterpret_cast<const float*>(far[j]);
+  }
+  __device__ __forceinline__ const int32_t* cp(int j) const {
+    return j < kInlineCols ? code[j]
+                           : reinterpret_cast<const int32_t*>(far[d + j]);
+  }
+  __device__ __forceinline__ int sz(int j) const {
+    return j < kInlineCols ? size[j] : static_cast<int>(far[d + c + j]);
+  }
+  __device__ __forceinline__ int of(int j) const {
+    return j < kInlineCols ? off[j] : static_cast<int>(far[d + 2 * c + j]);
+  }
 };
 
 struct Geom {
@@ -80,10 +104,15 @@ inline int gram_smem_floats(const Geom& g) {
 inline int gram_entries(const Geom& g) { return g.T * 16; }
 
 // Checks shared by the entry points; 0 or a cudaError_t. max_p: the
-// kernel's sigma-size limit (kMaxP here, kMaxWideP for wide_gram.cuh).
+// kernel's sigma-size limit (kMaxP here, kMaxWideP for wide_gram.cuh);
+// far: the columns' device table, needed past kInlineCols of a kind (a
+// narrow kernel, which takes none, so takes at most kInlineCols).
 inline int check_cols(int d, int c, const int* cat_sizes, int P, int64_t n,
-                      int nblocks, int max_p = kMaxP) {
-  if (d < 0 || c < 0 || d > kMaxCols || c > kMaxCols) return cudaErrorInvalidValue;
+                      int nblocks, int max_p = kMaxP,
+                      const int64_t* far = nullptr) {
+  if (d < 0 || c < 0) return cudaErrorInvalidValue;
+  if ((d > kInlineCols || c > kInlineCols) && far == nullptr)
+    return cudaErrorInvalidValue;
   int p = 1 + d;
   for (int j = 0; j < c; ++j) {
     if (cat_sizes[j] < 0) return cudaErrorInvalidValue;
@@ -94,18 +123,23 @@ inline int check_cols(int d, int c, const int* cat_sizes, int P, int64_t n,
   return 0;
 }
 
+// The parameter's columns (the first kInlineCols of each kind) and `far`.
 inline Cols make_cols(const void* const* x_cols, int d,
                       const void* const* code_cols, const int* cat_sizes,
-                      int c) {
-  Cols cols;
+                      int c, const int64_t* far = nullptr) {
+  Cols cols{};
   cols.d = d;
   cols.c = c;
+  cols.far = far;
   int off = 1 + d;
-  for (int j = 0; j < d; ++j) cols.x[j] = static_cast<const float*>(x_cols[j]);
+  for (int j = 0; j < d && j < kInlineCols; ++j)
+    cols.x[j] = static_cast<const float*>(x_cols[j]);
   for (int j = 0; j < c; ++j) {
-    cols.code[j] = static_cast<const int32_t*>(code_cols[j]);
-    cols.size[j] = cat_sizes[j];
-    cols.off[j] = off;
+    if (j < kInlineCols) {
+      cols.code[j] = static_cast<const int32_t*>(code_cols[j]);
+      cols.size[j] = cat_sizes[j];
+      cols.off[j] = off;
+    }
     off += cat_sizes[j];
   }
   return cols;

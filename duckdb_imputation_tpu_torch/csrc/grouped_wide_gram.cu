@@ -54,21 +54,23 @@ extern "C" {
 // 0 or a cudaError_t.
 int dit_grouped_wide_gram(const void* const* x_cols, int d,
                           const void* const* code_cols, const int* cat_sizes,
-                          int c, const float* w, const int64_t* off,
-                          const int64_t* cum, int G, int64_t n, int P,
+                          int c, const int64_t* far, const float* w,
+                          const int64_t* off, const int64_t* cum, int G,
+                          int64_t n, int P,
                           const int* slabs, const int* warp_begin,
                           const int64_t* task_base, const int* stage_cols,
                           const int* entries, const int* shape,
                           double* partial, float* out, void* stream) {
   using namespace dit;
-  if (int rc = check_cols(d, c, cat_sizes, P, n, 1, kMaxWideP)) return rc;
+  if (int rc = check_cols(d, c, cat_sizes, P, n, 1, kMaxWideP, far))
+    return rc;
   if (G < 1) return cudaErrorInvalidValue;
   WidePlanArgs plan;
   int slices;
   if (int rc = make_plan(slabs, warp_begin, task_base, stage_cols, entries,
                          shape, plan, slices))
     return rc;
-  const Cols cols = make_cols(x_cols, d, code_cols, cat_sizes, c);
+  const Cols cols = make_cols(x_cols, d, code_cols, cat_sizes, c, far);
   return launch_wide_gram<true>(cols, plan, P, n, off, cum, G, slices, w,
                                 partial, out,
                                 static_cast<cudaStream_t>(stream));
@@ -83,13 +85,15 @@ int dit_grouped_wide_gram(const void* const* x_cols, int d,
 // dit_grouped_wide_gram. Returns 0 or a cudaError_t.
 int dit_grouped_wide_gram_window(
     const void* const* x_cols, int d, const void* const* code_cols,
-    const int* cat_sizes, int c, const float* w, const int64_t* off,
-    const int64_t* cum, int G, int64_t n, int P, int lo, int width,
-    int64_t ld, int64_t gstride, const int* slabs, const int* warp_begin,
-    const int64_t* task_base, const int* stage_cols, const int* entries,
-    const int* shape, double* partial, float* out, void* stream) {
+    const int* cat_sizes, int c, const int64_t* far, const float* w,
+    const int64_t* off, const int64_t* cum, int G, int64_t n, int P, int lo,
+    int width, int64_t ld, int64_t gstride, const int* slabs,
+    const int* warp_begin, const int64_t* task_base, const int* stage_cols,
+    const int* entries, const int* shape, double* partial, float* out,
+    void* stream) {
   using namespace dit;
-  if (int rc = check_cols(d, c, cat_sizes, P, n, 1, kMaxWindowP)) return rc;
+  if (int rc = check_cols(d, c, cat_sizes, P, n, 1, kMaxWindowP, far))
+    return rc;
   if (G < 1 || lo < 0 || width < 1 || lo > P - width || ld < width ||
       gstride < int64_t(P) * ld)
     return cudaErrorInvalidValue;
@@ -98,7 +102,7 @@ int dit_grouped_wide_gram_window(
   if (int rc = make_plan(slabs, warp_begin, task_base, stage_cols, entries,
                          shape, plan, slices))
     return rc;
-  const Cols cols = make_cols(x_cols, d, code_cols, cat_sizes, c);
+  const Cols cols = make_cols(x_cols, d, code_cols, cat_sizes, c, far);
   const OutMap om{ld, gstride, lo, false};
   return launch_wide_gram<true>(cols, plan, P, n, off, cum, G, slices, w,
                                 partial, out,

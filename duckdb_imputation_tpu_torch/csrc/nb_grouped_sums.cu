@@ -48,36 +48,41 @@
 namespace dit {
 namespace {
 
-constexpr int kNbPlanInts = 8;   // ints of the plan's shape
+constexpr int kNbPlanInts = 9;   // ints of the plan's shape
 constexpr int kNbSlabCodes = 3;  // slab kind: codes u_lo .. u_hi of K_j's row g
 
 // The host's plan (ring/kernels/_build.py: NbPlan).
 struct NbPlanArgs {
-  // [S][kWideSlabInts]: (kSlabD, v_lo, g_lo, g_hi, v_hi, off, task, warp),
-  // (kSlabK, j, g_lo, g_hi, 0, ...) or (kNbSlabCodes, j, g, u_lo, u_hi, ...)
+  // [S][kWideSlabInts]: (kSlabD, v_lo, g_lo, g_hi, v_hi, off, ...),
+  // (kSlabK, j, g_lo, g_hi, 0, off, ...) or (kNbSlabCodes, j, g, u_lo,
+  // u_hi, off, ...), field 6 the stage slot the slab reads: a D slab's
+  // x_a lies at slot field 6 + a, a K or codes slab's column j at field
+  // 6; field 7 a K slab's V_j (_build.py: NbPlan.device_slabs)
   const int* slabs;
   const int* warp_begin;     // [tasks · kWideWarps + 1]
   const int64_t* task_base;  // [tasks + 1]: each task's first flat cell
-  const int* stage_cols;     // [tasks][1 + kMaxCols]: count, code columns
+  // [tasks][width]: nx, nc, the numeric then the code columns the task
+  // stages (ascending each)
+  const int* stage_cols;
   const int* out_index;      // [cells]: the flat index in out [G, F]
-  int tasks, cells, max_cells, max_cols, max_slabs, rows, slices, G;
+  int tasks, cells, max_cells, max_cols, max_slabs, rows, slices, G, width;
 };
 
 // Mirrored by ring/kernels/_build.py: wide_smem_bytes.
 inline size_t nb_smem_bytes(const NbPlanArgs& plan) {
   return sizeof(double) * plan.max_cells +
          sizeof(float) * (2 * plan.max_cols * plan.rows +
-                          kWideSlabInts * plan.max_slabs + 2 * kMaxCols +
+                          kWideSlabInts * plan.max_slabs + plan.width +
                           2 * kWideSubs);
 }
 
-// A D term of a staged row (w at rows[r], x_a at rows[(2 + a)·R + r]):
+// A D term of a staged row (w at rows[r], x_a at rows[(sx + a)·R + r]):
 // v = 0 → w; 1 + a → w·x_a; 1 + d + a → w·(x_a·x_a).
-__device__ __forceinline__ float nb_term(int v, int d, const float* rows,
-                                         int R, int lane) {
+__device__ __forceinline__ float nb_term(int v, int d, int sx,
+                                         const float* rows, int R, int lane) {
   const float w = rows[lane];
   if (v == 0) return w;
-  const float x = rows[(2 + (v - 1) % d) * R + lane];
+  const float x = rows[(sx + (v - 1) % d) * R + lane];
   return v <= d ? w * x : w * (x * x);
 }
 
@@ -86,7 +91,7 @@ __device__ __forceinline__ float nb_term(int v, int d, const float* rows,
 // added to the f64 table by its first lane, chunk 0's before chunk 1's.
 // Four terms at a time: their sums are independent chains of shuffles.
 __device__ __forceinline__ void nb_add_d(double* table, int key0, int key1,
-                                         int v_lo, int v_hi, int d,
+                                         int v_lo, int v_hi, int d, int sx,
                                          const float* rows0,
                                          const float* rows1, int R,
                                          int lane) {
@@ -103,8 +108,8 @@ __device__ __forceinline__ void nb_add_d(double* table, int key0, int key1,
 #pragma unroll
     for (int k = 0; k < 4; ++k)
       if (v4 + k < v_hi) {
-        s0[k] = l0.suffix_sum(nb_term(v4 + k, d, rows0, R, lane));
-        s1[k] = l1.suffix_sum(nb_term(v4 + k, d, rows1, R, lane));
+        s0[k] = l0.suffix_sum(nb_term(v4 + k, d, sx, rows0, R, lane));
+        s1[k] = l1.suffix_sum(nb_term(v4 + k, d, sx, rows1, R, lane));
       }
 #pragma unroll
     for (int k = 0; k < 4; ++k)
@@ -115,6 +120,12 @@ __device__ __forceinline__ void nb_add_d(double* table, int key0, int key1,
   }
 }
 
+// Far: a schema past kInlineCols columns of a kind, its columns read
+// through Cols' accessors and a D slab's terms at the stage slots of its
+// record; else the columns straight from the parameter and, as every task
+// with a D slab then stages every numeric column (_build.py: _nb_stage),
+// x_a at slot 2 + a.
+template <bool Far>
 __global__ void __launch_bounds__(kThreads)
 nb_kernel(const __grid_constant__ Cols cols,
           const __grid_constant__ NbPlanArgs plan, const float* __restrict__ w,
@@ -128,28 +139,21 @@ nb_kernel(const __grid_constant__ Cols cols,
   const int cells = static_cast<int>(plan.task_base[task + 1] - tbase);
   const int sb = plan.warp_begin[task * kWideWarps];
   const int nslabs = plan.warp_begin[(task + 1) * kWideWarps] - sb;
-  const int* tcols = plan.stage_cols + task * (1 + kMaxCols);
-  const int ncodes = tcols[0];
+  const int* tcols = plan.stage_cols + int64_t(task) * plan.width;
+  const int xcols = tcols[0], ncodes = tcols[1];
 
   double* table = nb_smem;                                    // [cells]
   float* stage = reinterpret_cast<float*>(nb_smem + plan.max_cells);
   int* slabs = reinterpret_cast<int*>(stage + 2 * plan.max_cols * R);
-  int* code_col = slabs + plan.max_slabs * kWideSlabInts;     // [kMaxCols]
-  int* slot_of = code_col + kMaxCols;                         // [kMaxCols]
+  int* scol = slabs + plan.max_slabs * kWideSlabInts;  // [xcols + ncodes]
 
   for (int e = tid; e < cells; e += kThreads) table[e] = 0.0;
-  bool has_d = false;
-  for (int e = tid; e < nslabs * kWideSlabInts; e += kThreads) {
-    const int v = plan.slabs[sb * kWideSlabInts + e];
-    slabs[e] = v;
-    if (e % kWideSlabInts == 0) has_d |= v == kSlabD;
-  }
-  for (int q = tid; q < ncodes; q += kThreads) {
-    code_col[q] = tcols[1 + q];
-    slot_of[tcols[1 + q]] = q;
-  }
-  const int xcols = __syncthreads_or(has_d) ? d : 0;
+  for (int e = tid; e < nslabs * kWideSlabInts; e += kThreads)
+    slabs[e] = plan.slabs[sb * kWideSlabInts + e];
+  for (int q = tid; q < xcols + ncodes; q += kThreads) scol[q] = tcols[2 + q];
+  const int* code_col = scol + xcols;
   const int cbase = 2 + xcols;                  // stage slot of code 0
+  __syncthreads();
 
   const int64_t total = (n + kWideChunk - 1) / kWideChunk;
   const int64_t cps = chunks_per_slice(total, slices);
@@ -168,11 +172,19 @@ nb_kernel(const __grid_constant__ Cols cols,
       if (w) stage4(buf, w + row, valid, 0.0f);
       else *buf = valid ? 1.0f : 0.0f;       // no weights: all ones
       stage4(buf + R, gid + row, valid, __int_as_float(-1));
-      for (int j = 0; j < xcols; ++j)
-        stage4(buf + (2 + j) * R, cols.x[j] + row, valid, 0.0f);
-      for (int q = 0; q < ncodes; ++q)
-        stage4(buf + (cbase + q) * R, cols.code[code_col[q]] + row, valid,
-               __int_as_float(-1));
+      if constexpr (!Far) {   // every numeric column: scol[j] = j
+        for (int j = 0; j < xcols; ++j)
+          stage4(buf + (2 + j) * R, cols.x[j] + row, valid, 0.0f);
+        for (int q = 0; q < ncodes; ++q)
+          stage4(buf + (cbase + q) * R, cols.code[code_col[q]] + row, valid,
+                 __int_as_float(-1));
+      } else {
+        for (int j = 0; j < xcols; ++j)
+          stage4(buf + (2 + j) * R, cols.xp(scol[j]) + row, valid, 0.0f);
+        for (int q = 0; q < ncodes; ++q)
+          stage4(buf + (cbase + q) * R, cols.cp(code_col[q]) + row, valid,
+                 __int_as_float(-1));
+      }
     }
     asm volatile("cp.async.commit_group;\n" ::);
   };
@@ -184,7 +196,7 @@ nb_kernel(const __grid_constant__ Cols cols,
   if (s0 < s1) {
     const int* sl = slabs + (s1 - 1) * kWideSlabInts;
     hi_cell = sl[5] + (sl[0] == kSlabD   ? (sl[3] - sl[2]) * (sl[4] - sl[1])
-                       : sl[0] == kSlabK ? (sl[3] - sl[2]) * cols.size[sl[1]]
+                       : sl[0] == kSlabK ? (sl[3] - sl[2]) * sl[7]
                                          : sl[4] - sl[3]);
   }
 
@@ -203,8 +215,8 @@ nb_kernel(const __grid_constant__ Cols cols,
       const float* rows1 = pair ? rows0 + kWideChunk : rows0;
       const int g0 = reinterpret_cast<const int*>(rows0)[R + lane];
       const int g1 = reinterpret_cast<const int*>(rows1)[R + lane];
-      const int* codes0 = reinterpret_cast<const int*>(rows0) + cbase * R;
-      const int* codes1 = reinterpret_cast<const int*>(rows1) + cbase * R;
+      const int* codes0 = reinterpret_cast<const int*>(rows0);
+      const int* codes1 = reinterpret_cast<const int*>(rows1);
       for (int s = s0; s < s1; ++s) {
         const int* sl = slabs + s * kWideSlabInts;
         double* t = table + sl[5];
@@ -214,11 +226,11 @@ nb_kernel(const __grid_constant__ Cols cols,
         const bool in1 = pair && g1 >= glo && g1 < ghi;
         if (kind == kSlabD) {
           nb_add_d(t, in0 ? g0 - glo : -1, in1 ? g1 - glo : -1, sl[1], sl[4],
-                   d, rows0, rows1, R, lane);
+                   d, Far ? sl[6] : 2, rows0, rows1, R, lane);
         } else {   // codes u_lo .. u_hi of K_j's rows glo .. ghi
           const int ulo = kind == kSlabK ? 0 : sl[3];
-          const int uhi = kind == kSlabK ? cols.size[sl[1]] : sl[4];
-          const int q = slot_of[sl[1]] * R + lane;
+          const int uhi = kind == kSlabK ? sl[7] : sl[4];
+          const int q = sl[6] * R + lane;
           const int v0 = codes0[q], v1 = codes1[q], vw = uhi - ulo;
           add_keyed(t,
                     in0 && v0 >= ulo && v0 < uhi ? (g0 - glo) * vw + v0 - ulo
@@ -268,42 +280,47 @@ __global__ void nb_reduce(const double* __restrict__ partial,
 extern "C" {
 
 // Launches the NB kernel (K6/K6w) and its reduction on `stream` for G
-// groups; rows with other ids add nothing; w == nullptr: weights of one.
+// groups; rows with other ids add nothing; w == nullptr: weights of one;
+// far: the columns' device table (gram_common.cuh: Cols), needed past
+// kInlineCols columns of a kind, else nullptr.
 // Plan: NbPlan's tensors and its
 // shape (kNbPlanInts host ints: tasks, cells, max_cells, max_cols,
-// max_slabs, rows, slices, G). partial: f64 scratch of cells · slices;
-// out: f32[G, F]. Returns 0 or a cudaError_t.
+// max_slabs, rows, slices, G, the stage list's width). partial: f64
+// scratch of cells · slices; out: f32[G, F]. Returns 0 or a cudaError_t.
 int dit_nb_grouped_sums(const void* const* x_cols, int d,
                         const void* const* code_cols, const int* cat_sizes,
-                        int c, const float* w, const int32_t* gid, int64_t n,
+                        int c, const int64_t* far, const float* w,
+                        const int32_t* gid, int64_t n,
                         const int* slabs, const int* warp_begin,
                         const int64_t* task_base, const int* stage_cols,
                         const int* out_index, const int* shape,
                         double* partial, float* out, void* stream) {
   using namespace dit;
-  if (d < 0 || c < 0 || d > kMaxCols || c > kMaxCols) return cudaErrorInvalidValue;
+  if (d < 0 || c < 0 || ((d > kInlineCols || c > kInlineCols) && !far))
+    return cudaErrorInvalidValue;
   for (int j = 0; j < c; ++j)
     if (cat_sizes[j] < 0) return cudaErrorInvalidValue;
   if (n < 0 || n >= (int64_t(1) << 31)) return cudaErrorInvalidValue;
   const NbPlanArgs plan{slabs, warp_begin, task_base, stage_cols, out_index,
                         shape[0], shape[1], shape[2], shape[3], shape[4],
-                        shape[5], shape[6], shape[7]};
+                        shape[5], shape[6], shape[7], shape[8]};
   if (plan.tasks < 1 || plan.cells < 1 || plan.max_cells < 1 ||
       plan.max_cells > kWideTaskBytes / 8 || plan.max_cols < 2 ||
-      plan.max_cols > 2 + 2 * kMaxCols || plan.max_slabs < 1 ||
+      plan.width < plan.max_cols || plan.max_slabs < 1 ||
       plan.max_slabs > kWideMaxSlabs || plan.rows < kWideChunk ||
       plan.rows > kThreads || plan.rows % kWideChunk || plan.slices < 1 ||
       plan.slices > 65535 || plan.G < 1)
     return cudaErrorInvalidValue;
   const size_t smem = nb_smem_bytes(plan);
   if (smem > kWideSmem) return cudaErrorInvalidValue;
-  const Cols cols = make_cols(x_cols, d, code_cols, cat_sizes, c);
+  const Cols cols = make_cols(x_cols, d, code_cols, cat_sizes, c, far);
   auto s = static_cast<cudaStream_t>(stream);
+  const auto kernel = far ? nb_kernel<true> : nb_kernel<false>;
   cudaError_t rc = cudaFuncSetAttribute(
-      nb_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (rc != cudaSuccess) return rc;
-  nb_kernel<<<dim3(plan.tasks, plan.slices), kThreads, smem, s>>>(
+  kernel<<<dim3(plan.tasks, plan.slices), kThreads, smem, s>>>(
       cols, plan, w, gid, n, partial);
   if ((rc = cudaGetLastError()) != cudaSuccess) return rc;
   const int64_t total = (n + kWideChunk - 1) / kWideChunk;

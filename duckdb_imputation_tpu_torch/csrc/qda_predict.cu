@@ -99,7 +99,9 @@ inline size_t qda_smem_bytes(int max_cells, int d, int c, int tile,
 
 struct QdaArgs {
   const float* tables;        // [C][cells]: class c's cells, task after task
-  const int* slabs;           // [S][kWideSlabInts]: kind, p0..p3, off, task, warp
+  // [S][kWideSlabInts]: kind, p0..p3, off, and a C slab's row column's
+  // levels V_k in place of the task (qda_pallas.py: _device_plan)
+  const int* slabs;
   const int* warp_begin;      // [tasks · kWideWarps + 1]: task t's slabs begin
                               // at warp_begin[t · kWideWarps]
   const int64_t* task_base;   // [tasks + 1]: each task's first cell
@@ -118,7 +120,10 @@ struct QdaArgs {
 // misses (a code outside the slab) reads one of the zero cells after the
 // table, as the plain version does, so the rows' chains carry no branch
 // and interleave.
-template <int ROWS, int GROUP>
+// Far: the columns past the parameter's kInlineCols of a kind are read
+// from the columns' device table (Cols' accessors); else straight from
+// the parameter, as a schema of at most kInlineCols columns a kind is.
+template <int ROWS, int GROUP, bool Far>
 __global__ void __launch_bounds__(kQdaThreads)
 qda_kernel(const __grid_constant__ Cols cols, const __grid_constant__ QdaArgs qa,
            int32_t* __restrict__ out) {
@@ -155,19 +160,31 @@ qda_kernel(const __grid_constant__ Cols cols, const __grid_constant__ QdaArgs qa
   for (int64_t row0 = int64_t(blockIdx.x) * tile; row0 < qa.n;
        row0 += int64_t(gridDim.x) * tile) {
     stage_table(0);
-    for (int e = tid; e < tile; e += nt) {
+    // a row's x (f64, less the shift) and codes (i16, −1 outside [0,
+    // size)); every column in the parameter, or through the accessors
+    auto stage_row = [&](int e, auto x_of, auto code_of, auto size_of) {
       const int64_t row = row0 + e;
       const bool valid = row < qa.n;
       for (int j = 0; j < d; ++j) {
         const double sj = qa.shift ? static_cast<double>(qa.shift[j]) : 0.0;
         xs[j * tile + e] =
-            valid ? __dsub_rn(static_cast<double>(cols.x[j][row]), sj) : 0.0;
+            valid ? __dsub_rn(static_cast<double>(x_of(j)[row]), sj) : 0.0;
       }
       for (int j = 0; j < c; ++j) {
-        const int v = valid ? cols.code[j][row] : -1;
+        const int v = valid ? code_of(j)[row] : -1;
         cs[j * tile + e] =
-            static_cast<int16_t>(v >= 0 && v < cols.size[j] ? v : -1);
+            static_cast<int16_t>(v >= 0 && v < size_of(j) ? v : -1);
       }
+    };
+    for (int e = tid; e < tile; e += nt) {
+      if constexpr (Far)
+        stage_row(e, [&](int j) { return cols.xp(j); },
+                  [&](int j) { return cols.cp(j); },
+                  [&](int j) { return cols.sz(j); });
+      else
+        stage_row(e, [&](int j) { return cols.x[j]; },
+                  [&](int j) { return cols.code[j]; },
+                  [&](int j) { return cols.size[j]; });
     }
     double acc[GROUP][ROWS];
     float best_v[ROWS];
@@ -239,7 +256,8 @@ qda_kernel(const __grid_constant__ Cols cols, const __grid_constant__ QdaArgs qa
           }
         } else {                       // key column p0, row column p1, keys
                                        // u ∈ [p2, p3) of p0
-          const int vk = cols.size[p1];
+          // the row column's V_k: in the parameter, or the slab's record
+          const int vk = Far ? __ldg(sl + 6) : cols.size[p1];
           const int16_t* cu = cs + p0 * tile + tid;
           const int16_t* cv = cs + p1 * tile + tid;
 #pragma unroll
@@ -278,7 +296,7 @@ qda_kernel(const __grid_constant__ Cols cols, const __grid_constant__ QdaArgs qa
   }
 }
 
-template <int ROWS, int GROUP>
+template <int ROWS, int GROUP, bool Far>
 int launch_qda(const Cols& cols, const QdaArgs& qa, int threads,
                int32_t* out, cudaStream_t stream) {
   const int tile = threads * ROWS;
@@ -286,11 +304,11 @@ int launch_qda(const Cols& cols, const QdaArgs& qa, int threads,
       qda_smem_bytes(qa.max_cells, cols.d, cols.c, tile, GROUP);
   if (smem > kWideSmem) return cudaErrorInvalidValue;
   cudaError_t rc = cudaFuncSetAttribute(
-      qda_kernel<ROWS, GROUP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      qda_kernel<ROWS, GROUP, Far>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (rc != cudaSuccess) return rc;
   const int64_t blocks = qa.n > 0 ? (qa.n + tile - 1) / tile : 1;
-  qda_kernel<ROWS, GROUP>
+  qda_kernel<ROWS, GROUP, Far>
       <<<static_cast<unsigned>(blocks), threads, smem, stream>>>(cols, qa,
                                                                   out);
   return cudaGetLastError();
@@ -303,16 +321,22 @@ using QdaLaunch = int (*)(const Cols&, const QdaArgs&, int, int32_t*,
 // ring/kernels/_build.py: qda_tile picks: kQdaMaxSums / group rows for
 // 2 or 4 classes a step, else 8, 4, 2 or 1 rows for one (nullptr for any
 // other shape).
-inline QdaLaunch pick_qda(int rows, int group) {
+template <bool Far>
+inline QdaLaunch pick_qda_of(int rows, int group) {
   switch (rows * 8 + group) {
-    case 8 * 8 + 1: return launch_qda<8, 1>;
-    case 4 * 8 + 1: return launch_qda<4, 1>;
-    case 2 * 8 + 1: return launch_qda<2, 1>;
-    case 1 * 8 + 1: return launch_qda<1, 1>;
-    case 4 * 8 + 2: return launch_qda<4, 2>;
-    case 2 * 8 + 4: return launch_qda<2, 4>;
+    case 8 * 8 + 1: return launch_qda<8, 1, Far>;
+    case 4 * 8 + 1: return launch_qda<4, 1, Far>;
+    case 2 * 8 + 1: return launch_qda<2, 1, Far>;
+    case 1 * 8 + 1: return launch_qda<1, 1, Far>;
+    case 4 * 8 + 2: return launch_qda<4, 2, Far>;
+    case 2 * 8 + 4: return launch_qda<2, 4, Far>;
     default: return nullptr;
   }
+}
+
+inline QdaLaunch pick_qda(int rows, int group, bool far) {
+  return far ? pick_qda_of<true>(rows, group)
+             : pick_qda_of<false>(rows, group);
 }
 
 }  // namespace
@@ -329,33 +353,38 @@ extern "C" {
 // (4, 1), (2, 1), (1, 1), (4, 2) or (2, 4)); diag: naive Bayes's tables
 // (`nb_tables`), whose other D and K cells are zero and skipped; shift:
 // f32[d] on the device, taken from each x as it is staged (x − shift in
-// f64: the tables of `nb_tables(center=shift)`), or nullptr; out i32[n].
-// Returns 0 or a cudaError_t.
+// f64: the tables of `nb_tables(center=shift)`), or nullptr; far: the
+// columns' device table (gram_common.cuh: Cols), needed past kInlineCols
+// columns of a kind, else nullptr; out i32[n]. A tile of `threads · rows`
+// rows of x in f64 must fit shared memory beside the tables
+// (_build.py: check_qda states the numeric columns that allows). Returns
+// 0 or a cudaError_t.
 int dit_qda_predict(const void* const* x_cols, int d,
                     const void* const* code_cols, const int* cat_sizes,
-                    int c, const float* tables, const int* slabs,
+                    int c, const int64_t* far, const float* tables,
+                    const int* slabs,
                     const int* warp_begin, const int64_t* task_base, int C,
                     int tasks, int max_cells, int64_t cells, int64_t n,
                     int threads, int rows, int group, int diag,
                     const float* shift, int32_t* out, void* stream) {
   using namespace dit;
-  if (d < 0 || c < 0 || d > kMaxCols || c > kMaxCols)
-    return cudaErrorInvalidValue;
+  if (d < 0 || c < 0) return cudaErrorInvalidValue;
   int P = 1 + d;
   for (int j = 0; j < c; ++j) P += cat_sizes[j];
   // any P of K7's window plans; codes staged as i16
-  if (int rc = check_cols(d, c, cat_sizes, P, n, 1, kMaxWindowP)) return rc;
+  if (int rc = check_cols(d, c, cat_sizes, P, n, 1, kMaxWindowP, far))
+    return rc;
   for (int j = 0; j < c; ++j)
     if (cat_sizes[j] > kQdaMaxLevels) return cudaErrorInvalidValue;
-  const QdaLaunch launch = pick_qda(rows, group);
+  const QdaLaunch launch = pick_qda(rows, group, far != nullptr);
   if (C < 1 || tasks < 1 || max_cells < 1 || max_cells % 4 || cells % 4 ||
       reinterpret_cast<uintptr_t>(tables) % 16 || cells < max_cells ||
       threads < 32 || threads > kQdaThreads || threads % 32 || !launch)
     return cudaErrorInvalidValue;
   const QdaArgs qa{tables, slabs, warp_begin, task_base, C, tasks,
                    max_cells, cells, n, diag != 0, shift};
-  return launch(make_cols(x_cols, d, code_cols, cat_sizes, c), qa, threads,
-                out, static_cast<cudaStream_t>(stream));
+  return launch(make_cols(x_cols, d, code_cols, cat_sizes, c, far), qa,
+                threads, out, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -10,22 +10,26 @@ extern "C" {
 // task_base, stage_cols and entries: the plan (ring/kernels/_build.py:
 // WidePlan) in device memory; shape: its sizes and the slices on the host
 // (WidePlan.shape_ints); partial: f64 scratch of task_base[tasks] ·
-// slices; out: f32[P, P], zeroed. Returns 0 or a cudaError_t.
+// slices; out: f32[P, P], zeroed. far: the columns' device table
+// (gram_common.cuh: Cols), needed past kInlineCols columns of a kind,
+// else nullptr. Returns 0 or a cudaError_t.
 int dit_wide_gram(const void* const* x_cols, int d,
                   const void* const* code_cols, const int* cat_sizes, int c,
-                  const float* w, int64_t n, int P, const int* slabs,
-                  const int* warp_begin, const int64_t* task_base,
-                  const int* stage_cols, const int* entries,
+                  const int64_t* far, const float* w, int64_t n, int P,
+                  const int* slabs, const int* warp_begin,
+                  const int64_t* task_base, const int* stage_cols,
+                  const int* entries,
                   const int* shape, double* partial, float* out,
                   void* stream) {
   using namespace dit;
-  if (int rc = check_cols(d, c, cat_sizes, P, n, 1, kMaxWideP)) return rc;
+  if (int rc = check_cols(d, c, cat_sizes, P, n, 1, kMaxWideP, far))
+    return rc;
   WidePlanArgs plan;
   int slices;
   if (int rc = make_plan(slabs, warp_begin, task_base, stage_cols, entries,
                          shape, plan, slices))
     return rc;
-  const Cols cols = make_cols(x_cols, d, code_cols, cat_sizes, c);
+  const Cols cols = make_cols(x_cols, d, code_cols, cat_sizes, c, far);
   return launch_wide_gram<false>(cols, plan, P, n, nullptr, nullptr, 1,
                                  slices, w, partial, out,
                                  static_cast<cudaStream_t>(stream));
@@ -38,14 +42,16 @@ int dit_wide_gram(const void* const* x_cols, int d,
 // dit_wide_gram. Returns 0 or a cudaError_t.
 int dit_wide_gram_window(const void* const* x_cols, int d,
                          const void* const* code_cols, const int* cat_sizes,
-                         int c, const float* w, int64_t n, int P, int lo,
-                         int width, int64_t ld, const int* slabs,
-                         const int* warp_begin, const int64_t* task_base,
+                         int c, const int64_t* far, const float* w,
+                         int64_t n, int P, int lo, int width, int64_t ld,
+                         const int* slabs, const int* warp_begin,
+                         const int64_t* task_base,
                          const int* stage_cols, const int* entries,
                          const int* shape, double* partial, float* out,
                          void* stream) {
   using namespace dit;
-  if (int rc = check_cols(d, c, cat_sizes, P, n, 1, kMaxWindowP)) return rc;
+  if (int rc = check_cols(d, c, cat_sizes, P, n, 1, kMaxWindowP, far))
+    return rc;
   if (lo < 0 || width < 1 || lo > P - width || ld < width)
     return cudaErrorInvalidValue;
   WidePlanArgs plan;
@@ -53,7 +59,7 @@ int dit_wide_gram_window(const void* const* x_cols, int d,
   if (int rc = make_plan(slabs, warp_begin, task_base, stage_cols, entries,
                          shape, plan, slices))
     return rc;
-  const Cols cols = make_cols(x_cols, d, code_cols, cat_sizes, c);
+  const Cols cols = make_cols(x_cols, d, code_cols, cat_sizes, c, far);
   const OutMap om{ld, 0, lo, false};
   return launch_wide_gram<false>(cols, plan, P, n, nullptr, nullptr, 1,
                                  slices, w, partial, out,
@@ -73,7 +79,8 @@ int dit_wide_gram_window(const void* const* x_cols, int d,
 // scratch of items · max_cells; each map entry (i, j) of group g written
 // to out[g·gstride + i·ld + j − lo], out zeroed by the caller. Returns 0
 // or a cudaError_t.
-int dit_wide_gram_keyed(const int* cat_sizes, int d, int c, int64_t n,
+int dit_wide_gram_keyed(const int* cat_sizes, int d, int c,
+                        const int64_t* far, int64_t n,
                         int P, int lo, int width, int64_t ld,
                         int64_t gstride, const float* rows, int stride,
                         const int64_t* key_off, const int64_t* key_chunks,
@@ -85,7 +92,8 @@ int dit_wide_gram_keyed(const int* cat_sizes, int d, int c, int64_t n,
                         const int* shape, double* partial, float* out,
                         void* stream) {
   using namespace dit;
-  if (int rc = check_cols(d, c, cat_sizes, P, n, 1, kMaxWindowP)) return rc;
+  if (int rc = check_cols(d, c, cat_sizes, P, n, 1, kMaxWindowP, far))
+    return rc;
   if (G < 1 || lo < 0 || width < 1 || lo > P - width || ld < width ||
       (G > 1 && gstride < int64_t(P) * ld) || item_chunks < 1 || items < 0 ||
       items > 0x7fffffff || stride < 1 + d + c)
@@ -99,7 +107,9 @@ int dit_wide_gram_keyed(const int* cat_sizes, int d, int c, int64_t n,
   Cols cols{};            // the sizes alone: the rows come from `rows`
   cols.d = d;
   cols.c = c;
-  for (int j = 0, o = 1 + d; j < c; o += cat_sizes[j], ++j) {
+  cols.far = far;
+  for (int j = 0, o = 1 + d; j < c && j < kInlineCols;
+       o += cat_sizes[j], ++j) {
     cols.size[j] = cat_sizes[j];
     cols.off[j] = o;
   }

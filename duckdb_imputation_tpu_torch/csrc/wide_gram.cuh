@@ -12,7 +12,7 @@
 //
 // A row of Z has only k = 1 + d + c nonzeros, so S's nonzero structure is
 // fixed by the schema (ring/kernels/_build.py: WidePlan):
-//   D     the (1+d)×(1+d) block of [1 ‖ x]: dense, small (1 + d ≤ 65);
+//   D     the (1+d)×(1+d) block of [1 ‖ x]: dense;
 //   K_j   per categorical column j, Σ_{c_j = v} w·[1, x], (1+d) × V_j; its
 //         row of counts is also the diagonal of j's one-hot block;
 //   C_jk  per pair j < k, Σ_{c_j = u, c_k = v} w, V_j × V_k;
@@ -112,7 +112,7 @@ constexpr int kWideTaskBytes = 64 * 1024;    // f64 tables of one task
 constexpr int kWideSlabInts = 8;             // ints of a slab record
 constexpr int kWideMaxSlabs = 256;           // slabs of one task
 constexpr int kWideSmem = 227 * 1024;        // shared memory of a block
-constexpr int kWidePlanInts = 7;             // ints of the plan's shape
+constexpr int kWidePlanInts = 8;             // ints of the plan's shape
 constexpr int kKeyedTaskInts = 3;           // ints of a keyed task: J, u_lo, u_hi
 constexpr int kSlabD = 0;   // (D, a, b_lo, b_hi): cells (a, b_lo .. b_hi)
 constexpr int kSlabK = 1;   // (K, j, v_lo, v_hi): [v − v_lo][1 + d]
@@ -120,18 +120,27 @@ constexpr int kSlabC = 2;   // (C, j, k, u_lo, u_hi): [u − u_lo][V_k]
 // (CR, j, k, v_lo, v_hi): [u − u_lo][v − v_lo], u in the keyed task's keys
 // [u_lo, u_hi) (a window's keyed tasks only)
 constexpr int kSlabCR = 3;
+// (CM, j, k_lo, k_hi): [u][Σ_{k_lo ≤ k < k_hi} V_k], every C_jk of the row
+// columns k_lo .. k_hi − 1 side by side, cell u·W + off_k − off_{k_lo} + v
+// (W the sum): many small cross tables as one slab (one-level null flags)
+constexpr int kSlabCM = 4;
 
 static_assert(kWideChunk == 32, "one row a lane of a warp");
 
 // The host's plan (ring/kernels/_build.py: WidePlan): its tensors in
 // device memory and its shape.
 struct WidePlanArgs {
-  const int* slabs;          // [S][kWideSlabInts]: kind, p0..p3, off, task, warp
+  // [S][kWideSlabInts]: kind, p0..p3, off, and the stage slots the slab
+  // reads; a C slab's p1 is its row column's levels V_k (_build.py:
+  // WidePlan.device_slabs)
+  const int* slabs;
   const int* warp_begin;     // [tasks · kWideWarps + 1]
   const int64_t* task_base;  // [tasks + 1]: each task's first flat cell
-  const int* stage_cols;     // [tasks][1 + kMaxCols]: count, code columns
+  // [tasks][width]: nx, nc, the numeric then the code columns the task
+  // stages (ascending each)
+  const int* stage_cols;
   const int* entries;        // [nentries][4]: task, cell, i, j (i ≤ j)
-  int tasks, nentries, max_cells, max_cols, max_slabs, rows;
+  int tasks, nentries, max_cells, max_cols, max_slabs, rows, width;
 };
 
 // The keyed part of a window (_build.py: KeyedPlan, window_order): rows
@@ -158,13 +167,19 @@ __host__ __device__ __forceinline__ int64_t chunks_per_slice(int64_t total,
   return cps > 0 ? cps : 1;
 }
 
+// The cells a CM slab's key holds: its row columns' levels, side by side.
+__device__ __forceinline__ int cm_width(const int* sl, const Cols& cols) {
+  return cols.of(sl[3] - 1) + cols.sz(sl[3] - 1) - cols.of(sl[2]);
+}
+
 // keys: the keyed task's key count (a CR slab's rows of cells)
 __device__ __forceinline__ int slab_cells(const int* sl, const Cols& cols,
                                           int keys) {
   if (sl[0] == kSlabD) return sl[3] - sl[2];
   if (sl[0] == kSlabK) return (sl[3] - sl[2]) * (1 + cols.d);
   if (sl[0] == kSlabCR) return keys * (sl[4] - sl[3]);
-  return (sl[4] - sl[3]) * cols.size[sl[2]];
+  if (sl[0] == kSlabCM) return cols.sz(sl[1]) * cm_width(sl, cols);
+  return (sl[4] - sl[3]) * sl[2];            // C: p1 holds V_k
 }
 
 // 4 bytes global → shared, asynchronously (cp.async), or `zero` when the
@@ -238,9 +253,11 @@ __device__ __forceinline__ void add_keyed(double* table, int key0, int key1,
 // One warp's update of a D slab, cells (a, b) for b in [lo, hi), nc =
 // hi − lo ≤ 32: lane = cell · P2 + part, P2 the largest power of two with
 // nc · P2 ≤ 32; a part sums rows part, part + P2, … and a butterfly over
-// the parts leaves the cell's sum in part 0.
-__device__ __forceinline__ void add_dense(double* table, int a, int lo,
-                                          int hi, const float* rows, int R,
+// the parts leaves the cell's sum in part 0. x_a lies at stage slot sa,
+// x_b at sb + b (a task staging every numeric column: sa = a, sb = 0).
+__device__ __forceinline__ void add_dense(double* table, int a, int sa,
+                                          int lo, int hi, int sb,
+                                          const float* rows, int R,
                                           int lane) {
   const int nc = hi - lo;
   int p2 = kWideChunk;
@@ -250,8 +267,8 @@ __device__ __forceinline__ void add_dense(double* table, int a, int lo,
   if (e < nc) {
     const int b = lo + e;
     for (int r = part; r < kWideChunk; r += p2) {
-      const float va = a == 0 ? rows[r] : rows[a * R + r] * rows[r];
-      s += va * (b == 0 ? 1.0f : rows[b * R + r]);
+      const float va = a == 0 ? rows[r] : rows[sa * R + r] * rows[r];
+      s += va * (b == 0 ? 1.0f : rows[(sb + b) * R + r]);
     }
   }
   for (int d = 1; d < p2; d <<= 1) s += __shfl_xor_sync(0xffffffffu, s, d);
@@ -273,8 +290,9 @@ __device__ __forceinline__ void add_dense(double* table, int a, int lo,
 //
 // A block stages plan.rows rows (rows / 32 chunks) a step into one of two
 // buffers with cp.async, the next step's copies in flight while its warps
-// walk the current one; a step's buffer holds, column by column, w, x (if
-// the task has a D or K slab) and the task's code columns.
+// walk the current one; a step's buffer holds, column by column, w, the
+// numeric columns its task reads (all of them for a K slab) and its code
+// columns, each slab reading them at the stage slots of its record.
 template <bool Grouped, bool Keyed>
 __global__ void __launch_bounds__(kThreads)
 wide_gram_kernel(const __grid_constant__ Cols cols,
@@ -308,7 +326,7 @@ wide_gram_kernel(const __grid_constant__ Cols cols,
     slice = 0;
     const int* tk = key.task_keys + task * kKeyedTaskInts;
     const int64_t base =
-        key.off_of[tk[0]] + int64_t(a % key.G) * cols.size[tk[0]];
+        key.off_of[tk[0]] + int64_t(a % key.G) * cols.sz(tk[0]);
     koff = key.key_off + base;
     kcum = key.key_chunks + base;
     const int64_t m = key.item_chunks;
@@ -330,30 +348,22 @@ wide_gram_kernel(const __grid_constant__ Cols cols,
   const int cells = static_cast<int>(plan.task_base[task + 1] - tbase);
   const int sb = plan.warp_begin[task * kWideWarps];
   const int nslabs = plan.warp_begin[(task + 1) * kWideWarps] - sb;
-  const int* tcols = plan.stage_cols + task * (1 + kMaxCols);
-  const int ncodes = tcols[0];
+  const int* tcols = plan.stage_cols + int64_t(task) * plan.width;
+  const int xcols = tcols[0], ncodes = tcols[1];
 
   double* table = wide_smem;                                  // [cells]
   float* stage = reinterpret_cast<float*>(wide_smem + plan.max_cells);
   int* slabs = reinterpret_cast<int*>(stage + 2 * plan.max_cols * R);
-  int* code_col = slabs + plan.max_slabs * kWideSlabInts;     // [kMaxCols]
-  int* slot_of = code_col + kMaxCols;                         // [kMaxCols]
-  int* sub_g = slot_of + kMaxCols;                            // [2][kWideSubs]
+  int* scol = slabs + plan.max_slabs * kWideSlabInts;  // [xcols + ncodes]
+  int* sub_g = scol + plan.width;                      // [2][kWideSubs]
 
   for (int e = tid; e < cells; e += kThreads) table[e] = 0.0;
-  bool has_x = false;
-  for (int e = tid; e < nslabs * kWideSlabInts; e += kThreads) {
-    const int v = plan.slabs[sb * kWideSlabInts + e];
-    slabs[e] = v;
-    if (e % kWideSlabInts == 0) has_x |= v == kSlabD || v == kSlabK;
-  }
-  for (int q = tid; q < ncodes; q += kThreads) {
-    code_col[q] = tcols[1 + q];
-    slot_of[tcols[1 + q]] = q;
-  }
-  const bool need_x = __syncthreads_or(has_x);
-  const int xcols = need_x ? cols.d : 0;
+  for (int e = tid; e < nslabs * kWideSlabInts; e += kThreads)
+    slabs[e] = plan.slabs[sb * kWideSlabInts + e];
+  for (int q = tid; q < xcols + ncodes; q += kThreads) scol[q] = tcols[2 + q];
+  const int* code_col = scol + xcols;
   const int cbase = 1 + xcols;                  // stage slot of code 0
+  __syncthreads();
 
   const int64_t total =
       Grouped ? cum[G] : (n + kWideChunk - 1) / kWideChunk;
@@ -396,16 +406,24 @@ wide_gram_kernel(const __grid_constant__ Cols cols,
         const float* r = src + row * key.stride;
         stage4(buf, r, valid, 0.0f);
         for (int j = 0; j < xcols; ++j)
-          stage4(buf + (1 + j) * R, r + 1 + j, valid, 0.0f);
+          stage4(buf + (1 + j) * R, r + 1 + scol[j], valid, 0.0f);
         for (int q = 0; q < ncodes; ++q)
           stage4(buf + (cbase + q) * R, r + 1 + cols.d + code_col[q],
                  valid, __int_as_float(-1));
+      } else if (cols.far == nullptr) {   // every column in the parameter
+        stage4(buf, w + row, valid, 0.0f);
+        for (int j = 0; j < xcols; ++j)   // every numeric column: scol[j] = j
+          stage4(buf + (1 + j) * R,
+                 cols.x[xcols == cols.d ? j : scol[j]] + row, valid, 0.0f);
+        for (int q = 0; q < ncodes; ++q)
+          stage4(buf + (cbase + q) * R, cols.code[code_col[q]] + row, valid,
+                 __int_as_float(-1));
       } else {
         stage4(buf, w + row, valid, 0.0f);
         for (int j = 0; j < xcols; ++j)
-          stage4(buf + (1 + j) * R, cols.x[j] + row, valid, 0.0f);
+          stage4(buf + (1 + j) * R, cols.xp(scol[j]) + row, valid, 0.0f);
         for (int q = 0; q < ncodes; ++q)
-          stage4(buf + (cbase + q) * R, cols.code[code_col[q]] + row, valid,
+          stage4(buf + (cbase + q) * R, cols.cp(code_col[q]) + row, valid,
                  __int_as_float(-1));
       }
     }
@@ -450,24 +468,25 @@ wide_gram_kernel(const __grid_constant__ Cols cols,
       const bool pair = k + 1 < nsub && (!Grouped || gsub[k + 1] == cur);
       const float* rows0 = buf + k * kWideChunk;
       const float* rows1 = pair ? rows0 + kWideChunk : rows0;
-      const int* codes0 = reinterpret_cast<const int*>(rows0) + cbase * R;
-      const int* codes1 = reinterpret_cast<const int*>(rows1) + cbase * R;
+      const int* codes0 = reinterpret_cast<const int*>(rows0);
+      const int* codes1 = reinterpret_cast<const int*>(rows1);
       for (int s = s0; s < s1; ++s) {
         const int* sl = slabs + s * kWideSlabInts;
         double* t = table + sl[5];
         if (sl[0] == kSlabD) {
-          add_dense(t, sl[1], sl[2], sl[3], rows0, R, lane);
-          if (pair) add_dense(t, sl[1], sl[2], sl[3], rows1, R, lane);
+          add_dense(t, sl[1], sl[6], sl[2], sl[3], sl[7], rows0, R, lane);
+          if (pair)
+            add_dense(t, sl[1], sl[6], sl[2], sl[3], sl[7], rows1, R, lane);
         } else if (sl[0] == kSlabK) {
-          const int q = slot_of[sl[1]] * R + lane;
+          const int q = sl[6] * R + lane;
           const int v0 = codes0[q], v1 = codes1[q];
           add_keyed(t, v0 >= sl[2] && v0 < sl[3] ? v0 - sl[2] : -1,
                     pair && v1 >= sl[2] && v1 < sl[3] ? v1 - sl[2] : -1,
                     1 + cols.d, rows0, rows1, R, lane);
         } else if (Keyed && sl[0] == kSlabCR) {
           const int nv = sl[4] - sl[3];
-          const int qu = slot_of[sl[1]] * R + lane;
-          const int qv = slot_of[sl[2]] * R + lane;
+          const int qu = sl[6] * R + lane;
+          const int qv = sl[7] * R + lane;
           const int u0 = codes0[qu] - ku_lo, v0 = codes0[qv] - sl[3];
           const int u1 = codes1[qu] - ku_lo, v1 = codes1[qv] - sl[3];
           add_keyed(t,
@@ -476,10 +495,29 @@ wide_gram_kernel(const __grid_constant__ Cols cols,
                     pair && u1 >= 0 && u1 < nkeys && v1 >= 0 && v1 < nv
                         ? u1 * nv + v1 : -1,
                     1, rows0, rows1, R, lane);
+        } else if (sl[0] == kSlabCM) {
+          // each row column k in turn, as a C slab of its own over all of
+          // column sl[1]'s keys, at its cells' place in the key's row
+          const int vu = cols.sz(sl[1]), width = cm_width(sl, cols);
+          const int qu = sl[6] * R + lane;
+          const int u0 = codes0[qu], u1 = codes1[qu];
+          const bool in0 = u0 >= 0 && u0 < vu;
+          const bool in1 = pair && u1 >= 0 && u1 < vu;
+          const int o0 = cols.of(sl[2]);
+          for (int k = sl[2]; k < sl[3]; ++k) {
+            const int vk = cols.sz(k), at = cols.of(k) - o0;
+            const int qv = (sl[7] + k - sl[2]) * R + lane;
+            const int v0 = codes0[qv], v1 = codes1[qv];
+            add_keyed(t,
+                      in0 && v0 >= 0 && v0 < vk ? u0 * width + at + v0 : -1,
+                      in1 && v1 >= 0 && v1 < vk ? u1 * width + at + v1 : -1,
+                      1, rows0, rows1, R, lane);
+            __syncwarp();
+          }
         } else {
-          const int vk = cols.size[sl[2]];
-          const int qu = slot_of[sl[1]] * R + lane;
-          const int qv = slot_of[sl[2]] * R + lane;
+          const int vk = sl[2];                 // C: the row column's V_k
+          const int qu = sl[6] * R + lane;
+          const int qv = sl[7] * R + lane;
           const int u0 = codes0[qu], v0 = codes0[qv];
           const int u1 = codes1[qu], v1 = codes1[qv];
           add_keyed(t,
@@ -567,25 +605,25 @@ __global__ void wide_gram_keyed_reduce(const double* __restrict__ partial,
 // Mirrored by ring/kernels/_build.py: wide_smem_bytes.
 inline size_t wide_smem_bytes(const WidePlanArgs& plan) {
   return sizeof(double) * plan.max_cells +
-         sizeof(float) * (2 * plan.max_cols * plan.rows +
-                          kWideSlabInts * plan.max_slabs + 2 * kMaxCols +
+         sizeof(float) * (2 * size_t(plan.max_cols) * plan.rows +
+                          kWideSlabInts * plan.max_slabs + plan.width +
                           2 * kWideSubs);
 }
 
 // The plan's arguments: its device tensors and its shape (host ints:
-// tasks, nentries, max_cells, max_cols, max_slabs, rows, slices). 0 or a
-// cudaError_t.
+// tasks, nentries, max_cells, max_cols, max_slabs, rows, slices, the
+// stage list's width). 0 or a cudaError_t.
 inline int make_plan(const int* slabs, const int* warp_begin,
                      const int64_t* task_base, const int* stage_cols,
                      const int* entries, const int* shape,
                      WidePlanArgs& plan, int& slices) {
   plan = WidePlanArgs{slabs, warp_begin, task_base, stage_cols, entries,
                       shape[0], shape[1], shape[2], shape[3], shape[4],
-                      shape[5]};
+                      shape[5], shape[7]};
   slices = shape[6];
   if (plan.tasks < 1 || plan.nentries < 1 || plan.max_cells < 1 ||
       plan.max_cells > kWideTaskBytes / 8 || plan.max_cols < 1 ||
-      plan.max_cols > 1 + 2 * kMaxCols || plan.max_slabs < 1 ||
+      plan.width < plan.max_cols + 1 || plan.max_slabs < 1 ||
       plan.max_slabs > kWideMaxSlabs || plan.rows < kWideChunk ||
       plan.rows > kThreads || plan.rows % kWideChunk)
     return cudaErrorInvalidValue;

@@ -62,11 +62,18 @@ constexpr int kOrderMaxWarps = 1;           // warps of an order block:
                                             // as many as shared memory
                                             // holds share an SM
 constexpr int kOrderSmem = 227 * 1024;      // shared memory of a block
-constexpr int kOrderMaxCols = 1 + 64 + 64;  // w, x and codes (kMaxCols each)
+// columns the kernel parameter holds: w, and 88 numeric and 88 code
+// columns (gram_common.cuh: kInlineCols each); past them `far`
+constexpr int kOrderInline = 1 + 88 + 88;
 
 struct OrderCols {
-  const int32_t* col[kOrderMaxCols];   // w, x, codes as 4-byte words
+  const int32_t* col[kOrderInline];   // w, x, codes as 4-byte words
+  const int64_t* far;   // every column, in device memory, past kOrderInline
   int ncols;
+  __device__ __forceinline__ const int32_t* at(int q) const {
+    return q < kOrderInline ? col[q]
+                            : reinterpret_cast<const int32_t*>(far[q]);
+  }
 };
 
 // Ints of shared memory an order warp keeps: V counters (positions), and
@@ -161,7 +168,7 @@ __global__ void order_scatter_kernel(const int V, const int key_col,
     int* r = rows + (b * 32 + lane) * pitch;
     const int64_t i = at + lane;
     for (int q = 0; q < stride; ++q) {
-      if (q < src.ncols && i < seg.hi) order_copy4(r + q, src.col[q] + i);
+      if (q < src.ncols && i < seg.hi) order_copy4(r + q, src.at(q) + i);
       else r[q] = 0;
     }
     asm volatile("cp.async.commit_group;\n" ::);
@@ -253,20 +260,27 @@ int dit_order_count(const int32_t* code, int V, const int64_t* off, int G,
 // segment-major as dit_order_count's counts, the row where segment s's
 // rows of key (g, u) begin (the exclusive scan of the counts in (key,
 // segment) order); out's rows past the rows with a key are not written.
-// Other arguments as dit_order_count. Returns 0 or a cudaError_t.
+// far: the `cols` pointers in device memory (int64, `cols`' order; the
+// x part of _build.py: far_table), needed past kOrderInline columns. A warp stages two chunks of 32 rows
+// of `stride` ints: stride and V must leave one warp's order_warp_ints in
+// shared memory (_build.py: check_order_stride). Other arguments as
+// dit_order_count. Returns 0 or a cudaError_t.
 int dit_order_scatter(int key_col, int V, const int64_t* off, int G,
                       int64_t n, int S, const int32_t* start,
-                      const void* const* cols, int ncols, int stride,
-                      int32_t* out, void* stream) {
+                      const void* const* cols, int ncols,
+                      const int64_t* far, int stride, int32_t* out,
+                      void* stream) {
   using namespace dit;
   if (int rc = check_order(V, off, G, n, S)) return rc;
-  if (ncols < 1 || ncols > kOrderMaxCols || stride < ncols || stride % 4 ||
+  if (ncols < 1 || (ncols > kOrderInline && far == nullptr) ||
+      stride < ncols || stride % 4 ||
       key_col < 0 || key_col >= ncols ||
       reinterpret_cast<uintptr_t>(out) % 16 || order_warps(V, stride) < 1)
     return cudaErrorInvalidValue;
   OrderCols src{};
   src.ncols = ncols;
-  for (int q = 0; q < ncols; ++q)
+  src.far = far;
+  for (int q = 0; q < ncols && q < kOrderInline; ++q)
     src.col[q] = static_cast<const int32_t*>(cols[q]);
   return launch_order(order_scatter_kernel, V, stride, G, S,
                       static_cast<cudaStream_t>(stream), V, key_col, off,

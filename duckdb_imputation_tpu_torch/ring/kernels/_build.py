@@ -18,6 +18,7 @@ import ctypes
 import dataclasses
 import functools
 import hashlib
+import itertools
 import os
 import shutil
 import subprocess
@@ -75,20 +76,24 @@ WIDE_MAX_SLABS = 256  # kWideMaxSlabs (wide_gram.cuh): slabs of one task
 WIDE_STAGE_ROWS = 256  # kThreads (gram_common.cuh): most rows a block
                        # stages a step, one a thread
 WIDE_SMEM = 227 * 1024  # kWideSmem (wide_gram.cuh): a block's shared memory
-WIDE_PLAN_INTS = 7   # kWidePlanInts (wide_gram.cuh): WidePlan.shape_ints
+WIDE_PLAN_INTS = 8   # kWidePlanInts (wide_gram.cuh): WidePlan.shape_ints
 KEYED_TASK_INTS = 3  # kKeyedTaskInts (wide_gram.cuh): KeyedPlan.task_keys
 ITEM_MIN_CHUNKS = 8  # fewest chunks of the blocks keyed work items are
                      # cut at (`item_chunks`): a block's stage
 ORDER_WARPS = 2048   # warps of an order pass (window_order.cu), about: a
                      # segment of a group's rows each
 ORDER_CELLS = 1 << 23  # most (key, segment) counters of an order pass
-MAX_COLS = 64        # kMaxCols (gram_common.cuh), numeric and categorical
+INLINE_COLS = 88     # kInlineCols (gram_common.cuh): columns of each kind
+                     # the kernels' parameter holds; past them a wide
+                     # kernel reads the columns' device table (`far_table`),
+                     # and a narrow kernel (P ≤ 88) never needs it
+ORDER_INLINE = 1 + 2 * INLINE_COLS  # kOrderInline (window_order.cu)
 MAX_UNSORTED_GROUPS = 8  # kMaxUnsortedGroups (grouped_gram.cu): K4's G
 ORDER_BLOCKS = 1024      # kOrderBlocks (grouped_gram.cu): most blocks of
                          # K4's group order
 ORDER_MIN_CHUNKS = 8     # kOrderMinChunks (grouped_gram.cu): fewest chunks
                          # of CHUNK_ROWS rows an order block takes
-NB_PLAN_INTS = 8         # kNbPlanInts (nb_grouped_sums.cu): NbPlan.shape_ints
+NB_PLAN_INTS = 9         # kNbPlanInts (nb_grouped_sums.cu): NbPlan.shape_ints
 NB_SLAB_CODES = 3        # kNbSlabCodes (nb_grouped_sums.cu): the NB plan's
                          # slab of a code range of one group's row of K_j
 IMP_THREADS = 1024       # kImpThreads (fused_impute_aggregate.cu): threads
@@ -158,38 +163,40 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.dit_presorted_gram.argtypes = [p, i, p, p, i, p, p, p, i, i64, i, p,
                                        i, p, p]
     lib.dit_presorted_gram.restype = i
-    lib.dit_nb_grouped_sums.argtypes = [p, i, p, p, i, p, p, i64, p, p, p,
-                                        p, p, p, p, p, p]
+    lib.dit_nb_grouped_sums.argtypes = [p, i, p, p, i, p, p, p, i64, p, p,
+                                        p, p, p, p, p, p, p]
     lib.dit_nb_grouped_sums.restype = i
-    lib.dit_qda_predict.argtypes = [p, i, p, p, i, p, p, p, p, i, i, i,
+    lib.dit_qda_predict.argtypes = [p, i, p, p, i, p, p, p, p, p, i, i, i,
                                     i64, i64, i, i, i, i, p, p, p]
     lib.dit_qda_predict.restype = i
     plan = [p] * 6   # WidePlan's tensors and its shape_ints
-    lib.dit_grouped_wide_gram.argtypes = [p, i, p, p, i, p, p, p, i, i64, i,
-                                          *plan, p, p, p]
+    lib.dit_grouped_wide_gram.argtypes = [p, i, p, p, i, p, p, p, p, i, i64,
+                                          i, *plan, p, p, p]
     lib.dit_grouped_wide_gram.restype = i
     lib.dit_grouped_wide_gram_window.argtypes = [
-        p, i, p, p, i, p, p, p, i, i64, i, i, i, i64, i64, *plan, p, p, p]
+        p, i, p, p, i, p, p, p, p, i, i64, i, i, i, i64, i64, *plan, p, p, p]
     lib.dit_grouped_wide_gram_window.restype = i
-    lib.dit_wide_gram.argtypes = [p, i, p, p, i, p, i64, i, *plan, p, p, p]
+    lib.dit_wide_gram.argtypes = [p, i, p, p, i, p, p, i64, i, *plan, p, p,
+                                  p]
     lib.dit_wide_gram.restype = i
-    lib.dit_wide_gram_window.argtypes = [p, i, p, p, i, p, i64, i, i, i, i64,
-                                         *plan, p, p, p]
+    lib.dit_wide_gram_window.argtypes = [p, i, p, p, i, p, p, i64, i, i, i,
+                                         i64, *plan, p, p, p]
     lib.dit_wide_gram_window.restype = i
-    lib.dit_wide_gram_keyed.argtypes = [p, i, i, i64, i, i, i, i64, i64,
+    lib.dit_wide_gram_keyed.argtypes = [p, i, i, p, i64, i, i, i, i64, i64,
                                         p, i, p, p, p, p, p, p, i, i, i64,
                                         *plan, p, p, p]
     lib.dit_wide_gram_keyed.restype = i
     lib.dit_order_count.argtypes = [p, i, p, i, i64, i, p, p]
     lib.dit_order_count.restype = i
-    lib.dit_order_scatter.argtypes = [i, i, p, i, i64, i, p, p, i, i, p, p]
+    lib.dit_order_scatter.argtypes = [i, i, p, i, i64, i, p, p, i, p, i, p,
+                                      p]
     lib.dit_order_scatter.restype = i
     lib.dit_fused_impute_aggregate_wide.argtypes = [
-        p, i, p, p, i, p, p, p, p, i, i, i, p, i, u32, u32, u32, i64, p,
+        p, i, p, p, i, p, p, p, p, p, p, i, i, i, p, i, u32, u32, u32, i64, p,
         i64, i, *plan, p, p, p, p, p]
     lib.dit_fused_impute_aggregate_wide.restype = i
     lib.dit_impute_wide.argtypes = [
-        p, i, p, p, i, p, p, p, i, i, i, i, p, i, u32, u32, u32, i64, p,
+        p, i, p, p, i, p, p, p, p, i, i, i, i, p, i, u32, u32, u32, i64, p,
         i64, i, p, p, p]
     lib.dit_impute_wide.restype = i
     lib.dit_gram_entries.argtypes = [i]
@@ -268,13 +275,11 @@ def check_schema(schema, n: int, max_sigma: int = MAX_SIGMA_SIZE) -> None:
     """Raise ValueError for a schema or row count the kernels do not take.
     max_sigma: MAX_SIGMA_SIZE for the narrow kernels alone (K1, K2, K4,
     K5), MAX_WIDE_SIGMA_SIZE for the wrappers that switch to their wide
-    kernels above MAX_SIGMA_SIZE (K7, K2w, K8)."""
+    kernels above MAX_SIGMA_SIZE (K7, K2w, K8). Any number of columns:
+    P bounds them."""
     if schema.sigma_size > max_sigma:
         raise ValueError(f"sigma size {schema.sigma_size} > {max_sigma}"
                          f" is not supported by this kernel")
-    if schema.num_cols > MAX_COLS or schema.cat_cols > MAX_COLS:
-        raise ValueError(f"more than {MAX_COLS} numeric or categorical "
-                         f"columns is not supported by the Gram kernels")
     if n >= 1 << 31:
         raise ValueError(f"{n} rows: the Gram kernels take fewer than 2^31")
 
@@ -297,10 +302,9 @@ def nb_features(schema) -> int:
 
 
 def check_nb(schema, n: int) -> None:
-    """Raise ValueError for an NB schema or row count K6/K6w do not take."""
-    if schema.num_cols > MAX_COLS or schema.cat_cols > MAX_COLS:
-        raise ValueError(f"more than {MAX_COLS} numeric or categorical "
-                         f"columns is not supported by the NB kernel")
+    """Raise ValueError for an NB schema or row count K6/K6w do not take:
+    any number of columns and groups (the plan, `nb_plan`, raises where a
+    task cannot stage its columns in shared memory)."""
     if n >= 1 << 31:
         raise ValueError(f"{n} rows: the NB kernel takes fewer than 2^31")
 
@@ -356,24 +360,83 @@ def qda_tile(schema, plan: "WidePlan", num_classes: int
 def check_qda(schema, num_classes: int, n: int, cross: bool = True
               ) -> None:
     """Raise ValueError for a schema, class count or row count K3/K3w do
-    not take: P ≤ MAX_WINDOW_SIGMA_SIZE and MAX_COLS numeric and
-    categorical columns, as K7's window plans; at most QDA_MAX_LEVELS
-    levels a column (the staged codes are i16); and a plan
+    not take: P ≤ MAX_WINDOW_SIGMA_SIZE, as K7's window plans; at most
+    QDA_MAX_LEVELS levels a column (the staged codes are i16); a plan
     (`qda_plan`): of each pair of categorical columns the narrower at most
-    a task's cells (`cross`: QDA's plan, not naive Bayes's)."""
+    a task's cells (`cross`: QDA's plan, not naive Bayes's); and a tile of
+    32 rows of x in f64 and the codes beside two buffers of a task's
+    tables in shared memory (`qda_max_numeric`: d ≤ 680 or so)."""
     if num_classes < 1:
         raise ValueError(f"{num_classes} classes: at least 1 is needed")
     check_schema(schema, n, MAX_WINDOW_SIGMA_SIZE)
     if schema.cat_sizes and max(schema.cat_sizes) > QDA_MAX_LEVELS:
         raise ValueError(f"a categorical column of {max(schema.cat_sizes)} "
                          f"levels: K3/K3w take at most {QDA_MAX_LEVELS}")
-    if cross:
-        qda_task_cells(tuple(schema.cat_sizes))
+    cells = (qda_task_cells(tuple(schema.cat_sizes)) if cross
+             else QDA_TASK_CELLS)
+    if qda_smem_bytes(cells, schema, 32) > WIDE_SMEM:
+        raise ValueError(
+            f"{schema.num_cols} numeric and {schema.cat_cols} categorical "
+            f"columns: K3/K3w stage a tile of 32 rows of x in f64 beside a "
+            f"task's tables, at most {qda_max_numeric(schema.cat_cols, cells)}"
+            f" numeric columns beside {schema.cat_cols} categorical ones")
+
+
+def qda_max_numeric(cat_cols: int, cells: int = QDA_TASK_CELLS) -> int:
+    """The most numeric columns K3/K3w take beside `cat_cols` categorical
+    ones at tasks of `cells` cells: a tile of 32 rows of x (f64) and codes
+    (i16) and two buffers of a task's tables fit shared memory."""
+    d = 0
+    while (4 * 2 * (cells + (2 + d + 3) // 4 * 4)
+           + 32 * (8 * (d + 1) + 2 * cat_cols)) <= WIDE_SMEM:
+        d += 1
+    return d
 
 
 def pointers(tensors):
     """A C array of the tensors' data pointers."""
     return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
+
+
+_FAR_TABLES: dict = {}
+_FAR_KEEP = 64
+
+
+def far_table(x_cols, code_cols, sizes, device) -> int:
+    """The device address of the columns' table (gram_common.cuh: Cols),
+    or 0 where every kind has at most INLINE_COLS columns (the kernel
+    parameter holds them all): int64 [x pointers (d) | code pointers (c) |
+    sizes (c) | sigma offsets (c)] on `device`, copied once for a set of
+    column addresses and kept (the last _FAR_KEEP sets; an address names
+    the column a caller passes now, so a kept table never goes stale),
+    one for each stream: its copy is ordered before the launches on the
+    current stream."""
+    d, c = len(x_cols), len(code_cols)
+    if d <= INLINE_COLS and c <= INLINE_COLS:
+        return 0
+    ptrs = [t.data_ptr() for t in x_cols] + [t.data_ptr() for t in code_cols]
+    key = (str(device), torch.cuda.current_stream(device).cuda_stream,
+           tuple(ptrs), tuple(sizes))
+    table = _FAR_TABLES.pop(key, None)
+    if table is None:
+        offs, o = [], 1 + d
+        for v in sizes:
+            offs.append(o)
+            o += v
+        table = torch.tensor(ptrs + list(sizes) + offs, dtype=torch.int64
+                             ).to(device, non_blocking=True)
+        while len(_FAR_TABLES) >= _FAR_KEEP:
+            _FAR_TABLES.pop(next(iter(_FAR_TABLES)))
+    _FAR_TABLES[key] = table
+    return table.data_ptr()
+
+
+def column_args(x_cols, code_cols, sizes, device) -> tuple:
+    """The columns as the C entry points take them: (x pointers, d, code
+    pointers, sizes, c, the columns' table or 0: `far_table`)."""
+    return (pointers(x_cols), len(x_cols), pointers(code_cols),
+            int_array(sizes), len(sizes),
+            far_table(x_cols, code_cols, sizes, device))
 
 
 def int_array(values):
@@ -488,9 +551,15 @@ def group_chunks(offsets: torch.Tensor, rows: int) -> torch.Tensor:
     return torch.cat([chunks.new_zeros(1), torch.cumsum(chunks, 0)])
 
 
-# Slab kinds of the wide plan, kSlabD, kSlabK, kSlabC and kSlabCR
-# (wide_gram.cuh; CR only in a window's keyed tasks)
-SLAB_D, SLAB_K, SLAB_C, SLAB_CR = 0, 1, 2, 3
+# Slab kinds of the wide plan, kSlabD, kSlabK, kSlabC, kSlabCR and kSlabCM
+# (wide_gram.cuh; CR only in a window's keyed tasks, CM only where a schema
+# has more than CM_TABLES cross tables)
+SLAB_D, SLAB_K, SLAB_C, SLAB_CR, SLAB_CM = 0, 1, 2, 3, 4
+CM_TABLES = 4096     # cross tables past which the small ones of one key
+                     # column merge into CM slabs (`_cross_runs`): SECOM's
+                     # stream fold has 173,755 of one cell (590 null flags)
+CM_SMALL = 64        # most cells of a cross table a CM slab takes
+CM_MAX_COLS = 128    # most row columns of a CM slab
 
 
 @dataclasses.dataclass(frozen=True)
@@ -508,7 +577,11 @@ class WidePlan:
             v_lo) + v − v_lo in the scorer's plan, `scorer`); row a = 0
             holds the code counts, also the diagonal of j's one-hot block;
       C_jk  per pair j < k, Σ_{c_j=u, c_k=v} w: slabs (C, j, k, u_lo,
-            u_hi), cell (u − u_lo)·V_k + v;
+            u_hi), cell (u − u_lo)·V_k + v; where a schema has more than
+            CM_TABLES of them, the small tables of one key column j whose
+            row columns k_lo .. k_hi − 1 follow each other are one slab
+            (CM, j, k_lo, k_hi), cell u·W + off_k − off_{k_lo} + v (W =
+            Σ V_k, off_k the sigma index of k's code 0);
     everything else is zero by construction (two codes of one column in
     one row). A table larger than WIDE_TASK_BYTES of f64 is split by its
     leading key into slabs of equal key ranges.
@@ -516,6 +589,15 @@ class WidePlan:
     slabs i32[S, WIDE_SLAB_INTS]: (kind, p0, p1, p2, p3, off, task, warp),
       sorted by (task, warp); off is the slab's first cell in its task's
       table, and a warp's slabs lie next to each other.
+    slots i32[S, 3]: the stage slots a slab reads (0: w, 1 .. nx: the task's
+      numeric columns, then its code columns): D (a, b_lo, b_hi) x_a's
+      slot (0 for a = 0) and s with x_b at slot s + b; K j's codes (and x
+      at slots 1 .. d: a task with a K slab stages every numeric column);
+      C and CR the key's and the row column's; CM the key's and k_lo's
+      (k's at that + k − k_lo); then a C slab's row column's levels V_k.
+      The kernel's records carry the slots in place of (task, warp), and a
+      C slab's V_k in place of its row column, whose codes its slot names
+      (`device_slabs`).
     warp_begin i32[T·WIDE_WARPS + 1]: warp w of task t owns the slabs
       warp_begin[t·W + w] .. warp_begin[t·W + w + 1].
     task_base i64[T + 1]: task t's cells are task_base[t] ..
@@ -525,9 +607,9 @@ class WidePlan:
       sorted by (task, cell). A window's plan (`window_plan`): S[i, j] =
       that cell for one place (i, j) with j in the window; every
       structurally nonzero place of the window once.
-    stage_cols i32[T, 1 + MAX_COLS]: (count, the categorical columns task
-      t's slabs read, −1 past count): what its blocks stage, with w and,
-      when it has a D or K slab, x.
+    stage_cols i32[T, 2 + L]: (nx, nc, the numeric columns task t's slabs
+      read, then its code columns, ascending each, −1 past them): what its
+      blocks stage after w. L = max_stage_cols − 1.
     shape: the sizes the kernel's shared memory is cut by (`shape_ints`).
     """
     slabs: torch.Tensor
@@ -535,7 +617,8 @@ class WidePlan:
     task_base: torch.Tensor
     entries: torch.Tensor
     stage_cols: torch.Tensor
-    max_stage_cols: int    # columns a block stages: 1 + d (if x) + codes
+    slots: torch.Tensor
+    max_stage_cols: int    # columns a block stages: w, its x and codes
     max_slabs: int         # slab records a block keeps in shared memory
     stage_rows: int        # rows a block stages a step (a multiple of 32)
     cross: bool = True     # whether it has the C_jk tables
@@ -555,12 +638,30 @@ class WidePlan:
     def max_task_cells(self) -> int:
         return int((self.task_base[1:] - self.task_base[:-1]).max())
 
+    @property
+    def device_slabs(self) -> torch.Tensor:
+        """The slab records the kernel reads: (kind, p0 .. p3, off, and
+        the two stage slots of `slots` in place of task and warp), a C
+        slab's p1 its row column's levels (its cells over its key range)."""
+        out = torch.cat([self.slabs[:, :6], self.slots[:, :2]], 1)
+        c = out[:, 0] == SLAB_C
+        out[c, 2] = self.slots[c, 2]
+        return out.contiguous()
+
+    @property
+    def smem_bytes(self) -> int:
+        """A block's shared memory (`wide_smem_bytes`)."""
+        return wide_smem_bytes(self.max_task_cells, self.max_stage_cols,
+                               self.max_slabs, self.stage_rows,
+                               self.stage_cols.shape[1])
+
     def shape_ints(self, slices: int) -> list[int]:
         """The kernel's sizes (kWidePlanInts, wide_gram.cuh: make_plan):
         tasks, map entries, the most cells, staged columns and slabs of a
-        task, rows a stage, slices."""
+        task, rows a stage, slices, the stage list's width."""
         return [self.num_tasks, self.entries.shape[0], self.max_task_cells,
-                self.max_stage_cols, self.max_slabs, self.stage_rows, slices]
+                self.max_stage_cols, self.max_slabs, self.stage_rows, slices,
+                self.stage_cols.shape[1]]
 
     def slices(self, n: int) -> int:
         """Row slices of the grid (blockIdx.y): about MAX_BLOCKS blocks in
@@ -587,6 +688,13 @@ def _slab_cost(kind: int, cells: int, d: int) -> int:
         per = WIDE_CHUNK // cells            # lanes a cell: row parts
         return 12 + 5 * -(-WIDE_CHUNK // per)
     return 16 + 4 * (1 + d) if kind == SLAB_K else 20
+
+
+def _piece_cost(piece, d: int) -> int:
+    """`_slab_cost` of a piece; a CM slab costs a C slab a row column."""
+    if piece[0] == SLAB_CM:
+        return 20 * (piece[1][2] - piece[1][1])
+    return _slab_cost(piece[0], piece[2], d)
 
 
 def _pack_tasks(cells: list[int], cap: int) -> list[list[int]]:
@@ -619,11 +727,90 @@ def _pack_tasks(cells: list[int], cap: int) -> list[list[int]]:
         count += 1
 
 
+def _column_cap(d: int, sizes: tuple[int, ...], cap: int) -> int:
+    """The cells of a task where a K slab stages every numeric column: as
+    many as leave room at WIDE_CHUNK rows a stage for w, the d numerics
+    and a code column beside them (`cap` up to d ≈ 600; ValueError where
+    not one key's row of K_j, 1 + d cells, fits)."""
+    if not sizes:
+        return cap
+    cols = 2 + d
+    room = (WIDE_SMEM - 4 * (2 * cols * WIDE_CHUNK + WIDE_SLAB_INTS
+                             * WIDE_MAX_SLABS + cols + 1
+                             + 2 * WIDE_STAGE_ROWS // WIDE_CHUNK)) // 8
+    if room < 1 + d:
+        raise ValueError(
+            f"{d} numeric columns beside a categorical one: K7/K8 stage a "
+            f"task's numeric columns for a K_j table in shared memory, at "
+            f"most {max_numeric_beside_codes()} beside a code column")
+    return min(cap, room)
+
+
+def max_numeric_beside_codes() -> int:
+    """The most numeric columns K7/K8 take beside a categorical column
+    (`_column_cap`): a key's row of K_j and the staged columns of a task
+    fit a block's shared memory."""
+    d = 0
+    while True:
+        cols = 3 + d
+        room = (WIDE_SMEM - 4 * (2 * cols * WIDE_CHUNK + WIDE_SLAB_INTS
+                                 * WIDE_MAX_SLABS + cols + 1
+                                 + 2 * WIDE_STAGE_ROWS // WIDE_CHUNK)) // 8
+        if room < 2 + d:
+            return d
+        d += 1
+
+
+@functools.lru_cache(maxsize=32)
+def _bases(d: int, sizes: tuple[int, ...]) -> tuple[int, ...]:
+    """The sigma index of each categorical column's code 0."""
+    return tuple(itertools.accumulate(sizes[:-1], initial=1 + d))[
+        :len(sizes)]
+
+
+def _cross_count(sizes: tuple[int, ...]) -> int:
+    """The cross tables C_jk of a schema: pairs of columns with levels."""
+    m = sum(v > 0 for v in sizes)
+    return m * (m - 1) // 2
+
+
+def _cm_run(sizes: tuple[int, ...], j: int, run: list[int], k: int,
+            cap: int) -> bool:
+    """Whether row column k extends the CM run of key column j (`run`: its
+    row columns, then their cells a key, W): it follows the run's last
+    column, and the slab stays within `cap` cells and CM_MAX_COLS row
+    columns. Extends `run` where it does."""
+    if run and not (k == run[-2] + 1 and len(run) <= CM_MAX_COLS
+                    and sizes[j] * (run[-1] + sizes[k]) <= cap):
+        return False
+    width = run.pop() if run else 0
+    run += [k, width + sizes[k]]
+    return True
+
+
+def _cm_piece(sizes: tuple[int, ...], base: list[int], j: int, k_lo: int,
+              k_hi: int, lo: int | None = None, hi: int | None = None):
+    """The CM slab of key column j over row columns k_lo .. k_hi − 1: every
+    C_jk of them side by side (cell u·W + q − base[k_lo], q the sigma
+    index of (k, v)), each cell placed at (base[j] + u, q) and, in a
+    window [lo, hi), at both of its places there."""
+    q0 = base[k_lo]
+    width = base[k_hi - 1] + sizes[k_hi - 1] - q0
+    u = torch.arange(sizes[j]).repeat_interleave(width)
+    q = torch.arange(q0, q0 + width).repeat(sizes[j])
+    cell = u * width + q - q0
+    local = (torch.stack([cell, base[j] + u, q]) if lo is None
+             else _places(lo, hi, cell, base[j] + u, q))
+    return (SLAB_CM, (j, k_lo, k_hi, 0), sizes[j] * width, local)
+
+
 @functools.lru_cache(maxsize=32)
 def _wide_plan(d: int, sizes: tuple[int, ...], cross: bool = True,
                scorer: bool = False, cap: int = WIDE_TASK_BYTES // 8
                ) -> WidePlan:
-    base = [1 + d + sum(sizes[:j]) for j in range(len(sizes))]
+    if not scorer:
+        cap = _column_cap(d, sizes, cap)
+    base = _bases(d, sizes)
     pieces = []                 # (kind, params, cells, local entries)
     for a in range(1 + d):
         for lo in range(a, 1 + d, WIDE_CHUNK):
@@ -643,21 +830,44 @@ def _wide_plan(d: int, sizes: tuple[int, ...], cross: bool = True,
                                       torch.stack([cell[a == 0],
                                                    base[j] + diag,
                                                    base[j] + diag])], 1)))
+    merge = cross and not scorer and _cross_count(sizes) > CM_TABLES
     for j in range(len(sizes) if cross else 0):
-        for k in range(j + 1, len(sizes)):
-            if sizes[j] == 0 or sizes[k] == 0:
+        run: list[int] = []
+        for k in range(j + 1, len(sizes) + 1):
+            small = (k < len(sizes) and merge
+                     and 0 < sizes[j] * sizes[k] <= CM_SMALL)
+            if small and _cm_run(sizes, j, run, k, cap):
                 continue
-            key, row = _cross_keys(sizes, j, k, cap)
-            vr = sizes[row]
-            for lo, hi in _split(sizes[key], vr, cap):
-                u = torch.arange(lo, hi).repeat_interleave(vr)
-                v = torch.arange(vr).repeat(hi - lo)
-                i, jj = base[key] + u, base[row] + v
-                pieces.append((SLAB_C, (key, row, lo, hi), (hi - lo) * vr,
-                               torch.stack([(u - lo) * vr + v,
-                                            torch.minimum(i, jj),
-                                            torch.maximum(i, jj)])))
+            if len(run) > 2:
+                pieces.append(_cm_piece(sizes, base, j, run[0], run[-2] + 1))
+            elif run:               # a run of one: its C table
+                pieces += _cross_pieces(sizes, base, j, run[0], cap)
+            run = []
+            if small:
+                _cm_run(sizes, j, run, k, cap)
+            elif k < len(sizes):
+                pieces += _cross_pieces(sizes, base, j, k, cap)
     return _plan_of(pieces, d, cross, scorer, cap)
+
+
+def _cross_pieces(sizes: tuple[int, ...], base: list[int], j: int, k: int,
+                  cap: int) -> list:
+    """The C slabs of C_jk (j < k) in the whole plan: its key column's
+    ranges (`_cross_keys`), each entry (cell, i, j) of S's upper
+    triangle."""
+    if sizes[j] == 0 or sizes[k] == 0:
+        return []
+    key, row = _cross_keys(sizes, j, k, cap)
+    vr = sizes[row]
+    pieces = []
+    for lo, hi in _split(sizes[key], vr, cap):
+        u = torch.arange(lo, hi).repeat_interleave(vr)
+        v = torch.arange(vr).repeat(hi - lo)
+        i, jj = base[key] + u, base[row] + v
+        pieces.append((SLAB_C, (key, row, lo, hi), (hi - lo) * vr,
+                       torch.stack([(u - lo) * vr + v, torch.minimum(i, jj),
+                                    torch.maximum(i, jj)])))
+    return pieces
 
 
 def _cross_keys(sizes: tuple[int, ...], j: int, k: int, cap: int
@@ -686,40 +896,143 @@ def qda_task_cells(sizes: tuple[int, ...]) -> int:
     return cells
 
 
+def _piece_columns(piece, d: int) -> tuple[range | set, set]:
+    """(numeric, code) columns a slab reads: D's x_a and x_b (Z index a is
+    x column a − 1), K_j every numeric column and j's codes, C and CR their
+    two columns, CM its key and row columns."""
+    kind, p = piece[0], piece[1]
+    if kind == SLAB_D:
+        return ({p[0] - 1} if p[0] else set()) | set(
+            range(max(p[1], 1) - 1, p[2] - 1)), set()
+    if kind == SLAB_K:
+        return range(d), {p[0]}
+    if kind == SLAB_CM:
+        return set(), {p[0], *range(p[1], p[2])}
+    return set(), {p[0], p[1]}
+
+
+def _task_stage(pieces: list, members: list[int], d: int
+                ) -> tuple[list[int], list[int]]:
+    """The numeric and the code columns a task stages, ascending: those
+    its slabs read (every numeric column where it has a K slab)."""
+    xs, cs = set(), set()
+    for i in members:
+        x, c = _piece_columns(pieces[i], d)
+        if isinstance(x, range):
+            xs = set(x)
+        elif len(xs) < d:
+            xs |= x
+        cs |= c
+    return sorted(xs), sorted(cs)
+
+
+def _piece_slots(piece, xslot: dict, cslot: dict) -> tuple[int, int, int]:
+    """The two stage slots of a slab and a C slab's row levels
+    (`WidePlan.slots`)."""
+    kind, p = piece[0], piece[1]
+    if kind == SLAB_D:
+        b0 = max(p[1], 1)
+        return (xslot[p[0] - 1] if p[0] else 0,
+                xslot[b0 - 1] - b0 if b0 < p[2] else 0, 0)
+    if kind == SLAB_K:
+        return cslot[p[0]], 0, 0
+    levels = piece[2] // (p[3] - p[2]) if kind == SLAB_C else 0
+    return cslot[p[0]], cslot[p[1]], levels
+
+
+def _stage_rows(cells: int, cols: int, slabs: int, width: int) -> int:
+    """The most rows a stage (256, 128, 64 or 32) that leave a block's
+    shared memory room for a plan of these sizes, 0 where none does."""
+    return next((r for r in (256, 128, 64, 32) if wide_smem_bytes(
+        cells, cols, slabs, r, width) <= WIDE_SMEM), 0)
+
+
+def _layout_rows(pieces: list, tasks: list[list[int]], d: int,
+                 cap: int) -> int:
+    """`_stage_rows` of a packing: its largest task's cells, staged
+    columns and slabs."""
+    cols = max(1 + sum(map(len, _task_stage(pieces, m, d))) for m in tasks)
+    cells = max(sum(pieces[i][2] for i in m) for m in tasks)
+    return _stage_rows(cells, cols, max(map(len, tasks)), cols + 1)
+
+
+def _pack_local(pieces: list, d: int, cap: int) -> list[list[int]]:
+    """Slabs into tasks that each stage few columns, for a schema whose
+    tasks of `_pack_tasks` (which spreads a table's slabs over its tasks)
+    would stage more than shared memory holds: D's slabs in tiles of 128
+    of its columns by its rows, the other slabs in the order they were
+    made (a table's key ranges, then the next table), each task filled in
+    that order up to `cap` cells, WIDE_MAX_SLABS slabs and the columns
+    that leave room for stages of WIDE_CHUNK rows."""
+    def tile(i):
+        kind, p = pieces[i][0], pieces[i][1]
+        return (0, p[1] // 128, p[0], p[1]) if kind == SLAB_D else (1, i)
+    order = sorted(range(len(pieces)), key=tile)
+    tasks: list[list[int]] = []
+    members: list[int] = []
+    xs: set = set()
+    cs: set = set()
+    cells = 0
+    for i in order:
+        x, c = _piece_columns(pieces[i], d)
+        x2 = set(range(d)) if isinstance(x, range) or len(xs) == d \
+            else xs | x
+        c2 = cs | c
+        cols = 1 + len(x2) + len(c2)
+        fits = (cells + pieces[i][2] <= cap
+                and len(members) < WIDE_MAX_SLABS
+                and _stage_rows(cap, cols, WIDE_MAX_SLABS, cols + 1) > 0)
+        if members and not fits:
+            tasks.append(members)
+            members, xs, cs, cells = [], set(), set(), 0
+            x, c = _piece_columns(pieces[i], d)
+            x2 = set(range(d)) if isinstance(x, range) else set(x)
+            c2 = set(c)
+        members.append(i)
+        xs, cs, cells = x2, c2, cells + pieces[i][2]
+    if members:
+        tasks.append(members)
+    return tasks
+
+
 def _plan_of(pieces: list, d: int, cross: bool, scorer: bool, cap: int,
              window: tuple[int, int] | None = None,
              tasks: list[list[int]] | None = None) -> WidePlan:
     """The plan of `pieces` (kind, params, cells, local entries i64[3, m]:
     cell, i, j): the slabs packed into tasks (or the given `tasks`, lists
     of the pieces' indices), each task's slabs to its warps, the map
-    sorted by (task, cell)."""
+    sorted by (task, cell). The packing of `_pack_tasks`, which balances
+    the tasks' slab counts, where its stages take 64 rows or more; else
+    the one of `_pack_local` where its stages take more rows (a schema of
+    hundreds of numeric or code columns); ValueError where no stage of
+    WIDE_CHUNK rows fits."""
     if tasks is None:
         tasks = _pack_tasks([p[2] for p in pieces], cap)
-    slabs, warp_begin, task_base, entries = [], [0], [0], []
-    stage_cols, widths = [], []
-    for members in tasks:
-        used_cols = sorted({c for i in members for c in (
-            pieces[i][1][:1] if pieces[i][0] == SLAB_K
-            else pieces[i][1][:2] if pieces[i][0] in (SLAB_C, SLAB_CR)
-            else ())})
-        stage_cols.append([len(used_cols)] + used_cols
-                          + [-1] * (MAX_COLS - len(used_cols)))
-        need_x = any(pieces[i][0] in (SLAB_D, SLAB_K) for i in members)
-        widths.append(1 + (d if need_x else 0) + len(used_cols))
+        if not scorer and _layout_rows(pieces, tasks, d, cap) < 64:
+            local = _pack_local(pieces, d, cap)
+            if (_layout_rows(pieces, local, d, cap)
+                    > _layout_rows(pieces, tasks, d, cap)):
+                tasks = local
+    slabs, slots, warp_begin, task_base, entries = [], [], [0], [0], []
+    stage_cols = []
     for t, members in enumerate(tasks):
+        xs, cs = _task_stage(pieces, members, d)
+        stage_cols.append([len(xs), len(cs)] + xs + cs)
+        xslot = {x: 1 + q for q, x in enumerate(xs)}
+        cslot = {c: 1 + len(xs) + q for q, c in enumerate(cs)}
         # warps: the costliest slab first, to the least loaded warp
         load = [0] * WIDE_WARPS
         warp_of = {}
-        for i in sorted(members, key=lambda i: -_slab_cost(
-                pieces[i][0], pieces[i][2], d)):
+        for i in sorted(members, key=lambda i: -_piece_cost(pieces[i], d)):
             w = min(range(WIDE_WARPS), key=lambda w: load[w])
             warp_of[i] = w
-            load[w] += _slab_cost(pieces[i][0], pieces[i][2], d)
+            load[w] += _piece_cost(pieces[i], d)
         off = 0
         for w in range(WIDE_WARPS):
             for i in (i for i in members if warp_of[i] == w):
                 kind, params, cells, local = pieces[i]
                 slabs.append((kind, *params, off, t, w))
+                slots.append(_piece_slots(pieces[i], xslot, cslot))
                 entries.append(torch.cat([torch.full((1, local.shape[1]), t),
                                           local[:1] + off, local[1:]]))
                 off += cells
@@ -731,27 +1044,36 @@ def _plan_of(pieces: list, d: int, cross: bool, scorer: bool, cap: int,
     key = ent[:, 0] * (task_base[-1] + 1) + ent[:, 1]
     order = (torch.arange(key.shape[0]) if bool((key[1:] >= key[:-1]).all())
              else torch.argsort(key, stable=True))
-    max_cols, max_slabs = max(widths), max(map(len, tasks))
+    width = 2 + max(len(r) - 2 for r in stage_cols)
+    max_cols, max_slabs = width - 1, max(map(len, tasks))
     max_cells = max(b - a for a, b in zip(task_base, task_base[1:]))
-    rows = next(r for r in (256, 128, 64, 32) if wide_smem_bytes(
-        max_cells, max_cols, max_slabs, r) <= WIDE_SMEM)
+    rows = _stage_rows(max_cells, max_cols, max_slabs, width)
+    if not rows:
+        if not scorer:
+            raise ValueError(f"K7/K8: a task stages {max_cols} columns "
+                             f"beside {max_cells} cells, more than a "
+                             f"block's shared memory holds")
+        rows = WIDE_CHUNK       # the scorer stages no rows
     return WidePlan(
         slabs=torch.tensor(slabs, dtype=torch.int32).reshape(
             -1, WIDE_SLAB_INTS),
         warp_begin=torch.tensor(warp_begin, dtype=torch.int32),
         task_base=torch.tensor(task_base, dtype=torch.int64),
         entries=ent[order].to(torch.int32).contiguous(),
-        stage_cols=torch.tensor(stage_cols, dtype=torch.int32),
+        stage_cols=torch.tensor([r + [-1] * (width - len(r))
+                                 for r in stage_cols], dtype=torch.int32),
+        slots=torch.tensor(slots, dtype=torch.int32).reshape(-1, 3),
         max_stage_cols=max_cols, max_slabs=max_slabs, stage_rows=rows,
         cross=cross, scorer=scorer, task_cells=cap, window=window)
 
 
 def _window_tables(d: int, sizes: tuple[int, ...], lo: int, hi: int,
-                   keyed: tuple[int, ...] = ()) -> tuple[list, list]:
-    """The cells of S[:, lo:hi] before any cut: (D's pieces, the keyed
-    tables). Every cell whose row or column lies in the window, with one
-    map entry (cell, i, j) for each place S[i, j], lo ≤ j < hi, that the
-    cell's value fills.
+                   keyed: tuple[int, ...] = (), with_dense: bool = True
+                   ) -> tuple[list, list]:
+    """The cells of S[:, lo:hi] before any cut: (D's pieces (none where
+    not `with_dense`), the keyed tables). Every cell whose row or column
+    lies in the window, with one map entry (cell, i, j) for each place
+    S[i, j], lo ≤ j < hi, that the cell's value fills.
 
     D: a slab where one of its places lies in the window. K_j: every key
     where a column of [1 ‖ x] lies in the window (its row of the table is
@@ -772,10 +1094,16 @@ def _window_tables(d: int, sizes: tuple[int, ...], lo: int, hi: int,
     another, are summed over the same rows of o's order, and S stays
     exactly symmetric.
 
-    A table is (kind, key column, row column (−1 for K_j), first key, end
-    key, cells a key, whether its cells fill places on both sides, first
-    row code (CR; else 0))."""
-    base = [1 + d + sum(sizes[:j]) for j in range(len(sizes))]
+    Where the schema has more than CM_TABLES cross tables, the whole small
+    tables of a column j with neither column keyed whose row columns k
+    follow each other are one CM table (`_cm_run`), over all of j's keys.
+
+    A table is (kind, key column, row column (−1 for K_j; CM: the first),
+    first key, end key, cells a key, whether its cells fill places on both
+    sides, first row code (CR; CM: its end row column; else 0))."""
+    base = _bases(d, sizes)
+    merge = _cross_count(sizes) > CM_TABLES
+    cap = _column_cap(d, sizes, WIDE_TASK_BYTES // 8)
 
     def keys(j):
         """[a, b) of column j's codes whose one-hot columns lie in the
@@ -784,7 +1112,7 @@ def _window_tables(d: int, sizes: tuple[int, ...], lo: int, hi: int,
                 min(max(hi - base[j], 0), sizes[j]))
 
     dense = []
-    for a in range(1 + d):
+    for a in range(1 + d if with_dense else 0):
         for blo in range(a, 1 + d, WIDE_CHUNK):
             bhi = min(blo + WIDE_CHUNK, 1 + d)
             b = torch.arange(blo, bhi)
@@ -796,40 +1124,69 @@ def _window_tables(d: int, sizes: tuple[int, ...], lo: int, hi: int,
         klo, khi = (0, size) if lo < 1 + d else keys(j)
         if khi > klo:
             tables.append((SLAB_K, j, -1, klo, khi, 1 + d, True, 0))
+    win = [keys(j) for j in range(len(sizes))]
     for j in range(len(sizes)):
-        for k in range(j + 1, len(sizes)):
-            vj, vk = sizes[j], sizes[k]
-            win = {j: keys(j), k: keys(k)}
-            (ua, ub), (va, vb) = win[j], win[k]
-            if vj == 0 or vk == 0 or (ua == ub and va == vb):
+        run: list[int] = []
+        for k in range(j + 1, len(sizes) + 1):
+            small = k < len(sizes) and merge and _cm_pair(
+                sizes, keyed, j, k, win[j], win[k])
+            if small and _cm_run(sizes, j, run, k, cap):
                 continue
-            whole = (ub - ua) * vk + (vb - va) * vj >= vj * vk
-            if j in keyed or k in keyed:
-                o = (k if k in keyed and (j not in keyed or vk > vj)
-                     else j)
-                r = j + k - o
-                (oa, ob), (ra, rb) = win[o], win[r]
-                if whole:
-                    tables.append((SLAB_C, o, r, 0, sizes[o], sizes[r],
-                                   True, 0))
-                    continue
-                if ob > oa:
-                    tables.append((SLAB_C, o, r, oa, ob, sizes[r], False,
-                                   0))
-                if rb > ra:
-                    tables.append((SLAB_CR, o, r, 0, sizes[o], rb - ra,
-                                   False, ra))
-            elif whole:
-                # (key column, row column): the rows the shorter
-                key, row = (j, k) if vj >= vk else (k, j)
-                tables.append((SLAB_C, key, row, 0, sizes[key], sizes[row],
-                               True, 0))
-            else:
-                for key, row, klo, khi in ((j, k, ua, ub), (k, j, va, vb)):
-                    if khi > klo:
-                        tables.append((SLAB_C, key, row, klo, khi,
-                                       sizes[row], False, 0))
+            if len(run) > 2:
+                tables.append((SLAB_CM, j, run[0], 0, sizes[j], run[-1], True,
+                               run[-2] + 1))
+            elif run:               # a run of one: its C table
+                tables += _pair_tables(sizes, keyed, j, run[0], win[j],
+                                       win[run[0]])
+            run = []
+            if small:
+                _cm_run(sizes, j, run, k, cap)
+            elif k < len(sizes):
+                tables += _pair_tables(sizes, keyed, j, k, win[j], win[k])
     return dense, tables
+
+
+def _cm_pair(sizes: tuple[int, ...], keyed: tuple[int, ...], j: int, k: int,
+             wj: tuple[int, int], wk: tuple[int, int]) -> bool:
+    """Whether C_jk may join a CM table in a window where j's and k's
+    window keys are wj and wk: neither column keyed, at most CM_SMALL
+    cells, and whole there (`_window_tables`)."""
+    vj, vk = sizes[j], sizes[k]
+    (ua, ub), (va, vb) = wj, wk
+    return (j not in keyed and k not in keyed and 0 < vj * vk <= CM_SMALL
+            and (ua < ub or va < vb)
+            and (ub - ua) * vk + (vb - va) * vj >= vj * vk)
+
+
+def _pair_tables(sizes: tuple[int, ...], keyed: tuple[int, ...], j: int,
+                 k: int, wj: tuple[int, int], wk: tuple[int, int]) -> list:
+    """The tables of C_jk (j < k) in a window where j's and k's window keys
+    are wj and wk (`_window_tables`)."""
+    vj, vk = sizes[j], sizes[k]
+    win = {j: wj, k: wk}
+    (ua, ub), (va, vb) = wj, wk
+    if vj == 0 or vk == 0 or (ua == ub and va == vb):
+        return []
+    whole = (ub - ua) * vk + (vb - va) * vj >= vj * vk
+    if j in keyed or k in keyed:
+        o = k if k in keyed and (j not in keyed or vk > vj) else j
+        r = j + k - o
+        (oa, ob), (ra, rb) = win[o], win[r]
+        if whole:
+            return [(SLAB_C, o, r, 0, sizes[o], sizes[r], True, 0)]
+        tables = []
+        if ob > oa:
+            tables.append((SLAB_C, o, r, oa, ob, sizes[r], False, 0))
+        if rb > ra:
+            tables.append((SLAB_CR, o, r, 0, sizes[o], rb - ra, False, ra))
+        return tables
+    if whole:
+        # (key column, row column): the rows the shorter
+        key, row = (j, k) if vj >= vk else (k, j)
+        return [(SLAB_C, key, row, 0, sizes[key], sizes[row], True, 0)]
+    return [(SLAB_C, key, row, klo, khi, sizes[row], False, 0)
+            for key, row, klo, khi in ((j, k, ua, ub), (k, j, va, vb))
+            if khi > klo]
 
 
 def _places(lo: int, hi: int, cell, i, j) -> torch.Tensor:
@@ -846,7 +1203,10 @@ def _table_piece(table, d: int, sizes: tuple[int, ...], lo: int, hi: int,
     """The slab of a window's table (`_window_tables`) over its keys [u_lo,
     u_hi): (kind, params, cells, local map entries (cell, i, j))."""
     kind, key, row, _, _, row_cells, both, v_lo = table
-    b_key = 1 + d + sum(sizes[:key])
+    b_key = _bases(d, sizes)[key]
+    if kind == SLAB_CM:     # all of the key's levels (`_cm_run`)
+        assert (u_lo, u_hi) == (0, sizes[key])
+        return _cm_piece(sizes, _bases(d, sizes), key, row, v_lo, lo, hi)
     if kind == SLAB_K:
         v = torch.arange(u_lo, u_hi).repeat_interleave(1 + d)
         a = torch.arange(1 + d).repeat(u_hi - u_lo)
@@ -857,7 +1217,7 @@ def _table_piece(table, d: int, sizes: tuple[int, ...], lo: int, hi: int,
                                    b_key + v),
                            torch.stack([(diag - b_key - u_lo) * (1 + d),
                                         diag, diag])[:, on]], 1))
-    b_row = 1 + d + sum(sizes[:row])
+    b_row = _bases(d, sizes)[row]
     u = torch.arange(u_lo, u_hi).repeat_interleave(row_cells)
     v = torch.arange(v_lo, v_lo + row_cells).repeat(u_hi - u_lo)
     cell = (u - u_lo) * row_cells + v - v_lo
@@ -911,7 +1271,7 @@ def check_window(schema, lo: int, width: int) -> None:
 @functools.lru_cache(maxsize=32)
 def _window_plan(d: int, sizes: tuple[int, ...], lo: int, hi: int
                  ) -> WidePlan:
-    cap = WIDE_TASK_BYTES // 8
+    cap = _column_cap(d, sizes, WIDE_TASK_BYTES // 8)
     return _plan_of(_window_pieces(d, sizes, lo, hi, cap), d, True, False,
                     cap, (lo, hi))
 
@@ -986,8 +1346,10 @@ def keyed_columns(d: int, sizes: tuple[int, ...]) -> tuple[int, ...]:
         most: dict[int, int] = {}
         for lo, hi in windows:
             for j, t in _key_cells(_window_tables(d, sizes, lo, hi,
-                                                  keyed)[1],
-                                   WIDE_TASK_BYTES // 8).items():
+                                                  keyed, False)[1],
+                                   _column_cap(d, sizes,
+                                               WIDE_TASK_BYTES // 8)
+                                   ).items():
                 most[j] = max(most.get(j, 0), t)
         return {j for j, t in most.items() if t > 1}
 
@@ -1008,7 +1370,7 @@ def _key_cells(tables: list, cap: int) -> dict[int, int]:
 @functools.lru_cache(maxsize=32)
 def _keyed_window_plan(d: int, sizes: tuple[int, ...], lo: int, hi: int
                        ) -> tuple[WidePlan | None, KeyedPlan | None]:
-    cap = WIDE_TASK_BYTES // 8
+    cap = _column_cap(d, sizes, WIDE_TASK_BYTES // 8)
     columns = keyed_columns(d, sizes)
     dense, tables = _window_tables(d, sizes, lo, hi, columns)
     keyed = sorted({tb[1] for tb in tables} & set(columns))
@@ -1085,6 +1447,31 @@ def item_chunks(n: int) -> int:
     return max(ITEM_MIN_CHUNKS, -(-(-(-n // WIDE_CHUNK)) // MAX_BLOCKS))
 
 
+def check_order_stride(levels: int, stride: int) -> None:
+    """Raise ValueError where an order pass (window_order.cu) cannot stage
+    its rows: a warp keeps `levels` counters and two chunks of 32 rows of
+    `stride` ints (each row padded by 4) in a block's shared memory, so
+    1 + d + c passes about 880 − V/64 columns only where a keyed
+    column's copy is made past P = 1,024 (`order_max_stride`)."""
+    if 4 * order_warp_ints(levels, stride) > WIDE_SMEM:
+        raise ValueError(
+            f"the window order copies rows of {stride} ints beside "
+            f"{levels} counters: a warp's stage takes at most "
+            f"{order_max_stride(levels)} ints a row")
+
+
+def order_warp_ints(levels: int, stride: int) -> int:
+    """Ints of shared memory an order warp keeps (window_order.cu:
+    order_warp_ints)."""
+    return (levels + 3) // 4 * 4 + 32 + 64 * (stride + 4)
+
+
+def order_max_stride(levels: int) -> int:
+    """The widest row (`order_stride`) an order pass of a column of
+    `levels` levels stages."""
+    return (WIDE_SMEM // 4 - (levels + 3) // 4 * 4 - 32) // 64 - 4
+
+
 def order_stride(cols: int) -> int:
     """Ints of a row of the order's copies (window_order.cu): the row's
     `cols` columns rounded up to whole 32-byte sectors, so the scatter
@@ -1116,13 +1503,15 @@ def keyed_items_bound(keyed: KeyedPlan, n: int, groups: int = 1) -> int:
     return 2 * tg + -(-chunks // item_chunks(n))
 
 
-def wide_smem_bytes(cells: int, cols: int, slabs: int, rows: int) -> int:
+def wide_smem_bytes(cells: int, cols: int, slabs: int, rows: int,
+                    width: int | None = None) -> int:
     """Shared memory of a K7/K8 block (wide_gram.cuh: wide_smem_bytes):
     the f64 tables, two stages of `rows` rows of `cols` columns, the slab
-    records, each code column's stage slot and column, and two stages'
-    group ids."""
+    records, the task's stage list (`width` ints, cols + 1 by default) and
+    two stages' group ids."""
+    width = cols + 1 if width is None else width
     return (8 * cells + 4 * (2 * cols * rows + WIDE_SLAB_INTS * slabs
-                             + 2 * MAX_COLS + 2 * WIDE_STAGE_ROWS // WIDE_CHUNK))
+                             + width + 2 * WIDE_STAGE_ROWS // WIDE_CHUNK))
 
 
 def wide_plan(schema) -> WidePlan:
@@ -1164,7 +1553,14 @@ class NbPlan:
       task, warp), its codes u_lo .. u_hi, cell u − u_lo; sorted by (task,
       warp).
     warp_begin, task_base, stage_cols: as `WidePlan`'s (a task stages w,
-      the group ids, x if it holds a D slab, and its code columns).
+      the group ids, the numeric columns of its D slabs' terms, and its
+      code columns).
+    slots i32[S, 2]: the stage slot a slab reads (0: w, 1: the group ids,
+      then the task's numeric and code columns): a D slab's x_a at slot
+      s + a (s = 2 where its task stages every numeric column, as it does
+      outside `_nb_pack_local`'s packing), a K or codes slab's column j
+      at s; then a K slab's V_j. The kernel's records carry them in place
+      of (task, warp) (`device_slabs`).
     out_index i32[cells]: each flat cell's place in out f32[G, F], F = 1 +
       2d + V: D's (g, v) at g·F + v, K_j's (g, u) at g·F + 1 + 2d +
       offset_j + u; every place once.
@@ -1173,6 +1569,7 @@ class NbPlan:
     warp_begin: torch.Tensor
     task_base: torch.Tensor
     stage_cols: torch.Tensor
+    slots: torch.Tensor
     out_index: torch.Tensor
     groups: int
     max_stage_cols: int
@@ -1185,26 +1582,45 @@ class NbPlan:
     max_task_cells = WidePlan.max_task_cells
     slices = WidePlan.slices
 
+    @property
+    def device_slabs(self) -> torch.Tensor:
+        """The slab records the kernel reads: `slots` in place of the
+        task and the warp."""
+        return torch.cat([self.slabs[:, :6], self.slots], 1).contiguous()
+
+    @property
+    def smem_bytes(self) -> int:
+        """A block's shared memory (nb_grouped_sums.cu: nb_smem_bytes)."""
+        return wide_smem_bytes(self.max_task_cells, self.max_stage_cols,
+                               self.max_slabs, self.stage_rows,
+                               self.stage_cols.shape[1])
+
     def shape_ints(self, slices: int) -> list[int]:
         """The kernel's sizes (kNbPlanInts, nb_grouped_sums.cu): tasks,
         cells, the most cells, staged columns and slabs of a task, rows a
-        stage, slices, groups."""
+        stage, slices, groups, the stage list's width."""
         return [self.num_tasks, int(self.task_base[-1]), self.max_task_cells,
                 self.max_stage_cols, self.max_slabs, self.stage_rows, slices,
-                self.groups]
+                self.groups, self.stage_cols.shape[1]]
 
 
 def _nb_pieces(d: int, sizes: tuple[int, ...], groups: int, cap: int,
-               terms: int) -> list:
+               terms: int, split: bool = False) -> list:
     """The NB plan's slabs before packing: (kind, params, cells, out
-    places); D cut into runs of `terms` terms and by group range, K_j by
-    group range or, where one group's row is longer than `cap`, by code
-    range for each group."""
+    places); D cut into runs of `terms` terms (`split`: and at x², so a
+    slab's columns follow each other) and by group range, K_j by group
+    range or, where one group's row is longer than `cap`, by code range for
+    each group."""
     f = 1 + 2 * d + sum(sizes)
     g_all = torch.arange(groups)
     pieces = []
-    for v_lo in range(0, 1 + 2 * d, terms):
-        v_hi = min(v_lo + terms, 1 + 2 * d)
+    runs = ([(a, min(a + terms, 1 + 2 * d)) for a in range(0, 1 + 2 * d,
+                                                             terms)]
+            if not split else
+            [(a, min(a + terms, e))
+             for b, e in ((0, 1 + d), (1 + d, 1 + 2 * d))
+             for a in range(b, e, terms)])
+    for v_lo, v_hi in runs:
         for lo, hi in _split(groups, v_hi - v_lo, cap):
             pieces.append((SLAB_D, (v_lo, lo, hi, v_hi),
                            (hi - lo) * (v_hi - v_lo),
@@ -1226,13 +1642,15 @@ def _nb_pieces(d: int, sizes: tuple[int, ...], groups: int, cap: int,
     return pieces
 
 
-def _nb_layout(pieces: list, cap: int):
-    """Tasks of the pieces and, per task, each member's warp: the costliest
-    slab first, to the least loaded warp. Returns (tasks, warp_of, cost),
-    cost the sum over tasks of its busiest warp's load: a slab costs the
-    key match and its lane list (6 shuffle steps) and 5 a summed term (one
-    for K_j), what each chunk of 32 rows waits on (tools/nb_variants.py)."""
-    tasks = _pack_tasks([p[2] for p in pieces], cap)
+def _nb_layout(pieces: list, cap: int, tasks: list | None = None):
+    """Tasks of the pieces (`_pack_tasks`'s, or `tasks`) and, per task,
+    each member's warp: the costliest slab first, to the least loaded warp.
+    Returns (tasks, warp_of, cost), cost the sum over tasks of its busiest
+    warp's load: a slab costs the key match and its lane list (6 shuffle
+    steps) and 5 a summed term (one for K_j), what each chunk of 32 rows
+    waits on (tools/nb_variants.py)."""
+    if tasks is None:
+        tasks = _pack_tasks([p[2] for p in pieces], cap)
     cost = [6 + 5 * (p[1][3] - p[1][0] if p[0] == SLAB_D else 1)
             for p in pieces]
     warp_of, total = {}, 0
@@ -1246,47 +1664,126 @@ def _nb_layout(pieces: list, cap: int):
     return tasks, warp_of, total
 
 
+NB_TERMS_SEARCH = 129   # most terms 1 + 2d for which every slab width is
+                        # tried; past them (1, 2, 4, 8, 16, 32)
+
+
+def _nb_columns(piece, d: int) -> tuple[set, set, bool]:
+    """(numeric, code) columns an NB slab reads, and whether its terms pass
+    from x to x² (their columns then do not follow each other)."""
+    kind, p = piece[0], piece[1]
+    if kind != SLAB_D:
+        return set(), {p[0]}, False
+    v_lo, v_hi = max(p[0], 1), p[3]
+    wraps = v_lo <= d < v_hi - 1
+    return {(v - 1) % d for v in range(v_lo, v_hi)}, set(), wraps
+
+
+def _nb_stage(pieces: list, members: list[int], d: int, local: bool = False
+              ) -> tuple[list[int], list[int]]:
+    """The numeric and code columns an NB task stages, ascending: every
+    numeric column where it has a D slab, or with `local` (the packing of
+    `_nb_pack_local`, whose slabs' terms never wrap) those they read."""
+    xs, cs = set(), set()
+    for i in members:
+        x, c, wraps = _nb_columns(pieces[i], d)
+        xs = set(range(d)) if (wraps or not local) and x else xs | x
+        cs |= c
+    return sorted(xs), sorted(cs)
+
+
+def _nb_rows(pieces: list, tasks: list[list[int]], d: int,
+             local: bool = False) -> int:
+    """`_stage_rows` of an NB packing (w and the group ids staged too)."""
+    cols = max(2 + sum(map(len, _nb_stage(pieces, m, d, local)))
+               for m in tasks)
+    cells = max(sum(pieces[i][2] for i in m) for m in tasks)
+    return _stage_rows(cells, cols, max(map(len, tasks)), cols)
+
+
+def _nb_pack_local(pieces: list, d: int, cap: int) -> list[list[int]]:
+    """NB slabs into tasks in the order they were made (D's terms in turn,
+    then each K_j), each filled up to `cap` cells, WIDE_MAX_SLABS slabs and
+    the columns that leave room for stages of WIDE_CHUNK rows: a task then
+    stages the columns of a run of terms (`_nb_stage`'s `local`)."""
+    tasks, members, cols, cells = [], [], set(), 0
+    for i, piece in enumerate(pieces):
+        x, c, _ = _nb_columns(piece, d)
+        new = cols | {("x", q) for q in x} | {("c", q) for q in c}
+        fits = (cells + piece[2] <= cap and len(members) < WIDE_MAX_SLABS
+                and _stage_rows(cap, 2 + len(new), WIDE_MAX_SLABS,
+                                2 + len(new)) > 0)
+        if members and not fits:
+            tasks.append(members)
+            members, cells = [], 0
+            new = {("x", q) for q in x} | {("c", q) for q in c}
+        members.append(i)
+        cols, cells = new, cells + piece[2]
+    return tasks + [members]
+
+
 @functools.lru_cache(maxsize=32)
 def _nb_plan(d: int, sizes: tuple[int, ...], groups: int,
              cap: int = WIDE_TASK_BYTES // 8, d_terms: int = 0) -> NbPlan:
     """d_terms: terms of D a slab, 0 for the count `_nb_layout` costs
-    least (the most terms among equals: fewer slabs)."""
+    least (the most terms among equals: fewer slabs). The packing of
+    `_pack_tasks` where its stages take 64 rows or more; else
+    `_nb_pack_local`'s (D cut at x² too) where its stages take more;
+    ValueError where no stage of WIDE_CHUNK rows fits."""
     f = 1 + 2 * d + sum(sizes)
-    terms = d_terms or min(
-        range(1, 2 + 2 * d), key=lambda t: (_nb_layout(
-            _nb_pieces(d, sizes, groups, cap, t), cap)[2], -t))
+    tried = (range(1, 2 + 2 * d) if 1 + 2 * d <= NB_TERMS_SEARCH
+             else (1, 2, 4, 8, 16, 32))
+    terms = d_terms or min(tried, key=lambda t: (_nb_layout(
+        _nb_pieces(d, sizes, groups, cap, t), cap)[2], -t))
     pieces = _nb_pieces(d, sizes, groups, cap, terms)
     tasks, warp_of, _ = _nb_layout(pieces, cap)
-    slabs, warp_begin, task_base, places, stage_cols, widths = (
-        [], [0], [0], [], [], [])
+    local = False
+    if _nb_rows(pieces, tasks, d) < 64:
+        split = _nb_pieces(d, sizes, groups, cap, terms, split=True)
+        packed = _nb_pack_local(split, d, cap)
+        if _nb_rows(split, packed, d, True) > _nb_rows(pieces, tasks, d):
+            pieces, tasks, local = split, packed, True
+            warp_of = _nb_layout(pieces, cap, tasks)[1]
+    slabs, slots, warp_begin, task_base, places, stage_cols = (
+        [], [], [0], [0], [], [])
     for t, members in enumerate(tasks):
-        cols = sorted({pieces[i][1][0] for i in members
-                       if pieces[i][0] != SLAB_D})
-        stage_cols.append([len(cols)] + cols + [-1] * (MAX_COLS - len(cols)))
-        has_d = any(pieces[i][0] == SLAB_D for i in members)
-        widths.append(2 + (d if has_d else 0) + len(cols))
+        xs, cs = _nb_stage(pieces, members, d, local)
+        stage_cols.append([len(xs), len(cs)] + xs + cs)
+        xslot = {x: 2 + q for q, x in enumerate(xs)}
+        cslot = {c: 2 + len(xs) + q for q, c in enumerate(cs)}
         off = 0
         for w in range(WIDE_WARPS):
             for i in (i for i in members if warp_of[i] == w):
                 kind, params, cells, out = pieces[i]
                 slabs.append((kind, *params, off, t, w))
+                if kind == SLAB_D:
+                    x = sorted(_nb_columns(pieces[i], d)[0])
+                    slots.append((xslot[x[0]] - x[0] if x else 2, 0))
+                else:
+                    slots.append((cslot[params[0]], sizes[params[0]]))
                 places.append(out)
                 off += cells
             warp_begin.append(len(slabs))
         task_base.append(task_base[-1] + off)
     assert task_base[-1] == groups * f
-    max_cols, max_slabs = max(widths), max(map(len, tasks))
+    width = max(map(len, stage_cols))
+    max_slabs = max(map(len, tasks))
     max_cells = max(b - a for a, b in zip(task_base, task_base[1:]))
-    rows = next(r for r in (256, 128, 64, 32) if wide_smem_bytes(
-        max_cells, max_cols, max_slabs, r) <= WIDE_SMEM)
+    rows = _stage_rows(max_cells, width, max_slabs, width)
+    if not rows:
+        raise ValueError(f"the NB kernel: a task stages {width} columns "
+                         f"beside {max_cells} cells, more than a block's "
+                         f"shared memory holds")
     return NbPlan(
         slabs=torch.tensor(slabs, dtype=torch.int32).reshape(
             -1, WIDE_SLAB_INTS),
         warp_begin=torch.tensor(warp_begin, dtype=torch.int32),
         task_base=torch.tensor(task_base, dtype=torch.int64),
-        stage_cols=torch.tensor(stage_cols, dtype=torch.int32),
+        stage_cols=torch.tensor([r + [-1] * (width - len(r))
+                                 for r in stage_cols], dtype=torch.int32),
+        slots=torch.tensor(slots, dtype=torch.int32).reshape(-1, 2),
         out_index=torch.cat(places).to(torch.int32),
-        groups=groups, max_stage_cols=max_cols, max_slabs=max_slabs,
+        groups=groups, max_stage_cols=width, max_slabs=max_slabs,
         stage_rows=rows, task_cells=cap, d_terms=terms)
 
 

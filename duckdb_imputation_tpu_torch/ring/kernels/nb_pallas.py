@@ -86,7 +86,7 @@ def nb_assemble(cells: torch.Tensor, *, plan: _build.NbPlan,
 def _device_plan(d: int, sizes: tuple[int, ...], groups: int, device):
     plan = _build._nb_plan(d, sizes, groups)
     return tuple(t.to(device) for t in (
-        plan.slabs, plan.warp_begin, plan.task_base, plan.stage_cols,
+        plan.device_slabs, plan.warp_begin, plan.task_base, plan.stage_cols,
         plan.out_index))
 
 
@@ -125,8 +125,7 @@ def nb_grouped_sums(x_num, codes, weights, group_ids, *,
                       dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         rc = lib.lib.dit_nb_grouped_sums(
-            _build.pointers(list(x_num)), schema.num_cols,
-            _build.pointers(list(codes)), _build.int_array(sizes), len(sizes),
+            *_build.column_args(list(x_num), list(codes), sizes, device),
             None if weights is None else weights.data_ptr(),
             group_ids.data_ptr(), n,
             *(t.data_ptr() for t in plan_tensors),

@@ -196,7 +196,10 @@ def qda_predict_plain(tables, plan: _build.WidePlan, x_num, codes, *,
 def _device_plan(d: int, sizes: tuple[int, ...], cross: bool, cap: int,
                  device):
     plan = _build._wide_plan(d, sizes, cross, True, cap)
-    return tuple(t.to(device) for t in (plan.slabs, plan.warp_begin,
+    slabs = plan.slabs.clone()        # a C slab's V_k in place of the task
+    c = slabs[:, 0] == _build.SLAB_C
+    slabs[c, 6] = plan.slots[c, 2]
+    return tuple(t.to(device) for t in (slabs, plan.warp_begin,
                                          plan.task_base))
 
 
@@ -239,9 +242,8 @@ def qda_predict_kernel(tables, plan: _build.WidePlan, x_num, codes, *,
     sizes = schema.cat_sizes
     with torch.cuda.device(device):
         rc = lib.lib.dit_qda_predict(
-            _build.pointers(list(x_num)), schema.num_cols,
-            _build.pointers(list(codes)), _build.int_array(sizes),
-            len(sizes), tables.data_ptr(), slabs.data_ptr(),
+            *_build.column_args(list(x_num), list(codes), sizes, device),
+            tables.data_ptr(), slabs.data_ptr(),
             warp_begin.data_ptr(), task_base.data_ptr(), num_classes,
             plan.num_tasks, plan.max_task_cells, cells, n, threads, rows,
             group, int(not plan.cross),

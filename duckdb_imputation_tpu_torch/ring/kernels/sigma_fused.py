@@ -269,8 +269,9 @@ def fused_impute_aggregate(x_cols, code_cols, null_imp, w_agg, w_full,
     lib = _build.load()
     seed, round_ = (0, 0) if noise is None else noise[:2]
     sizes = schema.cat_sizes
-    args = (_build.pointers(x_cols), len(x_cols), _build.pointers(code_cols),
-            _build.int_array(sizes), len(sizes), null_imp.data_ptr(),
+    cols = (_build.pointers(x_cols), len(x_cols), _build.pointers(code_cols),
+            _build.int_array(sizes), len(sizes))
+    args = (null_imp.data_ptr(),
             w_agg.data_ptr(), w_full.data_ptr(), intercept.data_ptr(), r,
             _KINDS[kind], imp_col, new.data_ptr(), int(noise is not None),
             seed & _MASK32, (seed >> 32) & _MASK32, round_, row_offset,
@@ -287,10 +288,20 @@ def fused_impute_aggregate(x_cols, code_cols, null_imp, w_agg, w_full,
         rows = torch.empty(n if kind == "cat" else 0, dtype=torch.int32,
                            device=device)
         sigma = torch.zeros((p, p), dtype=torch.float32, device=device)
+        far = _build.far_table(x_cols, code_cols, sizes, device)
+        if kind == "cat":           # the Gram's columns: `new` in place
+            gram_cols = (x_cols, code_cols[:imp_col] + [new]
+                         + code_cols[imp_col + 1:])
+        else:
+            gram_cols = (x_cols[:imp_col] + [new] + x_cols[imp_col + 1:],
+                         code_cols)
+        far_out = (_build.far_table(*gram_cols, sizes, device)
+                   if far and imp_col >= _build.INLINE_COLS else far)
         with torch.cuda.device(device):
             rc = lib.lib.dit_fused_impute_aggregate_wide(
-                *args, *plan, imp_plan, rows.data_ptr(), partial.data_ptr(),
-                sigma.data_ptr(), stream)
+                *cols, far, far_out, *args, *plan, imp_plan,
+                rows.data_ptr(), partial.data_ptr(), sigma.data_ptr(),
+                stream)
         _build.raise_on_error(lib, rc, "fused_impute_aggregate")
         fused_impute_aggregate.wide_launches += 1
         return new, sigma
@@ -305,8 +316,8 @@ def fused_impute_aggregate(x_cols, code_cols, null_imp, w_agg, w_full,
                           device=device)
     sigma = torch.empty((p, p), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
-        rc = launch(*args, partial.data_ptr(), nblocks, sigma.data_ptr(),
-                    stream)
+        rc = launch(*cols, *args, partial.data_ptr(), nblocks,
+                    sigma.data_ptr(), stream)
     _build.raise_on_error(lib, rc, "fused_impute_aggregate")
     fused_impute_aggregate.launches += 1
     return new, sigma
@@ -358,8 +369,8 @@ def impute_wide(lib, x_cols, code_cols, null_imp, w, intercept, ldw, plan,
     sizes = schema.cat_sizes
     with torch.cuda.device(device):
         rc = lib.lib.dit_impute_wide(
-            _build.pointers(x_cols), len(x_cols), _build.pointers(code_cols),
-            _build.int_array(sizes), len(sizes), null_imp.data_ptr(),
+            *_build.column_args(x_cols, code_cols, sizes, device),
+            null_imp.data_ptr(),
             w.data_ptr(), intercept.data_ptr(), ldw, r, _KINDS[kind],
             imp_col, new.data_ptr(), int(noise is not None), seed & _MASK32,
             (seed >> 32) & _MASK32, round_, row_offset,

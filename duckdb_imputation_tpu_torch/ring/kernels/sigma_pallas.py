@@ -115,6 +115,9 @@ def _window_tables(z, zw, w, code_cols, schema, lo, hi, out) -> None:
             for b, v in zip(base, sizes)]
     codes = [c.long() for c in code_cols]
     valid = [(c >= 0) & (c < v) for c, v in zip(codes, sizes)]
+    small = _small_cross(schema)
+    if small:
+        _small_cross_block(codes, valid, w, base, sizes, small, lo, hi, out)
     for j, (bj, vj) in enumerate(zip(base, sizes)):
         cj, ok = codes[j], valid[j]
         ka, kb = keys[j]
@@ -131,7 +134,7 @@ def _window_tables(z, zw, w, code_cols, schema, lo, hi, out) -> None:
                     kt[:, dense[0]:dense[1]].float())
         for k, (bk, vk) in enumerate(zip(base, sizes)):
             ka, kb = keys[k]
-            if k == j or kb <= ka:
+            if k == j or kb <= ka or (j in small and k in small):
                 continue                       # C_jk cut to k's window keys
             ck = codes[k]
             sel = ok & (ck >= ka) & (ck < kb)
@@ -140,6 +143,45 @@ def _window_tables(z, zw, w, code_cols, schema, lo, hi, out) -> None:
                                  minlength=vj * (kb - ka))
             out[bj:bj + vj, bk + ka - lo:bk + kb - lo] = (
                 tab.reshape(vj, kb - ka).float())
+
+
+def _small_cross(schema: FeatureSchema) -> frozenset:
+    """The columns whose cross tables `_window_tables` sums as one dense
+    block (`_small_cross_block`): those of at most CM_SMALL levels, where
+    they make more than CM_TABLES cross tables (the kernel's CM rule;
+    SECOM's stream fold, 590 null flags); else none."""
+    small = tuple(j for j, v in enumerate(schema.cat_sizes)
+                  if 0 < v <= _build.CM_SMALL)
+    sizes = tuple(schema.cat_sizes[j] for j in small)
+    return frozenset(small if _build._cross_count(sizes) > _build.CM_TABLES
+                     else ())
+
+
+def _small_cross_block(codes, valid, w, base, sizes, small, lo, hi, out,
+                       rows: int = 1 << 16) -> None:
+    """The cross tables among the `small` columns, cut to the window [lo,
+    hi), into out f32[P, hi − lo]: the f64 Gram Yᵀ·diag(w)·Y of their
+    one-hot block Y, `rows` rows at a time (a column's own block: its
+    counts on the diagonal, zeros off it)."""
+    cols = sorted(small)
+    pos = torch.cat([base[j] + torch.arange(sizes[j]) for j in cols]
+                    ).to(w.device)
+    at = torch.cat([torch.tensor([0]), torch.cumsum(torch.tensor(
+        [sizes[j] for j in cols]), 0)]).tolist()
+    keep = (pos >= lo) & (pos < hi)
+    if not bool(keep.any()):
+        return
+    n, f64 = w.shape[0], torch.float64
+    gram = torch.zeros((pos.shape[0], int(keep.sum())), dtype=f64,
+                       device=w.device)
+    for r0 in range(0, n, rows):
+        r1 = min(r0 + rows, n)
+        y = torch.zeros((r1 - r0, pos.shape[0]), dtype=f64, device=w.device)
+        for q, j in enumerate(cols):
+            ok = valid[j][r0:r1]
+            y[torch.nonzero(ok)[:, 0], at[q] + codes[j][r0:r1][ok]] = 1.0
+        gram += (y * w[r0:r1, None].to(f64)).T @ y[:, keep]
+    out[pos[:, None], (pos[keep] - lo)[None, :]] = gram.float()
 
 
 def split3_plain(v: torch.Tensor) -> tuple[torch.Tensor, ...]:
@@ -273,7 +315,7 @@ def _device_plan(d: int, sizes: tuple[int, ...], device, window=None,
         plan = kp.plan if keyed else residual
         extra = (kp.task_keys,) if keyed else ()
     return tuple(t.to(device) for t in (
-        plan.slabs, plan.warp_begin, plan.task_base, plan.stage_cols,
+        plan.device_slabs, plan.warp_begin, plan.task_base, plan.stage_cols,
         plan.entries, *extra))
 
 
@@ -299,8 +341,8 @@ def _launch_wide(x_cols, code_cols, weights, n, device, schema, lib, what):
     sizes = schema.cat_sizes
     with torch.cuda.device(device):
         rc = lib.lib.dit_wide_gram(
-            _build.pointers(x_cols), len(x_cols), _build.pointers(code_cols),
-            _build.int_array(sizes), len(sizes), weights.data_ptr(), n, p,
+            *_build.column_args(x_cols, code_cols, sizes, device),
+            weights.data_ptr(), n, p,
             *plan, partial.data_ptr(), out.data_ptr(),
             torch.cuda.current_stream(device).cuda_stream)
     _build.raise_on_error(lib, rc, what)
@@ -347,6 +389,7 @@ def _launch_window(x_cols, code_cols, weights, n, device, schema, lo,
     residual, keyed = _build.keyed_window_plan(schema, lo, lo + width)
     sizes = schema.cat_sizes
     stream = torch.cuda.current_stream(device).cuda_stream
+    cols = _build.column_args(x_cols, code_cols, sizes, device)
     if residual is not None:
         tensors = _device_plan(schema.num_cols, tuple(sizes), device,
                                residual.window)
@@ -355,24 +398,24 @@ def _launch_window(x_cols, code_cols, weights, n, device, schema, lo,
                               dtype=torch.float64, device=device)
         with torch.cuda.device(device):
             rc = lib.lib.dit_wide_gram_window(
-                _build.pointers(x_cols), len(x_cols),
-                _build.pointers(code_cols), _build.int_array(sizes),
-                len(sizes), weights.data_ptr(), n, schema.sigma_size, lo,
+                *cols, weights.data_ptr(), n, schema.sigma_size, lo,
                 width, out.stride(0), *(t.data_ptr() for t in tensors),
                 _build.int_array(residual.shape_ints(slices)),
                 partial.data_ptr(), out.data_ptr(), stream)
         _build.raise_on_error(lib, rc, what)
     if keyed is not None:
         launch_keyed(keyed, order, n, device, schema, lo, width, out,
-                     out.stride(0), 0, lib, what)
+                     out.stride(0), 0, lib, what, cols[-1])
 
 
 def launch_keyed(keyed, order, n, device, schema, lo, width, out, ld,
-                 gstride, lib, what) -> None:
+                 gstride, lib, what, far) -> None:
     """One launch of the keyed tasks of the window [lo, lo + width) over
     `order` (`window_order`, with order.groups groups) and their
     reduction, each place (i, j) of group g written to out[g·gstride +
-    i·ld + j − lo]; shared by K7 and K8."""
+    i·ld + j − lo]; shared by K7 and K8. far: the columns' table
+    (`_build.column_args`), whose sizes the kernel reads past
+    INLINE_COLS code columns."""
     tensors = _device_plan(schema.num_cols, tuple(schema.cat_sizes), device,
                            (lo, lo + width), keyed=True)
     item_cum = keyed_items(keyed, order, n, schema, tensors[5])[0]
@@ -382,7 +425,7 @@ def launch_keyed(keyed, order, n, device, schema, lo, width, out, ld,
     sizes = schema.cat_sizes
     with torch.cuda.device(device):
         rc = lib.lib.dit_wide_gram_keyed(
-            _build.int_array(sizes), schema.num_cols, len(sizes), n,
+            _build.int_array(sizes), schema.num_cols, len(sizes), far, n,
             schema.sigma_size, lo, width, ld, gstride, order.rows.data_ptr(),
             order.rows.shape[-1], order.key_off.data_ptr(),
             order.key_chunks.data_ptr(), order.rows_of.data_ptr(),
@@ -526,7 +569,10 @@ def _order_kernel(key_col, v, offsets, groups, src, out) -> torch.Tensor:
     src[key_col]: the codes counted a segment (`_build.order_segments`),
     the counts scanned in (key, segment) order, each row with a key
     written with its columns to its row of out i32[n, stride]; returns
-    the keys' row offsets i64[G·v + 1]."""
+    the keys' row offsets i64[G·v + 1]. ValueError where a warp's two
+    chunks of rows and its counters pass shared memory
+    (`_build.check_order_stride`)."""
+    _build.check_order_stride(v, out.shape[-1])
     lib = _build.load()
     code = src[key_col]
     n, device = code.shape[-1], code.device
@@ -546,8 +592,9 @@ def _order_kernel(key_col, v, offsets, groups, src, out) -> torch.Tensor:
             torch.int32).contiguous()         # (g, s, u): a warp's row
         rc = lib.lib.dit_order_scatter(
             key_col, v, off, groups, n, segs, pos.data_ptr(),
-            _build.pointers(src), len(src), out.shape[-1], out.data_ptr(),
-            stream)
+            _build.pointers(src), len(src),
+            _build.far_table(src, [], (), device),   # read past ORDER_INLINE
+            out.shape[-1], out.data_ptr(), stream)
         _build.raise_on_error(lib, rc, "window_order")
     window_order.launches += 1
     return key_off
@@ -698,6 +745,18 @@ def _slab_plain(slab, xw, x_cols, code_cols, w, schema,
         table = torch.zeros((p2 - p1, len(xw)), dtype=f64, device=w.device)
         table.index_add_(0, c[ok] - p1, vals)
         return table.reshape(-1)
+    if kind == _build.SLAB_CM:                 # key p0, rows p1 .. p2 − 1
+        base = _build._bases(schema.num_cols, tuple(schema.cat_sizes))
+        sizes, u = schema.cat_sizes, code_cols[p0].long()
+        width = base[p2 - 1] + sizes[p2 - 1] - base[p1]
+        out = torch.zeros(sizes[p0] * width, dtype=f64, device=w.device)
+        for k in range(p1, p2):
+            v = code_cols[k].long()
+            ok = (u >= 0) & (u < sizes[p0]) & (v >= 0) & (v < sizes[k])
+            out += torch.bincount(u[ok] * width + base[k] - base[p1] + v[ok],
+                                  weights=w[ok].to(f64),
+                                  minlength=out.shape[0])
+        return out
     u, v = code_cols[p0].long(), code_cols[p1].long()
     if kind == _build.SLAB_CR:                 # keyed on p0, rows [p2, p3)
         ulo, uhi = keys

@@ -373,9 +373,9 @@ def grouped_gram_presorted(x_sorted, codes_sorted, w_sorted,
                           device=device)
         with torch.cuda.device(device):
             rc = lib.lib.dit_grouped_wide_gram(
-                _build.pointers(list(x_sorted)), schema.num_cols,
-                _build.pointers(list(codes_sorted)), _build.int_array(sizes),
-                len(sizes), w_sorted.data_ptr(), off.data_ptr(),
+                *_build.column_args(list(x_sorted), list(codes_sorted),
+                                    sizes, device),
+                w_sorted.data_ptr(), off.data_ptr(),
                 cum.data_ptr(), num_groups, n, p, *plan,
                 partial.data_ptr(), out.data_ptr(),
                 torch.cuda.current_stream(device).cuda_stream)
@@ -419,6 +419,7 @@ def _presorted_windows(x_sorted, codes_sorted, w_sorted, off, num_groups,
     cum = _build.group_chunks(off, _build.WIDE_CHUNK)
     out = torch.zeros((num_groups, p, p), dtype=torch.float32, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
+    cols = _build.column_args(x_cols, code_cols, sizes, device)
     for lo in lows:
         width = min(_build.WINDOW_WIDTH, p - lo)
         residual, keyed = _build.keyed_window_plan(schema, lo, lo + width)
@@ -430,8 +431,7 @@ def _presorted_windows(x_sorted, codes_sorted, w_sorted, off, num_groups,
                 dtype=torch.float64, device=device)
             with torch.cuda.device(device):
                 rc = lib.lib.dit_grouped_wide_gram_window(
-                    _build.pointers(x_cols), d, _build.pointers(code_cols),
-                    _build.int_array(sizes), len(sizes), w_sorted.data_ptr(),
+                    *cols, w_sorted.data_ptr(),
                     off.data_ptr(), cum.data_ptr(), num_groups, n, p, lo,
                     width, p, p * p, *(t.data_ptr() for t in tensors),
                     _build.int_array(residual.shape_ints(slices)),
@@ -440,7 +440,7 @@ def _presorted_windows(x_sorted, codes_sorted, w_sorted, off, num_groups,
         if keyed is not None:
             launch_keyed(keyed, order, n, device, schema, lo, width,
                          out[:, :, lo:], p, p * p, lib,
-                         "grouped_gram_presorted")
+                         "grouped_gram_presorted", cols[-1])
         grouped_gram_presorted.wide_launches += 1
     return out
 

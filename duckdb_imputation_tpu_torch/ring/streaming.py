@@ -309,9 +309,9 @@ def encode_chunk(num, cat, num_null, cat_null, ss: StreamSchema
 
 def check_fold(ss: StreamSchema, rows: int) -> None:
     """Raise ValueError when the kernels cannot fold this stream's
-    extended schema (c + K ≤ 64 categorical columns, P + K ≤ K7's window
-    limit, and past P + K = 1,024 no column of more levels than a K7 task
-    holds)."""
+    extended schema (any number of columns, the K flags among them: P + K
+    ≤ K7's window limit, and past P + K = 1,024 no column of more levels
+    than a K7 task holds beside another)."""
     ext = extended_schema(ss)
     _build.check_schema(ext, rows, _build.MAX_WINDOW_SIGMA_SIZE)
     if ext.sigma_size > _build.MAX_WIDE_SIGMA_SIZE:

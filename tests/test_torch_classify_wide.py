@@ -499,7 +499,8 @@ def test_limit_constants_equal_the_kernels():
              "WIDE_MAX_SLABS": "kWideMaxSlabs", "WIDE_SMEM": "kWideSmem",
              "WIDE_STAGE_ROWS": "kThreads", "WIDE_PLAN_INTS": "kWidePlanInts",
              "KEYED_TASK_INTS": "kKeyedTaskInts",
-             "MAX_COLS": "kMaxCols",
+             "INLINE_COLS": "kInlineCols",
+             "ORDER_INLINE": "kOrderInline", "SLAB_CM": "kSlabCM",
              "MAX_UNSORTED_GROUPS": "kMaxUnsortedGroups",
              "NB_PLAN_INTS": "kNbPlanInts", "TC_ROWS": "kTcRows",
              "TC_A": "kTcA", "TC_RIGHT": "kTcRight",
@@ -696,12 +697,14 @@ def test_wide_build_failure_propagates(monkeypatch, which):
 # ---------------------------------------------------------------------------
 
 def test_qda_schema_limit_as_built():
-    """K3/K3w take the plan's limits, 64 numeric and 64 categorical
-    columns and P up to K7's window limit, in one code path: past the 32 +
-    32 of the factor scorer, 40 numeric and 40 categorical columns score
-    through the plain version as the dense f64 form ranks them; at 64 + 64
-    and P = 1,024 the tile shrinks to fit a block's shared memory, and one
-    level more (P = 1,025) passes too; one column more, or P past
+    """K3/K3w take any column count and P up to K7's window limit, in one
+    code path: past the 32 + 32 of the factor scorer, 40 numeric and 40
+    categorical columns score through the plain version as the dense f64
+    form ranks them; at 64 + 64 and P = 1,024 the tile shrinks to fit a
+    block's shared memory, and one level more (P = 1,025) passes too; 65
+    numeric or 65 one-level categorical columns are taken, their tiles
+    within shared memory; the numeric columns a tile of 32 rows holds
+    (`qda_max_numeric`) are the limit, and one more, or P past
     MAX_WINDOW_SIGMA_SIZE, raises."""
     rng = np.random.default_rng(9)
     keys = tuple(tuple(range(3)) for _ in range(40))
@@ -733,8 +736,16 @@ def test_qda_schema_limit_as_built():
     _build.check_qda(FeatureSchema(num_cols=64, cat_keys=tuple(
         tuple(range(14 if j < 63 else 1024 - 64 - 14 * 63))
         for j in range(64))), 2, 1000)
-    for past in (FeatureSchema(num_cols=65),
+    for wide in (FeatureSchema(num_cols=65),
                  FeatureSchema(num_cols=4, cat_keys=((0,),) * 65),
+                 FeatureSchema(num_cols=_build.qda_max_numeric(0))):
+        _build.check_qda(wide, 2, 1000)
+        plan = _build.qda_plan(wide)
+        threads, rows, group = _build.qda_tile(wide, plan, 2)
+        assert _build.qda_smem_bytes(plan.max_task_cells, wide,
+                                     threads * rows, group
+                                     ) <= _build.WIDE_SMEM
+    for past in (FeatureSchema(num_cols=_build.qda_max_numeric(0) + 1),
                  FeatureSchema(num_cols=64, cat_keys=tuple(
                      tuple(range(14 if j < 63 else _build.MAX_WINDOW_SIGMA_SIZE
                                  - 64 - 14 * 63))

@@ -2357,3 +2357,165 @@ def test_sharded_fused_past_1024_at_world_one_on_nccl(nccl_mesh):
     want = run_mice_device(t, iters=1, kernel="fused")
     assert torch.equal(got.num_data, want.num_data)
     assert torch.equal(got.cat_codes, want.cat_codes)
+
+
+# ---------------------------------------------------------------------------
+# Schemas of any column count: every kernel past 64 numeric and 64
+# categorical columns, and past the 88 of each kind its parameter holds
+# (the columns' device table, _build.far_table)
+# ---------------------------------------------------------------------------
+
+# Kaggle "Home Credit Default Risk" application_train.csv: 104 numeric
+# columns, 16 categorical (P = 245); UCI SECOM: 590 numeric (P = 591)
+HOME_CREDIT = (2, 3, 2, 2, 7, 8, 5, 6, 6, 18, 7, 58, 4, 3, 7, 2)
+MANY_COLS = {"d80": (80, ()), "d70c2": (70, (8, 8)),
+             "home_credit": (104, HOME_CREDIT), "secom": (590, ()),
+             "past1024": (100, (4100,) + (3,) * 89),
+             "secom_fold": (590, (1,) * 590)}
+MANY_ROWS = {"secom": 20_000, "past1024": 20_000, "secom_fold": 3_000}
+
+
+def many_cols_inputs(name, cuda, n=None, seed=0, binary=True):
+    """A table of MANY_COLS[name]: normal numerics, codes with 5% out of
+    vocabulary, weights of 0/1 (or uniform)."""
+    d, sizes = MANY_COLS[name]
+    n = n or MANY_ROWS.get(name, 50_003)
+    schema = FeatureSchema(num_cols=d, cat_keys=tuple(tuple(range(v))
+                                                      for v in sizes))
+    rng = np.random.default_rng(seed)
+    xs = [torch.tensor(rng.normal(size=n).astype(np.float32), device=cuda)
+          for _ in range(d)]
+    cs = []
+    for v in sizes:
+        c = rng.integers(0, v, n).astype(np.int32)
+        c[rng.random(n) < 0.05] = v
+        cs.append(torch.tensor(c, device=cuda))
+    w = torch.tensor((rng.random(n) > 0.3).astype(np.float32) if binary
+                     else rng.random(n).astype(np.float32), device=cuda)
+    return schema, xs, cs, w
+
+
+@pytest.mark.parametrize("name", sorted(MANY_COLS))
+def test_many_cols_gram_matches_plain(cuda, name):
+    """K1 (P ≤ 88), K7 (up to P = 1,024) and K7's windows (past it; the
+    SECOM fold's 590 one-level flags as CM slabs): S = Sᵀ exactly, counts
+    exact, a rerun bit-identical, the rest within 1e-5 of max|σ|."""
+    schema, xs, cs, w = many_cols_inputs(name, cuda)
+    got = masked_gram_cols(xs, cs, w, schema=schema)
+    again = masked_gram_cols(xs, cs, w, schema=schema)
+    want = masked_gram_cols_plain(xs, cs, w, schema=schema)
+    assert torch.equal(got, again)
+    assert torch.equal(got, got.T)
+    cm = count_mask(schema, cuda)
+    assert torch.equal(got[cm], want[cm])
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("name,kind,col", [
+    ("d80", "num", 79), ("d70c2", "cat", 1), ("d70c2", "num", 3),
+    ("home_credit", "num", 100), ("home_credit", "num", 7),
+    ("home_credit", "cat", 11), ("secom", "num", 589),
+    ("past1024", "num", 95), ("past1024", "cat", 89)])
+def test_many_cols_fused_matches_plain(cuda, name, kind, col):
+    """K2 (P ≤ 88) and K2w (past it; a numeric column past the parameter's
+    88, whose Gram reads the output through the device table): codes equal
+    to the plain version's, numerics within 1e-6, sigma within 1e-5 of
+    max|σ|, a rerun bit-identical."""
+    schema, xs, cs, w = many_cols_inputs(name, cuda, seed=3)
+    n, p = w.shape[0], schema.sigma_size
+    rng = np.random.default_rng(4)
+    r = schema.cat_sizes[col] if kind == "cat" else 1
+    w_full = torch.tensor(rng.normal(size=(p, r)).astype(np.float32) * 0.1,
+                          device=cuda)
+    icpt = torch.tensor(rng.normal(size=r).astype(np.float32), device=cuda)
+    null = torch.tensor(rng.random(n) < 0.2, device=cuda)
+    args = (xs, cs, null, w, w_full, icpt)
+    kw = dict(schema=schema, kind=kind, imp_col=col)
+    new, sig = fused_impute_aggregate(*args, **kw)
+    new2, sig2 = fused_impute_aggregate(*args, **kw)
+    assert torch.equal(new, new2) and torch.equal(sig, sig2)
+    assert torch.equal(sig, sig.T)
+    want_new, want_sig = fused_impute_aggregate_plain(*args, **kw)
+    if kind == "cat":
+        assert torch.equal(new, want_new)
+    else:
+        torch.testing.assert_close(new, want_new, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(sig, want_sig, rtol=0,
+                               atol=1e-5 * float(want_sig.abs().max()))
+
+
+@pytest.mark.parametrize("name,groups", [
+    ("d80", 3), ("d70c2", 8), ("home_credit", 2), ("secom", 2),
+    ("past1024", 2)])
+def test_many_cols_grouped_matches_plain(cuda, name, groups):
+    """K4 (≤ 8 groups at P ≤ 88, unsorted), K5 and K8 (after
+    sort_by_group; K8 a launch a window past P = 1,024): each group's S
+    symmetric, counts exact, a rerun bit-identical, within 1e-5 of each
+    group's max|σ|."""
+    schema, x, c, w = many_cols_inputs(name, cuda, seed=5)
+    n = w.shape[0]
+    g = torch.randint(-1, groups + 1, (n,), dtype=torch.int32, device=cuda)
+    xt, ct = torch.stack(x), (torch.stack(c) if c else
+                              torch.zeros((0, n), dtype=torch.int32,
+                                          device=cuda))
+    got = grouped_gram(xt, ct, w, g, schema=schema, num_groups=groups)
+    again = grouped_gram(xt, ct, w, g, schema=schema, num_groups=groups)
+    assert torch.equal(got, again)
+    assert torch.equal(got, got.transpose(1, 2))
+    want = grouped_gram_plain(xt, ct, w, g, schema=schema, num_groups=groups)
+    cm = count_mask(schema, cuda)
+    assert torch.equal(got[:, cm], want[:, cm])
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=1e-5 * float(b.abs().max()))
+    xs, cs, ws, layout = sort_by_group(xt, ct, g, schema=schema,
+                                       num_groups=groups, weights=w)
+    pre = grouped_gram_presorted(xs, cs, ws, layout, schema=schema)
+    torch.testing.assert_close(pre, want, rtol=0,
+                               atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("name", ["d80", "d70c2", "home_credit", "secom",
+                                  "past1024"])
+def test_many_cols_nb_matches_plain(cuda, name):
+    """K6 / K6w over 2 groups: counts exact, sums within 1e-5 relative, a
+    rerun bit-identical."""
+    schema, x, c, w = many_cols_inputs(name, cuda, seed=6)
+    n = w.shape[0]
+    g = torch.randint(-1, 3, (n,), dtype=torch.int32, device=cuda)
+    xt = torch.stack(x)
+    ct = (torch.stack(c) if c else
+          torch.zeros((0, n), dtype=torch.int32, device=cuda))
+    got = nb_grouped_sums(xt, ct, None, g, schema=schema, num_groups=2)
+    again = nb_grouped_sums(xt, ct, None, g, schema=schema, num_groups=2)
+    assert torch.equal(got, again)
+    want = nb_grouped_sums_plain(xt, ct, None, g, schema=schema,
+                                 num_groups=2)
+    d = schema.num_cols
+    assert torch.equal(got[:, 0], want[:, 0])
+    assert torch.equal(got[:, 1 + 2 * d:], want[:, 1 + 2 * d:])
+    torch.testing.assert_close(got, want, rtol=1e-5,
+                               atol=1e-6 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("name", ["d80", "d70c2", "home_credit", "secom",
+                                  "past1024"])
+def test_many_cols_qda_matches_plain(cuda, name):
+    """K3 / K3w over 3 classes (diagonal quadratic forms, random linear
+    terms): equal to the plain scorer, a rerun bit-identical."""
+    schema, x, c, _ = many_cols_inputs(name, cuda, n=20_000, seed=7)
+    rng = np.random.default_rng(8)
+    m = schema.sigma_size - 1
+    quad = torch.tensor(-np.eye(m) * rng.random(m), device=cuda)
+    lin = torch.tensor(rng.normal(size=(3, m)), device=cuda)
+    tables, plan = qda_tables(quad.expand(3, m, m), lin,
+                              torch.zeros(3, device=cuda), schema=schema)
+    xt = torch.stack(x)
+    ct = (torch.stack(c) if c else
+          torch.zeros((0, 20_000), dtype=torch.int32, device=cuda))
+    got = qda_predict_kernel(tables, plan, xt, ct, schema=schema)
+    again = qda_predict_kernel(tables, plan, xt, ct, schema=schema)
+    assert torch.equal(got, again)
+    assert torch.equal(got, qda_predict_plain(tables, plan, xt, ct,
+                                              schema=schema))

@@ -161,9 +161,11 @@ def test_nb_train_and_predict_match_reference():
 
 
 def test_nb_limits_raise():
+    """n ≥ 2³¹ raises; any column count is taken (100 numeric columns:
+    its plan within a block's shared memory)."""
     wide = FeatureSchema(num_cols=100, cat_keys=(tuple(range(80)),))
-    with pytest.raises(ValueError):
-        _build.check_nb(wide, 10)
+    _build.check_nb(wide, 10)
+    assert _build.nb_plan(wide, 3).smem_bytes <= _build.WIDE_SMEM
     with pytest.raises(ValueError):
         _build.check_nb(SCHEMA, 1 << 31)
     _build.check_nb(SCHEMA, 10_000_000)

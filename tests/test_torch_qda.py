@@ -199,14 +199,17 @@ def test_qda_full_onehot_fixture_agrees_with_f64_oracle():
 def test_qda_limits_raise():
     """K3/K3w take the plan's limits: P up to K7's window limit
     (MAX_WINDOW_SIGMA_SIZE; P = 1,025 passes since the scorer's plan keys
-    a wide cross table on its wider column) and 64 numeric and 64
-    categorical columns; at least one class; the method by name."""
+    a wide cross table on its wider column) and any column count whose
+    tile of 32 rows fits shared memory (65 numeric columns pass, one past
+    `qda_max_numeric` raises); at least one class; the method by name."""
     schema = FeatureSchema(num_cols=4, cat_keys=(tuple(range(8)),) * 2)
     _build.check_qda(schema, 8, 10_000_000)
     with pytest.raises(ValueError):      # no class
         _build.check_qda(schema, 0, 100)
-    with pytest.raises(ValueError):      # more columns than the plan takes
-        _build.check_qda(FeatureSchema(num_cols=65), 2, 100)
+    _build.check_qda(FeatureSchema(num_cols=65), 2, 100)
+    with pytest.raises(ValueError):      # a tile past shared memory
+        _build.check_qda(FeatureSchema(
+            num_cols=_build.qda_max_numeric(0) + 1), 2, 100)
     _build.check_qda(FeatureSchema(
         num_cols=4, cat_keys=(tuple(range(1020)),)), 2, 100)
     with pytest.raises(ValueError):      # sigma size above the plan's

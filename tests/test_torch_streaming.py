@@ -189,15 +189,39 @@ def test_fold_past_88_uses_the_wide_plan(case):
     assert_gram(got.numpy(), ref.scan_gram(rsrc, rss, chunk_rows=700), ss)
 
 
-@pytest.mark.parametrize("cats,nullable", [(60, 5), (2, 0), (3, 0)])
+def test_fold_past_64_categorical_columns_matches_jax():
+    """60 categorical columns and 5 nullable ones (c + K = 65, past the 64
+    the kernels once took): check_fold takes the extended schema, and the
+    CPU fold equals the JAX package's."""
+    rng = np.random.default_rng(7)
+    n = 2000
+    num = rng.normal(size=(2, n)).astype(np.float32)
+    cat = rng.integers(0, 2, size=(60, n)).astype(np.int64)
+    for j in range(5):
+        cat[j, rng.random(n) < 0.1] = -1          # nulls: K = 5 flags
+    num_null = np.zeros_like(num, bool)
+    cat_null = cat < 0
+    src = streaming.chunks_from_arrays(num, cat, num_null, cat_null,
+                                       chunk_rows=700)
+    ss, _ = streaming.scan_schema(src, collect_dirty=False)
+    ext = streaming.extended_schema(ss)
+    assert ext.cat_cols == 65
+    streaming.check_fold(ss, n)
+    got = streaming.scan_gram(src, ss, chunk_rows=700, device="cpu")
+    rsrc = ref.chunks_from_arrays(num, cat, num_null, cat_null,
+                                  chunk_rows=700)
+    rss, _ = ref.scan_schema(rsrc, collect_dirty=False)
+    assert_gram(got.numpy(), ref.scan_gram(rsrc, rss, chunk_rows=700), ss)
+
+
+@pytest.mark.parametrize("cats,nullable", [(2, 0), (3, 0)])
 def test_fold_limits_raise_before_the_stream(cats, nullable):
-    """c + K > 64 categorical columns; P + K past K7's window limit (two
-    columns of 23,200 levels); or, past P + K = 1,024, a column of more
-    levels than a K7 task's cells beside another (9,000): a CUDA fold
-    raises ValueError before it reads a chunk."""
+    """P + K past K7's window limit (two columns of 23,200 levels); or,
+    past P + K = 1,024, a column of more levels than a K7 task's cells
+    beside another (9,000): a CUDA fold raises ValueError before it reads
+    a chunk."""
     keys = {2: (tuple(range(23_200)),) * 2,
-            3: (tuple(range(9000)), (0, 1), (0, 1))}.get(cats,
-                                                         ((0, 1),) * cats)
+            3: (tuple(range(9000)), (0, 1), (0, 1))}[cats]
     ss = streaming.StreamSchema(
         schema=FeatureSchema(num_cols=1, cat_keys=keys),
         nullable_num=(), nullable_cat=tuple(range(nullable)), n_rows=1)

@@ -183,9 +183,10 @@ def test_wide_plan_covers_every_nonzero_once(name):
 def test_wide_plan_tasks_fit_shared_memory(name):
     """Every task's f64 tables fit WIDE_TASK_BYTES, and with the staged
     rows and the slab records the block's shared memory fits the 227 KB a
-    block may take; a task stages the code columns its slabs read; its
-    slabs tile its cells, each warp's side by side; a table past the
-    budget is split by its leading key into ranges that cover it."""
+    block may take; a task stages the code columns its slabs read (and
+    every numeric column where it has a K slab); its slabs tile its
+    cells, each warp's side by side; a table past the budget is split by
+    its leading key into ranges that cover it."""
     schema = (FeatureSchema(num_cols=64, cat_keys=(tuple(range(14)),) * 64)
               if name == "limit" else FeatureSchema(*PLAN_SCHEMAS[name]))
     plan = _build.wide_plan(schema)
@@ -202,8 +203,10 @@ def test_wide_plan_tasks_fit_shared_memory(name):
         mine = plan.slabs[plan.slabs[:, 6] == t].tolist()
         read = sorted({c for kind, p0, p1, *_ in mine if kind != _build.SLAB_D
                        for c in ((p0,) if kind == _build.SLAB_K else (p0, p1))})
-        count, *cols = plan.stage_cols[t].tolist()
-        assert cols[:count] == read and set(cols[count:]) <= {-1}
+        nx, nc, *cols = plan.stage_cols[t].tolist()
+        assert cols[nx:nx + nc] == read and set(cols[nx + nc:]) <= {-1}
+        if any(kind == _build.SLAB_K for kind, *_ in mine):
+            assert cols[:nx] == list(range(d))     # K_j: every numeric
         assert len(mine) <= min(plan.max_slabs, _build.WIDE_MAX_SLABS)
     assert plan.warp_begin.tolist() == sorted(plan.warp_begin.tolist())
     assert len(plan.warp_begin) == plan.num_tasks * _build.WIDE_WARPS + 1

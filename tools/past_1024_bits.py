@@ -1,6 +1,7 @@
-"""Hold the outputs of K2w, K8 and K3/K3w at P ≤ 1,024 of checkouts
-against each other, bit for bit, on one GPU: the guard that widening the
-kernels past P = 1,024 left their narrower routes as they were.
+"""Hold the outputs of the kernels at schemas of at most 64 numeric and
+64 categorical columns of checkouts against each other, bit for bit, on
+one GPU: the guard that widening the kernels (past P = 1,024, and past
+any column count) left those schemas' outputs as they were.
 
     python3 tools/past_1024_bits.py [--roots DIR [DIR ...]] [--rows N]
     python3 tools/past_1024_bits.py --root DIR --out FILE [--rows N]
@@ -26,7 +27,15 @@ to FILE (torch.save). A root is the root of a checkout whose
   490) through the unsorted entry;
 - K3/K3w: the tables of QDA trained on each of those (K3w, several
   tasks), naive Bayes's tables of both (K3, one task; centred, written
-  straight into the plan's cells), and each scorer's argmax.
+  straight into the plan's cells), and each scorer's argmax;
+- BASELINE config 5 (P = 21): K1 (`masked_gram_cols`, on the tensor
+  cores) and K2 'cat' and 'num' steps; config 4 (P = 21, 2 groups past
+  one: K4 and, after sort_by_group, K5); K6 there;
+- favorita_wide's whole S by K7 (`masked_gram_cols`, one launch);
+- favorita_items (P = 4,592): S by K7's keyed windows (the order pass
+  and each window), K2w's 'cat' step past P = 1,024 (its impute kernel
+  with W in device memory, then the windows), K8's windows at label
+  onpromotion, and K3w's argmax on seeded QDA tables there.
 
 Prints the card and its power limit first.
 """
@@ -133,6 +142,65 @@ def outputs(root: str, rows: int) -> dict:
         out[f"k3_nb_{label}"] = nb_predict_device(*params, x, codes,
                                                   schema=schema)
         del x, codes, y, sig, tables, agg
+
+    # config 5 and config 4: K1, K2, K4, K5, K6
+    from duckdb_imputation_tpu_torch import FeatureSchema
+    from duckdb_imputation_tpu_torch.ring.kernels.nb_pallas import (
+        nb_grouped_sums)
+
+    t = cs.make_table(rows, 31)[0]
+    t = init_fill(t)
+    xs, cs_ = list(t.num_data.unbind(0)), list(t.cat_codes.unbind(0))
+    w0, w1 = (~t.cat_null[0]).float(), (~t.num_null[1]).float()
+    out["k1_config5"] = masked_gram_cols(xs, cs_, w0, schema=t.schema)
+    p5 = t.schema.sigma_size
+    w_cat = torch.linspace(-1, 1, p5 * 8, device=cs.DEVICE).reshape(p5, 8)
+    new, sig = fused_impute_aggregate(
+        xs, cs_, t.cat_null[0], w1, w_cat, torch.zeros(8, device=cs.DEVICE),
+        schema=t.schema, kind="cat", imp_col=0)
+    out["k2_config5_cat"], out["k2_config5_cat_sigma"] = new, sig
+    new, sig = fused_impute_aggregate(
+        xs, cs_, t.num_null[1], w0, w_cat[:, :1].contiguous(), torch.zeros(
+            1, device=cs.DEVICE), schema=t.schema, kind="num", imp_col=1)
+    out["k2_config5_num"], out["k2_config5_num_sigma"] = new, sig
+    c4 = FeatureSchema(num_cols=4, cat_keys=(tuple(range(8)),) * 2)
+    ids = (t.num_data[0] > 0).to(torch.int32) + (t.num_data[2] > 0).int()
+    out["k4_config4"] = grouped_gram(t.num_data, t.cat_codes, w0, ids,
+                                     schema=c4, num_groups=3)
+    out["k5_config4"] = grouped_gram_presorted(*sort_by_group(
+        t.num_data, t.cat_codes, ids, schema=c4, num_groups=3, weights=w0),
+        schema=c4)
+    out["k6_config4"] = nb_grouped_sums(t.num_data, t.cat_codes, w0, ids,
+                                        schema=c4, num_groups=3)
+    del t, xs, cs_
+
+    # favorita_wide's whole S by K7's one launch
+    t = cs.make_favorita(rows, 33)[0]
+    xs, cs_ = list(t.num_data.unbind(0)), list(t.cat_codes.unbind(0))
+    out["k7_favorita_wide"] = masked_gram_cols(
+        xs, cs_, (~t.cat_null[1]).float(), schema=t.schema)
+    del t, xs, cs_
+
+    # favorita_items past P = 1,024: K7's keyed windows, K2w, K8, K3w
+    t = init_fill(cs.make_favorita_items(rows, 35)[0])
+    schema = t.schema
+    xs, cs_ = list(t.num_data.unbind(0)), list(t.cat_codes.unbind(0))
+    w_fam = (~t.cat_null[1]).float()
+    out["k7_items"] = masked_gram_cols(xs, cs_, w_fam, schema=schema)
+    sig = out["k7_items"]
+    w, icpt, keep = _lda_device(sig, schema, 1, 0.001)
+    new, sig = fused_impute_aggregate(
+        xs, cs_, t.cat_null[1], (~t.num_null[1]).float(),
+        _w_full(w, keep, schema), icpt, schema=schema, kind="cat",
+        imp_col=1)
+    out["k2w_items_codes"], out["k2w_items_sigma"] = new, sig
+    del t, xs, cs_, sig, new
+    x, codes, y, schema, classes = cs.items_classify(rows, 37, "onpromotion")
+    out["k8_items"] = grouped_gram_presorted(*sort_by_group(
+        x, codes, y, schema=schema, num_groups=classes), schema=schema)
+    tables, plan, _ = cs.seeded_scorer("qda", schema, classes, 38)
+    out["k3w_items"] = qda_predict_kernel(tables, plan, x, codes,
+                                          schema=schema)
     torch.cuda.synchronize()
     return {k: v.cpu() for k, v in out.items()}
 
