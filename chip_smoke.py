@@ -6609,6 +6609,600 @@ def phase_narrow_many(seed: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# [criteo] and [zip5]: a categorical column past a task's cells beside
+# others, and codes past 32,768 in the scorers
+# ---------------------------------------------------------------------------
+
+# criteo_mid: the schema of Criteo's Display Advertising Challenge (Kaggle
+# 2014, train.txt, 45,840,617 rows): I1-I13 as log1p of counts, as DLRM
+# feeds them, and the 17 categorical columns of at most 15,000 levels but
+# C18, at the level counts of the DLRM repository's Kaggle preprocessing.
+# Cut: C3, C4, C10, C12, C16, C21, C24 and C26 (93k to 10M levels) and C18
+# (5,652), which put P past K7's window limit; the rows, to N_CRITEO.
+CRITEO_COLS = ("C1", "C2", "C5", "C6", "C7", "C8", "C9", "C11", "C13", "C14",
+               "C15", "C17", "C19", "C20", "C22", "C23", "C25")
+CRITEO_VOCABS = (1460, 583, 305, 24, 12517, 633, 3, 5683, 3194, 27, 14992,
+                 10, 2173, 4, 18, 15, 105)          # P = 41,760
+CRITEO_PAIR = (12517, 14992)   # criteo_pair: C7 and C15 alone, P = 27,523
+CRITEO_C20 = 13                # C20's index among the codes
+# null shares as commonly reported for train.txt (an assumption):
+# (column, index among its kind, share)
+CRITEO_NULLS = (("I1", 0, 0.45), ("I3", 2, 0.22), ("C20", CRITEO_C20, 0.44))
+CRITEO_CLICK = 0.256           # train.txt's share of clicks
+N_CRITEO = 10_000_000
+N_CRITEO_SLICE = 1_000_000     # rows the plain versions, scan_gram and the
+                               # scorers at criteo_pair and zip5 take
+N_CRITEO_MICE = 2_000_000      # rows of [criteo]'s run_mice_wide
+N_CRITEO_PLAIN_QDA = 20_000    # rows the plain scorer takes at criteo_pair
+                               # (its ~30,000 slabs a row)
+N_CRITEO_LIBRARY = 20_000      # rows of the dense cuBLAS Gram at criteo_mid
+ZIP5_VOCABS = (33791, 5)       # 2020 census ZCTAs, and a 5-level column
+
+
+def zipf_codes(n: int, v: int, g, shift=None) -> torch.Tensor:
+    """n codes of a column of v levels, Zipf (level r drawn with weight
+    1 / (r + 1)^1.05) by the inverse CDF of uniform draws on the device;
+    `shift` i64[n] or None: each row's code rotated by it (mod v)."""
+    cdf = torch.cumsum(1.0 / torch.arange(1, v + 1, device=DEVICE,
+                                          dtype=torch.float64) ** 1.05, 0)
+    cdf = cdf / cdf[-1]
+    u = torch.rand(n, generator=g, device=DEVICE, dtype=torch.float64)
+    c = torch.searchsorted(cdf, u).clamp_(max=v - 1)
+    if shift is not None:
+        c = (c + shift) % v
+    return c.to(torch.int32)
+
+
+def make_criteo(n: int, seed: int, vocabs=CRITEO_VOCABS):
+    """criteo_mid (or, with vocabs=CRITEO_PAIR, criteo_pair) at n rows,
+    made on the device from `seed`: the label click at 25.6%; I1-I13 the
+    log1p of counts exp(a + b·z1 + c·z2 + 0.4·ε) of two row factors,
+    click moving I1, I3 and I6; codes Zipf within each column, click
+    rotating C7's and C15's by a third of their levels; C20 the quartile
+    band of z1 + 0.5·ε (so the numerics predict it). criteo_mid's nulls:
+    I1 45%, I3 22%, C20 44% (`CRITEO_NULLS`). Returns (table, true x, true
+    codes, click)."""
+    from duckdb_imputation_tpu_torch import FeatureSchema
+
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    a, b, c = (rng.uniform(0.5, 3.0, 13), rng.uniform(0.4, 1.0, 13),
+               rng.uniform(-0.5, 0.5, 13))
+
+    def randn():
+        return torch.randn(n, generator=g, device=DEVICE)
+
+    click = torch.rand(n, generator=g, device=DEVICE) < CRITEO_CLICK
+    z1, z2 = randn(), randn()
+    x = torch.empty((13, n), device=DEVICE)
+    for j in range(13):
+        lam = a[j] + b[j] * z1 + c[j] * z2 + 0.4 * randn()
+        if j in (0, 2, 5):
+            lam = lam + 0.6 * click
+        x[j] = torch.log1p(torch.floor(torch.exp(lam)))
+    codes = torch.empty((len(vocabs), n), dtype=torch.int32, device=DEVICE)
+    for j, v in enumerate(vocabs):
+        codes[j] = zipf_codes(n, v, g, click.long() * (v // 3)
+                              if v in CRITEO_PAIR else None)
+    full = tuple(vocabs) == CRITEO_VOCABS
+    if full:
+        codes[CRITEO_C20] = torch.bucketize(
+            z1 + 0.5 * randn(), torch.tensor([-0.6, 0.0, 0.6],
+                                             device=DEVICE)).to(torch.int32)
+    schema = FeatureSchema(num_cols=13, cat_keys=tuple(
+        tuple(range(v)) for v in vocabs))
+    num_null = torch.zeros((13, n), dtype=torch.bool, device=DEVICE)
+    cat_null = torch.zeros((len(vocabs), n), dtype=torch.bool, device=DEVICE)
+    for name, j, share in CRITEO_NULLS if full else ():
+        row = cat_null[j] if name.startswith("C") else num_null[j]
+        row |= torch.rand(n, generator=g, device=DEVICE) < share
+    return null_table(x, codes, num_null, cat_null, schema), x, codes, click
+
+
+def made_qda_tables(schema, classes: int, seed: int, chunk: int = 1 << 24):
+    """QDA's tables made straight into the scorer's plan's cells
+    (`_build.qda_plan`), in f64 rounded to f32 once: per class an
+    intercept, a linear term and quad = −(I + B·Bᵀ) of a rank-4 B
+    (negative definite), each cell the sum of A[i, j] + A[j, i] over its
+    map's pairs i < j and A[i, i] on the diagonal, as `qda_tables` packs
+    them, with no dense A (2 × 27,523² f64 at criteo_pair). Returns
+    (tables f32[C, cells], plan)."""
+    from duckdb_imputation_tpu_torch.ring.kernels import _build
+
+    plan = _build.qda_plan(schema)
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(seed)
+    f64, p = torch.float64, schema.sigma_size
+    b = 0.3 * torch.randn(classes, p, 4, generator=g, device=DEVICE,
+                          dtype=f64)
+    lin = torch.randn(classes, p, generator=g, device=DEVICE, dtype=f64)
+    icpt = torch.randn(classes, generator=g, device=DEVICE, dtype=f64)
+    base = plan.task_base.to(DEVICE)
+    cells = torch.zeros((classes, int(plan.task_base[-1])), dtype=f64,
+                        device=DEVICE)
+    for a0 in range(0, plan.entries.shape[0], chunk):
+        e = plan.entries[a0:a0 + chunk].to(DEVICE).long()
+        i, j = e[:, 2], e[:, 3]
+        quad = -(b[:, i] * b[:, j]).sum(-1) - (i == j).to(f64)
+        val = torch.where(i == j, quad, 2 * quad)
+        val = torch.where(i == 0, lin[:, j], val)
+        val = torch.where((i == 0) & (j == 0), icpt[:, None], val)
+        cells.index_add_(1, base[e[:, 0]] + e[:, 1], val)
+    return cells.float(), plan
+
+
+def criteo_kernel(tag: str, counters, kernel, plain, compare, bound_: dict,
+                  library_ms=None) -> dict:
+    """`many_kernel` for kernels whose plain version takes seconds: two
+    calls, the rerun bit-identical, each with every counter of `counters`
+    ((wrapper, attribute, launches a call)) zeroed just before it and
+    checked just after; the plain version called and timed once."""
+    runs = []
+    for _ in range(2):
+        for obj, attr, _n in counters:
+            setattr(obj, attr, 0)
+        runs.append(kernel())
+        torch.cuda.synchronize()
+        for obj, attr, want_n in counters:
+            check(getattr(obj, attr) == want_n,
+                  f"{tag}: {getattr(obj, attr)} {obj.__name__}.{attr} a "
+                  f"call, not {want_n}")
+    launched = {f"{obj.__name__}.{attr}": want_n
+                for obj, attr, want_n in counters}
+    got, again = runs
+    del runs
+    pair = ((got, again) if isinstance(got, torch.Tensor)
+            else (torch.cat([a.flatten().float() for a in got]),
+                  torch.cat([a.flatten().float() for a in again])))
+    check(torch.equal(*pair), f"{tag}: rerun not bit-identical")
+    del again, pair
+    ms = cuda_ms(kernel, reps=1, warmup=0)
+    want = []
+    plain_ms = cuda_ms(lambda: want.append(plain()), reps=1, warmup=0)
+    err = compare(got, want[0])
+    del got, want
+    torch.cuda.empty_cache()
+    res = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound_,
+               library_ms=library_ms, launches_a_call=launched)
+    log(f"{tag}: max abs err {err:.3e}, bit-identical rerun, launches a "
+        f"call {launched}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+        f"bound {res['bound_ms']:.4f} ms ({res['bound_by']})"
+        + ("" if library_ms is None else f", library {library_ms:.3f} ms"))
+    return res
+
+
+def lean_gram_compare(tag, schema, rows: int = 2048):
+    """`gram_compare` (binary weights) a block of `rows` rows at a time:
+    criteo_mid's S is 7 GB, and its K8 two of them."""
+    def compare(got, want):
+        d, p = schema.num_cols, schema.sigma_size
+        counted = torch.ones(p, dtype=torch.bool, device=got.device)
+        counted[1:1 + d] = False
+        err = 0.0
+        for r0 in range(0, p, rows):
+            g, w_ = got[r0:r0 + rows], want[r0:r0 + rows]
+            check(torch.equal(g, got[:, r0:r0 + rows].T),
+                  f"{tag}: S is not exactly symmetric")
+            check(torch.isfinite(g).all(), f"{tag}: not finite")
+            cm = counted[r0:r0 + rows, None] & counted[None]
+            check(torch.equal(g[cm], w_[cm]),
+                  f"{tag}: counts differ from the plain version")
+            err = max(err, float((g - w_).abs().max()))
+        scale = float(want.abs().max())
+        check(err <= 1e-5 * scale, f"{tag}: max abs err {err} > 1e-5 of "
+              f"max|σ| {scale}")
+        return err
+    return compare
+
+
+def peak_host_gib() -> float:
+    """This process's peak resident memory, GiB (getrusage)."""
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
+
+
+def phase_criteo(seed: int) -> dict:
+    """[criteo]: criteo_mid (13 numerics, 17 categorical columns, P =
+    41,760; C7's 12,517 and C15's 14,992 levels both past a K7 task's
+    8,192 cells, their cross table cut by row code). At N_CRITEO rows: the
+    windows' plans (host seconds with their copy to the card, places,
+    device bytes, peak memory on both sides); masked_gram_cols over all
+    of S (one order pass, a launch a window: symmetric, rerun
+    bit-identical) and its time, bound and library; the first window, the
+    one inside C15 (C_{15,7} row-cut) and the last alone (equal to the
+    pass's columns), each against masked_gram_window_plain on an
+    N_CRITEO_SLICE-row slice; sort + K8 by click (G = 2) and K2w ('num'
+    on I1, 'cat' on C20) against their plain versions on the slice;
+    scan_gram over the slice's complete rows against masked_gram; then
+    run_mice_wide on a grid of one rank over N_CRITEO_MICE rows, imputing
+    I1, I3 and C20, against mean and mode fill."""
+    from types import SimpleNamespace
+
+    from duckdb_imputation_tpu_torch.parallel import (make_mesh_2d,
+                                                      run_mice_wide)
+    from duckdb_imputation_tpu_torch.parallel import wide as pwide
+    from duckdb_imputation_tpu_torch.ring import streaming
+    from duckdb_imputation_tpu_torch.ring.kernels import _build
+    from duckdb_imputation_tpu_torch.ring.kernels.sigma_fused import (
+        fused_impute_aggregate, fused_impute_aggregate_plain)
+    from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas import (
+        masked_gram, masked_gram_cols, masked_gram_window,
+        masked_gram_window_plain, window_columns, window_order,
+        window_plans)
+    from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas_grouped \
+        import (grouped_gram_presorted, grouped_gram_presorted_plain,
+                sort_by_group)
+
+    t_phase = time.perf_counter()
+    t, x_true, c_true, click = make_criteo(N_CRITEO, seed + 191)
+    schema, n = t.schema, N_CRITEO
+    p, d, sizes = schema.sigma_size, schema.num_cols, tuple(schema.cat_sizes)
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(seed + 192)
+    w = (torch.rand(n, generator=g, device=DEVICE) >= 0.25).float()
+    xs, cs = list(t.num_data), list(t.cat_codes)
+    lows = list(range(0, p, _build.WINDOW_WIDTH))
+    out = dict(sigma_size=p, rows=n, windows=len(lows))
+
+    # the plans: made on the host a window at a time, copied to the card
+    # and kept there (DEVICE_PLAN_SHARE); the host keeps PLAN_CACHE_BYTES
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    t1 = time.perf_counter()
+    for lo in lows:
+        window_plans(schema, lo, min(lo + _build.WINDOW_WIDTH, p), DEVICE)
+    torch.cuda.synchronize()
+    out["plans"] = dict(
+        seconds=time.perf_counter() - t1,
+        places=sum(_build.window_places(d, sizes, lo, min(
+            lo + _build.WINDOW_WIDTH, p)) for lo in lows),
+        device_gib=(torch.cuda.memory_allocated() - mem0) / 2 ** 30,
+        host_peak_gib=peak_host_gib(),
+        keyed_columns=[CRITEO_COLS[j] for j in _build.keyed_columns(
+            d, sizes)])
+    log(f"[criteo] criteo_mid P={p} n={n}: plans of {len(lows)} windows "
+        f"{out['plans']}")
+
+    # a pass over all of S, counts zeroed just before it
+    cols = window_columns(schema, lows, _build.WINDOW_WIDTH)
+    masked_gram_cols.wide_launches = window_order.passes = 0
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    s = masked_gram_cols(xs, cs, w, schema=schema)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t1
+    got = (masked_gram_cols.wide_launches, window_order.passes)
+    check(got == (len(lows), 1), f"[criteo] pass: launches (K7, order) "
+          f"{got}, not ({len(lows)}, 1)")
+    check(torch.isfinite(s).all() and torch.equal(s, s.T),
+          "[criteo] S not finite or not exactly symmetric")
+    again = masked_gram_cols(xs, cs, w, schema=schema)
+    check(torch.equal(s, again), "[criteo] pass rerun not bit-identical")
+    del again
+    out.update(
+        ms=cuda_ms(lambda: masked_gram_cols(xs, cs, w, schema=schema),
+                   reps=1, warmup=0),
+        first_call_s=first_s, launches=got[0], order_passes=got[1],
+        device_peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        **gram_bound(t.cat_codes, schema, w))
+    order_ms = cuda_ms(lambda: window_order(xs, cs, w, schema=schema,
+                                            columns=cols), reps=1, warmup=0)
+    out["order"] = dict(ms=order_ms, columns=[CRITEO_COLS[j] for j in cols],
+                        rows_copied=len(cols) * n, **bound(
+                            len(cols) * n * (4 + 4 * _build.order_stride(
+                                1 + d + schema.cat_cols)), 0))
+    ls = N_CRITEO_LIBRARY
+    out["library_ms"] = library_gram_ms(t.num_data[:, :ls],
+                                        t.cat_codes[:, :ls], w[:ls], schema)
+    out["library_rows"] = ls
+    log(f"[criteo] masked_gram_cols n={n}: {got[0]} K7 launches and "
+        f"{got[1]} order pass, first call {first_s:.2f} s, {out['ms']:.1f} "
+        f"ms, bound {out['bound_ms']:.3f} ms ({out['bound_by']}); order "
+        f"{order_ms:.1f} ms over {out['order']['columns']}; cuBLAS dense "
+        f"Gram at {ls} rows {out['library_ms']:.1f} ms; device peak "
+        f"{out['device_peak_gib']:.2f} GiB")
+
+    # three windows alone: equal to the pass's columns at N_CRITEO rows,
+    # against the plain version on the slice
+    m = N_CRITEO_SLICE
+    sx, sc, sw = [x[:m] for x in xs], [c[:m] for c in cs], w[:m]
+    c15 = 1 + d + sum(sizes[:CRITEO_COLS.index("C15")])
+    out["per_window"] = []
+    worst = 0.0
+    for lo in (0, c15 // 1024 * 1024 + 1024, lows[-1]):
+        wd = min(_build.WINDOW_WIDTH, p - lo)
+        masked_gram_window.launches = 0
+        win = masked_gram_window(xs, cs, w, schema=schema, lo=lo, width=wd)
+        torch.cuda.synchronize()
+        check(masked_gram_window.launches == 1 and torch.equal(
+            win, s[:, lo:lo + wd]), f"[criteo] window {lo}: not one launch "
+              f"equal to the pass's columns")
+        ms = cuda_ms(lambda: masked_gram_window(xs, cs, w, schema=schema,
+                                                lo=lo, width=wd),
+                     reps=1, warmup=0)
+        del win
+        got = masked_gram_window(sx, sc, sw, schema=schema, lo=lo, width=wd)
+        again = masked_gram_window(sx, sc, sw, schema=schema, lo=lo,
+                                   width=wd)
+        want = []
+        plain_ms = cuda_ms(lambda: want.append(masked_gram_window_plain(
+            sx, sc, sw, schema=schema, lo=lo, width=wd)), reps=1, warmup=0)
+        err = _window_check(f"[criteo] window {lo}", got, again, want[0],
+                            schema, lo)
+        worst = max(worst, err)
+        residual, keyed = _build.keyed_window_plan(schema, lo, lo + wd)
+        kinds = sorted({k for pl in (residual, keyed and keyed.plan) if pl
+                        for k in pl.slabs[:, 0].tolist()})
+        rec = dict(lo=lo, width=wd, ms=ms, plain_ms=plain_ms,
+                   plain_rows=m, max_abs_err=err, slab_kinds=kinds,
+                   residual_tasks=residual.num_tasks if residual else 0,
+                   keyed_tasks=keyed.num_tasks if keyed else 0,
+                   **window_bound(cs, w, schema, lo, lo + wd))
+        out["per_window"].append(rec)
+        log(f"[criteo] window [{lo}, {lo + wd}): {rec}")
+        del got, again, want
+    check(_build.SLAB_CB in out["per_window"][1]["slab_kinds"],
+          "[criteo] the window inside C15 holds no CB slab")
+    out["max_abs_err"], out["plain_ms"] = worst, None
+    del s
+    torch.cuda.empty_cache()
+
+    # K8 by click (G = 2): sort, then a launch a window; N_CRITEO rows
+    # timed, the slice against the plain version
+    def k8(x_, c_, w_, y_):
+        xg, cg, wg, layout = sort_by_group(torch.stack(x_), torch.stack(c_),
+                                           y_, schema=schema, num_groups=2,
+                                           weights=w_)
+        return grouped_gram_presorted(xg, cg, wg, layout, schema=schema)
+
+    def k8_plain():
+        xg, cg, wg, layout = sort_by_group(
+            torch.stack(sx), torch.stack(sc), click[:m].int(), schema=schema,
+            num_groups=2, weights=sw)
+        return grouped_gram_presorted_plain(xg, cg, wg, layout,
+                                            schema=schema)
+
+    grouped_gram_presorted.wide_launches = 0
+    t1 = time.perf_counter()
+    full = k8(xs, cs, w, click.int())
+    torch.cuda.synchronize()
+    k8_s = time.perf_counter() - t1
+    check(grouped_gram_presorted.wide_launches == len(lows),
+          f"[criteo] K8: {grouped_gram_presorted.wide_launches} launches")
+    check(torch.isfinite(full).all() and torch.equal(
+        full, full.transpose(1, 2)), "[criteo] K8 not symmetric")
+    del full
+    torch.cuda.empty_cache()
+    def k8_compare(got, want):
+        return max(lean_gram_compare(f"[criteo] K8 group {gg}", schema)(
+            got[gg], want[gg]) for gg in range(2))
+
+    def fused_lean(tag, kind):
+        def compare(got, want):
+            (new, sig), (wnew, wsig) = got, want
+            if kind == "cat":
+                check(torch.equal(new, wnew), f"{tag}: codes differ")
+            else:
+                dv = float((new - wnew).abs().max())
+                check(dv <= 1e-5 * max(1.0, float(wnew.abs().max())),
+                      f"{tag}: values differ by {dv}")
+            return lean_gram_compare(tag, schema)(sig, wsig)
+        return compare
+
+    out["k8"] = criteo_kernel(
+        "[criteo] sort + K8 by click",
+        [(grouped_gram_presorted, "wide_launches", len(lows)),
+         (window_order, "passes", 1)],
+        lambda: k8(sx, sc, sw, click[:m].int()), k8_plain, k8_compare,
+        gram_bound(t.cat_codes[:, :m], schema, sw, groups=2, extra=8))
+    out["k8"].update(rows=m, full_rows=n, full_s=k8_s, groups=2)
+    torch.cuda.empty_cache()
+
+    # K2w: its impute kernel, then K7's windows
+    rng = np.random.default_rng(seed + 193)
+    null = torch.zeros(m, dtype=torch.bool, device=DEVICE)
+    out["k2w"] = {}
+    for kind, col, r, mask in (("num", 0, 1, t.num_null[0, :m]),
+                               ("cat", CRITEO_C20, 4, t.cat_null[
+                                   CRITEO_C20, :m])):
+        w_full = torch.tensor(rng.normal(size=(p, r)).astype(np.float32)
+                              * 0.01, device=DEVICE)
+        icpt = torch.tensor(rng.normal(size=r).astype(np.float32),
+                            device=DEVICE)
+        args = (sx, sc, mask | null, sw, w_full, icpt)
+        kw = dict(schema=schema, kind=kind, imp_col=col)
+        out["k2w"][kind] = criteo_kernel(
+            f"[criteo] K2w '{kind}' ({'I1' if kind == 'num' else 'C20'})",
+            [(fused_impute_aggregate, "impute_launches", 1),
+             (fused_impute_aggregate, "window_launches", len(lows)),
+             (window_order, "passes", 1)],
+            lambda: fused_impute_aggregate(*args, **kw),
+            lambda: fused_impute_aggregate_plain(*args, **kw),
+            fused_lean(f"[criteo] K2w {kind}", kind),
+            gram_bound(t.cat_codes[:, :m], schema, sw, extra=5))
+        torch.cuda.empty_cache()
+
+    # scan_gram over the slice's complete rows (no nulls, so the fold's
+    # schema is criteo_mid's own and shares its plans) against masked_gram
+    num = x_true[:, :m].cpu().numpy()
+    cat = c_true[:, :m].cpu().numpy().astype(np.int64)
+    ss = streaming.StreamSchema(schema=schema, nullable_num=(),
+                                nullable_cat=(), n_rows=m)
+    masked_gram.wide_launches = 0
+    t1 = time.perf_counter()
+    gram = streaming.scan_gram(streaming.chunks_from_arrays(
+        num, cat, chunk_rows=m), ss, chunk_rows=m, device=DEVICE)
+    torch.cuda.synchronize()
+    scan_s = time.perf_counter() - t1
+    check(masked_gram.wide_launches == len(lows),
+          f"[criteo] scan_gram: {masked_gram.wide_launches} K7 launches")
+    ref = masked_gram(x_true[:, :m].contiguous(), c_true[:, :m].contiguous(),
+                      None, schema=schema)
+    check(torch.equal(gram.float(), ref), "[criteo] scan_gram's one "
+          "chunk differs from masked_gram over the same rows")
+    out["scan_gram"] = dict(rows=m, seconds=scan_s,
+                            launches=len(lows), equal=True)
+    log(f"[criteo] scan_gram n={m}: {len(lows)} K7 launches, "
+        f"{scan_s:.2f} s, equal to masked_gram over the same rows")
+    del gram, ref, num, cat
+    torch.cuda.empty_cache()
+
+    # run_mice_wide on a grid of one rank
+    mr = N_CRITEO_MICE
+    sub = null_table(x_true[:, :mr], c_true[:, :mr], t.num_null[:, :mr],
+                     t.cat_null[:, :mr], schema)
+    masked_gram_window.launches = pwide._pcg.steps = 0
+    t1 = time.perf_counter()
+    xw, cw = run_mice_wide(
+        sub.num_data, sub.cat_codes, sub.num_null, sub.cat_null,
+        schema=schema, mesh=make_mesh_2d(1, 1, device=DEVICE), iters=1,
+        num_cols_to_impute=(0, 2), cat_cols_to_impute=(CRITEO_C20,),
+        ridge=1e-2, shrinkage=1e-1, cg_iters=150, tol=1e-6)
+    torch.cuda.synchronize()
+    mice_s = time.perf_counter() - t1
+    passes = masked_gram_window.launches // len(lows)
+    check(masked_gram_window.launches == 3 * len(lows),
+          f"[criteo] run_mice_wide: {masked_gram_window.launches} K7 "
+          f"window launches, not three passes of {len(lows)}")
+    quality = many_quality("[criteo] run_mice_wide", sub, x_true[:, :mr],
+                           c_true[:, :mr], SimpleNamespace(
+                               num_data=xw, cat_codes=cw))
+    out["run_mice_wide"] = dict(rows=mr, seconds=mice_s, passes=passes,
+                                window_launches=masked_gram_window.launches,
+                                cg_steps=pwide._pcg.steps, **quality)
+    log(f"[criteo] run_mice_wide 1 x 1 n={mr} (I1, I3, C20): {mice_s:.2f} "
+        f"s, {passes} passes over S, {pwide._pcg.steps} CG steps")
+    del t, x_true, c_true, click, xs, cs, w, sub, xw, cw
+    _build.plan_cache.clear()
+    from duckdb_imputation_tpu_torch.ring.kernels import sigma_pallas
+    sigma_pallas._device_plan.cache_clear()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[criteo] {out['seconds']:.1f} s in all")
+    return out
+
+
+def phase_zip5(seed: int) -> dict:
+    """[zip5] and criteo_pair's scorer: K3w QDA at criteo_pair (C7 × C15
+    row-cut in the scorer's plan) and at zip5 (4 numerics, a ZIP5 column
+    of 33,791 levels beside one of 5: codes staged as i32), C = 2 classes
+    of tables made straight into the plan's cells, N_CRITEO_SLICE rows,
+    argmax against the plain version (criteo_pair on N_CRITEO_PLAIN_QDA
+    rows) on ≥ 0.9999 of rows; then the NB pipeline at zip5 over N rows
+    (label the 5-level column): K6w, training, the NB scorer (K3w, i32
+    codes), accuracy above the majority share + 0.02, argmax against the
+    plain version (the CPU) on ≥ 0.9999 of N_MANY_CPU rows."""
+    from duckdb_imputation_tpu_torch import FeatureSchema
+    from duckdb_imputation_tpu_torch.models.device import (
+        nb_predict_device, nb_train_device)
+    from duckdb_imputation_tpu_torch.ring.kernels import _build
+    from duckdb_imputation_tpu_torch.ring.kernels.nb_pallas import (
+        nb_grouped_sums)
+    from duckdb_imputation_tpu_torch.ring.kernels.qda_pallas import (
+        qda_predict_kernel, qda_predict_plain)
+    from duckdb_imputation_tpu_torch.ring.sum import sum_to_nb_agg_grouped
+
+    t_phase = time.perf_counter()
+    out = {}
+    m = N_CRITEO_SLICE
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(seed + 201)
+    zip5 = FeatureSchema(num_cols=4, cat_keys=tuple(
+        tuple(range(v)) for v in ZIP5_VOCABS))
+    pair = make_criteo(m, seed + 202, CRITEO_PAIR)
+    zx = torch.randn((4, m), generator=g, device=DEVICE)
+    zc = torch.stack([zipf_codes(m, ZIP5_VOCABS[0], g),
+                      torch.randint(0, 5, (m,), generator=g, device=DEVICE,
+                                    dtype=torch.int32)])
+    for name, schema, x, codes, plain_rows in (
+            ("criteo_pair", pair[0].schema, pair[0].num_data,
+             pair[0].cat_codes, N_CRITEO_PLAIN_QDA),
+            ("zip5", zip5, zx, zc, m)):
+        t1 = time.perf_counter()
+        tables, plan = made_qda_tables(schema, 2, seed + 203)
+        torch.cuda.synchronize()
+        made_s = time.perf_counter() - t1
+        qda_predict_kernel.wide_launches = 0
+        got = qda_predict_kernel(tables, plan, x, codes, schema=schema)
+        again = qda_predict_kernel(tables, plan, x, codes, schema=schema)
+        torch.cuda.synchronize()
+        check(qda_predict_kernel.wide_launches == 2 and torch.equal(
+            got, again), f"[{name}] K3w: launches or rerun")
+        ms = cuda_ms(lambda: qda_predict_kernel(tables, plan, x, codes,
+                                                schema=schema),
+                     reps=1, warmup=0)
+        k = plain_rows
+        want = []
+        plain_ms = cuda_ms(lambda: want.append(qda_predict_plain(
+            tables, plan, x[:, :k].contiguous(), codes[:, :k].contiguous(),
+            schema=schema)), reps=1, warmup=0)
+        agree = float((got[:k] == want[0]).float().mean())
+        check(agree >= 0.9999, f"[{name}] K3w agrees with the plain "
+              f"version on {agree} of rows")
+        check(len(torch.unique(got)) == 2, f"[{name}] K3w: one class")
+        out[f"k3w_{name}"] = dict(
+            max_abs_err=0.0 if agree == 1.0 else 1.0, ms=ms,
+            plain_ms=plain_ms, plain_rows=k, agreement=agree, rows=m,
+            tasks=plan.num_tasks, cells=int(plan.task_base[-1]),
+            cb_slabs=int((plan.slabs[:, 0] == _build.SLAB_CB).sum()),
+            code_bytes=_build.qda_code_bytes(schema), tables_s=made_s,
+            tile=list(_build.qda_tile(schema, plan, 2)),
+            launches=qda_predict_kernel.wide_launches, library_ms=None,
+            **qda_bound(codes, schema, 2, tables.numel() * 4))
+        log(f"[{name}] K3w QDA P={schema.sigma_size} n={m}: "
+            f"{out[f'k3w_{name}']}")
+        del tables, plan, got, again, want
+        torch.cuda.empty_cache()
+    del pair, zx, zc
+
+    # the NB pipeline at zip5: label the 5-level column
+    n = N
+    y = torch.multinomial(torch.tensor([0.3, 0.25, 0.2, 0.15, 0.1],
+                                       device=DEVICE), n, replacement=True,
+                          generator=g).to(torch.int32)
+    x = (torch.randn((4, n), generator=g, device=DEVICE)
+         + 0.4 * y[None] * torch.arange(1, 5, device=DEVICE)[:, None])
+    codes = zipf_codes(n, ZIP5_VOCABS[0], g, y.long() * 6000)[None]
+    schema = FeatureSchema(num_cols=4, cat_keys=(tuple(range(
+        ZIP5_VOCABS[0])),))
+    nb_grouped_sums.launches = qda_predict_kernel.wide_launches = 0
+    t1 = time.perf_counter()
+    agg = sum_to_nb_agg_grouped(x, codes, y, schema=schema, num_groups=5)
+    params = nb_train_device(agg.n, agg.lin, agg.quad_diag, agg.lin_cat)
+    pred = nb_predict_device(*params, x, codes, schema=schema)
+    torch.cuda.synchronize()
+    nb_s = time.perf_counter() - t1
+    launches = (nb_grouped_sums.launches,
+                qda_predict_kernel.wide_launches)
+    check(launches == (1, 1), f"[zip5] NB launches (K6w, K3w) {launches}")
+    acc = float((pred == y).float().mean())
+    major = float(torch.bincount(y).max()) / n
+    check(acc > major + 0.02, f"[zip5] NB accuracy {acc} vs majority "
+          f"{major}")
+    k = N_MANY_CPU
+    cpu = nb_predict_device(*[a.cpu() for a in params], x[:, :k].cpu(),
+                            codes[:, :k].cpu(), schema=schema)
+    agree = float((pred[:k].cpu() == cpu).float().mean())
+    check(agree >= 0.9999, f"[zip5] NB scorer agrees with the plain "
+          f"version on {agree}")
+    sums_ms = cuda_ms(lambda: nb_grouped_sums(
+        x, codes, None, y, schema=schema, num_groups=5), reps=3, warmup=1)
+    score_ms = cuda_ms(lambda: nb_predict_device(*params, x, codes,
+                                                 schema=schema), reps=3,
+                       warmup=1)
+    out["nb"] = dict(rows=n, seconds=nb_s, accuracy=acc, majority=major,
+                     agreement=agree, plain_rows=k, k6w_ms=sums_ms,
+                     scorer_ms=score_ms, launches=list(launches),
+                     k6w_bound=nb_bound(n, schema, 5))
+    log(f"[zip5] NB pipeline n={n}: {out['nb']}")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[zip5] {out['seconds']:.1f} s in all")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6683,7 +7277,11 @@ def main() -> int:
     narrow_many = phase_narrow_many(args.seed)
     home_credit = phase_home_credit(args.seed)
     secom = phase_secom(args.seed)
+    criteo = phase_criteo(args.seed)
+    zip5 = phase_zip5(args.seed)
     hck, sek = home_credit["kernels"], secom["kernels"]
+    criteo_mid = {k: v for k, v in criteo.items()
+                  if k not in ("k8", "k2w", "order")}
     n80, n70 = narrow_many["d80"], narrow_many["d70"]
 
     src = "duckdb_imputation_tpu_torch/csrc/"
@@ -6766,6 +7364,7 @@ def main() -> int:
              also_replaces=[ref + "sigma_pallas.py:520",
                             ref + "sigma_pallas.py:129"],
              secom_fold=dict(secom["fold"], plans=secom["plans"]),
+             criteo_mid=criteo_mid,
              wide16k=k7win["wide16k"], hot_key=k7win["hot_key"],
              **k7win["favorita_items"]),
         # the windows' row order, favorita_items' pass; wide16k's beside.
@@ -6776,7 +7375,7 @@ def main() -> int:
              replaces=None, serves="wide_gram_window",
              launches=items["order_launches"],
              passes=items["order_passes"],
-             wide16k=k7win["wide16k"]["order"],
+             wide16k=k7win["wide16k"]["order"], criteo_mid=criteo["order"],
              **k7win["favorita_items"]["order"]),
         dict(name="fused_impute_aggregate_wide", route="cuda",
              source=src + "fused_impute_aggregate.cu",
@@ -6797,7 +7396,10 @@ def main() -> int:
              source=src + "nb_grouped_sums.cu",
              replaces=ref + "nb_pallas.py:126",
              launches=classify_wide["nb_grouped_sums_wide"],
-             home_credit=hck["nb"], secom=sek["nb"], **k6w),
+             home_credit=hck["nb"], secom=sek["nb"],
+             zip5=dict(ms=zip5["nb"]["k6w_ms"], launches=zip5["nb"][
+                 "launches"][0], rows=zip5["nb"]["rows"],
+                 **zip5["nb"]["k6w_bound"]), **k6w),
         dict(name="qda_predict_wide", route="cuda",
              source=src + "qda_predict.cu",
              replaces=ref + "qda_pallas.py:148",
@@ -6814,18 +7416,23 @@ def main() -> int:
              window_launches=items_fused["launches"][
                  "fused_impute_aggregate.window_launches"],
              sharded_launches=sharded_items["launches"][
-                 "fused_impute_aggregate.impute_launches"], **k2w_items),
+                 "fused_impute_aggregate.impute_launches"],
+             criteo_mid=criteo["k2w"], **k2w_items),
         dict(name="grouped_wide_gram_window", route="cuda",
              source=src + "grouped_wide_gram.cu",
              replaces=ref + "sigma_pallas_grouped.py:568",
              launches=classify_items["qda"]["aggregate_launches"][
-                 "grouped_gram_presorted.wide_launches"], **k8win),
+                 "grouped_gram_presorted.wide_launches"],
+             criteo_mid=criteo["k8"], **k8win),
         dict(name="qda_predict_items", route="cuda",
              source=src + "qda_predict.cu",
              replaces=ref + "qda_pallas.py:173",
              launches=sum(p.get("launches", {}).get(
                  "qda_predict_kernel.wide_launches", 0)
-                 for p in classify_items.values()), **k3items),
+                 for p in classify_items.values()),
+             criteo_pair=zip5["k3w_criteo_pair"], zip5=zip5["k3w_zip5"],
+             zip5_nb={k: v for k, v in zip5["nb"].items()
+                      if k != "k6w_bound"}, **k3items),
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -29,7 +29,8 @@
 //
 // Layout of the work: a block owns a tile of threads·rows rows, staged
 // once in shared memory (x in f64, less an optional per-column shift, and
-// each code i16, −1 outside [0, size)). Naive Bayes's tables are built
+// each code i16, −1 outside [0, size); i32 where a column has more than
+// kQdaShortLevels levels, a US ZIP5 column's 33,791). Naive Bayes's tables are built
 // around a centre m (`nb_tables(center=m)`) and score x − m: expanded
 // around 0, a class of variance ~1e-9 at a mean of ~1e3 puts ~1e12 in its
 // linear cell, which f32 holds only to ~6e4. The block walks the steps
@@ -47,8 +48,11 @@
 // Past P = 1,024 (favorita_items: item_nbr's 4,100 levels) the plan keys a
 // cross table C_jk whose rows would pass a task on the column of more
 // levels (a slab (C, k, j, ...): cell (v − v_lo)·V_j + u), so a slab's row
-// holds the narrower column's levels; the kernel reads either key order
-// alike, and takes any P of K7's window plans with codes < kQdaMaxLevels.
+// holds the narrower column's levels; where even those pass a task
+// (Criteo's C7 and C15), it cuts the table by row code too (CB slabs of
+// rows [v_lo, v_hi)), and a row reads a CB cell only where its code lies
+// in the slab's rows. The kernel reads either key order alike, and takes
+// any P of K7's window plans.
 //
 // What bounds it on an H100: the bytes floor is one read of x and codes
 // and one write of the argmax (48 bytes a row at favorita_classify, 0.14
@@ -70,8 +74,9 @@ namespace dit {
 namespace {
 
 constexpr int kQdaThreads = 1024; // most threads of a block
-// most levels of a categorical column: its codes are staged as i16
-constexpr int kQdaMaxLevels = 32768;
+// most levels of a categorical column whose codes are staged as i16; past
+// them every code is staged as i32
+constexpr int kQdaShortLevels = 32768;
 constexpr int kQdaMaxGroup = 4;   // most classes a step stages
 constexpr int kQdaMaxSums = 8;    // most f64 sums a thread keeps: rows · group
 
@@ -91,16 +96,18 @@ __device__ __forceinline__ void stage16(float* dst, const float* src) {
                "l"(src));
 }
 
+template <typename Code>
 inline size_t qda_smem_bytes(int max_cells, int d, int c, int tile,
                              int group) {
   return sizeof(float) * 2 * size_t(group) * qda_table_stride(max_cells, d) +
-         size_t(tile) * (sizeof(double) * d + sizeof(int16_t) * c);
+         size_t(tile) * (sizeof(double) * d + sizeof(Code) * c);
 }
 
 struct QdaArgs {
   const float* tables;        // [C][cells]: class c's cells, task after task
-  // [S][kWideSlabInts]: kind, p0..p3, off, and a C slab's row column's
-  // levels V_k in place of the task (qda_pallas.py: _device_plan)
+  // [S][kWideSlabInts]: kind, p0..p3, off, and a C or CB slab's rows
+  // v_lo, v_hi (a C slab's 0, V_k) in place of the task and the warp
+  // (qda_pallas.py: _device_plan)
   const int* slabs;
   const int* warp_begin;      // [tasks · kWideWarps + 1]: task t's slabs begin
                               // at warp_begin[t · kWideWarps]
@@ -123,7 +130,10 @@ struct QdaArgs {
 // Far: the columns past the parameter's kInlineCols of a kind are read
 // from the columns' device table (Cols' accessors); else straight from
 // the parameter, as a schema of at most kInlineCols columns a kind is.
-template <int ROWS, int GROUP, bool Far>
+// Code: the staged codes' type, int16_t, or int32_t past kQdaShortLevels.
+// RowCut: the plan has CB slabs, so a C or CB slab reads its rows' range;
+// without, a C slab is read as before rows were cut.
+template <int ROWS, int GROUP, bool Far, typename Code, bool RowCut>
 __global__ void __launch_bounds__(kQdaThreads)
 qda_kernel(const __grid_constant__ Cols cols, const __grid_constant__ QdaArgs qa,
            int32_t* __restrict__ out) {
@@ -136,7 +146,7 @@ qda_kernel(const __grid_constant__ Cols cols, const __grid_constant__ QdaArgs qa
   const int zero = qa.max_cells;            // the zero cells, after a table
   double* xs = qda_smem;                                    // [d][tile]
   float* tab = reinterpret_cast<float*>(xs + d * tile);     // [2][GROUP][stride]
-  int16_t* cs = reinterpret_cast<int16_t*>(tab + 2 * GROUP * stride);  // [c][tile]
+  Code* cs = reinterpret_cast<Code*>(tab + 2 * GROUP * stride);  // [c][tile]
   const int groups = (qa.C + GROUP - 1) / GROUP;
   const int steps = groups * qa.tasks;
 
@@ -160,7 +170,7 @@ qda_kernel(const __grid_constant__ Cols cols, const __grid_constant__ QdaArgs qa
   for (int64_t row0 = int64_t(blockIdx.x) * tile; row0 < qa.n;
        row0 += int64_t(gridDim.x) * tile) {
     stage_table(0);
-    // a row's x (f64, less the shift) and codes (i16, −1 outside [0,
+    // a row's x (f64, less the shift) and codes (Code, −1 outside [0,
     // size)); every column in the parameter, or through the accessors
     auto stage_row = [&](int e, auto x_of, auto code_of, auto size_of) {
       const int64_t row = row0 + e;
@@ -173,7 +183,7 @@ qda_kernel(const __grid_constant__ Cols cols, const __grid_constant__ QdaArgs qa
       for (int j = 0; j < c; ++j) {
         const int v = valid ? code_of(j)[row] : -1;
         cs[j * tile + e] =
-            static_cast<int16_t>(v >= 0 && v < size_of(j) ? v : -1);
+            static_cast<Code>(v >= 0 && v < size_of(j) ? v : -1);
       }
     };
     for (int e = tid; e < tile; e += nt) {
@@ -230,7 +240,7 @@ qda_kernel(const __grid_constant__ Cols cols, const __grid_constant__ QdaArgs qa
             }
           }
         } else if (kind == kSlabK) {   // column p0, keys [p1, p2): cell
-          const int16_t* cj = cs + p0 * tile + tid;  // (v, a) at a·keys + v − p1
+          const Code* cj = cs + p0 * tile + tid;  // (v, a) at a·keys + v − p1
           int base[ROWS], step[ROWS];
 #pragma unroll
           for (int k = 0; k < ROWS; ++k) {
@@ -254,17 +264,23 @@ qda_kernel(const __grid_constant__ Cols cols, const __grid_constant__ QdaArgs qa
                     acc[i][k], __dmul_rn(tb[i * stride + base[k] + a * step[k]], x));
             }
           }
-        } else {                       // key column p0, row column p1, keys
-                                       // u ∈ [p2, p3) of p0
-          // the row column's V_k: in the parameter, or the slab's record
-          const int vk = Far ? __ldg(sl + 6) : cols.size[p1];
-          const int16_t* cu = cs + p0 * tile + tid;
-          const int16_t* cv = cs + p1 * tile + tid;
+        } else {                       // C, CB: key column p0, row column
+                                       // p1, keys [p2, p3), rows [v_lo,
+                                       // v_hi) (a C slab's 0, V_k: in the
+                                       // record, or V_k in the parameter)
+          const int vlo = RowCut ? __ldg(sl + 6) : 0;
+          const int nv = RowCut ? __ldg(sl + 7) - vlo
+                                : Far ? __ldg(sl + 7) : cols.size[p1];
+          const Code* cu = cs + p0 * tile + tid;
+          const Code* cv = cs + p1 * tile + tid;
 #pragma unroll
           for (int k = 0; k < ROWS; ++k) {
-            const int u = cu[k * nt], v = cv[k * nt];
+            // a staged code is −1 outside [0, V_k): a C slab's rows hold
+            const int u = cu[k * nt], v = cv[k * nt] - vlo;
             const int cell =
-                u >= p2 && u < p3 && v >= 0 ? off + (u - p2) * vk + v : zero;
+                u >= p2 && u < p3 && v >= 0 && (!RowCut || v < nv)
+                    ? off + (u - p2) * nv + v
+                    : zero;
 #pragma unroll
             for (int i = 0; i < GROUP; ++i)
               acc[i][k] = __dadd_rn(acc[i][k],
@@ -296,19 +312,19 @@ qda_kernel(const __grid_constant__ Cols cols, const __grid_constant__ QdaArgs qa
   }
 }
 
-template <int ROWS, int GROUP, bool Far>
+template <int ROWS, int GROUP, bool Far, typename Code, bool RowCut>
 int launch_qda(const Cols& cols, const QdaArgs& qa, int threads,
                int32_t* out, cudaStream_t stream) {
   const int tile = threads * ROWS;
   const size_t smem =
-      qda_smem_bytes(qa.max_cells, cols.d, cols.c, tile, GROUP);
+      qda_smem_bytes<Code>(qa.max_cells, cols.d, cols.c, tile, GROUP);
   if (smem > kWideSmem) return cudaErrorInvalidValue;
   cudaError_t rc = cudaFuncSetAttribute(
-      qda_kernel<ROWS, GROUP, Far>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      qda_kernel<ROWS, GROUP, Far, Code, RowCut>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (rc != cudaSuccess) return rc;
   const int64_t blocks = qa.n > 0 ? (qa.n + tile - 1) / tile : 1;
-  qda_kernel<ROWS, GROUP, Far>
+  qda_kernel<ROWS, GROUP, Far, Code, RowCut>
       <<<static_cast<unsigned>(blocks), threads, smem, stream>>>(cols, qa,
                                                                   out);
   return cudaGetLastError();
@@ -321,22 +337,32 @@ using QdaLaunch = int (*)(const Cols&, const QdaArgs&, int, int32_t*,
 // ring/kernels/_build.py: qda_tile picks: kQdaMaxSums / group rows for
 // 2 or 4 classes a step, else 8, 4, 2 or 1 rows for one (nullptr for any
 // other shape).
-template <bool Far>
+template <bool Far, typename Code, bool RowCut>
 inline QdaLaunch pick_qda_of(int rows, int group) {
   switch (rows * 8 + group) {
-    case 8 * 8 + 1: return launch_qda<8, 1, Far>;
-    case 4 * 8 + 1: return launch_qda<4, 1, Far>;
-    case 2 * 8 + 1: return launch_qda<2, 1, Far>;
-    case 1 * 8 + 1: return launch_qda<1, 1, Far>;
-    case 4 * 8 + 2: return launch_qda<4, 2, Far>;
-    case 2 * 8 + 4: return launch_qda<2, 4, Far>;
+    case 8 * 8 + 1: return launch_qda<8, 1, Far, Code, RowCut>;
+    case 4 * 8 + 1: return launch_qda<4, 1, Far, Code, RowCut>;
+    case 2 * 8 + 1: return launch_qda<2, 1, Far, Code, RowCut>;
+    case 1 * 8 + 1: return launch_qda<1, 1, Far, Code, RowCut>;
+    case 4 * 8 + 2: return launch_qda<4, 2, Far, Code, RowCut>;
+    case 2 * 8 + 4: return launch_qda<2, 4, Far, Code, RowCut>;
     default: return nullptr;
   }
 }
 
-inline QdaLaunch pick_qda(int rows, int group, bool far) {
-  return far ? pick_qda_of<true>(rows, group)
-             : pick_qda_of<false>(rows, group);
+template <bool Far, typename Code>
+inline QdaLaunch pick_qda_cut(int rows, int group, bool row_cut) {
+  return row_cut ? pick_qda_of<Far, Code, true>(rows, group)
+                 : pick_qda_of<Far, Code, false>(rows, group);
+}
+
+inline QdaLaunch pick_qda(int rows, int group, bool far, bool wide_codes,
+                          bool row_cut) {
+  if (wide_codes)
+    return far ? pick_qda_cut<true, int32_t>(rows, group, row_cut)
+               : pick_qda_cut<false, int32_t>(rows, group, row_cut);
+  return far ? pick_qda_cut<true, int16_t>(rows, group, row_cut)
+             : pick_qda_cut<false, int16_t>(rows, group, row_cut);
 }
 
 }  // namespace
@@ -351,7 +377,9 @@ extern "C" {
 // `threads` threads,
 // each thread scoring `rows` rows against `group` classes a step ((8, 1),
 // (4, 1), (2, 1), (1, 1), (4, 2) or (2, 4)); diag: naive Bayes's tables
-// (`nb_tables`), whose other D and K cells are zero and skipped; shift:
+// (`nb_tables`), whose other D and K cells are zero and skipped;
+// row_cut: whether the plan has CB slabs (the instance that reads a C or
+// CB slab's row range; 0 keeps a C slab's read of before); shift:
 // f32[d] on the device, taken from each x as it is staged (x − shift in
 // f64: the tables of `nb_tables(center=shift)`), or nullptr; far: the
 // columns' device table (gram_common.cuh: Cols), needed past kInlineCols
@@ -366,17 +394,20 @@ int dit_qda_predict(const void* const* x_cols, int d,
                     const int* warp_begin, const int64_t* task_base, int C,
                     int tasks, int max_cells, int64_t cells, int64_t n,
                     int threads, int rows, int group, int diag,
-                    const float* shift, int32_t* out, void* stream) {
+                    int row_cut, const float* shift, int32_t* out,
+                    void* stream) {
   using namespace dit;
   if (d < 0 || c < 0) return cudaErrorInvalidValue;
   int P = 1 + d;
   for (int j = 0; j < c; ++j) P += cat_sizes[j];
-  // any P of K7's window plans; codes staged as i16
+  // any P of K7's window plans; codes staged as i16, or as i32 past
+  // kQdaShortLevels levels a column
   if (int rc = check_cols(d, c, cat_sizes, P, n, 1, kMaxWindowP, far))
     return rc;
-  for (int j = 0; j < c; ++j)
-    if (cat_sizes[j] > kQdaMaxLevels) return cudaErrorInvalidValue;
-  const QdaLaunch launch = pick_qda(rows, group, far != nullptr);
+  bool wide_codes = false;
+  for (int j = 0; j < c; ++j) wide_codes |= cat_sizes[j] > kQdaShortLevels;
+  const QdaLaunch launch =
+      pick_qda(rows, group, far != nullptr, wide_codes, row_cut != 0);
   if (C < 1 || tasks < 1 || max_cells < 1 || max_cells % 4 || cells % 4 ||
       reinterpret_cast<uintptr_t>(tables) % 16 || cells < max_cells ||
       threads < 32 || threads > kQdaThreads || threads % 32 || !launch)

@@ -54,7 +54,10 @@
 //      any P ≤ kMaxWindowP) runs over a window's plans (_build.py:
 //      keyed_window_plan): the cells whose row or column lies in the
 //      window, C_jk cut by either key range (a slab (C, k, j, ...) keys on
-//      column k's codes), and a map of one place a cell and output
+//      column k's codes) and, where a row of V_k cells passes a task (both
+//      columns past kWideTaskBytes / 8 levels: Criteo's C7 and C15), by
+//      row code too (CB slabs; in a keyed window each row range a table
+//      of the owner column's), and a map of one place a cell and output
 //      position, S[i, j] with lo ≤ j < lo + width, written with a row
 //      stride `ld` (OutMap, mirror off). Past kMaxWideP, where the tables
 //      keyed on one categorical column J (K_J and every C_Jk keyed on J)
@@ -124,6 +127,12 @@ constexpr int kSlabCR = 3;
 // columns k_lo .. k_hi − 1 side by side, cell u·W + off_k − off_{k_lo} + v
 // (W the sum): many small cross tables as one slab (one-level null flags)
 constexpr int kSlabCM = 4;
+// (CB, j, k, u_lo, u_hi) of rows [v_lo, v_hi): [u − u_lo][v − v_lo]: C_jk
+// where a row of V_k cells passes a task, cut by row code too (_build.py:
+// _row_cut). The kernel reads a C slab as the CB slab of rows [0, V_k):
+// both records are (kind, v_lo, v_hi, u_lo, u_hi, off, the key's and the
+// row column's stage slots) (_build.py: WidePlan.device_slabs)
+constexpr int kSlabCB = 5;
 
 static_assert(kWideChunk == 32, "one row a lane of a warp");
 
@@ -131,7 +140,7 @@ static_assert(kWideChunk == 32, "one row a lane of a warp");
 // device memory and its shape.
 struct WidePlanArgs {
   // [S][kWideSlabInts]: kind, p0..p3, off, and the stage slots the slab
-  // reads; a C slab's p1 is its row column's levels V_k (_build.py:
+  // reads; a C or CB slab's p0, p1 are its rows [v_lo, v_hi) (_build.py:
   // WidePlan.device_slabs)
   const int* slabs;
   const int* warp_begin;     // [tasks · kWideWarps + 1]
@@ -179,7 +188,7 @@ __device__ __forceinline__ int slab_cells(const int* sl, const Cols& cols,
   if (sl[0] == kSlabK) return (sl[3] - sl[2]) * (1 + cols.d);
   if (sl[0] == kSlabCR) return keys * (sl[4] - sl[3]);
   if (sl[0] == kSlabCM) return cols.sz(sl[1]) * cm_width(sl, cols);
-  return (sl[4] - sl[3]) * sl[2];            // C: p1 holds V_k
+  return (sl[4] - sl[3]) * (sl[2] - sl[1]);  // C, CB: keys × rows
 }
 
 // 4 bytes global → shared, asynchronously (cp.async), or `zero` when the
@@ -514,17 +523,18 @@ wide_gram_kernel(const __grid_constant__ Cols cols,
                       1, rows0, rows1, R, lane);
             __syncwarp();
           }
-        } else {
-          const int vk = sl[2];                 // C: the row column's V_k
+        } else {                // C, CB: keys [p2, p3), rows [p0, p1)
+          const int nu = sl[4] - sl[3];
+          const int nv = sl[2] - sl[1];
           const int qu = sl[6] * R + lane;
           const int qv = sl[7] * R + lane;
-          const int u0 = codes0[qu], v0 = codes0[qv];
-          const int u1 = codes1[qu], v1 = codes1[qv];
+          const int u0 = codes0[qu] - sl[3], v0 = codes0[qv] - sl[1];
+          const int u1 = codes1[qu] - sl[3], v1 = codes1[qv] - sl[1];
           add_keyed(t,
-                    u0 >= sl[3] && u0 < sl[4] && v0 >= 0 && v0 < vk
-                        ? (u0 - sl[3]) * vk + v0 : -1,
-                    pair && u1 >= sl[3] && u1 < sl[4] && v1 >= 0 && v1 < vk
-                        ? (u1 - sl[3]) * vk + v1 : -1,
+                    u0 >= 0 && u0 < nu && v0 >= 0 && v0 < nv
+                        ? u0 * nv + v0 : -1,
+                    pair && u1 >= 0 && u1 < nu && v1 >= 0 && v1 < nv
+                        ? u1 * nv + v1 : -1,
                     1, rows0, rows1, R, lane);
         }
         __syncwarp();

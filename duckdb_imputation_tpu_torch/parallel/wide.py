@@ -119,7 +119,8 @@ def _pcg(op, b: torch.Tensor, pinv: torch.Tensor, *, mesh: Mesh2D,
     """Jacobi-preconditioned CG for op(x) = b, b f32[P] or f32[P, C] (C
     systems at once, each with its own step sizes; one stop test on
     the norm of the whole residual). Stops when ‖r‖ ≤ tol·‖b‖ or after
-    `iters` steps."""
+    `iters` steps. Adds the steps it runs (whole checks of CG_CHECK, the
+    last ones masked) to `_pcg.steps`."""
     thr = tol * max(float(torch.linalg.vector_norm(b)), 1e-30)
     x = torch.zeros_like(b)
     r = b.clone()
@@ -128,6 +129,7 @@ def _pcg(op, b: torch.Tensor, pinv: torch.Tensor, *, mesh: Mesh2D,
     rz = (r * z).sum(0)
     k = 0
     while k < iters:
+        _pcg.steps += min(CG_CHECK, iters - k)
         for _ in range(min(CG_CHECK, iters - k)):
             go = torch.linalg.vector_norm(r) > thr
             ap = op(pv)
@@ -145,6 +147,9 @@ def _pcg(op, b: torch.Tensor, pinv: torch.Tensor, *, mesh: Mesh2D,
         if not int(all_reduce(go, mesh.model, "max")):
             break
     return x
+
+
+_pcg.steps = 0
 
 
 def cg_solve_wide(sigma_cols: torch.Tensor, *, mesh: Mesh2D, label: int,

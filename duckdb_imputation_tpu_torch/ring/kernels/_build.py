@@ -14,6 +14,7 @@ current stream, and raise on a nonzero cudaError_t.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
 import functools
@@ -26,6 +27,7 @@ import tempfile
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from ... import config
@@ -66,6 +68,10 @@ MAX_WINDOW_SIGMA_SIZE = 46340  # kMaxWindowP (wide_gram.cuh): K7 over a
                                # 2³¹ places)
 WINDOW_WIDTH = 1024  # the windows masked_gram(_cols) assemble S from above
                      # MAX_WIDE_SIGMA_SIZE: the width K7 was tuned at
+MAX_WINDOW_PLACES = 1 << 28  # most places of one window's plans (4 GB of
+                             # map); a wider window runs as windows of
+                             # WINDOW_WIDTH (`window_cuts`): criteo_mid's
+                             # whole S has 1.3e9
 WIDE_CHUNK = 32      # kWideChunk (wide_gram.cuh): rows a warp takes a step,
                      # one a lane; also the most cells of a D slab
 WIDE_WARPS = 8       # kWideWarps (wide_gram.cuh): warps of a K7/K8 block
@@ -114,13 +120,80 @@ QDA_TASK_CELLS = 4096    # the f32 cells of a K3/K3w task (`qda_plan`):
                          # tables (tools/qda_variants.py --schedules:
                          # 15.67 / 1.354 ms at favorita_classify's family /
                          # onpromotion, 16.08 / 1.633 at K7's 8,192)
-QDA_MAX_LEVELS = 32768   # kQdaMaxLevels (qda_predict.cu): most levels of
-                         # a categorical column (codes staged as i16)
+QDA_SHORT_LEVELS = 32768  # kQdaShortLevels (qda_predict.cu): most levels
+                          # of a column whose codes K3/K3w stage as i16;
+                          # past them every code is staged as i32
 QDA_MAX_GROUP = 4        # kQdaMaxGroup (qda_predict.cu): most classes a
                          # K3/K3w step stages
 QDA_MAX_SUMS = 8         # kQdaMaxSums (qda_predict.cu): f64 sums a thread
                          # keeps in registers, rows · classes a step; the
                          # most rows a thread scores
+
+
+PLAN_CACHE_BYTES = 4 << 30   # most bytes of the plans kept on the host
+                             # (`plan_cache`): every plan of the schemas
+                             # before criteo_mid, a few of its windows
+
+
+def tensor_bytes(obj) -> int:
+    """Bytes of the tensors in obj: a tensor, a dataclass (a plan), or a
+    tuple or list of them."""
+    if isinstance(obj, torch.Tensor):
+        return obj.numel() * obj.element_size()
+    if dataclasses.is_dataclass(obj):
+        return sum(tensor_bytes(getattr(obj, f.name))
+                   for f in dataclasses.fields(obj))
+    if isinstance(obj, (tuple, list)):
+        return sum(map(tensor_bytes, obj))
+    return 0
+
+
+class BytesCache:
+    """The results of the functions it wraps, least recently used first,
+    kept while the bytes of their tensors (`tensor_bytes`) that lie in
+    one part (`part` of a result, e.g. its device; one part by default)
+    sum to at most `max_bytes`: an int, or a function of the part and the
+    bytes it holds, called as a result is kept. A result larger than that
+    is not kept. One store for every function wrapped by one instance."""
+
+    def __init__(self, max_bytes, part=None):
+        self.max_bytes = max_bytes
+        self.part = part or (lambda out: None)
+        self.store: collections.OrderedDict = collections.OrderedDict()
+        self.held: collections.Counter = collections.Counter()
+
+    def __call__(self, fn):
+        @functools.wraps(fn)
+        def cached(*args, **kwargs):
+            key = (fn.__qualname__, args, tuple(sorted(kwargs.items())))
+            if key in self.store:
+                self.store.move_to_end(key)
+                return self.store[key][0]
+            out = fn(*args, **kwargs)
+            self._keep(key, out)
+            return out
+        cached.cache_clear = self.clear
+        return cached
+
+    def _keep(self, key, out) -> None:
+        size, part = tensor_bytes(out), self.part(out)
+        cap = (self.max_bytes(part, self.held[part])
+               if callable(self.max_bytes) else self.max_bytes)
+        if size > cap:
+            return
+        for k in [k for k, v in self.store.items() if v[2] == part]:
+            if self.held[part] + size <= cap:
+                break
+            self.held[part] -= self.store.pop(k)[1]
+        self.store[key] = (out, size, part)
+        self.held[part] += size
+
+    def clear(self) -> None:
+        self.store.clear()
+        self.held.clear()
+
+
+plan_cache = BytesCache(PLAN_CACHE_BYTES)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -167,7 +240,7 @@ def _declare(lib: ctypes.CDLL) -> None:
                                         p, p, p, p, p, p, p]
     lib.dit_nb_grouped_sums.restype = i
     lib.dit_qda_predict.argtypes = [p, i, p, p, i, p, p, p, p, p, i, i, i,
-                                    i64, i64, i, i, i, i, p, p, p]
+                                    i64, i64, i, i, i, i, i, p, p, p]
     lib.dit_qda_predict.restype = i
     plan = [p] * 6   # WidePlan's tensors and its shape_ints
     lib.dit_grouped_wide_gram.argtypes = [p, i, p, p, i, p, p, p, p, i, i64,
@@ -309,17 +382,24 @@ def check_nb(schema, n: int) -> None:
         raise ValueError(f"{n} rows: the NB kernel takes fewer than 2^31")
 
 
+def qda_code_bytes(schema) -> int:
+    """Bytes of a staged code in K3/K3w (qda_predict.cu: the Code type):
+    2 (i16) where every column has at most QDA_SHORT_LEVELS levels, else 4
+    (i32)."""
+    return 2 if max(schema.cat_sizes, default=0) <= QDA_SHORT_LEVELS else 4
+
+
 def qda_smem_bytes(max_cells: int, schema, tile: int,
                    group: int = 1) -> int:
     """Shared memory of a K3/K3w block (qda_predict.cu: qda_smem_bytes):
     two buffers of `group` f32 tables of the plan's largest task (a
     multiple of 4 cells), each followed by 1 + d zero cells rounded up to
     a 16-byte word, and a tile of `tile` rows of x (in f64) and codes
-    i16."""
+    (`qda_code_bytes` each)."""
     d = schema.num_cols
     stride = max_cells + (1 + d + 3) // 4 * 4
     return (4 * 2 * group * stride
-            + tile * (8 * d + 2 * schema.cat_cols))
+            + tile * (8 * d + qda_code_bytes(schema) * schema.cat_cols))
 
 
 def qda_tile(schema, plan: "WidePlan", num_classes: int
@@ -360,35 +440,35 @@ def qda_tile(schema, plan: "WidePlan", num_classes: int
 def check_qda(schema, num_classes: int, n: int, cross: bool = True
               ) -> None:
     """Raise ValueError for a schema, class count or row count K3/K3w do
-    not take: P ≤ MAX_WINDOW_SIGMA_SIZE, as K7's window plans; at most
-    QDA_MAX_LEVELS levels a column (the staged codes are i16); a plan
-    (`qda_plan`): of each pair of categorical columns the narrower at most
-    a task's cells (`cross`: QDA's plan, not naive Bayes's); and a tile of
-    32 rows of x in f64 and the codes beside two buffers of a task's
+    not take: P ≤ MAX_WINDOW_SIGMA_SIZE, as K7's window plans, any levels
+    a column (a cross table whose rows pass a task is cut by row code too,
+    `qda_plan`; codes past QDA_SHORT_LEVELS are staged as i32); and a tile
+    of 32 rows of x in f64 and the codes beside two buffers of a task's
     tables in shared memory (`qda_max_numeric`: d ≤ 680 or so)."""
     if num_classes < 1:
         raise ValueError(f"{num_classes} classes: at least 1 is needed")
     check_schema(schema, n, MAX_WINDOW_SIGMA_SIZE)
-    if schema.cat_sizes and max(schema.cat_sizes) > QDA_MAX_LEVELS:
-        raise ValueError(f"a categorical column of {max(schema.cat_sizes)} "
-                         f"levels: K3/K3w take at most {QDA_MAX_LEVELS}")
     cells = (qda_task_cells(tuple(schema.cat_sizes)) if cross
              else QDA_TASK_CELLS)
     if qda_smem_bytes(cells, schema, 32) > WIDE_SMEM:
+        code = qda_code_bytes(schema)
         raise ValueError(
             f"{schema.num_cols} numeric and {schema.cat_cols} categorical "
             f"columns: K3/K3w stage a tile of 32 rows of x in f64 beside a "
-            f"task's tables, at most {qda_max_numeric(schema.cat_cols, cells)}"
-            f" numeric columns beside {schema.cat_cols} categorical ones")
+            f"task's tables, at most "
+            f"{qda_max_numeric(schema.cat_cols, cells, code)} numeric "
+            f"columns beside {schema.cat_cols} categorical ones")
 
 
-def qda_max_numeric(cat_cols: int, cells: int = QDA_TASK_CELLS) -> int:
+def qda_max_numeric(cat_cols: int, cells: int = QDA_TASK_CELLS,
+                    code_bytes: int = 2) -> int:
     """The most numeric columns K3/K3w take beside `cat_cols` categorical
     ones at tasks of `cells` cells: a tile of 32 rows of x (f64) and codes
-    (i16) and two buffers of a task's tables fit shared memory."""
+    (`code_bytes` each) and two buffers of a task's tables fit shared
+    memory."""
     d = 0
     while (4 * 2 * (cells + (2 + d + 3) // 4 * 4)
-           + 32 * (8 * (d + 1) + 2 * cat_cols)) <= WIDE_SMEM:
+           + 32 * (8 * (d + 1) + code_bytes * cat_cols)) <= WIDE_SMEM:
         d += 1
     return d
 
@@ -551,10 +631,11 @@ def group_chunks(offsets: torch.Tensor, rows: int) -> torch.Tensor:
     return torch.cat([chunks.new_zeros(1), torch.cumsum(chunks, 0)])
 
 
-# Slab kinds of the wide plan, kSlabD, kSlabK, kSlabC, kSlabCR and kSlabCM
-# (wide_gram.cuh; CR only in a window's keyed tasks, CM only where a schema
-# has more than CM_TABLES cross tables)
-SLAB_D, SLAB_K, SLAB_C, SLAB_CR, SLAB_CM = 0, 1, 2, 3, 4
+# Slab kinds of the wide plan, kSlabD, kSlabK, kSlabC, kSlabCR, kSlabCM and
+# kSlabCB (wide_gram.cuh; CR only in a window's keyed tasks, CM only where a
+# schema has more than CM_TABLES cross tables, CB only where both columns of
+# a cross table have more levels than a task's cells)
+SLAB_D, SLAB_K, SLAB_C, SLAB_CR, SLAB_CM, SLAB_CB = 0, 1, 2, 3, 4, 5
 CM_TABLES = 4096     # cross tables past which the small ones of one key
                      # column merge into CM slabs (`_cross_runs`): SECOM's
                      # stream fold has 173,755 of one cell (590 null flags)
@@ -584,20 +665,24 @@ class WidePlan:
             Σ V_k, off_k the sigma index of k's code 0);
     everything else is zero by construction (two codes of one column in
     one row). A table larger than WIDE_TASK_BYTES of f64 is split by its
-    leading key into slabs of equal key ranges.
+    leading key into slabs of equal key ranges; where even one key's row
+    (V_k cells) passes a task, by row code too, into slabs (CB, j, k,
+    u_lo, u_hi) of rows [v_lo, v_hi), cell (u − u_lo)·(v_hi − v_lo) + v −
+    v_lo (`_row_cut`).
 
     slabs i32[S, WIDE_SLAB_INTS]: (kind, p0, p1, p2, p3, off, task, warp),
       sorted by (task, warp); off is the slab's first cell in its task's
       table, and a warp's slabs lie next to each other.
-    slots i32[S, 3]: the stage slots a slab reads (0: w, 1 .. nx: the task's
+    slots i32[S, 4]: the stage slots a slab reads (0: w, 1 .. nx: the task's
       numeric columns, then its code columns): D (a, b_lo, b_hi) x_a's
       slot (0 for a = 0) and s with x_b at slot s + b; K j's codes (and x
       at slots 1 .. d: a task with a K slab stages every numeric column);
-      C and CR the key's and the row column's; CM the key's and k_lo's
-      (k's at that + k − k_lo); then a C slab's row column's levels V_k.
-      The kernel's records carry the slots in place of (task, warp), and a
-      C slab's V_k in place of its row column, whose codes its slot names
-      (`device_slabs`).
+      C, CB and CR the key's and the row column's; CM the key's and k_lo's
+      (k's at that + k − k_lo); then a C or CB slab's rows v_lo, v_hi (a
+      C slab's 0, V_k). The kernel's records carry the slots in place of
+      (task, warp), and a C or CB slab's v_lo, v_hi in place of its two
+      columns, whose codes its slots name (`device_slabs`): the kernel
+      reads a C slab as the CB slab of every row.
     warp_begin i32[T·WIDE_WARPS + 1]: warp w of task t owns the slabs
       warp_begin[t·W + w] .. warp_begin[t·W + w + 1].
     task_base i64[T + 1]: task t's cells are task_base[t] ..
@@ -641,11 +726,11 @@ class WidePlan:
     @property
     def device_slabs(self) -> torch.Tensor:
         """The slab records the kernel reads: (kind, p0 .. p3, off, and
-        the two stage slots of `slots` in place of task and warp), a C
-        slab's p1 its row column's levels (its cells over its key range)."""
+        the two stage slots of `slots` in place of task and warp), a C or
+        CB slab's p0, p1 its rows v_lo, v_hi (a C slab's 0, V_k)."""
         out = torch.cat([self.slabs[:, :6], self.slots[:, :2]], 1)
-        c = out[:, 0] == SLAB_C
-        out[c, 2] = self.slots[c, 2]
+        c = (out[:, 0] == SLAB_C) | (out[:, 0] == SLAB_CB)
+        out[c, 1:3] = self.slots[c, 2:4]
         return out.contiguous()
 
     @property
@@ -671,6 +756,59 @@ class WidePlan:
         `group_chunks`)."""
         return max(1, min(-(-n // WIDE_CHUNK),
                           -(-MAX_BLOCKS // self.num_tasks)))
+
+
+class _Grid(tuple):
+    """The map of a slab of `keys` keys of `row` cells each whose cells
+    fill one place each: cell c = du·row + dv at S[u, v] (`key_first`) or
+    S[v, u], u = u0 + du, v = v0 + dv; written straight into the plan's
+    map (`_plan_of`). (keys, row, u0, v0, key_first)."""
+
+    @property
+    def shape(self) -> tuple[int, int]:
+        return 3, self[0] * self[1]
+
+
+@functools.lru_cache(maxsize=256)
+def _grid_cells(keys: int, row: int) -> tuple[np.ndarray, ...]:
+    """(cell, du, dv) i32 of a `_Grid` of that shape, in cell order (read
+    only: shared by every slab of the shape)."""
+    cell = _ar(0, keys * row)
+    out = (cell, cell // row, cell % row)
+    for a in out:
+        a.setflags(write=False)
+    return out
+
+
+def _write_map(out: np.ndarray, a: int, t: int, off: int, local) -> None:
+    """A slab's map entries into out i32[4, M] at columns a ..: its task
+    t, cells from `off` and places; `local` a `_Grid` or (cell, i, j)
+    sorted by cell."""
+    b = a + local.shape[1]
+    out[0, a:b] = t
+    if isinstance(local, _Grid):
+        keys, row, u0, v0, key_first = local
+        cell, du, dv = _grid_cells(keys, row)
+        np.add(cell, off, out=out[1, a:b])
+        np.add(du, u0, out=out[2 if key_first else 3, a:b])
+        np.add(dv, v0, out=out[3 if key_first else 2, a:b])
+    else:
+        np.add(local[0], off, out=out[1, a:b])
+        out[2:, a:b] = local[1:]
+
+
+def _ar(lo: int, hi: int) -> np.ndarray:
+    """i32 [lo, hi): the plan's map is built in numpy i32 (every cell of
+    a task, and every index of S, is below 2³¹)."""
+    return np.arange(lo, hi, dtype=np.int32)
+
+
+def _by_cell(local: np.ndarray) -> np.ndarray:
+    """A slab's map entries (cell, i, j) stably sorted by cell."""
+    cell = local[0]
+    if cell.shape[0] > 1 and bool((cell[1:] < cell[:-1]).any()):
+        return local[:, np.argsort(cell, kind="stable")]
+    return local
 
 
 def _split(rows: int, row_cells: int, cap: int) -> list[tuple[int, int]]:
@@ -796,15 +934,15 @@ def _cm_piece(sizes: tuple[int, ...], base: list[int], j: int, k_lo: int,
     window [lo, hi), at both of its places there."""
     q0 = base[k_lo]
     width = base[k_hi - 1] + sizes[k_hi - 1] - q0
-    u = torch.arange(sizes[j]).repeat_interleave(width)
-    q = torch.arange(q0, q0 + width).repeat(sizes[j])
+    u = np.repeat(_ar(0, sizes[j]), width)
+    q = np.tile(_ar(q0, q0 + width), sizes[j])
     cell = u * width + q - q0
-    local = (torch.stack([cell, base[j] + u, q]) if lo is None
+    local = (np.stack([cell, base[j] + u, q]) if lo is None
              else _places(lo, hi, cell, base[j] + u, q))
     return (SLAB_CM, (j, k_lo, k_hi, 0), sizes[j] * width, local)
 
 
-@functools.lru_cache(maxsize=32)
+@plan_cache
 def _wide_plan(d: int, sizes: tuple[int, ...], cross: bool = True,
                scorer: bool = False, cap: int = WIDE_TASK_BYTES // 8
                ) -> WidePlan:
@@ -815,21 +953,21 @@ def _wide_plan(d: int, sizes: tuple[int, ...], cross: bool = True,
     for a in range(1 + d):
         for lo in range(a, 1 + d, WIDE_CHUNK):
             hi = min(lo + WIDE_CHUNK, 1 + d)
-            b = torch.arange(lo, hi)
+            b = _ar(lo, hi)
             pieces.append((SLAB_D, (a, lo, hi, 0), hi - lo,
-                           torch.stack([b - lo, torch.full_like(b, a), b])))
+                           np.stack([b - lo, np.full_like(b, a), b])))
     for j, size in enumerate(sizes):
         for lo, hi in _split(size, 1 + d, cap):
-            v = torch.arange(lo, hi).repeat_interleave(1 + d)
-            a = torch.arange(1 + d).repeat(hi - lo)
+            v = np.repeat(_ar(lo, hi), 1 + d)
+            a = np.tile(_ar(0, 1 + d), hi - lo)
             cell = (a * (hi - lo) + v - lo if scorer
                     else (v - lo) * (1 + d) + a)
-            diag = torch.arange(lo, hi)
+            diag = _ar(lo, hi)
             pieces.append((SLAB_K, (j, lo, hi, 0), (hi - lo) * (1 + d),
-                           torch.cat([torch.stack([cell, a, base[j] + v]),
-                                      torch.stack([cell[a == 0],
-                                                   base[j] + diag,
-                                                   base[j] + diag])], 1)))
+                           np.concatenate([np.stack([cell, a, base[j] + v]),
+                                           np.stack([cell[a == 0],
+                                                     base[j] + diag,
+                                                     base[j] + diag])], 1)))
     merge = cross and not scorer and _cross_count(sizes) > CM_TABLES
     for j in range(len(sizes) if cross else 0):
         run: list[int] = []
@@ -853,21 +991,31 @@ def _wide_plan(d: int, sizes: tuple[int, ...], cross: bool = True,
 def _cross_pieces(sizes: tuple[int, ...], base: list[int], j: int, k: int,
                   cap: int) -> list:
     """The C slabs of C_jk (j < k) in the whole plan: its key column's
-    ranges (`_cross_keys`), each entry (cell, i, j) of S's upper
-    triangle."""
+    ranges (`_cross_keys`), each entry (cell, i, j) of S's upper triangle;
+    where a row passes `cap` cells, CB slabs of the row ranges of
+    `_row_ranges`, each cut by key range."""
     if sizes[j] == 0 or sizes[k] == 0:
         return []
     key, row = _cross_keys(sizes, j, k, cap)
-    vr = sizes[row]
     pieces = []
-    for lo, hi in _split(sizes[key], vr, cap):
-        u = torch.arange(lo, hi).repeat_interleave(vr)
-        v = torch.arange(vr).repeat(hi - lo)
-        i, jj = base[key] + u, base[row] + v
-        pieces.append((SLAB_C, (key, row, lo, hi), (hi - lo) * vr,
-                       torch.stack([(u - lo) * vr + v, torch.minimum(i, jj),
-                                    torch.maximum(i, jj)])))
+    for v_lo, v_hi in _row_ranges(sizes[row], cap):
+        vr = v_hi - v_lo
+        for lo, hi in _split(sizes[key], vr, cap):
+            # S's upper triangle: the key's index first where it is lower
+            local = _Grid((hi - lo, vr, base[key] + lo, base[row] + v_lo,
+                           key < row))
+            pieces.append(
+                (SLAB_C, (key, row, lo, hi), (hi - lo) * vr, local)
+                if vr == sizes[row] else
+                (SLAB_CB, (key, row, lo, hi, v_lo, v_hi), (hi - lo) * vr,
+                 local))
     return pieces
+
+
+def _row_ranges(levels: int, cap: int) -> list[tuple[int, int]]:
+    """[v_lo, v_hi) of a cross table's row column: the whole row where it
+    fits a task of `cap` cells, else even ranges of at most `cap` codes."""
+    return _split(levels, 1, cap)
 
 
 def _cross_keys(sizes: tuple[int, ...], j: int, k: int, cap: int
@@ -885,15 +1033,12 @@ def qda_task_cells(sizes: tuple[int, ...]) -> int:
     """The task budget of the scorer's plan: QDA_TASK_CELLS, or, where of
     two categorical columns the narrower has more levels (its row of a
     cross table lies in one task), that many rounded up to whole 16-byte
-    words, up to K7's WIDE_TASK_BYTES // 8; ValueError past it."""
+    words, up to K7's WIDE_TASK_BYTES // 8; past it K7's budget, the cross
+    table cut by row code too (`_cross_pieces`)."""
     ordered = sorted(sizes)
     narrow = ordered[-2] if len(ordered) > 1 else 0
-    cells = max(QDA_TASK_CELLS, -(-narrow // 4) * 4)
-    if cells > WIDE_TASK_BYTES // 8:
-        raise ValueError(f"two categorical columns of {narrow}+ levels: "
-                         f"K3/K3w take a cross table whose narrower column "
-                         f"has at most {WIDE_TASK_BYTES // 8} levels")
-    return cells
+    return min(max(QDA_TASK_CELLS, -(-narrow // 4) * 4),
+               WIDE_TASK_BYTES // 8)
 
 
 def _piece_columns(piece, d: int) -> tuple[range | set, set]:
@@ -926,18 +1071,21 @@ def _task_stage(pieces: list, members: list[int], d: int
     return sorted(xs), sorted(cs)
 
 
-def _piece_slots(piece, xslot: dict, cslot: dict) -> tuple[int, int, int]:
-    """The two stage slots of a slab and a C slab's row levels
-    (`WidePlan.slots`)."""
+def _piece_slots(piece, xslot: dict, cslot: dict
+                 ) -> tuple[int, int, int, int]:
+    """The two stage slots of a slab, then a C or CB slab's rows v_lo,
+    v_hi (a C slab's 0, V_k; `WidePlan.slots`)."""
     kind, p = piece[0], piece[1]
     if kind == SLAB_D:
         b0 = max(p[1], 1)
         return (xslot[p[0] - 1] if p[0] else 0,
-                xslot[b0 - 1] - b0 if b0 < p[2] else 0, 0)
+                xslot[b0 - 1] - b0 if b0 < p[2] else 0, 0, 0)
     if kind == SLAB_K:
-        return cslot[p[0]], 0, 0
+        return cslot[p[0]], 0, 0, 0
+    if kind == SLAB_CB:
+        return cslot[p[0]], cslot[p[1]], p[4], p[5]
     levels = piece[2] // (p[3] - p[2]) if kind == SLAB_C else 0
-    return cslot[p[0]], cslot[p[1]], levels
+    return cslot[p[0]], cslot[p[1]], 0, levels
 
 
 def _stage_rows(cells: int, cols: int, slabs: int, width: int) -> int:
@@ -998,8 +1146,8 @@ def _pack_local(pieces: list, d: int, cap: int) -> list[list[int]]:
 def _plan_of(pieces: list, d: int, cross: bool, scorer: bool, cap: int,
              window: tuple[int, int] | None = None,
              tasks: list[list[int]] | None = None) -> WidePlan:
-    """The plan of `pieces` (kind, params, cells, local entries i64[3, m]:
-    cell, i, j): the slabs packed into tasks (or the given `tasks`, lists
+    """The plan of `pieces` (kind, params, cells, local entries: i32[3,
+    m] of (cell, i, j), or a `_Grid`): the slabs packed into tasks (or the given `tasks`, lists
     of the pieces' indices), each task's slabs to its warps, the map
     sorted by (task, cell). The packing of `_pack_tasks`, which balances
     the tasks' slab counts, where its stages take 64 rows or more; else
@@ -1013,37 +1161,48 @@ def _plan_of(pieces: list, d: int, cross: bool, scorer: bool, cap: int,
             if (_layout_rows(pieces, local, d, cap)
                     > _layout_rows(pieces, tasks, d, cap)):
                 tasks = local
-    slabs, slots, warp_begin, task_base, entries = [], [], [0], [0], []
-    stage_cols = []
+    slabs, slots, warp_begin, task_base, stage_cols = [], [], [0], [0], []
+    locals_, at = [], []     # each slab's map (cells sorted) and (task, off)
+    cost = [_piece_cost(p, d) for p in pieces]
     for t, members in enumerate(tasks):
         xs, cs = _task_stage(pieces, members, d)
         stage_cols.append([len(xs), len(cs)] + xs + cs)
         xslot = {x: 1 + q for q, x in enumerate(xs)}
         cslot = {c: 1 + len(xs) + q for q, c in enumerate(cs)}
-        # warps: the costliest slab first, to the least loaded warp
+        # warps: the costliest slab first, to the least loaded warp (the
+        # first of equals); a warp's slabs in the order of `members`
         load = [0] * WIDE_WARPS
         warp_of = {}
-        for i in sorted(members, key=lambda i: -_piece_cost(pieces[i], d)):
-            w = min(range(WIDE_WARPS), key=lambda w: load[w])
+        for i in sorted(members, key=lambda i: -cost[i]):
+            w = load.index(min(load))
             warp_of[i] = w
-            load[w] += _piece_cost(pieces[i], d)
+            load[w] += cost[i]
+        by_warp: list[list[int]] = [[] for _ in range(WIDE_WARPS)]
+        for i in members:
+            by_warp[warp_of[i]].append(i)
         off = 0
         for w in range(WIDE_WARPS):
-            for i in (i for i in members if warp_of[i] == w):
+            for i in by_warp[w]:
                 kind, params, cells, local = pieces[i]
-                slabs.append((kind, *params, off, t, w))
+                slabs.append((kind, *params[:4], off, t, w))
                 slots.append(_piece_slots(pieces[i], xslot, cslot))
-                entries.append(torch.cat([torch.full((1, local.shape[1]), t),
-                                          local[:1] + off, local[1:]]))
+                locals_.append(local if isinstance(local, _Grid)
+                               else _by_cell(local))
+                at.append((t, off))
                 off += cells
             warp_begin.append(len(slabs))
         if scorer:
             off = -(-off // 4) * 4
         task_base.append(task_base[-1] + off)
-    ent = torch.cat(entries, 1).T
-    key = ent[:, 0] * (task_base[-1] + 1) + ent[:, 1]
-    order = (torch.arange(key.shape[0]) if bool((key[1:] >= key[:-1]).all())
-             else torch.argsort(key, stable=True))
+    # the map, sorted by (task, cell): a task's slabs lie in order of their
+    # first cell, and each slab's entries are sorted by cell (stably)
+    ent = np.empty((4, sum(local.shape[1] for local in locals_)),
+                   dtype=np.int32)
+    a = 0
+    for (t, off), local in zip(at, locals_):
+        _write_map(ent, a, t, off, local)
+        a += local.shape[1]
+    ent = torch.from_numpy(np.ascontiguousarray(ent.T))
     width = 2 + max(len(r) - 2 for r in stage_cols)
     max_cols, max_slabs = width - 1, max(map(len, tasks))
     max_cells = max(b - a for a, b in zip(task_base, task_base[1:]))
@@ -1059,17 +1218,17 @@ def _plan_of(pieces: list, d: int, cross: bool, scorer: bool, cap: int,
             -1, WIDE_SLAB_INTS),
         warp_begin=torch.tensor(warp_begin, dtype=torch.int32),
         task_base=torch.tensor(task_base, dtype=torch.int64),
-        entries=ent[order].to(torch.int32).contiguous(),
+        entries=ent,
         stage_cols=torch.tensor([r + [-1] * (width - len(r))
                                  for r in stage_cols], dtype=torch.int32),
-        slots=torch.tensor(slots, dtype=torch.int32).reshape(-1, 3),
+        slots=torch.tensor(slots, dtype=torch.int32).reshape(-1, 4),
         max_stage_cols=max_cols, max_slabs=max_slabs, stage_rows=rows,
         cross=cross, scorer=scorer, task_cells=cap, window=window)
 
 
 def _window_tables(d: int, sizes: tuple[int, ...], lo: int, hi: int,
-                   keyed: tuple[int, ...] = (), with_dense: bool = True
-                   ) -> tuple[list, list]:
+                   keyed: tuple[int, ...] = (), with_dense: bool = True,
+                   cap: int = WIDE_TASK_BYTES // 8) -> tuple[list, list]:
     """The cells of S[:, lo:hi] before any cut: (D's pieces (none where
     not `with_dense`), the keyed tables). Every cell whose row or column
     lies in the window, with one map entry (cell, i, j) for each place
@@ -1098,12 +1257,18 @@ def _window_tables(d: int, sizes: tuple[int, ...], lo: int, hi: int,
     tables of a column j with neither column keyed whose row columns k
     follow each other are one CM table (`_cm_run`), over all of j's keys.
 
+    A C or CR table whose cells a key pass a task of `cap` cells (the
+    budget of K7's tasks, `_column_cap`) is cut by row code into tables
+    of at most `cap` cells a key (`_row_cut`), each keeping its key column,
+    so a keyed pair keeps its owner in every window.
+
     A table is (kind, key column, row column (−1 for K_j; CM: the first),
     first key, end key, cells a key, whether its cells fill places on both
-    sides, first row code (CR; CM: its end row column; else 0))."""
+    sides, first row code (CR and a C table cut by row code; CM: its end
+    row column; else 0))."""
     base = _bases(d, sizes)
     merge = _cross_count(sizes) > CM_TABLES
-    cap = _column_cap(d, sizes, WIDE_TASK_BYTES // 8)
+    cap = _column_cap(d, sizes, cap)
 
     def keys(j):
         """[a, b) of column j's codes whose one-hot columns lie in the
@@ -1115,8 +1280,8 @@ def _window_tables(d: int, sizes: tuple[int, ...], lo: int, hi: int,
     for a in range(1 + d if with_dense else 0):
         for blo in range(a, 1 + d, WIDE_CHUNK):
             bhi = min(blo + WIDE_CHUNK, 1 + d)
-            b = torch.arange(blo, bhi)
-            local = _places(lo, hi, b - blo, torch.full_like(b, a), b)
+            b = _ar(blo, bhi)
+            local = _places(lo, hi, b - blo, np.full_like(b, a), b)
             if local.shape[1]:
                 dense.append((SLAB_D, (a, blo, bhi, 0), bhi - blo, local))
     tables = []
@@ -1143,7 +1308,18 @@ def _window_tables(d: int, sizes: tuple[int, ...], lo: int, hi: int,
                 _cm_run(sizes, j, run, k, cap)
             elif k < len(sizes):
                 tables += _pair_tables(sizes, keyed, j, k, win[j], win[k])
-    return dense, tables
+    return dense, [cut for tb in tables for cut in _row_cut(tb, cap)]
+
+
+def _row_cut(table, cap: int) -> list:
+    """A window's C or CR table (`_window_tables`) whose cells a key pass
+    `cap`, as tables of the row ranges of `_row_ranges`; any other table
+    as it is."""
+    kind, key, row, klo, khi, row_cells, both, v_lo = table
+    if kind not in (SLAB_C, SLAB_CR) or row_cells <= cap:
+        return [table]
+    return [(kind, key, row, klo, khi, b - a, both, v_lo + a)
+            for a, b in _row_ranges(row_cells, cap)]
 
 
 def _cm_pair(sizes: tuple[int, ...], keyed: tuple[int, ...], j: int, k: int,
@@ -1189,44 +1365,51 @@ def _pair_tables(sizes: tuple[int, ...], keyed: tuple[int, ...], j: int,
             if khi > klo]
 
 
-def _places(lo: int, hi: int, cell, i, j) -> torch.Tensor:
+def _places(lo: int, hi: int, cell, i, j) -> np.ndarray:
     """(cell, i, j) for S[i, j] and (cell, j, i) for S[j, i] (i ≠ j), each
     where its column lies in the window [lo, hi)."""
     fwd = (j >= lo) & (j < hi)
     rev = (i >= lo) & (i < hi) & (i != j)
-    return torch.cat([torch.stack([cell, i, j])[:, fwd],
-                      torch.stack([cell, j, i])[:, rev]], 1)
+    return np.concatenate([np.stack([cell, i, j])[:, fwd],
+                           np.stack([cell, j, i])[:, rev]], 1)
 
 
 def _table_piece(table, d: int, sizes: tuple[int, ...], lo: int, hi: int,
                  u_lo: int, u_hi: int):
     """The slab of a window's table (`_window_tables`) over its keys [u_lo,
-    u_hi): (kind, params, cells, local map entries (cell, i, j))."""
+    u_hi): (kind, params, cells, local map entries (cell, i, j)); a C
+    table cut by row code is a CB slab of its rows."""
     kind, key, row, _, _, row_cells, both, v_lo = table
     b_key = _bases(d, sizes)[key]
     if kind == SLAB_CM:     # all of the key's levels (`_cm_run`)
         assert (u_lo, u_hi) == (0, sizes[key])
         return _cm_piece(sizes, _bases(d, sizes), key, row, v_lo, lo, hi)
     if kind == SLAB_K:
-        v = torch.arange(u_lo, u_hi).repeat_interleave(1 + d)
-        a = torch.arange(1 + d).repeat(u_hi - u_lo)
-        diag = b_key + torch.arange(u_lo, u_hi)
+        v = np.repeat(_ar(u_lo, u_hi), 1 + d)
+        a = np.tile(_ar(0, 1 + d), u_hi - u_lo)
+        diag = b_key + _ar(u_lo, u_hi)
         on = (diag >= lo) & (diag < hi)
         return (SLAB_K, (key, u_lo, u_hi, 0), (u_hi - u_lo) * (1 + d),
-                torch.cat([_places(lo, hi, (v - u_lo) * (1 + d) + a, a,
-                                   b_key + v),
-                           torch.stack([(diag - b_key - u_lo) * (1 + d),
-                                        diag, diag])[:, on]], 1))
+                np.concatenate([_places(lo, hi, (v - u_lo) * (1 + d) + a, a,
+                                        b_key + v),
+                                np.stack([(diag - b_key - u_lo) * (1 + d),
+                                          diag, diag])[:, on]], 1))
     b_row = _bases(d, sizes)[row]
-    u = torch.arange(u_lo, u_hi).repeat_interleave(row_cells)
-    v = torch.arange(v_lo, v_lo + row_cells).repeat(u_hi - u_lo)
-    cell = (u - u_lo) * row_cells + v - v_lo
+    grid = _Grid((u_hi - u_lo, row_cells, b_key + u_lo, b_row + v_lo,
+                  kind == SLAB_CR))
     if kind == SLAB_CR:     # keys [u_lo, u_hi): the keyed task's own
         return (SLAB_CR, (key, row, v_lo, v_lo + row_cells),
-                (u_hi - u_lo) * row_cells,
-                torch.stack([cell, b_key + u, b_row + v]))
-    local = (_places(lo, hi, cell, b_key + u, b_row + v) if both
-             else torch.stack([cell, b_row + v, b_key + u]))
+                (u_hi - u_lo) * row_cells, grid)
+    if both:
+        u = np.repeat(_ar(u_lo, u_hi), row_cells)
+        v = np.tile(_ar(v_lo, v_lo + row_cells), u_hi - u_lo)
+        local = _places(lo, hi, (u - u_lo) * row_cells + v - v_lo,
+                        b_key + u, b_row + v)
+    else:
+        local = grid
+    if (v_lo, row_cells) != (0, sizes[row]):
+        return (SLAB_CB, (key, row, u_lo, u_hi, v_lo, v_lo + row_cells),
+                (u_hi - u_lo) * row_cells, local)
     return (SLAB_C, (key, row, u_lo, u_hi), (u_hi - u_lo) * row_cells,
             local)
 
@@ -1247,31 +1430,50 @@ def _window_pieces(d: int, sizes: tuple[int, ...], lo: int, hi: int,
     cuts the tables of a keyed column by its key ranges instead, each task
     walking only its range's rows in that column's order: a row read once
     a layer, whatever V_j·V_k is."""
-    dense, tables = _window_tables(d, sizes, lo, hi)
+    dense, tables = _window_tables(d, sizes, lo, hi, cap=cap)
     return dense + [_table_piece(tb, d, sizes, lo, hi, u_lo, u_hi)
                     for tb in tables
                     for u_lo, u_hi in _key_ranges(tb[3], tb[4], tb[5], cap)]
 
 
+def window_places(d: int, sizes: tuple[int, ...], lo: int, hi: int) -> int:
+    """The structurally nonzero places of S[:, lo:hi] (what a window's
+    plans map): P in each column of [1 ‖ x]; in a one-hot column of column
+    j, 1 + d, its diagonal and every other column's levels."""
+    p = 1 + d + sum(sizes)
+    out = p * max(0, min(hi, 1 + d) - max(lo, 0))
+    for b, v in zip(_bases(d, sizes), sizes):
+        out += (2 + d + p - 1 - d - v) * max(0, min(hi, b + v) - max(lo, b))
+    return out
+
+
+def window_cuts(schema, lo: int, hi: int) -> list[tuple[int, int]]:
+    """The windows K7 runs S[:, lo:hi] as: the window itself, or where its
+    plans would map more than MAX_WINDOW_PLACES places, its columns cut at
+    the multiples of WINDOW_WIDTH (the windows masked_gram(_cols) run,
+    whose plans it shares)."""
+    d, sizes = schema.num_cols, tuple(schema.cat_sizes)
+    if window_places(d, sizes, lo, hi) <= MAX_WINDOW_PLACES:
+        return [(lo, hi)]
+    cuts = [lo] + list(range((lo // WINDOW_WIDTH + 1) * WINDOW_WIDTH, hi,
+                             WINDOW_WIDTH)) + [hi]
+    return list(zip(cuts[:-1], cuts[1:]))
+
+
 def check_window(schema, lo: int, width: int) -> None:
     """Raise ValueError for a window K7 does not take: [lo, lo + width)
-    inside [0, P), and every categorical column at most a task's cells
-    (a row of a cross table, V_k cells, lies in one task)."""
+    outside [0, P). A column takes any levels: a cross table whose rows
+    pass a task is cut by row code too (`_row_cut`)."""
     p = schema.sigma_size
     if not (0 <= lo and width >= 1 and lo + width <= p):
         raise ValueError(f"window [{lo}, {lo + width}) is not inside "
                          f"[0, {p})")
-    cap = WIDE_TASK_BYTES // 8
-    if schema.cat_cols > 1 and max(schema.cat_sizes) > cap:
-        raise ValueError(f"a categorical column of {max(schema.cat_sizes)}"
-                         f" levels: K7 takes at most {cap} beside another "
-                         f"column (a cross table's row lies in one task)")
 
 
-@functools.lru_cache(maxsize=32)
-def _window_plan(d: int, sizes: tuple[int, ...], lo: int, hi: int
-                 ) -> WidePlan:
-    cap = _column_cap(d, sizes, WIDE_TASK_BYTES // 8)
+@plan_cache
+def _window_plan(d: int, sizes: tuple[int, ...], lo: int, hi: int,
+                 cap: int = WIDE_TASK_BYTES // 8) -> WidePlan:
+    cap = _column_cap(d, sizes, cap)
     return _plan_of(_window_pieces(d, sizes, lo, hi, cap), d, True, False,
                     cap, (lo, hi))
 
@@ -1321,9 +1523,11 @@ class KeyedPlan:
 
 
 @functools.lru_cache(maxsize=32)
-def keyed_columns(d: int, sizes: tuple[int, ...]) -> tuple[int, ...]:
-    """The categorical columns every window keys: none up to P =
-    MAX_WIDE_SIGMA_SIZE (K7's one-launch plan covers S there, and a window
+def keyed_columns(d: int, sizes: tuple[int, ...],
+                  cap: int = WIDE_TASK_BYTES // 8,
+                  past: int = MAX_WIDE_SIGMA_SIZE) -> tuple[int, ...]:
+    """The categorical columns every window keys: none up to P = `past`
+    (MAX_WIDE_SIGMA_SIZE: K7's one-launch plan covers S there, and a window
     of such a schema keeps the unkeyed cut), else those whose tables
     keyed on them (K_j and every C_jk keyed on j's codes) take more than
     one task in one of the windows `masked_gram` assembles S from (of
@@ -1334,9 +1538,9 @@ def keyed_columns(d: int, sizes: tuple[int, ...]) -> tuple[int, ...]:
     One rule for all windows, so that a cell two windows compute (S[i, j]
     in one, S[j, i] in another) is summed the same way in both: over its
     key's rows of one column's order, in chunks from the key's first
-    row."""
+    row. `cap`: the budget of a task, cells (lowered by the tests)."""
     p = 1 + d + sum(sizes)
-    if p <= MAX_WIDE_SIGMA_SIZE:
+    if p <= past:
         return ()
     windows = [(0, p)] + [(lo, min(lo + WINDOW_WIDTH, p))
                           for lo in range(0, p, WINDOW_WIDTH)]
@@ -1346,10 +1550,8 @@ def keyed_columns(d: int, sizes: tuple[int, ...]) -> tuple[int, ...]:
         most: dict[int, int] = {}
         for lo, hi in windows:
             for j, t in _key_cells(_window_tables(d, sizes, lo, hi,
-                                                  keyed, False)[1],
-                                   _column_cap(d, sizes,
-                                               WIDE_TASK_BYTES // 8)
-                                   ).items():
+                                                  keyed, False, cap)[1],
+                                   _column_cap(d, sizes, cap)).items():
                 most[j] = max(most.get(j, 0), t)
         return {j for j, t in most.items() if t > 1}
 
@@ -1367,12 +1569,29 @@ def _key_cells(tables: list, cap: int) -> dict[int, int]:
     return {key: -(-c // cap) for key, c in cells.items()}
 
 
-@functools.lru_cache(maxsize=32)
-def _keyed_window_plan(d: int, sizes: tuple[int, ...], lo: int, hi: int
+@functools.lru_cache(maxsize=4096)
+def window_keyed_columns(d: int, sizes: tuple[int, ...], lo: int, hi: int,
+                         cap: int = WIDE_TASK_BYTES // 8,
+                         past: int = MAX_WIDE_SIGMA_SIZE
+                         ) -> tuple[int, ...]:
+    """The keyed columns that own a table of the window [lo, hi): its
+    keyed plan's `columns` (`_keyed_window_plan`), found from the tables
+    alone, with no plan made; kept, as a pass asks for them again."""
+    columns = keyed_columns(d, sizes, cap, past)
+    if not columns:
+        return ()
+    tables = _window_tables(d, sizes, lo, hi, columns, False, cap)[1]
+    return tuple(sorted({tb[1] for tb in tables} & set(columns)))
+
+
+@plan_cache
+def _keyed_window_plan(d: int, sizes: tuple[int, ...], lo: int, hi: int,
+                       cap: int = WIDE_TASK_BYTES // 8,
+                       past: int = MAX_WIDE_SIGMA_SIZE
                        ) -> tuple[WidePlan | None, KeyedPlan | None]:
-    cap = _column_cap(d, sizes, WIDE_TASK_BYTES // 8)
-    columns = keyed_columns(d, sizes)
-    dense, tables = _window_tables(d, sizes, lo, hi, columns)
+    columns = keyed_columns(d, sizes, cap, past)
+    cap = _column_cap(d, sizes, cap)
+    dense, tables = _window_tables(d, sizes, lo, hi, columns, cap=cap)
     keyed = sorted({tb[1] for tb in tables} & set(columns))
     rest = dense + [_table_piece(tb, d, sizes, lo, hi, u_lo, u_hi)
                     for tb in tables if tb[1] not in keyed

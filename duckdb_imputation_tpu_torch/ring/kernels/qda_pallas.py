@@ -130,11 +130,12 @@ def class_scores_plain(tables, plan: _build.WidePlan, x_num, codes, *,
                        schema: FeatureSchema, shift=None):
     """Each class's scores f64[n] in turn, as the kernel sums them: each
     row's cells in the plan's order (task, slab, cell), each term the cell
-    times the row's values (z_a·z_b for D, z_a for K, 1 for C) in f64,
-    added in f64. A code outside [0, size) adds no cell. shift: f32[d] or
-    None, taken from x in f64 first. On naive Bayes's plan (cross=False)
-    only D's row 0 and diagonal and K's row 0 are read: its other cells
-    are zero."""
+    times the row's values (z_a·z_b for D, z_a for K, 1 for C and CB), in
+    f64, added in f64; every class's sum a term at a time, so no term
+    outlives its slab. A code outside [0, size) adds no cell, nor a code
+    outside a CB slab's rows. shift: f32[d] or None, taken from x in f64
+    first. On naive Bayes's plan (cross=False) only D's row 0 and diagonal
+    and K's row 0 are read: its other cells are zero."""
     d = schema.num_cols
     ref = x_num if d else codes
     n, device = ref.shape[-1], ref.device
@@ -145,32 +146,39 @@ def class_scores_plain(tables, plan: _build.WidePlan, x_num, codes, *,
     z = [torch.ones(n, dtype=f64, device=device)] + xs   # [1 ‖ x] in f64
     codes = [c.long() for c in codes]
     ok = [(c >= 0) & (c < size) for c, size in zip(codes, schema.cat_sizes)]
-    # each slab's cells a row reads, as (cell, the row's value in f64, mask
-    # of the rows that read it or None for every row)
-    terms = []
-    for kind, p0, p1, p2, p3, off, task, _ in plan.slabs.tolist():
+    table = tables.to(f64)
+    s = torch.zeros((tables.shape[0], n), dtype=f64, device=device)
+
+    def add(cell, val, hit):
+        """Every class's term at `cell` (the row's value `val`; `hit` the
+        rows that read it, or None for every row)."""
+        t = (table[:, cell] if torch.is_tensor(cell)
+             else table[:, cell, None]) * val
+        return s + (t if hit is None else torch.where(hit, t, 0.0))
+
+    for (kind, p0, p1, p2, p3, off, task, _), (*_, v_lo, v_hi) in zip(
+            plan.slabs.tolist(), plan.slots.tolist()):
         at = int(plan.task_base[task]) + off
         if kind == _build.SLAB_D:                   # (a, b), b in [p1, p2)
             for b in range(p1, p2):
                 if plan.cross or p0 == 0 or b == p0:
-                    terms.append((at + b - p1, z[p0] * z[b], None))
+                    s = add(at + b - p1, z[p0] * z[b], None)
         elif kind == _build.SLAB_K:                 # column p0, keys [p1, p2)
             hit = ok[p0] & (codes[p0] >= p1) & (codes[p0] < p2)
             key = at + torch.where(hit, codes[p0], p1) - p1
             for a in range(1 + d if plan.cross else 1):  # a-major
-                terms.append((key + a * (p2 - p1), z[a], hit))
-        else:                           # columns p0 < p1, keys [p2, p3)
+                s = add(key + a * (p2 - p1), z[a], hit)
+        else:           # key column p0, row column p1, keys [p2, p3)
             hit = ok[p0] & ok[p1] & (codes[p0] >= p2) & (codes[p0] < p3)
+            if kind == _build.SLAB_CB:              # the slab's rows only
+                hit &= (codes[p1] >= v_lo) & (codes[p1] < v_hi)
+                rows = v_hi - v_lo
+            else:
+                v_lo, rows = 0, schema.cat_sizes[p1]
             u = torch.where(hit, codes[p0], p2) - p2
-            v = torch.where(hit, codes[p1], 0)
-            terms.append((at + u * schema.cat_sizes[p1] + v, z[0], hit))
-    for cc in range(tables.shape[0]):
-        table = tables[cc].to(f64)
-        s = torch.zeros(n, dtype=f64, device=device)
-        for cell, val, hit in terms:
-            t = table[cell] * val
-            s = s + (t if hit is None else torch.where(hit, t, 0.0))
-        yield s
+            v = torch.where(hit, codes[p1], v_lo) - v_lo
+            s = add(at + u * rows + v, z[0], hit)
+    yield from s
 
 
 def qda_predict_plain(tables, plan: _build.WidePlan, x_num, codes, *,
@@ -196,9 +204,9 @@ def qda_predict_plain(tables, plan: _build.WidePlan, x_num, codes, *,
 def _device_plan(d: int, sizes: tuple[int, ...], cross: bool, cap: int,
                  device):
     plan = _build._wide_plan(d, sizes, cross, True, cap)
-    slabs = plan.slabs.clone()        # a C slab's V_k in place of the task
-    c = slabs[:, 0] == _build.SLAB_C
-    slabs[c, 6] = plan.slots[c, 2]
+    slabs = plan.slabs.clone()        # a C or CB slab's rows in place of
+    c = (slabs[:, 0] == _build.SLAB_C) | (slabs[:, 0] == _build.SLAB_CB)
+    slabs[c, 6:8] = plan.slots[c, 2:4]  # the task and the warp
     return tuple(t.to(device) for t in (slabs, plan.warp_begin,
                                          plan.task_base))
 
@@ -247,6 +255,7 @@ def qda_predict_kernel(tables, plan: _build.WidePlan, x_num, codes, *,
             warp_begin.data_ptr(), task_base.data_ptr(), num_classes,
             plan.num_tasks, plan.max_task_cells, cells, n, threads, rows,
             group, int(not plan.cross),
+            int(bool((plan.slabs[:, 0] == _build.SLAB_CB).any())),
             None if shift is None else shift.data_ptr(), out.data_ptr(),
             torch.cuda.current_stream(device).cuda_stream)
     _build.raise_on_error(lib, rc, "qda_predict_kernel")

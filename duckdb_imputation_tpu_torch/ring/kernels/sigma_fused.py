@@ -241,8 +241,6 @@ def fused_impute_aggregate(x_cols, code_cols, null_imp, w_agg, w_full,
     n = null_imp.shape[-1]
     p = schema.sigma_size
     _build.check_schema(schema, n, _build.MAX_WINDOW_SIGMA_SIZE)
-    if p > _build.MAX_WIDE_SIGMA_SIZE:
-        _build.check_window(schema, 0, p)
     if kind == "cat":
         if not 0 <= imp_col < schema.cat_cols:
             raise ValueError(f"imp_col {imp_col} is not a categorical column")

@@ -253,8 +253,6 @@ def _launch(x_cols, code_cols, weights, n: int, device, schema,
     what = wrapper.__name__
     p = schema.sigma_size
     _build.check_schema(schema, n, _build.MAX_WINDOW_SIGMA_SIZE)
-    if p > _build.MAX_WIDE_SIGMA_SIZE:
-        _build.check_window(schema, 0, p)
     tensors = x_cols + code_cols + ([] if weights is None else [weights])
     if tensors:
         device = _build.check_cuda(
@@ -302,21 +300,107 @@ def _launch(x_cols, code_cols, weights, n: int, device, schema,
     return out
 
 
-@functools.lru_cache(maxsize=64)
+DEVICE_PLAN_SHARE = 0.5   # most of a device's spare memory the plans kept
+                          # there (`_device_plan`) may hold: criteo_mid's 41
+                          # windows (1.3e9 places, 21 GB of map) stay on an
+                          # 80 GB card across the calls of one run
+
+
+@dataclasses.dataclass(frozen=True)
+class DevicePlan:
+    """A plan's tensors on a device and the host numbers a launch reads,
+    kept (`_device_plan`) without the host plan they were made from.
+
+    tensors: the kernel's slab records (`WidePlan.device_slabs`),
+      warp_begin, task_base, stage_cols, entries and, for a keyed plan,
+      its task keys.
+    shape: `WidePlan.shape_ints` (its slices entry unused).
+    cells: task_base[T]. layer_keys: a keyed plan's (`KeyedPlan`)."""
+    tensors: tuple
+    shape: tuple
+    cells: int
+    layer_keys: tuple = ()
+
+    @property
+    def num_tasks(self) -> int:
+        return self.shape[0]
+
+    @property
+    def max_task_cells(self) -> int:
+        return self.shape[2]
+
+    slices = _build.WidePlan.slices
+
+    def shape_ints(self, slices: int) -> list[int]:
+        return [*self.shape[:6], slices, self.shape[7]]
+
+
+def device_plan(plan: _build.WidePlan, device,
+                keyed: _build.KeyedPlan | None = None) -> DevicePlan:
+    """`plan` on `device`, or with `keyed` (whose `plan` it is) that keyed
+    plan with its task keys."""
+    extra = (keyed.task_keys,) if keyed is not None else ()
+    return DevicePlan(
+        tensors=tuple(t.to(device) for t in (
+            plan.device_slabs, plan.warp_begin, plan.task_base,
+            plan.stage_cols, plan.entries, *extra)),
+        shape=tuple(plan.shape_ints(0)), cells=int(plan.task_base[-1]),
+        layer_keys=keyed.layer_keys if keyed is not None else ())
+
+
+def _plan_device(plan: DevicePlan | None):
+    """The device a kept plan lies on (None for no plan)."""
+    return plan.tensors[0].device if plan is not None else None
+
+
+def _plan_room(device, held: int) -> int:
+    """The bytes the plans kept on `device` may hold: DEVICE_PLAN_SHARE of
+    what is spare there beside them (free on the device, `mem_get_info`,
+    or held unused by torch's allocator) and of what they hold, as a plan is kept; on the
+    host, the host plans' bound."""
+    if device is None or device.type != "cuda":
+        return _build.PLAN_CACHE_BYTES
+    free = torch.cuda.mem_get_info(device)[0]
+    spare = (torch.cuda.memory_reserved(device)
+             - torch.cuda.memory_allocated(device))
+    return int(DEVICE_PLAN_SHARE * (free + spare + held))
+
+
+@_build.BytesCache(_plan_room, part=_plan_device)
 def _device_plan(d: int, sizes: tuple[int, ...], device, window=None,
-                 keyed: bool = False):
-    """A plan's tensors on `device`: the whole plan's, or a window's
-    residual plan's or (`keyed`) its keyed plan's with its task keys."""
-    extra = ()
+                 keyed: bool = False) -> DevicePlan | None:
+    """A plan on `device`: the whole plan's, or a window's residual plan's
+    or (`keyed`) its keyed plan's with its task keys; None where the
+    window has no such plan."""
     if window is None:
-        plan = _build._wide_plan(d, sizes)
-    else:
-        residual, kp = _build._keyed_window_plan(d, sizes, *window)
-        plan = kp.plan if keyed else residual
-        extra = (kp.task_keys,) if keyed else ()
-    return tuple(t.to(device) for t in (
-        plan.device_slabs, plan.warp_begin, plan.task_base, plan.stage_cols,
-        plan.entries, *extra))
+        return device_plan(_build._wide_plan(d, sizes), device)
+    residual, kp = _build._keyed_window_plan(d, sizes, *window)
+    if keyed:
+        return kp and device_plan(kp.plan, device, kp)
+    return residual and device_plan(residual, device)
+
+
+def _indexed(device) -> torch.device:
+    """`device` with its index, so that 'cuda' and a tensor's 'cuda:0'
+    find one kept plan."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def window_plans(schema, lo: int, hi: int, device
+                 ) -> tuple[DevicePlan | None, DevicePlan | None]:
+    """The residual and keyed plans of the window [lo, hi) on `device`
+    (`_build.keyed_window_plan`), either None where the window has none;
+    made on the CPU once a schema and window, and kept on the device
+    while it has room (`DEVICE_PLAN_SHARE`; `_device_plan.cache_clear()`
+    frees them)."""
+    _build.check_window(schema, lo, hi - lo)
+    d, sizes, device = schema.num_cols, tuple(schema.cat_sizes), _indexed(
+        device)
+    return (_device_plan(d, sizes, device, (lo, hi)),
+            _device_plan(d, sizes, device, (lo, hi), keyed=True))
 
 
 def wide_plan_args(schema, n: int, device, groups: int = 1):
@@ -324,12 +408,12 @@ def wide_plan_args(schema, n: int, device, groups: int = 1):
     tensors, made once per schema and device; its shape and the row slices
     as a host array) and the f64 scratch of the (task, slice + group)
     partials; shared with K2w, and with K8 (`groups` > 1)."""
-    plan = _build.wide_plan(schema)
-    tensors = _device_plan(schema.num_cols, tuple(schema.cat_sizes), device)
+    plan = _device_plan(schema.num_cols, tuple(schema.cat_sizes),
+                        _indexed(device))
     slices = plan.slices(n)
-    partial = torch.empty(int(plan.task_base[-1]) * (slices + groups - 1),
+    partial = torch.empty(plan.cells * (slices + groups - 1),
                           dtype=torch.float64, device=device)
-    args = (*(t.data_ptr() for t in tensors),
+    args = (*(t.data_ptr() for t in plan.tensors),
             _build.int_array(plan.shape_ints(slices)))
     return args, partial
 
@@ -351,12 +435,14 @@ def _launch_wide(x_cols, code_cols, weights, n, device, schema, lib, what):
 
 def window_columns(schema, lows, width: int) -> tuple[int, ...]:
     """The keyed columns of the windows [lo, lo + width) for lo in
-    `lows` (each cut at P): the columns one order pass sorts for them."""
-    p = schema.sigma_size
+    `lows` (each cut at P): the columns one order pass sorts for them
+    (`_build.window_keyed_columns`: found from the tables, no plan
+    made)."""
+    p, d, sizes = schema.sigma_size, schema.num_cols, tuple(schema.cat_sizes)
     cols = set()
     for lo in lows:
-        keyed = _build.keyed_window_plan(schema, lo, min(lo + width, p))[1]
-        cols.update(keyed.columns if keyed is not None else ())
+        cols.update(_build.window_keyed_columns(d, sizes, lo,
+                                                min(lo + width, p)))
     return tuple(sorted(cols))
 
 
@@ -381,25 +467,25 @@ def _gram_windows(x_cols, code_cols, weights, n, device, schema, lib,
 
 
 def _launch_window(x_cols, code_cols, weights, n, device, schema, lo,
-                   width, out, lib, what, order) -> None:
+                   width, out, lib, what, order, plans=None) -> None:
     """K7 over the window [lo, lo + width) (`_build.keyed_window_plan`):
     its residual plan over all rows and its keyed tasks over `order`'s
     copies, writing S[:, lo:lo + width] into out f32[P, ld] (zeroed; its
-    column 0 is the window's first)."""
-    residual, keyed = _build.keyed_window_plan(schema, lo, lo + width)
+    column 0 is the window's first). plans: (residual, keyed) on the
+    device in place of the window's own (`window_plans`)."""
+    residual, keyed = plans or window_plans(schema, lo, lo + width, device)
     sizes = schema.cat_sizes
     stream = torch.cuda.current_stream(device).cuda_stream
     cols = _build.column_args(x_cols, code_cols, sizes, device)
     if residual is not None:
-        tensors = _device_plan(schema.num_cols, tuple(sizes), device,
-                               residual.window)
         slices = residual.slices(n)
-        partial = torch.empty(int(residual.task_base[-1]) * slices,
+        partial = torch.empty(residual.cells * slices,
                               dtype=torch.float64, device=device)
         with torch.cuda.device(device):
             rc = lib.lib.dit_wide_gram_window(
                 *cols, weights.data_ptr(), n, schema.sigma_size, lo,
-                width, out.stride(0), *(t.data_ptr() for t in tensors),
+                width, out.stride(0),
+                *(t.data_ptr() for t in residual.tensors),
                 _build.int_array(residual.shape_ints(slices)),
                 partial.data_ptr(), out.data_ptr(), stream)
         _build.raise_on_error(lib, rc, what)
@@ -410,17 +496,16 @@ def _launch_window(x_cols, code_cols, weights, n, device, schema, lo,
 
 def launch_keyed(keyed, order, n, device, schema, lo, width, out, ld,
                  gstride, lib, what, far) -> None:
-    """One launch of the keyed tasks of the window [lo, lo + width) over
-    `order` (`window_order`, with order.groups groups) and their
-    reduction, each place (i, j) of group g written to out[g·gstride +
-    i·ld + j − lo]; shared by K7 and K8. far: the columns' table
-    (`_build.column_args`), whose sizes the kernel reads past
-    INLINE_COLS code columns."""
-    tensors = _device_plan(schema.num_cols, tuple(schema.cat_sizes), device,
-                           (lo, lo + width), keyed=True)
+    """One launch of the keyed tasks of the window [lo, lo + width)
+    (`keyed`: its keyed plan on the device, `window_plans`) over `order`
+    (`window_order`, with order.groups groups) and their reduction, each
+    place (i, j) of group g written to out[g·gstride + i·ld + j − lo];
+    shared by K7 and K8. far: the columns' table (`_build.column_args`),
+    whose sizes the kernel reads past INLINE_COLS code columns."""
+    tensors = keyed.tensors
     item_cum = keyed_items(keyed, order, n, schema, tensors[5])[0]
     items = _build.keyed_items_bound(keyed, n, order.groups)
-    partial = torch.empty(items * keyed.plan.max_task_cells,
+    partial = torch.empty(items * keyed.max_task_cells,
                           dtype=torch.float64, device=device)
     sizes = schema.cat_sizes
     with torch.cuda.device(device):
@@ -432,7 +517,7 @@ def launch_keyed(keyed, order, n, device, schema, lo, width, out, ld,
             order.off_of.data_ptr(), tensors[5].data_ptr(),
             item_cum.data_ptr(), order.groups, _build.item_chunks(n), items,
             *(t.data_ptr() for t in tensors[:5]),
-            _build.int_array(keyed.plan.shape_ints(1)), partial.data_ptr(),
+            _build.int_array(keyed.shape_ints(1)), partial.data_ptr(),
             out.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
     _build.raise_on_error(lib, rc, what)
 
@@ -659,13 +744,15 @@ def masked_gram_window(x_cols, code_cols, weights, *, schema: FeatureSchema,
     `_build.MAX_WINDOW_SIGMA_SIZE`: the function of JAX's
     `ring/striped.py:sigma_stripe`. Peak device memory beside the inputs:
     the output, the window's plans (`_build.keyed_window_plan`: their map
-    of one i32[4] entry a nonzero place), K7's f64 partials of their
-    cells and, where the window keys a column, the order's copy of the
-    columns (`window_order`, made by this call).
+    of one i32[4] entry a nonzero place; kept by `_device_plan`), K7's f64
+    partials of their cells and, where the window keys a column, the
+    order's copy of the columns (`window_order`, made by this call).
 
     CUDA tensors launch K7 over the window's plans (one launch, counted
     in `masked_gram_window.launches`, after an order pass where the window
-    keys a column); CPU tensors take `masked_gram_window_plain`."""
+    keys a column; a window of more than `_build.MAX_WINDOW_PLACES`
+    places, as the whole S of criteo_mid, one launch a window of
+    `_build.window_cuts`); CPU tensors take `masked_gram_window_plain`."""
     x_cols, code_cols = list(x_cols), list(code_cols)
     if len(x_cols) != schema.num_cols or len(code_cols) != schema.cat_cols:
         raise ValueError("column counts do not match the schema")
@@ -692,11 +779,17 @@ def masked_gram_window(x_cols, code_cols, weights, *, schema: FeatureSchema,
         return out
     if weights is None:
         weights = torch.ones(n, dtype=torch.float32, device=device)
+    cuts = _build.window_cuts(schema, lo, lo + width)
+    d, sizes = schema.num_cols, tuple(schema.cat_sizes)
     order = window_order(x_cols, code_cols, weights, schema=schema,
-                         columns=window_columns(schema, [lo], width))
-    _launch_window(x_cols, code_cols, weights, n, device, schema, lo, width,
-                   out, _build.load(), "masked_gram_window", order)
-    masked_gram_window.launches += 1
+                         columns=sorted({j for a, b in cuts for j in
+                                         _build.window_keyed_columns(
+                                             d, sizes, a, b)}))
+    for a, b in cuts:
+        _launch_window(x_cols, code_cols, weights, n, device, schema, a,
+                       b - a, out[:, a - lo:], _build.load(),
+                       "masked_gram_window", order)
+        masked_gram_window.launches += 1
     return out
 
 
@@ -720,18 +813,20 @@ def wide_tables_plain(x_cols, code_cols, weights, *, schema: FeatureSchema,
     xw = [w] + [x * w for x in x_cols]         # w·z_a, z = [1 ‖ x]
     out = torch.zeros(int(plan.task_base[-1]), dtype=torch.float64,
                       device=device)
-    for slab in plan.slabs.tolist():
+    for slab, slot in zip(plan.slabs.tolist(), plan.slots.tolist()):
         at = int(plan.task_base[slab[6]]) + slab[5]
-        cells = _slab_plain(slab, xw, x_cols, code_cols, w, schema)
+        cells = _slab_plain(slab, xw, x_cols, code_cols, w, schema,
+                            rows=slot[2:])
         out[at:at + cells.shape[0]] = cells
     return out
 
 
 def _slab_plain(slab, xw, x_cols, code_cols, w, schema,
-                keys=None) -> torch.Tensor:
+                keys=None, rows=None) -> torch.Tensor:
     """One slab's cells f64 over the given rows (`wide_tables_plain`'s
     arithmetic); xw = [w, w·x_0, ...]; keys: the keyed task's (u_lo,
-    u_hi), a CR slab's keys."""
+    u_hi), a CR slab's keys; rows: the slab's `WidePlan.slots` past its
+    stage slots, a C or CB slab's rows (v_lo, v_hi)."""
     kind, p0, p1, p2, p3 = slab[:5]
     f64 = torch.float64
     if kind == _build.SLAB_D:                  # (a, b) for b in [p1, p2)
@@ -764,10 +859,11 @@ def _slab_plain(slab, xw, x_cols, code_cols, w, schema,
         return torch.bincount((u[ok] - ulo) * (p3 - p2) + v[ok] - p2,
                               weights=w[ok].to(f64),
                               minlength=(uhi - ulo) * (p3 - p2))
-    vk = schema.cat_sizes[p1]                  # keyed on p0, keys [p2, p3)
-    ok = (u >= p2) & (u < p3) & (v >= 0) & (v < vk)
-    return torch.bincount((u[ok] - p2) * vk + v[ok], weights=w[ok].to(f64),
-                          minlength=(p3 - p2) * vk)
+    vlo, vhi = rows                            # C, CB: keyed on p0, keys
+    ok = (u >= p2) & (u < p3) & (v >= vlo) & (v < vhi)   # [p2, p3)
+    return torch.bincount((u[ok] - p2) * (vhi - vlo) + v[ok] - vlo,
+                          weights=w[ok].to(f64),
+                          minlength=(p3 - p2) * (vhi - vlo))
 
 
 def keyed_tables_plain(order: WindowOrder, keyed: _build.KeyedPlan, *,
@@ -789,7 +885,8 @@ def keyed_tables_plain(order: WindowOrder, keyed: _build.KeyedPlan, *,
     rows_f = order.rows.view(torch.float32)
     out = torch.zeros((order.groups, int(plan.task_base[-1])),
                       dtype=torch.float64, device=order.rows.device)
-    slabs = plan.slabs.tolist()
+    slabs = [sl + slot[2:] for sl, slot in zip(plan.slabs.tolist(),
+                                                plan.slots.tolist())]
 
     def first_row(j, g, chunk):
         """The first row of `chunk` of column j's keys of group g."""
@@ -816,7 +913,7 @@ def keyed_tables_plain(order: WindowOrder, keyed: _build.KeyedPlan, *,
                 xw = [w] + [x * w for x in xs]
                 for sl in mine:
                     cells = _slab_plain(sl, xw, xs, cs, w, schema,
-                                        (ulo, uhi))
+                                        (ulo, uhi), sl[8:])
                     out[g, base + sl[5]:base + sl[5] + cells.shape[0]] += (
                         cells)
     return out

@@ -49,10 +49,10 @@ from ...schema import FeatureSchema
 from ..sum import grouped_sigma, masked_sigma
 from ..triple import Triple, triple_from_sigma
 from . import _build
-from .sigma_pallas import (_device_plan, fold_parts, launch_keyed,
+from .sigma_pallas import (fold_parts, launch_keyed,
                            masked_gram_window_plain, split_operands,
                            wide_plan_args, wide_tables_plain, window_columns,
-                           window_order)
+                           window_order, window_plans)
 
 
 def unsorted_group_limit(schema: FeatureSchema) -> int | None:
@@ -81,8 +81,6 @@ def grouped_route(schema: FeatureSchema) -> str:
 def _kernel_inputs(x_num, codes, weights, schema, n, extra):
     """Checks shared by K4, K5 and K8; returns (device, weights)."""
     _build.check_schema(schema, n, _build.MAX_WINDOW_SIGMA_SIZE)
-    if schema.sigma_size > _build.MAX_WIDE_SIGMA_SIZE:
-        _build.check_window(schema, 0, schema.sigma_size)
     if x_num.shape[0] != schema.num_cols or codes.shape[0] != schema.cat_cols:
         raise ValueError("block heights do not match the schema")
     device = _build.check_cuda(
@@ -403,13 +401,12 @@ def grouped_gram_presorted(x_sorted, codes_sorted, w_sorted,
 def _presorted_windows(x_sorted, codes_sorted, w_sorted, off, num_groups,
                        n, schema, device, lib) -> torch.Tensor:
     """K8 past MAX_WIDE_SIGMA_SIZE: one launch a column window of
-    WINDOW_WIDTH (`_build.keyed_window_plan`), each writing S_g[:, lo:hi]
+    WINDOW_WIDTH (`window_plans`), each writing S_g[:, lo:hi]
     of every group into out f32[G, P, P]: its residual plan over the
     group-sorted rows, its f64 partial sized for that plan's cells and the
     groups, and its keyed tasks over the rows ordered by (group, code) of
     each keyed column, one order pass (`window_order`) for all windows."""
-    p, d = schema.sigma_size, schema.num_cols
-    sizes = tuple(schema.cat_sizes)
+    p, sizes = schema.sigma_size, tuple(schema.cat_sizes)
     x_cols, code_cols = list(x_sorted), list(codes_sorted)
     lows = range(0, p, _build.WINDOW_WIDTH)
     order = window_order(x_cols, code_cols, w_sorted, schema=schema,
@@ -422,18 +419,18 @@ def _presorted_windows(x_sorted, codes_sorted, w_sorted, off, num_groups,
     cols = _build.column_args(x_cols, code_cols, sizes, device)
     for lo in lows:
         width = min(_build.WINDOW_WIDTH, p - lo)
-        residual, keyed = _build.keyed_window_plan(schema, lo, lo + width)
+        residual, keyed = window_plans(schema, lo, lo + width, device)
         if residual is not None:
-            tensors = _device_plan(d, sizes, device, residual.window)
             slices = residual.slices(n)
             partial = torch.empty(
-                int(residual.task_base[-1]) * (slices + num_groups - 1),
+                residual.cells * (slices + num_groups - 1),
                 dtype=torch.float64, device=device)
             with torch.cuda.device(device):
                 rc = lib.lib.dit_grouped_wide_gram_window(
                     *cols, w_sorted.data_ptr(),
                     off.data_ptr(), cum.data_ptr(), num_groups, n, p, lo,
-                    width, p, p * p, *(t.data_ptr() for t in tensors),
+                    width, p, p * p,
+                    *(t.data_ptr() for t in residual.tensors),
                     _build.int_array(residual.shape_ints(slices)),
                     partial.data_ptr(), out[:, :, lo:].data_ptr(), stream)
             _build.raise_on_error(lib, rc, "grouped_gram_presorted")

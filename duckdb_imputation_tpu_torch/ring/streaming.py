@@ -309,13 +309,10 @@ def encode_chunk(num, cat, num_null, cat_null, ss: StreamSchema
 
 def check_fold(ss: StreamSchema, rows: int) -> None:
     """Raise ValueError when the kernels cannot fold this stream's
-    extended schema (any number of columns, the K flags among them: P + K
-    ≤ K7's window limit, and past P + K = 1,024 no column of more levels
-    than a K7 task holds beside another)."""
+    extended schema: any number of columns of any levels, the K flags
+    among them, up to P + K = K7's window limit."""
     ext = extended_schema(ss)
     _build.check_schema(ext, rows, _build.MAX_WINDOW_SIGMA_SIZE)
-    if ext.sigma_size > _build.MAX_WIDE_SIGMA_SIZE:
-        _build.check_window(ext, 0, ext.sigma_size)
 
 
 def _reblocked(chunk_source, chunk_rows: int):

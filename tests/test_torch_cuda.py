@@ -8,7 +8,9 @@ K1's tensor-core body at config 4, on the CUDA cores past its tile), K6
 masked Gram behind masked_gram_cols and masked_gram) and K2w (the wide
 fused pass) against their plain versions, K7's and K8's keyed column
 windows past P = 1,024 and their row order (the order kernels), the
-checks their wrappers make,
+plans that cut a cross table by row code (K7, K8 and K3w at a 64-cell
+budget; criteo_pair's window inside C15) and K3w's i32 codes at a ZIP5
+column, the checks their wrappers make,
 and run_mice_device, run_mice_device_delta (also with the GD trainer),
 the host MICE drivers (run_mice_baseline / low / high, through
 masked_gram) and the QDA pipeline on the card against the plain versions
@@ -365,12 +367,19 @@ def test_kernels_raise_on_inputs_they_do_not_take(cuda):
     above = FeatureSchema(num_cols=4, cat_keys=(tuple(range(9000)),
                                                 tuple(range(8))))
     assert above.sigma_size > _build.MAX_WIDE_SIGMA_SIZE
-    with pytest.raises(ValueError):       # K2w past 1,024 is K7's windows:
-        fused_impute_aggregate(           # no column past a K7 task beside
-            xs, cs, torch.zeros(1000, dtype=torch.bool, device=cuda),  # another
-            w, torch.zeros((above.sigma_size, 8), device=cuda),
-            torch.zeros(8, device=cuda), schema=above, kind="cat",
-            imp_col=1)
+    # K2w past 1,024 is K7's windows, whose plans cut a cross table by row
+    # code too: a column past a K7 task beside another is taken, and
+    # equals the plain version
+    fargs = (xs, cs, torch.arange(1000, device=cuda) % 5 == 0, w,
+             torch.zeros((above.sigma_size, 8), device=cuda),
+             torch.arange(8, dtype=torch.float32, device=cuda))
+    new, sig = fused_impute_aggregate(*fargs, schema=above, kind="cat",
+                                      imp_col=1)
+    want_new, want_sig = fused_impute_aggregate_plain(
+        *fargs, schema=above, kind="cat", imp_col=1)
+    assert torch.equal(new, want_new)
+    torch.testing.assert_close(sig, want_sig, rtol=0,
+                               atol=1e-5 * float(want_sig.abs().max()))
     args = fused_args("cat", 1000, cuda)
     with pytest.raises(ValueError):       # w_full of the wrong width
         fused_impute_aggregate(*args[:4], args[4][:, :3], args[5][:3],
@@ -2519,3 +2528,216 @@ def test_many_cols_qda_matches_plain(cuda, name):
     assert torch.equal(got, again)
     assert torch.equal(got, qda_predict_plain(tables, plan, xt, ct,
                                               schema=schema))
+
+
+# ---------------------------------------------------------------------------
+# A categorical column past a task's cells beside others; codes past 32,768
+# ---------------------------------------------------------------------------
+
+ROW_CUT, ROW_CUT_CAP = (2, (100, 90, 3)), 64   # at tasks of 64 cells both
+                                               # wide columns pass a task
+
+
+def row_cut_cols(n, seed, device):
+    d, sizes = ROW_CUT
+    schema = FeatureSchema(num_cols=d, cat_keys=tuple(
+        tuple(range(v)) for v in sizes))
+    rng = np.random.default_rng(seed)
+    xs = [torch.tensor(rng.normal(size=n).astype(np.float32), device=device)
+          for _ in range(d)]
+    cs = [torch.tensor(rng.integers(-1, v + 1, n).astype(np.int32),
+                       device=device) for v in sizes]
+    w = torch.tensor((rng.random(n) > 0.2).astype(np.float32), device=device)
+    return schema, xs, cs, w
+
+
+def _k7_on(plan, schema, xs, cs, w, device, off=None):
+    """K7 (or, with group offsets `off`, K8) over a given whole plan."""
+    from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas import (
+        device_plan)
+
+    lib, n, p = _build.load(), w.shape[0], schema.sigma_size
+    dp = device_plan(plan, device)
+    groups = 1 if off is None else off.shape[0] - 1
+    slices = plan.slices(n)
+    partial = torch.empty(dp.cells * (slices + groups - 1),
+                          dtype=torch.float64, device=device)
+    out = torch.zeros((groups, p, p), device=device)
+    cols = _build.column_args(xs, cs, schema.cat_sizes, device)
+    args = (*(t.data_ptr() for t in dp.tensors),
+            _build.int_array(dp.shape_ints(slices)), partial.data_ptr(),
+            out.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
+    if off is None:
+        rc = lib.lib.dit_wide_gram(*cols, w.data_ptr(), n, p, *args)
+    else:
+        cum = _build.group_chunks(off, _build.WIDE_CHUNK)
+        rc = lib.lib.dit_grouped_wide_gram(*cols, w.data_ptr(),
+                                           off.data_ptr(), cum.data_ptr(),
+                                           groups, n, p, *args)
+    _build.raise_on_error(lib, rc, "row-cut plan")
+    return out if off is not None else out[0]
+
+
+@pytest.mark.parametrize("groups", [None, 3])
+def test_k7_k8_on_row_cut_plans_match_plain(cuda, groups):
+    """K7 (and K8 at G = 3, rows sorted by group) over the whole plan at
+    tasks of 64 cells, whose C_01 is cut by row code into CB slabs,
+    against the plan's plain arithmetic (`wide_tables_plain` +
+    `wide_assemble`, each group's rows): counts exact, within 1e-5 of
+    max|σ|, reruns bit-identical, S exactly symmetric."""
+    from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas import (
+        wide_assemble, wide_tables_plain)
+
+    d, sizes = ROW_CUT
+    plan = _build._wide_plan(d, sizes, True, False, ROW_CUT_CAP)
+    assert _build.SLAB_CB in plan.slabs[:, 0].tolist()
+    schema, xs, cs, w = row_cut_cols(100_003, seed=31, device=cuda)
+    off = None
+    bounds = [0, w.shape[0]]
+    if groups:
+        rng = np.random.default_rng(32)
+        g = torch.tensor(rng.integers(0, groups, w.shape[0]).astype(
+            np.int32), device=cuda)
+        x_s, c_s, w, layout = sort_by_group(torch.stack(xs),
+                                            torch.stack(cs), g,
+                                            schema=schema, num_groups=groups,
+                                            weights=w)
+        xs, cs, off = list(x_s), list(c_s), layout.offsets
+        bounds = off.tolist()
+    got = _k7_on(plan, schema, xs, cs, w, cuda, off)
+    again = _k7_on(plan, schema, xs, cs, w, cuda, off)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    got = got if groups else got[None]
+    cm = count_mask(schema, cuda)
+    for gg in range(len(bounds) - 1):
+        r = slice(bounds[gg], bounds[gg + 1])
+        want = wide_assemble(wide_tables_plain(
+            [x[r] for x in xs], [c[r] for c in cs], w[r], schema=schema,
+            plan=plan), schema=schema, plan=plan)
+        assert torch.equal(got[gg][cm], want[cm])
+        assert torch.equal(got[gg], got[gg].T)
+        torch.testing.assert_close(got[gg], want, rtol=0,
+                                   atol=1e-5 * float(want.abs().max()))
+
+
+def test_keyed_windows_on_row_cut_plans_match_plain(cuda):
+    """K7 over every window of 64 columns of the plans at tasks of 64
+    cells, both wide columns keyed (their C_01 cut into CB slabs keyed on
+    the wider column in every window), residual and keyed tasks over the
+    columns' order: against masked_gram_window_plain, counts exact, within
+    1e-5 of max|σ|; S assembled from the windows exactly symmetric."""
+    from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas import (
+        _launch_window, device_plan, masked_gram_window_plain,
+        window_order)
+
+    d, sizes = ROW_CUT
+    schema, xs, cs, w = row_cut_cols(70_001, seed=33, device=cuda)
+    p, n = schema.sigma_size, w.shape[0]
+    order = window_order(xs, cs, w, schema=schema, columns=_build.
+                         keyed_columns(d, sizes, ROW_CUT_CAP, 0))
+    full = torch.zeros((p, p), device=cuda)
+    kinds = set()
+    for lo in range(0, p, 64):
+        hi = min(lo + 64, p)
+        residual, keyed = _build._keyed_window_plan(d, sizes, lo, hi,
+                                                    ROW_CUT_CAP, 0)
+        if keyed is not None:
+            kinds.update(keyed.plan.slabs[:, 0].tolist())
+        plans = (residual and device_plan(residual, cuda),
+                 keyed and device_plan(keyed.plan, cuda, keyed))
+        _launch_window(xs, cs, w, n, cuda, schema, lo, hi - lo,
+                       full[:, lo:], _build.load(), "row-cut window", order,
+                       plans)
+    torch.cuda.synchronize()
+    assert _build.SLAB_CB in kinds
+    want = masked_gram_window_plain(xs, cs, w, schema=schema, lo=0, width=p)
+    cm = count_mask(schema, cuda)
+    assert torch.equal(full[cm], want[cm])
+    assert torch.equal(full, full.T)
+    torch.testing.assert_close(full, want, rtol=0,
+                               atol=1e-5 * float(want.abs().max()))
+
+
+def test_k3w_on_a_row_cut_plan_matches_plain(cuda):
+    """K3w over the scorer's plan at tasks of 64 cells (C_01 cut into CB
+    slabs: a row reads a CB cell only where its code lies in the slab's
+    rows), seeded tables, 3 classes, 50,003 rows: argmax bit-equal to the
+    plain version's."""
+    from duckdb_imputation_tpu_torch.ring.kernels.qda_pallas import _pack
+
+    d, sizes = ROW_CUT
+    schema, xs, cs, _ = row_cut_cols(50_003, seed=34, device=cuda)
+    p = schema.sigma_size
+    plan = _build._wide_plan(d, sizes, True, True, ROW_CUT_CAP)
+    assert _build.SLAB_CB in plan.slabs[:, 0].tolist()
+    rng = np.random.default_rng(35)
+    a = torch.tensor(rng.normal(size=(3, p, p)), device=cuda)
+    tables = _pack(a, plan).float()
+    x, codes = torch.stack(xs), torch.stack(cs)
+    before = qda_predict_kernel.wide_launches
+    got = qda_predict_kernel(tables, plan, x, codes, schema=schema)
+    torch.cuda.synchronize()
+    assert qda_predict_kernel.wide_launches == before + 1
+    want = qda_predict_plain(tables, plan, x, codes, schema=schema)
+    assert torch.equal(got, want)
+    assert len(torch.unique(got)) == 3
+
+
+@pytest.mark.parametrize("cross", [True, False])
+def test_k3w_wide_codes_at_zip5_match_plain(cuda, cross):
+    """K3w at zip5 (4 numerics, a column of 33,791 levels beside one of
+    5: codes staged as i32), QDA's plan and NB's, random f32 cells, 2
+    classes, 100,003 rows with codes past 32,768 and out of range: argmax
+    bit-equal to the plain version's."""
+    schema = FeatureSchema(num_cols=4, cat_keys=(tuple(range(33791)),
+                                                 tuple(range(5))))
+    assert _build.qda_code_bytes(schema) == 4
+    n = 100_003
+    rng = np.random.default_rng(36)
+    x = torch.tensor(rng.normal(size=(4, n)).astype(np.float32),
+                     device=cuda)
+    codes = torch.tensor(np.stack([rng.integers(-1, 33792, n),
+                                   rng.integers(0, 5, n)]).astype(np.int32),
+                         device=cuda)
+    plan = _build.qda_plan(schema, cross)
+    tables = torch.tensor(rng.normal(size=(2, int(plan.task_base[-1])))
+                          .astype(np.float32), device=cuda)
+    got = qda_predict_kernel(tables, plan, x, codes, schema=schema)
+    want = qda_predict_plain(tables, plan, x, codes, schema=schema)
+    assert torch.equal(got, want)
+    assert set(torch.unique(got).tolist()) == {0, 1}
+
+
+def test_criteo_pair_window_of_the_row_cut_table_matches_plain(cuda):
+    """At the default budget, criteo_pair (13 numerics, C7's 12,517 and
+    C15's 14,992 levels: P = 27,523): the window of 1,024 columns inside
+    C15's one-hot block, whose C_{15,7} keyed on C15 is cut by row code
+    into CB slabs, 200,003 Zipf rows, against masked_gram_window_plain:
+    counts exact, within 1e-5 of max|σ|."""
+    from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas import (
+        masked_gram_window, masked_gram_window_plain)
+
+    sizes = (12517, 14992)
+    schema = FeatureSchema(num_cols=13, cat_keys=tuple(
+        tuple(range(v)) for v in sizes))
+    lo = 14 + 12517 + 4096
+    keyed = _build.keyed_window_plan(schema, lo, lo + 1024)[1]
+    assert _build.SLAB_CB in keyed.plan.slabs[:, 0].tolist()
+    n = 200_003
+    rng = np.random.default_rng(37)
+    xs = [torch.tensor(rng.normal(size=n).astype(np.float32), device=cuda)
+          for _ in range(13)]
+    cs = []
+    for v in sizes:
+        share = 1.0 / np.arange(1, v + 1) ** 1.05
+        cs.append(torch.tensor(rng.choice(v, n, p=share / share.sum())
+                               .astype(np.int32), device=cuda))
+    w = torch.tensor((rng.random(n) > 0.2).astype(np.float32), device=cuda)
+    got = masked_gram_window(xs, cs, w, schema=schema, lo=lo, width=1024)
+    want = masked_gram_window_plain(xs, cs, w, schema=schema, lo=lo,
+                                    width=1024)
+    cm = window_count_mask(schema, lo, 1024, cuda)
+    assert torch.equal(got[cm], want[cm])
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-5 * float(want.abs().max()))

@@ -183,14 +183,17 @@ def test_small_cap_keys_cross_tables_on_the_wider_column():
 
 def test_qda_task_cells_and_limits():
     """The scorer's budget grows to the narrower column of a pair past
-    QDA_TASK_CELLS, up to K7's task; past it, past QDA_MAX_LEVELS levels
-    or past K7's window limit, check_qda raises; P = 1,115 and
-    favorita_items pass."""
+    QDA_TASK_CELLS, up to K7's task; past it (two columns of 9,000) the
+    budget stays K7's and the cross table is cut by row code too, so
+    check_qda takes the schema, as it takes a column past 32,768 levels
+    (codes staged as i32), whose plan maps every place once (the 9,000 ×
+    9,000 cut checked at its scale in tests/test_torch_wide_levels.py);
+    past K7's window limit check_qda raises; P = 1,115 and favorita_items
+    pass."""
     assert _build.qda_task_cells(VOCABS) == _build.QDA_TASK_CELLS
     assert _build.qda_task_cells((5000, 6001)) == 5000
     assert _build.qda_task_cells((30000,)) == _build.QDA_TASK_CELLS
-    with pytest.raises(ValueError):
-        _build.qda_task_cells((9000, 9000))
+    assert _build.qda_task_cells((9000, 9000)) == _build.WIDE_TASK_BYTES // 8
     _build.check_qda(SCHEMA, 3, 100)
     wide = FeatureSchema(2, (tuple(range(5000)), tuple(range(6001))))
     _build.check_qda(wide, 2, 100)
@@ -199,16 +202,22 @@ def test_qda_task_cells_and_limits():
     threads, rows, group = _build.qda_tile(wide, plan, 2)
     assert _build.qda_smem_bytes(plan.max_task_cells, wide, threads * rows,
                                  group) <= _build.WIDE_SMEM
-    for past in (FeatureSchema(2, (tuple(range(9000)),) * 2),
-                 FeatureSchema(1, (tuple(range(_build.QDA_MAX_LEVELS + 1)),)),
-                 FeatureSchema(1, (tuple(range(
-                     _build.MAX_WINDOW_SIGMA_SIZE)),))):
-        with pytest.raises(ValueError):
-            _build.check_qda(past, 2, 100)
+    nine = FeatureSchema(2, (tuple(range(9000)),) * 2)
+    _build.check_qda(nine, 2, 100)
+    assert _build._row_ranges(9000, _build.qda_task_cells(
+        (9000, 9000))) == [(0, 4500), (4500, 9000)]
+    levels = _build.QDA_SHORT_LEVELS + 1
+    long_codes = FeatureSchema(1, (tuple(range(levels)),))
+    _build.check_qda(long_codes, 2, 100)
+    assert _build.qda_code_bytes(long_codes) == 4
+    assert_plan_covers_once(_build.qda_plan(long_codes), 1, (levels,), True,
+                            _build.QDA_TASK_CELLS)
+    with pytest.raises(ValueError):
+        _build.check_qda(FeatureSchema(1, (tuple(range(
+            _build.MAX_WINDOW_SIGMA_SIZE)),)), 2, 100)
     # naive Bayes's plan has no cross table: two wide columns pass
-    _build.check_qda(FeatureSchema(2, (tuple(range(9000)),) * 2), 2, 100,
-                     cross=False)
-    assert _build.QDA_MAX_LEVELS == _cxx_constants()["kQdaMaxLevels"]
+    _build.check_qda(nine, 2, 100, cross=False)
+    assert _build.QDA_SHORT_LEVELS == _cxx_constants()["kQdaShortLevels"]
 
 
 def test_impute_global_plan():

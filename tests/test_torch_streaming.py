@@ -42,6 +42,7 @@ from duckdb_imputation_tpu_torch.ring.triple import sigma_from_triple
 from duckdb_imputation_tpu_torch.table.native import read_csv
 
 import torch_stream_worker as worker
+from test_torch_wide_levels import assert_kernel_windows_cover_once
 from torch_stream_worker import stream_fixture
 
 torch.set_num_threads(2)
@@ -216,10 +217,12 @@ def test_fold_past_64_categorical_columns_matches_jax():
 
 @pytest.mark.parametrize("cats,nullable", [(2, 0), (3, 0)])
 def test_fold_limits_raise_before_the_stream(cats, nullable):
-    """P + K past K7's window limit (two columns of 23,200 levels); or,
-    past P + K = 1,024, a column of more levels than a K7 task's cells
-    beside another (9,000): a CUDA fold raises ValueError before it reads
-    a chunk."""
+    """P + K past K7's window limit (two columns of 23,200 levels): a CUDA
+    fold raises ValueError before it reads a chunk. A column of more
+    levels than a K7 task's cells beside others (9,000 beside two of 2),
+    which it refused before cross tables were cut by row code too, is
+    taken: the fold's checks pass and the plans K7 folds it in map every
+    place of its extended Gram once."""
     keys = {2: (tuple(range(23_200)),) * 2,
             3: (tuple(range(9000)), (0, 1), (0, 1))}[cats]
     ss = streaming.StreamSchema(
@@ -229,8 +232,12 @@ def test_fold_limits_raise_before_the_stream(cats, nullable):
     def source():
         raise AssertionError("the stream was read")
         yield
-    with pytest.raises(ValueError):
-        streaming.scan_gram(source, ss, device="cuda")
+    if cats == 2:
+        with pytest.raises(ValueError):
+            streaming.scan_gram(source, ss, device="cuda")
+        return
+    streaming.check_fold(ss, 1000)
+    assert_kernel_windows_cover_once(streaming.extended_schema(ss))
 
 
 def test_fold_past_1024_takes_k7_windows():

@@ -36,6 +36,8 @@ from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas_grouped import (
     GroupLayout, grouped_gram, grouped_gram_presorted)
 from duckdb_imputation_tpu_torch.ring.sum import masked_sigma
 
+from test_torch_wide_levels import assert_kernel_windows_cover_once
+
 torch.set_num_threads(4)
 
 
@@ -222,9 +224,11 @@ def test_sigma_striped_covers_sigma(wide):
 
 def test_k7_window_limit():
     """K7 takes P up to MAX_WINDOW_SIGMA_SIZE through its windows (a map
-    of P·width ≤ P² < 2³¹ places); P past it, a window outside [0, P) or a
-    column of more levels than a task's cells beside another column
-    raise ValueError before a launch."""
+    of P·width ≤ P² < 2³¹ places); P past it or a window outside [0, P)
+    raise ValueError before a launch. A column of more levels than a
+    task's cells beside another (9,000 beside 2), which it refused before
+    cross tables were cut by row code too, is taken, its windows' plans
+    mapping every place of S once."""
     assert _build.MAX_WINDOW_SIGMA_SIZE ** 2 < 2 ** 31
     assert (_build.MAX_WINDOW_SIGMA_SIZE + 1) ** 2 >= 2 ** 31
     at = FeatureSchema(num_cols=2, cat_keys=(tuple(range(8192)),) * 2)
@@ -234,8 +238,8 @@ def test_k7_window_limit():
         _build.check_window(at, at.sigma_size - 3, 4)
     wide_col = FeatureSchema(num_cols=0, cat_keys=(tuple(range(9000)),
                                                    (0, 1)))
-    with pytest.raises(ValueError):
-        _build.check_window(wide_col, 0, 1024)
+    _build.check_window(wide_col, 0, 1024)
+    assert_kernel_windows_cover_once(wide_col)
     past = FeatureSchema(num_cols=3, cat_keys=(tuple(range(8192)),) * 6)
     assert past.sigma_size > _build.MAX_WINDOW_SIGMA_SIZE
     with pytest.raises(ValueError):
@@ -246,10 +250,9 @@ def test_k7_window_limit():
         masked_gram_cols(xm, meta, None, schema=past)
     with pytest.raises(ValueError):
         masked_gram_window(xm, meta, None, schema=past, lo=0, width=8)
-    with pytest.raises(ValueError):
-        masked_gram_window([], [meta[0], meta[1]], None,
-                           schema=FeatureSchema(num_cols=0, cat_keys=(
-                               tuple(range(9000)), (0, 1))), lo=0, width=8)
+    with pytest.raises(ValueError):       # a window outside [0, P)
+        masked_gram_window([], [meta[0], meta[1]], None, schema=wide_col,
+                           lo=wide_col.sigma_size - 4, width=8)
 
 
 ABOVE = FeatureSchema(num_cols=4, cat_keys=(tuple(range(1020)),))

@@ -1,9 +1,13 @@
-"""Hold the outputs of the kernels at schemas of at most 64 numeric and
-64 categorical columns of checkouts against each other, bit for bit, on
-one GPU: the guard that widening the kernels (past P = 1,024, and past
-any column count) left those schemas' outputs as they were.
+"""Hold the outputs of the kernels at the schemas the port ran before of
+checkouts against each other, bit for bit, on one GPU: the guard that
+widening the kernels (past P = 1,024, past any column count, past a
+task's cells a categorical column beside others, past 32,768 codes in
+the scorers) left those schemas' outputs as they were; and time K1 at
+config 5, K7 at favorita_wide, a pass over favorita_items' and
+wide16k's S and K3w at favorita_classify's family in each checkout.
 
     python3 tools/past_1024_bits.py [--roots DIR [DIR ...]] [--rows N]
+                                    [--times] [--reps R]
     python3 tools/past_1024_bits.py --root DIR --out FILE [--rows N]
 
 With `--roots` (default: this checkout twice) it runs each root in turn,
@@ -35,9 +39,22 @@ to FILE (torch.save). A root is the root of a checkout whose
 - favorita_items (P = 4,592): S by K7's keyed windows (the order pass
   and each window), K2w's 'cat' step past P = 1,024 (its impute kernel
   with W in device memory, then the windows), K8's windows at label
-  onpromotion, and K3w's argmax on seeded QDA tables there.
+  onpromotion, and K3w's argmax on seeded QDA tables there;
+- wide16k (P = 16,387: two columns of exactly a task's 8,192 levels): S
+  by K7's keyed windows;
+- Home Credit (104 numeric, 16 categorical columns) and SECOM (590
+  numeric) at min(rows, 1M): S by K7, K2w 'num' on the first column,
+  sort + K8 by the label, K6w, and the QDA and NB scorers' argmax (K3w).
 
-Prints the card and its power limit first.
+Each checkout's line also holds `ms`: K1 at config 5, K7 at
+favorita_wide, a pass over favorita_items' and wide16k's S (their plans
+made before the timing) and K3w at family, by CUDA events (mean of 5
+calls after one; `--reps`). With `--times` each checkout computes only
+what those five timings need, and also times each by torch.profiler
+(`<name>_device`: the kernels' device ms a call, host gaps left out);
+the last line lists each timing of every root in the order given, in
+place of the bit comparison: many alternated roots (`P C P C ...`) in
+one call resolve a change of a few percent. Prints the card and its power limit first.
 """
 from __future__ import annotations
 
@@ -51,32 +68,19 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parents[1]
 
 
-def outputs(root: str, rows: int) -> dict:
-    """Every guarded output of the checkout at `root`, on the card."""
-    sys.path.insert(0, str(HERE))
-    import chip_smoke as cs            # this checkout's tables
-    sys.path.insert(0, str(Path(root).resolve()))
+def k2w_and_windows(cs, rows: int, out: dict) -> None:
+    """favorita_wide's K2w steps and K7's stripes and windows of 128."""
     import torch
 
     from duckdb_imputation_tpu_torch.mice.device_round import (
         _lda_device, _noise_std, _w_full)
     from duckdb_imputation_tpu_torch.mice.partition import init_fill
-    from duckdb_imputation_tpu_torch.models.device import (
-        linreg_solve_device, nb_predict_device, nb_train_device,
-        qda_train_device)
-    from duckdb_imputation_tpu_torch.ring.kernels.qda_pallas import (
-        nb_center, nb_tables, qda_predict_kernel, qda_tables)
+    from duckdb_imputation_tpu_torch.models.device import linreg_solve_device
     from duckdb_imputation_tpu_torch.ring.kernels.sigma_fused import (
         fused_impute_aggregate)
     from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas import (
         masked_gram_cols, masked_gram_window)
-    from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas_grouped import (
-        grouped_gram, grouped_gram_presorted, sort_by_group)
-    from duckdb_imputation_tpu_torch.ring.sum import sum_to_nb_agg_grouped
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    print(cs.phase_device(), flush=True)
-    out = {}
     t = init_fill(cs.make_favorita(rows, 13)[0])
     schema = t.schema
     xs, cs_ = list(t.num_data.unbind(0)), list(t.cat_codes.unbind(0))
@@ -110,49 +114,20 @@ def outputs(root: str, rows: int) -> dict:
             for lo in range(0, p, wd)], 1)
     del t, xs, cs_
 
-    for label in ("family", "onpromotion"):
-        x, codes, y, schema, classes = cs.make_favorita_classify(rows, 20,
-                                                                label)
-        if label == "family":
-            sig = grouped_gram_presorted(
-                *sort_by_group(x, codes, y, schema=schema,
-                               num_groups=classes), schema=schema)
-        else:
-            sig = grouped_gram(x, codes, None, y, schema=schema,
-                               num_groups=classes)
-        out[f"k8_{label}"] = sig
-        tables, plan = qda_tables(*qda_train_device(sig, float(rows)),
-                                  schema=schema)
-        out[f"qda_tables_{label}"] = tables
-        out[f"k3w_qda_{label}"] = qda_predict_kernel(tables, plan, x, codes,
-                                                     schema=schema)
-        agg = sum_to_nb_agg_grouped(x, codes, y, schema=schema,
-                                    num_groups=classes)
-        params = nb_train_device(agg.n, agg.lin, agg.quad_diag, agg.lin_cat)
-        f64 = torch.float64
-        var = params[2].to(f64).clamp(min=0.0) + 1e-9
-        freqs = params[3].to(f64)
-        log_freq = torch.where(freqs > 0.0,
-                               torch.log(freqs.clamp(min=1e-38)), -1e30)
-        log_prior = torch.log(params[0].to(f64).clamp(min=1e-38))
-        center = nb_center(log_prior, params[1])
-        out[f"nb_tables_{label}"] = nb_tables(
-            log_prior, params[1], var, log_freq, schema=schema,
-            center=center)[0]
-        out[f"k3_nb_{label}"] = nb_predict_device(*params, x, codes,
-                                                  schema=schema)
-        del x, codes, y, sig, tables, agg
 
-    # config 5 and config 4: K1, K2, K4, K5, K6
+
+def config5_and_4(cs, t, xs, cs_, w0, w1, out: dict) -> None:
+    """K2 'cat' and 'num' at config 5; K4, K5 and K6 at config 4."""
+    import torch
+
     from duckdb_imputation_tpu_torch import FeatureSchema
     from duckdb_imputation_tpu_torch.ring.kernels.nb_pallas import (
         nb_grouped_sums)
+    from duckdb_imputation_tpu_torch.ring.kernels.sigma_fused import (
+        fused_impute_aggregate)
+    from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas_grouped import (
+        grouped_gram, grouped_gram_presorted, sort_by_group)
 
-    t = cs.make_table(rows, 31)[0]
-    t = init_fill(t)
-    xs, cs_ = list(t.num_data.unbind(0)), list(t.cat_codes.unbind(0))
-    w0, w1 = (~t.cat_null[0]).float(), (~t.num_null[1]).float()
-    out["k1_config5"] = masked_gram_cols(xs, cs_, w0, schema=t.schema)
     p5 = t.schema.sigma_size
     w_cat = torch.linspace(-1, 1, p5 * 8, device=cs.DEVICE).reshape(p5, 8)
     new, sig = fused_impute_aggregate(
@@ -172,13 +147,144 @@ def outputs(root: str, rows: int) -> dict:
         schema=c4)
     out["k6_config4"] = nb_grouped_sums(t.num_data, t.cat_codes, w0, ids,
                                         schema=c4, num_groups=3)
+
+
+def items_rest(cs, rows: int, t, xs, cs_, out: dict) -> None:
+    """favorita_items' K2w 'cat' step, K8 and K3w."""
+    from duckdb_imputation_tpu_torch.mice.device_round import (
+        _lda_device, _w_full)
+    from duckdb_imputation_tpu_torch.ring.kernels.qda_pallas import (
+        qda_predict_kernel)
+    from duckdb_imputation_tpu_torch.ring.kernels.sigma_fused import (
+        fused_impute_aggregate)
+    from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas_grouped import (
+        grouped_gram_presorted, sort_by_group)
+
+    schema, sig = t.schema, out["k7_items"]
+    w, icpt, keep = _lda_device(sig, schema, 1, 0.001)
+    new, sig = fused_impute_aggregate(
+        xs, cs_, t.cat_null[1], (~t.num_null[1]).float(),
+        _w_full(w, keep, schema), icpt, schema=schema, kind="cat",
+        imp_col=1)
+    out["k2w_items_codes"], out["k2w_items_sigma"] = new, sig
+    del sig, new
+    x, codes, y, schema, classes = cs.items_classify(rows, 37, "onpromotion")
+    out["k8_items"] = grouped_gram_presorted(*sort_by_group(
+        x, codes, y, schema=schema, num_groups=classes), schema=schema)
+    tables, plan, _ = cs.seeded_scorer("qda", schema, classes, 38)
+    out["k3w_items"] = qda_predict_kernel(tables, plan, x, codes,
+                                          schema=schema)
+    del x, codes, y, tables, plan
+
+
+def device_ms(fn, reps: int) -> float | None:
+    """Mean device ms a call of fn spends in kernels, by torch.profiler
+    over `reps` calls after one; None where the profiler saw none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(getattr(ev, "device_time_total",
+                        getattr(ev, "cuda_time_total", 0.0))
+                for ev in prof.key_averages() if "Memcpy" not in ev.key)
+    return total / reps / 1e3 if total > 0 else None
+
+
+def outputs(root: str, rows: int, times: bool = False,
+            reps: int = 5) -> dict:
+    """Every guarded output of the checkout at `root`, on the card; with
+    `times`, only what the timings need."""
+    sys.path.insert(0, str(HERE))
+    import chip_smoke as cs            # this checkout's tables
+    sys.path.insert(0, str(Path(root).resolve()))
+    import torch
+
+    from duckdb_imputation_tpu_torch.mice.partition import init_fill
+    from duckdb_imputation_tpu_torch.models.device import (
+        nb_predict_device, nb_train_device, qda_train_device)
+    from duckdb_imputation_tpu_torch.ring.kernels.qda_pallas import (
+        nb_center, nb_tables, qda_predict_kernel, qda_tables)
+    from duckdb_imputation_tpu_torch.ring.kernels.sigma_fused import (
+        fused_impute_aggregate)
+    from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas import (
+        masked_gram_cols)
+    from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas_grouped import (
+        grouped_gram, grouped_gram_presorted, sort_by_group)
+    from duckdb_imputation_tpu_torch.ring.sum import sum_to_nb_agg_grouped
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(cs.phase_device(), flush=True)
+    out, ms = {}, {}
+
+    def timed(name, fn):
+        ms[name] = cs.cuda_ms(fn, reps=reps, warmup=1)
+        if times:
+            ms[name + "_device"] = device_ms(fn, reps)
+    if not times:
+        k2w_and_windows(cs, rows, out)
+    for label in ("family",) if times else ("family", "onpromotion"):
+        x, codes, y, schema, classes = cs.make_favorita_classify(rows, 20,
+                                                                label)
+        if label == "family":
+            sig = grouped_gram_presorted(
+                *sort_by_group(x, codes, y, schema=schema,
+                               num_groups=classes), schema=schema)
+        else:
+            sig = grouped_gram(x, codes, None, y, schema=schema,
+                               num_groups=classes)
+        out[f"k8_{label}"] = sig
+        tables, plan = qda_tables(*qda_train_device(sig, float(rows)),
+                                  schema=schema)
+        out[f"qda_tables_{label}"] = tables
+        out[f"k3w_qda_{label}"] = qda_predict_kernel(tables, plan, x, codes,
+                                                     schema=schema)
+        if label == "family":
+            timed("k3w_family", lambda: qda_predict_kernel(
+                tables, plan, x, codes, schema=schema))
+        if times:
+            continue
+        agg = sum_to_nb_agg_grouped(x, codes, y, schema=schema,
+                                    num_groups=classes)
+        params = nb_train_device(agg.n, agg.lin, agg.quad_diag, agg.lin_cat)
+        f64 = torch.float64
+        var = params[2].to(f64).clamp(min=0.0) + 1e-9
+        freqs = params[3].to(f64)
+        log_freq = torch.where(freqs > 0.0,
+                               torch.log(freqs.clamp(min=1e-38)), -1e30)
+        log_prior = torch.log(params[0].to(f64).clamp(min=1e-38))
+        center = nb_center(log_prior, params[1])
+        out[f"nb_tables_{label}"] = nb_tables(
+            log_prior, params[1], var, log_freq, schema=schema,
+            center=center)[0]
+        out[f"k3_nb_{label}"] = nb_predict_device(*params, x, codes,
+                                                  schema=schema)
+        del x, codes, y, sig, tables, agg
+
+    # config 5 and config 4: K1, K2, K4, K5, K6
+    t = cs.make_table(rows, 31)[0]
+    t = init_fill(t)
+    xs, cs_ = list(t.num_data.unbind(0)), list(t.cat_codes.unbind(0))
+    w0, w1 = (~t.cat_null[0]).float(), (~t.num_null[1]).float()
+    out["k1_config5"] = masked_gram_cols(xs, cs_, w0, schema=t.schema)
+    timed("k1_config5", lambda: masked_gram_cols(xs, cs_, w0,
+                                                 schema=t.schema))
+    if not times:
+        config5_and_4(cs, t, xs, cs_, w0, w1, out)
     del t, xs, cs_
 
     # favorita_wide's whole S by K7's one launch
     t = cs.make_favorita(rows, 33)[0]
     xs, cs_ = list(t.num_data.unbind(0)), list(t.cat_codes.unbind(0))
-    out["k7_favorita_wide"] = masked_gram_cols(
-        xs, cs_, (~t.cat_null[1]).float(), schema=t.schema)
+    w_fw = (~t.cat_null[1]).float()
+    out["k7_favorita_wide"] = masked_gram_cols(xs, cs_, w_fw,
+                                               schema=t.schema)
+    timed("k7_favorita_wide", lambda: masked_gram_cols(xs, cs_, w_fw,
+                                                       schema=t.schema))
     del t, xs, cs_
 
     # favorita_items past P = 1,024: K7's keyed windows, K2w, K8, K3w
@@ -187,22 +293,62 @@ def outputs(root: str, rows: int) -> dict:
     xs, cs_ = list(t.num_data.unbind(0)), list(t.cat_codes.unbind(0))
     w_fam = (~t.cat_null[1]).float()
     out["k7_items"] = masked_gram_cols(xs, cs_, w_fam, schema=schema)
-    sig = out["k7_items"]
-    w, icpt, keep = _lda_device(sig, schema, 1, 0.001)
-    new, sig = fused_impute_aggregate(
-        xs, cs_, t.cat_null[1], (~t.num_null[1]).float(),
-        _w_full(w, keep, schema), icpt, schema=schema, kind="cat",
-        imp_col=1)
-    out["k2w_items_codes"], out["k2w_items_sigma"] = new, sig
-    del t, xs, cs_, sig, new
-    x, codes, y, schema, classes = cs.items_classify(rows, 37, "onpromotion")
-    out["k8_items"] = grouped_gram_presorted(*sort_by_group(
-        x, codes, y, schema=schema, num_groups=classes), schema=schema)
-    tables, plan, _ = cs.seeded_scorer("qda", schema, classes, 38)
-    out["k3w_items"] = qda_predict_kernel(tables, plan, x, codes,
-                                          schema=schema)
+    timed("k7_items_pass", lambda: masked_gram_cols(xs, cs_, w_fam,
+                                                    schema=schema))
+    if not times:
+        items_rest(cs, rows, t, xs, cs_, out)
+    del t, xs, cs_
+
+    # wide16k: two columns of exactly a task's cells
+    schema, xs, cs_, w = cs.make_wide16k(rows, 39)
+    if not times:
+        s16 = masked_gram_cols(xs, cs_, w, schema=schema).cpu()
+        out["k7_wide16k_sha256"] = torch.frombuffer(bytearray(
+            hashlib.sha256(s16.numpy().tobytes()).digest()),
+            dtype=torch.uint8)                   # 1 GB: its digest
+        del s16
+    timed("k7_wide16k_pass", lambda: masked_gram_cols(xs, cs_, w,
+                                                      schema=schema))
+    del xs, cs_, w
+
+    # Home Credit and SECOM
+    from duckdb_imputation_tpu_torch.ring.kernels.nb_pallas import (
+        nb_grouped_sums)
+
+    many = min(rows, 1_000_000)
+    for name, made in () if times else (("home_credit", cs.make_home_credit(many, 41)),
+                       ("secom", cs.make_secom(many, 43))):
+        t, y = init_fill(made[0]), made[-1].to(torch.int32)
+        schema = t.schema
+        xs, cs_ = list(t.num_data.unbind(0)), list(t.cat_codes.unbind(0))
+        w = (~t.num_null[0]).float()
+        out[f"k7_{name}"] = masked_gram_cols(xs, cs_, w, schema=schema)
+        p = schema.sigma_size
+        theta = torch.linspace(-1, 1, p, device=cs.DEVICE)[:, None]
+        new, sig = fused_impute_aggregate(
+            xs, cs_, t.num_null[0], w, theta, theta.new_zeros(1),
+            schema=schema, kind="num", imp_col=0)
+        out[f"k2w_{name}_x"], out[f"k2w_{name}_sigma"] = new, sig
+        sig = grouped_gram_presorted(*sort_by_group(
+            t.num_data, t.cat_codes, y, schema=schema, num_groups=2),
+            schema=schema)
+        out[f"k8_{name}"] = sig
+        out[f"k6w_{name}"] = nb_grouped_sums(t.num_data, t.cat_codes, None,
+                                             y, schema=schema, num_groups=2)
+        tables, plan = qda_tables(*qda_train_device(sig, float(many)),
+                                  schema=schema)
+        out[f"k3w_qda_{name}"] = qda_predict_kernel(
+            tables, plan, t.num_data, t.cat_codes, schema=schema)
+        agg = sum_to_nb_agg_grouped(t.num_data, t.cat_codes, y,
+                                    schema=schema, num_groups=2)
+        out[f"k3_nb_{name}"] = nb_predict_device(
+            *nb_train_device(agg.n, agg.lin, agg.quad_diag, agg.lin_cat),
+            t.num_data, t.cat_codes, schema=schema)
+        del t, y, xs, cs_, w, sig, tables, plan, agg, new
     torch.cuda.synchronize()
-    return {k: v.cpu() for k, v in out.items()}
+    res = {k: v.cpu() for k, v in out.items()}
+    res["__ms__"] = ms
+    return res
 
 
 def digest(t) -> str:
@@ -216,6 +362,8 @@ def main() -> int:
     ap.add_argument("--out")
     ap.add_argument("--rows", type=int, default=2_000_000)
     ap.add_argument("--timeout", type=float, default=900.0)
+    ap.add_argument("--times", action="store_true")
+    ap.add_argument("--reps", type=int, default=5)
     args = ap.parse_args()
     if args.root:
         import torch
@@ -223,9 +371,10 @@ def main() -> int:
         if not torch.cuda.is_available():
             print("past_1024_bits: no CUDA device", file=sys.stderr)
             return 1
-        res = outputs(args.root, args.rows)
+        res = outputs(args.root, args.rows, args.times, args.reps)
         torch.save(res, args.out)
-        print(json.dumps({"root": Path(args.root).resolve().name,
+        ms = res.pop("__ms__")
+        print(json.dumps({"root": Path(args.root).resolve().name, "ms": ms,
                           "digests": {k: digest(v) for k, v in res.items()}}),
               flush=True)
         return 0
@@ -236,7 +385,8 @@ def main() -> int:
         f = outdir / f"{i}.pt"
         proc = subprocess.run(
             [sys.executable, __file__, "--root", root, "--out", str(f),
-             "--rows", str(args.rows)], timeout=args.timeout)
+             "--rows", str(args.rows), "--reps", str(args.reps)]
+            + (["--times"] if args.times else []), timeout=args.timeout)
         if proc.returncode != 0:
             print(f"past_1024_bits: root {root} failed ({proc.returncode})",
                   file=sys.stderr)
@@ -245,6 +395,13 @@ def main() -> int:
     import torch
 
     runs = [torch.load(f) for f in files]
+    if args.times:
+        ms = [r.pop("__ms__") for r in runs]
+        print(json.dumps({"roots": args.roots, "ms": {
+            k: [m[k] for m in ms] for k in ms[0]}}), flush=True)
+        return 0
+    for r in runs:
+        r.pop("__ms__")
     same = {k: all(torch.equal(runs[0][k], r[k]) for r in runs[1:])
             for k in runs[0]}
     print(json.dumps({"roots": args.roots, "identical": same}), flush=True)
