@@ -66,7 +66,7 @@ Drives the paths of `duckdb_imputation_tpu_torch` ported so far:
 - the out-of-core path: the streaming fold of the extended Gram (one
   `masked_gram` call a chunk, K7 here) and `run_mice_stream`'s two
   engines on favorita_wide at N rows served from host arrays, against
-  the in-core drivers (`[stream]`); a 25M-row config-5 CSV written by the
+  the in-core drivers (`[stream]`); a 17M-row config-5 CSV written by the
   native formatter under build/stream/, imputed by `impute_csv_stream`
   and read back by the native reader (`[stream_csv]`); the dirty rows
   spilled to disk and the windowed rounds (`[stream_spill]`); a stream
@@ -131,7 +131,25 @@ Drives the paths of `duckdb_imputation_tpu_torch` ported so far:
   the kernels at 1M rows (K3w's plain version on the rows its memory
   allows), the classifiers on pass/fail at 1M rows, the fold of the
   file's 1,567 rows (590 one-level null flags, P + K = 1,181: K7's
-  windows, card against CPU) and run_mice_stream ('device').
+  windows, card against CPU) and run_mice_stream ('device');
+- schemas past the shared-memory column limits (K_j cut by column range in
+  K7 and K8, the scorer's local plans, K2w's impute kernel reading x from
+  device memory, the order pass copying wide rows in pieces): Epsilon
+  (the PASCAL 2008 `epsilon` set as LIBSVM gives it: 2,000 dense
+  columns of unit-norm rows, a binary label; MICE with the label as a
+  column, P = 2,003; `[epsilon]`) at its 400,000 training rows: the
+  plans' host seconds, K7, K2w ('cat' on the label, 'num'), sort + K8,
+  K6w and K3w (QDA and NB) against their plain versions on a slice, each
+  timed at all rows beside its bound and the cuBLAS product of the same
+  work; on 100,000 of its rows run_mice_device 'gram' and 'fused' and
+  run_mice_wide (one round, quality gates) and the QDA and NB pipelines;
+  scan_gram card against CPU;
+  MNIST's 784 pixels over 10 classes at 70,000 rows (`[mnist]`): K3w on
+  the local plans and the QDA and NB pipelines; and two test schemas at
+  1M rows (`[past_smem]`): d900_r33 (K7's whole plan with KB slabs, K2w
+  'cat' at R = 33 with x read from device memory) and d1000_v5000 (the
+  order pass of a 5,000-level column over rows of 1,008 ints, K7's six
+  windows).
 
 First it builds the kernels from `duckdb_imputation_tpu_torch/csrc/` and
 holds each against its plain torch version at the shapes its path gives
@@ -168,6 +186,9 @@ and `qda_predict_items` (`launches` from `[classify_items]`), with the
 numbers of `[K2w_items]`, `[K8win]` and `[K3items]`; `narrow80` and
 `narrow70c2` on K1-K6 and K3, `home_credit` and `secom` on K7 (with the
 plans' seconds), K2w, K8, K6w and K3w, `secom_fold` on the window kernel;
+`epsilon`, `mnist`, `d900_r33` and `d1000_v5000` on the kernels of those
+phases (K7's whole plan and windows, the order, K2w's both routes, K8,
+K6w and K3w with the pipelines' launches);
 `bound_ms`, the least time the card could take for the kernel's work,
 computed from this run's shapes with `bound`; `library_ms`, one PyTorch
 call computing the same function, where there is one), then the card's
@@ -3435,7 +3456,8 @@ def phase_sharded_all(seed: int) -> dict:
 # ---------------------------------------------------------------------------
 
 STREAM_CHUNK = 1_000_000      # rows of a chunk of the host source
-N_STREAM_CSV = 25_000_000     # rows of [stream_csv]'s file: past 2^24
+N_STREAM_CSV = 17_000_000     # rows of [stream_csv]'s file: past 2^24
+                              # (25M before the run neared its limit)
 N_SPILL = 2_000_000
 SPILL_BUDGET = 100_000
 STREAM_ROUNDS = 2
@@ -3909,6 +3931,9 @@ N_LIBRARY = {"favorita_items": 1_000_000, "wide16k": 100_000}  # rows of
                              # the dense cuBLAS Gram (the full Z does not fit)
 ITEMS_ROUNDS = 2
 N_ITEMS_CPU = 200_000        # [items] on the CPU, held against the card
+ITEMS_CPU_ROUNDS = 1         # rounds of that comparison (2 before the run
+                             # neared its limit: an f64 SVD of P = 4,592 on
+                             # the host a column step, ~90 s a round)
 WIDE_V2_DEADLINE_S = 600
 CG_CHECK = dict(label=2, ridge=1e-2, iters=2000, tol=1e-9)  # [wide_v]'s
                              # cg_solve_wide: transactions at test_wide's
@@ -4401,9 +4426,9 @@ def phase_items(seed: int) -> dict:
     rounds, kernel 'auto' ('gram': K7 a window of WINDOW_WIDTH a column
     step, then the SVD solves): launches exact (rounds × 2 columns × 5
     windows), quality (family accuracy above its mode share + 0.02,
-    transactions RMSE below the mean fill's), wall s; the same run on the
-    CPU's plain versions at N_ITEMS_CPU rows against the card's (family
-    codes ≥ 0.999)."""
+    transactions RMSE below the mean fill's), wall s; ITEMS_CPU_ROUNDS
+    rounds on the CPU's plain versions at N_ITEMS_CPU rows against the
+    card's (family codes ≥ 0.999)."""
     from duckdb_imputation_tpu_torch import Table, run_mice_device
     from duckdb_imputation_tpu_torch.models.device import (
         linreg_solve_device)
@@ -4454,9 +4479,9 @@ def phase_items(seed: int) -> dict:
                                     small.num_null, small.cat_null)),
                 schema=small.schema)
     t0 = time.perf_counter()
-    ref = run_mice_device(cpu, iters=ITEMS_ROUNDS, kernel="plain")
+    ref = run_mice_device(cpu, iters=ITEMS_CPU_ROUNDS, kernel="plain")
     cpu_s = time.perf_counter() - t0
-    got = run_mice_device(small, iters=ITEMS_ROUNDS)
+    got = run_mice_device(small, iters=ITEMS_CPU_ROUNDS)
     sm = small.cat_null[1].cpu()
     agree = float((got.cat_codes[1].cpu() == ref.cat_codes[1])[sm]
                   .float().mean())
@@ -6274,20 +6299,23 @@ def many_quality(tag: str, t, truth_x, truth_c, out) -> dict:
     return res
 
 
-def classify_many(tag: str, x, codes, y, schema) -> dict:
-    """The CLI's train --model qda|nb path on a label: GROUP BY label
-    (sort + K8 / K6w), device training, one-pass scoring (K3w); launches
-    read around each pipeline and checked exactly (one aggregate, one
-    scoring launch), accuracy above the majority share + 0.02. Returns
-    the predictions and the launches."""
+def classify_many(tag: str, x, codes, y, schema, classes: int = 2) -> dict:
+    """The CLI's train --model qda|nb path on a label of `classes`
+    classes: GROUP BY label (sort + K8 / K6w), device training, one-pass
+    scoring (K3w); launches read around each pipeline and checked exactly
+    (one aggregate, a launch a window of K8 past P = 1,024, one scoring
+    launch), accuracy above the majority share + 0.02. Returns the
+    predictions and the launches."""
     from duckdb_imputation_tpu_torch.models.device import (
         nb_predict_device, nb_train_device, qda_predict_device,
         qda_train_device)
+    from duckdb_imputation_tpu_torch.ring.kernels import _build
     from duckdb_imputation_tpu_torch.ring.sum import (
         sum_to_nb_agg_grouped, sum_to_triple_grouped)
     from duckdb_imputation_tpu_torch.ring.triple import sigma_from_triple
 
-    n = y.shape[0]
+    n, p = y.shape[0], schema.sigma_size
+    k8 = 1 if p <= _build.MAX_WIDE_SIGMA_SIZE else -(-p // _build.WINDOW_WIDTH)
     major = float(torch.bincount(y.long()).max()) / n
     out = {}
     for model in ("qda", "nb"):
@@ -6295,19 +6323,20 @@ def classify_many(tag: str, x, codes, y, schema) -> dict:
         t0 = time.perf_counter()
         if model == "qda":
             sig = sigma_from_triple(sum_to_triple_grouped(
-                x, codes, y, schema=schema, num_groups=2, method="kernel"))
+                x, codes, y, schema=schema, num_groups=classes,
+                method="kernel"))
             pred = qda_predict_device(*qda_train_device(sig, float(n)), x,
                                       codes, schema=schema)
         else:
             agg = sum_to_nb_agg_grouped(x, codes, y, schema=schema,
-                                        num_groups=2)
+                                        num_groups=classes)
             pred = nb_predict_device(*nb_train_device(
                 agg.n, agg.lin, agg.quad_diag, agg.lin_cat), x, codes,
                 schema=schema)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         counts = {k: v for k, v in kernel_counts().items() if v}
-        want = ({"grouped_gram_presorted.wide_launches": 1}
+        want = ({"grouped_gram_presorted.wide_launches": k8}
                 if model == "qda" else {"nb_grouped_sums.launches": 1})
         scored = sum(v for k, v in counts.items() if "qda_predict" in k)
         check(all(counts.get(k) == v for k, v in want.items())
@@ -6733,12 +6762,16 @@ def made_qda_tables(schema, classes: int, seed: int, chunk: int = 1 << 24):
     return cells.float(), plan
 
 
-def criteo_kernel(tag: str, counters, kernel, plain, compare, bound_: dict,
-                  library_ms=None) -> dict:
+def slice_kernel(tag: str, counters, kernel, plain, compare, bound_: dict,
+                 library_ms=None, full=None, plain_device=None) -> dict:
     """`many_kernel` for kernels whose plain version takes seconds: two
     calls, the rerun bit-identical, each with every counter of `counters`
     ((wrapper, attribute, launches a call)) zeroed just before it and
-    checked just after; the plain version called and timed once."""
+    checked just after; the plain version called and timed once. full:
+    the kernel at all the phase's rows (what `bound_` counts), timed in
+    place of `kernel` (on a slice of them); plain_device: where the plain
+    version runs (the CPU: timed by the host's clock, the kernel's output
+    moved there to compare)."""
     runs = []
     for _ in range(2):
         for obj, attr, _n in counters:
@@ -6758,9 +6791,16 @@ def criteo_kernel(tag: str, counters, kernel, plain, compare, bound_: dict,
                   torch.cat([a.flatten().float() for a in again])))
     check(torch.equal(*pair), f"{tag}: rerun not bit-identical")
     del again, pair
-    ms = cuda_ms(kernel, reps=1, warmup=0)
+    ms = cuda_ms(full or kernel, reps=1, warmup=0)
     want = []
-    plain_ms = cuda_ms(lambda: want.append(plain()), reps=1, warmup=0)
+    if plain_device is None:
+        plain_ms = cuda_ms(lambda: want.append(plain()), reps=1, warmup=0)
+    else:
+        t0 = time.perf_counter()
+        want.append(plain())
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        got = (got.to(plain_device) if isinstance(got, torch.Tensor)
+               else tuple(a.to(plain_device) for a in got))
     err = compare(got, want[0])
     del got, want
     torch.cuda.empty_cache()
@@ -6992,7 +7032,7 @@ def phase_criteo(seed: int) -> dict:
             return lean_gram_compare(tag, schema)(sig, wsig)
         return compare
 
-    out["k8"] = criteo_kernel(
+    out["k8"] = slice_kernel(
         "[criteo] sort + K8 by click",
         [(grouped_gram_presorted, "wide_launches", len(lows)),
          (window_order, "passes", 1)],
@@ -7014,7 +7054,7 @@ def phase_criteo(seed: int) -> dict:
                             device=DEVICE)
         args = (sx, sc, mask | null, sw, w_full, icpt)
         kw = dict(schema=schema, kind=kind, imp_col=col)
-        out["k2w"][kind] = criteo_kernel(
+        out["k2w"][kind] = slice_kernel(
             f"[criteo] K2w '{kind}' ({'I1' if kind == 'num' else 'C20'})",
             [(fused_impute_aggregate, "impute_launches", 1),
              (fused_impute_aggregate, "window_launches", len(lows)),
@@ -7203,6 +7243,517 @@ def phase_zip5(seed: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# [epsilon], [mnist] and [past_smem]: past the shared-memory column limits
+# ---------------------------------------------------------------------------
+
+# Epsilon: the PASCAL Large Scale Learning Challenge 2008's `epsilon` set
+# as the LIBSVM binary collection gives it: 400,000 training rows (and
+# 100,000 test rows) of 2,000 dense features, each row of unit L2 norm, a
+# binary label. MICE takes the label as a categorical column (P = 2,003),
+# QDA and NB as the class (P = 2,001)
+EPSILON_D = 2000
+N_EPSILON = 400_000        # the training split: the kernels' rows
+N_EPSILON_MICE = 100_000   # rows of the MICE loops and the pipelines (a
+                           # pass over 2,003 columns takes ~6 s at 400k)
+N_EPSILON_SLICE = 20_000   # rows the plain versions take
+N_SCORER_PLAIN = 256       # rows the plain scorer takes on the CPU at
+                           # Epsilon, spread over all rows (it adds a row's
+                           # 2M cells in order, TERMS_AT_ONCE a torch call)
+EPSILON_NULL_COLS = (0, 1, 2, 3)
+# MNIST (LeCun et al.): 60,000 + 10,000 images of 28 × 28 pixels of 0-255
+# (784 columns, scaled to [0, 1]), 10 digit classes
+N_MNIST = 70_000
+N_MNIST_PLAIN = 256        # rows the plain scorer takes on the CPU
+MNIST_BORDER = 3           # pixels from each edge that are 0 in every row
+# past_smem: test schemas one past the old limits, not deployments
+N_PAST_SMEM = 1_000_000
+
+
+def make_epsilon(n: int, seed: int):
+    """Epsilon's schema at n rows, made on the device from `seed`: 2,000
+    columns of a rank-8 factor model plus noise, standardized per column,
+    then each row scaled to unit L2 norm (as the LIBSVM set is); the label
+    a logistic function of the factors, about balanced. Nulls (an
+    assumption; the set has none): 20% MCAR in EPSILON_NULL_COLS and 10%
+    in the label. Returns (table with the label as a categorical column of
+    2 levels, true x, true label)."""
+    from duckdb_imputation_tpu_torch import FeatureSchema
+
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=DEVICE)
+
+    f = randn(8, n)
+    x = randn(EPSILON_D, 8) @ f
+    x += randn(EPSILON_D, n)
+    x -= x.mean(1, keepdim=True)
+    x /= x.std(1, keepdim=True)
+    x /= x.norm(dim=0, keepdim=True)
+    beta = randn(8)
+    y = (torch.rand(n, generator=g, device=DEVICE)
+         < torch.sigmoid(3.0 * (beta / beta.norm()) @ f)).to(torch.int32)
+    schema = FeatureSchema(num_cols=EPSILON_D, cat_keys=((0, 1),))
+    num_null = torch.zeros((EPSILON_D, n), dtype=torch.bool, device=DEVICE)
+    for j in EPSILON_NULL_COLS:
+        num_null[j] = torch.rand(n, generator=g, device=DEVICE) < 0.2
+    cat_null = (torch.rand(1, n, generator=g, device=DEVICE) < 0.1)
+    return null_table(x, y[None], num_null, cat_null, schema), x, y
+
+
+def make_mnist(n: int, seed: int):
+    """MNIST's schema at n rows, made on the device from `seed`: 784
+    pixels in [0, 1], a class template each (blobs of ink on the 22 × 22
+    centre) plus noise, clipped, so most pixels are 0 and the
+    MNIST_BORDER pixels at each edge are 0 in every row (as in MNIST:
+    each class covariance is singular); 10 classes, about even. An
+    assumption: the digits' images are not made. Returns (x f32[784, n],
+    labels i32[n])."""
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(seed)
+    side, b = 28, MNIST_BORDER
+    templ = torch.zeros((10, side, side), device=DEVICE)
+    ink = torch.rand(10, side - 2 * b, side - 2 * b, generator=g,
+                     device=DEVICE)
+    templ[:, b:side - b, b:side - b] = torch.where(ink < 0.35, ink / 0.35,
+                                                   0.0)
+    templ = templ.reshape(10, side * side)
+    y = torch.randint(0, 10, (n,), generator=g, device=DEVICE,
+                      dtype=torch.int32)
+    noise = 0.3 * torch.randn(side * side, n, generator=g, device=DEVICE)
+    x = (templ.T[:, y.long()] + noise * (templ.T[:, y.long()] > 0)
+         - 0.15).clamp(0.0, 1.0)
+    return x.contiguous(), y
+
+
+def scorer_compare(tag):
+    def compare(got, want):
+        agree = float((got == want).float().mean())
+        check(agree >= 0.9999, f"{tag}: argmax agreement {agree}")
+        return float((got != want).sum())
+    return compare
+
+
+def library_qda_ms(tables, plan, x, schema) -> float:
+    """ms of the cuBLAS f32 products that score the same quadratic forms
+    from the dense operand: (Z·A_c ⊙ Z) summed over the columns, a class
+    at a time (TF32 off), A_c the f32 form the tables' cells stand for
+    (each cell at its places, halved off the diagonal)."""
+    p = schema.sigma_size
+    e = plan.entries.long().to(DEVICE)
+    flat = plan.task_base.to(DEVICE)[e[:, 0]] + e[:, 1]
+    vals = tables[:, flat]
+    off = e[:, 2] != e[:, 3]
+    a = torch.zeros((tables.shape[0], p, p), device=DEVICE)
+    a[:, e[:, 2], e[:, 3]] = torch.where(off, vals / 2, vals)
+    a[:, e[:, 3], e[:, 2]] = torch.where(off, vals / 2, vals)
+    z = torch.cat([torch.ones((1, x.shape[1]), device=DEVICE), x]).T
+    z = z.contiguous()
+
+    def score():
+        for c in range(a.shape[0]):
+            (torch.mm(z, a[c]) * z).sum(1)
+    ms = cuda_ms(score, reps=1, warmup=1)
+    del a, z
+    torch.cuda.empty_cache()
+    return ms
+
+
+def scorer_kernels(tag: str, x, schema, classes: int, seed: int,
+                   plain_rows: int) -> dict:
+    """K3w on seeded QDA and NB tables of the scorer's local plans
+    (`_build.qda_local`: a task stages its own numeric columns), held
+    against the plain scorer on the CPU on `plain_rows` rows spread evenly
+    over all n (argmax ≥ 0.9999): the kernel on those rows alone (whole
+    tiles; a rerun bit-identical, one launch a call), and the kernel's run
+    at all n, timed, at the same rows; bound and the cuBLAS products of
+    the same forms."""
+    from duckdb_imputation_tpu_torch.ring.kernels import _build
+    from duckdb_imputation_tpu_torch.ring.kernels.qda_pallas import (
+        qda_predict_kernel, qda_predict_plain)
+
+    n = x.shape[1]
+    codes = torch.zeros((0, n), dtype=torch.int32, device=DEVICE)
+    picked = torch.arange(plain_rows, device=DEVICE) * (n // plain_rows)
+    xs, cs = x[:, picked].contiguous(), codes[:, picked]
+    cpu = torch.device("cpu")
+    out = {}
+    for kind in ("qda", "nb"):
+        tables, plan, shift = seeded_scorer(kind, schema, classes,
+                                            seed + len(out))
+        check(plan.local, f"{tag} {kind}: the scorer's plan is not local")
+        tile = _build.qda_tile(schema, plan, classes)
+        args = dict(schema=schema, shift=shift)
+        full, want = [], []
+
+        def plain():
+            want.append(qda_predict_plain(
+                tables.to(cpu), plan, xs.to(cpu), cs.to(cpu), schema=schema,
+                shift=None if shift is None else shift.to(cpu)))
+            return want[-1]
+
+        out[kind] = slice_kernel(
+            f"{tag} K3w {kind} ({plan.num_tasks} tasks, ≤ "
+            f"{plan.max_stage_x} columns a task, tile {tile}) n={n}",
+            [(qda_predict_kernel, "wide_launches", 1)],
+            lambda: qda_predict_kernel(tables, plan, xs, cs, **args),
+            plain, scorer_compare(f"{tag} K3w {kind}"),
+            qda_bound(codes, schema, classes, tables.numel() * 4),
+            library_qda_ms(tables, plan, x, schema),
+            full=lambda: full.append(
+                qda_predict_kernel(tables, plan, x, codes, **args)),
+            plain_device=cpu)
+        out[kind]["full_differs"] = scorer_compare(
+            f"{tag} K3w {kind} at all n")(full[-1][picked].cpu(), want[-1])
+        del full, want
+        out[kind].update(tasks=plan.num_tasks, tile=list(tile),
+                         max_stage_x=plan.max_stage_x, plain_rows=plain_rows,
+                         rows=n)
+        del tables, plan, shift
+    return out
+
+
+def phase_epsilon(seed: int) -> dict:
+    """[epsilon]: Epsilon's 2,000 columns (MICE: P = 2,003 with the label
+    as a column; QDA / NB: P = 2,001). The plans' host seconds; each
+    kernel past the shared-memory limits against its plain version on an
+    N_EPSILON_SLICE-row slice (K7's two windows with K_j as KB slabs, K2w
+    'cat' on the label with x read from device memory and 'num', sort +
+    K8 by the label, K6w) and K3w on the local plans against the plain
+    scorer on N_SCORER_PLAIN rows on the CPU, each timed at N_EPSILON
+    rows beside its bound and the cuBLAS product of the same work; then on
+    its first N_EPSILON_MICE rows run_mice_device 'gram' and 'fused' and
+    run_mice_wide, one round over the null columns (launches exact,
+    imputed numerics below a mean fill's error, the label above its mode
+    share + 0.02), scan_gram card against CPU on a slice (launches exact),
+    and the QDA and NB pipelines (accuracy above the majority share +
+    0.02)."""
+    from types import SimpleNamespace
+
+    from duckdb_imputation_tpu_torch import FeatureSchema, run_mice_device
+    from duckdb_imputation_tpu_torch.parallel import (make_mesh_2d,
+                                                      run_mice_wide)
+    from duckdb_imputation_tpu_torch.ring import streaming
+    from duckdb_imputation_tpu_torch.ring.kernels import _build
+    from duckdb_imputation_tpu_torch.ring.kernels.nb_pallas import (
+        nb_grouped_sums, nb_grouped_sums_plain)
+    from duckdb_imputation_tpu_torch.ring.kernels.sigma_fused import (
+        fused_impute_aggregate, fused_impute_aggregate_plain)
+    from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas import (
+        masked_gram, masked_gram_cols, masked_gram_cols_plain,
+        masked_gram_window)
+    from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas_grouped \
+        import (grouped_gram_presorted, grouped_gram_presorted_plain,
+                sort_by_group)
+
+    t_phase = time.perf_counter()
+    t, x_true, y = make_epsilon(N_EPSILON, seed + 201)
+    schema, n = t.schema, N_EPSILON
+    scorer = FeatureSchema(num_cols=EPSILON_D)
+    p = schema.sigma_size
+    lows = list(range(0, p, _build.WINDOW_WIDTH))
+    plans = {}
+    for name, fn in (
+            ("windows", lambda: [_build.keyed_window_plan(
+                schema, lo, min(lo + _build.WINDOW_WIDTH, p))
+                for lo in lows]),
+            ("qda_plan", lambda: _build.qda_plan(scorer)),
+            ("nb_scorer_plan", lambda: _build.qda_plan(scorer, cross=False)),
+            ("nb_plan", lambda: _build.nb_plan(scorer, 2))):
+        t0 = time.perf_counter()
+        fn()
+        plans[name] = time.perf_counter() - t0
+    log(f"[epsilon] P={p} (scorer {scorer.sigma_size}) n={n}; plans' host "
+        f"seconds {plans}")
+    out = dict(plans=plans, rows=n, sigma_size=p, mice_rows=N_EPSILON_MICE)
+
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(seed + 202)
+    w = (torch.rand(n, generator=g, device=DEVICE) >= 0.2).float()
+    xs, cs = list(t.num_data), list(t.cat_codes)
+    m = N_EPSILON_SLICE
+    sx, sc, sw = [x[:m] for x in xs], [c[:m] for c in cs], w[:m]
+    out["k7"] = slice_kernel(
+        f"[epsilon] K7 ({len(lows)} windows, K_j as KB slabs)",
+        [(masked_gram_cols, "wide_launches", len(lows))],
+        lambda: masked_gram_cols(sx, sc, sw, schema=schema),
+        lambda: masked_gram_cols_plain(sx, sc, sw, schema=schema),
+        lean_gram_compare("[epsilon] K7", schema),
+        gram_bound(t.cat_codes, schema, w),
+        library_gram_ms(t.num_data, t.cat_codes, w, schema),
+        full=lambda: masked_gram_cols(xs, cs, w, schema=schema))
+    for kind, col, r in (("cat", 0, 2), ("num", EPSILON_NULL_COLS[0], 1)):
+        w_full = 0.05 * torch.randn(p, r, generator=g, device=DEVICE)
+        icpt = torch.randn(r, generator=g, device=DEVICE)
+        null = t.cat_null[col] if kind == "cat" else t.num_null[col]
+        kw = dict(schema=schema, kind=kind, imp_col=col)
+        out[f"k2w_{kind}"] = slice_kernel(
+            f"[epsilon] K2w '{kind}' (column {col}, R = {r})",
+            [(fused_impute_aggregate, "impute_launches", 1),
+             (fused_impute_aggregate, "window_launches", len(lows))],
+            lambda: fused_impute_aggregate(sx, sc, null[:m], sw, w_full,
+                                           icpt, **kw),
+            lambda: fused_impute_aggregate_plain(sx, sc, null[:m], sw,
+                                                 w_full, icpt, **kw),
+            fused_compare(f"[epsilon] K2w {kind}", schema, kind),
+            gram_bound(t.cat_codes, schema, w, extra=9, scores=p * r,
+                       scored=int(null.sum())),
+            full=lambda: fused_impute_aggregate(xs, cs, null, w, w_full,
+                                                icpt, **kw))
+    xt, xm = x_true, x_true[:, :m].contiguous()
+    none = torch.zeros((0, n), dtype=torch.int32, device=DEVICE)
+    nm, ym = none[:, :m], y[:m]
+    out["k8"] = slice_kernel(
+        f"[epsilon] sort + K8 by the label (P = {scorer.sigma_size})",
+        [(grouped_gram_presorted, "wide_launches", len(lows))],
+        lambda: grouped_gram_presorted(*sort_by_group(
+            xm, nm, ym, schema=scorer, num_groups=2, weights=sw),
+            schema=scorer),
+        lambda: grouped_gram_presorted_plain(*sort_by_group(
+            xm, nm, ym, schema=scorer, num_groups=2, weights=sw),
+            schema=scorer),
+        lambda got, want: max(lean_gram_compare(
+            f"[epsilon] K8 group {gg}", scorer)(got[gg], want[gg])
+            for gg in range(2)),
+        gram_bound(none, scorer, w, groups=2, extra=8),
+        full=lambda: grouped_gram_presorted(*sort_by_group(
+            xt, none, y, schema=scorer, num_groups=2, weights=w),
+            schema=scorer))
+    out["k6w"] = slice_kernel(
+        f"[epsilon] K6w F={_build.nb_features(scorer)}",
+        [(nb_grouped_sums, "launches", 1)],
+        lambda: nb_grouped_sums(xm, nm, None, ym, schema=scorer,
+                                num_groups=2),
+        lambda: nb_grouped_sums_plain(xm, nm, None, ym, schema=scorer,
+                                      num_groups=2),
+        nb_compare("[epsilon] K6w", scorer), nb_bound(n, scorer, 2),
+        library_nb_ms(xt, none, None, y, scorer, 2),
+        full=lambda: nb_grouped_sums(xt, none, None, y, schema=scorer,
+                                     num_groups=2))
+    out.update(scorer_kernels("[epsilon]", xt, scorer, 2, seed + 203,
+                              N_SCORER_PLAIN))
+    del sx, sc, sw, xs, cs, w, xm
+
+    # the MICE loops, one round over the 5 null columns, and the
+    # pipelines, on the first N_EPSILON_MICE rows
+    k = N_EPSILON_MICE
+    t = null_table(x_true[:, :k].contiguous(), y[None, :k].contiguous(),
+                   t.num_null[:, :k].contiguous(),
+                   t.cat_null[:, :k].contiguous(), schema)
+    x_true, y = x_true[:, :k].contiguous(), y[:k].contiguous()
+    torch.cuda.empty_cache()
+    steps = len(EPSILON_NULL_COLS) + 1
+    windows = len(lows)
+    for kernel in ("gram", "fused"):
+        kernel_counts_reset()
+        t1 = time.perf_counter()
+        res = run_mice_device(t, iters=1, kernel=kernel)
+        torch.cuda.synchronize()
+        counts = kernel_counts()
+        # 'gram': S in its windows a column step; 'fused': S once, then
+        # an impute launch and S's windows a column step
+        want = ({"masked_gram_cols.wide_launches": steps * windows}
+                if kernel == "gram" else
+                {"masked_gram_cols.wide_launches": windows,
+                 "fused_impute_aggregate.impute_launches": steps,
+                 "fused_impute_aggregate.window_launches": steps * windows})
+        check(counts == want, f"[epsilon] run_mice_device {kernel}: "
+              f"launches {counts}, not {want}")
+        log(f"[epsilon] run_mice_device '{kernel}' n={k} 1 round x {steps} "
+            f"columns: launches {counts}, {time.perf_counter() - t1:.2f} s")
+        out[f"mice_{kernel}"] = dict(
+            seconds=time.perf_counter() - t1, launches=counts,
+            **many_quality(f"[epsilon] {kernel}", t, x_true, y[None], res))
+        del res
+        torch.cuda.empty_cache()
+    masked_gram_window.launches = 0
+    t1 = time.perf_counter()
+    xw, cw = run_mice_wide(
+        t.num_data, t.cat_codes, t.num_null, t.cat_null, schema=schema,
+        mesh=make_mesh_2d(1, 1, device=DEVICE), iters=1, ridge=1e-2,
+        shrinkage=1e-1, cg_iters=150, tol=1e-6)
+    torch.cuda.synchronize()
+    check(masked_gram_window.launches == steps,
+          f"[epsilon] run_mice_wide: {masked_gram_window.launches} K7 "
+          f"window launches, not {steps} (one a column step)")
+    out["run_mice_wide"] = dict(
+        seconds=time.perf_counter() - t1,
+        window_launches=masked_gram_window.launches,
+        **many_quality("[epsilon] run_mice_wide", t, x_true, y[None],
+                       SimpleNamespace(num_data=xw, cat_codes=cw)))
+    log(f"[epsilon] run_mice_wide 1 x 1 n={k}: "
+        f"{out['run_mice_wide']['seconds']:.2f} s, "
+        f"{masked_gram_window.launches} K7 window launches")
+    del xw, cw
+    torch.cuda.empty_cache()
+
+    # the stream fold on a slice's complete rows (no nulls, so the fold's
+    # schema is Epsilon's own and shares its plans)
+    f = N_EPSILON_SLICE // 4
+    num = x_true[:, :f].cpu().numpy()
+    cat = y[None, :f].cpu().numpy().astype(np.int64)
+    src = streaming.chunks_from_arrays(num, cat, chunk_rows=f // 2)
+    ss, _ = streaming.scan_schema(src, collect_dirty=False)
+    masked_gram.wide_launches = 0
+    t1 = time.perf_counter()
+    gram = streaming.scan_gram(src, ss, chunk_rows=f // 2, device=DEVICE)
+    torch.cuda.synchronize()
+    scan_s = time.perf_counter() - t1
+    check(masked_gram.wide_launches == 2 * windows,
+          f"[epsilon] scan_gram: {masked_gram.wide_launches} K7 launches, "
+          f"not {2 * windows} (S's windows a chunk, 2 chunks)")
+    cpu_gram = streaming.scan_gram(src, ss, chunk_rows=f // 2, device="cpu")
+    err = float((gram.cpu() - cpu_gram).abs().max() / cpu_gram.abs().max())
+    check(err <= 1e-6, f"[epsilon] fold card vs CPU rel err {err}")
+    out["scan_gram"] = dict(rows=f, sigma_size=gram.shape[0],
+                            launches=masked_gram.wide_launches,
+                            seconds=scan_s, max_rel_err=err)
+    log(f"[epsilon] scan_gram P+K={gram.shape[0]} n={f}: "
+        f"{masked_gram.wide_launches} K7 window launches, {scan_s:.2f} s; "
+        f"card vs CPU max rel err {err:.2e}")
+    del gram, cpu_gram, num, cat
+
+    cls = classify_many("[epsilon] label", x_true, none[:, :k], y, scorer)
+    out["classify"] = {k_: dict(acc=v["acc"], launches=v["launches"],
+                                seconds=v["seconds"], rows=k)
+                       for k_, v in cls.items()}
+    del t, x_true, y, cls, xt
+    _build.plan_cache.clear()
+    from duckdb_imputation_tpu_torch.ring.kernels import sigma_pallas
+    sigma_pallas._device_plan.cache_clear()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[epsilon] {out['seconds']:.1f} s in all")
+    return out
+
+
+def phase_mnist(seed: int) -> dict:
+    """[mnist]: MNIST's 784 pixels over 10 classes (P = 785) at its 70,000
+    rows: K3w on the scorer's local plans (seeded QDA and NB tables)
+    against the plain scorer on N_MNIST_PLAIN rows on the CPU, timed at all
+    rows; the QDA and NB pipelines (sort + K8, K6w, K3w: launches exact,
+    accuracy above the majority share + 0.02)."""
+    from duckdb_imputation_tpu_torch import FeatureSchema
+    from duckdb_imputation_tpu_torch.ring.kernels import _build
+
+    t0 = time.perf_counter()
+    x, y = make_mnist(N_MNIST, seed + 211)
+    schema = FeatureSchema(num_cols=784)
+    t1 = time.perf_counter()
+    _build.qda_plan(schema)
+    _build.qda_plan(schema, cross=False)
+    plans = time.perf_counter() - t1
+    log(f"[mnist] P={schema.sigma_size} n={N_MNIST}: zero pixels "
+        f"{float((x == 0).float().mean()):.3f}; scorer plans' host seconds "
+        f"{plans:.2f}")
+    out = dict(rows=N_MNIST, plans=plans)
+    out.update(scorer_kernels("[mnist]", x, schema, 10, seed + 212,
+                              N_MNIST_PLAIN))
+    none = torch.zeros((0, N_MNIST), dtype=torch.int32, device=DEVICE)
+    cls = classify_many("[mnist] digit", x, none, y, schema, classes=10)
+    out["classify"] = {k: dict(acc=v["acc"], launches=v["launches"],
+                               seconds=v["seconds"])
+                       for k, v in cls.items()}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[mnist] {out['seconds']:.1f} s in all")
+    return out
+
+
+def phase_past_smem(seed: int) -> dict:
+    """[past_smem]: two test schemas at N_PAST_SMEM rows, one past the old
+    limits each. d900_r33 (900 numeric columns, one of 33 levels, P =
+    934): K7's whole plan with K_j as KB slabs, and K2w 'cat' on the
+    33-level column (W whole in shared memory, each row's x read from
+    device memory); d1000_v5000 (1,000 numeric columns, one of 5,000
+    levels, P = 6,001): the order pass of the keyed column (rows of 1,008
+    ints copied in pieces) and K7's six windows over it. Each against its
+    plain version on the card."""
+    from duckdb_imputation_tpu_torch import FeatureSchema
+    from duckdb_imputation_tpu_torch.ring.kernels import _build
+    from duckdb_imputation_tpu_torch.ring.kernels.sigma_fused import (
+        fused_impute_aggregate, fused_impute_aggregate_plain)
+    from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas import (
+        masked_gram_cols, masked_gram_cols_plain, window_order)
+
+    t0 = time.perf_counter()
+    n, out = N_PAST_SMEM, {}
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(seed + 221)
+    w = (torch.rand(n, generator=g, device=DEVICE) >= 0.2).float()
+    for name, d, v in (("d900_r33", 900, 33), ("d1000_v5000", 1000, 5000)):
+        # d1000_v5000's codes uniform (a factor model's argmax over 5,000
+        # levels would hold 5,000 × n floats), a tenth of them one hot key
+        x, codes, _ = factor_table(n, d, (v,) if v < 100 else (),
+                                   seed + 222 + d, 0.3)
+        if v >= 100:
+            codes = torch.randint(0, v, (1, n), generator=g, device=DEVICE,
+                                  dtype=torch.int32)
+            codes[0, torch.rand(n, generator=g, device=DEVICE) < 0.1] = 7
+        schema = FeatureSchema(num_cols=d, cat_keys=(tuple(range(v)),))
+        xs, cs = list(x), list(codes)
+        p = schema.sigma_size
+        windows = (1 if p <= _build.MAX_WIDE_SIGMA_SIZE
+                   else -(-p // _build.WINDOW_WIDTH))
+        t1 = time.perf_counter()
+        if windows == 1:
+            _build.wide_plan(schema)
+        else:
+            for lo in range(0, p, _build.WINDOW_WIDTH):
+                _build.keyed_window_plan(schema, lo,
+                                         min(lo + _build.WINDOW_WIDTH, p))
+        plans = time.perf_counter() - t1
+        log(f"[past_smem] {name} P={p} n={n}: plans' host seconds "
+            f"{plans:.2f}")
+        res = dict(plans=plans, sigma_size=p)
+        counters = [(masked_gram_cols, "wide_launches", windows)]
+        if windows > 1:
+            counters.append((window_order, "passes", 1))
+            stride = _build.order_stride(1 + d + 1)
+            piece = _build.order_piece(v, stride)
+            check(piece < stride, f"[past_smem] {name}: rows of {stride} "
+                  f"ints are not copied in pieces")
+            res["order"] = order_check(f"[past_smem] {name} order", xs, cs,
+                                       w, schema, (0,))
+            res["order"].update(stride=stride, piece=piece)
+        res["k7"] = slice_kernel(
+            f"[past_smem] {name} K7 ({windows} launch(es))", counters,
+            lambda: masked_gram_cols(xs, cs, w, schema=schema),
+            lambda: masked_gram_cols_plain(xs, cs, w, schema=schema),
+            lean_gram_compare(f"[past_smem] {name} K7", schema),
+            gram_bound(codes, schema, w),
+            library_gram_ms(x, codes, w, schema) if windows == 1 else None)
+        if windows == 1:
+            null = torch.rand(n, generator=g, device=DEVICE) < 0.2
+            w_full = 0.05 * torch.randn(p, v, generator=g, device=DEVICE)
+            icpt = torch.randn(v, generator=g, device=DEVICE)
+            ld, _, batch = _build.impute_plan(schema, v)
+            check(not _build.impute_x_terms(schema, ld, batch),
+                  f"[past_smem] {name}: K2w keeps x in shared memory")
+            kw = dict(schema=schema, kind="cat", imp_col=0)
+            res["k2w"] = slice_kernel(
+                f"[past_smem] {name} K2w 'cat' (R = {v}, plan {ld}, "
+                f"{batch} rows a batch, x from device memory)",
+                [(fused_impute_aggregate, "wide_launches", 1)],
+                lambda: fused_impute_aggregate(xs, cs, null, w, w_full,
+                                               icpt, **kw),
+                lambda: fused_impute_aggregate_plain(xs, cs, null, w, w_full,
+                                                     icpt, **kw),
+                fused_compare(f"[past_smem] {name} K2w", schema, "cat"),
+                gram_bound(codes, schema, w, extra=5, scores=p * v,
+                           scored=int(null.sum())))
+        out[name] = res
+        del x, codes, xs, cs
+        _build.plan_cache.clear()
+        from duckdb_imputation_tpu_torch.ring.kernels import sigma_pallas
+        sigma_pallas._device_plan.cache_clear()
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[past_smem] {out['seconds']:.1f} s in all")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7279,7 +7830,11 @@ def main() -> int:
     secom = phase_secom(args.seed)
     criteo = phase_criteo(args.seed)
     zip5 = phase_zip5(args.seed)
+    epsilon = phase_epsilon(args.seed)
+    mnist = phase_mnist(args.seed)
+    past_smem = phase_past_smem(args.seed)
     hck, sek = home_credit["kernels"], secom["kernels"]
+    v5000, d900 = past_smem["d1000_v5000"], past_smem["d900_r33"]
     criteo_mid = {k: v for k, v in criteo.items()
                   if k not in ("k8", "k2w", "order")}
     n80, n70 = narrow_many["d80"], narrow_many["d70"]
@@ -7349,7 +7904,8 @@ def main() -> int:
              sharded_launches=sharded["wide_gram"],
              stream_launches=stream["wide_gram"],
              home_credit=dict(hck["gram"], plans=home_credit["plans"]),
-             secom=dict(sek["gram"], plans=secom["plans"]), **k7),
+             secom=dict(sek["gram"], plans=secom["plans"]),
+             d900_r33=dict(d900["k7"], plans=d900["plans"]), **k7),
         # K7 over column windows past P = 1,024 (favorita_items): the
         # residual plan over all rows and the keyed tasks over the rows in
         # their column's order; wide16k's windows and the hot key beside
@@ -7365,6 +7921,11 @@ def main() -> int:
                             ref + "sigma_pallas.py:129"],
              secom_fold=dict(secom["fold"], plans=secom["plans"]),
              criteo_mid=criteo_mid,
+             epsilon=dict(epsilon["k7"], plans=epsilon["plans"],
+                          mice={k: epsilon[k] for k in (
+                              "mice_gram", "mice_fused", "run_mice_wide",
+                              "scan_gram")}),
+             d1000_v5000=dict(v5000["k7"], plans=v5000["plans"]),
              wide16k=k7win["wide16k"], hot_key=k7win["hot_key"],
              **k7win["favorita_items"]),
         # the windows' row order, favorita_items' pass; wide16k's beside.
@@ -7376,6 +7937,7 @@ def main() -> int:
              launches=items["order_launches"],
              passes=items["order_passes"],
              wide16k=k7win["wide16k"]["order"], criteo_mid=criteo["order"],
+             d1000_v5000=v5000["order"],
              **k7win["favorita_items"]["order"]),
         dict(name="fused_impute_aggregate_wide", route="cuda",
              source=src + "fused_impute_aggregate.cu",
@@ -7384,14 +7946,15 @@ def main() -> int:
              sharded_launches=sharded["fused_impute_aggregate_wide"],
              home_credit={k: v for k, v in hck.items()
                           if k.startswith("fused")},
-             secom=sek["fused_num589"], **k2w),
+             secom=sek["fused_num589"], d900_r33=d900["k2w"], **k2w),
         dict(name="grouped_wide_gram", route="cuda",
              source=src + "grouped_wide_gram.cu",
              replaces=ref + "sigma_pallas_grouped.py:540",
              launches=classify_wide["grouped_wide_gram"],
              factorized_launches=factorized["grouped_wide_gram"],
              g4100=factorized["alone"]["k8"], home_credit=hck["grouped"],
-             secom=sek["grouped"], **k8),
+             secom=sek["grouped"], mnist_launches=mnist["classify"]["qda"][
+                 "launches"], **k8),
         dict(name="nb_grouped_sums_wide", route="cuda",
              source=src + "nb_grouped_sums.cu",
              replaces=ref + "nb_pallas.py:126",
@@ -7399,12 +7962,17 @@ def main() -> int:
              home_credit=hck["nb"], secom=sek["nb"],
              zip5=dict(ms=zip5["nb"]["k6w_ms"], launches=zip5["nb"][
                  "launches"][0], rows=zip5["nb"]["rows"],
-                 **zip5["nb"]["k6w_bound"]), **k6w),
+                 **zip5["nb"]["k6w_bound"]), epsilon=epsilon["k6w"],
+             mnist_launches=mnist["classify"]["nb"]["launches"], **k6w),
         dict(name="qda_predict_wide", route="cuda",
              source=src + "qda_predict.cu",
              replaces=ref + "qda_pallas.py:148",
              launches=classify_wide["qda_predict_wide"],
-             home_credit=hck["qda"], secom=sek["qda"], **k3w),
+             home_credit=hck["qda"], secom=sek["qda"],
+             epsilon=epsilon["qda"], epsilon_nb=epsilon["nb"],
+             mnist=mnist["qda"], mnist_nb=mnist["nb"],
+             classify={"epsilon": epsilon["classify"],
+                       "mnist": mnist["classify"]}, **k3w),
         # past P = 1,024 (favorita_items): K2w's impute kernel with W in
         # device memory and K7's windows, K8 a window, K3w on the plans
         # whose item cross tables are keyed on the item
@@ -7417,13 +7985,14 @@ def main() -> int:
                  "fused_impute_aggregate.window_launches"],
              sharded_launches=sharded_items["launches"][
                  "fused_impute_aggregate.impute_launches"],
-             criteo_mid=criteo["k2w"], **k2w_items),
+             criteo_mid=criteo["k2w"], epsilon=epsilon["k2w_cat"],
+             epsilon_num=epsilon["k2w_num"], **k2w_items),
         dict(name="grouped_wide_gram_window", route="cuda",
              source=src + "grouped_wide_gram.cu",
              replaces=ref + "sigma_pallas_grouped.py:568",
              launches=classify_items["qda"]["aggregate_launches"][
                  "grouped_gram_presorted.wide_launches"],
-             criteo_mid=criteo["k8"], **k8win),
+             criteo_mid=criteo["k8"], epsilon=epsilon["k8"], **k8win),
         dict(name="qda_predict_items", route="cuda",
              source=src + "qda_predict.cu",
              replaces=ref + "qda_pallas.py:173",

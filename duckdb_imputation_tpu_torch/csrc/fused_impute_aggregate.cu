@@ -75,7 +75,12 @@
 // [P + 2][ldw] (ldw a multiple of the tile, a row of zeros, then b) lies in
 // L2 (606 KB at R = 33, 7 MB at R = 337), lane l again the classes
 // k0 + l + 32i, a 128-byte read a warp a term; the compaction, the scoring
-// order and the first-max merge are the same. Then the caller runs K7 over
+// order and the first-max merge are the same. Where a batch of 32 rows'
+// terms does not fit shared memory beside the class tile (d ≥ 881 at R =
+// 33 with W whole; d ≥ 1,801 with W in device memory: Epsilon's 2,000
+// columns), a batch row keeps only its codes' offsets, and each x is read
+// from device memory as the row is scored (kGlobalX: the same terms in the
+// same order, so the same scores). Then the caller runs K7 over
 // the column windows of S (dit_wide_gram_window) with the new column in the
 // old one's place.
 // What bounds K2w's 'cat' impute kernel: one read of the mask and the old
@@ -389,11 +394,21 @@ static_assert(kFillRows * kImpWarps == 8 * 32,
 __host__ __device__ __forceinline__ int round4(int v) { return (v + 3) & ~3; }
 
 // tile_floats: the class tile [P + 2][ld] in shared memory, 0 when W is
-// read from device memory (kGlobalW)
-inline size_t impute_smem_bytes(int tile_floats, int d, int c, int batch) {
+// read from device memory (kGlobalW); x_terms: whether a batch row keeps
+// its x (else kGlobalX)
+inline size_t impute_smem_bytes(int tile_floats, int d, int c, int batch,
+                                bool x_terms) {
   return sizeof(float) * (size_t(round4(tile_floats)) +
-                          size_t(batch) * (3 + round4(d) + round4(c)) +
+                          size_t(batch) * (3 + (x_terms ? round4(d) : 0) +
+                                           round4(c)) +
                           kFillRows * kImpWarps + 1);
+}
+
+// Whether the plan's batch rows keep their x in shared memory: where it
+// fits (mirrored by _build.py: impute_x_terms).
+inline bool impute_x_terms(int tile_floats, int d, int c, int batch) {
+  return impute_smem_bytes(tile_floats, d, c, batch, true) <=
+         size_t(kWideSmem);
 }
 
 // An unsigned key in the order of the float scores, so that one
@@ -415,7 +430,9 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
 // kGlobalW: W is the padded [P + 2][ldw] in device memory (ldw ≥ the
 // tiles' classes; row P zeros, row P + 1 b) and b is unused; else W f32[P,
 // R] and b f32[R], staged as tiles [P + 2][ld] in shared memory (ldw = ld).
-template <int M, bool kGlobalW>
+// kGlobalX: a batch row's terms hold only its codes' offsets, and x is
+// read from device memory (the row's index in `list`) as it is scored.
+template <int M, bool kGlobalW, bool kGlobalX>
 __global__ void __launch_bounds__(kImpThreads)
 impute_cat_tiles_kernel(const __grid_constant__ Cols cols, int64_t n,
                         int64_t slice, const uint8_t* __restrict__ null_imp,
@@ -425,7 +442,7 @@ impute_cat_tiles_kernel(const __grid_constant__ Cols cols, int64_t n,
                         int* __restrict__ rows, int32_t* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char imp_smem[];
   const int d = cols.d, c = cols.c;
-  const int cx = round4(d), tsp = cx + round4(c);   // a row's terms
+  const int cx = kGlobalX ? 0 : round4(d), tsp = cx + round4(c);  // terms
   float* wbuf = reinterpret_cast<float*>(imp_smem);   // the tile
   int* terms =
       reinterpret_cast<int*>(wbuf + (kGlobalW ? 0 : round4((P + 2) * ld)));
@@ -522,7 +539,7 @@ impute_cat_tiles_kernel(const __grid_constant__ Cols cols, int64_t n,
       const int row = list[e];
       int* te = terms + e * tsp;
 #pragma unroll 4
-      for (int j = 0; j < cx; ++j)
+      for (int j = 0; j < cx; ++j)   // none with kGlobalX
         te[j] = j < d ? __float_as_int(cols.xp(j)[row]) : 0;
 #pragma unroll 4
       for (int j = 0; j < c; ++j) {
@@ -557,10 +574,12 @@ impute_cat_tiles_kernel(const __grid_constant__ Cols cols, int64_t n,
       for (int e0 = warp * kImpRows; e0 < count;
            e0 += kImpWarps * kImpRows) {
         const int* tr[kImpRows];
+        int xrow[kImpRows];   // kGlobalX: the rows whose x is read
         float acc[kImpRows][M];
 #pragma unroll
         for (int r = 0; r < kImpRows; ++r) {
           tr[r] = terms + min(e0 + r, count - 1) * tsp;
+          if constexpr (kGlobalX) xrow[r] = list[min(e0 + r, count - 1)];
 #pragma unroll
           for (int i = 0; i < M; ++i) acc[r][i] = bw[i];
         }
@@ -569,9 +588,11 @@ impute_cat_tiles_kernel(const __grid_constant__ Cols cols, int64_t n,
           float wv[M];
 #pragma unroll
           for (int i = 0; i < M; ++i) wv[i] = wr[32 * i];
+          const float* xj = kGlobalX ? cols.xp(j) : nullptr;
 #pragma unroll
           for (int r = 0; r < kImpRows; ++r) {
-            const float xv = __int_as_float(tr[r][j]);
+            const float xv = kGlobalX ? __ldg(xj + xrow[r])
+                                      : __int_as_float(tr[r][j]);
 #pragma unroll
             for (int i = 0; i < M; ++i)
               acc[r][i] = __fadd_rn(acc[r][i], __fmul_rn(wv[i], xv));
@@ -668,6 +689,21 @@ inline int check_impute(int kind, int imp_col, int R, int d, int c,
   return 0;
 }
 
+// The 'cat' impute kernel of M classes a lane, W in shared memory or
+// device memory (global), x in shared memory or not (kGlobalX).
+template <bool kGlobalX>
+inline decltype(&impute_cat_tiles_kernel<1, false, false>) pick_impute_cat(
+    int M, bool global) {
+  return global ? (M == 1 ? impute_cat_tiles_kernel<1, true, kGlobalX>
+                   : M == 2 ? impute_cat_tiles_kernel<2, true, kGlobalX>
+                   : M == 3 ? impute_cat_tiles_kernel<3, true, kGlobalX>
+                            : impute_cat_tiles_kernel<4, true, kGlobalX>)
+                : (M == 1 ? impute_cat_tiles_kernel<1, false, kGlobalX>
+                   : M == 2 ? impute_cat_tiles_kernel<2, false, kGlobalX>
+                   : M == 3 ? impute_cat_tiles_kernel<3, false, kGlobalX>
+                            : impute_cat_tiles_kernel<4, false, kGlobalX>);
+}
+
 // K2w 'cat': the impute kernel of plan (ld, M, batch), a wave of
 // blocks each owning a slice of whole 32-row steps; rows: i32[n] scratch
 // for the null rows of each slice.
@@ -687,18 +723,14 @@ inline int launch_impute_cat(const Cols& cols, int64_t n,
   else if (ld != 32 * M || ldw < R || ldw % ld != 0 ||
            int64_t(P + 2) * ldw > 0x7fffffff)
     return cudaErrorInvalidValue;
-  const size_t smem = impute_smem_bytes(global ? 0 : (P + 2) * ld, cols.d,
-                                        cols.c, batch);
+  const int tile = global ? 0 : (P + 2) * ld;
+  const bool x_terms = impute_x_terms(tile, cols.d, cols.c, batch);
+  const size_t smem =
+      impute_smem_bytes(tile, cols.d, cols.c, batch, x_terms);
   if (smem > size_t(kWideSmem)) return cudaErrorInvalidValue;
-  decltype(&impute_cat_tiles_kernel<1, false>) kern =
-      global ? (M == 1 ? impute_cat_tiles_kernel<1, true>
-                : M == 2 ? impute_cat_tiles_kernel<2, true>
-                : M == 3 ? impute_cat_tiles_kernel<3, true>
-                         : impute_cat_tiles_kernel<4, true>)
-             : (M == 1 ? impute_cat_tiles_kernel<1, false>
-                : M == 2 ? impute_cat_tiles_kernel<2, false>
-                : M == 3 ? impute_cat_tiles_kernel<3, false>
-                         : impute_cat_tiles_kernel<4, false>);
+  decltype(&impute_cat_tiles_kernel<1, false, false>) kern =
+      !x_terms ? pick_impute_cat<true>(M, global)
+               : pick_impute_cat<false>(M, global);
   cudaError_t rc = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));

@@ -68,6 +68,17 @@
 // several tasks takes the largest tile shared memory holds beside two
 // classes' tables of 4,096 cells; classes a step amortise a row's code
 // and x reads. F2F conversions (16 a clock an SM) cost little.
+//
+// Local plans (_build.py: qda_local, d > 756 with no categorical column:
+// Epsilon's 2,000 columns, MNIST's 784): a tile of 32 rows of every numeric
+// column in f64 no longer fits beside the tables, so the plan cuts D into
+// tiles of 64 × 64 cells (slabs aligned to 32 columns) and K_j into KB
+// slabs of 64 columns, each task reading at most 128 numeric columns
+// (stage_cols), and the kernel (Local) stages a task's columns of the tile
+// at each step, before the step's barrier, in f64 less the shift as
+// before; a D or KB slab reads x at the stage slots of its record. The
+// terms, their order and the codes are as above, so the scores are still
+// bit-identical to the plain version's.
 #include "wide_gram.cuh"
 
 namespace dit {
@@ -79,13 +90,20 @@ constexpr int kQdaThreads = 1024; // most threads of a block
 constexpr int kQdaShortLevels = 32768;
 constexpr int kQdaMaxGroup = 4;   // most classes a step stages
 constexpr int kQdaMaxSums = 8;    // most f64 sums a thread keeps: rows · group
+// the zero cells after a table of a local plan: a missed KB cell reads one
+// of its at most 64 (_build.py: QDA_LOCAL_TILE) columns' zeros
+constexpr int kQdaLocalZeros = 128;
 
 // Floats of one staged table's buffer, whole 16-byte words: the largest
 // task's cells (a multiple of 4 in the scorer's plan), then 1 + d zero
-// cells that a row's missed K and C cells read. Mirrored by
-// ring/kernels/_build.py: qda_smem_bytes.
-__host__ __device__ inline int qda_table_stride(int max_cells, int d) {
-  return max_cells + ((1 + d + 3) & ~3);
+// cells that a row's missed K and C cells read (kQdaLocalZeros in a local
+// plan). Mirrored by ring/kernels/_build.py: qda_smem_bytes.
+__host__ __device__ inline int qda_zeros(int d, bool local) {
+  return local ? kQdaLocalZeros : (1 + d + 3) & ~3;
+}
+__host__ __device__ inline int qda_table_stride(int max_cells, int d,
+                                                bool local) {
+  return max_cells + qda_zeros(d, local);
 }
 
 // One 16-byte word from device memory (L2) into shared memory, past L1
@@ -96,11 +114,14 @@ __device__ __forceinline__ void stage16(float* dst, const float* src) {
                "l"(src));
 }
 
+// max_x: a local plan's most numeric columns a task (the tile's x), or 0
 template <typename Code>
 inline size_t qda_smem_bytes(int max_cells, int d, int c, int tile,
-                             int group) {
-  return sizeof(float) * 2 * size_t(group) * qda_table_stride(max_cells, d) +
-         size_t(tile) * (sizeof(double) * d + sizeof(Code) * c);
+                             int group, int max_x) {
+  return sizeof(float) * 2 * size_t(group) *
+             qda_table_stride(max_cells, d, max_x > 0) +
+         size_t(tile) * (sizeof(double) * (max_x > 0 ? max_x : d) +
+                         sizeof(Code) * c);
 }
 
 struct QdaArgs {
@@ -118,6 +139,11 @@ struct QdaArgs {
                               // diagonal, of K only row 0 (the rest is zero)
   const float* shift;         // f32[d] subtracted from x as it is staged, or
                               // nullptr (naive Bayes's centred tables)
+  // a local plan's stage lists [tasks][width] (nx, nc, the numeric then
+  // the code columns each task reads) and its most numeric columns a task;
+  // nullptr, 0 for a plan whose tile stages every column
+  const int* stage_cols;
+  int width, max_x;
 };
 
 // ROWS rows a thread, tile = blockDim · ROWS rows a block; a step stages
@@ -133,7 +159,11 @@ struct QdaArgs {
 // Code: the staged codes' type, int16_t, or int32_t past kQdaShortLevels.
 // RowCut: the plan has CB slabs, so a C or CB slab reads its rows' range;
 // without, a C slab is read as before rows were cut.
-template <int ROWS, int GROUP, bool Far, typename Code, bool RowCut>
+// Local: a local plan (its D and KB records carry their stage slots, x of
+// a task's columns staged a step); else x of every column staged once a
+// tile.
+template <int ROWS, int GROUP, bool Far, typename Code, bool RowCut,
+          bool Local>
 __global__ void __launch_bounds__(kQdaThreads)
 qda_kernel(const __grid_constant__ Cols cols, const __grid_constant__ QdaArgs qa,
            int32_t* __restrict__ out) {
@@ -142,16 +172,18 @@ qda_kernel(const __grid_constant__ Cols cols, const __grid_constant__ QdaArgs qa
   extern __shared__ __align__(16) double qda_smem[];
   const int tid = threadIdx.x, nt = blockDim.x, tile = nt * ROWS;
   const int d = cols.d, c = cols.c;
-  const int stride = qda_table_stride(qa.max_cells, d);
+  const int nz = qda_zeros(d, Local);
+  const int stride = qda_table_stride(qa.max_cells, d, Local);
   const int zero = qa.max_cells;            // the zero cells, after a table
-  double* xs = qda_smem;                                    // [d][tile]
-  float* tab = reinterpret_cast<float*>(xs + d * tile);     // [2][GROUP][stride]
+  double* xs = qda_smem;                              // [d or max_x][tile]
+  float* tab = reinterpret_cast<float*>(xs + (Local ? qa.max_x : d) * tile);
+                                                      // [2][GROUP][stride]
   Code* cs = reinterpret_cast<Code*>(tab + 2 * GROUP * stride);  // [c][tile]
   const int groups = (qa.C + GROUP - 1) / GROUP;
   const int steps = groups * qa.tasks;
 
-  for (int e = tid; e < 2 * GROUP * (1 + d); e += nt)
-    tab[(e / (1 + d)) * stride + zero + e % (1 + d)] = 0.0f;
+  for (int e = tid; e < 2 * GROUP * nz; e += nt)
+    tab[(e / nz) * stride + zero + e % nz] = 0.0f;
 
   // step s = (classes GROUP·(s / tasks) + i, task s % tasks): their tables
   // into buffer s & 1
@@ -175,7 +207,7 @@ qda_kernel(const __grid_constant__ Cols cols, const __grid_constant__ QdaArgs qa
     auto stage_row = [&](int e, auto x_of, auto code_of, auto size_of) {
       const int64_t row = row0 + e;
       const bool valid = row < qa.n;
-      for (int j = 0; j < d; ++j) {
+      for (int j = 0; j < (Local ? 0 : d); ++j) {
         const double sj = qa.shift ? static_cast<double>(qa.shift[j]) : 0.0;
         xs[j * tile + e] =
             valid ? __dsub_rn(static_cast<double>(x_of(j)[row]), sj) : 0.0;
@@ -210,23 +242,37 @@ qda_kernel(const __grid_constant__ Cols cols, const __grid_constant__ QdaArgs qa
     for (int s = 0; s < steps; ++s) {
       if (s + 1 < steps) stage_table(s + 1);
       else asm volatile("cp.async.commit_group;\n" ::);
+      const int t = s % qa.tasks;
+      if constexpr (Local) {   // the task's numeric columns of the tile
+        const int* tc = qa.stage_cols + int64_t(t) * qa.width;
+        for (int e = tid; e < tc[0] * tile; e += nt) {
+          const int q = e / tile, r = e - q * tile, j = tc[2 + q];
+          const int64_t row = row0 + r;
+          const double sj = qa.shift ? static_cast<double>(qa.shift[j]) : 0.0;
+          xs[e] = row < qa.n
+                      ? __dsub_rn(static_cast<double>(cols.xp(j)[row]), sj)
+                      : 0.0;
+        }
+      }
       asm volatile("cp.async.wait_group 1;\n" ::);
       __syncthreads();
       const float* tb = tab + (s & 1) * GROUP * stride;
-      const int t = s % qa.tasks;
       const int s1 = qa.warp_begin[(t + 1) * kWideWarps];
       for (int si = qa.warp_begin[t * kWideWarps]; si < s1; ++si) {
         const int* sl = qa.slabs + si * kWideSlabInts;
         const int kind = __ldg(sl), p0 = __ldg(sl + 1), p1 = __ldg(sl + 2);
         const int p2 = __ldg(sl + 3), p3 = __ldg(sl + 4), off = __ldg(sl + 5);
         if (kind == kSlabD) {          // cells (p0, b), b in [p1, p2)
-          const double* xa = xs + (p0 ? p0 - 1 : 0) * tile + tid;
+          // x_a at slot sa, x_b at slot sb + b (slot q at xs row q − 1)
+          const int sa = Local ? __ldg(sl + 6) : p0;
+          const int sb = Local ? __ldg(sl + 7) : 0;
+          const double* xa = xs + (p0 ? sa - 1 : 0) * tile + tid;
           double za[ROWS];
 #pragma unroll
           for (int k = 0; k < ROWS; ++k) za[k] = p0 ? xa[k * nt] : 1.0;
           for (int b = p1; b < p2; ++b) {
             if (qa.diag && p0 && b != p0) continue;
-            const double* xb = xs + (b ? b - 1 : 0) * tile + tid;
+            const double* xb = xs + (b ? sb + b - 1 : 0) * tile + tid;
             double tv[GROUP];
 #pragma unroll
             for (int i = 0; i < GROUP; ++i) tv[i] = tb[i * stride + off + b - p1];
@@ -262,6 +308,42 @@ qda_kernel(const __grid_constant__ Cols cols, const __grid_constant__ QdaArgs qa
               for (int i = 0; i < GROUP; ++i)
                 acc[i][k] = __dadd_rn(
                     acc[i][k], __dmul_rn(tb[i * stride + base[k] + a * step[k]], x));
+            }
+          }
+        } else if (Local && kind == kSlabKB) {  // column p0, keys [p1, p2),
+          // columns [p3, a_hi) of [1 ‖ x]: cell (v, a) at (a − p3)·keys +
+          // v − p1, x_a at slot sx + a
+          const int a_hi = __ldg(sl + 6), sx = __ldg(sl + 7);
+          const Code* cj = cs + p0 * tile + tid;
+          int base[ROWS], step[ROWS];
+#pragma unroll
+          for (int k = 0; k < ROWS; ++k) {
+            const int v = cj[k * nt];
+            const bool hit = v >= p1 && v < p2;
+            base[k] = hit ? off + v - p1 : zero;
+            step[k] = hit ? p2 - p1 : 1;
+          }
+          for (int a = p3; a < (qa.diag && p3 == 0 ? 1 : a_hi); ++a) {
+            if (a == 0) {
+#pragma unroll
+              for (int k = 0; k < ROWS; ++k)
+#pragma unroll
+                for (int i = 0; i < GROUP; ++i)
+                  acc[i][k] = __dadd_rn(
+                      acc[i][k], static_cast<double>(tb[i * stride + base[k]]));
+              continue;
+            }
+            if (qa.diag) break;
+            const double* xr = xs + (sx + a - 1) * tile + tid;
+#pragma unroll
+            for (int k = 0; k < ROWS; ++k) {
+              const double x = xr[k * nt];
+#pragma unroll
+              for (int i = 0; i < GROUP; ++i)
+                acc[i][k] = __dadd_rn(
+                    acc[i][k],
+                    __dmul_rn(tb[i * stride + base[k] + (a - p3) * step[k]],
+                              x));
             }
           }
         } else {                       // C, CB: key column p0, row column
@@ -312,19 +394,20 @@ qda_kernel(const __grid_constant__ Cols cols, const __grid_constant__ QdaArgs qa
   }
 }
 
-template <int ROWS, int GROUP, bool Far, typename Code, bool RowCut>
+template <int ROWS, int GROUP, bool Far, typename Code, bool RowCut,
+          bool Local>
 int launch_qda(const Cols& cols, const QdaArgs& qa, int threads,
                int32_t* out, cudaStream_t stream) {
   const int tile = threads * ROWS;
-  const size_t smem =
-      qda_smem_bytes<Code>(qa.max_cells, cols.d, cols.c, tile, GROUP);
+  const size_t smem = qda_smem_bytes<Code>(qa.max_cells, cols.d, cols.c,
+                                           tile, GROUP, Local ? qa.max_x : 0);
   if (smem > kWideSmem) return cudaErrorInvalidValue;
   cudaError_t rc = cudaFuncSetAttribute(
-      qda_kernel<ROWS, GROUP, Far, Code, RowCut>,
+      qda_kernel<ROWS, GROUP, Far, Code, RowCut, Local>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (rc != cudaSuccess) return rc;
   const int64_t blocks = qa.n > 0 ? (qa.n + tile - 1) / tile : 1;
-  qda_kernel<ROWS, GROUP, Far, Code, RowCut>
+  qda_kernel<ROWS, GROUP, Far, Code, RowCut, Local>
       <<<static_cast<unsigned>(blocks), threads, smem, stream>>>(cols, qa,
                                                                   out);
   return cudaGetLastError();
@@ -340,29 +423,37 @@ using QdaLaunch = int (*)(const Cols&, const QdaArgs&, int, int32_t*,
 template <bool Far, typename Code, bool RowCut>
 inline QdaLaunch pick_qda_of(int rows, int group) {
   switch (rows * 8 + group) {
-    case 8 * 8 + 1: return launch_qda<8, 1, Far, Code, RowCut>;
-    case 4 * 8 + 1: return launch_qda<4, 1, Far, Code, RowCut>;
-    case 2 * 8 + 1: return launch_qda<2, 1, Far, Code, RowCut>;
-    case 1 * 8 + 1: return launch_qda<1, 1, Far, Code, RowCut>;
-    case 4 * 8 + 2: return launch_qda<4, 2, Far, Code, RowCut>;
-    case 2 * 8 + 4: return launch_qda<2, 4, Far, Code, RowCut>;
+    case 8 * 8 + 1: return launch_qda<8, 1, Far, Code, RowCut, false>;
+    case 4 * 8 + 1: return launch_qda<4, 1, Far, Code, RowCut, false>;
+    case 2 * 8 + 1: return launch_qda<2, 1, Far, Code, RowCut, false>;
+    case 1 * 8 + 1: return launch_qda<1, 1, Far, Code, RowCut, false>;
+    case 4 * 8 + 2: return launch_qda<4, 2, Far, Code, RowCut, false>;
+    case 2 * 8 + 4: return launch_qda<2, 4, Far, Code, RowCut, false>;
     default: return nullptr;
   }
 }
 
+// A local plan (d > 756 numeric columns) always reads the columns' device
+// table (far), d being past kInlineCols, and takes one row a thread and one
+// class a step (_build.py: qda_tile).
 template <bool Far, typename Code>
-inline QdaLaunch pick_qda_cut(int rows, int group, bool row_cut) {
+inline QdaLaunch pick_qda_cut(int rows, int group, bool row_cut, bool local) {
+  if (local) {
+    if (!Far || rows != 1 || group != 1) return nullptr;
+    if (row_cut) return launch_qda<1, 1, true, Code, true, true>;
+    return launch_qda<1, 1, true, Code, false, true>;
+  }
   return row_cut ? pick_qda_of<Far, Code, true>(rows, group)
                  : pick_qda_of<Far, Code, false>(rows, group);
 }
 
 inline QdaLaunch pick_qda(int rows, int group, bool far, bool wide_codes,
-                          bool row_cut) {
+                          bool row_cut, bool local) {
   if (wide_codes)
-    return far ? pick_qda_cut<true, int32_t>(rows, group, row_cut)
-               : pick_qda_cut<false, int32_t>(rows, group, row_cut);
-  return far ? pick_qda_cut<true, int16_t>(rows, group, row_cut)
-             : pick_qda_cut<false, int16_t>(rows, group, row_cut);
+    return far ? pick_qda_cut<true, int32_t>(rows, group, row_cut, local)
+               : pick_qda_cut<false, int32_t>(rows, group, row_cut, local);
+  return far ? pick_qda_cut<true, int16_t>(rows, group, row_cut, local)
+             : pick_qda_cut<false, int16_t>(rows, group, row_cut, local);
 }
 
 }  // namespace
@@ -376,7 +467,8 @@ extern "C" {
 // cells, each task's first cell and `cells` multiples of 4); blocks of
 // `threads` threads,
 // each thread scoring `rows` rows against `group` classes a step ((8, 1),
-// (4, 1), (2, 1), (1, 1), (4, 2) or (2, 4)); diag: naive Bayes's tables
+// (4, 1), (2, 1), (1, 1), (4, 2) or (2, 4); a local plan (1, 1)); diag:
+// naive Bayes's tables
 // (`nb_tables`), whose other D and K cells are zero and skipped;
 // row_cut: whether the plan has CB slabs (the instance that reads a C or
 // CB slab's row range; 0 keeps a C slab's read of before); shift:
@@ -384,9 +476,11 @@ extern "C" {
 // f64: the tables of `nb_tables(center=shift)`), or nullptr; far: the
 // columns' device table (gram_common.cuh: Cols), needed past kInlineCols
 // columns of a kind, else nullptr; out i32[n]. A tile of `threads · rows`
-// rows of x in f64 must fit shared memory beside the tables
-// (_build.py: check_qda states the numeric columns that allows). Returns
-// 0 or a cudaError_t.
+// rows of x in f64 must fit shared memory beside the tables: of every
+// numeric column, or with max_x > 0 (a local plan, _build.py: qda_local)
+// of at most max_x columns, those of stage_cols [tasks][width] (the plan's
+// stage lists) for each task, whose D and KB records carry their stage
+// slots in place of the task and the warp. Returns 0 or a cudaError_t.
 int dit_qda_predict(const void* const* x_cols, int d,
                     const void* const* code_cols, const int* cat_sizes,
                     int c, const int64_t* far, const float* tables,
@@ -394,8 +488,8 @@ int dit_qda_predict(const void* const* x_cols, int d,
                     const int* warp_begin, const int64_t* task_base, int C,
                     int tasks, int max_cells, int64_t cells, int64_t n,
                     int threads, int rows, int group, int diag,
-                    int row_cut, const float* shift, int32_t* out,
-                    void* stream) {
+                    int row_cut, const float* shift, const int* stage_cols,
+                    int width, int max_x, int32_t* out, void* stream) {
   using namespace dit;
   if (d < 0 || c < 0) return cudaErrorInvalidValue;
   int P = 1 + d;
@@ -406,14 +500,17 @@ int dit_qda_predict(const void* const* x_cols, int d,
     return rc;
   bool wide_codes = false;
   for (int j = 0; j < c; ++j) wide_codes |= cat_sizes[j] > kQdaShortLevels;
-  const QdaLaunch launch =
-      pick_qda(rows, group, far != nullptr, wide_codes, row_cut != 0);
+  const QdaLaunch launch = pick_qda(rows, group, far != nullptr, wide_codes,
+                                    row_cut != 0, max_x > 0);
   if (C < 1 || tasks < 1 || max_cells < 1 || max_cells % 4 || cells % 4 ||
       reinterpret_cast<uintptr_t>(tables) % 16 || cells < max_cells ||
-      threads < 32 || threads > kQdaThreads || threads % 32 || !launch)
+      threads < 32 || threads > kQdaThreads || threads % 32 || !launch ||
+      max_x < 0 || max_x > d ||
+      (max_x > 0 && (stage_cols == nullptr || width < 2)))
     return cudaErrorInvalidValue;
   const QdaArgs qa{tables, slabs, warp_begin, task_base, C, tasks,
-                   max_cells, cells, n, diag != 0, shift};
+                   max_cells, cells, n, diag != 0, shift, stage_cols,
+                   width, max_x};
   return launch(make_cols(x_cols, d, code_cols, cat_sizes, c, far), qa,
                 threads, out, static_cast<cudaStream_t>(stream));
 }

@@ -21,7 +21,9 @@
 // where a dense tiling of S issues ~P²/2.
 //
 //   1. The host cuts the tables into slabs (a D row's cells, a key range
-//      of K_j or of C_jk) and the slabs into tasks whose f64 tables fit
+//      of K_j, past d ≈ 834 beside a code column also a column range of it
+//      (KB), or a key range of C_jk) and the slabs into tasks whose f64
+//      tables fit
 //      kWideTaskBytes of shared memory; each slab of a task belongs to one
 //      of its kWideWarps warps.
 //   2. blockIdx.x is a task, blockIdx.y a row slice: a run of consecutive
@@ -133,6 +135,12 @@ constexpr int kSlabCM = 4;
 // both records are (kind, v_lo, v_hi, u_lo, u_hi, off, the key's and the
 // row column's stage slots) (_build.py: WidePlan.device_slabs)
 constexpr int kSlabCB = 5;
+// (KB, a_hi, v_lo, v_hi, a_lo): [v − v_lo][a − a_lo] of K_j's columns [a_lo,
+// a_hi) of [1 ‖ x], where a task staging every numeric column beside a code
+// column passes shared memory (_build.py: _k_cols, d ≥ 835): its record
+// carries j's code slot and s with x_a at slot s + a (_build.py:
+// WidePlan.device_slabs), so its task stages only those columns
+constexpr int kSlabKB = 6;
 
 static_assert(kWideChunk == 32, "one row a lane of a warp");
 
@@ -186,6 +194,7 @@ __device__ __forceinline__ int slab_cells(const int* sl, const Cols& cols,
                                           int keys) {
   if (sl[0] == kSlabD) return sl[3] - sl[2];
   if (sl[0] == kSlabK) return (sl[3] - sl[2]) * (1 + cols.d);
+  if (sl[0] == kSlabKB) return (sl[3] - sl[2]) * (sl[1] - sl[4]);
   if (sl[0] == kSlabCR) return keys * (sl[4] - sl[3]);
   if (sl[0] == kSlabCM) return cols.sz(sl[1]) * cm_width(sl, cols);
   return (sl[4] - sl[3]) * (sl[2] - sl[1]);  // C, CB: keys × rows
@@ -254,6 +263,34 @@ __device__ __forceinline__ void add_keyed(double* table, int key0, int key1,
   for (int a = 1; a < vals; ++a) {
     s0 = l0.suffix_sum(rows0[a * R + lane] * w0);
     s1 = l1.suffix_sum(rows1[a * R + lane] * w1);
+    if (lead0) t0[a] += static_cast<double>(s0);
+    if (lead1) t1[a] += static_cast<double>(s1);
+  }
+}
+
+// add_keyed over the columns [a_lo, a_hi) of [1 ‖ x] of a KB slab: cell
+// a − a_lo of the key's row, w for a = 0, else w·x_a with x_a at slot sx + a;
+// each cell's sums as add_keyed forms them. A K slab is the KB slab of
+// columns [0, 1 + d) at sx = 0 with the same bits, but keeps add_keyed:
+// read through this, with its columns from its record, K7 at favorita_wide
+// ran 9% slower (PERF.md §6).
+__device__ __forceinline__ void add_keyed_cols(double* table, int key0,
+                                               int key1, int a_lo, int a_hi,
+                                               int sx, const float* rows0,
+                                               const float* rows1, int R,
+                                               int lane) {
+  const unsigned p0 = __match_any_sync(0xffffffffu, key0);
+  const unsigned p1 = __match_any_sync(0xffffffffu, key1);
+  const bool lead0 = key0 >= 0 && __ffs(p0) - 1 == lane;
+  const bool lead1 = key1 >= 0 && __ffs(p1) - 1 == lane;
+  const PeerList l0(p0, lane), l1(p1, lane);
+  const float w0 = rows0[lane], w1 = rows1[lane];
+  const int vals = a_hi - a_lo;
+  double* t0 = table + key0 * vals - a_lo;
+  double* t1 = table + key1 * vals - a_lo;
+  for (int a = a_lo; a < a_hi; ++a) {
+    const float s0 = l0.suffix_sum(a ? rows0[(sx + a) * R + lane] * w0 : w0);
+    const float s1 = l1.suffix_sum(a ? rows1[(sx + a) * R + lane] * w1 : w1);
     if (lead0) t0[a] += static_cast<double>(s0);
     if (lead1) t1[a] += static_cast<double>(s1);
   }
@@ -492,6 +529,12 @@ wide_gram_kernel(const __grid_constant__ Cols cols,
           add_keyed(t, v0 >= sl[2] && v0 < sl[3] ? v0 - sl[2] : -1,
                     pair && v1 >= sl[2] && v1 < sl[3] ? v1 - sl[2] : -1,
                     1 + cols.d, rows0, rows1, R, lane);
+        } else if (sl[0] == kSlabKB) {   // keys [p1, p2), columns [p3, p0)
+          const int q = sl[6] * R + lane;
+          const int v0 = codes0[q], v1 = codes1[q];
+          add_keyed_cols(t, v0 >= sl[2] && v0 < sl[3] ? v0 - sl[2] : -1,
+                         pair && v1 >= sl[2] && v1 < sl[3] ? v1 - sl[2] : -1,
+                         sl[4], sl[1], sl[7], rows0, rows1, R, lane);
         } else if (Keyed && sl[0] == kSlabCR) {
           const int nv = sl[4] - sl[3];
           const int qu = sl[6] * R + lane;

@@ -39,6 +39,13 @@
 //      (A copy a column wrote one 4-byte value a sector, and the card then
 //      reads each sector to merge it: 10 ms a column at 10M rows, PERF.md
 //      §6.)
+//   3'. order_scatter_pieces_kernel, where two chunks of whole rows do not
+//      fit a warp's shared memory beside its V positions (a row of 1 + d + c
+//      ints past about 880 − V/64: d = 1,000 beside V = 5,000, _build.py:
+//      order_piece): the warp reads its chunk's keyed codes from device
+//      memory, places the rows as in 3., then copies their columns a piece
+//      of `piece` ints at a time (whole 32-byte sectors), the next piece
+//      staged by cp.async while this one is written.
 // Stable (a key's rows keep their row order: segments in order, chunks in
 // order, lanes in order) and the same on every run.
 //
@@ -78,8 +85,9 @@ struct OrderCols {
 
 // Ints of shared memory an order warp keeps: V counters (positions), and
 // in the scatter its chunk's 32 places and two chunks' 32 rows of `stride`
-// ints, each padded by a 16-byte word (fewer bank conflicts), 16-byte
-// aligned.
+// ints (or two pieces of 32 rows of a row's `stride` = piece ints), each
+// padded by a 16-byte word (fewer bank conflicts), 16-byte aligned.
+// Mirrored by _build.py: order_warp_ints.
 __host__ __device__ inline int64_t order_warp_ints(int V, int stride) {
   return stride ? (V + 3) / 4 * 4 + 32 + 64 * (stride + 4) : V;
 }
@@ -206,6 +214,74 @@ __global__ void order_scatter_kernel(const int V, const int key_col,
   asm volatile("cp.async.wait_group 0;\n" ::);
 }
 
+// Step 3' for rows wider than two chunks of a warp's shared memory: each
+// chunk's places as in order_scatter_kernel (its keyed codes read from
+// device memory), then the rows' columns [q0, q0 + piece) in turn, staged
+// into one of two buffers [32][piece + 4] by cp.async while the previous
+// piece is written, 16 bytes a lane as there.
+__global__ void order_scatter_pieces_kernel(
+    const int V, const int key_col, const int64_t* __restrict__ off,
+    int64_t warps, int64_t n, int S, const int32_t* __restrict__ start,
+    const __grid_constant__ OrderCols src, int stride, int piece,
+    int32_t* __restrict__ out) {
+  extern __shared__ __align__(16) int order_smem[];
+  const int64_t w = (int64_t(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (w >= warps) return;
+  const int pitch = piece + 4;
+  int* pos = order_smem + (threadIdx.x >> 5) * order_warp_ints(V, piece);
+  int* dest = pos + (V + 3) / 4 * 4;   // [32]: each lane's row, −1: none
+  int* rows = dest + 32;               // [2][32][pitch]: two pieces
+  const int32_t* mine = start + w * V;
+  for (int v = lane; v < V; v += 32) pos[v] = mine[v];
+  const OrderSegment seg(off, n, S, w);
+  const unsigned below = (1u << lane) - 1u;
+  const int32_t* keys = src.at(key_col);
+  // a lane stages columns [q0, q0 + piece) of its row of the chunk at `at`
+  // into buffer b, zeros past the columns
+  auto stage = [&](int64_t at, int q0, int b) {
+    int* r = rows + (b * 32 + lane) * pitch;
+    const int64_t i = at + lane;
+    for (int q = 0; q < piece; ++q) {
+      if (q0 + q < src.ncols && i < seg.hi)
+        order_copy4(r + q, src.at(q0 + q) + i);
+      else r[q] = 0;
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+  for (int64_t at = seg.lo; at < seg.hi; at += 32) {
+    const int code = at + lane < seg.hi ? keys[at + lane] : -1;
+    const int u = code >= 0 && code < V ? code : -1;
+    const unsigned peers = __match_any_sync(0xffffffffu, u);
+    const int first = __ffs(peers) - 1;
+    int p = 0;
+    if (u >= 0 && first == lane) {
+      p = pos[u];
+      pos[u] = p + __popc(peers);
+    }
+    p = __shfl_sync(0xffffffffu, p, first);
+    dest[lane] = u >= 0 ? p + __popc(peers & below) : -1;
+    stage(at, 0, 0);
+    int b = 0;
+    for (int q0 = 0; q0 < stride; q0 += piece, b ^= 1) {
+      if (q0 + piece < stride) stage(at, q0 + piece, b ^ 1);
+      else asm volatile("cp.async.commit_group;\n" ::);
+      asm volatile("cp.async.wait_group 1;\n" ::);
+      __syncwarp();
+      const int* r = rows + b * 32 * pitch;
+      const int words = (stride - q0 < piece ? stride - q0 : piece) / 4;
+      for (int e = lane; e < 32 * words; e += 32) {
+        const int row = e / words, k = e % words, to = dest[row];
+        if (to >= 0)
+          reinterpret_cast<int4*>(out + int64_t(to) * stride + q0)[k] =
+              reinterpret_cast<const int4*>(r + row * pitch)[k];
+      }
+      __syncwarp();   // buffer b is restaged two pieces on
+    }
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
 inline int check_order(int V, const int64_t* off, int G, int64_t n, int S) {
   if (V < 1 || G < 1 || int64_t(G) * V >= (int64_t(1) << 31) || S < 1 ||
       int64_t(G) * S * 32 >= (int64_t(1) << 31) || n < 0 ||
@@ -261,30 +337,37 @@ int dit_order_count(const int32_t* code, int V, const int64_t* off, int G,
 // rows of key (g, u) begin (the exclusive scan of the counts in (key,
 // segment) order); out's rows past the rows with a key are not written.
 // far: the `cols` pointers in device memory (int64, `cols`' order; the
-// x part of _build.py: far_table), needed past kOrderInline columns. A warp stages two chunks of 32 rows
-// of `stride` ints: stride and V must leave one warp's order_warp_ints in
-// shared memory (_build.py: check_order_stride). Other arguments as
-// dit_order_count. Returns 0 or a cudaError_t.
+// x part of _build.py: far_table), needed past kOrderInline columns. A
+// warp stages two chunks of 32 rows of `piece` ints: piece = stride, or
+// where that passes a warp's shared memory beside V positions, a multiple
+// of 8 below it, the rows copied a piece at a time (_build.py:
+// order_piece). Other arguments as dit_order_count. Returns 0 or a
+// cudaError_t.
 int dit_order_scatter(int key_col, int V, const int64_t* off, int G,
                       int64_t n, int S, const int32_t* start,
                       const void* const* cols, int ncols,
-                      const int64_t* far, int stride, int32_t* out,
-                      void* stream) {
+                      const int64_t* far, int stride, int piece,
+                      int32_t* out, void* stream) {
   using namespace dit;
   if (int rc = check_order(V, off, G, n, S)) return rc;
   if (ncols < 1 || (ncols > kOrderInline && far == nullptr) ||
-      stride < ncols || stride % 4 ||
+      stride < ncols || stride % 4 || piece < 4 || piece > stride ||
+      (piece < stride && piece % 8) ||
       key_col < 0 || key_col >= ncols ||
-      reinterpret_cast<uintptr_t>(out) % 16 || order_warps(V, stride) < 1)
+      reinterpret_cast<uintptr_t>(out) % 16 || order_warps(V, piece) < 1)
     return cudaErrorInvalidValue;
   OrderCols src{};
   src.ncols = ncols;
   src.far = far;
   for (int q = 0; q < ncols && q < kOrderInline; ++q)
     src.col[q] = static_cast<const int32_t*>(cols[q]);
-  return launch_order(order_scatter_kernel, V, stride, G, S,
-                      static_cast<cudaStream_t>(stream), V, key_col, off,
-                      int64_t(G) * S, n, S, start, src, stride, out);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (piece == stride)
+    return launch_order(order_scatter_kernel, V, stride, G, S, s, V, key_col,
+                        off, int64_t(G) * S, n, S, start, src, stride, out);
+  return launch_order(order_scatter_pieces_kernel, V, piece, G, S, s, V,
+                      key_col, off, int64_t(G) * S, n, S, start, src, stride,
+                      piece, out);
 }
 
 }  // extern "C"

@@ -19,6 +19,7 @@ import ctypes
 import dataclasses
 import functools
 import hashlib
+import heapq
 import itertools
 import os
 import shutil
@@ -128,6 +129,13 @@ QDA_MAX_GROUP = 4        # kQdaMaxGroup (qda_predict.cu): most classes a
 QDA_MAX_SUMS = 8         # kQdaMaxSums (qda_predict.cu): f64 sums a thread
                          # keeps in registers, rows · classes a step; the
                          # most rows a thread scores
+QDA_LOCAL_ZEROS = 128    # kQdaLocalZeros (qda_predict.cu): the zero cells
+                         # after a table of a local plan (`qda_local`),
+                         # which a missed KB cell reads
+QDA_LOCAL_TILE = 64      # columns of D's tiles and of a KB slab in a local
+                         # plan: a task of 4,096 cells holds 64 × 64 of D
+QDA_LOCAL_X = 128        # most numeric columns a task of a local plan
+                         # stages (x in f64 for each row of the tile)
 
 
 PLAN_CACHE_BYTES = 4 << 30   # most bytes of the plans kept on the host
@@ -240,7 +248,8 @@ def _declare(lib: ctypes.CDLL) -> None:
                                         p, p, p, p, p, p, p]
     lib.dit_nb_grouped_sums.restype = i
     lib.dit_qda_predict.argtypes = [p, i, p, p, i, p, p, p, p, p, i, i, i,
-                                    i64, i64, i, i, i, i, i, p, p, p]
+                                    i64, i64, i, i, i, i, i, p, p, i, i, p,
+                                    p]
     lib.dit_qda_predict.restype = i
     plan = [p] * 6   # WidePlan's tensors and its shape_ints
     lib.dit_grouped_wide_gram.argtypes = [p, i, p, p, i, p, p, p, p, i, i64,
@@ -261,8 +270,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.dit_wide_gram_keyed.restype = i
     lib.dit_order_count.argtypes = [p, i, p, i, i64, i, p, p]
     lib.dit_order_count.restype = i
-    lib.dit_order_scatter.argtypes = [i, i, p, i, i64, i, p, p, i, p, i, p,
-                                      p]
+    lib.dit_order_scatter.argtypes = [i, i, p, i, i64, i, p, p, i, p, i, i,
+                                      p, p]
     lib.dit_order_scatter.restype = i
     lib.dit_fused_impute_aggregate_wide.argtypes = [
         p, i, p, p, i, p, p, p, p, p, p, i, i, i, p, i, u32, u32, u32, i64, p,
@@ -389,17 +398,20 @@ def qda_code_bytes(schema) -> int:
     return 2 if max(schema.cat_sizes, default=0) <= QDA_SHORT_LEVELS else 4
 
 
-def qda_smem_bytes(max_cells: int, schema, tile: int,
-                   group: int = 1) -> int:
+def qda_smem_bytes(max_cells: int, schema, tile: int, group: int = 1,
+                   local_x: int | None = None) -> int:
     """Shared memory of a K3/K3w block (qda_predict.cu: qda_smem_bytes):
     two buffers of `group` f32 tables of the plan's largest task (a
     multiple of 4 cells), each followed by 1 + d zero cells rounded up to
     a 16-byte word, and a tile of `tile` rows of x (in f64) and codes
-    (`qda_code_bytes` each)."""
+    (`qda_code_bytes` each). local_x: a local plan's (`qda_local`) most
+    numeric columns of a task, which its tile stages in place of all d,
+    its tables followed by QDA_LOCAL_ZEROS zero cells."""
     d = schema.num_cols
-    stride = max_cells + (1 + d + 3) // 4 * 4
-    return (4 * 2 * group * stride
-            + tile * (8 * d + qda_code_bytes(schema) * schema.cat_cols))
+    zeros = (1 + d + 3) // 4 * 4 if local_x is None else QDA_LOCAL_ZEROS
+    return (4 * 2 * group * (max_cells + zeros)
+            + tile * (8 * (d if local_x is None else local_x)
+                      + qda_code_bytes(schema) * schema.cat_cols))
 
 
 def qda_tile(schema, plan: "WidePlan", num_classes: int
@@ -411,16 +423,23 @@ def qda_tile(schema, plan: "WidePlan", num_classes: int
     tile; a plan of one task (small tables): 256 threads, so that several
     blocks share an SM, and the most classes a step first (4, then 2), as
     a row's cells found once a step serve them all. Past shared memory:
-    one class a step and fewer rows, then fewer threads."""
+    one class a step and fewer rows, then fewer threads. A local plan
+    (`qda_local`): one row a thread and one class a step, the most threads
+    whose tile of x fits."""
     if plan.num_tasks == 1:
         threads, groups = 256, (4, 2)
     else:
         threads, groups = QDA_THREADS, (2, 4)
+    local_x = plan.max_stage_x if plan.local else None
 
     def fits(threads, rows, group):
         return qda_smem_bytes(plan.max_task_cells, schema, threads * rows,
-                              group) <= WIDE_SMEM
+                              group, local_x) <= WIDE_SMEM
 
+    if plan.local:      # x of a task's columns a step: a row a thread,
+        while threads > 32 and not fits(threads, 1, 1):   # a class a step
+            threads //= 2
+        return threads, 1, 1
     # tools/qda_variants.py --schedules, ms: at favorita_classify's family
     # (4,096 cells a task) 1024 × 4 × 2 15.67, 1024 × 2 × 4 16.06; at
     # config 4 256 × 2 × 4 0.746, 256 × 4 × 2 0.803, 256 × 8 × 1 1.174
@@ -442,35 +461,24 @@ def check_qda(schema, num_classes: int, n: int, cross: bool = True
     """Raise ValueError for a schema, class count or row count K3/K3w do
     not take: P ≤ MAX_WINDOW_SIGMA_SIZE, as K7's window plans, any levels
     a column (a cross table whose rows pass a task is cut by row code too,
-    `qda_plan`; codes past QDA_SHORT_LEVELS are staged as i32); and a tile
-    of 32 rows of x in f64 and the codes beside two buffers of a task's
-    tables in shared memory (`qda_max_numeric`: d ≤ 680 or so)."""
+    `qda_plan`; codes past QDA_SHORT_LEVELS are staged as i32), any
+    numeric columns (past a tile of 32 rows of x in f64 beside a task's
+    tables, the plan is local, `qda_local`: a task stages its own
+    columns)."""
     if num_classes < 1:
         raise ValueError(f"{num_classes} classes: at least 1 is needed")
     check_schema(schema, n, MAX_WINDOW_SIGMA_SIZE)
+
+
+def qda_local(schema, cross: bool = True) -> bool:
+    """Whether the scorer's plan is local: a tile of 32 rows of every
+    numeric column in f64 and the codes does not fit shared memory beside
+    two buffers of a task's tables (d > 756 with no categorical column),
+    so each task reads few numeric columns and the kernel stages a task's
+    columns a step (`_wide_plan`'s `local`)."""
     cells = (qda_task_cells(tuple(schema.cat_sizes)) if cross
              else QDA_TASK_CELLS)
-    if qda_smem_bytes(cells, schema, 32) > WIDE_SMEM:
-        code = qda_code_bytes(schema)
-        raise ValueError(
-            f"{schema.num_cols} numeric and {schema.cat_cols} categorical "
-            f"columns: K3/K3w stage a tile of 32 rows of x in f64 beside a "
-            f"task's tables, at most "
-            f"{qda_max_numeric(schema.cat_cols, cells, code)} numeric "
-            f"columns beside {schema.cat_cols} categorical ones")
-
-
-def qda_max_numeric(cat_cols: int, cells: int = QDA_TASK_CELLS,
-                    code_bytes: int = 2) -> int:
-    """The most numeric columns K3/K3w take beside `cat_cols` categorical
-    ones at tasks of `cells` cells: a tile of 32 rows of x (f64) and codes
-    (`code_bytes` each) and two buffers of a task's tables fit shared
-    memory."""
-    d = 0
-    while (4 * 2 * (cells + (2 + d + 3) // 4 * 4)
-           + 32 * (8 * (d + 1) + code_bytes * cat_cols)) <= WIDE_SMEM:
-        d += 1
-    return d
+    return qda_smem_bytes(cells, schema, 32) > WIDE_SMEM
 
 
 def pointers(tensors):
@@ -524,17 +532,39 @@ def int_array(values):
     return (ctypes.c_int * len(values))(*values)
 
 
-def impute_smem_bytes(schema, ld: int, batch: int) -> int:
+def impute_smem_bytes(schema, ld: int, batch: int,
+                      x_terms: bool | None = None) -> int:
     """Shared memory of a K2w 'cat' impute block (fused_impute_aggregate.cu:
     impute_smem_bytes): a class tile f32[P + 2, ld] (rounded up to 16
     bytes; none at ld = 0, W read from device memory), and per batch row
     its terms (x, then the codes' W-row offsets, each part padded to 4
     words), key, class and row index, and a compaction step's counts (one
-    a warp and a row of a thread) and total."""
+    a warp and a row of a thread) and total. x_terms False: the batch
+    rows keep no x, which the kernel reads from device memory; None: as
+    the kernel decides (`impute_x_terms`)."""
+    if x_terms is None:
+        x_terms = impute_x_terms(schema, ld, batch)
     p, d, c = schema.sigma_size, schema.num_cols, schema.cat_cols
     r4 = lambda v: (v + 3) // 4 * 4   # noqa: E731
-    return 4 * (r4((p + 2) * ld) + batch * (3 + r4(d) + r4(c))
+    return 4 * (r4((p + 2) * ld)
+                + batch * (3 + (r4(d) if x_terms else 0) + r4(c))
                 + IMP_FILL_ROWS * IMP_THREADS // 32 + 1)
+
+
+def impute_x_terms(schema, ld: int, batch: int) -> bool:
+    """Whether K2w's 'cat' impute kernel keeps a batch row's x in shared
+    memory (fused_impute_aggregate.cu: impute_x_terms): where the plan
+    fits with it; else each x is read from device memory as the row is
+    scored, in the same order."""
+    return impute_smem_bytes(schema, ld, batch, True) <= WIDE_SMEM
+
+
+def _impute_batch(schema, ld: int, cap: int, x_terms: bool) -> int:
+    """The most null rows a batch, in whole warps, up to `cap`, beside a
+    class tile of ld classes (0: W in device memory)."""
+    fixed = impute_smem_bytes(schema, ld, 0, x_terms)
+    per_row = impute_smem_bytes(schema, ld, 1, x_terms) - fixed
+    return min(cap, (WIDE_SMEM - fixed) // per_row // 32 * 32)
 
 
 def impute_plan(schema, r: int) -> tuple[int, int, int]:
@@ -546,18 +576,19 @@ def impute_plan(schema, r: int) -> tuple[int, int, int]:
     IMP_TILED_BATCH rows (tools/k2_times.py --plans: at favorita_wide,
     R = 337, 64 classes a tile beat 32); else 32 classes. The batch is the
     most rows that fit, up to IMP_BATCH (IMP_WHOLE_BATCH for W whole), in
-    whole warps."""
+    whole warps. Where none fits with each batch row's x in shared memory
+    (d ≥ 881 at R = 33), the same choice with x read from device memory
+    (`impute_x_terms`)."""
     cands = []
     if r <= 32 * IMP_MAX_M:
         cands.append((r, IMP_WHOLE_BATCH, 32))
     cands += [(32 * m, IMP_BATCH, IMP_TILED_BATCH) for m in (IMP_MAX_M, 2)]
     cands.append((32, IMP_BATCH, 32))
-    for ld, cap, least in cands:
-        fixed = impute_smem_bytes(schema, ld, 0)
-        per_row = impute_smem_bytes(schema, ld, 1) - fixed
-        batch = min(cap, (WIDE_SMEM - fixed) // per_row // 32 * 32)
-        if batch >= least:
-            return ld, -(-ld // 32), batch
+    for x_terms in (True, False):
+        for ld, cap, least in cands:
+            batch = _impute_batch(schema, ld, cap, x_terms)
+            if batch >= least:
+                return ld, -(-ld // 32), batch
     raise ValueError(f"K2w: no impute plan fits shared memory at P = "
                      f"{schema.sigma_size}")
 
@@ -567,11 +598,12 @@ def impute_global_plan(schema, r: int) -> tuple[int, int, int]:
     MAX_WIDE_SIGMA_SIZE, W read from device memory (`dit_impute_wide`):
     tiles of ld = 32·M classes, M = ceil(R / 32) up to IMP_MAX_M, and
     IMP_BATCH null rows a batch, or the most whole warps shared memory
-    holds beside no class tile."""
+    holds beside no class tile; where not 32 rows of x fit (d ≥ 1,801),
+    x is read from device memory (`impute_x_terms`)."""
     m = min(IMP_MAX_M, -(-r // 32))
-    fixed = impute_smem_bytes(schema, 0, 0)
-    per_row = impute_smem_bytes(schema, 0, 1) - fixed
-    batch = min(IMP_BATCH, (WIDE_SMEM - fixed) // per_row // 32 * 32)
+    batch = _impute_batch(schema, 0, IMP_BATCH, True)
+    if batch < 32:
+        batch = _impute_batch(schema, 0, IMP_BATCH, False)
     if batch < 32:
         raise ValueError(f"K2w: no impute plan fits shared memory at P = "
                          f"{schema.sigma_size}")
@@ -631,11 +663,15 @@ def group_chunks(offsets: torch.Tensor, rows: int) -> torch.Tensor:
     return torch.cat([chunks.new_zeros(1), torch.cumsum(chunks, 0)])
 
 
-# Slab kinds of the wide plan, kSlabD, kSlabK, kSlabC, kSlabCR, kSlabCM and
-# kSlabCB (wide_gram.cuh; CR only in a window's keyed tasks, CM only where a
-# schema has more than CM_TABLES cross tables, CB only where both columns of
-# a cross table have more levels than a task's cells)
-SLAB_D, SLAB_K, SLAB_C, SLAB_CR, SLAB_CM, SLAB_CB = 0, 1, 2, 3, 4, 5
+# Slab kinds of the wide plan, kSlabD, kSlabK, kSlabC, kSlabCR, kSlabCM,
+# kSlabCB and kSlabKB (wide_gram.cuh; CR only in a window's keyed tasks, CM
+# only where a schema has more than CM_TABLES cross tables, CB only where
+# both columns of a cross table have more levels than a task's cells, KB
+# only where a task staging every numeric column beside a code column passes
+# shared memory, `_k_cols`)
+SLAB_D, SLAB_K, SLAB_C, SLAB_CR, SLAB_CM, SLAB_CB, SLAB_KB = range(7)
+KB_COLS = 128        # most columns of [1 ‖ x] a KB slab holds: the width of
+                     # D's tiles in `_pack_local`, whose columns it reads
 CM_TABLES = 4096     # cross tables past which the small ones of one key
                      # column merge into CM slabs (`_cross_runs`): SECOM's
                      # stream fold has 173,755 of one cell (590 null flags)
@@ -668,21 +704,29 @@ class WidePlan:
     leading key into slabs of equal key ranges; where even one key's row
     (V_k cells) passes a task, by row code too, into slabs (CB, j, k,
     u_lo, u_hi) of rows [v_lo, v_hi), cell (u − u_lo)·(v_hi − v_lo) + v −
-    v_lo (`_row_cut`).
+    v_lo (`_row_cut`). Where a task staging every numeric column beside a
+    code column passes shared memory (`_k_cols`: d ≥ 835), K_j is cut by
+    column range of [1 ‖ x] too, into slabs (KB, j, v_lo, v_hi, a_lo,
+    a_hi) of columns [a_lo, a_hi), cell (v − v_lo)·(a_hi − a_lo) + a − a_lo
+    ((a − a_lo)·(v_hi − v_lo) + v − v_lo in the scorer's plan), so that its
+    task stages only those columns.
 
     slabs i32[S, WIDE_SLAB_INTS]: (kind, p0, p1, p2, p3, off, task, warp),
       sorted by (task, warp); off is the slab's first cell in its task's
       table, and a warp's slabs lie next to each other.
     slots i32[S, 4]: the stage slots a slab reads (0: w, 1 .. nx: the task's
       numeric columns, then its code columns): D (a, b_lo, b_hi) x_a's
-      slot (0 for a = 0) and s with x_b at slot s + b; K j's codes (and x
-      at slots 1 .. d: a task with a K slab stages every numeric column);
+      slot (0 for a = 0) and s with x_b at slot s + b; K and KB j's codes
+      and s with x_a at slot s + a (K's 0: a task with a K slab stages
+      every numeric column), then their columns a_lo, a_hi of [1 ‖ x] (a
+      K slab's 0, 1 + d);
       C, CB and CR the key's and the row column's; CM the key's and k_lo's
       (k's at that + k − k_lo); then a C or CB slab's rows v_lo, v_hi (a
       C slab's 0, V_k). The kernel's records carry the slots in place of
-      (task, warp), and a C or CB slab's v_lo, v_hi in place of its two
-      columns, whose codes its slots name (`device_slabs`): the kernel
-      reads a C slab as the CB slab of every row.
+      (task, warp), a C or CB slab's v_lo, v_hi in place of its two
+      columns, whose codes its slots name, and a KB slab's a_hi in place
+      of j (`device_slabs`): the kernel reads a C slab as the CB slab of
+      every row.
     warp_begin i32[T·WIDE_WARPS + 1]: warp w of task t owns the slabs
       warp_begin[t·W + w] .. warp_begin[t·W + w + 1].
     task_base i64[T + 1]: task t's cells are task_base[t] ..
@@ -714,6 +758,9 @@ class WidePlan:
     window: tuple[int, int] | None = None  # [lo, hi): a window's plan
                            # (`window_plan`), whose map lists one place
                            # (i, j), lo ≤ j < hi, an entry
+    local: bool = False    # a scorer's plan whose tasks each read few
+                           # numeric columns (`qda_local`): K3/K3w stage a
+                           # task's columns a step (`stage_cols`)
 
     @property
     def num_tasks(self) -> int:
@@ -727,11 +774,19 @@ class WidePlan:
     def device_slabs(self) -> torch.Tensor:
         """The slab records the kernel reads: (kind, p0 .. p3, off, and
         the two stage slots of `slots` in place of task and warp), a C or
-        CB slab's p0, p1 its rows v_lo, v_hi (a C slab's 0, V_k)."""
+        CB slab's p0, p1 its rows v_lo, v_hi (a C slab's 0, V_k), a KB
+        slab's p0 its end column a_hi."""
         out = torch.cat([self.slabs[:, :6], self.slots[:, :2]], 1)
         c = (out[:, 0] == SLAB_C) | (out[:, 0] == SLAB_CB)
         out[c, 1:3] = self.slots[c, 2:4]
+        kb = out[:, 0] == SLAB_KB
+        out[kb, 1] = self.slots[kb, 3]
         return out.contiguous()
+
+    @property
+    def max_stage_x(self) -> int:
+        """The most numeric columns a task stages."""
+        return int(self.stage_cols[:, 0].max())
 
     @property
     def smem_bytes(self) -> int:
@@ -829,9 +884,12 @@ def _slab_cost(kind: int, cells: int, d: int) -> int:
 
 
 def _piece_cost(piece, d: int) -> int:
-    """`_slab_cost` of a piece; a CM slab costs a C slab a row column."""
+    """`_slab_cost` of a piece; a CM slab costs a C slab a row column, a
+    KB slab a K slab of its columns."""
     if piece[0] == SLAB_CM:
         return 20 * (piece[1][2] - piece[1][1])
+    if piece[0] == SLAB_KB:
+        return 16 + 4 * (piece[1][4] - piece[1][3])
     return _slab_cost(piece[0], piece[2], d)
 
 
@@ -839,8 +897,10 @@ def _pack_tasks(cells: list[int], cap: int) -> list[list[int]]:
     """Slabs of `cells` cells each into tasks of at most `cap` cells and
     WIDE_MAX_SLABS slabs."""
     # tasks: as few as the budget allows; the largest slab first, each to
-    # the task with room that holds the fewest slabs (a block takes as long
-    # as its busiest warp)
+    # the task with room that holds the fewest slabs, then the fewest
+    # cells, then the lowest index (a block takes as long as its busiest
+    # warp): a heap of (slabs, cells, task), the tasks without room for a
+    # slab set aside while it is placed (a full one for good)
     order = sorted(range(len(cells)), key=lambda i: -cells[i])
     # no two slabs of more than half the budget share a task: each of them
     # (they come first) takes the next empty task, as the rule below would
@@ -852,51 +912,87 @@ def _pack_tasks(cells: list[int], cap: int) -> list[list[int]]:
         for t, i in enumerate(order[:big]):
             tasks[t].append(i)
             used[t] = cells[i]
+        heap = [(len(tasks[t]), used[t], t) for t in range(count)]
+        heapq.heapify(heap)
         for i in order[big:]:
-            room = [t for t in range(count) if used[t] + cells[i] <= cap
-                    and len(tasks[t]) < WIDE_MAX_SLABS]
-            if not room:
+            aside = []
+            while heap:
+                slabs, cells_t, t = heapq.heappop(heap)
+                if cells_t + cells[i] <= cap:
+                    break
+                if cells_t < cap:
+                    aside.append((slabs, cells_t, t))
+            else:
                 break
-            t = min(room, key=lambda t: (len(tasks[t]), used[t]))
             tasks[t].append(i)
             used[t] += cells[i]
+            if slabs + 1 < WIDE_MAX_SLABS:
+                heapq.heappush(heap, (slabs + 1, used[t], t))
+            for e in aside:
+                heapq.heappush(heap, e)
         else:
             return tasks
         count += 1
 
 
+def _k_room(d: int) -> int:
+    """The cells a task has room for where it stages, at WIDE_CHUNK rows a
+    stage, w, the d numerics and a code column: what a K slab reads."""
+    cols = 2 + d
+    return (WIDE_SMEM - 4 * (2 * cols * WIDE_CHUNK + WIDE_SLAB_INTS
+                             * WIDE_MAX_SLABS + cols + 1
+                             + 2 * WIDE_STAGE_ROWS // WIDE_CHUNK)) // 8
+
+
 def _column_cap(d: int, sizes: tuple[int, ...], cap: int) -> int:
     """The cells of a task where a K slab stages every numeric column: as
     many as leave room at WIDE_CHUNK rows a stage for w, the d numerics
-    and a code column beside them (`cap` up to d ≈ 600; ValueError where
-    not one key's row of K_j, 1 + d cells, fits)."""
-    if not sizes:
+    and a code column beside them (`cap` up to d ≈ 600); `cap` itself
+    where not one key's row of K_j, 1 + d cells, fits (d ≥ 835): K_j is
+    then cut by column range into KB slabs (`_k_cols`), whose tasks stage
+    few columns."""
+    if not sizes or _k_room(d) < 1 + d:
         return cap
-    cols = 2 + d
-    room = (WIDE_SMEM - 4 * (2 * cols * WIDE_CHUNK + WIDE_SLAB_INTS
-                             * WIDE_MAX_SLABS + cols + 1
-                             + 2 * WIDE_STAGE_ROWS // WIDE_CHUNK)) // 8
-    if room < 1 + d:
-        raise ValueError(
-            f"{d} numeric columns beside a categorical one: K7/K8 stage a "
-            f"task's numeric columns for a K_j table in shared memory, at "
-            f"most {max_numeric_beside_codes()} beside a code column")
-    return min(cap, room)
+    return min(cap, _k_room(d))
 
 
-def max_numeric_beside_codes() -> int:
-    """The most numeric columns K7/K8 take beside a categorical column
-    (`_column_cap`): a key's row of K_j and the staged columns of a task
-    fit a block's shared memory."""
-    d = 0
-    while True:
-        cols = 3 + d
-        room = (WIDE_SMEM - 4 * (2 * cols * WIDE_CHUNK + WIDE_SLAB_INTS
-                                 * WIDE_MAX_SLABS + cols + 1
-                                 + 2 * WIDE_STAGE_ROWS // WIDE_CHUNK)) // 8
-        if room < 2 + d:
-            return d
-        d += 1
+def _k_cols(d: int, cap: int) -> int:
+    """Columns of [1 ‖ x] a slab of K_j holds in K7's and K8's plans: all
+    1 + d (K slabs) where a key's row beside every staged numeric column
+    fits a task (`_column_cap`); else min(KB_COLS, cap), KB slabs of
+    `_k_ranges`."""
+    return 1 + d if _k_room(d) >= 1 + d else min(KB_COLS, cap)
+
+
+def _k_ranges(d: int, width: int) -> list[tuple[int, int]]:
+    """[a_lo, a_hi) of K_j's slabs: the columns of [1 ‖ x] cut at the
+    multiples of `width`."""
+    return [(a, min(a + width, 1 + d)) for a in range(0, 1 + d, width)]
+
+
+def _k_piece(j: int, lo: int, hi: int, a_lo: int, a_hi: int, base: int,
+             scorer: bool, whole: bool, places=None):
+    """The slab of K_j over keys [lo, hi) and columns [a_lo, a_hi): K
+    where it holds every column (`whole`), else KB; each cell (v, a) at
+    S[a, base + v] and, at a = 0, the one-hot diagonal S[base + v, base +
+    v]. places: a window's (lo, hi), whose places alone are mapped."""
+    w = a_hi - a_lo
+    v = np.repeat(_ar(lo, hi), w)
+    a = np.tile(_ar(a_lo, a_hi), hi - lo)
+    cell = ((a - a_lo) * (hi - lo) + v - lo if scorer
+            else (v - lo) * w + a - a_lo)
+    diag = base + (_ar(lo, hi) if a_lo == 0 else _ar(0, 0))
+    dcell = cell[a == 0]
+    if places is None:
+        local = np.concatenate([np.stack([cell, a, base + v]),
+                                np.stack([dcell, diag, diag])], 1)
+    else:
+        on = (diag >= places[0]) & (diag < places[1])
+        local = np.concatenate([_places(*places, cell, a, base + v),
+                                np.stack([dcell, diag, diag])[:, on]], 1)
+    if whole:
+        return (SLAB_K, (j, lo, hi, 0), (hi - lo) * w, local)
+    return (SLAB_KB, (j, lo, hi, a_lo, a_hi), (hi - lo) * w, local)
 
 
 @functools.lru_cache(maxsize=32)
@@ -942,32 +1038,47 @@ def _cm_piece(sizes: tuple[int, ...], base: list[int], j: int, k_lo: int,
     return (SLAB_CM, (j, k_lo, k_hi, 0), sizes[j] * width, local)
 
 
+def _dense_cuts(d: int, a: int, aligned: bool) -> list[int]:
+    """Where row a of D, columns a .. d of [1 ‖ x], is cut into slabs of at
+    most WIDE_CHUNK cells: every WIDE_CHUNK from a, or (`aligned`) at the
+    multiples of WIDE_CHUNK, so that a tile of D's columns holds whole
+    slabs (the scorer's local plan)."""
+    if not aligned:
+        return list(range(a, 1 + d, WIDE_CHUNK)) + [1 + d]
+    return ([a] + list(range((a // WIDE_CHUNK + 1) * WIDE_CHUNK, 1 + d,
+                             WIDE_CHUNK)) + [1 + d])
+
+
 @plan_cache
 def _wide_plan(d: int, sizes: tuple[int, ...], cross: bool = True,
-               scorer: bool = False, cap: int = WIDE_TASK_BYTES // 8
-               ) -> WidePlan:
+               scorer: bool = False, cap: int = WIDE_TASK_BYTES // 8,
+               local: bool = False) -> WidePlan:
+    """local: the scorer's plan where x of a tile of rows does not fit
+    beside its tables (`qda_local`): D's slabs aligned to WIDE_CHUNK
+    columns and K_j cut into KB slabs of QDA_LOCAL_TILE columns, packed
+    into tasks of QDA_LOCAL_X numeric columns at most (`_pack_local`);
+    without C_jk (naive Bayes), of D only row 0 and the diagonal, of K_j
+    only the counts (what the scorer reads of NB's tables)."""
     if not scorer:
         cap = _column_cap(d, sizes, cap)
+        kw = _k_cols(d, cap)
+    else:
+        kw = 1 + d if not local else QDA_LOCAL_TILE if cross else 1
     base = _bases(d, sizes)
     pieces = []                 # (kind, params, cells, local entries)
+    nb_local = local and not cross
     for a in range(1 + d):
-        for lo in range(a, 1 + d, WIDE_CHUNK):
-            hi = min(lo + WIDE_CHUNK, 1 + d)
+        cuts = (_dense_cuts(d, a, local) if not nb_local or a == 0
+                else [a, a + 1])
+        for lo, hi in zip(cuts[:-1], cuts[1:]):
             b = _ar(lo, hi)
             pieces.append((SLAB_D, (a, lo, hi, 0), hi - lo,
                            np.stack([b - lo, np.full_like(b, a), b])))
     for j, size in enumerate(sizes):
-        for lo, hi in _split(size, 1 + d, cap):
-            v = np.repeat(_ar(lo, hi), 1 + d)
-            a = np.tile(_ar(0, 1 + d), hi - lo)
-            cell = (a * (hi - lo) + v - lo if scorer
-                    else (v - lo) * (1 + d) + a)
-            diag = _ar(lo, hi)
-            pieces.append((SLAB_K, (j, lo, hi, 0), (hi - lo) * (1 + d),
-                           np.concatenate([np.stack([cell, a, base[j] + v]),
-                                           np.stack([cell[a == 0],
-                                                     base[j] + diag,
-                                                     base[j] + diag])], 1)))
+        for a_lo, a_hi in _k_ranges(d, kw)[:1 if nb_local else None]:
+            for lo, hi in _split(size, a_hi - a_lo, cap):
+                pieces.append(_k_piece(j, lo, hi, a_lo, a_hi, base[j],
+                                       scorer, kw == 1 + d))
     merge = cross and not scorer and _cross_count(sizes) > CM_TABLES
     for j in range(len(sizes) if cross else 0):
         run: list[int] = []
@@ -985,6 +1096,10 @@ def _wide_plan(d: int, sizes: tuple[int, ...], cross: bool = True,
                 _cm_run(sizes, j, run, k, cap)
             elif k < len(sizes):
                 pieces += _cross_pieces(sizes, base, j, k, cap)
+    if local:
+        return _plan_of(pieces, d, cross, scorer, cap, local_plan=True,
+                        tasks=_pack_local(pieces, d, cap, QDA_LOCAL_TILE,
+                                          lambda nx, nc: nx <= QDA_LOCAL_X))
     return _plan_of(pieces, d, cross, scorer, cap)
 
 
@@ -1043,14 +1158,17 @@ def qda_task_cells(sizes: tuple[int, ...]) -> int:
 
 def _piece_columns(piece, d: int) -> tuple[range | set, set]:
     """(numeric, code) columns a slab reads: D's x_a and x_b (Z index a is
-    x column a − 1), K_j every numeric column and j's codes, C and CR their
-    two columns, CM its key and row columns."""
+    x column a − 1), K_j every numeric column and j's codes, KB its
+    columns' and j's codes, C and CR their two columns, CM its key and row
+    columns."""
     kind, p = piece[0], piece[1]
     if kind == SLAB_D:
         return ({p[0] - 1} if p[0] else set()) | set(
             range(max(p[1], 1) - 1, p[2] - 1)), set()
     if kind == SLAB_K:
         return range(d), {p[0]}
+    if kind == SLAB_KB:
+        return set(range(max(p[3], 1) - 1, p[4] - 1)), {p[0]}
     if kind == SLAB_CM:
         return set(), {p[0], *range(p[1], p[2])}
     return set(), {p[0], p[1]}
@@ -1071,17 +1189,22 @@ def _task_stage(pieces: list, members: list[int], d: int
     return sorted(xs), sorted(cs)
 
 
-def _piece_slots(piece, xslot: dict, cslot: dict
+def _piece_slots(piece, xslot: dict, cslot: dict, d: int
                  ) -> tuple[int, int, int, int]:
     """The two stage slots of a slab, then a C or CB slab's rows v_lo,
-    v_hi (a C slab's 0, V_k; `WidePlan.slots`)."""
+    v_hi (a C slab's 0, V_k), a K or KB slab's columns a_lo, a_hi (a K
+    slab's 0, 1 + d; `WidePlan.slots`)."""
     kind, p = piece[0], piece[1]
     if kind == SLAB_D:
         b0 = max(p[1], 1)
         return (xslot[p[0] - 1] if p[0] else 0,
                 xslot[b0 - 1] - b0 if b0 < p[2] else 0, 0, 0)
     if kind == SLAB_K:
-        return cslot[p[0]], 0, 0, 0
+        return cslot[p[0]], 0, 0, 1 + d
+    if kind == SLAB_KB:
+        a0 = max(p[3], 1)
+        return (cslot[p[0]], xslot[a0 - 1] - a0 if a0 < p[4] else 0, p[3],
+                p[4])
     if kind == SLAB_CB:
         return cslot[p[0]], cslot[p[1]], p[4], p[5]
     levels = piece[2] // (p[3] - p[2]) if kind == SLAB_C else 0
@@ -1104,17 +1227,27 @@ def _layout_rows(pieces: list, tasks: list[list[int]], d: int,
     return _stage_rows(cells, cols, max(map(len, tasks)), cols + 1)
 
 
-def _pack_local(pieces: list, d: int, cap: int) -> list[list[int]]:
+def _pack_local(pieces: list, d: int, cap: int, width: int = KB_COLS,
+                fits=None) -> list[list[int]]:
     """Slabs into tasks that each stage few columns, for a schema whose
     tasks of `_pack_tasks` (which spreads a table's slabs over its tasks)
-    would stage more than shared memory holds: D's slabs in tiles of 128
-    of its columns by its rows, the other slabs in the order they were
-    made (a table's key ranges, then the next table), each task filled in
-    that order up to `cap` cells, WIDE_MAX_SLABS slabs and the columns
-    that leave room for stages of WIDE_CHUNK rows."""
+    would stage more than shared memory holds: D's slabs in tiles of
+    `width` of its columns by its rows, each tile's KB slabs after them,
+    the other slabs in the order they were made (a table's key ranges,
+    then the next table), each task filled in that order up to `cap`
+    cells, WIDE_MAX_SLABS slabs and the columns that `fits(numeric, code)`
+    takes (by default, those that leave room for K7's stages of WIDE_CHUNK
+    rows)."""
+    if fits is None:
+        def fits(nx, nc):
+            cols = 1 + nx + nc
+            return _stage_rows(cap, cols, WIDE_MAX_SLABS, cols + 1) > 0
+
     def tile(i):
         kind, p = pieces[i][0], pieces[i][1]
-        return (0, p[1] // 128, p[0], p[1]) if kind == SLAB_D else (1, i)
+        if kind == SLAB_D:
+            return (0, p[1] // width, p[0], p[1])
+        return (0, p[3] // width, 1 + d, i) if kind == SLAB_KB else (1, i)
     order = sorted(range(len(pieces)), key=tile)
     tasks: list[list[int]] = []
     members: list[int] = []
@@ -1126,11 +1259,9 @@ def _pack_local(pieces: list, d: int, cap: int) -> list[list[int]]:
         x2 = set(range(d)) if isinstance(x, range) or len(xs) == d \
             else xs | x
         c2 = cs | c
-        cols = 1 + len(x2) + len(c2)
-        fits = (cells + pieces[i][2] <= cap
-                and len(members) < WIDE_MAX_SLABS
-                and _stage_rows(cap, cols, WIDE_MAX_SLABS, cols + 1) > 0)
-        if members and not fits:
+        room = (cells + pieces[i][2] <= cap
+                and len(members) < WIDE_MAX_SLABS and fits(len(x2), len(c2)))
+        if members and not room:
             tasks.append(members)
             members, xs, cs, cells = [], set(), set(), 0
             x, c = _piece_columns(pieces[i], d)
@@ -1145,7 +1276,8 @@ def _pack_local(pieces: list, d: int, cap: int) -> list[list[int]]:
 
 def _plan_of(pieces: list, d: int, cross: bool, scorer: bool, cap: int,
              window: tuple[int, int] | None = None,
-             tasks: list[list[int]] | None = None) -> WidePlan:
+             tasks: list[list[int]] | None = None,
+             local_plan: bool = False) -> WidePlan:
     """The plan of `pieces` (kind, params, cells, local entries: i32[3,
     m] of (cell, i, j), or a `_Grid`): the slabs packed into tasks (or the given `tasks`, lists
     of the pieces' indices), each task's slabs to its warps, the map
@@ -1185,7 +1317,7 @@ def _plan_of(pieces: list, d: int, cross: bool, scorer: bool, cap: int,
             for i in by_warp[w]:
                 kind, params, cells, local = pieces[i]
                 slabs.append((kind, *params[:4], off, t, w))
-                slots.append(_piece_slots(pieces[i], xslot, cslot))
+                slots.append(_piece_slots(pieces[i], xslot, cslot, d))
                 locals_.append(local if isinstance(local, _Grid)
                                else _by_cell(local))
                 at.append((t, off))
@@ -1223,7 +1355,8 @@ def _plan_of(pieces: list, d: int, cross: bool, scorer: bool, cap: int,
                                  for r in stage_cols], dtype=torch.int32),
         slots=torch.tensor(slots, dtype=torch.int32).reshape(-1, 4),
         max_stage_cols=max_cols, max_slabs=max_slabs, stage_rows=rows,
-        cross=cross, scorer=scorer, task_cells=cap, window=window)
+        cross=cross, scorer=scorer, task_cells=cap, window=window,
+        local=local_plan)
 
 
 def _window_tables(d: int, sizes: tuple[int, ...], lo: int, hi: int,
@@ -1236,7 +1369,9 @@ def _window_tables(d: int, sizes: tuple[int, ...], lo: int, hi: int,
 
     D: a slab where one of its places lies in the window. K_j: every key
     where a column of [1 ‖ x] lies in the window (its row of the table is
-    a row of S), else the keys whose one-hot columns do. C_jk (j < k),
+    a row of S), else the keys whose one-hot columns do; cut into KB
+    tables of column ranges (`_k_cols`), the ranges with a place in the
+    window. C_jk (j < k),
     with A and B the window's keys of j and of k: the whole table when
     |A|·V_k + |B|·V_j ≥ V_j·V_k, keyed on the column of more levels (rows
     of the fewer pack the tasks fuller), each cell to its places in the
@@ -1265,7 +1400,7 @@ def _window_tables(d: int, sizes: tuple[int, ...], lo: int, hi: int,
     A table is (kind, key column, row column (−1 for K_j; CM: the first),
     first key, end key, cells a key, whether its cells fill places on both
     sides, first row code (CR and a C table cut by row code; CM: its end
-    row column; else 0))."""
+    row column; KB: its first column; else 0))."""
     base = _bases(d, sizes)
     merge = _cross_count(sizes) > CM_TABLES
     cap = _column_cap(d, sizes, cap)
@@ -1285,10 +1420,16 @@ def _window_tables(d: int, sizes: tuple[int, ...], lo: int, hi: int,
             if local.shape[1]:
                 dense.append((SLAB_D, (a, blo, bhi, 0), bhi - blo, local))
     tables = []
+    kw = _k_cols(d, cap)
     for j, size in enumerate(sizes):
         klo, khi = (0, size) if lo < 1 + d else keys(j)
-        if khi > klo:
+        if khi > klo and kw == 1 + d:
             tables.append((SLAB_K, j, -1, klo, khi, 1 + d, True, 0))
+        elif khi > klo:     # KB: the column ranges with a place here
+            on = keys(j)[1] > keys(j)[0]
+            tables += [(SLAB_KB, j, -1, klo, khi, a_hi - a_lo, True, a_lo)
+                       for a_lo, a_hi in _k_ranges(d, kw)
+                       if on or max(a_lo, lo) < min(a_hi, hi)]
     win = [keys(j) for j in range(len(sizes))]
     for j in range(len(sizes)):
         run: list[int] = []
@@ -1384,16 +1525,9 @@ def _table_piece(table, d: int, sizes: tuple[int, ...], lo: int, hi: int,
     if kind == SLAB_CM:     # all of the key's levels (`_cm_run`)
         assert (u_lo, u_hi) == (0, sizes[key])
         return _cm_piece(sizes, _bases(d, sizes), key, row, v_lo, lo, hi)
-    if kind == SLAB_K:
-        v = np.repeat(_ar(u_lo, u_hi), 1 + d)
-        a = np.tile(_ar(0, 1 + d), u_hi - u_lo)
-        diag = b_key + _ar(u_lo, u_hi)
-        on = (diag >= lo) & (diag < hi)
-        return (SLAB_K, (key, u_lo, u_hi, 0), (u_hi - u_lo) * (1 + d),
-                np.concatenate([_places(lo, hi, (v - u_lo) * (1 + d) + a, a,
-                                        b_key + v),
-                                np.stack([(diag - b_key - u_lo) * (1 + d),
-                                          diag, diag])[:, on]], 1))
+    if kind in (SLAB_K, SLAB_KB):
+        return _k_piece(key, u_lo, u_hi, v_lo, v_lo + row_cells, b_key,
+                        False, kind == SLAB_K, (lo, hi))
     b_row = _bases(d, sizes)[row]
     grid = _Grid((u_hi - u_lo, row_cells, b_key + u_lo, b_row + v_lo,
                   kind == SLAB_CR))
@@ -1605,9 +1739,10 @@ def _keyed_window_plan(d: int, sizes: tuple[int, ...], lo: int, hi: int,
         mine = sorted((tb for tb in tables if tb[1] == j),
                       key=lambda tb: -tb[5])
         packed: list[list] = []
-        for tb in mine:                 # first fit, the widest first
-            room = [ly for ly in packed
-                    if sum(t[5] for t in ly) + tb[5] <= cap]
+        for tb in mine:                 # first fit, the widest first; a KB
+            room = [ly for ly in packed  # table a layer of its own
+                    if sum(t[5] for t in ly) + tb[5] <= cap
+                    and SLAB_KB not in (tb[0], ly[0][0])]
             if room:
                 room[0].append(tb)
             else:
@@ -1669,26 +1804,32 @@ def item_chunks(n: int) -> int:
 def check_order_stride(levels: int, stride: int) -> None:
     """Raise ValueError where an order pass (window_order.cu) cannot stage
     its rows: a warp keeps `levels` counters and two chunks of 32 rows of
-    `stride` ints (each row padded by 4) in a block's shared memory, so
-    1 + d + c passes about 880 − V/64 columns only where a keyed
-    column's copy is made past P = 1,024 (`order_max_stride`)."""
-    if 4 * order_warp_ints(levels, stride) > WIDE_SMEM:
+    a piece of the row (`order_piece`, each row padded by 4) in a block's
+    shared memory, so a row of any width is copied in pieces; only a
+    column of so many levels that its counters and a piece of 8 ints do
+    not fit is refused."""
+    if 4 * order_warp_ints(levels, 8) > WIDE_SMEM:
         raise ValueError(
-            f"the window order copies rows of {stride} ints beside "
-            f"{levels} counters: a warp's stage takes at most "
-            f"{order_max_stride(levels)} ints a row")
+            f"the window order keeps {levels} counters beside its rows: "
+            f"a warp's shared memory does not hold them")
 
 
-def order_warp_ints(levels: int, stride: int) -> int:
+def order_warp_ints(levels: int, piece: int) -> int:
     """Ints of shared memory an order warp keeps (window_order.cu:
-    order_warp_ints)."""
-    return (levels + 3) // 4 * 4 + 32 + 64 * (stride + 4)
+    order_warp_ints) for rows staged a piece of `piece` ints at a time."""
+    return (levels + 3) // 4 * 4 + 32 + 64 * (piece + 4)
 
 
-def order_max_stride(levels: int) -> int:
-    """The widest row (`order_stride`) an order pass of a column of
-    `levels` levels stages."""
-    return (WIDE_SMEM // 4 - (levels + 3) // 4 * 4 - 32) // 64 - 4
+def order_piece(levels: int, stride: int) -> int:
+    """Ints of a row an order warp stages and writes at a time
+    (window_order.cu): the whole row of `stride` ints where two chunks of
+    32 of them fit beside the column's `levels` counters, else the most
+    whole 32-byte sectors that do (a row of 1 + d + c past about 880 −
+    V/64 ints, copied in pieces)."""
+    check_order_stride(levels, stride)
+    if 4 * order_warp_ints(levels, stride) <= WIDE_SMEM:
+        return stride
+    return ((WIDE_SMEM // 4 - (levels + 3) // 4 * 4 - 32) // 64 - 4) // 8 * 8
 
 
 def order_stride(cols: int) -> int:
@@ -1750,10 +1891,13 @@ def qda_plan(schema, cross: bool = True) -> WidePlan:
     of K_j only row 0 (the rest of its cells are zero in NB's tables).
     A cross table whose rows would pass a task is keyed on its column of
     more levels (`_cross_keys`); where even the narrower column passes
-    QDA_TASK_CELLS the tasks grow to it (`qda_task_cells`)."""
+    QDA_TASK_CELLS the tasks grow to it (`qda_task_cells`). Where x of a
+    tile of rows does not fit beside the tables (`qda_local`), the plan is
+    local: its tasks read QDA_LOCAL_X numeric columns at most."""
     sizes = tuple(schema.cat_sizes)
     return _wide_plan(schema.num_cols, sizes, cross, True,
-                      qda_task_cells(sizes) if cross else QDA_TASK_CELLS)
+                      qda_task_cells(sizes) if cross else QDA_TASK_CELLS,
+                      qda_local(schema, cross))
 
 
 @dataclasses.dataclass(frozen=True)

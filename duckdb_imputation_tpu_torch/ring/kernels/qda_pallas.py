@@ -131,11 +131,12 @@ def class_scores_plain(tables, plan: _build.WidePlan, x_num, codes, *,
     """Each class's scores f64[n] in turn, as the kernel sums them: each
     row's cells in the plan's order (task, slab, cell), each term the cell
     times the row's values (z_a·z_b for D, z_a for K, 1 for C and CB), in
-    f64, added in f64; every class's sum a term at a time, so no term
-    outlives its slab. A code outside [0, size) adds no cell, nor a code
-    outside a CB slab's rows. shift: f32[d] or None, taken from x in f64
-    first. On naive Bayes's plan (cross=False) only D's row 0 and diagonal
-    and K's row 0 are read: its other cells are zero."""
+    f64, added in f64 one after another. A code outside [0, size) adds no
+    cell, nor a code outside a CB slab's rows. shift: f32[d] or None,
+    taken from x in f64 first. On naive Bayes's plan (cross=False) only
+    D's row 0 and diagonal and K's row 0 are read: its other cells are
+    zero. A slab's terms are formed together (up to TERMS_AT_ONCE of them)
+    and added in order (`_add_in_order`)."""
     d = schema.num_cols
     ref = x_num if d else codes
     n, device = ref.shape[-1], ref.device
@@ -143,31 +144,34 @@ def class_scores_plain(tables, plan: _build.WidePlan, x_num, codes, *,
     xs = [x.to(f64) for x in x_num]
     if shift is not None:
         xs = [x - s for x, s in zip(xs, shift.to(f64))]
-    z = [torch.ones(n, dtype=f64, device=device)] + xs   # [1 ‖ x] in f64
+    z = torch.stack([torch.ones(n, dtype=f64, device=device)] + xs)
     codes = [c.long() for c in codes]
     ok = [(c >= 0) & (c < size) for c, size in zip(codes, schema.cat_sizes)]
     table = tables.to(f64)
     s = torch.zeros((tables.shape[0], n), dtype=f64, device=device)
 
-    def add(cell, val, hit):
-        """Every class's term at `cell` (the row's value `val`; `hit` the
-        rows that read it, or None for every row)."""
-        t = (table[:, cell] if torch.is_tensor(cell)
-             else table[:, cell, None]) * val
-        return s + (t if hit is None else torch.where(hit, t, 0.0))
-
     for (kind, p0, p1, p2, p3, off, task, _), (*_, v_lo, v_hi) in zip(
             plan.slabs.tolist(), plan.slots.tolist()):
         at = int(plan.task_base[task]) + off
         if kind == _build.SLAB_D:                   # (a, b), b in [p1, p2)
-            for b in range(p1, p2):
-                if plan.cross or p0 == 0 or b == p0:
-                    s = add(at + b - p1, z[p0] * z[b], None)
-        elif kind == _build.SLAB_K:                 # column p0, keys [p1, p2)
-            hit = ok[p0] & (codes[p0] >= p1) & (codes[p0] < p2)
+            b = torch.tensor([b for b in range(p1, p2)
+                              if plan.cross or p0 == 0 or b == p0],
+                             dtype=torch.long, device=device)
+            if b.numel():
+                s = _add_in_order(s, table[:, at + b - p1, None]
+                                  * (z[p0] * z[b])[None])
+        elif kind in (_build.SLAB_K, _build.SLAB_KB):  # column p0, keys
+            hit = ok[p0] & (codes[p0] >= p1) & (codes[p0] < p2)  # [p1, p2)
             key = at + torch.where(hit, codes[p0], p1) - p1
-            for a in range(1 + d if plan.cross else 1):  # a-major
-                s = add(key + a * (p2 - p1), z[a], hit)
+            # a-major; columns [p3, a_hi) (its slots' last; K's 0, 1 + d)
+            a_lo, a_hi = p3, v_hi
+            a_end = a_hi if plan.cross else min(a_hi, 1)
+            for a0 in range(a_lo, a_end, TERMS_AT_ONCE):
+                a = torch.arange(a0, min(a0 + TERMS_AT_ONCE, a_end),
+                                 device=device)
+                cell = key[None] + (a - a_lo)[:, None] * (p2 - p1)
+                s = _add_in_order(s, torch.where(
+                    hit, table[:, cell] * z[a][None], 0.0))
         else:           # key column p0, row column p1, keys [p2, p3)
             hit = ok[p0] & ok[p1] & (codes[p0] >= p2) & (codes[p0] < p3)
             if kind == _build.SLAB_CB:              # the slab's rows only
@@ -177,8 +181,19 @@ def class_scores_plain(tables, plan: _build.WidePlan, x_num, codes, *,
                 v_lo, rows = 0, schema.cat_sizes[p1]
             u = torch.where(hit, codes[p0], p2) - p2
             v = torch.where(hit, codes[p1], v_lo) - v_lo
-            s = add(at + u * rows + v, z[0], hit)
+            s = s + torch.where(hit, table[:, at + u * rows + v] * z[0], 0.0)
     yield from s
+
+
+TERMS_AT_ONCE = 32      # a K slab's terms `class_scores_plain` forms at once
+
+
+def _add_in_order(s, terms):
+    """s f64[C, n] plus terms f64[C, k, n], the terms added one after
+    another in k."""
+    for t in terms.unbind(1):
+        s = s + t
+    return s
 
 
 def qda_predict_plain(tables, plan: _build.WidePlan, x_num, codes, *,
@@ -202,13 +217,22 @@ def qda_predict_plain(tables, plan: _build.WidePlan, x_num, codes, *,
 
 @functools.lru_cache(maxsize=32)
 def _device_plan(d: int, sizes: tuple[int, ...], cross: bool, cap: int,
-                 device):
-    plan = _build._wide_plan(d, sizes, cross, True, cap)
-    slabs = plan.slabs.clone()        # a C or CB slab's rows in place of
-    c = (slabs[:, 0] == _build.SLAB_C) | (slabs[:, 0] == _build.SLAB_CB)
-    slabs[c, 6:8] = plan.slots[c, 2:4]  # the task and the warp
+                 local: bool, device):
+    """The scorer's plan on `device`: its slab records with a C or CB
+    slab's rows (v_lo, v_hi) in place of the task and the warp, and in a
+    local plan a D slab's two stage slots and a KB slab's end column and
+    stage slot there; warp_begin, task_base and the stage lists."""
+    plan = _build._wide_plan(d, sizes, cross, True, cap, local)
+    slabs, slots = plan.slabs.clone(), plan.slots
+    kind = slabs[:, 0]
+    c = (kind == _build.SLAB_C) | (kind == _build.SLAB_CB)
+    slabs[c, 6:8] = slots[c, 2:4]
+    if local:
+        slabs[kind == _build.SLAB_D, 6:8] = slots[kind == _build.SLAB_D, :2]
+        kb = kind == _build.SLAB_KB
+        slabs[kb, 6], slabs[kb, 7] = slots[kb, 3], slots[kb, 1]
     return tuple(t.to(device) for t in (slabs, plan.warp_begin,
-                                         plan.task_base))
+                                         plan.task_base, plan.stage_cols))
 
 
 def qda_predict_kernel(tables, plan: _build.WidePlan, x_num, codes, *,
@@ -241,9 +265,9 @@ def qda_predict_kernel(tables, plan: _build.WidePlan, x_num, codes, *,
          (codes, torch.int32, (schema.cat_cols, n), "codes")]
         + ([] if shift is None
            else [(shift, torch.float32, (schema.num_cols,), "shift")]))
-    slabs, warp_begin, task_base = _device_plan(
+    slabs, warp_begin, task_base, stage_cols = _device_plan(
         schema.num_cols, tuple(schema.cat_sizes), plan.cross,
-        plan.task_cells, device)
+        plan.task_cells, plan.local, device)
     threads, rows, group = _build.qda_tile(schema, plan, num_classes)
     lib = _build.load()
     out = torch.empty(n, dtype=torch.int32, device=device)
@@ -256,7 +280,9 @@ def qda_predict_kernel(tables, plan: _build.WidePlan, x_num, codes, *,
             plan.num_tasks, plan.max_task_cells, cells, n, threads, rows,
             group, int(not plan.cross),
             int(bool((plan.slabs[:, 0] == _build.SLAB_CB).any())),
-            None if shift is None else shift.data_ptr(), out.data_ptr(),
+            None if shift is None else shift.data_ptr(),
+            stage_cols.data_ptr(), stage_cols.shape[1],
+            plan.max_stage_x if plan.local else 0, out.data_ptr(),
             torch.cuda.current_stream(device).cuda_stream)
     _build.raise_on_error(lib, rc, "qda_predict_kernel")
     if plan.num_tasks == 1:

@@ -654,10 +654,10 @@ def _order_kernel(key_col, v, offsets, groups, src, out) -> torch.Tensor:
     src[key_col]: the codes counted a segment (`_build.order_segments`),
     the counts scanned in (key, segment) order, each row with a key
     written with its columns to its row of out i32[n, stride]; returns
-    the keys' row offsets i64[G·v + 1]. ValueError where a warp's two
-    chunks of rows and its counters pass shared memory
-    (`_build.check_order_stride`)."""
-    _build.check_order_stride(v, out.shape[-1])
+    the keys' row offsets i64[G·v + 1]. A row wider than two chunks of a
+    warp's shared memory beside its counters is copied in pieces
+    (`_build.order_piece`)."""
+    piece = _build.order_piece(v, out.shape[-1])
     lib = _build.load()
     code = src[key_col]
     n, device = code.shape[-1], code.device
@@ -679,7 +679,7 @@ def _order_kernel(key_col, v, offsets, groups, src, out) -> torch.Tensor:
             key_col, v, off, groups, n, segs, pos.data_ptr(),
             _build.pointers(src), len(src),
             _build.far_table(src, [], (), device),   # read past ORDER_INLINE
-            out.shape[-1], out.data_ptr(), stream)
+            out.shape[-1], piece, out.data_ptr(), stream)
         _build.raise_on_error(lib, rc, "window_order")
     window_order.launches += 1
     return key_off
@@ -826,18 +826,21 @@ def _slab_plain(slab, xw, x_cols, code_cols, w, schema,
     """One slab's cells f64 over the given rows (`wide_tables_plain`'s
     arithmetic); xw = [w, w·x_0, ...]; keys: the keyed task's (u_lo,
     u_hi), a CR slab's keys; rows: the slab's `WidePlan.slots` past its
-    stage slots, a C or CB slab's rows (v_lo, v_hi)."""
+    stage slots, a C or CB slab's rows (v_lo, v_hi), a K or KB slab's
+    columns (a_lo, a_hi) of [1 ‖ x]."""
     kind, p0, p1, p2, p3 = slab[:5]
     f64 = torch.float64
     if kind == _build.SLAB_D:                  # (a, b) for b in [p1, p2)
         cells = [xw[p0] if b == 0 else xw[p0] * x_cols[b - 1]
                  for b in range(p1, p2)]
         return torch.stack(cells).to(f64).sum(1)
-    if kind == _build.SLAB_K:                  # column p0, keys [p1, p2)
+    if kind in (_build.SLAB_K, _build.SLAB_KB):   # column p0, keys [p1, p2)
+        a_lo, a_hi = rows                      # columns of [1 ‖ x]
         c = code_cols[p0].long()
         ok = (c >= p1) & (c < p2)
-        vals = torch.stack(xw, 1)[ok].to(f64)
-        table = torch.zeros((p2 - p1, len(xw)), dtype=f64, device=w.device)
+        vals = torch.stack(xw[a_lo:a_hi], 1)[ok].to(f64)
+        table = torch.zeros((p2 - p1, a_hi - a_lo), dtype=f64,
+                            device=w.device)
         table.index_add_(0, c[ok] - p1, vals)
         return table.reshape(-1)
     if kind == _build.SLAB_CM:                 # key p0, rows p1 .. p2 − 1

@@ -506,7 +506,8 @@ def test_limit_constants_equal_the_kernels():
              "TC_A": "kTcA", "TC_RIGHT": "kTcRight",
              "NB_SLAB_CODES": "kNbSlabCodes",
              "QDA_THREADS": "kQdaThreads", "QDA_MAX_GROUP": "kQdaMaxGroup",
-             "QDA_MAX_SUMS": "kQdaMaxSums"}
+             "QDA_MAX_SUMS": "kQdaMaxSums", "SLAB_KB": "kSlabKB",
+             "QDA_LOCAL_ZEROS": "kQdaLocalZeros"}
     for py, c in pairs.items():
         assert getattr(_build, py) == cxx[c], (py, c)
     assert "grouped_wide_gram.cu" in _build.SOURCES
@@ -703,9 +704,10 @@ def test_qda_schema_limit_as_built():
     form ranks them; at 64 + 64 and P = 1,024 the tile shrinks to fit a
     block's shared memory, and one level more (P = 1,025) passes too; 65
     numeric or 65 one-level categorical columns are taken, their tiles
-    within shared memory; the numeric columns a tile of 32 rows holds
-    (`qda_max_numeric`) are the limit, and one more, or P past
-    MAX_WINDOW_SIGMA_SIZE, raises."""
+    within shared memory; the numeric columns a tile of 32 rows holds are
+    taken, and one more too, its plan local (`qda_local`: a task stages
+    its own columns), within shared memory; P past MAX_WINDOW_SIGMA_SIZE
+    raises."""
     rng = np.random.default_rng(9)
     keys = tuple(tuple(range(3)) for _ in range(40))
     schema = FeatureSchema(num_cols=40, cat_keys=keys)
@@ -736,19 +738,31 @@ def test_qda_schema_limit_as_built():
     _build.check_qda(FeatureSchema(num_cols=64, cat_keys=tuple(
         tuple(range(14 if j < 63 else 1024 - 64 - 14 * 63))
         for j in range(64))), 2, 1000)
+    staged = _last_staged()
     for wide in (FeatureSchema(num_cols=65),
                  FeatureSchema(num_cols=4, cat_keys=((0,),) * 65),
-                 FeatureSchema(num_cols=_build.qda_max_numeric(0))):
+                 FeatureSchema(num_cols=staged),
+                 FeatureSchema(num_cols=staged + 1)):
         _build.check_qda(wide, 2, 1000)
         plan = _build.qda_plan(wide)
+        assert plan.local == (wide.num_cols > staged)
         threads, rows, group = _build.qda_tile(wide, plan, 2)
-        assert _build.qda_smem_bytes(plan.max_task_cells, wide,
-                                     threads * rows, group
-                                     ) <= _build.WIDE_SMEM
-    for past in (FeatureSchema(num_cols=_build.qda_max_numeric(0) + 1),
-                 FeatureSchema(num_cols=64, cat_keys=tuple(
-                     tuple(range(14 if j < 63 else _build.MAX_WINDOW_SIGMA_SIZE
-                                 - 64 - 14 * 63))
-                     for j in range(64)))):
-        with pytest.raises(ValueError):
-            _build.check_qda(past, 2, 1000)
+        assert _build.qda_smem_bytes(
+            plan.max_task_cells, wide, threads * rows, group,
+            plan.max_stage_x if plan.local else None) <= _build.WIDE_SMEM
+    with pytest.raises(ValueError):
+        _build.check_qda(FeatureSchema(num_cols=64, cat_keys=tuple(
+            tuple(range(14 if j < 63 else _build.MAX_WINDOW_SIGMA_SIZE
+                        - 64 - 14 * 63))
+            for j in range(64))), 2, 1000)
+
+
+def _last_staged(sizes=()) -> int:
+    """The most numeric columns beside categorical columns of `sizes`
+    whose scorer's plan stages every numeric column a tile (not
+    `_build.qda_local`)."""
+    d = 1
+    while not _build.qda_local(FeatureSchema(
+            num_cols=d + 1, cat_keys=tuple(tuple(range(v)) for v in sizes))):
+        d += 1
+    return d

@@ -10,7 +10,10 @@ fused pass) against their plain versions, K7's and K8's keyed column
 windows past P = 1,024 and their row order (the order kernels), the
 plans that cut a cross table by row code (K7, K8 and K3w at a 64-cell
 budget; criteo_pair's window inside C15) and K3w's i32 codes at a ZIP5
-column, the checks their wrappers make,
+column, the routes past the shared-memory column limits (K_j as KB
+slabs in K7 and K8, K2w's impute kernel reading x from device memory,
+K3w's local plans at 784 and 2,000 columns, the order copying rows of
+1,008 ints in pieces), the checks their wrappers make,
 and run_mice_device, run_mice_device_delta (also with the GD trainer),
 the host MICE drivers (run_mice_baseline / low / high, through
 masked_gram) and the QDA pipeline on the card against the plain versions
@@ -2385,10 +2388,15 @@ MANY_ROWS = {"secom": 20_000, "past1024": 20_000, "secom_fold": 3_000}
 
 
 def many_cols_inputs(name, cuda, n=None, seed=0, binary=True):
-    """A table of MANY_COLS[name]: normal numerics, codes with 5% out of
-    vocabulary, weights of 0/1 (or uniform)."""
-    d, sizes = MANY_COLS[name]
-    n = n or MANY_ROWS.get(name, 50_003)
+    """A table of MANY_COLS[name] (`cols_inputs`)."""
+    return cols_inputs(*MANY_COLS[name], n or MANY_ROWS.get(name, 50_003),
+                       cuda, seed, binary)
+
+
+def cols_inputs(d, sizes, n, cuda, seed=0, binary=True):
+    """A table of d numeric columns and categorical ones of `sizes`
+    levels: normal numerics, codes with 5% out of vocabulary, weights of
+    0/1 (or uniform)."""
     schema = FeatureSchema(num_cols=d, cat_keys=tuple(tuple(range(v))
                                                       for v in sizes))
     rng = np.random.default_rng(seed)
@@ -2741,3 +2749,164 @@ def test_criteo_pair_window_of_the_row_cut_table_matches_plain(cuda):
     assert torch.equal(got[cm], want[cm])
     torch.testing.assert_close(got, want, rtol=0,
                                atol=1e-5 * float(want.abs().max()))
+
+
+# ---------------------------------------------------------------------------
+# Past the shared-memory column limits: K_j cut by column range (KB slabs)
+# in K7/K8, K3/K3w's local plans, K2w's impute kernel with x read from
+# device memory, and the order pass copying wide rows in pieces
+# ---------------------------------------------------------------------------
+
+# (numeric columns, levels of each categorical column) and rows
+PAST_SMEM = {"d835_c3": ((835, (3,)), 20_000),
+             "d900_r33": ((900, (33,)), 20_000),
+             "d1100_c2": ((1100, (2,)), 20_000),
+             "epsilon": ((2000, (2,)), 8_000),
+             "d1000_v5000": ((1000, (5000,)), 30_000)}
+
+
+def past_smem_inputs(name, cuda, seed=0):
+    """A table of PAST_SMEM[name] (`cols_inputs`)."""
+    (d, sizes), n = PAST_SMEM[name]
+    return cols_inputs(d, sizes, n, cuda, seed)
+
+
+@pytest.mark.parametrize("name", ["d835_c3", "d1100_c2", "epsilon",
+                                  "d1000_v5000"])
+def test_past_smem_gram_matches_plain(cuda, name):
+    """K7 past 834 numeric columns beside a code column: its whole plan
+    (P ≤ 1,024) and its windows (past it; at d1000_v5000 a keyed column
+    whose order copies rows of 1,008 ints) with K_j as KB slabs: S = Sᵀ
+    exactly, counts exact, a rerun bit-identical, within 1e-5 of
+    max|σ|."""
+    schema, xs, cs, w = past_smem_inputs(name, cuda)
+    plans = ([_build.wide_plan(schema)]
+             if schema.sigma_size <= _build.MAX_WIDE_SIGMA_SIZE else
+             [pl for lo in range(0, schema.sigma_size, _build.WINDOW_WIDTH)
+              for pl in _build.keyed_window_plan(
+                  schema, lo, min(lo + _build.WINDOW_WIDTH,
+                                  schema.sigma_size))
+              if pl is not None])
+    kinds = {k for pl in plans
+             for k in getattr(pl, "plan", pl).slabs[:, 0].tolist()}
+    assert _build.SLAB_KB in kinds and _build.SLAB_K not in kinds
+    got = masked_gram_cols(xs, cs, w, schema=schema)
+    again = masked_gram_cols(xs, cs, w, schema=schema)
+    want = masked_gram_cols_plain(xs, cs, w, schema=schema)
+    assert torch.equal(got, again)
+    assert torch.equal(got, got.T)
+    cm = count_mask(schema, cuda)
+    assert torch.equal(got[cm], want[cm])
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("name", ["d835_c3", "d1100_c2"])
+def test_past_smem_grouped_matches_plain(cuda, name):
+    """K8 over KB slabs (its whole plan at P = 839, a launch a window at P
+    = 1,103), 3 groups after sort_by_group: each group's S symmetric,
+    counts exact, a rerun bit-identical, within 1e-5 of max|σ|."""
+    schema, x, c, w = past_smem_inputs(name, cuda, seed=5)
+    n = w.shape[0]
+    g = torch.randint(-1, 4, (n,), dtype=torch.int32, device=cuda)
+    xt, ct = torch.stack(x), torch.stack(c)
+    got = grouped_gram(xt, ct, w, g, schema=schema, num_groups=3)
+    again = grouped_gram(xt, ct, w, g, schema=schema, num_groups=3)
+    assert torch.equal(got, again)
+    assert torch.equal(got, got.transpose(1, 2))
+    want = grouped_gram_plain(xt, ct, w, g, schema=schema, num_groups=3)
+    cm = count_mask(schema, cuda)
+    assert torch.equal(got[:, cm], want[:, cm])
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=1e-5 * float(b.abs().max()))
+
+
+@pytest.mark.parametrize("name,kind,col,r", [
+    ("d900_r33", "cat", 0, 33), ("epsilon", "cat", 0, 2),
+    ("epsilon", "num", 1999, 1)])
+def test_past_smem_fused_matches_plain(cuda, name, kind, col, r):
+    """K2w's impute kernel where a batch of 32 rows' x does not fit shared
+    memory beside the class tile (W whole at P = 934, R = 33; W in device
+    memory at P = 2,003): x read from device memory, codes equal to the
+    plain version's; 'num' within 1e-6; sigma within 1e-5 of max|σ|; a
+    rerun bit-identical."""
+    schema, xs, cs, w = past_smem_inputs(name, cuda, seed=3)
+    if name == "d900_r33":
+        assert not _build.impute_x_terms(
+            schema, *_build.impute_plan(schema, 33)[::2])
+    n, p = w.shape[0], schema.sigma_size
+    rng = np.random.default_rng(4)
+    w_full = torch.tensor(rng.normal(size=(p, r)).astype(np.float32) * 0.1,
+                          device=cuda)
+    icpt = torch.tensor(rng.normal(size=r).astype(np.float32), device=cuda)
+    null = torch.tensor(rng.random(n) < 0.2, device=cuda)
+    args = (xs, cs, null, w, w_full, icpt)
+    kw = dict(schema=schema, kind=kind, imp_col=col)
+    new, sig = fused_impute_aggregate(*args, **kw)
+    new2, sig2 = fused_impute_aggregate(*args, **kw)
+    assert torch.equal(new, new2) and torch.equal(sig, sig2)
+    assert torch.equal(sig, sig.T)
+    want_new, want_sig = fused_impute_aggregate_plain(*args, **kw)
+    if kind == "cat":
+        assert torch.equal(new, want_new)
+    else:
+        torch.testing.assert_close(new, want_new, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(sig, want_sig, rtol=0,
+                               atol=1e-5 * float(want_sig.abs().max()))
+
+
+@pytest.mark.parametrize("d,classes", [(784, 10), (2000, 2)])
+def test_past_smem_qda_matches_plain(cuda, d, classes):
+    """K3w on a local plan (MNIST's 784 pixels over 10 classes, Epsilon's
+    2,000 columns over 2): a task's columns staged a step; QDA's and NB's
+    predictions equal to the plain scorer's (run on the CPU: it adds a
+    row's 2M cells one at a time), a rerun too."""
+    schema = FeatureSchema(num_cols=d)
+    assert _build.qda_plan(schema).local
+    rng = np.random.default_rng(9)
+    n = 512
+    quad = rng.normal(size=(classes, d, d)) * 0.01
+    quad = torch.tensor((quad + quad.transpose(0, 2, 1)) / 2, device=cuda)
+    lin = torch.tensor(rng.normal(size=(classes, d)), device=cuda)
+    tables, plan = qda_tables(quad, lin, torch.zeros(classes, device=cuda),
+                              schema=schema)
+    x = torch.tensor(rng.normal(size=(d, n)).astype(np.float32), device=cuda)
+    ct = torch.zeros((0, n), dtype=torch.int32, device=cuda)
+    got = qda_predict_kernel(tables, plan, x, ct, schema=schema)
+    assert torch.equal(got, qda_predict_kernel(tables, plan, x, ct,
+                                               schema=schema))
+    assert torch.equal(got.cpu(), qda_predict_plain(
+        tables.cpu(), plan, x.cpu(), ct.cpu(), schema=schema))
+    mean = torch.tensor(rng.normal(size=(classes, d)), device=cuda)
+    var = torch.tensor(rng.random((classes, d)) + 0.5, device=cuda)
+    lp = torch.log(torch.full((classes,), 1.0 / classes, device=cuda))
+    centre = mean.mean(0).float()
+    nbt, nbp = nb_tables(lp, mean, var, torch.zeros((classes, 0),
+                                                    device=cuda),
+                         schema=schema, center=centre)
+    assert nbp.local
+    got = qda_predict_kernel(nbt, nbp, x, ct, schema=schema, shift=centre)
+    assert torch.equal(got, qda_predict_plain(nbt, nbp, x, ct, schema=schema,
+                                              shift=centre))
+
+
+def test_past_smem_window_order_matches_plain(cuda):
+    """The order pass at d1000_v5000 (rows of 1,008 ints beside 5,000
+    counters: copied in pieces, `_build.order_piece`): the keys' offsets
+    and the copies over every row with a key equal to the plain version's
+    bit for bit."""
+    from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas import (
+        window_order)
+
+    schema, xs, cs, w = past_smem_inputs("d1000_v5000", cuda, seed=11)
+    stride = _build.order_stride(1 + schema.num_cols + schema.cat_cols)
+    assert stride == 1008 and _build.order_piece(5000, stride) < stride
+    got = window_order(xs, cs, w, schema=schema, columns=(0,))
+    want = window_order([x.cpu() for x in xs], [c.cpu() for c in cs],
+                        w.cpu(), schema=schema, columns=(0,))
+    assert torch.equal(got.key_off.cpu(), want.key_off)
+    last = int(want.key_off[-1])
+    ncols = 1 + schema.num_cols + schema.cat_cols
+    assert torch.equal(got.rows[0, :last, :ncols].cpu(),
+                       want.rows[0, :last, :ncols])

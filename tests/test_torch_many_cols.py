@@ -8,7 +8,8 @@ pipelines. Then the kernels' plans at those schemas and at the extremes
 (P = 88 of 87 numeric or 87 one-level columns, P = 1,024 of 1,023
 numeric columns, past 1,024 with more than 88 columns of each kind and
 one of 4,100 levels): each fits a block's shared memory and maps its
-cells to the plain Gram; the limits shared memory still sets raise.
+cells to the plain Gram; one past each limit shared memory once set is
+taken.
 
     JAX_PLATFORMS=cpu python -m pytest tests/test_torch_many_cols.py -q
 """
@@ -440,26 +441,72 @@ def test_narrow_route_takes_87_columns():
         assert max(schema.num_cols, schema.cat_cols) < _build.INLINE_COLS
 
 
-def test_limits_shared_memory_sets():
-    """The column limits left, each from shared memory: K7/K8 stage a K_j
-    task's numeric columns (`max_numeric_beside_codes`), K3/K3w a tile of
-    32 rows of x in f64 (`qda_max_numeric`), the window order two chunks
-    of 32 rows of a keyed column's copy (`order_max_stride`): at the limit
-    taken, one past it ValueError."""
-    d = _build.max_numeric_beside_codes()
-    assert d > 800
-    plan = _build.wide_plan(_schema(d, (3,)))
-    assert plan.smem_bytes <= _build.WIDE_SMEM
-    with pytest.raises(ValueError):
-        _build.wide_plan(_schema(d + 1, (3,)))
-    q = _build.qda_max_numeric(0)
-    _build.check_qda(_schema(q, ()), 2, 100)
-    with pytest.raises(ValueError):
-        _build.check_qda(_schema(q + 1, ()), 2, 100)
-    s = _build.order_max_stride(4100)
-    _build.check_order_stride(4100, s)
-    with pytest.raises(ValueError):
-        _build.check_order_stride(4100, s + 1)
+@pytest.mark.parametrize("limit", ["k7_beside_codes", "k3_tile",
+                                   "k2w_batch", "order_stride"])
+def test_limits_shared_memory_sets(limit):
+    """The column limits shared memory set, each now taken one past it:
+    K7/K8 staging a K_j task's every numeric column beside a code column
+    (past it K_j as KB slabs of few columns), K3/K3w a tile of 32 rows of
+    x in f64 (past it a local plan), K2w's impute kernel a batch of 32
+    rows' x (past it x read from device memory, W whole at R = 33 and W
+    in device memory), the window order two chunks of 32 rows of a keyed
+    column's copy (past it pieces of a row): at the limit the old route,
+    one past it the new one, within shared memory."""
+    if limit == "k7_beside_codes":
+        d = next(d for d in range(800, 900)
+                 if _build._k_room(d + 1) < d + 2)
+        at, past = (_build.wide_plan(_schema(e, (3,))) for e in (d, d + 1))
+        assert _build.SLAB_K in at.slabs[:, 0].tolist()
+        assert _build.SLAB_KB in past.slabs[:, 0].tolist()
+        assert _build.SLAB_K not in past.slabs[:, 0].tolist()
+        assert max(at.smem_bytes, past.smem_bytes) <= _build.WIDE_SMEM
+        # a K or KB slab's slots end with its columns a_lo, a_hi of [1 ‖ x]
+        # (a K slab's 0, 1 + d: what the plain walkers read); a KB slab's
+        # device record carries a_hi in place of j
+        for plan, e in ((at, d), (past, d + 1)):
+            kind = plan.slabs[:, 0]
+            k, kb = kind == _build.SLAB_K, kind == _build.SLAB_KB
+            assert (plan.slots[k, 2] == 0).all()
+            assert (plan.slots[k, 3] == 1 + e).all()
+            assert torch.equal(plan.slots[kb, 2], plan.slabs[kb, 4])
+            assert torch.equal(plan.device_slabs[kb, 1], plan.slots[kb, 3])
+            assert torch.equal(plan.device_slabs[k, 1], plan.slabs[k, 1])
+    elif limit == "k3_tile":
+        q = next(d for d in range(700, 800)
+                 if _build.qda_local(_schema(d + 1, ())))
+        for e in (q, q + 1):
+            schema = _schema(e, ())
+            _build.check_qda(schema, 2, 100)
+            plan = _build.qda_plan(schema)
+            assert plan.local == (e > q)
+            threads, rows, group = _build.qda_tile(schema, plan, 2)
+            assert _build.qda_smem_bytes(
+                plan.max_task_cells, schema, threads * rows, group,
+                plan.max_stage_x if plan.local else None) <= _build.WIDE_SMEM
+    elif limit == "k2w_batch":
+        def x_terms(d, sizes, plan_of):
+            """Whether K2w keeps x in shared memory, and its bytes."""
+            schema = _schema(d, sizes)
+            ld, _, batch = plan_of(schema, max(sizes))
+            tile = 0 if plan_of is _build.impute_global_plan else ld
+            return (_build.impute_x_terms(schema, tile, batch),
+                    _build.impute_smem_bytes(schema, tile, batch))
+
+        for sizes, plan_of in (((33,), _build.impute_plan),
+                               ((2,) * 3 + (1100,), _build.impute_global_plan)):
+            d = next(d for d in range(800, 2000)
+                     if not x_terms(d + 1, sizes, plan_of)[0])
+            assert x_terms(d, sizes, plan_of)[0]
+            assert max(x_terms(d, sizes, plan_of)[1],
+                       x_terms(d + 1, sizes, plan_of)[1]) <= _build.WIDE_SMEM
+    else:
+        s = next(s for s in range(8, 2000, 8)
+                 if _build.order_piece(4100, s + 8) < s + 8)
+        _build.check_order_stride(4100, s + 8)
+        assert _build.order_piece(4100, s) == s
+        piece = _build.order_piece(4100, s + 8)
+        assert piece % 8 == 0 and 4 * _build.order_warp_ints(
+            4100, piece) <= _build.WIDE_SMEM
 
 
 def test_fold_plans_build_in_seconds():

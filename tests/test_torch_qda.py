@@ -199,17 +199,19 @@ def test_qda_full_onehot_fixture_agrees_with_f64_oracle():
 def test_qda_limits_raise():
     """K3/K3w take the plan's limits: P up to K7's window limit
     (MAX_WINDOW_SIGMA_SIZE; P = 1,025 passes since the scorer's plan keys
-    a wide cross table on its wider column) and any column count whose
-    tile of 32 rows fits shared memory (65 numeric columns pass, one past
-    `qda_max_numeric` raises); at least one class; the method by name."""
+    a wide cross table on its wider column) and any column count (65
+    numeric columns pass, and so does one past those a tile of 32 rows
+    holds: its plan is local, `_build.qda_local`); at least one class; the
+    method by name."""
     schema = FeatureSchema(num_cols=4, cat_keys=(tuple(range(8)),) * 2)
     _build.check_qda(schema, 8, 10_000_000)
     with pytest.raises(ValueError):      # no class
         _build.check_qda(schema, 0, 100)
     _build.check_qda(FeatureSchema(num_cols=65), 2, 100)
-    with pytest.raises(ValueError):      # a tile past shared memory
-        _build.check_qda(FeatureSchema(
-            num_cols=_build.qda_max_numeric(0) + 1), 2, 100)
+    past = next(d for d in range(65, 2000)
+                if _build.qda_local(FeatureSchema(num_cols=d)))
+    _build.check_qda(FeatureSchema(num_cols=past), 2, 100)   # a local plan
+    assert not _build.qda_local(FeatureSchema(num_cols=past - 1))
     _build.check_qda(FeatureSchema(
         num_cols=4, cat_keys=(tuple(range(1020)),)), 2, 100)
     with pytest.raises(ValueError):      # sigma size above the plan's

@@ -702,7 +702,7 @@ def test_order_pass_takes_the_widest_columns():
                          (ZIP5[0], 1 + 4 + 2)):
         stride = _build.order_stride(cols)
         _build.check_order_stride(levels, stride)
-        assert _build.order_max_stride(levels) >= 2 * stride
+        assert _build.order_piece(levels, 2 * stride) == 2 * stride
     assert _build.keyed_columns(13, criteo) == (0, 1, 2, 4, 5, 7, 8, 10, 12,
                                                 16)
 
@@ -714,8 +714,9 @@ def test_order_pass_takes_the_widest_columns():
 def test_zip5_scorer_limits():
     """A column of 33,791 levels: check_qda takes it for QDA and NB (its
     codes staged as i32), and the tile qda_tile picks fits shared memory
-    at 4-byte codes; at 32,768 levels the codes stay i16; the constant
-    equals the kernel's."""
+    at 4-byte codes; at 32,768 levels the codes stay i16, and beside 200
+    columns the scorer's tile stages more numeric columns before its plan
+    turns local (`qda_local`); the constant equals the kernel's."""
     zip5 = schema_of(4, ZIP5)
     assert _build.qda_code_bytes(zip5) == 4
     assert _build.qda_code_bytes(schema_of(4, (32768, 5))) == 2
@@ -727,8 +728,11 @@ def test_zip5_scorer_limits():
         threads, rows, group = _build.qda_tile(zip5, plan, 2)
         assert _build.qda_smem_bytes(plan.max_task_cells, zip5,
                                      threads * rows, group) <= _build.WIDE_SMEM
-    assert _build.qda_max_numeric(200, _build.QDA_TASK_CELLS, 4) < \
-        _build.qda_max_numeric(200, _build.QDA_TASK_CELLS, 2)
+    def first_local(levels):
+        sizes = (levels,) + (2,) * 199
+        return next(d for d in range(1, 1000) if _build.qda_local(
+            schema_of(d, sizes)))
+    assert first_local(ZIP5[0]) < first_local(32768)
 
 
 def test_zip5_nb_pipeline_matches_jax():

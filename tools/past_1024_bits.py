@@ -2,9 +2,10 @@
 checkouts against each other, bit for bit, on one GPU: the guard that
 widening the kernels (past P = 1,024, past any column count, past a
 task's cells a categorical column beside others, past 32,768 codes in
-the scorers) left those schemas' outputs as they were; and time K1 at
-config 5, K7 at favorita_wide, a pass over favorita_items' and
-wide16k's S and K3w at favorita_classify's family in each checkout.
+the scorers, past the shared-memory column limits) left those schemas'
+outputs as they were; and time K1 at config 5, K7 at favorita_wide and
+at Home Credit, a pass over favorita_items' and wide16k's S and K3w at
+favorita_classify's family in each checkout.
 
     python3 tools/past_1024_bits.py [--roots DIR [DIR ...]] [--rows N]
                                     [--times] [--reps R]
@@ -43,14 +44,17 @@ to FILE (torch.save). A root is the root of a checkout whose
 - wide16k (P = 16,387: two columns of exactly a task's 8,192 levels): S
   by K7's keyed windows;
 - Home Credit (104 numeric, 16 categorical columns) and SECOM (590
-  numeric) at min(rows, 1M): S by K7, K2w 'num' on the first column,
-  sort + K8 by the label, K6w, and the QDA and NB scorers' argmax (K3w).
+  numeric) at min(rows, 1M): S by K7, K2w 'num' on the first column (and
+  at Home Credit 'cat' on its 58-level column: W whole in shared memory,
+  each batch row's x beside it), sort + K8 by the label, K6w, and the QDA
+  and NB scorers' argmax (K3w); SECOM's stream fold (590 one-level null
+  flags beside its columns, P = 1,181): S by K7's windows.
 
 Each checkout's line also holds `ms`: K1 at config 5, K7 at
-favorita_wide, a pass over favorita_items' and wide16k's S (their plans
-made before the timing) and K3w at family, by CUDA events (mean of 5
-calls after one; `--reps`). With `--times` each checkout computes only
-what those five timings need, and also times each by torch.profiler
+favorita_wide and at Home Credit, a pass over favorita_items' and
+wide16k's S (their plans made before the timing) and K3w at family, by
+CUDA events (mean of 5 calls after one; `--reps`). With `--times` each
+checkout computes only what those six timings need, and also times each by torch.profiler
 (`<name>_device`: the kernels' device ms a call, host gaps left out);
 the last line lists each timing of every root in the order given, in
 place of the bit comparison: many alternated roots (`P C P C ...`) in
@@ -204,6 +208,7 @@ def outputs(root: str, rows: int, times: bool = False,
     sys.path.insert(0, str(Path(root).resolve()))
     import torch
 
+    from duckdb_imputation_tpu_torch import FeatureSchema
     from duckdb_imputation_tpu_torch.mice.partition import init_fill
     from duckdb_imputation_tpu_torch.models.device import (
         nb_predict_device, nb_train_device, qda_train_device)
@@ -316,19 +321,40 @@ def outputs(root: str, rows: int, times: bool = False,
         nb_grouped_sums)
 
     many = min(rows, 1_000_000)
-    for name, made in () if times else (("home_credit", cs.make_home_credit(many, 41)),
-                       ("secom", cs.make_secom(many, 43))):
+    for name, make, seed in (("home_credit", cs.make_home_credit, 41),
+                             ("secom", cs.make_secom, 43))[:1 if times
+                                                           else None]:
+        made = make(many, seed)
         t, y = init_fill(made[0]), made[-1].to(torch.int32)
         schema = t.schema
         xs, cs_ = list(t.num_data.unbind(0)), list(t.cat_codes.unbind(0))
         w = (~t.num_null[0]).float()
         out[f"k7_{name}"] = masked_gram_cols(xs, cs_, w, schema=schema)
+        if name == "home_credit":
+            timed("k7_home_credit", lambda: masked_gram_cols(
+                xs, cs_, w, schema=schema))
+        if times:
+            break
         p = schema.sigma_size
         theta = torch.linspace(-1, 1, p, device=cs.DEVICE)[:, None]
         new, sig = fused_impute_aggregate(
             xs, cs_, t.num_null[0], w, theta, theta.new_zeros(1),
             schema=schema, kind="num", imp_col=0)
         out[f"k2w_{name}_x"], out[f"k2w_{name}_sigma"] = new, sig
+        if schema.cat_cols:
+            r = schema.cat_sizes[11]
+            w_cat = torch.linspace(-1, 1, p * r, device=cs.DEVICE).reshape(
+                p, r)
+            new, sig = fused_impute_aggregate(
+                xs, cs_, t.cat_null[11], w, w_cat, w_cat.new_zeros(r),
+                schema=schema, kind="cat", imp_col=11)
+            out[f"k2w_{name}_codes"], out[f"k2w_{name}_cat_sigma"] = new, sig
+        else:
+            fold = FeatureSchema(num_cols=p - 1, cat_keys=((0,),) * (p - 1))
+            flags = list(t.num_null.to(torch.int32).unbind(0))
+            out[f"k7_{name}_fold"] = masked_gram_cols(xs, flags, None,
+                                                      schema=fold)
+            del flags
         sig = grouped_gram_presorted(*sort_by_group(
             t.num_data, t.cat_codes, y, schema=schema, num_groups=2),
             schema=schema)
