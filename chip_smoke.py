@@ -137,11 +137,11 @@ Drives the paths of `duckdb_imputation_tpu_torch` ported so far:
   device memory, the order pass copying wide rows in pieces): Epsilon
   (the PASCAL 2008 `epsilon` set as LIBSVM gives it: 2,000 dense
   columns of unit-norm rows, a binary label; MICE with the label as a
-  column, P = 2,003; `[epsilon]`) at its 400,000 training rows: the
-  plans' host seconds, K7, K2w ('cat' on the label, 'num'), sort + K8,
-  K6w and K3w (QDA and NB) against their plain versions on a slice, each
-  timed at all rows beside its bound and the cuBLAS product of the same
-  work; on 100,000 of its rows run_mice_device 'gram' and 'fused' and
+  column, P = 2,003; `[epsilon]`) at 200,000 of its 400,000 training
+  rows: the plans' host seconds, K7, K2w ('cat' on the label, 'num'),
+  sort + K8, K6w and K3w (QDA and NB) against their plain versions on a
+  slice, each timed at all rows beside its bound and the cuBLAS product
+  of the same work; on 100,000 of its rows run_mice_device 'gram' and 'fused' and
   run_mice_wide (one round, quality gates) and the QDA and NB pipelines;
   scan_gram card against CPU;
   MNIST's 784 pixels over 10 classes at 70,000 rows (`[mnist]`): K3w on
@@ -149,7 +149,13 @@ Drives the paths of `duckdb_imputation_tpu_torch` ported so far:
   1M rows (`[past_smem]`): d900_r33 (K7's whole plan with KB slabs, K2w
   'cat' at R = 33 with x read from device memory) and d1000_v5000 (the
   order pass of a 5,000-level column over rows of 1,008 ints, K7's six
-  windows).
+  windows);
+- IEEE f32 whatever the caller set (`[tf32]`): run_mice_device 'gram'
+  and 'fused' at config 5 with TF32 turned on by the caller, bit for bit
+  as under the default setting; and P past 46,340 (`[criteo]` at
+  criteo_c18, Criteo's Kaggle schema with C18: P = 47,412, 47 windows):
+  the windows' plans, a pass over S, three windows, sort + K8, K2w,
+  scan_gram and run_mice_wide.
 
 First it builds the kernels from `duckdb_imputation_tpu_torch/csrc/` and
 holds each against its plain torch version at the shapes its path gives
@@ -854,6 +860,58 @@ def phase_main_path(seed: int) -> dict:
     log(f"[main] ms per round at n={N} (slope of 1 vs 4 rounds, CUDA "
         f"events): {per_round}")
     return launches
+
+
+N_TF32 = 1_000_000   # rows of [tf32]'s config-5 table
+
+
+def phase_tf32(seed: int) -> dict:
+    """[tf32]: with TF32 turned on by the caller, first by
+    torch.set_float32_matmul_precision("high"), then by
+    torch.backends.cuda.matmul.fp32_precision = "tf32", run_mice_device
+    'gram' and 'fused' (noise on) at config 5 over N_TF32 rows give the
+    default setting's outputs bit for bit (the port's f32 products run
+    under `utils.precision.ieee_f32`), the caller's setting reads back
+    unchanged after them, and a product outside the port does take TF32
+    there."""
+    from duckdb_imputation_tpu_torch.mice.device_round import run_mice_device
+
+    t, _ = make_table(N_TF32, seed + 31)
+    matmul = torch.backends.cuda.matmul
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(seed + 32)
+    a = torch.randn(1024, 1024, device=DEVICE, generator=g)
+    ieee = a @ a
+
+    def runs():
+        return [run_mice_device(t, iters=2, kernel=k, noise=True)
+                for k in ("gram", "fused")]
+
+    want = runs()
+    out = {}
+    for way, turn_on in (
+            ("set_float32_matmul_precision_high",
+             lambda: torch.set_float32_matmul_precision("high")),
+            ("fp32_precision_tf32",
+             lambda: setattr(matmul, "fp32_precision", "tf32"))):
+        turn_on()
+        before = matmul.fp32_precision
+        tf32_outside = not torch.equal(a @ a, ieee)
+        got = runs()
+        kept = matmul.fp32_precision == before
+        torch.set_float32_matmul_precision("highest")
+        check(tf32_outside, f"[tf32] {way}: TF32 is not on outside the port")
+        check(kept, f"[tf32] {way}: the caller's setting changed")
+        for k, gt, wt in zip(("gram", "fused"), got, want):
+            check(torch.equal(gt.num_data, wt.num_data)
+                  and torch.equal(gt.cat_codes, wt.cat_codes),
+                  f"[tf32] {way}: run_mice_device '{k}' differs from the "
+                  f"default setting's")
+        out[way] = dict(bit_identical=True, setting_kept=True)
+    log(f"[tf32] config 5 n={N_TF32}: run_mice_device 'gram' and 'fused' "
+        f"bit-identical to the default setting under {sorted(out)}; the "
+        f"caller's setting kept")
+    return out
 
 
 def phase_noise(seed: int) -> None:
@@ -3930,7 +3988,8 @@ N_WIDE16K_CUT = 2_000_000    # cuts wide16k to this many rows
 N_LIBRARY = {"favorita_items": 1_000_000, "wide16k": 100_000}  # rows of
                              # the dense cuBLAS Gram (the full Z does not fit)
 ITEMS_ROUNDS = 2
-N_ITEMS_CPU = 200_000        # [items] on the CPU, held against the card
+N_ITEMS_CPU = 100_000        # [items] on the CPU, held against the card
+                             # (200,000 before the run neared its limit)
 ITEMS_CPU_ROUNDS = 1         # rounds of that comparison (2 before the run
                              # neared its limit: an f64 SVD of P = 4,592 on
                              # the host a column step, ~90 s a round)
@@ -6643,18 +6702,19 @@ def phase_narrow_many(seed: int) -> dict:
 # others, and codes past 32,768 in the scorers
 # ---------------------------------------------------------------------------
 
-# criteo_mid: the schema of Criteo's Display Advertising Challenge (Kaggle
+# criteo_c18: the schema of Criteo's Display Advertising Challenge (Kaggle
 # 2014, train.txt, 45,840,617 rows): I1-I13 as log1p of counts, as DLRM
-# feeds them, and the 17 categorical columns of at most 15,000 levels but
-# C18, at the level counts of the DLRM repository's Kaggle preprocessing.
-# Cut: C3, C4, C10, C12, C16, C21, C24 and C26 (93k to 10M levels) and C18
-# (5,652), which put P past K7's window limit; the rows, to N_CRITEO.
+# feeds them, and the 18 categorical columns of at most 15,000 levels, at
+# the level counts of the DLRM repository's Kaggle preprocessing: the
+# largest Criteo schema whose dense f32 S (9.0 GB) fits the card. Cut: C3,
+# C4, C10, C12, C16, C21, C24 and C26 (93k to 10M levels; C10 alone would
+# make S 79 GB); the rows, to N_CRITEO.
 CRITEO_COLS = ("C1", "C2", "C5", "C6", "C7", "C8", "C9", "C11", "C13", "C14",
-               "C15", "C17", "C19", "C20", "C22", "C23", "C25")
+               "C15", "C17", "C18", "C19", "C20", "C22", "C23", "C25")
 CRITEO_VOCABS = (1460, 583, 305, 24, 12517, 633, 3, 5683, 3194, 27, 14992,
-                 10, 2173, 4, 18, 15, 105)          # P = 41,760
+                 10, 5652, 2173, 4, 18, 15, 105)    # P = 47,412
 CRITEO_PAIR = (12517, 14992)   # criteo_pair: C7 and C15 alone, P = 27,523
-CRITEO_C20 = 13                # C20's index among the codes
+CRITEO_C20 = 14                # C20's index among the codes
 # null shares as commonly reported for train.txt (an assumption):
 # (column, index among its kind, share)
 CRITEO_NULLS = (("I1", 0, 0.45), ("I3", 2, 0.22), ("C20", CRITEO_C20, 0.44))
@@ -6665,7 +6725,7 @@ N_CRITEO_SLICE = 1_000_000     # rows the plain versions, scan_gram and the
 N_CRITEO_MICE = 2_000_000      # rows of [criteo]'s run_mice_wide
 N_CRITEO_PLAIN_QDA = 20_000    # rows the plain scorer takes at criteo_pair
                                # (its ~30,000 slabs a row)
-N_CRITEO_LIBRARY = 20_000      # rows of the dense cuBLAS Gram at criteo_mid
+N_CRITEO_LIBRARY = 20_000      # rows of the dense cuBLAS Gram at criteo_c18
 ZIP5_VOCABS = (33791, 5)       # 2020 census ZCTAs, and a 5-level column
 
 
@@ -6684,12 +6744,12 @@ def zipf_codes(n: int, v: int, g, shift=None) -> torch.Tensor:
 
 
 def make_criteo(n: int, seed: int, vocabs=CRITEO_VOCABS):
-    """criteo_mid (or, with vocabs=CRITEO_PAIR, criteo_pair) at n rows,
+    """criteo_c18 (or, with vocabs=CRITEO_PAIR, criteo_pair) at n rows,
     made on the device from `seed`: the label click at 25.6%; I1-I13 the
     log1p of counts exp(a + b·z1 + c·z2 + 0.4·ε) of two row factors,
     click moving I1, I3 and I6; codes Zipf within each column, click
     rotating C7's and C15's by a third of their levels; C20 the quartile
-    band of z1 + 0.5·ε (so the numerics predict it). criteo_mid's nulls:
+    band of z1 + 0.5·ε (so the numerics predict it). criteo_c18's nulls:
     I1 45%, I3 22%, C20 44% (`CRITEO_NULLS`). Returns (table, true x, true
     codes, click)."""
     from duckdb_imputation_tpu_torch import FeatureSchema
@@ -6815,7 +6875,7 @@ def slice_kernel(tag: str, counters, kernel, plain, compare, bound_: dict,
 
 def lean_gram_compare(tag, schema, rows: int = 2048):
     """`gram_compare` (binary weights) a block of `rows` rows at a time:
-    criteo_mid's S is 7 GB, and its K8 two of them."""
+    criteo_c18's S is 9.0 GB, and its K8 two of them."""
     def compare(got, want):
         d, p = schema.num_cols, schema.sigma_size
         counted = torch.ones(p, dtype=torch.bool, device=got.device)
@@ -6845,11 +6905,14 @@ def peak_host_gib() -> float:
 
 
 def phase_criteo(seed: int) -> dict:
-    """[criteo]: criteo_mid (13 numerics, 17 categorical columns, P =
-    41,760; C7's 12,517 and C15's 14,992 levels both past a K7 task's
-    8,192 cells, their cross table cut by row code). At N_CRITEO rows: the
-    windows' plans (host seconds with their copy to the card, places,
-    device bytes, peak memory on both sides); masked_gram_cols over all
+    """[criteo]: criteo_c18 (13 numerics, 18 categorical columns, P =
+    47,412, past the 46,340 of a P² int map, 47 windows; C7's 12,517 and
+    C15's 14,992 levels both past a K7 task's 8,192 cells, their cross
+    table cut by row code). At N_CRITEO rows: the windows' plans (host
+    seconds with their copy to the card, places, device bytes, peak
+    memory on both sides; the plans made again on the card by a later
+    call, `plans_remade`, when they no longer fit beside its data);
+    masked_gram_cols over all
     of S (one order pass, a launch a window: symmetric, rerun
     bit-identical) and its time, bound and library; the first window, the
     one inside C15 (C_{15,7} row-cut) and the last alone (equal to the
@@ -6865,7 +6928,7 @@ def phase_criteo(seed: int) -> dict:
                                                       run_mice_wide)
     from duckdb_imputation_tpu_torch.parallel import wide as pwide
     from duckdb_imputation_tpu_torch.ring import streaming
-    from duckdb_imputation_tpu_torch.ring.kernels import _build
+    from duckdb_imputation_tpu_torch.ring.kernels import _build, sigma_pallas
     from duckdb_imputation_tpu_torch.ring.kernels.sigma_fused import (
         fused_impute_aggregate, fused_impute_aggregate_plain)
     from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas import (
@@ -6877,6 +6940,9 @@ def phase_criteo(seed: int) -> dict:
                 sort_by_group)
 
     t_phase = time.perf_counter()
+    _build.plan_cache.clear()            # earlier phases' plans: the card
+    sigma_pallas._device_plan.cache_clear()   # holds criteo_c18's beside
+    torch.cuda.empty_cache()                  # two 9.0 GB S in K8
     t, x_true, c_true, click = make_criteo(N_CRITEO, seed + 191)
     schema, n = t.schema, N_CRITEO
     p, d, sizes = schema.sigma_size, schema.num_cols, tuple(schema.cat_sizes)
@@ -6903,8 +6969,24 @@ def phase_criteo(seed: int) -> dict:
         host_peak_gib=peak_host_gib(),
         keyed_columns=[CRITEO_COLS[j] for j in _build.keyed_columns(
             d, sizes)])
-    log(f"[criteo] criteo_mid P={p} n={n}: plans of {len(lows)} windows "
+    log(f"[criteo] criteo_c18 P={p} n={n}: plans of {len(lows)} windows "
         f"{out['plans']}")
+
+    # from here on, each plan copied to the card again (evicted to keep
+    # DEVICE_PLAN_SHARE of the spare memory, then asked for) is counted
+    made_again = []
+    device_plan = sigma_pallas.device_plan
+
+    def counted_device_plan(*args, **kwargs):
+        made_again.append(1)
+        return device_plan(*args, **kwargs)
+    sigma_pallas.device_plan = counted_device_plan
+    out["plans_remade"] = {}
+
+    def remade(stage):
+        out["plans_remade"][stage] = len(made_again)
+        log(f"[criteo] plans made again on the card through {stage}: "
+            f"{len(made_again)}")
 
     # a pass over all of S, counts zeroed just before it
     cols = window_columns(schema, lows, _build.WINDOW_WIDTH)
@@ -6944,6 +7026,7 @@ def phase_criteo(seed: int) -> dict:
         f"{order_ms:.1f} ms over {out['order']['columns']}; cuBLAS dense "
         f"Gram at {ls} rows {out['library_ms']:.1f} ms; device peak "
         f"{out['device_peak_gib']:.2f} GiB")
+    remade("the pass")
 
     # three windows alone: equal to the pass's columns at N_CRITEO rows,
     # against the plain version on the slice
@@ -6989,6 +7072,7 @@ def phase_criteo(seed: int) -> dict:
     out["max_abs_err"], out["plain_ms"] = worst, None
     del s
     torch.cuda.empty_cache()
+    remade("the three windows")
 
     # K8 by click (G = 2): sort, then a launch a window; N_CRITEO rows
     # timed, the slice against the plain version
@@ -7012,9 +7096,13 @@ def phase_criteo(seed: int) -> dict:
     k8_s = time.perf_counter() - t1
     check(grouped_gram_presorted.wide_launches == len(lows),
           f"[criteo] K8: {grouped_gram_presorted.wide_launches} launches")
-    check(torch.isfinite(full).all() and torch.equal(
-        full, full.transpose(1, 2)), "[criteo] K8 not symmetric")
-    del full
+    for gg in range(2):   # a block of rows at a time: S_g is 9.0 GB
+        for r0 in range(0, p, 2048):
+            blk = full[gg, r0:r0 + 2048]
+            check(torch.isfinite(blk).all() and torch.equal(
+                blk, full[gg, :, r0:r0 + 2048].T),
+                f"[criteo] K8 group {gg}: not finite or not symmetric")
+    del full, blk
     torch.cuda.empty_cache()
     def k8_compare(got, want):
         return max(lean_gram_compare(f"[criteo] K8 group {gg}", schema)(
@@ -7040,6 +7128,7 @@ def phase_criteo(seed: int) -> dict:
         gram_bound(t.cat_codes[:, :m], schema, sw, groups=2, extra=8))
     out["k8"].update(rows=m, full_rows=n, full_s=k8_s, groups=2)
     torch.cuda.empty_cache()
+    remade("K8")
 
     # K2w: its impute kernel, then K7's windows
     rng = np.random.default_rng(seed + 193)
@@ -7066,7 +7155,7 @@ def phase_criteo(seed: int) -> dict:
         torch.cuda.empty_cache()
 
     # scan_gram over the slice's complete rows (no nulls, so the fold's
-    # schema is criteo_mid's own and shares its plans) against masked_gram
+    # schema is criteo_c18's own and shares its plans) against masked_gram
     num = x_true[:, :m].cpu().numpy()
     cat = c_true[:, :m].cpu().numpy().astype(np.int64)
     ss = streaming.StreamSchema(schema=schema, nullable_num=(),
@@ -7085,6 +7174,7 @@ def phase_criteo(seed: int) -> dict:
           "chunk differs from masked_gram over the same rows")
     out["scan_gram"] = dict(rows=m, seconds=scan_s,
                             launches=len(lows), equal=True)
+    remade("K2w and scan_gram")
     log(f"[criteo] scan_gram n={m}: {len(lows)} K7 launches, "
         f"{scan_s:.2f} s, equal to masked_gram over the same rows")
     del gram, ref, num, cat
@@ -7115,9 +7205,10 @@ def phase_criteo(seed: int) -> dict:
                                 cg_steps=pwide._pcg.steps, **quality)
     log(f"[criteo] run_mice_wide 1 x 1 n={mr} (I1, I3, C20): {mice_s:.2f} "
         f"s, {passes} passes over S, {pwide._pcg.steps} CG steps")
+    remade("run_mice_wide")
+    sigma_pallas.device_plan = device_plan
     del t, x_true, c_true, click, xs, cs, w, sub, xw, cw
     _build.plan_cache.clear()
-    from duckdb_imputation_tpu_torch.ring.kernels import sigma_pallas
     sigma_pallas._device_plan.cache_clear()
     torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t_phase
@@ -7253,7 +7344,9 @@ def phase_zip5(seed: int) -> dict:
 # binary label. MICE takes the label as a categorical column (P = 2,003),
 # QDA and NB as the class (P = 2,001)
 EPSILON_D = 2000
-N_EPSILON = 400_000        # the training split: the kernels' rows
+N_EPSILON = 200_000        # the kernels' rows: half the training split
+                           # (all 400,000 before the run neared its
+                           # limit with criteo_c18's plans)
 N_EPSILON_MICE = 100_000   # rows of the MICE loops and the pipelines (a
                            # pass over 2,003 columns takes ~6 s at 400k)
 N_EPSILON_SLICE = 20_000   # rows the plain versions take
@@ -7336,11 +7429,12 @@ def scorer_compare(tag):
     return compare
 
 
-def library_qda_ms(tables, plan, x, schema) -> float:
+def library_qda_ms(tables, plan, x, schema, codes=None) -> float:
     """ms of the cuBLAS f32 products that score the same quadratic forms
     from the dense operand: (Z·A_c ⊙ Z) summed over the columns, a class
     at a time (TF32 off), A_c the f32 form the tables' cells stand for
-    (each cell at its places, halved off the diagonal)."""
+    (each cell at its places, halved off the diagonal); Z = [1 ‖ x], or
+    with `codes` [1 ‖ x ‖ onehot(codes)]."""
     p = schema.sigma_size
     e = plan.entries.long().to(DEVICE)
     flat = plan.task_base.to(DEVICE)[e[:, 0]] + e[:, 1]
@@ -7349,8 +7443,8 @@ def library_qda_ms(tables, plan, x, schema) -> float:
     a = torch.zeros((tables.shape[0], p, p), device=DEVICE)
     a[:, e[:, 2], e[:, 3]] = torch.where(off, vals / 2, vals)
     a[:, e[:, 3], e[:, 2]] = torch.where(off, vals / 2, vals)
-    z = torch.cat([torch.ones((1, x.shape[1]), device=DEVICE), x]).T
-    z = z.contiguous()
+    z = (torch.cat([torch.ones((1, x.shape[1]), device=DEVICE), x]).T
+         if codes is None else dense_block(x, codes, schema).T).contiguous()
 
     def score():
         for c in range(a.shape[0]):
@@ -7794,6 +7888,7 @@ def main() -> int:
     launches = phase_main_path(args.seed)
     launches.update(phase_classify(args.seed))
     phase_noise(args.seed)
+    phase_tf32(args.seed)
     phase_deploy(args.seed)
     k7 = phase_k7(args.seed)
     k2w = phase_k2w(args.seed)
@@ -7835,7 +7930,7 @@ def main() -> int:
     past_smem = phase_past_smem(args.seed)
     hck, sek = home_credit["kernels"], secom["kernels"]
     v5000, d900 = past_smem["d1000_v5000"], past_smem["d900_r33"]
-    criteo_mid = {k: v for k, v in criteo.items()
+    criteo_c18 = {k: v for k, v in criteo.items()
                   if k not in ("k8", "k2w", "order")}
     n80, n70 = narrow_many["d80"], narrow_many["d70"]
 
@@ -7920,7 +8015,7 @@ def main() -> int:
              also_replaces=[ref + "sigma_pallas.py:520",
                             ref + "sigma_pallas.py:129"],
              secom_fold=dict(secom["fold"], plans=secom["plans"]),
-             criteo_mid=criteo_mid,
+             criteo_c18=criteo_c18,
              epsilon=dict(epsilon["k7"], plans=epsilon["plans"],
                           mice={k: epsilon[k] for k in (
                               "mice_gram", "mice_fused", "run_mice_wide",
@@ -7936,7 +8031,7 @@ def main() -> int:
              replaces=None, serves="wide_gram_window",
              launches=items["order_launches"],
              passes=items["order_passes"],
-             wide16k=k7win["wide16k"]["order"], criteo_mid=criteo["order"],
+             wide16k=k7win["wide16k"]["order"], criteo_c18=criteo["order"],
              d1000_v5000=v5000["order"],
              **k7win["favorita_items"]["order"]),
         dict(name="fused_impute_aggregate_wide", route="cuda",
@@ -7985,14 +8080,14 @@ def main() -> int:
                  "fused_impute_aggregate.window_launches"],
              sharded_launches=sharded_items["launches"][
                  "fused_impute_aggregate.impute_launches"],
-             criteo_mid=criteo["k2w"], epsilon=epsilon["k2w_cat"],
+             criteo_c18=criteo["k2w"], epsilon=epsilon["k2w_cat"],
              epsilon_num=epsilon["k2w_num"], **k2w_items),
         dict(name="grouped_wide_gram_window", route="cuda",
              source=src + "grouped_wide_gram.cu",
              replaces=ref + "sigma_pallas_grouped.py:568",
              launches=classify_items["qda"]["aggregate_launches"][
                  "grouped_gram_presorted.wide_launches"],
-             criteo_mid=criteo["k8"], epsilon=epsilon["k8"], **k8win),
+             criteo_c18=criteo["k8"], epsilon=epsilon["k8"], **k8win),
         dict(name="qda_predict_items", route="cuda",
              source=src + "qda_predict.cu",
              replaces=ref + "qda_pallas.py:173",

@@ -68,7 +68,8 @@
 //      reach it; the row's running (key, class) in shared memory takes it
 //      only if strictly larger, so the result is the first max over all
 //      classes.
-// Past kMaxWideP (dit_impute_wide, any P ≤ kMaxWindowP) W no longer fits
+// Past kMaxWideP (dit_impute_wide, any P ≤ kMaxWindowP with (P + 2)·ldw <
+// 2³¹) W no longer fits
 // shared memory (a class tile [P + 2][32] f32 is 588 KB at favorita_items,
 // P = 4,592), and a null row needs only its own 1 + d + c rows of W: the
 // same kernel (kGlobalW) reads them from device memory, where W padded to
@@ -142,6 +143,10 @@ __device__ __forceinline__ float row_normal(const Noise& nz, int64_t row) {
 
 // Q values of W's row a, classes k0 .. k0 + Q - 1 (W f32[., ld]): one
 // 16-byte read for Q = 4 (16-byte aligned: ld and k0 multiples of 4).
+// a·ld stays an int: a < P + 2 and (P + 2)·ld < 2³¹ wherever it is read
+// (K2's W in shared memory at P ≤ 88, K2w's whole W at P ≤ 1,024, the
+// 'num' kernels' ld = 1; K2w's padded W in device memory is read through
+// int offsets that launch_impute_cat bounds the same way).
 template <int Q>
 __device__ __forceinline__ void w_row(const float* W, int a, int ld, int k0,
                                       float v[Q]) {
@@ -249,6 +254,7 @@ struct TcImpute {
   }
   int smem_floats() const { return P * ld() + ld() + 1; }
 
+  // a·R + k < P·R ≤ 21 · 21 here (_build.py: tc_fits)
   __device__ __forceinline__ void load(float* sm) const {
     const int L = ld();
     for (int i = threadIdx.x; i < (P + 1) * L; i += blockDim.x) {
@@ -719,6 +725,8 @@ inline int launch_impute_cat(const Cols& cols, int64_t n,
   if (M < 1 || M > kImpMaxM || ld < 1 || ld > 32 * M || ld <= 32 * (M - 1) ||
       batch < 32 || batch % 32 != 0)
     return cudaErrorInvalidValue;
+  // the batch rows' W offsets are ints: W padded to [P + 2][ldw] stays
+  // below 2³¹ cells (_build.py: impute_global_plan raises before this)
   if (!global) ldw = ld;
   else if (ld != 32 * M || ldw < R || ldw % ld != 0 ||
            int64_t(P + 2) * ldw > 0x7fffffff)

@@ -113,7 +113,7 @@ inline int check_cols(int d, int c, const int* cat_sizes, int P, int64_t n,
   if (d < 0 || c < 0) return cudaErrorInvalidValue;
   if ((d > kInlineCols || c > kInlineCols) && far == nullptr)
     return cudaErrorInvalidValue;
-  int p = 1 + d;
+  int64_t p = 1 + d;   // the levels' sum may pass an int before it is checked
   for (int j = 0; j < c; ++j) {
     if (cat_sizes[j] < 0) return cudaErrorInvalidValue;
     p += cat_sizes[j];

@@ -85,6 +85,11 @@ namespace dit {
 namespace {
 
 constexpr int kQdaThreads = 1024; // most threads of a block
+// most P: a class's whole quadratic form in one plan of S (no windows), P²
+// cells a class counted in int places; the trainers' f64[C, P, P] forms
+// are out of reach past it in either package (_build.py:
+// MAX_SCORER_SIGMA_SIZE)
+constexpr int kMaxScorerP = 46340;
 // most levels of a categorical column whose codes are staged as i16; past
 // them every code is staged as i32
 constexpr int kQdaShortLevels = 32768;
@@ -492,11 +497,12 @@ int dit_qda_predict(const void* const* x_cols, int d,
                     int width, int max_x, int32_t* out, void* stream) {
   using namespace dit;
   if (d < 0 || c < 0) return cudaErrorInvalidValue;
-  int P = 1 + d;
+  int64_t P = 1 + d;
   for (int j = 0; j < c; ++j) P += cat_sizes[j];
-  // any P of K7's window plans; codes staged as i16, or as i32 past
-  // kQdaShortLevels levels a column
-  if (int rc = check_cols(d, c, cat_sizes, P, n, 1, kMaxWindowP, far))
+  if (P > kMaxScorerP) return cudaErrorInvalidValue;
+  // codes staged as i16, or as i32 past kQdaShortLevels levels a column
+  if (int rc = check_cols(d, c, cat_sizes, static_cast<int>(P), n, 1,
+                          kMaxScorerP, far))
     return rc;
   bool wide_codes = false;
   for (int j = 0; j < c; ++j) wide_codes |= cat_sizes[j] > kQdaShortLevels;

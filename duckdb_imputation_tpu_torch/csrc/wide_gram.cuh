@@ -107,9 +107,13 @@ namespace {
 constexpr int kMaxWideP = 1024;             // K7's whole plan, K2w's fused
                                              // entry and K8's whole plan
                                              // (past it: a launch a window)
-// K7 over a column window: a window's map holds at most P·width ≤ P² < 2³¹
-// places (int entry counts; positions are int64)
-constexpr int kMaxWindowP = 46340;
+// K7, K8 and K2w over column windows: a window's map entries are counted
+// in an int (WidePlanArgs::nentries), and a window of 1,024 columns
+// (_build.py: WINDOW_WIDTH; a wider one past MAX_WINDOW_PLACES runs as
+// such windows) maps at most P·1,024 places, so P ≤ (2³¹ − 1) / 1,024.
+// Every index of S (an entry's i, j, a column's offset) is an int below
+// P, and every position into S an int64 (OutMap)
+constexpr int kMaxWindowP = 2097151;
 constexpr int kWideChunk = 32;               // rows a warp takes a step
 constexpr int kWideWarps = kThreads / 32;    // warps of a block
 constexpr int kWideSubs = kThreads / kWideChunk;  // most warp steps a stage

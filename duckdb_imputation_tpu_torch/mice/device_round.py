@@ -68,6 +68,7 @@ from ..ring.kernels.sigma_fused import fused_impute_aggregate, philox_normal
 from ..ring.kernels.sigma_pallas import masked_gram_cols
 from ..ring.sum import _stack_cols, class_argmax, linear_predict, masked_sigma
 from ..table.table import Table
+from ..utils.precision import ieee_f32
 from .partition import build_partitions, init_fill
 
 KERNELS = ("auto", "plain", "gram", "fused")
@@ -85,6 +86,7 @@ def _row_noise(generator: torch.Generator, n: int,
     return torch.randn(n, generator=generator, device=device)
 
 
+@ieee_f32()
 def _lda_device(sigma: torch.Tensor, schema: FeatureSchema, label: int,
                 shrinkage: float):
     """Device LDA from the full sigma: returns (W [m, C], intercept [C],
@@ -141,6 +143,7 @@ def _train_num(sigma: torch.Tensor, col: int, trainer: str,
     return linreg_train_device(sigma, label=col + 1, max_iters=gd_iters)
 
 
+@ieee_f32()
 def _noise_std(coeff: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
     """Residual std of the linreg model, from the sigma it was trained on
     (coeff has −1 at the label)."""

@@ -33,12 +33,15 @@ import dataclasses
 
 import torch
 
+from ..utils.precision import ieee_f32
+
 # The reference's cap on backtracking halvings (regression.cpp:205-223).
 GD_HALVINGS = 500
 # Outer GD steps between two host reads of `done`.
 GD_CHUNK = 32
 
 
+@ieee_f32()
 def lstsq_min_norm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Minimum-norm least squares, x = pinv(a) @ b, through an SVD.
 
@@ -143,6 +146,7 @@ def _gd_step(s: _GDState, sigma, n, lam, keep, pin, is_intercept,
                       for f in dataclasses.fields(_GDState)))
 
 
+@ieee_f32()
 def linreg_train_device(sigma: torch.Tensor, *, label: int,
                         step_size: float = 0.001, lam: float = 0.0,
                         max_iters: int = 1000) -> torch.Tensor:
@@ -195,6 +199,7 @@ def linreg_train_device(sigma: torch.Tensor, *, label: int,
 linreg_train_device.host_reads = 0
 
 
+@ieee_f32()
 def linreg_predict_device(coeff: torch.Tensor, zt: torch.Tensor,
                           label: int) -> torch.Tensor:
     """Prediction from the device coeff vector over the features-first

@@ -35,6 +35,7 @@ import torch
 
 from ..ring.triple import Triple
 from ..schema import FeatureSchema
+from ..utils.precision import ieee_f32
 from .sigma import (class_sums_host, host_sigma, select_sigma, select_vocab,
                     standardize_sigma)
 
@@ -170,6 +171,7 @@ def onehot_features_t(x_num: torch.Tensor, codes, offsets,
     return f
 
 
+@ieee_f32()
 def lda_predict(params: np.ndarray, x_num, codes=None, *,
                 normalize: bool = False) -> torch.Tensor:
     """Batched `lda_predict(params, normalize, cols…)` → i32[n] 0-based class

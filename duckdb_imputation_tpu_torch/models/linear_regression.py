@@ -35,6 +35,7 @@ import torch
 
 from ..ring.triple import Triple
 from ..schema import FeatureSchema
+from ..utils.precision import ieee_f32
 from .sigma import build_sigma, standardize_sigma
 
 
@@ -201,6 +202,7 @@ class LinregParams:
                             cat_coef, num_means, cat_means, noise_std)
 
 
+@ieee_f32()
 def linreg_predict(params: np.ndarray, x_num: torch.Tensor, codes=None, *,
                    add_noise: bool = False, normalize: bool = False,
                    generator: torch.Generator | None = None) -> torch.Tensor:

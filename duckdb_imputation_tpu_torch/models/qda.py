@@ -35,6 +35,7 @@ import torch
 
 from ..ring.triple import Triple
 from ..schema import FeatureSchema
+from ..utils.precision import ieee_f32
 from .lda import onehot_features_t
 from .sigma import host_sigma, select_sigma, select_vocab
 
@@ -172,6 +173,7 @@ class QDAParams:
                          intercept, num_means, cat_means)
 
 
+@ieee_f32()
 def qda_predict(params: np.ndarray, x_num, codes=None, *,
                 normalize: bool = False) -> torch.Tensor:
     """Batched `qda_predict(params, normalize, cols…)` → i64[n] label VALUES

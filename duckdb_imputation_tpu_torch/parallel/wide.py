@@ -15,9 +15,11 @@ SOLVE, not only through the aggregation:
       (Σ_keep/N + λ·D) w = Σ[keep, label]/N
     (the system `models.device.linreg_solve_device` solves densely), whose
     matvec y = Σ_m S[:, cols_m] @ v[cols_m] is one product of the rank's
-    block (`torch.matmul`, f32, TF32 off: JAX leaves it to XLA, outside
-    any Pallas kernel) and one all-reduce of a P-vector over 'model'. The
-    label row and column are masked inside the operator;
+    block, widened to f64 a slab of rows at a time (`_matvec`: JAX leaves
+    it to XLA in f32, outside any Pallas kernel), and one all-reduce of a
+    P-vector over 'model'. The label row and column are masked inside the
+    operator; the LDA step's f32 rank-C correction runs under
+    `utils.precision.ieee_f32`;
   * predict: θ is a small P-vector every rank holds the same; ŷ = θ·z over
     each row's codes (`ring.sum.linear_predict`), and the LDA classes by
     `ring.sum.class_argmax`, on the rank's rows. The JAX package builds a
@@ -49,6 +51,7 @@ import torch
 
 from ..ring.sum import _normalize_inputs, class_argmax, linear_predict
 from ..schema import FeatureSchema
+from ..utils.precision import ieee_f32
 from .mesh import all_reduce
 from .sharded2d import Mesh2D, _rows, _sigma_2d
 
@@ -235,6 +238,7 @@ def mice_column_step_wide(x_num, codes, null_mask, *,
     return out
 
 
+@ieee_f32()
 def lda_solve_wide(sigma_cols: torch.Tensor, *, mesh: Mesh2D,
                    schema: FeatureSchema, label: int,
                    shrinkage: float = 1e-3, iters: int = 500,

@@ -62,11 +62,24 @@ MAX_WIDE_SIGMA_SIZE = 1024  # kMaxWideP (wide_gram.cuh): K7's whole plan,
                             # it K2w (its impute kernel, dit_impute_wide,
                             # then K7's windows) and K8 run a launch a
                             # column window, and K3/K3w take any P up to
-                            # MAX_WINDOW_SIGMA_SIZE (qda_predict.cu checks
-                            # kMaxWindowP)
-MAX_WINDOW_SIGMA_SIZE = 46340  # kMaxWindowP (wide_gram.cuh): K7 over a
-                               # column window (a map of P·width ≤ P² <
-                               # 2³¹ places)
+                            # MAX_SCORER_SIGMA_SIZE
+# kMaxWindowP (wide_gram.cuh): K7, K8 and K2w over column windows. The
+# width that sets it is the int count of a window's map entries
+# (WidePlanArgs::nentries, `WidePlan.shape_ints`): a window of
+# WINDOW_WIDTH columns maps at most P·WINDOW_WIDTH places (a wider one
+# past MAX_WINDOW_PLACES runs as such windows, `window_cuts`), so P ≤
+# (2³¹ − 1) // WINDOW_WIDTH. Every index of S (an entry's i, j, a
+# column's offset) is an int below P, every position into S an int64.
+# The dense f32 S and the allocator bound what fits well before it (S of
+# 47,412² is 9.0 GB; S alone fills an 80 GB card near P = 141,000), and
+# past that torch's out-of-memory error is the answer
+MAX_WINDOW_SIGMA_SIZE = 2097151
+# kMaxScorerP (qda_predict.cu): K3/K3w score a class's whole quadratic
+# form over one plan of S (no windows), P² cells a class counted in int
+# places (`qda_plan`'s map), and the trainers hand it f64[C, P, P] forms
+# (18 GB a class at P = 47,412): past 46,340 (P² ≥ 2³¹) out of reach in
+# either package
+MAX_SCORER_SIGMA_SIZE = 46340
 WINDOW_WIDTH = 1024  # the windows masked_gram(_cols) assemble S from above
                      # MAX_WIDE_SIGMA_SIZE: the width K7 was tuned at
 MAX_WINDOW_PLACES = 1 << 28  # most places of one window's plans (4 GB of
@@ -459,15 +472,21 @@ def qda_tile(schema, plan: "WidePlan", num_classes: int
 def check_qda(schema, num_classes: int, n: int, cross: bool = True
               ) -> None:
     """Raise ValueError for a schema, class count or row count K3/K3w do
-    not take: P ≤ MAX_WINDOW_SIGMA_SIZE, as K7's window plans, any levels
-    a column (a cross table whose rows pass a task is cut by row code too,
-    `qda_plan`; codes past QDA_SHORT_LEVELS are staged as i32), any
-    numeric columns (past a tile of 32 rows of x in f64 beside a task's
-    tables, the plan is local, `qda_local`: a task stages its own
+    not take: P ≤ MAX_SCORER_SIGMA_SIZE (a class's whole P² form), any
+    levels a column (a cross table whose rows pass a task is cut by row
+    code too, `qda_plan`; codes past QDA_SHORT_LEVELS are staged as i32),
+    any numeric columns (past a tile of 32 rows of x in f64 beside a
+    task's tables, the plan is local, `qda_local`: a task stages its own
     columns)."""
     if num_classes < 1:
         raise ValueError(f"{num_classes} classes: at least 1 is needed")
-    check_schema(schema, n, MAX_WINDOW_SIGMA_SIZE)
+    if schema.sigma_size > MAX_SCORER_SIGMA_SIZE:
+        raise ValueError(
+            f"sigma size {schema.sigma_size} > {MAX_SCORER_SIGMA_SIZE}: "
+            f"K3/K3w score each class's whole P² quadratic form, whose "
+            f"plan and f64 per-class tables are out of reach past it in "
+            f"either package")
+    check_schema(schema, n, MAX_SCORER_SIGMA_SIZE)
 
 
 def qda_local(schema, cross: bool = True) -> bool:
@@ -599,8 +618,16 @@ def impute_global_plan(schema, r: int) -> tuple[int, int, int]:
     tiles of ld = 32·M classes, M = ceil(R / 32) up to IMP_MAX_M, and
     IMP_BATCH null rows a batch, or the most whole warps shared memory
     holds beside no class tile; where not 32 rows of x fit (d ≥ 1,801),
-    x is read from device memory (`impute_x_terms`)."""
+    x is read from device memory (`impute_x_terms`). ValueError where W
+    padded to [P + 2][ldw] (ldw: R rounded up to a tile) reaches 2³¹
+    cells: the kernel reads it through int offsets (R past about 2³¹ / P
+    classes: 45,184 at P = 47,412)."""
     m = min(IMP_MAX_M, -(-r // 32))
+    ldw = -(-r // (32 * m)) * 32 * m
+    if (schema.sigma_size + 2) * ldw >= 1 << 31:
+        raise ValueError(
+            f"K2w: W of [{schema.sigma_size} + 2][{ldw}] cells reaches "
+            f"2^31, past the impute kernel's int offsets into it")
     batch = _impute_batch(schema, 0, IMP_BATCH, True)
     if batch < 32:
         batch = _impute_batch(schema, 0, IMP_BATCH, False)

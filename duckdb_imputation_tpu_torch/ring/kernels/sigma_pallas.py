@@ -751,7 +751,7 @@ def masked_gram_window(x_cols, code_cols, weights, *, schema: FeatureSchema,
     CUDA tensors launch K7 over the window's plans (one launch, counted
     in `masked_gram_window.launches`, after an order pass where the window
     keys a column; a window of more than `_build.MAX_WINDOW_PLACES`
-    places, as the whole S of criteo_mid, one launch a window of
+    places, as the whole S of criteo_c18, one launch a window of
     `_build.window_cuts`); CPU tensors take `masked_gram_window_plain`."""
     x_cols, code_cols = list(x_cols), list(code_cols)
     if len(x_cols) != schema.num_cols or len(code_cols) != schema.cat_cols:
@@ -958,6 +958,11 @@ def masked_gram_window_keyed_plain(x_cols, code_cols, weights, *,
     return out[0] if offsets is None else out
 
 
+ASSEMBLE_ENTRIES = 1 << 22   # map entries `wide_assemble` places at a time:
+                             # its int64 copy of them stays at 128 MB (a
+                             # window of criteo_c18 maps 43M)
+
+
 def wide_assemble(cells: torch.Tensor, *, schema: FeatureSchema,
                   plan: _build.WidePlan | None = None) -> torch.Tensor:
     """S f32[..., P, P] from the plan's cells f64[..., task_base[T]]
@@ -968,13 +973,15 @@ def wide_assemble(cells: torch.Tensor, *, schema: FeatureSchema,
     plan = _build.wide_plan(schema) if plan is None else plan
     p = schema.sigma_size
     lo, hi = plan.window or (0, p)
-    e = plan.entries.long().to(cells.device)
-    vals = cells[..., plan.task_base.to(cells.device)[e[:, 0]] + e[:, 1]]
+    base = plan.task_base.to(cells.device)
     out = torch.zeros(cells.shape[:-1] + (p * (hi - lo),),
                       dtype=torch.float32, device=cells.device)
-    out[..., e[:, 2] * (hi - lo) + e[:, 3] - lo] = vals.float()
-    if plan.window is None:
-        out[..., e[:, 3] * p + e[:, 2]] = vals.float()
+    for a in range(0, plan.entries.shape[0], ASSEMBLE_ENTRIES):
+        e = plan.entries[a:a + ASSEMBLE_ENTRIES].to(cells.device).long()
+        vals = cells[..., base[e[:, 0]] + e[:, 1]].float()
+        out[..., e[:, 2] * (hi - lo) + e[:, 3] - lo] = vals
+        if plan.window is None:
+            out[..., e[:, 3] * p + e[:, 2]] = vals
     return out.reshape(cells.shape[:-1] + (p, hi - lo))
 
 

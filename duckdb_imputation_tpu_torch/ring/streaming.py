@@ -32,9 +32,9 @@ call of the masked-Gram kernels (`ring.kernels.sigma_pallas.masked_gram`:
 K1 at P + K ≤ 88, K7 above: one launch, or past P + K = 1,024 one a
 column window), with no row padding, and the chunks' f32
 results are summed in f64 on the device: counts stay exact past 2²⁴ rows,
-where the JAX package's f32 sum of chunks does not. The kernels take at
-most 64 categorical columns (c + K) and P + K ≤ 46,340 (K7's windows);
-past them a CUDA fold raises before it reads the stream. Null cells are zeroed and codes
+where the JAX package's f32 sum of chunks does not. The kernels take
+any column count and P + K ≤ `_build.MAX_WINDOW_SIGMA_SIZE` (K7's
+windows); past it a CUDA fold raises before it reads the stream. Null cells are zeroed and codes
 encoded on the host; chunks are copied to the device as they are (plain
 copies, no packing). With a mesh (`parallel.Mesh`), each rank folds its
 `row_shard` of every chunk and one all-reduce of the f64 Gram ends the

@@ -32,6 +32,7 @@ from __future__ import annotations
 import torch
 
 from ..schema import FeatureSchema
+from ..utils.precision import ieee_f32
 from .triple import NBAgg, Triple, _map, triple_from_sigma
 
 # Rows per chunk of the plain Gram accumulation.
@@ -288,6 +289,7 @@ def class_argmax(w_full: torch.Tensor, intercept: torch.Tensor, x_cols,
 # Lift: per-row degree-1 aggregates
 # ---------------------------------------------------------------------------
 
+@ieee_f32()
 def lift(x_num=None, codes=None, *, schema: FeatureSchema) -> Triple:
     """`to_cofactor(cols…)`: each row becomes a degree-1 triple (n = 1,
     lin = x, quad = x xᵀ, one-hot category sections). Returns a Triple

@@ -1,16 +1,29 @@
-from .profiling import PhaseTimer, device_trace
-from .checkpoint import (
-    MiceCheckpointer,
-    StreamCheckpointer,
-    load_table,
-    load_table_arrays,
-    run_fingerprint,
-    save_table,
-    table_checksum,
-)
-from .validate import TripleValidationError, validate_nb, validate_triple
+"""Timing, precision, checkpoints and validation.
 
-__all__ = ["PhaseTimer", "device_trace", "MiceCheckpointer",
-           "StreamCheckpointer", "load_table", "load_table_arrays", "run_fingerprint", "save_table",
-           "table_checksum", "TripleValidationError", "validate_nb",
-           "validate_triple"]
+`precision` and `profiling` import torch alone; the modules that import
+other parts of the package (`checkpoint`, `validate`) load when one of
+their names is first read, so that any module of the package can take
+`ieee_f32` from here while the package is still being imported."""
+import importlib
+
+from .precision import ieee_f32
+from .profiling import PhaseTimer, device_trace
+
+_LAZY = {"MiceCheckpointer": "checkpoint", "StreamCheckpointer": "checkpoint",
+         "load_table": "checkpoint", "load_table_arrays": "checkpoint",
+         "run_fingerprint": "checkpoint", "save_table": "checkpoint",
+         "table_checksum": "checkpoint",
+         "TripleValidationError": "validate", "validate_nb": "validate",
+         "validate_triple": "validate"}
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        value = getattr(importlib.import_module(f".{_LAZY[name]}", __name__),
+                        name)
+        globals()[name] = value
+        return value
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+__all__ = ["PhaseTimer", "device_trace", "ieee_f32", *_LAZY]

@@ -492,7 +492,8 @@ def test_limit_constants_equal_the_kernels():
     cxx = _cxx_constants()
     pairs = {"CHUNK_ROWS": "kChunk", "MAX_SIGMA_SIZE": "kMaxP",
              "MAX_WIDE_SIGMA_SIZE": "kMaxWideP",
-             "MAX_WINDOW_SIGMA_SIZE": "kMaxWindowP", "WIDE_CHUNK": "kWideChunk",
+             "MAX_WINDOW_SIGMA_SIZE": "kMaxWindowP",
+             "MAX_SCORER_SIGMA_SIZE": "kMaxScorerP", "WIDE_CHUNK": "kWideChunk",
              "WIDE_WARPS": "kWideWarps", "WIDE_TASK_BYTES": "kWideTaskBytes",
              "WIDE_SLAB_INTS": "kWideSlabInts", "SLAB_D": "kSlabD",
              "SLAB_K": "kSlabK", "SLAB_C": "kSlabC", "SLAB_CR": "kSlabCR",
@@ -698,7 +699,7 @@ def test_wide_build_failure_propagates(monkeypatch, which):
 # ---------------------------------------------------------------------------
 
 def test_qda_schema_limit_as_built():
-    """K3/K3w take any column count and P up to K7's window limit, in one
+    """K3/K3w take any column count and P up to MAX_SCORER_SIGMA_SIZE, in one
     code path: past the 32 + 32 of the factor scorer, 40 numeric and 40
     categorical columns score through the plain version as the dense f64
     form ranks them; at 64 + 64 and P = 1,024 the tile shrinks to fit a
@@ -706,7 +707,7 @@ def test_qda_schema_limit_as_built():
     numeric or 65 one-level categorical columns are taken, their tiles
     within shared memory; the numeric columns a tile of 32 rows holds are
     taken, and one more too, its plan local (`qda_local`: a task stages
-    its own columns), within shared memory; P past MAX_WINDOW_SIGMA_SIZE
+    its own columns), within shared memory; P past MAX_SCORER_SIGMA_SIZE
     raises."""
     rng = np.random.default_rng(9)
     keys = tuple(tuple(range(3)) for _ in range(40))
@@ -752,7 +753,7 @@ def test_qda_schema_limit_as_built():
             plan.max_stage_x if plan.local else None) <= _build.WIDE_SMEM
     with pytest.raises(ValueError):
         _build.check_qda(FeatureSchema(num_cols=64, cat_keys=tuple(
-            tuple(range(14 if j < 63 else _build.MAX_WINDOW_SIGMA_SIZE
+            tuple(range(14 if j < 63 else _build.MAX_SCORER_SIGMA_SIZE
                         - 64 - 14 * 63))
             for j in range(64))), 2, 1000)
 

@@ -365,8 +365,20 @@ def test_kernels_raise_on_inputs_they_do_not_take(cuda):
     wide = FeatureSchema(num_cols=4, cat_keys=(tuple(range(
         _build.MAX_WINDOW_SIGMA_SIZE)),))
     assert wide.sigma_size > _build.MAX_WINDOW_SIGMA_SIZE
-    with pytest.raises(ValueError):       # sigma size above K7's windows
+    with pytest.raises(ValueError, match="sigma size"):   # above K7's windows
         masked_gram_cols(xs, cs[:1], None, schema=wide)
+    # the scorer stops at MAX_SCORER_SIGMA_SIZE (a class's whole P² form):
+    # P = 47,412 on CUDA tensors raises before any launch
+    scorer_past = FeatureSchema(num_cols=4, cat_keys=(tuple(range(47407)),))
+    assert scorer_past.sigma_size > _build.MAX_SCORER_SIGMA_SIZE
+    before = qda_predict_kernel.wide_launches
+    with pytest.raises(ValueError, match="sigma size"):
+        qda_predict_kernel(
+            torch.zeros((2, 8), device=cuda),
+            _build.qda_plan(FeatureSchema(num_cols=4, cat_keys=(
+                tuple(range(1020)),))),
+            torch.stack(xs), torch.stack(cs[:1]), schema=scorer_past)
+    assert qda_predict_kernel.wide_launches == before
     above = FeatureSchema(num_cols=4, cat_keys=(tuple(range(9000)),
                                                 tuple(range(8))))
     assert above.sigma_size > _build.MAX_WIDE_SIGMA_SIZE
@@ -2910,3 +2922,132 @@ def test_past_smem_window_order_matches_plain(cuda):
     ncols = 1 + schema.num_cols + schema.cat_cols
     assert torch.equal(got.rows[0, :last, :ncols].cpu(),
                        want.rows[0, :last, :ncols])
+
+
+# ---------------------------------------------------------------------------
+# IEEE f32 whatever the caller set, and P past 46,340
+# ---------------------------------------------------------------------------
+
+def _tf32_runs(device) -> dict:
+    """run_mice_device 'gram' and 'fused' (with noise) and the GD trainer
+    at config 5, and run_mice_wide on a 1 × 1 grid at P = 1,505: their
+    outputs on the card."""
+    from duckdb_imputation_tpu_torch.models.device import linreg_train_device
+    from duckdb_imputation_tpu_torch.parallel import (make_mesh_2d,
+                                                      run_mice_wide)
+
+    rng = np.random.default_rng(21)
+    n = 50_000
+    z0, z1 = rng.normal(size=n), rng.normal(size=n)
+    x = np.stack([z0, 2 * z0 + z1, z1 - z0, rng.normal(size=n)],
+                 1).astype(np.float32)
+    c = np.stack([np.clip(z0 + 4.0, 0, 7).astype(int),
+                  rng.integers(0, 8, n)], 1)
+    nn = np.zeros((n, 4), bool)
+    nn[:, 1] = rng.random(n) < 0.2
+    cn = np.zeros((n, 2), bool)
+    cn[:, 0] = rng.random(n) < 0.2
+    t = from_numpy(x, c, nn, cn, device=device)
+    out = {}
+    for name, kw in (("gram", dict(kernel="gram", noise=True)),
+                     ("fused", dict(kernel="fused", noise=True)),
+                     ("gd", dict(kernel="gram", trainer="gd",
+                                 gd_iters=200))):
+        r = run_mice_device(t, iters=2, **kw)
+        out[name] = (r.num_data, r.cat_codes)
+    sigma = masked_gram_cols(list(t.num_data), list(t.cat_codes), None,
+                             schema=t.schema)
+    out["train"] = (linreg_train_device(sigma, label=2, max_iters=300),)
+    cls = rng.integers(0, 3, size=20_000)
+    num = np.stack([cls - 1.0 + 0.3 * rng.normal(size=20_000),
+                    0.7 * (cls - 1.0) + 0.2 * rng.normal(size=20_000)]
+                   ).astype(np.float32)
+    codes = np.stack([cls, rng.integers(0, 1500, size=20_000)]
+                     ).astype(np.int32)
+    wide = FeatureSchema(num_cols=2, cat_keys=(tuple(range(3)),
+                                               tuple(range(1500))))
+    wn = np.zeros((2, 20_000), bool)
+    wc = np.zeros((2, 20_000), bool)
+    wn[1, rng.random(20_000) < 0.2] = True
+    wc[0, rng.random(20_000) < 0.2] = True
+    out["wide"] = run_mice_wide(
+        *(torch.tensor(a, device=device) for a in (num, codes, wn, wc)),
+        schema=wide, mesh=make_mesh_2d(1, 1, device=device), iters=2,
+        ridge=1e-2, shrinkage=1e-2, cg_iters=500, tol=1e-9)
+    return out
+
+
+@pytest.mark.parametrize("way", ["set_float32_matmul_precision_high",
+                                 "fp32_precision_tf32"])
+def test_tf32_on_leaves_the_outputs_bit_identical(cuda, way):
+    """With TF32 turned on by the caller (`torch.set_float32_matmul_
+    precision("high")`, or `torch.backends.cuda.matmul.fp32_precision =
+    "tf32"`), run_mice_device 'gram' and 'fused', the GD trainer and
+    run_mice_wide give the default setting's outputs bit for bit (their
+    f32 products run under `utils.precision.ieee_f32`), and the caller's
+    setting reads back unchanged; a product outside the port does take
+    TF32 there."""
+    matmul = torch.backends.cuda.matmul
+    g = torch.Generator(device=cuda).manual_seed(5)
+    a = torch.randn(1000, 900, device=cuda, generator=g)
+    b = torch.randn(900, 800, device=cuda, generator=g)
+    ieee = a @ b
+    default = _tf32_runs(cuda)
+    try:
+        if way == "fp32_precision_tf32":
+            matmul.fp32_precision = "tf32"
+        else:
+            torch.set_float32_matmul_precision("high")
+        before = (matmul.fp32_precision,
+                  torch.backends.mkldnn.matmul.fp32_precision)
+        assert not torch.equal(a @ b, ieee)        # TF32 is on out here
+        got = _tf32_runs(cuda)
+        assert (matmul.fp32_precision,
+                torch.backends.mkldnn.matmul.fp32_precision) == before
+    finally:
+        torch.set_float32_matmul_precision("highest")
+    for name, arrays in default.items():
+        for want, have in zip(arrays, got[name]):
+            assert torch.equal(want, have), name
+
+
+# criteo_c18 (chip_smoke.py's CRITEO_VOCABS): Criteo's Kaggle schema with
+# C18, 13 numerics and 18 categorical columns, P = 47,412
+CRITEO_C18 = (1460, 583, 305, 24, 12517, 633, 3, 5683, 3194, 27, 14992, 10,
+              5652, 2173, 4, 18, 15, 105)
+
+
+def test_criteo_c18_window_past_46340_matches_plain(cuda):
+    """One window of criteo_c18 (P = 47,412, past the 46,340 of a P² int
+    map), the one inside C18 (its tables keyed, a window order pass),
+    through K7 at 100k rows against masked_gram_window_plain: one launch
+    and one order pass a call, rerun bit-identical, counts exact, within
+    1e-5 of max|σ|."""
+    from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas import (
+        masked_gram_window, masked_gram_window_plain, window_order)
+
+    schema = FeatureSchema(num_cols=13, cat_keys=tuple(
+        tuple(range(v)) for v in CRITEO_C18))
+    p, n = schema.sigma_size, 100_000
+    assert p == 47412
+    rng = np.random.default_rng(47412)
+    xs = [torch.tensor(rng.normal(size=n).astype(np.float32), device=cuda)
+          for _ in range(13)]
+    cs = [torch.tensor(rng.integers(0, v, n).astype(np.int32), device=cuda)
+          for v in CRITEO_C18]
+    w = torch.tensor((rng.random(n) > 0.2).astype(np.float32), device=cuda)
+    lo = (1 + 13 + schema.offsets[12]) // 1024 * 1024 + 1024
+    launches, passes = masked_gram_window.launches, window_order.passes
+    got = masked_gram_window(xs, cs, w, schema=schema, lo=lo, width=1024)
+    torch.cuda.synchronize()
+    assert masked_gram_window.launches == launches + 1
+    assert window_order.passes == passes + 1
+    again = masked_gram_window(xs, cs, w, schema=schema, lo=lo, width=1024)
+    assert torch.equal(got, again)
+    want = masked_gram_window_plain(xs, cs, w, schema=schema, lo=lo,
+                                    width=1024)
+    assert got.shape == (p, 1024) and bool(torch.isfinite(got).all())
+    cm = window_count_mask(schema, lo, 1024, cuda)
+    assert torch.equal(got[cm], want[cm])
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-5 * float(want.abs().max()))

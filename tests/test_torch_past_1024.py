@@ -212,9 +212,11 @@ def test_qda_task_cells_and_limits():
     assert _build.qda_code_bytes(long_codes) == 4
     assert_plan_covers_once(_build.qda_plan(long_codes), 1, (levels,), True,
                             _build.QDA_TASK_CELLS)
-    with pytest.raises(ValueError):
+    _build.check_qda(FeatureSchema(1, (tuple(range(
+        _build.MAX_SCORER_SIGMA_SIZE - 2)),)), 2, 100)
+    with pytest.raises(ValueError, match="sigma size"):
         _build.check_qda(FeatureSchema(1, (tuple(range(
-            _build.MAX_WINDOW_SIGMA_SIZE)),)), 2, 100)
+            _build.MAX_SCORER_SIGMA_SIZE)),)), 2, 100)
     # naive Bayes's plan has no cross table: two wide columns pass
     _build.check_qda(nine, 2, 100, cross=False)
     assert _build.QDA_SHORT_LEVELS == _cxx_constants()["kQdaShortLevels"]

@@ -197,8 +197,8 @@ def test_qda_full_onehot_fixture_agrees_with_f64_oracle():
 
 
 def test_qda_limits_raise():
-    """K3/K3w take the plan's limits: P up to K7's window limit
-    (MAX_WINDOW_SIGMA_SIZE; P = 1,025 passes since the scorer's plan keys
+    """K3/K3w take the plan's limits: P up to MAX_SCORER_SIGMA_SIZE (a
+    class's whole P² form; P = 1,025 passes since the scorer's plan keys
     a wide cross table on its wider column) and any column count (65
     numeric columns pass, and so does one past those a tile of 32 rows
     holds: its plan is local, `_build.qda_local`); at least one class; the
@@ -214,9 +214,11 @@ def test_qda_limits_raise():
     assert not _build.qda_local(FeatureSchema(num_cols=past - 1))
     _build.check_qda(FeatureSchema(
         num_cols=4, cat_keys=(tuple(range(1020)),)), 2, 100)
-    with pytest.raises(ValueError):      # sigma size above the plan's
+    _build.check_qda(FeatureSchema(num_cols=4, cat_keys=(tuple(range(
+        _build.MAX_SCORER_SIGMA_SIZE - 5)),)), 2, 100)
+    with pytest.raises(ValueError, match="sigma size"):   # above the plan's
         _build.check_qda(FeatureSchema(num_cols=4, cat_keys=(tuple(range(
-            _build.MAX_WINDOW_SIGMA_SIZE)),)), 2, 100)
+            _build.MAX_SCORER_SIGMA_SIZE)),)), 2, 100)
     with pytest.raises(ValueError):
         _build.check_qda(schema, 2, 1 << 31)
     with pytest.raises(ValueError):

@@ -217,13 +217,15 @@ def test_fold_past_64_categorical_columns_matches_jax():
 
 @pytest.mark.parametrize("cats,nullable", [(2, 0), (3, 0)])
 def test_fold_limits_raise_before_the_stream(cats, nullable):
-    """P + K past K7's window limit (two columns of 23,200 levels): a CUDA
-    fold raises ValueError before it reads a chunk. A column of more
-    levels than a K7 task's cells beside others (9,000 beside two of 2),
-    which it refused before cross tables were cut by row code too, is
-    taken: the fold's checks pass and the plans K7 folds it in map every
-    place of its extended Gram once."""
-    keys = {2: (tuple(range(23_200)),) * 2,
+    """P + K past K7's window limit (two columns of 2²⁰ levels, P =
+    2,097,154): a CUDA fold raises ValueError before it reads a chunk;
+    two columns of 23,200 levels (P = 46,402, past the old limit of
+    46,340) pass the fold's checks. A column of more levels than a K7
+    task's cells beside others (9,000 beside two of 2), which it refused
+    before cross tables were cut by row code too, is taken: the fold's
+    checks pass and the plans K7 folds it in map every place of its
+    extended Gram once."""
+    keys = {2: (tuple(range(1 << 20)),) * 2,
             3: (tuple(range(9000)), (0, 1), (0, 1))}[cats]
     ss = streaming.StreamSchema(
         schema=FeatureSchema(num_cols=1, cat_keys=keys),
@@ -233,8 +235,14 @@ def test_fold_limits_raise_before_the_stream(cats, nullable):
         raise AssertionError("the stream was read")
         yield
     if cats == 2:
-        with pytest.raises(ValueError):
+        assert (streaming.extended_schema(ss).sigma_size
+                > _build.MAX_WINDOW_SIGMA_SIZE)
+        with pytest.raises(ValueError, match="sigma size"):
             streaming.scan_gram(source, ss, device="cuda")
+        streaming.check_fold(streaming.StreamSchema(
+            schema=FeatureSchema(num_cols=1,
+                                 cat_keys=(tuple(range(23_200)),) * 2),
+            nullable_num=(), nullable_cat=(), n_rows=1), 1000)
         return
     streaming.check_fold(ss, 1000)
     assert_kernel_windows_cover_once(streaming.extended_schema(ss))

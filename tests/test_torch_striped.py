@@ -8,11 +8,13 @@
   the JAX package's `ring.striped.sigma_stripe` and its XLA
   `masked_sigma` at P = 4,099 (n = 4,096) and P = 16,387 (n = 512, as
   tests/test_wide.py sizes it): counts exact, within 1e-5 of max|σ|;
-- the limits: K7 takes windows up to MAX_WINDOW_SIGMA_SIZE, and so do
-  K2w, K8 and K3/K3w past MAX_WIDE_SIGMA_SIZE = 1,024, over K7's window
-  plans; past that limit they raise ValueError before any launch (tensors
-  on the 'meta' device reach each wrapper's kernel path, which checks the
-  schema first).
+- the limits: K7 takes windows up to MAX_WINDOW_SIGMA_SIZE (P·1,024
+  places a window counted in an int), and so do K2w and K8 past
+  MAX_WIDE_SIGMA_SIZE = 1,024, over K7's window plans, criteo_c18 (P =
+  47,412) among them; K3/K3w stop at MAX_SCORER_SIGMA_SIZE = 46,340; past
+  their limits they raise ValueError before any launch (tensors on the
+  'meta' device reach each wrapper's kernel path, which checks the schema
+  first).
 """
 import numpy as np
 import pytest
@@ -36,6 +38,7 @@ from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas_grouped import (
     GroupLayout, grouped_gram, grouped_gram_presorted)
 from duckdb_imputation_tpu_torch.ring.sum import masked_sigma
 
+from test_torch_past_46340 import CRITEO_C18
 from test_torch_wide_levels import assert_kernel_windows_cover_once
 
 torch.set_num_threads(4)
@@ -223,16 +226,20 @@ def test_sigma_striped_covers_sigma(wide):
 # ---------------------------------------------------------------------------
 
 def test_k7_window_limit():
-    """K7 takes P up to MAX_WINDOW_SIGMA_SIZE through its windows (a map
-    of P·width ≤ P² < 2³¹ places); P past it or a window outside [0, P)
-    raise ValueError before a launch. A column of more levels than a
-    task's cells beside another (9,000 beside 2), which it refused before
-    cross tables were cut by row code too, is taken, its windows' plans
-    mapping every place of S once."""
-    assert _build.MAX_WINDOW_SIGMA_SIZE ** 2 < 2 ** 31
-    assert (_build.MAX_WINDOW_SIGMA_SIZE + 1) ** 2 >= 2 ** 31
+    """K7 takes P up to MAX_WINDOW_SIGMA_SIZE through its windows: a
+    window of WINDOW_WIDTH columns maps at most P·WINDOW_WIDTH places, an
+    int count, and every index of S is an int; criteo_c18 (P = 47,412,
+    past the old P² < 2³¹ bound of 46,340) passes. P past it or a window
+    outside [0, P) raise ValueError before a launch. A column of more
+    levels than a task's cells beside another (9,000 beside 2), which it
+    refused before cross tables were cut by row code too, is taken, its
+    windows' plans mapping every place of S once."""
+    limit = _build.MAX_WINDOW_SIGMA_SIZE
+    assert limit * _build.WINDOW_WIDTH < 2 ** 31
+    assert (limit + 1) * _build.WINDOW_WIDTH >= 2 ** 31
+    assert _build.MAX_WINDOW_PLACES <= limit * _build.WINDOW_WIDTH
     at = FeatureSchema(num_cols=2, cat_keys=(tuple(range(8192)),) * 2)
-    _build.check_schema(at, 1000, _build.MAX_WINDOW_SIGMA_SIZE)
+    _build.check_schema(at, 1000, limit)
     _build.check_window(at, 0, at.sigma_size)
     with pytest.raises(ValueError):
         _build.check_window(at, at.sigma_size - 3, 4)
@@ -240,38 +247,55 @@ def test_k7_window_limit():
                                                    (0, 1)))
     _build.check_window(wide_col, 0, 1024)
     assert_kernel_windows_cover_once(wide_col)
-    past = FeatureSchema(num_cols=3, cat_keys=(tuple(range(8192)),) * 6)
-    assert past.sigma_size > _build.MAX_WINDOW_SIGMA_SIZE
-    with pytest.raises(ValueError):
-        _build.check_schema(past, 1000, _build.MAX_WINDOW_SIGMA_SIZE)
-    meta = [torch.empty(10, dtype=torch.int32, device="meta")] * 6
-    xm = [torch.empty(10, device="meta")] * 3
-    with pytest.raises(ValueError):
-        masked_gram_cols(xm, meta, None, schema=past)
-    with pytest.raises(ValueError):
-        masked_gram_window(xm, meta, None, schema=past, lo=0, width=8)
+    c18 = FeatureSchema(num_cols=13, cat_keys=tuple(
+        tuple(range(v)) for v in CRITEO_C18))
+    assert c18.sigma_size == 47412 > 46340
+    _build.check_schema(c18, 1000, limit)
+    _build.check_window(c18, c18.sigma_size - 308, 308)
+    meta = [torch.empty(10, dtype=torch.int32, device="meta")] * 18
+    xm = [torch.empty(10, device="meta")] * 13
+    with pytest.raises(ValueError, match="CUDA device"):
+        masked_gram_cols(xm, meta, None, schema=c18)
+    with pytest.raises(ValueError, match="CUDA device"):
+        masked_gram_window(xm, meta, None, schema=c18, lo=46080, width=1024)
+    big = tuple(range(1 << 20))
+    past = FeatureSchema(num_cols=3, cat_keys=(big, big))
+    assert past.sigma_size == limit + 5
+    with pytest.raises(ValueError, match="sigma size"):
+        _build.check_schema(past, 1000, limit)
+    with pytest.raises(ValueError, match="sigma size"):
+        masked_gram_cols(xm[:3], meta[:2], None, schema=past)
+    with pytest.raises(ValueError, match="sigma size"):
+        masked_gram_window(xm[:3], meta[:2], None, schema=past, lo=0,
+                           width=8)
     with pytest.raises(ValueError):       # a window outside [0, P)
         masked_gram_window([], [meta[0], meta[1]], None, schema=wide_col,
                            lo=wide_col.sigma_size - 4, width=8)
 
 
 ABOVE = FeatureSchema(num_cols=4, cat_keys=(tuple(range(1020)),))
-PAST = FeatureSchema(num_cols=4, cat_keys=(tuple(range(
-    _build.MAX_WINDOW_SIGMA_SIZE)),))
+# one column of every level but 4 of P (the column the fused pass imputes)
+C18_LIKE = FeatureSchema(num_cols=4, cat_keys=(tuple(range(47412 - 5)),))
+SCORER_PAST = FeatureSchema(num_cols=4, cat_keys=(tuple(range(
+    _build.MAX_SCORER_SIGMA_SIZE)),))
+_BIG = tuple(range(1 << 20))
+PAST = FeatureSchema(num_cols=4, cat_keys=(_BIG, _BIG[:-4]))
 
 
 def _wrapper_calls(schema, n=10):
     """Each wrapper of K2w, K8 (sorted and unsorted entry) and K3/K3w on
-    'meta' tensors of `schema` (one categorical column of every level but
-    4 of P)."""
-    v = schema.sigma_size - 5
+    'meta' tensors of `schema` (its first categorical column imputed by
+    K2w; K3/K3w with ABOVE's scorer plan, which it reads only after the
+    schema's check)."""
+    v = schema.cat_sizes[0]
+    c = schema.cat_cols
     xs = [torch.empty(n, device="meta") for _ in range(4)]
-    cs = [torch.empty(n, dtype=torch.int32, device="meta")]
+    cs = [torch.empty(n, dtype=torch.int32, device="meta")] * c
     x = torch.empty((4, n), device="meta")
-    c = torch.empty((1, n), dtype=torch.int32, device="meta")
+    cc = torch.empty((c, n), dtype=torch.int32, device="meta")
     g = torch.empty(n, dtype=torch.int32, device="meta")
     layout = GroupLayout(torch.empty(3, dtype=torch.int64, device="meta"), 2)
-    plan = _build.qda_plan(schema)
+    plan = _build.qda_plan(ABOVE)
     return [
         lambda: fused_impute_aggregate(
             xs, cs, torch.empty(n, dtype=torch.bool, device="meta"),
@@ -279,24 +303,35 @@ def _wrapper_calls(schema, n=10):
             torch.empty((schema.sigma_size, v), device="meta"),
             torch.empty(v, device="meta"), schema=schema, kind="cat",
             imp_col=0),
-        lambda: grouped_gram(x, c, None, g, schema=schema, num_groups=2),
-        lambda: grouped_gram_presorted(x, c, torch.empty(n, device="meta"),
+        lambda: grouped_gram(x, cc, None, g, schema=schema, num_groups=2),
+        lambda: grouped_gram_presorted(x, cc, torch.empty(n, device="meta"),
                                        layout, schema=schema),
         lambda: qda_predict_kernel(torch.empty((2, 8), device="meta"), plan,
-                                   x, c, schema=schema)]
+                                   x, cc, schema=schema)]
 
 
 def test_k2w_k8_k3_still_raise_past_1024():
     """The fused pass (K2w), the grouped Grams (K4/K5/K8) and the scorer
     (K3/K3w) run past MAX_WIDE_SIGMA_SIZE over K7's window plans: at P =
     1,025 each wrapper's schema checks pass, and 'meta' tensors are refused
-    only as lying on no CUDA device; past K7's window limit they still
-    raise ValueError on the sigma size before any launch, with no
-    fallback."""
+    only as lying on no CUDA device. Past 46,340 (P = 47,412, criteo_c18's
+    P) K2w and K8 still reach the device check, while K3/K3w raise
+    ValueError on the sigma size (MAX_SCORER_SIGMA_SIZE: a class's whole
+    P² form); past K7's window limit all of them raise it before any
+    launch, with no fallback."""
     assert ABOVE.sigma_size == _build.MAX_WIDE_SIGMA_SIZE + 1
+    assert C18_LIKE.sigma_size == 47412
+    assert SCORER_PAST.sigma_size > _build.MAX_SCORER_SIGMA_SIZE
     assert PAST.sigma_size > _build.MAX_WINDOW_SIGMA_SIZE
     for call in _wrapper_calls(ABOVE):
         with pytest.raises(ValueError, match="CUDA device"):
+            call()
+    *k2w_k8, k3 = _wrapper_calls(C18_LIKE)
+    for call in k2w_k8:
+        with pytest.raises(ValueError, match="CUDA device"):
+            call()
+    for call in (k3, _wrapper_calls(SCORER_PAST)[-1]):
+        with pytest.raises(ValueError, match="sigma size"):
             call()
     for call in _wrapper_calls(PAST):
         with pytest.raises(ValueError, match="sigma size"):
@@ -304,5 +339,8 @@ def test_k2w_k8_k3_still_raise_past_1024():
     with pytest.raises(ValueError):
         _build.check_schema(ABOVE, 10, _build.MAX_WIDE_SIGMA_SIZE)
     _build.check_qda(ABOVE, 2, 10)
-    with pytest.raises(ValueError):
-        _build.check_qda(PAST, 2, 10)
+    _build.check_qda(FeatureSchema(num_cols=3, cat_keys=(tuple(range(
+        _build.MAX_SCORER_SIGMA_SIZE - 4)),)), 2, 10)
+    for past in (C18_LIKE, SCORER_PAST, PAST):
+        with pytest.raises(ValueError, match="sigma size"):
+            _build.check_qda(past, 2, 10)

@@ -49,6 +49,8 @@ from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas import (
     wide_tables_plain,
 )
 
+from test_torch_past_46340 import CRITEO_C18
+
 torch.set_num_threads(2)
 
 FAVORITA_VOCABS = (54, 33, 337, 2, 2, 22, 16, 5, 17)
@@ -121,9 +123,10 @@ def assert_sigma_close(got, want, counts_exact, schema):
 def test_check_schema_wide_limits():
     """K2/K2w (and K8, K3/K3w) take P up to MAX_WIDE_SIGMA_SIZE, as does
     K7's one launch of its whole plan; K7 takes P up to
-    MAX_WINDOW_SIGMA_SIZE through its column windows. The narrow kernels
-    alone (K1, K2, K4, K5) stop at MAX_SIGMA_SIZE, where their wrappers
-    switch to K7, K2w and K8."""
+    MAX_WINDOW_SIGMA_SIZE through its column windows, criteo_c18 (P =
+    47,412) among them, and the scorer up to MAX_SCORER_SIGMA_SIZE. The
+    narrow kernels alone (K1, K2, K4, K5) stop at MAX_SIGMA_SIZE, where
+    their wrappers switch to K7, K2w and K8."""
     for name in SCHEMAS:
         schema = FeatureSchema(*SCHEMAS[name])
         assert schema.sigma_size > _build.MAX_SIGMA_SIZE
@@ -138,6 +141,12 @@ def test_check_schema_wide_limits():
         _build.check_schema(above, 1000, _build.MAX_WIDE_SIGMA_SIZE)
     _build.check_schema(above, 1000, _build.MAX_WINDOW_SIGMA_SIZE)
     _build.check_window(above, 0, above.sigma_size)
+    c18 = FeatureSchema(num_cols=13, cat_keys=tuple(
+        tuple(range(v)) for v in CRITEO_C18))
+    assert c18.sigma_size == 47412
+    _build.check_schema(c18, 1000, _build.MAX_WINDOW_SIGMA_SIZE)
+    with pytest.raises(ValueError):
+        _build.check_schema(c18, 1000, _build.MAX_SCORER_SIGMA_SIZE)
     past = FeatureSchema(num_cols=4, cat_keys=(tuple(range(
         _build.MAX_WINDOW_SIGMA_SIZE)),))
     with pytest.raises(ValueError):
