@@ -137,7 +137,7 @@ Drives the paths of `duckdb_imputation_tpu_torch` ported so far:
   device memory, the order pass copying wide rows in pieces): Epsilon
   (the PASCAL 2008 `epsilon` set as LIBSVM gives it: 2,000 dense
   columns of unit-norm rows, a binary label; MICE with the label as a
-  column, P = 2,003; `[epsilon]`) at 200,000 of its 400,000 training
+  column, P = 2,003; `[epsilon]`) at its 400,000 training
   rows: the plans' host seconds, K7, K2w ('cat' on the label, 'num'),
   sort + K8, K6w and K3w (QDA and NB) against their plain versions on a
   slice, each timed at all rows beside its bound and the cuBLAS product
@@ -150,6 +150,17 @@ Drives the paths of `duckdb_imputation_tpu_torch` ported so far:
   'cat' at R = 33 with x read from device memory) and d1000_v5000 (the
   order pass of a 5,000-level column over rows of 1,008 ints, K7's six
   windows);
+- D, the dense block of [1 ‖ x] in S, on the tensor cores past the
+  crossover in d (`_build.dense_route`: the D kernel, csrc/dense_gram.cu,
+  the nine bf16 part products of K1's split in 64 × 64 tiles), under K7,
+  K8 and K2w's Gram: the D kernel alone against its plain version at
+  Epsilon (`[epsilon]`), SECOM (`[secom]`), Home Credit
+  (`[home_credit]`), d900_r33 and d1000_v5000 (`[past_smem]`) and, over
+  the rows sorted by digit, K8's D at MNIST (10 groups, `[mnist]`), each
+  timed at the phase's rows beside its bound (nine bf16 products on the
+  tensor cores; the f32 bound beside) and one cuBLAS product; the
+  wrappers' launches read exactly (K7 and K8 launch only where their
+  plans have a task, `wide_launches`; the D kernel once a Gram);
 - IEEE f32 whatever the caller set (`[tf32]`): run_mice_device 'gram'
   and 'fused' at config 5 with TF32 turned on by the caller, bit for bit
   as under the default setting; and P past 46,340 (`[criteo]` at
@@ -194,7 +205,10 @@ numbers of `[K2w_items]`, `[K8win]` and `[K3items]`; `narrow80` and
 plans' seconds), K2w, K8, K6w and K3w, `secom_fold` on the window kernel;
 `epsilon`, `mnist`, `d900_r33` and `d1000_v5000` on the kernels of those
 phases (K7's whole plan and windows, the order, K2w's both routes, K8,
-K6w and K3w with the pipelines' launches);
+K6w and K3w with the pipelines' launches); `dense_gram` (the D kernel:
+`launches` from `[epsilon]`'s run_mice_device 'gram' and 'fused', its
+numbers at Epsilon, and `home_credit`, `secom`, `d900_r33`,
+`d1000_v5000` and `mnist_k8` beside);
 `bound_ms`, the least time the card could take for the kernel's work,
 computed from this run's shapes with `bound`; `library_ms`, one PyTorch
 call computing the same function, where there is one), then the card's
@@ -330,20 +344,46 @@ def rel_err(got, want) -> float:
 # ---------------------------------------------------------------------------
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, at its 700 W
-# limit): HBM bytes a second, and f32 FLOP/s on the CUDA cores, where every
-# kernel of the port computes.
+# limit): HBM bytes a second, f32 FLOP/s on the CUDA cores, and dense bf16
+# FLOP/s on the tensor cores, where D (the dense block of [1 ‖ x]) runs
+# past the crossover as nine bf16 products of each value's three parts
+# (csrc/dense_gram.cu).
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
+PEAK_BF16 = 989e12
+SPLIT_PRODUCTS = 9       # bf16 part products a multiply-add of f32 values
 
 
-def bound(nbytes: float, flops: float) -> dict:
+def bound(nbytes: float, flops: float, tc_flops: float = 0.0) -> dict:
     """bound_ms: the least time the card could take for work that must
     move `nbytes` (each input read once, each output written once) and do
-    `flops` f32 operations (a multiply-add is 2), the larger of the two
-    times; bound_by names which."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32 * 1e3
-    return dict(bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations")
+    `flops` f32 operations (a multiply-add is 2) on the CUDA cores and
+    `tc_flops` bf16 operations on the tensor cores, the larger of the
+    bytes' time and the operations'; bound_by names which. With
+    `tc_flops`, also f32_bound_ms: the same work all in f32 (D's products
+    as one f32 multiply-add each, not nine bf16), chip_smoke's bound
+    before D left the CUDA cores."""
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = (flops / PEAK_F32 + tc_flops / PEAK_BF16) * 1e3
+    out = dict(bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations")
+    if tc_flops:
+        f32 = (flops + tc_flops / SPLIT_PRODUCTS) / PEAK_F32 * 1e3
+        out["f32_bound_ms"] = max(t_bytes, f32)
+    return out
+
+
+def dense_bound(n_weighted: int, n: int, d: int, groups: int = 1) -> dict:
+    """The D kernel's bound: x and w read once (4·(1 + d) bytes a row),
+    f32[G, 1 + d, 1 + d] written once; the upper triangle's (1+d)(2+d)/2
+    multiply-adds for each of the `n_weighted` rows of w ≠ 0, nine bf16
+    products each on the tensor cores (`bound`'s f32_bound_ms beside:
+    one f32 multiply-add each). The kernel is held to the tensor-core
+    bound."""
+    m = 1 + d
+    fma = n_weighted * m * (m + 1) // 2
+    return bound(4 * m * n + 4 * groups * m * m, 0.0,
+                 2 * SPLIT_PRODUCTS * fma)
 
 
 def sm_clock_hz() -> float:
@@ -369,7 +409,11 @@ def gram_bound(codes, schema, weights=None, groups: int = 1,
     k = 1 + d + (its codes in range) nonzeros, so the rows with w ≠ 0
     need k(k+1)/2 multiply-adds each (the upper triangle), not P(P+1)/2.
     Plus `scores` multiply-adds for each of `scored` rows (a fused pass
-    scoring its null rows; all n when None)."""
+    scoring its null rows; all n when None). Past the crossover
+    (`_build.dense_route`) D's (1+d)(2+d)/2 of them are nine bf16
+    products each on the tensor cores, the rest f32 (`bound`)."""
+    from duckdb_imputation_tpu_torch.ring.kernels import _build
+
     d, n = schema.num_cols, codes.shape[-1]
     k = 1 + d + sum(((codes[j] >= 0) & (codes[j] < size)).long()
                     for j, size in enumerate(schema.cat_sizes))
@@ -377,8 +421,15 @@ def gram_bound(codes, schema, weights=None, groups: int = 1,
     if weights is not None:
         fma = torch.where(weights != 0, fma, 0)
     fma = int(fma.sum()) + (n if scored is None else scored) * scores
-    return bound(n * row_bytes(schema, extra) + groups * schema.sigma_size
-                 * schema.sigma_size * 4, 2 * fma)
+    nbytes = (n * row_bytes(schema, extra) + groups * schema.sigma_size
+              * schema.sigma_size * 4)
+    if schema.sigma_size > _build.MAX_SIGMA_SIZE and _build.dense_route(d):
+        # D's multiply-adds on the tensor cores, nine bf16 products each
+        rows = n if weights is None else int(weights.count_nonzero())
+        dense = rows * (1 + d) * (2 + d) // 2
+        return bound(nbytes, 2 * (fma - dense),
+                     2 * SPLIT_PRODUCTS * dense)
+    return bound(nbytes, 2 * fma)
 
 
 def nb_bound(n: int, schema, groups: int) -> dict:
@@ -445,6 +496,91 @@ def library_nb_ms(x, codes, w, ids, schema, groups: int) -> float:
     del ft, wm
     torch.cuda.empty_cache()
     return ms
+
+
+def wide_launches(schema) -> int:
+    """K7's (and K8's) launches a call of the schema's Gram: one where its
+    plan has a task, past P = 1,024 one a window whose plans have one.
+    Past the crossover (`_build.dense_route`) D is the D kernel's, once a
+    call (`dense_launches`), and a schema of no categorical column leaves
+    K7 no task."""
+    from duckdb_imputation_tpu_torch.ring.kernels import _build
+
+    p = schema.sigma_size
+    if p <= _build.MAX_WIDE_SIGMA_SIZE:
+        return int(_build.wide_plan(schema).num_tasks > 0)
+    return sum(any(pl is not None and pl.num_tasks
+                   for pl in _build.keyed_window_plan(
+                       schema, lo, min(lo + _build.WINDOW_WIDTH, p)))
+               for lo in range(0, p, _build.WINDOW_WIDTH))
+
+
+def dense_launches(schema) -> int:
+    """The D kernel's launches a call of a wide schema's Gram (K7, K8 or
+    K2w's): one past the crossover, else none."""
+    from duckdb_imputation_tpu_torch.ring.kernels import _build
+
+    return int(schema.sigma_size > _build.MAX_SIGMA_SIZE
+               and _build.dense_route(schema.num_cols))
+
+
+N_DENSE_PLAIN = 1_000_000   # most rows the D kernel's plain version takes
+                            # (its f64 copies of [1 ‖ x] and w·[1 ‖ x])
+
+
+def dense_compare(tag):
+    """The D kernel's output against its plain version's, f32[P, P] or
+    f32[G, P, P]: each S exactly symmetric and finite, D[0, 0] (Σw, binary
+    weights) exact, within 1e-5 of max|σ|."""
+    def compare(got, want):
+        g, wt = (got, want) if got.dim() == 3 else (got[None], want[None])
+        check(torch.equal(g, g.transpose(1, 2)), f"{tag}: not symmetric")
+        check(torch.isfinite(g).all(), f"{tag}: not finite")
+        check(torch.equal(g[:, 0, 0], wt[:, 0, 0]),
+              f"{tag}: the counts differ from the plain version")
+        err = float((g - wt).abs().max())
+        scale = float(wt.abs().max())
+        check(err <= 1e-5 * scale, f"{tag}: max abs err {err} > 1e-5 of "
+              f"max|σ| {scale}")
+        return err
+    return compare
+
+
+def dense_kernel(tag: str, xs, w, schema, offsets=None,
+                 rows: int | None = None) -> dict:
+    """The D kernel alone (`dense_gram`: csrc/dense_gram.cu) at a phase's
+    shapes against its plain version (`dense_gram_plain`, f64 sums of the
+    same products) on its first `rows` rows (all by default; with
+    `offsets`, all of them): one launch a call, a rerun bit-identical;
+    timed at all rows beside its bound (nine bf16 products on the tensor
+    cores; the f32 bound beside) and one cuBLAS f32 product (Zᵀ·w) @ Z of
+    [1 ‖ x] (TF32 off), over every group's rows together where grouped."""
+    from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas import (
+        dense_gram, dense_gram_plain)
+
+    xs = list(xs)
+    n, d = w.shape[0], schema.num_cols
+    k = n if rows is None or offsets is not None else min(rows, n)
+    sx, sw = [x[:k] for x in xs], w[:k]
+    kw = dict(schema=schema, offsets=offsets)
+    zt = torch.cat([torch.ones((1, n), device=DEVICE), torch.stack(xs)])
+    zw = zt * w
+    library_ms = cuda_ms(lambda: torch.mm(zw, zt.T), reps=3, warmup=1)
+    del zt, zw
+    torch.cuda.empty_cache()
+    groups = 1 if offsets is None else offsets.shape[0] - 1
+    res = slice_kernel(
+        f"{tag} D kernel (d = {d}, {groups} group(s)) n={n}",
+        [(dense_gram, "launches", 1)],
+        lambda: dense_gram(sx, sw, **kw),
+        lambda: dense_gram_plain(sx, sw, **kw),
+        dense_compare(f"{tag} D kernel"),
+        dense_bound(int(w.count_nonzero()), n, d, groups), library_ms,
+        full=lambda: dense_gram(xs, w, **kw))
+    log(f"{tag} D kernel: f32 bound {res['f32_bound_ms']:.4f} ms beside the "
+        f"tensor cores' {res['bound_ms']:.4f} ms, which it is held to")
+    res.update(rows=n, plain_rows=k)
+    return res
 
 
 def phase_k1(seed: int) -> dict:
@@ -4841,7 +4977,8 @@ OVERLAP_DEADLINE_S = 300
 
 def _kernel_counters():
     """Every kernel wrapper's launch counters: K1's two entries and K7
-    behind them, K7's window entry, the windows' order passes
+    behind them, K7's window entry, the D kernel (`dense_gram.launches`,
+    by whichever entry ran it), the windows' order passes
     (`window_order.passes`) and its kernels (`window_order.launches`),
     K2/K2w (and past P = 1,024 K2w's impute
     kernel and its K7 windows), K4, K5/K8, K6/K6w and K3/K3w."""
@@ -4852,14 +4989,15 @@ def _kernel_counters():
     from duckdb_imputation_tpu_torch.ring.kernels.sigma_fused import (
         fused_impute_aggregate)
     from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas import (
-        masked_gram, masked_gram_cols, masked_gram_window, window_order)
+        dense_gram, masked_gram, masked_gram_cols, masked_gram_window,
+        window_order)
     from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas_grouped import (
         grouped_gram, grouped_gram_presorted)
 
     both = ("launches", "wide_launches")
     return [(fn, attr) for fn, attrs in (
         (masked_gram, both), (masked_gram_cols, both),
-        (masked_gram_window, ("launches",)),
+        (masked_gram_window, ("launches",)), (dense_gram, ("launches",)),
         (window_order, ("passes", "launches")),
         (fused_impute_aggregate, both + ("impute_launches",
                                          "window_launches")),
@@ -6224,8 +6362,9 @@ def nb_compare(tag, schema):
 def many_kernels(tag: str, t, y, seed: int, fused_cases) -> dict:
     """Every kernel of a schema's path at its rows: K7 (or K1), K2w (or K2)
     for each (kind, column) of `fused_cases`, the sort then K8 (or K5) on
-    the label, K6w, and K3w on seeded QDA tables (against its plain version
-    on N_K3_MANY rows, timed at all of them)."""
+    the label, past the crossover the D kernel alone (`dense_kernel`),
+    K6w, and K3w on seeded QDA tables (against its plain version on
+    N_K3_MANY rows, timed at all of them)."""
     from duckdb_imputation_tpu_torch.ring.kernels import _build
     from duckdb_imputation_tpu_torch.ring.kernels.nb_pallas import (
         nb_grouped_sums, nb_grouped_sums_plain)
@@ -6238,15 +6377,23 @@ def many_kernels(tag: str, t, y, seed: int, fused_cases) -> dict:
     from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas_grouped import (
         grouped_gram_presorted, grouped_gram_presorted_plain, sort_by_group)
 
+    from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas import (
+        dense_gram)
+
     schema, n = t.schema, t.n_rows
     p, wide = schema.sigma_size, schema.sigma_size > _build.MAX_SIGMA_SIZE
     xs, cs = list(t.num_data.unbind(0)), list(t.cat_codes.unbind(0))
     g = torch.Generator(device=DEVICE)
     g.manual_seed(seed)
     w = (torch.rand(n, generator=g, device=DEVICE) >= 0.2).float()
+    # past the crossover with no categorical column K7 has no task: the
+    # Gram is the D kernel's launch alone
+    d_only = wide and not wide_launches(schema)
     out = {}
     out["gram"] = many_kernel(
-        f"{tag} {'K7' if wide else 'K1'} P={p} n={n}",
+        f"{tag} {'K7' if wide else 'K1'}"
+        f"{' (D kernel alone)' if d_only else ''} P={p} n={n}",
+        (dense_gram, "launches") if d_only else
         (masked_gram_cols, "wide_launches" if wide else "launches"),
         lambda: masked_gram_cols(xs, cs, w, schema=schema),
         lambda: masked_gram_cols_plain(xs, cs, w, schema=schema),
@@ -6273,13 +6420,17 @@ def many_kernels(tag: str, t, y, seed: int, fused_cases) -> dict:
     sorted_ = sort_by_group(t.num_data, t.cat_codes, ys, schema=schema,
                             num_groups=2, weights=w)
     out["grouped"] = many_kernel(
-        f"{tag} sort + {'K8' if wide else 'K5'} on the label",
+        f"{tag} sort + {'K8' if wide else 'K5'}"
+        f"{' (D kernel alone)' if d_only else ''} on the label",
+        (dense_gram, "launches") if d_only else
         (grouped_gram_presorted, "wide_launches" if wide else "launches"),
         lambda: grouped_gram_presorted(*sorted_, schema=schema),
         lambda: grouped_gram_presorted_plain(*sorted_, schema=schema),
         gram_compare(tag, schema, True),
         gram_bound(t.cat_codes, schema, w, groups=2))
     del sorted_
+    if dense_launches(schema):
+        out["dense"] = dense_kernel(tag, xs, w, schema, rows=N_DENSE_PLAIN)
     out["nb"] = many_kernel(
         f"{tag} {'K6w' if _build.nb_features(schema) > 256 else 'K6'} "
         f"F={_build.nb_features(schema)}", (nb_grouped_sums, "launches"),
@@ -6362,8 +6513,9 @@ def classify_many(tag: str, x, codes, y, schema, classes: int = 2) -> dict:
     """The CLI's train --model qda|nb path on a label of `classes`
     classes: GROUP BY label (sort + K8 / K6w), device training, one-pass
     scoring (K3w); launches read around each pipeline and checked exactly
-    (one aggregate, a launch a window of K8 past P = 1,024, one scoring
-    launch), accuracy above the majority share + 0.02. Returns the
+    (one aggregate: K8 where its plan has a task, a launch a window past P
+    = 1,024 (`wide_launches`), past the crossover the D kernel once; one
+    scoring launch), accuracy above the majority share + 0.02. Returns the
     predictions and the launches."""
     from duckdb_imputation_tpu_torch.models.device import (
         nb_predict_device, nb_train_device, qda_predict_device,
@@ -6374,7 +6526,7 @@ def classify_many(tag: str, x, codes, y, schema, classes: int = 2) -> dict:
     from duckdb_imputation_tpu_torch.ring.triple import sigma_from_triple
 
     n, p = y.shape[0], schema.sigma_size
-    k8 = 1 if p <= _build.MAX_WIDE_SIGMA_SIZE else -(-p // _build.WINDOW_WIDTH)
+    k8, dense = wide_launches(schema), dense_launches(schema)
     major = float(torch.bincount(y.long()).max()) / n
     out = {}
     for model in ("qda", "nb"):
@@ -6395,11 +6547,13 @@ def classify_many(tag: str, x, codes, y, schema, classes: int = 2) -> dict:
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         counts = {k: v for k, v in kernel_counts().items() if v}
-        want = ({"grouped_gram_presorted.wide_launches": k8}
+        want = ({"grouped_gram_presorted.wide_launches": k8,
+                 "dense_gram.launches": dense}
                 if model == "qda" else {"nb_grouped_sums.launches": 1})
+        want = {k: v for k, v in want.items() if v}
         scored = sum(v for k, v in counts.items() if "qda_predict" in k)
         check(all(counts.get(k) == v for k, v in want.items())
-              and scored == 1 and len(counts) == 2,
+              and scored == 1 and len(counts) == len(want) + 1,
               f"{tag} {model}: launches {counts}")
         acc = float((pred == y).float().mean())
         check(acc > major + 0.02, f"{tag} {model}: accuracy {acc} not above "
@@ -7344,9 +7498,7 @@ def phase_zip5(seed: int) -> dict:
 # binary label. MICE takes the label as a categorical column (P = 2,003),
 # QDA and NB as the class (P = 2,001)
 EPSILON_D = 2000
-N_EPSILON = 200_000        # the kernels' rows: half the training split
-                           # (all 400,000 before the run neared its
-                           # limit with criteo_c18's plans)
+N_EPSILON = 400_000        # the kernels' rows: the training split
 N_EPSILON_MICE = 100_000   # rows of the MICE loops and the pipelines (a
                            # pass over 2,003 columns takes ~6 s at 400k)
 N_EPSILON_SLICE = 20_000   # rows the plain versions take
@@ -7536,7 +7688,7 @@ def phase_epsilon(seed: int) -> dict:
     from duckdb_imputation_tpu_torch.ring.kernels.sigma_fused import (
         fused_impute_aggregate, fused_impute_aggregate_plain)
     from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas import (
-        masked_gram, masked_gram_cols, masked_gram_cols_plain,
+        dense_gram, masked_gram, masked_gram_cols, masked_gram_cols_plain,
         masked_gram_window)
     from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas_grouped \
         import (grouped_gram_presorted, grouped_gram_presorted_plain,
@@ -7569,9 +7721,12 @@ def phase_epsilon(seed: int) -> dict:
     xs, cs = list(t.num_data), list(t.cat_codes)
     m = N_EPSILON_SLICE
     sx, sc, sw = [x[:m] for x in xs], [c[:m] for c in cs], w[:m]
+    out["dense"] = dense_kernel("[epsilon]", x_true, w, scorer, rows=m)
     out["k7"] = slice_kernel(
-        f"[epsilon] K7 ({len(lows)} windows, K_j as KB slabs)",
-        [(masked_gram_cols, "wide_launches", len(lows))],
+        f"[epsilon] K7 ({len(lows)} windows, K_j as KB slabs; D on the "
+        f"tensor cores)",
+        [(masked_gram_cols, "wide_launches", wide_launches(schema)),
+         (dense_gram, "launches", 1)],
         lambda: masked_gram_cols(sx, sc, sw, schema=schema),
         lambda: masked_gram_cols_plain(sx, sc, sw, schema=schema),
         lean_gram_compare("[epsilon] K7", schema),
@@ -7586,7 +7741,8 @@ def phase_epsilon(seed: int) -> dict:
         out[f"k2w_{kind}"] = slice_kernel(
             f"[epsilon] K2w '{kind}' (column {col}, R = {r})",
             [(fused_impute_aggregate, "impute_launches", 1),
-             (fused_impute_aggregate, "window_launches", len(lows))],
+             (fused_impute_aggregate, "window_launches",
+              wide_launches(schema)), (dense_gram, "launches", 1)],
             lambda: fused_impute_aggregate(sx, sc, null[:m], sw, w_full,
                                            icpt, **kw),
             lambda: fused_impute_aggregate_plain(sx, sc, null[:m], sw,
@@ -7600,8 +7756,10 @@ def phase_epsilon(seed: int) -> dict:
     none = torch.zeros((0, n), dtype=torch.int32, device=DEVICE)
     nm, ym = none[:, :m], y[:m]
     out["k8"] = slice_kernel(
-        f"[epsilon] sort + K8 by the label (P = {scorer.sigma_size})",
-        [(grouped_gram_presorted, "wide_launches", len(lows))],
+        f"[epsilon] sort + K8 by the label (P = {scorer.sigma_size}; D on "
+        f"the tensor cores, K8 no task)",
+        [(grouped_gram_presorted, "wide_launches", wide_launches(scorer)),
+         (dense_gram, "launches", 1)],
         lambda: grouped_gram_presorted(*sort_by_group(
             xm, nm, ym, schema=scorer, num_groups=2, weights=sw),
             schema=scorer),
@@ -7639,7 +7797,7 @@ def phase_epsilon(seed: int) -> dict:
     x_true, y = x_true[:, :k].contiguous(), y[:k].contiguous()
     torch.cuda.empty_cache()
     steps = len(EPSILON_NULL_COLS) + 1
-    windows = len(lows)
+    windows = wide_launches(schema)
     for kernel in ("gram", "fused"):
         kernel_counts_reset()
         t1 = time.perf_counter()
@@ -7647,12 +7805,15 @@ def phase_epsilon(seed: int) -> dict:
         torch.cuda.synchronize()
         counts = kernel_counts()
         # 'gram': S in its windows a column step; 'fused': S once, then
-        # an impute launch and S's windows a column step
-        want = ({"masked_gram_cols.wide_launches": steps * windows}
+        # an impute launch and S's windows a column step; D by the D
+        # kernel once a Gram
+        want = ({"masked_gram_cols.wide_launches": steps * windows,
+                 "dense_gram.launches": steps}
                 if kernel == "gram" else
                 {"masked_gram_cols.wide_launches": windows,
                  "fused_impute_aggregate.impute_launches": steps,
-                 "fused_impute_aggregate.window_launches": steps * windows})
+                 "fused_impute_aggregate.window_launches": steps * windows,
+                 "dense_gram.launches": 1 + steps})
         check(counts == want, f"[epsilon] run_mice_device {kernel}: "
               f"launches {counts}, not {want}")
         log(f"[epsilon] run_mice_device '{kernel}' n={k} 1 round x {steps} "
@@ -7727,10 +7888,14 @@ def phase_mnist(seed: int) -> dict:
     """[mnist]: MNIST's 784 pixels over 10 classes (P = 785) at its 70,000
     rows: K3w on the scorer's local plans (seeded QDA and NB tables)
     against the plain scorer on N_MNIST_PLAIN rows on the CPU, timed at all
-    rows; the QDA and NB pipelines (sort + K8, K6w, K3w: launches exact,
-    accuracy above the majority share + 0.02)."""
+    rows; K8's D, the D kernel over the rows sorted by digit (10 groups),
+    against its plain version; the QDA and NB pipelines (sort + K8, which
+    past the crossover is the D kernel alone here, K6w, K3w: launches
+    exact, accuracy above the majority share + 0.02)."""
     from duckdb_imputation_tpu_torch import FeatureSchema
     from duckdb_imputation_tpu_torch.ring.kernels import _build
+    from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas_grouped \
+        import sort_by_group
 
     t0 = time.perf_counter()
     x, y = make_mnist(N_MNIST, seed + 211)
@@ -7746,6 +7911,12 @@ def phase_mnist(seed: int) -> dict:
     out.update(scorer_kernels("[mnist]", x, schema, 10, seed + 212,
                               N_MNIST_PLAIN))
     none = torch.zeros((0, N_MNIST), dtype=torch.int32, device=DEVICE)
+    # K8's D: the D kernel over the rows sorted by digit, 10 groups
+    xs_, _, ws_, layout = sort_by_group(x, none, y, schema=schema,
+                                        num_groups=10)
+    out["k8_dense"] = dense_kernel("[mnist] K8's", xs_, ws_, schema,
+                                   offsets=layout.offsets)
+    del xs_, ws_, layout
     cls = classify_many("[mnist] digit", x, none, y, schema, classes=10)
     out["classify"] = {k: dict(acc=v["acc"], launches=v["launches"],
                                seconds=v["seconds"])
@@ -7769,7 +7940,7 @@ def phase_past_smem(seed: int) -> dict:
     from duckdb_imputation_tpu_torch.ring.kernels.sigma_fused import (
         fused_impute_aggregate, fused_impute_aggregate_plain)
     from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas import (
-        masked_gram_cols, masked_gram_cols_plain, window_order)
+        dense_gram, masked_gram_cols, masked_gram_cols_plain, window_order)
 
     t0 = time.perf_counter()
     n, out = N_PAST_SMEM, {}
@@ -7801,7 +7972,8 @@ def phase_past_smem(seed: int) -> dict:
         log(f"[past_smem] {name} P={p} n={n}: plans' host seconds "
             f"{plans:.2f}")
         res = dict(plans=plans, sigma_size=p)
-        counters = [(masked_gram_cols, "wide_launches", windows)]
+        counters = [(masked_gram_cols, "wide_launches",
+                     wide_launches(schema))]
         if windows > 1:
             counters.append((window_order, "passes", 1))
             stride = _build.order_stride(1 + d + 1)
@@ -7811,8 +7983,11 @@ def phase_past_smem(seed: int) -> dict:
             res["order"] = order_check(f"[past_smem] {name} order", xs, cs,
                                        w, schema, (0,))
             res["order"].update(stride=stride, piece=piece)
+        counters.append((dense_gram, "launches", 1))
+        res["dense"] = dense_kernel(f"[past_smem] {name}", xs, w, schema)
         res["k7"] = slice_kernel(
-            f"[past_smem] {name} K7 ({windows} launch(es))", counters,
+            f"[past_smem] {name} K7 ({windows} launch(es); D on the tensor "
+            f"cores)", counters,
             lambda: masked_gram_cols(xs, cs, w, schema=schema),
             lambda: masked_gram_cols_plain(xs, cs, w, schema=schema),
             lean_gram_compare(f"[past_smem] {name} K7", schema),
@@ -7829,7 +8004,8 @@ def phase_past_smem(seed: int) -> dict:
             res["k2w"] = slice_kernel(
                 f"[past_smem] {name} K2w 'cat' (R = {v}, plan {ld}, "
                 f"{batch} rows a batch, x from device memory)",
-                [(fused_impute_aggregate, "wide_launches", 1)],
+                [(fused_impute_aggregate, "wide_launches", 1),
+                 (dense_gram, "launches", 1)],
                 lambda: fused_impute_aggregate(xs, cs, null, w, w_full,
                                                icpt, **kw),
                 lambda: fused_impute_aggregate_plain(xs, cs, null, w, w_full,
@@ -8097,6 +8273,19 @@ def main() -> int:
              criteo_pair=zip5["k3w_criteo_pair"], zip5=zip5["k3w_zip5"],
              zip5_nb={k: v for k, v in zip5["nb"].items()
                       if k != "k6w_bound"}, **k3items),
+        # D of K7, K8 and K2w past the crossover (_build.dense_route) on the
+        # tensor cores: the D block of the Pallas kernels' bf16 splits;
+        # launches from [epsilon]'s run_mice_device 'gram' and 'fused'
+        dict(name="dense_gram", route="cuda", source=src + "dense_gram.cu",
+             replaces=ref + "sigma_pallas.py:247",
+             also_replaces=[ref + "sigma_pallas.py:520",
+                            ref + "sigma_pallas.py:911"],
+             launches=sum(epsilon[k]["launches"].get("dense_gram.launches",
+                                                     0)
+                          for k in ("mice_gram", "mice_fused")),
+             home_credit=hck["dense"], secom=sek["dense"],
+             d900_r33=d900["dense"], d1000_v5000=v5000["dense"],
+             mnist_k8=mnist["k8_dense"], **epsilon["dense"]),
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -839,7 +839,9 @@ int dit_fused_impute_aggregate_cores(
 }
 
 // Launches K2w on `stream`: the impute kernel of `kind`, then K7 over the
-// columns with out_col in column imp_col's place. Arguments as
+// columns with out_col in column imp_col's place (none where the plan has
+// no task, shape[0] = 0: D alone, on the tensor cores, which the caller
+// launches after, dense_gram.cu). Arguments as
 // dit_fused_impute_aggregate, except any P ≤ kMaxWideP; the plan (slabs ..
 // shape) and partial as dit_wide_gram; imp_plan: 3 ints (ld, M, batch:
 // _build.impute_plan) of the 'cat' impute kernel, imp_rows
@@ -865,11 +867,13 @@ int dit_fused_impute_aggregate_wide(
     return rc;
   if (int rc = check_impute(kind, imp_col, R, d, c, cat_sizes)) return rc;
   if (far != nullptr && far_out == nullptr) return cudaErrorInvalidValue;
+  const bool gram = shape[0] > 0;
   WidePlanArgs plan;
-  int slices;
-  if (int rc = make_plan(slabs, warp_begin, task_base, stage_cols, entries,
-                         shape, plan, slices))
-    return rc;
+  int slices = 0;
+  if (gram)
+    if (int rc = make_plan(slabs, warp_begin, task_base, stage_cols, entries,
+                           shape, plan, slices))
+      return rc;
   Cols cols = make_cols(x_cols, d, code_cols, cat_sizes, c, far);
   auto s = static_cast<cudaStream_t>(stream);
   if (n > 0) {
@@ -889,6 +893,7 @@ int dit_fused_impute_aggregate_wide(
       if (cudaError_t rc = cudaGetLastError()) return rc;
     }
   }
+  if (!gram) return 0;
   cols.far = far_out;
   if (imp_col < kInlineCols) {
     if (kind == kCat)

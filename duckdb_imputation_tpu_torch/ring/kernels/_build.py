@@ -37,7 +37,7 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = config.KERNEL_BUILD_DIR
 SOURCES = ("masked_gram.cu", "fused_impute_aggregate.cu", "grouped_gram.cu",
            "nb_grouped_sums.cu", "qda_predict.cu", "wide_gram.cu",
-           "grouped_wide_gram.cu", "window_order.cu")
+           "grouped_wide_gram.cu", "window_order.cu", "dense_gram.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # Largest grid of the Gram kernels: about 8 resident 256-thread blocks on
@@ -294,6 +294,9 @@ def _declare(lib: ctypes.CDLL) -> None:
         p, i, p, p, i, p, p, p, p, i, i, i, i, p, i, u32, u32, u32, i64, p,
         i64, i, p, p, p]
     lib.dit_impute_wide.restype = i
+    lib.dit_dense_gram.argtypes = [p, i, p, p, p, i, i64, i, p, i, i, i, i,
+                                   i64, i64, p, p, p]
+    lib.dit_dense_gram.restype = i
     lib.dit_gram_entries.argtypes = [i]
     lib.dit_gram_entries.restype = i
     lib.dit_error_string.argtypes = [i]
@@ -653,6 +656,86 @@ def tc_fits(d: int, p: int) -> bool:
     return p <= TC_A and p + 2 * d <= TC_RIGHT
 
 
+DENSE_TILE = 64          # kDgTile (dense_gram.cu): columns of [1 ‖ x] a side
+                         # of a D tile
+DENSE_CELLS = DENSE_TILE * DENSE_TILE
+DENSE_BLOCKS = 1056      # the D kernel's grid, about: four waves of its two
+                         # resident blocks on each of an H100's 132 SMs
+DENSE_SLICE_ROWS = 2048  # fewest rows a row slice of the D kernel takes
+# The crossover: K7's, K8's and K2w's D leaves the slab plans for the tile
+# kernel on the tensor cores (dense_gram.cu) at d numeric columns and up
+# (`dense_route`). Chosen by tools/dense_crossover.py (H100 80GB HBM3,
+# 700.00 W, 10M rows): K7 with D on the slabs / on the tiles, ms, at d = 3
+# (favorita_wide) 6.87 / 9.62, d = 16 6.48 / 4.79, d = 32 23.9 / 7.44,
+# d = 64 114.7 / 25.4, d = 104 (Home Credit) 328.4 / 99.5, d = 128 449.8
+# / 89.4 (PERF.md §6): the smallest d measured where the tiles win
+DENSE_MIN_D = 16
+
+
+def dense_route(d: int) -> bool:
+    """Whether D, the dense (1+d)×(1+d) block of [1 ‖ x] in S, is the tile
+    kernel's (dense_gram.cu, on the tensor cores) in K7, K8 and K2w: d ≥
+    DENSE_MIN_D. Their plans then hold no D slab (`wide_plan`,
+    `window_plan`, `keyed_window_plan`); the scorer's plans keep theirs."""
+    return d >= DENSE_MIN_D
+
+
+def dense_blocks(d: int) -> int:
+    """Tiles of DENSE_TILE columns on a side of D (1 + d columns)."""
+    return -(-(1 + d) // DENSE_TILE)
+
+
+@functools.lru_cache(maxsize=4096)
+def dense_tiles(d: int, lo: int, hi: int) -> torch.Tensor | None:
+    """The D tiles of the window S[:, lo:hi]: (I, J) i32[T, 2], I ≤ J, the
+    tiles of D's upper triangle (cells (a, b), a ≤ b, of rows [64I, 64I +
+    64) and columns [64J, 64J + 64) of [1 ‖ x]) with a place in the window:
+    D[a, b] where lo ≤ b < hi, D[b, a] where lo ≤ a < hi. None where the
+    window holds no place of D. Made once a (d, lo, hi); read only."""
+    tb, m = DENSE_TILE, 1 + d
+
+    def meets(i):
+        return max(i * tb, lo) < min(i * tb + tb, m, hi)
+    tiles = [(i, j) for i in range(dense_blocks(d))
+             for j in range(i, dense_blocks(d)) if meets(i) or meets(j)]
+    return torch.tensor(tiles, dtype=torch.int32) if tiles else None
+
+
+def dense_slices(n: int, d: int, groups: int = 1) -> int:
+    """Row slices of each group in the D kernel's grid (tiles × slices ×
+    groups, one dimension): about DENSE_BLOCKS blocks over the whole D's
+    tiles, each slice
+    at least DENSE_SLICE_ROWS rows where n allows. A function of n, d and
+    G only, the same in every window, so a cell two windows hold (D[a, b]
+    in one, D[b, a] in another) is the same sum, and a result does not
+    depend on the card it ran on."""
+    nb = dense_blocks(d)
+    tiles = nb * (nb + 1) // 2
+    return max(1, min(-(-n // (groups * DENSE_SLICE_ROWS)),
+                      -(-DENSE_BLOCKS // (tiles * groups))))
+
+
+def dense_map(tiles: torch.Tensor, d: int,
+              window: tuple[int, int] | None = None) -> np.ndarray:
+    """The places of the D tiles' cells, as a plan's map lists its cells':
+    i32[3, M] of (cell, i, j), cell = t·DENSE_CELLS + (a − 64I)·64 + b −
+    64J the cell (a, b) of tile t, a ≤ b < 1 + d; without `window`, once a
+    cell at (a, b) (S[b, a] the same value); with a window (lo, hi), each
+    place S[i, j] with lo ≤ j < hi."""
+    t = tiles.numpy().astype(np.int64)
+    r = np.arange(DENSE_TILE, dtype=np.int64)
+    a = np.broadcast_to(t[:, 0, None, None] * DENSE_TILE + r[None, :, None],
+                        (len(t), DENSE_TILE, DENSE_TILE))
+    b = np.broadcast_to(t[:, 1, None, None] * DENSE_TILE + r[None, None, :],
+                        (len(t), DENSE_TILE, DENSE_TILE))
+    cell = np.arange(len(t) * DENSE_CELLS, dtype=np.int64).reshape(a.shape)
+    keep = (a <= b) & (b < 1 + d)
+    cell, a, b = (v[keep].astype(np.int32) for v in (cell, a, b))
+    if window is None:
+        return np.stack([cell, a, b])
+    return _places(*window, cell, a, b)
+
+
 def tc_grid(n: int) -> int:
     """K1's tensor-core blocks: a step of TC_ROWS rows each at most, at most
     TC_MAX_BLOCKS; a function of n only."""
@@ -788,6 +871,10 @@ class WidePlan:
     local: bool = False    # a scorer's plan whose tasks each read few
                            # numeric columns (`qda_local`): K3/K3w stage a
                            # task's columns a step (`stage_cols`)
+    dense: torch.Tensor | None = None  # D's tiles on the tensor cores
+                           # (`dense_tiles`, `dense_route`), which then has
+                           # no D slab; the kernels' cells of them follow
+                           # the slabs' in `wide_tables_plain` (`dense_map`)
 
     @property
     def num_tasks(self) -> int:
@@ -795,6 +882,8 @@ class WidePlan:
 
     @property
     def max_task_cells(self) -> int:
+        if not self.num_tasks:     # D on the tensor cores and nothing else
+            return 0
         return int((self.task_base[1:] - self.task_base[:-1]).max())
 
     @property
@@ -836,6 +925,8 @@ class WidePlan:
         of n and the schema only, so a result does not depend on the card
         it ran on (K8's slices are runs of group-aligned chunks,
         `group_chunks`)."""
+        if not self.num_tasks:
+            return 1
         return max(1, min(-(-n // WIDE_CHUNK),
                           -(-MAX_BLOCKS // self.num_tasks)))
 
@@ -1085,7 +1176,10 @@ def _wide_plan(d: int, sizes: tuple[int, ...], cross: bool = True,
     columns and K_j cut into KB slabs of QDA_LOCAL_TILE columns, packed
     into tasks of QDA_LOCAL_X numeric columns at most (`_pack_local`);
     without C_jk (naive Bayes), of D only row 0 and the diagonal, of K_j
-    only the counts (what the scorer reads of NB's tables)."""
+    only the counts (what the scorer reads of NB's tables). Past the
+    crossover (`dense_route`) K7's, K8's and K2w's plans (not the
+    scorer's) hold no D slab: the plan's `dense` is D's tiles."""
+    tiles = dense_route(d) and not scorer
     if not scorer:
         cap = _column_cap(d, sizes, cap)
         kw = _k_cols(d, cap)
@@ -1094,7 +1188,7 @@ def _wide_plan(d: int, sizes: tuple[int, ...], cross: bool = True,
     base = _bases(d, sizes)
     pieces = []                 # (kind, params, cells, local entries)
     nb_local = local and not cross
-    for a in range(1 + d):
+    for a in range(0 if tiles else 1 + d):
         cuts = (_dense_cuts(d, a, local) if not nb_local or a == 0
                 else [a, a + 1])
         for lo, hi in zip(cuts[:-1], cuts[1:]):
@@ -1127,7 +1221,8 @@ def _wide_plan(d: int, sizes: tuple[int, ...], cross: bool = True,
         return _plan_of(pieces, d, cross, scorer, cap, local_plan=True,
                         tasks=_pack_local(pieces, d, cap, QDA_LOCAL_TILE,
                                           lambda nx, nc: nx <= QDA_LOCAL_X))
-    return _plan_of(pieces, d, cross, scorer, cap)
+    return _plan_of(pieces, d, cross, scorer, cap,
+                    dense=dense_tiles(d, 0, 1 + d) if tiles else None)
 
 
 def _cross_pieces(sizes: tuple[int, ...], base: list[int], j: int, k: int,
@@ -1304,7 +1399,8 @@ def _pack_local(pieces: list, d: int, cap: int, width: int = KB_COLS,
 def _plan_of(pieces: list, d: int, cross: bool, scorer: bool, cap: int,
              window: tuple[int, int] | None = None,
              tasks: list[list[int]] | None = None,
-             local_plan: bool = False) -> WidePlan:
+             local_plan: bool = False,
+             dense: torch.Tensor | None = None) -> WidePlan:
     """The plan of `pieces` (kind, params, cells, local entries: i32[3,
     m] of (cell, i, j), or a `_Grid`): the slabs packed into tasks (or the given `tasks`, lists
     of the pieces' indices), each task's slabs to its warps, the map
@@ -1312,7 +1408,17 @@ def _plan_of(pieces: list, d: int, cross: bool, scorer: bool, cap: int,
     the tasks' slab counts, where its stages take 64 rows or more; else
     the one of `_pack_local` where its stages take more rows (a schema of
     hundreds of numeric or code columns); ValueError where no stage of
-    WIDE_CHUNK rows fits."""
+    WIDE_CHUNK rows fits. dense: D's tiles, where the tile kernel takes D
+    (`dense_tiles`); with no pieces, a plan of no task and those tiles."""
+    if not pieces:
+        def none(*shape, dtype=torch.int32):
+            return torch.zeros(shape, dtype=dtype)
+        return WidePlan(
+            slabs=none(0, WIDE_SLAB_INTS), warp_begin=none(1),
+            task_base=none(1, dtype=torch.int64), entries=none(0, 4),
+            stage_cols=none(0, 2), slots=none(0, 4), max_stage_cols=1,
+            max_slabs=0, stage_rows=WIDE_CHUNK, cross=cross, scorer=scorer,
+            task_cells=cap, window=window, local=local_plan, dense=dense)
     if tasks is None:
         tasks = _pack_tasks([p[2] for p in pieces], cap)
         if not scorer and _layout_rows(pieces, tasks, d, cap) < 64:
@@ -1383,7 +1489,7 @@ def _plan_of(pieces: list, d: int, cross: bool, scorer: bool, cap: int,
         slots=torch.tensor(slots, dtype=torch.int32).reshape(-1, 4),
         max_stage_cols=max_cols, max_slabs=max_slabs, stage_rows=rows,
         cross=cross, scorer=scorer, task_cells=cap, window=window,
-        local=local_plan)
+        local=local_plan, dense=dense)
 
 
 def _window_tables(d: int, sizes: tuple[int, ...], lo: int, hi: int,
@@ -1583,7 +1689,7 @@ def _key_ranges(a: int, b: int, row_cells: int, cap: int
 
 
 def _window_pieces(d: int, sizes: tuple[int, ...], lo: int, hi: int,
-                   cap: int) -> list:
+                   cap: int, with_dense: bool = True) -> list:
     """The slabs of S[:, lo:hi] (`_window_tables`), each table cut by key
     range into slabs of at most `cap` cells: the unkeyed cut, whose tasks
     each walk all n rows, so a table of V_j·V_k cells costs ~V_j·V_k / cap
@@ -1591,7 +1697,8 @@ def _window_pieces(d: int, sizes: tuple[int, ...], lo: int, hi: int,
     cuts the tables of a keyed column by its key ranges instead, each task
     walking only its range's rows in that column's order: a row read once
     a layer, whatever V_j·V_k is."""
-    dense, tables = _window_tables(d, sizes, lo, hi, cap=cap)
+    dense, tables = _window_tables(d, sizes, lo, hi, with_dense=with_dense,
+                                   cap=cap)
     return dense + [_table_piece(tb, d, sizes, lo, hi, u_lo, u_hi)
                     for tb in tables
                     for u_lo, u_hi in _key_ranges(tb[3], tb[4], tb[5], cap)]
@@ -1634,9 +1741,11 @@ def check_window(schema, lo: int, width: int) -> None:
 @plan_cache
 def _window_plan(d: int, sizes: tuple[int, ...], lo: int, hi: int,
                  cap: int = WIDE_TASK_BYTES // 8) -> WidePlan:
+    tiles = dense_route(d)
     cap = _column_cap(d, sizes, cap)
-    return _plan_of(_window_pieces(d, sizes, lo, hi, cap), d, True, False,
-                    cap, (lo, hi))
+    return _plan_of(_window_pieces(d, sizes, lo, hi, cap, not tiles), d,
+                    True, False, cap, (lo, hi),
+                    dense=dense_tiles(d, lo, hi) if tiles else None)
 
 
 def window_plan(schema, lo: int, hi: int) -> WidePlan:
@@ -1645,9 +1754,11 @@ def window_plan(schema, lo: int, hi: int) -> WidePlan:
     schema and window. Its map lists each structurally nonzero place of
     the window once, (task, cell, i, j) with lo ≤ j < hi. The kernels run
     `keyed_window_plan`, which takes from it the tables of its keyed
-    columns."""
+    columns. Past the crossover (`dense_route`) it holds no D slab and
+    D's tiles of the window (`dense_tiles`) are its `dense`."""
     check_window(schema, lo, hi - lo)
-    return _window_plan(schema.num_cols, tuple(schema.cat_sizes), lo, hi)
+    d = schema.num_cols
+    return _window_plan(d, tuple(schema.cat_sizes), lo, hi)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1750,15 +1861,18 @@ def _keyed_window_plan(d: int, sizes: tuple[int, ...], lo: int, hi: int,
                        cap: int = WIDE_TASK_BYTES // 8,
                        past: int = MAX_WIDE_SIGMA_SIZE
                        ) -> tuple[WidePlan | None, KeyedPlan | None]:
+    tiles = dense_route(d)
     columns = keyed_columns(d, sizes, cap, past)
     cap = _column_cap(d, sizes, cap)
-    dense, tables = _window_tables(d, sizes, lo, hi, columns, cap=cap)
+    dense, tables = _window_tables(d, sizes, lo, hi, columns, not tiles,
+                                   cap)
     keyed = sorted({tb[1] for tb in tables} & set(columns))
     rest = dense + [_table_piece(tb, d, sizes, lo, hi, u_lo, u_hi)
                     for tb in tables if tb[1] not in keyed
                     for u_lo, u_hi in _key_ranges(tb[3], tb[4], tb[5], cap)]
-    residual = (_plan_of(rest, d, True, False, cap, (lo, hi)) if rest
-                else None)
+    dt = dense_tiles(d, lo, hi) if tiles else None
+    residual = (_plan_of(rest, d, True, False, cap, (lo, hi), dense=dt)
+                if rest or dt is not None else None)
     if not keyed:
         return residual, None
     pieces, tasks, task_keys, layer_of, layer_keys = [], [], [], [], []
@@ -1811,12 +1925,15 @@ def keyed_window_plan(schema, lo: int, hi: int
     their key range's rows in J's order. The residual, the window's other
     cells (D, the K_j of the other columns and the C_jk between them), is
     the unkeyed cut of `window_plan`, each task over all rows; at P ≤
-    MAX_WIDE_SIGMA_SIZE it is the whole window. Either may be None;
-    between them every structurally nonzero place of the window is mapped
+    MAX_WIDE_SIGMA_SIZE it is the whole window. Past the crossover
+    (`dense_route`) the residual holds no D slab: its `dense` is D's tiles
+    of the window, and it is a plan of no task where the window has no
+    other residual cell. Either may be None; between them (and the
+    tiles) every structurally nonzero place of the window is mapped
     once."""
     check_window(schema, lo, hi - lo)
-    return _keyed_window_plan(schema.num_cols, tuple(schema.cat_sizes), lo,
-                              hi)
+    d = schema.num_cols
+    return _keyed_window_plan(d, tuple(schema.cat_sizes), lo, hi)
 
 
 def item_chunks(n: int) -> int:
@@ -1903,8 +2020,11 @@ def wide_smem_bytes(cells: int, cols: int, slabs: int, rows: int,
 
 def wide_plan(schema) -> WidePlan:
     """The plan of K7 and K8 (and K2w's Gram) for `schema`, on the CPU;
-    made once per schema."""
-    return _wide_plan(schema.num_cols, tuple(schema.cat_sizes))
+    made once per schema. Past the crossover (`dense_route`) it holds no
+    D slab, its `dense` all of D's tiles; with no categorical column it
+    then has no task."""
+    d = schema.num_cols
+    return _wide_plan(d, tuple(schema.cat_sizes))
 
 
 def qda_plan(schema, cross: bool = True) -> WidePlan:

@@ -39,7 +39,10 @@ memory, `_build.impute_plan`, whose first-max merge across tiles
 columns) up to P = 1,024, and past it, up to K7's window limit, the same
 impute kernel with W read from device memory (`_build.impute_global_plan`)
 and then K7 once a column window of `_build.WINDOW_WIDTH`, as
-`masked_gram_cols` builds S there. It takes `fused_impute_aggregate_plain`
+`masked_gram_cols` builds S there. Past the crossover in d
+(`_build.dense_route`) D of the updated columns is the D kernel's
+(`sigma_pallas.launch_dense`, after the impute kernel), and K7 runs only
+where its plans have a task. It takes `fused_impute_aggregate_plain`
 only for CPU tensors.
 """
 from __future__ import annotations
@@ -51,8 +54,9 @@ import torch
 from ...schema import FeatureSchema
 from ..sum import class_argmax, class_score
 from . import _build
-from .sigma_pallas import (_gram_windows, masked_gram_cols_plain,
-                           masked_gram_split_plain, wide_plan_args)
+from .sigma_pallas import (_gram_windows, launch_dense,
+                           masked_gram_cols_plain, masked_gram_split_plain,
+                           wide_plan_args)
 
 _MASK32 = 0xFFFFFFFF
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
@@ -281,7 +285,7 @@ def fused_impute_aggregate(x_cols, code_cols, null_imp, w_agg, w_full,
             r, kind, imp_col, noise, row_offset, std, n, schema, device,
             stream)
     if p > _build.MAX_SIGMA_SIZE:   # K2w: K7's plan, then scratch
-        plan, partial = wide_plan_args(schema, n, device)
+        plan, partial, _ = wide_plan_args(schema, n, device)
         imp_plan = _build.int_array(_build.impute_plan(schema, r))
         rows = torch.empty(n if kind == "cat" else 0, dtype=torch.int32,
                            device=device)
@@ -302,6 +306,9 @@ def fused_impute_aggregate(x_cols, code_cols, null_imp, w_agg, w_full,
                 stream)
         _build.raise_on_error(lib, rc, "fused_impute_aggregate")
         fused_impute_aggregate.wide_launches += 1
+        if _build.dense_route(schema.num_cols):   # D of the updated columns
+            launch_dense(lib, gram_cols[0], w_agg, n, device, schema, 0, p,
+                         sigma, p, far=far_out)
         return new, sigma
     if _build.tc_fits(schema.num_cols, p):     # K2 on the tensor cores
         nblocks = _build.tc_grid(n)

@@ -38,10 +38,20 @@ rest of the window as the residual plan over all rows;
 `masked_gram_window_keyed_plain` is that arithmetic in plain torch
 (`keyed_tables_plain`, `keyed_items`).
 
-`wide_tables_plain` computes K7's tables in plain torch, and
-`wide_assemble` scatters tables into S through the plan's map, as the
-kernel's reduction does: the CPU tests hold the plan against the plain
-Gram and the JAX kernels with them.
+Past the crossover in d (`_build.dense_route`: 16 numeric columns and
+up) D, the dense (1+d)×(1+d) block of [1 ‖ x] in S, leaves K7's plans:
+the D kernel (`csrc/dense_gram.cu`, `dense_gram`; `launch_dense` from
+every entry point above, counted in `dense_gram.launches`) computes it on
+the tensor cores in 64 × 64 tiles of its upper triangle from K1's bf16
+split, once a Gram (over all of S where `masked_gram` assembles it from
+windows, over the window's tiles in `masked_gram_window`); K7 then
+launches only where a plan has a task. `dense_gram_plain` and
+`dense_tables_plain` are its plain versions.
+
+`wide_tables_plain` computes K7's tables in plain torch (a plan's D
+tiles after its slabs), and `wide_assemble` scatters tables into S
+through the plan's map, as the kernels' reductions do: the CPU tests hold
+the plan against the plain Gram and the JAX kernels with them.
 """
 from __future__ import annotations
 
@@ -244,12 +254,143 @@ def masked_gram_split_plain(x_cols, code_cols, weights, *,
     return upper + upper.triu(1).T       # S[b, a] = S[a, b], as the kernel
 
 
+def dense_tables_plain(x_cols, weights, tiles: torch.Tensor, d: int
+                       ) -> torch.Tensor:
+    """Plain torch version of the D kernel's arithmetic (csrc/dense_gram.cu)
+    over the tiles (`_build.dense_tiles`): each tile's 64 × 64 cells (a, b)
+    f64[T·DENSE_CELLS], tile after tile, a-major, each the f64 sum of the
+    f32 products w·z_a (then times z_b, exact in f64), z = [1 ‖ x] padded
+    with zero columns to whole tiles. x_cols d × f32[n], weights f32[n] or
+    None."""
+    x_cols = list(x_cols)
+    first = (x_cols + [weights])[0]
+    n, device = first.shape[-1], first.device
+    w = (torch.ones(n, device=device) if weights is None
+         else weights.to(torch.float32))
+    tb = _build.DENSE_TILE
+    nb = int(tiles.max()) + 1
+    z = torch.zeros((nb * tb, n), dtype=torch.float32, device=device)
+    z[0] = 1.0
+    if x_cols:
+        z[1:1 + d] = torch.stack([x.to(torch.float32) for x in x_cols])
+    full = (z * w).double() @ z.double().T     # f32 w·z_a, exact in f64
+    return torch.cat([full[i * tb:(i + 1) * tb, j * tb:(j + 1) * tb]
+                      .reshape(-1) for i, j in tiles.tolist()])
+
+
+def dense_gram_plain(x_cols, weights, *, schema: FeatureSchema, lo: int = 0,
+                     width: int | None = None, offsets=None) -> torch.Tensor:
+    """Plain torch version of `dense_gram`: D's places of the window
+    S[:, lo:lo + width] from the tiles' cells (`dense_tables_plain`), each
+    rounded to f32 once and written where the kernel's reduction writes
+    it, zeros elsewhere; f32[P, width], or with `offsets` (group-sorted
+    rows, i64[G + 1]) f32[G, P, width], one group's rows each."""
+    p, d = schema.sigma_size, schema.num_cols
+    width = p - lo if width is None else width
+    x_cols = list(x_cols)
+    first = (x_cols + [weights])[0]
+    n, device = first.shape[-1], first.device
+    bounds = [0, n] if offsets is None else offsets.tolist()
+    out = torch.zeros((len(bounds) - 1, p, width), dtype=torch.float32,
+                      device=device)
+    tiles = _build.dense_tiles(d, lo, lo + width)
+    if tiles is not None:
+        cell, i, j = (torch.from_numpy(v).long().to(device) for v in
+                      _build.dense_map(tiles, d, (lo, lo + width)))
+        for g, (a, b) in enumerate(zip(bounds[:-1], bounds[1:])):
+            cells = dense_tables_plain(
+                [x[a:b] for x in x_cols],
+                None if weights is None else weights[a:b], tiles, d)
+            out[g, i, j - lo] = cells[cell].float()
+    return out[0] if offsets is None else out
+
+
+def dense_gram(x_cols, weights, *, schema: FeatureSchema, lo: int = 0,
+               width: int | None = None, offsets=None) -> torch.Tensor:
+    """D on the tensor cores (csrc/dense_gram.cu): the places of D, the
+    dense (1+d)×(1+d) block of [1 ‖ x] of the masked Gram, in the window
+    S[:, lo:lo + width] (all of S by default), zeros elsewhere; f32[P,
+    width], or with `offsets` (K8's group offsets of group-sorted rows,
+    i64[G + 1]) one such window a group, f32[G, P, width]. What K7, K8 and
+    K2w run for D past the crossover (`_build.dense_route`), here alone at
+    any d. CUDA tensors launch the kernel (one launch, counted in
+    `dense_gram.launches`, by every entry point that runs it); CPU tensors
+    take `dense_gram_plain`."""
+    x_cols = list(x_cols)
+    if len(x_cols) != schema.num_cols or not x_cols:
+        raise ValueError("dense_gram takes the schema's d ≥ 1 numeric "
+                         "columns")
+    p = schema.sigma_size
+    width = p - lo if width is None else width
+    tensors = x_cols + ([] if weights is None else [weights]) + (
+        [] if offsets is None else [offsets])
+    if _build.on_cpu(tensors):
+        return dense_gram_plain(x_cols, weights, schema=schema, lo=lo,
+                                width=width, offsets=offsets)
+    n = x_cols[0].shape[-1]
+    _build.check_schema(schema, n, _build.MAX_WINDOW_SIGMA_SIZE)
+    _build.check_window(schema, lo, width)
+    groups = 1 if offsets is None else offsets.shape[0] - 1
+    device = _build.check_cuda(
+        tensors,
+        [(t, torch.float32, (n,), f"x_cols[{j}]")
+         for j, t in enumerate(x_cols)]
+        + ([] if weights is None
+           else [(weights, torch.float32, (n,), "weights")])
+        + ([] if offsets is None
+           else [(offsets, torch.int64, (groups + 1,), "offsets")]))
+    _build.check_groups(groups)
+    out = torch.zeros((groups, p, width), dtype=torch.float32, device=device)
+    if n:
+        if weights is None:
+            weights = torch.ones(n, dtype=torch.float32, device=device)
+        launch_dense(_build.load(), x_cols, weights, n, device, schema, lo,
+                     width, out, width, p * width, offsets)
+    return out[0] if offsets is None else out
+
+
+dense_gram.launches = 0
+
+
+def launch_dense(lib, x_cols, weights, n, device, schema, lo, width, out,
+                 ld, gstride=0, offsets=None, far=None) -> None:
+    """One launch of the D kernel and its reduction over the window [lo,
+    lo + width): D's places (i, j) of group g written to out[g·gstride +
+    i·ld + j − lo], out's other places untouched; K7, K8 and K2w run it
+    past the crossover. offsets: group-sorted rows' i64[G + 1] (K8), else
+    one group of all n rows; far: the columns' table (`_build.column_args`)
+    if already made. Adds one to `dense_gram.launches`; launches nothing
+    where the window holds no place of D."""
+    d = schema.num_cols
+    tiles = _device_tiles(d, lo, lo + width, _indexed(device))
+    if tiles is None:
+        return
+    groups = 1 if offsets is None else offsets.shape[0] - 1
+    slices = _build.dense_slices(n, d, groups)
+    partial = torch.empty(groups * tiles.shape[0] * slices
+                          * _build.DENSE_CELLS, dtype=torch.float64,
+                          device=device)
+    if far is None:
+        far = _build.far_table(x_cols, [], (), device)
+    with torch.cuda.device(device):
+        rc = lib.lib.dit_dense_gram(
+            _build.pointers(x_cols), d, far, weights.data_ptr(),
+            None if offsets is None else offsets.data_ptr(), groups, n,
+            schema.sigma_size, tiles.data_ptr(), tiles.shape[0], slices, lo,
+            width, ld, gstride, partial.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream(device).cuda_stream)
+    _build.raise_on_error(lib, rc, "dense_gram")
+    dense_gram.launches += 1
+
+
 def _launch(x_cols, code_cols, weights, n: int, device, schema,
             wrapper) -> torch.Tensor:
     """One launch of K1, or of K7 when P > 88, over per-column [n] tensors
     on `device`, checked first; shared by both entry points. Adds one to
     `wrapper.launches` (K1) or `wrapper.wide_launches` (K7) once the
-    launch succeeded. No rows: no launch, a zero sigma."""
+    launch succeeded; past the crossover (`_build.dense_route`) D is the
+    D kernel's (`launch_dense`), and K7 launches only where its plan has a
+    task. No rows: no launch, a zero sigma."""
     what = wrapper.__name__
     p = schema.sigma_size
     _build.check_schema(schema, n, _build.MAX_WINDOW_SIGMA_SIZE)
@@ -272,9 +413,9 @@ def _launch(x_cols, code_cols, weights, n: int, device, schema,
         return _gram_windows(x_cols, code_cols, weights, n, device, schema,
                              lib, wrapper, "wide_launches")
     if p > _build.MAX_SIGMA_SIZE:
-        out = _launch_wide(x_cols, code_cols, weights, n, device, schema,
-                           lib, what)
-        wrapper.wide_launches += 1
+        out, launched = _launch_wide(x_cols, code_cols, weights, n, device,
+                                     schema, lib, what)
+        wrapper.wide_launches += launched
         return out
     out = torch.empty((p, p), dtype=torch.float32, device=device)
     sizes = schema.cat_sizes
@@ -348,8 +489,10 @@ def device_plan(plan: _build.WidePlan, device,
         layer_keys=keyed.layer_keys if keyed is not None else ())
 
 
-def _plan_device(plan: DevicePlan | None):
-    """The device a kept plan lies on (None for no plan)."""
+def _plan_device(plan: DevicePlan | torch.Tensor | None):
+    """The device a kept plan or tile list lies on (None for none)."""
+    if isinstance(plan, torch.Tensor):
+        return plan.device
     return plan.tensors[0].device if plan is not None else None
 
 
@@ -366,7 +509,10 @@ def _plan_room(device, held: int) -> int:
     return int(DEVICE_PLAN_SHARE * (free + spare + held))
 
 
-@_build.BytesCache(_plan_room, part=_plan_device)
+_device_cache = _build.BytesCache(_plan_room, part=_plan_device)
+
+
+@_device_cache
 def _device_plan(d: int, sizes: tuple[int, ...], device, window=None,
                  keyed: bool = False) -> DevicePlan | None:
     """A plan on `device`: the whole plan's, or a window's residual plan's
@@ -378,6 +524,14 @@ def _device_plan(d: int, sizes: tuple[int, ...], device, window=None,
     if keyed:
         return kp and device_plan(kp.plan, device, kp)
     return residual and device_plan(residual, device)
+
+
+@_device_cache
+def _device_tiles(d: int, lo: int, hi: int, device) -> torch.Tensor | None:
+    """The D tiles of the window [lo, hi) (`_build.dense_tiles`) on
+    `device`, kept beside the plans; None where it holds no place of D."""
+    tiles = _build.dense_tiles(d, lo, hi)
+    return tiles if tiles is None else tiles.to(device)
 
 
 def _indexed(device) -> torch.device:
@@ -406,8 +560,10 @@ def window_plans(schema, lo: int, hi: int, device
 def wide_plan_args(schema, n: int, device, groups: int = 1):
     """K7's plan as the C arguments of its entry points (the plan's device
     tensors, made once per schema and device; its shape and the row slices
-    as a host array) and the f64 scratch of the (task, slice + group)
-    partials; shared with K2w, and with K8 (`groups` > 1)."""
+    as a host array), the f64 scratch of the (task, slice + group)
+    partials and the plan's task count (0 where D is all of it and on the
+    tensor cores: `_build.dense_route`); shared with K2w, and with K8
+    (`groups` > 1)."""
     plan = _device_plan(schema.num_cols, tuple(schema.cat_sizes),
                         _indexed(device))
     slices = plan.slices(n)
@@ -415,22 +571,28 @@ def wide_plan_args(schema, n: int, device, groups: int = 1):
                           dtype=torch.float64, device=device)
     args = (*(t.data_ptr() for t in plan.tensors),
             _build.int_array(plan.shape_ints(slices)))
-    return args, partial
+    return args, partial, plan.num_tasks
 
 
 def _launch_wide(x_cols, code_cols, weights, n, device, schema, lib, what):
+    """S f32[P, P] by K7's one launch over its plan, where it has a task,
+    and past the crossover the D kernel; (S, K7 launches)."""
     p = schema.sigma_size
-    plan, partial = wide_plan_args(schema, n, device)
+    plan, partial, tasks = wide_plan_args(schema, n, device)
     out = torch.zeros((p, p), dtype=torch.float32, device=device)
     sizes = schema.cat_sizes
-    with torch.cuda.device(device):
-        rc = lib.lib.dit_wide_gram(
-            *_build.column_args(x_cols, code_cols, sizes, device),
-            weights.data_ptr(), n, p,
-            *plan, partial.data_ptr(), out.data_ptr(),
-            torch.cuda.current_stream(device).cuda_stream)
-    _build.raise_on_error(lib, rc, what)
-    return out
+    cols = _build.column_args(x_cols, code_cols, sizes, device)
+    if tasks:
+        with torch.cuda.device(device):
+            rc = lib.lib.dit_wide_gram(
+                *cols, weights.data_ptr(), n, p,
+                *plan, partial.data_ptr(), out.data_ptr(),
+                torch.cuda.current_stream(device).cuda_stream)
+        _build.raise_on_error(lib, rc, what)
+    if _build.dense_route(schema.num_cols):
+        launch_dense(lib, x_cols, weights, n, device, schema, 0, p, out, p,
+                     far=cols[-1])
+    return out, int(tasks > 0)
 
 
 def window_columns(schema, lows, width: int) -> tuple[int, ...]:
@@ -449,35 +611,50 @@ def window_columns(schema, lows, width: int) -> tuple[int, ...]:
 def _gram_windows(x_cols, code_cols, weights, n, device, schema, lib,
                   wrapper, counter: str) -> torch.Tensor:
     """S f32[P, P] by one K7 launch a column window of WINDOW_WIDTH,
-    adding one to `wrapper.<counter>` a launch, after one order pass
-    (`window_order`) of the windows' keyed columns; shared by
-    masked_gram(_cols) and K2w past MAX_WIDE_SIGMA_SIZE."""
+    adding one to `wrapper.<counter>` a window where K7 launched, after
+    one order pass (`window_order`) of the windows' keyed columns; past
+    the crossover D by one launch of the D kernel over all of S first
+    (each of its tiles once, where the windows would compute a tile that
+    crosses two of them twice); shared by masked_gram(_cols) and K2w past
+    MAX_WIDE_SIGMA_SIZE."""
     p = schema.sigma_size
     lows = range(0, p, _build.WINDOW_WIDTH)
     order = window_order(x_cols, code_cols, weights, schema=schema,
                          columns=window_columns(schema, lows,
                                                 _build.WINDOW_WIDTH))
     out = torch.zeros((p, p), dtype=torch.float32, device=device)
+    if _build.dense_route(schema.num_cols):
+        launch_dense(lib, x_cols, weights, n, device, schema, 0, p, out, p,
+                     far=_build.column_args(x_cols, code_cols,
+                                            schema.cat_sizes, device)[-1])
     for lo in lows:
-        _launch_window(x_cols, code_cols, weights, n, device, schema, lo,
-                       min(_build.WINDOW_WIDTH, p - lo), out[:, lo:], lib,
-                       wrapper.__name__, order)
-        setattr(wrapper, counter, getattr(wrapper, counter) + 1)
+        if _launch_window(x_cols, code_cols, weights, n, device, schema, lo,
+                          min(_build.WINDOW_WIDTH, p - lo), out[:, lo:], lib,
+                          wrapper.__name__, order, dense=False):
+            setattr(wrapper, counter, getattr(wrapper, counter) + 1)
     return out
 
 
 def _launch_window(x_cols, code_cols, weights, n, device, schema, lo,
-                   width, out, lib, what, order, plans=None) -> None:
+                   width, out, lib, what, order, plans=None,
+                   dense: bool = True) -> bool:
     """K7 over the window [lo, lo + width) (`_build.keyed_window_plan`):
     its residual plan over all rows and its keyed tasks over `order`'s
     copies, writing S[:, lo:lo + width] into out f32[P, ld] (zeroed; its
-    column 0 is the window's first). plans: (residual, keyed) on the
-    device in place of the window's own (`window_plans`)."""
+    column 0 is the window's first), and with `dense`, past the crossover,
+    D's tiles of the window (`launch_dense`). plans: (residual, keyed) on
+    the device in place of the window's own (`window_plans`). Returns
+    whether K7 launched (a task in either plan)."""
     residual, keyed = plans or window_plans(schema, lo, lo + width, device)
     sizes = schema.cat_sizes
     stream = torch.cuda.current_stream(device).cuda_stream
     cols = _build.column_args(x_cols, code_cols, sizes, device)
-    if residual is not None:
+    if dense and _build.dense_route(schema.num_cols):
+        launch_dense(lib, x_cols, weights, n, device, schema, lo, width, out,
+                     out.stride(0), far=cols[-1])
+    launched = keyed is not None
+    if residual is not None and residual.num_tasks:
+        launched = True
         slices = residual.slices(n)
         partial = torch.empty(residual.cells * slices,
                               dtype=torch.float64, device=device)
@@ -492,6 +669,7 @@ def _launch_window(x_cols, code_cols, weights, n, device, schema, lo,
     if keyed is not None:
         launch_keyed(keyed, order, n, device, schema, lo, width, out,
                      out.stride(0), 0, lib, what, cols[-1])
+    return launched
 
 
 def launch_keyed(keyed, order, n, device, schema, lo, width, out, ld,
@@ -752,7 +930,10 @@ def masked_gram_window(x_cols, code_cols, weights, *, schema: FeatureSchema,
     in `masked_gram_window.launches`, after an order pass where the window
     keys a column; a window of more than `_build.MAX_WINDOW_PLACES`
     places, as the whole S of criteo_c18, one launch a window of
-    `_build.window_cuts`); CPU tensors take `masked_gram_window_plain`."""
+    `_build.window_cuts`) and past the crossover the D kernel over the
+    window's D tiles (`launch_dense`, counted in `dense_gram.launches`; K7
+    then launches only where the window's plans have a task); CPU tensors
+    take `masked_gram_window_plain`."""
     x_cols, code_cols = list(x_cols), list(code_cols)
     if len(x_cols) != schema.num_cols or len(code_cols) != schema.cat_cols:
         raise ValueError("column counts do not match the schema")
@@ -786,10 +967,9 @@ def masked_gram_window(x_cols, code_cols, weights, *, schema: FeatureSchema,
                                          _build.window_keyed_columns(
                                              d, sizes, a, b)}))
     for a, b in cuts:
-        _launch_window(x_cols, code_cols, weights, n, device, schema, a,
-                       b - a, out[:, a - lo:], _build.load(),
-                       "masked_gram_window", order)
-        masked_gram_window.launches += 1
+        masked_gram_window.launches += _launch_window(
+            x_cols, code_cols, weights, n, device, schema, a, b - a,
+            out[:, a - lo:], _build.load(), "masked_gram_window", order)
     return out
 
 
@@ -802,8 +982,10 @@ def wide_tables_plain(x_cols, code_cols, weights, *, schema: FeatureSchema,
     (`_build.wide_plan(schema)`, or `plan`, e.g. a window's), task after
     task, f64[task_base[T]], each a sum in f64 of f32 products as the
     kernel forms them (w·x for K_j, (w·z_a)·z_b for D; bincount for
-    C_jk). x_cols d × f32[n], code_cols c × i32[n] (a code outside [0,
-    size) adds nothing), weights f32[n] or None."""
+    C_jk); where the plan's D is the D kernel's (`plan.dense`), its tiles'
+    cells follow (`dense_tables_plain`), f64[task_base[T] + tiles ·
+    DENSE_CELLS]. x_cols d × f32[n], code_cols c × i32[n] (a code outside
+    [0, size) adds nothing), weights f32[n] or None."""
     plan = _build.wide_plan(schema) if plan is None else plan
     x_cols, code_cols = list(x_cols), list(code_cols)
     n = (x_cols + code_cols + [weights])[0].shape[-1]
@@ -818,6 +1000,9 @@ def wide_tables_plain(x_cols, code_cols, weights, *, schema: FeatureSchema,
         cells = _slab_plain(slab, xw, x_cols, code_cols, w, schema,
                             rows=slot[2:])
         out[at:at + cells.shape[0]] = cells
+    if plan.dense is not None:      # D's tiles, after the slabs' cells
+        out = torch.cat([out, dense_tables_plain(x_cols, w, plan.dense,
+                                                 schema.num_cols)])
     return out
 
 
@@ -968,7 +1153,8 @@ def wide_assemble(cells: torch.Tensor, *, schema: FeatureSchema,
     """S f32[..., P, P] from the plan's cells f64[..., task_base[T]]
     (`wide_tables_plain`, or one per group): each cell rounded to f32 once
     and written to S[i, j] and S[j, i] through the plan's map, as the
-    kernels' reduction does; the zero structure stays zero. A window's
+    kernels' reduction does; the zero structure stays zero; a plan's D
+    tiles (`plan.dense`) from the cells after its slabs'. A window's
     `plan` gives S[:, lo:hi] f32[..., P, hi − lo], one place an entry."""
     plan = _build.wide_plan(schema) if plan is None else plan
     p = schema.sigma_size
@@ -982,6 +1168,14 @@ def wide_assemble(cells: torch.Tensor, *, schema: FeatureSchema,
         out[..., e[:, 2] * (hi - lo) + e[:, 3] - lo] = vals
         if plan.window is None:
             out[..., e[:, 3] * p + e[:, 2]] = vals
+    if plan.dense is not None:      # D's tiles (`_build.dense_map`)
+        cell, i, j = (torch.from_numpy(v).long().to(cells.device) for v in
+                      _build.dense_map(plan.dense, schema.num_cols,
+                                       plan.window))
+        vals = cells[..., int(plan.task_base[-1]) + cell].float()
+        out[..., i * (hi - lo) + j - lo] = vals
+        if plan.window is None:
+            out[..., j * p + i] = vals
     return out.reshape(cells.shape[:-1] + (p, hi - lo))
 
 

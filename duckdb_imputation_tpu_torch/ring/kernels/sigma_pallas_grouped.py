@@ -30,7 +30,10 @@ Counterpart of `duckdb_imputation_tpu/ring/kernels/sigma_pallas_grouped.py`:
   rows, the keyed tasks over the rows ordered once a call by (group,
   code) of each keyed column, `window_order`), each writing its columns
   of every group's S, up to K7's window limit; `grouped_gram` there sorts
-  the rows and hands them to it.
+  the rows and hands them to it. Past the crossover in d
+  (`_build.dense_route`) D is the D kernel's (`sigma_pallas.launch_dense`
+  over the group offsets, once a call), and K8 launches only where its
+  plans have a task.
   `grouped_wide_tables_plain` is the plain version of its tables, one
   set per group (`sigma_pallas.wide_assemble` makes them sigmas).
 
@@ -49,7 +52,7 @@ from ...schema import FeatureSchema
 from ..sum import grouped_sigma, masked_sigma
 from ..triple import Triple, triple_from_sigma
 from . import _build
-from .sigma_pallas import (fold_parts, launch_keyed,
+from .sigma_pallas import (fold_parts, launch_dense, launch_keyed,
                            masked_gram_window_plain, split_operands,
                            wide_plan_args, wide_tables_plain, window_columns,
                            window_order, window_plans)
@@ -364,21 +367,28 @@ def grouped_gram_presorted(x_sorted, codes_sorted, w_sorted,
         return _presorted_windows(x_sorted, codes_sorted, w_sorted, off,
                                   num_groups, n, schema, device, lib)
     if p > _build.MAX_SIGMA_SIZE:
-        # K8: K7's plan and slices over group-aligned chunks
-        plan, partial = wide_plan_args(schema, n, device, groups=num_groups)
-        cum = _build.group_chunks(off, _build.WIDE_CHUNK)
+        # K8: K7's plan and slices over group-aligned chunks (where it has
+        # a task), and past the crossover the D kernel over each group's
+        # rows
+        plan, partial, tasks = wide_plan_args(schema, n, device,
+                                              groups=num_groups)
         out = torch.zeros((num_groups, p, p), dtype=torch.float32,
                           device=device)
-        with torch.cuda.device(device):
-            rc = lib.lib.dit_grouped_wide_gram(
-                *_build.column_args(list(x_sorted), list(codes_sorted),
-                                    sizes, device),
-                w_sorted.data_ptr(), off.data_ptr(),
-                cum.data_ptr(), num_groups, n, p, *plan,
-                partial.data_ptr(), out.data_ptr(),
-                torch.cuda.current_stream(device).cuda_stream)
-        _build.raise_on_error(lib, rc, "grouped_gram_presorted")
-        grouped_gram_presorted.wide_launches += 1
+        cols = _build.column_args(list(x_sorted), list(codes_sorted), sizes,
+                                  device)
+        if tasks:
+            cum = _build.group_chunks(off, _build.WIDE_CHUNK)
+            with torch.cuda.device(device):
+                rc = lib.lib.dit_grouped_wide_gram(
+                    *cols, w_sorted.data_ptr(), off.data_ptr(),
+                    cum.data_ptr(), num_groups, n, p, *plan,
+                    partial.data_ptr(), out.data_ptr(),
+                    torch.cuda.current_stream(device).cuda_stream)
+            _build.raise_on_error(lib, rc, "grouped_gram_presorted")
+            grouped_gram_presorted.wide_launches += 1
+        if _build.dense_route(schema.num_cols):
+            launch_dense(lib, list(x_sorted), w_sorted, n, device, schema, 0,
+                         p, out, p, p * p, off, cols[-1])
         return out
     d = schema.num_cols
     nblocks, rows = _build.presorted_grid(d, p, n)
@@ -405,7 +415,10 @@ def _presorted_windows(x_sorted, codes_sorted, w_sorted, off, num_groups,
     of every group into out f32[G, P, P]: its residual plan over the
     group-sorted rows, its f64 partial sized for that plan's cells and the
     groups, and its keyed tasks over the rows ordered by (group, code) of
-    each keyed column, one order pass (`window_order`) for all windows."""
+    each keyed column, one order pass (`window_order`) for all windows;
+    counted on `.wide_launches` a window where either plan has a task.
+    Past the crossover D by one launch of the D kernel over every group's
+    S first (`launch_dense`)."""
     p, sizes = schema.sigma_size, tuple(schema.cat_sizes)
     x_cols, code_cols = list(x_sorted), list(codes_sorted)
     lows = range(0, p, _build.WINDOW_WIDTH)
@@ -417,10 +430,13 @@ def _presorted_windows(x_sorted, codes_sorted, w_sorted, off, num_groups,
     out = torch.zeros((num_groups, p, p), dtype=torch.float32, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
     cols = _build.column_args(x_cols, code_cols, sizes, device)
+    if _build.dense_route(schema.num_cols):
+        launch_dense(lib, x_cols, w_sorted, n, device, schema, 0, p, out, p,
+                     p * p, off, cols[-1])
     for lo in lows:
         width = min(_build.WINDOW_WIDTH, p - lo)
         residual, keyed = window_plans(schema, lo, lo + width, device)
-        if residual is not None:
+        if residual is not None and residual.num_tasks:
             slices = residual.slices(n)
             partial = torch.empty(
                 residual.cells * (slices + num_groups - 1),
@@ -438,7 +454,9 @@ def _presorted_windows(x_sorted, codes_sorted, w_sorted, off, num_groups,
             launch_keyed(keyed, order, n, device, schema, lo, width,
                          out[:, :, lo:], p, p * p, lib,
                          "grouped_gram_presorted", cols[-1])
-        grouped_gram_presorted.wide_launches += 1
+        if keyed is not None or (residual is not None
+                                 and residual.num_tasks):
+            grouped_gram_presorted.wide_launches += 1
     return out
 
 

@@ -3051,3 +3051,162 @@ def test_criteo_c18_window_past_46340_matches_plain(cuda):
     assert torch.equal(got[cm], want[cm])
     torch.testing.assert_close(got, want, rtol=0,
                                atol=1e-5 * float(want.abs().max()))
+
+
+# ---------------------------------------------------------------------------
+# D on the tensor cores (csrc/dense_gram.cu): the dense block of [1 ‖ x]
+# of K7, K8 and K2w past the crossover (_build.dense_route)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("d,n", [(300, 20_003), (2000, 6_001)])
+def test_dense_gram_matches_plain(cuda, d, n):
+    """The D kernel alone over columns whose first rows are not on
+    16-byte boundaries: within 1e-5 of max|σ| of its plain version (f64
+    sums of the same products), D[0, 0] = Σw exactly (binary weights), S
+    exactly symmetric, a rerun bit-identical, one launch a call; a window
+    across tiles bit-identical to S's columns; three groups over
+    group-sorted rows, each as its rows' S."""
+    from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas import (
+        dense_gram, dense_gram_plain)
+
+    schema = FeatureSchema(num_cols=d)
+    rng = np.random.default_rng(d)
+    block = torch.tensor(rng.normal(size=(d, n + 1)).astype(np.float32),
+                         device=cuda)
+    xs = list(block[:, 1:])
+    w = torch.tensor((rng.random(n) > 0.3).astype(np.float32), device=cuda)
+    before = dense_gram.launches
+    got = dense_gram(xs, w, schema=schema)
+    again = dense_gram(xs, w, schema=schema)
+    torch.cuda.synchronize()
+    assert dense_gram.launches == before + 2
+    assert torch.equal(got, again)
+    assert torch.equal(got, got.T)
+    want = dense_gram_plain(xs, w, schema=schema)
+    assert float(got[0, 0]) == float(want[0, 0]) == float(w.double().sum())
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-5 * float(want.abs().max()))
+    lo, width = 100, d - 150
+    win = dense_gram(xs, w, schema=schema, lo=lo, width=width)
+    assert torch.equal(win, got[:, lo:lo + width])
+    off = torch.tensor([0, n // 3, n // 3 + 17, n], device=cuda)
+    gg = dense_gram(xs, w, schema=schema, offsets=off)
+    gw = dense_gram_plain(xs, w, schema=schema, offsets=off)
+    for k in range(3):
+        assert torch.equal(gg[k], gg[k].T)
+        assert float(gg[k, 0, 0]) == float(gw[k, 0, 0])
+        torch.testing.assert_close(gg[k], gw[k], rtol=0,
+                                   atol=1e-5 * float(gw[k].abs().max()))
+
+
+def test_dense_gram_ignores_tf32(cuda):
+    """With TF32 turned on by the caller the D kernel's output, and K7's
+    past the crossover, are the default setting's bit for bit: its
+    products are bf16 parts on the tensor cores, never TF32."""
+    from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas import (
+        dense_gram)
+
+    schema, xs, cs, w = cols_inputs(300, (5,), 20_003, cuda, seed=3)
+    d_only = FeatureSchema(num_cols=300)
+    want = (dense_gram(xs, w, schema=d_only),
+            masked_gram_cols(xs, cs, w, schema=schema))
+    backends = (torch.backends.cuda.matmul, torch.backends.mkldnn.matmul)
+    saved = [m.fp32_precision for m in backends]
+    try:
+        torch.set_float32_matmul_precision("high")
+        backends[0].allow_tf32 = True
+        got = (dense_gram(xs, w, schema=d_only),
+               masked_gram_cols(xs, cs, w, schema=schema))
+    finally:
+        for m, value in zip(backends, saved):
+            m.fp32_precision = value
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name", ["home_credit", "secom"])
+def test_dense_route_launches(cuda, name):
+    """Past the crossover K7 launches where its plan has a task (Home
+    Credit's K_j and C_jk) and not where D is all of S (SECOM), and the D
+    kernel once a call: masked_gram_cols, K8 and K2w each against its
+    plain version."""
+    from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas import (
+        dense_gram)
+
+    schema, xs, cs, w = many_cols_inputs(name, cuda, n=20_003)
+    assert _build.dense_route(schema.num_cols)
+    tasks = _build.wide_plan(schema).num_tasks
+    assert (tasks > 0) == (name == "home_credit")
+    k7, dg = masked_gram_cols.wide_launches, dense_gram.launches
+    got = masked_gram_cols(xs, cs, w, schema=schema)
+    torch.cuda.synchronize()
+    assert masked_gram_cols.wide_launches - k7 == int(tasks > 0)
+    assert dense_gram.launches - dg == 1
+    want = masked_gram_cols_plain(xs, cs, w, schema=schema)
+    assert torch.equal(got, got.T)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-5 * float(want.abs().max()))
+    k8, dg = grouped_gram_presorted.wide_launches, dense_gram.launches
+    g = torch.randint(0, 3, (w.shape[0],), dtype=torch.int32, device=cuda)
+    sorted_ = sort_by_group(torch.stack(xs), torch.stack(cs) if cs else
+                            torch.zeros((0, w.shape[0]), dtype=torch.int32,
+                                        device=cuda), g, schema=schema,
+                            num_groups=3, weights=w)
+    got = grouped_gram_presorted(*sorted_, schema=schema)
+    torch.cuda.synchronize()
+    assert grouped_gram_presorted.wide_launches - k8 == int(tasks > 0)
+    assert dense_gram.launches - dg == 1
+    want = grouped_gram_presorted_plain(*sorted_, schema=schema)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-5 * float(want.abs().max()))
+    null = torch.rand(w.shape[0], device=cuda) < 0.2
+    p = schema.sigma_size
+    w_full = 0.05 * torch.randn(p, 1, device=cuda)
+    icpt = torch.randn(1, device=cuda)
+    k2w, dg = fused_impute_aggregate.wide_launches, dense_gram.launches
+    args = (xs, cs, null, w, w_full, icpt)
+    kw = dict(schema=schema, kind="num", imp_col=schema.num_cols - 1)
+    new, sig = fused_impute_aggregate(*args, **kw)
+    torch.cuda.synchronize()
+    assert fused_impute_aggregate.wide_launches - k2w == 1
+    assert dense_gram.launches - dg == 1
+    wnew, wsig = fused_impute_aggregate_plain(*args, **kw)
+    torch.testing.assert_close(new, wnew, rtol=0, atol=1e-5)
+    torch.testing.assert_close(sig, wsig, rtol=0,
+                               atol=1e-5 * float(wsig.abs().max()))
+
+
+def test_dense_gram_small_n_and_many_groups(cuda):
+    """The D kernel at 1, 2, 33 and 257 rows (copies past a column's ends
+    taken 4 bytes at a time) against its plain version, D[0, 0] = n
+    exactly; and over 70,000 groups of 2 rows (more groups than a grid
+    dimension holds: the grid is one dimension), three groups against
+    their rows' plain version."""
+    from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas import (
+        dense_gram, dense_gram_plain)
+
+    schema = FeatureSchema(num_cols=20)
+    rng = np.random.default_rng(7)
+    for n in (1, 2, 33, 257):
+        block = torch.tensor(rng.normal(size=(20, n + 1)).astype(np.float32),
+                             device=cuda)
+        xs = list(block[:, 1:])
+        w = torch.ones(n, device=cuda)
+        got = dense_gram(xs, w, schema=schema)
+        want = dense_gram_plain(xs, w, schema=schema)
+        assert torch.equal(got, got.T)
+        assert float(got[0, 0]) == float(n)
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=1e-5 * float(want.abs().max()))
+    groups, n = 70_000, 140_000
+    x = torch.tensor(rng.normal(size=(20, n)).astype(np.float32),
+                     device=cuda)
+    w = torch.ones(n, device=cuda)
+    off = torch.arange(0, n + 1, 2, device=cuda)
+    got = dense_gram(list(x), w, schema=schema, offsets=off)
+    for g in (0, 33_333, groups - 1):
+        want = dense_gram_plain([r[2 * g:2 * g + 2] for r in x],
+                                w[2 * g:2 * g + 2], schema=schema)
+        assert float(got[g, 0, 0]) == 2.0
+        torch.testing.assert_close(got[g], want, rtol=0,
+                                   atol=1e-5 * float(want.abs().max()))

@@ -123,15 +123,29 @@ def structural_pairs(d, sizes, cross=True):
     return torch.cat(keys), p
 
 
+def plan_places(plan, d, p):
+    """The places (i·P + j) a plan's map names, with its D tiles' where
+    the tile kernel takes D (`_build.dense_map`)."""
+    e = plan.entries.long()
+    got = [e[:, 2] * p + e[:, 3]]
+    if plan.dense is not None:
+        m = torch.from_numpy(_build.dense_map(plan.dense, d, plan.window))
+        got.append(m[1].long() * p + m[2].long())
+    return torch.cat(got)
+
+
 def assert_plan_covers_once(plan, d, sizes, cross, cap):
+    """Every structurally nonzero (i, j), i ≤ j, named once by the map and
+    the D tiles together; no task past `cap` cells, every entry inside its
+    task."""
     e = plan.entries.long()
     assert bool((e[:, 2] <= e[:, 3]).all())
     want, p = structural_pairs(d, sizes, cross)
-    got = e[:, 2] * p + e[:, 3]
+    got = plan_places(plan, d, p)
     assert got.shape == want.shape
     assert torch.equal(torch.sort(got).values, torch.sort(want).values)
     cells = plan.task_base[1:] - plan.task_base[:-1]
-    assert int(cells.max()) <= cap
+    assert int(cells.max()) <= cap if cells.numel() else not e.numel()
     # every map entry names a cell inside its task
     assert bool((e[:, 1] < cells[e[:, 0]]).all())
 

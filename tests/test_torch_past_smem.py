@@ -111,15 +111,17 @@ def kinds(*plans):
 
 def test_whole_plan_past_k7_limit_matches_jax():
     """K7's one-launch plan at 835 numeric columns beside one of 3 levels
-    (P = 839), K_j cut by column range: within shared memory, every
-    structurally nonzero place mapped once (i ≤ j, so S = Sᵀ), no task
-    past its budget, each KB slab's task staging its own columns; its
-    cells placed by its map equal JAX's sigma."""
+    (P = 839), K_j cut by column range and D on the D kernel's tiles:
+    within shared memory, every structurally nonzero place mapped once by
+    the slabs and the tiles (i ≤ j, so S = Sᵀ), no task past its budget,
+    each KB slab's task staging its own columns; its cells placed by its
+    map equal JAX's sigma."""
     (d, sizes), n = WHOLE, 400
     schema, ref_schema = schemas(d, sizes)
     plan = _build.wide_plan(schema)
     assert plan.smem_bytes <= _build.WIDE_SMEM
-    assert kinds(plan) == {_build.SLAB_D, _build.SLAB_KB}
+    # D on the tensor cores past the crossover: its tiles, no D slab
+    assert kinds(plan) == {_build.SLAB_KB} and plan.dense is not None
     assert_plan_covers_once(plan, d, sizes, True, _build.WIDE_TASK_BYTES // 8)
     assert plan.max_stage_x < d
     for sl, slot in zip(plan.slabs.tolist(), plan.slots.tolist()):

@@ -195,7 +195,8 @@ def test_wide_plan_tasks_fit_shared_memory(name):
     block may take; a task stages the code columns its slabs read (and
     every numeric column where it has a K slab); its slabs tile its
     cells, each warp's side by side; a table past the budget is split by
-    its leading key into ranges that cover it."""
+    its leading key into ranges that cover it; past the crossover D is
+    every tile of its upper triangle, and no slab's."""
     schema = (FeatureSchema(num_cols=64, cat_keys=(tuple(range(14)),) * 64)
               if name == "limit" else FeatureSchema(*PLAN_SCHEMAS[name]))
     plan = _build.wide_plan(schema)
@@ -242,7 +243,15 @@ def test_wide_plan_tasks_fit_shared_memory(name):
                        else (0, sizes[table[1]]))
         assert keys[0][0] == first and keys[-1][1] == last
         assert all(a[1] == b[0] for a, b in zip(keys, keys[1:]))
-    assert len(ranges) == (1 + d) + len(sizes) + sum(
+    # past the crossover (d = 64 at "limit") D is the D kernel's tiles of
+    # its upper triangle, and no slab's
+    dense = plan.dense is not None
+    assert dense == _build.dense_route(d)
+    if dense:
+        nb = _build.dense_blocks(d)
+        assert plan.dense.tolist() == [[i, j] for i in range(nb)
+                                       for j in range(i, nb)]
+    assert len(ranges) == (0 if dense else 1 + d) + len(sizes) + sum(
         1 for j in range(len(sizes)) for k in range(j + 1, len(sizes))
         if sizes[k])
     if name == "V510x2":     # the 260,100-cell table: even key ranges

@@ -57,7 +57,8 @@ from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas import (
 from duckdb_imputation_tpu_torch.ring.triple import sigma_from_triple
 
 from test_torch_classify_wide import _cxx_constants
-from test_torch_past_1024 import assert_plan_covers_once, structural_pairs
+from test_torch_past_1024 import (assert_plan_covers_once, plan_places,
+                                  structural_pairs)
 
 torch.set_num_threads(2)
 
@@ -101,19 +102,20 @@ def table(n, d, sizes, seed):
             w.astype(np.float32))
 
 
-def window_keys(plans, p):
-    """The places (i·P + j) the map entries of `plans` name."""
-    e = torch.cat([pl.entries.long() for pl in plans if pl is not None])
-    return e[:, 2] * p + e[:, 3]
+def window_keys(plans, p, d):
+    """The places (i·P + j) the map entries of `plans` name, and their D
+    tiles' (`plan_places`)."""
+    return torch.cat([plan_places(pl, d, p) for pl in plans
+                      if pl is not None])
 
 
 def assert_windows_cover_once(plans, d, sizes):
-    """The window plans' maps together name every structurally nonzero
-    place of S (both triangles) once."""
+    """The window plans' maps (and D tiles) together name every
+    structurally nonzero place of S (both triangles) once."""
     upper, p = structural_pairs(d, sizes)
     i, j = upper // p, upper % p
     want = torch.cat([upper, (j * p + i)[i != j]])
-    got = window_keys(plans, p)
+    got = window_keys(plans, p, d)
     assert got.shape == want.shape
     assert torch.equal(torch.sort(got).values, torch.sort(want).values)
 

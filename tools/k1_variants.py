@@ -48,8 +48,9 @@ CUH = "csrc/tc_gram.cuh"
 PY = "ring/kernels/sigma_pallas.py"
 BUILD = "ring/kernels/_build.py"
 
-K7 = ("    if p > _build.MAX_SIGMA_SIZE:\n        out = _launch_wide(",
-      "    if True:\n        out = _launch_wide(")
+K7 = ("    if p > _build.MAX_SIGMA_SIZE:\n"
+      "        out, launched = _launch_wide(",
+      "    if True:\n        out, launched = _launch_wide(")
 NO_MMA = ("        mma_bf16(acc[(k0 >> 4) & 1][ni], af, bf[ni][0], bf[ni][1]);",
           "        if (s < 0) mma_bf16(acc[(k0 >> 4) & 1][ni], af, bf[ni][0],"
           " bf[ni][1]);")

@@ -2,7 +2,7 @@
 K2/K2w (impute + Gram), K8 (a Gram per group) and K3/K3w (scores +
 argmax), at the schemas and rows of PERF.md §6's kernel table, on one GPU.
 
-    python3 tools/library_yardsticks.py [--seed S]
+    python3 tools/library_yardsticks.py [--seed S] [--many]
 
 Each yardstick is the f32 cuBLAS work (TF32 off) of the same function
 from its dense operand, as PERF.md §6 defines them:
@@ -21,6 +21,13 @@ from its dense operand, as PERF.md §6 defines them:
   favorita_classify's family (33 classes) and onpromotion (2) at 10M
   rows, favorita_items' onpromotion QDA (2 classes) on 1M rows and its
   family NB (33 classes) on 100k rows.
+
+With `--many` it times, in place of those, the yardsticks of the
+schemas of PRs 18-21 (PERF.md §6): Home Credit at 10M rows (K2/K2w the
+Gram alone, sort + K5/K8 a product a group by TARGET, K3w QDA's forms of
+2 classes), SECOM's K3w at 1M rows, and criteo_pair's and zip5's K3w on
+a 20k-row slice (their dense Zᵀ at the kernels' 1M rows would take 110
+and 135 GB).
 
 The tables are chip_smoke.py's, made on the device from `--seed`. Prints
 the card and its power limit, one line a yardstick, and last one JSON
@@ -41,6 +48,7 @@ HERE = Path(__file__).resolve().parents[1]
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--many", action="store_true")
     args = ap.parse_args()
     sys.path.insert(0, str(HERE))
     import torch
@@ -83,6 +91,11 @@ def main() -> int:
         torch.cuda.empty_cache()
         return ms
 
+    if args.many:
+        many(cs, seed, n, record, grouped_ms, scorer_ms)
+        print(json.dumps(dict(device=torch.cuda.get_device_name(0),
+                              yardsticks=out)))
+        return 0
     # K2: config 5
     t, _ = cs.make_table(n, seed + 1)
     w = (~t.num_null[1]).float()
@@ -137,6 +150,48 @@ def main() -> int:
     print(json.dumps(dict(device=torch.cuda.get_device_name(0),
                           yardsticks=out)))
     return 0
+
+
+def many(cs, seed, n, record, grouped_ms, scorer_ms) -> None:
+    """The yardsticks of PRs 18-21's schemas (`--many`)."""
+    import torch
+
+    from duckdb_imputation_tpu_torch import FeatureSchema
+
+    t, _, _, y = cs.make_home_credit(n, seed + 8)
+    w = (~t.num_null[0]).float()
+    p = t.schema.sigma_size
+    record("k2w_home_credit", cs.library_gram_ms(
+        t.num_data, t.cat_codes, w, t.schema), rows=n, p=p)
+    ys = torch.where(y >= 0, y, 0).to(torch.int32)
+    record("k8_home_credit", grouped_ms(t.num_data, t.cat_codes, ys,
+                                        t.schema, 2), rows=n, groups=2, p=p)
+    record("k3w_home_credit", scorer_ms(t.num_data, t.cat_codes, t.schema,
+                                        2), rows=n, classes=2, p=p)
+    del t, y, ys, w
+    torch.cuda.empty_cache()
+    t, _, _ = cs.make_secom(cs.N_SECOM, seed + 9)
+    record("k3w_secom", scorer_ms(t.num_data, t.cat_codes, t.schema, 2),
+           rows=cs.N_SECOM, classes=2, p=t.schema.sigma_size)
+    del t
+    torch.cuda.empty_cache()
+    k = 20_000
+    pair = cs.make_criteo(k, seed + 10, cs.CRITEO_PAIR)[0]
+    record("k3w_criteo_pair", scorer_ms(pair.num_data, pair.cat_codes,
+                                        pair.schema, 2), rows=k, classes=2,
+           p=pair.schema.sigma_size)
+    del pair
+    torch.cuda.empty_cache()
+    g = torch.Generator(device=cs.DEVICE)
+    g.manual_seed(seed + 11)
+    zip5 = FeatureSchema(num_cols=4, cat_keys=tuple(
+        tuple(range(v)) for v in cs.ZIP5_VOCABS))
+    zx = torch.randn((4, k), generator=g, device=cs.DEVICE)
+    zc = torch.stack([cs.zipf_codes(k, cs.ZIP5_VOCABS[0], g),
+                      torch.randint(0, 5, (k,), generator=g,
+                                    device=cs.DEVICE, dtype=torch.int32)])
+    record("k3w_zip5", scorer_ms(zx, zc, zip5, 2), rows=k, classes=2,
+           p=zip5.sigma_size)
 
 
 if __name__ == "__main__":

@@ -15,8 +15,9 @@ With `--roots` (default: this checkout twice) it runs each root in turn,
 one process each, in the order given (e.g. `build/parent . . build/parent`
 for a parent unpacked with `git archive`), and prints one JSON line per
 root and a last line naming, for each output, whether every root gave the
-same bits. With `--root` it computes one checkout's outputs and saves them
-to FILE (torch.save). A root is the root of a checkout whose
+same bits (and each `_d_err`, every root's, below the gate). With
+`--root` it computes one checkout's outputs and saves them to FILE
+(torch.save). A root is the root of a checkout whose
 `duckdb_imputation_tpu_torch` runs; its kernels build under its own
 `build/`. The tables are those of this checkout's `chip_smoke.py`, at
 `--rows` rows (default 2M):
@@ -47,8 +48,16 @@ to FILE (torch.save). A root is the root of a checkout whose
   numeric) at min(rows, 1M): S by K7, K2w 'num' on the first column (and
   at Home Credit 'cat' on its 58-level column: W whole in shared memory,
   each batch row's x beside it), sort + K8 by the label, K6w, and the QDA
-  and NB scorers' argmax (K3w); SECOM's stream fold (590 one-level null
-  flags beside its columns, P = 1,181): S by K7's windows.
+  (trained on the plain version's K8, the same in every checkout) and NB
+  scorers' argmax (K3w); SECOM's stream fold (590 one-level null flags
+  beside its columns, P = 1,181): S by K7's windows. These schemas pass
+  the crossover of D to the tensor cores (`_build.dense_route`), so each
+  of their S is saved as its cells outside D, [1 ‖ x]'s block (`_rest`,
+  compared bit for bit), and its D cells' largest error against the f64
+  oracle of tests/reference_oracle.py (`_exact_triple_dict`: N, lin_agg,
+  quad_agg, exact f64 sums over the rows of w ≠ 0, here one f64 product
+  on the card) relative to max|σ| (`_d_err`, held to chip_smoke.py's
+  gate of 1e-5 in every checkout in place of the bits).
 
 Each checkout's line also holds `ms`: K1 at config 5, K7 at
 favorita_wide and at Home Credit, a pass over favorita_items' and
@@ -181,6 +190,38 @@ def items_rest(cs, rows: int, t, xs, cs_, out: dict) -> None:
     del x, codes, y, tables, plan
 
 
+D_GATE = 1e-5    # chip_smoke.py's: |S − σ| ≤ 1e-5 · max|σ|
+
+
+def split_d(out: dict, name: str, sig, x_cols, w, offsets=None) -> None:
+    """S (or S_g a group over `offsets`) as out[name + "_rest"], its cells
+    outside D (zeroed), and out[name + "_d_err"]: max |D − D_f64| / max|S|
+    over the groups, D_f64 = [1 ‖ x]ᵀ·[1 ‖ x] in f64 over the rows of w ≠
+    0 (w None: every row), x taken exactly into f64 (the oracle's
+    `_exact_triple_dict` sums for binary weights)."""
+    import torch
+
+    m = 1 + len(x_cols)
+    n = x_cols[0].shape[0]
+    keep = (torch.ones(n, dtype=torch.bool, device=sig.device) if w is None
+            else w != 0)
+    bounds = [0, n] if offsets is None else offsets.tolist()
+    gs = sig if sig.dim() == 3 else sig[None]
+    err = 0.0
+    for g, (a, b) in enumerate(zip(bounds[:-1], bounds[1:])):
+        z = torch.ones((m, b - a), dtype=torch.float64, device=sig.device)
+        z[1:] = torch.stack([x[a:b] for x in x_cols]).double()
+        z = z[:, keep[a:b]]
+        oracle = z @ z.T
+        err = max(err, float((gs[g, :m, :m].double() - oracle).abs().max())
+                  / max(float(gs[g].abs().max()), 1e-30))
+        del z, oracle
+    rest = sig.clone()
+    rest[..., :m, :m] = 0.0
+    out[name + "_rest"] = rest
+    out[name + "_d_err"] = torch.tensor([err], dtype=torch.float64)
+
+
 def device_ms(fn, reps: int) -> float | None:
     """Mean device ms a call of fn spends in kernels, by torch.profiler
     over `reps` calls after one; None where the profiler saw none."""
@@ -219,7 +260,8 @@ def outputs(root: str, rows: int, times: bool = False,
     from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas import (
         masked_gram_cols)
     from duckdb_imputation_tpu_torch.ring.kernels.sigma_pallas_grouped import (
-        grouped_gram, grouped_gram_presorted, sort_by_group)
+        grouped_gram, grouped_gram_presorted, grouped_gram_presorted_plain,
+        sort_by_group)
     from duckdb_imputation_tpu_torch.ring.sum import sum_to_nb_agg_grouped
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -329,7 +371,8 @@ def outputs(root: str, rows: int, times: bool = False,
         schema = t.schema
         xs, cs_ = list(t.num_data.unbind(0)), list(t.cat_codes.unbind(0))
         w = (~t.num_null[0]).float()
-        out[f"k7_{name}"] = masked_gram_cols(xs, cs_, w, schema=schema)
+        sig = masked_gram_cols(xs, cs_, w, schema=schema)
+        split_d(out, f"k7_{name}", sig, xs, w)
         if name == "home_credit":
             timed("k7_home_credit", lambda: masked_gram_cols(
                 xs, cs_, w, schema=schema))
@@ -340,7 +383,8 @@ def outputs(root: str, rows: int, times: bool = False,
         new, sig = fused_impute_aggregate(
             xs, cs_, t.num_null[0], w, theta, theta.new_zeros(1),
             schema=schema, kind="num", imp_col=0)
-        out[f"k2w_{name}_x"], out[f"k2w_{name}_sigma"] = new, sig
+        out[f"k2w_{name}_x"] = new
+        split_d(out, f"k2w_{name}_sigma", sig, [new] + xs[1:], w)
         if schema.cat_cols:
             r = schema.cat_sizes[11]
             w_cat = torch.linspace(-1, 1, p * r, device=cs.DEVICE).reshape(
@@ -348,19 +392,25 @@ def outputs(root: str, rows: int, times: bool = False,
             new, sig = fused_impute_aggregate(
                 xs, cs_, t.cat_null[11], w, w_cat, w_cat.new_zeros(r),
                 schema=schema, kind="cat", imp_col=11)
-            out[f"k2w_{name}_codes"], out[f"k2w_{name}_cat_sigma"] = new, sig
+            out[f"k2w_{name}_codes"] = new
+            split_d(out, f"k2w_{name}_cat_sigma", sig, xs, w)
         else:
             fold = FeatureSchema(num_cols=p - 1, cat_keys=((0,),) * (p - 1))
             flags = list(t.num_null.to(torch.int32).unbind(0))
-            out[f"k7_{name}_fold"] = masked_gram_cols(xs, flags, None,
-                                                      schema=fold)
+            split_d(out, f"k7_{name}_fold", masked_gram_cols(
+                xs, flags, None, schema=fold), xs, None)
             del flags
-        sig = grouped_gram_presorted(*sort_by_group(
-            t.num_data, t.cat_codes, y, schema=schema, num_groups=2),
-            schema=schema)
-        out[f"k8_{name}"] = sig
+        sorted_ = sort_by_group(t.num_data, t.cat_codes, y, schema=schema,
+                                num_groups=2)
+        sig = grouped_gram_presorted(*sorted_, schema=schema)
+        split_d(out, f"k8_{name}", sig, list(sorted_[0]), None,
+                sorted_[3].offsets)
         out[f"k6w_{name}"] = nb_grouped_sums(t.num_data, t.cat_codes, None,
                                              y, schema=schema, num_groups=2)
+        # QDA on the plain K8 (the same in every checkout): K3w's argmax
+        # compared bit for bit over the same tables
+        sig = grouped_gram_presorted_plain(*sorted_, schema=schema)
+        del sorted_
         tables, plan = qda_tables(*qda_train_device(sig, float(many)),
                                   schema=schema)
         out[f"k3w_qda_{name}"] = qda_predict_kernel(
@@ -429,9 +479,13 @@ def main() -> int:
     for r in runs:
         r.pop("__ms__")
     same = {k: all(torch.equal(runs[0][k], r[k]) for r in runs[1:])
-            for k in runs[0]}
-    print(json.dumps({"roots": args.roots, "identical": same}), flush=True)
-    return 0 if all(same.values()) else 2
+            for k in runs[0] if not k.endswith("_d_err")}
+    gate = {k: [float(r[k]) for r in runs] for k in runs[0]
+            if k.endswith("_d_err")}
+    print(json.dumps({"roots": args.roots, "identical": same,
+                      "d_err": gate}), flush=True)
+    return 0 if all(same.values()) and all(
+        e <= D_GATE for v in gate.values() for e in v) else 2
 
 
 if __name__ == "__main__":
